@@ -1,0 +1,66 @@
+#!/usr/bin/env python3
+"""Where one warm rescoring pass of the PyTorch/CUDA port spends its time.
+
+    python3 tools/port_pass_profile.py
+
+Needs a CUDA card and nvcc. Builds the configuration and N-best of
+chip_smoke.py (the bench's 2-layer 1024/1024 LSTM LM, V = 49,152, bf16,
+6,000 hypotheses), runs one warm-up pass, times one pass without the
+profiler, then traces one pass with torch.profiler and prints the device
+time by kernel, the device's busy time and its idle share of the traced
+pass. Nothing is written to disk.
+"""
+
+import os
+import sys
+import time
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+
+
+def main():
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    import chip_smoke
+    from bayeslms_tpu_torch import build_model, init_params
+    from bayeslms_tpu_torch.rescore.scorer import BatchScorer
+
+    if not torch.cuda.is_available():
+        print("port_pass_profile: no CUDA device", file=sys.stderr)
+        return 1
+    cfg, rcfg, w2i, nbest = chip_smoke.bench_setup()
+    scorer = BatchScorer(cfg, init_params(build_model(cfg), cfg, seed=0), rcfg)
+
+    def one_pass():
+        scorer.score_nbest(nbest, w2i, stream_fn=chip_smoke.stream_of)
+        torch.cuda.synchronize()
+
+    one_pass()
+    t0 = time.perf_counter()
+    one_pass()
+    plain_s = time.perf_counter() - t0
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        one_pass()
+        traced_s = time.perf_counter() - t0
+    # device-side events only (kernels, copies): an operator's row would
+    # count its kernels' time a second time
+    rows = [(ev.self_device_time_total, ev.count, ev.key)
+            for ev in prof.key_averages()
+            if ev.device_type != DeviceType.CPU and ev.self_device_time_total > 0]
+    rows.sort(reverse=True)
+    busy_ms = sum(r[0] for r in rows) / 1e3
+    print(f"pass {plain_s * 1e3:.1f} ms untraced, {traced_s * 1e3:.1f} ms "
+          f"traced; device busy {busy_ms:.1f} ms, idle share "
+          f"{1 - busy_ms / (traced_s * 1e3):.3f} of the traced pass "
+          f"({torch.cuda.get_device_name(0)})")
+    print("device ms  calls  name")
+    for dev_us, count, key in rows[:15]:
+        print(f"{dev_us / 1e3:9.3f}  {count:5d}  {key[:90]}")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
