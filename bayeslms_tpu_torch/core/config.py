@@ -1,8 +1,9 @@
 """Configuration dataclasses, field for field those of
 ``bayeslms_tpu/core/config.py`` (the JAX package), so that one configuration
 describes a model in both packages. The port runs a subset of them so far:
-``core/registry.py`` and ``rescore/scorer.py`` raise ``NotImplementedError``
-for the rest and name the ROADMAP.md item that brings it.
+``core/registry.py``, ``rescore/scorer.py`` and ``TrainConfig.validate``
+raise ``NotImplementedError`` for the rest and name the ROADMAP.md item
+that brings it.
 
 Flag map to the reference recipes (BayesLMs ``steps/pytorchnn/train.py``):
 ``uncertainty`` -> --uncertainty, ``t_bayes_pos`` -> --T_bayes_pos,
@@ -14,6 +15,7 @@ Flag map to the reference recipes (BayesLMs ``steps/pytorchnn/train.py``):
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 
 @dataclasses.dataclass(frozen=True)
@@ -63,6 +65,56 @@ class ModelConfig:
             raise ValueError("l_bayes_pos must be in [0, 5]")
         if self.vocab_size <= 0:
             raise ValueError("vocab_size must be set (> 0)")
+        return self
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    """Training loop configuration (reference train.py:64-105, :464-512)."""
+
+    lr: float = 0.1
+    momentum: float = 0.9
+    batch_size: int = 32
+    eval_batch_size: int = 20
+    epochs: int = 32
+    seq_len: int = 100
+    clip: float = 1.0
+    seed: int = 1111
+    log_interval: int = 200
+    # plateau scheduler: halve the LR and reload the best checkpoint on an
+    # epoch that does not improve; stop after `max_plateaus` plateaus
+    lr_decay: float = 0.5
+    max_plateaus: int = 8
+    data_fraction: float = 1.0  # 1.0 = the whole training set
+    prior: bool = False
+    prior_path: Optional[str] = None
+    prior_kl: bool = False
+    save: str = "model.ckpt"
+    resume: bool = False
+    dp_shards: int = 1
+    # the JAX package's PRNG choice; kept for one configuration in both
+    # packages and ignored here, where dropout draws from a torch.Generator
+    rng_impl: str = "rbg"
+    profile_dir: Optional[str] = None
+
+    def validate(self) -> "TrainConfig":
+        if self.dp_shards > 1:
+            raise NotImplementedError(
+                "data-parallel training (dp_shards > 1) is not ported yet "
+                "(ROADMAP.md queue A item 13)")
+        if self.prior or self.prior_kl:
+            raise NotImplementedError(
+                "the prior / finetune-from-prior workflow is not ported yet "
+                "(ROADMAP.md queue A item 7)")
+        if self.resume:
+            raise NotImplementedError(
+                "full-state resume is not ported yet (ROADMAP.md queue A "
+                "item 6)")
+        if self.profile_dir:
+            raise NotImplementedError(
+                "trainer profiling (profile_dir) is not ported yet "
+                "(ROADMAP.md queue A item 6); tools/port_train_profile.py "
+                "traces a step")
         return self
 
 

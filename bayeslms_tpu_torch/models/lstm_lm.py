@@ -1,15 +1,18 @@
 """Recurrent language models, counterpart of
 ``bayeslms_tpu/models/lstm_lm.py``.
 
-This slice ports the standard 2-layer LSTM core and the container with a
-tied decoder, forward only (the scoring pass: dropout off). GRU/RNN cores
-and the Bayesian, GP and variational cores are ROADMAP.md queue A items 3,
-7 and 10; ``StandardRNNCore`` raises for them.
+The port has the standard 2-layer LSTM core and the container with a
+tied decoder: the scoring pass (``deterministic=True``, dropout off) and
+the training forward, with dropout on the embedding, between the layers
+and on the core's output, as ``RecurrentLM.__call__`` and
+``StandardRNNCore`` apply it in the JAX package. GRU/RNN cores and the
+Bayesian, GP and variational cores are ROADMAP.md queue A items 3, 7 and
+10; ``StandardRNNCore`` raises for them.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 from torch import nn
@@ -25,6 +28,31 @@ def init_hidden(nlayers: int, batch: int, nhid: int,
                 dtype=torch.float32, device=None) -> Hidden:
     z = torch.zeros((nlayers, batch, nhid), dtype=dtype, device=device)
     return (z, z.clone())
+
+
+class DropoutMasks(NamedTuple):
+    """Keep masks (nonzero = kept) of one training forward: on the
+    embedding (T, B, emsize), between the layers and on the core's output
+    (T, B, nhid). Drawn by ``draw_dropout_masks`` or injected, so that a
+    test can feed both packages the same masks."""
+
+    emb: torch.Tensor
+    layer: torch.Tensor
+    out: torch.Tensor
+
+
+def draw_dropout_masks(cfg: ModelConfig, T: int, B: int,
+                       gen: torch.Generator, device=None) -> DropoutMasks:
+    """Bernoulli(1 - cfg.dropout) keep masks from ``gen`` (on ``device``)."""
+    keep = 1.0 - cfg.dropout
+    draw = lambda width: torch.rand(  # noqa: E731
+        (T, B, width), generator=gen, device=device) < keep
+    return DropoutMasks(draw(cfg.emsize), draw(cfg.nhid), draw(cfg.nhid))
+
+
+def _dropout(x, mask, keep):
+    """Inverted dropout as flax's ``nn.Dropout``: x / keep where kept."""
+    return torch.where(mask.bool(), x / keep, torch.zeros_like(x))
 
 
 class StandardRNNCore(nn.Module):
@@ -56,18 +84,21 @@ class StandardRNNCore(nn.Module):
             tinit.uniform_(p, tinit.rnn_bound(self.nhid), gen)
 
     def forward(self, x, hidden: Hidden, step_mask=None, reset_mask=None,
-                reset_src=None):
+                reset_src=None, train: bool = False, dropout_mask=None):
+        """``train`` takes the grad route of ``lstm_stack2``;
+        ``dropout_mask`` (T, B, H) scales layer 1's output there."""
         h0, c0 = hidden
         out, hs, cs = lstm_stack2(x, h0, c0, self.layer(0), self.layer(1),
-                                  step_mask, reset_mask, reset_src)
+                                  step_mask, reset_mask, reset_src,
+                                  train=train, dropout_mask=dropout_mask)
         return out, (torch.stack(hs), torch.stack(cs))
 
 
 class RecurrentLM(nn.Module):
     """Embedding -> recurrent core -> tied decoder (reference RNNModel).
 
-    ``forward`` is the scoring pass: dropout is off, as in the JAX
-    package's ``deterministic=True``.
+    ``forward`` with ``deterministic=True`` (the default) is the scoring
+    pass, dropout off; ``deterministic=False`` is the training forward.
     """
 
     def __init__(self, cfg: ModelConfig):
@@ -93,18 +124,37 @@ class RecurrentLM(nn.Module):
 
     def forward(self, tokens, hidden: Hidden, step_mask=None,
                 return_hidden: bool = False, reset_mask=None,
-                reset_src: Optional[torch.Tensor] = None):
+                reset_src: Optional[torch.Tensor] = None,
+                deterministic: bool = True,
+                generator: Optional[torch.Generator] = None,
+                dropout_masks: Optional[DropoutMasks] = None):
         """tokens (T, B) -> logits (T, B, V) float32 and the new hidden.
 
         ``step_mask`` (T, B) freezes the state on padded steps.
         ``reset_mask`` (T, B) with ``reset_src`` (B,) are the packed
         carry-over resets (see ops/lstm.py). ``return_hidden`` returns the
         core's output states (T, B, H) in place of logits, for the fused
-        decoder CE.
+        decoder CE. ``deterministic=False`` runs the training forward: the
+        LSTM's grad route and, when ``cfg.dropout`` > 0, dropout with
+        ``dropout_masks`` or masks drawn from ``generator``.
         """
-        dtype = getattr(torch, self.cfg.compute_dtype)
+        cfg = self.cfg
+        dtype = getattr(torch, cfg.compute_dtype)
         emb = self.embedding[tokens].to(dtype)
-        out, hidden = self.core(emb, hidden, step_mask, reset_mask, reset_src)
+        if deterministic or cfg.dropout == 0:
+            out, hidden = self.core(emb, hidden, step_mask, reset_mask,
+                                    reset_src, train=not deterministic)
+        else:
+            keep = 1.0 - cfg.dropout
+            m = dropout_masks
+            if m is None:
+                m = draw_dropout_masks(cfg, tokens.shape[0], tokens.shape[1],
+                                       generator, emb.device)
+            out, hidden = self.core(
+                _dropout(emb, m.emb, keep), hidden, step_mask, reset_mask,
+                reset_src, train=True,
+                dropout_mask=m.layer.to(dtype) / keep)
+            out = _dropout(out, m.out, keep)
         if return_hidden:
             return out, hidden
         logits = out @ self.embedding.to(dtype).t() + self.decoder_b.to(dtype)

@@ -2,9 +2,10 @@
 
 Each source under ``bayeslms_tpu_torch/csrc/`` is compiled on first use
 into a shared library with a plain C interface, named after a hash of the
-source and the flags, in ``bayeslms_tpu_torch/_build/`` (listed in
-.gitignore). An unchanged source is not built again. No PyTorch header is
-included, so one build takes seconds. A missing ``nvcc`` or a failed build
+source, the headers under ``csrc/`` and the flags, in
+``bayeslms_tpu_torch/_build/`` (listed in .gitignore). An unchanged source
+is not built again; an edited header rebuilds every kernel. No PyTorch
+header is included, so one build takes seconds. A missing ``nvcc`` or a failed build
 raises with the compiler's output; there is no fallback.
 """
 
@@ -22,7 +23,7 @@ CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
 FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC"]
-KERNELS = ("lstm2_fwd", "ce_fwd")
+KERNELS = ("lstm2_fwd", "ce_fwd", "lstm_train", "ce_train")
 
 _loaded: Dict[str, ctypes.CDLL] = {}
 
@@ -37,8 +38,11 @@ def _nvcc() -> str:
 
 
 def _target(name: str) -> str:
-    with open(os.path.join(CSRC, f"{name}.cu"), "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(FLAGS).encode())
+    digest = hashlib.sha256(" ".join(FLAGS).encode())
+    headers = sorted(f for f in os.listdir(CSRC) if f.endswith(".cuh"))
+    for src in [f"{name}.cu", *headers]:
+        with open(os.path.join(CSRC, src), "rb") as f:
+            digest.update(src.encode() + b"\0" + f.read())
     return os.path.join(BUILD_DIR, f"{name}-{digest.hexdigest()[:16]}.so")
 
 

@@ -5,18 +5,25 @@
 
 Run from the repository root on a machine with a CUDA card and nvcc. It
 builds the port's CUDA kernels from csrc/, holds each against its plain
-PyTorch version at the shapes of the main path, then drives the main path:
-packed-carry N-best rescoring through ``BatchScorer.score_nbest`` with the
-bench's 2-layer 1024/1024 LSTM LM (V = 49,152, bf16, random weights from a
-fixed seed) on a synthetic 6,000-hypothesis N-best. Every phase prints its
-result and seconds; any failure exits non-zero before the result lines.
-The last two lines are a JSON object per kernel and the device line.
+PyTorch version at the shapes of the main path, then drives both halves of
+the main path with the bench's 2-layer 1024/1024 LSTM LM (V = 49,152, bf16):
+packed-carry N-best rescoring through ``BatchScorer.score_nbest`` (random
+weights from a fixed seed, a synthetic 6,000-hypothesis N-best), and
+training through ``Trainer.fit`` with the recipe's settings (batch 32,
+seq_len 100, lr 5, momentum 0.9, clip 1.0; a synthetic Markov corpus of
+about 20 windows an epoch, 2 epochs), a kernel-path step against the same
+step on the plain versions, and a rescoring pass from the checkpoint
+``fit`` wrote. Every phase prints its result and seconds; any failure exits
+non-zero before the result lines. The last two lines are a JSON object per
+kernel and the device line.
 """
 
 import contextlib
 import json
+import os
 import subprocess
 import sys
+import tempfile
 import time
 from collections import OrderedDict
 
@@ -146,6 +153,410 @@ def planted(args, fault):
     a = list(args)
     a[i] = a[i].new_full(a[i].shape, fill)
     return a
+
+
+# ---------------------------------------------------------------- training
+# The recipe's training settings (recipes/run_nnlm_ami_lstm.sh:16-26) on the
+# bench's model; the synthetic corpus gives about 20 windows an epoch.
+TRAIN_BATCH, TRAIN_SEQ = 32, 100
+TRAIN_WINDOWS = 20
+EVAL_BATCH = 20
+
+# Tolerances of the training kernels against their plain versions on the
+# tensors one training step hands them, elementwise
+#   |kernel - plain| <= rtol |plain| + share * max |plain|,
+# set from the errors the H100 showed (PERF.md) with modest room; each check
+# prints the magnitudes it compares, and a planted fault per kernel must
+# exceed its tolerance by FAULT_MARGIN or more.
+# kernel -> (rtol, share of the largest |plain|)
+TRAIN_TOL = {
+    # bf16 outputs of a 100-step recurrence: a bf16 step or two (2^-7 each)
+    "lstm_train_fwd": (2 ** -6, 2 ** -12),
+    "lstm_train_bwd": (2 ** -6, 2 ** -10),
+    # float32 CE (~10.8), max and sum-exp (~2e4): sums of D products and V
+    # exponentials in other orders
+    "ce_train_fwd": (2 ** -19, 2 ** -19),
+    # d rounded to bf16 may round the other way where s differs in its last
+    # bits; dh is stored in bf16
+    "ce_train_dh": (2 ** -6, 2 ** -10),
+    # float32 dE and db: the same d, rounded, summed over M in fp32
+    "ce_train_de": (2 ** -8, 2 ** -15),
+}
+FAULT_MARGIN = 10.0
+# The kernel-path training step against the plain-path step (same weights,
+# batch and dropout masks): loss absolute; each parameter's gradient, max
+# |kernel - plain| against STEP_GRAD_SHARE of its largest |plain| entry.
+STEP_LOSS_ATOL = 1e-5
+STEP_GRAD_SHARE = 2 ** -6
+# Scores of the trained model (kernel path against plain path), relative:
+# its LSTM states are larger than the random init's, so the bf16 rounding
+# steps move a score more than SCORE_ATOL allows.
+TRAINED_SCORE_RTOL = 1e-4
+
+
+def write_markov_corpus(root, vocab_words, n_train, n_valid, n_test, seed=0):
+    """words.txt ("<s>", "<unk>", w0 .. w{n-1}) and train/valid/test text
+    from a first-order Markov chain: each word has four successors drawn
+    from a Zipf-like unigram law, so there is something to learn (uniform
+    text has nothing)."""
+    rng = np.random.default_rng(seed)
+    p = 1.0 / np.arange(1, vocab_words + 1) ** 1.1
+    p /= p.sum()
+    succ = rng.choice(vocab_words, size=(vocab_words, 4), p=p)
+    with open(os.path.join(root, "words.txt"), "w") as f:
+        f.write("<s> 0\n<unk> 1\n")
+        f.writelines(f"w{i} {i + 2}\n" for i in range(vocab_words))
+    w = int(rng.choice(vocab_words, p=p))
+    for name, n in (("train", n_train), ("valid", n_valid), ("test", n_test)):
+        picks = rng.integers(0, 4, size=n)
+        lens = rng.integers(5, 30, size=n)
+        lines, line = [], []
+        for k in range(n):
+            w = int(succ[w, picks[k]])
+            line.append(f"w{w}")
+            if len(line) >= lens[k]:
+                lines.append(" ".join(line))
+                line = []
+        lines.append(" ".join(line))
+        with open(os.path.join(root, f"{name}.txt"), "w") as f:
+            f.write("\n".join(lines) + "\n")
+
+
+def check_outputs(name, got, ref, rtol, share):
+    """Print each output's magnitude, error and worst share of its
+    tolerance; returns (max abs error, worst share)."""
+    err, worst = 0.0, 0.0
+    for k in ref:
+        r = ref[k].float()
+        big = float(r.abs().max())
+        e = max_err(got[k], r)
+        q = tol_ratio(got[k], r, rtol, share * big + 1e-30)
+        err, worst = max(err, e), max(worst, q)
+        print(f"  {name} {k}: |plain| max {big:.3e} mean "
+              f"{float(r.abs().mean()):.3e}; max |kernel - plain| {e:.3e}, "
+              f"worst share of tolerance {q:.3f}")
+    return err, worst
+
+
+def fault_share(got, ref, rtol, share):
+    return max(tol_ratio(got[k], ref[k], rtol,
+                         share * float(ref[k].float().abs().max()) + 1e-30)
+               for k in ref)
+
+
+def train_phases(torch, kernels, smi, cfg, rcfg):
+    """The training half of the main path; adds the training kernels to
+    ``kernels``. Raises on any failed check."""
+    from unittest import mock
+
+    from bayeslms_tpu_torch import TrainConfig
+    from bayeslms_tpu_torch.core.checkpoint import load_checkpoint
+    from bayeslms_tpu_torch.data.corpus import Corpus
+    from bayeslms_tpu_torch.models.lstm_lm import (draw_dropout_masks,
+                                                   init_hidden)
+    from bayeslms_tpu_torch.ops import ce_train_cuda as ctc
+    from bayeslms_tpu_torch.ops import lstm_cuda
+    from bayeslms_tpu_torch.ops import lstm_train_cuda as ltc
+    from bayeslms_tpu_torch.rescore.scorer import BatchScorer
+    from bayeslms_tpu_torch.train.loop import Trainer
+
+    V = cfg.vocab_size
+    tmp = tempfile.TemporaryDirectory()
+    B, T = TRAIN_BATCH, TRAIN_SEQ
+    with phase("train setup"):
+        n_train = B * (T * TRAIN_WINDOWS + 37)  # and a ragged final window
+        write_markov_corpus(tmp.name, V - 2, n_train, EVAL_BATCH * 230,
+                            EVAL_BATCH * 150)
+        corpus = Corpus(tmp.name)
+        tcfg = TrainConfig(lr=5.0, momentum=0.9, clip=1.0, batch_size=B,
+                           seq_len=T, eval_batch_size=EVAL_BATCH, epochs=2,
+                           log_interval=10,
+                           save=os.path.join(tmp.name, "model.ckpt"))
+        trainer = Trainer(cfg, tcfg)
+        print(f"  corpus: {len(corpus.vocab)} words; {len(corpus.train)} "
+              f"train, {len(corpus.valid)} valid, {len(corpus.test)} test "
+              "tokens")
+        # one step records the tensors it hands each kernel wrapper
+        state = trainer.init_state()
+        data = torch.from_numpy(corpus.train[:T * B].reshape(B, T).T.copy()
+                                ).long().cuda()
+        target = torch.from_numpy(corpus.train[1:T * B + 1].reshape(B, T).T
+                                  .copy()).long().cuda()
+        recorded = {}
+
+        def recorder(module, name):
+            fn = getattr(module, name)
+
+            def call(*args):
+                recorded.setdefault(name, []).append(args)
+                return fn(*args)
+            return mock.patch.object(module, name, call)
+
+        with recorder(ltc, "lstm_train_fwd"), recorder(ltc, "lstm_train_bwd"), \
+                recorder(ctc, "ce_train_fwd"), recorder(ctc, "ce_train_dh"), \
+                recorder(ctc, "ce_train_de"):
+            trainer.train_step(state, init_hidden(2, B, cfg.nhid,
+                                                  device="cuda"),
+                               data, target)
+        torch.cuda.synchronize()
+        del state
+
+    H, D, M = cfg.nhid, cfg.nhid, T * B
+    flops_f = 2 * T * B * H * 4 * H
+    specs = {
+        "lstm_train_fwd": dict(
+            module=ltc, plain=ltc.lstm_train_fwd_plain, source="lstm_train.cu",
+            replaces="bayeslms_tpu/ops/lstm_pallas.py:421",
+            outs=("ys", "cs", "hT", "cT"),
+            # W_hh zeroed: a kernel that dropped the recurrent product
+            fault=("W_hh product dropped", 1),
+            flops=flops_f,
+            nbytes=T * B * 4 * H * 2 + 4 * H * H * 2 + 4 * H * 4
+            + 4 * B * H * 2 + 2 * T * B * H * 2),
+        "lstm_train_bwd": dict(
+            module=ltc, plain=ltc.lstm_train_bwd_plain, source="lstm_train.cu",
+            replaces="bayeslms_tpu/ops/lstm_pallas.py:461",
+            outs=("du", "dh0", "dc0"),
+            fault=("W_hh zeroed in the backward only", 1),
+            flops=2 * flops_f,
+            nbytes=T * B * 4 * H * 2 + 3 * T * B * H * 2 + 4 * H * H * 2
+            + 4 * H * 4 + 6 * B * H * 2 + T * B * 4 * H * 2),
+        "ce_train_fwd": dict(
+            module=ctc, plain=ctc.ce_train_fwd_plain, source="ce_train.cu",
+            replaces="bayeslms_tpu/ops/ce_pallas.py:291",
+            outs=("ce", "max", "sumexp"),
+            fault=("targets shifted", 3),
+            flops=2 * M * V * D,
+            nbytes=M * D * 2 + V * D * 2 + V * 4 + M * 4 + 3 * M * 4),
+        "ce_train_dh": dict(
+            module=ctc, plain=ctc.ce_train_dh_plain, source="ce_train.cu",
+            replaces="bayeslms_tpu/ops/ce_pallas.py:320",
+            outs=("dh",), fault=("targets shifted in dh only", 3),
+            flops=4 * M * V * D,
+            nbytes=M * D * 2 + V * D * 2 + V * 4 + 5 * M * 4 + M * D * 2),
+        "ce_train_de": dict(
+            module=ctc, plain=ctc.ce_train_de_plain, source="ce_train.cu",
+            replaces="bayeslms_tpu/ops/ce_pallas.py:344",
+            outs=("dE", "db"), fault=("targets shifted in dE only", 3),
+            flops=4 * M * V * D,
+            nbytes=M * D * 2 + V * D * 2 + V * 4 + 5 * M * 4 + V * D * 4
+            + V * 4),
+    }
+
+    def as_dict(spec, out):
+        out = out if isinstance(out, tuple) else (out,)
+        return dict(zip(spec["outs"], out))
+
+    def planted_args(args, i):
+        a = list(args)
+        if i == 3:  # targets
+            a[3] = torch.roll(a[3], 1)
+        else:
+            a[i] = torch.zeros_like(a[i])
+        return a
+
+    for name, spec in specs.items():
+        with phase(f"kernel {name}"), torch.no_grad():
+            kernel = getattr(spec["module"], name)
+            rtol, share = TRAIN_TOL[name]
+            print(f"  tolerance |kernel - plain| <= {rtol:.3e} |plain| + "
+                  f"{share:.3e} max|plain|, elementwise; {len(recorded[name])}"
+                  " call(s) in one step")
+            err, worst, fault = 0.0, 0.0, float("inf")
+            for args in recorded[name]:
+                ref = as_dict(spec, spec["plain"](*args))
+                got = as_dict(spec, kernel(*args))
+                torch.cuda.synchronize()
+                e, q = check_outputs(name, got, ref, rtol, share)
+                err, worst = max(err, e), max(worst, q)
+                bad = as_dict(spec, kernel(*planted_args(args,
+                                                         spec["fault"][1])))
+                fault = min(fault, fault_share(bad, ref, rtol, share))
+                del ref, got, bad
+            print(f"  planted fault '{spec['fault'][0]}': worst share of "
+                  f"tolerance {fault:.1f}")
+            args = recorded[name][0]
+            if name.startswith("ce_"):
+                # ragged edges too (M and V off the 64 tiles), random bias
+                Mr, Vr = M - 37, V - 77
+                gen = torch.Generator(device="cuda").manual_seed(2)
+                br = torch.rand((Vr,), generator=gen, device="cuda") * 2 - 1
+                ra = [args[0][:Mr], args[1][:Vr], br, args[3][:Mr] % Vr]
+                if name != "ce_train_fwd":
+                    _, rmx, rse = ctc.ce_train_fwd_plain(*ra)
+                    ra += [rmx, rse, args[6][:Mr].contiguous(),
+                           args[7][:Mr].contiguous()]
+                ref = as_dict(spec, spec["plain"](*ra))
+                e, q = check_outputs(f"{name} ragged M={Mr} V={Vr}",
+                                     as_dict(spec, kernel(*ra)), ref, rtol,
+                                     share)
+                err, worst = max(err, e), max(worst, q)
+                del ref, ra
+            ms = cuda_ms(torch, lambda: kernel(*args), 5)
+            plain_ms = cuda_ms(torch, lambda: spec["plain"](*args), 3)
+            with torch.enable_grad():
+                library_ms = library_yardstick(torch, name, args)
+            bms, bby = bound_ms(spec["flops"], spec["nbytes"])
+            print(f"  kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, library "
+                  f"{library_ms:.3f} ms, bound {bms:.3f} ms ({bby})")
+            kernels[name] = dict(
+                name=name, route="cuda",
+                source=f"bayeslms_tpu_torch/csrc/{spec['source']}",
+                replaces=spec["replaces"], max_abs_err=err, ms=ms,
+                plain_ms=plain_ms, bound_ms=bms, bound_by=bby,
+                library_ms=library_ms)
+            if worst > 1:
+                raise AssertionError(f"{name} disagrees with its plain "
+                                     f"version: worst share {worst:.3f}")
+            if fault < FAULT_MARGIN:
+                raise AssertionError(f"{name}: the planted fault exceeds the "
+                                     f"tolerance only {fault:.1f}x")
+    del recorded
+
+    with phase("train main path"):
+        for module in (ltc, ctc):
+            for k in module.launches:
+                module.launches[k] = 0
+        lstm_cuda.launches = 0
+        steps = []
+
+        def on_step(b, loss):
+            torch.cuda.synchronize()
+            steps.append((time.perf_counter(), float(loss)))
+
+        t0 = time.perf_counter()
+        state, out = trainer.fit(corpus, log=lambda line: print("  " + line),
+                                 on_step=on_step)
+        fit_s = time.perf_counter() - t0
+        launches = {**ltc.launches, **ctc.launches,
+                    "lstm2_fwd (evaluate)": lstm_cuda.launches}
+        n = len(steps)
+        print(f"  kernel launches in fit ({n} steps): {launches}")
+        losses = [l for _, l in steps]
+        print("  loss per step: " + " ".join(f"{l:.4f}" for l in losses))
+        print("  validation loss per epoch: " + " ".join(
+            f"{h['val_loss']:.4f}" for h in out["history"])
+            + f"; test loss {out['test_loss']:.4f}")
+        # warm steps: the first two of the run (allocator, cuBLAS) excluded
+        dts = np.diff([t for t, _ in steps])[2:]
+        step_ms = 1e3 * float(np.median(dts))
+        print(f"  step median {step_ms:.3f} ms over {len(dts)} warm steps, "
+              f"{T * B / step_ms * 1e3:.1f} tokens/s; fit {fit_s:.1f} s "
+              f"on {smi}")
+        per_step = {"lstm_train_fwd": 2, "lstm_train_bwd": 2,
+                    "ce_train_fwd": 1, "ce_train_dh": 1, "ce_train_de": 1}
+        for name, k in per_step.items():
+            kernels[name]["launches"] = launches[name]
+            if launches[name] != k * n:
+                raise AssertionError(f"{name}: {launches[name]} launches in "
+                                     f"{n} steps, {k} a step expected")
+        if launches["lstm2_fwd (evaluate)"] == 0:
+            raise AssertionError("evaluate never launched lstm2_fwd")
+        if not all(np.isfinite(losses)) or not np.isfinite(out["test_loss"]):
+            raise AssertionError("a training loss is not finite")
+        if np.mean(losses[-5:]) >= np.mean(losses[:5]):
+            raise AssertionError(
+                f"the loss did not fall: first 5 {np.mean(losses[:5]):.4f}, "
+                f"last 5 {np.mean(losses[-5:]):.4f}")
+        del state
+
+    with phase("train step against plain versions"):
+        gen = torch.Generator(device="cuda").manual_seed(3)
+        masks = draw_dropout_masks(cfg, T, B, gen, "cuda")
+
+        def one_step():
+            st = trainer.init_state(seed=5)
+            _, loss, _, _, gnorm = trainer.train_step(
+                st, init_hidden(2, B, cfg.nhid, device="cuda"), data, target,
+                dropout_masks=masks)
+            grads = {k: p.grad.clone() for k, p in st.params.items()}
+            return float(loss), float(gnorm), grads
+
+        k_loss, k_gn, k_grads = one_step()
+        plain = [mock.patch.object(m, n, getattr(m, n + "_plain"))
+                 for m, n in ((ltc, "lstm_train_fwd"), (ltc, "lstm_train_bwd"),
+                              (ctc, "ce_train_fwd"), (ctc, "ce_train_dh"),
+                              (ctc, "ce_train_de"))]
+        with contextlib.ExitStack() as stack:
+            for p in plain:
+                stack.enter_context(p)
+            p_loss, p_gn, p_grads = one_step()
+        print(f"  loss kernel {k_loss:.6f} plain {p_loss:.6f} (tolerance "
+              f"{STEP_LOSS_ATOL:.0e}); gnorm {k_gn:.6f} / {p_gn:.6f}")
+        worst = 0.0
+        for k, g in p_grads.items():
+            big = float(g.abs().max())
+            e = max_err(k_grads[k], g)
+            worst = max(worst, e / (STEP_GRAD_SHARE * big + 1e-30))
+            print(f"  grad {k}: |plain| max {big:.3e}; max |kernel - plain| "
+                  f"{e:.3e} ({e / (big + 1e-30):.2e} of the max)")
+        if abs(k_loss - p_loss) > STEP_LOSS_ATOL or worst > 1:
+            raise AssertionError(f"the kernel-path step disagrees with the "
+                                 f"plain path (worst share {worst:.3f})")
+        del k_grads, p_grads
+
+    with phase("rescore from the trained checkpoint"):
+        params, meta = load_checkpoint(tcfg.save)
+        print(f"  checkpoint of epoch {meta['epoch']}, val loss "
+              f"{meta['val_loss']:.4f}")
+        scorer = BatchScorer(cfg, params, rcfg)
+        nbest = make_synthetic_nbest(n_meetings=2, vocab_words=V - 2)
+        w2i = corpus.vocab.word2idx
+        res = scorer.score_nbest(nbest, w2i, stream_fn=stream_of)
+        got = np.array([s for pairs in res.values() for _, s in pairs])
+        with mock.patch.object(lstm_cuda, "lstm2_fwd", lstm_cuda.lstm2_plain):
+            from bayeslms_tpu_torch.ops import ce_cuda
+            with mock.patch.object(ce_cuda, "fused_decode_ce",
+                                   ce_cuda.ce_plain):
+                ref = np.array([s for pairs in scorer.score_nbest(
+                    nbest, w2i, stream_fn=stream_of).values()
+                    for _, s in pairs])
+        n_hyps = sum(len(h) for h in nbest.values())
+        diff = float(np.abs(got - ref).max())
+        rel = float((np.abs(got - ref) / np.abs(ref)).max())
+        print(f"  {n_hyps} hypotheses, scores mean {got.mean():.3f}, max "
+              f"{np.abs(ref).max():.3f}; max |kernel - plain| {diff:.4e}, "
+              f"relative {rel:.3e} (tolerance {TRAINED_SCORE_RTOL:.0e})")
+        if got.shape != (n_hyps,) or not np.all(np.isfinite(got)) \
+                or rel > TRAINED_SCORE_RTOL:
+            raise AssertionError("rescoring from the checkpoint failed")
+    tmp.cleanup()
+
+
+def library_yardstick(torch, name, args):
+    """ms of one PyTorch call computing the same function (never called by
+    the port): cuDNN's LSTM for the recurrence (all-ones mask, as in
+    training; it also computes x W_ih^T), cuBLAS logits with
+    ``F.cross_entropy`` for the CE, forward or backward."""
+    F = torch.nn.functional
+    if name.startswith("lstm"):
+        xg = args[0]
+        T, B, G = xg.shape
+        H = G // 4
+        lstm = torch.nn.LSTM(H, H, device="cuda", dtype=torch.bfloat16)
+        x = torch.randn((T, B, H), device="cuda", dtype=torch.bfloat16,
+                        requires_grad=True)
+        if name == "lstm_train_fwd":
+            return cuda_ms(torch, lambda: lstm(x), 5)
+        out, _ = lstm(x)
+        dy = torch.randn_like(out)
+        return cuda_ms(torch, lambda: torch.autograd.grad(
+            out, [x, *lstm.parameters()], dy, retain_graph=True), 5)
+    h, emb, bias, tgt = args[:4]
+    hh = h.detach().clone().requires_grad_(True)
+    e = emb.detach().clone().requires_grad_(True)
+    b = bias.detach().to(torch.bfloat16).requires_grad_(True)
+
+    def fwd():
+        return F.cross_entropy(hh @ e.t() + b, tgt, reduction="sum")
+
+    if name == "ce_train_fwd":
+        with torch.no_grad():
+            return cuda_ms(torch, fwd, 5)
+    loss = fwd()
+    wrt = [hh] if name == "ce_train_dh" else [e, b]
+    return cuda_ms(torch, lambda: torch.autograd.grad(loss, wrt,
+                                                      retain_graph=True), 5)
 
 
 def main():
@@ -358,6 +769,8 @@ def main():
         if min(faults.values()) <= SCORE_ATOL:
             raise AssertionError(f"a planted fault passes the score "
                                  f"tolerance: {faults}")
+
+    train_phases(torch, kernels, smi, cfg, rcfg)
 
     print(json.dumps({"kernels": list(kernels.values())}))
     print(json.dumps({"ok": True, "device": {

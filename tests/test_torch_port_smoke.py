@@ -38,3 +38,24 @@ def test_fails_without_the_repository(tmp_path):
     res = _run(tmp_path)
     assert res.returncode != 0
     assert '"ok": true' not in res.stdout
+
+
+def test_markov_corpus_has_structure_and_windows(tmp_path):
+    """The training phase's synthetic corpus: every word of the text is in
+    words.txt, each word has at most four successors, and the stream fills
+    the windows the phase asks for."""
+    from bayeslms_tpu_torch.data.corpus import Corpus, batchify, windows
+
+    chip_smoke.write_markov_corpus(str(tmp_path), 500, 4 * (10 * 5 + 3),
+                                   200, 100)
+    c = Corpus(str(tmp_path))
+    assert len(c.vocab) == 502
+    words = [w for line in (tmp_path / "train.txt").read_text().split("\n")
+             for w in line.split()]
+    assert words and all(w in c.vocab for w in words)
+    succ = {}
+    for a, b in zip(words, words[1:]):
+        succ.setdefault(a, set()).add(b)
+    assert max(len(s) for s in succ.values()) <= 4
+    data, _, tail = windows(batchify(c.train, 4), 10, drop_ragged=False)
+    assert data.shape[0] >= 5 and tail is not None

@@ -1,0 +1,82 @@
+#!/usr/bin/env python3
+"""Where one warm training step of the PyTorch/CUDA port spends its time.
+
+    python3 tools/port_train_profile.py
+
+Needs a CUDA card and nvcc. Builds the training configuration of
+chip_smoke.py (the bench's 2-layer 1024/1024 LSTM LM, V = 49,152, bf16,
+dropout 0.2; batch 32, seq_len 100, the recipe's lr, momentum and clip) on
+its synthetic Markov corpus, runs three warm-up steps, times five steps
+without the profiler, then traces three steps with torch.profiler and prints
+the device time by kernel, the device's busy time and its idle share of
+the traced steps. Nothing is written to disk outside a temporary directory.
+"""
+
+import os
+import sys
+import tempfile
+import time
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+
+
+def main():
+    import numpy as np
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    import chip_smoke
+    from bayeslms_tpu_torch import TrainConfig
+    from bayeslms_tpu_torch.data.corpus import Corpus, batchify, windows
+    from bayeslms_tpu_torch.models.lstm_lm import init_hidden
+    from bayeslms_tpu_torch.train.loop import Trainer
+
+    if not torch.cuda.is_available():
+        print("port_train_profile: no CUDA device", file=sys.stderr)
+        return 1
+    cfg, _, _, _ = chip_smoke.bench_setup()
+    B, T = chip_smoke.TRAIN_BATCH, chip_smoke.TRAIN_SEQ
+    with tempfile.TemporaryDirectory() as tmp:
+        chip_smoke.write_markov_corpus(tmp, cfg.vocab_size - 2,
+                                       B * T * 12, 100, 100)
+        corpus = Corpus(tmp)
+    trainer = Trainer(cfg, TrainConfig(lr=5.0, batch_size=B, seq_len=T))
+    state = trainer.init_state()
+    data, tgt = (torch.from_numpy(a).long().cuda()
+                 for a in windows(batchify(corpus.train, B), T))
+    hidden = init_hidden(cfg.nlayers, B, cfg.nhid, device="cuda")
+
+    def steps(first, n):
+        nonlocal hidden
+        for b in range(first, first + n):
+            hidden, *_ = trainer.train_step(state, hidden, data[b], tgt[b])
+        torch.cuda.synchronize()
+
+    steps(0, 3)
+    t0 = time.perf_counter()
+    steps(3, 5)
+    plain_ms = (time.perf_counter() - t0) * 1e3 / 5
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        steps(8, 3)
+        traced_ms = (time.perf_counter() - t0) * 1e3 / 3
+    # device-side events only (kernels, copies): an operator's row would
+    # count its kernels' time a second time
+    rows = [(ev.self_device_time_total, ev.count, ev.key)
+            for ev in prof.key_averages()
+            if ev.device_type != DeviceType.CPU and ev.self_device_time_total > 0]
+    rows.sort(reverse=True)
+    busy_ms = sum(r[0] for r in rows) / 1e3 / 3
+    print(f"step {plain_ms:.1f} ms untraced (mean of 5), {traced_ms:.1f} ms "
+          f"traced (mean of 3); device busy {busy_ms:.1f} ms a step, idle "
+          f"share {1 - busy_ms / traced_ms:.3f} of the traced steps "
+          f"({torch.cuda.get_device_name(0)})")
+    print("device ms a step  calls a step  name")
+    for dev_us, count, key in rows[:20]:
+        print(f"{dev_us / 1e3 / 3:16.3f}  {count / 3:12.1f}  {key[:90]}")
+    return 0 if np.isfinite(busy_ms) else 1
+
+
+if __name__ == "__main__":
+    sys.exit(main())
