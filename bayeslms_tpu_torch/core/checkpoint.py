@@ -1,27 +1,41 @@
-"""Weight exchange with the JAX package (counterpart of
+"""Weight exchange with the JAX package and the reference (counterpart of
 ``bayeslms_tpu/core/checkpoint.py``).
 
 The JAX parameter tree is nested dicts of arrays: ``{"embedding",
-"decoder_b", "core": {"l0_w_ih", "l0_w_hh", "l0_b_ih", "l0_b_hh", "l1_..."}}``,
-float32, LSTM weights already in the torch (4H, in) layout. The port's
-module names its parameters the same way (``core.l0_w_ih``), so the
-exchange only walks the tree.
+"decoder_b", "core": {"l0_w_ih", "l0_w_hh", "l0_b_ih", "l0_b_hh", "l1_..."}}``
+for the standard LSTM, ``"core": {"weight_ih_mean_1", ...,
+"weight_hh_lgstd_1", ...}`` for the Bayesian one; float32, LSTM weights
+already in the torch (4H, in) layout. The port's modules name their
+parameters the same way (``core.l0_w_ih``), so the exchange only walks the
+tree.
 
-``save_checkpoint`` / ``load_checkpoint`` keep the port's own files: one
-``torch.save`` of that tree (float32 CPU tensors) and a meta dict of plain
-values, read back with ``weights_only=True``; the loaded tree goes straight
-into ``params_from_jax`` or ``BatchScorer``. Reading the JAX package's
-msgpack ``.ckpt`` files is ROADMAP.md queue A item 1.
+Files:
+- ``save_checkpoint`` / ``load_checkpoint``: the port's own, one
+  ``torch.save`` of that tree (float32 CPU tensors) and a meta dict of
+  plain values, read back with ``weights_only=True``;
+- ``load_jax_checkpoint``: the JAX package's ``.ckpt`` (flax msgpack,
+  read by ``flax_msgpack`` without msgpack or flax) and its ``.json``
+  sidecar;
+- ``load_torch_checkpoint``: the reference's ``model.pt``, a state_dict
+  that ``import_torch_state_dict`` maps onto the tree;
+- ``load_params``: any of the three, by its content.
+
+A loaded tree goes into ``params_from_jax``, ``BatchScorer`` or
+``partial_update`` (the prior / finetune workflow).
 """
 
 from __future__ import annotations
 
+import json
 import os
-from typing import Mapping, Optional, Tuple
+import re
+from typing import Dict, List, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
 from torch import nn
+
+from . import flax_msgpack
 
 
 def params_from_jax(model: nn.Module, tree: Mapping) -> nn.Module:
@@ -76,7 +90,7 @@ def save_checkpoint(path: str, params: Mapping,
     trainer's reload of the best checkpoint) never sees a torn file."""
     os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
     tree = _map_leaves(params, lambda v: torch.as_tensor(
-        v.detach().cpu() if isinstance(v, torch.Tensor) else np.asarray(v)))
+        v.detach().cpu() if isinstance(v, torch.Tensor) else np.array(v)))
     tmp = f"{path}.tmp.{os.getpid()}"
     torch.save({"params": tree, "meta": meta}, tmp)
     os.replace(tmp, path)
@@ -86,3 +100,107 @@ def load_checkpoint(path: str) -> Tuple[dict, Optional[dict]]:
     """(parameter tree of numpy arrays, meta) from ``save_checkpoint``."""
     blob = torch.load(path, map_location="cpu", weights_only=True)
     return _map_leaves(blob["params"], lambda t: t.numpy()), blob["meta"]
+
+
+def _flatten(tree: Mapping, prefix: Tuple[str, ...] = ()) -> dict:
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, Mapping):
+            out.update(_flatten(v, prefix + (k,)))
+        else:
+            out[prefix + (k,)] = v
+    return out
+
+
+def _unflatten(flat: Mapping) -> dict:
+    tree: dict = {}
+    for path, v in flat.items():
+        node = tree
+        for k in path[:-1]:
+            node = node.setdefault(k, {})
+        node[path[-1]] = v
+    return tree
+
+
+def partial_update(params: Mapping, prior_params: Mapping
+                   ) -> Tuple[dict, List[str]]:
+    """Overwrite every leaf of ``params`` that exists with the same path and
+    shape in ``prior_params`` (the reference's key-filtered state_dict
+    update for finetuning from a prior). Returns the merged tree (numpy
+    leaves keep ``params``' dtypes) and the updated paths, "a/b"."""
+    flat = _flatten(params)
+    updated = []
+    for k, v in _flatten(prior_params).items():
+        if k in flat and np.shape(flat[k]) == np.shape(v):
+            flat[k] = np.asarray(v, dtype=np.asarray(flat[k]).dtype)
+            updated.append("/".join(map(str, k)))
+    return _unflatten(flat), updated
+
+
+_RNN_KEY = re.compile(r"rnn\.(weight|bias)_(ih|hh)_l(\d+)")
+
+
+def import_torch_state_dict(state_dict: Mapping[str, "np.ndarray"],
+                            cfg) -> dict:
+    """Map a reference PyTorch state_dict onto the parameter tree, for the
+    RNN family: ``encoder.weight`` -> ``embedding``, ``decoder.bias`` ->
+    ``decoder_b`` (``decoder.weight`` only when untied, as ``decoder_w``),
+    ``rnn.{weight,bias}_{ih,hh}_l{k}`` (torch nn.LSTM) ->
+    ``core/l{k}_{w,b}_{ih,hh}``, and the Bayes(2)LSTM names
+    ``rnn.*_{mean,lgstd}_*`` -> ``core/*``. Keys with no counterpart are
+    skipped; compose with ``partial_update``. The Transformer names wait
+    for ROADMAP.md queue A item 9, the GP and variational ones for item
+    10."""
+    out: Dict[Tuple[str, ...], np.ndarray] = {}
+    for k, v in state_dict.items():
+        v = np.asarray(v)
+        m = _RNN_KEY.fullmatch(k)
+        if k == "encoder.weight":
+            out[("embedding",)] = v
+        elif k == "decoder.weight":
+            if not cfg.tied:
+                out[("decoder_w",)] = v
+        elif k == "decoder.bias":
+            out[("decoder_b",)] = v
+        elif m:
+            kind = "w" if m.group(1) == "weight" else "b"
+            out[("core", f"l{m.group(3)}_{kind}_{m.group(2)}")] = v
+        elif k.startswith("rnn.") and ("_mean_" in k or "_lgstd_" in k):
+            out[("core", k[len("rnn."):])] = v
+    return _unflatten(out)
+
+
+def load_torch_checkpoint(path: str, cfg) -> dict:
+    """The reference's ``model.pt`` (a state_dict of tensors, read with
+    ``weights_only=True``) as the parameter tree."""
+    sd = torch.load(path, map_location="cpu", weights_only=True)
+    return import_torch_state_dict({k: v.numpy() for k, v in sd.items()},
+                                   cfg)
+
+
+def load_jax_checkpoint(path: str) -> Tuple[dict, Optional[dict]]:
+    """(parameter tree of numpy arrays, meta) from the JAX package's
+    ``save_checkpoint``: the msgpack ``path`` and its ``path.json``
+    sidecar, when there is one."""
+    with open(path, "rb") as f:
+        params = flax_msgpack.restore(f.read())
+    meta = None
+    if os.path.exists(path + ".json"):
+        with open(path + ".json") as f:
+            meta = json.load(f)
+    return params, meta
+
+
+def load_params(path: str, cfg) -> dict:
+    """The parameter tree of any checkpoint the port reads: its own
+    (``save_checkpoint``), the reference's ``model.pt`` (both torch zip
+    files) or the JAX package's msgpack ``.ckpt``."""
+    with open(path, "rb") as f:
+        is_zip = f.read(4) == b"PK\x03\x04"
+    if not is_zip:
+        return load_jax_checkpoint(path)[0]
+    blob = torch.load(path, map_location="cpu", weights_only=True)
+    if isinstance(blob, Mapping) and "params" in blob:
+        return _map_leaves(blob["params"], lambda t: t.numpy())
+    return import_torch_state_dict({k: v.numpy() for k, v in blob.items()},
+                                   cfg)

@@ -102,10 +102,6 @@ class TrainConfig:
             raise NotImplementedError(
                 "data-parallel training (dp_shards > 1) is not ported yet "
                 "(ROADMAP.md queue A item 13)")
-        if self.prior or self.prior_kl:
-            raise NotImplementedError(
-                "the prior / finetune-from-prior workflow is not ported yet "
-                "(ROADMAP.md queue A item 7)")
         if self.resume:
             raise NotImplementedError(
                 "full-state resume is not ported yet (ROADMAP.md queue A "

@@ -1,8 +1,9 @@
 """Model construction, counterpart of ``bayeslms_tpu/core/registry.py``.
 
-This slice covers the 2-layer LSTM with a tied decoder and
-``uncertainty="none"``; every other configuration raises
-``NotImplementedError`` naming its ROADMAP.md item.
+The port builds the 2-layer LSTM with a tied decoder, with
+``uncertainty="none"`` or ``"Bayesian"`` (the gate-slice Bayes2LSTM core);
+every other configuration raises ``NotImplementedError`` naming its
+ROADMAP.md item.
 """
 
 from __future__ import annotations

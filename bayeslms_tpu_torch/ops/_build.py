@@ -2,11 +2,14 @@
 
 Each source under ``bayeslms_tpu_torch/csrc/`` is compiled on first use
 into a shared library with a plain C interface, named after a hash of the
-source, the headers under ``csrc/`` and the flags, in
+source, the headers under ``csrc/``, the flags and any ``-D`` defines, in
 ``bayeslms_tpu_torch/_build/`` (listed in .gitignore). An unchanged source
 is not built again; an edited header rebuilds every kernel. No PyTorch
 header is included, so one build takes seconds. A missing ``nvcc`` or a failed build
-raises with the compiler's output; there is no fallback.
+raises with the compiler's output; there is no fallback. A kernel is named
+by its source (``"bayes_sample"``) or, for a variant built with defines, by
+``(source, ("-DNAME=VALUE", ...))``: chip_smoke.py builds planted-fault
+variants that way.
 """
 
 from __future__ import annotations
@@ -16,16 +19,18 @@ import hashlib
 import os
 import shutil
 import subprocess
-from typing import Dict, Iterable
+from typing import Dict, Iterable, Tuple, Union
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
 FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC"]
-KERNELS = ("lstm2_fwd", "ce_fwd", "lstm_train", "ce_train")
+KERNELS = ("lstm2_fwd", "ce_fwd", "lstm_train", "ce_train", "bayes_sample")
 
-_loaded: Dict[str, ctypes.CDLL] = {}
+Kernel = Union[str, Tuple[str, Tuple[str, ...]]]  # source, or (source, defines)
+
+_loaded: Dict[Kernel, ctypes.CDLL] = {}
 
 
 def _nvcc() -> str:
@@ -37,8 +42,13 @@ def _nvcc() -> str:
     return path
 
 
-def _target(name: str) -> str:
-    digest = hashlib.sha256(" ".join(FLAGS).encode())
+def _split(kernel: Kernel) -> Tuple[str, Tuple[str, ...]]:
+    return (kernel, ()) if isinstance(kernel, str) else kernel
+
+
+def _target(kernel: Kernel) -> str:
+    name, defines = _split(kernel)
+    digest = hashlib.sha256(" ".join([*FLAGS, *defines]).encode())
     headers = sorted(f for f in os.listdir(CSRC) if f.endswith(".cuh"))
     for src in [f"{name}.cu", *headers]:
         with open(os.path.join(CSRC, src), "rb") as f:
@@ -46,17 +56,19 @@ def _target(name: str) -> str:
     return os.path.join(BUILD_DIR, f"{name}-{digest.hexdigest()[:16]}.so")
 
 
-def build(names: Iterable[str] = KERNELS) -> Dict[str, str]:
+def build(kernels: Iterable[Kernel] = KERNELS) -> Dict[Kernel, str]:
     """Compile every named kernel whose library is missing, all nvcc
-    processes at once. Returns {name: library path}."""
+    processes at once. Returns {kernel: library path}."""
     os.makedirs(BUILD_DIR, exist_ok=True)
-    targets = {n: _target(n) for n in names}
+    targets = {k: _target(k) for k in kernels}
     procs = {}
     for n, so in targets.items():
         if os.path.exists(so):
             continue
+        name, defines = _split(n)
         tmp = f"{so}.{os.getpid()}.tmp"
-        cmd = [_nvcc(), *FLAGS, "-o", tmp, os.path.join(CSRC, f"{n}.cu")]
+        cmd = [_nvcc(), *FLAGS, *defines, "-o", tmp,
+               os.path.join(CSRC, f"{name}.cu")]
         procs[n] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                      stderr=subprocess.STDOUT), tmp, cmd)
     errors = []
@@ -71,9 +83,9 @@ def build(names: Iterable[str] = KERNELS) -> Dict[str, str]:
     return targets
 
 
-def load(name: str) -> ctypes.CDLL:
-    """The kernel library ``name``, built if needed, loaded once."""
-    lib = _loaded.get(name)
+def load(kernel: Kernel) -> ctypes.CDLL:
+    """The kernel library ``kernel``, built if needed, loaded once."""
+    lib = _loaded.get(kernel)
     if lib is None:
-        lib = _loaded[name] = ctypes.CDLL(build([name])[name])
+        lib = _loaded[kernel] = ctypes.CDLL(build([kernel])[kernel])
     return lib

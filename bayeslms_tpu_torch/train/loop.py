@@ -4,8 +4,12 @@ scheduler.
 
 Reference behaviours (train.py), as the JAX package keeps them:
 - loss = mean token CE + KL * seq_len / rows of the batchified stream; the
-  standard LSTM has no KL (the Bayesian cores, ROADMAP.md queue A item 7,
-  add theirs at ``_kl``);
+  standard LSTM has no KL, the Bayesian core's is ``kl_value`` (against
+  N(0, 1), or with ``prior_kl`` against the prior's means);
+- the prior / finetune workflow: ``prior`` with ``prior_path`` overwrites
+  every parameter that the prior checkpoint (the port's own, a JAX
+  ``.ckpt`` or a reference ``model.pt``) holds with the same name and
+  shape, and keeps the fresh lgstds;
 - SGD momentum 0.9 after a global-norm clip;
 - the LSTM state carried, detached, across the windows of an epoch and
   zeroed at each epoch's start; the ragged final window padded to
@@ -18,7 +22,9 @@ Reference behaviours (train.py), as the JAX package keeps them:
   ragged final window.
 
 The step runs the model's training forward (LSTM grad route: CUDA kernels
-``lstm_train_cuda``) and the differentiable fused CE (``ce_train_cuda``);
+``lstm_train_cuda``; the Bayesian core's gate-slice sampler
+``bayes_sample_cuda``, its seeds drawn on the device from the trainer's
+generator) and the differentiable fused CE (``ce_train_cuda``);
 ``evaluate`` runs the scoring route (``lstm_cuda.lstm2_fwd``) and the
 decoder's logits and CE as plain PyTorch, as the JAX package leaves them to
 XLA there. Entry points run on the card; ``device="cpu"`` (tests) runs
@@ -37,8 +43,9 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ..core.checkpoint import (load_checkpoint, params_from_jax,
-                               params_to_jax, save_checkpoint)
+from ..core.checkpoint import (load_checkpoint, load_params,
+                               params_from_jax, params_to_jax,
+                               partial_update, save_checkpoint)
 from ..core.config import ModelConfig, TrainConfig
 from ..core.registry import build_model, init_params
 from ..data.corpus import apply_data_fraction, batchify, get_batch, windows
@@ -74,14 +81,31 @@ class Trainer:
         self.mcfg = model_cfg.validate()
         self.tcfg = train_cfg.validate()
         self.device = device
-        # dropout masks; the JAX package's rng_impl has no counterpart here
+        # dropout masks and the Bayesian core's draws; the JAX package's
+        # rng_impl has no counterpart here
         self.gen = torch.Generator(device=device).manual_seed(train_cfg.seed)
+        # prior means for the KL (prior_kl): (weight_hh_mean_1,
+        # weight_ih_mean_1) on the device; set by init_state
+        self.prior_w = None
 
     # ------------------------------------------------------------------ init
     def init_state(self, seed: Optional[int] = None) -> TrainerState:
         seed = self.tcfg.seed if seed is None else seed
         model = build_model(self.mcfg)
-        init_params(model, self.mcfg, seed=seed)
+        tree = init_params(model, self.mcfg, seed=seed)
+        tcfg = self.tcfg
+        if tcfg.prior and tcfg.prior_path:
+            prior = load_params(tcfg.prior_path, self.mcfg)
+            tree, updated = partial_update(tree, prior)
+            params_from_jax(model, tree)
+            print(f"prior init: updated {len(updated)} param tensors")
+            core = prior.get("core", {})
+            if tcfg.prior_kl and {"weight_hh_mean_1",
+                                  "weight_ih_mean_1"} <= set(core):
+                self.prior_w = tuple(
+                    torch.as_tensor(np.asarray(core[k]), dtype=torch.float32,
+                                    device=self.device)
+                    for k in ("weight_hh_mean_1", "weight_ih_mean_1"))
         model.to(self.device)
         return TrainerState(model=model,
                             opt_state=init_opt_state(dict(model.named_parameters())),
@@ -90,25 +114,30 @@ class Trainer:
 
     # ------------------------------------------------------------------ step
     def _kl(self, model: RecurrentLM) -> torch.Tensor:
-        return torch.zeros((), device=self.device)
+        kl_value = getattr(model.core, "kl_value", None)
+        if kl_value is None:
+            return torch.zeros((), device=self.device)
+        return kl_value(self.prior_w)
 
     def train_step(self, state: TrainerState, hidden, data: torch.Tensor,
                    target: torch.Tensor, kl_scale: float = 0.0,
                    mask: Optional[torch.Tensor] = None,
-                   dropout_masks: Optional[DropoutMasks] = None):
+                   dropout_masks: Optional[DropoutMasks] = None,
+                   noise=None):
         """One optimizer step on a (T, B) window; updates ``state``'s
         parameters and momentum in place. ``mask`` (T, B) 0/1 averages the
         CE over the real tokens of the padded ragged window.
         ``dropout_masks`` replaces the masks drawn from the trainer's
-        generator. Returns (new hidden, detached; loss, mle, kl, gnorm as
-        device scalars)."""
+        generator, ``noise`` the Bayesian core's draws (see
+        ``BayesLSTMCore``). Returns (new hidden, detached; loss, mle, kl,
+        gnorm as device scalars)."""
         model = state.model
         params = state.params
         for p in params.values():
             p.grad = None
         out, new_hidden = model(data, hidden, return_hidden=True,
                                 deterministic=False, generator=self.gen,
-                                dropout_masks=dropout_masks)
+                                dropout_masks=dropout_masks, noise=noise)
         T, B, H = out.shape
         ce = fused_decode_ce_train(out.reshape(T * B, H), model.embedding,
                                    model.decoder_b,

@@ -13,7 +13,12 @@ training through ``Trainer.fit`` with the recipe's settings (batch 32,
 seq_len 100, lr 5, momentum 0.9, clip 1.0; a synthetic Markov corpus of
 about 20 windows an epoch, 2 epochs), a kernel-path step against the same
 step on the plain versions, and a rescoring pass from the checkpoint
-``fit`` wrote. Every phase prints its result and seconds; any failure exits
+``fit`` wrote. Then the Bayesian gate-slice LSTM (``l_bayes_pos=3``) on
+the same corpus: the gate-slice sampler kernel against its twin on the
+slices a step hands it (bit-equal uniforms, moments, correlations, the
+gradient, planted-fault builds), one epoch of ``Trainer.fit``, a
+kernel-path step against the plain path, and scoring at the posterior
+mean. Every phase prints its result and seconds; any failure exits
 non-zero before the result lines. The last two lines are a JSON object per
 kernel and the device line.
 """
@@ -117,6 +122,26 @@ def cuda_ms(torch, fn, repeats):
         torch.cuda.synchronize()
         times.append(start.elapsed_time(end))
     return float(np.median(times))
+
+
+def device_ms(torch, fn, repeats):
+    """Device time of ``fn`` in ms, per call: the sum of the device-side
+    events (kernels, copies) that torch.profiler records over ``repeats``
+    calls, after a warm-up. For kernels so short that the host's launch
+    time, not the device, sets the time between two CUDA events."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(repeats):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(ev.self_device_time_total for ev in prof.key_averages()
+             if ev.device_type != DeviceType.CPU)
+    return us / 1e3 / repeats
 
 
 def bound_ms(flops, nbytes):
@@ -246,7 +271,8 @@ def fault_share(got, ref, rtol, share):
 
 def train_phases(torch, kernels, smi, cfg, rcfg):
     """The training half of the main path; adds the training kernels to
-    ``kernels``. Raises on any failed check."""
+    ``kernels``. Raises on any failed check. Returns the synthetic corpus
+    and the temporary directory that holds it, for the Bayesian phases."""
     from unittest import mock
 
     from bayeslms_tpu_torch import TrainConfig
@@ -520,7 +546,358 @@ def train_phases(torch, kernels, smi, cfg, rcfg):
         if got.shape != (n_hyps,) or not np.all(np.isfinite(got)) \
                 or rel > TRAINED_SCORE_RTOL:
             raise AssertionError("rescoring from the checkpoint failed")
-    tmp.cleanup()
+    return corpus, tmp
+
+
+# ---------------------------------------------------------------- Bayesian
+# The Bayesian gate-slice LSTM (Bayes2LSTM) of the paper at the bench's
+# width: position 3 (the g gate's rows), as exp/campaign/torch_lstm_bayes3
+# and the JAX package's ours_lstm_bayes3 runs. A step draws four (1,024,
+# 1,024) float32 slices with the sampler kernel: weight_{hh,ih}_lgstd_{1,2}.
+BAYES_POS = 3
+SAMPLER_CALLS_PER_STEP = 4
+PEAK_FP32_FLOPS = 67e12  # H100 SXM, float32 outside the tensor cores
+# The sampler against its twin: bit-equal uniforms; eps from them within
+# 8 ulps at [4, 8) (eps <= 7.5; the library's log and cos may differ by an
+# ulp or two), and a sample exp(lgstd) eps within that times exp(lgstd)
+# plus 2^-21 of its own magnitude (the exp).
+EPS_ATOL = 8 * 2.0 ** -21
+SAMPLE_RTOL = 2.0 ** -21
+SIGMAS = 5.0  # moment and correlation limits, in standard errors
+# Planted faults of the sampler, built from csrc/bayes_sample.cu with a
+# define (see its header); each must fail one check or more.
+SAMPLER_FAULTS = {
+    "tile index dropped from the key":
+        ("bayes_sample", ("-DBAYES_SAMPLE_FAULT=1",)),
+    "u1 without its 1e-12 offset":
+        ("bayes_sample", ("-DBAYES_SAMPLE_FAULT=2",)),
+    "u1 from a 23-bit shift": ("bayes_sample", ("-DBAYES_SAMPLE_FAULT=3",)),
+}
+
+
+def corr(torch, a, b):
+    a, b = a.double().reshape(-1), b.double().reshape(-1)
+    a, b = a - a.mean(), b - b.mean()
+    return float((a * b).sum() / (a.norm() * b.norm()))
+
+
+def sampler_checks(torch, bsc, calls):
+    """The sampler's checks on the recorded (lgstd, seed) calls, each
+    {name: (value, limit)}; a check passes when value <= limit (so a NaN
+    fails it). Returns the checks and every eps drawn."""
+    eps_all, err_share, mismatch, repeat = [], 0.0, 0, 0
+    tile_r, seed_r = 0.0, 0.0
+    for lg, seed in calls:
+        shape = tuple(lg.shape)
+        noise, u1, u2 = bsc.sample_uniforms(lg, seed)
+        p1, p2 = bsc.uniforms_plain(seed, shape)
+        mismatch += int((u1 != p1).sum()) + int((u2 != p2).sum())
+        ref = torch.exp(lg) * bsc.normal_plain(seed, shape)
+        err_share = max(err_share, float(
+            ((noise - ref).abs() / (EPS_ATOL * torch.exp(lg)
+                                    + SAMPLE_RTOL * ref.abs())).max()))
+        repeat += int((bsc.sample_weights(None, lg, seed) != noise).sum())
+        eps = (noise / torch.exp(lg)).double()
+        tiles = eps.shape[0] // bsc.TILE_ROWS
+        for j in range(tiles - 1):
+            t = bsc.TILE_ROWS
+            tile_r = max(tile_r, abs(corr(torch, eps[j * t:(j + 1) * t],
+                                          eps[(j + 1) * t:(j + 2) * t])))
+        for other in eps_all:
+            seed_r = max(seed_r, abs(corr(torch, eps, other)))
+        eps_all.append(eps)
+        del noise, u1, u2, p1, p2, ref
+    x = torch.cat([e.reshape(-1) for e in eps_all])
+    n = x.numel()
+    bad = int((~torch.isfinite(x)).sum())
+    mean = float(x.mean())
+    var = float(x.var())
+    kurt = float(((x - mean) ** 4).mean()) / var ** 2
+    n_tile = bsc.TILE_ROWS * eps_all[0].shape[1]
+    return {
+        "non-finite eps": (bad, 0),
+        "uniforms differing from the twin's": (mismatch, 0),
+        "eps error / its tolerance": (err_share, 1.0),
+        "same seed: elements that differ": (repeat, 0),
+        "|mean|": (abs(mean), SIGMAS / np.sqrt(n)),
+        "|var - 1|": (abs(var - 1), SIGMAS * np.sqrt(2 / n)),
+        "|kurtosis - 3|": (abs(kurt - 3), SIGMAS * np.sqrt(24 / n)),
+        "max |corr| of neighbouring tiles": (tile_r,
+                                             SIGMAS / np.sqrt(n_tile)),
+        "max |corr| across seeds": (seed_r, SIGMAS / np.sqrt(
+            eps_all[0].numel())),
+    }, x
+
+
+def grad_check(torch, bsc, lg, seed):
+    """max |d/dlgstd sum(g * noise) - g * noise|: zero for the
+    autograd Function's backward."""
+    lgr = lg.detach().clone().requires_grad_(True)
+    noise = bsc.sample_noise(lgr, seed)
+    g = torch.randn(lg.shape, device=lg.device,
+                    generator=torch.Generator(device=lg.device).manual_seed(4))
+    (noise * g).sum().backward()
+    return float((lgr.grad - g * noise.detach()).abs().max())
+
+
+def bayes_phases(torch, kernels, smi, cfg, rcfg, corpus, tmpdir,
+                 dev="cuda"):
+    """The Bayesian LSTM's training and scoring on the training phases'
+    corpus; adds the sampler kernel to ``kernels``. Raises on any failed
+    check."""
+    import dataclasses
+    from unittest import mock
+
+    from bayeslms_tpu_torch import TrainConfig
+    from bayeslms_tpu_torch.core.checkpoint import load_checkpoint
+    from bayeslms_tpu_torch.data.corpus import batchify
+    from bayeslms_tpu_torch.models.lstm_lm import (draw_dropout_masks,
+                                                   init_hidden)
+    from bayeslms_tpu_torch.ops import _build
+    from bayeslms_tpu_torch.ops import bayes_sample_cuda as bsc
+    from bayeslms_tpu_torch.ops import ce_cuda
+    from bayeslms_tpu_torch.ops import ce_train_cuda as ctc
+    from bayeslms_tpu_torch.ops import lstm_cuda
+    from bayeslms_tpu_torch.ops import lstm_train_cuda as ltc
+    from bayeslms_tpu_torch.rescore.scorer import BatchScorer
+    from bayeslms_tpu_torch.train.loop import Trainer
+
+    bcfg = dataclasses.replace(cfg, uncertainty="Bayesian",
+                               l_bayes_pos=BAYES_POS)
+    B, T = TRAIN_BATCH, TRAIN_SEQ
+    save = os.path.join(tmpdir, "bayes.ckpt")
+    with phase("bayes setup"):
+        tcfg = TrainConfig(lr=5.0, momentum=0.9, clip=1.0, batch_size=B,
+                           seq_len=T, eval_batch_size=EVAL_BATCH, epochs=1,
+                           log_interval=10, save=save)
+        trainer = Trainer(bcfg, tcfg, device=dev)
+        state = trainer.init_state()
+        data = torch.from_numpy(corpus.train[:T * B].reshape(B, T).T.copy()
+                                ).long().to(dev)
+        target = torch.from_numpy(corpus.train[1:T * B + 1].reshape(B, T).T
+                                  .copy()).long().to(dev)
+        kl_scale = T / batchify(corpus.train, B).shape[0]
+        calls = []
+        real = bsc.sample_weights
+
+        def record(mean, lgstd, seed):
+            calls.append((lgstd.detach().clone(), seed.clone()))
+            return real(mean, lgstd, seed)
+
+        with mock.patch.object(bsc, "sample_weights", record):
+            trainer.train_step(state, init_hidden(2, B, bcfg.nhid,
+                                                  device=dev),
+                               data, target, kl_scale)
+        torch.cuda.synchronize()
+        print(f"  one step handed the sampler {len(calls)} slices: "
+              + ", ".join(f"{tuple(lg.shape)} seed {int(s)}"
+                          for lg, s in calls))
+        if len(calls) != SAMPLER_CALLS_PER_STEP:
+            raise AssertionError(f"{len(calls)} sampler calls in a step, "
+                                 f"{SAMPLER_CALLS_PER_STEP} expected")
+        del state
+
+    with phase("bayes_sample"):
+        checks, eps = sampler_checks(torch, bsc, calls)
+        failed = []
+        print(f"  {eps.numel()} draws of eps = out / exp(lgstd); tolerance "
+              f"{EPS_ATOL:.3e} exp(lgstd) + {SAMPLE_RTOL:.3e} |sample|")
+        for name, (value, limit) in checks.items():
+            print(f"  {name}: {value:.4g} (limit {limit:.4g})")
+            if not value <= limit:
+                failed.append(name)
+        print(f"  eps: mean {float(eps.mean()):.3e}, var "
+              f"{float(eps.var()):.6f}, |eps| max {float(eps.abs().max()):.4f}")
+        lg, seed = calls[0]
+        g_err = grad_check(torch, bsc, lg, seed)
+        print(f"  gradient: max |d/dlgstd - g noise| {g_err:.3e} (limit 0)")
+        if g_err > 0:
+            failed.append("gradient")
+        real_load = _build.load
+        for fault, kernel in SAMPLER_FAULTS.items():
+            with mock.patch.object(_build, "load", lambda k, v=kernel:
+                                   real_load(v)):
+                bad, _ = sampler_checks(torch, bsc, calls)
+            caught = [k for k, (v, lim) in bad.items() if not v <= lim]
+            print(f"  planted fault '{fault}': fails {len(caught)} checks: "
+                  + "; ".join(f"{k} {bad[k][0]:.4g} (limit {bad[k][1]:.4g})"
+                              for k in caught))
+            if not caught:
+                failed.append(f"fault '{fault}' passed every check")
+        with mock.patch.object(bsc._SampleNoise, "backward",
+                               staticmethod(lambda ctx, g: (g, None))):
+            bad_g = grad_check(torch, bsc, lg, seed)
+        print(f"  planted fault 'gradient returns g': max |d/dlgstd - g "
+              f"noise| {bad_g:.3e} (limit 0)")
+        if bad_g == 0:
+            failed.append("the gradient fault passed")
+        N, K = lg.shape
+        gen = torch.Generator(device=dev).manual_seed(6)
+        kernel_fn = lambda: bsc.sample_weights(None, lg, seed)  # noqa: E731
+        plain_fn = lambda: bsc.sample_weights_plain(None, lg, seed)  # noqa: E731
+        library_fn = lambda: torch.randn(  # noqa: E731
+            (N, K), generator=gen, device=dev) * torch.exp(lg)
+        # a call's device time (profiler): the event-timed call of a ~us
+        # kernel measures the host's launch path (printed beside it)
+        ms = device_ms(torch, kernel_fn, 20)
+        plain_ms = device_ms(torch, plain_fn, 3)
+        library_ms = device_ms(torch, library_fn, 20)
+        call_ms = cuda_ms(torch, kernel_fn, 5)
+        # bytes: lgstd read and the sample written, float32; operations:
+        # ~20 integer multiplies and xors a Philox call (half an element's)
+        # and ~8 float32 operations an element, against the float32 rate
+        t_bytes = N * K * 8 / PEAK_BYTES_PER_S
+        t_ops = N * K * (10 + 8) / PEAK_FP32_FLOPS
+        bms = 1e3 * max(t_bytes, t_ops)
+        bby = "bytes" if t_bytes >= t_ops else "operations"
+        print(f"  ({N}, {K}) float32, device time a call: kernel {ms:.4f} ms,"
+              f" plain {plain_ms:.4f} ms, library {library_ms:.4f} ms "
+              f"(torch.randn * exp(lgstd): three kernels, other bits), bound "
+              f"{bms:.4f} ms ({bby}); one wrapper call between CUDA events "
+              f"{call_ms:.4f} ms")
+        max_abs = max(float((bsc.sample_weights(None, l, s) - torch.exp(l)
+                             * bsc.normal_plain(s, tuple(l.shape)))
+                            .abs().max()) for l, s in calls)
+        kernels["bayes_sample"] = dict(
+            name="bayes_sample", route="cuda",
+            source="bayeslms_tpu_torch/csrc/bayes_sample.cu",
+            replaces="bayeslms_tpu/ops/bayes_matmul.py:109",
+            max_abs_err=max_abs, ms=ms, plain_ms=plain_ms, bound_ms=bms,
+            bound_by=bby, library_ms=library_ms)
+        if failed:
+            raise AssertionError(f"bayes_sample failed: {failed}")
+        del eps
+
+    with phase("bayes_train"):
+        for module in (ltc, ctc):
+            for k in module.launches:
+                module.launches[k] = 0
+        lstm_cuda.launches = 0
+        bsc.launches = 0
+        steps, kls = [], []
+        step = trainer.train_step
+
+        def counted_step(*a, **kw):
+            out = step(*a, **kw)
+            kls.append(out[3])
+            return out
+
+        def on_step(b, loss):
+            torch.cuda.synchronize()
+            steps.append((time.perf_counter(), float(loss)))
+
+        trainer.train_step = counted_step
+        t0 = time.perf_counter()
+        state, out = trainer.fit(corpus, log=lambda line: print("  " + line),
+                                 on_step=on_step)
+        fit_s = time.perf_counter() - t0
+        trainer.train_step = step
+        n = len(steps)
+        launches = {**ltc.launches, **ctc.launches, "bayes_sample": bsc.launches,
+                    "lstm2_fwd (evaluate)": lstm_cuda.launches}
+        print(f"  kernel launches in fit ({n} steps): {launches}")
+        losses = [l for _, l in steps]
+        kl = [float(k) for k in kls]
+        print("  loss per step: " + " ".join(f"{l:.4f}" for l in losses))
+        print(f"  KL term (KL x seq_len / rows = x {kl_scale:.5f}) per step: "
+              + " ".join(f"{k:.6f}" for k in kl))
+        print(f"  validation loss {out['history'][0]['val_loss']:.4f}; test "
+              f"loss {out['test_loss']:.4f}")
+        dts = np.diff([t for t, _ in steps])[2:]
+        step_ms = 1e3 * float(np.median(dts))
+        print(f"  step median {step_ms:.3f} ms over {len(dts)} warm steps, "
+              f"{T * B / step_ms * 1e3:.1f} tokens/s; fit {fit_s:.1f} s on "
+              f"{smi}")
+        per_step = {"lstm_train_fwd": 2, "lstm_train_bwd": 2,
+                    "ce_train_fwd": 1, "ce_train_dh": 1, "ce_train_de": 1,
+                    "bayes_sample": SAMPLER_CALLS_PER_STEP}
+        for name, k in per_step.items():
+            if launches[name] != k * n:
+                raise AssertionError(f"{name}: {launches[name]} launches in "
+                                     f"{n} steps, {k} a step expected")
+        kernels["bayes_sample"]["launches"] = launches["bayes_sample"]
+        if launches["lstm2_fwd (evaluate)"] == 0:
+            raise AssertionError("evaluate never launched lstm2_fwd")
+        if not all(np.isfinite(losses)) or not np.isfinite(out["test_loss"]):
+            raise AssertionError("a training loss is not finite")
+        if not all(np.isfinite(k) and k > 0 for k in kl):
+            raise AssertionError(f"the KL term is not finite and > 0: {kl}")
+        if np.mean(losses[-5:]) >= np.mean(losses[:5]):
+            raise AssertionError(
+                f"the loss did not fall: first 5 {np.mean(losses[:5]):.4f}, "
+                f"last 5 {np.mean(losses[-5:]):.4f}")
+        del state
+
+    with phase("bayes train step against plain versions"):
+        # the same weights, batch and dropout masks; the same eps: the
+        # generator is reseeded before each step, so both draw the same
+        # sampler seeds (kernel against twin) and the same bias noise
+        gen = torch.Generator(device=dev).manual_seed(3)
+        masks = draw_dropout_masks(bcfg, T, B, gen, dev)
+
+        def one_step():
+            st = trainer.init_state(seed=5)
+            trainer.gen.manual_seed(11)
+            _, loss, _, kl, gnorm = trainer.train_step(
+                st, init_hidden(2, B, bcfg.nhid, device=dev), data, target,
+                kl_scale, dropout_masks=masks)
+            grads = {k: p.grad.clone() for k, p in st.params.items()}
+            return float(loss), float(kl), float(gnorm), grads
+
+        k_loss, k_kl, k_gn, k_grads = one_step()
+        plain = [mock.patch.object(m, n, getattr(m, n + "_plain"))
+                 for m, n in ((ltc, "lstm_train_fwd"), (ltc, "lstm_train_bwd"),
+                              (ctc, "ce_train_fwd"), (ctc, "ce_train_dh"),
+                              (ctc, "ce_train_de"), (bsc, "sample_weights"))]
+        with contextlib.ExitStack() as stack:
+            for p in plain:
+                stack.enter_context(p)
+            p_loss, p_kl, p_gn, p_grads = one_step()
+        print(f"  loss kernel {k_loss:.6f} plain {p_loss:.6f} (tolerance "
+              f"{STEP_LOSS_ATOL:.0e}); KL term {k_kl:.6f} / {p_kl:.6f}; "
+              f"gnorm {k_gn:.6f} / {p_gn:.6f}")
+        worst = 0.0
+        for k, g in p_grads.items():
+            big = float(g.abs().max())
+            e = max_err(k_grads[k], g)
+            worst = max(worst, e / (STEP_GRAD_SHARE * big + 1e-30))
+            print(f"  grad {k}: |plain| max {big:.3e}; max |kernel - plain| "
+                  f"{e:.3e} ({e / (big + 1e-30):.2e} of the max)")
+        if abs(k_loss - p_loss) > STEP_LOSS_ATOL or worst > 1:
+            raise AssertionError(f"the Bayes kernel-path step disagrees with "
+                                 f"the plain path (worst share {worst:.3f})")
+        del k_grads, p_grads
+
+    with phase("bayes_score"):
+        params, meta = load_checkpoint(save)
+        print(f"  checkpoint of epoch {meta['epoch']}, val loss "
+              f"{meta['val_loss']:.4f}; scored at the posterior mean")
+        scorer = BatchScorer(bcfg, params, rcfg, device=dev)
+        nbest = make_synthetic_nbest(n_meetings=2, vocab_words=cfg.vocab_size
+                                     - 2)
+        w2i = corpus.vocab.word2idx
+        lstm_cuda.launches = 0
+        ce_cuda.launches = 0
+        res = scorer.score_nbest(nbest, w2i, stream_fn=stream_of)
+        got = np.array([s for pairs in res.values() for _, s in pairs])
+        torch.cuda.synchronize()
+        print(f"  kernel launches: lstm2_fwd {lstm_cuda.launches}, ce_fwd "
+              f"{ce_cuda.launches}")
+        if lstm_cuda.launches == 0 or ce_cuda.launches == 0:
+            raise AssertionError("Bayes scoring did not run kernels 1-2")
+        with mock.patch.object(lstm_cuda, "lstm2_fwd", lstm_cuda.lstm2_plain), \
+                mock.patch.object(ce_cuda, "fused_decode_ce", ce_cuda.ce_plain):
+            ref = np.array([s for pairs in scorer.score_nbest(
+                nbest, w2i, stream_fn=stream_of).values() for _, s in pairs])
+        n_hyps = sum(len(h) for h in nbest.values())
+        rel = float((np.abs(got - ref) / np.abs(ref)).max())
+        print(f"  {n_hyps} hypotheses, scores mean {got.mean():.3f}, max "
+              f"{np.abs(ref).max():.3f}; max |kernel - plain| "
+              f"{float(np.abs(got - ref).max()):.4e}, relative {rel:.3e} "
+              f"(tolerance {TRAINED_SCORE_RTOL:.0e})")
+        if got.shape != (n_hyps,) or not np.all(np.isfinite(got)) \
+                or rel > TRAINED_SCORE_RTOL:
+            raise AssertionError("Bayes scoring failed")
 
 
 def library_yardstick(torch, name, args):
@@ -587,7 +964,10 @@ def main():
 
     with phase("build"):
         t0 = time.perf_counter()
-        for name, path in _build.build().items():
+        # the port's kernels and the sampler's planted-fault variants, all
+        # nvcc processes at once
+        for name, path in _build.build([*_build.KERNELS,
+                                        *SAMPLER_FAULTS.values()]).items():
             print(f"  {name}: {path}")
         print(f"  build seconds {time.perf_counter() - t0:.1f}")
 
@@ -770,7 +1150,9 @@ def main():
             raise AssertionError(f"a planted fault passes the score "
                                  f"tolerance: {faults}")
 
-    train_phases(torch, kernels, smi, cfg, rcfg)
+    corpus, tmp = train_phases(torch, kernels, smi, cfg, rcfg)
+    bayes_phases(torch, kernels, smi, cfg, rcfg, corpus, tmp.name)
+    tmp.cleanup()
 
     print(json.dumps({"kernels": list(kernels.values())}))
     print(json.dumps({"ok": True, "device": {

@@ -1,0 +1,256 @@
+"""The port's weight exchange (``core.checkpoint``, ``core.flax_msgpack``)
+against the JAX package and the reference's own checkpoints and logs, on
+the CPU in float32.
+
+The repository holds checkpoints that the reference's ``train.py`` wrote
+(``exp/campaign/torch_lstm_*/model.pt``, ``prior_lstm/model.pt``) with
+their training logs, one that the JAX package wrote
+(``ours_lstm_bayes3_e8/model.ckpt`` and its ``.json`` sidecar), and the
+corpus they were trained on (``exp/corpus_mid``). The port reads them with
+neither JAX, flax nor msgpack, gives the JAX package's trees, and its
+evaluation meets the logged perplexities at the JAX package's eval batch
+size of 20: each log states its perplexity to two decimals, so the port's
+exp(loss) must round to it (``pytest -s`` prints the values read). Each
+such check evaluates all of a 220,000-token split (~46 s on one CPU
+thread), so it is marked ``slow``: ``pytest -m slow
+tests/test_torch_port_checkpoint.py`` runs them."""
+
+import math
+import os
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from flax import serialization
+
+import bayeslms_tpu as jx
+from bayeslms_tpu.core import checkpoint as jck
+from bayeslms_tpu.models.lstm_lm import init_hidden as j_init_hidden
+import bayeslms_tpu_torch as bt
+from bayeslms_tpu_torch.core import checkpoint as tck
+from bayeslms_tpu_torch.core import flax_msgpack
+from bayeslms_tpu_torch.data.corpus import Corpus, batchify
+from bayeslms_tpu_torch.train.loop import Trainer
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CAMPAIGN = os.path.join(ROOT, "exp", "campaign")
+CORPUS = os.path.join(ROOT, "exp", "corpus_mid")
+EVAL_BATCH = 20  # the JAX package's TrainConfig.eval_batch_size
+
+
+def _cfg(pkg, uncertainty="Bayesian", pos=3):
+    """The campaign's models: LSTM 256/256 x 2, tied, V = 10,000."""
+    return pkg.ModelConfig(model="LSTM", vocab_size=10000, emsize=256,
+                           nhid=256, nlayers=2, dropout=0.2,
+                           uncertainty=uncertainty, l_bayes_pos=pos)
+
+
+def _flat(tree, prefix=""):
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(_flat(v, f"{prefix}{k}/"))
+        else:
+            out[f"{prefix}{k}"] = v
+    return out
+
+
+def _assert_trees_equal(got, ref):
+    got, ref = _flat(got), _flat(ref)
+    assert sorted(got) == sorted(ref)
+    for k, v in ref.items():
+        assert np.asarray(got[k]).dtype == np.asarray(v).dtype, k
+        np.testing.assert_array_equal(np.asarray(got[k]), np.asarray(v),
+                                      err_msg=k)
+
+
+@pytest.mark.parametrize("name,unc,pos", [
+    ("torch_lstm_bayes3", "Bayesian", 3),
+    ("torch_lstm_base_quick", "none", 0),
+    ("prior_lstm", "Bayesian", 0),
+])
+def test_import_of_the_reference_checkpoints_matches_jax(name, unc, pos):
+    path = os.path.join(CAMPAIGN, name, "model.pt")
+    got = tck.load_torch_checkpoint(path, _cfg(bt, unc, pos))
+    _assert_trees_equal(got, jck.load_torch_checkpoint(path,
+                                                       _cfg(jx, unc, pos)))
+    _assert_trees_equal(tck.load_params(path, _cfg(bt, unc, pos)), got)
+    # and the tree fills the model it was trained as
+    model = bt.build_model(_cfg(bt, unc, pos))
+    tree, updated = tck.partial_update(bt.init_params(model, _cfg(bt, unc,
+                                                                  pos)), got)
+    assert len(updated) == len(_flat(got))
+    tck.params_from_jax(model, tree)
+
+
+def test_import_maps_every_rnn_name_as_jax():
+    """Synthetic state_dict: nn.LSTM names, Bayes(2)LSTM names, an untied
+    decoder and keys with no counterpart."""
+    rng = np.random.default_rng(0)
+    sd = {k: rng.normal(size=s).astype(np.float32) for k, s in (
+        ("encoder.weight", (7, 4)), ("decoder.weight", (7, 4)),
+        ("decoder.bias", (7,)), ("rnn.weight_ih_l0", (16, 4)),
+        ("rnn.bias_hh_l1", (16,)), ("rnn.weight_hh_lgstd_1", (4, 4)),
+        ("rnn.bias_ih_mean_2", (16,)), ("rnn.weight_hh_l0_extra", (2,)),
+        ("transformerlayers.0.linear1.weight", (3, 4)),
+        ("pos_encoder.pe", (5, 1, 4)))}
+    for tied in (True, False):
+        kw = dict(model="LSTM", vocab_size=7, emsize=4, nhid=4, tied=tied)
+        _assert_trees_equal(
+            tck.import_torch_state_dict(sd, bt.ModelConfig(**kw)),
+            {k: v for k, v in jck.import_torch_state_dict(
+                sd, jx.ModelConfig(**kw)).items() if k != "layers_0"})
+
+
+def test_partial_update_matches_jax():
+    rng = np.random.default_rng(1)
+    params = {"embedding": rng.normal(size=(5, 3)).astype(np.float32),
+              "decoder_b": np.zeros(5, np.float32),
+              "core": {"a": rng.normal(size=(4, 3)).astype(np.float32),
+                       "b": rng.normal(size=(4,)).astype(np.float32),
+                       "c": rng.normal(size=(2,)).astype(np.float32)}}
+    prior = {"embedding": rng.normal(size=(5, 3)),  # float64: cast back
+             "core": {"a": rng.normal(size=(4, 3)).astype(np.float32),
+                      "b": rng.normal(size=(5,)).astype(np.float32),
+                      "d": np.ones(3, np.float32)},
+             "extra": np.ones(2, np.float32)}
+    got, upd = tck.partial_update(params, prior)
+    ref, ref_upd = jck.partial_update(params, prior)
+    assert upd == ref_upd == ["embedding", "core/a"]
+    _assert_trees_equal(got, ref)
+    np.testing.assert_array_equal(params["core"]["b"], got["core"]["b"])
+
+
+def test_msgpack_reader_matches_jax_on_the_campaign_checkpoint():
+    path = os.path.join(CAMPAIGN, "ours_lstm_bayes3_e8", "model.ckpt")
+    got, meta = tck.load_jax_checkpoint(path)
+    ref, ref_meta = jck.load_checkpoint(path)
+    _assert_trees_equal(got, ref)
+    assert meta == ref_meta and meta["epoch"] == 8
+    _assert_trees_equal(tck.load_params(path, _cfg(bt)), ref)
+
+
+def test_msgpack_reader_decodes_what_flax_writes():
+    """Every msgpack type a flax tree may hold: nested maps, ndarrays of
+    several dtypes and shapes (0-d, empty, over 64 KiB for bin 32), numpy
+    scalars, Python ints of every width, floats, bools, None, strings,
+    lists; against flax's own ``msgpack_restore``."""
+    rng = np.random.default_rng(2)
+    tree = {
+        "f32": rng.normal(size=(3, 5)).astype(np.float32),
+        "big": rng.normal(size=(200, 100)).astype(np.float32),
+        "i32": np.arange(-4, 4, dtype=np.int32).reshape(2, 4),
+        "f64": np.float64(2.5) * np.ones((2,)),
+        "u8": np.arange(300, dtype=np.uint8)[:7],
+        "zero_d": np.asarray(3.0, np.float32), "empty": np.zeros((0, 4)),
+        "scalar": np.float32(1.25),
+        "nested": {"ints": [0, 1, -1, -33, 127, 128, 255, 256, 65535,
+                            65536, 2 ** 32, -(2 ** 40), 2 ** 63 - 1],
+                   "float": 0.1, "flags": [True, False, None],
+                   "text": "x" * 40, "long_text": "y" * 70000, "t": "é"},
+    }
+    data = serialization.msgpack_serialize(tree)
+    got = flax_msgpack.restore(data)
+    ref = serialization.msgpack_restore(data)
+
+    def same(a, b):
+        if isinstance(b, dict):
+            assert isinstance(a, dict) and sorted(a) == sorted(b)
+            for k in b:
+                same(a[k], b[k])
+        elif isinstance(b, (list, tuple)):
+            assert len(a) == len(b)
+            for x, y in zip(a, b):
+                same(x, y)
+        elif isinstance(b, (np.ndarray, np.generic)):
+            assert np.asarray(a).dtype == np.asarray(b).dtype
+            np.testing.assert_array_equal(a, b)
+        else:
+            assert a == b and type(a) is type(b)
+
+    same(got, ref)
+    with pytest.raises(ValueError):
+        flax_msgpack.restore(data[:-3])
+
+
+def _eval_windows(rows, n):
+    return [(rows[i:i + 100], rows[i + 1:i + 101]) for i in range(0, 100 * n,
+                                                                   100)]
+
+
+def test_first_validation_windows_of_the_bayes_checkpoint_match_jax():
+    """torch_lstm_bayes3 (reference, L_bayes_pos 3) at the posterior mean:
+    the CE of the first validation windows, carried state, through the
+    port and through the JAX package's import of the same file;
+    rtol 2e-4."""
+    path = os.path.join(CAMPAIGN, "torch_lstm_bayes3", "model.pt")
+    corpus = Corpus(CORPUS)
+    rows = batchify(corpus.valid, EVAL_BATCH)[:301]
+    jcfg = _cfg(jx)
+    jmodel = jx.build_model(jcfg)
+    jparams, _ = jck.partial_update(jx.init_params(jmodel, jcfg),
+                                    jck.load_torch_checkpoint(path, jcfg))
+    model = tck.params_from_jax(bt.build_model(_cfg(bt)),
+                                tck.load_torch_checkpoint(path, _cfg(bt)))
+    jh = j_init_hidden(2, EVAL_BATCH, 256)
+    th = (torch.zeros(2, EVAL_BATCH, 256), torch.zeros(2, EVAL_BATCH, 256))
+    for d, t in _eval_windows(rows, 3):
+        jlogits, jh = jmodel.apply({"params": jparams}, jnp.asarray(d), jh,
+                                   deterministic=True)
+        ref = float(jnp.mean(jax.nn.logsumexp(jlogits, -1) - jnp.take_along_axis(
+            jlogits, jnp.asarray(t)[..., None], -1)[..., 0]))
+        with torch.no_grad():
+            logits, th = model(torch.from_numpy(d).long(), th)
+        got = float(torch.nn.functional.cross_entropy(
+            logits.reshape(-1, 10000), torch.from_numpy(t).long().reshape(-1)))
+        np.testing.assert_allclose(got, ref, rtol=2e-4)
+        assert 3.0 < got < 6.0
+
+
+def _evaluate(path, cfg, split):
+    model = tck.params_from_jax(bt.build_model(cfg), tck.load_params(path,
+                                                                     cfg))
+    trainer = Trainer(cfg, bt.TrainConfig(eval_batch_size=EVAL_BATCH),
+                      device="cpu")
+    loss = trainer.evaluate(model, batchify(getattr(Corpus(CORPUS), split),
+                                            EVAL_BATCH))
+    print(f"{os.path.relpath(path, ROOT)} on {split}.txt, eval batch "
+          f"{EVAL_BATCH}: loss {loss:.6f}, ppl {math.exp(loss):.4f}")
+    return loss
+
+
+def _meets_log(loss, ppl):
+    """exp(loss) rounds to the logged ppl; |loss - ln ppl| is then within
+    the rounding half-width, ln(ppl + 0.005) - ln ppl."""
+    half = math.log(ppl + 0.005) - math.log(ppl)
+    assert round(math.exp(loss), 2) == ppl, (loss, math.exp(loss), ppl)
+    assert abs(loss - math.log(ppl)) <= half
+
+
+@pytest.mark.slow
+def test_reference_base_quick_meets_its_valid_ppl():
+    """train.log, epoch 4: valid ppl 82.35 (ln 4.41098 +- 6.1e-5)."""
+    loss = _evaluate(os.path.join(CAMPAIGN, "torch_lstm_base_quick",
+                                  "model.pt"), _cfg(bt, "none", 0), "valid")
+    _meets_log(loss, 82.35)
+
+
+@pytest.mark.slow
+def test_reference_bayes3_meets_its_test_ppl_at_the_posterior_mean():
+    """train.log, end of training: test ppl 61.61 (ln 4.12082 +- 8.1e-5)."""
+    loss = _evaluate(os.path.join(CAMPAIGN, "torch_lstm_bayes3", "model.pt"),
+                     _cfg(bt), "test")
+    _meets_log(loss, 61.61)
+
+
+@pytest.mark.slow
+def test_jax_checkpoint_meets_its_sidecar_val_loss():
+    """The JAX package's ours_lstm_bayes3_e8: the sidecar's val_loss
+    4.254958121192836 at epoch 8, within 2e-5 (its float32 CE sums in
+    another order; 6.6e-6 apart in this port's CPU run)."""
+    path = os.path.join(CAMPAIGN, "ours_lstm_bayes3_e8", "model.ckpt")
+    meta = tck.load_jax_checkpoint(path)[1]
+    loss = _evaluate(path, _cfg(bt), "valid")
+    assert abs(loss - meta["val_loss"]) <= 2e-5, (loss, meta["val_loss"])

@@ -72,7 +72,7 @@ def test_init_params_tree_and_laws():
     dict(nlayers=1),
     dict(nlayers=3),
     dict(model="Transformer"),
-    dict(uncertainty="Bayesian", l_bayes_pos=3),
+    dict(uncertainty="Gaussian"),
     dict(tied=False),
 ])
 def test_unported_models_raise(extra):

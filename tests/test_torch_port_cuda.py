@@ -7,7 +7,7 @@ chip_smoke.py checks the same kernels at the main path's shapes."""
 import pytest
 import torch
 
-from bayeslms_tpu_torch.ops import _build, ce_cuda, lstm_cuda
+from bayeslms_tpu_torch.ops import _build, bayes_sample_cuda, ce_cuda, lstm_cuda
 
 pytestmark = pytest.mark.cuda
 
@@ -163,3 +163,47 @@ def test_train_wrappers_refuse_what_the_kernels_do_not_take(dev):
         ctc.ce_train_fwd(h, torch.zeros((5, 128), device=dev),
                          torch.zeros(5, device=dev),
                          torch.zeros(4, dtype=torch.long, device=dev))
+
+
+# eps = sqrt(-2 log u1) cos(2 pi u2) <= 7.5 from bit-equal uniforms; the
+# library's log, cos (and, for a sample, exp) may differ by an ulp or two
+# between the kernel and torch: 8 ulps at [4, 8) for eps, and 2^-21 of the
+# sample's own magnitude for the exp
+EPS_ATOL = 8 * 2.0 ** -21
+
+
+@pytest.mark.parametrize("shape", [(256, 384), (1024, 1024)])
+def test_sampler_kernel_matches_plain(dev, shape):
+    g = torch.Generator().manual_seed(shape[1])
+    lg = (torch.rand(shape, generator=g) * 3 - 3).to(dev)
+    mean = torch.randn(shape, generator=g).to(dev)
+    seed = torch.tensor([2 ** 31 - 3], dtype=torch.int32, device=dev)
+    before = bayes_sample_cuda.launches
+    noise, u1, u2 = bayes_sample_cuda.sample_uniforms(lg, seed)
+    p1, p2 = bayes_sample_cuda.uniforms_plain(seed, shape)
+    assert torch.equal(u1, p1) and torch.equal(u2, p2)  # bit for bit
+    eps = bayes_sample_cuda.normal_plain(seed, shape)
+    ref = torch.exp(lg) * eps
+    assert float(((noise - ref).abs() - EPS_ATOL * torch.exp(lg)
+                  - 2.0 ** -21 * ref.abs()).max()) <= 0
+    got = bayes_sample_cuda.sample_weights(mean, lg, seed)
+    torch.testing.assert_close(
+        got, bayes_sample_cuda.sample_weights_plain(mean, lg, seed),
+        rtol=2.0 ** -21, atol=EPS_ATOL * float(torch.exp(lg).max()))
+    assert bayes_sample_cuda.launches == before + 2
+    # the same seed draws the same bits; the gradient is the noise
+    lgr = lg.clone().requires_grad_(True)
+    n = bayes_sample_cuda.sample_noise(lgr, seed)
+    assert torch.equal(n.detach(), noise)
+    (n * 3.0).sum().backward()
+    assert torch.equal(lgr.grad, noise * 3.0)
+
+
+def test_sampler_refuses_what_the_kernel_does_not_take(dev):
+    seed = torch.zeros((1,), dtype=torch.int32, device=dev)
+    for lg, sd in ((torch.zeros((3, 5), device=dev), seed),
+                   (torch.zeros((4, 4), device=dev, dtype=torch.bfloat16), seed),
+                   (torch.zeros((4, 4), device=dev), seed.cpu()),
+                   (torch.zeros((4, 4), device=dev), seed.long())):
+        with pytest.raises(ValueError):
+            bayes_sample_cuda.sample_weights(None, lg, sd)

@@ -1,6 +1,7 @@
 """The port stands alone: bayeslms_tpu_torch imports neither JAX (jax,
-flax, optax) nor anything of bayeslms_tpu, and its entry points run on
-the card unless the caller asks for the CPU."""
+flax, optax), msgpack nor anything of bayeslms_tpu, reads the reference's
+``model.pt`` and the JAX package's ``.ckpt`` without them, and its entry
+points run on the card unless the caller asks for the CPU."""
 
 import ast
 import os
@@ -13,7 +14,7 @@ import torch
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 PKG = ROOT / "bayeslms_tpu_torch"
-BANNED = ("jax", "jaxlib", "flax", "optax", "bayeslms_tpu")
+BANNED = ("jax", "jaxlib", "flax", "optax", "msgpack", "bayeslms_tpu")
 
 
 def _banned(name: str) -> bool:
@@ -64,6 +65,12 @@ scorer = BatchScorer(cfg, init_params(build_model(cfg), cfg), RescoreConfig(),
 w2i = {{"<s>": 0, "<unk>": 1, **{{f"w{{i}}": i for i in range(2, 12)}}}}
 out = scorer.score_nbest({{"u1": ["w2 w3", "w4"], "u2": ["w5 zz"]}}, w2i)
 assert [len(v) for v in out.values()] == [2, 1]
+from bayeslms_tpu_torch.core.checkpoint import load_params
+bcfg = ModelConfig(model="LSTM", vocab_size=10000, emsize=256, nhid=256,
+                   uncertainty="Bayesian", l_bayes_pos=3)
+for path in ("exp/campaign/torch_lstm_bayes3/model.pt",
+             "exp/campaign/ours_lstm_bayes3_e8/model.ckpt"):
+    BatchScorer(bcfg, load_params(path, bcfg), RescoreConfig(), device="cpu")
 assert not [m for m in sys.modules if m.split(".")[0] in {banned!r}]
 print("ISOLATED", sorted(round(s, 3) for v in out.values() for _, s in v))
 """

@@ -311,8 +311,7 @@ def test_trainer_defaults_to_cuda_and_refuses_unported_options(monkeypatch):
     _, cfg = _cfgs()
     with pytest.raises(RuntimeError, match="no CUDA device"):
         Trainer(cfg, TrainConfig())
-    for kw in (dict(dp_shards=2), dict(prior=True), dict(prior_kl=True),
-               dict(resume=True), dict(profile_dir="p")):
+    for kw in (dict(dp_shards=2), dict(resume=True), dict(profile_dir="p")):
         with pytest.raises(NotImplementedError):
             Trainer(cfg, TrainConfig(**kw), device="cpu")
 

@@ -1,12 +1,14 @@
 #!/usr/bin/env python3
 """Where one warm training step of the PyTorch/CUDA port spends its time.
 
-    python3 tools/port_train_profile.py
+    python3 tools/port_train_profile.py [--bayes-pos N]
 
 Needs a CUDA card and nvcc. Builds the training configuration of
 chip_smoke.py (the bench's 2-layer 1024/1024 LSTM LM, V = 49,152, bf16,
 dropout 0.2; batch 32, seq_len 100, the recipe's lr, momentum and clip) on
-its synthetic Markov corpus, runs three warm-up steps, times five steps
+its synthetic Markov corpus; ``--bayes-pos N`` (1-5) trains the Bayesian
+gate-slice LSTM at ``l_bayes_pos=N`` instead, its KL scaled by
+seq_len / rows as in ``Trainer.run_epoch``. It runs three warm-up steps, times five steps
 without the profiler, then traces three steps with torch.profiler and prints
 the device time by kernel, the device's busy time and its idle share of
 the traced steps. Nothing is written to disk outside a temporary directory.
@@ -21,6 +23,9 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 
 def main():
+    import argparse
+    import dataclasses
+
     import numpy as np
     import torch
     from torch.autograd import DeviceType
@@ -35,7 +40,14 @@ def main():
     if not torch.cuda.is_available():
         print("port_train_profile: no CUDA device", file=sys.stderr)
         return 1
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--bayes-pos", type=int, default=0,
+                    help="1-5: the Bayesian LSTM at this l_bayes_pos")
+    args = ap.parse_args()
     cfg, _, _, _ = chip_smoke.bench_setup()
+    if args.bayes_pos:
+        cfg = dataclasses.replace(cfg, uncertainty="Bayesian",
+                                  l_bayes_pos=args.bayes_pos)
     B, T = chip_smoke.TRAIN_BATCH, chip_smoke.TRAIN_SEQ
     with tempfile.TemporaryDirectory() as tmp:
         chip_smoke.write_markov_corpus(tmp, cfg.vocab_size - 2,
@@ -43,14 +55,16 @@ def main():
         corpus = Corpus(tmp)
     trainer = Trainer(cfg, TrainConfig(lr=5.0, batch_size=B, seq_len=T))
     state = trainer.init_state()
-    data, tgt = (torch.from_numpy(a).long().cuda()
-                 for a in windows(batchify(corpus.train, B), T))
+    rows = batchify(corpus.train, B)
+    kl_scale = T / rows.shape[0]
+    data, tgt = (torch.from_numpy(a).long().cuda() for a in windows(rows, T))
     hidden = init_hidden(cfg.nlayers, B, cfg.nhid, device="cuda")
 
     def steps(first, n):
         nonlocal hidden
         for b in range(first, first + n):
-            hidden, *_ = trainer.train_step(state, hidden, data[b], tgt[b])
+            hidden, *_ = trainer.train_step(state, hidden, data[b], tgt[b],
+                                            kl_scale)
         torch.cuda.synchronize()
 
     steps(0, 3)
@@ -71,9 +85,12 @@ def main():
     print(f"step {plain_ms:.1f} ms untraced (mean of 5), {traced_ms:.1f} ms "
           f"traced (mean of 3); device busy {busy_ms:.1f} ms a step, idle "
           f"share {1 - busy_ms / traced_ms:.3f} of the traced steps "
-          f"({torch.cuda.get_device_name(0)})")
+          f"({torch.cuda.get_device_name(0)}; uncertainty={cfg.uncertainty}"
+          f", l_bayes_pos={cfg.l_bayes_pos})")
     print("device ms a step  calls a step  name")
-    for dev_us, count, key in rows[:20]:
+    # the top 20, and the port's sampler kernel wherever it ranks
+    for dev_us, count, key in [r for i, r in enumerate(rows)
+                               if i < 20 or "bayes_sample" in r[2]]:
         print(f"{dev_us / 1e3 / 3:16.3f}  {count / 3:12.1f}  {key[:90]}")
     return 0 if np.isfinite(busy_ms) else 1
 
