@@ -4,10 +4,13 @@
 The JAX parameter tree is nested dicts of arrays: ``{"embedding",
 "decoder_b", "core": {"l0_w_ih", "l0_w_hh", "l0_b_ih", "l0_b_hh", "l1_..."}}``
 for the standard LSTM, ``"core": {"weight_ih_mean_1", ...,
-"weight_hh_lgstd_1", ...}`` for the Bayesian one; float32, LSTM weights
-already in the torch (4H, in) layout. The port's modules name their
-parameters the same way (``core.l0_w_ih``), so the exchange only walks the
-tree.
+"weight_hh_lgstd_1", ...}`` for the Bayesian one, ``{"embedding",
+"decoder_b", "layers_0": {"self_attn": {"qkv_net": {"kernel", "bias"}, ...},
+"linear1", "linear2", "norm1", "norm2"}, ...}`` for the Transformer;
+float32, LSTM weights in the torch (4H, in) layout, the Transformer's dense
+kernels in flax's (in, out). The port's modules name their parameters the
+same way (``core.l0_w_ih``, ``layers_0.linear1.kernel``) and keep those
+layouts, so the exchange only walks the tree.
 
 Files:
 - ``save_checkpoint`` / ``load_checkpoint``: the port's own, one
@@ -138,23 +141,61 @@ def partial_update(params: Mapping, prior_params: Mapping
 
 
 _RNN_KEY = re.compile(r"rnn\.(weight|bias)_(ih|hh)_l(\d+)")
+_TM_KEY = re.compile(r"transformerlayers\.(?:layers\.)?(\d+)\.(.*)")
+# a Transformer layer's reference names (torch TransformerEncoderLayer's
+# in_proj/out_proj and the reference's self-built modules) -> (path under
+# layers_N, transposed); the JAX package's table (core/checkpoint.py:146-200)
+# without its GP and variational rows
+_TM_TABLE = {
+    "self_attn.in_proj_weight": ("self_attn/qkv_net/kernel", True),
+    "self_attn.in_proj_bias": ("self_attn/qkv_net/bias", False),
+    "qkv_net.weight": ("self_attn/qkv_net/kernel", True),
+    "qkv_net.bias": ("self_attn/qkv_net/bias", False),
+    "self_attn.qkv_net.weight": ("self_attn/qkv_net/kernel", True),
+    "self_attn.qkv_net.bias": ("self_attn/qkv_net/bias", False),
+    "self_attn.out_proj.weight": ("self_attn/o_net/kernel", True),
+    "self_attn.out_proj.bias": ("self_attn/o_net/bias", False),
+    "self_attn.o_net.weight": ("self_attn/o_net/kernel", True),
+    "self_attn.o_net.bias": ("self_attn/o_net/bias", False),
+    "self_attn.q_net.weight": ("self_attn/q_net/kernel", True),
+    "self_attn.q_net.bias": ("self_attn/q_net/bias", False),
+    "self_attn.k_net.weight": ("self_attn/k_net/kernel", True),
+    "self_attn.k_net.bias": ("self_attn/k_net/bias", False),
+    "self_attn.v_net.weight": ("self_attn/v_net/kernel", True),
+    "self_attn.v_net.bias": ("self_attn/v_net/bias", False),
+    "self_attn.o_net.weight_mean": ("self_attn/o_net/weight_mean", False),
+    "self_attn.o_net.weight_lgstd": ("self_attn/o_net/weight_lgstd", False),
+    "linear1.weight": ("linear1/kernel", True),
+    "linear1.bias": ("linear1/bias", False),
+    "linear2.weight": ("linear2/kernel", True),
+    "linear2.bias": ("linear2/bias", False),
+    "linear2.weight_mean": ("linear2/weight_mean", False),
+    "linear2.weight_lgstd": ("linear2/weight_lgstd", False),
+    "norm1.weight": ("norm1/scale", False),
+    "norm1.bias": ("norm1/bias", False),
+    "norm2.weight": ("norm2/scale", False),
+    "norm2.bias": ("norm2/bias", False),
+}
 
 
 def import_torch_state_dict(state_dict: Mapping[str, "np.ndarray"],
                             cfg) -> dict:
-    """Map a reference PyTorch state_dict onto the parameter tree, for the
-    RNN family: ``encoder.weight`` -> ``embedding``, ``decoder.bias`` ->
-    ``decoder_b`` (``decoder.weight`` only when untied, as ``decoder_w``),
-    ``rnn.{weight,bias}_{ih,hh}_l{k}`` (torch nn.LSTM) ->
-    ``core/l{k}_{w,b}_{ih,hh}``, and the Bayes(2)LSTM names
-    ``rnn.*_{mean,lgstd}_*`` -> ``core/*``. Keys with no counterpart are
-    skipped; compose with ``partial_update``. The Transformer names wait
-    for ROADMAP.md queue A item 9, the GP and variational ones for item
-    10."""
+    """Map a reference PyTorch state_dict onto the parameter tree:
+    ``encoder.weight`` -> ``embedding``, ``decoder.bias`` -> ``decoder_b``
+    (``decoder.weight`` only when untied, as ``decoder_w``); for the RNN
+    family ``rnn.{weight,bias}_{ih,hh}_l{k}`` (torch nn.LSTM) ->
+    ``core/l{k}_{w,b}_{ih,hh}`` and the Bayes(2)LSTM names
+    ``rnn.*_{mean,lgstd}_*`` -> ``core/*``; for the Transformer the
+    ``transformerlayers.[layers.]N.*`` names of ``_TM_TABLE`` ->
+    ``layers_N/*`` (Linear weights transposed to flax (in, out) kernels)
+    and the EMB projection's ``embed_{mean,lgstd}``. Keys with no
+    counterpart are skipped; compose with ``partial_update``. The GP and
+    variational names wait for ROADMAP.md queue A item 10."""
     out: Dict[Tuple[str, ...], np.ndarray] = {}
     for k, v in state_dict.items():
         v = np.asarray(v)
         m = _RNN_KEY.fullmatch(k)
+        tm = _TM_KEY.fullmatch(k)
         if k == "encoder.weight":
             out[("embedding",)] = v
         elif k == "decoder.weight":
@@ -167,6 +208,12 @@ def import_torch_state_dict(state_dict: Mapping[str, "np.ndarray"],
             out[("core", f"l{m.group(3)}_{kind}_{m.group(2)}")] = v
         elif k.startswith("rnn.") and ("_mean_" in k or "_lgstd_" in k):
             out[("core", k[len("rnn."):])] = v
+        elif k in ("embed_mean", "embed_lgstd"):
+            out[(k,)] = v
+        elif tm and tm.group(2) in _TM_TABLE:
+            path, transpose = _TM_TABLE[tm.group(2)]
+            i = tm.group(1)
+            out[(f"layers_{i}", *path.split("/"))] = v.T if transpose else v
     return _unflatten(out)
 
 

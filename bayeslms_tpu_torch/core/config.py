@@ -1,9 +1,12 @@
 """Configuration dataclasses, field for field those of
 ``bayeslms_tpu/core/config.py`` (the JAX package), so that one configuration
-describes a model in both packages. The port runs a subset of them so far:
-``core/registry.py``, ``rescore/scorer.py`` and ``TrainConfig.validate``
-raise ``NotImplementedError`` for the rest and name the ROADMAP.md item
-that brings it.
+describes a model in both packages. The port runs a subset of them so far
+(the 2-layer LSTM, standard and Bayesian gate-slice; the Transformer,
+standard and Bayesian at the FFN, MHA or EMB): ``core/registry.py`` and the
+models it builds, ``rescore/scorer.py`` and ``TrainConfig.validate`` raise
+``NotImplementedError`` for the rest and name the ROADMAP.md item that
+brings it (the Gaussian and Variational Transformers item 10, XL memories
+item 9b).
 
 Flag map to the reference recipes (BayesLMs ``steps/pytorchnn/train.py``):
 ``uncertainty`` -> --uncertainty, ``t_bayes_pos`` -> --T_bayes_pos,

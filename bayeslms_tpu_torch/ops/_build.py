@@ -26,7 +26,8 @@ CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
 FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC"]
-KERNELS = ("lstm2_fwd", "ce_fwd", "lstm_train", "ce_train", "bayes_sample")
+KERNELS = ("lstm2_fwd", "ce_fwd", "lstm_train", "ce_train", "bayes_sample",
+           "attention_fwd", "bayes_matmul")
 
 Kernel = Union[str, Tuple[str, Tuple[str, ...]]]  # source, or (source, defines)
 

@@ -2,8 +2,10 @@
 ``bayeslms_tpu/rescore/layouts/__init__.py``.
 
 A layout is a name, a selection predicate over the scorer and a score
-function ``fn(scorer, nbest, word2idx, stream_fn, enc_all)``. This slice
-registers ``packed-carry`` only. Every configuration the JAX package would
+function ``fn(scorer, nbest, word2idx, stream_fn, enc_all)``. The port
+registers ``packed-carry`` (the LSTM with carry-over) and
+``packed-nocarry`` for the Transformer, which the JAX package routes there
+whatever ``carry_over`` says. Every configuration the JAX package would
 route elsewhere raises ``NotImplementedError`` naming the ROADMAP.md item
 that ports its layout; none is rerouted.
 """
@@ -23,6 +25,8 @@ class Layout(NamedTuple):
 
 LAYOUTS = (
     Layout("packed-carry", packed.carry_allowed, packed.score_carry_packed),
+    Layout("packed-nocarry", packed.nocarry_allowed,
+           packed.score_packed_nocarry),
 )
 
 
@@ -31,5 +35,6 @@ def select(scorer) -> Layout:
         if layout.when(scorer):
             return layout
     raise NotImplementedError(
-        "carry_over=False scores through packed-nocarry or slotted-bucketed, "
-        "not ported yet: ROADMAP.md queue A item 4")
+        "the LSTM with carry_over=False scores through the recurrent "
+        "packed-nocarry or slotted-bucketed layout, not ported yet: "
+        "ROADMAP.md queue A item 4")

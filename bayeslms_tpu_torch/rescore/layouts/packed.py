@@ -1,18 +1,26 @@
-"""Packed-time carry-over layout, counterpart of
-``bayeslms_tpu/rescore/layouts/packed.py`` (``carry_allowed``,
-``packed_carry_impl``, ``score_carry_packed``; single device).
+"""Packed layouts, counterpart of ``bayeslms_tpu/rescore/layouts/packed.py``
+(single device):
 
-Per chunk of ``carry_chunk_utts`` utterances: ONE (T, G*N) sequence, where
-chain g's utterances lie one after another along the time axis of its N
-columns, each at its exact (``max_hyp_len``-capped) length. A reset event
-at each utterance start gives every column of the chain the state of the
-chain's column 0, which is the previous utterance's FIRST hypothesis held
-at its true length by the step mask: the reference scorer's carry-over
-(compute_sentence_scores_bayes_jianwei.py:261-274).
+- packed-carry (``carry_allowed``, ``packed_carry_impl``,
+  ``score_carry_packed``), the LSTM with carry-over. Per chunk of
+  ``carry_chunk_utts`` utterances: ONE (T, G*N) sequence, where chain g's
+  utterances lie one after another along the time axis of its N columns,
+  each at its exact (``max_hyp_len``-capped) length. A reset event at each
+  utterance start gives every column of the chain the state of the chain's
+  column 0, which is the previous utterance's FIRST hypothesis held at its
+  true length by the step mask: the reference scorer's carry-over
+  (compute_sentence_scores_bayes_jianwei.py:261-274).
+- packed-nocarry (``nocarry_allowed``, ``tm_packed_impl``,
+  ``score_packed_nocarry``), the Transformer: independent hypotheses
+  bin-packed best-fit-decreasing into columns of T steps, positions
+  restarting at each hypothesis and attention causal within it through an
+  additive (B, 1, T, T) mask. The recurrent branch (zero-state resets) is
+  ROADMAP.md queue A item 4.
 """
 
 from __future__ import annotations
 
+import bisect
 from collections import OrderedDict
 from typing import Dict
 
@@ -24,9 +32,15 @@ from . import common
 
 
 def carry_allowed(s) -> bool:
-    # the scorer refuses the other JAX gates' cases (Transformer,
-    # interpolation, MC, XL) at construction
-    return s.rcfg.carry_over
+    # the scorer refuses the other JAX gates' cases (interpolation, MC, XL)
+    # at construction
+    return s.rcfg.carry_over and not s.cfg.is_transformer
+
+
+def nocarry_allowed(s) -> bool:
+    # the JAX registry sends every Transformer here, whatever carry_over
+    # says; its recurrent branch is not ported (ROADMAP.md queue A item 4)
+    return s.cfg.is_transformer
 
 
 def packed_carry_impl(s, data, tgt, mask, reset, carry, G: int, N: int,
@@ -114,4 +128,85 @@ def score_carry_packed(s, nbest, word2idx, stream_fn=None, enc_all=None):
         for (u, g), k in slot_key.items():
             for i in range(len(nbest[k])):
                 scores[(k, i)] = float(o[u, g, i])
+    return common.assemble(nbest, scores)
+
+
+def tm_packed_impl(s, data, tgt, segs, positions, Bc: int, n_seg: int, idx,
+                   seg):
+    """The Transformer's packed pass on the device. data, tgt, segs
+    (segment ids, 0 on padding) and positions are (T, C), C a multiple of
+    ``Bc``; one forward a block of ``Bc`` columns, as the JAX scorer scans
+    them; idx/seg the CE gather plan. Returns the (n_seg,) scores."""
+    T, C = data.shape
+    dev = data.device
+    tril = torch.ones((T, T), dtype=torch.bool, device=dev).tril()
+    eye = torch.eye(T, dtype=torch.bool, device=dev)
+    hs = []
+    for c0 in range(0, C, Bc):
+        sq = segs[:, c0:c0 + Bc].t()  # (b, T)
+        same = sq[:, :, None] == sq[:, None, :]
+        # causal within one's own segment; padding (segment 0) rows attend
+        # to themselves too, so that their discarded softmax stays finite
+        valid = (same & tril) | eye
+        mask = torch.zeros(valid.shape, dtype=torch.float32, device=dev)
+        mask = mask.masked_fill(~valid, float("-inf"))[:, None]
+        hs.append(s.model(data[:, c0:c0 + Bc], return_hidden=True,
+                          positions=positions[:, c0:c0 + Bc],
+                          pack_mask=mask))
+    h = torch.cat(hs, dim=1)
+    return common.fused_scores_packed(s.model, h.reshape(T * C, -1),
+                                      tgt.reshape(-1), idx, seg, n_seg)
+
+
+def score_packed_nocarry(s, nbest, word2idx, stream_fn=None, enc_all=None):
+    """Every hypothesis on its own (no carry-over; ``stream_fn`` is not
+    read), ``max_hyp_len``-capped, bin-packed best-fit-decreasing into
+    columns of T = max(128, max_hyp_len + 2 rounded up to 64) steps, Bc
+    columns a block as the JAX layout (about 24 x ``batch_size`` tokens a
+    block)."""
+    rc = s.rcfg
+    items = [(key, i, x, y) for key in nbest
+             for i, (x, y, _, _) in enumerate(enc_all[key])]
+    if not items:
+        return common.assemble(nbest, {})
+    cap = rc.max_hyp_len
+    items = [(k, i, x[:cap], y[:cap]) for (k, i, x, y) in items]
+    T = max(128, -(-(cap + 2) // 64) * 64)
+    # best-fit decreasing: each hypothesis into the open column with the
+    # smallest sufficient remaining room
+    order = sorted(range(len(items)), key=lambda i: -len(items[i][2]))
+    rems: list = []  # sorted (room left, column)
+    fills = []  # per column [steps used, hypotheses]
+    place = {}  # item -> (column, time offset, slot)
+    for i in order:
+        L = min(len(items[i][2]), T)
+        j = bisect.bisect_left(rems, (L, -1))
+        if j < len(rems):
+            r, col = rems.pop(j)
+        else:
+            r, col = T, len(fills)
+            fills.append([0, 0])
+        used, slot = fills[col]
+        place[i] = (col, used, slot)
+        fills[col] = [used + L, slot + 1]
+        if r - L > 0:
+            bisect.insort(rems, (r - L, col))
+    Bc = max(8, -(-rc.batch_size * 24 // T // 8) * 8)
+    C = -(-len(fills) // Bc) * Bc
+    segs = np.zeros((T, C), np.int64)
+    pos = np.zeros((T, C), np.int64)
+    rows, t_offs = [], []
+    for i, (_, _, x, y) in enumerate(items):
+        col, off, slot = place[i]
+        L = min(len(x), T)
+        rows.append((col, x, y))
+        t_offs.append(off)
+        segs[off:off + L, col] = slot + 1
+        pos[off:off + L, col] = np.arange(L)
+    data, tgt, _, (idx, seg) = common.build_rows(rows, T, C, t_offs,
+                                                 range(len(items)))
+    to = lambda a: torch.from_numpy(a).to(s.device)  # noqa: E731
+    out = tm_packed_impl(s, to(data), to(tgt), to(segs), to(pos), Bc,
+                         len(items), to(idx), to(seg)).cpu().numpy()
+    scores = {(k, i): float(out[n]) for n, (k, i, _, _) in enumerate(items)}
     return common.assemble(nbest, scores)

@@ -1,10 +1,13 @@
 """Batched N-best scorer, counterpart of ``bayeslms_tpu/rescore/scorer.py``.
 
 A hypothesis scores the SUM of its token cross-entropies (the reference's
-``len * mean_CE``). With ``carry_over`` every hypothesis of an utterance
-starts from the state in which the previous utterance's first hypothesis
-ended, per carry-over chain; the packed-carry layout scores a chunk of
-utterances of all chains as one time-packed sequence.
+``len * mean_CE``). For the LSTM with ``carry_over``, every hypothesis of an
+utterance starts from the state in which the previous utterance's first
+hypothesis ended, per carry-over chain; the packed-carry layout scores a
+chunk of utterances of all chains as one time-packed sequence. The
+Transformer scores every hypothesis on its own through the packed-nocarry
+layout, whatever ``carry_over`` says, as the JAX package does; the fused
+CE kernel then runs at width emsize.
 
 This slice runs on one device, with ``inter_flag=0``, ``mc_samples=0``, no
 backward scoring and no context splicing; the rest raises
@@ -47,7 +50,7 @@ class BatchScorer:
         if rcfg.xl_mems:
             raise NotImplementedError(
                 "Transformer-XL memories are not ported yet (ROADMAP.md queue "
-                "A item 9)")
+                "A item 9b)")
         self.cfg = cfg
         self.rcfg = rcfg
         self.device = device

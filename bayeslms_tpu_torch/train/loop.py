@@ -4,16 +4,19 @@ scheduler.
 
 Reference behaviours (train.py), as the JAX package keeps them:
 - loss = mean token CE + KL * seq_len / rows of the batchified stream; the
-  standard LSTM has no KL, the Bayesian core's is ``kl_value`` (against
-  N(0, 1), or with ``prior_kl`` against the prior's means);
+  standard models have no KL, the Bayesian ones' is the model's
+  ``kl_value`` (the LSTM core's, or the Transformer's dispatch over FFN,
+  MHA and EMB; against N(0, 1), or with ``prior_kl`` against the prior's
+  means where the reference has that branch);
 - the prior / finetune workflow: ``prior`` with ``prior_path`` overwrites
   every parameter that the prior checkpoint (the port's own, a JAX
   ``.ckpt`` or a reference ``model.pt``) holds with the same name and
   shape, and keeps the fresh lgstds;
 - SGD momentum 0.9 after a global-norm clip;
 - the LSTM state carried, detached, across the windows of an epoch and
-  zeroed at each epoch's start; the ragged final window padded to
-  ``seq_len`` with the CE masked, the LSTM running over the pad steps;
+  zeroed at each epoch's start (the Transformer carries nothing); the
+  ragged final window padded to ``seq_len`` with the CE masked, the model
+  running over the pad steps (causal, so the real tokens' CE is exact);
 - per-epoch validation; on improvement save the best checkpoint, else
   halve the LR, reload the best checkpoint and reset the momentum; stop
   after ``max_plateaus`` plateaus; the test loss of the best checkpoint
@@ -24,11 +27,15 @@ Reference behaviours (train.py), as the JAX package keeps them:
 The step runs the model's training forward (LSTM grad route: CUDA kernels
 ``lstm_train_cuda``; the Bayesian core's gate-slice sampler
 ``bayes_sample_cuda``, its seeds drawn on the device from the trainer's
-generator) and the differentiable fused CE (``ce_train_cuda``);
-``evaluate`` runs the scoring route (``lstm_cuda.lstm2_fwd``) and the
-decoder's logits and CE as plain PyTorch, as the JAX package leaves them to
-XLA there. Entry points run on the card; ``device="cpu"`` (tests) runs
-every kernel's plain twin.
+generator; the Transformer's plain attention and dense layers, and kernel
+row 12 where a ``BayesDense`` has ``use_fused``) and the differentiable
+fused CE (``ce_train_cuda``) over the model's pre-decoder states, width
+nhid (LSTM) or emsize (Transformer); ``evaluate`` runs the scoring route
+(``lstm_cuda.lstm2_fwd``; for the Transformer a causal forward per window,
+its attention through ``attention_cuda``) and the decoder's logits and CE
+as plain PyTorch, as the JAX package leaves them to XLA there. Entry
+points run on the card; ``device="cpu"`` (tests) runs every kernel's
+plain twin.
 """
 
 from __future__ import annotations
@@ -49,14 +56,15 @@ from ..core.checkpoint import (load_checkpoint, load_params,
 from ..core.config import ModelConfig, TrainConfig
 from ..core.registry import build_model, init_params
 from ..data.corpus import apply_data_fraction, batchify, get_batch, windows
-from ..models.lstm_lm import DropoutMasks, RecurrentLM, init_hidden
+from ..models.lstm_lm import init_hidden
 from ..ops.ce_train_cuda import fused_decode_ce_train
 from .optim import OptState, init_opt_state, sgd_momentum_step
 
 
 @dataclass
 class TrainerState:
-    model: RecurrentLM  # float32 parameters on the trainer's device
+    model: torch.nn.Module  # RecurrentLM or TransformerLM, float32
+    # parameters on the trainer's device
     opt_state: OptState
     lr: float
     best_val_loss: Optional[float]
@@ -81,11 +89,14 @@ class Trainer:
         self.mcfg = model_cfg.validate()
         self.tcfg = train_cfg.validate()
         self.device = device
-        # dropout masks and the Bayesian core's draws; the JAX package's
-        # rng_impl has no counterpart here
+        self.is_tm = model_cfg.is_transformer
+        # dropout masks and the Bayesian draws; the JAX package's rng_impl
+        # has no counterpart here
         self.gen = torch.Generator(device=device).manual_seed(train_cfg.seed)
-        # prior means for the KL (prior_kl): (weight_hh_mean_1,
-        # weight_ih_mean_1) on the device; set by init_state
+        # prior means for the KL (prior_kl), on the device, set by
+        # init_state: (weight_hh_mean_1, weight_ih_mean_1) for the Bayesian
+        # LSTM, the weight_mean at ``bayes_site`` for a Bayesian FFN or MHA
+        # Transformer
         self.prior_w = None
 
     # ------------------------------------------------------------------ init
@@ -99,21 +110,39 @@ class Trainer:
             tree, updated = partial_update(tree, prior)
             params_from_jax(model, tree)
             print(f"prior init: updated {len(updated)} param tensors")
-            core = prior.get("core", {})
-            if tcfg.prior_kl and {"weight_hh_mean_1",
-                                  "weight_ih_mean_1"} <= set(core):
-                self.prior_w = tuple(
-                    torch.as_tensor(np.asarray(core[k]), dtype=torch.float32,
-                                    device=self.device)
-                    for k in ("weight_hh_mean_1", "weight_ih_mean_1"))
+            if tcfg.prior_kl:
+                self.prior_w = self._prior_means(model, prior)
         model.to(self.device)
         return TrainerState(model=model,
                             opt_state=init_opt_state(dict(model.named_parameters())),
                             lr=self.tcfg.lr, best_val_loss=None, plateaus=0,
                             epoch=0)
 
+    def _prior_means(self, model, prior):
+        """The prior's means that the model's KL reads, or None where the
+        prior holds none (a standard prior: the KL stays against N(0, 1),
+        as the JAX package's ``priors`` lookup finds nothing)."""
+        def dev(a):
+            return torch.as_tensor(np.asarray(a), dtype=torch.float32,
+                                   device=self.device)
+
+        if self.is_tm:
+            site = model.bayes_site()
+            node = prior if site else {}
+            for k in site or ():
+                node = node.get(k, {})
+            mean = node.get("weight_mean")
+            return None if mean is None else dev(mean)
+        core = prior.get("core", {})
+        if {"weight_hh_mean_1", "weight_ih_mean_1"} <= set(core):
+            return tuple(dev(core[k]) for k in ("weight_hh_mean_1",
+                                                "weight_ih_mean_1"))
+        return None
+
     # ------------------------------------------------------------------ step
-    def _kl(self, model: RecurrentLM) -> torch.Tensor:
+    def _kl(self, model) -> torch.Tensor:
+        if self.is_tm:
+            return model.kl_value(self.prior_w)
         kl_value = getattr(model.core, "kl_value", None)
         if kl_value is None:
             return torch.zeros((), device=self.device)
@@ -122,22 +151,26 @@ class Trainer:
     def train_step(self, state: TrainerState, hidden, data: torch.Tensor,
                    target: torch.Tensor, kl_scale: float = 0.0,
                    mask: Optional[torch.Tensor] = None,
-                   dropout_masks: Optional[DropoutMasks] = None,
-                   noise=None):
+                   dropout_masks=None, noise=None):
         """One optimizer step on a (T, B) window; updates ``state``'s
-        parameters and momentum in place. ``mask`` (T, B) 0/1 averages the
-        CE over the real tokens of the padded ragged window.
-        ``dropout_masks`` replaces the masks drawn from the trainer's
-        generator, ``noise`` the Bayesian core's draws (see
-        ``BayesLSTMCore``). Returns (new hidden, detached; loss, mle, kl,
-        gnorm as device scalars)."""
+        parameters and momentum in place. ``hidden`` is the LSTM state (None
+        for the Transformer, which carries none). ``mask`` (T, B) 0/1
+        averages the CE over the real tokens of the padded ragged window.
+        ``dropout_masks`` (``lstm_lm.DropoutMasks`` or
+        ``transformer_lm.TransformerDropoutMasks``) replaces the masks drawn
+        from the trainer's generator, ``noise`` the Bayesian draws (see
+        ``BayesLSTMCore``, ``TransformerLM``). Returns (new hidden, detached,
+        or None; loss, mle, kl, gnorm as device scalars)."""
         model = state.model
         params = state.params
         for p in params.values():
             p.grad = None
-        out, new_hidden = model(data, hidden, return_hidden=True,
-                                deterministic=False, generator=self.gen,
-                                dropout_masks=dropout_masks, noise=noise)
+        kw = dict(return_hidden=True, deterministic=False, generator=self.gen,
+                  dropout_masks=dropout_masks, noise=noise)
+        if self.is_tm:
+            out, new_hidden = model(data, **kw), None
+        else:
+            out, new_hidden = model(data, hidden, **kw)
         T, B, H = out.shape
         ce = fused_decode_ce_train(out.reshape(T * B, H), model.embedding,
                                    model.decoder_b,
@@ -152,8 +185,9 @@ class Trainer:
         grads = {k: p.grad for k, p in params.items()}
         _, gnorm = sgd_momentum_step(params, grads, state.opt_state, state.lr,
                                      self.tcfg.clip, self.tcfg.momentum)
-        return ((new_hidden[0].detach(), new_hidden[1].detach()),
-                loss.detach(), mle.detach(), kl.detach(), gnorm)
+        if new_hidden is not None:
+            new_hidden = (new_hidden[0].detach(), new_hidden[1].detach())
+        return new_hidden, loss.detach(), mle.detach(), kl.detach(), gnorm
 
     # ------------------------------------------------------------------ epoch
     def run_epoch(self, state: TrainerState, train_rows: np.ndarray,
@@ -165,8 +199,8 @@ class Trainer:
         data_all, tgt_all, tail = windows(train_rows, tcfg.seq_len,
                                           drop_ragged=False)
         kl_scale = tcfg.seq_len / train_rows.shape[0]
-        hidden = init_hidden(cfg.nlayers, train_rows.shape[1], cfg.nhid,
-                             device=self.device)
+        hidden = None if self.is_tm else init_hidden(
+            cfg.nlayers, train_rows.shape[1], cfg.nhid, device=self.device)
         data_all = torch.from_numpy(data_all).long().to(self.device)
         tgt_all = torch.from_numpy(tgt_all).long().to(self.device)
         n = data_all.shape[0]
@@ -203,20 +237,25 @@ class Trainer:
         return state
 
     @torch.no_grad()
-    def evaluate(self, model: RecurrentLM, rows: np.ndarray) -> float:
+    def evaluate(self, model, rows: np.ndarray) -> float:
         """Token-exact mean CE over a batchified (rows, bsz) stream, the
         ragged final window included (its CE sum equals that of the JAX
-        package's padded, masked window: the LSTM is causal)."""
+        package's padded, masked window: both models are causal). The
+        Transformer scores each window on its own, causally, with no
+        carry."""
         L = self.tcfg.seq_len
         bsz = rows.shape[1]
         src = torch.from_numpy(rows).long().to(self.device)
-        hidden = init_hidden(self.mcfg.nlayers, bsz, self.mcfg.nhid,
-                             dtype=getattr(torch, self.mcfg.compute_dtype),
-                             device=self.device)
+        hidden = None if self.is_tm else init_hidden(
+            self.mcfg.nlayers, bsz, self.mcfg.nhid,
+            dtype=getattr(torch, self.mcfg.compute_dtype), device=self.device)
         total = torch.zeros((), dtype=torch.float64, device=self.device)
         for i in range(0, rows.shape[0] - 1, L):
             d, t = get_batch(src, i, L)
-            logits, hidden = model(d, hidden)
+            if self.is_tm:
+                logits = model(d)
+            else:
+                logits, hidden = model(d, hidden)
             total += F.cross_entropy(logits.reshape(-1, logits.shape[-1]),
                                      t.reshape(-1), reduction="sum")
         return float(total) / (bsz * (rows.shape[0] - 1))

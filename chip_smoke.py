@@ -18,9 +18,24 @@ the same corpus: the gate-slice sampler kernel against its twin on the
 slices a step hands it (bit-equal uniforms, moments, correlations, the
 gradient, planted-fault builds), one epoch of ``Trainer.fit``, a
 kernel-path step against the plain path, and scoring at the posterior
-mean. Every phase prints its result and seconds; any failure exits
-non-zero before the result lines. The last two lines are a JSON object per
-kernel and the device line.
+mean. Then the recipe's Transformer (512/4096 x 6, 8 heads, the same table,
+bf16; lr 0.1): the causal attention kernel against its twin on the q, k, v
+that ``evaluate`` hands it and at T = 1,024 and 4,096 (and a planted-fault
+build), the CE training kernels against their twins on the tensors a
+step hands them at D = 512, two epochs of ``Trainer.fit`` (the CE kernels
+on every step, the attention kernel in every ``evaluate``), a kernel-path
+step against the plain path; the Bayesian-FFN Transformer: the fused
+sample-and-matmul kernel against its twin and against x . sample_weights^T
+at the FFN's and the MHA's shapes (and a planted fault in the shared
+Philox header), a
+``use_fused`` step against the plain path and one epoch of ``fit`` with
+``use_fused``; and Transformer scoring of the 6,000-hypothesis N-best
+through the packed-nocarry layout (the scoring CE kernel against its twin
+on the packed chunk at D = 512) against the plain path. Every phase
+prints its result and seconds; any failure exits non-zero before the
+result lines. The last two lines are a JSON object per kernel (the CE
+kernels once at the LSTM's D = 1,024 and once at the Transformer's 512)
+and the device line.
 """
 
 import contextlib
@@ -31,6 +46,7 @@ import sys
 import tempfile
 import time
 from collections import OrderedDict
+from unittest import mock
 
 import numpy as np
 
@@ -52,6 +68,11 @@ LSTM_RTOL, LSTM_ATOL = 2 ** -6, 2 ** -14
 # CE per token (~10.8 = log V), float32 both: sums of D = 1,024 products
 # and of V exponentials in different orders.
 CE_ATOL = 2e-5
+# The same at the Transformer's width: CE ~18-27 from logits up to ~20
+# (layer-normed h against the tied table), whose fp32 sums carry ~20x the
+# LSTM's absolute rounding (2.5e-5, PERF.md); a token's CE sums the errors
+# of its max, its target's logit and its log-sum-exp.
+TM_CE_ATOL = 1e-4
 # Scores (sums of ~16 token CEs, ~170), kernel path against plain path,
 # absolute: the LSTM's bf16 rounding steps above, through the decoder.
 SCORE_ATOL = 2e-3
@@ -207,11 +228,24 @@ TRAIN_TOL = {
     # float32 dE and db: the same d, rounded, summed over M in fp32
     "ce_train_de": (2 ** -8, 2 ** -15),
 }
+# The CE kernels at the Transformer's width: its logits (layer-normed h
+# against the tied table) reach ~20 where the LSTM's stay below 1, so their
+# fp32 sums of D products carry ~20x the absolute rounding (2.5e-5 on the
+# H100, PERF.md). exp turns a logit's absolute error into that relative
+# error of the sum-exp; and d = p - onehot, rounded to bf16 as on the TPU,
+# rounds the other way ~20x as often, which moves dh by up to 2^-7 of its
+# largest entry (one bf16 step there) where the LSTM's moved 2^-11.
+TM_TRAIN_TOL = {**TRAIN_TOL, "ce_train_fwd": (2 ** -15, 2 ** -19),
+                "ce_train_dh": (2 ** -6, 2 ** -6)}
 FAULT_MARGIN = 10.0
 # The kernel-path training step against the plain-path step (same weights,
-# batch and dropout masks): loss absolute; each parameter's gradient, max
-# |kernel - plain| against STEP_GRAD_SHARE of its largest |plain| entry.
+# batch and dropout masks): the LSTM's loss absolute; the Transformer's loss
+# and KL relative (the CE kernels' float32 sums, and row 12's fp32 dot
+# against the twin's, in other orders, through 6 bf16 layers); each
+# parameter's gradient, max |kernel - plain| against STEP_GRAD_SHARE of its
+# largest |plain| entry.
 STEP_LOSS_ATOL = 1e-5
+STEP_LOSS_RTOL = 2 ** -14
 STEP_GRAD_SHARE = 2 ** -6
 # Scores of the trained model (kernel path against plain path), relative:
 # its LSTM states are larger than the random init's, so the bf16 rounding
@@ -247,6 +281,63 @@ def write_markov_corpus(root, vocab_words, n_train, n_valid, n_test, seed=0):
             f.write("\n".join(lines) + "\n")
 
 
+def compare_steps(torch, trainer, data, target, kl_scale, masks, plain,
+                  loss_atol=0.0, loss_rtol=0.0, hidden=lambda: None,
+                  prepare=lambda st: None):
+    """One step on the kernel path and one with ``plain`` (mock patches of
+    the kernels' wrappers with their twins), from the same weights, batch,
+    ``hidden()`` state, masks and generator state; raises unless loss and
+    KL agree within ``loss_atol`` + ``loss_rtol`` |plain| and every
+    gradient within STEP_GRAD_SHARE of its largest entry."""
+    def one_step():
+        st = trainer.init_state(seed=5)
+        prepare(st)
+        trainer.gen.manual_seed(11)
+        _, loss, _, kl, gnorm = trainer.train_step(
+            st, hidden(), data, target, kl_scale, dropout_masks=masks)
+        grads = {k: p.grad.clone() for k, p in st.params.items()}
+        return float(loss), float(kl), float(gnorm), grads
+
+    k_loss, k_kl, k_gn, k_grads = one_step()
+    with contextlib.ExitStack() as stack:
+        for p in plain:
+            stack.enter_context(p)
+        p_loss, p_kl, p_gn, p_grads = one_step()
+    print(f"  loss kernel {k_loss:.6f} plain {p_loss:.6f}; KL term "
+          f"{k_kl:.6f} / {p_kl:.6f} (tolerance {loss_atol:.1e} + "
+          f"{loss_rtol:.1e} |plain|); gnorm {k_gn:.6f} / {p_gn:.6f}")
+    shares = []
+    for k, g in p_grads.items():
+        big = float(g.abs().max())
+        e = max_err(k_grads[k], g)
+        shares.append((e / (STEP_GRAD_SHARE * big + 1e-30), k, big, e))
+    shares.sort(reverse=True)
+    for share, k, big, e in shares[:6]:
+        print(f"  grad {k}: |plain| max {big:.3e}; max |kernel - plain| "
+              f"{e:.3e} ({e / (big + 1e-30):.2e} of the max)")
+    worst = shares[0][0]
+    print(f"  worst gradient share of tolerance {worst:.3f} over "
+          f"{len(p_grads)} parameters (the six worst printed)")
+    if abs(k_loss - p_loss) > loss_atol + loss_rtol * abs(p_loss) \
+            or abs(k_kl - p_kl) > loss_atol + loss_rtol * abs(p_kl) + 1e-12 \
+            or worst > 1:
+        raise AssertionError(f"the kernel-path step disagrees with the "
+                             f"plain path (worst share {worst:.3f})")
+
+
+def recording(module, names, recorded):
+    """Mock patches of ``module``'s wrappers ``names`` that append each
+    call's arguments to ``recorded[name]`` and call the wrapper."""
+    def patch(name):
+        fn = getattr(module, name)
+
+        def call(*args):
+            recorded.setdefault(name, []).append(args)
+            return fn(*args)
+        return mock.patch.object(module, name, call)
+    return [patch(n) for n in names]
+
+
 def check_outputs(name, got, ref, rtol, share):
     """Print each output's magnitude, error and worst share of its
     tolerance; returns (max abs error, worst share)."""
@@ -269,12 +360,126 @@ def fault_share(got, ref, rtol, share):
                for k in ref)
 
 
+CE_TRAIN = ("ce_train_fwd", "ce_train_dh", "ce_train_de")
+
+
+def ce_train_specs(ctc, M, V, D):
+    """Check specs of the fused CE training kernels (rows 9-11) at M
+    tokens, V words and width D: twin, outputs, planted fault (argument 3,
+    the targets, shifted), operations and bytes."""
+    return {
+        "ce_train_fwd": dict(
+            module=ctc, plain=ctc.ce_train_fwd_plain, source="ce_train.cu",
+            replaces="bayeslms_tpu/ops/ce_pallas.py:291",
+            outs=("ce", "max", "sumexp"),
+            fault=("targets shifted", 3),
+            flops=2 * M * V * D,
+            nbytes=M * D * 2 + V * D * 2 + V * 4 + M * 4 + 3 * M * 4),
+        "ce_train_dh": dict(
+            module=ctc, plain=ctc.ce_train_dh_plain, source="ce_train.cu",
+            replaces="bayeslms_tpu/ops/ce_pallas.py:320",
+            outs=("dh",), fault=("targets shifted in dh only", 3),
+            flops=4 * M * V * D,
+            nbytes=M * D * 2 + V * D * 2 + V * 4 + 5 * M * 4 + M * D * 2),
+        "ce_train_de": dict(
+            module=ctc, plain=ctc.ce_train_de_plain, source="ce_train.cu",
+            replaces="bayeslms_tpu/ops/ce_pallas.py:344",
+            outs=("dE", "db"), fault=("targets shifted in dE only", 3),
+            flops=4 * M * V * D,
+            nbytes=M * D * 2 + V * D * 2 + V * 4 + 5 * M * 4 + V * D * 4
+            + V * 4),
+    }
+
+
+def check_recorded(torch, kernels, specs, recorded, tag="", tol=TRAIN_TOL):
+    """Each kernel of ``specs`` against its twin on every call one step
+    recorded (``recorded[name]``), elementwise within ``tol``, a planted
+    fault per call that must exceed it by FAULT_MARGIN, the CE kernels at
+    ragged M and V too; times it and adds it to ``kernels`` as ``name`` +
+    ``tag``. Raises, once every kernel was checked, on any failed check."""
+    from bayeslms_tpu_torch.ops import ce_train_cuda as ctc
+
+    def as_dict(spec, out):
+        out = out if isinstance(out, tuple) else (out,)
+        return dict(zip(spec["outs"], out))
+
+    def planted_args(args, i):
+        a = list(args)
+        if i == 3:  # targets
+            a[3] = torch.roll(a[3], 1)
+        else:
+            a[i] = torch.zeros_like(a[i])
+        return a
+
+    failed = []
+    for name, spec in specs.items():
+        with phase(f"kernel {name}{tag}"), torch.no_grad():
+            kernel = getattr(spec["module"], name)
+            rtol, share = tol[name]
+            args = recorded[name][0]
+            print(f"  tolerance |kernel - plain| <= {rtol:.3e} |plain| + "
+                  f"{share:.3e} max|plain|, elementwise; {len(recorded[name])}"
+                  f" call(s) in one step; first operand {tuple(args[0].shape)}"
+                  f" {args[0].dtype}")
+            err, worst, fault = 0.0, 0.0, float("inf")
+            for args in recorded[name]:
+                ref = as_dict(spec, spec["plain"](*args))
+                got = as_dict(spec, kernel(*args))
+                torch.cuda.synchronize()
+                e, q = check_outputs(name, got, ref, rtol, share)
+                err, worst = max(err, e), max(worst, q)
+                bad = as_dict(spec, kernel(*planted_args(args,
+                                                         spec["fault"][1])))
+                fault = min(fault, fault_share(bad, ref, rtol, share))
+                del ref, got, bad
+            print(f"  planted fault '{spec['fault'][0]}': worst share of "
+                  f"tolerance {fault:.1f}")
+            args = recorded[name][0]
+            if name in CE_TRAIN:
+                # ragged edges too (M and V off the 64 tiles), random bias
+                M, V = args[0].shape[0] - 37, args[1].shape[0] - 77
+                gen = torch.Generator(device="cuda").manual_seed(2)
+                br = torch.rand((V,), generator=gen, device="cuda") * 2 - 1
+                ra = [args[0][:M], args[1][:V], br, args[3][:M] % V]
+                if name != "ce_train_fwd":
+                    _, rmx, rse = ctc.ce_train_fwd_plain(*ra)
+                    ra += [rmx, rse, args[6][:M].contiguous(),
+                           args[7][:M].contiguous()]
+                ref = as_dict(spec, spec["plain"](*ra))
+                e, q = check_outputs(f"{name} ragged M={M} V={V}",
+                                     as_dict(spec, kernel(*ra)), ref, rtol,
+                                     share)
+                err, worst = max(err, e), max(worst, q)
+                del ref, ra
+            ms = cuda_ms(torch, lambda: kernel(*args), 5)
+            plain_ms = cuda_ms(torch, lambda: spec["plain"](*args), 3)
+            with torch.enable_grad():
+                library_ms = library_yardstick(torch, name, args)
+            bms, bby = bound_ms(spec["flops"], spec["nbytes"])
+            print(f"  kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, library "
+                  f"{library_ms:.3f} ms, bound {bms:.3f} ms ({bby})")
+            kernels[name + tag] = dict(
+                name=name + tag, route="cuda",
+                source=f"bayeslms_tpu_torch/csrc/{spec['source']}",
+                replaces=spec["replaces"], max_abs_err=err, ms=ms,
+                plain_ms=plain_ms, bound_ms=bms, bound_by=bby,
+                library_ms=library_ms)
+            if worst > 1:
+                failed.append(f"{name} disagrees with its plain version: "
+                              f"worst share {worst:.3f}")
+            if fault < FAULT_MARGIN:
+                failed.append(f"{name}: the planted fault exceeds the "
+                              f"tolerance only {fault:.1f}x")
+            if failed:
+                print(f"  FAILED so far: {failed}")
+    if failed:
+        raise AssertionError("; ".join(failed))
+
+
 def train_phases(torch, kernels, smi, cfg, rcfg):
     """The training half of the main path; adds the training kernels to
     ``kernels``. Raises on any failed check. Returns the synthetic corpus
     and the temporary directory that holds it, for the Bayesian phases."""
-    from unittest import mock
-
     from bayeslms_tpu_torch import TrainConfig
     from bayeslms_tpu_torch.core.checkpoint import load_checkpoint
     from bayeslms_tpu_torch.data.corpus import Corpus
@@ -309,25 +514,17 @@ def train_phases(torch, kernels, smi, cfg, rcfg):
         target = torch.from_numpy(corpus.train[1:T * B + 1].reshape(B, T).T
                                   .copy()).long().cuda()
         recorded = {}
-
-        def recorder(module, name):
-            fn = getattr(module, name)
-
-            def call(*args):
-                recorded.setdefault(name, []).append(args)
-                return fn(*args)
-            return mock.patch.object(module, name, call)
-
-        with recorder(ltc, "lstm_train_fwd"), recorder(ltc, "lstm_train_bwd"), \
-                recorder(ctc, "ce_train_fwd"), recorder(ctc, "ce_train_dh"), \
-                recorder(ctc, "ce_train_de"):
+        with contextlib.ExitStack() as stack:
+            for p in recording(ltc, ("lstm_train_fwd", "lstm_train_bwd"),
+                               recorded) + recording(ctc, CE_TRAIN, recorded):
+                stack.enter_context(p)
             trainer.train_step(state, init_hidden(2, B, cfg.nhid,
                                                   device="cuda"),
                                data, target)
         torch.cuda.synchronize()
         del state
 
-    H, D, M = cfg.nhid, cfg.nhid, T * B
+    H, M = cfg.nhid, T * B
     flops_f = 2 * T * B * H * 4 * H
     specs = {
         "lstm_train_fwd": dict(
@@ -347,96 +544,9 @@ def train_phases(torch, kernels, smi, cfg, rcfg):
             flops=2 * flops_f,
             nbytes=T * B * 4 * H * 2 + 3 * T * B * H * 2 + 4 * H * H * 2
             + 4 * H * 4 + 6 * B * H * 2 + T * B * 4 * H * 2),
-        "ce_train_fwd": dict(
-            module=ctc, plain=ctc.ce_train_fwd_plain, source="ce_train.cu",
-            replaces="bayeslms_tpu/ops/ce_pallas.py:291",
-            outs=("ce", "max", "sumexp"),
-            fault=("targets shifted", 3),
-            flops=2 * M * V * D,
-            nbytes=M * D * 2 + V * D * 2 + V * 4 + M * 4 + 3 * M * 4),
-        "ce_train_dh": dict(
-            module=ctc, plain=ctc.ce_train_dh_plain, source="ce_train.cu",
-            replaces="bayeslms_tpu/ops/ce_pallas.py:320",
-            outs=("dh",), fault=("targets shifted in dh only", 3),
-            flops=4 * M * V * D,
-            nbytes=M * D * 2 + V * D * 2 + V * 4 + 5 * M * 4 + M * D * 2),
-        "ce_train_de": dict(
-            module=ctc, plain=ctc.ce_train_de_plain, source="ce_train.cu",
-            replaces="bayeslms_tpu/ops/ce_pallas.py:344",
-            outs=("dE", "db"), fault=("targets shifted in dE only", 3),
-            flops=4 * M * V * D,
-            nbytes=M * D * 2 + V * D * 2 + V * 4 + 5 * M * 4 + V * D * 4
-            + V * 4),
+        **ce_train_specs(ctc, M, V, cfg.nhid),
     }
-
-    def as_dict(spec, out):
-        out = out if isinstance(out, tuple) else (out,)
-        return dict(zip(spec["outs"], out))
-
-    def planted_args(args, i):
-        a = list(args)
-        if i == 3:  # targets
-            a[3] = torch.roll(a[3], 1)
-        else:
-            a[i] = torch.zeros_like(a[i])
-        return a
-
-    for name, spec in specs.items():
-        with phase(f"kernel {name}"), torch.no_grad():
-            kernel = getattr(spec["module"], name)
-            rtol, share = TRAIN_TOL[name]
-            print(f"  tolerance |kernel - plain| <= {rtol:.3e} |plain| + "
-                  f"{share:.3e} max|plain|, elementwise; {len(recorded[name])}"
-                  " call(s) in one step")
-            err, worst, fault = 0.0, 0.0, float("inf")
-            for args in recorded[name]:
-                ref = as_dict(spec, spec["plain"](*args))
-                got = as_dict(spec, kernel(*args))
-                torch.cuda.synchronize()
-                e, q = check_outputs(name, got, ref, rtol, share)
-                err, worst = max(err, e), max(worst, q)
-                bad = as_dict(spec, kernel(*planted_args(args,
-                                                         spec["fault"][1])))
-                fault = min(fault, fault_share(bad, ref, rtol, share))
-                del ref, got, bad
-            print(f"  planted fault '{spec['fault'][0]}': worst share of "
-                  f"tolerance {fault:.1f}")
-            args = recorded[name][0]
-            if name.startswith("ce_"):
-                # ragged edges too (M and V off the 64 tiles), random bias
-                Mr, Vr = M - 37, V - 77
-                gen = torch.Generator(device="cuda").manual_seed(2)
-                br = torch.rand((Vr,), generator=gen, device="cuda") * 2 - 1
-                ra = [args[0][:Mr], args[1][:Vr], br, args[3][:Mr] % Vr]
-                if name != "ce_train_fwd":
-                    _, rmx, rse = ctc.ce_train_fwd_plain(*ra)
-                    ra += [rmx, rse, args[6][:Mr].contiguous(),
-                           args[7][:Mr].contiguous()]
-                ref = as_dict(spec, spec["plain"](*ra))
-                e, q = check_outputs(f"{name} ragged M={Mr} V={Vr}",
-                                     as_dict(spec, kernel(*ra)), ref, rtol,
-                                     share)
-                err, worst = max(err, e), max(worst, q)
-                del ref, ra
-            ms = cuda_ms(torch, lambda: kernel(*args), 5)
-            plain_ms = cuda_ms(torch, lambda: spec["plain"](*args), 3)
-            with torch.enable_grad():
-                library_ms = library_yardstick(torch, name, args)
-            bms, bby = bound_ms(spec["flops"], spec["nbytes"])
-            print(f"  kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, library "
-                  f"{library_ms:.3f} ms, bound {bms:.3f} ms ({bby})")
-            kernels[name] = dict(
-                name=name, route="cuda",
-                source=f"bayeslms_tpu_torch/csrc/{spec['source']}",
-                replaces=spec["replaces"], max_abs_err=err, ms=ms,
-                plain_ms=plain_ms, bound_ms=bms, bound_by=bby,
-                library_ms=library_ms)
-            if worst > 1:
-                raise AssertionError(f"{name} disagrees with its plain "
-                                     f"version: worst share {worst:.3f}")
-            if fault < FAULT_MARGIN:
-                raise AssertionError(f"{name}: the planted fault exceeds the "
-                                     f"tolerance only {fault:.1f}x")
+    check_recorded(torch, kernels, specs, recorded)
     del recorded
 
     with phase("train main path"):
@@ -488,38 +598,14 @@ def train_phases(torch, kernels, smi, cfg, rcfg):
 
     with phase("train step against plain versions"):
         gen = torch.Generator(device="cuda").manual_seed(3)
-        masks = draw_dropout_masks(cfg, T, B, gen, "cuda")
-
-        def one_step():
-            st = trainer.init_state(seed=5)
-            _, loss, _, _, gnorm = trainer.train_step(
-                st, init_hidden(2, B, cfg.nhid, device="cuda"), data, target,
-                dropout_masks=masks)
-            grads = {k: p.grad.clone() for k, p in st.params.items()}
-            return float(loss), float(gnorm), grads
-
-        k_loss, k_gn, k_grads = one_step()
-        plain = [mock.patch.object(m, n, getattr(m, n + "_plain"))
-                 for m, n in ((ltc, "lstm_train_fwd"), (ltc, "lstm_train_bwd"),
-                              (ctc, "ce_train_fwd"), (ctc, "ce_train_dh"),
-                              (ctc, "ce_train_de"))]
-        with contextlib.ExitStack() as stack:
-            for p in plain:
-                stack.enter_context(p)
-            p_loss, p_gn, p_grads = one_step()
-        print(f"  loss kernel {k_loss:.6f} plain {p_loss:.6f} (tolerance "
-              f"{STEP_LOSS_ATOL:.0e}); gnorm {k_gn:.6f} / {p_gn:.6f}")
-        worst = 0.0
-        for k, g in p_grads.items():
-            big = float(g.abs().max())
-            e = max_err(k_grads[k], g)
-            worst = max(worst, e / (STEP_GRAD_SHARE * big + 1e-30))
-            print(f"  grad {k}: |plain| max {big:.3e}; max |kernel - plain| "
-                  f"{e:.3e} ({e / (big + 1e-30):.2e} of the max)")
-        if abs(k_loss - p_loss) > STEP_LOSS_ATOL or worst > 1:
-            raise AssertionError(f"the kernel-path step disagrees with the "
-                                 f"plain path (worst share {worst:.3f})")
-        del k_grads, p_grads
+        compare_steps(
+            torch, trainer, data, target, 0.0,
+            draw_dropout_masks(cfg, T, B, gen, "cuda"),
+            [mock.patch.object(m, n, getattr(m, n + "_plain"))
+             for m, n in ((ltc, "lstm_train_fwd"), (ltc, "lstm_train_bwd"),
+                          *((ctc, n) for n in CE_TRAIN))],
+            loss_atol=STEP_LOSS_ATOL,
+            hidden=lambda: init_hidden(2, B, cfg.nhid, device="cuda"))
 
     with phase("rescore from the trained checkpoint"):
         params, meta = load_checkpoint(tcfg.save)
@@ -646,8 +732,6 @@ def bayes_phases(torch, kernels, smi, cfg, rcfg, corpus, tmpdir,
     corpus; adds the sampler kernel to ``kernels``. Raises on any failed
     check."""
     import dataclasses
-    from unittest import mock
-
     from bayeslms_tpu_torch import TrainConfig
     from bayeslms_tpu_torch.core.checkpoint import load_checkpoint
     from bayeslms_tpu_torch.data.corpus import batchify
@@ -833,40 +917,15 @@ def bayes_phases(torch, kernels, smi, cfg, rcfg, corpus, tmpdir,
         # generator is reseeded before each step, so both draw the same
         # sampler seeds (kernel against twin) and the same bias noise
         gen = torch.Generator(device=dev).manual_seed(3)
-        masks = draw_dropout_masks(bcfg, T, B, gen, dev)
-
-        def one_step():
-            st = trainer.init_state(seed=5)
-            trainer.gen.manual_seed(11)
-            _, loss, _, kl, gnorm = trainer.train_step(
-                st, init_hidden(2, B, bcfg.nhid, device=dev), data, target,
-                kl_scale, dropout_masks=masks)
-            grads = {k: p.grad.clone() for k, p in st.params.items()}
-            return float(loss), float(kl), float(gnorm), grads
-
-        k_loss, k_kl, k_gn, k_grads = one_step()
-        plain = [mock.patch.object(m, n, getattr(m, n + "_plain"))
-                 for m, n in ((ltc, "lstm_train_fwd"), (ltc, "lstm_train_bwd"),
-                              (ctc, "ce_train_fwd"), (ctc, "ce_train_dh"),
-                              (ctc, "ce_train_de"), (bsc, "sample_weights"))]
-        with contextlib.ExitStack() as stack:
-            for p in plain:
-                stack.enter_context(p)
-            p_loss, p_kl, p_gn, p_grads = one_step()
-        print(f"  loss kernel {k_loss:.6f} plain {p_loss:.6f} (tolerance "
-              f"{STEP_LOSS_ATOL:.0e}); KL term {k_kl:.6f} / {p_kl:.6f}; "
-              f"gnorm {k_gn:.6f} / {p_gn:.6f}")
-        worst = 0.0
-        for k, g in p_grads.items():
-            big = float(g.abs().max())
-            e = max_err(k_grads[k], g)
-            worst = max(worst, e / (STEP_GRAD_SHARE * big + 1e-30))
-            print(f"  grad {k}: |plain| max {big:.3e}; max |kernel - plain| "
-                  f"{e:.3e} ({e / (big + 1e-30):.2e} of the max)")
-        if abs(k_loss - p_loss) > STEP_LOSS_ATOL or worst > 1:
-            raise AssertionError(f"the Bayes kernel-path step disagrees with "
-                                 f"the plain path (worst share {worst:.3f})")
-        del k_grads, p_grads
+        compare_steps(
+            torch, trainer, data, target, kl_scale,
+            draw_dropout_masks(bcfg, T, B, gen, dev),
+            [mock.patch.object(m, n, getattr(m, n + "_plain"))
+             for m, n in ((ltc, "lstm_train_fwd"), (ltc, "lstm_train_bwd"),
+                          *((ctc, n) for n in CE_TRAIN),
+                          (bsc, "sample_weights"))],
+            loss_atol=STEP_LOSS_ATOL,
+            hidden=lambda: init_hidden(2, B, bcfg.nhid, device=dev))
 
     with phase("bayes_score"):
         params, meta = load_checkpoint(save)
@@ -898,6 +957,577 @@ def bayes_phases(torch, kernels, smi, cfg, rcfg, corpus, tmpdir,
         if got.shape != (n_hyps,) or not np.all(np.isfinite(got)) \
                 or rel > TRAINED_SCORE_RTOL:
             raise AssertionError("Bayes scoring failed")
+
+
+
+# ---------------------------------------------------------------- Transformer
+# The recipe's Transformer (recipes/run_nnlm_ami_tm.sh:12-23: emb 512, FFN
+# 4,096, 6 layers, 8 heads, dropout 0.2, lr 0.1, batch 32, seq_len 100,
+# clip 1.0) over the bench's 49,152-word table, tied, bf16; the Bayesian
+# variant at the FFN (uncertainty="Bayesian", t_bayes_pos="FFN").
+TM_WIDTH = dict(model="Transformer", emsize=512, nhid=4096, nlayers=6,
+                nhead=8, dropout=0.2)
+TM_LR = 0.1
+# Row 14 against its twin, elementwise |kernel - plain| <= ATTN_RTOL |plain|
+# + ATTN_SHARE max |plain|: both compute in fp32 and round to bf16 once, so
+# an element may round one bf16 step (2^-8 of a value, at most 2^-7) the
+# other way.
+ATTN_RTOL, ATTN_SHARE = 2 ** -7, 2 ** -14
+ATTN_LONG_T = (1024, 4096)
+ATTN_FAULT = ("attention_fwd", ("-DATTENTION_FAULT=1",))
+# Row 12 against its twin and against x . sample_weights^T (the sampler
+# kernel's W): fp32 sums of K products in other orders, the output rounded
+# to bf16 once: the same one-step rule.
+BMM_RTOL, BMM_SHARE = 2 ** -7, 2 ** -14
+BMM_FAULT = ("bayes_matmul", ("-DBAYES_SAMPLE_FAULT=1",))
+# Scores through packed-nocarry (sums of ~17 token CEs, ~190), kernel path
+# against plain path: the CE kernel's float32 sums in another order.
+TM_SCORE_ATOL = 2e-3
+
+
+def tm_config(cfg, **kw):
+    """The recipe's Transformer on the bench's configuration ``cfg``."""
+    import dataclasses
+
+    return dataclasses.replace(cfg, **TM_WIDTH, **kw)
+
+
+def causal_flops(T, BH, d):
+    """Operations of causal attention: S = Q K^T and P V over the T (T + 1)
+    / 2 kept (row, column) pairs, 2 d each, per batch column and head."""
+    return 2 * 2 * d * T * (T + 1) // 2 * BH
+
+
+def tm_attention_phase(torch, kernels, calls):
+    """Row 14 on the q, k, v views that ``evaluate`` handed it, at T =
+    1,024 and 4,096, and a planted-fault build."""
+    from bayeslms_tpu_torch.ops import _build
+    from bayeslms_tpu_torch.ops import attention_cuda as acu
+
+    F = torch.nn.functional
+    with phase("kernel attention_fwd"), torch.no_grad():
+        q, k, v, h = calls[0]
+        T, B, E = q.shape
+        d = E // h
+        print(f"  tolerance |kernel - plain| <= {ATTN_RTOL:.3e} |plain| + "
+              f"{ATTN_SHARE:.3e} max|plain|, elementwise; {len(calls)} "
+              f"call(s) in one evaluate window, T={T} B={B} heads={h} d={d} "
+              f"{q.dtype}, q/k/v strides {q.stride()}")
+        err, worst, fault = 0.0, 0.0, float("inf")
+        real_load = _build.load
+        gen = torch.Generator(device="cuda").manual_seed(8)
+        cases = [("eval", a) for a in calls] + [
+            (f"T={t}", [torch.randn((t, 2, E), generator=gen, device="cuda")
+                        .to(torch.bfloat16) for _ in range(3)] + [h])
+            for t in ATTN_LONG_T]
+        for name, args in cases:
+            ref = {"o": acu.causal_attention_plain(*args)}
+            got = {"o": acu.causal_attention(*args)}
+            torch.cuda.synchronize()
+            e, w = check_outputs(f"attention {name}", got, ref, ATTN_RTOL,
+                                 ATTN_SHARE)
+            err, worst = max(err, e), max(worst, w)
+            with mock.patch.object(_build, "load",
+                                   lambda kk: real_load(ATTN_FAULT)):
+                bad = {"o": acu.causal_attention(*args)}
+            fault = min(fault, fault_share(bad, ref, ATTN_RTOL, ATTN_SHARE))
+            if not all(bool(torch.isfinite(x.float()).all())
+                       for x in (*got.values(), *bad.values())):
+                raise AssertionError(f"attention {name}: a non-finite value")
+        print(f"  planted fault 'diagonal masked': worst share of tolerance "
+              f"{fault:.1f}")
+        timing = {}
+        for name, args in (("eval", calls[0]), ("T=4096", cases[-1][1])):
+            qq, kk, vv, hh = args
+            Tn, Bn, En = qq.shape
+            heads = [x.reshape(Tn, Bn, hh, En // hh).permute(1, 2, 0, 3)
+                     .contiguous() for x in (qq, kk, vv)]
+            kernel_fn = lambda a=args: acu.causal_attention(*a)  # noqa: E731
+            plain_fn = lambda a=args: acu.causal_attention_plain(*a)  # noqa: E731
+            library_fn = lambda x=heads: F.scaled_dot_product_attention(  # noqa: E731
+                *x, is_causal=True)
+            ms = device_ms(torch, kernel_fn, 20)
+            plain_ms = device_ms(torch, plain_fn, 3)
+            library_ms = device_ms(torch, library_fn, 20)
+            # bytes: q, k, v read once and o written, bf16; operations: the
+            # causal pairs' products, against the bf16 tensor-core peak
+            bms, bby = bound_ms(causal_flops(Tn, Bn * hh, En // hh),
+                                4 * Tn * Bn * En * 2)
+            timing[name] = (ms, plain_ms, library_ms, bms, bby)
+            print(f"  {name} (T={Tn} B={Bn} heads={hh}): device time a call "
+                  f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library "
+                  f"{library_ms:.4f} ms (F.scaled_dot_product_attention, "
+                  f"is_causal), bound {bms:.4f} ms ({bby}); one wrapper call "
+                  f"between CUDA events {cuda_ms(torch, kernel_fn, 5):.4f} ms")
+        ms, plain_ms, library_ms, bms, bby = timing["eval"]
+        kernels["attention_fwd"] = dict(
+            name="attention_fwd", route="cuda",
+            source="bayeslms_tpu_torch/csrc/attention_fwd.cu",
+            replaces="bayeslms_tpu/ops/attention_pallas.py:55",
+            max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms,
+            bound_by=bby, library_ms=library_ms)
+        if worst > 1:
+            raise AssertionError(f"attention_fwd disagrees with its plain "
+                                 f"version: worst share {worst:.3f}")
+        if fault < FAULT_MARGIN:
+            raise AssertionError(f"attention_fwd: the planted fault exceeds "
+                                 f"the tolerance only {fault:.1f}x")
+
+
+def tm_bayes_matmul_phase(torch, kernels, calls):
+    """Row 12 on the FFN linear2 call a Bayesian-FFN step handed it and at
+    the Bayesian MHA's o_net shape: against its twin, against x .
+    sample_weights^T (kernel row 13's W), and a planted-fault build of the
+    shared Philox header."""
+    from bayeslms_tpu_torch.ops import _build
+    from bayeslms_tpu_torch.ops import bayes_matmul_cuda as bmc
+    from bayeslms_tpu_torch.ops import bayes_sample_cuda as bsc
+
+    with phase("kernel bayes_matmul"), torch.no_grad():
+        x, mean, lgstd, seed = calls[0]
+        M = x.shape[0]
+        gen = torch.Generator(device="cuda").manual_seed(9)
+        E = mean.shape[0]
+        stdv = 1.0 / (E + 1) ** 0.5
+        mha = [torch.randn((M, E), generator=gen, device="cuda")
+               .to(torch.bfloat16),
+               (torch.rand((E, E), generator=gen, device="cuda") * 2 - 1)
+               * stdv,
+               torch.rand((E, E), generator=gen, device="cuda")
+               * (-np.log(stdv)) + 2 * np.log(stdv), seed]
+        print(f"  tolerance |kernel - ref| <= {BMM_RTOL:.3e} |ref| + "
+              f"{BMM_SHARE:.3e} max|ref|, elementwise; shapes "
+              f"FFN linear2 x {tuple(x.shape)} W {tuple(mean.shape)}, MHA "
+              f"o_net x {tuple(mha[0].shape)} W {tuple(mha[1].shape)}")
+        err, worst, fault = 0.0, 0.0, float("inf")
+        real_load = _build.load
+        for name, args in (("FFN linear2", calls[0]), ("MHA o_net", mha)):
+            xx, mm, ll, sd = args
+            got = {"y": bmc.bayes_matmul_fwd(*args)}
+            w = bsc.sample_weights(mm, ll, sd)
+            refs = {"twin": {"y": bmc.bayes_matmul_plain(*args)},
+                    "x . sample_weights^T": {
+                        "y": (xx.float() @ w.t()).to(xx.dtype)}}
+            torch.cuda.synchronize()
+            for rname, ref in refs.items():
+                e, q = check_outputs(f"{name} against {rname}", got, ref,
+                                     BMM_RTOL, BMM_SHARE)
+                err, worst = max(err, e), max(worst, q)
+            with mock.patch.object(_build, "load",
+                                   lambda kk: real_load(BMM_FAULT)):
+                bad = {"y": bmc.bayes_matmul_fwd(*args)}
+            fault = min(fault, fault_share(bad, refs["x . sample_weights^T"],
+                                           BMM_RTOL, BMM_SHARE))
+        print(f"  planted fault 'tile index dropped from the Philox key' "
+              f"(the shared header): worst share of tolerance {fault:.1f}")
+        N, K = mean.shape
+        gen2 = torch.Generator(device="cuda").manual_seed(10)
+        kernel_fn = lambda: bmc.bayes_matmul_fwd(*calls[0])  # noqa: E731
+        plain_fn = lambda: bmc.bayes_matmul_plain(*calls[0])  # noqa: E731
+        library_fn = lambda: x.float() @ (mean + torch.exp(lgstd) * torch.randn(  # noqa: E731
+            (N, K), generator=gen2, device="cuda")).t()
+        ms = cuda_ms(torch, kernel_fn, 5)
+        plain_ms = cuda_ms(torch, plain_fn, 3)
+        library_ms = cuda_ms(torch, library_fn, 5)
+        # bytes: x (bf16), mean and lgstd (fp32) read, y (bf16) written;
+        # operations: the fp32 products (the TPU kernel's dot is fp32),
+        # against the fp32 peak
+        t_ops = 2 * M * N * K / PEAK_FP32_FLOPS
+        t_bytes = (M * K * 2 + 2 * N * K * 4 + M * N * 2) / PEAK_BYTES_PER_S
+        bms = 1e3 * max(t_ops, t_bytes)
+        bby = "operations" if t_ops >= t_bytes else "bytes"
+        print(f"  FFN linear2 (M={M} N={N} K={K}): kernel {ms:.4f} ms, plain "
+              f"{plain_ms:.4f} ms, library {library_ms:.4f} ms (torch.randn "
+              f"+ exp + fp32 matmul, other bits), bound {bms:.4f} ms ({bby})")
+        kernels["bayes_matmul"] = dict(
+            name="bayes_matmul", route="cuda",
+            source="bayeslms_tpu_torch/csrc/bayes_matmul.cu",
+            replaces="bayeslms_tpu/ops/bayes_matmul.py:82",
+            max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms,
+            bound_by=bby, library_ms=library_ms)
+        if worst > 1:
+            raise AssertionError(f"bayes_matmul disagrees: worst share "
+                                 f"{worst:.3f}")
+        if fault < FAULT_MARGIN:
+            raise AssertionError(f"bayes_matmul: the planted fault exceeds "
+                                 f"the tolerance only {fault:.1f}x")
+
+
+def tm_dropout_masks(torch, cfg, T, B, seed):
+    """Keep masks for every dropout site of a training forward, drawn on
+    the card, so that two steps see the same ones."""
+    from bayeslms_tpu_torch.models.transformer_lm import (
+        BAYES_LAYER_DROPOUT, EncoderDropoutMasks, TransformerDropoutMasks)
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    E, FF, h = cfg.emsize, cfg.nhid, cfg.nhead
+
+    def keep(shape, rate):
+        return torch.rand(shape, generator=gen, device="cuda") >= rate
+
+    layers = []
+    for i in range(cfg.nlayers):
+        rate = BAYES_LAYER_DROPOUT if (i == 0 and cfg.t_bayes_pos in
+                                       ("FFN", "MHA")) else cfg.dropout
+        layers.append(EncoderDropoutMasks(
+            keep((B, h, T, T), rate), keep((T, B, E), rate),
+            keep((T, B, FF), rate), keep((T, B, E), rate)))
+    return TransformerDropoutMasks(keep((T, B, E), cfg.dropout), layers)
+
+
+def tm_phases(torch, kernels, smi, cfg, rcfg, corpus, tmpdir):
+    """The Transformer's training (standard and Bayesian FFN) and scoring
+    on the LSTM phases' corpus and the bench's N-best; adds rows 12 and 14
+    to ``kernels``. Raises on any failed check."""
+    from bayeslms_tpu_torch import TrainConfig, build_model, init_params
+    from bayeslms_tpu_torch.data.corpus import batchify
+    from bayeslms_tpu_torch.ops import attention_cuda as acu
+    from bayeslms_tpu_torch.ops import bayes_matmul_cuda as bmc
+    from bayeslms_tpu_torch.ops import bayes_sample_cuda as bsc
+    from bayeslms_tpu_torch.ops import ce_cuda
+    from bayeslms_tpu_torch.ops import ce_train_cuda as ctc
+    from bayeslms_tpu_torch.rescore.scorer import BatchScorer
+    from bayeslms_tpu_torch.train.loop import Trainer
+
+    tcfg_m = tm_config(cfg)
+    bcfg = tm_config(cfg, uncertainty="Bayesian", t_bayes_pos="FFN")
+    B, T = TRAIN_BATCH, TRAIN_SEQ
+    kl_scale = T / batchify(corpus.train, B).shape[0]
+    ce_plain = [mock.patch.object(ctc, n, getattr(ctc, n + "_plain"))
+                for n in CE_TRAIN]
+    # rows 2 and 9-11 at the Transformer's width, beside their LSTM entries
+    tag = f" (Transformer, D={tcfg_m.emsize})"
+
+    def tcfg(save, epochs):
+        return TrainConfig(lr=TM_LR, momentum=0.9, clip=1.0, batch_size=B,
+                           seq_len=T, eval_batch_size=EVAL_BATCH,
+                           epochs=epochs, log_interval=10,
+                           save=os.path.join(tmpdir, save))
+
+    data = torch.from_numpy(corpus.train[:T * B].reshape(B, T).T.copy()
+                            ).long().cuda()
+    target = torch.from_numpy(corpus.train[1:T * B + 1].reshape(B, T).T
+                              .copy()).long().cuda()
+
+    with phase("tm setup"):
+        trainer = Trainer(tcfg_m, tcfg("tm.ckpt", 2))
+        state = trainer.init_state()
+        n_par = sum(p.numel() for p in state.params.values())
+        print(f"  {tcfg_m.model} {tcfg_m.emsize}/{tcfg_m.nhid} x "
+              f"{tcfg_m.nlayers}, {tcfg_m.nhead} heads, V = "
+              f"{tcfg_m.vocab_size}, {tcfg_m.compute_dtype}: {n_par} "
+              f"parameters; lr {TM_LR}, batch {B}, seq_len {T}")
+        calls = []
+        real = acu.causal_attention
+
+        def record(*a):
+            calls.append(a)
+            return real(*a)
+
+        rows = batchify(corpus.valid, EVAL_BATCH)[:T + 1]
+        with mock.patch.object(acu, "causal_attention", record):
+            trainer.evaluate(state.model, rows)
+        # and the tensors one training step hands the CE kernels; its
+        # dropout draws are given back, so that fit sees the same stream
+        recorded = {}
+        gen_state = trainer.gen.get_state()
+        with contextlib.ExitStack() as stack:
+            for p in recording(ctc, CE_TRAIN, recorded):
+                stack.enter_context(p)
+            trainer.train_step(state, None, data, target, kl_scale)
+        trainer.gen.set_state(gen_state)
+        torch.cuda.synchronize()
+        if len(calls) != tcfg_m.nlayers:
+            raise AssertionError(f"one evaluate window made {len(calls)} "
+                                 f"attention calls, {tcfg_m.nlayers} "
+                                 "expected")
+        del state
+
+    tm_attention_phase(torch, kernels, calls)
+    del calls
+    check_recorded(torch, kernels, ce_train_specs(ctc, T * B, cfg.vocab_size,
+                                                  tcfg_m.emsize),
+                   recorded, tag, TM_TRAIN_TOL)
+    del recorded
+
+    with phase("tm train main path"):
+        for k in ctc.launches:
+            ctc.launches[k] = 0
+        acu.launches = 0
+        steps, evals = [], []
+
+        def on_step(b, loss):
+            torch.cuda.synchronize()
+            steps.append((time.perf_counter(), float(loss)))
+
+        evaluate = trainer.evaluate
+
+        def counted_eval(model, rows):
+            before = acu.launches
+            out = evaluate(model, rows)
+            evals.append((acu.launches - before,
+                          -(-(rows.shape[0] - 1) // T)))
+            return out
+
+        trainer.evaluate = counted_eval
+        t0 = time.perf_counter()
+        state, out = trainer.fit(corpus, log=lambda line: print("  " + line),
+                                 on_step=on_step)
+        fit_s = time.perf_counter() - t0
+        trainer.evaluate = evaluate
+        n = len(steps)
+        launches = {**ctc.launches, "attention_fwd (evaluate)": acu.launches}
+        print(f"  kernel launches in fit ({n} steps, {len(evals)} "
+              f"evaluations): {launches}; attention launches and windows per "
+              f"evaluation: {evals}")
+        losses = [l for _, l in steps]
+        print("  loss per step: " + " ".join(f"{l:.4f}" for l in losses))
+        print("  validation loss per epoch: " + " ".join(
+            f"{h['val_loss']:.4f}" for h in out["history"])
+            + f"; test loss {out['test_loss']:.4f}")
+        dts = np.diff([t for t, _ in steps])[2:]
+        step_ms = 1e3 * float(np.median(dts))
+        print(f"  step median {step_ms:.3f} ms over {len(dts)} warm steps, "
+              f"{T * B / step_ms * 1e3:.1f} tokens/s; fit {fit_s:.1f} s on "
+              f"{smi}")
+        for name in CE_TRAIN:
+            kernels[name + tag]["launches"] = launches[name]
+            if launches[name] != n:
+                raise AssertionError(f"{name}: {launches[name]} launches in "
+                                     f"{n} steps, 1 a step expected")
+        if not evals or any(a != tcfg_m.nlayers * w for a, w in evals):
+            raise AssertionError(f"evaluate did not launch attention_fwd "
+                                 f"once a layer and window: {evals}")
+        kernels["attention_fwd"]["launches"] = acu.launches
+        if not all(np.isfinite(losses)) or not np.isfinite(out["test_loss"]):
+            raise AssertionError("a training loss is not finite")
+        if np.mean(losses[-5:]) >= np.mean(losses[:5]):
+            raise AssertionError(
+                f"the loss did not fall: first 5 {np.mean(losses[:5]):.4f}, "
+                f"last 5 {np.mean(losses[-5:]):.4f}")
+        del state
+
+    with phase("tm train step against plain versions"):
+        compare_steps(torch, trainer, data, target, kl_scale,
+                      tm_dropout_masks(torch, tcfg_m, T, B, 3), ce_plain,
+                      loss_rtol=STEP_LOSS_RTOL)
+
+    with phase("tm bayes setup"):
+        btrainer = Trainer(bcfg, tcfg("tm_bayes.ckpt", 1))
+
+        def fused(st):
+            st.model.layers_0.linear2.use_fused = True
+
+        st = btrainer.init_state()
+        fused(st)
+        calls = []
+        real_fwd = bmc.bayes_matmul_fwd
+
+        def record_fwd(*a):
+            calls.append(tuple(x.detach().clone() for x in a))
+            return real_fwd(*a)
+
+        with mock.patch.object(bmc, "bayes_matmul_fwd", record_fwd):
+            btrainer.train_step(st, None, data, target, kl_scale)
+        torch.cuda.synchronize()
+        if len(calls) != 1:
+            raise AssertionError(f"{len(calls)} bayes_matmul calls in a "
+                                 "fused step, 1 expected")
+        del st
+
+    tm_bayes_matmul_phase(torch, kernels, calls)
+    del calls
+
+    with phase("tm bayes fused step against plain versions"):
+        print("  linear2.use_fused = True: row 12 forward, its backward "
+              "through row 13; plain: the twins of rows 9-13")
+        compare_steps(
+            torch, btrainer, data, target, kl_scale,
+            tm_dropout_masks(torch, bcfg, T, B, 4),
+            ce_plain + [mock.patch.object(bmc, "bayes_matmul_fwd",
+                                          bmc.bayes_matmul_plain),
+                        mock.patch.object(bsc, "sample_weights",
+                                          bsc.sample_weights_plain)],
+            loss_rtol=STEP_LOSS_RTOL, prepare=fused)
+
+    with phase("tm bayes train"):
+        print("  one epoch of the Bayesian-FFN Transformer with "
+              "linear2.use_fused = True (the JAX package's opt-in row 12)")
+        for k in ctc.launches:
+            ctc.launches[k] = 0
+        bmc.launches = 0
+        bsc.launches = 0
+        steps, kls = [], []
+        step = btrainer.train_step
+        init_state = btrainer.init_state
+
+        def fused_init(seed=None):
+            st = init_state(seed)
+            fused(st)
+            return st
+
+        def counted_step(*a, **kw):
+            res = step(*a, **kw)
+            kls.append(res[3])
+            return res
+
+        def on_step(b, loss):
+            torch.cuda.synchronize()
+            steps.append((time.perf_counter(), float(loss)))
+
+        btrainer.init_state, btrainer.train_step = fused_init, counted_step
+        t0 = time.perf_counter()
+        _, out = btrainer.fit(corpus, log=lambda line: print("  " + line),
+                              on_step=on_step)
+        fit_s = time.perf_counter() - t0
+        btrainer.init_state, btrainer.train_step = init_state, step
+        n = len(steps)
+        launches = {**ctc.launches, "bayes_matmul": bmc.launches,
+                    "bayes_sample (row 12's backward)": bsc.launches}
+        print(f"  kernel launches in fit ({n} steps): {launches}")
+        losses = [l for _, l in steps]
+        kl = [float(k) for k in kls]
+        print("  loss per step: " + " ".join(f"{l:.4f}" for l in losses))
+        print(f"  KL term (KL x seq_len / rows = x {kl_scale:.5f}) per step: "
+              + " ".join(f"{k:.6f}" for k in kl))
+        print(f"  validation loss {out['history'][0]['val_loss']:.4f}; test "
+              f"loss {out['test_loss']:.4f}")
+        dts = np.diff([t for t, _ in steps])[2:]
+        step_ms = 1e3 * float(np.median(dts))
+        print(f"  step median {step_ms:.3f} ms over {len(dts)} warm steps, "
+              f"{T * B / step_ms * 1e3:.1f} tokens/s; fit {fit_s:.1f} s on "
+              f"{smi}")
+        for name in (*CE_TRAIN, "bayes_matmul",
+                     "bayes_sample (row 12's backward)"):
+            if launches[name] != n:
+                raise AssertionError(f"{name}: {launches[name]} launches in "
+                                     f"{n} steps, 1 a step expected")
+        kernels["bayes_matmul"]["launches"] = bmc.launches
+        if not all(np.isfinite(losses)) or not np.isfinite(out["test_loss"]):
+            raise AssertionError("a training loss is not finite")
+        if not all(np.isfinite(k) and k > 0 for k in kl):
+            raise AssertionError(f"the KL term is not finite and > 0: {kl}")
+
+    with phase("tm score setup"):
+        params = init_params(build_model(tcfg_m), tcfg_m, seed=0)
+        scorer = BatchScorer(tcfg_m, params, rcfg)
+        nbest = make_synthetic_nbest(n_meetings=30)
+        w2i = {"<s>": 0, "<unk>": 1,
+               **{f"w{i}": 2 + i for i in range(cfg.vocab_size - 2)}}
+        # one pass records the packed chunk it hands the CE kernel
+        recorded = {}
+        with recording(ce_cuda, ("fused_decode_ce",), recorded)[0]:
+            scorer.score_nbest(nbest, w2i)
+        torch.cuda.synchronize()
+        if len(recorded["fused_decode_ce"]) != 1:
+            raise AssertionError(f"{len(recorded['fused_decode_ce'])} CE "
+                                 "calls in a packed pass, 1 expected")
+
+    ce_fwd_check(torch, kernels, recorded["fused_decode_ce"][0], tag,
+                 TM_CE_ATOL)
+    del recorded
+
+    with phase("tm score"):
+        ce_cuda.launches = 0
+        acu.launches = 0
+        pass_s = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            res = scorer.score_nbest(nbest, w2i)
+            torch.cuda.synchronize()
+            pass_s.append(time.perf_counter() - t0)
+        print(f"  kernel launches in 3 passes: ce_fwd {ce_cuda.launches}, "
+              f"attention_fwd {acu.launches} (the packed layout's explicit "
+              "mask takes the plain attention, as in JAX)")
+        got = np.array([s for pairs in res.values() for _, s in pairs])
+        n_hyps = sum(len(h) for h in nbest.values())
+        n_tokens = sum(len(h.split()) + 1 for hyps in nbest.values()
+                       for h in hyps)
+        med = float(np.median(pass_s))
+        print(f"  passes {['%.4f' % s for s in pass_s]} s; median "
+              f"{n_hyps / med:.1f} hyps/s, {n_tokens / med:.1f} tokens/s "
+              f"({n_hyps} hyps, {n_tokens} scored tokens) on {smi}")
+        kernels["ce_fwd" + tag]["launches"] = ce_cuda.launches
+        if ce_cuda.launches == 0:
+            raise AssertionError("TM scoring never launched ce_fwd")
+        with mock.patch.object(ce_cuda, "fused_decode_ce", ce_cuda.ce_plain):
+            ref = np.array([s for pairs in scorer.score_nbest(
+                nbest, w2i).values() for _, s in pairs])
+        diff = float(np.abs(got - ref).max())
+        print(f"  {n_hyps} scores, |plain| mean {np.abs(ref).mean():.3f} max "
+              f"{np.abs(ref).max():.3f}: max |kernel - plain| {diff:.4e} "
+              f"(tolerance {TM_SCORE_ATOL:.0e})")
+        if got.shape != (n_hyps,) or not np.all(np.isfinite(got)) \
+                or diff > TM_SCORE_ATOL:
+            raise AssertionError("TM scoring failed")
+
+
+def ce_fwd_check(torch, kernels, args, tag="", atol=CE_ATOL):
+    """Row 2 (the scoring CE) on the call the main path handed it:
+    against its twin within ``atol``, at a ragged vocabulary edge too, a
+    planted fault (targets shifted) that must exceed ``atol`` by
+    FAULT_MARGIN; times it and adds it to ``kernels`` as ce_fwd + ``tag``.
+    Raises on any failed check."""
+    from bayeslms_tpu_torch.ops import ce_cuda
+
+    with phase(f"kernel ce_fwd{tag}"):
+        h, emb, bias, tgt = args
+        M, D = h.shape
+        V = emb.shape[0]
+        got = ce_cuda.fused_decode_ce(h, emb, bias, tgt)
+        ref = ce_cuda.ce_plain(h, emb, bias, tgt)
+        torch.cuda.synchronize()
+        err = max_err(got, ref)
+        print(f"  M={M} V={V} D={D} {emb.dtype}: max |kernel - plain| "
+              f"{err:.3e} (tolerance {atol:.0e}); plain CE mean "
+              f"{float(ref.mean()):.4f}, max {float(ref.max()):.4f}")
+        bad = max_err(ce_cuda.fused_decode_ce(h, emb, bias,
+                                              torch.roll(tgt, 1)), ref)
+        print(f"  planted fault 'targets shifted': max |faulty - plain| "
+              f"{bad:.3e} ({bad / atol:.1f}x the tolerance)")
+        # a ragged vocabulary edge too (V' not a multiple of the 128 tile),
+        # with a random bias: the model's initial bias is zero
+        Vr, Mr = V - 77, 1000
+        tr = tgt[:Mr] % Vr
+        gen = torch.Generator(device=h.device).manual_seed(1)
+        br = torch.rand((Vr,), generator=gen, device=h.device) * 2 - 1
+        err_r = max_err(ce_cuda.fused_decode_ce(h[:Mr], emb[:Vr], br, tr),
+                        ce_cuda.ce_plain(h[:Mr], emb[:Vr], br, tr))
+        print(f"  M={Mr} V={Vr}, bias U(-1, 1): max |kernel - plain| "
+              f"{err_r:.3e} (tolerance {atol:.0e})")
+        # the scorer holds the table in bf16 already (rescore/scorer.py),
+        # so these times include everything the main path's call does
+        ms = cuda_ms(torch, lambda: ce_cuda.fused_decode_ce(h, emb, bias, tgt), 5)
+        plain_ms = cuda_ms(torch, lambda: ce_cuda.ce_plain(h, emb, bias, tgt), 3)
+        b16 = bias.to(torch.bfloat16)
+        rows = ce_cuda.PLAIN_ROWS
+
+        def library():
+            # yardstick only, never called by the port: bf16 logits through
+            # cuBLAS and torch's cross-entropy, a chunk of tokens at a time
+            for s in range(0, M, rows):
+                torch.nn.functional.cross_entropy(
+                    h[s:s + rows] @ emb.t() + b16, tgt[s:s + rows],
+                    reduction="none")
+
+        library_ms = cuda_ms(torch, library, 3)
+        flops = 2 * M * V * D
+        nbytes = M * D * 2 + V * D * 2 + V * 4 + M * 4 + M * 4
+        bms, bby = bound_ms(flops, nbytes)
+        print(f"  kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, library "
+              f"{library_ms:.3f} ms, bound {bms:.3f} ms ({bby})")
+        kernels["ce_fwd" + tag] = dict(
+            name="ce_fwd" + tag, route="cuda",
+            source="bayeslms_tpu_torch/csrc/ce_fwd.cu",
+            replaces="bayeslms_tpu/ops/ce_pallas.py:90",
+            max_abs_err=max(err, err_r), ms=ms, plain_ms=plain_ms,
+            bound_ms=bms, bound_by=bby, library_ms=library_ms)
+        if max(err, err_r) > atol:
+            raise AssertionError(f"ce_fwd disagrees with its plain version: "
+                                 f"{err:.3e}, ragged {err_r:.3e}")
+        if bad < FAULT_MARGIN * atol:
+            raise AssertionError(f"ce_fwd: the planted fault exceeds the "
+                                 f"tolerance only {bad / atol:.1f}x")
 
 
 def library_yardstick(torch, name, args):
@@ -937,8 +1567,6 @@ def library_yardstick(torch, name, args):
 
 
 def main():
-    from unittest import mock
-
     import torch
 
     from bayeslms_tpu_torch import build_model, init_params
@@ -967,7 +1595,8 @@ def main():
         # the port's kernels and the sampler's planted-fault variants, all
         # nvcc processes at once
         for name, path in _build.build([*_build.KERNELS,
-                                        *SAMPLER_FAULTS.values()]).items():
+                                        *SAMPLER_FAULTS.values(),
+                                        ATTN_FAULT, BMM_FAULT]).items():
             print(f"  {name}: {path}")
         print(f"  build seconds {time.perf_counter() - t0:.1f}")
 
@@ -1045,56 +1674,7 @@ def main():
         if min(faults.values()) <= 1:
             raise AssertionError(f"a planted fault passes the tolerance: {faults}")
 
-    with phase("kernel ce_fwd"):
-        h, emb, bias, tgt = recorded["ce"]
-        M, D = h.shape
-        got = ce_cuda.fused_decode_ce(h, emb, bias, tgt)
-        ref = ce_cuda.ce_plain(h, emb, bias, tgt)
-        torch.cuda.synchronize()
-        err = max_err(got, ref)
-        print(f"  M={M} V={V} D={D} {emb.dtype}: max |kernel - plain| "
-              f"{err:.3e} (tolerance {CE_ATOL:.0e}); plain CE mean "
-              f"{float(ref.mean()):.4f}, max {float(ref.max()):.4f}")
-        # a ragged vocabulary edge too (V' not a multiple of the 128 tile),
-        # with a random bias: the model's initial bias is zero
-        Vr, Mr = V - 77, 1000
-        tr = tgt[:Mr] % Vr
-        gen = torch.Generator(device=h.device).manual_seed(1)
-        br = torch.rand((Vr,), generator=gen, device=h.device) * 2 - 1
-        err_r = max_err(ce_cuda.fused_decode_ce(h[:Mr], emb[:Vr], br, tr),
-                        ce_cuda.ce_plain(h[:Mr], emb[:Vr], br, tr))
-        print(f"  M={Mr} V={Vr}, bias U(-1, 1): max |kernel - plain| "
-              f"{err_r:.3e} (tolerance {CE_ATOL:.0e})")
-        # the scorer holds the table in bf16 already (rescore/scorer.py),
-        # so these times include everything the main path's call does
-        ms = cuda_ms(torch, lambda: ce_cuda.fused_decode_ce(h, emb, bias, tgt), 5)
-        plain_ms = cuda_ms(torch, lambda: ce_cuda.ce_plain(h, emb, bias, tgt), 3)
-        b16 = bias.to(torch.bfloat16)
-        rows = ce_cuda.PLAIN_ROWS
-
-        def library():
-            # yardstick only, never called by the port: bf16 logits through
-            # cuBLAS and torch's cross-entropy, a chunk of tokens at a time
-            for s in range(0, M, rows):
-                torch.nn.functional.cross_entropy(
-                    h[s:s + rows] @ emb.t() + b16, tgt[s:s + rows],
-                    reduction="none")
-
-        library_ms = cuda_ms(torch, library, 3)
-        flops = 2 * M * V * D
-        nbytes = M * D * 2 + V * D * 2 + V * 4 + M * 4 + M * 4
-        bms, bby = bound_ms(flops, nbytes)
-        print(f"  kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, library "
-              f"{library_ms:.3f} ms, bound {bms:.3f} ms ({bby})")
-        kernels["ce_fwd"] = dict(
-            name="ce_fwd", route="cuda",
-            source="bayeslms_tpu_torch/csrc/ce_fwd.cu",
-            replaces="bayeslms_tpu/ops/ce_pallas.py:90",
-            max_abs_err=max(err, err_r), ms=ms, plain_ms=plain_ms,
-            bound_ms=bms, bound_by=bby, library_ms=library_ms)
-        if max(err, err_r) > CE_ATOL:
-            raise AssertionError(f"ce_fwd disagrees with its plain version: "
-                                 f"{err:.3e}, ragged {err_r:.3e}")
+    ce_fwd_check(torch, kernels, recorded["ce"])
     del recorded, args, xg1, got, ref
 
     with phase("main path"):
@@ -1152,6 +1732,7 @@ def main():
 
     corpus, tmp = train_phases(torch, kernels, smi, cfg, rcfg)
     bayes_phases(torch, kernels, smi, cfg, rcfg, corpus, tmp.name)
+    tm_phases(torch, kernels, smi, cfg, rcfg, corpus, tmp.name)
     tmp.cleanup()
 
     print(json.dumps({"kernels": list(kernels.values())}))

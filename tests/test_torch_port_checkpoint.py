@@ -3,7 +3,8 @@ against the JAX package and the reference's own checkpoints and logs, on
 the CPU in float32.
 
 The repository holds checkpoints that the reference's ``train.py`` wrote
-(``exp/campaign/torch_lstm_*/model.pt``, ``prior_lstm/model.pt``) with
+(``exp/campaign/torch_lstm_*/model.pt``, ``prior_lstm/model.pt``, the
+Transformers ``torch_tm_bayesft/model.pt`` and ``prior_tm/model.pt``) with
 their training logs, one that the JAX package wrote
 (``ours_lstm_bayes3_e8/model.ckpt`` and its ``.json`` sidecar), and the
 corpus they were trained on (``exp/corpus_mid``). The port reads them with
@@ -100,8 +101,89 @@ def test_import_maps_every_rnn_name_as_jax():
         kw = dict(model="LSTM", vocab_size=7, emsize=4, nhid=4, tied=tied)
         _assert_trees_equal(
             tck.import_torch_state_dict(sd, bt.ModelConfig(**kw)),
-            {k: v for k, v in jck.import_torch_state_dict(
-                sd, jx.ModelConfig(**kw)).items() if k != "layers_0"})
+            jck.import_torch_state_dict(sd, jx.ModelConfig(**kw)))
+
+
+def test_import_maps_every_transformer_name_as_jax():
+    """Synthetic state_dict: every name of the Transformer table (torch
+    TransformerEncoder's ``layers.N.`` prefix and the reference's
+    self-built ``N.``), Linear weights transposed to (in, out) kernels, the
+    EMB projection, and the positional table with no counterpart. The GP
+    and variational names (ROADMAP.md queue A item 10) are left out."""
+    rng = np.random.default_rng(3)
+    sd = {"encoder.weight": (7, 4), "decoder.bias": (7,),
+          "embed_mean": (4, 4), "embed_lgstd": (4, 4),
+          "pos_encoder.pe": (9, 1, 4)}
+    for rest, shape in (
+            ("self_attn.in_proj_weight", (12, 4)),
+            ("self_attn.in_proj_bias", (12,)),
+            ("self_attn.out_proj.weight", (4, 4)),
+            ("self_attn.out_proj.bias", (4,)),
+            ("linear1.weight", (6, 4)), ("linear1.bias", (6,)),
+            ("linear2.weight", (4, 6)), ("linear2.bias", (4,)),
+            ("norm1.weight", (4,)), ("norm1.bias", (4,)),
+            ("norm2.weight", (4,)), ("norm2.bias", (4,))):
+        sd[f"transformerlayers.layers.0.{rest}"] = shape
+    for rest, shape in (
+            ("self_attn.qkv_net.weight", (12, 4)),
+            ("self_attn.qkv_net.bias", (12,)),
+            ("self_attn.o_net.weight", (4, 4)), ("self_attn.o_net.bias", (4,)),
+            ("self_attn.q_net.weight", (4, 4)), ("self_attn.q_net.bias", (4,)),
+            ("self_attn.k_net.weight", (4, 4)), ("self_attn.k_net.bias", (4,)),
+            ("self_attn.v_net.weight", (4, 4)), ("self_attn.v_net.bias", (4,)),
+            ("self_attn.o_net.weight_mean", (4, 4)),
+            ("self_attn.o_net.weight_lgstd", (4, 4)),
+            ("linear2.weight_mean", (4, 6)), ("linear2.weight_lgstd", (4, 6))):
+        sd[f"transformerlayers.1.{rest}"] = shape
+    sd = {k: rng.normal(size=s).astype(np.float32) for k, s in sd.items()}
+    kw = dict(model="Transformer", vocab_size=7, emsize=4, nhid=6, nhead=2)
+    got = tck.import_torch_state_dict(sd, bt.ModelConfig(**kw))
+    _assert_trees_equal(got, jck.import_torch_state_dict(
+        sd, jx.ModelConfig(**kw)))
+    np.testing.assert_array_equal(got["layers_0"]["linear1"]["kernel"],
+                                  sd["transformerlayers.layers.0.linear1.weight"]
+                                  .T)
+
+
+def _tm_cfg(pkg, uncertainty="Bayesian", pos="FFN"):
+    """The campaign's Transformers: 128/512 x 2, 4 heads, tied,
+    V = 10,000."""
+    return pkg.ModelConfig(model="Transformer", vocab_size=10000, emsize=128,
+                           nhid=512, nlayers=2, nhead=4, dropout=0.2,
+                           uncertainty=uncertainty, t_bayes_pos=pos)
+
+
+@pytest.mark.parametrize("name,unc,pos", [
+    ("torch_tm_bayesft", "Bayesian", "FFN"), ("prior_tm", "none", "none")])
+def test_import_of_the_reference_transformers_matches_jax(name, unc, pos):
+    """The reference's Transformer ``model.pt`` files read as JAX reads
+    them, and each fills the model it was trained as, every parameter."""
+    path = os.path.join(CAMPAIGN, name, "model.pt")
+    got = tck.load_params(path, _tm_cfg(bt, unc, pos))
+    _assert_trees_equal(got, jck.load_torch_checkpoint(
+        path, _tm_cfg(jx, unc, pos)))
+    model = bt.build_model(_tm_cfg(bt, unc, pos))
+    assert sorted(_flat(got)) == sorted(_flat(tck.params_to_jax(model)))
+    tck.params_from_jax(model, got)
+
+
+def test_prior_tm_partial_updates_into_a_bayes_ffn_tree():
+    """The finetune workflow of torch_tm_bayesft: the standard prior_tm
+    fills every parameter of the Bayesian-FFN tree but the FFN's Bayesian
+    linear2 (a plain kernel and bias in the prior), as JAX's
+    ``partial_update`` does."""
+    prior = tck.load_params(os.path.join(CAMPAIGN, "prior_tm", "model.pt"),
+                            _tm_cfg(bt, "none", "none"))
+    cfg = _tm_cfg(bt)
+    fresh = bt.init_params(bt.build_model(cfg), cfg, seed=0)
+    got, updated = tck.partial_update(fresh, prior)
+    ref, ref_updated = jck.partial_update(fresh, prior)
+    assert updated == ref_updated
+    _assert_trees_equal(got, ref)
+    left = sorted(set(_flat(fresh)) - set(updated))
+    assert left == ["layers_0/linear2/weight_lgstd",
+                    "layers_0/linear2/weight_mean"]
+    tck.params_from_jax(bt.build_model(cfg), got)
 
 
 def test_partial_update_matches_jax():
@@ -254,3 +336,14 @@ def test_jax_checkpoint_meets_its_sidecar_val_loss():
     meta = tck.load_jax_checkpoint(path)[1]
     loss = _evaluate(path, _cfg(bt), "valid")
     assert abs(loss - meta["val_loss"]) <= 2e-5, (loss, meta["val_loss"])
+
+
+@pytest.mark.slow
+def test_reference_tm_bayesft_meets_its_test_ppl_at_the_posterior_mean():
+    """torch_tm_bayesft (the reference's Bayesian-FFN Transformer,
+    finetuned from prior_tm), train.log end of training: test loss 4.80,
+    test ppl 121.51 (ln 4.79999 +- 4.1e-5), at eval batch 20."""
+    loss = _evaluate(os.path.join(CAMPAIGN, "torch_tm_bayesft", "model.pt"),
+                     _tm_cfg(bt), "test")
+    _meets_log(loss, 121.51)
+    assert round(loss, 2) == 4.80

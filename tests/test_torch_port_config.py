@@ -71,7 +71,7 @@ def test_init_params_tree_and_laws():
     dict(model="GRU"),
     dict(nlayers=1),
     dict(nlayers=3),
-    dict(model="Transformer"),
+    dict(model="Transformer", uncertainty="Gaussian"),
     dict(uncertainty="Gaussian"),
     dict(tied=False),
 ])

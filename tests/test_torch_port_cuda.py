@@ -207,3 +207,58 @@ def test_sampler_refuses_what_the_kernel_does_not_take(dev):
                    (torch.zeros((4, 4), device=dev), seed.long())):
         with pytest.raises(ValueError):
             bayes_sample_cuda.sample_weights(None, lg, sd)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("T,d", [(1, 32), (100, 64), (130, 32), (257, 128)])
+def test_attention_kernel_matches_plain(dev, T, d, dtype):
+    """Ragged T (off the 64-row tiles), the qkv projection's column views
+    read in place; bf16 outputs within a rounding step of the fp32 twin."""
+    from bayeslms_tpu_torch.ops import attention_cuda
+
+    g = torch.Generator().manual_seed(T + d)
+    h, B = 3, 5
+    qkv = (torch.randn((T, B, 3 * h * d), generator=g)).to(dev, dtype)
+    q, k, v = qkv.split(h * d, dim=-1)
+    before = attention_cuda.launches
+    got = attention_cuda.causal_attention(q, k, v, h)
+    assert attention_cuda.launches == before + 1
+    ref = attention_cuda.causal_attention_plain(q, k, v, h)
+    assert got.dtype == dtype and got.shape == (T, B, h * d)
+    if dtype == torch.bfloat16:
+        torch.testing.assert_close(got.float(), ref.float(), rtol=2 ** -7,
+                                   atol=2 ** -12)
+    else:
+        torch.testing.assert_close(got, ref, rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("M,N,K", [(8, 128, 128), (37, 256, 384)])
+def test_bayes_matmul_kernel_matches_plain(dev, M, N, K, dtype):
+    """The fused forward against x W^T with W from the sampler kernel (the
+    same Philox stream, so the same W bit for bit) and against the twin;
+    the backward draws W again with the sampler."""
+    from bayeslms_tpu_torch.ops import bayes_matmul_cuda as bmc
+
+    g = torch.Generator().manual_seed(M)
+    x = torch.randn((M, K), generator=g).to(dev, dtype)
+    mean = (torch.randn((N, K), generator=g) * 0.1).to(dev)
+    lg = (torch.rand((N, K), generator=g) * 2 - 4).to(dev)
+    seed = torch.tensor([12345], dtype=torch.int32, device=dev)
+    before = bmc.launches
+    got = bmc.bayes_matmul_fwd(x, mean, lg, seed)
+    assert bmc.launches == before + 1 and got.dtype == dtype
+    w = bayes_sample_cuda.sample_weights(mean, lg, seed)
+    ref = (x.float() @ w.t()).to(dtype)
+    tol = dict(rtol=2 ** -7, atol=2 ** -10) if dtype == torch.bfloat16 \
+        else dict(rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(got.float(), ref.float(), **tol)
+    torch.testing.assert_close(
+        got.float(), bmc.bayes_matmul_plain(x, mean, lg, seed).float(), **tol)
+    xr, mr, lr = (t.clone().requires_grad_(True) for t in (x, mean, lg))
+    y = bmc.bayes_matmul(xr, mr, lr, seed)
+    gy = torch.randn(y.shape, generator=g).to(dev, dtype)
+    (y.float() * gy.float()).sum().backward()
+    dw = gy.float().t() @ x.float()
+    torch.testing.assert_close(lr.grad, dw * (w - mean), rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(mr.grad, dw, rtol=1e-5, atol=1e-5)

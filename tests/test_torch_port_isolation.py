@@ -71,6 +71,13 @@ bcfg = ModelConfig(model="LSTM", vocab_size=10000, emsize=256, nhid=256,
 for path in ("exp/campaign/torch_lstm_bayes3/model.pt",
              "exp/campaign/ours_lstm_bayes3_e8/model.ckpt"):
     BatchScorer(bcfg, load_params(path, bcfg), RescoreConfig(), device="cpu")
+tcfg = ModelConfig(model="Transformer", vocab_size=10000, emsize=128, nhid=512,
+                   nlayers=2, nhead=4, uncertainty="Bayesian", t_bayes_pos="FFN")
+tm = BatchScorer(tcfg, load_params("exp/campaign/torch_tm_bayesft/model.pt", tcfg),
+                 RescoreConfig(), device="cpu")
+tout = tm.score_nbest({{"u1": ["w2 w3", "w4"]}},
+                      {{"<s>": 0, "<unk>": 1, "w2": 2, "w3": 3, "w4": 4}})
+assert [len(v) for v in tout.values()] == [2]
 assert not [m for m in sys.modules if m.split(".")[0] in {banned!r}]
 print("ISOLATED", sorted(round(s, 3) for v in out.values() for _, s in v))
 """

@@ -1,11 +1,13 @@
 #!/usr/bin/env python3
 """Where one warm rescoring pass of the PyTorch/CUDA port spends its time.
 
-    python3 tools/port_pass_profile.py
+    python3 tools/port_pass_profile.py [--model Transformer]
 
 Needs a CUDA card and nvcc. Builds the configuration and N-best of
 chip_smoke.py (the bench's 2-layer 1024/1024 LSTM LM, V = 49,152, bf16,
-6,000 hypotheses), runs one warm-up pass, times one pass without the
+6,000 hypotheses; ``--model Transformer``: the recipe's Transformer of
+chip_smoke.py on the same table, through the packed-nocarry layout), runs
+one warm-up pass, times one pass without the
 profiler, then traces one pass with torch.profiler and prints the device
 time by kernel, the device's busy time and its idle share of the traced
 pass. Nothing is written to disk.
@@ -19,6 +21,8 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 
 def main():
+    import argparse
+
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -30,7 +34,13 @@ def main():
     if not torch.cuda.is_available():
         print("port_pass_profile: no CUDA device", file=sys.stderr)
         return 1
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--model", choices=("LSTM", "Transformer"),
+                    default="LSTM")
+    args = ap.parse_args()
     cfg, rcfg, w2i, nbest = chip_smoke.bench_setup()
+    if args.model == "Transformer":
+        cfg = chip_smoke.tm_config(cfg)
     scorer = BatchScorer(cfg, init_params(build_model(cfg), cfg, seed=0), rcfg)
 
     def one_pass():
@@ -55,7 +65,7 @@ def main():
     print(f"pass {plain_s * 1e3:.1f} ms untraced, {traced_s * 1e3:.1f} ms "
           f"traced; device busy {busy_ms:.1f} ms, idle share "
           f"{1 - busy_ms / (traced_s * 1e3):.3f} of the traced pass "
-          f"({torch.cuda.get_device_name(0)})")
+          f"({torch.cuda.get_device_name(0)}; {cfg.model})")
     print("device ms  calls  name")
     for dev_us, count, key in rows[:15]:
         print(f"{dev_us / 1e3:9.3f}  {count:5d}  {key[:90]}")

@@ -1,14 +1,17 @@
 #!/usr/bin/env python3
 """Where one warm training step of the PyTorch/CUDA port spends its time.
 
-    python3 tools/port_train_profile.py [--bayes-pos N]
+    python3 tools/port_train_profile.py [--bayes-pos N | --model Transformer
+                                         [--t-bayes-pos FFN|MHA|EMB]]
 
 Needs a CUDA card and nvcc. Builds the training configuration of
 chip_smoke.py (the bench's 2-layer 1024/1024 LSTM LM, V = 49,152, bf16,
 dropout 0.2; batch 32, seq_len 100, the recipe's lr, momentum and clip) on
 its synthetic Markov corpus; ``--bayes-pos N`` (1-5) trains the Bayesian
 gate-slice LSTM at ``l_bayes_pos=N`` instead, its KL scaled by
-seq_len / rows as in ``Trainer.run_epoch``. It runs three warm-up steps, times five steps
+seq_len / rows as in ``Trainer.run_epoch``; ``--model Transformer`` the
+recipe's Transformer of chip_smoke.py (512/4096 x 6, 8 heads, lr 0.1), and
+``--t-bayes-pos`` its Bayesian variant. It runs three warm-up steps, times five steps
 without the profiler, then traces three steps with torch.profiler and prints
 the device time by kernel, the device's busy time and its idle share of
 the traced steps. Nothing is written to disk outside a temporary directory.
@@ -43,9 +46,19 @@ def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--bayes-pos", type=int, default=0,
                     help="1-5: the Bayesian LSTM at this l_bayes_pos")
+    ap.add_argument("--model", choices=("LSTM", "Transformer"),
+                    default="LSTM")
+    ap.add_argument("--t-bayes-pos", choices=("none", "FFN", "MHA", "EMB"),
+                    default="none", help="the Bayesian Transformer's position")
     args = ap.parse_args()
     cfg, _, _, _ = chip_smoke.bench_setup()
-    if args.bayes_pos:
+    lr = 5.0
+    if args.model == "Transformer":
+        cfg = chip_smoke.tm_config(
+            cfg, t_bayes_pos=args.t_bayes_pos,
+            uncertainty="none" if args.t_bayes_pos == "none" else "Bayesian")
+        lr = chip_smoke.TM_LR
+    elif args.bayes_pos:
         cfg = dataclasses.replace(cfg, uncertainty="Bayesian",
                                   l_bayes_pos=args.bayes_pos)
     B, T = chip_smoke.TRAIN_BATCH, chip_smoke.TRAIN_SEQ
@@ -53,12 +66,13 @@ def main():
         chip_smoke.write_markov_corpus(tmp, cfg.vocab_size - 2,
                                        B * T * 12, 100, 100)
         corpus = Corpus(tmp)
-    trainer = Trainer(cfg, TrainConfig(lr=5.0, batch_size=B, seq_len=T))
+    trainer = Trainer(cfg, TrainConfig(lr=lr, batch_size=B, seq_len=T))
     state = trainer.init_state()
     rows = batchify(corpus.train, B)
     kl_scale = T / rows.shape[0]
     data, tgt = (torch.from_numpy(a).long().cuda() for a in windows(rows, T))
-    hidden = init_hidden(cfg.nlayers, B, cfg.nhid, device="cuda")
+    hidden = None if cfg.is_transformer else init_hidden(
+        cfg.nlayers, B, cfg.nhid, device="cuda")
 
     def steps(first, n):
         nonlocal hidden
@@ -85,8 +99,9 @@ def main():
     print(f"step {plain_ms:.1f} ms untraced (mean of 5), {traced_ms:.1f} ms "
           f"traced (mean of 3); device busy {busy_ms:.1f} ms a step, idle "
           f"share {1 - busy_ms / traced_ms:.3f} of the traced steps "
-          f"({torch.cuda.get_device_name(0)}; uncertainty={cfg.uncertainty}"
-          f", l_bayes_pos={cfg.l_bayes_pos})")
+          f"({torch.cuda.get_device_name(0)}; {cfg.model}, uncertainty="
+          f"{cfg.uncertainty}, l_bayes_pos={cfg.l_bayes_pos}, t_bayes_pos="
+          f"{cfg.t_bayes_pos})")
     print("device ms a step  calls a step  name")
     # the top 20, and the port's sampler kernel wherever it ranks
     for dev_us, count, key in [r for i, r in enumerate(rows)
