@@ -5,8 +5,7 @@ describes a model in both packages. The port runs a subset of them so far
 standard and Bayesian at the FFN, MHA or EMB): ``core/registry.py`` and the
 models it builds, ``rescore/scorer.py`` and ``TrainConfig.validate`` raise
 ``NotImplementedError`` for the rest and name the ROADMAP.md item that
-brings it (the Gaussian and Variational Transformers item 10, XL memories
-item 9b).
+brings it (the Gaussian and Variational Transformers item 10).
 
 Flag map to the reference recipes (BayesLMs ``steps/pytorchnn/train.py``):
 ``uncertainty`` -> --uncertainty, ``t_bayes_pos`` -> --T_bayes_pos,

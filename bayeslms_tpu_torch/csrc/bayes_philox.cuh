@@ -120,4 +120,19 @@ __device__ __forceinline__ void pair_uniforms(uint32_t seed, long long p,
   *ub = uniforms(x.z, x.w);
 }
 
+// The attention-probability dropout of csrc/attention_train.cu (kernel
+// rows 15-17): the four 32-bit words of element group `group` of logical
+// tile `tile` under `seed`, Philox4x32-10 keyed by (seed, tile). Element e
+// of a tile takes word e % 4 of group e / 4. The key's second word is the
+// tile where the weight noise above keys (seed + tile, 0), and neither
+// fault macro of this header reaches it, so neither stream moves the other.
+__device__ __forceinline__ uint4 dropout_words(uint32_t seed, uint32_t tile,
+                                               uint32_t group) {
+  return philox4x32_10(group, seed, tile);
+}
+
+__device__ __forceinline__ uint32_t word_of(uint4 w, int i) {
+  return i == 0 ? w.x : i == 1 ? w.y : i == 2 ? w.z : w.w;
+}
+
 }  // namespace bayes_philox

@@ -16,9 +16,11 @@ kernels), so the weight exchange only walks it.
 Training draws dropout masks (embedding, attention probabilities, the two
 residual branches and the FFN's middle) and the Bayesian eps from a
 ``torch.Generator``, or takes them injected (``TransformerDropoutMasks``
-and ``noise``), so that a test can feed both packages the same draws. The
-GP and variational layers are ROADMAP.md queue A item 10, Transformer-XL
-memories item 9b.
+and ``noise``), so that a test can feed both packages the same draws.
+Transformer-XL memories (``mems``, ``mem_len``, ``return_mems``): keys and
+values of the standard layers extend over [mem; x], positions continue from
+the real memory length. The GP and variational layers are ROADMAP.md queue
+A item 10.
 """
 
 from __future__ import annotations
@@ -133,10 +135,17 @@ class MultiheadSelfAttention(nn.Module):
         _torch_linear_(self.o_net, self.E, gen, zero_bias=True)
 
     def forward(self, x, attn_mask=None, deterministic=True, dropout_mask=None,
-                generator=None):
+                generator=None, mem=None):
+        """``mem`` (M, B, E): segment memory; keys and values extend over
+        [mem; x], projected with the same weights, queries come from x, and
+        ``attn_mask`` must be the matching (T, M + T) mask."""
         q, k, v = self.qkv_net(x).split(self.E, dim=-1)
+        if mem is not None:
+            _, mk, mv = self.qkv_net(mem).split(self.E, dim=-1)
+            k = torch.cat([mk, k], dim=0)
+            v = torch.cat([mv, v], dim=0)
         out = multihead_attention(q, k, v, self.nhead, attn_mask, self.dropout,
-                                  deterministic, causal=True,
+                                  deterministic, causal=mem is None,
                                   dropout_mask=dropout_mask,
                                   generator=generator)
         return self.o_net(out)
@@ -202,17 +211,22 @@ class StandardEncoderLayer(nn.Module):
     def forward(self, src, attn_mask=None, deterministic: bool = True,
                 masks: Optional[EncoderDropoutMasks] = None,
                 generator: Optional[torch.Generator] = None,
-                eps: Optional[torch.Tensor] = None):
-        """``eps`` injects the Bayesian sub-module's draw."""
+                eps: Optional[torch.Tensor] = None, mem=None):
+        """``eps`` injects the Bayesian sub-module's draw; ``mem`` is the
+        layer's Transformer-XL memory (standard layers only, as in JAX,
+        whose Bayesian layers have no memory hook)."""
         m = masks or EncoderDropoutMasks(None, None, None, None)
         drop = lambda x, mask: _dropout(  # noqa: E731
             x, self.dropout, deterministic, mask, generator)
+        if mem is not None and self.bayes_pos != "none":
+            raise ValueError("mems require standard encoder layers: the "
+                             f"Bayesian {self.bayes_pos} layer has no memory")
         if self.bayes_pos == "MHA":
             src2 = self.self_attn(src, attn_mask, deterministic, m.attn,
                                   generator, eps=eps)
         else:
             src2 = self.self_attn(src, attn_mask, deterministic, m.attn,
-                                  generator)
+                                  generator, mem=mem)
         src = self.norm1(src + drop(src2, m.attn_out))
         mid = drop(F.gelu(self.linear1(src)), m.ff)
         if self.bayes_pos == "FFN":
@@ -242,8 +256,7 @@ class BayesEncoderLayer(StandardEncoderLayer):
 
 class TransformerLM(nn.Module):
     """Embedding x sqrt(E) -> [EMB projection] -> positions -> layers ->
-    [EMB transpose-reuse] -> tied decoder (the JAX ``TransformerLM``
-    without ``mems``)."""
+    [EMB transpose-reuse] -> tied decoder (the JAX ``TransformerLM``)."""
 
     def __init__(self, cfg: ModelConfig):
         super().__init__()
@@ -306,23 +319,50 @@ class TransformerLM(nn.Module):
                 pack_mask: Optional[torch.Tensor] = None,
                 generator: Optional[torch.Generator] = None,
                 dropout_masks: Optional[TransformerDropoutMasks] = None,
-                noise: Optional[Sequence[torch.Tensor]] = None):
+                noise: Optional[Sequence[torch.Tensor]] = None,
+                mems: Optional[Sequence[torch.Tensor]] = None,
+                mem_len=None, return_mems: bool = False):
         """tokens (T, B) -> logits (T, B, V) float32, or with
         ``return_hidden`` the pre-decoder states (T, B, E) for the fused CE.
+
+        ``mems``: one (M, B, E) Transformer-XL memory a layer. Queries attend
+        causally over [mem; x] through a (T, M + T) mask, and positions
+        continue from the real memory length, so memories built from a pass
+        over the previous tokens give the suffix of a full-context forward.
+        ``mem_len`` (an int or a 0-dim integer tensor): only memory rows
+        [0, mem_len) are real (memories right-padded to a bucket); the rest
+        are masked out and not counted in the position offset.
+        ``return_mems`` also returns each layer's input as the next call's
+        memories: (output, [mem, ...]). Incompatible with ``pack_mask``.
 
         ``positions`` (T, B) with ``pack_mask`` (B, 1, T, T) additive: packed
         scoring, several hypotheses along one column, positions restarting
         at each, attention causal within each (the packed scorer's). Without
-        them attention is causal over the window and owns its mask, so the
-        attention kernel route is eligible. ``deterministic=False`` is the
-        training forward: dropout with ``dropout_masks`` or masks drawn from
-        ``generator``, and the Bayesian layer's weights sampled with the
-        injected ``noise`` (one eps, (out, in) or (E, E) for EMB) or from
-        ``generator``."""
+        them (and without ``mems``) attention is causal over the window and
+        owns its mask, so the attention kernel routes are eligible: row 14
+        deterministic, rows 15-17 in training at T >= 1,024 on the card.
+        ``deterministic=False`` is the training forward: dropout with
+        ``dropout_masks`` or masks drawn from ``generator`` (an injected
+        attention mask pins the plain attention), and the Bayesian layer's
+        weights sampled with the injected ``noise`` (one eps, (out, in) or
+        (E, E) for EMB) or from ``generator``."""
         cfg = self.cfg
         T = tokens.shape[0]
         dtype = getattr(torch, cfg.compute_dtype)
         m = dropout_masks
+        mask, pos_offset = pack_mask, None
+        if mems is not None:
+            if pack_mask is not None:
+                raise ValueError("pack_mask is incompatible with mems")
+            M = mems[0].shape[0]
+            ml = M if mem_len is None else mem_len
+            dev = tokens.device
+            rows = torch.arange(T, device=dev)[:, None]
+            cols = torch.arange(M + T, device=dev)[None, :]
+            keep = (cols < ml) | ((cols >= M) & (cols <= rows + M))
+            mask = torch.zeros(keep.shape, dtype=torch.float32,
+                               device=dev).masked_fill(~keep, float("-inf"))
+            pos_offset = ml
         draws = None if noise is None else list(noise)
         eps = None
         if draws is not None and not deterministic:
@@ -340,22 +380,28 @@ class TransformerLM(nn.Module):
             x = x @ w.t().to(dtype)
         if positions is not None:
             x = x + self.pe[positions].to(dtype)
+        elif pos_offset is not None:
+            at = pos_offset + torch.arange(T, device=tokens.device)
+            x = x + self.pe[at][:, None, :].to(dtype)
         else:
             x = x + self.pe[:T, None, :].to(dtype)
         x = _dropout(x, cfg.dropout, deterministic,
                      None if m is None else m.emb, generator)
+        new_mems = []
         for i, layer in enumerate(self.layers):
-            x = layer(x, pack_mask, deterministic,
+            if return_mems:
+                new_mems.append(x)
+            x = layer(x, mask, deterministic,
                       None if m is None else m.layers[i], generator,
                       eps if i == 0 and self.bayes_pos in ("FFN", "MHA")
-                      else None)
+                      else None, mem=None if mems is None else mems[i])
         if self.bayes_pos == "EMB":
             # transpose-reuse with the MEAN projection (model.py:1302-1307)
             x = x @ self.embed_mean.to(dtype)
-        if return_hidden:
-            return x
-        logits = x @ self.embedding.to(dtype).t() + self.decoder_b.to(dtype)
-        return logits.float()
+        if not return_hidden:
+            x = (x @ self.embedding.to(dtype).t()
+                 + self.decoder_b.to(dtype)).float()
+        return (x, new_mems) if return_mems else x
 
     def kl_value(self, prior_mean: Optional[torch.Tensor] = None
                  ) -> torch.Tensor:

@@ -8,12 +8,17 @@ probabilities, P V. Routing follows the JAX package's:
 - causal, deterministic, no explicit mask, and a shape that
   ``attention_cuda.attention_ok`` admits on a CUDA tensor: kernel row 14
   (``csrc/attention_fwd.cu``), the scoring and eval route;
-- causal training without an explicit mask at T >= 1,024 on the card: the
-  JAX package's flash-attention training kernels (rows 15-17), which are not
-  ported yet, so it raises rather than run another route;
+- causal training (``deterministic=False``) without an explicit mask or an
+  injected ``dropout_mask`` at T >= ``FLASH_TRAIN_MIN_T`` on a CUDA tensor:
+  kernel rows 15-17 (``csrc/attention_train.cu``), forward and backward with
+  the dropout drawn inside the kernels from a seed drawn here, as the JAX
+  package routes it; a shape that ``attention_train_cuda.flash_attn_train_ok``
+  refuses raises there rather than take another route;
 - everything else: the plain matmul/softmax path, which the JAX package
-  computes outside any Pallas kernel (an explicit mask, such as the packed
-  scorer's, pins it, as in JAX).
+  computes outside any Pallas kernel. An explicit mask (the packed scorer's,
+  Transformer-XL's) pins it, as in JAX; so does an injected
+  ``dropout_mask``, which only the plain path can apply (the kernels draw
+  their own bits); and so does a CPU tensor, whatever T.
 
 Layout: time-major (T, B, E), E = nhead d.
 """
@@ -25,7 +30,7 @@ from typing import Optional
 
 import torch
 
-from . import attention_cuda
+from . import attention_cuda, attention_train_cuda
 
 FLASH_TRAIN_MIN_T = 1024  # where the JAX package routes training to rows 15-17
 
@@ -70,20 +75,30 @@ def multihead_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
     ``attn_mask``: additive, (T, S) or broadcastable to (B, nhead, T, S)
     (the packed scorer's (B, 1, T, T)); with ``causal=True`` and no mask this
-    function owns the causal mask and the kernel route is eligible.
+    function owns the causal mask and the kernel routes are eligible.
     Training (``deterministic=False``) with ``dropout_rate`` > 0 drops
     attention probabilities with ``dropout_mask`` (B, nhead, T, S), nonzero
-    = kept, or a mask drawn from ``generator``."""
+    = kept, or a mask drawn from ``generator``; on the kernel route the
+    kernels draw it from a seed that ``generator`` gives."""
     T, B, E = q.shape
     if causal and attn_mask is None:
         if deterministic and attention_cuda.attention_ok(q, nhead):
             return attention_cuda.causal_attention(q, k, v, nhead)
-        if not deterministic and q.is_cuda and T >= FLASH_TRAIN_MIN_T:
-            raise NotImplementedError(
-                f"causal attention training at T = {T} >= "
-                f"{FLASH_TRAIN_MIN_T} takes the flash-attention training "
-                "kernels (kernel rows 15-17), not ported yet (ROADMAP.md "
-                "queue A item 9b)")
+        if not deterministic and dropout_mask is None and q.is_cuda \
+                and T >= FLASH_TRAIN_MIN_T:
+            if not attention_train_cuda.flash_attn_train_ok(q, nhead):
+                raise ValueError(
+                    f"causal attention training at T = {T}, E = {E}, "
+                    f"{nhead} heads: the flash-attention training kernels "
+                    f"take a head dim that is a multiple of 8 and T <= "
+                    f"{attention_train_cuda.MAX_T}")
+            if dropout_rate > 0.0:
+                seed = torch.randint(0, 2 ** 31 - 1, (1,), generator=generator,
+                                     dtype=torch.int32, device=q.device)
+            else:
+                seed = torch.zeros((1,), dtype=torch.int32, device=q.device)
+            return attention_train_cuda.flash_attention_train(
+                q, k, v, nhead, dropout_rate, seed)
         attn_mask = causal_mask(T, device=q.device)
     S = k.shape[0]
     d = E // nhead

@@ -68,12 +68,14 @@ def _mulhilo(m: int, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     return (b >> 16) + (low >> 32), low & _U32
 
 
-def philox4x32_10(ctr: torch.Tensor, k0: torch.Tensor, k1: int = 0):
+def philox4x32_10(ctr: torch.Tensor, k0: torch.Tensor, k1=0):
     """Philox4x32-10 of counters (ctr, 0, 0, 0) under keys (k0, k1), uint32
-    values held in int64 tensors; returns the four output words."""
+    values held in int64 tensors (k1 an int or a tensor that broadcasts to
+    ctr); returns the four output words."""
     c0, c1 = ctr, torch.zeros_like(ctr)
     c2, c3 = torch.zeros_like(ctr), torch.zeros_like(ctr)
-    k1 = torch.full_like(ctr, k1)
+    k0 = k0 + torch.zeros_like(ctr)
+    k1 = k1 + torch.zeros_like(ctr)
     for r in range(10):
         if r:
             k0 = (k0 + _W0) & _U32

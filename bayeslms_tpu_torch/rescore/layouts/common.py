@@ -1,7 +1,8 @@
 """Shared building blocks of the scoring layouts, counterpart of
 ``bayeslms_tpu/rescore/layouts/common.py``: the host-side row builder with
 its CE gather plan, the fused decoder CE over the gathered positions with
-a segment sum per hypothesis, and the assembly of scores per utterance.
+a segment sum per hypothesis, the Transformer's scores of one padded
+(T, B) batch, and the assembly of scores per utterance.
 
 The JAX package pads the gather plan to a multiple of 4096 entries to bound
 its compile cache; PyTorch compiles nothing, so the plan here holds exactly
@@ -64,6 +65,25 @@ def fused_scores_packed(model, flat_h, flat_tgt, idx, seg, n_seg: int):
         model.decoder_b, flat_tgt.index_select(0, idx))
     out = torch.zeros((n_seg,), dtype=torch.float32, device=ce.device)
     return out.index_add_(0, seg, ce)
+
+
+def fused_scores(model, h, tgt, mask):
+    """Per-column sums of the token CE of a padded batch: h (T, B, E)
+    hidden states, tgt (T, B), mask (T, B) float32 over the real tokens.
+    Returns (B,) float32."""
+    T, B, E = h.shape
+    ce = ce_cuda.fused_decode_ce(h.reshape(T * B, E).contiguous(),
+                                 model.embedding, model.decoder_b,
+                                 tgt.reshape(-1)).reshape(T, B)
+    return (ce * mask).sum(dim=0)
+
+
+def tm_scores(s, data, tgt, mask):
+    """One (T, B) Transformer batch -> (B,) scores: hidden states, the
+    fused CE (kernel row 2), the masked sums (the JAX ``tm_scores``' fused
+    branch; the port always takes it)."""
+    h = s.model(data, deterministic=True, return_hidden=True)
+    return fused_scores(s.model, h, tgt, mask)
 
 
 def assemble(nbest, scores):

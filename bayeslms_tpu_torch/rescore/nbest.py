@@ -11,7 +11,9 @@ before the last ``-``. The native batch encoder of the JAX package
 from __future__ import annotations
 
 from collections import OrderedDict
-from typing import Dict, List
+from typing import Dict, List, Tuple
+
+import numpy as np
 
 
 def load_nbest(path: str) -> "OrderedDict[str, List[str]]":
@@ -91,3 +93,23 @@ def bucket_for(length: int, buckets) -> int:
         if length <= b:
             return b
     return buckets[-1]
+
+
+def pad_batch(seqs_in: List[List[int]], seqs_tgt: List[List[int]], T: int,
+              B: int) -> Tuple[np.ndarray, np.ndarray, np.ndarray,
+                               np.ndarray]:
+    """Pad to a (T, B) time-major batch: (data, tgt, float32 mask of the
+    real tokens, lengths), each sequence cut at T."""
+    n = len(seqs_in)
+    assert n <= B
+    data = np.zeros((T, B), np.int32)
+    tgt = np.zeros((T, B), np.int32)
+    mask = np.zeros((T, B), np.float32)
+    lens = np.zeros((B,), np.int32)
+    for j, (x, y) in enumerate(zip(seqs_in, seqs_tgt)):
+        L = min(len(x), T)
+        data[:L, j] = x[:L]
+        tgt[:L, j] = y[:L]
+        mask[:L, j] = 1.0
+        lens[j] = L
+    return data, tgt, mask, lens

@@ -7,7 +7,9 @@ hypothesis ended, per carry-over chain; the packed-carry layout scores a
 chunk of utterances of all chains as one time-packed sequence. The
 Transformer scores every hypothesis on its own through the packed-nocarry
 layout, whatever ``carry_over`` says, as the JAX package does; the fused
-CE kernel then runs at width emsize.
+CE kernel then runs at width emsize. With ``xl_mems`` the Transformer
+scores each utterance against Transformer-XL memories of the previous
+utterance in its chain instead (``layouts/xl.py``).
 
 This slice runs on one device, with ``inter_flag=0``, ``mc_samples=0``, no
 backward scoring and no context splicing; the rest raises
@@ -40,6 +42,25 @@ class BatchScorer:
             raise RuntimeError(
                 "BatchScorer: no CUDA device; pass device='cpu' to score on "
                 "the CPU with the kernels' plain versions")
+        if rcfg.xl_mems:
+            # the JAX scorer's refusals, in its words
+            u = cfg.uncertainty
+            std_layers = (
+                u == "none"
+                or (u == "Bayesian" and cfg.t_bayes_pos in ("none", "EMB"))
+                or (u == "Gaussian" and cfg.t_gauss_pos > 4)
+                or (u == "Variational" and cfg.t_v_pos == 0))
+            if not (cfg.is_transformer and std_layers):
+                raise ValueError(
+                    "xl_mems requires a Transformer whose encoder layers are "
+                    "all standard (stochastic layers have no memory hook)")
+            if rcfg.inter_flag or rcfg.mc_samples:
+                raise ValueError(
+                    "xl_mems is incompatible with interpolation/MC")
+            if rcfg.splice_len:
+                raise ValueError(
+                    "xl_mems provides its own cross-utterance context; it is "
+                    "incompatible with splice_len/context files")
         if rcfg.inter_flag:
             raise NotImplementedError(
                 "interpolation is not ported yet (ROADMAP.md queue A item 11)")
@@ -47,10 +68,6 @@ class BatchScorer:
             raise NotImplementedError(
                 "MC-average, backward and context-spliced scoring are not "
                 "ported yet (ROADMAP.md queue A item 11)")
-        if rcfg.xl_mems:
-            raise NotImplementedError(
-                "Transformer-XL memories are not ported yet (ROADMAP.md queue "
-                "A item 9b)")
         self.cfg = cfg
         self.rcfg = rcfg
         self.device = device

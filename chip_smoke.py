@@ -31,11 +31,25 @@ Philox header), a
 ``use_fused`` step against the plain path and one epoch of ``fit`` with
 ``use_fused``; and Transformer scoring of the 6,000-hypothesis N-best
 through the packed-nocarry layout (the scoring CE kernel against its twin
-on the packed chunk at D = 512) against the plain path. Every phase
-prints its result and seconds; any failure exits non-zero before the
-result lines. The last two lines are a JSON object per kernel (the CE
-kernels once at the LSTM's D = 1,024 and once at the Transformer's 512)
-and the device line.
+on the packed chunk at D = 512) against the plain path. Then the same
+Transformer at long context (seq_len 1,024, batch 32, dropout 0.2, one
+epoch of six windows and a padded tail): the flash-attention training
+kernels (forward, dq, dk/dv) against their twins on the calls one step
+hands them and alone at T = 2,048 and 4,096, their dropout bits against
+the twin's, two planted-fault builds, the CE training kernels against
+their twins on that step's 32,768 tokens (db against float64, beside a
+float64 reading of the sums over the tokens), ``Trainer.fit`` (the three
+attention kernels six times a step) and a kernel-path step against the
+same step on their twins; and Transformer-XL scoring (``xl_mems``) of the
+6,000-hypothesis N-best from the checkpoint that fit wrote: the causal
+attention kernel against its twin on every call of one pass, the pass
+against the plain path (the attention kernel's planted fault must fail
+it), and an on-card check that memories give the suffix of a
+full-context forward. Every phase prints its result and seconds; any
+failure exits non-zero before the result lines. The last two lines are a
+JSON object per kernel (the CE training kernels at the LSTM's D = 1,024,
+the Transformer's 512 and the long step's M = 32,768; the scoring CE at
+both widths) and the device line.
 """
 
 import contextlib
@@ -391,17 +405,29 @@ def ce_train_specs(ctc, M, V, D):
     }
 
 
-def check_recorded(torch, kernels, specs, recorded, tag="", tol=TRAIN_TOL):
+def check_recorded(torch, kernels, specs, recorded, tag="", tol=TRAIN_TOL,
+                   exact=None):
     """Each kernel of ``specs`` against its twin on every call one step
     recorded (``recorded[name]``), elementwise within ``tol``, a planted
     fault per call that must exceed it by FAULT_MARGIN, the CE kernels at
     ragged M and V too; times it and adds it to ``kernels`` as ``name`` +
-    ``tag``. Raises, once every kernel was checked, on any failed check."""
+    ``tag``. ``exact[name](args)`` gives float64 references that replace
+    the twin's outputs of those names. Raises, once every kernel was
+    checked, on any failed check."""
     from bayeslms_tpu_torch.ops import ce_train_cuda as ctc
 
     def as_dict(spec, out):
         out = out if isinstance(out, tuple) else (out,)
         return dict(zip(spec["outs"], out))
+
+    def reference(name, spec, args):
+        ref = as_dict(spec, spec["plain"](*args))
+        if exact and name in exact:
+            sub = exact[name](args)
+            ref.update(sub)
+            print(f"  reference: {sorted(sub)} in float64, the rest the "
+                  "twin's")
+        return ref
 
     def planted_args(args, i):
         a = list(args)
@@ -423,7 +449,7 @@ def check_recorded(torch, kernels, specs, recorded, tag="", tol=TRAIN_TOL):
                   f" {args[0].dtype}")
             err, worst, fault = 0.0, 0.0, float("inf")
             for args in recorded[name]:
-                ref = as_dict(spec, spec["plain"](*args))
+                ref = reference(name, spec, args)
                 got = as_dict(spec, kernel(*args))
                 torch.cuda.synchronize()
                 e, q = check_outputs(name, got, ref, rtol, share)
@@ -442,10 +468,16 @@ def check_recorded(torch, kernels, specs, recorded, tag="", tol=TRAIN_TOL):
                 br = torch.rand((V,), generator=gen, device="cuda") * 2 - 1
                 ra = [args[0][:M], args[1][:V], br, args[3][:M] % V]
                 if name != "ce_train_fwd":
-                    _, rmx, rse = ctc.ce_train_fwd_plain(*ra)
+                    # the statistics as a step hands them, from the forward
+                    # kernel, where a float64 reference (its own softmax)
+                    # stands in for the twin: p is then consistent with
+                    # the kernel's scores, as in training
+                    fwd = ctc.ce_train_fwd if exact and name in exact \
+                        else ctc.ce_train_fwd_plain
+                    _, rmx, rse = fwd(*ra)
                     ra += [rmx, rse, args[6][:M].contiguous(),
                            args[7][:M].contiguous()]
-                ref = as_dict(spec, spec["plain"](*ra))
+                ref = reference(name, spec, ra)
                 e, q = check_outputs(f"{name} ragged M={M} V={V}",
                                      as_dict(spec, kernel(*ra)), ref, rtol,
                                      share)
@@ -1153,9 +1185,11 @@ def tm_bayes_matmul_phase(torch, kernels, calls):
                                  f"the tolerance only {fault:.1f}x")
 
 
-def tm_dropout_masks(torch, cfg, T, B, seed):
+def tm_dropout_masks(torch, cfg, T, B, seed, attn=True):
     """Keep masks for every dropout site of a training forward, drawn on
-    the card, so that two steps see the same ones."""
+    the card, so that two steps see the same ones; with ``attn=False``
+    none for the attention probabilities, which then take the route's own
+    draw (rows 15-17 draw them from a seed that the generator gives)."""
     from bayeslms_tpu_torch.models.transformer_lm import (
         BAYES_LAYER_DROPOUT, EncoderDropoutMasks, TransformerDropoutMasks)
 
@@ -1170,7 +1204,7 @@ def tm_dropout_masks(torch, cfg, T, B, seed):
         rate = BAYES_LAYER_DROPOUT if (i == 0 and cfg.t_bayes_pos in
                                        ("FFN", "MHA")) else cfg.dropout
         layers.append(EncoderDropoutMasks(
-            keep((B, h, T, T), rate), keep((T, B, E), rate),
+            keep((B, h, T, T), rate) if attn else None, keep((T, B, E), rate),
             keep((T, B, FF), rate), keep((T, B, E), rate)))
     return TransformerDropoutMasks(keep((T, B, E), cfg.dropout), layers)
 
@@ -1462,6 +1496,621 @@ def tm_phases(torch, kernels, smi, cfg, rcfg, corpus, tmpdir):
             raise AssertionError("TM scoring failed")
 
 
+# ---------------------------------------------------------- long context
+# The recipe's Transformer trained at seq_len 1,024, the length from which
+# the JAX package routes causal training attention to its flash kernels
+# (bayeslms_tpu/ops/attention.py:71-93; rows 15-17 here), at the recipe's
+# batch 32, dropout 0.2 and lr 0.1, one epoch of TM_LONG_WINDOWS windows and
+# a padded tail on a synthetic Markov corpus of its own; then
+# Transformer-XL scoring of the bench's N-best from the checkpoint that
+# this fit wrote.
+TM_LONG_SEQ = 1024
+TM_LONG_WINDOWS = 6
+ATTN_TRAIN = ("attn_train_fwd", "attn_train_dq", "attn_train_dkv")
+ATTN_TRAIN_LONG_T = (2048, 4096)
+# Rows 15-17 against their twins, elementwise |kernel - plain| <= rtol
+# |plain| + share max |plain|. Kernel and twin round z p (forward), dS and
+# z P (backward) to bf16 at the same points, from fp32 values that differ
+# in their last bits (sums in another order), so a rounded summand may
+# land one bf16 step the other way, and the output is rounded once. With
+# the forward rounding against a running max instead, the H100 showed
+# 0.72 (o) and 0.45 (dq, dk) of this tolerance on one long-context step's
+# calls, and the planted faults 80x or more.
+ATTN_TRAIN_RTOL, ATTN_TRAIN_SHARE = 2 ** -7, 2 ** -10
+ATTN_TRAIN_FAULTS = {
+    "k-block index dropped from the dropout key":
+        ("attention_train", ("-DATTN_TRAIN_FAULT=1",)),
+    "diagonal masked": ("attention_train", ("-DATTN_TRAIN_FAULT=2",))}
+# The keep share of the dropout draw, |share - 0.8| over the causal draws
+# of one step's call (1.3e8 of them; 5 sigma is 1.7e-4)
+KEEP_SHARE_ATOL = 0.002
+# Transformer-XL scores against the plain path with row 14's twin too,
+# relative: row 14 runs first in every memory build and first utterance,
+# and its bf16 output may lie one bf16 step from its twin's ("kernel
+# attention_fwd"); each of the five bf16 layers after it rounds that
+# difference again, which the H100 showed as up to 3.1e-3 of a score
+# (0.8 of a bf16 step; 1.8e-4 absolute with row 2's twin alone, within
+# TM_SCORE_ATOL): two bf16 steps of a score.
+XL_SCORE_RTOL = 2 ** -7
+# Transformer-XL: logits with memories against the suffix of a
+# full-context forward, float32 on the card (row 14 in fp32 beside the
+# plain masked attention), |a - b| <= XL_ATOL + XL_RTOL |b|
+XL_RTOL, XL_ATOL = 1e-4, 1e-4
+
+
+def attn_train_specs(T, B, h, d):
+    """Outputs, operations and bytes of rows 15-17 at (T, B, h, d), bf16:
+    each row's causal products (2, 3 and 4 of them) and its inputs read
+    once and outputs written once."""
+    BH, n = B * h, T * B * h * d * 2
+    cf = causal_flops(T, BH, d)
+    stats = BH * T * 4
+    return {
+        "attn_train_fwd": dict(
+            outs=("o", "m", "l"), flops=cf, nbytes=4 * n + 2 * stats,
+            replaces="bayeslms_tpu/ops/attention_train_pallas.py:198"),
+        "attn_train_dq": dict(
+            outs=("dq",), flops=3 * cf // 2, nbytes=5 * n + 3 * stats,
+            replaces="bayeslms_tpu/ops/attention_train_pallas.py:224"),
+        "attn_train_dkv": dict(
+            outs=("dk", "dv"), flops=2 * cf, nbytes=6 * n + 3 * stats,
+            replaces="bayeslms_tpu/ops/attention_train_pallas.py:245"),
+    }
+
+
+def attention_train_phase(torch, kernels, recorded):
+    """Rows 15-17 on every call that one long-context training step handed
+    them, and alone at T = 2,048 and 4,096, against their twins; the keep
+    bits each kernel draws against the twin's, the keep share, repeat
+    calls, two planted-fault builds; times and bounds."""
+    from bayeslms_tpu_torch.ops import _build
+    from bayeslms_tpu_torch.ops import attention_train_cuda as atc
+
+    F = torch.nn.functional
+    real_load = _build.load
+
+    def outs(name, out):
+        return dict(zip(specs[name]["outs"],
+                        out if isinstance(out, tuple) else (out,)))
+
+    def run(name, args, fault=None):
+        if fault is None:
+            return outs(name, getattr(atc, name)(*args))
+        with mock.patch.object(_build, "load", lambda kk: real_load(fault)):
+            return outs(name, getattr(atc, name)(*args))
+
+    def plain(name, args):
+        return outs(name, getattr(atc, name + "_plain")(*args))
+
+    with phase("kernel attention_train"), torch.no_grad():
+        q, k, v, h, rate, seed = recorded["attn_train_fwd"][0]
+        T, B, E = q.shape
+        d = E // h
+        specs = attn_train_specs(T, B, h, d)
+        print(f"  tolerance |kernel - plain| <= {ATTN_TRAIN_RTOL:.3e} |plain| "
+              f"+ {ATTN_TRAIN_SHARE:.3e} max|plain|, elementwise; "
+              f"{len(recorded['attn_train_fwd'])} call(s) of each kernel in "
+              f"one step, T={T} B={B} heads={h} d={d} {q.dtype}, dropout "
+              f"{rate}, q/k/v strides {q.stride()}")
+        err = {n: 0.0 for n in ATTN_TRAIN}
+        worst = {n: 0.0 for n in ATTN_TRAIN}
+        fault = {n: float("inf") for n in ATTN_TRAIN}
+        gen = torch.Generator(device="cuda").manual_seed(12)
+        long_cases = []
+        for t in ATTN_TRAIN_LONG_T:
+            qkv = torch.randn((t, 2, 3 * E), generator=gen,
+                              device="cuda").to(q.dtype)
+            g = (torch.randn((t, 2, E), generator=gen, device="cuda")
+                 * 1e-3).to(q.dtype)
+            qq, kk, vv = qkv.split(E, dim=-1)
+            _, mm, ll = atc.attn_train_fwd_plain(qq, kk, vv, h, rate, seed)
+            oo = atc.attn_train_fwd(qq, kk, vv, h, rate, seed)[0]
+            dl = atc.row_delta(g, oo, h)
+            long_cases.append((f"T={t} B=2", {
+                "attn_train_fwd": (qq, kk, vv, h, rate, seed),
+                "attn_train_dq": (qq, kk, vv, g, mm, ll, dl, h, rate, seed),
+                "attn_train_dkv": (qq, kk, vv, g, mm, ll, dl, h, rate,
+                                   seed)}))
+        for name in ATTN_TRAIN:
+            cases = [(f"step call {i}", {name: a})
+                     for i, a in enumerate(recorded[name])] + long_cases
+            for label, argd in cases:
+                args = argd[name]
+                ref = plain(name, args)
+                got = run(name, args)
+                torch.cuda.synchronize()
+                e, w = check_outputs(f"{name} {label}", got, ref,
+                                     ATTN_TRAIN_RTOL, ATTN_TRAIN_SHARE)
+                err[name], worst[name] = max(err[name], e), max(worst[name],
+                                                                w)
+                if not all(bool(torch.isfinite(x.float()).all())
+                           for x in got.values()):
+                    raise AssertionError(f"{name} {label}: non-finite")
+                again = run(name, args)
+                if not all(torch.equal(again[o], got[o]) for o in got):
+                    raise AssertionError(f"{name} {label}: two calls with "
+                                         "one seed differ")
+                if label == "step call 0":
+                    for fname, fk in ATTN_TRAIN_FAULTS.items():
+                        fs = fault_share(run(name, args, fk), ref,
+                                         ATTN_TRAIN_RTOL, ATTN_TRAIN_SHARE)
+                        print(f"  {name} planted fault '{fname}': worst "
+                              f"share of tolerance {fs:.1f}")
+                        fault[name] = min(fault[name], fs)
+                del ref, got, again
+        # the keep bits each kernel draws, through its debug output,
+        # against the twin's integers (step call 0, every batch-head)
+        g, m, l, delta = recorded["attn_train_dq"][0][3:7]
+        tril = torch.ones((T, T), dtype=torch.bool, device="cuda").tril()
+        n_draw = int(tril.sum()) * B * h
+        for name in ATTN_TRAIN:
+            bits = atc.keep_bits(name, q, k, v, h, rate, seed, g, m, l, delta)
+            same = True
+            for b0 in range(0, B * h, 32):
+                ref = atc.keep_plain(seed, torch.arange(
+                    b0, min(B * h, b0 + 32), device="cuda"), T, rate) & tril
+                same = same and torch.equal(bits[b0:b0 + 32], ref)
+            share = float(bits.sum()) / n_draw
+            print(f"  {name} keep bits: equal to the twin's {same} over "
+                  f"{n_draw} draws; keep share {share:.6f} (0.8 +- "
+                  f"{KEEP_SHARE_ATOL})")
+            del bits
+            if not same or abs(share - (1.0 - rate)) > KEEP_SHARE_ATOL:
+                raise AssertionError(f"{name}: keep bits differ from the "
+                                     "twin's or their share is off")
+        # times at the step's shape: the kernels, the twins, and one
+        # PyTorch call computing the same function (other dropout bits)
+        heads = [x.reshape(T, B, h, d).permute(1, 2, 0, 3).contiguous()
+                 .requires_grad_(True) for x in (q, k, v)]
+        gh = g.reshape(T, B, h, d).permute(1, 2, 0, 3).contiguous()
+
+        def sdpa():
+            return F.scaled_dot_product_attention(*heads, is_causal=True,
+                                                  dropout_p=rate)
+
+        lib_fwd = cuda_ms(torch, sdpa, 5)
+        with torch.enable_grad():
+            out = sdpa()
+            lib_bwd = cuda_ms(torch, lambda: torch.autograd.grad(
+                out, heads, gh, retain_graph=True), 5)
+        del out, heads
+        for name in ATTN_TRAIN:
+            args = recorded[name][0]
+            ms = cuda_ms(torch, lambda: getattr(atc, name)(*args), 5)
+            plain_ms = cuda_ms(torch, lambda: getattr(atc, name + "_plain")(
+                *args), 2)
+            lib = lib_fwd if name == "attn_train_fwd" else lib_bwd
+            bms, bby = bound_ms(specs[name]["flops"], specs[name]["nbytes"])
+            print(f"  {name}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
+                  f"library {lib:.3f} ms (F.scaled_dot_product_attention, "
+                  f"is_causal, dropout_p {rate}, "
+                  f"{'forward' if lib is lib_fwd else 'backward: dq, dk, dv together'}"
+                  f"), bound {bms:.4f} ms ({bby})")
+            kernels[name] = dict(
+                name=name, route="cuda",
+                source="bayeslms_tpu_torch/csrc/attention_train.cu",
+                replaces=specs[name]["replaces"], max_abs_err=err[name],
+                ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=bby,
+                library_ms=lib)
+        for label, argd in long_cases:
+            print(f"  {label}: kernel " + ", ".join(
+                f"{n} {cuda_ms(torch, lambda: getattr(atc, n)(*argd[n]), 3):.3f}"
+                for n in ATTN_TRAIN) + " ms")
+        bad = [f"{n}: worst share {worst[n]:.3f}" for n in ATTN_TRAIN
+               if worst[n] > 1]
+        bad += [f"{n}: a planted fault only {fault[n]:.1f}x" for n in
+                ATTN_TRAIN if fault[n] < FAULT_MARGIN]
+        if bad:
+            raise AssertionError("attention_train: " + "; ".join(bad))
+
+
+def ce_sums_float64(torch, args):
+    """sum_t dh_t (d rounded to bf16, as rows 10 and its twin round it)
+    and db_v = sum_t d_tv (fp32 d, unrounded) in float64, for one call of
+    rows 10-11's arguments: p from float64 scores of the same bf16 h and
+    E, the coefficients a, b of the call."""
+    h, emb, bias, tgt, _, _, a, b = args
+    M, D = h.shape
+    e = emb.to(h.dtype).double()
+    dh = torch.zeros(D, dtype=torch.float64, device=h.device)
+    db = torch.zeros(e.shape[0], dtype=torch.float64, device=h.device)
+    for s in range(0, M, 2048):
+        p = torch.softmax(h[s:s + 2048].double() @ e.t() + bias.double(),
+                          dim=-1)
+        d = a[s:s + 2048, None].double() * p
+        d[torch.arange(d.shape[0], device=d.device),
+          tgt[s:s + 2048].long()] += b[s:s + 2048].double()
+        dh += (d.to(h.dtype).double() @ e).sum(0)
+        db += d.sum(0)
+        del p, d
+    return dh, db
+
+
+def long_ce_witness(torch, args):
+    """The two sums over the long step's M tokens that rows 10-11 produce,
+    from the kernels and their twins against float64 (``ce_sums_float64``)
+    on the step's recorded call: sum_t dh_t (the last layer's norm2.bias
+    gradient, post-LN) and db. Printed, not held to a limit: it says which
+    side of a kernel-twin difference lies nearer the exact sums, why the
+    long step comparison keeps rows 9-11 on both sides, and why db is held
+    against float64 at this M (the checks are "kernel ce_train_*")."""
+    from bayeslms_tpu_torch.ops import ce_train_cuda as ctc
+
+    with phase("ce_train long: sums over the tokens against float64"), \
+            torch.no_grad():
+        M = args[0].shape[0]
+        kern = ctc.ce_train_dh(*args).double()
+        twin = ctc.ce_train_dh_plain(*args).double()
+        mag = float(twin.abs().sum(0).max())
+        kern, twin = kern.sum(0), twin.sum(0)
+        ref, db64 = ce_sums_float64(torch, args)
+        big = float(ref.abs().max())
+        print(f"  M={M}: sum_t dh_t largest entry {big:.4e} (float64), "
+              f"sum_t |dh_t| {mag:.4e} ({mag / big:.0f}-fold cancellation); "
+              f"max error against float64: kernel "
+              f"{float((kern - ref).abs().max()):.4e}, twin "
+              f"{float((twin - ref).abs().max()):.4e}; |kernel - twin| "
+              f"{float((kern - twin).abs().max()):.4e} against the step "
+              f"rule's {STEP_GRAD_SHARE * big:.4e}")
+        rtol, share = TM_TRAIN_TOL["ce_train_de"]
+        dbig = float(db64.abs().max())
+        for label, fn in (("kernel", ctc.ce_train_de),
+                          ("twin", ctc.ce_train_de_plain)):
+            x = fn(*args)[1].double()
+            print(f"  db {label}: max |x - float64| "
+                  f"{float((x - db64).abs().max()):.4e} (|float64| max "
+                  f"{dbig:.4e}); share of the ce_train_de tolerance against "
+                  f"float64 {tol_ratio(x, db64, rtol, share * dbig):.3f}")
+
+
+def tm_long_phases(torch, kernels, smi, cfg, tmpdir):
+    """The recipe's Transformer trained at seq_len 1,024 through
+    ``Trainer.fit``: rows 15-17 on every layer of every step (checked
+    first on one step's calls), rows 9-11 once a step, row 14 in
+    ``evaluate``; rows 9-11 against their twins on one step's calls at M =
+    32,768; a kernel-path step against the same step on rows 15-17's
+    twins. Returns the checkpoint ``fit`` wrote. Raises on any failed
+    check."""
+    from bayeslms_tpu_torch import TrainConfig
+    from bayeslms_tpu_torch.data.corpus import Corpus, batchify
+    from bayeslms_tpu_torch.ops import attention_cuda as acu
+    from bayeslms_tpu_torch.ops import attention_train_cuda as atc
+    from bayeslms_tpu_torch.ops import ce_train_cuda as ctc
+    from bayeslms_tpu_torch.train.loop import Trainer
+
+    tcfg_m = tm_config(cfg)
+    B, T = TRAIN_BATCH, TM_LONG_SEQ
+    long_tag = f" (Transformer long, M={T * B})"
+    root = os.path.join(tmpdir, "long")
+    os.makedirs(root)
+    with phase("tm long setup"):
+        write_markov_corpus(root, cfg.vocab_size - 2,
+                            B * (T * TM_LONG_WINDOWS + 301),
+                            EVAL_BATCH * (T + 300), EVAL_BATCH * (T + 300),
+                            seed=1)
+        corpus = Corpus(root)
+        trainer = Trainer(tcfg_m, TrainConfig(
+            lr=TM_LR, momentum=0.9, clip=1.0, batch_size=B, seq_len=T,
+            eval_batch_size=EVAL_BATCH, epochs=1, log_interval=2,
+            save=os.path.join(root, "tm_long.ckpt")))
+        rows = batchify(corpus.train, B)
+        kl_scale = T / rows.shape[0]
+        data = torch.from_numpy(rows[:T].copy()).long().cuda()
+        target = torch.from_numpy(rows[1:T + 1].copy()).long().cuda()
+        print(f"  corpus: {len(corpus.train)} train tokens ({rows.shape[0]} "
+              f"rows of {B}: {(rows.shape[0] - 1) // T} windows of {T} and a "
+              f"tail of {(rows.shape[0] - 1) % T}), {len(corpus.valid)} "
+              f"valid, {len(corpus.test)} test")
+        state = trainer.init_state()
+        recorded = {}
+        gen_state = trainer.gen.get_state()
+        with contextlib.ExitStack() as stack:
+            for p in recording(atc, ATTN_TRAIN, recorded) \
+                    + recording(ctc, CE_TRAIN, recorded):
+                stack.enter_context(p)
+            trainer.train_step(state, None, data, target, kl_scale)
+        trainer.gen.set_state(gen_state)
+        torch.cuda.synchronize()
+        calls = {n: len(recorded.get(n, ())) for n in ATTN_TRAIN + CE_TRAIN}
+        print(f"  one step's calls of rows 15-17 and 9-11: {calls}")
+        if any(calls[n] != tcfg_m.nlayers for n in ATTN_TRAIN) \
+                or any(calls[n] != 1 for n in CE_TRAIN):
+            raise AssertionError(f"{calls} calls in one step, "
+                                 f"{tcfg_m.nlayers} each of rows 15-17 and "
+                                 "one each of rows 9-11 expected")
+        del state
+
+    attention_train_phase(torch, kernels, recorded)
+    # rows 9-11 at this path's M = 32,768 tokens, in entries of their own
+    # db against float64: at this M the twin's own fp32 p moves db_v by
+    # more than the tolerance where sum_t d_tv cancels (v = <s>), and the
+    # kernel lies within it ("ce_train long: sums over the tokens")
+    long_ce_witness(torch, recorded["ce_train_dh"][0])
+    check_recorded(torch, kernels, ce_train_specs(ctc, T * B, cfg.vocab_size,
+                                                  tcfg_m.emsize),
+                   recorded, long_tag, TM_TRAIN_TOL,
+                   exact={"ce_train_de": lambda args: {
+                       "db": ce_sums_float64(torch, args)[1].float()}})
+    del recorded
+
+    with phase("tm long train"):
+        for module in (ctc, atc):
+            for k in module.launches:
+                module.launches[k] = 0
+        acu.launches = 0
+        steps, evals = [], []
+
+        def on_step(b, loss):
+            torch.cuda.synchronize()
+            steps.append((time.perf_counter(), float(loss)))
+
+        evaluate = trainer.evaluate
+
+        def counted_eval(model, rows):
+            before = acu.launches
+            out = evaluate(model, rows)
+            evals.append((acu.launches - before,
+                          -(-(rows.shape[0] - 1) // T)))
+            return out
+
+        trainer.evaluate = counted_eval
+        t0 = time.perf_counter()
+        _, out = trainer.fit(corpus, log=lambda line: print("  " + line),
+                             on_step=on_step)
+        fit_s = time.perf_counter() - t0
+        trainer.evaluate = evaluate
+        n = len(steps)
+        launches = {**ctc.launches, **atc.launches,
+                    "attention_fwd (evaluate)": acu.launches}
+        print(f"  kernel launches in fit ({n} steps, {len(evals)} "
+              f"evaluations): {launches}; row 14 launches and windows per "
+              f"evaluation: {evals}")
+        losses = [l for _, l in steps]
+        print("  loss per step (the last the padded tail): "
+              + " ".join(f"{l:.4f}" for l in losses))
+        print(f"  validation loss {out['history'][0]['val_loss']:.4f}; test "
+              f"loss {out['test_loss']:.4f}")
+        dts = np.diff([t for t, _ in steps])[1:-1]
+        step_ms = 1e3 * float(np.median(dts))
+        print(f"  step median {step_ms:.3f} ms over {len(dts)} warm full "
+              f"windows, {T * B / step_ms * 1e3:.1f} tokens/s; fit "
+              f"{fit_s:.1f} s on {smi}")
+        for name in CE_TRAIN:
+            kernels[name + long_tag]["launches"] = launches[name]
+            if launches[name] != n:
+                raise AssertionError(f"{name}: {launches[name]} launches in "
+                                     f"{n} steps, 1 a step expected")
+        kernels["attention_fwd"]["launches"] += acu.launches
+        for name in ATTN_TRAIN:
+            kernels[name]["launches"] = launches[name]
+            if launches[name] != tcfg_m.nlayers * n:
+                raise AssertionError(f"{name}: {launches[name]} launches in "
+                                     f"{n} steps, {tcfg_m.nlayers} a step "
+                                     "expected")
+        if not evals or any(a != tcfg_m.nlayers * w for a, w in evals):
+            raise AssertionError(f"evaluate did not launch attention_fwd "
+                                 f"once a layer and window: {evals}")
+        full = losses[:-1]
+        if not all(np.isfinite(losses)) or not np.isfinite(out["test_loss"]):
+            raise AssertionError("a training loss is not finite")
+        if np.mean(full[-2:]) >= full[0]:
+            raise AssertionError(f"the loss did not fall: first window "
+                                 f"{full[0]:.4f}, last two "
+                                 f"{np.mean(full[-2:]):.4f}")
+
+    with phase("tm long step against plain versions"):
+        # Rows 9-11 stay on both sides: with their twins too, one gradient
+        # breaks the step rule at M = 32,768, the last layer's norm2.bias,
+        # sum_t dh_t, which cancels ~2,300-fold over the tokens' bf16 dh,
+        # and there the twin lies farther from float64 than the kernel
+        # (phase "ce_train long: sums over the tokens against float64";
+        # PERF.md).
+        # The CE kernels are held to their twins elementwise at this M in
+        # "kernel ce_train_* (Transformer long, M=32768)".
+        print("  plain: the twins of rows 15-17 (the attention dropout "
+              "rebuilt from the same seed); rows 9-11 on both sides; every "
+              "other dropout mask injected")
+        before = dict(atc.launches)
+        compare_steps(
+            torch, trainer, data, target, kl_scale,
+            tm_dropout_masks(torch, tcfg_m, T, B, 3, attn=False),
+            [mock.patch.object(atc, "flash_attention_train",
+                               atc.flash_attention_train_plain)],
+            loss_rtol=STEP_LOSS_RTOL)
+        got = {n: atc.launches[n] - before[n] for n in ATTN_TRAIN}
+        print(f"  rows 15-17 launches in the kernel-path step: {got}")
+        if any(c != tcfg_m.nlayers for c in got.values()):
+            raise AssertionError("the kernel-path step did not run rows "
+                                 "15-17 once a layer")
+    return trainer.tcfg.save
+
+
+def xl_attention_check(torch, kernels, calls):
+    """Row 14 against its twin on every call one XL pass made (memory
+    builds at B = 1 and bucketed lengths, chains' first utterances at (T,
+    N)), at row 14's own tolerance, and its planted-fault build on each;
+    folds the error into the ``attention_fwd`` entry. Raises on a failed
+    check."""
+    from bayeslms_tpu_torch.ops import _build
+    from bayeslms_tpu_torch.ops import attention_cuda as acu
+
+    real_load = _build.load
+    with phase("kernel attention_fwd (XL calls)"), torch.no_grad():
+        err, worst, fault = 0.0, 0.0, float("inf")
+        shapes = {}
+        for q, k, v, h in calls:
+            ref = {"o": acu.causal_attention_plain(q, k, v, h)}
+            got = {"o": acu.causal_attention(q, k, v, h)}
+            with mock.patch.object(_build, "load",
+                                   lambda kk: real_load(ATTN_FAULT)):
+                bad = {"o": acu.causal_attention(q, k, v, h)}
+            err = max(err, max_err(got["o"], ref["o"]))
+            big = float(ref["o"].float().abs().max())
+            worst = max(worst, tol_ratio(got["o"], ref["o"], ATTN_RTOL,
+                                         ATTN_SHARE * big + 1e-30))
+            fault = min(fault, fault_share(bad, ref, ATTN_RTOL, ATTN_SHARE))
+            if not all(bool(torch.isfinite(x).all())
+                       for x in (got["o"], bad["o"])):
+                raise AssertionError("attention_fwd (XL): a non-finite "
+                                     "value")
+            key = tuple(q.shape[:2])
+            shapes[key] = shapes.get(key, 0) + 1
+        print(f"  {len(calls)} calls of one pass at {len(shapes)} (T, B) "
+              f"shapes (B = 1: memory builds), the most frequent "
+              f"{sorted(shapes.items(), key=lambda x: -x[1])[:6]}; "
+              f"tolerance {ATTN_RTOL:.3e} |plain| + {ATTN_SHARE:.3e} "
+              f"max|plain|: max |kernel - plain| {err:.3e}, worst share of "
+              f"tolerance {worst:.3f}; planted fault 'diagonal masked': "
+              f"worst share {fault:.1f} at its least")
+        e = kernels["attention_fwd"]
+        e["max_abs_err"] = max(e["max_abs_err"], err)
+        if worst > 1:
+            raise AssertionError(f"attention_fwd disagrees with its plain "
+                                 f"version on the XL calls: {worst:.3f}")
+        if fault < FAULT_MARGIN:
+            raise AssertionError(f"attention_fwd (XL): the planted fault "
+                                 f"exceeds the tolerance only {fault:.1f}x")
+
+
+def tm_xl_phase(torch, kernels, smi, cfg, rcfg, ckpt):
+    """Transformer-XL scoring of the bench's 6,000-hypothesis N-best, the
+    recording prefix as the chain, from the long-context checkpoint: row
+    14 against its twin on every call of one pass; the pass against the
+    plain path with row 2's twin (TM_SCORE_ATOL) and with the twins of
+    rows 2 and 14 (XL_SCORE_RTOL), which row 14's planted fault must fail;
+    an on-card check that logits with memories equal the suffix of a
+    full-context forward."""
+    import dataclasses
+
+    from bayeslms_tpu_torch import build_model
+    from bayeslms_tpu_torch.core.checkpoint import (load_checkpoint,
+                                                    params_from_jax)
+    from bayeslms_tpu_torch.ops import _build
+    from bayeslms_tpu_torch.ops import attention_cuda as acu
+    from bayeslms_tpu_torch.ops import ce_cuda
+    from bayeslms_tpu_torch.rescore import layouts
+    from bayeslms_tpu_torch.rescore.scorer import BatchScorer
+
+    tcfg_m = tm_config(cfg)
+    params, _ = load_checkpoint(ckpt)
+    with phase("tm xl setup"):
+        scorer = BatchScorer(tcfg_m, params,
+                             dataclasses.replace(rcfg, xl_mems=True))
+        if layouts.select(scorer).name != "xl":
+            raise AssertionError("xl_mems did not select the xl layout")
+        nbest = make_synthetic_nbest(n_meetings=30)
+        w2i = {"<s>": 0, "<unk>": 1,
+               **{f"w{i}": 2 + i for i in range(cfg.vocab_size - 2)}}
+        # the warm pass records every call of row 14
+        calls = []
+        real = acu.causal_attention
+
+        def record(*a):
+            calls.append(a)
+            return real(*a)
+
+        with mock.patch.object(acu, "causal_attention", record):
+            scorer.score_nbest(nbest, w2i, stream_fn=stream_of)
+        torch.cuda.synchronize()
+
+    xl_attention_check(torch, kernels, calls)
+    del calls
+
+    with phase("tm xl score"):
+        ce_cuda.launches = 0
+        acu.launches = 0
+        pass_s = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            res = scorer.score_nbest(nbest, w2i, stream_fn=stream_of)
+            torch.cuda.synchronize()
+            pass_s.append(time.perf_counter() - t0)
+        n_utts = len(nbest)
+        n_chains = len({stream_of(k) for k in nbest})
+        print(f"  kernel launches in 3 passes: ce_fwd {ce_cuda.launches} "
+              f"(one an utterance), attention_fwd {acu.launches} (a layer "
+              f"each: {n_chains} chains' first utterances and "
+              f"{n_utts - n_chains} memory builds a pass; the scores with "
+              "memories take the plain masked attention, as in JAX)")
+        if ce_cuda.launches != 3 * n_utts \
+                or acu.launches != 3 * tcfg_m.nlayers * n_utts:
+            raise AssertionError("XL scoring did not launch rows 2 and 14 "
+                                 "as expected")
+        kernels["ce_fwd (Transformer, D=512)"]["launches"] += ce_cuda.launches
+        kernels["attention_fwd"]["launches"] += acu.launches
+        got = np.array([s for pairs in res.values() for _, s in pairs])
+        n_hyps = sum(len(h) for h in nbest.values())
+        n_tokens = sum(len(h.split()) + 1 for hyps in nbest.values()
+                       for h in hyps)
+        med = float(np.median(pass_s))
+        print(f"  passes {['%.4f' % s for s in pass_s]} s; median "
+              f"{n_hyps / med:.1f} hyps/s, {n_tokens / med:.1f} tokens/s "
+              f"({n_hyps} hyps, {n_utts} utterances in {n_chains} chains) "
+              f"on {smi}")
+        def plain_scores(attention):
+            with mock.patch.object(ce_cuda, "fused_decode_ce",
+                                   ce_cuda.ce_plain), \
+                    mock.patch.object(acu, "causal_attention", attention):
+                return np.array([s for pairs in scorer.score_nbest(
+                    nbest, w2i, stream_fn=stream_of).values()
+                    for _, s in pairs])
+
+        ref = plain_scores(acu.causal_attention)
+        diff = float(np.abs(got - ref).max())
+        print(f"  {n_hyps} scores, |plain| mean {np.abs(ref).mean():.3f} max "
+              f"{np.abs(ref).max():.3f}; against row 2's twin (row 14 on "
+              f"both sides): max |kernel - plain| {diff:.4e} (tolerance "
+              f"{TM_SCORE_ATOL:.0e})")
+        ref2 = plain_scores(acu.causal_attention_plain)
+        rel = float((np.abs(got - ref2) / np.abs(ref2)).max())
+        print(f"  against the twins of rows 2 and 14: max |kernel - plain| "
+              f"{float(np.abs(got - ref2).max()):.4e}, relative {rel:.3e} "
+              f"(tolerance {XL_SCORE_RTOL:.3e})")
+        # row 14's planted-fault build (diagonal masked) through the same
+        # comparison: it must fail it
+        real_load = _build.load
+        with mock.patch.object(_build, "load", lambda kk: real_load(
+                ATTN_FAULT if kk == ATTN_FAULT[0] else kk)):
+            bad = np.array([s for pairs in scorer.score_nbest(
+                nbest, w2i, stream_fn=stream_of).values() for _, s in pairs])
+        rel_bad = float(np.nan_to_num(np.abs(bad - ref2) / np.abs(ref2),
+                                      nan=np.inf).max())
+        print(f"  row 14 planted fault 'diagonal masked' through the pass: "
+              f"relative {rel_bad:.3e} ({rel_bad / XL_SCORE_RTOL:.1f}x the "
+              "tolerance)")
+        if got.shape != (n_hyps,) or not np.all(np.isfinite(got)) \
+                or diff > TM_SCORE_ATOL or rel > XL_SCORE_RTOL:
+            raise AssertionError("XL scoring failed")
+        if rel_bad <= XL_SCORE_RTOL:
+            raise AssertionError("row 14's planted fault passes the XL score "
+                                 "tolerance")
+        del scorer
+
+    with phase("tm xl suffix"), torch.no_grad():
+        cfg32 = dataclasses.replace(tcfg_m, compute_dtype="float32")
+        model = params_from_jax(build_model(cfg32), params).cuda()
+        gen = torch.Generator(device="cuda").manual_seed(13)
+        tokens = torch.randint(2, cfg.vocab_size, (96, 4), generator=gen,
+                               device="cuda")
+        full = model(tokens)
+        _, mems = model(tokens[:40], return_mems=True)
+        pad = [torch.cat([m, torch.zeros_like(m[:24])]) for m in mems]
+        worst = 0.0
+        for label, kw in (("exact", dict(mems=mems)),
+                          ("right-padded to 64", dict(mems=pad, mem_len=40))):
+            got = model(tokens[40:], **kw)
+            e = float((got - full[40:]).abs().max())
+            worst = max(worst, tol_ratio(got, full[40:], XL_RTOL, XL_ATOL))
+            print(f"  memories of 40 tokens ({label}), 56 more, 4 columns, "
+                  f"float32: |full| max {float(full.abs().max()):.3f}, max "
+                  f"|with mems - full suffix| {e:.3e}")
+        print(f"  worst share of tolerance ({XL_ATOL:.0e} + {XL_RTOL:.0e} "
+              f"|full|) {worst:.3f}")
+        if worst > 1:
+            raise AssertionError("logits with memories differ from the "
+                                 "full-context suffix")
+
+
 def ce_fwd_check(torch, kernels, args, tag="", atol=CE_ATOL):
     """Row 2 (the scoring CE) on the call the main path handed it:
     against its twin within ``atol``, at a ragged vocabulary edge too, a
@@ -1596,7 +2245,8 @@ def main():
         # nvcc processes at once
         for name, path in _build.build([*_build.KERNELS,
                                         *SAMPLER_FAULTS.values(),
-                                        ATTN_FAULT, BMM_FAULT]).items():
+                                        ATTN_FAULT, BMM_FAULT,
+                                        *ATTN_TRAIN_FAULTS.values()]).items():
             print(f"  {name}: {path}")
         print(f"  build seconds {time.perf_counter() - t0:.1f}")
 
@@ -1733,6 +2383,8 @@ def main():
     corpus, tmp = train_phases(torch, kernels, smi, cfg, rcfg)
     bayes_phases(torch, kernels, smi, cfg, rcfg, corpus, tmp.name)
     tm_phases(torch, kernels, smi, cfg, rcfg, corpus, tmp.name)
+    ckpt = tm_long_phases(torch, kernels, smi, cfg, tmp.name)
+    tm_xl_phase(torch, kernels, smi, cfg, rcfg, ckpt)
     tmp.cleanup()
 
     print(json.dumps({"kernels": list(kernels.values())}))

@@ -262,3 +262,85 @@ def test_bayes_matmul_kernel_matches_plain(dev, M, N, K, dtype):
     dw = gy.float().t() @ x.float()
     torch.testing.assert_close(lr.grad, dw * (w - mean), rtol=1e-5, atol=1e-5)
     torch.testing.assert_close(mr.grad, dw, rtol=1e-5, atol=1e-5)
+
+
+def _within(got, ref, rtol, share):
+    """Elementwise |got - ref| <= rtol |ref| + share max|ref| + 1e-6: the
+    floor for outputs that vanish (at T = 1, dq = dk = 0 up to the
+    rounding of dS = P (dP - delta), ~1e-7 from unit inputs)."""
+    ref = ref.detach().float()
+    torch.testing.assert_close(got.detach().float(), ref, rtol=rtol,
+                               atol=float(ref.abs().max()) * share + 1e-6)
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.2])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("T,d", [(1, 32), (24, 32), (130, 64), (257, 128),
+                                 (70, 256)])
+def test_attention_train_kernels_match_plain(dev, T, d, dtype, rate):
+    """Rows 15-17 against their twins: ragged T (off the 64- and 32-row
+    tiles and the TPU's 128 block), the qkv projection's column views read
+    in place, each backward kernel on the twin's (m, l, delta); the keep
+    bits each kernel draws equal the twin's bit for bit; the autograd
+    Function against the twins' Function. bf16: a rounded summand (z p,
+    dS) one bf16 step the other way, times its partner (unit-scale
+    inputs here, where chip_smoke.py's are the step's): 2^-6 of a value
+    and 2^-8 of the largest; float32: sums in another order."""
+    from bayeslms_tpu_torch.ops import attention_train_cuda as atc
+
+    g = torch.Generator().manual_seed(T + d)
+    h, B = 3, 2
+    qkv = torch.randn((T, B, 3 * h * d), generator=g).to(dev, dtype)
+    q, k, v = qkv.split(h * d, dim=-1)
+    go = torch.randn((T, B, h * d), generator=g).to(dev, dtype)
+    seed = torch.tensor([123457], dtype=torch.int32, device=dev)
+    tol = (2 ** -6, 2 ** -8) if dtype == torch.bfloat16 else (1e-4, 1e-5)
+    before = dict(atc.launches)
+    o, m, l = atc.attn_train_fwd(q, k, v, h, rate, seed)
+    ro, rm, rl = atc.attn_train_fwd_plain(q, k, v, h, rate, seed)
+    assert o.dtype == dtype and o.shape == (T, B, h * d)
+    _within(o, ro, *tol)
+    torch.testing.assert_close(m, rm, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(l, rl, rtol=1e-4, atol=1e-6)
+    delta = atc.row_delta(go, ro, h)
+    args = (q, k, v, go, rm, rl, delta, h, rate, seed)
+    _within(atc.attn_train_dq(*args), atc.attn_train_dq_plain(*args), *tol)
+    for a, b in zip(atc.attn_train_dkv(*args), atc.attn_train_dkv_plain(*args)):
+        _within(a, b, *tol)
+    assert all(atc.launches[n] == before[n] + 1 for n in before)
+    if rate > 0:
+        tril = torch.ones((T, T), dtype=torch.bool, device=dev).tril()
+        ref = atc.keep_plain(seed, torch.arange(B * h, device=dev), T,
+                             rate) & tril
+        for name in before:
+            got = atc.keep_bits(name, q, k, v, h, rate, seed, go, rm, rl,
+                                delta)
+            assert torch.equal(got, ref), name
+    xs = [x.detach().clone().requires_grad_(True) for x in (q, k, v)]
+    ys = [x.detach().clone().requires_grad_(True) for x in (q, k, v)]
+    out = atc.flash_attention_train(*xs, h, rate, seed)
+    ref = atc.flash_attention_train_plain(*ys, h, rate, seed)
+    (out.float() * go.float()).sum().backward()
+    (ref.float() * go.float()).sum().backward()
+    _within(out, ref, *tol)
+    for a, b in zip(xs, ys):
+        _within(a.grad, b.grad, *tol)
+
+
+def test_attention_train_refuses_what_the_kernels_do_not_take(dev):
+    from bayeslms_tpu_torch.ops import attention_train_cuda as atc
+
+    seed = torch.zeros((1,), dtype=torch.int32, device=dev)
+    wide = torch.zeros((8, 1, 512), device=dev, dtype=torch.bfloat16)
+    with pytest.raises(NotImplementedError):
+        atc.attn_train_fwd(wide, wide, wide, 1, 0.1, seed)
+    x = torch.zeros((8, 2, 64), device=dev, dtype=torch.bfloat16)
+    for bad in (seed.long(), seed.cpu(), torch.zeros((2,), dtype=torch.int32,
+                                                     device=dev)):
+        with pytest.raises(ValueError):
+            atc.attn_train_fwd(x, x, x, 2, 0.1, bad)
+    with pytest.raises(ValueError):  # features not unit-strided
+        atc.attn_train_fwd(x.transpose(0, 2).contiguous().transpose(0, 2),
+                           x, x, 2, 0.1, seed)
+    with pytest.raises(ValueError):
+        atc.attn_train_fwd(x.half(), x.half(), x.half(), 2, 0.1, seed)

@@ -1,7 +1,9 @@
 """The port stands alone: bayeslms_tpu_torch imports neither JAX (jax,
 flax, optax), msgpack nor anything of bayeslms_tpu, reads the reference's
-``model.pt`` and the JAX package's ``.ckpt`` without them, and its entry
-points run on the card unless the caller asks for the CPU."""
+``model.pt`` and the JAX package's ``.ckpt`` without them, scores (packed
+and Transformer-XL) and runs the long-context attention training twin
+without them, and its entry points run on the card unless the caller asks
+for the CPU."""
 
 import ast
 import os
@@ -78,6 +80,19 @@ tm = BatchScorer(tcfg, load_params("exp/campaign/torch_tm_bayesft/model.pt", tcf
 tout = tm.score_nbest({{"u1": ["w2 w3", "w4"]}},
                       {{"<s>": 0, "<unk>": 1, "w2": 2, "w3": 3, "w4": 4}})
 assert [len(v) for v in tout.values()] == [2]
+xcfg = ModelConfig(model="Transformer", vocab_size=12, emsize=8, nhid=16,
+                   nlayers=2, nhead=2)
+xl = BatchScorer(xcfg, init_params(build_model(xcfg), xcfg),
+                 RescoreConfig(xl_mems=True), device="cpu")
+xout = xl.score_nbest({{"a_u1": ["w2 w3", "w4"], "a_u2": ["w5 zz"]}}, w2i,
+                      stream_fn=lambda k: k.split("_")[0])
+assert [len(v) for v in xout.values()] == [2, 1]
+import torch
+from bayeslms_tpu_torch.ops.attention_train_cuda import flash_attention_train
+qkv = torch.randn((1024, 1, 24), requires_grad=True)
+flash_attention_train(*qkv.split(8, dim=-1), 2, 0.2,
+                      torch.tensor([5], dtype=torch.int32)).sum().backward()
+assert qkv.grad.shape == qkv.shape
 assert not [m for m in sys.modules if m.split(".")[0] in {banned!r}]
 print("ISOLATED", sorted(round(s, 3) for v in out.values() for _, s in v))
 """

@@ -88,7 +88,7 @@ def test_packed_carry_scores_match_jax(monkeypatch, jax_params, chunk, streams):
     dict(mc_samples=2, carry_over=False),
     dict(splice_len=3),
     dict(backward=True),
-    dict(xl_mems=True),
+    dict(inter_flag=2),
 ])
 def test_unported_scoring_raises(jax_params, rc):
     params = jax.tree.map(np.asarray, jax_params)

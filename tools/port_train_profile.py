@@ -3,6 +3,7 @@
 
     python3 tools/port_train_profile.py [--bayes-pos N | --model Transformer
                                          [--t-bayes-pos FFN|MHA|EMB]]
+                                        [--seq-len T]
 
 Needs a CUDA card and nvcc. Builds the training configuration of
 chip_smoke.py (the bench's 2-layer 1024/1024 LSTM LM, V = 49,152, bf16,
@@ -11,7 +12,9 @@ its synthetic Markov corpus; ``--bayes-pos N`` (1-5) trains the Bayesian
 gate-slice LSTM at ``l_bayes_pos=N`` instead, its KL scaled by
 seq_len / rows as in ``Trainer.run_epoch``; ``--model Transformer`` the
 recipe's Transformer of chip_smoke.py (512/4096 x 6, 8 heads, lr 0.1), and
-``--t-bayes-pos`` its Bayesian variant. It runs three warm-up steps, times five steps
+``--t-bayes-pos`` its Bayesian variant; ``--seq-len 1024`` the window at
+which the Transformer's training attention takes the flash-attention
+kernels (rows 15-17). It runs three warm-up steps, times five steps
 without the profiler, then traces three steps with torch.profiler and prints
 the device time by kernel, the device's busy time and its idle share of
 the traced steps. Nothing is written to disk outside a temporary directory.
@@ -50,6 +53,8 @@ def main():
                     default="LSTM")
     ap.add_argument("--t-bayes-pos", choices=("none", "FFN", "MHA", "EMB"),
                     default="none", help="the Bayesian Transformer's position")
+    ap.add_argument("--seq-len", type=int, default=chip_smoke.TRAIN_SEQ,
+                    help="the training window (chip_smoke.py's: 100)")
     args = ap.parse_args()
     cfg, _, _, _ = chip_smoke.bench_setup()
     lr = 5.0
@@ -61,7 +66,7 @@ def main():
     elif args.bayes_pos:
         cfg = dataclasses.replace(cfg, uncertainty="Bayesian",
                                   l_bayes_pos=args.bayes_pos)
-    B, T = chip_smoke.TRAIN_BATCH, chip_smoke.TRAIN_SEQ
+    B, T = chip_smoke.TRAIN_BATCH, args.seq_len
     with tempfile.TemporaryDirectory() as tmp:
         chip_smoke.write_markov_corpus(tmp, cfg.vocab_size - 2,
                                        B * T * 12, 100, 100)
@@ -101,7 +106,7 @@ def main():
           f"share {1 - busy_ms / traced_ms:.3f} of the traced steps "
           f"({torch.cuda.get_device_name(0)}; {cfg.model}, uncertainty="
           f"{cfg.uncertainty}, l_bayes_pos={cfg.l_bayes_pos}, t_bayes_pos="
-          f"{cfg.t_bayes_pos})")
+          f"{cfg.t_bayes_pos}, batch {B} x seq_len {T})")
     print("device ms a step  calls a step  name")
     # the top 20, and the port's sampler kernel wherever it ranks
     for dev_us, count, key in [r for i, r in enumerate(rows)
