@@ -8,8 +8,9 @@ ctypes; every kernel has a plain PyTorch twin that runs for CPU tensors.
 The port scores N-best lists (``rescore.scorer.BatchScorer``: the 2-layer
 LSTM LM through the packed-carry layout, the Transformer LM through
 packed-nocarry) and trains both families (``train.loop.Trainer``: the
-standard and Bayesian gate-slice LSTM, the standard Transformer and the
-Bayesian FFN / MHA / EMB Transformers); ROADMAP.md lists what follows.
+standard and Bayesian gate-slice LSTM, the GP-LSTM with GP gates 1-4, the
+standard Transformer and the Bayesian FFN / MHA / EMB Transformers);
+ROADMAP.md lists what follows.
 """
 
 from .core.config import ModelConfig, RescoreConfig, TrainConfig

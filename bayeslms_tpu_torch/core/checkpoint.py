@@ -141,6 +141,12 @@ def partial_update(params: Mapping, prior_params: Mapping
 
 
 _RNN_KEY = re.compile(r"rnn\.(weight|bias)_(ih|hh)_l(\d+)")
+# a cell of a GPLSTM or VariationalLSTM stack (GaussRNNModel, model.py:1317-
+# 1366; VariationalRNNModel, :2373-2423) and, within it, torch nn.LSTM names
+_STACK_KEY = re.compile(r"rnn\.rnn\.(\d+)\.(.*)")
+_STACK_LSTM_KEY = re.compile(r"(weight|bias)_(ih|hh)_l0")
+# the legacy VLSTM's noise tables (model.py:2609-2613)
+_VLEGACY_KEY = re.compile(r"rnn\.hiddens_(mean|lgstd)(_p)?")
 _TM_KEY = re.compile(r"transformerlayers\.(?:layers\.)?(\d+)\.(.*)")
 # a Transformer layer's reference names (torch TransformerEncoderLayer's
 # in_proj/out_proj and the reference's self-built modules) -> (path under
@@ -188,14 +194,22 @@ def import_torch_state_dict(state_dict: Mapping[str, "np.ndarray"],
     ``rnn.*_{mean,lgstd}_*`` -> ``core/*``; for the Transformer the
     ``transformerlayers.[layers.]N.*`` names of ``_TM_TABLE`` ->
     ``layers_N/*`` (Linear weights transposed to flax (in, out) kernels)
-    and the EMB projection's ``embed_{mean,lgstd}``. Keys with no
-    counterpart are skipped; compose with ``partial_update``. The GP and
-    variational names wait for ROADMAP.md queue A item 10."""
+    and the EMB projection's ``embed_{mean,lgstd}``; for the GP and
+    variational stacks ``rnn.rnn.<i>.*`` as the JAX package maps them
+    (``core/checkpoint.py:113-140`` there): a GP cell's
+    ``{weights,bias}_{ih,hh}`` and ``gpnn.*`` -> ``core/cell<i>/...`` (the
+    GPNN2 read-out ``gpnn.coef.{weight,bias}`` -> ``coef_kernel`` (in, out)
+    and ``coef_bias``), a standard layer's ``{weight,bias}_{ih,hh}_l0`` ->
+    ``core/std<i>/l_{w,b}_{ih,hh}``, a variational cell's flat names ->
+    ``core/l<i>_*``, the legacy GaussLSTM's ``rnn.gpnn.*`` ->
+    ``core/gpnn/*`` and the legacy VLSTM's ``rnn.hiddens_*`` -> ``core/*``.
+    Keys with no counterpart are skipped; compose with ``partial_update``."""
     out: Dict[Tuple[str, ...], np.ndarray] = {}
     for k, v in state_dict.items():
         v = np.asarray(v)
         m = _RNN_KEY.fullmatch(k)
         tm = _TM_KEY.fullmatch(k)
+        st = _STACK_KEY.match(k)
         if k == "encoder.weight":
             out[("embedding",)] = v
         elif k == "decoder.weight":
@@ -208,6 +222,29 @@ def import_torch_state_dict(state_dict: Mapping[str, "np.ndarray"],
             out[("core", f"l{m.group(3)}_{kind}_{m.group(2)}")] = v
         elif k.startswith("rnn.") and ("_mean_" in k or "_lgstd_" in k):
             out[("core", k[len("rnn."):])] = v
+        elif k.startswith("rnn.gpnn."):
+            out[("core", "gpnn", k[len("rnn.gpnn."):])] = v
+        elif _VLEGACY_KEY.fullmatch(k):
+            out[("core", k[len("rnn."):])] = v
+        elif st:
+            i, rest = st.group(1), st.group(2)
+            lm = _STACK_LSTM_KEY.fullmatch(rest)
+            if rest == "vnn.hidden_lgstd":
+                out[("core", f"l{i}_vnn", "hidden_lgstd")] = v
+            elif rest == "gpnn.coef.weight":
+                out[("core", f"cell{i}", "gpnn", "coef_kernel")] = v.T
+            elif rest == "gpnn.coef.bias":
+                out[("core", f"cell{i}", "gpnn", "coef_bias")] = v
+            elif rest.startswith("gpnn."):
+                out[("core", f"cell{i}", "gpnn", rest[len("gpnn."):])] = v
+            elif lm:
+                kind = "w" if lm.group(1) == "weight" else "b"
+                out[("core", f"std{i}", f"l_{kind}_{lm.group(2)}")] = v
+            elif rest in ("weights_ih", "weights_hh", "bias_ih", "bias_hh"):
+                if getattr(cfg, "uncertainty", None) == "Variational":
+                    out[("core", f"l{i}_{rest}")] = v
+                else:
+                    out[("core", f"cell{i}", rest)] = v
         elif k in ("embed_mean", "embed_lgstd"):
             out[(k,)] = v
         elif tm and tm.group(2) in _TM_TABLE:

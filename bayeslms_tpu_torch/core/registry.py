@@ -1,10 +1,11 @@
 """Model construction, counterpart of ``bayeslms_tpu/core/registry.py``.
 
 The port builds the 2-layer LSTM with a tied decoder, with
-``uncertainty="none"`` or ``"Bayesian"`` (the gate-slice Bayes2LSTM core),
-and the Transformer with a tied decoder, standard or Bayesian at the FFN,
-the MHA or the embedding; every other configuration raises
-``NotImplementedError`` naming its ROADMAP.md item.
+``uncertainty="none"``, ``"Bayesian"`` (the gate-slice Bayes2LSTM core) or
+``"Gaussian"`` (the GP-LSTM core of an ``l_gauss_pos`` string, GP gates 1-4
+and GPNN types 0-3), and the Transformer with a tied decoder, standard or
+Bayesian at the FFN, the MHA or the embedding; every other configuration
+raises ``NotImplementedError`` naming its ROADMAP.md item.
 """
 
 from __future__ import annotations

@@ -37,7 +37,8 @@
 //       contracts du_t (B x 4H) with W_hh (4H x 32), then adds the
 //       (1 - keep) dh_tot term, updating the fp32 dh carry in place.
 // Stream order makes (b) see all of (a)'s du_t. Products run on the tensor
-// cores through wmma (16x16x16 bf16, fp32 accumulators).
+// cores through wmma (16x16x16 bf16, fp32 accumulators), in the tile
+// functions of csrc/gate_tile.cuh (shared with csrc/gp_lstm.cu).
 //
 // Bound at the training shapes (T = 100, B = 32, H = 1,024), from the H100
 // SXM data sheet's 989 TFLOP/s bf16 (700 W): forward 2 T B H 4H = 26.8
@@ -51,91 +52,14 @@
 // B = 32 the BM = 32 column tile is full; every block re-reads its W_hh
 // rows from L2 (8 MB in all, resident in the 50 MB L2) each step.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <mma.h>
-#include <stdint.h>
-
-using namespace nvcuda;
-typedef __nv_bfloat16 bf16;
+#include "gate_tile.cuh"
 
 namespace {
 
-constexpr int BM = 32;        // batch columns per block
-constexpr int BJ = 32;        // hidden units per block (gate tile)
-constexpr int BN = 4 * BJ;    // gate rows per block
-constexpr int BK = 32;        // contraction chunk
-constexpr int LDA = BK + 8;   // bf16 pitch of the A tile (16-byte rows)
-constexpr int LDB = BK + 8;   // bf16 pitch of the weight tile
-constexpr int LDG = BN + 4;   // fp32 pitch of the gate tile
-constexpr int THREADS = 256;  // 8 warps: 2 row halves x 4 gates
-
-constexpr int SMEM_AB = (BM * LDA + BN * LDB) * 2;
-constexpr int SMEM_G = BM * LDG * 4;
-constexpr int SMEM = SMEM_AB > SMEM_G ? SMEM_AB : SMEM_G;
-
-// dh kernel: BM columns x DJ units of dh, contraction over 4H
-constexpr int DJ = 32;
-constexpr int LDW = DJ + 8;   // bf16 pitch of the W_hh tile (row = gate row)
-constexpr int LDO = DJ + 4;   // fp32 pitch of the output tile
-constexpr int DH_THREADS = 128;  // 4 warps: 2 row halves x 2 column halves
-
-__device__ __forceinline__ float sigmoidf(float x) {
-  return 1.0f / (1.0f + expf(-x));
-}
-
-// Gs[r][q*BJ + u] = sum_k a[b0 + r][k] W[q*H + j0 + u][k] over k < H, for
-// the block's BM x BN gate tile; rows past B read zeros. Ends synchronised.
-__device__ void gate_tile(const bf16* __restrict__ a,
-                          const bf16* __restrict__ w, int b0, int j0, int B,
-                          int H, unsigned char* smem) {
-  bf16* As = reinterpret_cast<bf16*>(smem);
-  bf16* Bs = As + BM * LDA;
-  float* Gs = reinterpret_cast<float*>(smem);  // reused after the K loop
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int wr = warp >> 2;  // rows [16 wr, 16 wr + 16)
-  const int wq = warp & 3;   // gate q
-
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2];
-  wmma::fill_fragment(acc[0], 0.0f);
-  wmma::fill_fragment(acc[1], 0.0f);
-  for (int k0 = 0; k0 < H; k0 += BK) {
-    for (int i = tid; i < BM * (BK / 8); i += THREADS) {
-      const int r = i / (BK / 8);
-      const int c = (i % (BK / 8)) * 8;
-      uint4 v = make_uint4(0u, 0u, 0u, 0u);
-      if (b0 + r < B)
-        v = *reinterpret_cast<const uint4*>(a + (size_t)(b0 + r) * H + k0 + c);
-      *reinterpret_cast<uint4*>(As + r * LDA + c) = v;
-    }
-    for (int i = tid; i < BN * (BK / 8); i += THREADS) {
-      const int n = i / (BK / 8);
-      const int c = (i % (BK / 8)) * 8;
-      const int row = (n / BJ) * H + j0 + (n % BJ);
-      *reinterpret_cast<uint4*>(Bs + n * LDB + c) =
-          *reinterpret_cast<const uint4*>(w + (size_t)row * H + k0 + c);
-    }
-    __syncthreads();
-#pragma unroll
-    for (int ks = 0; ks < BK; ks += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fa;
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> fb[2];
-      wmma::load_matrix_sync(fa, As + (wr * 16) * LDA + ks, LDA);
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        wmma::load_matrix_sync(fb[j], Bs + (wq * BJ + j * 16) * LDB + ks, LDB);
-        wmma::mma_sync(acc[j], fa, fb[j], acc[j]);
-      }
-    }
-    __syncthreads();
-  }
-#pragma unroll
-  for (int j = 0; j < 2; ++j)
-    wmma::store_matrix_sync(Gs + (wr * 16) * LDG + wq * BJ + j * 16, acc[j],
-                            LDG, wmma::mem_row_major);
-  __syncthreads();
-}
+constexpr int NG = 4;  // the four gates
+constexpr int THREADS = GateTile<NG>::THREADS;
+constexpr int LDG = GateTile<NG>::LDG;
+constexpr int SMEM = GateTile<NG>::SMEM;
 
 // One forward step. a = h_{t-1} in bf16 (h0 or ys[t-1]); h, c are the fp32
 // carries, updated in place (each element by the one thread that owns it).
@@ -148,7 +72,7 @@ lstm_fwd_step(const bf16* __restrict__ a, const bf16* __restrict__ w,
   __shared__ __align__(128) unsigned char smem[SMEM];
   const int b0 = blockIdx.x * BM;
   const int j0 = blockIdx.y * BJ;
-  gate_tile(a, w, b0, j0, B, H, smem);
+  gate_tile<NG>(a, w, b0, j0, B, H, smem);
   const float* Gs = reinterpret_cast<const float*>(smem);
   for (int i = threadIdx.x; i < BM * BJ; i += THREADS) {
     const int r = i / BJ;
@@ -186,7 +110,7 @@ lstm_bwd_gates(const bf16* __restrict__ hprev, const bf16* __restrict__ cprev,
   __shared__ __align__(128) unsigned char smem[SMEM];
   const int b0 = blockIdx.x * BM;
   const int j0 = blockIdx.y * BJ;
-  gate_tile(hprev, w, b0, j0, B, H, smem);
+  gate_tile<NG>(hprev, w, b0, j0, B, H, smem);
   const float* Gs = reinterpret_cast<const float*>(smem);
   for (int i = threadIdx.x; i < BM * BJ; i += THREADS) {
     const int r = i / BJ;
@@ -225,65 +149,13 @@ lstm_bwd_gates(const bf16* __restrict__ hprev, const bf16* __restrict__ cprev,
   }
 }
 
-// Backward (b): dh[b][k] = sum_n du_t[b][n] W[n][k] + (1 - keep) dh_tot for
-// the block's BM columns x DJ units; dh is updated in place.
+// Backward (b): dh = du_t W_hh + (1 - keep) dh_tot, in place.
 __global__ void __launch_bounds__(DH_THREADS)
 lstm_bwd_dh(const bf16* __restrict__ du_t, const bf16* __restrict__ w,
             const uint8_t* __restrict__ mask_t,
             const bf16* __restrict__ dy_t, float* __restrict__ dh, int B,
             int H) {
-  __shared__ __align__(128) bf16 As[BM * LDA];
-  __shared__ __align__(128) bf16 Ws[BK * LDW];
-  __shared__ __align__(128) float Os[BM * LDO];
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int wr = warp >> 1;  // rows [16 wr, 16 wr + 16)
-  const int wc = warp & 1;   // units [16 wc, 16 wc + 16)
-  const int b0 = blockIdx.x * BM;
-  const int k0 = blockIdx.y * DJ;
-  const int G = 4 * H;
-
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-  wmma::fill_fragment(acc, 0.0f);
-  for (int n0 = 0; n0 < G; n0 += BK) {
-    for (int i = tid; i < BM * (BK / 8); i += DH_THREADS) {
-      const int r = i / (BK / 8);
-      const int c = (i % (BK / 8)) * 8;
-      uint4 v = make_uint4(0u, 0u, 0u, 0u);
-      if (b0 + r < B)
-        v = *reinterpret_cast<const uint4*>(du_t + (size_t)(b0 + r) * G + n0 + c);
-      *reinterpret_cast<uint4*>(As + r * LDA + c) = v;
-    }
-    for (int i = tid; i < BK * (DJ / 8); i += DH_THREADS) {
-      const int n = i / (DJ / 8);
-      const int c = (i % (DJ / 8)) * 8;
-      *reinterpret_cast<uint4*>(Ws + n * LDW + c) =
-          *reinterpret_cast<const uint4*>(w + (size_t)(n0 + n) * H + k0 + c);
-    }
-    __syncthreads();
-#pragma unroll
-    for (int ks = 0; ks < BK; ks += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fa;
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> fb;
-      wmma::load_matrix_sync(fa, As + (wr * 16) * LDA + ks, LDA);
-      wmma::load_matrix_sync(fb, Ws + ks * LDW + wc * 16, LDW);
-      wmma::mma_sync(acc, fa, fb, acc);
-    }
-    __syncthreads();
-  }
-  wmma::store_matrix_sync(Os + (wr * 16) * LDO + wc * 16, acc, LDO,
-                          wmma::mem_row_major);
-  __syncthreads();
-  for (int i = tid; i < BM * DJ; i += DH_THREADS) {
-    const int r = i / DJ;
-    const int u = i % DJ;
-    const int b = b0 + r;
-    if (b >= B) continue;
-    const size_t e = (size_t)b * H + k0 + u;
-    const float keep = (mask_t != nullptr && !mask_t[b]) ? 0.f : 1.f;
-    const float dh_tot = dh[e] + __bfloat162float(dy_t[e]);
-    dh[e] = Os[r * LDO + u] + (1.0f - keep) * dh_tot;
-  }
+  dh_tile<NG>(du_t, w, mask_t, dy_t, dh, B, H);
 }
 
 }  // namespace

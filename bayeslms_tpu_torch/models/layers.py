@@ -1,18 +1,123 @@
-"""The Bayesian dense layer, counterpart of ``bayeslms_tpu/models/layers.py``
-``BayesDense`` (the reference's ``BayesLinear``, model.py:1049-1134). The GP
-and variational units of that module are ROADMAP.md queue A item 10.
+"""Layers of ``bayeslms_tpu/models/layers.py``: the Bayesian dense layer
+``BayesDense`` (the reference's ``BayesLinear``, model.py:1049-1134), the
+activation table ``ACTS`` and the GP activation unit ``GPNN`` (types 0-3,
+model.py:1780-1906). ``GPNN2``, ``GPNNNode`` and the variational ``VNN``
+are ROADMAP.md queue A item 10.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Iterator, Optional, Sequence, Tuple
 
 import torch
 from torch import nn
 
 from ..ops import bayes_matmul_cuda, gaussian
 from . import initializers as tinit
+
+# the activations of the GP units' act sets (the JAX table's others serve
+# only GPNNNode, ROADMAP.md queue A item 10)
+ACTS = {"sigmoid": torch.sigmoid, "tanh": torch.tanh, "relu": torch.relu}
+
+
+class GPNN(nn.Module):
+    """GP activation unit: y = sum_i coef_i act_i(x W^T + b) (the reference's
+    ``GPNN``). ``gpnn_type`` selects which of {weights, coefs} are
+    Bayesian: 0 neither, 1 the coefs, 2 the weights and bias, 3 both; their
+    log-stds are ``coef_lgstd``, ``weights_lgstd`` and ``bias_lgstd``. One
+    sample a call site (``draw``), taken only when training with
+    ``sample_enabled`` (the reference ships ``self.sample = False``: its
+    training is deterministic with the KL)."""
+
+    def __init__(self, input_size: int, output_size: int,
+                 act_set: Sequence[str] = ("sigmoid", "tanh", "relu"),
+                 gpnn_type: int = 0, sample_enabled: bool = False):
+        super().__init__()
+        if gpnn_type not in (0, 1, 2, 3):
+            raise NotImplementedError(
+                f"GPNN type {gpnn_type} is not a GPNN (0-3); the random-"
+                "feature GPNN2 (type 4) is ROADMAP.md queue A item 10")
+        self.input_size, self.output_size = input_size, output_size
+        self.act_set = tuple(act_set)
+        self.gpnn_type, self.sample_enabled = gpnn_type, sample_enabled
+        k = len(self.act_set)
+        self.weights_mean = nn.Parameter(torch.empty((output_size,
+                                                      input_size)))
+        self.bias_mean = nn.Parameter(torch.empty((output_size,)))
+        self.coef_mean = nn.Parameter(torch.empty((k, output_size)))
+        if gpnn_type in (1, 3):
+            self.coef_lgstd = nn.Parameter(torch.empty((k, output_size)))
+        if gpnn_type in (2, 3):
+            self.weights_lgstd = nn.Parameter(torch.empty((output_size,
+                                                           input_size)))
+            self.bias_lgstd = nn.Parameter(torch.empty((output_size,)))
+
+    def reset_parameters(self, gen: torch.Generator) -> None:
+        stdv = 1.0 / math.sqrt(self.output_size)
+        tinit.uniform_(self.weights_mean, stdv, gen)
+        with torch.no_grad():
+            self.bias_mean.zero_()
+            self.coef_mean.uniform_(0.0, 1.0, generator=gen)
+        for name, p in self.named_parameters():
+            if name.endswith("_lgstd"):
+                gaussian.lgstd_init_(p, stdv, gen)
+
+    def draw(self, deterministic: bool = True,
+             generator: Optional[torch.Generator] = None,
+             noise: Optional[Iterator[torch.Tensor]] = None
+             ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """The effective (weights, bias, coef) of one call: the means, or,
+        training with ``sample_enabled``, the means plus exp(lgstd) eps, eps
+        in the JAX call order (coef, then weights and bias) from ``noise``
+        or drawn from ``generator``."""
+        w, b, coef = self.weights_mean, self.bias_mean, self.coef_mean
+        if deterministic or not self.sample_enabled:
+            return w, b, coef
+
+        def diff(lgstd):
+            eps = None if noise is None else next(noise, None)
+            if noise is not None and eps is None:
+                raise ValueError("GPNN: fewer injected noise tensors than "
+                                 "sampled tensors")
+            return gaussian.sample_diff(lgstd, eps=eps, generator=generator)
+
+        if self.gpnn_type in (1, 3):
+            coef = coef + diff(self.coef_lgstd)
+        if self.gpnn_type in (2, 3):
+            w = w + diff(self.weights_lgstd)
+            b = b + diff(self.bias_lgstd)
+        return w, b, coef
+
+    @staticmethod
+    def apply_drawn(x, w, b, coef, act_set: Sequence[str]) -> torch.Tensor:
+        out = x @ w.t().to(x.dtype) + b.to(x.dtype)
+        acc = None
+        for i, act in enumerate(act_set):
+            term = ACTS[act](out) * coef[i].to(x.dtype)
+            acc = term if acc is None else acc + term
+        return acc
+
+    def forward(self, x, hx=None, deterministic: bool = True, drawn=None,
+                generator: Optional[torch.Generator] = None):
+        if hx is not None:
+            x = torch.cat([x, hx], dim=-1)
+        w, b, coef = (drawn if drawn is not None
+                      else self.draw(deterministic, generator))
+        return self.apply_drawn(x, w, b, coef, self.act_set)
+
+    def kl(self) -> torch.Tensor:
+        """model.py:1816-1826: mean-reduced, with the -1 term."""
+        kl = torch.zeros((), device=self.coef_mean.device)
+        if self.gpnn_type in (1, 3):
+            kl = kl + gaussian.kl_std_normal_m1(self.coef_mean,
+                                                self.coef_lgstd)
+        if self.gpnn_type in (2, 3):
+            kl = kl + gaussian.kl_std_normal_m1(self.weights_mean,
+                                                self.weights_lgstd)
+            kl = kl + gaussian.kl_std_normal_m1(self.bias_mean,
+                                                self.bias_lgstd)
+        return kl
 
 
 class BayesDense(nn.Module):

@@ -2,26 +2,30 @@
 ``bayeslms_tpu/models/lstm_lm.py``.
 
 The port has the standard 2-layer LSTM core, the Bayesian gate-slice
-LSTM core (``uncertainty="Bayesian"``) and the container with a tied
+LSTM core (``uncertainty="Bayesian"``), the GP-LSTM core
+(``uncertainty="Gaussian"``: ``GPLSTMCore`` with GP gates 1-4 and GPNN
+types 0-3, ``GPLSTMCell``, ``StdLSTMLayer``) and the container with a tied
 decoder: the scoring pass (``deterministic=True``, dropout off, the Bayes
-core at its posterior mean) and the training forward, with dropout on the
-embedding, between the standard core's layers and on the core's output, as
-``RecurrentLM.__call__``, ``StandardRNNCore`` and ``BayesLSTMCore`` apply
-it in the JAX package. GRU/RNN cores and the GP and variational cores are
-ROADMAP.md queue A items 3 and 10; the cores raise for them.
+core at its posterior mean, the GP units at their means) and the training
+forward, with dropout on the embedding, between the standard core's layers
+and on the core's output, as ``RecurrentLM.__call__``, ``StandardRNNCore``,
+``BayesLSTMCore`` and ``GPLSTMCore`` apply it in the JAX package. GRU/RNN
+cores, GP gates 5-7, GPNN2, the legacy GaussLSTM and the variational cores
+are ROADMAP.md queue A items 3 and 10; the cores raise for them.
 """
 
 from __future__ import annotations
 
-from typing import Dict, NamedTuple, Optional, Sequence, Tuple
+from typing import Dict, Iterator, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 from torch import nn
 
 from ..core.config import ModelConfig
-from ..ops import bayes_sample_cuda, gaussian
-from ..ops.lstm import LSTMParams, lstm_stack2
+from ..ops import bayes_sample_cuda, gaussian, gp_lstm_cuda, lstm_cuda
+from ..ops.lstm import LSTMParams, lstm_layer, lstm_stack2
 from . import initializers as tinit
+from .layers import ACTS, GPNN
 
 Hidden = Tuple[torch.Tensor, torch.Tensor]  # (h, c), each (nlayers, B, H)
 
@@ -46,11 +50,15 @@ class DropoutMasks(NamedTuple):
 
 def draw_dropout_masks(cfg: ModelConfig, T: int, B: int,
                        gen: torch.Generator, device=None) -> DropoutMasks:
-    """Bernoulli(1 - cfg.dropout) keep masks from ``gen`` (on ``device``)."""
+    """Bernoulli(1 - cfg.dropout) keep masks from ``gen`` (on ``device``);
+    no inter-layer mask for the cores that have no inter-layer dropout
+    (the Bayesian and the GP-LSTM ones)."""
     keep = 1.0 - cfg.dropout
     draw = lambda width: torch.rand(  # noqa: E731
         (T, B, width), generator=gen, device=device) < keep
-    layer = None if cfg.uncertainty == "Bayesian" else draw(cfg.nhid)
+    layered = cfg.uncertainty == "none" or (
+        cfg.uncertainty == "Gaussian" and cfg.l_gauss_pos[:1] == "0")
+    layer = draw(cfg.nhid) if layered else None
     return DropoutMasks(draw(cfg.emsize), layer, draw(cfg.nhid))
 
 
@@ -263,6 +271,230 @@ class BayesLSTMCore(nn.Module):
                 + gaussian.kl_std_normal(b_mean, b_lgstd))
 
 
+def _gp_refusal(what: str) -> NotImplementedError:
+    return NotImplementedError(
+        f"{what} is not ported yet: GP gates 5-7, GPNN2 (type 4), the legacy "
+        "GaussLSTM and the variational cores are ROADMAP.md queue A item 10")
+
+
+class GPLSTMCell(nn.Module):
+    """One GP-activation LSTM layer, the JAX package's ``GPLSTMCell`` for
+    gates 1-4 (the reference's ``GPLSTMCell``, model.py:1683-1777): gate
+    ``gate_type`` of [i, f, g, o] is replaced by a GP unit (``gpnn``, type
+    ``gpnn_type`` 0-3) over cat(x_t, h_{t-1}), with the act set (sigmoid,)
+    for gate 2 and (sigmoid, tanh, relu) otherwise, its weights drawn once
+    a call. Parameters ``weights_ih``, ``bias_ih``, ``weights_hh``,
+    ``bias_hh`` and ``gpnn.*``; the reference adds ``bias_ih`` to both
+    projections and never uses ``bias_hh`` (model.py:1749-1753), and so
+    does this cell.
+
+    Routes as JAX: without resets, on a CUDA tensor that
+    ``gp_lstm_cuda.gpg_kernel_ok`` admits, the recurrence goes to
+    ``gp_lstm_cuda.gpg_layer_fused`` (kernel rows 20-21, float32 carry);
+    otherwise (packed resets, a refused shape, a CPU tensor) the JAX
+    package's scan runs step by step, its carry in the promoted dtype of
+    h0 and x, with ``lstm_cuda.apply_reset`` at the resets.
+    """
+
+    def __init__(self, input_size: int, hidden_size: int, gate_type: int,
+                 gpnn_type: int, sample_enabled: bool = False):
+        super().__init__()
+        if gate_type not in (1, 2, 3, 4):
+            raise _gp_refusal(f"GP gate {gate_type}")
+        if gpnn_type not in (0, 1, 2, 3):
+            raise _gp_refusal(f"GPNN type {gpnn_type}")
+        H = hidden_size
+        self.input_size, self.hidden_size = input_size, H
+        self.gate_type, self.gpnn_type = gate_type, gpnn_type
+        self.weights_ih = nn.Parameter(torch.empty((4 * H, input_size)))
+        self.bias_ih = nn.Parameter(torch.empty((4 * H,)))
+        self.weights_hh = nn.Parameter(torch.empty((4 * H, H)))
+        self.bias_hh = nn.Parameter(torch.empty((4 * H,)))
+        acts = ("sigmoid",) if gate_type == 2 else ("sigmoid", "tanh", "relu")
+        self.gpnn = GPNN(H + input_size, H, acts, gpnn_type, sample_enabled)
+
+    def reset_parameters(self, gen: torch.Generator) -> None:
+        bound = tinit.rnn_bound(self.hidden_size)
+        tinit.uniform_(self.weights_ih, bound, gen)
+        tinit.uniform_(self.weights_hh, bound, gen)
+        with torch.no_grad():
+            self.bias_ih.zero_()
+            self.bias_hh.zero_()
+        self.gpnn.reset_parameters(gen)
+
+    def forward(self, x, hc: Hidden, deterministic: bool = True,
+                step_mask=None, reset_mask=None, reset_src=None,
+                generator: Optional[torch.Generator] = None,
+                noise: Optional[Iterator[torch.Tensor]] = None):
+        """x (T, B, in) -> ys (T, B, H), (hT, cT). ``noise`` hands the GP
+        unit its eps when it samples (see ``GPNN.draw``)."""
+        H, g, n_in = self.hidden_size, self.gate_type, self.input_size
+        dtype = x.dtype
+        T, B, _ = x.shape
+        h0, c0 = hc
+        # the x-only projections over the whole sequence
+        xg = (x.reshape(T * B, -1) @ self.weights_ih.to(dtype).t()
+              + self.bias_ih.to(dtype)).reshape(T, B, 4 * H)
+        w, b, coef = self.gpnn.draw(deterministic, generator, noise)
+        w_h = w[:, n_in:]
+        gpx = x @ w[:, :n_in].t().to(dtype) + b.to(dtype)
+        acts = self.gpnn.act_set
+        if reset_mask is None and gp_lstm_cuda.gpg_kernel_ok(x, H):
+            return gp_lstm_cuda.gpg_layer_fused(
+                xg, gpx, self.weights_hh, self.bias_ih, w_h, coef, h0, c0, g,
+                acts, step_mask)
+        # the scan: operands in the carry's promoted dtype, as JAX promotes
+        pd = torch.promote_types(h0.dtype, dtype)
+        w_hh_t = self.weights_hh.to(dtype).t().to(pd)
+        w_h_t = w_h.to(dtype).t().to(pd)
+        b_ih = self.bias_ih.to(dtype).to(pd)
+        coefs = [coef[a].to(dtype).to(pd) for a in range(len(acts))]
+        h, c = h0, c0
+        ys = []
+        for t in range(T):
+            if reset_mask is not None:
+                h = lstm_cuda.apply_reset(h, reset_mask[t], reset_src)
+                c = lstm_cuda.apply_reset(c, reset_mask[t], reset_src)
+            gi, gf, gg, go = (xg[t] + h @ w_hh_t + b_ih).chunk(4, dim=-1)
+            pre = gpx[t] + h @ w_h_t
+            gp = None
+            for a, name in enumerate(acts):
+                term = ACTS[name](pre) * coefs[a]
+                gp = term if gp is None else gp + term
+            i = gp if g == 1 else torch.sigmoid(gi)
+            f = gp if g == 2 else torch.sigmoid(gf)
+            gg = gp if g == 3 else torch.tanh(gg)
+            o = gp if g == 4 else torch.sigmoid(go)
+            cn = f * c + i * gg
+            hn = o * torch.tanh(cn)
+            if step_mask is not None:
+                keep = step_mask[t].bool()[:, None]
+                hn, cn = torch.where(keep, hn, h), torch.where(keep, cn, c)
+            h, c = hn, cn
+            ys.append(h)
+        return torch.stack(ys), (h, c)
+
+    def kl(self) -> torch.Tensor:
+        return self.gpnn.kl()
+
+
+class StdLSTMLayer(nn.Module):
+    """One standard LSTM layer with its own parameters ``l_w_ih``,
+    ``l_w_hh``, ``l_b_ih``, ``l_b_hh`` (the JAX package's
+    ``_StdLSTMLayer``): ``ops.lstm.lstm_layer`` with the forward-only
+    kernel route allowed when deterministic (rows 3-4), the grad route
+    (rows 5-6) otherwise."""
+
+    def __init__(self, input_size: int, hidden_size: int):
+        super().__init__()
+        G = 4 * hidden_size
+        self.hidden_size = hidden_size
+        for name, shape in (("w_ih", (G, input_size)),
+                            ("w_hh", (G, hidden_size)), ("b_ih", (G,)),
+                            ("b_hh", (G,))):
+            self.register_parameter(f"l_{name}",
+                                    nn.Parameter(torch.empty(shape)))
+
+    def reset_parameters(self, gen: torch.Generator) -> None:
+        for p in self.parameters():
+            tinit.uniform_(p, tinit.rnn_bound(self.hidden_size), gen)
+
+    def forward(self, x, h0, c0, step_mask=None, deterministic: bool = True,
+                reset_mask=None, reset_src=None):
+        p = LSTMParams(self.l_w_ih, self.l_w_hh, self.l_b_ih, self.l_b_hh)
+        return lstm_layer(x, h0, c0, p, step_mask, reset_mask, reset_src,
+                          allow_kernel=deterministic)
+
+
+class GPLSTMCore(nn.Module):
+    """The GP-LSTM stack of the ``l_gauss_pos`` digit string (the JAX
+    package's ``GPLSTMCore``; the reference's ``GPLSTM``, model.py:1609-1681):
+    digit 0 the gate (0: the standard core, ``std_core``), digit 1 the GPNN
+    type; length 2: a GP cell (``cell0``) then a standard layer (``std1``);
+    length 3: a standard layer (``std0``) then a GP cell (``cell1``);
+    length 4: GP cells in both layers, the second's gate digit 2. No
+    inter-layer dropout. ``kl_value`` is the KL that the JAX core sows: the
+    cells' GPNN KLs when the gate digit is > 0 and the type 1-3."""
+
+    def __init__(self, cfg: ModelConfig):
+        super().__init__()
+        s = cfg.l_gauss_pos
+        if not (2 <= len(s) <= 4 and s.isdigit()):
+            raise ValueError(f"l_gauss_pos {s!r}: a string of 2 to 4 digits")
+        H, E, sample = cfg.nhid, cfg.emsize, cfg.gp_sample
+        gate, gtype = int(s[0]), int(s[1])
+        self.kind = "std" if gate == 0 else f"len{len(s)}"
+        self.sows_kl = gate > 0 and 0 < gtype <= 3
+        if self.kind == "std":
+            self.std_core = StandardRNNCore(cfg)
+        elif self.kind == "len2":
+            self.cell0 = GPLSTMCell(E, H, gate, gtype, sample)
+            self.std1 = StdLSTMLayer(H, H)
+        elif self.kind == "len3":
+            self.std0 = StdLSTMLayer(E, H)
+            self.cell1 = GPLSTMCell(H, H, gate, gtype, sample)
+        else:
+            self.cell0 = GPLSTMCell(E, H, gate, gtype, sample)
+            self.cell1 = GPLSTMCell(H, H, int(s[2]), gtype, sample)
+
+    def reset_parameters(self, gen: torch.Generator) -> None:
+        for m in self.children():
+            m.reset_parameters(gen)
+
+    def _cells(self):
+        return [m for m in self.children() if isinstance(m, GPLSTMCell)]
+
+    def forward(self, x, hidden: Hidden, step_mask=None, reset_mask=None,
+                reset_src=None, train: bool = False, dropout_mask=None,
+                generator: Optional[torch.Generator] = None,
+                noise: Optional[Sequence[torch.Tensor]] = None):
+        """``train`` runs the training forward: the GP units sample when
+        ``cfg.gp_sample`` (eps from ``noise``, in the JAX call order, or
+        drawn from ``generator``), the standard layer takes its grad route.
+        ``dropout_mask`` is the standard core's inter-layer mask (the GP
+        kinds have none)."""
+        if self.kind == "std":
+            return self.std_core(x, hidden, step_mask, reset_mask, reset_src,
+                                 train=train, dropout_mask=dropout_mask)
+        if dropout_mask is not None:
+            raise ValueError("the GP-LSTM core has no inter-layer dropout")
+        det = not train
+        draws = None if noise is None else iter(noise)
+        h0, c0 = hidden
+        rkw = dict(reset_mask=reset_mask, reset_src=reset_src)
+        ckw = dict(generator=generator, noise=draws)
+        if self.kind == "len2":
+            out0, (h_a, c_a) = self.cell0(x, (h0[0], c0[0]), det, step_mask,
+                                          **rkw, **ckw)
+            out1, h_b, c_b = self.std1(out0, h0[1], c0[1], step_mask, det,
+                                       **rkw)
+        elif self.kind == "len3":
+            out0, h_a, c_a = self.std0(x, h0[0], c0[0], step_mask, det, **rkw)
+            out1, (h_b, c_b) = self.cell1(out0, (h0[1], c0[1]), det,
+                                          step_mask, **rkw, **ckw)
+        else:
+            out0, (h_a, c_a) = self.cell0(x, (h0[0], c0[0]), det, step_mask,
+                                          **rkw, **ckw)
+            out1, (h_b, c_b) = self.cell1(out0, (h0[1], c0[1]), det,
+                                          step_mask, **rkw, **ckw)
+        if draws is not None and next(draws, None) is not None:
+            raise ValueError("GPLSTMCore: more injected noise tensors than "
+                             "sampled tensors")
+        dt = torch.promote_types(h_a.dtype, h_b.dtype)
+        return out1, (torch.stack([h_a.to(dt), h_b.to(dt)]),
+                      torch.stack([c_a.to(dt), c_b.to(dt)]))
+
+    def kl_value(self, prior_w=None) -> torch.Tensor:
+        """The sum of the cells' GPNN KLs (mean-reduced, with the -1 term)
+        where the JAX core sows them, else zero. The GP units have no
+        prior branch: ``prior_w`` is not read."""
+        kl = torch.zeros((), device=next(self.parameters()).device)
+        if self.sows_kl:
+            for cell in self._cells():
+                kl = kl + cell.kl()
+        return kl
+
+
 class RecurrentLM(nn.Module):
     """Embedding -> recurrent core -> tied decoder (reference RNNModel).
 
@@ -272,18 +504,24 @@ class RecurrentLM(nn.Module):
 
     def __init__(self, cfg: ModelConfig):
         super().__init__()
-        if cfg.uncertainty not in ("none", "Bayesian"):
-            raise NotImplementedError(
-                f"uncertainty={cfg.uncertainty!r} is not ported yet: the GP "
-                "and variational cores are ROADMAP.md queue A item 10")
+        if cfg.uncertainty == "Variational":
+            raise _gp_refusal("uncertainty='Variational'")
+        if cfg.uncertainty == "Gaussian" and cfg.l_gauss_legacy_pos >= 0:
+            raise _gp_refusal(
+                f"the legacy GaussLSTM (l_gauss_legacy_pos="
+                f"{cfg.l_gauss_legacy_pos})")
         if not cfg.tied:
             raise NotImplementedError(
                 "an untied decoder is not ported yet (ROADMAP.md queue A item 3)")
         self.cfg = cfg
         self.embedding = nn.Parameter(torch.empty((cfg.vocab_size, cfg.emsize)))
         self.decoder_b = nn.Parameter(torch.empty((cfg.vocab_size,)))
-        self.core = (BayesLSTMCore(cfg) if cfg.uncertainty == "Bayesian"
-                     else StandardRNNCore(cfg))
+        if cfg.uncertainty == "Bayesian":
+            self.core = BayesLSTMCore(cfg)
+        elif cfg.uncertainty == "Gaussian":
+            self.core = GPLSTMCore(cfg)
+        else:
+            self.core = StandardRNNCore(cfg)
 
     def reset_parameters(self, gen: torch.Generator) -> None:
         tinit.uniform_(self.embedding, tinit.EMBEDDING_BOUND, gen)
@@ -308,13 +546,15 @@ class RecurrentLM(nn.Module):
         LSTM's grad route and, when ``cfg.dropout`` > 0, dropout with
         ``dropout_masks`` or masks drawn from ``generator``. The Bayesian
         core then samples its weights from ``generator``, or takes the
-        injected ``noise`` (see ``BayesLSTMCore``).
+        injected ``noise`` (see ``BayesLSTMCore``); so do the GP units of
+        the GP-LSTM core when ``cfg.gp_sample`` (see ``GPLSTMCore``).
         """
         cfg = self.cfg
         dtype = getattr(torch, cfg.compute_dtype)
         emb = self.embedding[tokens].to(dtype)
         kw = {}
-        if not deterministic and isinstance(self.core, BayesLSTMCore):
+        if not deterministic and isinstance(self.core, (BayesLSTMCore,
+                                                        GPLSTMCore)):
             kw = dict(generator=generator, noise=noise)
         if deterministic or cfg.dropout == 0:
             out, hidden = self.core(emb, hidden, step_mask, reset_mask,

@@ -27,7 +27,8 @@ BUILD_DIR = os.path.join(_PKG, "_build")
 FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC"]
 KERNELS = ("lstm2_fwd", "ce_fwd", "lstm_train", "ce_train", "bayes_sample",
-           "attention_fwd", "bayes_matmul", "attention_train")
+           "attention_fwd", "bayes_matmul", "attention_train", "lstm_fwd",
+           "gp_lstm")
 
 Kernel = Union[str, Tuple[str, Tuple[str, ...]]]  # source, or (source, defines)
 

@@ -1,15 +1,20 @@
 """LSTM recurrences, counterpart of ``bayeslms_tpu/ops/lstm.py``.
 
 Weights keep the torch layout, W (4H, in) applied as x W^T, gate order
-[i, f, g, o]. ``lstm_layer`` is the JAX package's single-layer scan.
-``lstm_stack2`` is the 2-layer recurrence. Its scoring route computes
-layer 1's input projection for the whole sequence as one matrix product
-and hands the recurrence to ``lstm_cuda.lstm2_fwd``; its training route
-(``train=True``) runs two ``lstm_layer_train`` calls with the inter-layer
-dropout mask between them, as the JAX package does when a mask is given.
-``lstm_layer_train`` hands its recurrence to the autograd Function
-``lstm_train_cuda.lstm_scan_fused``. The wrappers launch the CUDA kernels
-for CUDA tensors and run their plain twins for CPU tensors.
+[i, f, g, o]. ``lstm_layer`` is the JAX package's single-layer layer and
+routes as it does: on a CUDA tensor that ``lstm_cuda.lstm_kernel_ok`` admits,
+a forward-only call (``allow_kernel``, JAX's ``allow_pallas``) hands its
+recurrence to ``lstm_cuda.lstm_fwd`` (kernel rows 3-4) and a call without
+resets otherwise to ``lstm_layer_train`` (rows 5-6); where the gate refuses,
+as on a CPU tensor, it runs the JAX package's scan, with the state carried in
+x's dtype. ``lstm_stack2`` is the 2-layer recurrence. Its scoring route
+computes layer 1's input projection for the whole sequence as one matrix
+product and hands the recurrence to ``lstm_cuda.lstm2_fwd``; its training
+route (``train=True``) runs two ``lstm_layer_train`` calls with the
+inter-layer dropout mask between them, as the JAX package does when a mask is
+given. ``lstm_layer_train`` hands its recurrence to the autograd Function
+``lstm_train_cuda.lstm_scan_fused``. The wrappers launch the CUDA kernels for
+CUDA tensors and run their plain twins for CPU tensors.
 """
 
 from __future__ import annotations
@@ -38,15 +43,27 @@ def lstm_layer(
     step_mask: Optional[torch.Tensor] = None,
     reset_mask: Optional[torch.Tensor] = None,
     reset_src: Optional[torch.Tensor] = None,
+    allow_kernel: bool = False,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Single-layer LSTM over (T, B, in) -> ys (T, B, H), hT, cT, with the
-    state carried in x's dtype.
+    """Single-layer LSTM over (T, B, in) -> ys (T, B, H), hT, cT in x's
+    dtype.
 
     ``step_mask`` (T, B) keeps the previous (h, c) on padded steps, so the
     final state is each column's state at its true length. ``reset_mask``
     (T, B) with ``reset_src`` (B,): before step t, columns with a reset
-    take column ``reset_src[b]``'s state (-1: zeros).
+    take column ``reset_src[b]``'s state (-1: zeros). ``allow_kernel``
+    marks a forward-only call (eval, scoring), which may take kernel rows
+    3-4; otherwise a call without resets may take the grad route of rows
+    5-6. Both routes need ``lstm_cuda.lstm_kernel_ok``; the scan, run
+    where it refuses, carries the state in x's dtype.
     """
+    H = p.w_hh.shape[1]
+    if allow_kernel:
+        if lstm_cuda.lstm_kernel_ok(x, H):
+            return lstm_layer_fwd(x, h0, c0, p, step_mask, reset_mask,
+                                  reset_src)
+    elif reset_mask is None and lstm_cuda.lstm_kernel_ok(x, H, train=True):
+        return lstm_layer_train(x, h0, c0, p, step_mask)
     dtype = x.dtype
     w_hh_t = p.w_hh.to(dtype).t()
     b_hh = p.b_hh.to(dtype)
@@ -63,6 +80,31 @@ def lstm_layer(
         h, c = lstm_cuda.cell_update(xg[t] + h @ w_hh_t + b_hh, h, c, keep)
         ys.append(h)
     return torch.stack(ys), h, c
+
+
+def lstm_layer_fwd(
+    x: torch.Tensor,
+    h0: torch.Tensor,
+    c0: torch.Tensor,
+    p: LSTMParams,
+    step_mask: Optional[torch.Tensor] = None,
+    reset_mask: Optional[torch.Tensor] = None,
+    reset_src: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Forward-only single-layer LSTM (the JAX package's
+    ``lstm_layer_pallas``): xg = x W_ih^T + b_ih is one matrix product in
+    x's dtype; the recurrence is ``lstm_cuda.lstm_fwd``'s, with b_hh
+    rounded to x's dtype and handed over in float32, as the TPU kernel
+    takes it."""
+    dtype = x.dtype
+    T, B, _ = x.shape
+    H = p.w_hh.shape[1]
+    xg = (x.reshape(T * B, -1) @ p.w_ih.to(dtype).t()
+          + p.b_ih.to(dtype)).reshape(T, B, 4 * H)
+    return lstm_cuda.lstm_fwd(
+        xg.contiguous(), p.w_hh.to(dtype).contiguous(),
+        p.b_hh.to(dtype).float(), h0.to(dtype), c0.to(dtype), step_mask,
+        reset_mask, reset_src)
 
 
 def lstm_layer_train(

@@ -9,7 +9,9 @@
   utterance start gives every column of the chain the state of the chain's
   column 0, which is the previous utterance's FIRST hypothesis held at its
   true length by the step mask: the reference scorer's carry-over
-  (compute_sentence_scores_bayes_jianwei.py:261-274).
+  (compute_sentence_scores_bayes_jianwei.py:261-274). The GP-LSTM runs
+  here too: its GP cell takes the JAX scan under the resets, its standard
+  layer ``lstm_cuda.lstm_fwd`` with them (kernel row 3).
 - packed-nocarry (``nocarry_allowed``, ``tm_packed_impl``,
   ``score_packed_nocarry``), the Transformer: independent hypotheses
   bin-packed best-fit-decreasing into columns of T steps, positions

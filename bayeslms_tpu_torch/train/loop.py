@@ -4,10 +4,11 @@ scheduler.
 
 Reference behaviours (train.py), as the JAX package keeps them:
 - loss = mean token CE + KL * seq_len / rows of the batchified stream; the
-  standard models have no KL, the Bayesian ones' is the model's
-  ``kl_value`` (the LSTM core's, or the Transformer's dispatch over FFN,
-  MHA and EMB; against N(0, 1), or with ``prior_kl`` against the prior's
-  means where the reference has that branch);
+  standard models have no KL, the Bayesian and GP ones' is the model's
+  ``kl_value`` (the LSTM core's, the GP-LSTM core's GPNN KLs, or the
+  Transformer's dispatch over FFN, MHA and EMB; against N(0, 1), or with
+  ``prior_kl`` against the prior's means where the reference has that
+  branch);
 - the prior / finetune workflow: ``prior`` with ``prior_path`` overwrites
   every parameter that the prior checkpoint (the port's own, a JAX
   ``.ckpt`` or a reference ``model.pt``) holds with the same name and
@@ -27,11 +28,13 @@ Reference behaviours (train.py), as the JAX package keeps them:
 The step runs the model's training forward (LSTM grad route: CUDA kernels
 ``lstm_train_cuda``; the Bayesian core's gate-slice sampler
 ``bayes_sample_cuda``, its seeds drawn on the device from the trainer's
-generator; the Transformer's plain attention and dense layers, and kernel
-row 12 where a ``BayesDense`` has ``use_fused``) and the differentiable
+generator; the GP cell's recurrence ``gp_lstm_cuda``; the Transformer's
+plain attention and dense layers, and kernel row 12 where a ``BayesDense``
+has ``use_fused``) and the differentiable
 fused CE (``ce_train_cuda``) over the model's pre-decoder states, width
 nhid (LSTM) or emsize (Transformer); ``evaluate`` runs the scoring route
-(``lstm_cuda.lstm2_fwd``; for the Transformer a causal forward per window,
+(``lstm_cuda.lstm2_fwd``; for the GP-LSTM ``gp_lstm_cuda`` and
+``lstm_cuda.lstm_fwd``; for the Transformer a causal forward per window,
 its attention through ``attention_cuda``) and the decoder's logits and CE
 as plain PyTorch, as the JAX package leaves them to XLA there. Entry
 points run on the card; ``device="cpu"`` (tests) runs every kernel's
@@ -182,7 +185,10 @@ class Trainer:
         kl = self._kl(model) * kl_scale
         loss = mle + kl
         loss.backward()
-        grads = {k: p.grad for k, p in params.items()}
+        # a parameter the loss does not reach (the GP cell's bias_hh, as
+        # in the reference) has a zero gradient, as in JAX
+        grads = {k: torch.zeros_like(p) if p.grad is None else p.grad
+                 for k, p in params.items()}
         _, gnorm = sgd_momentum_step(params, grads, state.opt_state, state.lr,
                                      self.tcfg.clip, self.tcfg.momentum)
         if new_hidden is not None:

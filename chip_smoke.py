@@ -18,7 +18,19 @@ the same corpus: the gate-slice sampler kernel against its twin on the
 slices a step hands it (bit-equal uniforms, moments, correlations, the
 gradient, planted-fault builds), one epoch of ``Trainer.fit``, a
 kernel-path step against the plain path, and scoring at the posterior
-mean. Then the recipe's Transformer (512/4096 x 6, 8 heads, the same table,
+mean. Then the recipe's GP-LSTM (``l_gauss_pos`` 13: a GP cell replacing
+the input gate, then a standard layer) on the same corpus: the GP
+gate-replacement kernels (forward, backward) against their twins on the
+calls a step and an ``evaluate`` window hand them and for gates 2-4 at a
+short T (planted faults: gpx dropped, and two builds with
+``-DGP_LSTM_FAULT``), the single-layer forward kernel on the ``evaluate``
+window's call (and with a random step mask), one epoch of
+``Trainer.fit``, a kernel-path step against the plain path, and a
+packed-carry pass of the 6,000-hypothesis N-best from that checkpoint: the
+single-layer forward kernel with resets against its twin on the pass's
+call and with -1 sources (planted faults: resets ignored, -1 source not
+zeroed, step mask ignored, W_hh dropped), the pass against the plain path.
+Then the recipe's Transformer (512/4096 x 6, 8 heads, the same table,
 bf16; lr 0.1): the causal attention kernel against its twin on the q, k, v
 that ``evaluate`` hands it and at T = 1,024 and 4,096 (and a planted-fault
 build), the CE training kernels against their twins on the tensors a
@@ -47,7 +59,9 @@ against the plain path (the attention kernel's planted fault must fail
 it), and an on-card check that memories give the suffix of a
 full-context forward. Every phase prints its result and seconds; any
 failure exits non-zero before the result lines. The last two lines are a
-JSON object per kernel (the CE training kernels at the LSTM's D = 1,024,
+JSON object per kernel (the single-layer forward kernel twice, as the TPU
+kernels it replaces with resets and without; the CE training kernels at
+the LSTM's D = 1,024,
 the Transformer's 512 and the long step's M = 32,768; the scoring CE at
 both widths) and the device line.
 """
@@ -309,7 +323,10 @@ def compare_steps(torch, trainer, data, target, kl_scale, masks, plain,
         trainer.gen.manual_seed(11)
         _, loss, _, kl, gnorm = trainer.train_step(
             st, hidden(), data, target, kl_scale, dropout_masks=masks)
-        grads = {k: p.grad.clone() for k, p in st.params.items()}
+        # a parameter the loss does not reach (the GP cell's bias_hh) has
+        # no gradient: zero, as the trainer's step takes it
+        grads = {k: torch.zeros_like(p) if p.grad is None else p.grad.clone()
+                 for k, p in st.params.items()}
         return float(loss), float(kl), float(gnorm), grads
 
     k_loss, k_kl, k_gn, k_grads = one_step()
@@ -2111,6 +2128,455 @@ def tm_xl_phase(torch, kernels, smi, cfg, rcfg, ckpt):
                                  "full-context suffix")
 
 
+# ---------------------------------------------------------------- GP-LSTM
+# The recipe's GP-LSTM (recipes/run_nnlm_ami_lstm.sh:22-24,44-47:
+# --uncertainty Gaussian --L_gauss_pos 13: a GP cell replacing the input
+# gate, GPNN type 3, then a standard layer; GP sampling off as the
+# reference ships) at the bench's width on the training phases' corpus.
+# Rows 20-21 carry the GP cell's training and evaluation, rows 5-6 the
+# standard layer's training, row 4 its evaluation and row 3 its packed-carry
+# scoring (where the GP cell runs the JAX scan, as JAX does under resets).
+GP_POS = "13"
+GP_SHORT_T = 10  # gates 2-4 are checked at this T on the step's tensors
+GP_TOL = {"gpg_fwd": TRAIN_TOL["lstm_train_fwd"],
+          "gpg_bwd": TRAIN_TOL["lstm_train_bwd"],
+          # rows 3-4: bf16 outputs of a T-step recurrence, as row 5's
+          "lstm_fwd": TRAIN_TOL["lstm_train_fwd"],
+          "lstm_fwd_reset": TRAIN_TOL["lstm_train_fwd"]}
+# Planted faults of row 21 that no input can make, built from
+# csrc/gp_lstm.cu with a define (see its header).
+GP_FAULTS = {
+    "replaced gate's slice of du5 not zeroed":
+        ("gp_lstm", ("-DGP_LSTM_FAULT=1",)),
+    "dcoef dropped": ("gp_lstm", ("-DGP_LSTM_FAULT=2",)),
+}
+# GP scores (kernel path against plain path, from the fit's checkpoint):
+# the random-init tolerance plus the trained model's relative one.
+GP_SCORE_ATOL, GP_SCORE_RTOL = SCORE_ATOL, TRAINED_SCORE_RTOL
+
+
+def with_arg(args, i, value):
+    a = list(args)
+    a[i] = value
+    return a
+
+
+def check_kernel_calls(torch, kernels, name, spec, calls):
+    """``name`` (spec: module, wrapper (default ``name``), plain, outs,
+    source, replaces, faults, flops(args), nbytes(args), library: a
+    factory that makes the library call on the args, or the reason there
+    is none) against its twin on every call of
+    ``calls`` within GP_TOL, each planted fault on the calls it applies to
+    (an input fault returns None where it does not) by FAULT_MARGIN or
+    more; times it on the first call and adds it to ``kernels``. Raises on
+    any failed check."""
+    from bayeslms_tpu_torch.ops import _build
+
+    real_load = _build.load
+    module = spec["module"]
+    rtol, share = GP_TOL[name]
+    with phase(f"kernel {name}"), torch.no_grad():
+        kernel = getattr(module, spec.get("wrapper", name))
+        print(f"  tolerance |kernel - plain| <= {rtol:.3e} |plain| + "
+              f"{share:.3e} max|plain|, elementwise; {len(calls)} call(s)")
+        err, worst = 0.0, 0.0
+        faults = {f: float("inf") for f in spec["faults"]}
+        for tag, args in calls:
+            print(f"  call {tag}: first operand {tuple(args[0].shape)} "
+                  f"{args[0].dtype}")
+            ref = dict(zip(spec["outs"], spec["plain"](*args)))
+            got = dict(zip(spec["outs"], kernel(*args)))
+            torch.cuda.synchronize()
+            e, q = check_outputs(name, got, ref, rtol, share)
+            err, worst = max(err, e), max(worst, q)
+            for fault, how in spec["faults"].items():
+                if callable(how):
+                    bad_args = how(args)
+                    if bad_args is None:
+                        continue
+                    bad = kernel(*bad_args)
+                else:
+                    with mock.patch.object(_build, "load",
+                                           lambda k, v=how: real_load(v)):
+                        bad = kernel(*args)
+                faults[fault] = min(faults[fault], fault_share(
+                    dict(zip(spec["outs"], bad)), ref, rtol, share))
+            del ref, got
+        for fault, q in faults.items():
+            print(f"  planted fault '{fault}': worst share of tolerance "
+                  f"{q:.1f}")
+        args = calls[0][1]
+        ms = cuda_ms(torch, lambda: kernel(*args), 5)
+        plain_ms = cuda_ms(torch, lambda: spec["plain"](*args), 3)
+        library = spec["library"]
+        library_ms = None if isinstance(library, str) \
+            else cuda_ms(torch, library(args), 5)
+        bms, bby = bound_ms(spec["flops"](args), spec["nbytes"](args))
+        lib = library if isinstance(library, str) else f"{library_ms:.3f} ms"
+        print(f"  kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound "
+              f"{bms:.3f} ms ({bby}) at {calls[0][0]}; library: {lib}")
+        kernels[name] = dict(
+            name=name, route="cuda",
+            source=f"bayeslms_tpu_torch/csrc/{spec['source']}",
+            replaces=spec["replaces"], max_abs_err=err, ms=ms,
+            plain_ms=plain_ms, bound_ms=bms, bound_by=bby,
+            library_ms=library_ms)
+        failed = []
+        if worst > 1:
+            failed.append(f"{name} disagrees with its plain version: worst "
+                          f"share {worst:.3f}")
+        failed += [f"{name}: planted fault '{f}' exceeds the tolerance only "
+                   f"{q:.1f}x" for f, q in faults.items()
+                   if not q >= FAULT_MARGIN]
+        if failed:
+            raise AssertionError("; ".join(failed))
+
+
+def lstm_fwd_specs(torch, lc):
+    """Check specs of rows 3 (resets) and 4: twin, outputs, planted faults
+    made by changing the inputs, operations and bytes, the library call."""
+    def cost(args):
+        xg = args[0]
+        T, B, G = xg.shape
+        H = G // 4
+        flops = 2 * T * B * H * G
+        # xg, W_hh, b_hh, h0 and c0, ys, hT and cT; the mask and the resets
+        # as the kernel reads them: bytes, and int32 sources
+        nbytes = (T * B * G * 2 + G * H * 2 + G * 4 + 4 * B * H * 2
+                  + T * B * H * 2 + sum(T * B for a in args[5:7]
+                                        if a is not None)
+                  + (0 if args[7] is None else B * 4))
+        return flops, nbytes
+
+    def cudnn(args):
+        # yardstick only: torch.nn.LSTM forward (cuDNN), one layer, bf16,
+        # on an input of x's width (it computes x W_ih^T too)
+        T, B, G = args[0].shape
+        lstm = torch.nn.LSTM(G // 4, G // 4, device="cuda",
+                             dtype=torch.bfloat16)
+        x = torch.randn((T, B, G // 4), device="cuda", dtype=torch.bfloat16)
+        return lambda: lstm(x)
+
+    faults = {
+        "W_hh product dropped":
+            lambda a: with_arg(a, 1, torch.zeros_like(a[1])),
+        "step mask ignored": lambda a: None if a[5] is None else with_arg(
+            a, 5, torch.ones_like(a[5])),
+    }
+    reset_faults = {
+        **faults,
+        "resets ignored": lambda a: with_arg(a, 6, torch.zeros_like(a[6])),
+        # a kernel that gathered column 0 for a -1 source
+        "-1 source not zeroed": lambda a: None if not bool(
+            (a[7] < 0).any()) else with_arg(a, 7, a[7].clamp(min=0)),
+    }
+    base = dict(module=lc, wrapper="lstm_fwd", plain=lc.lstm_fwd_plain,
+                outs=("ys", "hT", "cT"),
+                source="lstm_fwd.cu",
+                flops=lambda a: cost(a)[0], nbytes=lambda a: cost(a)[1])
+    return {
+        "lstm_fwd_reset": dict(
+            base, replaces="bayeslms_tpu/ops/lstm_pallas.py:186",
+            faults=reset_faults,
+            library="none: no single PyTorch call computes an LSTM whose "
+                    "columns take another column's state mid-sequence"),
+        "lstm_fwd": dict(
+            base, replaces="bayeslms_tpu/ops/lstm_pallas.py:228",
+            faults=faults, library=cudnn),
+    }
+
+
+def gpg_specs(torch, gpc):
+    """Check specs of rows 20-21."""
+    def sizes(args):
+        xg = args[0]
+        T, B, G = xg.shape
+        H = G // 4
+        rest = sum(a.numel() * a.element_size() for a in args[1:]
+                   if isinstance(a, torch.Tensor))
+        return T, B, H, T * B * G * 2 + rest
+
+    def fwd_cost(args):
+        T, B, H, n_in = sizes(args)
+        return 2 * T * B * H * 5 * H, n_in + 2 * T * B * H * 2 + 2 * B * H * 2
+
+    def bwd_cost(args):
+        T, B, H, n_in = sizes(args)
+        k = args[4].shape[0]
+        return (4 * T * B * H * 5 * H,
+                n_in + T * B * 5 * H * 2 + k * H * 4 + 2 * B * H * 2)
+
+    none = ("none: no single PyTorch call computes an LSTM with a gate "
+            "replaced by a GP unit")
+    return {
+        "gpg_fwd": dict(
+            module=gpc, plain=gpc.gpg_fwd_plain, outs=("ys", "cs", "hT", "cT"),
+            source="gp_lstm.cu",
+            replaces="bayeslms_tpu/ops/gp_lstm_pallas.py:510",
+            faults={"gpx dropped":
+                    lambda a: with_arg(a, 1, torch.zeros_like(a[1]))},
+            flops=lambda a: fwd_cost(a)[0], nbytes=lambda a: fwd_cost(a)[1],
+            library=none),
+        "gpg_bwd": dict(
+            module=gpc, plain=gpc.gpg_bwd_plain,
+            outs=("du5", "dcoef", "dh0", "dc0"), source="gp_lstm.cu",
+            replaces="bayeslms_tpu/ops/gp_lstm_pallas.py:552",
+            faults=dict(GP_FAULTS),
+            flops=lambda a: bwd_cost(a)[0], nbytes=lambda a: bwd_cost(a)[1],
+            library=none),
+    }
+
+
+def gp_gate_calls(torch, gpc, fwd_args, bwd_args):
+    """Rows 20-21's calls for gates 2-4 at GP_SHORT_T on the step's tensors
+    (gate 2 with the first coef row alone: its act set is sigmoid); the
+    backward's ys and cs from the twin's forward, dy the step's."""
+    T = GP_SHORT_T
+    fwd, bwd = [], []
+    for gate in (2, 3, 4):
+        xg, gpx, w5, bih, coef, mask, h0, c0, _ = fwd_args
+        a = [xg[:T].contiguous(), gpx[:T].contiguous(), w5, bih,
+             coef[:1].contiguous() if gate == 2 else coef, mask, h0, c0,
+             gate]
+        ys, cs, _, _ = gpc.gpg_fwd_plain(*a)
+        dy = bwd_args[10][:T].contiguous()
+        dhT = torch.zeros_like(h0)
+        fwd.append((f"gate {gate}, T={T}", a))
+        bwd.append((f"gate {gate}, T={T}",
+                    [*a[:8], ys, cs, dy, dhT, dhT.clone(), gate]))
+    return fwd, bwd
+
+
+def gp_phases(torch, kernels, smi, cfg, rcfg, corpus, tmpdir):
+    """The GP-LSTM's training and scoring on the training phases' corpus;
+    adds rows 3, 4, 20 and 21 to ``kernels``. Raises on any failed
+    check."""
+    import dataclasses
+    from bayeslms_tpu_torch import TrainConfig
+    from bayeslms_tpu_torch.core.checkpoint import load_checkpoint
+    from bayeslms_tpu_torch.data.corpus import batchify
+    from bayeslms_tpu_torch.models.lstm_lm import (draw_dropout_masks,
+                                                   init_hidden)
+    from bayeslms_tpu_torch.ops import ce_cuda
+    from bayeslms_tpu_torch.ops import ce_train_cuda as ctc
+    from bayeslms_tpu_torch.ops import gp_lstm_cuda as gpc
+    from bayeslms_tpu_torch.ops import lstm_cuda as lc
+    from bayeslms_tpu_torch.ops import lstm_train_cuda as ltc
+    from bayeslms_tpu_torch.rescore.scorer import BatchScorer
+    from bayeslms_tpu_torch.train.loop import Trainer
+
+    gcfg = dataclasses.replace(cfg, uncertainty="Gaussian",
+                               l_gauss_pos=GP_POS)
+    B, T = TRAIN_BATCH, TRAIN_SEQ
+    save = os.path.join(tmpdir, "gp.ckpt")
+    kl_scale = T / batchify(corpus.train, B).shape[0]
+    data = torch.from_numpy(corpus.train[:T * B].reshape(B, T).T.copy()
+                            ).long().cuda()
+    target = torch.from_numpy(corpus.train[1:T * B + 1].reshape(B, T).T
+                              .copy()).long().cuda()
+    gp_lstm = ("gpg_fwd", "gpg_bwd")
+
+    with phase("gp setup"):
+        tcfg = TrainConfig(lr=5.0, momentum=0.9, clip=1.0, batch_size=B,
+                           seq_len=T, eval_batch_size=EVAL_BATCH, epochs=1,
+                           log_interval=10, save=save)
+        trainer = Trainer(gcfg, tcfg)
+        state = trainer.init_state()
+        n_par = sum(p.numel() for p in state.params.values())
+        print(f"  GP-LSTM l_gauss_pos {GP_POS} (gate 1, GPNN type 3) "
+              f"{gcfg.emsize}/{gcfg.nhid}, V = {gcfg.vocab_size}, "
+              f"{gcfg.compute_dtype}: {n_par} parameters; lr 5, batch {B}, "
+              f"seq_len {T}")
+        recorded = {}
+        gen_state = trainer.gen.get_state()
+        with contextlib.ExitStack() as stack:
+            for p in recording(gpc, gp_lstm, recorded):
+                stack.enter_context(p)
+            trainer.train_step(state, init_hidden(2, B, gcfg.nhid,
+                                                  device="cuda"),
+                               data, target, kl_scale)
+        trainer.gen.set_state(gen_state)
+        step_calls = {k: list(v) for k, v in recorded.items()}
+        recorded = {}
+        rows = batchify(corpus.valid, EVAL_BATCH)[:T + 1]
+        with contextlib.ExitStack() as stack:
+            for p in recording(gpc, ("gpg_fwd",), recorded) + recording(
+                    lc, ("lstm_fwd",), recorded):
+                stack.enter_context(p)
+            trainer.evaluate(state.model, rows)
+        torch.cuda.synchronize()
+        print(f"  one step: {len(step_calls.get('gpg_fwd', []))} gpg_fwd, "
+              f"{len(step_calls.get('gpg_bwd', []))} gpg_bwd calls; one "
+              f"evaluate window: {len(recorded.get('gpg_fwd', []))} gpg_fwd, "
+              f"{len(recorded.get('lstm_fwd', []))} lstm_fwd calls")
+        if [len(step_calls.get(k, [])) for k in gp_lstm] != [1, 1] or \
+                [len(recorded.get(k, [])) for k in ("gpg_fwd", "lstm_fwd")] \
+                != [1, 1]:
+            raise AssertionError("the GP step or evaluate window did not "
+                                 "take rows 20-21 and row 4 once each")
+        del state
+
+    specs = gpg_specs(torch, gpc)
+    fwd_step, bwd_step = step_calls["gpg_fwd"][0], step_calls["gpg_bwd"][0]
+    short_fwd, short_bwd = gp_gate_calls(torch, gpc, fwd_step, bwd_step)
+    check_kernel_calls(torch, kernels, "gpg_fwd", specs["gpg_fwd"], [
+        ("gate 1, one step", fwd_step),
+        ("gate 1, one evaluate window", recorded["gpg_fwd"][0]), *short_fwd])
+    check_kernel_calls(torch, kernels, "gpg_bwd", specs["gpg_bwd"], [
+        ("gate 1, one step", bwd_step), *short_bwd])
+    lspecs = lstm_fwd_specs(torch, lc)
+    eval_call = recorded["lstm_fwd"][0]
+    # the evaluate call has no step mask: a masked copy shows the mask
+    # fault too
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    masked = with_arg(eval_call, 5, (torch.rand(
+        eval_call[0].shape[:2], generator=gen, device="cuda") < 0.8).to(
+            torch.uint8))
+    check_kernel_calls(torch, kernels, "lstm_fwd", lspecs["lstm_fwd"], [
+        ("one evaluate window", eval_call),
+        ("that window with a random step mask", masked)])
+    del step_calls, recorded, short_fwd, short_bwd
+
+    with phase("gp train"):
+        for module in (ltc, ctc, gpc):
+            for k in module.launches:
+                module.launches[k] = 0
+        for k in lc.layer_launches:
+            lc.layer_launches[k] = 0
+        steps, kls = [], []
+        step = trainer.train_step
+
+        def counted_step(*a, **kw):
+            out = step(*a, **kw)
+            kls.append(out[3])
+            return out
+
+        def on_step(b, loss):
+            torch.cuda.synchronize()
+            steps.append((time.perf_counter(), float(loss)))
+
+        trainer.train_step = counted_step
+        t0 = time.perf_counter()
+        state, out = trainer.fit(corpus, log=lambda line: print("  " + line),
+                                 on_step=on_step)
+        fit_s = time.perf_counter() - t0
+        trainer.train_step = step
+        n = len(steps)
+        launches = {**ltc.launches, **ctc.launches, **gpc.launches,
+                    **lc.layer_launches}
+        print(f"  kernel launches in fit ({n} steps and the evaluations): "
+              f"{launches}")
+        losses = [l for _, l in steps]
+        kl = [float(k) for k in kls]
+        print("  loss per step: " + " ".join(f"{l:.4f}" for l in losses))
+        print(f"  KL term (KL x seq_len / rows = x {kl_scale:.5f}) per step: "
+              + " ".join(f"{k:.6f}" for k in kl))
+        print(f"  validation loss {out['history'][0]['val_loss']:.4f}; test "
+              f"loss {out['test_loss']:.4f}")
+        dts = np.diff([t for t, _ in steps])[2:]
+        step_ms = 1e3 * float(np.median(dts))
+        print(f"  step median {step_ms:.3f} ms over {len(dts)} warm steps, "
+              f"{T * B / step_ms * 1e3:.1f} tokens/s; fit {fit_s:.1f} s on "
+              f"{smi}")
+        per_step = {"lstm_train_fwd": 1, "lstm_train_bwd": 1, "gpg_bwd": 1,
+                    "ce_train_fwd": 1, "ce_train_dh": 1, "ce_train_de": 1}
+        for name, k in per_step.items():
+            if launches[name] != k * n:
+                raise AssertionError(f"{name}: {launches[name]} launches in "
+                                     f"{n} steps, {k} a step expected")
+        n_eval = launches["gpg_fwd"] - n
+        print(f"  evaluate: gpg_fwd {n_eval}, lstm_fwd "
+              f"{launches['lstm_fwd']} launches")
+        if n_eval <= 0 or launches["lstm_fwd"] != n_eval:
+            raise AssertionError("evaluate did not take rows 20 and 4 on "
+                                 "every window")
+        for name in ("gpg_fwd", "gpg_bwd", "lstm_fwd"):
+            kernels[name]["launches"] = launches[name]
+        if not all(np.isfinite(losses)) or not np.isfinite(out["test_loss"]):
+            raise AssertionError("a training loss is not finite")
+        if not all(np.isfinite(k) and k > 0 for k in kl):
+            raise AssertionError(f"the KL term is not finite and > 0: {kl}")
+        if np.mean(losses[-5:]) >= np.mean(losses[:5]):
+            raise AssertionError(
+                f"the loss did not fall: first 5 {np.mean(losses[:5]):.4f}, "
+                f"last 5 {np.mean(losses[-5:]):.4f}")
+        del state
+
+    with phase("gp train step against plain versions"):
+        gen = torch.Generator(device="cuda").manual_seed(3)
+        compare_steps(
+            torch, trainer, data, target, kl_scale,
+            draw_dropout_masks(gcfg, T, B, gen, "cuda"),
+            [mock.patch.object(m, n, getattr(m, n + "_plain"))
+             for m, n in ((ltc, "lstm_train_fwd"), (ltc, "lstm_train_bwd"),
+                          *((ctc, n) for n in CE_TRAIN),
+                          *((gpc, n) for n in gp_lstm))],
+            loss_atol=STEP_LOSS_ATOL,
+            hidden=lambda: init_hidden(2, B, gcfg.nhid, device="cuda"))
+
+    with phase("gp score setup"):
+        params, meta = load_checkpoint(save)
+        print(f"  checkpoint of epoch {meta['epoch']}, val loss "
+              f"{meta['val_loss']:.4f}")
+        scorer = BatchScorer(gcfg, params, rcfg)
+        nbest = make_synthetic_nbest(n_meetings=30,
+                                     vocab_words=cfg.vocab_size - 2)
+        w2i = corpus.vocab.word2idx
+        recorded = {}
+        with recording(lc, ("lstm_fwd",), recorded)[0]:
+            scorer.score_nbest(nbest, w2i, stream_fn=stream_of)
+        torch.cuda.synchronize()
+        calls = recorded["lstm_fwd"]
+        print(f"  one packed-carry pass: {len(calls)} lstm_fwd call(s) of "
+              f"{tuple(calls[0][0].shape)}, resets "
+              f"{int((calls[0][6] != 0).sum())}")
+
+    # the pass's call, and a copy whose every third chain restarts from a
+    # zero state (source -1), as a chain's first utterance would
+    a = calls[0]
+    src = a[7].clone()
+    N = max(len(h) for h in nbest.values())
+    src[(torch.arange(src.numel(), device=src.device) // N) % 3 == 1] = -1
+    check_kernel_calls(torch, kernels, "lstm_fwd_reset",
+                       lspecs["lstm_fwd_reset"], [
+                           ("one packed-carry pass", a),
+                           ("that pass with -1 sources", with_arg(a, 7, src))])
+    del recorded, calls, a
+
+    with phase("gp score"):
+        lc.layer_launches["lstm_fwd_reset"] = 0
+        ce_cuda.launches = 0
+        t0 = time.perf_counter()
+        res = scorer.score_nbest(nbest, w2i, stream_fn=stream_of)
+        torch.cuda.synchronize()
+        pass_s = time.perf_counter() - t0
+        n_row3, n_row2 = lc.layer_launches["lstm_fwd_reset"], ce_cuda.launches
+        print(f"  kernel launches in a pass: lstm_fwd_reset {n_row3}, ce_fwd "
+              f"{n_row2}; the GP cell runs the scan under resets, as in JAX")
+        kernels["lstm_fwd_reset"]["launches"] = n_row3
+        if n_row3 == 0 or n_row2 == 0:
+            raise AssertionError("GP scoring did not run rows 3 and 2")
+        got = np.array([s for pairs in res.values() for _, s in pairs])
+        with mock.patch.object(lc, "lstm_fwd", lc.lstm_fwd_plain), \
+                mock.patch.object(ce_cuda, "fused_decode_ce", ce_cuda.ce_plain):
+            ref = np.array([s for pairs in scorer.score_nbest(
+                nbest, w2i, stream_fn=stream_of).values() for _, s in pairs])
+        n_hyps = sum(len(h) for h in nbest.values())
+        diff = np.abs(got - ref)
+        share = float((diff / (GP_SCORE_ATOL + GP_SCORE_RTOL
+                               * np.abs(ref))).max())
+        print(f"  {n_hyps} hypotheses in {pass_s:.3f} s ({n_hyps / pass_s:.1f}"
+              f" hyps/s) on {smi}; scores mean {got.mean():.3f}, max "
+              f"{np.abs(ref).max():.3f}; max |kernel - plain| "
+              f"{float(diff.max()):.4e}, relative "
+              f"{float((diff / np.abs(ref)).max()):.3e}; worst share of "
+              f"{GP_SCORE_ATOL:.0e} + {GP_SCORE_RTOL:.0e} |plain|: "
+              f"{share:.3f}")
+        if got.shape != (n_hyps,) or not np.all(np.isfinite(got)) \
+                or share > 1:
+            raise AssertionError("GP scoring failed")
+
+
 def ce_fwd_check(torch, kernels, args, tag="", atol=CE_ATOL):
     """Row 2 (the scoring CE) on the call the main path handed it:
     against its twin within ``atol``, at a ragged vocabulary edge too, a
@@ -2246,7 +2712,8 @@ def main():
         for name, path in _build.build([*_build.KERNELS,
                                         *SAMPLER_FAULTS.values(),
                                         ATTN_FAULT, BMM_FAULT,
-                                        *ATTN_TRAIN_FAULTS.values()]).items():
+                                        *ATTN_TRAIN_FAULTS.values(),
+                                        *GP_FAULTS.values()]).items():
             print(f"  {name}: {path}")
         print(f"  build seconds {time.perf_counter() - t0:.1f}")
 
@@ -2382,6 +2849,7 @@ def main():
 
     corpus, tmp = train_phases(torch, kernels, smi, cfg, rcfg)
     bayes_phases(torch, kernels, smi, cfg, rcfg, corpus, tmp.name)
+    gp_phases(torch, kernels, smi, cfg, rcfg, corpus, tmp.name)
     tm_phases(torch, kernels, smi, cfg, rcfg, corpus, tmp.name)
     ckpt = tm_long_phases(torch, kernels, smi, cfg, tmp.name)
     tm_xl_phase(torch, kernels, smi, cfg, rcfg, ckpt)

@@ -104,6 +104,75 @@ def test_import_maps_every_rnn_name_as_jax():
             jck.import_torch_state_dict(sd, jx.ModelConfig(**kw)))
 
 
+def _gp_cfg(pkg):
+    """The campaign's GP-LSTMs: 128/128 x 2, L_gauss_pos 13, V = 10,000."""
+    return pkg.ModelConfig(model="LSTM", vocab_size=10000, emsize=128,
+                           nhid=128, nlayers=2, dropout=0.2,
+                           uncertainty="Gaussian", l_gauss_pos="13")
+
+
+@pytest.mark.parametrize("name", ["torch_lstm_gp12", "torch_lstm_gp_nf2222"])
+def test_import_of_the_reference_gp_checkpoints_matches_jax(name):
+    """The reference's GPLSTM names (``rnn.rnn.0.{weights,bias}_{ih,hh}``,
+    ``rnn.rnn.0.gpnn.*``, ``rnn.rnn.1.*_l0``) map onto the JAX package's
+    tree, which the port's GP model takes whole."""
+    path = os.path.join(CAMPAIGN, name, "model.pt")
+    got = tck.load_torch_checkpoint(path, _gp_cfg(bt))
+    _assert_trees_equal(got, jck.load_torch_checkpoint(path, _gp_cfg(jx)))
+    _assert_trees_equal(tck.load_params(path, _gp_cfg(bt)), got)
+    tck.params_from_jax(bt.build_model(_gp_cfg(bt)), got)
+
+
+def test_import_maps_every_stack_name_as_jax():
+    """Synthetic state_dict of the GP and variational stacks, the legacy
+    GaussLSTM's bare GP unit and the legacy VLSTM's tables, under both
+    uncertainties that read them."""
+    rng = np.random.default_rng(1)
+    sd = {k: rng.normal(size=s).astype(np.float32) for k, s in (
+        ("rnn.rnn.0.weights_ih", (16, 4)), ("rnn.rnn.0.bias_hh", (16,)),
+        ("rnn.rnn.0.gpnn.weights_mean", (4, 8)),
+        ("rnn.rnn.0.gpnn.coef_lgstd", (3, 4)),
+        ("rnn.rnn.1.gpnn.coef.weight", (4, 6)),
+        ("rnn.rnn.1.gpnn.coef.bias", (4,)),
+        ("rnn.rnn.1.weight_hh_l0", (16, 4)), ("rnn.rnn.1.bias_ih_l0", (16,)),
+        ("rnn.rnn.1.vnn.hidden_lgstd", (4,)), ("rnn.rnn.1.other", (2,)),
+        ("rnn.gpnn.bias_mean", (4,)), ("rnn.hiddens_mean_p", (5, 4)),
+        ("rnn.hiddens_lgstd", (5, 4)))}
+    for unc in ("Gaussian", "Variational"):
+        kw = dict(model="LSTM", vocab_size=7, emsize=4, nhid=4,
+                  uncertainty=unc)
+        _assert_trees_equal(
+            tck.import_torch_state_dict(sd, bt.ModelConfig(**kw)),
+            jck.import_torch_state_dict(sd, jx.ModelConfig(**kw)))
+
+
+def test_first_validation_windows_of_the_gp_checkpoint_match_jax():
+    """torch_lstm_gp12 (reference, L_gauss_pos 13): the CE of the first
+    validation windows, carried state, through the port and through the
+    JAX package's import of the same file; rtol 2e-4."""
+    path = os.path.join(CAMPAIGN, "torch_lstm_gp12", "model.pt")
+    rows = batchify(Corpus(CORPUS).valid, EVAL_BATCH)[:201]
+    jcfg = _gp_cfg(jx)
+    jmodel = jx.build_model(jcfg)
+    jparams, _ = jck.partial_update(jx.init_params(jmodel, jcfg),
+                                    jck.load_torch_checkpoint(path, jcfg))
+    model = tck.params_from_jax(bt.build_model(_gp_cfg(bt)),
+                                tck.load_torch_checkpoint(path, _gp_cfg(bt)))
+    jh = j_init_hidden(2, EVAL_BATCH, 128)
+    th = (torch.zeros(2, EVAL_BATCH, 128), torch.zeros(2, EVAL_BATCH, 128))
+    for d, t in _eval_windows(rows, 2):
+        jlogits, jh = jmodel.apply({"params": jparams}, jnp.asarray(d), jh,
+                                   deterministic=True)
+        ref = float(jnp.mean(jax.nn.logsumexp(jlogits, -1) - jnp.take_along_axis(
+            jlogits, jnp.asarray(t)[..., None], -1)[..., 0]))
+        with torch.no_grad():
+            logits, th = model(torch.from_numpy(d).long(), th)
+        got = float(torch.nn.functional.cross_entropy(
+            logits.reshape(-1, 10000), torch.from_numpy(t).long().reshape(-1)))
+        np.testing.assert_allclose(got, ref, rtol=2e-4)
+        assert 3.0 < got < 6.0
+
+
 def test_import_maps_every_transformer_name_as_jax():
     """Synthetic state_dict: every name of the Transformer table (torch
     TransformerEncoder's ``layers.N.`` prefix and the reference's
@@ -347,3 +416,23 @@ def test_reference_tm_bayesft_meets_its_test_ppl_at_the_posterior_mean():
                      _tm_cfg(bt), "test")
     _meets_log(loss, 121.51)
     assert round(loss, 2) == 4.80
+
+
+@pytest.mark.slow
+def test_reference_gp12_meets_its_test_ppl():
+    """torch_lstm_gp12 (the reference's GP-LSTM, L_gauss_pos 13, GP sampling
+    off as it ships), train.log end of training: test loss 4.42, test ppl
+    83.12 (ln 4.42029 +- 6.0e-5), at eval batch 20."""
+    loss = _evaluate(os.path.join(CAMPAIGN, "torch_lstm_gp12", "model.pt"),
+                     _gp_cfg(bt), "test")
+    _meets_log(loss, 83.12)
+
+
+@pytest.mark.slow
+def test_reference_gp_nf2222_meets_its_test_ppl():
+    """torch_lstm_gp_nf2222 (the same GP-LSTM, another seed), train.log end
+    of training: test loss 4.53, test ppl 93.12 (ln 4.53389 +- 5.4e-5), at
+    eval batch 20."""
+    loss = _evaluate(os.path.join(CAMPAIGN, "torch_lstm_gp_nf2222",
+                                  "model.pt"), _gp_cfg(bt), "test")
+    _meets_log(loss, 93.12)

@@ -72,7 +72,7 @@ def test_init_params_tree_and_laws():
     dict(nlayers=1),
     dict(nlayers=3),
     dict(model="Transformer", uncertainty="Gaussian"),
-    dict(uncertainty="Gaussian"),
+    dict(uncertainty="Gaussian", l_gauss_pos="63"),
     dict(tied=False),
 ])
 def test_unported_models_raise(extra):

@@ -344,3 +344,99 @@ def test_attention_train_refuses_what_the_kernels_do_not_take(dev):
                            x, x, 2, 0.1, seed)
     with pytest.raises(ValueError):
         atc.attn_train_fwd(x.half(), x.half(), x.half(), 2, 0.1, seed)
+
+
+@pytest.mark.parametrize("masked,reset", [(False, False), (True, False),
+                                          (True, True)])
+def test_lstm_fwd_kernel_matches_plain(dev, masked, reset):
+    """Rows 3-4: one layer, B off the 64-column tile, -1 reset sources."""
+    from bayeslms_tpu_torch.ops import lstm_cuda as lc
+
+    g = torch.Generator().manual_seed(1)
+    T, B, H = 11, 70, 64
+    r = lambda *s, sc=1.0: ((torch.rand(s, generator=g) * 2 - 1) * sc)  # noqa: E731
+    bf = torch.bfloat16
+    args = [r(T, B, 4 * H).to(dev, bf), r(4 * H, H, sc=0.125).to(dev, bf),
+            r(4 * H, sc=0.1).to(dev), r(B, H, sc=0.5).to(dev, bf),
+            r(B, H, sc=0.5).to(dev, bf)]
+    mask = reset_mask = src = None
+    if masked:
+        mask = (torch.rand((T, B), generator=g) < 0.8).to(dev, torch.uint8)
+    if reset:
+        reset_mask = (torch.rand((T, B), generator=g) < 0.2).to(dev,
+                                                                torch.uint8)
+        src = ((torch.arange(B) // 10) * 10).to(torch.int32)
+        src[::9] = -1
+        src = src.to(dev)
+    key = "lstm_fwd_reset" if reset else "lstm_fwd"
+    before = lc.layer_launches[key]
+    got = lc.lstm_fwd(*args, mask, reset_mask, src)
+    ref = lc.lstm_fwd_plain(*args, mask, reset_mask, src)
+    assert lc.layer_launches[key] == before + 1
+    for a, b in zip(got, ref):
+        assert a.dtype == torch.bfloat16
+        torch.testing.assert_close(a.float(), b.float(), rtol=0, atol=2 ** -6)
+
+
+def _gpg_args(dev, T, B, H, gate, masked, seed=0):
+    g = torch.Generator().manual_seed(seed)
+    r = lambda *s, sc=1.0: ((torch.rand(s, generator=g) * 2 - 1) * sc)  # noqa: E731
+    bf = torch.bfloat16
+    k = 1 if gate == 2 else 3
+    mask = None
+    if masked:
+        mask = (torch.rand((T, B), generator=g) < 0.8).to(dev, torch.uint8)
+    return [r(T, B, 4 * H).to(dev, bf), r(T, B, H).to(dev, bf),
+            r(5 * H, H, sc=0.125).to(dev, bf), r(4 * H, sc=0.1).to(dev),
+            torch.rand((k, H), generator=g).to(dev), mask,
+            r(B, H, sc=0.5).to(dev, bf), r(B, H, sc=0.5).to(dev, bf)]
+
+
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("gate", [1, 2, 3, 4])
+def test_gp_lstm_kernels_match_plain(dev, gate, masked):
+    """Rows 20-21 at B = 40 (off the 32-column tile): forward, backward,
+    dcoef bit-equal across repeat calls."""
+    from bayeslms_tpu_torch.ops import gp_lstm_cuda as gc
+
+    T, B, H = 9, 40, 64
+    args = _gpg_args(dev, T, B, H, gate, masked, seed=gate)
+    before = dict(gc.launches)
+    got = gc.gpg_fwd(*args, gate)
+    ref = gc.gpg_fwd_plain(*args, gate)
+    for a, b in zip(got, ref):
+        torch.testing.assert_close(a.float(), b.float(), rtol=0, atol=2 ** -6)
+    ys, cs = ref[0], ref[1]
+    g = torch.Generator().manual_seed(9)
+    dy = ((torch.rand((T, B, H), generator=g) * 2 - 1)).to(dev, torch.bfloat16)
+    dhT = torch.zeros((B, H), device=dev, dtype=torch.bfloat16)
+    bw = gc.gpg_bwd(*args, ys, cs, dy, dhT, dhT, gate)
+    bref = gc.gpg_bwd_plain(*args, ys, cs, dy, dhT, dhT, gate)
+    for a, b in zip(bw, bref):
+        big = float(b.float().abs().max())
+        torch.testing.assert_close(a.float(), b.float(), rtol=2 ** -6,
+                                   atol=2 ** -8 * big)
+    assert torch.equal(gc.gpg_bwd(*args, ys, cs, dy, dhT, dhT, gate)[1],
+                       bw[1])
+    assert gc.launches == {"gpg_fwd": before["gpg_fwd"] + 1,
+                           "gpg_bwd": before["gpg_bwd"] + 2}
+
+
+def test_new_wrappers_refuse_what_the_kernels_do_not_take(dev):
+    from bayeslms_tpu_torch.ops import gp_lstm_cuda as gc
+    from bayeslms_tpu_torch.ops import lstm_cuda as lc
+
+    args = _gpg_args(dev, 3, 4, 64, 1, False)
+    with pytest.raises(ValueError):
+        gc.gpg_fwd(*[a.float() if a is not None and a.dtype == torch.bfloat16
+                     else a for a in args], 1)
+    with pytest.raises(ValueError):
+        gc.gpg_fwd(*args, 5)
+    with pytest.raises(ValueError):
+        gc.gpg_fwd(*args[:4], args[4][:2].contiguous(), *args[5:], 1)
+    xg = torch.zeros((3, 4, 4 * 48), device=dev, dtype=torch.bfloat16)
+    with pytest.raises(ValueError):  # H % 32 != 0
+        lc.lstm_fwd(xg, torch.zeros((192, 48), device=dev,
+                                    dtype=torch.bfloat16),
+                    torch.zeros(192, device=dev), xg[0, :, :48],
+                    xg[0, :, :48])

@@ -1,9 +1,9 @@
 """The port stands alone: bayeslms_tpu_torch imports neither JAX (jax,
 flax, optax), msgpack nor anything of bayeslms_tpu, reads the reference's
-``model.pt`` and the JAX package's ``.ckpt`` without them, scores (packed
-and Transformer-XL) and runs the long-context attention training twin
-without them, and its entry points run on the card unless the caller asks
-for the CPU."""
+``model.pt`` and the JAX package's ``.ckpt`` without them, scores (packed,
+the GP-LSTM among them, and Transformer-XL) and runs the long-context
+attention training twin and the GP recurrence's twin without them, and its
+entry points run on the card unless the caller asks for the CPU."""
 
 import ast
 import os
@@ -93,6 +93,19 @@ qkv = torch.randn((1024, 1, 24), requires_grad=True)
 flash_attention_train(*qkv.split(8, dim=-1), 2, 0.2,
                       torch.tensor([5], dtype=torch.int32)).sum().backward()
 assert qkv.grad.shape == qkv.shape
+gcfg = ModelConfig(model="LSTM", vocab_size=10000, emsize=128, nhid=128,
+                   uncertainty="Gaussian", l_gauss_pos="13")
+gp = BatchScorer(gcfg, load_params("exp/campaign/torch_lstm_gp12/model.pt",
+                                   gcfg), RescoreConfig(), device="cpu")
+gout = gp.score_nbest({{"u1": ["w2 w3", "w4"]}},
+                      {{"<s>": 0, "<unk>": 1, "w2": 2, "w3": 3, "w4": 4}})
+assert [len(v) for v in gout.values()] == [2]
+from bayeslms_tpu_torch.ops.gp_lstm_cuda import gpg_layer_fused
+gargs = [torch.randn(s, requires_grad=True) for s in (
+    (5, 2, 32), (5, 2, 8), (32, 8), (32,), (8, 8), (3, 8), (2, 8), (2, 8))]
+gys, (gh, gc) = gpg_layer_fused(*gargs, 1, ("sigmoid", "tanh", "relu"))
+(gys.sum() + gh.sum() + gc.sum()).backward()
+assert all(a.grad is not None for a in gargs)
 assert not [m for m in sys.modules if m.split(".")[0] in {banned!r}]
 print("ISOLATED", sorted(round(s, 3) for v in out.values() for _, s in v))
 """

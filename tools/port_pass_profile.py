@@ -2,13 +2,16 @@
 """Where one warm rescoring pass of the PyTorch/CUDA port spends its time.
 
     python3 tools/port_pass_profile.py [--model Transformer] [--xl]
+                                       [--l-gauss-pos S]
 
 Needs a CUDA card and nvcc. Builds the configuration and N-best of
 chip_smoke.py (the bench's 2-layer 1024/1024 LSTM LM, V = 49,152, bf16,
 6,000 hypotheses; ``--model Transformer``: the recipe's Transformer of
 chip_smoke.py on the same table, through the packed-nocarry layout;
 ``--xl``: that Transformer through the Transformer-XL layout, chains by
-recording as chip_smoke.py scores them), runs one warm-up pass, times one
+recording as chip_smoke.py scores them; ``--l-gauss-pos S``: the GP-LSTM of
+that ``l_gauss_pos`` string through packed-carry, its GP cell on the scan
+and its standard layer on kernel row 3), runs one warm-up pass, times one
 pass without the profiler, then traces one pass with torch.profiler and
 prints the device time by kernel, the device's busy time and its idle
 share of the traced pass, the host's time by operator (self time: the
@@ -44,8 +47,13 @@ def main():
                     default="LSTM")
     ap.add_argument("--xl", action="store_true",
                     help="the Transformer through the xl_mems layout")
+    ap.add_argument("--l-gauss-pos", default="",
+                    help="the GP-LSTM at this l_gauss_pos string, e.g. 13")
     args = ap.parse_args()
     cfg, rcfg, w2i, nbest = chip_smoke.bench_setup()
+    if args.l_gauss_pos:
+        cfg = dataclasses.replace(cfg, uncertainty="Gaussian",
+                                  l_gauss_pos=args.l_gauss_pos)
     if args.model == "Transformer" or args.xl:
         cfg = chip_smoke.tm_config(cfg)
     if args.xl:
@@ -79,7 +87,8 @@ def main():
     print(f"pass {plain_s * 1e3:.1f} ms untraced, {traced_s * 1e3:.1f} ms "
           f"traced; device busy {busy_ms:.1f} ms, idle share "
           f"{1 - busy_ms / (traced_s * 1e3):.3f} of the traced pass "
-          f"({torch.cuda.get_device_name(0)}; {cfg.model})")
+          f"({torch.cuda.get_device_name(0)}; {cfg.model}, uncertainty "
+          f"{cfg.uncertainty}, l_gauss_pos {cfg.l_gauss_pos})")
     print("device ms  calls  name")
     for dev_us, count, key in rows[:15]:
         print(f"{dev_us / 1e3:9.3f}  {count:5d}  {key[:90]}")

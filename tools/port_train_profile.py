@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Where one warm training step of the PyTorch/CUDA port spends its time.
 
-    python3 tools/port_train_profile.py [--bayes-pos N | --model Transformer
+    python3 tools/port_train_profile.py [--bayes-pos N | --l-gauss-pos S |
+                                         --model Transformer
                                          [--t-bayes-pos FFN|MHA|EMB]]
                                         [--seq-len T]
 
@@ -10,7 +11,9 @@ chip_smoke.py (the bench's 2-layer 1024/1024 LSTM LM, V = 49,152, bf16,
 dropout 0.2; batch 32, seq_len 100, the recipe's lr, momentum and clip) on
 its synthetic Markov corpus; ``--bayes-pos N`` (1-5) trains the Bayesian
 gate-slice LSTM at ``l_bayes_pos=N`` instead, its KL scaled by
-seq_len / rows as in ``Trainer.run_epoch``; ``--model Transformer`` the
+seq_len / rows as in ``Trainer.run_epoch``; ``--l-gauss-pos S`` the GP-LSTM
+of that ``l_gauss_pos`` string (the recipes' ``13``: GP kernel rows 20-21
+for the GP cell, rows 5-6 for its standard layer); ``--model Transformer`` the
 recipe's Transformer of chip_smoke.py (512/4096 x 6, 8 heads, lr 0.1), and
 ``--t-bayes-pos`` its Bayesian variant; ``--seq-len 1024`` the window at
 which the Transformer's training attention takes the flash-attention
@@ -49,6 +52,8 @@ def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--bayes-pos", type=int, default=0,
                     help="1-5: the Bayesian LSTM at this l_bayes_pos")
+    ap.add_argument("--l-gauss-pos", default="",
+                    help="the GP-LSTM at this l_gauss_pos string, e.g. 13")
     ap.add_argument("--model", choices=("LSTM", "Transformer"),
                     default="LSTM")
     ap.add_argument("--t-bayes-pos", choices=("none", "FFN", "MHA", "EMB"),
@@ -66,6 +71,9 @@ def main():
     elif args.bayes_pos:
         cfg = dataclasses.replace(cfg, uncertainty="Bayesian",
                                   l_bayes_pos=args.bayes_pos)
+    elif args.l_gauss_pos:
+        cfg = dataclasses.replace(cfg, uncertainty="Gaussian",
+                                  l_gauss_pos=args.l_gauss_pos)
     B, T = chip_smoke.TRAIN_BATCH, args.seq_len
     with tempfile.TemporaryDirectory() as tmp:
         chip_smoke.write_markov_corpus(tmp, cfg.vocab_size - 2,
@@ -105,8 +113,9 @@ def main():
           f"traced (mean of 3); device busy {busy_ms:.1f} ms a step, idle "
           f"share {1 - busy_ms / traced_ms:.3f} of the traced steps "
           f"({torch.cuda.get_device_name(0)}; {cfg.model}, uncertainty="
-          f"{cfg.uncertainty}, l_bayes_pos={cfg.l_bayes_pos}, t_bayes_pos="
-          f"{cfg.t_bayes_pos}, batch {B} x seq_len {T})")
+          f"{cfg.uncertainty}, l_bayes_pos={cfg.l_bayes_pos}, l_gauss_pos="
+          f"{cfg.l_gauss_pos}, t_bayes_pos={cfg.t_bayes_pos}, batch {B} x "
+          f"seq_len {T})")
     print("device ms a step  calls a step  name")
     # the top 20, and the port's sampler kernel wherever it ranks
     for dev_us, count, key in [r for i, r in enumerate(rows)
