@@ -6,7 +6,8 @@ The JAX parameter tree is nested dicts of arrays: ``{"embedding",
 for the standard LSTM, ``"core": {"weight_ih_mean_1", ...,
 "weight_hh_lgstd_1", ...}`` for the Bayesian one, ``{"embedding",
 "decoder_b", "layers_0": {"self_attn": {"qkv_net": {"kernel", "bias"}, ...},
-"linear1", "linear2", "norm1", "norm2"}, ...}`` for the Transformer;
+"linear1", "linear2", "norm1", "norm2"}, ...}`` for the Transformer (the
+GP-FFN layer's ``gpnn`` in place of ``linear1``);
 float32, LSTM weights in the torch (4H, in) layout, the Transformer's dense
 kernels in flax's (in, out). The port's modules name their parameters the
 same way (``core.l0_w_ih``, ``layers_0.linear1.kernel``) and keep those
@@ -151,7 +152,7 @@ _TM_KEY = re.compile(r"transformerlayers\.(?:layers\.)?(\d+)\.(.*)")
 # a Transformer layer's reference names (torch TransformerEncoderLayer's
 # in_proj/out_proj and the reference's self-built modules) -> (path under
 # layers_N, transposed); the JAX package's table (core/checkpoint.py:146-200)
-# without its GP and variational rows
+# without its variational rows
 _TM_TABLE = {
     "self_attn.in_proj_weight": ("self_attn/qkv_net/kernel", True),
     "self_attn.in_proj_bias": ("self_attn/qkv_net/bias", False),
@@ -181,6 +182,14 @@ _TM_TABLE = {
     "norm1.bias": ("norm1/bias", False),
     "norm2.weight": ("norm2/scale", False),
     "norm2.bias": ("norm2/bias", False),
+    # the GP-FFN layer's GPNN (types 0-3) or GPNN2 (type 4, its read-out a
+    # Linear)
+    **{f"gpnn.{n}": (f"gpnn/{n}", False)
+       for n in ("weights_mean", "weights_lgstd", "bias_mean", "bias_lgstd",
+                 "coef_mean", "coef_lgstd", "frequency_mean",
+                 "frequency_lgstd")},
+    "gpnn.coef.weight": ("gpnn/coef_kernel", True),
+    "gpnn.coef.bias": ("gpnn/coef_bias", False),
 }
 
 
@@ -193,8 +202,10 @@ def import_torch_state_dict(state_dict: Mapping[str, "np.ndarray"],
     ``core/l{k}_{w,b}_{ih,hh}`` and the Bayes(2)LSTM names
     ``rnn.*_{mean,lgstd}_*`` -> ``core/*``; for the Transformer the
     ``transformerlayers.[layers.]N.*`` names of ``_TM_TABLE`` ->
-    ``layers_N/*`` (Linear weights transposed to flax (in, out) kernels)
-    and the EMB projection's ``embed_{mean,lgstd}``; for the GP and
+    ``layers_N/*`` (Linear weights transposed to flax (in, out) kernels;
+    the GP-FFN layer's ``gpnn.*``, GPNN2's read-out ``gpnn.coef.*`` as
+    ``coef_kernel`` (in, out) and ``coef_bias``) and the EMB projection's
+    ``embed_{mean,lgstd}``; for the GP and
     variational stacks ``rnn.rnn.<i>.*`` as the JAX package maps them
     (``core/checkpoint.py:113-140`` there): a GP cell's
     ``{weights,bias}_{ih,hh}`` and ``gpnn.*`` -> ``core/cell<i>/...`` (the

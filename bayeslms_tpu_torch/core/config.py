@@ -1,13 +1,13 @@
 """Configuration dataclasses, field for field those of
 ``bayeslms_tpu/core/config.py`` (the JAX package), so that one configuration
 describes a model in both packages. The port runs a subset of them so far
-(the 2-layer LSTM, standard, Bayesian gate-slice and the GP-LSTM with GP
-gates 1-4 and GPNN types 0-3; the Transformer, standard and Bayesian at
-the FFN, MHA or EMB): ``core/registry.py`` and the models it builds,
-``rescore/scorer.py`` and ``TrainConfig.validate`` raise
+(the 2-layer LSTM, standard, Bayesian gate-slice and the GP-LSTM of every
+``l_gauss_pos`` string; the Transformer, standard, Bayesian at the FFN,
+MHA or EMB, and with the GP-FFN layer): ``core/registry.py`` and the
+models it builds, ``rescore/scorer.py`` and ``TrainConfig.validate`` raise
 ``NotImplementedError`` for the rest and name the ROADMAP.md item that
-brings it (GP gates 5-7, GPNN2, the legacy GaussLSTM, the variational
-cores and the Gaussian and Variational Transformers item 10).
+brings it (the legacy GaussLSTM, the variational cores and the
+Variational Transformer item 10).
 
 Flag map to the reference recipes (BayesLMs ``steps/pytorchnn/train.py``):
 ``uncertainty`` -> --uncertainty, ``t_bayes_pos`` -> --T_bayes_pos,

@@ -2,10 +2,11 @@
 
 The port builds the 2-layer LSTM with a tied decoder, with
 ``uncertainty="none"``, ``"Bayesian"`` (the gate-slice Bayes2LSTM core) or
-``"Gaussian"`` (the GP-LSTM core of an ``l_gauss_pos`` string, GP gates 1-4
-and GPNN types 0-3), and the Transformer with a tied decoder, standard or
-Bayesian at the FFN, the MHA or the embedding; every other configuration
-raises ``NotImplementedError`` naming its ROADMAP.md item.
+``"Gaussian"`` (the GP-LSTM core of an ``l_gauss_pos`` string: GP gates
+1-7, GPNN types 0-3 and GPNN2), and the Transformer with a tied decoder,
+standard, Bayesian at the FFN, the MHA or the embedding, or with the GP-FFN
+layer (``t_gauss_pos`` 0-4); every other configuration raises
+``NotImplementedError`` naming its ROADMAP.md item.
 """
 
 from __future__ import annotations

@@ -2,8 +2,9 @@
 // sm_90a (bf16 operands through wmma 16x16x16, fp32 accumulators): the
 // step's product h W^T over NG row groups of the recurrent weight, and the
 // backward's dh = du W. csrc/lstm_train.cu takes them with NG = 4 (the
-// gates, kernel rows 5-6), csrc/gp_lstm.cu with NG = 5 (the gates and the
-// GP unit, rows 20-21). A block owns BM batch columns and BJ units of each
+// gates, kernel rows 5-6), csrc/gp6_lstm.cu with NG = 4 too (the gate-6 GP
+// unit's rows, 18-19), csrc/gp_lstm.cu with NG = 5 (the gates and the GP
+// unit, rows 20-21). A block owns BM batch columns and BJ units of each
 // group, so an elementwise epilogue of its own needs nothing from other
 // blocks; tiles load synchronously through shared memory.
 

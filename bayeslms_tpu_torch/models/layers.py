@@ -1,8 +1,9 @@
 """Layers of ``bayeslms_tpu/models/layers.py``: the Bayesian dense layer
 ``BayesDense`` (the reference's ``BayesLinear``, model.py:1049-1134), the
-activation table ``ACTS`` and the GP activation unit ``GPNN`` (types 0-3,
-model.py:1780-1906). ``GPNN2``, ``GPNNNode`` and the variational ``VNN``
-are ROADMAP.md queue A item 10.
+activation table ``ACTS``, the GP activation unit ``GPNN`` (types 0-3,
+model.py:1780-1906) and the random-feature GP unit ``GPNN2`` (type 4,
+model.py:2036-2102). ``GPNNNode`` and the variational ``VNN`` are
+ROADMAP.md queue A item 10.
 """
 
 from __future__ import annotations
@@ -16,9 +17,11 @@ from torch import nn
 from ..ops import bayes_matmul_cuda, gaussian
 from . import initializers as tinit
 
-# the activations of the GP units' act sets (the JAX table's others serve
-# only GPNNNode, ROADMAP.md queue A item 10)
-ACTS = {"sigmoid": torch.sigmoid, "tanh": torch.tanh, "relu": torch.relu}
+# the activations of the GP units' act sets; gelu is the exact (erf) GELU
+# (the JAX table's sin and cos serve only GPNNNode, ROADMAP.md queue A
+# item 10)
+ACTS = {"sigmoid": torch.sigmoid, "tanh": torch.tanh, "relu": torch.relu,
+        "gelu": torch.nn.functional.gelu}
 
 
 class GPNN(nn.Module):
@@ -35,9 +38,8 @@ class GPNN(nn.Module):
                  gpnn_type: int = 0, sample_enabled: bool = False):
         super().__init__()
         if gpnn_type not in (0, 1, 2, 3):
-            raise NotImplementedError(
-                f"GPNN type {gpnn_type} is not a GPNN (0-3); the random-"
-                "feature GPNN2 (type 4) is ROADMAP.md queue A item 10")
+            raise ValueError(f"GPNN type {gpnn_type} is not a GPNN (0-3); "
+                             "type 4 is the random-feature GPNN2")
         self.input_size, self.output_size = input_size, output_size
         self.act_set = tuple(act_set)
         self.gpnn_type, self.sample_enabled = gpnn_type, sample_enabled
@@ -76,11 +78,8 @@ class GPNN(nn.Module):
             return w, b, coef
 
         def diff(lgstd):
-            eps = None if noise is None else next(noise, None)
-            if noise is not None and eps is None:
-                raise ValueError("GPNN: fewer injected noise tensors than "
-                                 "sampled tensors")
-            return gaussian.sample_diff(lgstd, eps=eps, generator=generator)
+            return gaussian.sample_diff(lgstd, eps=_next_eps(noise, "GPNN"),
+                                        generator=generator)
 
         if self.gpnn_type in (1, 3):
             coef = coef + diff(self.coef_lgstd)
@@ -99,11 +98,12 @@ class GPNN(nn.Module):
         return acc
 
     def forward(self, x, hx=None, deterministic: bool = True, drawn=None,
-                generator: Optional[torch.Generator] = None):
+                generator: Optional[torch.Generator] = None,
+                noise: Optional[Iterator[torch.Tensor]] = None):
         if hx is not None:
             x = torch.cat([x, hx], dim=-1)
         w, b, coef = (drawn if drawn is not None
-                      else self.draw(deterministic, generator))
+                      else self.draw(deterministic, generator, noise))
         return self.apply_drawn(x, w, b, coef, self.act_set)
 
     def kl(self) -> torch.Tensor:
@@ -118,6 +118,89 @@ class GPNN(nn.Module):
             kl = kl + gaussian.kl_std_normal_m1(self.bias_mean,
                                                 self.bias_lgstd)
         return kl
+
+
+# GPNN2's Monte Carlo terms (random features), n_MC_terms of model.py:2042
+N_MC_TERMS = 150
+
+
+def _next_eps(noise: Optional[Iterator[torch.Tensor]], who: str):
+    """The next injected eps of ``noise``, or None without injection;
+    raises when ``noise`` runs out."""
+    if noise is None:
+        return None
+    eps = next(noise, None)
+    if eps is None:
+        raise ValueError(f"{who}: fewer injected noise tensors than sampled "
+                         "tensors")
+    return eps
+
+
+class GPNN2(nn.Module):
+    """Random-feature GP unit (the reference's ``GPNN2``, "first version"):
+    out = x F, acc = out + sum_a act_a(out) (the skip connection),
+    y = acc / sqrt(N_MC_TERMS) C + c, with the frequency matrix F
+    (input_dim, N_MC_TERMS) drawn from N(``frequency_mean``,
+    exp(``frequency_lgstd``)^2) whenever training (no sample flag), and the
+    read-out ``coef_kernel`` (N_MC_TERMS, output_dim), ``coef_bias``
+    (output_dim,) in the JAX layout."""
+
+    def __init__(self, input_dim: int, output_dim: int,
+                 act_set: Sequence[str] = ("sigmoid", "tanh", "relu", "gelu")):
+        super().__init__()
+        self.input_dim, self.output_dim = input_dim, output_dim
+        self.act_set = tuple(act_set)
+        self.frequency_mean = nn.Parameter(torch.empty((input_dim,
+                                                        N_MC_TERMS)))
+        self.frequency_lgstd = nn.Parameter(torch.empty((input_dim,
+                                                         N_MC_TERMS)))
+        self.coef_kernel = nn.Parameter(torch.empty((N_MC_TERMS, output_dim)))
+        self.coef_bias = nn.Parameter(torch.empty((output_dim,)))
+
+    def reset_parameters(self, gen: torch.Generator) -> None:
+        stdv = 1.0 / math.sqrt(N_MC_TERMS)
+        tinit.uniform_(self.frequency_mean, stdv, gen)
+        gaussian.lgstd_init_(self.frequency_lgstd, stdv, gen)
+        bound = tinit.torch_linear_weight(N_MC_TERMS)
+        tinit.uniform_(self.coef_kernel, bound, gen)
+        tinit.uniform_(self.coef_bias, bound, gen)
+
+    def draw(self, deterministic: bool = True,
+             generator: Optional[torch.Generator] = None,
+             noise: Optional[Iterator[torch.Tensor]] = None) -> torch.Tensor:
+        """The frequency matrix of one call: the mean, or, training, the
+        mean plus exp(lgstd) eps, eps the next of ``noise`` or drawn from
+        ``generator``."""
+        freq = self.frequency_mean
+        if not deterministic:
+            freq = freq + gaussian.sample_diff(
+                self.frequency_lgstd, eps=_next_eps(noise, "GPNN2"),
+                generator=generator)
+        return freq
+
+    def apply_drawn(self, x: torch.Tensor, freq: torch.Tensor) -> torch.Tensor:
+        out = x @ freq.to(x.dtype)
+        acc = out
+        for act in self.act_set:
+            acc = acc + ACTS[act](out)
+        acc = acc / math.sqrt(N_MC_TERMS)
+        return acc @ self.coef_kernel.to(x.dtype) + self.coef_bias.to(x.dtype)
+
+    def forward(self, x, deterministic: bool = True,
+                generator: Optional[torch.Generator] = None,
+                noise: Optional[Iterator[torch.Tensor]] = None):
+        return self.apply_drawn(x, self.draw(deterministic, generator, noise))
+
+    def kl(self, prior_mean: Optional[torch.Tensor] = None,
+           prior_lgstd: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """The prior-updating KL of model.py:2078-2096 against a zero
+        prior by default (no container sows it)."""
+        pm = (torch.zeros_like(self.frequency_mean) if prior_mean is None
+              else prior_mean)
+        pl = (torch.zeros_like(self.frequency_lgstd) if prior_lgstd is None
+              else prior_lgstd)
+        return gaussian.kl_vs_prior_full(self.frequency_mean,
+                                         self.frequency_lgstd, pm, pl)
 
 
 class BayesDense(nn.Module):

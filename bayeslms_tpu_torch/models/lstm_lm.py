@@ -3,15 +3,15 @@
 
 The port has the standard 2-layer LSTM core, the Bayesian gate-slice
 LSTM core (``uncertainty="Bayesian"``), the GP-LSTM core
-(``uncertainty="Gaussian"``: ``GPLSTMCore`` with GP gates 1-4 and GPNN
-types 0-3, ``GPLSTMCell``, ``StdLSTMLayer``) and the container with a tied
+(``uncertainty="Gaussian"``: ``GPLSTMCore`` with GP gates 1-7 and GPNN
+types 0-4, ``GPLSTMCell``, ``StdLSTMLayer``) and the container with a tied
 decoder: the scoring pass (``deterministic=True``, dropout off, the Bayes
 core at its posterior mean, the GP units at their means) and the training
 forward, with dropout on the embedding, between the standard core's layers
 and on the core's output, as ``RecurrentLM.__call__``, ``StandardRNNCore``,
 ``BayesLSTMCore`` and ``GPLSTMCore`` apply it in the JAX package. GRU/RNN
-cores, GP gates 5-7, GPNN2, the legacy GaussLSTM and the variational cores
-are ROADMAP.md queue A items 3 and 10; the cores raise for them.
+cores, the legacy GaussLSTM and the variational cores are ROADMAP.md queue
+A items 3 and 10; the cores raise for them.
 """
 
 from __future__ import annotations
@@ -22,10 +22,11 @@ import torch
 from torch import nn
 
 from ..core.config import ModelConfig
-from ..ops import bayes_sample_cuda, gaussian, gp_lstm_cuda, lstm_cuda
+from ..ops import (bayes_sample_cuda, gaussian, gp_lstm_cuda, lstm_cuda,
+                   lstm_train_cuda)
 from ..ops.lstm import LSTMParams, lstm_layer, lstm_stack2
 from . import initializers as tinit
-from .layers import ACTS, GPNN
+from .layers import ACTS, GPNN, GPNN2
 
 Hidden = Tuple[torch.Tensor, torch.Tensor]  # (h, c), each (nlayers, B, H)
 
@@ -273,45 +274,70 @@ class BayesLSTMCore(nn.Module):
 
 def _gp_refusal(what: str) -> NotImplementedError:
     return NotImplementedError(
-        f"{what} is not ported yet: GP gates 5-7, GPNN2 (type 4), the legacy "
-        "GaussLSTM and the variational cores are ROADMAP.md queue A item 10")
+        f"{what} is not ported yet: the legacy GaussLSTM and the variational "
+        "cores are ROADMAP.md queue A item 10")
+
+
+# the standard activations of the gates [i, f, g, o]
+_GATE_ACTS = (torch.sigmoid, torch.sigmoid, torch.tanh, torch.sigmoid)
 
 
 class GPLSTMCell(nn.Module):
-    """One GP-activation LSTM layer, the JAX package's ``GPLSTMCell`` for
-    gates 1-4 (the reference's ``GPLSTMCell``, model.py:1683-1777): gate
-    ``gate_type`` of [i, f, g, o] is replaced by a GP unit (``gpnn``, type
-    ``gpnn_type`` 0-3) over cat(x_t, h_{t-1}), with the act set (sigmoid,)
-    for gate 2 and (sigmoid, tanh, relu) otherwise, its weights drawn once
-    a call. Parameters ``weights_ih``, ``bias_ih``, ``weights_hh``,
+    """One GP-activation LSTM layer, the JAX package's ``GPLSTMCell`` (the
+    reference's ``GPLSTMCell``, model.py:1683-1777).
+
+    ``gpnn_type`` 0-3 builds a ``GPNN`` (``gpnn``, drawn once a call, see
+    ``GPNN.draw``): gates 1-4 replace that gate of [i, f, g, o] by the unit
+    over cat(x_t, h_{t-1}), act set (sigmoid,) for gate 2 and (sigmoid,
+    tanh, relu) otherwise; gate 5 transforms the cell state, c <- gpnn(c),
+    before the update; gate 6 replaces the hidden projection, gates = xg_t +
+    gpnn(h_{t-1}) with no second bias (so it needs input_size =
+    hidden_size); gate 7 the input projection, xg = gpnn(x) over the whole
+    sequence. Type 4 builds a ``GPNN2`` (act set (sigmoid, relu, tanh))
+    applied to the replaced gate's pre-activation (gates 1-4) or to c
+    (gate 5), its frequencies drawn afresh every step while training
+    (``noise`` hands it T eps, one a step); for gates 6-7 it is built and
+    unused, as in JAX. Other digits build no GP unit and run the standard
+    cell. Parameters ``weights_ih``, ``bias_ih``, ``weights_hh``,
     ``bias_hh`` and ``gpnn.*``; the reference adds ``bias_ih`` to both
     projections and never uses ``bias_hh`` (model.py:1749-1753), and so
     does this cell.
 
-    Routes as JAX: without resets, on a CUDA tensor that
-    ``gp_lstm_cuda.gpg_kernel_ok`` admits, the recurrence goes to
-    ``gp_lstm_cuda.gpg_layer_fused`` (kernel rows 20-21, float32 carry);
-    otherwise (packed resets, a refused shape, a CPU tensor) the JAX
-    package's scan runs step by step, its carry in the promoted dtype of
-    h0 and x, with ``lstm_cuda.apply_reset`` at the resets.
+    Routes as JAX, on a CUDA tensor without resets: gates 1-4 (types 0-3)
+    to ``gp_lstm_cuda.gpg_layer_fused`` (kernel rows 20-21) where
+    ``gpg_kernel_ok`` admits, gate 6 to ``gp6_layer_fused`` (rows 18-19)
+    where ``gp6_kernel_ok`` admits, gate 7 to
+    ``lstm_train_cuda.lstm_scan_fused`` (rows 5-6, deterministic too) where
+    ``lstm_kernel_ok`` admits the training route; all with a float32
+    carry. Otherwise (packed resets, a refused shape, a CPU tensor, gate 5,
+    type 4) the JAX package's scan runs step by step, its carry in the
+    promoted dtype of h0 and x, with ``lstm_cuda.apply_reset`` at the
+    resets.
     """
 
     def __init__(self, input_size: int, hidden_size: int, gate_type: int,
                  gpnn_type: int, sample_enabled: bool = False):
         super().__init__()
-        if gate_type not in (1, 2, 3, 4):
-            raise _gp_refusal(f"GP gate {gate_type}")
-        if gpnn_type not in (0, 1, 2, 3):
-            raise _gp_refusal(f"GPNN type {gpnn_type}")
-        H = hidden_size
+        H, g, t = hidden_size, gate_type, gpnn_type
         self.input_size, self.hidden_size = input_size, H
-        self.gate_type, self.gpnn_type = gate_type, gpnn_type
+        self.gate_type, self.gpnn_type = g, t
         self.weights_ih = nn.Parameter(torch.empty((4 * H, input_size)))
         self.bias_ih = nn.Parameter(torch.empty((4 * H,)))
         self.weights_hh = nn.Parameter(torch.empty((4 * H, H)))
         self.bias_hh = nn.Parameter(torch.empty((4 * H,)))
-        acts = ("sigmoid",) if gate_type == 2 else ("sigmoid", "tanh", "relu")
-        self.gpnn = GPNN(H + input_size, H, acts, gpnn_type, sample_enabled)
+        if t <= 3 and 1 <= g <= 7:
+            if g == 6 and input_size != H:
+                raise ValueError(
+                    f"GP gate 6 applies its (in {input_size} -> {4 * H}) unit "
+                    f"to h (width {H}): it needs input_size == hidden_size "
+                    "(a layer-0 gate-6 cell needs emsize == nhid)")
+            n_in, n_out = {5: (H, H), 6: (input_size, 4 * H),
+                           7: (input_size, 4 * H)}.get(g, (H + input_size, H))
+            acts = ("sigmoid",) if g == 2 else ("sigmoid", "tanh", "relu")
+            self.gpnn = GPNN(n_in, n_out, acts, t, sample_enabled)
+        elif t == 4:
+            self.gpnn = GPNN2(H, H if g <= 5 else 4 * H,
+                              act_set=("sigmoid", "relu", "tanh"))
 
     def reset_parameters(self, gen: torch.Generator) -> None:
         bound = tinit.rnn_bound(self.hidden_size)
@@ -320,62 +346,118 @@ class GPLSTMCell(nn.Module):
         with torch.no_grad():
             self.bias_ih.zero_()
             self.bias_hh.zero_()
-        self.gpnn.reset_parameters(gen)
+        if hasattr(self, "gpnn"):
+            self.gpnn.reset_parameters(gen)
 
     def forward(self, x, hc: Hidden, deterministic: bool = True,
                 step_mask=None, reset_mask=None, reset_src=None,
                 generator: Optional[torch.Generator] = None,
                 noise: Optional[Iterator[torch.Tensor]] = None):
         """x (T, B, in) -> ys (T, B, H), (hT, cT). ``noise`` hands the GP
-        unit its eps when it samples (see ``GPNN.draw``)."""
-        H, g, n_in = self.hidden_size, self.gate_type, self.input_size
+        unit its eps when it samples (see ``GPNN.draw``; type 4: one
+        (H, n_mc) eps a step)."""
+        H, g, t = self.hidden_size, self.gate_type, self.gpnn_type
         dtype = x.dtype
         T, B, _ = x.shape
         h0, c0 = hc
-        # the x-only projections over the whole sequence
-        xg = (x.reshape(T * B, -1) @ self.weights_ih.to(dtype).t()
-              + self.bias_ih.to(dtype)).reshape(T, B, 4 * H)
-        w, b, coef = self.gpnn.draw(deterministic, generator, noise)
-        w_h = w[:, n_in:]
-        gpx = x @ w[:, :n_in].t().to(dtype) + b.to(dtype)
-        acts = self.gpnn.act_set
-        if reset_mask is None and gp_lstm_cuda.gpg_kernel_ok(x, H):
-            return gp_lstm_cuda.gpg_layer_fused(
-                xg, gpx, self.weights_hh, self.bias_ih, w_h, coef, h0, c0, g,
-                acts, step_mask)
-        # the scan: operands in the carry's promoted dtype, as JAX promotes
+        gp = getattr(self, "gpnn", None)
+        drawn = gpx = None
+        if g == 7 and t <= 3:
+            # the GP unit over x, hoisted: the recurrence is the standard
+            # LSTM step with b_ih as its bias (the quirk)
+            xg = GPNN.apply_drawn(x, *gp.draw(deterministic, generator,
+                                              noise), gp.act_set)
+            if reset_mask is None and lstm_cuda.lstm_kernel_ok(x, H,
+                                                               train=True):
+                ys, _cs, hT, cT = lstm_train_cuda.lstm_scan_fused(
+                    xg, self.weights_hh.to(dtype), self.bias_ih.to(dtype),
+                    h0.to(dtype).contiguous(), c0.to(dtype).contiguous(),
+                    step_mask)
+                return ys, (hT, cT)
+        else:
+            # the x-only projections over the whole sequence
+            xg = (x.reshape(T * B, -1) @ self.weights_ih.to(dtype).t()
+                  + self.bias_ih.to(dtype)).reshape(T, B, 4 * H)
+        if t <= 3 and 1 <= g <= 6:
+            drawn = gp.draw(deterministic, generator, noise)
+            w, b, coef = drawn
+            if g == 6 and reset_mask is None and \
+                    gp_lstm_cuda.gp6_kernel_ok(x, H):
+                return gp_lstm_cuda.gp6_layer_fused(xg, w, b, coef, h0, c0,
+                                                    step_mask)
+            if g <= 4:
+                n_in = self.input_size
+                gpx = x @ w[:, :n_in].t().to(dtype) + b.to(dtype)
+                drawn = (w[:, n_in:], coef)
+                if reset_mask is None and gp_lstm_cuda.gpg_kernel_ok(x, H):
+                    return gp_lstm_cuda.gpg_layer_fused(
+                        xg, gpx, self.weights_hh, self.bias_ih, drawn[0],
+                        coef, h0, c0, g, gp.act_set, step_mask)
+        if t == 4 and 1 <= g <= 5:
+            # GPNN2 redraws its frequencies every step while training; step
+            # s takes drawn[s % len(drawn)], the mean when deterministic
+            drawn = [gp.draw(deterministic, generator, noise)
+                     for _ in range(1 if deterministic else T)]
+        return self._scan(xg, gpx, drawn, h0, c0, step_mask, reset_mask,
+                          reset_src)
+
+    def _scan(self, xg, gpx, drawn, h0, c0, step_mask, reset_mask,
+              reset_src):
+        """The JAX package's scan: operands in the carry's promoted dtype,
+        as JAX promotes."""
+        g, t = self.gate_type, self.gpnn_type
+        dtype = xg.dtype
+        gp = getattr(self, "gpnn", None)
         pd = torch.promote_types(h0.dtype, dtype)
         w_hh_t = self.weights_hh.to(dtype).t().to(pd)
-        w_h_t = w_h.to(dtype).t().to(pd)
         b_ih = self.bias_ih.to(dtype).to(pd)
-        coefs = [coef[a].to(dtype).to(pd) for a in range(len(acts))]
+        mixes = t <= 3 and 1 <= g <= 4
+        if mixes:
+            w_h_t = drawn[0].to(dtype).t().to(pd)
+            coefs = [drawn[1][a].to(dtype).to(pd)
+                     for a in range(len(gp.act_set))]
         h, c = h0, c0
         ys = []
-        for t in range(T):
+        for s in range(xg.shape[0]):
             if reset_mask is not None:
-                h = lstm_cuda.apply_reset(h, reset_mask[t], reset_src)
-                c = lstm_cuda.apply_reset(c, reset_mask[t], reset_src)
-            gi, gf, gg, go = (xg[t] + h @ w_hh_t + b_ih).chunk(4, dim=-1)
-            pre = gpx[t] + h @ w_h_t
-            gp = None
-            for a, name in enumerate(acts):
-                term = ACTS[name](pre) * coefs[a]
-                gp = term if gp is None else gp + term
-            i = gp if g == 1 else torch.sigmoid(gi)
-            f = gp if g == 2 else torch.sigmoid(gf)
-            gg = gp if g == 3 else torch.tanh(gg)
-            o = gp if g == 4 else torch.sigmoid(go)
-            cn = f * c + i * gg
+                h = lstm_cuda.apply_reset(h, reset_mask[s], reset_src)
+                c = lstm_cuda.apply_reset(c, reset_mask[s], reset_src)
+            if g == 6 and t <= 3:
+                gates = xg[s] + GPNN.apply_drawn(h, *drawn, gp.act_set)
+            else:
+                gates = xg[s] + h @ w_hh_t + b_ih
+            pre4 = gates.chunk(4, dim=-1)
+            rep = None
+            if mixes:
+                pre = gpx[s] + h @ w_h_t
+                for a, name in enumerate(gp.act_set):
+                    term = ACTS[name](pre) * coefs[a]
+                    rep = term if rep is None else rep + term
+            elif t == 4 and 1 <= g <= 4:
+                rep = gp.apply_drawn(pre4[g - 1], drawn[s % len(drawn)])
+            i, f, gg, o = [rep if q + 1 == g and rep is not None else act(v)
+                           for q, (act, v) in enumerate(zip(_GATE_ACTS,
+                                                            pre4))]
+            c_in = c
+            if g == 5 and t <= 3:
+                c_in = GPNN.apply_drawn(c, *drawn, gp.act_set)
+            elif g == 5 and t == 4:
+                c_in = gp.apply_drawn(c, drawn[s % len(drawn)])
+            cn = f * c_in + i * gg
             hn = o * torch.tanh(cn)
             if step_mask is not None:
-                keep = step_mask[t].bool()[:, None]
+                keep = step_mask[s].bool()[:, None]
                 hn, cn = torch.where(keep, hn, h), torch.where(keep, cn, c)
             h, c = hn, cn
             ys.append(h)
         return torch.stack(ys), (h, c)
 
     def kl(self) -> torch.Tensor:
-        return self.gpnn.kl()
+        """The GPNN's KL (types 0-3); zero for GPNN2 and for a cell with no
+        GP unit, as in JAX."""
+        if self.gpnn_type <= 3 and hasattr(self, "gpnn"):
+            return self.gpnn.kl()
+        return torch.zeros((), device=self.weights_hh.device)
 
 
 class StdLSTMLayer(nn.Module):
@@ -410,11 +492,12 @@ class GPLSTMCore(nn.Module):
     """The GP-LSTM stack of the ``l_gauss_pos`` digit string (the JAX
     package's ``GPLSTMCore``; the reference's ``GPLSTM``, model.py:1609-1681):
     digit 0 the gate (0: the standard core, ``std_core``), digit 1 the GPNN
-    type; length 2: a GP cell (``cell0``) then a standard layer (``std1``);
-    length 3: a standard layer (``std0``) then a GP cell (``cell1``);
-    length 4: GP cells in both layers, the second's gate digit 2. No
-    inter-layer dropout. ``kl_value`` is the KL that the JAX core sows: the
-    cells' GPNN KLs when the gate digit is > 0 and the type 1-3."""
+    type (0-3 GPNN, 4 GPNN2); length 2: a GP cell (``cell0``) then a
+    standard layer (``std1``); length 3: a standard layer (``std0``) then a
+    GP cell (``cell1``); length 4: GP cells in both layers, the second's
+    gate digit 2 (digit 3 unread), e.g. ``6360``. No inter-layer dropout.
+    ``kl_value`` is the KL that the JAX core sows: the cells' GPNN KLs when
+    the gate digit is > 0 and the type 1-3."""
 
     def __init__(self, cfg: ModelConfig):
         super().__init__()
@@ -448,9 +531,11 @@ class GPLSTMCore(nn.Module):
                 reset_src=None, train: bool = False, dropout_mask=None,
                 generator: Optional[torch.Generator] = None,
                 noise: Optional[Sequence[torch.Tensor]] = None):
-        """``train`` runs the training forward: the GP units sample when
-        ``cfg.gp_sample`` (eps from ``noise``, in the JAX call order, or
-        drawn from ``generator``), the standard layer takes its grad route.
+        """``train`` runs the training forward: the GPNN units sample when
+        ``cfg.gp_sample``, the GPNN2 units of gates 1-5 every step whatever
+        it says (eps from ``noise``, in the JAX call order: a cell at a
+        time, one a step for GPNN2; or drawn from ``generator``), the
+        standard layer takes its grad route.
         ``dropout_mask`` is the standard core's inter-layer mask (the GP
         kinds have none)."""
         if self.kind == "std":
@@ -547,7 +632,7 @@ class RecurrentLM(nn.Module):
         ``dropout_masks`` or masks drawn from ``generator``. The Bayesian
         core then samples its weights from ``generator``, or takes the
         injected ``noise`` (see ``BayesLSTMCore``); so do the GP units of
-        the GP-LSTM core when ``cfg.gp_sample`` (see ``GPLSTMCore``).
+        the GP-LSTM core (see ``GPLSTMCore``).
         """
         cfg = self.cfg
         dtype = getattr(torch, cfg.compute_dtype)

@@ -19,8 +19,9 @@ residual branches and the FFN's middle) and the Bayesian eps from a
 and ``noise``), so that a test can feed both packages the same draws.
 Transformer-XL memories (``mems``, ``mem_len``, ``return_mems``): keys and
 values of the standard layers extend over [mem; x], positions continue from
-the real memory length. The GP and variational layers are ROADMAP.md queue
-A item 10.
+the real memory length. The GP-FFN layer (``uncertainty="Gaussian"``,
+``GaussEncoderLayer``) is layer 0 for ``t_gauss_pos`` 0-4. The variational
+layers are ROADMAP.md queue A item 10.
 """
 
 from __future__ import annotations
@@ -37,10 +38,12 @@ from ..ops import gaussian
 from ..ops.attention import (draw_keep, multihead_attention,
                              sinusoidal_positional_encoding)
 from . import initializers as tinit
-from .layers import BayesDense
+from .layers import GPNN, GPNN2, BayesDense
 
 PE_LEN = 5000  # rows of the positional table (model.py:93)
 BAYES_LAYER_DROPOUT = 0.2  # the stochastic layer's hardcoded rate
+# the GP-FFN unit's act set, in the JAX order
+GAUSS_ACTS = ("tanh", "sigmoid", "relu", "gelu")
 
 
 class EncoderDropoutMasks(NamedTuple):
@@ -254,16 +257,82 @@ class BayesEncoderLayer(StandardEncoderLayer):
         return dense.kl(prior_mean)
 
 
+class GaussEncoderLayer(nn.Module):
+    """The GP-FFN layer (model.py:2250-2287): the FFN's linear1 and GELU
+    replaced by a GP unit over the act set (tanh, sigmoid, relu, gelu), a
+    ``GPNN`` of type ``gauss_pos`` 0-3 (one draw a forward when
+    ``sample_enabled``) or, for 4, a ``GPNN2`` (one draw a training
+    forward); then dropout on the GP output and ``linear2``, with no
+    further activation. Its dropout is the model's (not the Bayesian
+    layer's 0.2)."""
+
+    def __init__(self, d: int, nhead: int, ff: int, dropout: float, dtype,
+                 gauss_pos: int, sample_enabled: bool = False):
+        super().__init__()
+        self.d, self.ff, self.dropout = d, ff, dropout
+        self.self_attn = MultiheadSelfAttention(d, nhead, dropout, dtype)
+        if 0 <= gauss_pos <= 3:
+            self.gpnn = GPNN(d, ff, GAUSS_ACTS, gauss_pos, sample_enabled)
+        else:
+            self.gpnn = GPNN2(d, ff, act_set=GAUSS_ACTS)
+        self.linear2 = Dense(ff, d, dtype)
+        self.norm1 = LayerNorm(d, dtype)
+        self.norm2 = LayerNorm(d, dtype)
+
+    def reset_parameters(self, gen) -> None:
+        self.self_attn.reset_parameters(gen)
+        self.gpnn.reset_parameters(gen)
+        _torch_linear_(self.linear2, self.ff, gen)
+        self.norm1.reset_parameters()
+        self.norm2.reset_parameters()
+
+    def n_draws(self, deterministic: bool) -> int:
+        """The eps tensors one forward draws."""
+        g = self.gpnn
+        if deterministic:
+            return 0
+        if isinstance(g, GPNN2):
+            return 1
+        if not g.sample_enabled:
+            return 0
+        return (g.gpnn_type in (1, 3)) + 2 * (g.gpnn_type in (2, 3))
+
+    def forward(self, src, attn_mask=None, deterministic: bool = True,
+                masks: Optional[EncoderDropoutMasks] = None,
+                generator: Optional[torch.Generator] = None,
+                eps: Optional[Sequence[torch.Tensor]] = None, mem=None):
+        """``eps`` injects the GP unit's draws (see ``GPNN.draw``,
+        ``GPNN2.draw``); ``mem`` must be None (the layer has no memory
+        hook, as in JAX)."""
+        if mem is not None:
+            raise ValueError("mems require standard encoder layers: the GP "
+                             "layer has no memory")
+        m = masks or EncoderDropoutMasks(None, None, None, None)
+        drop = lambda x, mask: _dropout(  # noqa: E731
+            x, self.dropout, deterministic, mask, generator)
+        src2 = self.self_attn(src, attn_mask, deterministic, m.attn,
+                              generator)
+        src = self.norm1(src + drop(src2, m.attn_out))
+        noise = None if eps is None else iter(eps)
+        gp_out = self.gpnn(src, deterministic=deterministic,
+                           generator=generator, noise=noise)
+        src2 = self.linear2(drop(gp_out, m.ff))
+        return self.norm2(src + drop(src2, m.ff_out))
+
+    def kl(self) -> torch.Tensor:
+        return self.gpnn.kl()
+
+
 class TransformerLM(nn.Module):
     """Embedding x sqrt(E) -> [EMB projection] -> positions -> layers ->
     [EMB transpose-reuse] -> tied decoder (the JAX ``TransformerLM``)."""
 
     def __init__(self, cfg: ModelConfig):
         super().__init__()
-        if cfg.uncertainty in ("Gaussian", "Variational"):
+        if cfg.uncertainty == "Variational":
             raise NotImplementedError(
-                f"the {cfg.uncertainty} Transformer is not ported yet: its GP "
-                "and variational layers are ROADMAP.md queue A item 10")
+                "the Variational Transformer is not ported yet: its "
+                "variational layers are ROADMAP.md queue A item 10")
         if not cfg.tied:
             raise NotImplementedError(
                 "an untied decoder is not ported yet (ROADMAP.md queue A "
@@ -280,11 +349,18 @@ class TransformerLM(nn.Module):
                              persistent=False)
         bayes = cfg.uncertainty == "Bayesian"
         self.bayes_pos = cfg.t_bayes_pos if bayes else "none"
+        # the GP-FFN layer's type, or None (t_gauss_pos > 4: all standard)
+        self.gauss_pos = (cfg.t_gauss_pos if cfg.uncertainty == "Gaussian"
+                          and cfg.t_gauss_pos <= 4 else None)
         layers = []
         if self.bayes_pos in ("FFN", "MHA"):
             layers.append(BayesEncoderLayer(E, cfg.nhead, ff,
                                             BAYES_LAYER_DROPOUT, dtype,
                                             self.bayes_pos))
+        elif self.gauss_pos is not None:
+            layers.append(GaussEncoderLayer(E, cfg.nhead, ff, cfg.dropout,
+                                            dtype, self.gauss_pos,
+                                            cfg.gp_sample))
         while len(layers) < n:
             layers.append(StandardEncoderLayer(E, cfg.nhead, ff, cfg.dropout,
                                                dtype))
@@ -345,7 +421,9 @@ class TransformerLM(nn.Module):
         ``dropout_masks`` or masks drawn from ``generator`` (an injected
         attention mask pins the plain attention), and the Bayesian layer's
         weights sampled with the injected ``noise`` (one eps, (out, in) or
-        (E, E) for EMB) or from ``generator``."""
+        (E, E) for EMB) or from ``generator``; the GP-FFN layer's draws
+        likewise (``GaussEncoderLayer.n_draws`` of them, in the JAX call
+        order)."""
         cfg = self.cfg
         T = tokens.shape[0]
         dtype = getattr(torch, cfg.compute_dtype)
@@ -366,10 +444,15 @@ class TransformerLM(nn.Module):
         draws = None if noise is None else list(noise)
         eps = None
         if draws is not None and not deterministic:
-            if len(draws) != (self.bayes_pos != "none"):
+            if self.gauss_pos is not None:
+                want = self.layers[0].n_draws(deterministic)
+            else:
+                want = int(self.bayes_pos != "none")
+            if len(draws) != want:
                 raise ValueError(f"TransformerLM: {len(draws)} injected noise "
-                                 f"tensors for t_bayes_pos {self.bayes_pos!r}")
-            eps = draws[0] if draws else None
+                                 f"tensors where the model draws {want}")
+            eps = draws if self.gauss_pos is not None else (
+                draws[0] if draws else None)
 
         x = self.embedding[tokens].to(dtype) * math.sqrt(cfg.emsize)
         if self.bayes_pos == "EMB":
@@ -391,10 +474,12 @@ class TransformerLM(nn.Module):
         for i, layer in enumerate(self.layers):
             if return_mems:
                 new_mems.append(x)
+            stochastic = i == 0 and (self.bayes_pos in ("FFN", "MHA")
+                                     or self.gauss_pos is not None)
             x = layer(x, mask, deterministic,
                       None if m is None else m.layers[i], generator,
-                      eps if i == 0 and self.bayes_pos in ("FFN", "MHA")
-                      else None, mem=None if mems is None else mems[i])
+                      eps if stochastic else None,
+                      mem=None if mems is None else mems[i])
         if self.bayes_pos == "EMB":
             # transpose-reuse with the MEAN projection (model.py:1302-1307)
             x = x @ self.embed_mean.to(dtype)
@@ -408,9 +493,12 @@ class TransformerLM(nn.Module):
         """The KL dispatch of train.py:335-356: the stochastic layer's for
         FFN and MHA (with ``prior_mean``, the prior's weight mean at
         ``bayes_site``, the prior branch), the embedding projection's
-        against N(0, 1) for EMB, zero otherwise."""
+        against N(0, 1) for EMB, the GP-FFN layer's GPNN KL for
+        ``t_gauss_pos`` 1-3 (no prior branch), zero otherwise."""
         if self.bayes_pos in ("FFN", "MHA"):
             return self.layers[0].kl(prior_mean)
         if self.bayes_pos == "EMB":
             return gaussian.kl_std_normal(self.embed_mean, self.embed_lgstd)
+        if self.gauss_pos in (1, 2, 3):
+            return self.layers[0].kl()
         return torch.zeros((), device=self.embedding.device)

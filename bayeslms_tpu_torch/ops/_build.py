@@ -28,7 +28,7 @@ FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC"]
 KERNELS = ("lstm2_fwd", "ce_fwd", "lstm_train", "ce_train", "bayes_sample",
            "attention_fwd", "bayes_matmul", "attention_train", "lstm_fwd",
-           "gp_lstm")
+           "gp_lstm", "gp6_lstm")
 
 Kernel = Union[str, Tuple[str, Tuple[str, ...]]]  # source, or (source, defines)
 

@@ -1,17 +1,19 @@
-"""GP-LSTM gate-replacement recurrence (GP gates 1-4) with gradients: the
-CUDA kernels' wrappers, their plain twins and the autograd Function behind
-``gpg_layer_fused``.
+"""GP-LSTM recurrences with gradients: the CUDA kernels' wrappers, their
+plain twins and the autograd Functions behind ``gpg_layer_fused`` (GP gates
+1-4) and ``gp6_layer_fused`` (GP gate 6).
 
 Replaces ``bayeslms_tpu/ops/gp_lstm_pallas.py`` ``gpg_layer_fused`` (its
 ``_gpg_fwd_kernel`` and ``_gpg_bwd_kernel`` Pallas bodies, kernel rows 20
-and 21) and ``gpg_pallas_ok``. The kernels are in ``csrc/gp_lstm.cu``,
-whose header says what they compute term for term, what bounds them on the
-H100 and how their design answers that. ``gpg_fwd`` and ``gpg_bwd`` launch
-them for CUDA tensors and raise on what they do not take; for CPU tensors
-they run ``gpg_fwd_plain`` and ``gpg_bwd_plain``, which repeat the
-kernels' arithmetic step by step.
+and 21) and ``gpg_pallas_ok``, and ``gp6_layer_fused`` (``_gp_fwd_kernel``
+and ``_gp_bwd_kernel``, rows 18 and 19) and ``gp6_pallas_ok``. The kernels
+are in ``csrc/gp_lstm.cu`` and ``csrc/gp6_lstm.cu``, whose headers say what
+they compute term for term, what bounds them on the H100 and how their
+design answers that. ``gpg_fwd``, ``gpg_bwd``, ``gp6_fwd`` and ``gp6_bwd``
+launch them for CUDA tensors and raise on what they do not take; for CPU
+tensors they run their ``_plain`` twins, which repeat the kernels'
+arithmetic step by step.
 
-Arithmetic (kernels and plain alike), with ``dtype`` the weights' dtype:
+Gates 1-4 (kernels and plain alike), with ``dtype`` the weights' dtype:
 h and c are carried in float32; one product h_{t-1} W5^T takes h rounded
 to ``dtype``, W5 (5H, H) = [W_hh; w_h]; gates = (xg_t + h W_hh^T) + b_ih and
 pre = gpx_t + h w_h^T in float32; gate ``gate`` of [i, f, g, o] is replaced
@@ -22,6 +24,13 @@ backward recomputes each step from xg_t, gpx_t, ys_{t-1} and cs_{t-1} (in
 takes the dh product on that rounded du5 and sums dcoef in float32 (the
 kernel a column block at a time in a fixed order, so repeat calls agree
 bit for bit).
+
+Gate 6: pre = h_{t-1} W'^T + b' with h rounded to ``dtype`` and b' stored
+in ``dtype``; gates = xg_t + sum_a coef[a] act_a(pre) over (sigmoid, tanh,
+relu), coef float32, no second bias; the standard cell. The backward
+stores dux = du and dupre = dpre in ``dtype``, takes the dh product on the
+rounded dupre and sums dcoef (3, 4H) in float32 as gates 1-4 do; dW' and
+db' are float32 products and sums outside, rounded to W's and b''s dtype.
 """
 
 from __future__ import annotations
@@ -32,13 +41,13 @@ from typing import Optional, Sequence
 import torch
 
 from . import _build
-from .lstm_cuda import est_vmem
+from .lstm_cuda import cell_update, est_vmem
 from .lstm_train_cuda import _check, _ptr
 
 # kernel launches, one per call that reaches a kernel (a call runs T step
 # launches forward, 2T + 1 backward); reset by callers that read them, such
 # as chip_smoke.py
-launches = {"gpg_fwd": 0, "gpg_bwd": 0}
+launches = {"gpg_fwd": 0, "gpg_bwd": 0, "gp6_fwd": 0, "gp6_bwd": 0}
 
 # act sets the kernels take, by the number of coef rows
 ACT_SETS = {1: ("sigmoid",), 3: ("sigmoid", "tanh", "relu")}
@@ -50,9 +59,18 @@ _W5_MAX_BYTES = 10 * 1024 * 1024
 _ROWS_GPG_BWD = 13
 _VMEM_BUDGET = int(0.9 * 100 * 1024 * 1024)
 
+# the gate-6 JAX gate (`gp6_pallas_ok`): the resident (H, 4H) W' within
+# 8 MiB, the U = 1 backward block set within the same budget
+_W6_MAX_BYTES = 8 * 1024 * 1024
+_ROWS_GP6_BWD = 15
+# the gate-6 unit's act set, the only one its kernels take
+GP6_ACTS = ("sigmoid", "tanh", "relu")
+
 _P = ctypes.c_void_p
 _FWD_ARGTYPES = [_P] * 11 + [ctypes.c_int] * 5 + [_P]
 _BWD_ARGTYPES = [_P] * 16 + [ctypes.c_int] * 5 + [_P]
+_GP6_FWD_ARGTYPES = [_P] * 10 + [ctypes.c_int] * 3 + [_P]
+_GP6_BWD_ARGTYPES = [_P] * 16 + [ctypes.c_int] * 3 + [_P]
 
 
 def gpg_kernel_ok(x: torch.Tensor, nhid: int) -> bool:
@@ -187,7 +205,8 @@ def _checked(fn, xg, gpx, w5, bih, coef, mask, gate, states):
 
 
 def _call(fn, argtypes, *args):
-    f = getattr(_build.load("gp_lstm"), fn)
+    f = getattr(_build.load("gp6_lstm" if fn.startswith("gp6")
+                            else "gp_lstm"), fn)
     f.argtypes, f.restype = argtypes, ctypes.c_int
     err = f(*args)
     if err != 0:
@@ -317,4 +336,219 @@ def gpg_layer_fused(xg: torch.Tensor, gpx: torch.Tensor, w_hh: torch.Tensor,
     ys, _cs, hT, cT = _GPGFused.apply(
         xg.contiguous(), gpx.contiguous(), w5, b_ih.to(dtype), coef,
         h0.to(dtype), c0.to(dtype), step_mask, int(gate))
+    return ys, (hT, cT)
+
+
+# ------------------------------------------------------------------ gate 6
+def gp6_kernel_ok(x: torch.Tensor, nhid: int) -> bool:
+    """``gp6_pallas_ok(nhid, x.dtype, batch=x.shape[1])`` with a CUDA
+    tensor in place of the TPU platform: W' (4H, H) within 8 MiB (exactly
+    8 MiB at H = 1,024 in bf16 is admitted) and the U = 1 backward block
+    set within the VMEM budget."""
+    itemsize = x.element_size()
+    return (x.is_cuda and nhid * 4 * nhid * itemsize <= _W6_MAX_BYTES
+            and est_vmem(1, x.shape[1], nhid, _ROWS_GP6_BWD * nhid,
+                         itemsize) <= _VMEM_BUDGET)
+
+
+def _gp6_step(xg_t, h, w_t, b32, coef, dtype):
+    """One step's (pre, (sigmoid, tanh, relu) of pre, gate pre-activations)
+    from h_{t-1} (float32 or ``dtype``), as the kernels compute them."""
+    pre = h.to(dtype).float() @ w_t + b32
+    avals = (torch.sigmoid(pre), torch.tanh(pre), torch.relu(pre))
+    mix = coef[0] * avals[0] + coef[1] * avals[1] + coef[2] * avals[2]
+    return pre, avals, xg_t.float() + mix
+
+
+def gp6_fwd_plain(xg, w, b, coef, mask, h0, c0):
+    """Plain PyTorch version of the forward kernel, same arguments as
+    ``gp6_fwd``."""
+    dtype = w.dtype
+    w_t, b32 = w.float().t(), b.float()
+    h, c = h0.float(), c0.float()
+    ys, cs = [], []
+    for t in range(xg.shape[0]):
+        gates = _gp6_step(xg[t], h, w_t, b32, coef, dtype)[2]
+        h, c = cell_update(gates, h, c, None if mask is None else mask[t])
+        ys.append(h.to(dtype))
+        cs.append(c.to(dtype))
+    return torch.stack(ys), torch.stack(cs), h.to(dtype), c.to(dtype)
+
+
+def gp6_bwd_plain(xg, w, b, coef, mask, h0, c0, ys, cs, dy, dhT, dcT):
+    """Plain PyTorch version of the backward kernel, same arguments as
+    ``gp6_bwd``."""
+    dtype = w.dtype
+    wf, b32 = w.float(), b.float()
+    w_t = wf.t()
+    dh, dc = dhT.float(), dcT.float()
+    dcoef = torch.zeros(coef.shape, dtype=torch.float32, device=xg.device)
+    dux = torch.empty(xg.shape, dtype=dtype, device=xg.device)
+    dupre = torch.empty_like(dux)
+    for t in reversed(range(xg.shape[0])):
+        h_prev = h0 if t == 0 else ys[t - 1]
+        c_prev = (c0 if t == 0 else cs[t - 1]).float()
+        pre, (s, th, r), gates = _gp6_step(xg[t], h_prev, w_t, b32, coef,
+                                           dtype)
+        gi, gf, gg, go = gates.chunk(4, dim=-1)
+        i, f, o = torch.sigmoid(gi), torch.sigmoid(gf), torch.sigmoid(go)
+        g = torch.tanh(gg)
+        tc = torch.tanh(f * c_prev + i * g)
+        keep = (torch.ones_like(dh[:, :1]) if mask is None
+                else mask[t].to(torch.float32)[:, None])
+        dh_tot = dh + dy[t].float()
+        dh_new = keep * dh_tot
+        dc_new = keep * dc
+        d_o = dh_new * tc
+        dcc = dc_new + dh_new * o * (1.0 - tc * tc)
+        dc = dcc * f + (1.0 - keep) * dc
+        du = torch.cat([dcc * g * i * (1.0 - i), dcc * c_prev * f * (1.0 - f),
+                        dcc * i * (1.0 - g * g), d_o * o * (1.0 - o)], dim=-1)
+        dcoef[0] += (du * s).sum(0)
+        dcoef[1] += (du * th).sum(0)
+        dcoef[2] += (du * r).sum(0)
+        dpre = du * (coef[0] * s * (1.0 - s) + coef[1] * (1.0 - th * th)
+                     + coef[2] * (pre > 0.0).float())
+        dux[t] = du.to(dtype)
+        dupre[t] = dpre.to(dtype)
+        dh = dupre[t].float() @ wf + (1.0 - keep) * dh_tot
+    return dux, dupre, dcoef, dh.to(dtype), dc.to(dtype)
+
+
+def _gp6_checked(fn, xg, w, b, coef, mask, states):
+    """Validate the arguments both gate-6 kernels take; returns (T, B, H,
+    mask as contiguous bytes or None)."""
+    T, B, G = xg.shape
+    H = G // 4
+    dev = xg.device
+    bf16 = torch.bfloat16
+    if G != 4 * H or H % 32 != 0:
+        raise ValueError(f"{fn}: hidden size {G / 4} must be a multiple of "
+                         f"32 (xg width {G})")
+    _check(fn, "xg", xg, bf16, (T, B, G), dev)
+    _check(fn, "w", w, bf16, (G, H), dev)
+    _check(fn, "b", b, bf16, (G,), dev)
+    _check(fn, "coef", coef, torch.float32, (len(GP6_ACTS), G), dev)
+    for name, s, shape in states:
+        _check(fn, name, s, bf16, shape, dev)
+    if mask is not None:
+        mask = (mask != 0).to(torch.uint8).contiguous()
+        _check(fn, "mask", mask, torch.uint8, (T, B), dev)
+    return T, B, H, mask
+
+
+def gp6_fwd(xg: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+            coef: torch.Tensor, mask: Optional[torch.Tensor],
+            h0: torch.Tensor, c0: torch.Tensor):
+    """The gate-6 recurrence over a (T, B) sequence, keeping the cell
+    sequence.
+
+    xg (T, B, 4H) = x W_ih^T + b_ih in the compute dtype; w (4H, H), the
+    drawn GP weight as stored, and b (4H,) in the compute dtype; coef
+    (3, 4H) float32, the (sigmoid, tanh, relu) coefficients; mask (T, B),
+    nonzero = step, or None; h0, c0 (B, H) in the compute dtype. Returns
+    ys, cs (T, B, H), hT, cT (B, H) in the compute dtype. CUDA tensors
+    launch ``gp6_fwd`` of ``csrc/gp6_lstm.cu`` (bf16 only); CPU tensors run
+    ``gp6_fwd_plain``.
+    """
+    if not xg.is_cuda:
+        return gp6_fwd_plain(xg, w, b, coef, mask, h0, c0)
+    fn = "gp6_fwd"
+    B, H = xg.shape[1], xg.shape[2] // 4
+    T, B, H, mask = _gp6_checked(fn, xg, w, b, coef, mask, (
+        ("h0", h0, (B, H)), ("c0", c0, (B, H))))
+    h = h0.float().contiguous()
+    c = c0.float().contiguous()
+    ys = torch.empty((T, B, H), dtype=torch.bfloat16, device=xg.device)
+    cs = torch.empty_like(ys)
+    _call(fn, _GP6_FWD_ARGTYPES, _ptr(xg), _ptr(w), _ptr(b), _ptr(coef),
+          _ptr(mask), _ptr(h0), _ptr(h), _ptr(c), _ptr(ys), _ptr(cs), T, B,
+          H, torch.cuda.current_stream(xg.device).cuda_stream)
+    return ys, cs, h.to(torch.bfloat16), c.to(torch.bfloat16)
+
+
+def gp6_bwd(xg, w, b, coef, mask, h0, c0, ys, cs, dy, dhT, dcT):
+    """Reverse-time gradients of ``gp6_fwd``.
+
+    The forward's arguments and outputs ys, cs, with dy (T, B, H) and dhT,
+    dcT (B, H), all in the compute dtype. Returns dux, the gradient of the
+    gate pre-activations (= d xg), and dupre, that of the GP unit's
+    pre-activation, both (T, B, 4H) in the compute dtype; dcoef (3, 4H)
+    float32; dh0, dc0 (B, H) in the compute dtype. CUDA tensors launch
+    ``gp6_bwd`` of ``csrc/gp6_lstm.cu`` (bf16 only); CPU tensors run
+    ``gp6_bwd_plain``.
+    """
+    if not xg.is_cuda:
+        return gp6_bwd_plain(xg, w, b, coef, mask, h0, c0, ys, cs, dy, dhT,
+                             dcT)
+    fn = "gp6_bwd"
+    T, B, G = xg.shape
+    H = G // 4
+    T, B, H, mask = _gp6_checked(fn, xg, w, b, coef, mask, (
+        ("h0", h0, (B, H)), ("c0", c0, (B, H)), ("ys", ys, (T, B, H)),
+        ("cs", cs, (T, B, H)), ("dy", dy, (T, B, H)), ("dhT", dhT, (B, H)),
+        ("dcT", dcT, (B, H))))
+    dev = xg.device
+    dh = dhT.float().contiguous()
+    dc = dcT.float().contiguous()
+    dux = torch.empty((T, B, G), dtype=torch.bfloat16, device=dev)
+    dupre = torch.empty_like(dux)
+    acc = torch.zeros((-(-B // 32), len(GP6_ACTS), G), dtype=torch.float32,
+                      device=dev)
+    dcoef = torch.empty((len(GP6_ACTS), G), dtype=torch.float32, device=dev)
+    _call(fn, _GP6_BWD_ARGTYPES, _ptr(xg), _ptr(w), _ptr(b), _ptr(coef),
+          _ptr(mask), _ptr(h0), _ptr(c0), _ptr(ys), _ptr(cs), _ptr(dy),
+          _ptr(dh), _ptr(dc), _ptr(dux), _ptr(dupre), _ptr(acc), _ptr(dcoef),
+          T, B, H, torch.cuda.current_stream(dev).cuda_stream)
+    return dux, dupre, dcoef, dh.to(torch.bfloat16), dc.to(torch.bfloat16)
+
+
+class _GP6Fused(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, xg, w, b, coef, h0, c0, mask):
+        ys, cs, hT, cT = gp6_fwd(xg, w, b, coef, mask, h0, c0)
+        ctx.save_for_backward(xg, w, b, coef, h0, c0, ys, cs)
+        ctx.mask = mask
+        ctx.mark_non_differentiable(cs)
+        return ys, cs, hT, cT
+
+    @staticmethod
+    def backward(ctx, dy, _dcs, dhT, dcT):
+        xg, w, b, coef, h0, c0, ys, cs = ctx.saved_tensors
+        dy = torch.zeros_like(ys) if dy is None else dy.contiguous()
+        dhT = torch.zeros_like(h0) if dhT is None else dhT.contiguous()
+        dcT = torch.zeros_like(c0) if dcT is None else dcT.contiguous()
+        dux, dupre, dcoef, dh0, dc0 = gp6_bwd(xg, w, b, coef, ctx.mask, h0,
+                                              c0, ys, cs, dy, dhT, dcT)
+        # dW' = dupre^T hprev and db' = sum dupre: float32 products and sums
+        # outside the kernel (the TPU package's XLA ops), rounded to W's and
+        # b''s dtype (the compute dtype: b' entered in it)
+        T, B, G = dupre.shape
+        hprev = torch.cat([h0[None], ys[:-1]]).reshape(T * B, -1).float()
+        dpf = dupre.reshape(T * B, G).float()
+        dw = (dpf.t() @ hprev).to(w.dtype)
+        db = dpf.sum(0).to(b.dtype)
+        return (dux.to(xg.dtype), dw, db, dcoef.to(coef.dtype),
+                dh0.to(h0.dtype), dc0.to(c0.dtype), None)
+
+
+def gp6_layer_fused(xg: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+                    coef: torch.Tensor, h0: torch.Tensor, c0: torch.Tensor,
+                    step_mask: Optional[torch.Tensor] = None):
+    """Differentiable gate-6 GP layer (the JAX package's
+    ``gp6_layer_fused``): xg (T, B, 4H) = x W_ih^T + b_ih in the compute
+    dtype; w (4H, H) the drawn GP weight, as stored; b (4H,); coef (3, 4H)
+    over (sigmoid, tanh, relu); h0, c0 (B, H); step_mask (T, B) or None.
+    W' and b' are cast to the compute dtype, coef to float32, as the JAX
+    wrapper casts them. Returns ys, (hT, cT) in the compute dtype;
+    gradients flow to every tensor argument (not through the cell
+    sequence, which no caller consumes)."""
+    if coef.shape[0] != len(GP6_ACTS):
+        raise ValueError(f"gp6_layer_fused: {coef.shape[0]} coef rows; the "
+                         f"kernels take the act set {GP6_ACTS}")
+    dtype = xg.dtype
+    ys, _cs, hT, cT = _GP6Fused.apply(
+        xg.contiguous(), w.to(dtype).contiguous(), b.to(dtype),
+        coef.float().contiguous(), h0.to(dtype).contiguous(),
+        c0.to(dtype).contiguous(), step_mask)
     return ys, (hT, cT)

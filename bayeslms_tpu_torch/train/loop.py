@@ -6,7 +6,8 @@ Reference behaviours (train.py), as the JAX package keeps them:
 - loss = mean token CE + KL * seq_len / rows of the batchified stream; the
   standard models have no KL, the Bayesian and GP ones' is the model's
   ``kl_value`` (the LSTM core's, the GP-LSTM core's GPNN KLs, or the
-  Transformer's dispatch over FFN, MHA and EMB; against N(0, 1), or with
+  Transformer's dispatch over FFN, MHA, EMB and the GP-FFN layer; against
+  N(0, 1), or with
   ``prior_kl`` against the prior's means where the reference has that
   branch);
 - the prior / finetune workflow: ``prior`` with ``prior_path`` overwrites
@@ -28,7 +29,8 @@ Reference behaviours (train.py), as the JAX package keeps them:
 The step runs the model's training forward (LSTM grad route: CUDA kernels
 ``lstm_train_cuda``; the Bayesian core's gate-slice sampler
 ``bayes_sample_cuda``, its seeds drawn on the device from the trainer's
-generator; the GP cell's recurrence ``gp_lstm_cuda``; the Transformer's
+generator; the GP cell's recurrence ``gp_lstm_cuda`` (gates 1-4 and 6;
+gate 7 on ``lstm_train_cuda``); the Transformer's
 plain attention and dense layers, and kernel row 12 where a ``BayesDense``
 has ``use_fused``) and the differentiable
 fused CE (``ce_train_cuda``) over the model's pre-decoder states, width
@@ -175,8 +177,13 @@ class Trainer:
         else:
             out, new_hidden = model(data, hidden, **kw)
         T, B, H = out.shape
-        ce = fused_decode_ce_train(out.reshape(T * B, H), model.embedding,
-                                   model.decoder_b,
+        # the CE's operand in the compute dtype: a GP cell on the scan
+        # (gate 5, GPNN2) carries the float32 state it started from, as
+        # JAX's scan promotes it, and its output would reach the CE in
+        # float32, which the kernels do not take
+        dtype = getattr(torch, self.mcfg.compute_dtype)
+        ce = fused_decode_ce_train(out.reshape(T * B, H).to(dtype),
+                                   model.embedding, model.decoder_b,
                                    target.reshape(-1)).reshape(T, B)
         if mask is None:
             mle = ce.mean()

@@ -30,6 +30,19 @@ packed-carry pass of the 6,000-hypothesis N-best from that checkpoint: the
 single-layer forward kernel with resets against its twin on the pass's
 call and with -1 sources (planted faults: resets ignored, -1 source not
 zeroed, step mask ignored, W_hh dropped), the pass against the plain path.
+Then the README's gate-6 GP-LSTM (``l_gauss_pos`` 63: a GP unit in place of
+the GP cell's hidden projection, then a standard layer) on the same
+corpus: the gate-6 kernels (forward, backward) against their twins on the
+calls a step and an ``evaluate`` window hand them, with a random step mask
+and with a random b' (planted faults: b' zeroed, coef rows swapped, mask
+ignored, and two builds with ``-DGP6_FAULT``), one epoch of
+``Trainer.fit``, a kernel-path step against the plain path, and a
+packed-carry pass of the 6,000-hypothesis N-best from that checkpoint
+against the plain path; gate 7 (``73``): a kernel-path step (the
+single-layer training kernels on the hoisted GP input) against the plain
+path; GPNN2 (``14``): a few steps of ``Trainer.fit``, the loss finite and
+falling; the GP-FFN Transformer (``t_gauss_pos`` 3 at the recipe's width):
+a kernel-path step against the plain path.
 Then the recipe's Transformer (512/4096 x 6, 8 heads, the same table,
 bf16; lr 0.1): the causal attention kernel against its twin on the q, k, v
 that ``evaluate`` hands it and at T = 1,024 and 4,096 (and a planted-fault
@@ -60,7 +73,8 @@ it), and an on-card check that memories give the suffix of a
 full-context forward. Every phase prints its result and seconds; any
 failure exits non-zero before the result lines. The last two lines are a
 JSON object per kernel (the single-layer forward kernel twice, as the TPU
-kernels it replaces with resets and without; the CE training kernels at
+kernels it replaces with resets and without; the gate-6 kernels from the
+``63`` phases; the CE training kernels at
 the LSTM's D = 1,024,
 the Transformer's 512 and the long step's M = 32,768; the scoring CE at
 both widths) and the device line.
@@ -128,6 +142,27 @@ def make_synthetic_nbest(n_meetings=10, utts_per_meeting=10, n_hyps=20,
 def stream_of(key):
     """Carry-over chain: the recording prefix."""
     return key.split("_")[0]
+
+
+# The port's CUDA kernel functions and the rows of PERF.md's kernel table
+# (the JAX package's pallas_call sites) they make up, for the profiles'
+# kernel names (tools/port_train_profile.py, tools/port_pass_profile.py).
+KERNEL_ROWS = (
+    ("lstm_step_kernel", "1, 3, 4"), ("ce_fwd_kernel", "2"),
+    ("lstm_fwd_step", "5"), ("lstm_bwd_gates", "6"), ("lstm_bwd_dh", "6"),
+    ("ce_stats_kernel", "9"), ("ce_grad_kernel<false>", "10"),
+    ("ce_grad_kernel<true>", "11"), ("bayes_matmul_kernel", "12"),
+    ("bayes_sample_kernel", "13"), ("attention_fwd_kernel", "14"),
+    ("attn_train_fwd_kernel", "15"), ("attn_train_dq_kernel", "16"),
+    ("attn_train_dkv_kernel", "17"), ("gp6_fwd_step", "18"),
+    ("gp6_bwd_gates", "19"), ("gp6_bwd_dh", "19"), ("gp6_dcoef_sum", "19"),
+    ("gpg_fwd_step", "20"), ("gpg_bwd_gates", "21"), ("gpg_bwd_dh", "21"),
+    ("gpg_dcoef_sum", "21"))
+
+
+def kernel_row(name):
+    """'row N' of the kernel table for a device event's name, or ''."""
+    return next((f"row {r}" for k, r in KERNEL_ROWS if k in name), "")
 
 
 def bench_setup():
@@ -369,15 +404,17 @@ def recording(module, names, recorded):
     return [patch(n) for n in names]
 
 
-def check_outputs(name, got, ref, rtol, share):
+def check_outputs(name, got, ref, rtol, share, slack=None):
     """Print each output's magnitude, error and worst share of its
-    tolerance; returns (max abs error, worst share)."""
+    tolerance (plus ``slack[k]``, an elementwise allowance, where given);
+    returns (max abs error, worst share)."""
     err, worst = 0.0, 0.0
     for k in ref:
         r = ref[k].float()
         big = float(r.abs().max())
         e = max_err(got[k], r)
-        q = tol_ratio(got[k], r, rtol, share * big + 1e-30)
+        q = tol_ratio(got[k], r, rtol,
+                      share * big + 1e-30 + (slack or {}).get(k, 0.0))
         err, worst = max(err, e), max(worst, q)
         print(f"  {name} {k}: |plain| max {big:.3e} mean "
               f"{float(r.abs().mean()):.3e}; max |kernel - plain| {e:.3e}, "
@@ -385,9 +422,10 @@ def check_outputs(name, got, ref, rtol, share):
     return err, worst
 
 
-def fault_share(got, ref, rtol, share):
+def fault_share(got, ref, rtol, share, slack=None):
     return max(tol_ratio(got[k], ref[k], rtol,
-                         share * float(ref[k].float().abs().max()) + 1e-30)
+                         share * float(ref[k].float().abs().max()) + 1e-30
+                         + (slack or {}).get(k, 0.0))
                for k in ref)
 
 
@@ -2140,6 +2178,9 @@ GP_POS = "13"
 GP_SHORT_T = 10  # gates 2-4 are checked at this T on the step's tensors
 GP_TOL = {"gpg_fwd": TRAIN_TOL["lstm_train_fwd"],
           "gpg_bwd": TRAIN_TOL["lstm_train_bwd"],
+          # rows 18-19: rows 5-6's recurrence with a mixture epilogue
+          "gp6_fwd": TRAIN_TOL["lstm_train_fwd"],
+          "gp6_bwd": TRAIN_TOL["lstm_train_bwd"],
           # rows 3-4: bf16 outputs of a T-step recurrence, as row 5's
           "lstm_fwd": TRAIN_TOL["lstm_train_fwd"],
           "lstm_fwd_reset": TRAIN_TOL["lstm_train_fwd"]}
@@ -2165,7 +2206,8 @@ def check_kernel_calls(torch, kernels, name, spec, calls):
     """``name`` (spec: module, wrapper (default ``name``), plain, outs,
     source, replaces, faults, flops(args), nbytes(args), library: a
     factory that makes the library call on the args, or the reason there
-    is none) against its twin on every call of
+    is none; optionally slack(args, ref): elementwise allowances added to
+    the tolerance of some outputs) against its twin on every call of
     ``calls`` within GP_TOL, each planted fault on the calls it applies to
     (an input fault returns None where it does not) by FAULT_MARGIN or
     more; times it on the first call and adds it to ``kernels``. Raises on
@@ -2187,7 +2229,8 @@ def check_kernel_calls(torch, kernels, name, spec, calls):
             ref = dict(zip(spec["outs"], spec["plain"](*args)))
             got = dict(zip(spec["outs"], kernel(*args)))
             torch.cuda.synchronize()
-            e, q = check_outputs(name, got, ref, rtol, share)
+            slack = spec.get("slack", lambda a, r: None)(args, ref)
+            e, q = check_outputs(name, got, ref, rtol, share, slack)
             err, worst = max(err, e), max(worst, q)
             for fault, how in spec["faults"].items():
                 if callable(how):
@@ -2200,8 +2243,8 @@ def check_kernel_calls(torch, kernels, name, spec, calls):
                                            lambda k, v=how: real_load(v)):
                         bad = kernel(*args)
                 faults[fault] = min(faults[fault], fault_share(
-                    dict(zip(spec["outs"], bad)), ref, rtol, share))
-            del ref, got
+                    dict(zip(spec["outs"], bad)), ref, rtol, share, slack))
+            del ref, got, slack
         for fault, q in faults.items():
             print(f"  planted fault '{fault}': worst share of tolerance "
                   f"{q:.1f}")
@@ -2230,6 +2273,126 @@ def check_kernel_calls(torch, kernels, name, spec, calls):
                    if not q >= FAULT_MARGIN]
         if failed:
             raise AssertionError("; ".join(failed))
+
+
+def gp_fit(torch, kernels, trainer, corpus, smi, kl_scale, tag, cell_rows,
+           counted):
+    """One epoch of ``trainer.fit`` for a GP-LSTM whose GP cell takes the
+    kernels ``cell_rows`` (forward, backward) and whose standard layer takes
+    rows 5-6 (row 4 in ``evaluate``): the loss finite and falling, the KL
+    term finite and > 0, every training kernel once a step, the cell's
+    forward and row 4 once an ``evaluate`` window. Sets the launches of the
+    kernels ``counted``. Raises on any failed check."""
+    from bayeslms_tpu_torch.ops import ce_train_cuda as ctc
+    from bayeslms_tpu_torch.ops import gp_lstm_cuda as gpc
+    from bayeslms_tpu_torch.ops import lstm_cuda as lc
+    from bayeslms_tpu_torch.ops import lstm_train_cuda as ltc
+
+    fwd, bwd = cell_rows
+    T, B = trainer.tcfg.seq_len, trainer.tcfg.batch_size
+    with phase(f"{tag} train"):
+        for module in (ltc, ctc, gpc):
+            for k in module.launches:
+                module.launches[k] = 0
+        for k in lc.layer_launches:
+            lc.layer_launches[k] = 0
+        steps, kls = [], []
+        step = trainer.train_step
+
+        def counted_step(*a, **kw):
+            out = step(*a, **kw)
+            kls.append(out[3])
+            return out
+
+        def on_step(b, loss):
+            torch.cuda.synchronize()
+            steps.append((time.perf_counter(), float(loss)))
+
+        trainer.train_step = counted_step
+        t0 = time.perf_counter()
+        state, out = trainer.fit(corpus, log=lambda line: print("  " + line),
+                                 on_step=on_step)
+        fit_s = time.perf_counter() - t0
+        trainer.train_step = step
+        n = len(steps)
+        launches = {**ltc.launches, **ctc.launches, **gpc.launches,
+                    **lc.layer_launches}
+        print(f"  kernel launches in fit ({n} steps and the evaluations): "
+              f"{launches}")
+        losses = [l for _, l in steps]
+        kl = [float(k) for k in kls]
+        print("  loss per step: " + " ".join(f"{l:.4f}" for l in losses))
+        print(f"  KL term (KL x seq_len / rows = x {kl_scale:.5f}) per step: "
+              + " ".join(f"{k:.6f}" for k in kl))
+        print(f"  validation loss {out['history'][0]['val_loss']:.4f}; test "
+              f"loss {out['test_loss']:.4f}")
+        dts = np.diff([t for t, _ in steps])[2:]
+        step_ms = 1e3 * float(np.median(dts))
+        print(f"  step median {step_ms:.3f} ms over {len(dts)} warm steps, "
+              f"{T * B / step_ms * 1e3:.1f} tokens/s; fit {fit_s:.1f} s on "
+              f"{smi}")
+        for name in ("lstm_train_fwd", "lstm_train_bwd", bwd, *CE_TRAIN):
+            if launches[name] != n:
+                raise AssertionError(f"{name}: {launches[name]} launches in "
+                                     f"{n} steps, 1 a step expected")
+        n_eval = launches[fwd] - n
+        print(f"  evaluate: {fwd} {n_eval}, lstm_fwd {launches['lstm_fwd']} "
+              "launches")
+        if n_eval <= 0 or launches["lstm_fwd"] != n_eval:
+            raise AssertionError(f"evaluate did not take {fwd} and row 4 on "
+                                 "every window")
+        for name in counted:
+            kernels[name]["launches"] = launches[name]
+        if not all(np.isfinite(losses)) or not np.isfinite(out["test_loss"]):
+            raise AssertionError("a training loss is not finite")
+        if not all(np.isfinite(k) and k > 0 for k in kl):
+            raise AssertionError(f"the KL term is not finite and > 0: {kl}")
+        if np.mean(losses[-5:]) >= np.mean(losses[:5]):
+            raise AssertionError(
+                f"the loss did not fall: first 5 {np.mean(losses[:5]):.4f}, "
+                f"last 5 {np.mean(losses[-5:]):.4f}")
+
+
+def gp_score(torch, scorer, nbest, w2i, smi, tag):
+    """A timed packed-carry pass of a GP-LSTM (its GP cell on the scan
+    under the resets, as in JAX; its standard layer on row 3, the CE on row
+    2) against the plain path within GP_SCORE_ATOL + GP_SCORE_RTOL |plain|.
+    Returns row 3's launches in the pass. Raises on any failed check."""
+    from bayeslms_tpu_torch.ops import ce_cuda
+    from bayeslms_tpu_torch.ops import lstm_cuda as lc
+
+    with phase(f"{tag} score"):
+        lc.layer_launches["lstm_fwd_reset"] = 0
+        ce_cuda.launches = 0
+        t0 = time.perf_counter()
+        res = scorer.score_nbest(nbest, w2i, stream_fn=stream_of)
+        torch.cuda.synchronize()
+        pass_s = time.perf_counter() - t0
+        n_row3, n_row2 = lc.layer_launches["lstm_fwd_reset"], ce_cuda.launches
+        print(f"  kernel launches in a pass: lstm_fwd_reset {n_row3}, ce_fwd "
+              f"{n_row2}; the GP cell runs the scan under resets, as in JAX")
+        if n_row3 == 0 or n_row2 == 0:
+            raise AssertionError("GP scoring did not run rows 3 and 2")
+        got = np.array([s for pairs in res.values() for _, s in pairs])
+        with mock.patch.object(lc, "lstm_fwd", lc.lstm_fwd_plain), \
+                mock.patch.object(ce_cuda, "fused_decode_ce", ce_cuda.ce_plain):
+            ref = np.array([s for pairs in scorer.score_nbest(
+                nbest, w2i, stream_fn=stream_of).values() for _, s in pairs])
+        n_hyps = sum(len(h) for h in nbest.values())
+        diff = np.abs(got - ref)
+        share = float((diff / (GP_SCORE_ATOL + GP_SCORE_RTOL
+                               * np.abs(ref))).max())
+        print(f"  {n_hyps} hypotheses in {pass_s:.3f} s ({n_hyps / pass_s:.1f}"
+              f" hyps/s) on {smi}; scores mean {got.mean():.3f}, max "
+              f"{np.abs(ref).max():.3f}; max |kernel - plain| "
+              f"{float(diff.max()):.4e}, relative "
+              f"{float((diff / np.abs(ref)).max()):.3e}; worst share of "
+              f"{GP_SCORE_ATOL:.0e} + {GP_SCORE_RTOL:.0e} |plain|: "
+              f"{share:.3f}")
+        if got.shape != (n_hyps,) or not np.all(np.isfinite(got)) \
+                or share > 1:
+            raise AssertionError("GP scoring failed")
+    return n_row3
 
 
 def lstm_fwd_specs(torch, lc):
@@ -2357,7 +2520,6 @@ def gp_phases(torch, kernels, smi, cfg, rcfg, corpus, tmpdir):
     from bayeslms_tpu_torch.data.corpus import batchify
     from bayeslms_tpu_torch.models.lstm_lm import (draw_dropout_masks,
                                                    init_hidden)
-    from bayeslms_tpu_torch.ops import ce_cuda
     from bayeslms_tpu_torch.ops import ce_train_cuda as ctc
     from bayeslms_tpu_torch.ops import gp_lstm_cuda as gpc
     from bayeslms_tpu_torch.ops import lstm_cuda as lc
@@ -2437,70 +2599,8 @@ def gp_phases(torch, kernels, smi, cfg, rcfg, corpus, tmpdir):
         ("that window with a random step mask", masked)])
     del step_calls, recorded, short_fwd, short_bwd
 
-    with phase("gp train"):
-        for module in (ltc, ctc, gpc):
-            for k in module.launches:
-                module.launches[k] = 0
-        for k in lc.layer_launches:
-            lc.layer_launches[k] = 0
-        steps, kls = [], []
-        step = trainer.train_step
-
-        def counted_step(*a, **kw):
-            out = step(*a, **kw)
-            kls.append(out[3])
-            return out
-
-        def on_step(b, loss):
-            torch.cuda.synchronize()
-            steps.append((time.perf_counter(), float(loss)))
-
-        trainer.train_step = counted_step
-        t0 = time.perf_counter()
-        state, out = trainer.fit(corpus, log=lambda line: print("  " + line),
-                                 on_step=on_step)
-        fit_s = time.perf_counter() - t0
-        trainer.train_step = step
-        n = len(steps)
-        launches = {**ltc.launches, **ctc.launches, **gpc.launches,
-                    **lc.layer_launches}
-        print(f"  kernel launches in fit ({n} steps and the evaluations): "
-              f"{launches}")
-        losses = [l for _, l in steps]
-        kl = [float(k) for k in kls]
-        print("  loss per step: " + " ".join(f"{l:.4f}" for l in losses))
-        print(f"  KL term (KL x seq_len / rows = x {kl_scale:.5f}) per step: "
-              + " ".join(f"{k:.6f}" for k in kl))
-        print(f"  validation loss {out['history'][0]['val_loss']:.4f}; test "
-              f"loss {out['test_loss']:.4f}")
-        dts = np.diff([t for t, _ in steps])[2:]
-        step_ms = 1e3 * float(np.median(dts))
-        print(f"  step median {step_ms:.3f} ms over {len(dts)} warm steps, "
-              f"{T * B / step_ms * 1e3:.1f} tokens/s; fit {fit_s:.1f} s on "
-              f"{smi}")
-        per_step = {"lstm_train_fwd": 1, "lstm_train_bwd": 1, "gpg_bwd": 1,
-                    "ce_train_fwd": 1, "ce_train_dh": 1, "ce_train_de": 1}
-        for name, k in per_step.items():
-            if launches[name] != k * n:
-                raise AssertionError(f"{name}: {launches[name]} launches in "
-                                     f"{n} steps, {k} a step expected")
-        n_eval = launches["gpg_fwd"] - n
-        print(f"  evaluate: gpg_fwd {n_eval}, lstm_fwd "
-              f"{launches['lstm_fwd']} launches")
-        if n_eval <= 0 or launches["lstm_fwd"] != n_eval:
-            raise AssertionError("evaluate did not take rows 20 and 4 on "
-                                 "every window")
-        for name in ("gpg_fwd", "gpg_bwd", "lstm_fwd"):
-            kernels[name]["launches"] = launches[name]
-        if not all(np.isfinite(losses)) or not np.isfinite(out["test_loss"]):
-            raise AssertionError("a training loss is not finite")
-        if not all(np.isfinite(k) and k > 0 for k in kl):
-            raise AssertionError(f"the KL term is not finite and > 0: {kl}")
-        if np.mean(losses[-5:]) >= np.mean(losses[:5]):
-            raise AssertionError(
-                f"the loss did not fall: first 5 {np.mean(losses[:5]):.4f}, "
-                f"last 5 {np.mean(losses[-5:]):.4f}")
-        del state
+    gp_fit(torch, kernels, trainer, corpus, smi, kl_scale, "gp",
+           ("gpg_fwd", "gpg_bwd"), ("gpg_fwd", "gpg_bwd", "lstm_fwd"))
 
     with phase("gp train step against plain versions"):
         gen = torch.Generator(device="cuda").manual_seed(3)
@@ -2543,38 +2643,322 @@ def gp_phases(torch, kernels, smi, cfg, rcfg, corpus, tmpdir):
                            ("that pass with -1 sources", with_arg(a, 7, src))])
     del recorded, calls, a
 
-    with phase("gp score"):
-        lc.layer_launches["lstm_fwd_reset"] = 0
-        ce_cuda.launches = 0
-        t0 = time.perf_counter()
-        res = scorer.score_nbest(nbest, w2i, stream_fn=stream_of)
+    kernels["lstm_fwd_reset"]["launches"] = gp_score(
+        torch, scorer, nbest, w2i, smi, "gp")
+
+
+# ---------------------------------------------------------------- gate 6
+# The GP-LSTM of the README's training table (L_gauss_pos 63: a GP cell
+# whose GPNN, type 3, replaces the hidden projection, then a standard
+# layer; sampling off as the reference ships) at the bench's width (emsize
+# = nhid = 1,024, which gate 6 needs) on the training phases' corpus. Rows
+# 18-19 carry the GP cell's training and evaluation, rows 5-6 the standard
+# layer's training, row 4 its evaluation and row 3 its packed-carry scoring
+# (where the GP cell runs the JAX scan, as JAX does under resets). Then
+# gate 7 (73: the GP unit over x hoisted, its recurrence and the standard
+# layer's on rows 5-6), GPNN2 (14: a scan in JAX, no kernel of its own) and
+# the GP-FFN Transformer (t_gauss_pos 3 at the recipe's width).
+GP6_POS = "63"
+# Planted faults of rows 18-19 that no input can make, built from
+# csrc/gp6_lstm.cu with a define (see its header).
+GP6_FAULTS = {
+    "relu term dropped from dpre": ("gp6_lstm", ("-DGP6_FAULT=1",)),
+    "dcoef dropped": ("gp6_lstm", ("-DGP6_FAULT=2",)),
+}
+# The learning rates of the gate-6 fit and GPNN2's steps. At the recipes'
+# lr 5 the gate-6 model's loss on this corpus spikes from 11.6 to 28 by
+# step 6 on the kernel path and on the plain twins alike (gradient norms up
+# to 372 before the clip; gate 7 too), where 13 and the standard model fall
+# (tools/port_lr_probe.py on the H100, PERF.md); at lr 2 it falls to 5.3 in
+# an epoch.
+GP6_LR = 2.0
+GP14_LR = 1.0
+GP14_FRACTION = 0.5  # GPNN2's fit: the first half of the corpus, ~11 steps
+# Row 19's dupre holds relu'(pre), a step at pre = 0: where the kernel's
+# and the twin's fp32 sums of pre (1,024 bf16 products in other orders)
+# fall on the two sides of 0, dupre takes either side's value. Within
+# |pre| <= RELU_KINK max|pre| (~100x those sums' rounding) dupre may differ
+# by the relu term's size, |du coef[2]|, beyond the tolerance.
+RELU_KINK = 2.0 ** -14
+
+
+def gp6_relu_slack(torch, args, ref):
+    """Row 19's allowance at the relu step (RELU_KINK): {"dupre": |dux
+    coef[2]| where |pre| is within the band, 0 elsewhere}, pre recomputed
+    in fp32 from the call's bf16 h_{t-1} and W' and its b'."""
+    xg, w, b, coef, _, h0, _, ys = args[:8]
+    T, B, G = xg.shape
+    hprev = torch.cat([h0[None], ys[:-1]]).reshape(T * B, -1).float()
+    pre = (hprev @ w.float().t() + b.float()).reshape(T, B, G)
+    tau = RELU_KINK * float(pre.abs().max())
+    kink = pre.abs() <= tau
+    print(f"  relu step: {int(kink.sum())} of {kink.numel()} elements with "
+          f"|pre| <= {tau:.3e} may take either side's dupre")
+    return {"dupre": kink * (ref["dux"].float() * coef[2]).abs()}
+
+
+def gp6_specs(torch, gpc):
+    """Check specs of rows 18-19: twins, outputs, planted faults made by
+    changing the inputs (b' zeroed where it is not zero, coef rows 0 and 1
+    swapped, the step mask ignored where there is one) and the two builds
+    of GP6_FAULTS (row 19), operations and bytes (every tensor argument
+    read once, the outputs written once)."""
+    def cost(args, mult, out_bytes):
+        T, B, G = args[0].shape
+        nbytes = sum(a.numel() * a.element_size() for a in args
+                     if isinstance(a, torch.Tensor))
+        return mult * T * B * (G // 4) * G, nbytes + out_bytes(T, B, G)
+
+    def fwd_cost(args):
+        return cost(args, 2, lambda T, B, G: (2 * T * B + 2 * B) * G // 4 * 2)
+
+    def bwd_cost(args):
+        return cost(args, 4, lambda T, B, G: 2 * T * B * G * 2 + 3 * G * 4
+                    + 2 * B * G // 4 * 2)
+
+    faults = {
+        "b' zeroed": lambda a: None if not bool(a[2].any()) else with_arg(
+            a, 2, torch.zeros_like(a[2])),
+        "coef rows 0 and 1 swapped":
+            lambda a: with_arg(a, 3, a[3][[1, 0, 2]].contiguous()),
+        "step mask ignored": lambda a: None if a[4] is None else with_arg(
+            a, 4, torch.ones_like(a[4])),
+    }
+    none = ("none: no single PyTorch call computes an LSTM whose hidden "
+            "projection is a GP unit's activation mixture")
+    return {
+        "gp6_fwd": dict(
+            module=gpc, plain=gpc.gp6_fwd_plain, outs=("ys", "cs", "hT", "cT"),
+            source="gp6_lstm.cu",
+            replaces="bayeslms_tpu/ops/gp_lstm_pallas.py:192", faults=faults,
+            flops=lambda a: fwd_cost(a)[0], nbytes=lambda a: fwd_cost(a)[1],
+            library=none),
+        "gp6_bwd": dict(
+            module=gpc, plain=gpc.gp6_bwd_plain,
+            outs=("dux", "dupre", "dcoef", "dh0", "dc0"), source="gp6_lstm.cu",
+            replaces="bayeslms_tpu/ops/gp_lstm_pallas.py:233",
+            faults={**faults, **GP6_FAULTS},
+            flops=lambda a: bwd_cost(a)[0], nbytes=lambda a: bwd_cost(a)[1],
+            slack=lambda a, r: gp6_relu_slack(torch, a, r), library=none),
+    }
+
+
+def gp6_variant_calls(torch, gpc, fwd_args, bwd_args):
+    """Rows 18-19's step calls again with a random step mask and with a
+    random b' (the GP unit's bias starts at zero), the backward's ys and cs
+    from the twin's forward on those arguments, dy the step's."""
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    T, B = fwd_args[0].shape[:2]
+    mask = (torch.rand((T, B), generator=gen, device="cuda") < 0.8).to(
+        torch.uint8)
+    bias = ((torch.rand(fwd_args[2].shape, generator=gen, device="cuda")
+             - 0.5)).to(fwd_args[2].dtype)
+    fwd, bwd = [], []
+    for tag, i, v in (("a random step mask", 4, mask),
+                      ("a random b'", 2, bias)):
+        a = with_arg(fwd_args, i, v)
+        ys, cs, _, _ = gpc.gp6_fwd_plain(*a)
+        fwd.append((f"that step with {tag}", a))
+        bwd.append((f"that step with {tag}", [*a, ys, cs, *bwd_args[9:]]))
+    return fwd, bwd
+
+
+def gp6_phases(torch, kernels, smi, cfg, rcfg, corpus, tmpdir):
+    """The gate-6 GP-LSTM's training and scoring on the training phases'
+    corpus; adds rows 18 and 19 to ``kernels``. Raises on any failed
+    check."""
+    import dataclasses
+    from bayeslms_tpu_torch import TrainConfig
+    from bayeslms_tpu_torch.core.checkpoint import load_checkpoint
+    from bayeslms_tpu_torch.data.corpus import batchify
+    from bayeslms_tpu_torch.models.lstm_lm import (draw_dropout_masks,
+                                                   init_hidden)
+    from bayeslms_tpu_torch.ops import ce_train_cuda as ctc
+    from bayeslms_tpu_torch.ops import gp_lstm_cuda as gpc
+    from bayeslms_tpu_torch.ops import lstm_cuda as lc
+    from bayeslms_tpu_torch.ops import lstm_train_cuda as ltc
+    from bayeslms_tpu_torch.rescore.scorer import BatchScorer
+    from bayeslms_tpu_torch.train.loop import Trainer
+
+    gcfg = dataclasses.replace(cfg, uncertainty="Gaussian",
+                               l_gauss_pos=GP6_POS)
+    B, T = TRAIN_BATCH, TRAIN_SEQ
+    save = os.path.join(tmpdir, "gp6.ckpt")
+    kl_scale = T / batchify(corpus.train, B).shape[0]
+    data = torch.from_numpy(corpus.train[:T * B].reshape(B, T).T.copy()
+                            ).long().cuda()
+    target = torch.from_numpy(corpus.train[1:T * B + 1].reshape(B, T).T
+                              .copy()).long().cuda()
+    rows6 = ("gp6_fwd", "gp6_bwd")
+
+    with phase("gp6 setup"):
+        tcfg = TrainConfig(lr=GP6_LR, momentum=0.9, clip=1.0, batch_size=B,
+                           seq_len=T, eval_batch_size=EVAL_BATCH, epochs=1,
+                           log_interval=10, save=save)
+        trainer = Trainer(gcfg, tcfg)
+        state = trainer.init_state()
+        n_par = sum(p.numel() for p in state.params.values())
+        print(f"  GP-LSTM l_gauss_pos {GP6_POS} (gate 6, GPNN type 3) "
+              f"{gcfg.emsize}/{gcfg.nhid}, V = {gcfg.vocab_size}, "
+              f"{gcfg.compute_dtype}: {n_par} parameters; lr {GP6_LR}, batch "
+              f"{B}, seq_len {T}")
+        recorded = {}
+        gen_state = trainer.gen.get_state()
+        with contextlib.ExitStack() as stack:
+            for p in recording(gpc, rows6, recorded):
+                stack.enter_context(p)
+            trainer.train_step(state, init_hidden(2, B, gcfg.nhid,
+                                                  device="cuda"),
+                               data, target, kl_scale)
+        trainer.gen.set_state(gen_state)
+        step_calls = {k: list(v) for k, v in recorded.items()}
+        recorded = {}
+        rows = batchify(corpus.valid, EVAL_BATCH)[:T + 1]
+        with contextlib.ExitStack() as stack:
+            for p in recording(gpc, ("gp6_fwd",), recorded) + recording(
+                    lc, ("lstm_fwd",), recorded):
+                stack.enter_context(p)
+            trainer.evaluate(state.model, rows)
         torch.cuda.synchronize()
-        pass_s = time.perf_counter() - t0
-        n_row3, n_row2 = lc.layer_launches["lstm_fwd_reset"], ce_cuda.launches
-        print(f"  kernel launches in a pass: lstm_fwd_reset {n_row3}, ce_fwd "
-              f"{n_row2}; the GP cell runs the scan under resets, as in JAX")
-        kernels["lstm_fwd_reset"]["launches"] = n_row3
-        if n_row3 == 0 or n_row2 == 0:
-            raise AssertionError("GP scoring did not run rows 3 and 2")
-        got = np.array([s for pairs in res.values() for _, s in pairs])
-        with mock.patch.object(lc, "lstm_fwd", lc.lstm_fwd_plain), \
-                mock.patch.object(ce_cuda, "fused_decode_ce", ce_cuda.ce_plain):
-            ref = np.array([s for pairs in scorer.score_nbest(
-                nbest, w2i, stream_fn=stream_of).values() for _, s in pairs])
-        n_hyps = sum(len(h) for h in nbest.values())
-        diff = np.abs(got - ref)
-        share = float((diff / (GP_SCORE_ATOL + GP_SCORE_RTOL
-                               * np.abs(ref))).max())
-        print(f"  {n_hyps} hypotheses in {pass_s:.3f} s ({n_hyps / pass_s:.1f}"
-              f" hyps/s) on {smi}; scores mean {got.mean():.3f}, max "
-              f"{np.abs(ref).max():.3f}; max |kernel - plain| "
-              f"{float(diff.max()):.4e}, relative "
-              f"{float((diff / np.abs(ref)).max()):.3e}; worst share of "
-              f"{GP_SCORE_ATOL:.0e} + {GP_SCORE_RTOL:.0e} |plain|: "
-              f"{share:.3f}")
-        if got.shape != (n_hyps,) or not np.all(np.isfinite(got)) \
-                or share > 1:
-            raise AssertionError("GP scoring failed")
+        print(f"  one step: {len(step_calls.get('gp6_fwd', []))} gp6_fwd, "
+              f"{len(step_calls.get('gp6_bwd', []))} gp6_bwd calls; one "
+              f"evaluate window: {len(recorded.get('gp6_fwd', []))} gp6_fwd, "
+              f"{len(recorded.get('lstm_fwd', []))} lstm_fwd calls")
+        if [len(step_calls.get(k, [])) for k in rows6] != [1, 1] or \
+                [len(recorded.get(k, [])) for k in ("gp6_fwd", "lstm_fwd")] \
+                != [1, 1]:
+            raise AssertionError("the gate-6 step or evaluate window did not "
+                                 "take rows 18-19 and row 4 once each")
+        del state
+
+    specs = gp6_specs(torch, gpc)
+    fwd_step, bwd_step = step_calls["gp6_fwd"][0], step_calls["gp6_bwd"][0]
+    var_fwd, var_bwd = gp6_variant_calls(torch, gpc, fwd_step, bwd_step)
+    check_kernel_calls(torch, kernels, "gp6_fwd", specs["gp6_fwd"], [
+        ("one step", fwd_step),
+        ("one evaluate window", recorded["gp6_fwd"][0]), *var_fwd])
+    check_kernel_calls(torch, kernels, "gp6_bwd", specs["gp6_bwd"], [
+        ("one step", bwd_step), *var_bwd])
+    del step_calls, recorded, var_fwd, var_bwd
+
+    gp_fit(torch, kernels, trainer, corpus, smi, kl_scale, "gp6", rows6,
+           rows6)
+
+    with phase("gp6 train step against plain versions"):
+        gen = torch.Generator(device="cuda").manual_seed(3)
+        compare_steps(
+            torch, trainer, data, target, kl_scale,
+            draw_dropout_masks(gcfg, T, B, gen, "cuda"),
+            [mock.patch.object(m, n, getattr(m, n + "_plain"))
+             for m, n in ((ltc, "lstm_train_fwd"), (ltc, "lstm_train_bwd"),
+                          *((ctc, n) for n in CE_TRAIN),
+                          *((gpc, n) for n in rows6))],
+            loss_atol=STEP_LOSS_ATOL,
+            hidden=lambda: init_hidden(2, B, gcfg.nhid, device="cuda"))
+
+    with phase("gp6 score setup"):
+        params, meta = load_checkpoint(save)
+        print(f"  checkpoint of epoch {meta['epoch']}, val loss "
+              f"{meta['val_loss']:.4f}")
+        scorer = BatchScorer(gcfg, params, rcfg)
+        nbest = make_synthetic_nbest(n_meetings=30,
+                                     vocab_words=cfg.vocab_size - 2)
+        w2i = corpus.vocab.word2idx
+        scorer.score_nbest(nbest, w2i, stream_fn=stream_of)  # warm-up
+        torch.cuda.synchronize()
+    gp_score(torch, scorer, nbest, w2i, smi, "gp6")
+
+def gp_family_phases(torch, smi, cfg, corpus, tmpdir):
+    """Gate 7 (73) and the GP-FFN Transformer (t_gauss_pos 3): a
+    kernel-path step against the plain path; GPNN2 (14): a few steps of
+    ``Trainer.fit`` with a finite, falling loss. Raises on any failed
+    check."""
+    import dataclasses
+    from bayeslms_tpu_torch import TrainConfig
+    from bayeslms_tpu_torch.data.corpus import batchify
+    from bayeslms_tpu_torch.models.lstm_lm import (draw_dropout_masks,
+                                                   init_hidden)
+    from bayeslms_tpu_torch.ops import ce_train_cuda as ctc
+    from bayeslms_tpu_torch.ops import lstm_train_cuda as ltc
+    from bayeslms_tpu_torch.train.loop import Trainer
+
+    B, T = TRAIN_BATCH, TRAIN_SEQ
+    kl_scale = T / batchify(corpus.train, B).shape[0]
+    data = torch.from_numpy(corpus.train[:T * B].reshape(B, T).T.copy()
+                            ).long().cuda()
+    target = torch.from_numpy(corpus.train[1:T * B + 1].reshape(B, T).T
+                              .copy()).long().cuda()
+    ce_plain = [mock.patch.object(ctc, n, getattr(ctc, n + "_plain"))
+                for n in CE_TRAIN]
+
+    def tcfg(save, lr, **kw):
+        return TrainConfig(lr=lr, momentum=0.9, clip=1.0, batch_size=B,
+                           seq_len=T, eval_batch_size=EVAL_BATCH, epochs=1,
+                           log_interval=2, save=os.path.join(tmpdir, save),
+                           **kw)
+
+    with phase("gp7 train step against plain versions"):
+        g7 = dataclasses.replace(cfg, uncertainty="Gaussian",
+                                 l_gauss_pos="73")
+        trainer = Trainer(g7, tcfg("gp7.ckpt", 5.0))
+        for k in ltc.launches:
+            ltc.launches[k] = 0
+        st = trainer.init_state()
+        trainer.train_step(st, init_hidden(2, B, g7.nhid, device="cuda"),
+                           data, target, kl_scale)
+        torch.cuda.synchronize()
+        print(f"  l_gauss_pos 73 (gate 7, GPNN type 3) at {g7.emsize}/"
+              f"{g7.nhid}: one step launches {dict(ltc.launches)} (rows 5-6 "
+              "for the GP cell over the hoisted GP input and for the "
+              "standard layer)")
+        if dict(ltc.launches) != {"lstm_train_fwd": 2, "lstm_train_bwd": 2}:
+            raise AssertionError("the gate-7 step did not take rows 5-6 "
+                                 "twice")
+        del st
+        gen = torch.Generator(device="cuda").manual_seed(5)
+        compare_steps(
+            torch, trainer, data, target, kl_scale,
+            draw_dropout_masks(g7, T, B, gen, "cuda"),
+            [mock.patch.object(ltc, n, getattr(ltc, n + "_plain"))
+             for n in ("lstm_train_fwd", "lstm_train_bwd")] + ce_plain,
+            loss_atol=STEP_LOSS_ATOL,
+            hidden=lambda: init_hidden(2, B, g7.nhid, device="cuda"))
+
+    with phase("gpnn2 train"):
+        g14 = dataclasses.replace(cfg, uncertainty="Gaussian",
+                                  l_gauss_pos="14")
+        trainer = Trainer(g14, tcfg("gp14.ckpt", GP14_LR,
+                                    data_fraction=GP14_FRACTION))
+        losses = []
+
+        def on_step(b, loss):
+            losses.append(float(loss))
+
+        t0 = time.perf_counter()
+        _, out = trainer.fit(corpus, log=lambda line: print("  " + line),
+                             on_step=on_step)
+        fit_s = time.perf_counter() - t0
+        print(f"  l_gauss_pos 14 (GPNN2 replacing the input gate, its "
+              f"frequencies drawn every time step): {len(losses)} steps, "
+              f"loss " + " ".join(f"{l:.4f}" for l in losses)
+              + f"; validation {out['history'][0]['val_loss']:.4f}, test "
+              f"{out['test_loss']:.4f}; fit {fit_s:.1f} s on {smi}")
+        if not all(np.isfinite(losses)) or not np.isfinite(out["test_loss"]):
+            raise AssertionError("a GPNN2 training loss is not finite")
+        if len(losses) < 6 or np.mean(losses[-3:]) >= np.mean(losses[:3]):
+            raise AssertionError(f"the GPNN2 loss did not fall: {losses}")
+
+    with phase("gp-ffn tm train step against plain versions"):
+        gt = tm_config(cfg, uncertainty="Gaussian", t_gauss_pos=3)
+        trainer = Trainer(gt, tcfg("tm_gauss.ckpt", TM_LR))
+        st = trainer.init_state()
+        print(f"  {gt.model} {gt.emsize}/{gt.nhid} x {gt.nlayers}, layer 0 "
+              f"the GP-FFN layer (t_gauss_pos 3, GPNN type 3): "
+              f"{sum(p.numel() for p in st.params.values())} parameters")
+        del st
+        compare_steps(torch, trainer, data, target, kl_scale,
+                      tm_dropout_masks(torch, gt, T, B, 6), ce_plain,
+                      loss_rtol=STEP_LOSS_RTOL)
 
 
 def ce_fwd_check(torch, kernels, args, tag="", atol=CE_ATOL):
@@ -2713,7 +3097,8 @@ def main():
                                         *SAMPLER_FAULTS.values(),
                                         ATTN_FAULT, BMM_FAULT,
                                         *ATTN_TRAIN_FAULTS.values(),
-                                        *GP_FAULTS.values()]).items():
+                                        *GP_FAULTS.values(),
+                                        *GP6_FAULTS.values()]).items():
             print(f"  {name}: {path}")
         print(f"  build seconds {time.perf_counter() - t0:.1f}")
 
@@ -2850,6 +3235,8 @@ def main():
     corpus, tmp = train_phases(torch, kernels, smi, cfg, rcfg)
     bayes_phases(torch, kernels, smi, cfg, rcfg, corpus, tmp.name)
     gp_phases(torch, kernels, smi, cfg, rcfg, corpus, tmp.name)
+    gp6_phases(torch, kernels, smi, cfg, rcfg, corpus, tmp.name)
+    gp_family_phases(torch, smi, cfg, corpus, tmp.name)
     tm_phases(torch, kernels, smi, cfg, rcfg, corpus, tmp.name)
     ckpt = tm_long_phases(torch, kernels, smi, cfg, tmp.name)
     tm_xl_phase(torch, kernels, smi, cfg, rcfg, ckpt)

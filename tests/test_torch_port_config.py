@@ -71,8 +71,8 @@ def test_init_params_tree_and_laws():
     dict(model="GRU"),
     dict(nlayers=1),
     dict(nlayers=3),
-    dict(model="Transformer", uncertainty="Gaussian"),
-    dict(uncertainty="Gaussian", l_gauss_pos="63"),
+    dict(model="Transformer", uncertainty="Variational"),
+    dict(uncertainty="Variational"),
     dict(tied=False),
 ])
 def test_unported_models_raise(extra):

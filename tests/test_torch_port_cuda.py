@@ -418,7 +418,7 @@ def test_gp_lstm_kernels_match_plain(dev, gate, masked):
                                    atol=2 ** -8 * big)
     assert torch.equal(gc.gpg_bwd(*args, ys, cs, dy, dhT, dhT, gate)[1],
                        bw[1])
-    assert gc.launches == {"gpg_fwd": before["gpg_fwd"] + 1,
+    assert gc.launches == {**before, "gpg_fwd": before["gpg_fwd"] + 1,
                            "gpg_bwd": before["gpg_bwd"] + 2}
 
 
@@ -440,3 +440,56 @@ def test_new_wrappers_refuse_what_the_kernels_do_not_take(dev):
                                     dtype=torch.bfloat16),
                     torch.zeros(192, device=dev), xg[0, :, :48],
                     xg[0, :, :48])
+
+
+def _gp6_args(dev, T, B, H, masked, seed=0):
+    g = torch.Generator().manual_seed(seed)
+    r = lambda *s, sc=1.0: ((torch.rand(s, generator=g) * 2 - 1) * sc)  # noqa: E731
+    bf = torch.bfloat16
+    mask = None
+    if masked:
+        mask = (torch.rand((T, B), generator=g) < 0.8).to(dev, torch.uint8)
+    return [r(T, B, 4 * H).to(dev, bf), r(4 * H, H, sc=0.125).to(dev, bf),
+            r(4 * H, sc=0.5).to(dev, bf), r(3, 4 * H).to(dev), mask,
+            r(B, H, sc=0.5).to(dev, bf), r(B, H, sc=0.5).to(dev, bf)]
+
+
+@pytest.mark.parametrize("masked", [False, True])
+def test_gp6_lstm_kernels_match_plain(dev, masked):
+    """Rows 18-19 at B = 40 (off the 32-column tile): forward, backward,
+    dcoef bit-equal across repeat calls, one launch count a call."""
+    from bayeslms_tpu_torch.ops import gp_lstm_cuda as gc
+
+    T, B, H = 9, 40, 64
+    args = _gp6_args(dev, T, B, H, masked, seed=3 + masked)
+    before = dict(gc.launches)
+    got = gc.gp6_fwd(*args)
+    ref = gc.gp6_fwd_plain(*args)
+    for a, b in zip(got, ref):
+        torch.testing.assert_close(a.float(), b.float(), rtol=0, atol=2 ** -6)
+    ys, cs = ref[0], ref[1]
+    g = torch.Generator().manual_seed(9)
+    dy = ((torch.rand((T, B, H), generator=g) * 2 - 1)).to(dev, torch.bfloat16)
+    dhT = torch.zeros((B, H), device=dev, dtype=torch.bfloat16)
+    bw = gc.gp6_bwd(*args, ys, cs, dy, dhT, dhT)
+    bref = gc.gp6_bwd_plain(*args, ys, cs, dy, dhT, dhT)
+    for a, b in zip(bw, bref):
+        big = float(b.float().abs().max())
+        torch.testing.assert_close(a.float(), b.float(), rtol=2 ** -6,
+                                   atol=2 ** -8 * big)
+    assert torch.equal(gc.gp6_bwd(*args, ys, cs, dy, dhT, dhT)[2], bw[2])
+    assert gc.launches == {**before, "gp6_fwd": before["gp6_fwd"] + 1,
+                           "gp6_bwd": before["gp6_bwd"] + 2}
+
+
+def test_gp6_wrappers_refuse_what_the_kernels_do_not_take(dev):
+    from bayeslms_tpu_torch.ops import gp_lstm_cuda as gc
+
+    args = _gp6_args(dev, 3, 4, 64, False)
+    with pytest.raises(ValueError):  # float32 operands
+        gc.gp6_fwd(*[a.float() if a is not None and a.dtype == torch.bfloat16
+                     else a for a in args])
+    with pytest.raises(ValueError):  # one act's coefficients
+        gc.gp6_fwd(*args[:3], args[3][:1].contiguous(), *args[4:])
+    with pytest.raises(ValueError):  # b' in float32
+        gc.gp6_fwd(*args[:2], args[2].float(), *args[3:])

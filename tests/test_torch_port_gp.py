@@ -330,14 +330,13 @@ def test_core_sampling_follows_the_generator_and_counts_noise():
 
 
 @pytest.mark.parametrize("extra", [
-    dict(l_gauss_pos="53"), dict(l_gauss_pos="63"), dict(l_gauss_pos="73"),
-    dict(l_gauss_pos="14"), dict(l_gauss_pos="1453"),
     dict(l_gauss_pos="13", l_gauss_legacy_pos=2),
     dict(uncertainty="Variational"),
 ])
 def test_unported_gp_configurations_raise(extra):
-    """GP gates 5-7, GPNN2 (type 4), the legacy GaussLSTM and the
-    variational cores raise, naming ROADMAP.md queue A item 10."""
+    """The legacy GaussLSTM and the variational cores raise, naming
+    ROADMAP.md queue A item 10; a string that is not 2 to 4 digits is
+    refused."""
     with pytest.raises(NotImplementedError, match="queue A item 10"):
         bt.build_model(dataclasses.replace(_cfg(bt), **extra))
     with pytest.raises(ValueError, match="2 to 4 digits"):

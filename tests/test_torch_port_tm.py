@@ -228,7 +228,8 @@ def test_kl_with_prior_means_matches_jax(pos):
     assert (got != plain) == (site is not None)
 
 
-@pytest.mark.parametrize("extra", [dict(uncertainty="Gaussian"),
+@pytest.mark.parametrize("extra", [dict(uncertainty="Variational",
+                                        t_v_pos=1),
                                    dict(uncertainty="Variational"),
                                    dict(tied=False)])
 def test_unported_transformers_raise(extra):

@@ -11,9 +11,11 @@ chip_smoke.py on the same table, through the packed-nocarry layout;
 ``--xl``: that Transformer through the Transformer-XL layout, chains by
 recording as chip_smoke.py scores them; ``--l-gauss-pos S``: the GP-LSTM of
 that ``l_gauss_pos`` string through packed-carry, its GP cell on the scan
-and its standard layer on kernel row 3), runs one warm-up pass, times one
+(``13``, ``63``: under resets rows 20 and 18 take no part, as in JAX) and
+its standard layer on kernel row 3), runs one warm-up pass, times one
 pass without the profiler, then traces one pass with torch.profiler and
-prints the device time by kernel, the device's busy time and its idle
+prints the device time by kernel (the port's kernels named by their row of
+PERF.md's kernel table), the device's busy time and its idle
 share of the traced pass, the host's time by operator (self time: the
 CUDA runtime calls, among them every launch and synchronisation, are rows
 of their own) and the model forwards the pass made. Nothing is written to
@@ -89,9 +91,11 @@ def main():
           f"{1 - busy_ms / (traced_s * 1e3):.3f} of the traced pass "
           f"({torch.cuda.get_device_name(0)}; {cfg.model}, uncertainty "
           f"{cfg.uncertainty}, l_gauss_pos {cfg.l_gauss_pos})")
-    print("device ms  calls  name")
-    for dev_us, count, key in rows[:15]:
-        print(f"{dev_us / 1e3:9.3f}  {count:5d}  {key[:90]}")
+    print("device ms  calls  table row  name")
+    for dev_us, count, key in [r for i, r in enumerate(rows)
+                               if i < 15 or chip_smoke.kernel_row(r[2])]:
+        print(f"{dev_us / 1e3:9.3f}  {count:5d}  "
+              f"{chip_smoke.kernel_row(key):>9}  {key[:90]}")
     host = [(ev.self_cpu_time_total, ev.count, ev.key)
             for ev in prof.key_averages()
             if ev.device_type == DeviceType.CPU and ev.self_cpu_time_total > 0]

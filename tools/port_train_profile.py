@@ -13,14 +13,16 @@ its synthetic Markov corpus; ``--bayes-pos N`` (1-5) trains the Bayesian
 gate-slice LSTM at ``l_bayes_pos=N`` instead, its KL scaled by
 seq_len / rows as in ``Trainer.run_epoch``; ``--l-gauss-pos S`` the GP-LSTM
 of that ``l_gauss_pos`` string (the recipes' ``13``: GP kernel rows 20-21
-for the GP cell, rows 5-6 for its standard layer); ``--model Transformer`` the
+for the GP cell, rows 5-6 for its standard layer; the README's ``63``: rows
+18-19 for the gate-6 GP cell); ``--model Transformer`` the
 recipe's Transformer of chip_smoke.py (512/4096 x 6, 8 heads, lr 0.1), and
 ``--t-bayes-pos`` its Bayesian variant; ``--seq-len 1024`` the window at
 which the Transformer's training attention takes the flash-attention
 kernels (rows 15-17). It runs three warm-up steps, times five steps
 without the profiler, then traces three steps with torch.profiler and prints
-the device time by kernel, the device's busy time and its idle share of
-the traced steps. Nothing is written to disk outside a temporary directory.
+the device time by kernel (each of the port's kernels named by its row of
+PERF.md's kernel table), the device's busy time and its idle share of the
+traced steps. Nothing is written to disk outside a temporary directory.
 """
 
 import os
@@ -116,11 +118,12 @@ def main():
           f"{cfg.uncertainty}, l_bayes_pos={cfg.l_bayes_pos}, l_gauss_pos="
           f"{cfg.l_gauss_pos}, t_bayes_pos={cfg.t_bayes_pos}, batch {B} x "
           f"seq_len {T})")
-    print("device ms a step  calls a step  name")
-    # the top 20, and the port's sampler kernel wherever it ranks
+    print("device ms a step  calls a step  table row  name")
+    # the top 20, and every kernel of the port wherever it ranks
     for dev_us, count, key in [r for i, r in enumerate(rows)
-                               if i < 20 or "bayes_sample" in r[2]]:
-        print(f"{dev_us / 1e3 / 3:16.3f}  {count / 3:12.1f}  {key[:90]}")
+                               if i < 20 or chip_smoke.kernel_row(r[2])]:
+        print(f"{dev_us / 1e3 / 3:16.3f}  {count / 3:12.1f}  "
+              f"{chip_smoke.kernel_row(key):>9}  {key[:90]}")
     return 0 if np.isfinite(busy_ms) else 1
 
 
