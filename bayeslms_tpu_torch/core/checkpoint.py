@@ -4,10 +4,14 @@
 The JAX parameter tree is nested dicts of arrays: ``{"embedding",
 "decoder_b", "core": {"l0_w_ih", "l0_w_hh", "l0_b_ih", "l0_b_hh", "l1_..."}}``
 for the standard LSTM, ``"core": {"weight_ih_mean_1", ...,
-"weight_hh_lgstd_1", ...}`` for the Bayesian one, ``{"embedding",
+"weight_hh_lgstd_1", ...}`` for the Bayesian one (and the legacy
+GaussLSTM and VLSTM, with ``gpnn`` or the ``hiddens_*`` tables),
+``"core": {"l0_weights_ih", ..., "l0_vnn": {"hidden_lgstd"}}`` for the
+variational LSTM, ``{"embedding",
 "decoder_b", "layers_0": {"self_attn": {"qkv_net": {"kernel", "bias"}, ...},
 "linear1", "linear2", "norm1", "norm2"}, ...}`` for the Transformer (the
-GP-FFN layer's ``gpnn`` in place of ``linear1``);
+GP-FFN layer's ``gpnn`` in place of ``linear1``, the variational layer's
+``hiddens_*`` tables beside them);
 float32, LSTM weights in the torch (4H, in) layout, the Transformer's dense
 kernels in flax's (in, out). The port's modules name their parameters the
 same way (``core.l0_w_ih``, ``layers_0.linear1.kernel``) and keep those
@@ -152,7 +156,6 @@ _TM_KEY = re.compile(r"transformerlayers\.(?:layers\.)?(\d+)\.(.*)")
 # a Transformer layer's reference names (torch TransformerEncoderLayer's
 # in_proj/out_proj and the reference's self-built modules) -> (path under
 # layers_N, transposed); the JAX package's table (core/checkpoint.py:146-200)
-# without its variational rows
 _TM_TABLE = {
     "self_attn.in_proj_weight": ("self_attn/qkv_net/kernel", True),
     "self_attn.in_proj_bias": ("self_attn/qkv_net/bias", False),
@@ -190,6 +193,9 @@ _TM_TABLE = {
                  "frequency_lgstd")},
     "gpnn.coef.weight": ("gpnn/coef_kernel", True),
     "gpnn.coef.bias": ("gpnn/coef_bias", False),
+    # the variational layer's (v_seq_len, 1, d) tables
+    **{n: (n, False) for n in ("hiddens_mean", "hiddens_lgstd",
+                               "hiddens_mean_p", "hiddens_lgstd_p")},
 }
 
 
@@ -204,7 +210,8 @@ def import_torch_state_dict(state_dict: Mapping[str, "np.ndarray"],
     ``transformerlayers.[layers.]N.*`` names of ``_TM_TABLE`` ->
     ``layers_N/*`` (Linear weights transposed to flax (in, out) kernels;
     the GP-FFN layer's ``gpnn.*``, GPNN2's read-out ``gpnn.coef.*`` as
-    ``coef_kernel`` (in, out) and ``coef_bias``) and the EMB projection's
+    ``coef_kernel`` (in, out) and ``coef_bias``, the variational layer's
+    ``hiddens_{mean,lgstd}[_p]``) and the EMB projection's
     ``embed_{mean,lgstd}``; for the GP and
     variational stacks ``rnn.rnn.<i>.*`` as the JAX package maps them
     (``core/checkpoint.py:113-140`` there): a GP cell's

@@ -1,13 +1,15 @@
 """Configuration dataclasses, field for field those of
 ``bayeslms_tpu/core/config.py`` (the JAX package), so that one configuration
 describes a model in both packages. The port runs a subset of them so far
-(the 2-layer LSTM, standard, Bayesian gate-slice and the GP-LSTM of every
-``l_gauss_pos`` string; the Transformer, standard, Bayesian at the FFN,
-MHA or EMB, and with the GP-FFN layer): ``core/registry.py`` and the
-models it builds, ``rescore/scorer.py`` and ``TrainConfig.validate`` raise
-``NotImplementedError`` for the rest and name the ROADMAP.md item that
-brings it (the legacy GaussLSTM, the variational cores and the
-Variational Transformer item 10).
+(the 2-layer LSTM, standard, Bayesian gate-slice, the GP-LSTM of every
+``l_gauss_pos`` string, the legacy GaussLSTM (``l_gauss_legacy_pos`` 0-8),
+the variational LSTM (``l_v_pos``) and the legacy VLSTM (``l_v_legacy``);
+the Transformer, standard, Bayesian at the FFN, MHA or EMB, with the
+GP-FFN layer, and variational (``t_v_pos`` 0-3)): ``core/registry.py`` and
+the models it builds, ``rescore/scorer.py`` and ``TrainConfig.validate``
+raise ``NotImplementedError`` for the rest and name the ROADMAP.md item
+that brings it (the GRU/RNN cores, other depths and an untied decoder item
+3).
 
 Flag map to the reference recipes (BayesLMs ``steps/pytorchnn/train.py``):
 ``uncertainty`` -> --uncertainty, ``t_bayes_pos`` -> --T_bayes_pos,

@@ -1,9 +1,10 @@
 """Layers of ``bayeslms_tpu/models/layers.py``: the Bayesian dense layer
 ``BayesDense`` (the reference's ``BayesLinear``, model.py:1049-1134), the
 activation table ``ACTS``, the GP activation unit ``GPNN`` (types 0-3,
-model.py:1780-1906) and the random-feature GP unit ``GPNN2`` (type 4,
-model.py:2036-2102). ``GPNNNode`` and the variational ``VNN`` are
-ROADMAP.md queue A item 10.
+model.py:1780-1906), the random-feature GP unit ``GPNN2`` (type 4,
+model.py:2036-2102) and the variational hidden-state noise unit ``VNN``
+(model.py:2534-2579). ``GPNNNode``, which no container builds, is ROADMAP.md
+queue A item 10.
 """
 
 from __future__ import annotations
@@ -258,3 +259,42 @@ class BayesDense(nn.Module):
         return torch.mean((self.weight_mean - prior_mean) ** 2.0
                           - self.weight_lgstd * 2.0
                           + torch.exp(self.weight_lgstd * 2.0)) / 2.0
+
+
+class VNN(nn.Module):
+    """Variational hidden-state noise unit (the reference's ``VNN``,
+    model.py:2534-2579): while training, the hidden vector takes additive
+    noise 0.1 eps exp(``hidden_lgstd``), eps ~ N(0, 1), a fresh (1, H) draw
+    at every time step. Its KL (model.py:2544-2549) reads the forward
+    activations as the mean and, a reference quirk kept for loss parity,
+    exponentiates the activations rather than the lgstd."""
+
+    def __init__(self, input_size: int):
+        super().__init__()
+        self.input_size = input_size
+        self.hidden_lgstd = nn.Parameter(torch.empty((1, input_size)))
+
+    def reset_parameters(self, gen: torch.Generator) -> None:
+        gaussian.lgstd_init_(self.hidden_lgstd,
+                             1.0 / math.sqrt(self.input_size), gen)
+
+    def noise(self, n_steps: int, generator: Optional[torch.Generator] = None,
+              eps: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """(n_steps, 1, H): 0.1 eps exp(lgstd), eps the injected
+        (n_steps, 1, H) standard-normal draw or one from ``generator``."""
+        lg = self.hidden_lgstd
+        shape = (n_steps, 1, self.input_size)
+        if eps is None:
+            eps = torch.randn(shape, generator=generator, device=lg.device,
+                              dtype=lg.dtype)
+        elif tuple(eps.shape) != shape:
+            raise ValueError(f"VNN: injected eps {tuple(eps.shape)} != "
+                             f"{shape}")
+        return 0.1 * eps.to(device=lg.device, dtype=lg.dtype) \
+            * torch.exp(lg)[None]
+
+    def kl(self, hidden_mean: torch.Tensor) -> torch.Tensor:
+        """mean(h^2 - 2 lgstd + exp(2 h) - 1) / 2, h the last step's
+        pre-noise hidden."""
+        return torch.mean(hidden_mean ** 2.0 - self.hidden_lgstd * 2.0
+                          + torch.exp(hidden_mean * 2.0) - 1.0) / 2.0

@@ -4,14 +4,17 @@
 The port has the standard 2-layer LSTM core, the Bayesian gate-slice
 LSTM core (``uncertainty="Bayesian"``), the GP-LSTM core
 (``uncertainty="Gaussian"``: ``GPLSTMCore`` with GP gates 1-7 and GPNN
-types 0-4, ``GPLSTMCell``, ``StdLSTMLayer``) and the container with a tied
-decoder: the scoring pass (``deterministic=True``, dropout off, the Bayes
-core at its posterior mean, the GP units at their means) and the training
-forward, with dropout on the embedding, between the standard core's layers
-and on the core's output, as ``RecurrentLM.__call__``, ``StandardRNNCore``,
-``BayesLSTMCore`` and ``GPLSTMCore`` apply it in the JAX package. GRU/RNN
-cores, the legacy GaussLSTM and the variational cores are ROADMAP.md queue
-A items 3 and 10; the cores raise for them.
+types 0-4, ``GPLSTMCell``, ``StdLSTMLayer``; with ``l_gauss_legacy_pos``
+0-8 the legacy ``GaussLSTMLegacyCore``), the variational cores
+(``uncertainty="Variational"``: ``VLSTMCore``, with ``l_v_legacy`` the
+legacy ``VLSTMLegacyCore``) and the container with a tied decoder: the
+scoring pass (``deterministic=True``, dropout off, the Bayes core at its
+posterior mean, the GP units at their means, no variational noise) and the
+training forward, with dropout on the embedding, between the standard
+core's layers and on the core's output, as ``RecurrentLM.__call__``,
+``StandardRNNCore``, ``BayesLSTMCore``, ``GPLSTMCore`` and the variational
+cores apply it in the JAX package. GRU/RNN cores and other depths are
+ROADMAP.md queue A item 3; the cores raise for them.
 """
 
 from __future__ import annotations
@@ -26,7 +29,7 @@ from ..ops import (bayes_sample_cuda, gaussian, gp_lstm_cuda, lstm_cuda,
                    lstm_train_cuda)
 from ..ops.lstm import LSTMParams, lstm_layer, lstm_stack2
 from . import initializers as tinit
-from .layers import ACTS, GPNN, GPNN2
+from .layers import ACTS, GPNN, GPNN2, VNN, _next_eps
 
 Hidden = Tuple[torch.Tensor, torch.Tensor]  # (h, c), each (nlayers, B, H)
 
@@ -53,12 +56,13 @@ def draw_dropout_masks(cfg: ModelConfig, T: int, B: int,
                        gen: torch.Generator, device=None) -> DropoutMasks:
     """Bernoulli(1 - cfg.dropout) keep masks from ``gen`` (on ``device``);
     no inter-layer mask for the cores that have no inter-layer dropout
-    (the Bayesian and the GP-LSTM ones)."""
+    (all but the standard core, alone or as the GP-LSTM's gate-0 core)."""
     keep = 1.0 - cfg.dropout
     draw = lambda width: torch.rand(  # noqa: E731
         (T, B, width), generator=gen, device=device) < keep
     layered = cfg.uncertainty == "none" or (
-        cfg.uncertainty == "Gaussian" and cfg.l_gauss_pos[:1] == "0")
+        cfg.uncertainty == "Gaussian" and cfg.l_gauss_legacy_pos < 0
+        and cfg.l_gauss_pos[:1] == "0")
     layer = draw(cfg.nhid) if layered else None
     return DropoutMasks(draw(cfg.emsize), layer, draw(cfg.nhid))
 
@@ -144,11 +148,7 @@ class BayesLSTMCore(nn.Module):
         H, pos = cfg.nhid, cfg.l_bayes_pos
         self.nhid, self.pos, self.both_layers = H, pos, both_layers
         self.lgstd_layers: Tuple[int, ...] = ()
-        for l, in_size in ((1, cfg.emsize), (2, cfg.nhid)):
-            for n, shape in (("w_ih", (4 * H, in_size)), ("w_hh", (4 * H, H)),
-                             ("b_ih", (4 * H,)), ("b_hh", (4 * H,))):
-                self.register_parameter(self._name(n, "mean", l),
-                                        nn.Parameter(torch.empty(shape)))
+        _mean_params(self, H, cfg.emsize, cfg.nhid)
         if 1 <= pos <= 5:
             rows = H if pos <= 4 else 4 * H
             self.lgstd_layers = (1, 2) if both_layers else (1,)
@@ -270,12 +270,6 @@ class BayesLSTMCore(nn.Module):
             b_lgstd = b_lgstd + cat(lp2["b_hh"], lp["b_ih"])
         return (gaussian.kl_std_normal(w_mean, w_lgstd)
                 + gaussian.kl_std_normal(b_mean, b_lgstd))
-
-
-def _gp_refusal(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported yet: the legacy GaussLSTM and the variational "
-        "cores are ROADMAP.md queue A item 10")
 
 
 # the standard activations of the gates [i, f, g, o]
@@ -580,6 +574,330 @@ class GPLSTMCore(nn.Module):
         return kl
 
 
+def _two_layers(cfg: ModelConfig, what: str) -> None:
+    if cfg.model != "LSTM" or cfg.nlayers != 2:
+        raise NotImplementedError(
+            f"{what} with {cfg.model} x {cfg.nlayers} is not ported: the "
+            "reference's is a 2-layer LSTM (ROADMAP.md queue A item 3 brings "
+            "other depths)")
+
+
+def _mean_params(module: nn.Module, H: int, E: int, in2: int) -> None:
+    """``weight_{ih,hh}_mean_{1,2}``, ``bias_{ih,hh}_mean_{1,2}`` of the
+    Bayesian and legacy cores (layer 2's input width ``in2``)."""
+    for l, in_size in ((1, E), (2, in2)):
+        for n, shape in (("w_ih", (4 * H, in_size)), ("w_hh", (4 * H, H)),
+                         ("b_ih", (4 * H,)), ("b_hh", (4 * H,))):
+            module.register_parameter(f"{_TORCH_NAMES[n]}_mean_{l}",
+                                      nn.Parameter(torch.empty(shape)))
+
+
+def _mean_layer(module: nn.Module, layer: int) -> LSTMParams:
+    return LSTMParams(*(getattr(module, f"{_TORCH_NAMES[n]}_mean_{layer}")
+                        for n in ("w_ih", "w_hh", "b_ih", "b_hh")))
+
+
+def _lstm_scan(xg, w_hh_t, bias, h0, c0, step_mask, reset_mask, reset_src,
+               gates_of=None, cell_of=None, noise=None):
+    """The JAX package's hand-rolled LSTM scans (the legacy and variational
+    cores): operands in the promoted dtype of the carry and ``xg``, as JAX
+    promotes. gates = (xg_t + h W_hh^T) + bias, or ``gates_of(t, h)``;
+    ``cell_of(t, pre4, c)`` -> (i, f, g, o, c_in) with the activations
+    applied, by default the standard cell; ``noise`` (T, 1, H) is added to
+    each step's output before the step mask. Returns (ys, ys before the
+    noise, hT, cT)."""
+    pd = torch.promote_types(h0.dtype, xg.dtype)
+    w = None if w_hh_t is None else w_hh_t.to(pd)
+    b = None if bias is None else bias.to(pd)
+    h, c = h0, c0
+    ys, pre = [], []
+    for s in range(xg.shape[0]):
+        if reset_mask is not None:
+            h = lstm_cuda.apply_reset(h, reset_mask[s], reset_src)
+            c = lstm_cuda.apply_reset(c, reset_mask[s], reset_src)
+        gates = xg[s].to(pd) + h @ w + b if gates_of is None \
+            else gates_of(s, h)
+        pre4 = gates.chunk(4, dim=-1)
+        if cell_of is None:
+            i, f, g, o = (act(v) for act, v in zip(_GATE_ACTS, pre4))
+            c_in = c
+        else:
+            i, f, g, o, c_in = cell_of(s, pre4, c)
+        cn = f * c_in + i * g
+        hp = o * torch.tanh(cn)
+        hn = hp if noise is None else hp + noise[s].to(hp.dtype)
+        if step_mask is not None:
+            keep = step_mask[s].bool()[:, None]
+            hn, cn = torch.where(keep, hn, h), torch.where(keep, cn, c)
+        h, c = hn, cn
+        ys.append(h)
+        pre.append(hp)
+    return torch.stack(ys), torch.stack(pre), h, c
+
+
+class _KLRecorder(nn.Module):
+    """A core whose KL reads the forward's activations: ``kl_value``
+    returns the KL of its last forward (``_kl``, zero before the first), as
+    the JAX core sows it during that forward. The prior branch does not
+    exist for these cores: ``prior_w`` is not read."""
+
+    _kl: Optional[torch.Tensor] = None
+
+    def kl_value(self, prior_w=None) -> torch.Tensor:
+        if self._kl is None:
+            return torch.zeros((), device=next(self.parameters()).device)
+        return self._kl
+
+
+class GaussLSTMLegacyCore(nn.Module):
+    """The reference's orphaned ``GaussLSTM`` (model.py:1369-1606), the JAX
+    package's ``GaussLSTMLegacyCore``, positions 0-8: a hand-rolled 2-layer
+    LSTM at the posterior means (``weight_{ih,hh}_mean_{1,2}``,
+    ``bias_{ih,hh}_mean_{1,2}``) with a deterministic type-0 ``gpnn`` in
+    layer 1 only: 1, 2, 4 replace the i, f, o gate's pre-activation by
+    gpnn(x_t) (act set sigmoid, tanh, relu), 3 and 8 the cell gate's
+    activation; 5 transforms the previous cell state, c <- gpnn(c); 6 takes
+    gates = x W_ih^T + b_ih + gpnn(h) (b_hh dropped), 7 gates = gpnn(x) +
+    h W_hh^T + b_hh (b_ih dropped), a (H -> 4H) unit. The x-only work is
+    hoisted; layer 1 runs the JAX package's scan, layer 2 ``ops.lstm
+    .lstm_layer`` (rows 3-4 when deterministic, rows 5-6 in training on a
+    CUDA tensor that ``lstm_kernel_ok`` admits: in training the float32
+    carry promotes layer 1's output, as in JAX, and at H = 1,024 the gate
+    refuses float32, so the scan runs). emsize must equal nhid (the unit
+    reads the layer input with its H-wide weights). No sampling and no KL,
+    as the reference class."""
+
+    def __init__(self, cfg: ModelConfig):
+        super().__init__()
+        _two_layers(cfg, "the legacy GaussLSTM")
+        H, E, pos = cfg.nhid, cfg.emsize, cfg.l_gauss_legacy_pos
+        if not 0 <= pos <= 8:
+            raise ValueError(f"l_gauss_legacy_pos {pos}: 0-8 (or -1, off)")
+        if E != H:
+            raise ValueError(f"the legacy GaussLSTM needs emsize == nhid "
+                             f"(its GP unit reads the {E}-wide input with "
+                             f"{H}-wide weights)")
+        self.nhid, self.pos = H, pos
+        _mean_params(self, H, E, H)
+        if 1 <= pos <= 5 or pos == 8:
+            self.gpnn = GPNN(H, H, ("sigmoid", "tanh", "relu"))
+        elif pos in (6, 7):
+            self.gpnn = GPNN(H, 4 * H)
+
+    def reset_parameters(self, gen: torch.Generator) -> None:
+        for name, p in self.named_parameters():
+            if "_mean_" in name:
+                tinit.uniform_(p, tinit.rnn_bound(self.nhid), gen)
+        if hasattr(self, "gpnn"):
+            self.gpnn.reset_parameters(gen)
+
+    def forward(self, x, hidden: Hidden, step_mask=None, reset_mask=None,
+                reset_src=None, train: bool = False, dropout_mask=None,
+                generator: Optional[torch.Generator] = None,
+                noise: Optional[Sequence[torch.Tensor]] = None):
+        """``train`` takes layer 2's grad route; nothing samples, so
+        ``generator`` and ``noise`` (which must be empty) are not read."""
+        if dropout_mask is not None:
+            raise ValueError("the legacy GaussLSTM has no inter-layer dropout")
+        if noise:
+            raise ValueError("the legacy GaussLSTM draws no noise")
+        pos, dtype = self.pos, x.dtype
+        h0, c0 = hidden
+        p1 = _mean_layer(self, 1)
+        w_hh1_t = p1.w_hh.to(dtype).t()
+        b_ih1, b_hh1 = p1.b_ih.to(dtype), p1.b_hh.to(dtype)
+        gp = getattr(self, "gpnn", None)
+        drawn = None if gp is None else gp.draw()
+        if pos == 7:
+            xg = GPNN.apply_drawn(x, *drawn, gp.act_set)
+        else:
+            xg = x @ p1.w_ih.to(dtype).t() + b_ih1
+        gpx = None
+        if 1 <= pos <= 4 or pos == 8:
+            gpx = GPNN.apply_drawn(x, *drawn, gp.act_set)
+
+        def gates6(s, h):
+            return xg[s].to(h.dtype) + GPNN.apply_drawn(h, *drawn,
+                                                        gp.act_set)
+
+        def cell(s, pre4, c):
+            i, f, g, o = pre4
+            rep = gpx[s] if gpx is not None else None
+            i = rep if pos == 1 else i
+            f = rep if pos == 2 else f
+            o = rep if pos == 4 else o
+            i, f, o = torch.sigmoid(i), torch.sigmoid(f), torch.sigmoid(o)
+            g = rep if pos in (3, 8) else torch.tanh(g)
+            c_in = GPNN.apply_drawn(c, *drawn, gp.act_set) if pos == 5 else c
+            return i, f, g, o, c_in
+
+        ys1, _, h1T, c1T = _lstm_scan(
+            xg, None if pos == 6 else w_hh1_t,
+            None if pos == 6 else b_hh1, h0[0], c0[0], step_mask, reset_mask,
+            reset_src, gates_of=gates6 if pos == 6 else None, cell_of=cell)
+        ys2, h2T, c2T = lstm_layer(ys1, h0[1], c0[1], _mean_layer(self, 2),
+                                   step_mask, reset_mask, reset_src,
+                                   allow_kernel=not train)
+        dt = torch.promote_types(h1T.dtype, h2T.dtype)
+        return ys2, (torch.stack([h1T.to(dt), h2T.to(dt)]),
+                     torch.stack([c1T.to(dt), c2T.to(dt)]))
+
+
+class VLSTMLegacyCore(_KLRecorder):
+    """The reference's orphaned ``VLSTM`` (model.py:2582-2733), the JAX
+    package's ``VLSTMLegacyCore``: a 2-layer LSTM at the posterior means
+    (``ops.lstm.lstm_stack2``) whose whole output sequence takes additive
+    noise eps exp(``hiddens_lgstd``) while training, with trainable
+    (32, H) posterior and prior tables (32, the recipes' batch, which the
+    reference's broadcast requires: training at another batch raises).
+    Quirks kept: layer 2's w_ih is (4H, emsize); the KL (sown when either
+    ``l_v_pos`` digit is 1) reads the pre-noise output and is taken only at
+    batch 32 (zero otherwise). One eps (32, H) a training forward, from
+    ``generator`` or the injected ``noise``. With emsize = nhid, the
+    training forward takes the fused 2-layer route under its switch (kernel
+    rows 7-8, ``ops/lstm.py``)."""
+
+    NOISE_ROWS = 32
+
+    def __init__(self, cfg: ModelConfig):
+        super().__init__()
+        _two_layers(cfg, "the legacy VLSTM")
+        H, E = cfg.nhid, cfg.emsize
+        self.nhid = H
+        _mean_params(self, H, E, E)
+        self.active = "1" in cfg.l_v_pos[:2]
+        if self.active:
+            for n in ("hiddens_lgstd", "hiddens_mean", "hiddens_lgstd_p",
+                      "hiddens_mean_p"):
+                self.register_parameter(n, nn.Parameter(
+                    torch.empty((self.NOISE_ROWS, H))))
+
+    def reset_parameters(self, gen: torch.Generator) -> None:
+        for name, p in self.named_parameters():
+            if "lgstd" in name:
+                tinit.lgstd_(p, self.nhid, gen)
+            else:
+                tinit.uniform_(p, tinit.rnn_bound(self.nhid), gen)
+
+    def forward(self, x, hidden: Hidden, step_mask=None, reset_mask=None,
+                reset_src=None, train: bool = False, dropout_mask=None,
+                generator: Optional[torch.Generator] = None,
+                noise: Optional[Sequence[torch.Tensor]] = None):
+        if dropout_mask is not None:
+            raise ValueError("the legacy VLSTM has no inter-layer dropout")
+        draws = None if noise is None else iter(noise)
+        h0, c0 = hidden
+        out, hs, cs = lstm_stack2(x, h0, c0, _mean_layer(self, 1),
+                                  _mean_layer(self, 2), step_mask, reset_mask,
+                                  reset_src, train=train)
+        kl = torch.zeros((), device=x.device)
+        if self.active:
+            pre = out
+            if train:
+                if out.shape[1] != self.NOISE_ROWS:
+                    raise ValueError(
+                        f"legacy VLSTM noise table is ({self.NOISE_ROWS}, H); "
+                        f"the reference's output += noise broadcast requires "
+                        f"batch == {self.NOISE_ROWS}, got {out.shape[1]}")
+                lg = self.hiddens_lgstd
+                eps = _next_eps(draws, "VLSTMLegacyCore")
+                diff = gaussian.sample_diff(lg, eps=eps, generator=generator)
+                out = out + diff.to(out.dtype)[None]
+            if pre.shape[1] == self.NOISE_ROWS:
+                kl = self.kl(pre)
+        if draws is not None and next(draws, None) is not None:
+            raise ValueError("VLSTMLegacyCore: more injected noise tensors "
+                             "than sampled tensors")
+        self._kl = kl
+        return out, (torch.stack(hs), torch.stack(cs))
+
+    def kl(self, hidden: torch.Tensor) -> torch.Tensor:
+        """model.py:2664-2672 with the hidden sequence passed in (the
+        reference's ``self.hidden`` is never assigned)."""
+        prior_mean = hidden * self.hiddens_mean_p
+        return torch.mean((hidden - prior_mean) ** 2.0
+                          - self.hiddens_lgstd * 2.0
+                          + torch.exp(self.hiddens_lgstd * 2.0)) / 2.0
+
+
+class VLSTMCore(_KLRecorder):
+    """The variational LSTM (the reference's ``VariationalLSTM``,
+    ``VLSTMCell``, ``VNN``, model.py:2426-2579), the JAX package's
+    ``VLSTMCore``: two hand-rolled layers on the JAX scan, parameters
+    ``l{k}_weights_ih``, ``l{k}_bias_ih``, ``l{k}_weights_hh``,
+    ``l{k}_bias_hh`` (kept, unused: the reference adds ``bias_ih`` twice,
+    model.py:2519) and ``l{k}_vnn.hidden_lgstd``. When layer k's ``l_v_pos``
+    digit is 1 and the model trains, its hidden state takes the VNN's noise
+    at every step, and the noised hidden feeds the recurrence; its KL
+    (summed over such layers) reads the last step's pre-noise hidden, in
+    training and evaluation alike, as JAX sows it. ``noise`` injects one
+    (T, 1, H) standard-normal eps a noised layer, layer 1 first. No kernel:
+    a Python loop over T, as the GP cells' scan."""
+
+    def __init__(self, cfg: ModelConfig):
+        super().__init__()
+        _two_layers(cfg, "the variational LSTM")
+        s = cfg.l_v_pos
+        if len(s) < 2 or not s[:2].isdigit():
+            raise ValueError(f"l_v_pos {s!r}: a string of two digits")
+        H = self.nhid = cfg.nhid
+        self.vtypes = (int(s[0]), int(s[1]))
+        for k, in_size in ((0, cfg.emsize), (1, H)):
+            for n, shape in (("weights_ih", (4 * H, in_size)),
+                             ("bias_ih", (4 * H,)),
+                             ("weights_hh", (4 * H, H)),
+                             ("bias_hh", (4 * H,))):
+                self.register_parameter(f"l{k}_{n}",
+                                        nn.Parameter(torch.empty(shape)))
+            self.add_module(f"l{k}_vnn", VNN(H))
+
+    def reset_parameters(self, gen: torch.Generator) -> None:
+        for k in (0, 1):
+            for n in ("weights_ih", "weights_hh"):
+                tinit.uniform_(getattr(self, f"l{k}_{n}"),
+                               tinit.rnn_bound(self.nhid), gen)
+            with torch.no_grad():
+                getattr(self, f"l{k}_bias_ih").zero_()
+                getattr(self, f"l{k}_bias_hh").zero_()
+            getattr(self, f"l{k}_vnn").reset_parameters(gen)
+
+    def forward(self, x, hidden: Hidden, step_mask=None, reset_mask=None,
+                reset_src=None, train: bool = False, dropout_mask=None,
+                generator: Optional[torch.Generator] = None,
+                noise: Optional[Sequence[torch.Tensor]] = None):
+        if dropout_mask is not None:
+            raise ValueError("the variational LSTM has no inter-layer "
+                             "dropout")
+        draws = None if noise is None else iter(noise)
+        h0, c0 = hidden
+        out, hs, cs = x, [], []
+        kl = torch.zeros((), device=x.device)
+        T, B, _ = x.shape
+        for k in (0, 1):
+            dtype = out.dtype
+            b_ih = getattr(self, f"l{k}_bias_ih").to(dtype)
+            xg = (out.reshape(T * B, -1)
+                  @ getattr(self, f"l{k}_weights_ih").to(dtype).t()
+                  + b_ih).reshape(T, B, -1)
+            vnn = getattr(self, f"l{k}_vnn")
+            eps = None
+            if self.vtypes[k] == 1 and train:
+                eps = vnn.noise(T, generator, _next_eps(
+                    draws, "VLSTMCore")).to(dtype)
+            out, pre, hT, cT = _lstm_scan(
+                xg, getattr(self, f"l{k}_weights_hh").to(dtype).t(), b_ih,
+                h0[k], c0[k], step_mask, reset_mask, reset_src, noise=eps)
+            hs.append(hT)
+            cs.append(cT)
+            if self.vtypes[k] == 1:
+                kl = kl + vnn.kl(pre[-1])
+        if draws is not None and next(draws, None) is not None:
+            raise ValueError("VLSTMCore: more injected noise tensors than "
+                             "sampled tensors")
+        self._kl = kl
+        return out, (torch.stack(hs), torch.stack(cs))
+
+
 class RecurrentLM(nn.Module):
     """Embedding -> recurrent core -> tied decoder (reference RNNModel).
 
@@ -589,12 +907,6 @@ class RecurrentLM(nn.Module):
 
     def __init__(self, cfg: ModelConfig):
         super().__init__()
-        if cfg.uncertainty == "Variational":
-            raise _gp_refusal("uncertainty='Variational'")
-        if cfg.uncertainty == "Gaussian" and cfg.l_gauss_legacy_pos >= 0:
-            raise _gp_refusal(
-                f"the legacy GaussLSTM (l_gauss_legacy_pos="
-                f"{cfg.l_gauss_legacy_pos})")
         if not cfg.tied:
             raise NotImplementedError(
                 "an untied decoder is not ported yet (ROADMAP.md queue A item 3)")
@@ -604,7 +916,11 @@ class RecurrentLM(nn.Module):
         if cfg.uncertainty == "Bayesian":
             self.core = BayesLSTMCore(cfg)
         elif cfg.uncertainty == "Gaussian":
-            self.core = GPLSTMCore(cfg)
+            self.core = (GaussLSTMLegacyCore(cfg)
+                         if cfg.l_gauss_legacy_pos >= 0 else GPLSTMCore(cfg))
+        elif cfg.uncertainty == "Variational":
+            self.core = (VLSTMLegacyCore(cfg) if cfg.l_v_legacy
+                         else VLSTMCore(cfg))
         else:
             self.core = StandardRNNCore(cfg)
 
@@ -632,14 +948,14 @@ class RecurrentLM(nn.Module):
         ``dropout_masks`` or masks drawn from ``generator``. The Bayesian
         core then samples its weights from ``generator``, or takes the
         injected ``noise`` (see ``BayesLSTMCore``); so do the GP units of
-        the GP-LSTM core (see ``GPLSTMCore``).
+        the GP-LSTM core (see ``GPLSTMCore``) and the variational cores'
+        noise (see ``VLSTMCore``, ``VLSTMLegacyCore``).
         """
         cfg = self.cfg
         dtype = getattr(torch, cfg.compute_dtype)
         emb = self.embedding[tokens].to(dtype)
         kw = {}
-        if not deterministic and isinstance(self.core, (BayesLSTMCore,
-                                                        GPLSTMCore)):
+        if not deterministic and not isinstance(self.core, StandardRNNCore):
             kw = dict(generator=generator, noise=noise)
         if deterministic or cfg.dropout == 0:
             out, hidden = self.core(emb, hidden, step_mask, reset_mask,

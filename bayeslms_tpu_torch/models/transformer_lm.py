@@ -21,7 +21,8 @@ Transformer-XL memories (``mems``, ``mem_len``, ``return_mems``): keys and
 values of the standard layers extend over [mem; x], positions continue from
 the real memory length. The GP-FFN layer (``uncertainty="Gaussian"``,
 ``GaussEncoderLayer``) is layer 0 for ``t_gauss_pos`` 0-4. The variational
-layers are ROADMAP.md queue A item 10.
+layers (``uncertainty="Variational"``, ``VEncoderLayer``) stand where
+``t_v_pos`` 1-3 puts them, with the reference's layer counts.
 """
 
 from __future__ import annotations
@@ -323,16 +324,78 @@ class GaussEncoderLayer(nn.Module):
         return self.gpnn.kl()
 
 
+class VEncoderLayer(StandardEncoderLayer):
+    """The variational layer (model.py:2741-2805), the JAX package's
+    ``VEncoderLayer``: a standard post-LN layer whose FFN output takes
+    additive noise 0.1 eps exp(hidden ``hiddens_lgstd``[t]) when training on
+    a window of exactly ``v_seq_len`` steps. The (v_seq_len, 1, d) tables
+    ``hiddens_mean``, ``hiddens_lgstd`` and their priors ``_p`` keep the
+    reference's U(0, 1) init. Its KL, counted only for the layers that the
+    reference's loss reads (``TransformerLM.v_kl_layers``), is taken under
+    the same gate: mean((h - h mean_p)^2 - 2 lgstd + exp(2 lgstd)) / 2,
+    h the FFN output, zero otherwise. No memory hook."""
+
+    def __init__(self, d: int, nhead: int, ff: int, dropout: float, dtype,
+                 v_seq_len: int):
+        super().__init__(d, nhead, ff, dropout, dtype)
+        self.v_seq_len = v_seq_len
+        for n in ("hiddens_mean_p", "hiddens_lgstd_p", "hiddens_mean",
+                  "hiddens_lgstd"):
+            self.register_parameter(n, nn.Parameter(
+                torch.empty((v_seq_len, 1, d))))
+
+    def reset_parameters(self, gen) -> None:
+        super().reset_parameters(gen)
+        with torch.no_grad():
+            for n in ("hiddens_mean_p", "hiddens_lgstd_p", "hiddens_mean",
+                      "hiddens_lgstd"):
+                getattr(self, n).uniform_(0.0, 1.0, generator=gen)
+
+    def forward(self, src, attn_mask=None, deterministic: bool = True,
+                masks: Optional[EncoderDropoutMasks] = None,
+                generator: Optional[torch.Generator] = None,
+                eps: Optional[torch.Tensor] = None, mem=None,
+                count_kl: bool = False):
+        """``eps`` injects the (T, B, d) standard-normal draw of the noise;
+        returns (output, KL or None when not ``count_kl``)."""
+        if mem is not None:
+            raise ValueError("mems require standard encoder layers: the "
+                             "variational layer has no memory")
+        m = masks or EncoderDropoutMasks(None, None, None, None)
+        drop = lambda x, mask: _dropout(  # noqa: E731
+            x, self.dropout, deterministic, mask, generator)
+        src2 = self.self_attn(src, attn_mask, deterministic, m.attn,
+                              generator)
+        src = self.norm1(src + drop(src2, m.attn_out))
+        hidden = self.linear2(drop(F.gelu(self.linear1(src)), m.ff))
+        src2 = hidden
+        noisy = not deterministic and hidden.shape[0] == self.v_seq_len
+        if noisy:
+            std = torch.exp(hidden * self.hiddens_lgstd.to(hidden.dtype))
+            if eps is None:
+                eps = torch.randn(std.shape, generator=generator,
+                                  device=std.device, dtype=std.dtype)
+            elif tuple(eps.shape) != tuple(std.shape):
+                raise ValueError(f"VEncoderLayer: injected eps "
+                                 f"{tuple(eps.shape)} != {tuple(std.shape)}")
+            src2 = src2 + 0.1 * eps.to(std.dtype) * std
+        kl = None
+        if count_kl:
+            kl = torch.zeros((), device=src.device)
+            if noisy:
+                prior_mean = hidden * self.hiddens_mean_p.to(hidden.dtype)
+                kl = torch.mean((hidden - prior_mean) ** 2.0
+                                - self.hiddens_lgstd * 2.0
+                                + torch.exp(self.hiddens_lgstd * 2.0)) / 2.0
+        return self.norm2(src + drop(src2, m.ff_out)), kl
+
+
 class TransformerLM(nn.Module):
     """Embedding x sqrt(E) -> [EMB projection] -> positions -> layers ->
     [EMB transpose-reuse] -> tied decoder (the JAX ``TransformerLM``)."""
 
     def __init__(self, cfg: ModelConfig):
         super().__init__()
-        if cfg.uncertainty == "Variational":
-            raise NotImplementedError(
-                "the Variational Transformer is not ported yet: its "
-                "variational layers are ROADMAP.md queue A item 10")
         if not cfg.tied:
             raise NotImplementedError(
                 "an untied decoder is not ported yet (ROADMAP.md queue A "
@@ -352,7 +415,22 @@ class TransformerLM(nn.Module):
         # the GP-FFN layer's type, or None (t_gauss_pos > 4: all standard)
         self.gauss_pos = (cfg.t_gauss_pos if cfg.uncertainty == "Gaussian"
                           and cfg.t_gauss_pos <= 4 else None)
+        # the variational layers' places (model.py:2822-2843) and the
+        # layers whose KL the loss reads (train.py:386-397)
+        self.v_pos = cfg.t_v_pos if cfg.uncertainty == "Variational" else 0
+        self.v_kl_layers = {0: (), 1: (0,), 2: (1,), 3: (0, 1)}[self.v_pos]
         layers = []
+        std = lambda: StandardEncoderLayer(E, cfg.nhead, ff,  # noqa: E731
+                                           cfg.dropout, dtype)
+        vlayer = lambda: VEncoderLayer(E, cfg.nhead, ff,  # noqa: E731
+                                       cfg.dropout, dtype, cfg.v_seq_len)
+        if self.v_pos == 1:
+            layers = [vlayer()]
+        elif self.v_pos in (2, 3):
+            # the reference's off-by-one kept: n - 1 layers in all for n > 2
+            first = vlayer() if self.v_pos == 3 else std()
+            layers = [first, vlayer()] + [std() for _ in range(n - 3)]
+            n = len(layers)
         if self.bayes_pos in ("FFN", "MHA"):
             layers.append(BayesEncoderLayer(E, cfg.nhead, ff,
                                             BAYES_LAYER_DROPOUT, dtype,
@@ -362,8 +440,7 @@ class TransformerLM(nn.Module):
                                             dtype, self.gauss_pos,
                                             cfg.gp_sample))
         while len(layers) < n:
-            layers.append(StandardEncoderLayer(E, cfg.nhead, ff, cfg.dropout,
-                                               dtype))
+            layers.append(std())
         for i, layer in enumerate(layers):
             self.add_module(f"layers_{i}", layer)
         self.layers = layers
@@ -423,7 +500,9 @@ class TransformerLM(nn.Module):
         weights sampled with the injected ``noise`` (one eps, (out, in) or
         (E, E) for EMB) or from ``generator``; the GP-FFN layer's draws
         likewise (``GaussEncoderLayer.n_draws`` of them, in the JAX call
-        order)."""
+        order); the variational layers' noise likewise (one (T, B, E) eps
+        a variational layer, in layer order, on a training window of
+        ``v_seq_len`` steps)."""
         cfg = self.cfg
         T = tokens.shape[0]
         dtype = getattr(torch, cfg.compute_dtype)
@@ -443,9 +522,14 @@ class TransformerLM(nn.Module):
             pos_offset = ml
         draws = None if noise is None else list(noise)
         eps = None
+        v_idx = [i for i, layer in enumerate(self.layers)
+                 if isinstance(layer, VEncoderLayer)]
+        v_noisy = not deterministic and T == cfg.v_seq_len
         if draws is not None and not deterministic:
             if self.gauss_pos is not None:
                 want = self.layers[0].n_draws(deterministic)
+            elif v_idx:
+                want = len(v_idx) if v_noisy else 0
             else:
                 want = int(self.bayes_pos != "none")
             if len(draws) != want:
@@ -453,6 +537,8 @@ class TransformerLM(nn.Module):
                                  f"tensors where the model draws {want}")
             eps = draws if self.gauss_pos is not None else (
                 draws[0] if draws else None)
+        v_eps = dict(zip(v_idx, draws)) if v_idx and draws else {}
+        v_kl = torch.zeros((), device=tokens.device)
 
         x = self.embedding[tokens].to(dtype) * math.sqrt(cfg.emsize)
         if self.bayes_pos == "EMB":
@@ -474,12 +560,21 @@ class TransformerLM(nn.Module):
         for i, layer in enumerate(self.layers):
             if return_mems:
                 new_mems.append(x)
+            if isinstance(layer, VEncoderLayer):
+                x, kl = layer(x, mask, deterministic,
+                              None if m is None else m.layers[i], generator,
+                              v_eps.get(i),
+                              mem=None if mems is None else mems[i],
+                              count_kl=i in self.v_kl_layers)
+                v_kl = v_kl if kl is None else v_kl + kl
+                continue
             stochastic = i == 0 and (self.bayes_pos in ("FFN", "MHA")
                                      or self.gauss_pos is not None)
             x = layer(x, mask, deterministic,
                       None if m is None else m.layers[i], generator,
                       eps if stochastic else None,
                       mem=None if mems is None else mems[i])
+        self._v_kl = v_kl
         if self.bayes_pos == "EMB":
             # transpose-reuse with the MEAN projection (model.py:1302-1307)
             x = x @ self.embed_mean.to(dtype)
@@ -494,7 +589,13 @@ class TransformerLM(nn.Module):
         FFN and MHA (with ``prior_mean``, the prior's weight mean at
         ``bayes_site``, the prior branch), the embedding projection's
         against N(0, 1) for EMB, the GP-FFN layer's GPNN KL for
-        ``t_gauss_pos`` 1-3 (no prior branch), zero otherwise."""
+        ``t_gauss_pos`` 1-3 (no prior branch), the variational layers' KL
+        of the last forward (it reads that forward's activations), zero
+        otherwise."""
+        if self.v_pos:
+            kl = getattr(self, "_v_kl", None)
+            return torch.zeros((), device=self.embedding.device) \
+                if kl is None else kl
         if self.bayes_pos in ("FFN", "MHA"):
             return self.layers[0].kl(prior_mean)
         if self.bayes_pos == "EMB":

@@ -11,19 +11,29 @@ x's dtype. ``lstm_stack2`` is the 2-layer recurrence. Its scoring route
 computes layer 1's input projection for the whole sequence as one matrix
 product and hands the recurrence to ``lstm_cuda.lstm2_fwd``; its training
 route (``train=True``) runs two ``lstm_layer_train`` calls with the
-inter-layer dropout mask between them, as the JAX package does when a mask is
-given. ``lstm_layer_train`` hands its recurrence to the autograd Function
+inter-layer dropout mask between them, as the JAX package does by default.
+``lstm_layer_train`` hands its recurrence to the autograd Function
 ``lstm_train_cuda.lstm_scan_fused``. The wrappers launch the CUDA kernels for
 CUDA tensors and run their plain twins for CPU tensors.
+
+The JAX package's fused training route is opt-in there and here, under the
+same switch: with ``BAYESLM_PALLAS_LSTM2_TRAIN=1`` (and neither
+``BAYESLM_PALLAS_LSTM2`` nor ``BAYESLM_PALLAS_LSTM_TRAIN`` set to ``0``), a
+training call without resets whose layer-2 ``w_ih`` is (4H, H) and that
+``lstm2_train_cuda.lstm2_kernel_ok`` admits (a CUDA tensor) runs both layers
+through ``lstm2_train_cuda.lstm2_layer_train`` (kernel rows 7-8). JAX keeps
+it off by default because it measured it 2-5% slower than two layers at
+B = 32 on its TPU.
 """
 
 from __future__ import annotations
 
+import os
 from typing import NamedTuple, Optional, Tuple
 
 import torch
 
-from . import lstm_cuda, lstm_train_cuda
+from . import lstm2_train_cuda, lstm_cuda, lstm_train_cuda
 
 
 class LSTMParams(NamedTuple):
@@ -129,6 +139,16 @@ def lstm_layer_train(
     return ys, hT, cT
 
 
+def fused_train_enabled() -> bool:
+    """The JAX package's switch of the fused 2-layer training route:
+    ``BAYESLM_PALLAS_LSTM2_TRAIN=1``, and neither ``BAYESLM_PALLAS_LSTM2``
+    nor ``BAYESLM_PALLAS_LSTM_TRAIN`` set to ``0``. Off by default."""
+    env = os.environ
+    return (env.get("BAYESLM_PALLAS_LSTM2_TRAIN", "0") == "1"
+            and env.get("BAYESLM_PALLAS_LSTM2", "1") != "0"
+            and env.get("BAYESLM_PALLAS_LSTM_TRAIN", "1") != "0")
+
+
 def lstm_stack2(
     x: torch.Tensor,
     h0: torch.Tensor,  # (2, B, H)
@@ -149,14 +169,21 @@ def lstm_stack2(
     kernel takes them (b_hh1, and b_ih2 + b_hh2 summed before the
     rounding). ``train=True`` is the grad route: two ``lstm_layer_train``
     calls, layer 1's output multiplied by ``dropout_mask`` (T, B, H), the
-    inter-layer inverted-dropout mask, when one is given; resets are not
-    taken there.
+    inter-layer inverted-dropout mask, when one is given; or, under the
+    switch (``fused_train_enabled``), ``lstm2_train_cuda.lstm2_layer_train``
+    where JAX's conditions hold. Resets are not taken there.
     """
     if train:
         if reset_mask is not None:
             raise NotImplementedError(
                 "packed resets on the training route: resets belong to the "
                 "packed scoring layouts, which do not train")
+        H = p1.w_hh.shape[1]
+        if fused_train_enabled() and tuple(p2.w_ih.shape) == (4 * H, H) \
+                and lstm2_train_cuda.lstm2_kernel_ok(x, H):
+            return lstm2_train_cuda.lstm2_layer_train(
+                x, h0[0], c0[0], h0[1], c0[1], p1, p2, step_mask,
+                dropout_mask)
         ys1, h1T, c1T = lstm_layer_train(x, h0[0], c0[0], p1, step_mask)
         if dropout_mask is not None:
             ys1 = ys1 * dropout_mask.to(ys1.dtype)

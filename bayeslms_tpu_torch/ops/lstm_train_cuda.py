@@ -60,6 +60,24 @@ def lstm_train_fwd_plain(xg, w_hh, b_hh, mask, h0, c0):
     return torch.stack(ys), torch.stack(cs), h.to(dtype), c.to(dtype)
 
 
+def cell_grads(gates, c_prev, keep, dh_tot, dc_tot, dtype):
+    """The cell's backward at one step, from its recomputed gate
+    pre-activations [i, f, g, o], the float32 c_{t-1}, keep (B, 1) and the
+    float32 dh_tot = dh + dy_t and dc_tot: (du in ``dtype``, the new dc)."""
+    gi, gf, gg, go = gates.chunk(4, -1)
+    i, f, o = torch.sigmoid(gi), torch.sigmoid(gf), torch.sigmoid(go)
+    g = torch.tanh(gg)
+    tc = torch.tanh(f * c_prev + i * g)
+    dh_new = keep * dh_tot
+    dc_new = keep * dc_tot
+    d_o = dh_new * tc
+    dcc = dc_new + dh_new * o * (1.0 - tc * tc)
+    du = torch.cat([dcc * g * i * (1.0 - i), dcc * c_prev * f * (1.0 - f),
+                    dcc * i * (1.0 - g * g), d_o * o * (1.0 - o)],
+                   dim=-1).to(dtype)
+    return du, dcc * f + (1.0 - keep) * dc_tot
+
+
 def lstm_train_bwd_plain(xg, w_hh, b_hh, mask, h0, c0, ys, cs, dy, dhT,
                          dcT):
     """Plain PyTorch version of the backward kernel, same arguments as
@@ -72,23 +90,11 @@ def lstm_train_bwd_plain(xg, w_hh, b_hh, mask, h0, c0, ys, cs, dy, dhT,
     for t in reversed(range(xg.shape[0])):
         h_prev = h0 if t == 0 else ys[t - 1]
         c_prev = (c0 if t == 0 else cs[t - 1]).float()
-        gi, gf, gg, go = _gates(xg[t], h_prev, w_t, b_hh, dtype).chunk(4, -1)
-        i, f, o = torch.sigmoid(gi), torch.sigmoid(gf), torch.sigmoid(go)
-        g = torch.tanh(gg)
-        tc = torch.tanh(f * c_prev + i * g)
         keep = (torch.ones_like(dh[:, :1]) if mask is None
                 else mask[t].to(torch.float32)[:, None])
         dh_tot = dh + dy[t].float()
-        dc_tot = dc
-        dh_new = keep * dh_tot
-        dc_new = keep * dc_tot
-        d_o = dh_new * tc
-        dcc = dc_new + dh_new * o * (1.0 - tc * tc)
-        dc = dcc * f + (1.0 - keep) * dc_tot
-        du[t] = torch.cat([dcc * g * i * (1.0 - i),
-                           dcc * c_prev * f * (1.0 - f),
-                           dcc * i * (1.0 - g * g),
-                           d_o * o * (1.0 - o)], dim=-1).to(dtype)
+        du[t], dc = cell_grads(_gates(xg[t], h_prev, w_t, b_hh, dtype),
+                               c_prev, keep, dh_tot, dc, dtype)
         dh = du[t].float() @ w + (1.0 - keep) * dh_tot
     return du, dh.to(dtype), dc.to(dtype)
 

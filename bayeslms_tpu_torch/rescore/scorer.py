@@ -9,7 +9,9 @@ Transformer scores every hypothesis on its own through the packed-nocarry
 layout, whatever ``carry_over`` says, as the JAX package does; the fused
 CE kernel then runs at width emsize. With ``xl_mems`` the Transformer
 scores each utterance against Transformer-XL memories of the previous
-utterance in its chain instead (``layouts/xl.py``).
+utterance in its chain instead (``layouts/xl.py``). Every model scores
+deterministically, as in the JAX package: the Bayesian and GP ones at
+their posterior means, the variational ones without their noise.
 
 This slice runs on one device, with ``inter_flag=0``, ``mc_samples=0``, no
 backward scoring and no context splicing; the rest raises

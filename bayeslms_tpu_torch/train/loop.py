@@ -4,10 +4,11 @@ scheduler.
 
 Reference behaviours (train.py), as the JAX package keeps them:
 - loss = mean token CE + KL * seq_len / rows of the batchified stream; the
-  standard models have no KL, the Bayesian and GP ones' is the model's
-  ``kl_value`` (the LSTM core's, the GP-LSTM core's GPNN KLs, or the
-  Transformer's dispatch over FFN, MHA, EMB and the GP-FFN layer; against
-  N(0, 1), or with
+  standard models have no KL, the Bayesian, GP and variational ones' is
+  the model's ``kl_value`` (the LSTM core's, the GP-LSTM core's GPNN KLs,
+  the variational cores' KL of the step's own forward, or the
+  Transformer's dispatch over FFN, MHA, EMB, the GP-FFN layer and the
+  variational layers; against N(0, 1), or with
   ``prior_kl`` against the prior's means where the reference has that
   branch);
 - the prior / finetune workflow: ``prior`` with ``prior_path`` overwrites
@@ -18,7 +19,10 @@ Reference behaviours (train.py), as the JAX package keeps them:
 - the LSTM state carried, detached, across the windows of an epoch and
   zeroed at each epoch's start (the Transformer carries nothing); the
   ragged final window padded to ``seq_len`` with the CE masked, the model
-  running over the pad steps (causal, so the real tokens' CE is exact);
+  running over the pad steps (causal, so the real tokens' CE is exact),
+  except for the variational models, whose KL reads the activations and
+  whose Transformer layers gate their noise on the window's length: their
+  short window runs at its true length;
 - per-epoch validation; on improvement save the best checkpoint, else
   halve the LR, reload the best checkpoint and reset the momentum; stop
   after ``max_plateaus`` plateaus; the test loss of the best checkpoint
@@ -27,7 +31,8 @@ Reference behaviours (train.py), as the JAX package keeps them:
   ragged final window.
 
 The step runs the model's training forward (LSTM grad route: CUDA kernels
-``lstm_train_cuda``; the Bayesian core's gate-slice sampler
+``lstm_train_cuda``, or ``lstm2_train_cuda`` under the fused 2-layer switch
+of ``ops/lstm.py``; the Bayesian core's gate-slice sampler
 ``bayes_sample_cuda``, its seeds drawn on the device from the trainer's
 generator; the GP cell's recurrence ``gp_lstm_cuda`` (gates 1-4 and 6;
 gate 7 on ``lstm_train_cuda``); the Transformer's
@@ -234,17 +239,28 @@ class Trainer:
                     f"| kl {float(kl):5.4f} | ppl {math.exp(min(cur, 30)):8.2f}")
                 t0 = time.time()
         if tail is not None:
-            # padded to seq_len, CE masked to the real tokens, KL scale kept
             d_t, t_t = tail
-            L, bsz = tcfg.seq_len, d_t.shape[1]
-            data_p = np.zeros((L, bsz), dtype=np.int64)
-            tgt_p = np.zeros((L, bsz), dtype=np.int64)
-            m_p = np.zeros((L, bsz), dtype=np.float32)
-            data_p[:len(d_t)], tgt_p[:len(d_t)], m_p[:len(d_t)] = d_t, t_t, 1.0
-            hidden, loss, _, _, _ = self.train_step(
-                state, hidden, torch.from_numpy(data_p).to(self.device),
-                torch.from_numpy(tgt_p).to(self.device), kl_scale,
-                mask=torch.from_numpy(m_p).to(self.device))
+            dev = lambda a: torch.from_numpy(  # noqa: E731
+                np.ascontiguousarray(a)).long().to(self.device)
+            if cfg.uncertainty == "Variational":
+                # the variational KL reads the activations and the
+                # Transformer's noise gates on the window's length: the
+                # short window runs at its true length, as in the JAX
+                # package and the reference
+                hidden, loss, _, _, _ = self.train_step(
+                    state, hidden, dev(d_t), dev(t_t), kl_scale)
+            else:
+                # padded to seq_len, CE masked to the real tokens, KL scale
+                # kept
+                L, bsz = tcfg.seq_len, d_t.shape[1]
+                data_p = np.zeros((L, bsz), dtype=np.int64)
+                tgt_p = np.zeros((L, bsz), dtype=np.int64)
+                m_p = np.zeros((L, bsz), dtype=np.float32)
+                data_p[:len(d_t)], tgt_p[:len(d_t)] = d_t, t_t
+                m_p[:len(d_t)] = 1.0
+                hidden, loss, _, _, _ = self.train_step(
+                    state, hidden, dev(data_p), dev(tgt_p), kl_scale,
+                    mask=torch.from_numpy(m_p).to(self.device))
             if on_step is not None:
                 on_step(n, loss)
         return state

@@ -18,7 +18,14 @@ the same corpus: the gate-slice sampler kernel against its twin on the
 slices a step hands it (bit-equal uniforms, moments, correlations, the
 gradient, planted-fault builds), one epoch of ``Trainer.fit``, a
 kernel-path step against the plain path, and scoring at the posterior
-mean. Then the recipe's GP-LSTM (``l_gauss_pos`` 13: a GP cell replacing
+mean. Then the JAX package's opt-in fused 2-layer training route
+(``BAYESLM_PALLAS_LSTM2_TRAIN=1``, set inside those phases only): a few
+``fit`` steps on it and on the default two-layer route, timed in the same
+call, its kernels (forward, backward) against their twins on the calls one
+fused step hands them (with the dropout mask, a random step mask and
+dm = ones; planted faults: W_hh2 dropped and three builds with
+``-DLSTM2_TRAIN_FAULT``), and a fused standard and Bayesian step against
+the plain path. Then the recipe's GP-LSTM (``l_gauss_pos`` 13: a GP cell replacing
 the input gate, then a standard layer) on the same corpus: the GP
 gate-replacement kernels (forward, backward) against their twins on the
 calls a step and an ``evaluate`` window hand them and for gates 2-4 at a
@@ -42,7 +49,12 @@ against the plain path; gate 7 (``73``): a kernel-path step (the
 single-layer training kernels on the hoisted GP input) against the plain
 path; GPNN2 (``14``): a few steps of ``Trainer.fit``, the loss finite and
 falling; the GP-FFN Transformer (``t_gauss_pos`` 3 at the recipe's width):
-a kernel-path step against the plain path.
+a kernel-path step against the plain path; a print-only ``53`` and ``14``
+step with the trainer's bf16 CE operand against a float32 CE; and a few
+``fit`` steps and a scoring pass of the 6,000-hypothesis N-best against the
+plain path for the variational LSTM (``l_v_pos`` 11), the legacy VLSTM
+(under the fused switch), the legacy GaussLSTM (positions 1 and 6) and the
+variational Transformer (``t_v_pos`` 1 and 3).
 Then the recipe's Transformer (512/4096 x 6, 8 heads, the same table,
 bf16; lr 0.1): the causal attention kernel against its twin on the q, k, v
 that ``evaluate`` hands it and at T = 1,024 and 4,096 (and a planted-fault
@@ -157,7 +169,9 @@ KERNEL_ROWS = (
     ("attn_train_dkv_kernel", "17"), ("gp6_fwd_step", "18"),
     ("gp6_bwd_gates", "19"), ("gp6_bwd_dh", "19"), ("gp6_dcoef_sum", "19"),
     ("gpg_fwd_step", "20"), ("gpg_bwd_gates", "21"), ("gpg_bwd_dh", "21"),
-    ("gpg_dcoef_sum", "21"))
+    ("gpg_dcoef_sum", "21"), ("lstm2_fwd_l1", "7"), ("lstm2_fwd_l2", "7"),
+    ("lstm2_dropped", "8"), ("lstm2_bwd_gates", "8"), ("lstm2_bwd_dh2", "8"),
+    ("lstm2_bwd_dh1", "8"))
 
 
 def kernel_row(name):
@@ -346,12 +360,15 @@ def write_markov_corpus(root, vocab_words, n_train, n_valid, n_test, seed=0):
 
 def compare_steps(torch, trainer, data, target, kl_scale, masks, plain,
                   loss_atol=0.0, loss_rtol=0.0, hidden=lambda: None,
-                  prepare=lambda st: None):
+                  prepare=lambda st: None, labels=("kernel", "plain"),
+                  check=True):
     """One step on the kernel path and one with ``plain`` (mock patches of
     the kernels' wrappers with their twins), from the same weights, batch,
     ``hidden()`` state, masks and generator state; raises unless loss and
     KL agree within ``loss_atol`` + ``loss_rtol`` |plain| and every
-    gradient within STEP_GRAD_SHARE of its largest entry."""
+    gradient within STEP_GRAD_SHARE of its largest entry. ``check=False``
+    prints the same reading and raises nothing; ``labels`` name the two
+    steps in it."""
     def one_step():
         st = trainer.init_state(seed=5)
         prepare(st)
@@ -369,9 +386,10 @@ def compare_steps(torch, trainer, data, target, kl_scale, masks, plain,
         for p in plain:
             stack.enter_context(p)
         p_loss, p_kl, p_gn, p_grads = one_step()
-    print(f"  loss kernel {k_loss:.6f} plain {p_loss:.6f}; KL term "
+    ka, pa = labels
+    print(f"  loss {ka} {k_loss:.6f} {pa} {p_loss:.6f}; KL term "
           f"{k_kl:.6f} / {p_kl:.6f} (tolerance {loss_atol:.1e} + "
-          f"{loss_rtol:.1e} |plain|); gnorm {k_gn:.6f} / {p_gn:.6f}")
+          f"{loss_rtol:.1e} |{pa}|); gnorm {k_gn:.6f} / {p_gn:.6f}")
     shares = []
     for k, g in p_grads.items():
         big = float(g.abs().max())
@@ -379,11 +397,13 @@ def compare_steps(torch, trainer, data, target, kl_scale, masks, plain,
         shares.append((e / (STEP_GRAD_SHARE * big + 1e-30), k, big, e))
     shares.sort(reverse=True)
     for share, k, big, e in shares[:6]:
-        print(f"  grad {k}: |plain| max {big:.3e}; max |kernel - plain| "
+        print(f"  grad {k}: |{pa}| max {big:.3e}; max |{ka} - {pa}| "
               f"{e:.3e} ({e / (big + 1e-30):.2e} of the max)")
     worst = shares[0][0]
     print(f"  worst gradient share of tolerance {worst:.3f} over "
           f"{len(p_grads)} parameters (the six worst printed)")
+    if not check:
+        return
     if abs(k_loss - p_loss) > loss_atol + loss_rtol * abs(p_loss) \
             or abs(k_kl - p_kl) > loss_atol + loss_rtol * abs(p_kl) + 1e-12 \
             or worst > 1:
@@ -573,6 +593,7 @@ def train_phases(torch, kernels, smi, cfg, rcfg):
     from bayeslms_tpu_torch.models.lstm_lm import (draw_dropout_masks,
                                                    init_hidden)
     from bayeslms_tpu_torch.ops import ce_train_cuda as ctc
+    from bayeslms_tpu_torch.ops import lstm2_train_cuda as l2c
     from bayeslms_tpu_torch.ops import lstm_cuda
     from bayeslms_tpu_torch.ops import lstm_train_cuda as ltc
     from bayeslms_tpu_torch.rescore.scorer import BatchScorer
@@ -637,7 +658,7 @@ def train_phases(torch, kernels, smi, cfg, rcfg):
     del recorded
 
     with phase("train main path"):
-        for module in (ltc, ctc):
+        for module in (ltc, ctc, l2c):
             for k in module.launches:
                 module.launches[k] = 0
         lstm_cuda.launches = 0
@@ -675,6 +696,9 @@ def train_phases(torch, kernels, smi, cfg, rcfg):
                                      f"{n} steps, {k} a step expected")
         if launches["lstm2_fwd (evaluate)"] == 0:
             raise AssertionError("evaluate never launched lstm2_fwd")
+        if any(l2c.launches.values()):
+            raise AssertionError(f"the default route launched rows 7-8: "
+                                 f"{dict(l2c.launches)}")
         if not all(np.isfinite(losses)) or not np.isfinite(out["test_loss"]):
             raise AssertionError("a training loss is not finite")
         if np.mean(losses[-5:]) >= np.mean(losses[:5]):
@@ -2209,7 +2233,9 @@ def check_kernel_calls(torch, kernels, name, spec, calls):
     is none; optionally slack(args, ref): elementwise allowances added to
     the tolerance of some outputs) against its twin on every call of
     ``calls`` within GP_TOL, each planted fault on the calls it applies to
-    (an input fault returns None where it does not) by FAULT_MARGIN or
+    (an input fault returns None where it does not; a build fault given as
+    {"build": variant, "when": predicate of the args} is tried where the
+    predicate holds) by FAULT_MARGIN or
     more; times it on the first call and adds it to ``kernels``. Raises on
     any failed check."""
     from bayeslms_tpu_torch.ops import _build
@@ -2233,6 +2259,10 @@ def check_kernel_calls(torch, kernels, name, spec, calls):
             e, q = check_outputs(name, got, ref, rtol, share, slack)
             err, worst = max(err, e), max(worst, q)
             for fault, how in spec["faults"].items():
+                if isinstance(how, dict):  # a build that shows on some calls
+                    if not how["when"](args):
+                        continue
+                    how = how["build"]
                 if callable(how):
                     bad_args = how(args)
                     if bad_args is None:
@@ -2961,6 +2991,502 @@ def gp_family_phases(torch, smi, cfg, corpus, tmpdir):
                       loss_rtol=STEP_LOSS_RTOL)
 
 
+# ------------------------------------------------------- fused 2-layer
+# The JAX package's opt-in fused 2-layer training route
+# (BAYESLM_PALLAS_LSTM2_TRAIN=1, bayeslms_tpu/ops/lstm.py:281-316; off by
+# default there and in the port), rows 7-8, on the bench's LSTM at the
+# recipe's training settings. The switch is set inside these phases only.
+LSTM2_SWITCH = "BAYESLM_PALLAS_LSTM2_TRAIN"
+# Planted faults of rows 7-8 that no input can make, built from
+# csrc/lstm2_train.cu with a define (see its header); the dropout-mask
+# faults show only on calls whose mask is not all ones.
+def _dropped(args):
+    return bool((args[1] != 1).any())
+
+
+LSTM2_FWD_FAULT = {"build": ("lstm2_train", ("-DLSTM2_TRAIN_FAULT=3",)),
+                   "when": _dropped}
+LSTM2_BWD_FAULTS = {
+    "dropout mask ignored in layer 2's recompute": {
+        "build": ("lstm2_train", ("-DLSTM2_TRAIN_FAULT=1",)),
+        "when": _dropped},
+    "injection into layer 1 dropped":
+        ("lstm2_train", ("-DLSTM2_TRAIN_FAULT=2",)),
+}
+LSTM2_BUILDS = (LSTM2_FWD_FAULT["build"],
+                LSTM2_BWD_FAULTS["dropout mask ignored in layer 2's "
+                                 "recompute"]["build"],
+                LSTM2_BWD_FAULTS["injection into layer 1 dropped"])
+# rows 7-8: rows 5-6's recurrence twice, the second layer's input the
+# first's bf16-rounded output: the same elementwise rule
+GP_TOL.update({"lstm2_train_fwd": TRAIN_TOL["lstm_train_fwd"],
+               "lstm2_train_bwd": TRAIN_TOL["lstm_train_bwd"]})
+LSTM2_FRACTION = 0.5  # the timed fits: the first half of the corpus
+
+
+@contextlib.contextmanager
+def fused_lstm2_switch(on=True):
+    """``BAYESLM_PALLAS_LSTM2_TRAIN`` set to 1 (or unset) inside the block,
+    restored after it."""
+    old = os.environ.get(LSTM2_SWITCH)
+    if on:
+        os.environ[LSTM2_SWITCH] = "1"
+    else:
+        os.environ.pop(LSTM2_SWITCH, None)
+    try:
+        yield
+    finally:
+        if old is None:
+            os.environ.pop(LSTM2_SWITCH, None)
+        else:
+            os.environ[LSTM2_SWITCH] = old
+
+
+def lstm2_specs(torch, l2c):
+    """Check specs of rows 7-8: twin, outputs, planted faults, operations
+    (three, and six, 2 T B H 4H products) and bytes (every tensor argument
+    read once, the outputs written once), and cuDNN's 2-layer LSTM with
+    dropout 0.2 as the library call (other dropout bits, no step mask)."""
+    def cost(args, n_products, out_elems):
+        T, B, G = args[0].shape
+        H = G // 4
+        n_in = sum(a.numel() * a.element_size() for a in args
+                   if isinstance(a, torch.Tensor))
+        return (n_products * 2 * T * B * H * G,
+                n_in + out_elems(T, B, H) * 2)
+
+    def fwd_cost(a):
+        return cost(a, 3, lambda T, B, H: 4 * T * B * H + 4 * B * H)
+
+    def bwd_cost(a):
+        return cost(a, 6, lambda T, B, H: 2 * T * B * 4 * H + 4 * B * H)
+
+    def cudnn(backward):
+        def make(args):
+            T, B, G = args[0].shape
+            H = G // 4
+            with torch.enable_grad():
+                lstm = torch.nn.LSTM(H, H, num_layers=2, dropout=0.2,
+                                     device="cuda", dtype=torch.bfloat16)
+                x = torch.randn((T, B, H), device="cuda",
+                                dtype=torch.bfloat16, requires_grad=True)
+                if not backward:
+                    return lambda: lstm(x)
+                out, _ = lstm(x)
+                dy = torch.randn_like(out)
+
+            def run():
+                with torch.enable_grad():
+                    return torch.autograd.grad(
+                        out, [x, *lstm.parameters()], dy, retain_graph=True)
+            return run
+        return make
+
+    return {
+        "lstm2_train_fwd": dict(
+            module=l2c, plain=l2c.lstm2_train_fwd_plain,
+            outs=("ys1", "cs1", "ys2", "cs2", "hT1", "cT1", "hT2", "cT2"),
+            source="lstm2_train.cu",
+            replaces="bayeslms_tpu/ops/lstm_pallas.py:925",
+            faults={"W_hh2 product dropped":
+                    lambda a: with_arg(a, 5, torch.zeros_like(a[5])),
+                    "dropout mask ignored": LSTM2_FWD_FAULT},
+            flops=lambda a: fwd_cost(a)[0], nbytes=lambda a: fwd_cost(a)[1],
+            library=cudnn(False)),
+        "lstm2_train_bwd": dict(
+            module=l2c, plain=l2c.lstm2_train_bwd_plain,
+            outs=("du1", "du2", "dh01", "dc01", "dh02", "dc02"),
+            source="lstm2_train.cu",
+            replaces="bayeslms_tpu/ops/lstm_pallas.py:954",
+            faults=dict(LSTM2_BWD_FAULTS),
+            flops=lambda a: bwd_cost(a)[0], nbytes=lambda a: bwd_cost(a)[1],
+            library=cudnn(True)),
+    }
+
+
+def timed_fit(torch, trainer, corpus, smi, tag, counters):
+    """``trainer.fit`` with the launches of ``counters`` (modules with a
+    ``launches`` dict) zeroed first; prints the losses and ms a step.
+    Returns (losses, KL terms, ms a step, launches, fit output)."""
+    for module in counters:
+        for k in module.launches:
+            module.launches[k] = 0
+    steps, kls = [], []
+    step = trainer.train_step
+
+    def counted_step(*a, **kw):
+        out = step(*a, **kw)
+        kls.append(float(out[3]))
+        return out
+
+    def on_step(b, loss):
+        torch.cuda.synchronize()
+        steps.append((time.perf_counter(), float(loss)))
+
+    trainer.train_step = counted_step
+    t0 = time.perf_counter()
+    try:
+        _, out = trainer.fit(corpus, log=lambda line: print("  " + line),
+                             on_step=on_step)
+    finally:
+        trainer.train_step = step
+    fit_s = time.perf_counter() - t0
+    launches = {k: v for m in counters for k, v in m.launches.items()}
+    losses = [l for _, l in steps]
+    dts = np.diff([t for t, _ in steps])[2:]
+    step_ms = 1e3 * float(np.median(dts)) if len(dts) else float("nan")
+    T, B = trainer.tcfg.seq_len, trainer.tcfg.batch_size
+    print(f"  {tag}: {len(losses)} steps, loss "
+          + " ".join(f"{l:.4f}" for l in losses))
+    print(f"  {tag}: KL term per step " + " ".join(f"{k:.6f}" for k in kls))
+    print(f"  {tag}: step median {step_ms:.3f} ms over {len(dts)} warm "
+          f"steps, {T * B / step_ms * 1e3:.1f} tokens/s; validation "
+          f"{out['history'][0]['val_loss']:.4f}, test {out['test_loss']:.4f};"
+          f" fit {fit_s:.1f} s on {smi}; launches {launches}")
+    if not all(np.isfinite(losses)) or not np.isfinite(out["test_loss"]):
+        raise AssertionError(f"{tag}: a training loss is not finite")
+    if len(losses) < 6 or np.mean(losses[-3:]) >= np.mean(losses[:3]):
+        raise AssertionError(f"{tag}: the loss did not fall: {losses}")
+    return losses, kls, step_ms, launches, out
+
+
+def lstm2_phases(torch, kernels, smi, cfg, corpus, tmpdir):
+    """A few steps of ``fit`` on the fused route and on the default
+    two-layer route, timed in the same call; rows 7-8 against their twins
+    on the calls one fused step of the standard LSTM, from the fused fit's
+    checkpoint, hands them (with its dropout mask, a random step mask,
+    dm = ones); a fused step of the standard and of the Bayesian LSTM
+    against the same step on the twins.
+    Adds rows 7-8 to ``kernels``. Raises on any failed check."""
+    import dataclasses
+    from bayeslms_tpu_torch import TrainConfig
+    from bayeslms_tpu_torch.core.checkpoint import (load_checkpoint,
+                                                    params_from_jax)
+    from bayeslms_tpu_torch.data.corpus import batchify
+    from bayeslms_tpu_torch.models.lstm_lm import (draw_dropout_masks,
+                                                   init_hidden)
+    from bayeslms_tpu_torch.ops import bayes_sample_cuda as bsc
+    from bayeslms_tpu_torch.ops import ce_train_cuda as ctc
+    from bayeslms_tpu_torch.ops import lstm2_train_cuda as l2c
+    from bayeslms_tpu_torch.ops import lstm_train_cuda as ltc
+    from bayeslms_tpu_torch.train.loop import Trainer
+
+    B, T = TRAIN_BATCH, TRAIN_SEQ
+    kl_scale = T / batchify(corpus.train, B).shape[0]
+    data = torch.from_numpy(corpus.train[:T * B].reshape(B, T).T.copy()
+                            ).long().cuda()
+    target = torch.from_numpy(corpus.train[1:T * B + 1].reshape(B, T).T
+                              .copy()).long().cuda()
+    names = ("lstm2_train_fwd", "lstm2_train_bwd")
+
+    def tcfg(save, **kw):
+        return TrainConfig(lr=5.0, momentum=0.9, clip=1.0, batch_size=B,
+                           seq_len=T, eval_batch_size=EVAL_BATCH, epochs=1,
+                           log_interval=4, save=os.path.join(tmpdir, save),
+                           **kw)
+
+    with phase("fused lstm2 train"):
+        fits = {}
+        for route, on in (("fused", True), ("two-layer", False)):
+            with fused_lstm2_switch(on):
+                tr = Trainer(cfg, tcfg(f"lstm2_{route}.ckpt",
+                                       data_fraction=LSTM2_FRACTION))
+                fits[route] = timed_fit(torch, tr, corpus, smi,
+                                        f"{route} route", (l2c, ltc))
+        n_f = len(fits["fused"][0])
+        lf, lt = fits["fused"][3], fits["two-layer"][3]
+        print(f"  ms a step: fused {fits['fused'][2]:.3f}, two-layer "
+              f"{fits['two-layer'][2]:.3f} (same call, {smi})")
+        if lf["lstm2_train_fwd"] != n_f or lf["lstm2_train_bwd"] != n_f \
+                or lf["lstm_train_fwd"] or lf["lstm_train_bwd"]:
+            raise AssertionError(f"the fused fit launched {lf}")
+        if lt["lstm2_train_fwd"] or lt["lstm2_train_bwd"] \
+                or lt["lstm_train_fwd"] != 2 * len(fits["two-layer"][0]):
+            raise AssertionError(f"the default fit launched {lt}")
+    with phase("lstm2 setup"), fused_lstm2_switch():
+        # the fused fit's weights: a trained model's states and gates are
+        # larger than the random init's, and the planted faults show more
+        trainer = Trainer(cfg, tcfg("lstm2.ckpt"))
+        state = trainer.init_state()
+        params_from_jax(state.model, load_checkpoint(
+            os.path.join(tmpdir, "lstm2_fused.ckpt"))[0])
+        recorded = {}
+        for k in ltc.launches:
+            ltc.launches[k] = 0
+        with contextlib.ExitStack() as stack:
+            for p in recording(l2c, names, recorded):
+                stack.enter_context(p)
+            trainer.train_step(state, init_hidden(2, B, cfg.nhid,
+                                                  device="cuda"),
+                               data, target)
+        torch.cuda.synchronize()
+        counts = {n: len(recorded.get(n, ())) for n in names}
+        print(f"  one fused step of the standard LSTM: calls {counts}; "
+              f"lstm_train launches {dict(ltc.launches)}")
+        if set(counts.values()) != {1} or any(ltc.launches.values()):
+            raise AssertionError("the fused step did not take rows 7-8 "
+                                 "alone")
+        del state
+    fwd_args = recorded["lstm2_train_fwd"][0]
+    bwd_args = recorded["lstm2_train_bwd"][0]
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    rmask = (torch.rand((T, B), generator=gen, device="cuda") > 0.2
+             ).to(torch.bfloat16)
+    ones = torch.ones_like(fwd_args[1])
+    calls = {"lstm2_train_fwd": fwd_args, "lstm2_train_bwd": bwd_args}
+    specs = lstm2_specs(torch, l2c)
+    for name in names:
+        a = calls[name]
+        print(f"  {name}: dropout mask keeps "
+              f"{float((a[1] != 0).float().mean()):.4f} of the units")
+        check_kernel_calls(torch, kernels, name, specs[name], [
+            (f"one step's call (T={T}, B={B}), dropout mask", a),
+            ("random step mask", with_arg(a, 7, rmask)),
+            ("dm = ones", with_arg(a, 1, ones))])
+    del recorded, calls, fwd_args, bwd_args
+
+    plain = [mock.patch.object(m, n, getattr(m, n + "_plain"))
+             for m, n in ((l2c, "lstm2_train_fwd"), (l2c, "lstm2_train_bwd"),
+                          *((ctc, n) for n in CE_TRAIN))]
+    with phase("fused lstm2 train step against plain versions"), \
+            fused_lstm2_switch():
+        print("  standard LSTM, dropout 0.2 between the layers:")
+        compare_steps(
+            torch, trainer, data, target, 0.0,
+            draw_dropout_masks(cfg, T, B, gen, "cuda"), plain,
+            loss_atol=STEP_LOSS_ATOL,
+            hidden=lambda: init_hidden(2, B, cfg.nhid, device="cuda"))
+        bcfg = dataclasses.replace(cfg, uncertainty="Bayesian",
+                                   l_bayes_pos=BAYES_POS)
+        btrainer = Trainer(bcfg, tcfg("lstm2_bayes.ckpt"))
+        for k in l2c.launches:
+            l2c.launches[k] = 0
+        print(f"  Bayesian LSTM (l_bayes_pos {BAYES_POS}), dm = ones:")
+        compare_steps(
+            torch, btrainer, data, target, kl_scale,
+            draw_dropout_masks(bcfg, T, B, gen, "cuda"),
+            plain + [mock.patch.object(bsc, "sample_weights",
+                                       bsc.sample_weights_plain)],
+            loss_atol=STEP_LOSS_ATOL,
+            hidden=lambda: init_hidden(2, B, bcfg.nhid, device="cuda"))
+        if dict(l2c.launches) != {n: 1 for n in names}:
+            raise AssertionError(f"the Bayesian fused step launched "
+                                 f"{dict(l2c.launches)}")
+        del btrainer
+
+    for name in names:
+        kernels[name]["launches"] = lf[name]
+    return fits
+
+
+# -------------------------------------------- variational and legacy cores
+# The rest of the JAX package's recurrent and Transformer families at the
+# widths of the phases above, on their corpus: the variational LSTM
+# (l_v_pos 11, the recipes' --L_v_pos 11: noise in both layers'
+# recurrence, no kernel of its own), the legacy VLSTM (at batch 32, which
+# its noise table needs; its training under the fused 2-layer switch, so
+# that rows 7-8 run), the legacy GaussLSTM at positions 1 (the input gate's
+# pre-activation from the GP unit over x) and 6 (the GP unit in place of the
+# hidden projection), and the variational Transformer (t_v_pos 1 and 3,
+# seq_len 100 = v_seq_len, so that its noise and KL apply). Each takes a
+# few fit steps; then a pass of the 6,000-hypothesis N-best from its
+# checkpoint against the plain path within GP_SCORE_ATOL + GP_SCORE_RTOL
+# |plain|.
+V_FRACTION = 0.5  # their fits: the first half of the corpus
+# The variational LSTMs' lr: at the recipes' lr 5 the variational LSTM's
+# loss on this corpus rose from 11.7 to 30.1 in 12 steps on the H100
+# (PERF.md), where the CPU tests hold its steps to the JAX package's; at
+# lr 1 (GPNN2's fit, another scan cell) it falls. The legacy GaussLSTMs
+# take the gate-6 fit's lr.
+V_LSTM_LR = 1.0
+GAUSS_LEGACY_POS = (1, 6)
+VTM_POS = (1, 3)
+
+
+def family_score(torch, scorer, nbest, w2i, smi, tag, plain, count):
+    """A timed pass of ``scorer`` (its layout's default: packed-carry for
+    the LSTMs, packed-nocarry for the Transformer) against the same pass
+    with ``plain`` (mock patches of kernel wrappers with their twins) within
+    GP_SCORE_ATOL + GP_SCORE_RTOL |plain|; ``count()`` reads the kernels'
+    launches (zeroed first by the caller), each of which must be > 0.
+    Raises on any failed check."""
+    with phase(f"{tag} score"):
+        t0 = time.perf_counter()
+        res = scorer.score_nbest(nbest, w2i, stream_fn=stream_of)
+        torch.cuda.synchronize()
+        pass_s = time.perf_counter() - t0
+        launches = count()
+        print(f"  kernel launches in a pass: {launches}")
+        if not all(launches.values()):
+            raise AssertionError(f"{tag} scoring missed a kernel: {launches}")
+        got = np.array([s for pairs in res.values() for _, s in pairs])
+        with contextlib.ExitStack() as stack:
+            for p in plain:
+                stack.enter_context(p)
+            ref = np.array([s for pairs in scorer.score_nbest(
+                nbest, w2i, stream_fn=stream_of).values() for _, s in pairs])
+        n_hyps = sum(len(h) for h in nbest.values())
+        diff = np.abs(got - ref)
+        share = float((diff / (GP_SCORE_ATOL + GP_SCORE_RTOL
+                               * np.abs(ref))).max())
+        print(f"  {n_hyps} hypotheses in {pass_s:.3f} s ({n_hyps / pass_s:.1f}"
+              f" hyps/s) on {smi}; scores mean {got.mean():.3f}, max "
+              f"{np.abs(ref).max():.3f}; max |kernel - plain| "
+              f"{float(diff.max()):.4e}; worst share of {GP_SCORE_ATOL:.0e} "
+              f"+ {GP_SCORE_RTOL:.0e} |plain|: {share:.3f}")
+        if got.shape != (n_hyps,) or not np.all(np.isfinite(got)) \
+                or share > 1:
+            raise AssertionError(f"{tag} scoring failed")
+
+
+def family_phases(torch, smi, cfg, rcfg, corpus, tmpdir, tm=False):
+    """The variational LSTM, the legacy VLSTM (its training on rows 7-8)
+    and the legacy GaussLSTM at 1 and 6 (``tm=False``), or the variational
+    Transformer at t_v_pos 1 and 3 (``tm=True``): a few fit steps each,
+    the loss finite and falling, the KL finite and > 0 where the model has
+    one (on full windows: the Transformer's noise and KL gate on the
+    window's length), then a scoring pass against the plain path. Returns
+    the fused route's launches of rows 7-8 in the legacy VLSTM's fit."""
+    import dataclasses
+    from bayeslms_tpu_torch import TrainConfig
+    from bayeslms_tpu_torch.core.checkpoint import load_checkpoint
+    from bayeslms_tpu_torch.ops import ce_cuda
+    from bayeslms_tpu_torch.ops import ce_train_cuda as ctc
+    from bayeslms_tpu_torch.ops import lstm2_train_cuda as l2c
+    from bayeslms_tpu_torch.ops import lstm_cuda as lc
+    from bayeslms_tpu_torch.ops import lstm_train_cuda as ltc
+    from bayeslms_tpu_torch.rescore.scorer import BatchScorer
+    from bayeslms_tpu_torch.train.loop import Trainer
+
+    B, T = TRAIN_BATCH, TRAIN_SEQ
+    nbest = make_synthetic_nbest(n_meetings=30,
+                                 vocab_words=cfg.vocab_size - 2)
+    w2i = corpus.vocab.word2idx
+    ce_plain = mock.patch.object(ce_cuda, "fused_decode_ce", ce_cuda.ce_plain)
+    if tm:
+        runs = [(f"vtm {v}", tm_config(cfg, uncertainty="Variational",
+                                       t_v_pos=v), TM_LR, False, True)
+                for v in VTM_POS]
+    else:
+        runs = [("vlstm", dataclasses.replace(
+                    cfg, uncertainty="Variational", l_v_pos="11"), V_LSTM_LR,
+                 False, True),
+                ("vlstm legacy", dataclasses.replace(
+                    cfg, uncertainty="Variational", l_v_pos="11",
+                    l_v_legacy=True), V_LSTM_LR, True, True)]
+        runs += [(f"gauss legacy {p}", dataclasses.replace(
+                     cfg, uncertainty="Gaussian", l_gauss_legacy_pos=p),
+                  GP6_LR, False, False) for p in GAUSS_LEGACY_POS]
+    fused = {}
+    for tag, mcfg, lr, switch, has_kl in runs:
+        save = os.path.join(tmpdir, tag.replace(" ", "_") + ".ckpt")
+        with phase(f"{tag} train"), fused_lstm2_switch(switch):
+            trainer = Trainer(mcfg, TrainConfig(
+                lr=lr, momentum=0.9, clip=1.0, batch_size=B, seq_len=T,
+                eval_batch_size=EVAL_BATCH, epochs=1, log_interval=4,
+                save=save, data_fraction=V_FRACTION))
+            print(f"  {tag}: {mcfg.model} {mcfg.emsize}/{mcfg.nhid} x "
+                  f"{mcfg.nlayers}, {mcfg.uncertainty}, l_v_pos "
+                  f"{mcfg.l_v_pos}, legacy VLSTM {mcfg.l_v_legacy}, legacy "
+                  f"GaussLSTM {mcfg.l_gauss_legacy_pos}, t_v_pos "
+                  f"{mcfg.t_v_pos}; lr {lr}, batch {B}, seq_len {T}; fused "
+                  f"2-layer switch {'on' if switch else 'off'}")
+            losses, kls, _, launches, _ = timed_fit(
+                torch, trainer, corpus, smi, tag, (ctc, ltc, l2c))
+            full = kls[:-1] if tm else kls  # the ragged last window: no KL
+            if has_kl and not all(np.isfinite(k) and k > 0 for k in full):
+                raise AssertionError(f"{tag}: the KL term is not finite and "
+                                     f"> 0: {kls}")
+            if not all(np.isfinite(kls)):
+                raise AssertionError(f"{tag}: a KL term is not finite")
+            if switch:
+                if launches["lstm2_train_fwd"] != len(losses) \
+                        or launches["lstm2_train_bwd"] != len(losses):
+                    raise AssertionError(f"{tag}: rows 7-8 not once a step: "
+                                         f"{launches}")
+                fused = launches
+            elif launches["lstm2_train_fwd"] or launches["lstm2_train_bwd"]:
+                raise AssertionError(f"{tag}: rows 7-8 ran off the switch")
+        scorer = BatchScorer(mcfg, load_checkpoint(save)[0], rcfg)
+        ce_cuda.launches = lc.launches = 0
+        lc.layer_launches["lstm_fwd_reset"] = 0
+        if tm:
+            plain = [ce_plain]
+            count = lambda: {"ce_fwd": ce_cuda.launches}  # noqa: E731
+        elif mcfg.l_v_legacy:
+            plain = [ce_plain, mock.patch.object(lc, "lstm2_fwd",
+                                                 lc.lstm2_plain)]
+            count = lambda: {"ce_fwd": ce_cuda.launches,  # noqa: E731
+                             "lstm2_fwd": lc.launches}
+        elif mcfg.l_gauss_legacy_pos >= 0:
+            plain = [ce_plain, mock.patch.object(lc, "lstm_fwd",
+                                                 lc.lstm_fwd_plain)]
+            count = lambda: {  # noqa: E731
+                "ce_fwd": ce_cuda.launches,
+                "lstm_fwd_reset": lc.layer_launches["lstm_fwd_reset"]}
+        else:  # the variational LSTM: the scan, no LSTM kernel
+            plain = [ce_plain]
+            count = lambda: {"ce_fwd": ce_cuda.launches}  # noqa: E731
+        family_score(torch, scorer, nbest, w2i, smi, tag, plain, count)
+        del scorer, trainer
+    return fused
+
+
+def ce_operand_phase(torch, smi, cfg, corpus):
+    """Print only (ROADMAP.md C, open check 3): one step of the GP-LSTMs
+    whose GP cell runs the scan (53: gate 5; 14: GPNN2) with the trainer's
+    CE operand, the cell's float32 states rounded to bf16 for the CE
+    kernels, against the same step with a float32 CE on the unrounded
+    states (plain PyTorch); the loss and the worst gradient deviation."""
+    import dataclasses
+    from bayeslms_tpu_torch import TrainConfig
+    from bayeslms_tpu_torch.data.corpus import batchify
+    from bayeslms_tpu_torch.models.lstm_lm import (RecurrentLM,
+                                                   draw_dropout_masks,
+                                                   init_hidden)
+    from bayeslms_tpu_torch.train import loop
+    from bayeslms_tpu_torch.train.loop import Trainer
+
+    F = torch.nn.functional
+    B, T = TRAIN_BATCH, TRAIN_SEQ
+    kl_scale = T / batchify(corpus.train, B).shape[0]
+    data = torch.from_numpy(corpus.train[:T * B].reshape(B, T).T.copy()
+                            ).long().cuda()
+    target = torch.from_numpy(corpus.train[1:T * B + 1].reshape(B, T).T
+                              .copy()).long().cuda()
+
+    # the float32 step: the model's output states, kept before the
+    # trainer's rounding, go to a float32 CE in place of the rounded ones
+    kept = {}
+    forward = RecurrentLM.forward
+
+    def keeping_forward(self, *a, **kw):
+        out = forward(self, *a, **kw)
+        kept["h"] = out[0]
+        return out
+
+    def fp32_ce(h, emb, bias, tgt):
+        hf = kept["h"].reshape(h.shape).float()
+        return F.cross_entropy(hf @ emb.float().t() + bias.float(), tgt,
+                               reduction="none")
+
+    with phase("gp scan cells: bf16 CE operand against a float32 CE"):
+        for pos in ("53", "14"):
+            gcfg = dataclasses.replace(cfg, uncertainty="Gaussian",
+                                       l_gauss_pos=pos)
+            trainer = Trainer(gcfg, TrainConfig(batch_size=B, seq_len=T))
+            gen = torch.Generator(device="cuda").manual_seed(5)
+            print(f"  l_gauss_pos {pos} on {smi}:")
+            compare_steps(
+                torch, trainer, data, target, kl_scale,
+                draw_dropout_masks(gcfg, T, B, gen, "cuda"),
+                [mock.patch.object(RecurrentLM, "forward", keeping_forward),
+                 mock.patch.object(loop, "fused_decode_ce_train", fp32_ce)],
+                hidden=lambda: init_hidden(2, B, gcfg.nhid, device="cuda"),
+                labels=("bf16-operand", "fp32-CE"), check=False)
+            del trainer
+
+
 def ce_fwd_check(torch, kernels, args, tag="", atol=CE_ATOL):
     """Row 2 (the scoring CE) on the call the main path handed it:
     against its twin within ``atol``, at a ragged vocabulary edge too, a
@@ -3098,7 +3624,8 @@ def main():
                                         ATTN_FAULT, BMM_FAULT,
                                         *ATTN_TRAIN_FAULTS.values(),
                                         *GP_FAULTS.values(),
-                                        *GP6_FAULTS.values()]).items():
+                                        *GP6_FAULTS.values(),
+                                        *LSTM2_BUILDS]).items():
             print(f"  {name}: {path}")
         print(f"  build seconds {time.perf_counter() - t0:.1f}")
 
@@ -3234,9 +3761,15 @@ def main():
 
     corpus, tmp = train_phases(torch, kernels, smi, cfg, rcfg)
     bayes_phases(torch, kernels, smi, cfg, rcfg, corpus, tmp.name)
+    lstm2_phases(torch, kernels, smi, cfg, corpus, tmp.name)
     gp_phases(torch, kernels, smi, cfg, rcfg, corpus, tmp.name)
     gp6_phases(torch, kernels, smi, cfg, rcfg, corpus, tmp.name)
     gp_family_phases(torch, smi, cfg, corpus, tmp.name)
+    ce_operand_phase(torch, smi, cfg, corpus)
+    fused = family_phases(torch, smi, cfg, rcfg, corpus, tmp.name)
+    for name in ("lstm2_train_fwd", "lstm2_train_bwd"):
+        kernels[name]["launches"] += fused[name]
+    family_phases(torch, smi, cfg, rcfg, corpus, tmp.name, tm=True)
     tm_phases(torch, kernels, smi, cfg, rcfg, corpus, tmp.name)
     ckpt = tm_long_phases(torch, kernels, smi, cfg, tmp.name)
     tm_xl_phase(torch, kernels, smi, cfg, rcfg, ckpt)

@@ -177,8 +177,9 @@ def test_import_maps_every_transformer_name_as_jax():
     """Synthetic state_dict: every name of the Transformer table (torch
     TransformerEncoder's ``layers.N.`` prefix and the reference's
     self-built ``N.``), Linear weights transposed to (in, out) kernels, the
-    EMB projection, and the positional table with no counterpart. The GP
-    and variational names (ROADMAP.md queue A item 10) are left out."""
+    EMB projection, the variational layer's tables, and the positional
+    table with no counterpart. The GP-FFN names have a test of their
+    own."""
     rng = np.random.default_rng(3)
     sd = {"encoder.weight": (7, 4), "decoder.bias": (7,),
           "embed_mean": (4, 4), "embed_lgstd": (4, 4),
@@ -202,7 +203,9 @@ def test_import_maps_every_transformer_name_as_jax():
             ("self_attn.v_net.weight", (4, 4)), ("self_attn.v_net.bias", (4,)),
             ("self_attn.o_net.weight_mean", (4, 4)),
             ("self_attn.o_net.weight_lgstd", (4, 4)),
-            ("linear2.weight_mean", (4, 6)), ("linear2.weight_lgstd", (4, 6))):
+            ("linear2.weight_mean", (4, 6)), ("linear2.weight_lgstd", (4, 6)),
+            ("hiddens_mean", (5, 1, 4)), ("hiddens_lgstd", (5, 1, 4)),
+            ("hiddens_mean_p", (5, 1, 4)), ("hiddens_lgstd_p", (5, 1, 4))):
         sd[f"transformerlayers.1.{rest}"] = shape
     sd = {k: rng.normal(size=s).astype(np.float32) for k, s in sd.items()}
     kw = dict(model="Transformer", vocab_size=7, emsize=4, nhid=6, nhead=2)
@@ -232,6 +235,28 @@ def test_import_of_the_reference_transformers_matches_jax(name, unc, pos):
     _assert_trees_equal(got, jck.load_torch_checkpoint(
         path, _tm_cfg(jx, unc, pos)))
     model = bt.build_model(_tm_cfg(bt, unc, pos))
+    assert sorted(_flat(got)) == sorted(_flat(tck.params_to_jax(model)))
+    tck.params_from_jax(model, got)
+
+
+def _vtm_cfg(pkg):
+    """torch_vtm_fixed: the campaign's Transformer with a variational layer
+    0 (T_v_pos 1; its L_v_pos 11 is an LSTM flag)."""
+    return pkg.ModelConfig(model="Transformer", vocab_size=10000, emsize=128,
+                           nhid=512, nlayers=2, nhead=4, dropout=0.2,
+                           uncertainty="Variational", t_v_pos=1, l_v_pos="11")
+
+
+def test_import_of_the_variational_transformer_matches_jax():
+    """torch_vtm_fixed's ``model.pt`` read as JAX reads it (its layer 0's
+    (100, 1, 128) tables beside the layer's weights, the positional table
+    and the untied-decoder weight skipped), and it fills the model it was
+    trained as, every parameter."""
+    path = os.path.join(CAMPAIGN, "torch_vtm_fixed", "model.pt")
+    got = tck.load_params(path, _vtm_cfg(bt))
+    _assert_trees_equal(got, jck.load_torch_checkpoint(path, _vtm_cfg(jx)))
+    assert got["layers_0"]["hiddens_lgstd"].shape == (100, 1, 128)
+    model = bt.build_model(_vtm_cfg(bt))
     assert sorted(_flat(got)) == sorted(_flat(tck.params_to_jax(model)))
     tck.params_from_jax(model, got)
 
@@ -436,3 +461,27 @@ def test_reference_gp_nf2222_meets_its_test_ppl():
     loss = _evaluate(os.path.join(CAMPAIGN, "torch_lstm_gp_nf2222",
                                   "model.pt"), _gp_cfg(bt), "test")
     _meets_log(loss, 93.12)
+
+
+@pytest.mark.slow
+def test_reference_vtm_fixed_meets_its_test_ppl():
+    """torch_vtm_fixed (the reference's variational Transformer, T_v_pos 1),
+    train.log end of training: test loss 4.64, test ppl 103.82 (ln 4.64265
+    +- 4.8e-5), at eval batch 20 (deterministic: no noise)."""
+    loss = _evaluate(os.path.join(CAMPAIGN, "torch_vtm_fixed", "model.pt"),
+                     _vtm_cfg(bt), "test")
+    _meets_log(loss, 103.82)
+    assert round(loss, 2) == 4.64
+
+
+@pytest.mark.slow
+def test_jax_gp_ffn_checkpoint_meets_its_sidecar_val_loss():
+    """The JAX package's ours_tm_gauss_e8 (the GP-FFN Transformer, 256/1024
+    x 4, t_gauss_pos 3, float32): the sidecar's val_loss 4.509649 at epoch
+    8, within 2e-5, the configuration read from the sidecar."""
+    path = os.path.join(CAMPAIGN, "ours_tm_gauss_e8", "model.ckpt")
+    meta = tck.load_jax_checkpoint(path)[1]
+    cfg = bt.ModelConfig(**meta["model_config"])
+    assert (cfg.uncertainty, cfg.t_gauss_pos) == ("Gaussian", 3)
+    loss = _evaluate(path, cfg, "valid")
+    assert abs(loss - meta["val_loss"]) <= 2e-5, (loss, meta["val_loss"])

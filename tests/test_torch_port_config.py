@@ -71,8 +71,8 @@ def test_init_params_tree_and_laws():
     dict(model="GRU"),
     dict(nlayers=1),
     dict(nlayers=3),
-    dict(model="Transformer", uncertainty="Variational"),
-    dict(uncertainty="Variational"),
+    dict(model="Transformer", tied=False),
+    dict(uncertainty="Variational", nlayers=3),
     dict(tied=False),
 ])
 def test_unported_models_raise(extra):

@@ -493,3 +493,57 @@ def test_gp6_wrappers_refuse_what_the_kernels_do_not_take(dev):
         gc.gp6_fwd(*args[:3], args[3][:1].contiguous(), *args[4:])
     with pytest.raises(ValueError):  # b' in float32
         gc.gp6_fwd(*args[:2], args[2].float(), *args[3:])
+
+
+def _lstm2_train_args(dev, T, B, H, masked, dropped):
+    g = torch.Generator().manual_seed(7 + masked + 2 * dropped)
+    r = lambda *s, sc=1.0: ((torch.rand(s, generator=g) * 2 - 1) * sc)  # noqa: E731
+    bf = torch.bfloat16
+    dm = ((torch.rand((T, B, H), generator=g) < 0.8) / 0.8 if dropped
+          else torch.ones((T, B, H)))
+    mask = (torch.rand((T, B), generator=g) < 0.8).to(dev, torch.uint8) \
+        if masked else None
+    return [r(T, B, 4 * H).to(dev, bf), dm.to(dev, bf),
+            r(4 * H, H, sc=0.125).to(dev, bf), r(4 * H, sc=0.1).to(dev),
+            r(4 * H, H, sc=0.125).to(dev, bf),
+            r(4 * H, H, sc=0.125).to(dev, bf), r(4 * H, sc=0.1).to(dev), mask,
+            *(r(B, H, sc=0.5).to(dev, bf) for _ in range(4))]
+
+
+@pytest.mark.parametrize("masked,dropped", [(False, False), (True, True)])
+def test_lstm2_train_kernels_match_plain(dev, masked, dropped):
+    """Rows 7-8 against their twins, B off the 32-column tile."""
+    from bayeslms_tpu_torch.ops import lstm2_train_cuda as l2c
+
+    T, B, H = 9, 37, 64
+    args = _lstm2_train_args(dev, T, B, H, masked, dropped)
+    before = dict(l2c.launches)
+    got = l2c.lstm2_train_fwd(*args)
+    ref = l2c.lstm2_train_fwd_plain(*args)
+    for a, b in zip(got, ref):
+        assert a.dtype == torch.bfloat16
+        _close(a, b, 2 ** -6)
+    g = torch.Generator().manual_seed(1)
+    d = [(torch.rand(s, generator=g) * 2 - 1).to(dev, torch.bfloat16)
+         for s in ((T, B, H), (T, B, H), (B, H), (B, H), (B, H), (B, H))]
+    got = l2c.lstm2_train_bwd(*args, *ref[:4], *d)
+    ref = l2c.lstm2_train_bwd_plain(*args, *ref[:4], *d)
+    for a, b in zip(got, ref):
+        assert a.dtype == torch.bfloat16
+        _close(a, b, 2 ** -5)
+    assert l2c.launches == {"lstm2_train_fwd": before["lstm2_train_fwd"] + 1,
+                            "lstm2_train_bwd": before["lstm2_train_bwd"] + 1}
+
+
+def test_lstm2_train_wrappers_refuse_what_the_kernels_do_not_take(dev):
+    from bayeslms_tpu_torch.ops import lstm2_train_cuda as l2c
+
+    args = _lstm2_train_args(dev, 3, 4, 64, False, False)
+    with pytest.raises(ValueError):  # float32 operands
+        l2c.lstm2_train_fwd(*[a.float() if a is not None
+                              and a.dtype == torch.bfloat16 else a
+                              for a in args])
+    with pytest.raises(ValueError):  # H not a multiple of 32
+        l2c.lstm2_train_fwd(*_lstm2_train_args(dev, 3, 4, 48, False, False))
+    with pytest.raises(ValueError):  # a bf16 bias
+        l2c.lstm2_train_fwd(*args[:3], args[3].bfloat16(), *args[4:])

@@ -414,13 +414,14 @@ def test_gate7_kernel_route_through_the_core_matches_jax(monkeypatch, pos,
 
 
 @pytest.mark.parametrize("extra", [
-    dict(l_gauss_pos="13", l_gauss_legacy_pos=6),
-    dict(uncertainty="Variational", l_v_pos="11"),
+    dict(l_gauss_pos="13", l_gauss_legacy_pos=6, nlayers=3),
+    dict(uncertainty="Variational", l_v_pos="11", model="GRU"),
     dict(tied=False, l_gauss_pos="63"),
 ])
 def test_what_is_still_unported_raises(extra):
-    """The legacy GaussLSTM, the variational cores and an untied decoder
-    still raise, naming their ROADMAP.md items."""
+    """Other depths and cells of the legacy GaussLSTM and the variational
+    cores, and an untied decoder, still raise, naming their ROADMAP.md
+    items."""
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         bt.build_model(dataclasses.replace(_cfg(bt, "13", H), **extra))
 

@@ -229,8 +229,9 @@ def test_kl_with_prior_means_matches_jax(pos):
 
 
 @pytest.mark.parametrize("extra", [dict(uncertainty="Variational",
-                                        t_v_pos=1),
-                                   dict(uncertainty="Variational"),
+                                        t_v_pos=1, tied=False),
+                                   dict(uncertainty="Bayesian",
+                                        t_bayes_pos="FFN", tied=False),
                                    dict(tied=False)])
 def test_unported_transformers_raise(extra):
     cfg = bt.ModelConfig(**{**_cfg(bt, "none").__dict__, **extra})

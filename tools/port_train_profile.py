@@ -4,7 +4,7 @@
     python3 tools/port_train_profile.py [--bayes-pos N | --l-gauss-pos S |
                                          --model Transformer
                                          [--t-bayes-pos FFN|MHA|EMB]]
-                                        [--seq-len T]
+                                        [--seq-len T] [--fused-lstm2]
 
 Needs a CUDA card and nvcc. Builds the training configuration of
 chip_smoke.py (the bench's 2-layer 1024/1024 LSTM LM, V = 49,152, bf16,
@@ -18,7 +18,9 @@ for the GP cell, rows 5-6 for its standard layer; the README's ``63``: rows
 recipe's Transformer of chip_smoke.py (512/4096 x 6, 8 heads, lr 0.1), and
 ``--t-bayes-pos`` its Bayesian variant; ``--seq-len 1024`` the window at
 which the Transformer's training attention takes the flash-attention
-kernels (rows 15-17). It runs three warm-up steps, times five steps
+kernels (rows 15-17); ``--fused-lstm2`` sets ``BAYESLM_PALLAS_LSTM2_TRAIN=1``,
+the JAX package's opt-in fused 2-layer training route (rows 7-8 in place of
+two rows 5-6 calls). It runs three warm-up steps, times five steps
 without the profiler, then traces three steps with torch.profiler and prints
 the device time by kernel (each of the port's kernels named by its row of
 PERF.md's kernel table), the device's busy time and its idle share of the
@@ -62,7 +64,11 @@ def main():
                     default="none", help="the Bayesian Transformer's position")
     ap.add_argument("--seq-len", type=int, default=chip_smoke.TRAIN_SEQ,
                     help="the training window (chip_smoke.py's: 100)")
+    ap.add_argument("--fused-lstm2", action="store_true",
+                    help="the fused 2-layer training route (rows 7-8)")
     args = ap.parse_args()
+    if args.fused_lstm2:
+        os.environ["BAYESLM_PALLAS_LSTM2_TRAIN"] = "1"
     cfg, _, _, _ = chip_smoke.bench_setup()
     lr = 5.0
     if args.model == "Transformer":
@@ -117,7 +123,7 @@ def main():
           f"({torch.cuda.get_device_name(0)}; {cfg.model}, uncertainty="
           f"{cfg.uncertainty}, l_bayes_pos={cfg.l_bayes_pos}, l_gauss_pos="
           f"{cfg.l_gauss_pos}, t_bayes_pos={cfg.t_bayes_pos}, batch {B} x "
-          f"seq_len {T})")
+          f"seq_len {T}, fused 2-layer route {args.fused_lstm2})")
     print("device ms a step  calls a step  table row  name")
     # the top 20, and every kernel of the port wherever it ranks
     for dev_us, count, key in [r for i, r in enumerate(rows)
