@@ -31,10 +31,18 @@ launches = {"ce_train_fwd": 0, "ce_train_dh": 0, "ce_train_de": 0}
 
 _P = ctypes.c_void_p
 _FWD_ARGTYPES = [_P] * 7 + [ctypes.c_int] * 3 + [_P]
-_BWD_ARGTYPES = [ctypes.c_int] + [_P] * 10 + [ctypes.c_int] * 3 + [_P]
+_BWD_ARGTYPES = [ctypes.c_int] + [_P] * 11 + [ctypes.c_int] * 4 + [_P]
 
-# D columns a backward block owns (csrc/ce_train.cu DS)
+# The backward's tiling (csrc/ce_train.cu): D columns a CTA owns, output
+# rows of a tile, walked rows of a score tile, the portable cluster size
 D_SLICE = 256
+OWN_ROWS = 128
+WALK_ROWS = 64
+MAX_CLUSTER = 8
+# most parts a dh walk is split into, and the share of the unsplit walk's
+# waves a split must reach to be taken
+MAX_SPLITS = 8
+SPLIT_GAIN = 0.9
 # Tokens per step of the plain versions, whose (rows, V) float32 blocks are
 # their only large buffers
 PLAIN_ROWS = 4096
@@ -126,6 +134,72 @@ def _check(fn, h, emb, bias, targets, vectors=()):
             targets.to(torch.int32).contiguous())
 
 
+def _cdiv(a, b):
+    return -(-a // b)
+
+
+def _bwd_plan(M, V, D, n_sm, max_clusters=None, de=False):
+    """The backward launch of ``csrc/ce_train.cu`` for (M, V, D): dh
+    (``de`` False: tokens own the output rows, the vocabulary is walked)
+    or dE/db (``de`` True: the roles swapped). A cluster of C = D / 256
+    CTAs (G clusters of at most 8 where D > 2,048) owns 128 output rows;
+    rank r of cluster g owns columns [256 (g C + r), +256). dh's walk is
+    split into S parts where that fills the card better: S is the number
+    of parts (at most MAX_SPLITS and the walk's groups) that minimises
+    waves / S, waves = ceil(clusters / max_clusters), the smallest on a
+    tie, and only where that takes at most SPLIT_GAIN of the unsplit
+    walk's waves (the partials cost S M D 4 bytes and a second kernel);
+    ``max_clusters`` is what the card holds at once
+    (cudaOccupancyMaxActiveClusters), n_sm // C where not given. dE takes
+    S = 1. Returns a dict with C, G, S, the grid, CTAs, clusters, the
+    workspace bytes (S M D float32 where S > 1) and the tile counts."""
+    if D % D_SLICE:
+        raise ValueError(f"D = {D} is not a multiple of {D_SLICE}")
+    slices = D // D_SLICE
+    G = _cdiv(slices, MAX_CLUSTER)
+    C = _cdiv(slices, G)
+    n_own, n_walk = (V, M) if de else (M, V)
+    own_tiles = _cdiv(n_own, OWN_ROWS)
+    walk_tiles = _cdiv(n_walk, WALK_ROWS)
+    groups = _cdiv(walk_tiles, C)
+    cap = max(1, max_clusters if max_clusters else n_sm // C)
+    S = 1
+    if not de and own_tiles:
+        cost = {s: _cdiv(own_tiles * G * s, cap) / s
+                for s in range(1, max(1, min(MAX_SPLITS, groups)) + 1)}
+        best = min(cost, key=lambda s: (cost[s], s))
+        if cost[best] <= SPLIT_GAIN * cost[1]:
+            S = best
+    grid = (C * G, own_tiles, S)
+    return dict(which="dE" if de else "dh", C=C, G=G, S=S, grid=grid,
+                slices=slices, cluster=(C, 1, 1),
+                ctas=grid[0] * grid[1] * grid[2],
+                clusters=own_tiles * G * S, max_clusters=cap,
+                own_tiles=own_tiles, walk_tiles=walk_tiles, groups=groups,
+                workspace_bytes=S * M * D * 4 if S > 1 else 0)
+
+
+# (device index, which, D) -> (SMs, clusters the card holds at once)
+_card = {}
+
+
+def _card_plan(dev, M, V, D, de):
+    key = (dev.index, int(de), D)
+    if key not in _card:
+        lib = _build.load("ce_train")
+        f = lib.ce_train_bwd_clusters
+        f.argtypes, f.restype = [ctypes.c_int, ctypes.c_int], ctypes.c_int
+        with torch.cuda.device(dev):
+            n = f(int(de), D)
+        if n <= 0:
+            raise RuntimeError(f"ce_train backward: the card holds no "
+                               f"cluster (CUDA error {-n})")
+        _card[key] = (torch.cuda.get_device_properties(dev)
+                      .multi_processor_count, n)
+    n_sm, n = _card[key]
+    return _bwd_plan(M, V, D, n_sm, n, de)
+
+
 def _call(name, fn, argtypes, *args):
     lib = _build.load("ce_train")
     f = getattr(lib, fn)
@@ -161,10 +235,14 @@ def _bwd(name, which, h, emb, bias, targets, mx, se, a, b, out, db):
     M, V, D, emb, bias, tgt = _check(name, h, emb, bias, targets,
                                      (("max", mx), ("sumexp", se), ("a", a),
                                       ("b", b)))
+    plan = _card_plan(h.device, M, V, D, which == 1)
+    ws = torch.empty((plan["S"], M, D), dtype=torch.float32,
+                     device=h.device) if plan["S"] > 1 else None
     _call(name, "ce_train_bwd", _BWD_ARGTYPES, which, h.data_ptr(),
           emb.data_ptr(), bias.data_ptr(), tgt.data_ptr(), mx.data_ptr(),
           se.data_ptr(), a.data_ptr(), b.data_ptr(), out.data_ptr(),
-          None if db is None else db.data_ptr(), M, V, D,
+          None if db is None else db.data_ptr(),
+          None if ws is None else ws.data_ptr(), M, V, D, plan["S"],
           torch.cuda.current_stream(h.device).cuda_stream)
 
 

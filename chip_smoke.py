@@ -5,7 +5,8 @@
 
 Run from the repository root on a machine with a CUDA card and nvcc. It
 builds the port's CUDA kernels from csrc/, holds each against its plain
-PyTorch version at the shapes of the main path, then drives both halves of
+PyTorch version at the shapes of the main path (the fused CE backward also
+runs twice there and must repeat its bits), then drives both halves of
 the main path with the bench's 2-layer 1024/1024 LSTM LM (V = 49,152, bf16):
 packed-carry N-best rescoring through ``BatchScorer.score_nbest`` (random
 weights from a fixed seed, a synthetic 6,000-hypothesis N-best), and
@@ -162,8 +163,9 @@ def stream_of(key):
 KERNEL_ROWS = (
     ("lstm_step_kernel", "1, 3, 4"), ("ce_fwd_kernel", "2"),
     ("lstm_fwd_step", "5"), ("lstm_bwd_gates", "6"), ("lstm_bwd_dh", "6"),
-    ("ce_stats_kernel", "9"), ("ce_grad_kernel<false>", "10"),
-    ("ce_grad_kernel<true>", "11"), ("bayes_matmul_kernel", "12"),
+    ("ce_stats_kernel", "9"), ("ce_bwd_kernel<false>", "10"),
+    ("ce_dh_reduce", "10"), ("ce_bwd_kernel<true>", "11"),
+    ("bayes_matmul_kernel", "12"),
     ("bayes_sample_kernel", "13"), ("attention_fwd_kernel", "14"),
     ("attn_train_fwd_kernel", "15"), ("attn_train_dq_kernel", "16"),
     ("attn_train_dkv_kernel", "17"), ("gp6_fwd_step", "18"),
@@ -450,6 +452,7 @@ def fault_share(got, ref, rtol, share, slack=None):
 
 
 CE_TRAIN = ("ce_train_fwd", "ce_train_dh", "ce_train_de")
+CE_BWD = CE_TRAIN[1:]
 
 
 def ce_train_specs(ctc, M, V, D):
@@ -565,6 +568,8 @@ def check_recorded(torch, kernels, specs, recorded, tag="", tol=TRAIN_TOL,
             bms, bby = bound_ms(spec["flops"], spec["nbytes"])
             print(f"  kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, library "
                   f"{library_ms:.3f} ms, bound {bms:.3f} ms ({bby})")
+            if name in CE_BWD:
+                print_ce_plan(ctc, name, args, spec["flops"], ms, bms)
             kernels[name + tag] = dict(
                 name=name + tag, route="cuda",
                 source=f"bayeslms_tpu_torch/csrc/{spec['source']}",
@@ -579,8 +584,45 @@ def check_recorded(torch, kernels, specs, recorded, tag="", tol=TRAIN_TOL,
                               f"tolerance only {fault:.1f}x")
             if failed:
                 print(f"  FAILED so far: {failed}")
+    if CE_BWD[0] in specs:
+        failed += ce_repeat_bits(torch, ctc, recorded, tag)
     if failed:
         raise AssertionError("; ".join(failed))
+
+
+def print_ce_plan(ctc, name, args, flops, ms, bms):
+    """The backward launch of ``name`` at ``args``' shape (cluster size C,
+    dh's walk split S, grid, the clusters the card holds at once) and what
+    it achieved: TFLOP/s of the bound's 4 M V D, share of the bound."""
+    h, emb = args[0], args[1]
+    plan = ctc._card_plan(h.device, h.shape[0], emb.shape[0], h.shape[1],
+                          name == "ce_train_de")
+    print(f"  plan ({plan['which']}): C {plan['C']}, G {plan['G']}, S "
+          f"{plan['S']}, grid {plan['grid']}, cluster {plan['cluster']}, "
+          f"{plan['ctas']} CTAs in {plan['clusters']} clusters, the card "
+          f"holds {plan['max_clusters']} clusters at once, workspace "
+          f"{plan['workspace_bytes']} bytes; {flops / ms / 1e9:.1f} TFLOP/s, "
+          f"{bms / ms:.3f} of the bound")
+
+
+def ce_repeat_bits(torch, ctc, recorded, tag):
+    """The CE backward kernels run twice on one step's call: the bits must
+    repeat (no atomics; fixed orders of the partial and cluster sums).
+    Returns the failures."""
+    failed = []
+    with phase(f"ce_train backward repeats its bits{tag}"), torch.no_grad():
+        for name in CE_BWD:
+            args = recorded[name][0]
+            kernel = getattr(ctc, name)
+            one, two = kernel(*args), kernel(*args)
+            one = one if isinstance(one, tuple) else (one,)
+            two = two if isinstance(two, tuple) else (two,)
+            same = all(torch.equal(x, y) for x, y in zip(one, two))
+            print(f"  {name}: two calls {'equal' if same else 'DIFFER'} "
+                  f"bit for bit")
+            if not same:
+                failed.append(f"{name}: two calls gave different bits")
+    return failed
 
 
 def train_phases(torch, kernels, smi, cfg, rcfg):

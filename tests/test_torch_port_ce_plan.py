@@ -1,0 +1,105 @@
+"""The launch plan of the fused CE training backward (rows 10-11 of
+``csrc/ce_train.cu``, ``ops.ce_train_cuda._bwd_plan``) on the CPU, with
+``_cta`` below mirroring the kernel's index arithmetic: the cluster size,
+the grid, the split of dh's vocabulary walk and its workspace at the
+training shapes the port records (the LSTM's D = 1,024 and the
+Transformer's D = 512 at M = 3,200 tokens, the long-context M = 32,768),
+and that the CTAs' work covers every (output tile, slice, walked tile)
+exactly once, each score tile computed by one rank of its cluster."""
+
+import itertools
+
+import pytest
+
+from bayeslms_tpu_torch.ops import ce_train_cuda as ctc
+
+V = 49152
+SHAPES = [(3200, V, 1024), (3200, V, 512), (32768, V, 1024)]
+
+
+def _cta(plan, x, y, z):
+    """What CTA (x, y, z) of ``plan``'s grid does, as ``ce_bwd_kernel``
+    computes it: (its slice, or None for a rank past the last slice; its
+    own tile; its part; the walked tiles of its score tiles; the walked
+    tiles of its cluster's d products), the tiles as ranges."""
+    C, S, groups, n = plan["C"], plan["S"], plan["groups"], plan["walk_tiles"]
+    rank = x % C
+    slice_ = (x // C) * C + rank
+    g0, g1 = z * groups // S, (z + 1) * groups // S
+    end = min(g1 * C, n)
+    return (slice_ if slice_ < plan["slices"] else None, y, z,
+            range(min(g0 * C + rank, end), end, C),
+            range(min(g0 * C, end), end))
+
+
+def _check_cover(plan):
+    """Every (own tile, slice) walks each tile once over the parts, and
+    each cluster's score tiles are its d products' tiles, once each."""
+    gx, gy, gz = plan["grid"]
+    C = plan["C"]
+    walked = {}
+    for y, x0 in itertools.product(range(gy), range(0, gx, C)):
+        for z in range(gz):
+            units = [_cta(plan, x, y, z) for x in range(x0, x0 + C)]
+            prods = {tuple(u[4]) for u in units}
+            assert len(prods) == 1  # one walk a cluster
+            scores = sorted(t for u in units for t in u[3])
+            assert scores == list(units[0][4])
+            for sl, own, part, _, prod in units:
+                assert (own, part) == (y, z)
+                if sl is not None:
+                    walked.setdefault((y, sl), []).append(prod)
+    assert set(walked) == set(itertools.product(range(gy),
+                                                range(plan["slices"])))
+    full = list(range(plan["walk_tiles"]))
+    for parts in walked.values():
+        assert [t for r in parts for t in r] == full
+
+
+@pytest.mark.parametrize("de", [False, True], ids=["dh", "dE"])
+@pytest.mark.parametrize("M,V,D", SHAPES)
+def test_plan_at_recorded_shapes(M, V, D, de):
+    plan = ctc._bwd_plan(M, V, D, 132, de=de)
+    C, S = plan["C"], plan["S"]
+    assert C == D // 256 and C <= 8 and plan["G"] == 1
+    assert plan["grid"][0] % C == 0 and plan["cluster"] == (C, 1, 1)
+    assert plan["grid"][1] == -(-(V if de else M) // 128)
+    assert plan["ctas"] == plan["clusters"] * C
+    assert plan["workspace_bytes"] == (S * M * D * 4 if S > 1 else 0)
+    if de or M == 32768:
+        assert S == 1  # the tiles fill the card already
+    else:
+        assert S > 1 and plan["ctas"] >= 132
+    _check_cover(plan)
+
+
+def test_plan_takes_the_card_s_cluster_count():
+    # a card holding 32 clusters of 4: 25 token tiles split 5 ways make 125
+    # clusters, 4 waves of 32 for a fifth of the walk each
+    plan = ctc._bwd_plan(3200, V, 1024, 132, max_clusters=32)
+    assert (plan["S"], plan["max_clusters"], plan["clusters"]) == (5, 32, 125)
+    assert plan["grid"] == (4, 25, 5)
+
+
+@pytest.mark.parametrize("de", [False, True], ids=["dh", "dE"])
+def test_plan_beyond_the_portable_cluster(de):
+    # D = 2,304: nine slices in two clusters of five, the tenth rank idle
+    plan = ctc._bwd_plan(3201, 4097, 2304, 132, de=de)
+    assert (plan["C"], plan["G"], plan["slices"]) == (5, 2, 9)
+    assert plan["grid"][0] == 10
+    idle = [x for x in range(10) if _cta(plan, x, 0, 0)[0] is None]
+    assert idle == [9]
+    _check_cover(plan)
+
+
+@pytest.mark.parametrize("M,V,D,de", [(1, 1, 256, False), (129, 4097, 2048,
+                                                             True),
+                                      (300, 1000, 256, False)])
+def test_plan_at_ragged_shapes(M, V, D, de):
+    _check_cover(ctc._bwd_plan(M, V, D, 132, de=de))
+
+
+@pytest.mark.parametrize("D", [128, 300, 1000])
+def test_plan_refuses_a_width_off_the_slices(D):
+    with pytest.raises(ValueError):
+        ctc._bwd_plan(3200, V, D, 132)
