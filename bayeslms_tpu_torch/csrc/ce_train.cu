@@ -14,30 +14,72 @@
 //             dE_v = sum_m d_mv h_m      (d rounded to bf16, bf16 h), fp32,
 //             db_v = sum_m d_mv          (fp32 d).
 // The (M, V) scores never reach device memory: every kernel recomputes its
-// score tiles. The forward (`score_tile`, wmma: mma.sync m16n8k16) and the
-// backward (wgmma m64n64k16) both let the tensor cores accumulate a score
-// over all of D in k16 steps in D's order, and on the H100 the two give
-// the same bits: at V = 1, where d = a (p - 1), the backward's d is 0
-// exactly, as the twin's (tests/test_torch_port_cuda.py, D = 256 to
-// 2,304). So p <= 1 and d agrees with the forward's max and sum-exp. PTX
-// does not promise that equality. The backward keeps the forward's order
-// on purpose: summing 64-deep parts in fp32 instead rounds less, but leaves
-// p off the forward's statistics by the forward's own rounding, which
-// moved db at the long step's M = 32,768 past its float64 tolerance in
-// chip_smoke.py.
+// score tiles, all three with one arithmetic, on K-major tiles in TMA's
+// 128-byte swizzle: a score is the sum of D's 64-deep chunks in D's order,
+// each chunk's product the tensor cores' (wgmma m64nNk16, the forward N =
+// 128, the backward N = 64, over the chunk's four k16 steps from zero), the
+// chunks added in fp32 registers from zero (rounded to nearest), then the
+// bias, s + b_v in fp32. The tensor cores' fp32 sums truncate: accumulating
+// a score over all of D in their k16 steps left it below float64 by a bias
+// that grows with D and |s| (the row max 5.3e-6 low on average at D =
+// 1,024, tools/ce_db_margin.py), which put db 2-4x farther from float64
+// than the plain twin's and one card test past its tolerance; a 64-deep
+// chunk gives the truncation only a part of the score to act on (PERF.md).
+// The backward's d is consistent with the forward's max and sum-exp
+// only if the two compute the same bits for every score; with one
+// arithmetic they do on the H100: at V = 1, where d = a (p - 1), ce, dh, dE
+// and db are 0 exactly, and with 256 equal rows of E every score of a token
+// is the same in every column of both kernels' tiles
+// (tests/test_torch_port_cuda.py, D = 256 to 2,304). PTX does not promise
+// that equality; those tests hold it. A change to one kernel's score
+// arithmetic is a change to all three: a backward that alone summed 64-deep
+// parts left p off the forward's statistics, and db at the long step's M =
+// 32,768 past its float64 tolerance in chip_smoke.py.
 //
 // Differences from the TPU kernels: no padding of M to the token tile and
 // none of V with a -1e30 bias; the kernels mask the ragged edges. The
 // statistics and coefficients are (M,) vectors, not (M, 8) / (M, 16)
 // broadcasts.
 //
-// Forward (row 9, `ce_stats_kernel`): tiles of BM = 64 tokens x BV = 64
-// vocabulary rows, 8 warps; a block owns 64 tokens and walks the
-// vocabulary, folding each score tile into running max, sum-exp and target
-// logit (four threads a token), as ce_fwd.cu does at 128 x 128. Bound: 2 M
-// V D = 322 GFLOP, 0.33 ms at (M 3,200, V 49,152, D 1,024), operations; it
-// takes 18.3 ms there (chip_smoke.py, NVIDIA H100 80GB HBM3, 700.00 W;
-// PERF.md): 50 blocks on 132 SMs, synchronous wmma (ROADMAP B.1).
+// Forward (row 9, `ce_stats_split` and `ce_stats_merge`).
+//   Bound (H100 SXM data sheet: 989 TFLOP/s bf16, 3.35 TB/s at 700 W): the
+//   score products, 2 M V D = 322 GFLOP or 0.326 ms at (M 3,200, V 49,152,
+//   D 1,024); the bytes (0.1 GB of E) are a smaller bound. Operations
+//   bound. Executed: 2 M' V' D, M' and V' rounded up to the 128-token and
+//   256-word tiles (the padding masked): the bound's count at that shape.
+//   Measured: chip_smoke.py prints the time and the share of the bound
+//   (PERF.md, kernel table, row 9; 18.3 ms before this design).
+//   Design. A CTA owns 128 tokens: two consumer warpgroups of 64 and a
+//   producer warp that issues every operand load by TMA (128-byte swizzle,
+//   mbarrier completion) into a ring of four 48 KB stages, each a K chunk
+//   of 64 columns of h (128 rows) and of E (256 rows). A consumer holds its
+//   64 x 256 fp32 score tile in 128 registers a thread and takes each
+//   chunk's product in two m64n128k16 halves through a buffer of 64 (the
+//   halves' fragments side by side are the m64n256 one's), each added to
+//   the tile when done; while one warpgroup waits for a half and adds it,
+//   the other's products run (setmaxnreg: 240 for them, 24 for the
+//   producer). The wait costs: the same tiles accumulated over all of D in
+//   the tensor cores ran 1.3-1.5x faster (PERF.md); a second buffer, to
+//   overlap a half's product with the last one's addition, does not fit
+//   in the registers, and at 128 columns two buffers spilled and still ran
+//   slower, reading h from L2 twice as often. Each thread folds its two
+//   rows of a finished tile straight from the fragments: s + b (the bias
+//   staged in shared memory once a column, -inf past V, where TMA's zero
+//   rows of E would score the bias), the row max over the row's four lanes
+//   by shuffles, the lane's own sum of exp against the running max, and
+//   the target's logit where the lane holds it; no fp32 score tile in
+//   shared memory. The producer is up to four stages ahead, so the next
+//   tile's loads are in flight while one is folded. Clusters of two token
+//   tiles sharing each E chunk by TMA multicast measured slower than
+//   single CTAs (PERF.md) and were not kept.
+//   The walk over V is split into S parts where the token tiles alone do
+//   not fill the card (`_fwd_plan` in ops/ce_train_cuda.py: S = 5 at M =
+//   3,200, 1 at M = 32,768); the grid's x is the token tile, so one part's
+//   CTAs run, and walk E, together. Each part writes its (max, sum-exp,
+//   target logit) partials to a (3, S, M) workspace and `ce_stats_merge`
+//   combines them per token in part order: max = max_p max_p, sumexp =
+//   sum_p sumexp_p exp(max_p - max), ce = log sumexp + max - s_target. No
+//   atomics: two calls give the same bits.
 //
 // Backward (rows 10 and 11, `ce_bwd_kernel<DE>`). One template serves both:
 // an "own" operand X indexes the output rows and a "walked" operand W the
@@ -47,9 +89,9 @@
 //   Bound (H100 SXM data sheet: 989 TFLOP/s bf16, 3.35 TB/s at 700 W): the
 //   score products 2 M V D and the d products 2 M V D, 4 M V D = 644 GFLOP
 //   or 0.651 ms at (M 3,200, V 49,152, D 1,024); the bytes (0.1 GB of E,
-//   0.2 GB of fp32 dE) are a smaller bound. Operations bound. Measured
-//   (chip_smoke.py, NVIDIA H100 80GB HBM3, 700.00 W; PERF.md): 1.86 ms
-//   (dh) and 2.05 ms (dE, db) there, 0.35 and 0.32 of the bound.
+//   0.2 GB of fp32 dE) are a smaller bound. Operations bound. Measured:
+//   chip_smoke.py prints the times and shares of the bound (PERF.md,
+//   kernel table, rows 10-11).
 //   Design. A (128 x D) fp32 output tile does not fit a CTA, so D is cut
 //   into C = D / 256 slices, one a CTA, and the C CTAs of a thread-block
 //   cluster share each score tile instead of each recomputing it: the
@@ -70,9 +112,10 @@
 //   the two consumer warpgroups (64 output rows each) take them: a score
 //   chunk (128 x 64 of X, 64 x 64 of W) or a d-product tile (64 x 256 of W,
 //   MN-major, read through the descriptor's transpose bit, not copied).
-//   The consumers run wgmma m64n64k16 (scores) and m64n256k16 (the 64 x 256
-//   fp32 output slice, in registers for the whole walk); setmaxnreg gives
-//   them 240 registers and the producer 24. The d epilogue works on the
+//   The consumers run wgmma m64n64k16 (scores, a chunk's product into a
+//   buffer of 32 registers, added to the tile's 32 when done) and
+//   m64n256k16 (the 64 x 256 fp32 output slice, in registers for the whole
+//   walk); setmaxnreg gives them 240 registers and the producer 24. The d epilogue works on the
 //   score fragments: max, 1/sumexp, a, b and the target of the tile's rows
 //   or columns loaded once a tile, the bias once a column; no fp32 score
 //   tile in shared memory and no division per element.
@@ -82,8 +125,10 @@
 //   workspace, and `ce_dh_reduce` sums them in a fixed order and rounds
 //   once to bf16. No atomics: two runs give the same bits.
 //   dE (row 11): no split (V / 128 tiles fill the card); db is each CTA's
-//   column sums of its fp32 d tiles, summed over the cluster's ranks in
-//   rank order through distributed shared memory, written by rank 0.
+//   column sums of its fp32 d tiles (each tile's summed apart, then added,
+//   so that few additions round at db's size), summed over the cluster's
+//   ranks in rank order through distributed shared memory, written by
+//   rank 0.
 //   The TMA descriptors come from cuTensorMapEncodeTiled, a driver-API
 //   function this library does not link: it is found at run time through
 //   cudaGetDriverEntryPoint.
@@ -91,124 +136,13 @@
 #include <cuda.h>  // CUtensorMap and its enums; the library links no libcuda
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 #include <stdint.h>
 
-using namespace nvcuda;
 typedef __nv_bfloat16 bf16;
 
 namespace {
 
-constexpr int BM = 64;        // tokens per tile
-constexpr int BV = 64;        // vocabulary rows per tile
-constexpr int BK = 32;        // contraction chunk of the score products
-constexpr int LDA = BK + 8;   // bf16 pitch of the h and E chunks
-constexpr int LDS = BV + 4;   // fp32 pitch of the score tile
-constexpr int THREADS = 256;  // 8 warps
-
-constexpr int SM_A = BM * LDA * 2;
-constexpr int SM_B = BV * LDA * 2;
-constexpr int SM_S = BM * LDS * 4;
-constexpr int SMEM_FWD = SM_A + SM_B + SM_S;
-
-// Ss[r][c] = h[m0 + r] . E[v0 + c] over all D, for the 64 x 64 tile; rows
-// past M and V read zeros. 8 warps of 16 x 32. Ends synchronised.
-__device__ void score_tile(const bf16* __restrict__ h,
-                           const bf16* __restrict__ emb, int m0, int v0,
-                           int M, int V, int D, bf16* As, bf16* Bs,
-                           float* Ss) {
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int wr = warp >> 1;  // rows [16 wr, 16 wr + 16)
-  const int wc = warp & 1;   // columns [32 wc, 32 wc + 32)
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2];
-  wmma::fill_fragment(acc[0], 0.0f);
-  wmma::fill_fragment(acc[1], 0.0f);
-  for (int k0 = 0; k0 < D; k0 += BK) {
-    {
-      const int r = tid / (BK / 8);  // 64 rows x 4 chunks = 256 threads
-      const int c = (tid % (BK / 8)) * 8;
-      uint4 v = make_uint4(0u, 0u, 0u, 0u);
-      if (m0 + r < M)
-        v = *reinterpret_cast<const uint4*>(h + (size_t)(m0 + r) * D + k0 + c);
-      *reinterpret_cast<uint4*>(As + r * LDA + c) = v;
-      v = make_uint4(0u, 0u, 0u, 0u);
-      if (v0 + r < V)
-        v = *reinterpret_cast<const uint4*>(emb + (size_t)(v0 + r) * D + k0 + c);
-      *reinterpret_cast<uint4*>(Bs + r * LDA + c) = v;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int ks = 0; ks < BK; ks += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fa;
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> fb;
-      wmma::load_matrix_sync(fa, As + (wr * 16) * LDA + ks, LDA);
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        wmma::load_matrix_sync(fb, Bs + (wc * 32 + j * 16) * LDA + ks, LDA);
-        wmma::mma_sync(acc[j], fa, fb, acc[j]);
-      }
-    }
-    __syncthreads();
-  }
-#pragma unroll
-  for (int j = 0; j < 2; ++j)
-    wmma::store_matrix_sync(Ss + (wr * 16) * LDS + wc * 32 + j * 16, acc[j],
-                            LDS, wmma::mem_row_major);
-  __syncthreads();
-}
-
-__global__ void __launch_bounds__(THREADS)
-ce_stats_kernel(const bf16* __restrict__ h, const bf16* __restrict__ emb,
-                const float* __restrict__ bias, const int* __restrict__ tgt,
-                float* __restrict__ ce, float* __restrict__ mx,
-                float* __restrict__ se, int M, int V, int D) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* As = reinterpret_cast<bf16*>(smem);
-  bf16* Bs = reinterpret_cast<bf16*>(smem + SM_A);
-  float* Ss = reinterpret_cast<float*>(smem + SM_A + SM_B);
-  const int tid = threadIdx.x;
-  const int m0 = blockIdx.x * BM;
-  // the four threads of a token: lanes 4k .. 4k+3 of one warp
-  const int row = tid >> 2;
-  const int part = tid & 3;
-  const int m = m0 + row;
-  const int target = m < M ? tgt[m] : -1;
-  float run_max = -1e30f, run_sum = 0.f, run_tgt = 0.f;
-  for (int v0 = 0; v0 < V; v0 += BV) {
-    score_tile(h, emb, m0, v0, M, V, D, As, Bs, Ss);
-    const float* srow = Ss + row * LDS + part * 16;
-    const int vbase = v0 + part * 16;
-    const int n = max(0, min(16, V - vbase));
-    float tmax = -1e30f;
-    for (int c = 0; c < n; ++c) tmax = fmaxf(tmax, srow[c] + bias[vbase + c]);
-    tmax = fmaxf(tmax, __shfl_xor_sync(0xffffffffu, tmax, 1));
-    tmax = fmaxf(tmax, __shfl_xor_sync(0xffffffffu, tmax, 2));
-    const float new_max = fmaxf(run_max, tmax);
-    float s = 0.f, tl = 0.f;
-    for (int c = 0; c < n; ++c) {
-      const float x = srow[c] + bias[vbase + c];
-      s += expf(x - new_max);
-      if (vbase + c == target) tl = x;
-    }
-    s += __shfl_xor_sync(0xffffffffu, s, 1);
-    s += __shfl_xor_sync(0xffffffffu, s, 2);
-    tl += __shfl_xor_sync(0xffffffffu, tl, 1);
-    tl += __shfl_xor_sync(0xffffffffu, tl, 2);
-    run_sum = run_sum * expf(run_max - new_max) + s;
-    run_max = new_max;
-    run_tgt += tl;
-    // the next tile's score store waits behind score_tile's barriers, which
-    // every thread reaches only after it has folded this tile
-  }
-  if (part == 0 && m < M) {
-    ce[m] = logf(run_sum) + run_max - run_tgt;
-    mx[m] = run_max;
-    se[m] = run_sum;
-  }
-}
-
-// ------------------------------------------------------------------ backward
+// ---------------------------------------------- tiles, barriers and wgmma
 
 constexpr int OWN = 128;    // output rows of a tile: two consumer warpgroups
 constexpr int WALK = 64;    // walked rows of a score tile
@@ -376,9 +310,10 @@ __device__ __forceinline__ uint32_t swizzled(int row, int col) {
   return row * 128 + ((((col >> 3) ^ row) & 7) << 4) + (col & 7) * 2;
 }
 
-// d (64 x 64, fp32) += A (64 x 16) B (16 x 64), A and B bf16 in shared memory
+// d (64 x 64, fp32) = A (64 x 16) B (16 x 64) + (acc ? d : 0), A and B bf16
+// in shared memory, B K-major
 __device__ __forceinline__ void wgmma_n64(float* d, uint64_t da,
-                                          uint64_t db) {
+                                          uint64_t db, int acc) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
@@ -394,11 +329,43 @@ __device__ __forceinline__ void wgmma_n64(float* d, uint64_t da,
         "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
         "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
         "+f"(d[30]), "+f"(d[31])
-      : "l"(da), "l"(db), "r"(1));
+      : "l"(da), "l"(db), "r"(acc));
 }
 
-// d (64 x 256, fp32) += A (64 x 16) B (16 x 256), A and B bf16 in shared memory
-__device__ __forceinline__ void wgmma_n256_tb(float* d, uint64_t da,
+// the same with N = 128
+__device__ __forceinline__ void wgmma_n128(float* d, uint64_t da,
+                                           uint64_t db, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(acc));
+}
+
+// d (64 x 256, fp32) += A (64 x 16) B (16 x 256), A and B bf16 in shared
+// memory, B MN-major
+__device__ __forceinline__ void wgmma_n256_mn(float* d, uint64_t da,
                                               uint64_t db) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
@@ -448,6 +415,56 @@ __device__ __forceinline__ void wgmma_n256_tb(float* d, uint64_t da,
         "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
       : "l"(da), "l"(db), "r"(1));
 }
+
+// One warpgroup's score tile, the one arithmetic of every score of the
+// three kernels (see the header): D's nk 64-deep chunks in D's order from
+// ring stage st on, each the tensor cores' product of the stage's 64 rows of
+// A at a_off and N rows of B at X_BYTES (K-major, in the swizzle) over its
+// four k16 steps from zero into c, added into s (N / 2 values a thread) in
+// fp32 registers, rounded to nearest. N = 64 is one m64n64k16 product a
+// step; N = 256 is two m64n128k16 halves taken in turn through c (64
+// values), whose fragments side by side are the m64n256 one's. Stage i
+// lies at ring + i stage_bytes, its full and empty barriers at full0 + 8 i
+// and empty0 + 8 i; the leader gives each stage back once its products
+// are done.
+template <int N>
+__device__ __forceinline__ void score_tile(float* s, float* c, uint32_t ring,
+                                           int stage_bytes, int nst,
+                                           uint32_t full0, uint32_t empty0,
+                                           uint32_t a_off, int nk,
+                                           bool leader, int& st,
+                                           uint32_t& ph) {
+  constexpr int NB = N == 64 ? 64 : 128;  // columns of one product
+  constexpr int CV = NB / 2;              // its values a thread
+#pragma unroll
+  for (int i = 0; i < N / 2; ++i) s[i] = 0.f;
+  for (int kc = 0; kc < nk; ++kc) {
+    mbar_wait(full0 + 8 * st, ph);
+    const uint32_t a = ring + st * stage_bytes + a_off;
+#pragma unroll
+    for (int half = 0; half < N / NB; ++half) {
+      const uint32_t b = ring + st * stage_bytes + X_BYTES + half * NB * 128;
+      fence_regs<CV>(c);
+      wgmma_fence();
+#pragma unroll
+      for (int k = 0; k < KC / 16; ++k) {
+        if (N == 64)
+          wgmma_n64(c, desc_k(a + 32 * k), desc_k(b + 32 * k), k > 0);
+        else
+          wgmma_n128(c, desc_k(a + 32 * k), desc_k(b + 32 * k), k > 0);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs<CV>(c);
+#pragma unroll
+      for (int i = 0; i < CV; ++i) s[half * CV + i] += c[i];
+    }
+    if (leader) mbar_arrive(empty0 + 8 * st);
+    if (++st == nst) { st = 0; ph ^= 1; }
+  }
+}
+
+// ------------------------------------------------------------------ backward
 
 // One CTA: rank r of a cluster of C owns output rows [128 y, +128) x
 // columns [256 slice, +256), slice = (x / C) C + r, and walks the groups
@@ -590,36 +607,16 @@ ce_bwd_kernel(const __grid_constant__ BwdParams p) {
       }
       named_sync(2 + wg, 128);
 
-      // the score tile, the tensor cores accumulating over all of D in
-      // k16 steps in D's order, as the forward's mma.sync does: the scores
-      // come out as the forward's (see the header)
-      float s[32];
-#pragma unroll
-      for (int i = 0; i < 32; ++i) s[i] = 0.f;
-      int prev = -1;
-      for (int kc = 0; kc < nk; ++kc) {
-        mbar_wait(full(st), ph);
-        const uint32_t base = ring + st * STAGE;
-        fence_regs<32>(s);
-        wgmma_fence();
-#pragma unroll
-        for (int k = 0; k < KC / 16; ++k)
-          wgmma_n64(s, desc_k(base + wg * 64 * 128 + 32 * k),
-                    desc_k(base + X_BYTES + 32 * k));
-        wgmma_commit();
-        wgmma_wait<1>();
-        fence_regs<32>(s);
-        if (prev >= 0 && t == 0) mbar_arrive(empty(prev));
-        prev = st;
-        if (++st == nst) { st = 0; ph ^= 1; }
-      }
-      wgmma_wait<0>();
-      fence_regs<32>(s);
-      if (t == 0) mbar_arrive(empty(prev));
+      // the score tile, as the forward's (see the header)
+      float s[32], chunk[32];
+      score_tile<WALK>(s, chunk, ring, STAGE, nst, full(0), empty(0),
+                       wg * 64 * 128, nk, t == 0, st, ph);
 
       // the slot is free once every peer has read the last group's tile
       if (C > 1 && j > g0) mbar_wait_cluster(dfree, (j - g0 - 1) & 1);
-      // d from the fragments, rounded to bf16 into this rank's slot
+      // d from the fragments, rounded to bf16 into this rank's slot; dE
+      // sums the tile's fp32 d of each row apart, then adds that to db's
+      float tsum[2] = {0.f, 0.f};
 #pragma unroll
       for (int i = 0; i < 32; i += 2) {
         const int rs = (i >> 1) & 1;
@@ -634,7 +631,7 @@ ce_bwd_kernel(const __grid_constant__ BwdParams p) {
             const bool hit = __float_as_int(vec[4 * WALK + c]) ==
                              own0 + rbase + 8 * rs;
             d[e] = vec[2 * WALK + c] * pr + (hit ? vec[3 * WALK + c] : 0.f);
-            dbsum[rs] += d[e];
+            tsum[rs] += d[e];
           } else {
             const float pr = expf(s[i + e] + vec[c] - rmx[rs]) * rinv[rs];
             d[e] = ra[rs] * pr + (ts * WALK + c == rt[rs] ? rb[rs] : 0.f);
@@ -645,6 +642,10 @@ ce_bwd_kernel(const __grid_constant__ BwdParams p) {
                      :: "r"(myslot + swizzled(rbase + 8 * rs, col)),
                         "r"(*reinterpret_cast<const uint32_t*>(&pk))
                      : "memory");
+      }
+      if (DE) {
+        dbsum[0] += tsum[0];
+        dbsum[1] += tsum[1];
       }
       // visible to the async proxy (wgmma here, the bulk copies) once both
       // warpgroups have written
@@ -670,7 +671,7 @@ ce_bwd_kernel(const __grid_constant__ BwdParams p) {
         wgmma_fence();
 #pragma unroll
         for (int k = 0; k < WALK / 16; ++k)
-          wgmma_n256_tb(acc, desc_k(a + 32 * k), desc_mn(b + 16 * 128 * k));
+          wgmma_n256_mn(acc, desc_k(a + 32 * k), desc_mn(b + 16 * 128 * k));
         wgmma_commit();
         wgmma_wait<1>();
         fence_regs<128>(acc);
@@ -760,6 +761,207 @@ __global__ void ce_dh_reduce(const float* __restrict__ ws,
   o[1] = __floats2bfloat162_rn(s.z, s.w);
 }
 
+// ------------------------------------------------------------------- forward
+
+constexpr int FCOLS = 256;                    // vocabulary rows of a score tile
+constexpr int F_E_BYTES = FCOLS * KC * 2;     // 32 KB: a chunk of E
+constexpr int F_STAGE = X_BYTES + F_E_BYTES;  // 48 KB: chunks of h and E
+constexpr int F_NST = 4;                      // ring stages
+constexpr int FWD_SMEM =
+    1024 + F_NST * F_STAGE + 4 * FCOLS * 4 + 2 * F_NST * 8;  // 201,792
+
+struct FwdParams {
+  CUtensorMap hmap;  // h (M, D) bf16, boxes of 64 columns x 128 rows
+  CUtensorMap emap;  // E (V, D) bf16, boxes of 64 columns x 256 rows
+  const float* bias;
+  const int* tgt;
+  float* ws;  // (3, splits, M) fp32: each part's max, sum-exp, target logit
+  int M, V, D, n_vt, splits;
+};
+
+// One CTA: tokens [128 x, +128) over the vocabulary tiles [j0, j1) of part
+// y. Dynamic shared memory, 1 KB aligned: the ring (4 x 48 KB: h's chunk,
+// then E's), each warpgroup's bias of a tile (two buffers, by the tile's
+// parity), the barriers.
+__global__ void __launch_bounds__(BWD_THREADS, 1)
+ce_stats_split(const __grid_constant__ FwdParams p) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem =
+      smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  float* vbias = reinterpret_cast<float*>(smem + F_NST * F_STAGE);
+  const uint32_t ring = smem_u32(smem);
+  const uint32_t bars = smem_u32(vbias + 4 * FCOLS);
+  auto full = [&](int s) { return bars + 8 * s; };
+  auto empty = [&](int s) { return bars + 8 * (F_NST + s); };
+
+  const float inf = __int_as_float(0x7f800000);
+  const int tid = threadIdx.x;
+  const int m0 = blockIdx.x * OWN;
+  const int part = blockIdx.y;
+  const int j0 = (int)((long long)part * p.n_vt / p.splits);
+  const int j1 = (int)((long long)(part + 1) * p.n_vt / p.splits);
+  const int nk = p.D / KC;
+
+  if (tid == 0) {
+    for (int s = 0; s < F_NST; ++s) {
+      mbar_init(full(s), 1);
+      mbar_init(empty(s), 2);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  if (tid >= 256) {
+    // producer: one thread issues the loads in the consumers' order
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;");
+    if (tid == 256) {
+      int st = 0;
+      uint32_t ph = 0;
+      for (int j = j0; j < j1; ++j)
+        for (int kc = 0; kc < nk; ++kc) {
+          mbar_wait(empty(st), ph ^ 1);
+          mbar_expect(full(st), F_STAGE);
+          tma_load(ring + st * F_STAGE, &p.hmap, kc * KC, m0, full(st));
+          tma_load(ring + st * F_STAGE + X_BYTES, &p.emap, kc * KC,
+                   j * FCOLS, full(st));
+          if (++st == F_NST) { st = 0; ph ^= 1; }
+        }
+    }
+    return;
+  }
+
+  // consumers: warpgroup wg owns tokens [64 wg, +64) of the tile; a thread
+  // rows rbase and rbase + 8, columns cbase + 8 g, + 1 (g < 32) of each
+  // score tile
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 240;");
+  const int wg = tid >> 7;
+  const int t = tid & 127;
+  const int lane = tid & 31;
+  const int rbase = 64 * wg + 16 * (t >> 5) + (lane >> 2);
+  const int cbase = 2 * (lane & 3);
+  float* vb = vbias + wg * 2 * FCOLS;
+
+  // per row: the running max (the same in the row's four lanes), this
+  // lane's sum of exp(s - max) and the target's logit, if this lane met it
+  float run_max[2], run_sum[2], run_tl[2];
+  int rt[2];
+#pragma unroll
+  for (int rs = 0; rs < 2; ++rs) {
+    const int row = m0 + rbase + 8 * rs;
+    rt[rs] = row < p.M ? p.tgt[row] : -1;
+    run_max[rs] = -inf;
+    run_sum[rs] = 0.f;
+    run_tl[rs] = 0.f;
+  }
+
+  float acc[128], chunk[64];
+  int st = 0;
+  uint32_t ph = 0;
+  for (int j = j0; j < j1; ++j) {
+    const int v0 = j * FCOLS;
+    // the tile's bias, -inf past V (E's rows there are TMA's zeros), read
+    // now and staged after the products, which hide the load's latency
+    float bv[2];
+#pragma unroll
+    for (int q = 0; q < 2; ++q) {
+      const int v = v0 + t + 128 * q;
+      bv[q] = v < p.V ? p.bias[v] : -inf;
+    }
+
+    // the score tile, as the backward's (see the header)
+    score_tile<FCOLS>(acc, chunk, ring, F_STAGE, F_NST, full(0), empty(0),
+                      wg * 64 * 128, nk, t == 0, st, ph);
+
+    // the buffer of tile j - 2 is free: every thread is past tile j - 1's
+    // barrier
+    float* bias = vb + (j & 1) * FCOLS;
+    bias[t] = bv[0];
+    bias[t + 128] = bv[1];
+    named_sync(2 + wg, 128);
+
+    // fold the tile from the fragments: s + b, the row max over the four
+    // lanes, then the lane's sum of exp against the new max
+    float tmax[2] = {-inf, -inf};
+#pragma unroll
+    for (int g = 0; g < FCOLS / 8; ++g) {
+      const float2 b = *reinterpret_cast<const float2*>(bias + 8 * g + cbase);
+#pragma unroll
+      for (int rs = 0; rs < 2; ++rs) {
+        float* x = acc + 4 * g + 2 * rs;
+        x[0] += b.x;
+        x[1] += b.y;
+        tmax[rs] = fmaxf(tmax[rs], fmaxf(x[0], x[1]));
+      }
+    }
+#pragma unroll
+    for (int rs = 0; rs < 2; ++rs) {
+      // the target's logit, where it is one of this lane's columns
+      const int tc = rt[rs] - v0 - cbase;
+      if (tc >= 0 && tc < FCOLS && (tc & 6) == 0) {
+#pragma unroll
+        for (int g = 0; g < FCOLS / 8; ++g) {
+          if (tc == 8 * g) run_tl[rs] = acc[4 * g + 2 * rs];
+          if (tc == 8 * g + 1) run_tl[rs] = acc[4 * g + 2 * rs + 1];
+        }
+      }
+      float mx = tmax[rs];
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      const float nm = fmaxf(run_max[rs], mx);
+      // four partial sums, so that the additions do not wait on each other
+      float sum[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+      for (int g = 0; g < FCOLS / 8; ++g)
+        sum[g & 3] += expf(acc[4 * g + 2 * rs] - nm) +
+                      expf(acc[4 * g + 2 * rs + 1] - nm);
+      run_sum[rs] = run_sum[rs] * expf(run_max[rs] - nm) +
+                    ((sum[0] + sum[1]) + (sum[2] + sum[3]));
+      run_max[rs] = nm;
+    }
+  }
+
+  // the row's four lanes summed (one of them holds the target's logit, if
+  // this part met it: the others add zeros, exactly); the part's partials
+#pragma unroll
+  for (int rs = 0; rs < 2; ++rs) {
+    float sum = run_sum[rs], tl = run_tl[rs];
+    sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+    sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+    tl += __shfl_xor_sync(0xffffffffu, tl, 1);
+    tl += __shfl_xor_sync(0xffffffffu, tl, 2);
+    const int row = m0 + rbase + 8 * rs;
+    if ((lane & 3) == 0 && row < p.M) {
+      const size_t o = (size_t)part * p.M + row;
+      const size_t plane = (size_t)p.splits * p.M;
+      p.ws[o] = run_max[rs];
+      p.ws[plane + o] = sum;
+      p.ws[2 * plane + o] = tl;
+    }
+  }
+}
+
+// ce, max and sum-exp of each token from its parts' partials, in part
+// order: max = max_p max_p, sumexp = sum_p sumexp_p exp(max_p - max), the
+// target's logit from the part that met it (the others hold zeros)
+__global__ void ce_stats_merge(const float* __restrict__ ws,
+                               float* __restrict__ ce, float* __restrict__ mx,
+                               float* __restrict__ se, int M, int splits) {
+  const int m = blockIdx.x * blockDim.x + threadIdx.x;
+  if (m >= M) return;
+  const size_t plane = (size_t)splits * M;
+  float big = ws[m];
+  for (int k = 1; k < splits; ++k) big = fmaxf(big, ws[(size_t)k * M + m]);
+  float sum = 0.f, tl = 0.f;
+  for (int k = 0; k < splits; ++k) {
+    const size_t o = (size_t)k * M + m;
+    sum += ws[plane + o] * expf(ws[o] - big);
+    tl += ws[2 * plane + o];
+  }
+  ce[m] = logf(sum) + big - tl;
+  mx[m] = big;
+  se[m] = sum;
+}
+
 // C, clusters of slices G, ring stages and dynamic shared memory at width D
 struct BwdShape {
   int C, G, nst, smem;
@@ -843,20 +1045,41 @@ cudaLaunchConfig_t bwd_config(const BwdShape& s, dim3 grid,
 }  // namespace
 
 // h (M, D) bf16, emb (V, D) bf16, bias (V) fp32, tgt (M) int32 -> ce, mx,
-// se (M) fp32. Returns the launch error, or 0.
+// se (M) fp32. D must be a multiple of 256. splits: the parts of the
+// vocabulary walk (at most its 256-row tiles); ws is a (3, splits, M) fp32
+// workspace. Returns the launch error, or 0; -1 where the driver's
+// cuTensorMapEncodeTiled is not found, -1000 - r where it refuses a
+// descriptor with r.
 extern "C" int ce_train_fwd(const void* h, const void* emb, const void* bias,
                             const void* tgt, void* ce, void* mx, void* se,
-                            int M, int V, int D, void* stream) {
+                            void* ws, int M, int V, int D, int splits,
+                            void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err = cudaFuncSetAttribute(
-      ce_stats_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_FWD);
+      ce_stats_split, cudaFuncAttributeMaxDynamicSharedMemorySize, FWD_SMEM);
   if (err != cudaSuccess) return (int)err;
   if (M == 0) return 0;
-  ce_stats_kernel<<<(M + BM - 1) / BM, THREADS, SMEM_FWD,
-                    static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(h), static_cast<const bf16*>(emb),
-      static_cast<const float*>(bias), static_cast<const int*>(tgt),
-      static_cast<float*>(ce), static_cast<float*>(mx),
-      static_cast<float*>(se), M, V, D);
+  const EncodeTiled enc = encode_tiled();
+  if (enc == nullptr) return -1;
+  FwdParams prm = {};
+  int r = encode_map(enc, &prm.hmap, h, M, D, OWN);
+  if (r == 0) r = encode_map(enc, &prm.emap, emb, V, D, FCOLS);
+  if (r != 0) return -1000 - r;
+  prm.bias = static_cast<const float*>(bias);
+  prm.tgt = static_cast<const int*>(tgt);
+  prm.ws = static_cast<float*>(ws);
+  prm.M = M;
+  prm.V = V;
+  prm.D = D;
+  prm.n_vt = (V + FCOLS - 1) / FCOLS;
+  prm.splits = splits;
+  ce_stats_split<<<dim3((M + OWN - 1) / OWN, splits), BWD_THREADS, FWD_SMEM,
+                   st>>>(prm);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  ce_stats_merge<<<(M + 255) / 256, 256, 0, st>>>(
+      static_cast<const float*>(ws), static_cast<float*>(ce),
+      static_cast<float*>(mx), static_cast<float*>(se), M, splits);
   return (int)cudaGetLastError();
 }
 // The backward kernels: as the forward, plus mx, se (M) fp32 from it and the

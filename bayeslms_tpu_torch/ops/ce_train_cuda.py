@@ -30,7 +30,7 @@ from . import _build
 launches = {"ce_train_fwd": 0, "ce_train_dh": 0, "ce_train_de": 0}
 
 _P = ctypes.c_void_p
-_FWD_ARGTYPES = [_P] * 7 + [ctypes.c_int] * 3 + [_P]
+_FWD_ARGTYPES = [_P] * 8 + [ctypes.c_int] * 4 + [_P]
 _BWD_ARGTYPES = [ctypes.c_int] + [_P] * 11 + [ctypes.c_int] * 4 + [_P]
 
 # The backward's tiling (csrc/ce_train.cu): D columns a CTA owns, output
@@ -39,8 +39,12 @@ D_SLICE = 256
 OWN_ROWS = 128
 WALK_ROWS = 64
 MAX_CLUSTER = 8
-# most parts a dh walk is split into, and the share of the unsplit walk's
-# waves a split must reach to be taken
+# The forward's tiling: tokens of a tile, vocabulary rows of a score tile
+FWD_ROWS = 128
+FWD_COLS = 256
+# most parts the forward's vocabulary walk and dh's are split into, and the
+# share of the unsplit walk's waves a split must reach to be taken
+MAX_FWD_SPLITS = 32
 MAX_SPLITS = 8
 SPLIT_GAIN = 0.9
 # Tokens per step of the plain versions, whose (rows, V) float32 blocks are
@@ -138,6 +142,34 @@ def _cdiv(a, b):
     return -(-a // b)
 
 
+def _fwd_plan(M, V, D, n_sm):
+    """The forward launch of ``csrc/ce_train.cu`` for (M, V, D) on a card
+    of ``n_sm`` SMs, one CTA each (its ring takes most of the shared
+    memory). CTA (x, y) walks the vocabulary tiles [y n / S, (y + 1) n / S)
+    of token tile x, n = ceil(V / 256) tiles, and writes its partials to a
+    (3, S, M) float32 workspace, which a second kernel merges. S (at most
+    MAX_FWD_SPLITS and n) minimises the walk's length, waves x (ceil(n /
+    S) + 1), waves = ceil(token tiles x S / n_sm), the smallest on a tie:
+    each part costs about a tile more, to fill its ring and write its
+    partials. It is taken only where that is at most SPLIT_GAIN of the
+    unsplit walk's. The grid's x is the token tile, so the CTAs of one
+    part are launched, and walk E, together. Returns a dict with S, the
+    grid, CTAs, the workspace bytes and the tile counts."""
+    if D % D_SLICE:
+        raise ValueError(f"D = {D} is not a multiple of {D_SLICE}")
+    token_tiles = _cdiv(M, FWD_ROWS)
+    vocab_tiles = _cdiv(V, FWD_COLS)
+    cost = {s: _cdiv(token_tiles * s, n_sm) * (_cdiv(vocab_tiles, s) + 1)
+            for s in range(1, max(1, min(MAX_FWD_SPLITS, vocab_tiles)) + 1)}
+    S = min(cost, key=lambda s: (cost[s], s))
+    if cost[S] > SPLIT_GAIN * cost[1]:
+        S = 1
+    grid = (token_tiles, S)
+    return dict(which="forward", S=S, grid=grid, ctas=grid[0] * grid[1],
+                token_tiles=token_tiles, vocab_tiles=vocab_tiles,
+                workspace_bytes=3 * S * M * 4)
+
+
 def _bwd_plan(M, V, D, n_sm, max_clusters=None, de=False):
     """The backward launch of ``csrc/ce_train.cu`` for (M, V, D): dh
     (``de`` False: tokens own the output rows, the vocabulary is walked)
@@ -179,8 +211,17 @@ def _bwd_plan(M, V, D, n_sm, max_clusters=None, de=False):
                 workspace_bytes=S * M * D * 4 if S > 1 else 0)
 
 
-# (device index, which, D) -> (SMs, clusters the card holds at once)
+# device index -> SMs; (device index, which, D) -> clusters the card holds at
+# once
+_sms = {}
 _card = {}
+
+
+def _n_sm(dev):
+    if dev.index not in _sms:
+        _sms[dev.index] = torch.cuda.get_device_properties(dev) \
+            .multi_processor_count
+    return _sms[dev.index]
 
 
 def _card_plan(dev, M, V, D, de):
@@ -194,10 +235,12 @@ def _card_plan(dev, M, V, D, de):
         if n <= 0:
             raise RuntimeError(f"ce_train backward: the card holds no "
                                f"cluster (CUDA error {-n})")
-        _card[key] = (torch.cuda.get_device_properties(dev)
-                      .multi_processor_count, n)
-    n_sm, n = _card[key]
-    return _bwd_plan(M, V, D, n_sm, n, de)
+        _card[key] = n
+    return _bwd_plan(M, V, D, _n_sm(dev), _card[key], de)
+
+
+def _card_fwd_plan(dev, M, V, D):
+    return _fwd_plan(M, V, D, _n_sm(dev))
 
 
 def _call(name, fn, argtypes, *args):
@@ -217,16 +260,20 @@ def ce_train_fwd(h: torch.Tensor, emb: torch.Tensor, bias: torch.Tensor,
     h (M, D) in the compute dtype; emb (V, D), cast to h's dtype; bias (V,)
     float32; targets (M,) int. Returns ce, max, sumexp (M,) float32. CUDA
     tensors launch ``ce_train_fwd`` of ``csrc/ce_train.cu`` (bf16, D a
-    multiple of 256, any M and V); CPU tensors run ``ce_train_fwd_plain``.
+    multiple of 256, any M and V; the split walk of ``_fwd_plan`` and the
+    merge of its partials, one call); CPU tensors run
+    ``ce_train_fwd_plain``.
     """
     if not h.is_cuda:
         return ce_train_fwd_plain(h, emb, bias, targets)
     M, V, D, emb, bias, tgt = _check("ce_train_fwd", h, emb, bias, targets)
+    plan = _card_fwd_plan(h.device, M, V, D)
     ce, mx, se = (torch.empty((M,), dtype=torch.float32, device=h.device)
                   for _ in range(3))
+    ws = torch.empty((3, plan["S"], M), dtype=torch.float32, device=h.device)
     _call("ce_train_fwd", "ce_train_fwd", _FWD_ARGTYPES, h.data_ptr(),
           emb.data_ptr(), bias.data_ptr(), tgt.data_ptr(), ce.data_ptr(),
-          mx.data_ptr(), se.data_ptr(), M, V, D,
+          mx.data_ptr(), se.data_ptr(), ws.data_ptr(), M, V, D, plan["S"],
           torch.cuda.current_stream(h.device).cuda_stream)
     return ce, mx, se
 

@@ -1,12 +1,16 @@
-"""The launch plan of the fused CE training backward (rows 10-11 of
-``csrc/ce_train.cu``, ``ops.ce_train_cuda._bwd_plan``) on the CPU, with
-``_cta`` below mirroring the kernel's index arithmetic: the cluster size,
-the grid, the split of dh's vocabulary walk and its workspace at the
-training shapes the port records (the LSTM's D = 1,024 and the
-Transformer's D = 512 at M = 3,200 tokens, the long-context M = 32,768),
-and that the CTAs' work covers every (output tile, slice, walked tile)
-exactly once, each score tile computed by one rank of its cluster."""
+"""The launch plans of the fused CE training kernels of
+``csrc/ce_train.cu`` on the CPU. The backward (rows 10-11,
+``ops.ce_train_cuda._bwd_plan``), with ``_cta`` below mirroring the
+kernel's index arithmetic: the cluster size, the grid, the split of dh's
+vocabulary walk and its workspace at the training shapes the port records
+(the LSTM's D = 1,024 and the Transformer's D = 512 at M = 3,200 tokens,
+the long-context M = 32,768), and that the CTAs' work covers every (output
+tile, slice, walked tile) exactly once, each score tile computed by one
+rank of its cluster. The forward (row 9, ``_fwd_plan``): the split of its
+vocabulary walk, the grid and the workspace, and that the CTAs walk every
+(token tile, vocabulary tile) pair exactly once."""
 
+import collections
 import itertools
 
 import pytest
@@ -103,3 +107,49 @@ def test_plan_at_ragged_shapes(M, V, D, de):
 def test_plan_refuses_a_width_off_the_slices(D):
     with pytest.raises(ValueError):
         ctc._bwd_plan(3200, V, D, 132)
+
+
+# the forward's recorded calls: the LSTM step, the Transformer step, the
+# long-context step
+FWD_SHAPES = [(3200, V, 1024), (3200, V, 512), (32768, V, 512)]
+
+
+def _check_fwd_cover(plan):
+    """CTA (x, y) walks vocabulary tiles [y n / S, (y + 1) n / S) of token
+    tile x, as ``ce_stats_split`` cuts the walk: every pair once."""
+    T, S = plan["grid"]
+    n = plan["vocab_tiles"]
+    walked = collections.Counter(
+        (x, j) for x, y in itertools.product(range(T), range(S))
+        for j in range(y * n // S, (y + 1) * n // S))
+    assert walked == collections.Counter(itertools.product(range(T),
+                                                           range(n)))
+
+
+@pytest.mark.parametrize("M,V,D", FWD_SHAPES)
+def test_fwd_plan_at_recorded_shapes(M, V, D):
+    plan = ctc._fwd_plan(M, V, D, 132)
+    S = plan["S"]
+    assert plan["grid"] == (-(-M // 128), S)
+    assert plan["ctas"] == plan["grid"][0] * S
+    assert plan["workspace_bytes"] == S * M * 3 * 4
+    if M == 32768:
+        assert S == 1  # 256 token tiles fill the card already
+    else:
+        assert S > 1 and plan["ctas"] >= 100
+    _check_fwd_cover(plan)
+
+
+@pytest.mark.parametrize("M,V,D", [(1, 1, 256), (300, 1, 1024),
+                                   (300, 4097, 1024), (3201, 4097, 2304),
+                                   (129, 1000, 512)])
+def test_fwd_plan_at_ragged_shapes(M, V, D):
+    plan = ctc._fwd_plan(M, V, D, 132)
+    assert 1 <= plan["S"] <= plan["vocab_tiles"]  # no part walks nothing
+    _check_fwd_cover(plan)
+
+
+@pytest.mark.parametrize("D", [128, 300, 1000])
+def test_fwd_plan_refuses_a_width_off_the_slices(D):
+    with pytest.raises(ValueError):
+        ctc._fwd_plan(3200, V, D, 132)

@@ -120,14 +120,14 @@ def test_lstm_train_kernels_match_plain(dev, masked):
         _close(a, b, 2 ** -6)
 
 
-def _ce_train_args(dev, M, V, D):
-    """The inputs of the D = 256 test at width D, E scaled by sqrt(256 / D)
-    so that the logits keep that test's size (|s| < 2): at |s| ~ 20 the
-    score's rounding flips d's bf16 rounding often enough to move a small
-    dh or dE entry past 2^-12 of the largest, for kernel and twin alike
-    (chip_smoke.py holds that regime at the Transformer's shapes, with its
-    own tolerances)."""
-    g = torch.Generator().manual_seed(M)
+def _ce_train_args(dev, M, V, D, seed=None):
+    """The inputs of the D = 256 test at width D, seeded with M unless
+    ``seed`` is given, E scaled by sqrt(256 / D) so that the logits keep
+    that test's size (|s| < 2): at |s| ~ 20 the score's rounding flips d's
+    bf16 rounding often enough to move a small dh or dE entry past 2^-12 of
+    the largest, for kernel and twin alike (chip_smoke.py holds that regime
+    at the Transformer's shapes, with its own tolerances)."""
+    g = torch.Generator().manual_seed(M if seed is None else seed)
     h = (torch.rand((M, D), generator=g) * 2 - 1).to(dev, torch.bfloat16)
     emb = ((torch.rand((V, D), generator=g) * 2 - 1) * 0.3
            * (256 / D) ** 0.5).to(dev, torch.bfloat16)
@@ -148,8 +148,8 @@ def test_ce_train_kernels_match_plain(dev, M, V, D):
     h, emb, bias, tgt, a, b = _ce_train_args(dev, M, V, D)
     ce, mx, se = ctc.ce_train_fwd(h, emb, bias, tgt)
     rce, rmx, rse = ctc.ce_train_fwd_plain(h, emb, bias, tgt)
-    # the forward's tolerances are set at D = 256; its wmma sums round at
-    # each of D / 16 steps, ~D / 256 as often at larger D
+    # the forward's tolerances are set at D = 256; its tensor-core sums
+    # round at each of D / 16 steps, ~D / 256 as often at larger D
     k = D / 256
     torch.testing.assert_close(ce, rce, rtol=0, atol=1e-4 * k)
     torch.testing.assert_close(mx, rmx, rtol=0, atol=1e-5 * k)
@@ -180,14 +180,74 @@ def test_ce_train_dh_split_walk_matches_plain(dev):
            2 ** -6)
 
 
+def test_ce_train_fwd_split_walk_matches_plain(dev):
+    # few token tiles: the plan splits the vocabulary walk (S > 1) and a
+    # second kernel merges the parts' partials, in one wrapper call
+    from bayeslms_tpu_torch.ops import ce_train_cuda as ctc
+
+    M, V, D = 300, 4097, 1024
+    assert ctc._card_fwd_plan(dev, M, V, D)["S"] > 1
+    h, emb, bias, tgt, _, _ = _ce_train_args(dev, M, V, D)
+    before = ctc.launches["ce_train_fwd"]
+    ce, mx, se = ctc.ce_train_fwd(h, emb, bias, tgt)
+    assert ctc.launches["ce_train_fwd"] == before + 1
+    rce, rmx, rse = ctc.ce_train_fwd_plain(h, emb, bias, tgt)
+    k = D / 256  # as test_ce_train_kernels_match_plain
+    torch.testing.assert_close(ce, rce, rtol=0, atol=1e-4 * k)
+    torch.testing.assert_close(mx, rmx, rtol=0, atol=1e-5 * k)
+    torch.testing.assert_close(se, rse, rtol=1e-5 * k, atol=0)
+
+
+@pytest.mark.parametrize("D", [256, 1024, 2304])
+@pytest.mark.parametrize("M", [1, 300])
+def test_ce_train_scores_agree_bit_for_bit(dev, M, D):
+    # V = 1: ce = log 1 + s - s is 0, and d = a (p - 1) is 0 for dh, dE and
+    # db, exactly, only where every score the backward computes equals the
+    # forward's bit for bit (M = 300: three token tiles, both warpgroups)
+    from bayeslms_tpu_torch.ops import ce_train_cuda as ctc
+
+    h, emb, bias, tgt, a, b = _ce_train_args(dev, M, 1, D)
+    ce, mx, se = ctc.ce_train_fwd(h, emb, bias, tgt)
+    assert torch.count_nonzero(ce) == 0
+    dh = ctc.ce_train_dh(h, emb, bias, tgt, mx, se, a, b)
+    de, db = ctc.ce_train_de(h, emb, bias, tgt, mx, se, a, b)
+    for x in (dh, de, db):
+        assert torch.count_nonzero(x) == 0
+
+
+@pytest.mark.parametrize("D", [256, 1024, 2304])
+def test_ce_train_scores_agree_in_every_column(dev, D):
+    # 256 equal rows of E and a zero bias: a token's 256 scores are one
+    # number wherever they sit in the forward's 256-wide tile and the
+    # backward's 64-wide ones, so sumexp is 256 and p = 1 / 256, and db
+    # (a = 1, b = 0) is M / 256, exactly
+    from bayeslms_tpu_torch.ops import ce_train_cuda as ctc
+
+    M = 300
+    g = torch.Generator().manual_seed(D)
+    h = torch.randn((M, D), generator=g).to(dev, torch.bfloat16)
+    e = torch.randn((1, D), generator=g) * 0.05
+    emb = e.expand(256, D).contiguous().to(dev, torch.bfloat16)
+    bias = torch.zeros(256, device=dev)
+    tgt = torch.zeros(M, dtype=torch.int64, device=dev)
+    _, mx, se = ctc.ce_train_fwd(h, emb, bias, tgt)
+    assert torch.equal(se, torch.full_like(se, 256.0))
+    one = torch.ones(M, device=dev)
+    _, db = ctc.ce_train_de(h, emb, bias, tgt, mx, se, one, 0 * one)
+    assert torch.equal(db, torch.full_like(db, M / 256))
+
+
 @pytest.mark.parametrize("M,V,D", [(300, 4097, 1024), (3201, 4097, 512)])
 def test_ce_train_backward_repeats_its_bits(dev, M, V, D):
-    # no atomics: the split walk's partials and db's cluster sums are added
-    # in a fixed order
+    # no atomics: the forward's split partials, dh's split partials and db's
+    # cluster sums are added in a fixed order
     from bayeslms_tpu_torch.ops import ce_train_cuda as ctc
 
     h, emb, bias, tgt, a, b = _ce_train_args(dev, M, V, D)
-    args = (h, emb, bias, tgt, *ctc.ce_train_fwd(h, emb, bias, tgt)[1:], a, b)
+    one, two = ctc.ce_train_fwd(h, emb, bias, tgt), \
+        ctc.ce_train_fwd(h, emb, bias, tgt)
+    assert all(torch.equal(x, y) for x, y in zip(one, two))
+    args = (h, emb, bias, tgt, *one[1:], a, b)
     assert torch.equal(ctc.ce_train_dh(*args), ctc.ce_train_dh(*args))
     (de1, db1), (de2, db2) = ctc.ce_train_de(*args), ctc.ce_train_de(*args)
     assert torch.equal(de1, de2) and torch.equal(db1, db2)
