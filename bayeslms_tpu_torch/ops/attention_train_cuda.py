@@ -12,6 +12,16 @@ that. ``attn_train_fwd``, ``attn_train_dq`` and ``attn_train_dkv`` launch
 them for CUDA tensors and raise on what they do not take; for CPU tensors
 they run the plain twins beside them.
 
+Two designs, chosen by ``_design`` and counted apart in
+``design_launches``: rows 15 and 17 run on the tensor cores ("wgmma", TMA
+loads) for bf16 heads of d <= 128 (d % 8 == 0, 16-byte aligned views),
+and on the fp32 CUDA cores ("simt") for float32, d = 256 and views TMA
+cannot describe; row 16 always on the CUDA cores. ``_fwd_plan`` and
+``_dkv_plan`` give rows 15 and 17's launch plans as plain Python: the grid
+and tile count they launch with, the tile geometry the library checks
+against its own, and the tile walk its kernels make, which the CPU tests
+check.
+
 Per batch column, head and query row r, over the keys c <= r (q, k, v the
 time-major (T, B, E) projections, E = nhead d, unscaled):
 s = (q_r d^-1/2) . k_c in float32, m_r = max s, p = exp(s - m_r), l_r =
@@ -46,6 +56,8 @@ from .bayes_sample_cuda import philox4x32_10
 # kernel launches, one per call that reaches a kernel; reset by callers that
 # read them, such as chip_smoke.py
 launches = {"attn_train_fwd": 0, "attn_train_dq": 0, "attn_train_dkv": 0}
+# the same launches by design (``_design``)
+design_launches = {n: {"wgmma": 0, "simt": 0} for n in launches}
 
 KERNEL = "attention_train"
 MAX_T = 8192  # the JAX gate's sequence limit
@@ -56,12 +68,13 @@ _U32 = 0xFFFFFFFF
 # their score, probability and mask blocks are their only large buffers
 PLAIN_ELEMS = 1 << 25
 
+WGMMA_MAX_D = 128  # the widest head of the tensor-core design
 _P = ctypes.c_void_p
 _I, _U, _F = ctypes.c_int, ctypes.c_uint, ctypes.c_float
-_TAIL = [_I] * 4 + [_P, _F, _P, _U, _F, _I, _I, _P, _I, _P]
-_ARGTYPES = {"attn_train_fwd": [_P] * 6 + _TAIL,
-             "attn_train_dq": [_P] * 8 + _TAIL,
-             "attn_train_dkv": [_P] * 9 + _TAIL}
+_MID = [_I] * 4 + [_P, _F, _P, _U, _F, _I, _I, _P, _I]
+_ARGTYPES = {"attn_train_fwd": [_P] * 6 + _MID + [_P, _P],
+             "attn_train_dq": [_P] * 8 + _MID + [_P],
+             "attn_train_dkv": [_P] * 9 + _MID + [_P] * 3}
 
 
 def block(T: int) -> int:
@@ -78,6 +91,89 @@ def flash_attn_train_ok(q: torch.Tensor, nhead: int) -> bool:
     T, _, E = q.shape
     d = E // nhead
     return q.is_cuda and E % nhead == 0 and d % 8 == 0 and T <= MAX_T
+
+
+def _design(name: str, views, nhead: int) -> str:
+    """The kernel design of ``name`` for these (T, B, E) views: "wgmma"
+    (rows 15 and 17, bf16, head dim d <= 128 a multiple of 8, every view's
+    data and (time, batch) strides 16-byte aligned, which TMA needs) or
+    "simt" (the CUDA-core kernels: row 16, float32, wider heads, views TMA
+    cannot describe). An explicit rule, not a fallback: the chosen kernel
+    runs or raises."""
+    q = views[0]
+    d = q.shape[2] // nhead
+    ok = (name != "attn_train_dq" and q.dtype == torch.bfloat16
+          and d <= WGMMA_MAX_D and d % 8 == 0
+          and all(x.data_ptr() % 16 == 0 and x.stride(0) % 8 == 0
+                  and x.stride(1) % 8 == 0 for x in views))
+    return "wgmma" if ok else "simt"
+
+
+def _simt_rows(d: int) -> int:
+    """Rows of a CUDA-core kernel's tile (``Geo<DP>::BR``)."""
+    return 64 if d <= 64 else 32
+
+
+def _fwd_plan(T: int, B: int, nhead: int, d: int, design: str) -> dict:
+    """Row 15's launch plan: the grid and tile count it is launched with,
+    the query rows and keys of a tile and the threads of a CTA (which the
+    library holds against its kernel's), and ``block(x)`` -> (query tile,
+    batch-head, key tiles walked) of CTA x, as the kernel computes them
+    from the grid and tile count. wgmma: x runs over ntiles x B h, the
+    longest rows first (qt = ntiles - 1 - x // BH), each CTA walking key
+    tiles 0 .. qt twice; simt: grid (B h, ntiles), CTA (bh, qt) walking 0
+    .. qt."""
+    BH = B * nhead
+    if design == "wgmma":
+        rows = 128
+        nt = -(-T // rows)
+
+        def blk(x):
+            qt = nt - 1 - x // BH
+            return qt, x % BH, range(qt + 1)
+        return dict(design=design, grid=(nt * BH,), threads=384, rows=rows,
+                    keys=128, ntiles=nt, block=blk)
+    rows = _simt_rows(d)
+    nt = -(-T // rows)
+
+    def blk(x):
+        bh, qt = x % BH, x // BH
+        return qt, bh, range(qt + 1)
+    return dict(design=design, grid=(BH, nt), threads=256, rows=rows,
+                keys=rows, ntiles=nt, block=blk)
+
+
+def _dkv_plan(T: int, B: int, nhead: int, d: int, design: str) -> dict:
+    """Row 17's launch plan, as ``_fwd_plan``'s: the keys of a CTA, the
+    query rows of a tile, and ``block(x)`` -> (key tile, batch-head,
+    [(query tile, warpgroup) walked]) of CTA x. wgmma: key tiles of 128 in
+    ascending order (the longest walks first, kt = x // BH), query tiles of
+    64 from the one that holds key 128 kt down to T; warpgroup w (keys 128
+    kt + 64 w ..) skips a query tile whose rows all lie above its keys.
+    simt: grid (B h, ntiles), tiles of BR keys and BR query rows."""
+    BH = B * nhead
+    if design == "wgmma":
+        keys, rows = 128, 64
+        nt = -(-T // keys)
+
+        def blk(x):
+            kt, bh = x // BH, x % BH
+            walk = []
+            for q0 in range(kt * keys, T, rows):
+                for w in (0, 1):
+                    if q0 + rows > kt * keys + 64 * w:
+                        walk.append((q0 // rows, w))
+            return kt, bh, walk
+        return dict(design=design, grid=(nt * BH,), threads=384, keys=keys,
+                    rows=rows, ntiles=nt, block=blk)
+    rows = _simt_rows(d)
+    nt = -(-T // rows)
+
+    def blk(x):
+        bh, kt = x % BH, x // BH
+        return kt, bh, [(q0 // rows, 0) for q0 in range(kt * rows, T, rows)]
+    return dict(design=design, grid=(BH, nt), threads=256, keys=rows,
+                rows=rows, ntiles=nt, block=blk)
 
 
 def drop_params(rate: float):
@@ -241,29 +337,57 @@ def _stats(name, q, nhead, *stats):
                              f"float32 {(B * nhead, T)} on {q.device}")
 
 
-def _launch(name, ins, outs, nhead, rate, seed, keep_out=None):
+def _plan_words(plan: dict):
+    """A plan as the library takes it: int32 {design (1 wgmma), grid x,
+    grid y, tiles, rows, keys, threads}."""
+    gx, gy = (*plan["grid"], 1)[:2]
+    return (_I * 7)(int(plan["design"] == "wgmma"), gx, gy, plan["ntiles"],
+                    plan["rows"], plan["keys"], plan["threads"])
+
+
+def _launch(name, ins, outs, nhead, rate, seed, keep_out=None,
+            psum_out=None):
     """Launch kernel ``name`` on inputs ``ins`` (q, k, v[, dO], then any
-    float32 statistics) writing ``outs``; raises on a launch error."""
+    float32 statistics) writing ``outs``, in the design ``_design`` picks,
+    rows 15 and 17 on the plan ``_fwd_plan`` / ``_dkv_plan`` gives (row 16
+    on its kernel's grid); raises on a launch error."""
     q = ins[0]
     T, B, E = q.shape
     d = E // nhead
     thresh, inv_keep = drop_params(rate) if rate > 0.0 else (0, 1.0)
     views = list(ins[:4]) if name != "attn_train_fwd" else list(ins[:3])
+    design = _design(name, views, nhead)
+    if psum_out is not None and (
+            design != "wgmma" or tuple(psum_out.shape) != (B * nhead, T)
+            or psum_out.dtype != torch.float32
+            or not psum_out.is_contiguous() or psum_out.device != q.device):
+        raise ValueError(f"{name}: psum_out must be contiguous float32 "
+                         f"{(B * nhead, T)} on {q.device}, wgmma design")
     st = []
     for x in views + [q] * (4 - len(views)):
         st += [x.stride(0), x.stride(1)]
     strides = (ctypes.c_longlong * 8)(*st)
     fn = getattr(_build.load(KERNEL), name)
     fn.argtypes, fn.restype = _ARGTYPES[name], ctypes.c_int
+    extra = []
+    if name != "attn_train_dq":
+        plan = (_fwd_plan if name == "attn_train_fwd" else _dkv_plan)(
+            T, B, nhead, d, design)
+        words = _plan_words(plan)
+        extra.append(ctypes.cast(words, _P))
+    if name == "attn_train_dkv":
+        extra.append(0 if psum_out is None else psum_out.data_ptr())
     err = fn(*(x.data_ptr() for x in (*ins, *outs)), T, B, nhead, d,
              ctypes.cast(strides, _P), float(d) ** -0.5, seed.data_ptr(),
              thresh, inv_keep, block(T), int(rate > 0.0),
              0 if keep_out is None else keep_out.data_ptr(),
-             int(q.dtype == torch.bfloat16),
+             int(q.dtype == torch.bfloat16), *extra,
              torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
-        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
+        raise RuntimeError(f"{name} kernel launch failed ({design}): CUDA "
+                           f"error {err}")
     launches[name] += 1
+    design_launches[name][design] += 1
 
 
 def attn_train_fwd(q, k, v, nhead: int, rate: float, seed,
@@ -306,10 +430,14 @@ def attn_train_dq(q, k, v, g, m, l, delta, nhead: int, rate: float, seed,
 
 
 def attn_train_dkv(q, k, v, g, m, l, delta, nhead: int, rate: float, seed,
-                   keep_out: torch.Tensor = None):
+                   keep_out: torch.Tensor = None,
+                   psum_out: torch.Tensor = None):
     """Row 17: (dk, dv), each (T, B, E) in q's dtype, from the arguments of
     ``attn_train_dq``. CUDA tensors launch the kernel, CPU tensors run
-    ``attn_train_dkv_plain``."""
+    ``attn_train_dkv_plain``; ``keep_out`` as for ``attn_train_fwd``.
+    ``psum_out``, (B nhead, T) float32 zeros, receives sum_c P of every
+    row the wgmma kernel rebuilds from (m, l) (added by atomics: a debug
+    output, as ``keep_out``)."""
     if not q.is_cuda:
         return attn_train_dkv_plain(q, k, v, g, m, l, delta, nhead, rate,
                                     seed)
@@ -318,7 +446,7 @@ def attn_train_dkv(q, k, v, g, m, l, delta, nhead: int, rate: float, seed,
     dk = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     dv = torch.empty_like(dk)
     _launch("attn_train_dkv", (q, k, v, g, m, l, delta), (dk, dv), nhead,
-            rate, seed, keep_out)
+            rate, seed, keep_out, psum_out)
     return dk, dv
 
 
@@ -378,18 +506,20 @@ def flash_attention_train_plain(q, k, v, nhead: int, rate: float, seed):
 
 
 def keep_bits(name: str, q, k, v, nhead: int, rate: float, seed, g=None,
-              m=None, l=None, delta=None) -> torch.Tensor:
+              m=None, l=None, delta=None):
     """The keep bits that kernel ``name`` (attn_train_fwd, _dq or _dkv)
     draws on these inputs, through the kernel's own debug output: bool
-    (B nhead, T, T), False where it draws none (above the diagonal). CUDA
-    tensors only."""
+    (B nhead, T, T), False where it draws none (above the diagonal); and
+    that call's outputs, which a call without ``keep_out`` must give bit
+    for bit (the wgmma kernels take a path without per-element tests there).
+    CUDA tensors only."""
     if not q.is_cuda:
         raise ValueError("keep_bits: the kernels' draws need CUDA tensors")
     T, B, _ = q.shape
     out = torch.zeros((B * nhead, T, T), dtype=torch.uint8, device=q.device)
     if name == "attn_train_fwd":
-        attn_train_fwd(q, k, v, nhead, rate, seed, out)
+        res = attn_train_fwd(q, k, v, nhead, rate, seed, out)
     else:
         bwd = attn_train_dq if name == "attn_train_dq" else attn_train_dkv
-        bwd(q, k, v, g, m, l, delta, nhead, rate, seed, out)
-    return out.bool()
+        res = bwd(q, k, v, g, m, l, delta, nhead, rate, seed, out)
+    return out.bool(), res

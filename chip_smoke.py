@@ -168,8 +168,9 @@ KERNEL_ROWS = (
     ("ce_dh_reduce", "10"), ("ce_bwd_kernel<true>", "11"),
     ("bayes_matmul_kernel", "12"),
     ("bayes_sample_kernel", "13"), ("attention_fwd_kernel", "14"),
-    ("attn_train_fwd_kernel", "15"), ("attn_train_dq_kernel", "16"),
-    ("attn_train_dkv_kernel", "17"), ("gp6_fwd_step", "18"),
+    ("attn_train_fwd_kernel", "15"), ("attn_fwd_wgmma", "15"),
+    ("attn_train_dq_kernel", "16"), ("attn_train_dkv_kernel", "17"),
+    ("attn_dkv_wgmma", "17"), ("gp6_fwd_step", "18"),
     ("gp6_bwd_gates", "19"), ("gp6_bwd_dh", "19"), ("gp6_dcoef_sum", "19"),
     ("gpg_fwd_step", "20"), ("gpg_bwd_gates", "21"), ("gpg_bwd_dh", "21"),
     ("gpg_dcoef_sum", "21"), ("lstm2_fwd_l1", "7"), ("lstm2_fwd_l2", "7"),
@@ -1702,14 +1703,22 @@ def attn_train_specs(T, B, h, d):
 
 def attention_train_phase(torch, kernels, recorded):
     """Rows 15-17 on every call that one long-context training step handed
-    them, and alone at T = 2,048 and 4,096, against their twins; the keep
-    bits each kernel draws against the twin's, the keep share, repeat
-    calls, two planted-fault builds; times and bounds."""
+    them, and alone at T = 2,048 and 4,096, against their twins, the
+    backward kernels on the kernel forward's (m, l) and on the twin's, each
+    call's design printed (rows 15 and 17 must take the wgmma kernels);
+    rows 15 and 17's CUDA-core kernels (fp32 and d = 256 take them) on
+    step call 0 and at T = 2,048, through copies of the same bf16 views
+    that TMA cannot describe; |sum_c P - 1| of the P rows 16 and 17 rebuild
+    from the kernel forward's (m, l); the keep bits each kernel of each
+    design draws against the twin's, with its outputs equal to a call's
+    without the bits, the keep share, repeat calls, two planted-fault
+    builds; times (both designs of rows 15 and 17), bounds."""
     from bayeslms_tpu_torch.ops import _build
     from bayeslms_tpu_torch.ops import attention_train_cuda as atc
 
     F = torch.nn.functional
     real_load = _build.load
+    CORE = ", CUDA-core design"
 
     def outs(name, out):
         return dict(zip(specs[name]["outs"],
@@ -1720,6 +1729,51 @@ def attention_train_phase(torch, kernels, recorded):
             return outs(name, getattr(atc, name)(*args))
         with mock.patch.object(_build, "load", lambda kk: real_load(fault)):
             return outs(name, getattr(atc, name)(*args))
+
+    def counted(name, call):
+        """call()'s result and the design of its one launch of ``name``,
+        from the counts."""
+        before = dict(atc.design_launches[name])
+        res = call()
+        took = [k for k, c in atc.design_launches[name].items()
+                if c != before[k]]
+        if len(took) != 1:
+            raise AssertionError(f"{name}: one call counted {took}")
+        return res, took[0]
+
+    def unaligned(*xs):
+        """Copies of (T, B, E) views in a (T, B, E + 4) buffer: a batch
+        stride that TMA cannot describe, so the design rule sends rows 15
+        and 17 to the CUDA-core kernels on the same bf16 values."""
+        out = []
+        for x in xs:
+            buf = torch.empty((*x.shape[:2], x.shape[2] + 4), dtype=x.dtype,
+                              device=x.device)
+            buf[..., :x.shape[2]] = x
+            out.append(buf[..., :x.shape[2]])
+        return out
+
+    def core_args(name, a):
+        """``name``'s arguments ``a`` with q, k, v (and dO) unaligned."""
+        n = 3 if name == "attn_train_fwd" else 4
+        return (*unaligned(*a[:n]), *a[n:])
+
+    def psum_error(q, k, v, g, m, l, delta, h, rate, seed):
+        """max |sum_c P - 1| of the P rows 17 and 16 rebuild from (m, l):
+        row 17's own sums (its debug output), row 16's from the CUDA-core
+        forward, whose scores are row 16's arithmetic: sum_c exp(s - m) =
+        l' exp(m' - m) with that forward's (m', l')."""
+        T, B, E = q.shape
+        psum = torch.zeros((B * h, T), dtype=torch.float32, device="cuda")
+        atc.attn_train_dkv(q, k, v, g, m, l, delta, h, rate, seed,
+                           psum_out=psum)
+        (_, m16, l16), design = counted("attn_train_fwd", lambda: (
+            atc.attn_train_fwd(*unaligned(q, k, v), h, rate, seed)))
+        if design != "simt":
+            raise AssertionError(f"the row-16 proxy took {design}")
+        p16 = l16 * torch.exp(m16 - m) / l
+        return (float((psum - 1).abs().max()),
+                float((p16 - 1).abs().max()))
 
     def plain(name, args):
         return outs(name, getattr(atc, name + "_plain")(*args))
@@ -1746,20 +1800,44 @@ def attention_train_phase(torch, kernels, recorded):
                  * 1e-3).to(q.dtype)
             qq, kk, vv = qkv.split(E, dim=-1)
             _, mm, ll = atc.attn_train_fwd_plain(qq, kk, vv, h, rate, seed)
-            oo = atc.attn_train_fwd(qq, kk, vv, h, rate, seed)[0]
+            oo, km, kl = atc.attn_train_fwd(qq, kk, vv, h, rate, seed)
             dl = atc.row_delta(g, oo, h)
             long_cases.append((f"T={t} B=2", {
                 "attn_train_fwd": (qq, kk, vv, h, rate, seed),
                 "attn_train_dq": (qq, kk, vv, g, mm, ll, dl, h, rate, seed),
                 "attn_train_dkv": (qq, kk, vv, g, mm, ll, dl, h, rate,
                                    seed)}))
+            long_cases.append((f"T={t} B=2, kernel m, l", {
+                n: (qq, kk, vv, g, km, kl, dl, h, rate, seed)
+                for n in ATTN_TRAIN[1:]}))
+        # the step's backward calls carry the kernel forward's (m, l); each
+        # again on the twin's
+        step_twin = []
+        for i, a in enumerate(recorded["attn_train_dq"]):
+            _, mm, ll = atc.attn_train_fwd_plain(*a[:3], *a[7:])
+            step_twin.append((f"step call {i}, twin m, l", {
+                n: (*a[:4], mm, ll, *a[6:]) for n in ATTN_TRAIN[1:]}))
+        # rows 15 and 17's CUDA-core kernels on step call 0 and at T = 2,048
+        core = {n: core_args(n, recorded[n][0])
+                for n in ("attn_train_fwd", "attn_train_dkv")}
+        core_cases = [("step call 0" + CORE, core), (
+            long_cases[0][0] + CORE,
+            {n: core_args(n, long_cases[0][1][n]) for n in core})]
+        want = {n: "simt" if n == "attn_train_dq" else "wgmma"
+                for n in ATTN_TRAIN}
         for name in ATTN_TRAIN:
-            cases = [(f"step call {i}", {name: a})
-                     for i, a in enumerate(recorded[name])] + long_cases
+            cases = [(f"step call {i}" + ("" if name == "attn_train_fwd"
+                                          else ", kernel m, l"), {name: a})
+                     for i, a in enumerate(recorded[name])]
+            cases += [c for c in step_twin + long_cases + core_cases
+                      if name in c[1]]
             for label, argd in cases:
                 args = argd[name]
                 ref = plain(name, args)
-                got = run(name, args)
+                got, design = counted(name, lambda: run(name, args))
+                print(f"  {name} {label}: design {design}")
+                if design != ("simt" if CORE in label else want[name]):
+                    raise AssertionError(f"{name} {label}: took {design}")
                 torch.cuda.synchronize()
                 e, w = check_outputs(f"{name} {label}", got, ref,
                                      ATTN_TRAIN_RTOL, ATTN_TRAIN_SHARE)
@@ -1772,34 +1850,65 @@ def attention_train_phase(torch, kernels, recorded):
                 if not all(torch.equal(again[o], got[o]) for o in got):
                     raise AssertionError(f"{name} {label}: two calls with "
                                          "one seed differ")
-                if label == "step call 0":
+                if label.startswith("step call 0") and "twin" not in label:
                     for fname, fk in ATTN_TRAIN_FAULTS.items():
                         fs = fault_share(run(name, args, fk), ref,
                                          ATTN_TRAIN_RTOL, ATTN_TRAIN_SHARE)
-                        print(f"  {name} planted fault '{fname}': worst "
-                              f"share of tolerance {fs:.1f}")
+                        print(f"  {name} {label} planted fault '{fname}': "
+                              f"worst share of tolerance {fs:.1f}")
                         fault[name] = min(fault[name], fs)
                 del ref, got, again
-        # the keep bits each kernel draws, through its debug output,
-        # against the twin's integers (step call 0, every batch-head)
+        # the mixed score arithmetic: rows 16 (CUDA cores) and 17 (the
+        # forward's tensor-core scores) on the kernel forward's (m, l)
+        for label, a in [("step call 0", recorded["attn_train_dq"][0])] + [
+                (lb, argd["attn_train_dq"]) for lb, argd in long_cases
+                if lb.endswith("kernel m, l")]:
+            e17, e16 = psum_error(*a)
+            print(f"  {label}: max |sum_c P - 1| on the kernel forward's "
+                  f"(m, l): row 17 {e17:.3e}, row 16 {e16:.3e}")
+        # the keep bits each kernel of each design draws, through its debug
+        # output, against the twin's integers (step call 0, every
+        # batch-head); the call that records them takes the per-element
+        # tests everywhere, the main path's calls skip them below the
+        # diagonal: both must give the same outputs bit for bit
         g, m, l, delta = recorded["attn_train_dq"][0][3:7]
         tril = torch.ones((T, T), dtype=torch.bool, device="cuda").tril()
         n_draw = int(tril.sum()) * B * h
+        sets = [("", (q, k, v, g))] + [(CORE, unaligned(q, k, v, g))]
         for name in ATTN_TRAIN:
-            bits = atc.keep_bits(name, q, k, v, h, rate, seed, g, m, l, delta)
-            same = True
-            for b0 in range(0, B * h, 32):
-                ref = atc.keep_plain(seed, torch.arange(
-                    b0, min(B * h, b0 + 32), device="cuda"), T, rate) & tril
-                same = same and torch.equal(bits[b0:b0 + 32], ref)
-            share = float(bits.sum()) / n_draw
-            print(f"  {name} keep bits: equal to the twin's {same} over "
-                  f"{n_draw} draws; keep share {share:.6f} (0.8 +- "
-                  f"{KEEP_SHARE_ATOL})")
-            del bits
-            if not same or abs(share - (1.0 - rate)) > KEEP_SHARE_ATOL:
-                raise AssertionError(f"{name}: keep bits differ from the "
-                                     "twin's or their share is off")
+            for tag, (qq, kk, vv, gg) in sets:
+                if tag and name == "attn_train_dq":
+                    continue
+                (bits, res), design = counted(name, lambda: atc.keep_bits(
+                    name, qq, kk, vv, h, rate, seed, gg, m, l, delta))
+                if design != ("simt" if tag else want[name]):
+                    raise AssertionError(f"{name}{tag} keep bits: took "
+                                         f"{design}")
+                args = ((qq, kk, vv) if name == "attn_train_fwd" else
+                        (qq, kk, vv, gg, m, l, delta)) + (h, rate, seed)
+                base = outs(name, getattr(atc, name)(*args))
+                equal = all(torch.equal(a, base[o])
+                            for a, o in zip(outs(name, res).values(), base))
+                same = True
+                for b0 in range(0, B * h, 32):
+                    ref = atc.keep_plain(seed, torch.arange(
+                        b0, min(B * h, b0 + 32), device="cuda"), T,
+                        rate) & tril
+                    same = same and torch.equal(bits[b0:b0 + 32], ref)
+                share = float(bits.sum()) / n_draw
+                print(f"  {name}{tag} ({design}) keep bits: equal to the "
+                      f"twin's {same} over {n_draw} draws; keep share "
+                      f"{share:.6f} (0.8 +- {KEEP_SHARE_ATOL}); outputs "
+                      f"equal to a call's without the bits {equal}")
+                del bits, res, base
+                if not same or abs(share - (1.0 - rate)) > KEEP_SHARE_ATOL:
+                    raise AssertionError(f"{name}{tag}: keep bits differ "
+                                         "from the twin's or their share "
+                                         "is off")
+                if not equal:
+                    raise AssertionError(f"{name}{tag}: the outputs of the "
+                                         "call that records the keep bits "
+                                         "differ from a call's without them")
         # times at the step's shape: the kernels, the twins, and one
         # PyTorch call computing the same function (other dropout bits)
         heads = [x.reshape(T, B, h, d).permute(1, 2, 0, 3).contiguous()
@@ -1823,7 +1932,12 @@ def attention_train_phase(torch, kernels, recorded):
                 *args), 2)
             lib = lib_fwd if name == "attn_train_fwd" else lib_bwd
             bms, bby = bound_ms(specs[name]["flops"], specs[name]["nbytes"])
-            print(f"  {name}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
+            simt = "" if name not in core else (
+                ", the CUDA-core design "
+                f"{cuda_ms(torch, lambda: getattr(atc, name)(*core[name]), 5):.3f}"
+                " ms (on the views copied to a batch stride of E + 4)")
+            print(f"  {name}: kernel {ms:.3f} ms ({want[name]}{simt}), "
+                  f"plain {plain_ms:.3f} ms, "
                   f"library {lib:.3f} ms (F.scaled_dot_product_attention, "
                   f"is_causal, dropout_p {rate}, "
                   f"{'forward' if lib is lib_fwd else 'backward: dq, dk, dv together'}"
@@ -1837,7 +1951,7 @@ def attention_train_phase(torch, kernels, recorded):
         for label, argd in long_cases:
             print(f"  {label}: kernel " + ", ".join(
                 f"{n} {cuda_ms(torch, lambda: getattr(atc, n)(*argd[n]), 3):.3f}"
-                for n in ATTN_TRAIN) + " ms")
+                for n in argd) + " ms")
         bad = [f"{n}: worst share {worst[n]:.3f}" for n in ATTN_TRAIN
                if worst[n] > 1]
         bad += [f"{n}: a planted fault only {fault[n]:.1f}x" for n in
@@ -1979,6 +2093,8 @@ def tm_long_phases(torch, kernels, smi, cfg, tmpdir):
         for module in (ctc, atc):
             for k in module.launches:
                 module.launches[k] = 0
+        for counts in atc.design_launches.values():
+            counts.update(wgmma=0, simt=0)
         acu.launches = 0
         steps, evals = [], []
 
@@ -2023,12 +2139,17 @@ def tm_long_phases(torch, kernels, smi, cfg, tmpdir):
                 raise AssertionError(f"{name}: {launches[name]} launches in "
                                      f"{n} steps, 1 a step expected")
         kernels["attention_fwd"]["launches"] += acu.launches
+        print(f"  rows 15-17 launches by design: {atc.design_launches}")
         for name in ATTN_TRAIN:
             kernels[name]["launches"] = launches[name]
             if launches[name] != tcfg_m.nlayers * n:
                 raise AssertionError(f"{name}: {launches[name]} launches in "
                                      f"{n} steps, {tcfg_m.nlayers} a step "
                                      "expected")
+            design = "simt" if name == "attn_train_dq" else "wgmma"
+            if atc.design_launches[name][design] != launches[name]:
+                raise AssertionError(f"{name}: not every launch took the "
+                                     f"{design} kernel")
         if not evals or any(a != tcfg_m.nlayers * w for a, w in evals):
             raise AssertionError(f"evaluate did not launch attention_fwd "
                                  f"once a layer and window: {evals}")

@@ -4,6 +4,8 @@ nvcc; on the card (which has no JAX, imported by tests/conftest.py),
 ``python -m pytest --noconftest tests/test_torch_port_cuda.py -q``.
 chip_smoke.py checks the same kernels at the main path's shapes."""
 
+from unittest import mock
+
 import pytest
 import torch
 
@@ -382,16 +384,23 @@ def _within(got, ref, rtol, share):
 @pytest.mark.parametrize("rate", [0.0, 0.2])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("T,d", [(1, 32), (24, 32), (130, 64), (257, 128),
-                                 (70, 256)])
+                                 (70, 256), (384, 64), (1024, 64), (130, 40),
+                                 (257, 96)])
 def test_attention_train_kernels_match_plain(dev, T, d, dtype, rate):
-    """Rows 15-17 against their twins: ragged T (off the 64- and 32-row
-    tiles and the TPU's 128 block), the qkv projection's column views read
-    in place, each backward kernel on the twin's (m, l, delta); the keep
-    bits each kernel draws equal the twin's bit for bit; the autograd
-    Function against the twins' Function. bf16: a rounded summand (z p,
-    dS) one bf16 step the other way, times its partner (unit-scale
-    inputs here, where chip_smoke.py's are the step's): 2^-6 of a value
-    and 2^-8 of the largest; float32: sums in another order."""
+    """Rows 15-17 against their twins: ragged T (off the 64- and 128-row
+    tiles and the TPU's 128 block; 384 three full 128-row tiles, 1,024 the
+    long step's length), the qkv projection's column views read in place,
+    each backward kernel on the twin's (m, l, delta) and on the kernel
+    forward's own; the keep bits each kernel draws equal the twin's bit for
+    bit, and the outputs of the call that records them a call's without
+    them; the autograd Function against the twins' Function; bf16 at d <=
+    128 on the wgmma design (d = 40 and 96 with TMA's zeros inside a
+    64-column chunk, 96 in a half-empty second chunk), float32 and d = 256
+    on the CUDA-core one. bf16:
+    a rounded summand (z p, dS) one bf16 step the other way, times its
+    partner (unit-scale inputs here, where chip_smoke.py's are the step's):
+    2^-6 of a value and 2^-8 of the largest; float32: sums in another
+    order."""
     from bayeslms_tpu_torch.ops import attention_train_cuda as atc
 
     g = torch.Generator().manual_seed(T + d)
@@ -401,7 +410,9 @@ def test_attention_train_kernels_match_plain(dev, T, d, dtype, rate):
     go = torch.randn((T, B, h * d), generator=g).to(dev, dtype)
     seed = torch.tensor([123457], dtype=torch.int32, device=dev)
     tol = (2 ** -6, 2 ** -8) if dtype == torch.bfloat16 else (1e-4, 1e-5)
+    fast = dtype == torch.bfloat16 and d <= atc.WGMMA_MAX_D
     before = dict(atc.launches)
+    designs = {n: dict(c) for n, c in atc.design_launches.items()}
     o, m, l = atc.attn_train_fwd(q, k, v, h, rate, seed)
     ro, rm, rl = atc.attn_train_fwd_plain(q, k, v, h, rate, seed)
     assert o.dtype == dtype and o.shape == (T, B, h * d)
@@ -409,19 +420,36 @@ def test_attention_train_kernels_match_plain(dev, T, d, dtype, rate):
     torch.testing.assert_close(m, rm, rtol=1e-5, atol=1e-5)
     torch.testing.assert_close(l, rl, rtol=1e-4, atol=1e-6)
     delta = atc.row_delta(go, ro, h)
-    args = (q, k, v, go, rm, rl, delta, h, rate, seed)
-    _within(atc.attn_train_dq(*args), atc.attn_train_dq_plain(*args), *tol)
-    for a, b in zip(atc.attn_train_dkv(*args), atc.attn_train_dkv_plain(*args)):
-        _within(a, b, *tol)
-    assert all(atc.launches[n] == before[n] + 1 for n in before)
+    for stats in ((rm, rl), (m, l)):  # the twin's, then the kernel's own
+        args = (q, k, v, go, *stats, delta, h, rate, seed)
+        _within(atc.attn_train_dq(*args), atc.attn_train_dq_plain(*args),
+                *tol)
+        for a, b in zip(atc.attn_train_dkv(*args),
+                        atc.attn_train_dkv_plain(*args)):
+            _within(a, b, *tol)
+    assert atc.launches["attn_train_fwd"] == before["attn_train_fwd"] + 1
+    assert all(atc.launches[n] == before[n] + 2 for n in before
+               if n != "attn_train_fwd")
+    took = {n: {k: atc.design_launches[n][k] - designs[n][k]
+                for k in designs[n]} for n in designs}
+    for n, count in (("attn_train_fwd", 1), ("attn_train_dkv", 2)):
+        assert took[n] == ({"wgmma": count, "simt": 0} if fast
+                           else {"wgmma": 0, "simt": count}), (n, took)
+    assert took["attn_train_dq"] == {"wgmma": 0, "simt": 2}
     if rate > 0:
         tril = torch.ones((T, T), dtype=torch.bool, device=dev).tril()
         ref = atc.keep_plain(seed, torch.arange(B * h, device=dev), T,
                              rate) & tril
         for name in before:
-            got = atc.keep_bits(name, q, k, v, h, rate, seed, go, rm, rl,
-                                delta)
+            got, res = atc.keep_bits(name, q, k, v, h, rate, seed, go, rm,
+                                     rl, delta)
             assert torch.equal(got, ref), name
+            args = ((q, k, v) if name == "attn_train_fwd" else
+                    (q, k, v, go, rm, rl, delta)) + (h, rate, seed)
+            base = getattr(atc, name)(*args)
+            for a, b in zip(res if isinstance(res, tuple) else (res,),
+                            base if isinstance(base, tuple) else (base,)):
+                assert torch.equal(a, b), name
     xs = [x.detach().clone().requires_grad_(True) for x in (q, k, v)]
     ys = [x.detach().clone().requires_grad_(True) for x in (q, k, v)]
     out = atc.flash_attention_train(*xs, h, rate, seed)
@@ -450,6 +478,12 @@ def test_attention_train_refuses_what_the_kernels_do_not_take(dev):
                            x, x, 2, 0.1, seed)
     with pytest.raises(ValueError):
         atc.attn_train_fwd(x.half(), x.half(), x.half(), 2, 0.1, seed)
+    # a launch plan off the kernels' tiles: the library refuses it
+    for xx, design in ((x, "wgmma"), (x.float(), "simt")):
+        bad = dict(atc._fwd_plan(8, 2, 2, 32, design), rows=16)
+        with mock.patch.object(atc, "_fwd_plan", lambda *a: bad), \
+                pytest.raises(RuntimeError):
+            atc.attn_train_fwd(xx, xx, xx, 2, 0.1, seed)
 
 
 @pytest.mark.parametrize("masked,reset", [(False, False), (True, False),
