@@ -34,21 +34,22 @@
 //
 // Two designs, chosen by the wrapper (ops/attention_train_cuda.py
 // `_design`, counted apart in `design_launches`), neither a fallback of the
-// other: rows 15 and 17 on the tensor cores ("wgmma") for bf16 heads of d
+// other: all three rows on the tensor cores ("wgmma") for bf16 heads of d
 // <= 128, d % 8 == 0, read through TMA (16-byte aligned views and strides);
-// the fp32 CUDA-core kernels ("simt") for row 16, for fp32, for d = 256 and
-// for views TMA cannot describe (a 16-byte cp.async could not read those
-// either: their rows are not 16-byte aligned).
+// the fp32 CUDA-core kernels ("simt") for fp32, for d = 256 and for views
+// TMA cannot describe (a 16-byte cp.async could not read those either:
+// their rows are not 16-byte aligned).
 //
 // Bound on the H100 at the long-context step (B h = 32 x 8, T = 1,024,
 // d = 64, bf16, dropout 0.2; H100 SXM data sheet, 989 TFLOP/s bf16, 3.35
-// TB/s, 700 W): the causal products, 34 GFLOP forward (two) and 69 backward
-// in row 17 (four), 0.035 and 0.07 ms; the bytes (q, k, v, o, m, l; dO,
-// delta, dk, dv) ~0.04 ms each. Beside those, each causal element costs an
-// exp (forward and row 17) and a quarter of a Philox4x32-10 call (~40 32-bit
-// multiplies): 1.3e8 elements a call, ~0.05 ms of exp on the SFUs and ~0.1-
-// 0.2 ms of integer multiplies, which the tensor cores do not hide unless
-// another warpgroup's products run meanwhile.
+// TB/s, 700 W): the causal products, 34 GFLOP forward (two), 52 in row 16
+// (three) and 69 in row 17 (four), 0.035, 0.052 and 0.07 ms; the bytes (q,
+// k, v, o, m, l; dO, delta, dq, dk, dv) ~0.04 ms each. Beside those, each
+// causal element costs an exp (in all three) and a quarter of a
+// Philox4x32-10 call (~40 32-bit multiplies): 1.3e8 elements a call, ~0.05
+// ms of exp on the SFUs and ~0.1-0.2 ms of integer multiplies, which the
+// tensor cores do not hide unless another warpgroup's products run
+// meanwhile.
 //
 // wgmma design, row 15 (`attn_fwd_wgmma`). A CTA owns 128 query rows of one
 // (b, h): two consumer warpgroups of 64 rows and a producer warp that loads
@@ -74,28 +75,37 @@
 // dK_w += dS^T q with the A operand read transposed (wgmma's transpose bit)
 // and dO, q as B, MN-major. Computing S^T instead (keys as rows) would
 // scatter each Philox group of four keys over four lane quads.
-// Both: a lane pair of a fragment holds the four columns of one group of
+// wgmma design, row 16 (`attn_dq_wgmma`). A CTA owns 128 query rows, as row
+// 15's, and keeps q and dO resident; the producer streams key tiles of K and
+// V (128 keys, 64 at d = 128 for the registers), walked once from key 0 to
+// the diagonal, since (m, l) come from row 15. Per tile and warpgroup: S = q
+// K^T and dP = dO V^T with the queries as the M rows, P, z and dS from the
+// fragments, round(dS) straight into the bf16 A fragments of dq += dS K (K
+// as B, MN-major: row 15's P V), so dS never reaches shared memory; dq is
+// scaled once at the end.
+// All three: a lane pair of a fragment holds the four columns of one group of
 // four keys for two rows; one lane draws the group of each row and they
 // swap two words (`pair_words`): one Philox call a group. The element
 // work, not the tensor cores, sets the pace (per element an exp, a
 // quarter of a Philox call, the dropout and the rounding, on 8 consumer
 // warps an SM): exp is __expf, the SFU's ex2.approx of x log2(e) (x = s -
-// m <= 0; a few 2^-22 relative, then rounded to bf16 with z p), row 17
-// multiplies by 1 / l instead of dividing, and tiles wholly below the
+// m <= 0; a few 2^-22 relative, then rounded to bf16 with z p), rows 16-17
+// multiply by 1 / l instead of dividing, and tiles wholly below the
 // diagonal and inside T (`FULL`) take a path without per-element tests
 // (measured: rows 15 / 17 0.95 / 1.20 ms before these, 0.55 / 0.69 after,
 // tools/attn_train_designs.py; PERF.md). A call with `keep_out` takes the
 // tested path everywhere; s scale is rounded on its own (__fmul_rn, never
 // fused into the exp's argument) so that both paths give the same outputs
-// bit for bit, which the checks compare. The forward's P V is
+// bit for bit, which the checks compare. The P V and dS K products are
 // waited for together with the next tile's S. The scale:
 // multiplied into S after the product, not into q before it; at d = 64 and
 // 256 it is a power of two and the scores equal JAX's up to summation
 // order, at d = 32 and 128 they may differ by an ulp of s. A score is one
-// chain of d / 16 k16 steps in column order in both kernels, so row 17
-// rebuilds P from the same scores row 15 normalised (chip_smoke.py prints
-// |sum_c P - 1| for rows 16 and 17 against row 15's (m, l)). d <= 32 runs
-// in one 64-column chunk, the columns past d TMA's zeros.
+// chain of d / 16 k16 steps in column order in all three kernels, so rows
+// 16 and 17 rebuild P from the same scores row 15 normalised (chip_smoke.py
+// prints |sum_c P - 1| for both against row 15's (m, l), from their debug
+// sums). d <= 32 runs in one 64-column chunk, the columns past d TMA's
+// zeros.
 //
 // simt design (rows 15-17). One block of 256 threads owns a tile of BR
 // query rows (rows 15, 16) or key rows (row 17) of one (b, h), BR = 64 for
@@ -106,7 +116,8 @@
 // then the sum and the output accumulator, the same two passes; 16: dQ; 17:
 // dK and dV accumulators, each thread a slice of one row's columns). d up to
 // 256 (tile widths 32, 64, 128, 256; columns past d are zero). At 67 TFLOP/s
-// fp32 these bound rows 15-17 near 0.8, 1.3 and 1.8 ms at the long step.
+// fp32 these bound rows 15-17 near 0.8, 1.3 and 1.8 ms at the long step;
+// the bf16 calls of the main path do not reach them.
 //
 // Differences from the TPU kernels beyond those: the TPU's dq and dkv grids
 // visit every (q-block, k-block) pair; these kernels skip the tiles above
@@ -116,7 +127,7 @@
 //
 // Compile-time faults for chip_smoke.py's planted-fault checks (never set by
 // the port): ATTN_TRAIN_FAULT=1 drops the k-block index from the dropout
-// key, =2 masks the diagonal too (c < r); both designs.
+// key, =2 masks the diagonal too (c < r); every kernel of both designs.
 
 #include <cuda.h>  // CUtensorMap and its enums; the library links no libcuda
 #include <cuda_bf16.h>
@@ -677,7 +688,7 @@ attn_train_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-// ================================================ rows 15 and 17 on wgmma
+// ============================================== rows 15, 16, 17 on wgmma
 // The tensor-core design of the header: bf16 operands, d <= 128 in one or
 // two chunks of 64 columns (NC), every operand load by TMA from a 4-D map of
 // the (d, H, B, T) view, 128-byte swizzle, mbarrier completion.
@@ -701,6 +712,21 @@ struct FwdGeo {
   static constexpr int SMEM = 1024 + Q_BYTES + NST * STAGE + (1 + 2 * NST) * 8;
 };
 
+// dq's: the CTA's q and dO (NC chunks of 128 rows each), then a ring of NST
+// stages, each a key tile's K then V chunks, then the barriers. Key tiles of
+// KT = 128 at d <= 64 and 64 at d = 128, where the S and dP fragments of
+// 128 keys (64 + 64 registers) beside dq's 64 would not fit 240 registers.
+template <int NC>
+struct DqGeo {
+  static constexpr int KT = NC == 1 ? 128 : 64;
+  static constexpr int Q_BYTES = NC * FQ * 128;
+  static constexpr int K_BYTES = NC * KT * 128;
+  static constexpr int STAGE = 2 * K_BYTES;
+  static constexpr int NST = 4;
+  static constexpr int SMEM =
+      1024 + 2 * Q_BYTES + NST * STAGE + (1 + 2 * NST) * 8;
+};
+
 // dk/dv's: the CTA's K and V (NC chunks of 128 rows each), a ring of NST
 // stages, each a query tile's q then dO chunks, each warpgroup's round(z P)
 // and round(dS) tiles, the barriers
@@ -716,12 +742,12 @@ struct DkvGeo {
 
 struct WgParams {
   CUtensorMap qmap, kmap, vmap, gmap;  // boxes of 64 columns x rows
-  void* out0;         // o (row 15) or dk (row 17), contiguous (T, B, H d)
+  void* out0;         // o (row 15), dq (16) or dk (17), contiguous (T, B, H d)
   void* out1;         // dv (row 17)
-  float* m;           // (B H, T): row 15 writes m and l, row 17 reads them
+  float* m;           // (B H, T): row 15 writes m and l, rows 16-17 read them
   float* l;
   const float* delta;
-  float* psum;        // row 17: sum_c P of each row added here, or null
+  float* psum;        // rows 16-17: sum_c P of each row added here, or null
   int T, B, H, d, BH, ntiles;
   float scale;
   Drop dr;
@@ -779,17 +805,6 @@ __device__ __forceinline__ float keep_z(const Drop& dr, uint32_t word, int bh,
   if (dr.keep_out)
     dr.keep_out[(static_cast<long long>(bh) * Tn + row) * Tn + col] = kept;
   return kept ? dr.inv_keep : 0.f;
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 x = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&x);
-}
-
-template <int N>
-__device__ __forceinline__ void fence_words(uint32_t* r) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i]) :: "memory");
 }
 
 // Row 15's pass 2 on one key tile's score fragment s (64 values a thread):
@@ -902,50 +917,6 @@ __device__ __forceinline__ void dkv_fold(const float* s, const float* dp,
   }
 }
 
-// the unscaled scores of one warpgroup, s = A B^T over NC chunks of 64
-// columns (4 k16 steps each, in column order, from zero): A's 64 rows at a
-// (chunks a_chunk bytes apart), B's N rows at b (b_chunk apart), both
-// K-major in the swizzle. Issued, not waited for.
-template <int NC, int N>
-__device__ __forceinline__ void issue_scores(float* s, uint32_t a,
-                                             int a_chunk, uint32_t b,
-                                             int b_chunk) {
-#pragma unroll
-  for (int c = 0; c < NC; ++c)
-#pragma unroll
-    for (int k = 0; k < CH / 16; ++k) {
-      const uint64_t da = desc_k(a + c * a_chunk + 32 * k);
-      const uint64_t db = desc_k(b + c * b_chunk + 32 * k);
-      if constexpr (N == 64)
-        wgmma_n64(s, da, db, (c | k) > 0);
-      else
-        wgmma_n128(s, da, db, (c | k) > 0);
-    }
-}
-
-// d (64 x 64, fp32) += A (64 x 16) B (16 x 64): A bf16 from registers (the
-// four 32-bit words of an m64k16 fragment), B bf16 in shared memory,
-// MN-major
-__device__ __forceinline__ void wgmma_rs_n64(float* d, const uint32_t* a,
-                                            uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31"
-      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]),
-        "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
-        "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
-        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
-        "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
 // d (64 x 64, fp32) += A (64 x 16) B (16 x 64), A and B bf16 in shared
 // memory, both MN-major (A read transposed)
 __device__ __forceinline__ void wgmma_tt_n64(float* d, uint64_t da,
@@ -966,39 +937,6 @@ __device__ __forceinline__ void wgmma_tt_n64(float* d, uint64_t da,
         "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
         "+f"(d[31])
       : "l"(da), "l"(db), "r"(1));
-}
-
-// d (64 x 128, fp32) += A (64 x 16) B (16 x 128): A bf16 from registers (the
-// four 32-bit words of an m64k16 fragment), B bf16 in shared memory,
-// MN-major
-__device__ __forceinline__ void wgmma_rs_n128(float* d, const uint32_t* a,
-                                            uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, "
-      "%40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, "
-      "%56, %57, %58, %59, %60, %61, %62, %63"
-      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]),
-        "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
-        "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
-        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
-        "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]),
-        "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]),
-        "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]),
-        "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]),
-        "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
 // d (64 x 128, fp32) += A (64 x 16) B (16 x 128), A and B bf16 in shared
@@ -1031,6 +969,57 @@ __device__ __forceinline__ void wgmma_tt_n128(float* d, uint64_t da,
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]),
         "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "l"(da), "l"(db), "r"(1));
+}
+
+// Row 16 on one key tile's fragments s, dp (4 NJ values a thread; rows r_lo
+// (+ 8), keys k0 + 8 j + cq (+ 1)): P = exp(s scale - m) / l, z, dS = P (z dP
+// - delta), round(dS) packed into the 2 NJ A-fragment words da of dq += dS K
+// (fwd_fold's order); psum += P. FULL as for fwd_fold.
+template <bool FULL, int NJ>
+__device__ __forceinline__ void dq_fold(const float* s, const float* dp,
+                                        uint32_t* da, float (&psum)[2],
+                                        const float (&mr)[2],
+                                        const float (&il)[2],
+                                        const float (&dl)[2], float scale,
+                                        const Drop& dr, uint32_t seed,
+                                        uint32_t tile, int li, int lj, int bh,
+                                        int r_lo, int k0, int cq, int lane,
+                                        int Tn) {
+  const uint32_t thr8 = dr.thresh << 8;
+#pragma unroll
+  for (int j = 0; j < NJ; ++j) {
+    uint32_t w[2][2] = {{0u, 0u}, {0u, 0u}};
+    if (dr.on)
+      pair_words<FULL>(seed, dr, tile, li, lj, r_lo,
+                       k0 + 8 * j + 4 * ((lane >> 1) & 1), lane, Tn, w);
+    float ds[2][2];
+#pragma unroll
+    for (int rs = 0; rs < 2; ++rs) {
+      const int row = r_lo + 8 * rs;
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int col = k0 + 8 * j + cq + e;
+        const int i4 = 4 * j + 2 * rs + e;
+        float pv = __expf(__fmul_rn(s[i4], scale) - mr[rs]) * il[rs];
+        if (!FULL && !(causal(col, row) && row < Tn)) pv = 0.f;
+        float dpv = dp[i4];
+        if (dr.on) {
+          float z;
+          if (FULL)
+            z = w[rs][e] < thr8 ? dr.inv_keep : 0.f;
+          else
+            z = (row < Tn && col <= row)
+                    ? keep_z(dr, w[rs][e], bh, row, col, Tn)
+                    : 0.f;
+          dpv *= z;
+        }
+        psum[rs] += pv;
+        ds[rs][e] = pv * (dpv - dl[rs]);
+      }
+    }
+    da[2 * j] = pack_bf16(ds[0][0], ds[0][1]);
+    da[2 * j + 1] = pack_bf16(ds[1][0], ds[1][1]);
+  }
 }
 
 // ---------------------------------------------------------- row 15, wgmma
@@ -1419,6 +1408,187 @@ attn_dkv_wgmma(const __grid_constant__ WgParams p) {
   }
 }
 
+// ---------------------------------------------------------- row 16, wgmma
+// One CTA: query rows [128 qt, +128) of batch-head bh, the longest rows
+// first (qt = ntiles - 1 - x / BH), as row 15's. Warpgroup w owns rows [64 w,
+// +64) and their dq (64 x 64 NC, fp32, in registers). The producer loads q
+// and dO once and streams the key tiles' K and V; the CTA walks them once,
+// from key 0 to the diagonal, since (m, l) are row 15's. Per tile and
+// warpgroup: S = q K^T and dP = dO V^T with the queries as the M rows (row
+// 15's fragment layout, so the same lane-pair Philox calls), P, z and dS from
+// the fragments, round(dS) packed straight into the A fragments of dq += dS
+// K (row 15's P V: K the B operand, MN-major, from the same stage); dS never
+// reaches shared memory. A warpgroup skips a tile whose keys all lie above
+// its rows, and every tile when its rows lie past T. dq is scaled once, after
+// the last tile.
+template <int NC>
+__global__ void __launch_bounds__(WG_THREADS, 1)
+attn_dq_wgmma(const __grid_constant__ WgParams p) {
+  using G = DqGeo<NC>;
+  constexpr int KT = G::KT, NJ = KT / 8, NO = NC * 32;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem =
+      smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  const uint32_t qs = smem_u32(smem);
+  const uint32_t gs = qs + G::Q_BYTES;
+  const uint32_t ring = gs + G::Q_BYTES;
+  const uint32_t bars = ring + G::NST * G::STAGE;
+  const uint32_t qfull = bars;
+  auto full = [&](int s) { return bars + 8 + 8 * s; };
+  auto empty = [&](int s) { return bars + 8 + 8 * (G::NST + s); };
+
+  const int tid = threadIdx.x;
+  const int qt = p.ntiles - 1 - static_cast<int>(blockIdx.x / p.BH);
+  const int bh = static_cast<int>(blockIdx.x % p.BH);
+  const int b = bh / p.H, h = bh - (bh / p.H) * p.H;
+  const int q0 = qt * FQ;
+  const int Tn = p.T;
+  const int nkt = (min(Tn, q0 + FQ) + KT - 1) / KT;  // up to the diagonal
+
+  if (tid == 0) {
+    mbar_init(qfull, 1);
+    for (int s = 0; s < G::NST; ++s) {
+      mbar_init(full(s), 1);
+      mbar_init(empty(s), 2);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  if (tid >= 256) {
+    // producer: q and dO once, then the key tiles' K and V
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;");
+    if (tid == 256) {
+      mbar_expect(qfull, 2 * G::Q_BYTES);
+      for (int c = 0; c < NC; ++c) {
+        tma_load_4d(qs + c * FQ * 128, &p.qmap, c * CH, h, b, q0, qfull);
+        tma_load_4d(gs + c * FQ * 128, &p.gmap, c * CH, h, b, q0, qfull);
+      }
+      int st = 0;
+      uint32_t ph = 0;
+      for (int kt = 0; kt < nkt; ++kt) {
+        mbar_wait(empty(st), ph ^ 1);
+        const uint32_t s0 = ring + st * G::STAGE;
+        mbar_expect(full(st), G::STAGE);
+        for (int c = 0; c < NC; ++c) {
+          tma_load_4d(s0 + c * KT * 128, &p.kmap, c * CH, h, b, kt * KT,
+                      full(st));
+          tma_load_4d(s0 + G::K_BYTES + c * KT * 128, &p.vmap, c * CH, h, b,
+                      kt * KT, full(st));
+        }
+        if (++st == G::NST) { st = 0; ph ^= 1; }
+      }
+    }
+    return;
+  }
+
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 240;");
+  const int wgi = tid >> 7;
+  const int t = tid & 127;
+  const int lane = tid & 31;
+  const int w0 = q0 + 64 * wgi;  // this warpgroup's first row
+  const int r_lo = w0 + 16 * (t >> 5) + (lane >> 2);
+  const int cq = 2 * (lane & 3);
+  const uint32_t qa = qs + wgi * 64 * 128, ga = gs + wgi * 64 * 128;
+  const Drop& dr = p.dr;
+  const uint32_t seed = dr.on ? static_cast<uint32_t>(dr.seed[0]) : 0u;
+  const int li = q0 / dr.bq;
+
+  // the rows' statistics, once
+  float mr[2], il[2], dl[2];
+#pragma unroll
+  for (int rs = 0; rs < 2; ++rs) {
+    const int row = r_lo + 8 * rs;
+    const long long at = static_cast<long long>(bh) * Tn + row;
+    mr[rs] = row < Tn ? p.m[at] : 0.f;
+    il[rs] = row < Tn ? 1.f / p.l[at] : 1.f;
+    dl[rs] = row < Tn ? p.delta[at] : 0.f;
+  }
+  float dq[NO];
+#pragma unroll
+  for (int i = 0; i < NO; ++i) dq[i] = 0.f;
+  float psum[2] = {0.f, 0.f};
+  uint32_t da[2 * NJ];  // KT / 16 k16 steps x the 4 words of a fragment
+  mbar_wait(qfull, 0);
+  int st = 0, prev = -1;
+  uint32_t ph = 0;
+  for (int kt = 0; kt < nkt; ++kt) {
+    const int k0 = kt * KT;
+    mbar_wait(full(st), ph);
+    if (k0 > w0 + 63 || w0 >= Tn) {
+      // every key lies above this warpgroup's rows, or every row past T
+      if (t == 0) mbar_arrive(empty(st));
+      if (++st == G::NST) { st = 0; ph ^= 1; }
+      continue;
+    }
+    const uint32_t kb = ring + st * G::STAGE;
+    float s[4 * NJ], dp[4 * NJ];
+    fence_regs<4 * NJ>(s);
+    fence_regs<4 * NJ>(dp);
+    wgmma_fence();
+    issue_scores<NC, KT>(s, qa, FQ * 128, kb, KT * 128);
+    issue_scores<NC, KT>(dp, ga, FQ * 128, kb + G::K_BYTES, KT * 128);
+    wgmma_commit();
+    // also completes the last tile's dq product: its stage is free, da
+    // rewritable
+    wgmma_wait<0>();
+    fence_regs<4 * NJ>(s);
+    fence_regs<4 * NJ>(dp);
+    fence_regs<NO>(dq);
+    fence_words<2 * NJ>(da);
+    if (prev >= 0 && t == 0) mbar_arrive(empty(prev));
+    const int lj = k0 / dr.bq;
+    const uint32_t tile = drop_tile(dr, bh, li, lj);
+    if (k0 + KT <= w0 + 1 && w0 + 64 <= Tn && !dr.keep_out)
+      dq_fold<true, NJ>(s, dp, da, psum, mr, il, dl, p.scale, dr, seed, tile,
+                        li, lj, bh, r_lo, k0, cq, lane, Tn);
+    else
+      dq_fold<false, NJ>(s, dp, da, psum, mr, il, dl, p.scale, dr, seed,
+                         tile, li, lj, bh, r_lo, k0, cq, lane, Tn);
+    fence_regs<NO>(dq);
+    fence_words<2 * NJ>(da);
+    wgmma_fence();
+#pragma unroll
+    for (int ks = 0; ks < KT / 16; ++ks) {
+      const uint64_t dk = desc_mn_lbo(kb + ks * 16 * 128, KT * 128);
+      if constexpr (NC == 1)
+        wgmma_rs_n64(dq, da + 4 * ks, dk);
+      else
+        wgmma_rs_n128(dq, da + 4 * ks, dk);
+    }
+    wgmma_commit();  // waited for with the next tile's S
+    prev = st;
+    if (++st == G::NST) { st = 0; ph ^= 1; }
+  }
+  wgmma_wait<0>();
+  fence_regs<NO>(dq);
+  fence_words<2 * NJ>(da);
+
+  if (p.psum) {
+#pragma unroll
+    for (int rs = 0; rs < 2; ++rs) {
+      float x = psum[rs];
+      x += __shfl_xor_sync(0xffffffffu, x, 1);
+      x += __shfl_xor_sync(0xffffffffu, x, 2);
+      const int row = r_lo + 8 * rs;
+      if ((lane & 3) == 0 && row < Tn)
+        p.psum[static_cast<long long>(bh) * Tn + row] += x;
+    }
+  }
+  bf16* out = static_cast<bf16*>(p.out0);
+  const long long ld = static_cast<long long>(p.H) * p.d;
+#pragma unroll
+  for (int i = 0; i < NO; i += 2) {
+    const int row = r_lo + 8 * ((i >> 1) & 1);
+    const int col = 8 * (i >> 2) + cq;
+    if (row < Tn && col < p.d)
+      *reinterpret_cast<__nv_bfloat162*>(
+          out + (static_cast<long long>(row) * p.B + b) * ld +
+          static_cast<long long>(h) * p.d + col) =
+          __floats2bfloat162_rn(dq[i] * p.scale, dq[i + 1] * p.scale);
+  }
+}
+
 // ---------------------------------------------------------------- launch
 template <typename K>
 int prepare(K kernel, int smem) {
@@ -1486,25 +1656,6 @@ int dispatch(int which, const void* q, const void* k, const void* v,
                         st, scale, dr, plan, s);
 }
 
-// a (T, B, H d) bf16 view with (time, batch) strides st_t, st_b in
-// elements as a 4-D map (d, H, B, T) in boxes of 64 columns x `rows` times,
-// 128-byte swizzle, zeros past d and past T
-int encode_view(EncodeTiled enc, CUtensorMap* map, const void* ptr, int Tn,
-                int B, int H, int d, long long st_t, long long st_b,
-                int rows) {
-  const cuuint64_t dims[4] = {(cuuint64_t)d, (cuuint64_t)H, (cuuint64_t)B,
-                              (cuuint64_t)Tn};
-  const cuuint64_t strides[3] = {(cuuint64_t)d * 2, (cuuint64_t)st_b * 2,
-                                 (cuuint64_t)st_t * 2};
-  const cuuint32_t box[4] = {(cuuint32_t)CH, 1, 1, (cuuint32_t)rows};
-  const cuuint32_t step[4] = {1, 1, 1, 1};
-  return (int)enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
-                  const_cast<void*>(ptr), dims, strides, box, step,
-                  CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-                  CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                  CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-}
-
 template <int NC>
 int launch_wgmma(int which, const WgParams& prm, int grid, cudaStream_t s) {
   int err = 0;
@@ -1512,6 +1663,10 @@ int launch_wgmma(int which, const WgParams& prm, int grid, cudaStream_t s) {
     auto kernel = attn_fwd_wgmma<NC>;
     if ((err = prepare(kernel, FwdGeo<NC>::SMEM))) return err;
     kernel<<<grid, WG_THREADS, FwdGeo<NC>::SMEM, s>>>(prm);
+  } else if (which == 1) {
+    auto kernel = attn_dq_wgmma<NC>;
+    if ((err = prepare(kernel, DqGeo<NC>::SMEM))) return err;
+    kernel<<<grid, WG_THREADS, DqGeo<NC>::SMEM, s>>>(prm);
   } else {
     auto kernel = attn_dkv_wgmma<NC>;
     if ((err = prepare(kernel, DkvGeo<NC>::SMEM))) return err;
@@ -1520,33 +1675,35 @@ int launch_wgmma(int which, const WgParams& prm, int grid, cudaStream_t s) {
   return static_cast<int>(cudaGetLastError());
 }
 
-// rows 15 (which 0) and 17 (which 2) on the tensor cores: bf16, d <= 128, d
-// % 8 == 0, 16-byte aligned views and strides (the wrapper's `_design`), on
-// the wrapper's plan
+// rows 15 (which 0), 16 (1) and 17 (2) on the tensor cores: bf16, d <= 128,
+// d % 8 == 0, 16-byte aligned views and strides (the wrapper's `_design`),
+// on the wrapper's plan
 int run_wgmma(int which, const void* q, const void* k, const void* v,
               const void* g, void* o, void* m, void* l, const void* delta,
               void* o2, void* psum, int Tn, int B, int H, int d,
               const long long* strides, float scale, const Drop& dr,
               const int* plan, cudaStream_t s) {
-  const int rows = which == 0 ? FQ : BQ, keys = which == 0 ? FK : BK;
-  if (which == 1 || d > 128 || d % 8 || plan[2] != 1 || plan[4] != rows ||
+  // the rows a CTA's q (and dO) maps load and the keys of the K, V maps
+  const int dq_keys = d <= CH ? DqGeo<1>::KT : DqGeo<2>::KT;
+  const int rows = which == 2 ? BQ : FQ;
+  const int keys = which == 0 ? FK : which == 1 ? dq_keys : BK;
+  if (d > 128 || d % 8 || plan[2] != 1 || plan[4] != rows ||
       plan[5] != keys || plan[6] != WG_THREADS)
     return (int)cudaErrorInvalidValue;
   const EncodeTiled enc = encode_tiled();
   if (enc == nullptr) return -1;
   WgParams prm = {};
-  const int rq = which == 0 ? FQ : BQ, rk = which == 0 ? FK : BK;
   int r = encode_view(enc, &prm.qmap, q, Tn, B, H, d, strides[0],
-                      strides[1], rq);
+                      strides[1], rows);
   if (r == 0)
     r = encode_view(enc, &prm.kmap, k, Tn, B, H, d, strides[2], strides[3],
-                    rk);
+                    keys);
   if (r == 0)
     r = encode_view(enc, &prm.vmap, v, Tn, B, H, d, strides[4], strides[5],
-                    rk);
-  if (r == 0 && which == 2)
+                    keys);
+  if (r == 0 && which != 0)
     r = encode_view(enc, &prm.gmap, g, Tn, B, H, d, strides[6], strides[7],
-                    BQ);
+                    rows);
   if (r != 0) return -1000 - r;
   prm.out0 = o;
   prm.out1 = o2;
@@ -1601,13 +1758,15 @@ int run(int which, const void* q, const void* k, const void* v,
 // type; m, l, delta fp32 (B H, T). seed: device int32 (1,); dropout = 0
 // turns it off (rate 0); thresh = floor(keep 2^24), inv_keep = 1 / keep in
 // fp32, bq = min(128, round_up(T, 8)). keep_out: null, or (B H, T, T)
-// uint8 that receives every keep bit the kernel draws. d <= 256. plan
-// (rows 15 and 17): the wrapper's launch plan (`_fwd_plan`, `_dkv_plan`),
-// {design, grid x, grid y, tiles, rows, keys, threads}, design 1 the wgmma
-// kernels (bf16, d <= 128, d % 8 == 0, 16-byte aligned views and strides)
-// and 0 the CUDA-core ones; launched on its grid (and, for wgmma, its
-// count of tiles) and refused unless its rows, keys and threads are the
-// kernel's. Each returns the launch error, or 0; the wgmma design -1 where
+// uint8 that receives every keep bit the kernel draws. d <= 256. plan: the
+// wrapper's launch plan (`_fwd_plan`, `_dq_plan`, `_dkv_plan`), {design,
+// grid x, grid y, tiles, rows, keys, threads}, design 1 the wgmma kernels
+// (bf16, d <= 128, d % 8 == 0, 16-byte aligned views and strides) and 0 the
+// CUDA-core ones; launched on its grid (and, for wgmma, its count of tiles)
+// and refused unless its rows, keys and threads are the kernel's. psum
+// (rows 16-17): null, or (B H, T) fp32 zeros to which the wgmma design adds
+// sum_c P of every row it rebuilds from (m, l) (a debug output, as
+// keep_out). Each returns the launch error, or 0; the wgmma design -1 where
 // the driver's cuTensorMapEncodeTiled is not found, -1000 - r where it
 // refuses a descriptor with r.
 
@@ -1624,23 +1783,21 @@ extern "C" int attn_train_fwd(const void* q, const void* k, const void* v,
              is_bf16, plan, nullptr, stream);
 }
 
-// row 16: dq from q, k, v, dO, m, l, delta (the CUDA-core kernel)
+// row 16: dq from q, k, v, dO, m, l, delta
 extern "C" int attn_train_dq(const void* q, const void* k, const void* v,
                              const void* g, const void* m, const void* l,
                              const void* delta, void* dq, int Tn, int B,
                              int H, int d, const long long* strides,
                              float scale, const void* seed, unsigned thresh,
                              float inv_keep, int bq, int dropout,
-                             void* keep_out, int is_bf16, void* stream) {
+                             void* keep_out, int is_bf16, const int* plan,
+                             void* psum, void* stream) {
   return run(1, q, k, v, g, dq, const_cast<void*>(m), const_cast<void*>(l),
              delta, nullptr, Tn, B, H, d, strides, scale, seed, thresh,
-             inv_keep, bq, dropout, keep_out, is_bf16, nullptr, nullptr,
-             stream);
+             inv_keep, bq, dropout, keep_out, is_bf16, plan, psum, stream);
 }
 
-// row 17: dk, dv from q, k, v, dO, m, l, delta. psum: null, or (B H, T)
-// fp32 zeros to which the wgmma design adds sum_c P of every row it
-// rebuilds (a debug output, as keep_out)
+// row 17: dk, dv from q, k, v, dO, m, l, delta
 extern "C" int attn_train_dkv(const void* q, const void* k, const void* v,
                               const void* g, const void* m, const void* l,
                               const void* delta, void* dk, void* dv, int Tn,

@@ -1,15 +1,18 @@
 // Hopper (sm_90a) building blocks shared by the port's wgmma kernels,
-// csrc/ce_train.cu (kernel rows 9-11) and csrc/attention_train.cu (rows 15
-// and 17): shared-memory addresses, clusters, mbarriers, TMA loads, wgmma's
-// fences and shared-memory descriptors in TMA's 128-byte swizzle, the
-// m64n64k16 / m64n128k16 / m64n256k16 products with both operands in shared
-// memory, and the driver's cuTensorMapEncodeTiled found through the runtime
-// (the libraries link no libcuda). PTX ISA 8.0 names; nothing here is
-// specific to one kernel.
+// csrc/ce_train.cu (kernel rows 9-11), csrc/attention_train.cu (rows 15-17)
+// and csrc/attention_fwd.cu (row 14): shared-memory addresses, clusters,
+// mbarriers, TMA loads, wgmma's fences and shared-memory descriptors in TMA's
+// 128-byte swizzle, the m64n64k16 / m64n128k16 / m64n256k16 products with
+// both operands in shared memory, those with A from registers, the
+// attention kernels' score chains and 4-D maps of (T, B, H d) views, and the
+// driver's cuTensorMapEncodeTiled found through the runtime (the libraries
+// link no libcuda). PTX ISA 8.0 names; nothing here is specific to one
+// kernel.
 
 #pragma once
 
 #include <cuda.h>  // CUtensorMap and its enums
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -300,6 +303,116 @@ EncodeTiled encode_tiled() {
       fn = reinterpret_cast<EncodeTiled>(f);
   }
   return fn;
+}
+
+// two floats rounded to bf16 in one word, `lo` in the low half: a wgmma A
+// fragment's two columns
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 x = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&x);
+}
+
+// fence_regs for the 32-bit words of A fragments held in registers
+template <int N>
+__device__ __forceinline__ void fence_words(uint32_t* r) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i]) :: "memory");
+}
+
+// the unscaled scores of one warpgroup, s = A B^T over NC chunks of 64
+// columns (4 k16 steps each, in column order, from zero): A's 64 rows at a
+// (chunks a_chunk bytes apart), B's N rows at b (b_chunk apart), both
+// K-major in the swizzle. Issued, not waited for.
+template <int NC, int N>
+__device__ __forceinline__ void issue_scores(float* s, uint32_t a,
+                                             int a_chunk, uint32_t b,
+                                             int b_chunk) {
+#pragma unroll
+  for (int c = 0; c < NC; ++c)
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const uint64_t da = desc_k(a + c * a_chunk + 32 * k);
+      const uint64_t db = desc_k(b + c * b_chunk + 32 * k);
+      if constexpr (N == 64)
+        wgmma_n64(s, da, db, (c | k) > 0);
+      else
+        wgmma_n128(s, da, db, (c | k) > 0);
+    }
+}
+
+// d (64 x 64, fp32) += A (64 x 16) B (16 x 64): A bf16 from registers (the
+// four 32-bit words of an m64k16 fragment), B bf16 in shared memory,
+// MN-major
+__device__ __forceinline__ void wgmma_rs_n64(float* d, const uint32_t* a,
+                                            uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]),
+        "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
+        "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
+        "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// d (64 x 128, fp32) += A (64 x 16) B (16 x 128): A bf16 from registers (the
+// four 32-bit words of an m64k16 fragment), B bf16 in shared memory,
+// MN-major
+__device__ __forceinline__ void wgmma_rs_n128(float* d, const uint32_t* a,
+                                            uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]),
+        "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
+        "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
+        "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]),
+        "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]),
+        "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]),
+        "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]),
+        "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// a (T, B, H d) bf16 view with (time, batch) strides st_t, st_b in
+// elements as a 4-D map (d, H, B, T) in boxes of 64 columns x `rows` times,
+// 128-byte swizzle, zeros past d and past T
+inline int encode_view(EncodeTiled enc, CUtensorMap* map, const void* ptr,
+                       int Tn, int B, int H, int d, long long st_t,
+                       long long st_b, int rows) {
+  const cuuint64_t dims[4] = {(cuuint64_t)d, (cuuint64_t)H, (cuuint64_t)B,
+                              (cuuint64_t)Tn};
+  const cuuint64_t strides[3] = {(cuuint64_t)d * 2, (cuuint64_t)st_b * 2,
+                                 (cuuint64_t)st_t * 2};
+  const cuuint32_t box[4] = {64, 1, 1, (cuuint32_t)rows};
+  const cuuint32_t step[4] = {1, 1, 1, 1};
+  return (int)enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+                  const_cast<void*>(ptr), dims, strides, box, step,
+                  CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                  CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                  CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
 }
 
 }  // namespace

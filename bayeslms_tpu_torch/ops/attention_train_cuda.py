@@ -13,14 +13,13 @@ them for CUDA tensors and raise on what they do not take; for CPU tensors
 they run the plain twins beside them.
 
 Two designs, chosen by ``_design`` and counted apart in
-``design_launches``: rows 15 and 17 run on the tensor cores ("wgmma", TMA
+``design_launches``: rows 15-17 run on the tensor cores ("wgmma", TMA
 loads) for bf16 heads of d <= 128 (d % 8 == 0, 16-byte aligned views),
 and on the fp32 CUDA cores ("simt") for float32, d = 256 and views TMA
-cannot describe; row 16 always on the CUDA cores. ``_fwd_plan`` and
-``_dkv_plan`` give rows 15 and 17's launch plans as plain Python: the grid
-and tile count they launch with, the tile geometry the library checks
-against its own, and the tile walk its kernels make, which the CPU tests
-check.
+cannot describe. ``_fwd_plan``, ``_dq_plan`` and ``_dkv_plan`` give rows
+15-17's launch plans as plain Python: the grid and tile count they launch
+with, the tile geometry the library checks against its own, and the tile
+walk its kernels make, which the CPU tests check.
 
 Per batch column, head and query row r, over the keys c <= r (q, k, v the
 time-major (T, B, E) projections, E = nhead d, unscaled):
@@ -51,6 +50,8 @@ import numpy as np
 import torch
 
 from . import _build
+# row 14's design rule and plan format hold for rows 15-17 too
+from .attention_cuda import WGMMA_MAX_D, _design, _plan_words  # noqa: F401
 from .bayes_sample_cuda import philox4x32_10
 
 # kernel launches, one per call that reaches a kernel; reset by callers that
@@ -68,12 +69,11 @@ _U32 = 0xFFFFFFFF
 # their score, probability and mask blocks are their only large buffers
 PLAIN_ELEMS = 1 << 25
 
-WGMMA_MAX_D = 128  # the widest head of the tensor-core design
 _P = ctypes.c_void_p
 _I, _U, _F = ctypes.c_int, ctypes.c_uint, ctypes.c_float
 _MID = [_I] * 4 + [_P, _F, _P, _U, _F, _I, _I, _P, _I]
 _ARGTYPES = {"attn_train_fwd": [_P] * 6 + _MID + [_P, _P],
-             "attn_train_dq": [_P] * 8 + _MID + [_P],
+             "attn_train_dq": [_P] * 8 + _MID + [_P] * 3,
              "attn_train_dkv": [_P] * 9 + _MID + [_P] * 3}
 
 
@@ -91,22 +91,6 @@ def flash_attn_train_ok(q: torch.Tensor, nhead: int) -> bool:
     T, _, E = q.shape
     d = E // nhead
     return q.is_cuda and E % nhead == 0 and d % 8 == 0 and T <= MAX_T
-
-
-def _design(name: str, views, nhead: int) -> str:
-    """The kernel design of ``name`` for these (T, B, E) views: "wgmma"
-    (rows 15 and 17, bf16, head dim d <= 128 a multiple of 8, every view's
-    data and (time, batch) strides 16-byte aligned, which TMA needs) or
-    "simt" (the CUDA-core kernels: row 16, float32, wider heads, views TMA
-    cannot describe). An explicit rule, not a fallback: the chosen kernel
-    runs or raises."""
-    q = views[0]
-    d = q.shape[2] // nhead
-    ok = (name != "attn_train_dq" and q.dtype == torch.bfloat16
-          and d <= WGMMA_MAX_D and d % 8 == 0
-          and all(x.data_ptr() % 16 == 0 and x.stride(0) % 8 == 0
-                  and x.stride(1) % 8 == 0 for x in views))
-    return "wgmma" if ok else "simt"
 
 
 def _simt_rows(d: int) -> int:
@@ -143,6 +127,45 @@ def _fwd_plan(T: int, B: int, nhead: int, d: int, design: str) -> dict:
                 keys=rows, ntiles=nt, block=blk)
 
 
+def dq_keys(d: int) -> int:
+    """Keys of a row-16 wgmma tile (``DqGeo<NC>::KT``): 128 at d <= 64, 64
+    at d = 128, where the S and dP fragments of 128 keys beside dq would not
+    fit the registers."""
+    return 128 if d <= 64 else 64
+
+
+def _dq_plan(T: int, B: int, nhead: int, d: int, design: str) -> dict:
+    """Row 16's launch plan, as ``_fwd_plan``'s: ``block(x)`` -> (query
+    tile, batch-head, [(key tile, warpgroup) walked]) of CTA x. wgmma: 128
+    query rows a CTA, the longest rows first as row 15's, key tiles of
+    ``dq_keys(d)`` walked once from key 0 to the diagonal; warpgroup w
+    (rows 128 qt + 64 w ..) skips a key tile wholly above its rows, and
+    every tile when its rows lie past T. simt: grid (B h, ntiles), CTA (bh,
+    qt) walking key tiles 0 .. qt, tiles of BR rows and keys."""
+    BH = B * nhead
+    if design == "wgmma":
+        rows, keys = 128, dq_keys(d)
+        nt = -(-T // rows)
+
+        def blk(x):
+            qt, bh = nt - 1 - x // BH, x % BH
+            q0 = qt * rows
+            walk = [(kt, w) for kt in range(-(-min(T, q0 + rows) // keys))
+                    for w in (0, 1)
+                    if kt * keys <= q0 + 64 * w + 63 and q0 + 64 * w < T]
+            return qt, bh, walk
+        return dict(design=design, grid=(nt * BH,), threads=384, rows=rows,
+                    keys=keys, ntiles=nt, block=blk)
+    rows = _simt_rows(d)
+    nt = -(-T // rows)
+
+    def blk(x):
+        bh, qt = x % BH, x // BH
+        return qt, bh, [(kt, 0) for kt in range(qt + 1)]
+    return dict(design=design, grid=(BH, nt), threads=256, rows=rows,
+                keys=rows, ntiles=nt, block=blk)
+
+
 def _dkv_plan(T: int, B: int, nhead: int, d: int, design: str) -> dict:
     """Row 17's launch plan, as ``_fwd_plan``'s: the keys of a CTA, the
     query rows of a tile, and ``block(x)`` -> (key tile, batch-head,
@@ -174,6 +197,10 @@ def _dkv_plan(T: int, B: int, nhead: int, d: int, design: str) -> dict:
         return kt, bh, [(q0 // rows, 0) for q0 in range(kt * rows, T, rows)]
     return dict(design=design, grid=(BH, nt), threads=256, keys=rows,
                 rows=rows, ntiles=nt, block=blk)
+
+
+_PLANS = {"attn_train_fwd": _fwd_plan, "attn_train_dq": _dq_plan,
+          "attn_train_dkv": _dkv_plan}
 
 
 def drop_params(rate: float):
@@ -337,26 +364,18 @@ def _stats(name, q, nhead, *stats):
                              f"float32 {(B * nhead, T)} on {q.device}")
 
 
-def _plan_words(plan: dict):
-    """A plan as the library takes it: int32 {design (1 wgmma), grid x,
-    grid y, tiles, rows, keys, threads}."""
-    gx, gy = (*plan["grid"], 1)[:2]
-    return (_I * 7)(int(plan["design"] == "wgmma"), gx, gy, plan["ntiles"],
-                    plan["rows"], plan["keys"], plan["threads"])
-
-
 def _launch(name, ins, outs, nhead, rate, seed, keep_out=None,
             psum_out=None):
     """Launch kernel ``name`` on inputs ``ins`` (q, k, v[, dO], then any
     float32 statistics) writing ``outs``, in the design ``_design`` picks,
-    rows 15 and 17 on the plan ``_fwd_plan`` / ``_dkv_plan`` gives (row 16
-    on its kernel's grid); raises on a launch error."""
+    on the plan ``_fwd_plan`` / ``_dq_plan`` / ``_dkv_plan`` gives; raises
+    on a launch error."""
     q = ins[0]
     T, B, E = q.shape
     d = E // nhead
     thresh, inv_keep = drop_params(rate) if rate > 0.0 else (0, 1.0)
     views = list(ins[:4]) if name != "attn_train_fwd" else list(ins[:3])
-    design = _design(name, views, nhead)
+    design = _design(views, nhead)
     if psum_out is not None and (
             design != "wgmma" or tuple(psum_out.shape) != (B * nhead, T)
             or psum_out.dtype != torch.float32
@@ -369,13 +388,9 @@ def _launch(name, ins, outs, nhead, rate, seed, keep_out=None,
     strides = (ctypes.c_longlong * 8)(*st)
     fn = getattr(_build.load(KERNEL), name)
     fn.argtypes, fn.restype = _ARGTYPES[name], ctypes.c_int
-    extra = []
-    if name != "attn_train_dq":
-        plan = (_fwd_plan if name == "attn_train_fwd" else _dkv_plan)(
-            T, B, nhead, d, design)
-        words = _plan_words(plan)
-        extra.append(ctypes.cast(words, _P))
-    if name == "attn_train_dkv":
+    words = _plan_words(_PLANS[name](T, B, nhead, d, design))
+    extra = [ctypes.cast(words, _P)]
+    if name != "attn_train_fwd":
         extra.append(0 if psum_out is None else psum_out.data_ptr())
     err = fn(*(x.data_ptr() for x in (*ins, *outs)), T, B, nhead, d,
              ctypes.cast(strides, _P), float(d) ** -0.5, seed.data_ptr(),
@@ -413,11 +428,13 @@ def attn_train_fwd(q, k, v, nhead: int, rate: float, seed,
 
 
 def attn_train_dq(q, k, v, g, m, l, delta, nhead: int, rate: float, seed,
-                  keep_out: torch.Tensor = None):
+                  keep_out: torch.Tensor = None,
+                  psum_out: torch.Tensor = None):
     """Row 16: dq (T, B, E) in q's dtype from q, k, v, the output gradient
     g (T, B, E) in q's dtype, row 15's m and l and delta = rowsum(g o),
     float32 (B nhead, T). CUDA tensors launch the kernel, CPU tensors run
-    ``attn_train_dq_plain``; ``keep_out`` as for ``attn_train_fwd``."""
+    ``attn_train_dq_plain``; ``keep_out`` as for ``attn_train_fwd``,
+    ``psum_out`` as for ``attn_train_dkv``."""
     if not q.is_cuda:
         return attn_train_dq_plain(q, k, v, g, m, l, delta, nhead, rate,
                                    seed)
@@ -425,7 +442,7 @@ def attn_train_dq(q, k, v, g, m, l, delta, nhead: int, rate: float, seed,
     _stats("attn_train_dq", q, nhead, m, l, delta)
     dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     _launch("attn_train_dq", (q, k, v, g, m, l, delta), (dq,), nhead, rate,
-            seed, keep_out)
+            seed, keep_out, psum_out)
     return dq
 
 
@@ -436,8 +453,8 @@ def attn_train_dkv(q, k, v, g, m, l, delta, nhead: int, rate: float, seed,
     ``attn_train_dq``. CUDA tensors launch the kernel, CPU tensors run
     ``attn_train_dkv_plain``; ``keep_out`` as for ``attn_train_fwd``.
     ``psum_out``, (B nhead, T) float32 zeros, receives sum_c P of every
-    row the wgmma kernel rebuilds from (m, l) (added by atomics: a debug
-    output, as ``keep_out``)."""
+    row the wgmma kernel rebuilds from (m, l) (added by atomics in row 17,
+    by the row's one owner in row 16: a debug output, as ``keep_out``)."""
     if not q.is_cuda:
         return attn_train_dkv_plain(q, k, v, g, m, l, delta, nhead, rate,
                                     seed)

@@ -58,8 +58,10 @@ plain path for the variational LSTM (``l_v_pos`` 11), the legacy VLSTM
 variational Transformer (``t_v_pos`` 1 and 3).
 Then the recipe's Transformer (512/4096 x 6, 8 heads, the same table,
 bf16; lr 0.1): the causal attention kernel against its twin on the q, k, v
-that ``evaluate`` hands it and at T = 1,024 and 4,096 (and a planted-fault
-build), the CE training kernels against their twins on the tensors a
+that ``evaluate`` hands it and at T = 1,024 and 4,096, in both designs (the
+tensor-core kernel on the views, the CUDA-core kernel on copies at a batch
+stride TMA cannot describe; a planted-fault build through both), the CE
+training kernels against their twins on the tensors a
 step hands them at D = 512, two epochs of ``Trainer.fit`` (the CE kernels
 on every step, the attention kernel in every ``evaluate``), a kernel-path
 step against the plain path; the Bayesian-FFN Transformer: the fused
@@ -73,14 +75,16 @@ on the packed chunk at D = 512) against the plain path. Then the same
 Transformer at long context (seq_len 1,024, batch 32, dropout 0.2, one
 epoch of six windows and a padded tail): the flash-attention training
 kernels (forward, dq, dk/dv) against their twins on the calls one step
-hands them and alone at T = 2,048 and 4,096, their dropout bits against
-the twin's, two planted-fault builds, the CE training kernels against
+hands them and alone at T = 2,048 and 4,096, in both designs, their
+dropout bits against the twin's, two planted-fault builds, the CE training
+kernels against
 their twins on that step's 32,768 tokens (db against float64, beside a
 float64 reading of the sums over the tokens), ``Trainer.fit`` (the three
 attention kernels six times a step) and a kernel-path step against the
 same step on their twins; and Transformer-XL scoring (``xl_mems``) of the
 6,000-hypothesis N-best from the checkpoint that fit wrote: the causal
-attention kernel against its twin on every call of one pass, the pass
+attention kernel against its twin on every call of one pass (the
+CUDA-core design on copies of one call a shape), the pass
 against the plain path (the attention kernel's planted fault must fail
 it), and an on-card check that memories give the suffix of a
 full-context forward. Every phase prints its result and seconds; any
@@ -168,8 +172,10 @@ KERNEL_ROWS = (
     ("ce_dh_reduce", "10"), ("ce_bwd_kernel<true>", "11"),
     ("bayes_matmul_kernel", "12"),
     ("bayes_sample_kernel", "13"), ("attention_fwd_kernel", "14"),
+    ("attention_fwd_wgmma", "14"),
     ("attn_train_fwd_kernel", "15"), ("attn_fwd_wgmma", "15"),
-    ("attn_train_dq_kernel", "16"), ("attn_train_dkv_kernel", "17"),
+    ("attn_train_dq_kernel", "16"), ("attn_dq_wgmma", "16"),
+    ("attn_train_dkv_kernel", "17"),
     ("attn_dkv_wgmma", "17"), ("gp6_fwd_step", "18"),
     ("gp6_bwd_gates", "19"), ("gp6_bwd_dh", "19"), ("gp6_dcoef_sum", "19"),
     ("gpg_fwd_step", "20"), ("gpg_bwd_gates", "21"), ("gpg_bwd_dh", "21"),
@@ -1173,13 +1179,41 @@ def causal_flops(T, BH, d):
     return 2 * 2 * d * T * (T + 1) // 2 * BH
 
 
+def unaligned(torch, *xs):
+    """Copies of (T, B, E) views in a (T, B, E + 4) buffer: a batch stride
+    that TMA cannot describe, so the design rule sends rows 14-17 to their
+    CUDA-core kernels on the same bf16 values."""
+    out = []
+    for x in xs:
+        buf = torch.empty((*x.shape[:2], x.shape[2] + 4), dtype=x.dtype,
+                          device=x.device)
+        buf[..., :x.shape[2]] = x
+        out.append(buf[..., :x.shape[2]])
+    return out
+
+
+def row14_design(acu, call):
+    """call()'s result and the design of its one launch of row 14, from
+    the counts."""
+    before = dict(acu.design_launches)
+    res = call()
+    took = [k for k, c in acu.design_launches.items() if c != before[k]]
+    if len(took) != 1:
+        raise AssertionError(f"attention_fwd: one call counted {took}")
+    return res, took[0]
+
+
 def tm_attention_phase(torch, kernels, calls):
-    """Row 14 on the q, k, v views that ``evaluate`` handed it, at T =
-    1,024 and 4,096, and a planted-fault build."""
+    """Row 14 on the q, k, v views that ``evaluate`` handed it and at T =
+    1,024 and 4,096, in both designs: the tensor-core kernel on the views
+    (the design the main path takes) and the CUDA-core kernel on copies of
+    them at a batch stride TMA cannot describe; a planted-fault build
+    through both."""
     from bayeslms_tpu_torch.ops import _build
     from bayeslms_tpu_torch.ops import attention_cuda as acu
 
     F = torch.nn.functional
+    CORE = ", CUDA-core design"
     with phase("kernel attention_fwd"), torch.no_grad():
         q, k, v, h = calls[0]
         T, B, E = q.shape
@@ -1195,9 +1229,16 @@ def tm_attention_phase(torch, kernels, calls):
             (f"T={t}", [torch.randn((t, 2, E), generator=gen, device="cuda")
                         .to(torch.bfloat16) for _ in range(3)] + [h])
             for t in ATTN_LONG_T]
+        long4096 = cases[-1][1]
+        cases += [(label + CORE, [*unaligned(torch, *a[:3]), a[3]])
+                  for label, a in (cases[0], cases[-2], cases[-1])]
         for name, args in cases:
             ref = {"o": acu.causal_attention_plain(*args)}
-            got = {"o": acu.causal_attention(*args)}
+            got, design = row14_design(
+                acu, lambda: {"o": acu.causal_attention(*args)})
+            print(f"  attention {name}: design {design}")
+            if design != ("simt" if CORE in name else "wgmma"):
+                raise AssertionError(f"attention {name}: took {design}")
             torch.cuda.synchronize()
             e, w = check_outputs(f"attention {name}", got, ref, ATTN_RTOL,
                                  ATTN_SHARE)
@@ -1209,19 +1250,22 @@ def tm_attention_phase(torch, kernels, calls):
             if not all(bool(torch.isfinite(x.float()).all())
                        for x in (*got.values(), *bad.values())):
                 raise AssertionError(f"attention {name}: a non-finite value")
-        print(f"  planted fault 'diagonal masked': worst share of tolerance "
-              f"{fault:.1f}")
+        print(f"  planted fault 'diagonal masked' (both designs): worst "
+              f"share of tolerance {fault:.1f} at its least")
         timing = {}
-        for name, args in (("eval", calls[0]), ("T=4096", cases[-1][1])):
+        for name, args in (("eval", calls[0]), ("T=4096", long4096)):
             qq, kk, vv, hh = args
             Tn, Bn, En = qq.shape
             heads = [x.reshape(Tn, Bn, hh, En // hh).permute(1, 2, 0, 3)
                      .contiguous() for x in (qq, kk, vv)]
+            core = [*unaligned(torch, qq, kk, vv), hh]
             kernel_fn = lambda a=args: acu.causal_attention(*a)  # noqa: E731
+            core_fn = lambda a=core: acu.causal_attention(*a)  # noqa: E731
             plain_fn = lambda a=args: acu.causal_attention_plain(*a)  # noqa: E731
             library_fn = lambda x=heads: F.scaled_dot_product_attention(  # noqa: E731
                 *x, is_causal=True)
             ms = device_ms(torch, kernel_fn, 20)
+            core_ms = device_ms(torch, core_fn, 20)
             plain_ms = device_ms(torch, plain_fn, 3)
             library_ms = device_ms(torch, library_fn, 20)
             # bytes: q, k, v read once and o written, bf16; operations: the
@@ -1230,17 +1274,20 @@ def tm_attention_phase(torch, kernels, calls):
                                 4 * Tn * Bn * En * 2)
             timing[name] = (ms, plain_ms, library_ms, bms, bby)
             print(f"  {name} (T={Tn} B={Bn} heads={hh}): device time a call "
-                  f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library "
+                  f"kernel {ms:.4f} ms (wgmma), {core_ms:.4f} ms (the "
+                  f"CUDA-core design, on the views copied to a batch stride "
+                  f"of E + 4), plain {plain_ms:.4f} ms, library "
                   f"{library_ms:.4f} ms (F.scaled_dot_product_attention, "
                   f"is_causal), bound {bms:.4f} ms ({bby}); one wrapper call "
-                  f"between CUDA events {cuda_ms(torch, kernel_fn, 5):.4f} ms")
+                  f"between CUDA events {cuda_ms(torch, kernel_fn, 5):.4f} ms "
+                  f"(wgmma), {cuda_ms(torch, core_fn, 5):.4f} ms (CUDA-core)")
         ms, plain_ms, library_ms, bms, bby = timing["eval"]
         kernels["attention_fwd"] = dict(
             name="attention_fwd", route="cuda",
             source="bayeslms_tpu_torch/csrc/attention_fwd.cu",
             replaces="bayeslms_tpu/ops/attention_pallas.py:55",
             max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms,
-            bound_by=bby, library_ms=library_ms)
+            bound_by=bby, library_ms=library_ms, design="wgmma")
         if worst > 1:
             raise AssertionError(f"attention_fwd disagrees with its plain "
                                  f"version: worst share {worst:.3f}")
@@ -1431,6 +1478,7 @@ def tm_phases(torch, kernels, smi, cfg, rcfg, corpus, tmpdir):
         for k in ctc.launches:
             ctc.launches[k] = 0
         acu.launches = 0
+        acu.design_launches.update(wgmma=0, simt=0)
         steps, evals = [], []
 
         def on_step(b, loss):
@@ -1476,6 +1524,10 @@ def tm_phases(torch, kernels, smi, cfg, rcfg, corpus, tmpdir):
             raise AssertionError(f"evaluate did not launch attention_fwd "
                                  f"once a layer and window: {evals}")
         kernels["attention_fwd"]["launches"] = acu.launches
+        print(f"  row 14 launches by design: {acu.design_launches}")
+        if acu.design_launches["wgmma"] != acu.launches:
+            raise AssertionError("evaluate: not every row 14 launch took the "
+                                 "wgmma kernel")
         if not all(np.isfinite(losses)) or not np.isfinite(out["test_loss"]):
             raise AssertionError("a training loss is not finite")
         if np.mean(losses[-5:]) >= np.mean(losses[:5]):
@@ -1705,14 +1757,14 @@ def attention_train_phase(torch, kernels, recorded):
     """Rows 15-17 on every call that one long-context training step handed
     them, and alone at T = 2,048 and 4,096, against their twins, the
     backward kernels on the kernel forward's (m, l) and on the twin's, each
-    call's design printed (rows 15 and 17 must take the wgmma kernels);
-    rows 15 and 17's CUDA-core kernels (fp32 and d = 256 take them) on
-    step call 0 and at T = 2,048, through copies of the same bf16 views
-    that TMA cannot describe; |sum_c P - 1| of the P rows 16 and 17 rebuild
-    from the kernel forward's (m, l); the keep bits each kernel of each
+    call's design printed (every call must take the wgmma kernels); the
+    CUDA-core kernels (fp32 and d = 256 take them) on step call 0 and at T =
+    2,048, through copies of the same bf16 views that TMA cannot describe;
+    |sum_c P - 1| of the P rows 16 and 17 rebuild from the kernel forward's
+    (m, l), from their own debug sums; the keep bits each kernel of each
     design draws against the twin's, with its outputs equal to a call's
     without the bits, the keep share, repeat calls, two planted-fault
-    builds; times (both designs of rows 15 and 17), bounds."""
+    builds; times (both designs), bounds."""
     from bayeslms_tpu_torch.ops import _build
     from bayeslms_tpu_torch.ops import attention_train_cuda as atc
 
@@ -1741,39 +1793,24 @@ def attention_train_phase(torch, kernels, recorded):
             raise AssertionError(f"{name}: one call counted {took}")
         return res, took[0]
 
-    def unaligned(*xs):
-        """Copies of (T, B, E) views in a (T, B, E + 4) buffer: a batch
-        stride that TMA cannot describe, so the design rule sends rows 15
-        and 17 to the CUDA-core kernels on the same bf16 values."""
-        out = []
-        for x in xs:
-            buf = torch.empty((*x.shape[:2], x.shape[2] + 4), dtype=x.dtype,
-                              device=x.device)
-            buf[..., :x.shape[2]] = x
-            out.append(buf[..., :x.shape[2]])
-        return out
-
     def core_args(name, a):
         """``name``'s arguments ``a`` with q, k, v (and dO) unaligned."""
         n = 3 if name == "attn_train_fwd" else 4
-        return (*unaligned(*a[:n]), *a[n:])
+        return (*unaligned(torch, *a[:n]), *a[n:])
 
     def psum_error(q, k, v, g, m, l, delta, h, rate, seed):
-        """max |sum_c P - 1| of the P rows 17 and 16 rebuild from (m, l):
-        row 17's own sums (its debug output), row 16's from the CUDA-core
-        forward, whose scores are row 16's arithmetic: sum_c exp(s - m) =
-        l' exp(m' - m) with that forward's (m', l')."""
+        """max |sum_c P - 1| of the P rows 17 and 16 rebuild from (m, l),
+        from each wgmma kernel's own debug sums."""
         T, B, E = q.shape
-        psum = torch.zeros((B * h, T), dtype=torch.float32, device="cuda")
-        atc.attn_train_dkv(q, k, v, g, m, l, delta, h, rate, seed,
-                           psum_out=psum)
-        (_, m16, l16), design = counted("attn_train_fwd", lambda: (
-            atc.attn_train_fwd(*unaligned(q, k, v), h, rate, seed)))
-        if design != "simt":
-            raise AssertionError(f"the row-16 proxy took {design}")
-        p16 = l16 * torch.exp(m16 - m) / l
-        return (float((psum - 1).abs().max()),
-                float((p16 - 1).abs().max()))
+        errs = []
+        for name in ("attn_train_dkv", "attn_train_dq"):
+            psum = torch.zeros((B * h, T), dtype=torch.float32, device="cuda")
+            _, design = counted(name, lambda: getattr(atc, name)(
+                q, k, v, g, m, l, delta, h, rate, seed, psum_out=psum))
+            if design != "wgmma":
+                raise AssertionError(f"{name}'s sums took {design}")
+            errs.append(float((psum - 1).abs().max()))
+        return errs
 
     def plain(name, args):
         return outs(name, getattr(atc, name + "_plain")(*args))
@@ -1817,14 +1854,11 @@ def attention_train_phase(torch, kernels, recorded):
             _, mm, ll = atc.attn_train_fwd_plain(*a[:3], *a[7:])
             step_twin.append((f"step call {i}, twin m, l", {
                 n: (*a[:4], mm, ll, *a[6:]) for n in ATTN_TRAIN[1:]}))
-        # rows 15 and 17's CUDA-core kernels on step call 0 and at T = 2,048
-        core = {n: core_args(n, recorded[n][0])
-                for n in ("attn_train_fwd", "attn_train_dkv")}
+        # the CUDA-core kernels on step call 0 and at T = 2,048
+        core = {n: core_args(n, recorded[n][0]) for n in ATTN_TRAIN}
         core_cases = [("step call 0" + CORE, core), (
             long_cases[0][0] + CORE,
             {n: core_args(n, long_cases[0][1][n]) for n in core})]
-        want = {n: "simt" if n == "attn_train_dq" else "wgmma"
-                for n in ATTN_TRAIN}
         for name in ATTN_TRAIN:
             cases = [(f"step call {i}" + ("" if name == "attn_train_fwd"
                                           else ", kernel m, l"), {name: a})
@@ -1836,7 +1870,7 @@ def attention_train_phase(torch, kernels, recorded):
                 ref = plain(name, args)
                 got, design = counted(name, lambda: run(name, args))
                 print(f"  {name} {label}: design {design}")
-                if design != ("simt" if CORE in label else want[name]):
+                if design != ("simt" if CORE in label else "wgmma"):
                     raise AssertionError(f"{name} {label}: took {design}")
                 torch.cuda.synchronize()
                 e, w = check_outputs(f"{name} {label}", got, ref,
@@ -1858,8 +1892,8 @@ def attention_train_phase(torch, kernels, recorded):
                               f"worst share of tolerance {fs:.1f}")
                         fault[name] = min(fault[name], fs)
                 del ref, got, again
-        # the mixed score arithmetic: rows 16 (CUDA cores) and 17 (the
-        # forward's tensor-core scores) on the kernel forward's (m, l)
+        # the shared score arithmetic: rows 16 and 17 rebuild P from the
+        # forward's tensor-core scores on the kernel forward's (m, l)
         for label, a in [("step call 0", recorded["attn_train_dq"][0])] + [
                 (lb, argd["attn_train_dq"]) for lb, argd in long_cases
                 if lb.endswith("kernel m, l")]:
@@ -1874,14 +1908,12 @@ def attention_train_phase(torch, kernels, recorded):
         g, m, l, delta = recorded["attn_train_dq"][0][3:7]
         tril = torch.ones((T, T), dtype=torch.bool, device="cuda").tril()
         n_draw = int(tril.sum()) * B * h
-        sets = [("", (q, k, v, g))] + [(CORE, unaligned(q, k, v, g))]
+        sets = [("", (q, k, v, g))] + [(CORE, unaligned(torch, q, k, v, g))]
         for name in ATTN_TRAIN:
             for tag, (qq, kk, vv, gg) in sets:
-                if tag and name == "attn_train_dq":
-                    continue
                 (bits, res), design = counted(name, lambda: atc.keep_bits(
                     name, qq, kk, vv, h, rate, seed, gg, m, l, delta))
-                if design != ("simt" if tag else want[name]):
+                if design != ("simt" if tag else "wgmma"):
                     raise AssertionError(f"{name}{tag} keep bits: took "
                                          f"{design}")
                 args = ((qq, kk, vv) if name == "attn_train_fwd" else
@@ -1932,11 +1964,10 @@ def attention_train_phase(torch, kernels, recorded):
                 *args), 2)
             lib = lib_fwd if name == "attn_train_fwd" else lib_bwd
             bms, bby = bound_ms(specs[name]["flops"], specs[name]["nbytes"])
-            simt = "" if name not in core else (
-                ", the CUDA-core design "
-                f"{cuda_ms(torch, lambda: getattr(atc, name)(*core[name]), 5):.3f}"
-                " ms (on the views copied to a batch stride of E + 4)")
-            print(f"  {name}: kernel {ms:.3f} ms ({want[name]}{simt}), "
+            simt = (", the CUDA-core design "
+                    f"{cuda_ms(torch, lambda: getattr(atc, name)(*core[name]), 5):.3f}"
+                    " ms (on the views copied to a batch stride of E + 4)")
+            print(f"  {name}: kernel {ms:.3f} ms (wgmma{simt}), "
                   f"plain {plain_ms:.3f} ms, "
                   f"library {lib:.3f} ms (F.scaled_dot_product_attention, "
                   f"is_causal, dropout_p {rate}, "
@@ -1947,7 +1978,7 @@ def attention_train_phase(torch, kernels, recorded):
                 source="bayeslms_tpu_torch/csrc/attention_train.cu",
                 replaces=specs[name]["replaces"], max_abs_err=err[name],
                 ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=bby,
-                library_ms=lib)
+                library_ms=lib, design="wgmma")
         for label, argd in long_cases:
             print(f"  {label}: kernel " + ", ".join(
                 f"{n} {cuda_ms(torch, lambda: getattr(atc, n)(*argd[n]), 3):.3f}"
@@ -2096,6 +2127,7 @@ def tm_long_phases(torch, kernels, smi, cfg, tmpdir):
         for counts in atc.design_launches.values():
             counts.update(wgmma=0, simt=0)
         acu.launches = 0
+        acu.design_launches.update(wgmma=0, simt=0)
         steps, evals = [], []
 
         def on_step(b, loss):
@@ -2139,17 +2171,20 @@ def tm_long_phases(torch, kernels, smi, cfg, tmpdir):
                 raise AssertionError(f"{name}: {launches[name]} launches in "
                                      f"{n} steps, 1 a step expected")
         kernels["attention_fwd"]["launches"] += acu.launches
-        print(f"  rows 15-17 launches by design: {atc.design_launches}")
+        print(f"  rows 15-17 launches by design: {atc.design_launches}; row "
+              f"14 (evaluate): {acu.design_launches}")
+        if acu.design_launches["wgmma"] != acu.launches:
+            raise AssertionError("evaluate: not every row 14 launch took the "
+                                 "wgmma kernel")
         for name in ATTN_TRAIN:
             kernels[name]["launches"] = launches[name]
             if launches[name] != tcfg_m.nlayers * n:
                 raise AssertionError(f"{name}: {launches[name]} launches in "
                                      f"{n} steps, {tcfg_m.nlayers} a step "
                                      "expected")
-            design = "simt" if name == "attn_train_dq" else "wgmma"
-            if atc.design_launches[name][design] != launches[name]:
+            if atc.design_launches[name]["wgmma"] != launches[name]:
                 raise AssertionError(f"{name}: not every launch took the "
-                                     f"{design} kernel")
+                                     "wgmma kernel")
         if not evals or any(a != tcfg_m.nlayers * w for a, w in evals):
             raise AssertionError(f"evaluate did not launch attention_fwd "
                                  f"once a layer and window: {evals}")
@@ -2191,40 +2226,53 @@ def tm_long_phases(torch, kernels, smi, cfg, tmpdir):
 def xl_attention_check(torch, kernels, calls):
     """Row 14 against its twin on every call one XL pass made (memory
     builds at B = 1 and bucketed lengths, chains' first utterances at (T,
-    N)), at row 14's own tolerance, and its planted-fault build on each;
-    folds the error into the ``attention_fwd`` entry. Raises on a failed
-    check."""
+    N)), at row 14's own tolerance, every call on the wgmma design, and its
+    planted-fault build on each; the CUDA-core kernel and its fault on
+    copies of one call of each (T, B) shape at a batch stride TMA cannot
+    describe; folds the error into the ``attention_fwd`` entry. Raises on a
+    failed check."""
     from bayeslms_tpu_torch.ops import _build
     from bayeslms_tpu_torch.ops import attention_cuda as acu
 
     real_load = _build.load
     with phase("kernel attention_fwd (XL calls)"), torch.no_grad():
         err, worst, fault = 0.0, 0.0, float("inf")
-        shapes = {}
+        shapes, designs = {}, {"wgmma": 0, "simt": 0}
         for q, k, v, h in calls:
-            ref = {"o": acu.causal_attention_plain(q, k, v, h)}
-            got = {"o": acu.causal_attention(q, k, v, h)}
-            with mock.patch.object(_build, "load",
-                                   lambda kk: real_load(ATTN_FAULT)):
-                bad = {"o": acu.causal_attention(q, k, v, h)}
-            err = max(err, max_err(got["o"], ref["o"]))
-            big = float(ref["o"].float().abs().max())
-            worst = max(worst, tol_ratio(got["o"], ref["o"], ATTN_RTOL,
-                                         ATTN_SHARE * big + 1e-30))
-            fault = min(fault, fault_share(bad, ref, ATTN_RTOL, ATTN_SHARE))
-            if not all(bool(torch.isfinite(x).all())
-                       for x in (got["o"], bad["o"])):
-                raise AssertionError("attention_fwd (XL): a non-finite "
-                                     "value")
             key = tuple(q.shape[:2])
+            cases = [("wgmma", (q, k, v, h))]
+            if key not in shapes:
+                cases.append(("simt", (*unaligned(torch, q, k, v), h)))
             shapes[key] = shapes.get(key, 0) + 1
+            ref = {"o": acu.causal_attention_plain(q, k, v, h)}
+            big = float(ref["o"].float().abs().max())
+            for want, args in cases:
+                got, design = row14_design(
+                    acu, lambda: {"o": acu.causal_attention(*args)})
+                if design != want:
+                    raise AssertionError(f"attention_fwd (XL) {key}: took "
+                                         f"{design}, {want} expected")
+                designs[design] += 1
+                with mock.patch.object(_build, "load",
+                                       lambda kk: real_load(ATTN_FAULT)):
+                    bad = {"o": acu.causal_attention(*args)}
+                err = max(err, max_err(got["o"], ref["o"]))
+                worst = max(worst, tol_ratio(got["o"], ref["o"], ATTN_RTOL,
+                                             ATTN_SHARE * big + 1e-30))
+                fault = min(fault, fault_share(bad, ref, ATTN_RTOL,
+                                               ATTN_SHARE))
+                if not all(bool(torch.isfinite(x).all())
+                           for x in (got["o"], bad["o"])):
+                    raise AssertionError("attention_fwd (XL): a non-finite "
+                                         "value")
         print(f"  {len(calls)} calls of one pass at {len(shapes)} (T, B) "
               f"shapes (B = 1: memory builds), the most frequent "
               f"{sorted(shapes.items(), key=lambda x: -x[1])[:6]}; "
-              f"tolerance {ATTN_RTOL:.3e} |plain| + {ATTN_SHARE:.3e} "
-              f"max|plain|: max |kernel - plain| {err:.3e}, worst share of "
-              f"tolerance {worst:.3f}; planted fault 'diagonal masked': "
-              f"worst share {fault:.1f} at its least")
+              f"checked by design {designs} (the CUDA-core kernel on copies "
+              f"of one call a shape); tolerance {ATTN_RTOL:.3e} |plain| + "
+              f"{ATTN_SHARE:.3e} max|plain|: max |kernel - plain| {err:.3e}, "
+              f"worst share of tolerance {worst:.3f}; planted fault "
+              f"'diagonal masked': worst share {fault:.1f} at its least")
         e = kernels["attention_fwd"]
         e["max_abs_err"] = max(e["max_abs_err"], err)
         if worst > 1:
@@ -2282,6 +2330,7 @@ def tm_xl_phase(torch, kernels, smi, cfg, rcfg, ckpt):
     with phase("tm xl score"):
         ce_cuda.launches = 0
         acu.launches = 0
+        acu.design_launches.update(wgmma=0, simt=0)
         pass_s = []
         for _ in range(3):
             t0 = time.perf_counter()
@@ -2295,10 +2344,12 @@ def tm_xl_phase(torch, kernels, smi, cfg, rcfg, ckpt):
               f"each: {n_chains} chains' first utterances and "
               f"{n_utts - n_chains} memory builds a pass; the scores with "
               "memories take the plain masked attention, as in JAX)")
+        print(f"  row 14 launches by design: {acu.design_launches}")
         if ce_cuda.launches != 3 * n_utts \
-                or acu.launches != 3 * tcfg_m.nlayers * n_utts:
+                or acu.launches != 3 * tcfg_m.nlayers * n_utts \
+                or acu.design_launches["wgmma"] != acu.launches:
             raise AssertionError("XL scoring did not launch rows 2 and 14 "
-                                 "as expected")
+                                 "as expected (row 14 on wgmma)")
         kernels["ce_fwd (Transformer, D=512)"]["launches"] += ce_cuda.launches
         kernels["attention_fwd"]["launches"] += acu.launches
         got = np.array([s for pairs in res.values() for _, s in pairs])
@@ -2355,7 +2406,11 @@ def tm_xl_phase(torch, kernels, smi, cfg, rcfg, ckpt):
         gen = torch.Generator(device="cuda").manual_seed(13)
         tokens = torch.randint(2, cfg.vocab_size, (96, 4), generator=gen,
                                device="cuda")
+        simt = acu.design_launches["simt"]
         full = model(tokens)
+        if acu.design_launches["simt"] != simt + tcfg_m.nlayers:
+            raise AssertionError("the float32 full-context forward did not "
+                                 "take row 14's CUDA-core kernel once a layer")
         _, mems = model(tokens[:40], return_mems=True)
         pad = [torch.cat([m, torch.zeros_like(m[:24])]) for m in mems]
         worst = 0.0

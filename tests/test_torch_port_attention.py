@@ -43,6 +43,38 @@ def test_attention_twin_matches_pallas_interpret(monkeypatch, T, d):
                                atol=1e-6)
 
 
+def _split_pv(p, v):
+    """Row 14's wgmma P V (csrc/attention_fwd.cu): float32 p split into
+    P_hi = bf16(p) and P_lo = bf16(p - P_hi), both products of bf16 values
+    summed in float32 (the tensor cores' products of bf16 values are
+    exact)."""
+    hi = p.to(torch.bfloat16).float()
+    lo = (p - hi).to(torch.bfloat16).float()
+    return hi @ v + lo @ v
+
+
+@pytest.mark.parametrize("keys", [64, 100, 1024])
+def test_row14_split_p_keeps_fp32_precision(keys):
+    """P V with P split in two bf16 halves lies within 2^-16 of float64's
+    sum_c p_c |v_c| (P itself within 2^-16 of p: bf16's half-ulp 2^-8 of
+    2^-8); P rounded to bf16 alone does not: the reason the wgmma design
+    runs two products."""
+    rng = np.random.default_rng(keys)
+    s = rng.normal(scale=3.0, size=(64, keys))
+    p = torch.from_numpy(np.exp(s - s.max(axis=1, keepdims=True))).float()
+    v = torch.from_numpy(rng.normal(size=(keys, 64))).to(torch.bfloat16)
+    exact = p.double() @ v.double()
+    scale = p.double() @ v.double().abs()
+    hi = p.to(torch.bfloat16).float()
+    lo = (p - hi).to(torch.bfloat16).float()
+    assert bool(((hi.double() + lo.double() - p.double()).abs()
+                 <= 2 ** -16 * p.double()).all())
+    split = _split_pv(p, v.float()).double()
+    assert float(((split - exact).abs() / scale).max()) <= 2 ** -16
+    single = (hi @ v.float()).double()
+    assert float(((single - exact).abs() / scale).max()) > 2 ** -12
+
+
 def test_attention_twin_keeps_the_input_dtype():
     rng = np.random.default_rng(1)
     q, k, v = (torch.from_numpy(a).to(torch.bfloat16)

@@ -318,24 +318,42 @@ def test_sampler_refuses_what_the_kernel_does_not_take(dev):
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("T,d", [(1, 32), (100, 64), (130, 32), (257, 128)])
+@pytest.mark.parametrize("T,d", [(1, 32), (100, 64), (130, 32), (257, 128),
+                                 (70, 256), (130, 40), (1024, 64)])
 def test_attention_kernel_matches_plain(dev, T, d, dtype):
     """Ragged T (off the 64-row tiles), the qkv projection's column views
-    read in place; bf16 outputs within a rounding step of the fp32 twin."""
+    read in place; bf16 outputs within a rounding step of the fp32 twin;
+    the design each call took (wgmma for bf16 at d <= 128, simt for float32
+    and d = 256), and bf16 copies of the views at a batch stride TMA cannot
+    describe on the CUDA-core kernel."""
     from bayeslms_tpu_torch.ops import attention_cuda
 
     g = torch.Generator().manual_seed(T + d)
     h, B = 3, 5
     qkv = (torch.randn((T, B, 3 * h * d), generator=g)).to(dev, dtype)
     q, k, v = qkv.split(h * d, dim=-1)
+    fast = dtype == torch.bfloat16 and d <= attention_cuda.WGMMA_MAX_D
     before = attention_cuda.launches
+    designs = dict(attention_cuda.design_launches)
     got = attention_cuda.causal_attention(q, k, v, h)
     assert attention_cuda.launches == before + 1
+    took = {n: attention_cuda.design_launches[n] - designs[n]
+            for n in designs}
+    assert took == ({"wgmma": 1, "simt": 0} if fast
+                    else {"wgmma": 0, "simt": 1})
     ref = attention_cuda.causal_attention_plain(q, k, v, h)
     assert got.dtype == dtype and got.shape == (T, B, h * d)
     if dtype == torch.bfloat16:
         torch.testing.assert_close(got.float(), ref.float(), rtol=2 ** -7,
                                    atol=2 ** -12)
+        buf = torch.zeros((T, B, 3 * h * d + 4), device=dev, dtype=dtype)
+        buf[..., :3 * h * d] = qkv
+        core = buf[..., :3 * h * d].split(h * d, dim=-1)
+        simt = attention_cuda.design_launches["simt"]
+        torch.testing.assert_close(
+            attention_cuda.causal_attention(*core, h).float(), ref.float(),
+            rtol=2 ** -7, atol=2 ** -12)
+        assert attention_cuda.design_launches["simt"] == simt + 1
     else:
         torch.testing.assert_close(got, ref, rtol=1e-5, atol=1e-6)
 
@@ -432,10 +450,17 @@ def test_attention_train_kernels_match_plain(dev, T, d, dtype, rate):
                if n != "attn_train_fwd")
     took = {n: {k: atc.design_launches[n][k] - designs[n][k]
                 for k in designs[n]} for n in designs}
-    for n, count in (("attn_train_fwd", 1), ("attn_train_dkv", 2)):
+    for n, count in (("attn_train_fwd", 1), ("attn_train_dq", 2),
+                     ("attn_train_dkv", 2)):
         assert took[n] == ({"wgmma": count, "simt": 0} if fast
                            else {"wgmma": 0, "simt": count}), (n, took)
-    assert took["attn_train_dq"] == {"wgmma": 0, "simt": 2}
+    if fast:
+        # rows 16 and 17 rebuild P from row 15's (m, l) with the forward's
+        # own score arithmetic: each row's sum_c P is 1 to fp32 sums
+        for bwd in (atc.attn_train_dq, atc.attn_train_dkv):
+            psum = torch.zeros((B * h, T), dtype=torch.float32, device=dev)
+            bwd(q, k, v, go, m, l, delta, h, rate, seed, psum_out=psum)
+            assert float((psum - 1).abs().max()) <= 1e-5, bwd.__name__
     if rate > 0:
         tril = torch.ones((T, T), dtype=torch.bool, device=dev).tril()
         ref = atc.keep_plain(seed, torch.arange(B * h, device=dev), T,
@@ -481,9 +506,26 @@ def test_attention_train_refuses_what_the_kernels_do_not_take(dev):
     # a launch plan off the kernels' tiles: the library refuses it
     for xx, design in ((x, "wgmma"), (x.float(), "simt")):
         bad = dict(atc._fwd_plan(8, 2, 2, 32, design), rows=16)
-        with mock.patch.object(atc, "_fwd_plan", lambda *a: bad), \
+        with mock.patch.dict(atc._PLANS, attn_train_fwd=lambda *a: bad), \
                 pytest.raises(RuntimeError):
             atc.attn_train_fwd(xx, xx, xx, 2, 0.1, seed)
+        bad = dict(atc._dq_plan(8, 2, 2, 32, design), keys=16)
+        st = torch.zeros((4, 8), device=dev)
+        with mock.patch.dict(atc._PLANS, attn_train_dq=lambda *a: bad), \
+                pytest.raises(RuntimeError):
+            atc.attn_train_dq(xx, xx, xx, xx, st, st + 1, st, 2, 0.1, seed)
+
+
+def test_attention_refuses_a_plan_off_its_tiles(dev):
+    from bayeslms_tpu_torch.ops import attention_cuda as acu
+
+    x = torch.zeros((8, 2, 64), device=dev, dtype=torch.bfloat16)
+    for xx, design in ((x, "wgmma"), (x.float(), "simt")):
+        assert acu._design((xx, xx, xx), 2) == design
+        bad = dict(acu._plan(8, 2, 2, design), rows=32)
+        with mock.patch.object(acu, "_plan", lambda *a: bad), \
+                pytest.raises(RuntimeError):
+            acu.causal_attention(xx, xx, xx, 2)
 
 
 @pytest.mark.parametrize("masked,reset", [(False, False), (True, False),
