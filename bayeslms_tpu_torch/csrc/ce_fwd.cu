@@ -19,12 +19,19 @@
 // memory, and two threads per token fold it into that token's running max,
 // sum-exp and target logit (picked up when the target falls in the tile).
 //
+// Where it runs: ops/ce_cuda.py `route` sends only the widths that are a
+// multiple of 32 and not of 64 here. Every other scoring call (the LSTM's
+// D = 1,024, the Transformer's 512) takes row 9's forward in
+// csrc/ce_train.cu (wgmma fed by TMA, 64-deep chunks added to nearest,
+// the vocabulary walk split across the card). This kernel's one wmma sum
+// over all of D truncates as fault 1 of ROADMAP C found for rows 9-11
+// (tools/ce_rounding_model.py models it).
+//
 // Bound on the H100 at the scoring shapes (M ~ 94k, V = 49,152, D = 1,024):
 // 2 M V D ~ 9.5 TFLOP, about 9.6 ms at the 989 TFLOP/s bf16 peak, against
 // 0.3 GB of h and E: operations bound. Each token tile re-reads all of E
-// (100 MB, mostly from L2); this first version loads its tiles
-// synchronously and is far from the bound. A wgmma/TMA pipeline is the
-// later redesign.
+// (100 MB, mostly from L2); this design loads its tiles synchronously and
+// is far from the bound (110.5 ms at that call, PERF.md).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>

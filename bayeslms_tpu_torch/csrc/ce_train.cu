@@ -4,8 +4,11 @@
 // Replaces bayeslms_tpu/ops/ce_pallas.py `_fwd_stats_kernel` (pallas_call
 // in `_run_fwd_stats`, :291), `_bwd_dh_kernel` (`_run_bwd_dh`, :320) and
 // `_bwd_de_kernel` (`_run_bwd_de`, :344), the custom VJP
-// `fused_decode_ce_train`. With s_mv = h_m . E_v + b_v (bf16 products, fp32
-// accumulation):
+// `fused_decode_ce_train`; the forward also replaces `_kernel` (`_run`,
+// :90; kernel row 2, the scoring CE `fused_decode_ce`), whose per-token ce
+// is the forward's without the statistics (ops/ce_cuda.py launches it at
+// D % 64 == 0 and drops max and sum-exp). With s_mv = h_m . E_v + b_v (bf16
+// products, fp32 accumulation):
 //   forward:  ce_m = log sum_v exp(s_mv) - s_{m,t_m}, and the statistics
 //             max_m = max_v s_mv, sumexp_m = sum_v exp(s_mv - max_m);
 //   backward: p_mv = exp(s_mv - max_m) / sumexp_m,
@@ -779,7 +782,8 @@ cudaLaunchConfig_t bwd_config(const BwdShape& s, dim3 grid,
 }  // namespace
 
 // h (M, D) bf16, emb (V, D) bf16, bias (V) fp32, tgt (M) int32 -> ce, mx,
-// se (M) fp32. D must be a multiple of 256. splits: the parts of the
+// se (M) fp32. D must be a multiple of 64 (KC; the training wrappers ask
+// 256, the backward's slice, and scoring 64). splits: the parts of the
 // vocabulary walk (at most its 256-row tiles); ws is a (3, splits, M) fp32
 // workspace. Returns the launch error, or 0; -1 where the driver's
 // cuTensorMapEncodeTiled is not found, -1000 - r where it refuses a

@@ -22,35 +22,72 @@
 //     du[t] = [di i(1-i), df f(1-f), dg (1-g^2), do o(1-o)] stored in bf16,
 //     dh = du[t] W_hh + (1 - keep) dh_tot, the product on the bf16 du.
 //
-// Design: the host functions loop over t and launch on the caller's stream.
-// The forward is one launch a step: a block owns BM batch columns and BJ
-// hidden units and computes all four gate rows (q*H + j) of them, so the
+// Forward design (row 5): the host function loops over t and launches on
+// the caller's stream, one launch a step: a block owns BM batch columns and
+// BJ hidden units and computes all four gate rows (q*H + j) of them, so the
 // cell update needs nothing from other blocks and h, c update in place.
 // The product's A operand is the bf16 ys[t-1] (equal to the fp32 carry
 // rounded to bf16, as the TPU kernel rounds h before its dot), so no
-// ping-pong buffers are needed. The backward is two launches a step, since
-// dh_{t-1} = du_t W_hh contracts over all 4H gate rows and a block that owns
-// a hidden slice cannot finish its dh slice from its own du:
+// ping-pong buffers are needed. Products run on the tensor cores through
+// wmma (16x16x16 bf16, fp32 accumulators), in the tile functions of
+// csrc/gate_tile.cuh (shared with csrc/gp_lstm.cu).
+//
+// Backward, two designs, picked by ops/lstm_train_cuda.py `_design(B, H)`
+// (an explicit rule: the chosen design runs or raises).
+//
+// "persistent" (B <= 32, H / 8 CTAs no more than the card's SMs, its shared
+// memory within 227 KB: the training shapes, B = 32 and H = 1,024), kernel
+// `lstm_bwd_persistent`: one cooperative launch for the whole sequence.
+// CTA c owns the 8 hidden units [8c, 8c + 8) and keeps two slices of W_hh
+// in shared memory for the whole call, loaded once: its 4 x 8 gate rows
+// (q H + 8c + u, the gate product's B operand, 64 KB at H = 1,024) and its
+// 4H x 8 column slice, transposed (dh's B operand, 64 KB). Step t:
+//   (a) the CTA's 32 gate columns from h_{t-1} = ys[t-1] (h0 at t = 0),
+//       read from L2 straight into the tensor cores' A fragments; then the
+//       cell's gradients of its 32 x 8 (column, unit) pairs, one a thread,
+//       du_t's slice stored in bf16, and the dc carry (a register of that
+//       thread) updated;
+//   a grid barrier: every CTA's du_t is stored before any CTA reads it;
+//   (b) the CTA's 8 dh columns from all of du_t (B x 4H bf16, 256 KB, from
+//       L2 into the A fragments again) against its column slice, plus the
+//       (1 - keep) dh_tot term; the dh carry is a register too.
+// Step t-1's (a) needs dh only for the CTA's own units, which it has just
+// computed, so one barrier a step suffices. Products: mma.sync m16n8k16
+// (bf16, fp32 accumulators). wgmma wants 64-row tiles and B is 32 rows, and
+// a CTA's product is (32 x 32) over K = H in (a) and (32 x 8) over K = 4H in
+// (b): one m16n8k16 tile pair a k16 step, its 16 warps each taking every
+// 16th 32-deep k range, their partial tiles summed in shared memory in
+// warp order. A thread loads 16 bytes of a row (8 consecutive k) and feeds
+// them to two k16 steps: the mma's k slots are matched to memory so that A
+// and B read the same k in each slot, which only reorders the fp32 sum.
+// The grid barrier is a counter in device memory (red.release.gpu.add
+// after a CTA's stores, ld.acquire.gpu while waiting), zeroed by the
+// wrapper; the cooperative launch refuses a grid the card cannot hold at
+// once, and the wrapper then raises: nothing falls back.
+//
+// "two-launch" (the rest: B > 32, or H beyond what the SMs' shared memory
+// and count hold), kernels `lstm_bwd_gates` and `lstm_bwd_dh`, two launches a
+// step, since dh_{t-1} = du_t W_hh contracts over all 4H gate rows and a
+// block that owns a hidden slice cannot finish its dh slice from its own du:
 //   (a) `lstm_bwd_gates`: the forward's tile, recomputing the gates, writes
 //       du_t and updates the fp32 dc carry in place;
 //   (b) `lstm_bwd_dh`: a block owns BM columns x 32 units of dh and
 //       contracts du_t (B x 4H) with W_hh (4H x 32), then adds the
 //       (1 - keep) dh_tot term, updating the fp32 dh carry in place.
-// Stream order makes (b) see all of (a)'s du_t. Products run on the tensor
-// cores through wmma (16x16x16 bf16, fp32 accumulators), in the tile
-// functions of csrc/gate_tile.cuh (shared with csrc/gp_lstm.cu).
+// Stream order makes (b) see all of (a)'s du_t.
 //
 // Bound at the training shapes (T = 100, B = 32, H = 1,024), from the H100
 // SXM data sheet's 989 TFLOP/s bf16 (700 W): forward 2 T B H 4H = 26.8
 // GFLOP, 0.027 ms; backward twice that, 0.054 ms. Operations bound, but
-// both are far from it: the steps are dependent launches (100 forward, 200
-// backward), each a small tile product that loads its tiles synchronously
-// on 32 blocks, so they are bound by latency. Measured by chip_smoke.py on
-// an NVIDIA H100 80GB HBM3 at 700.00 W: 4.1 ms a forward call, 14.9 ms a
-// backward call (PERF.md). A persistent kernel with W_hh in the SMs'
-// shared memory and a grid barrier per step is the later redesign. At
-// B = 32 the BM = 32 column tile is full; every block re-reads its W_hh
-// rows from L2 (8 MB in all, resident in the 50 MB L2) each step.
+// both are far from it: the steps are dependent, each a small product.
+// The two-launch backward (and the forward) are bound by latency: 200
+// launches a call, each loading its tiles synchronously on 32 blocks and
+// re-reading its W_hh rows from L2; measured by chip_smoke.py on an NVIDIA
+// H100 80GB HBM3 at 700.00 W: 4.1 ms a forward call, 14.8 ms a two-launch
+// backward call (PERF.md). The persistent backward is bound by its 100
+// dependent steps: a barrier, and each CTA's L2 reads of h_{t-1} (64 KB)
+// and du_t (256 KB), 40 MB a step over the grid; measured the same way,
+// 1.47 ms a call, 14.7 us a step (PERF.md).
 
 #include "gate_tile.cuh"
 
@@ -158,6 +195,269 @@ lstm_bwd_dh(const bf16* __restrict__ du_t, const bf16* __restrict__ w,
   dh_tile<NG>(du_t, w, mask_t, dy_t, dh, B, H);
 }
 
+// ------------------------------------------------- the persistent backward
+
+constexpr int P_UNITS = 8;    // hidden units a CTA owns
+constexpr int P_ROWS = 32;    // batch columns at most: two m16 row tiles
+constexpr int P_WARPS = 16;
+constexpr int P_THREADS = 32 * P_WARPS;
+// bf16 padding of a shared weight row: 64 bytes, so that the 8 rows a
+// quarter warp reads (16 bytes each, 4 a row) fall in distinct banks
+constexpr int P_PAD = 32;
+
+// d += a b over one k16 step: m16n8k16, bf16 operands, fp32 accumulators
+__device__ __forceinline__ void mma16816(float (&d)[4], uint32_t a0,
+                                         uint32_t a1, uint32_t a2,
+                                         uint32_t a3, uint32_t b0,
+                                         uint32_t b1) {
+  asm(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+}
+
+// 16 bytes of device memory through L2 only: du_t is stored by other CTAs
+// during the kernel
+__device__ __forceinline__ uint4 ld_cg16(const bf16* p) {
+  uint4 v;
+  asm volatile("ld.global.cg.v4.u32 {%0, %1, %2, %3}, [%4];"
+               : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
+               : "l"(p));
+  return v;
+}
+
+// The warp's share of acc[m][n] = sum_k A[16 m + r][k] Ws[8 n + c][k]: A
+// (rows, K) bf16 row-major in device memory (rows past `rows` read as
+// zeros), Ws (8 NT rows, K) bf16 in shared memory at pitch ldw. The warp
+// takes the 32-deep k ranges p = warp, warp + P_WARPS, ..., BATCH at once
+// (their A loads in flight together). Lane (g, t) loads 8 consecutive k,
+// [32 p + 8 t, +8), of A's rows g and g + 8 and of Ws' row g, and feeds
+// values 0-3 to one k16 step and 4-7 to the next: slots 2t, 2t+1 take k
+// 32 p + 8 t + 4 s + (0, 1) and slots 2t+8, 2t+9 take + (2, 3), the same k
+// in A and B.
+template <int NT, int BATCH>
+__device__ __forceinline__ void warp_product(const bf16* __restrict__ a,
+                                             int rows, int K, const bf16* ws,
+                                             int ldw, int warp, int lane,
+                                             float (&acc)[2][NT][4]) {
+  const int g = lane >> 2, t = lane & 3;
+  const int npairs = K / 32;
+  for (int p0 = warp; p0 < npairs; p0 += P_WARPS * BATCH) {
+    uint4 av[BATCH][2][2];
+#pragma unroll
+    for (int i = 0; i < BATCH; ++i) {
+      const int p = p0 + P_WARPS * i;
+#pragma unroll
+      for (int m = 0; m < 2; ++m)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int r = 16 * m + 8 * h + g;
+          av[i][m][h] = (p < npairs && r < rows)
+                            ? ld_cg16(a + (size_t)r * K + 32 * p + 8 * t)
+                            : make_uint4(0u, 0u, 0u, 0u);
+        }
+    }
+#pragma unroll
+    for (int i = 0; i < BATCH; ++i) {
+      const int p = p0 + P_WARPS * i;
+      if (p < npairs) {
+#pragma unroll
+        for (int n = 0; n < NT; ++n) {
+          const uint4 bv = *reinterpret_cast<const uint4*>(
+              ws + (size_t)(8 * n + g) * ldw + 32 * p + 8 * t);
+#pragma unroll
+          for (int m = 0; m < 2; ++m) {
+            mma16816(acc[m][n], av[i][m][0].x, av[i][m][1].x, av[i][m][0].y,
+                     av[i][m][1].y, bv.x, bv.y);
+            mma16816(acc[m][n], av[i][m][0].z, av[i][m][1].z, av[i][m][0].w,
+                     av[i][m][1].w, bv.z, bv.w);
+          }
+        }
+      }
+    }
+  }
+}
+
+// The warp's partial tile into red[warp][32 rows][8 NT columns]
+template <int NT>
+__device__ __forceinline__ void store_partial(float* red,
+                                              const float (&acc)[2][NT][4],
+                                              int warp, int lane) {
+  const int g = lane >> 2, t = lane & 3;
+  float* r = red + warp * P_ROWS * 8 * NT;
+#pragma unroll
+  for (int m = 0; m < 2; ++m)
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        *reinterpret_cast<float2*>(r + (16 * m + 8 * h + g) * 8 * NT + 8 * n +
+                                   2 * t) =
+            make_float2(acc[m][n][2 * h], acc[m][n][2 * h + 1]);
+}
+
+// The grid barrier: `target` = (barriers so far + 1) x CTAs. Every thread's
+// stores before it are seen by every thread of every CTA after it.
+__device__ __forceinline__ void grid_barrier(unsigned int* count,
+                                             unsigned int target) {
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    __threadfence();
+    asm volatile("red.release.gpu.global.add.u32 [%0], %1;" ::"l"(count),
+                 "r"(1u)
+                 : "memory");
+    unsigned int seen;
+    do {
+      asm volatile("ld.acquire.gpu.global.u32 %0, [%1];"
+                   : "=r"(seen)
+                   : "l"(count)
+                   : "memory");
+    } while (seen < target);
+    __threadfence();
+  }
+  __syncthreads();
+}
+
+struct PersistParams {
+  const bf16* xg;     // (T, B, 4H)
+  const bf16* w;      // W_hh (4H, H)
+  const float* bias;  // b_hh (4H)
+  const uint8_t* mask;  // (T, B) or null
+  const bf16* h0;
+  const bf16* c0;
+  const bf16* ys;     // (T, B, H)
+  const bf16* cs;
+  const bf16* dy;
+  float* dh;          // (B, H): dhT in, dh0 out
+  float* dc;
+  bf16* du;           // (T, B, 4H)
+  unsigned int* bar;  // the barrier's counter, zero on entry
+  int T, B, H;
+};
+
+// Shared memory: the gate rows (32 x (H + P_PAD)), the column slice (8 x
+// (4H + P_PAD)), the warps' partial gate tiles (P_WARPS x 32 x 32 fp32) and
+// partial dh tiles (P_WARPS x 32 x 8 fp32).
+inline int persist_smem(int H) {
+  return (32 * (H + P_PAD) + 8 * (4 * H + P_PAD)) * 2 +
+         P_WARPS * P_ROWS * (32 + 8) * 4;
+}
+
+__global__ void __launch_bounds__(P_THREADS, 1)
+lstm_bwd_persistent(const __grid_constant__ PersistParams p) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int H = p.H, G = 4 * H, B = p.B;
+  const int ldg = H + P_PAD, ldc = G + P_PAD;
+  bf16* wg = reinterpret_cast<bf16*>(smem);  // row q 8 + u: W[q H + j0 + u]
+  bf16* wc = wg + 32 * ldg;                  // row n: W[:, j0 + n]
+  float* red_a = reinterpret_cast<float*>(wc + 8 * ldc);
+  float* red_b = red_a + P_WARPS * P_ROWS * 32;
+  const int j0 = blockIdx.x * P_UNITS;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+
+  for (int i = tid; i < 32 * (H / 8); i += P_THREADS) {
+    const int r = i / (H / 8), c = (i % (H / 8)) * 8;
+    const int row = (r >> 3) * H + j0 + (r & 7);
+    *reinterpret_cast<uint4*>(wg + r * ldg + c) =
+        *reinterpret_cast<const uint4*>(p.w + (size_t)row * H + c);
+  }
+  for (int k = tid; k < G; k += P_THREADS) {
+    const uint4 v = *reinterpret_cast<const uint4*>(p.w + (size_t)k * H + j0);
+    const bf16* e = reinterpret_cast<const bf16*>(&v);
+#pragma unroll
+    for (int n = 0; n < P_UNITS; ++n) wc[n * ldc + k] = e[n];
+  }
+
+  // thread tid < 256 owns batch column b and unit j; its carries
+  const int b = tid >> 3, j = j0 + (tid & 7);
+  const int col = tid & 7;
+  const bool own = tid < P_ROWS * P_UNITS && b < B;
+  float dh = 0.f, dc = 0.f, carry = 0.f, bq[4];
+  if (own) {
+    dh = p.dh[(size_t)b * H + j];
+    dc = p.dc[(size_t)b * H + j];
+#pragma unroll
+    for (int q = 0; q < 4; ++q) bq[q] = p.bias[q * H + j];
+  }
+  __syncthreads();
+
+  const size_t BH = (size_t)B * H;
+  unsigned int target = 0;
+  for (int t = p.T - 1; t >= 0; --t) {
+    // (a) the gates: this step's elementwise inputs first, in flight
+    // during the product
+    float x[4] = {0.f, 0.f, 0.f, 0.f}, cp = 0.f, dyv = 0.f, keep = 1.f;
+    if (own) {
+      const bf16* xr = p.xg + ((size_t)t * B + b) * G + j;
+#pragma unroll
+      for (int q = 0; q < 4; ++q) x[q] = __bfloat162float(xr[q * H]);
+      cp = __bfloat162float(t == 0 ? p.c0[(size_t)b * H + j]
+                                   : p.cs[(t - 1) * BH + (size_t)b * H + j]);
+      dyv = __bfloat162float(p.dy[t * BH + (size_t)b * H + j]);
+      if (p.mask != nullptr && !p.mask[(size_t)t * B + b]) keep = 0.f;
+    }
+    {
+      float acc[2][4][4] = {};
+      warp_product<4, 2>(t == 0 ? p.h0 : p.ys + (t - 1) * BH, B, H, wg, ldg,
+                         warp, lane, acc);
+      store_partial<4>(red_a, acc, warp, lane);
+    }
+    __syncthreads();
+    if (own) {
+      float g[4];
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        float s = 0.f;
+        for (int w = 0; w < P_WARPS; ++w)
+          s += red_a[(w * P_ROWS + b) * 32 + q * 8 + col];
+        g[q] = (x[q] + s) + bq[q];
+      }
+      const float ig = sigmoidf(g[0]);
+      const float fg = sigmoidf(g[1]);
+      const float gg = tanhf(g[2]);
+      const float og = sigmoidf(g[3]);
+      const float tc = tanhf(fg * cp + ig * gg);
+      const float dh_tot = dh + dyv;
+      const float dc_tot = dc;
+      const float dhn = keep * dh_tot;
+      const float dcn = keep * dc_tot;
+      const float d_o = dhn * tc;
+      const float dcc = dcn + dhn * og * (1.0f - tc * tc);
+      const float d_i = dcc * gg;
+      const float d_f = dcc * cp;
+      const float d_g = dcc * ig;
+      dc = dcc * fg + (1.0f - keep) * dc_tot;
+      carry = (1.0f - keep) * dh_tot;
+      bf16* du = p.du + ((size_t)t * B + b) * G + j;
+      du[0] = __float2bfloat16(d_i * ig * (1.0f - ig));
+      du[H] = __float2bfloat16(d_f * fg * (1.0f - fg));
+      du[2 * H] = __float2bfloat16(d_g * (1.0f - gg * gg));
+      du[3 * H] = __float2bfloat16(d_o * og * (1.0f - og));
+    }
+    target += gridDim.x;
+    grid_barrier(p.bar, target);
+
+    // (b) dh = du_t W_hh + (1 - keep) dh_tot for the CTA's units
+    {
+      float acc[2][1][4] = {};
+      warp_product<1, 4>(p.du + (size_t)t * B * G, B, G, wc, ldc, warp, lane,
+                         acc);
+      store_partial<1>(red_b, acc, warp, lane);
+    }
+    __syncthreads();
+    if (own) {
+      float s = 0.f;
+      for (int w = 0; w < P_WARPS; ++w) s += red_b[(w * P_ROWS + b) * 8 + col];
+      dh = s + carry;
+    }
+  }
+  if (own) {
+    p.dh[(size_t)b * H + j] = dh;
+    p.dc[(size_t)b * H + j] = dc;
+  }
+}
+
 }  // namespace
 
 // Forward over the whole sequence. xg (T, B, 4H) bf16, whh (4H, H) bf16,
@@ -226,4 +526,46 @@ extern "C" int lstm_train_bwd(const void* xg, const void* whh,
     if (err != cudaSuccess) return (int)err;
   }
   return 0;
+}
+
+// The persistent backward (see the header): the two-launch backward's
+// arguments, plus bar, one zeroed unsigned int of device memory for the
+// grid barrier. B must be at most 32 and H a multiple of 8; the grid is
+// H / 8 CTAs of 512 threads, launched cooperatively, so a grid the card
+// cannot hold at once is refused (cudaErrorCooperativeLaunchTooLarge).
+// Returns the launch error, or 0.
+extern "C" int lstm_train_bwd_persistent(
+    const void* xg, const void* whh, const void* bhh, const void* mask,
+    const void* h0, const void* c0, const void* ys, const void* cs,
+    const void* dy, void* dh, void* dc, void* du, void* bar, int T, int B,
+    int H, void* stream) {
+  if (B > P_ROWS || H % P_UNITS != 0 || H <= 0)
+    return (int)cudaErrorInvalidValue;
+  const int smem = persist_smem(H);
+  cudaError_t err = cudaFuncSetAttribute(
+      lstm_bwd_persistent, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  PersistParams prm;
+  prm.xg = static_cast<const bf16*>(xg);
+  prm.w = static_cast<const bf16*>(whh);
+  prm.bias = static_cast<const float*>(bhh);
+  prm.mask = static_cast<const uint8_t*>(mask);
+  prm.h0 = static_cast<const bf16*>(h0);
+  prm.c0 = static_cast<const bf16*>(c0);
+  prm.ys = static_cast<const bf16*>(ys);
+  prm.cs = static_cast<const bf16*>(cs);
+  prm.dy = static_cast<const bf16*>(dy);
+  prm.dh = static_cast<float*>(dh);
+  prm.dc = static_cast<float*>(dc);
+  prm.du = static_cast<bf16*>(du);
+  prm.bar = static_cast<unsigned int*>(bar);
+  prm.T = T;
+  prm.B = B;
+  prm.H = H;
+  void* args[] = {&prm};
+  err = cudaLaunchCooperativeKernel(
+      reinterpret_cast<const void*>(lstm_bwd_persistent), dim3(H / P_UNITS),
+      dim3(P_THREADS), args, (size_t)smem, static_cast<cudaStream_t>(stream));
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
 }

@@ -1,11 +1,18 @@
-"""Fused tied-decoder cross-entropy: the CUDA kernel's wrapper and its
+"""Fused tied-decoder cross-entropy: the CUDA kernels' wrapper and their
 plain twin.
 
 Replaces ``bayeslms_tpu/ops/ce_pallas.py`` ``fused_decode_ce`` (its
-``_kernel`` Pallas body). The kernel is ``csrc/ce_fwd.cu``; its header says
-what bounds it on the H100 and how its design answers that.
-``fused_decode_ce`` launches it for CUDA tensors and raises on what it does
-not take; for CPU tensors it runs ``ce_plain``.
+``_kernel`` Pallas body, kernel row 2). That kernel computes the per-token
+sums of ``_fwd_stats_kernel`` (row 9) without its statistics, so for CUDA
+tensors ``fused_decode_ce`` launches row 9's kernels, ``ce_stats_split``
+and ``ce_stats_merge`` of ``csrc/ce_train.cu`` (``ce_train_cuda.score_fwd``:
+wgmma fed by TMA, 64-deep chunks added to nearest, the vocabulary walk
+split where the token tiles alone do not fill the card), wherever D is a
+multiple of 64; ``csrc/ce_fwd.cu`` (wmma, one sum over D) scores the other
+multiples of 32. ``route`` is that rule; the headers of both sources say
+what bounds them on the H100 and how their designs answer that. The
+wrapper raises on what neither takes; for CPU tensors it runs
+``ce_plain``.
 
 Per token m: ce[m] = logsumexp_v(h_m . E_v + b_v) - (h_m . E_{t_m} + b_{t_m}),
 with the products of h and E in h's dtype accumulated in float32, a float32
@@ -18,11 +25,17 @@ import ctypes
 
 import torch
 
-from . import _build
+from . import _build, ce_train_cuda
 
-# kernel launches (one per call that reaches the kernel); reset by callers
-# that read it, such as chip_smoke.py
+# kernel launches (one per call that reaches a kernel) and the same calls by
+# route; reset by callers that read them, such as chip_smoke.py
 launches = 0
+design_launches = {"split": 0, "wmma": 0}
+
+# the widths each route takes: row 9's forward walks D in 64-deep chunks,
+# csrc/ce_fwd.cu in 32-deep ones
+SPLIT_WIDTH = ce_train_cuda.FWD_CHUNK
+WMMA_WIDTH = 32
 
 _P = ctypes.c_void_p
 _ARGTYPES = [_P] * 5 + [ctypes.c_int] * 3 + [_P]
@@ -49,26 +62,47 @@ def ce_plain(h, emb, bias, targets):
     return torch.cat(out)
 
 
+def route(D: int) -> str:
+    """The kernel that scores width D: "split" (``ce_stats_split`` and
+    ``ce_stats_merge`` of csrc/ce_train.cu) for D a multiple of 64, "wmma"
+    (csrc/ce_fwd.cu) for the other multiples of 32. Raises ValueError on
+    any other width. An explicit rule: the chosen kernel runs or raises."""
+    if D > 0 and D % SPLIT_WIDTH == 0:
+        return "split"
+    if D > 0 and D % WMMA_WIDTH == 0:
+        return "wmma"
+    raise ValueError(f"fused_decode_ce: width {D} is not a multiple of "
+                     f"{WMMA_WIDTH}")
+
+
 def fused_decode_ce(h: torch.Tensor, emb: torch.Tensor, bias: torch.Tensor,
                     targets: torch.Tensor) -> torch.Tensor:
     """Per-token CE of a tied decoder, from hidden states.
 
     h (M, D) in the compute dtype; emb (V, D), cast to h's dtype; bias (V,)
-    float32; targets (M,) int. Returns ce (M,) float32. CUDA tensors launch
-    ``csrc/ce_fwd.cu`` (bf16, D a multiple of 32, any M and V); CPU tensors
-    run ``ce_plain``. Each kernel launch adds one to the module's ``launches``.
+    float32; targets (M,) int. Returns ce (M,) float32. CUDA tensors (bf16,
+    any M and V) launch the kernels ``route(D)`` names; CPU tensors run
+    ``ce_plain``. Each call that reaches a kernel adds one to the module's
+    ``launches`` and to its route's ``design_launches``.
     """
+    global launches
     if not h.is_cuda:
         return ce_plain(h, emb, bias, targets)
     M, D = h.shape
+    which = route(D)
+    if which == "split":
+        out = ce_train_cuda.score_fwd(h, emb, bias, targets)
+        launches += 1
+        design_launches[which] += 1
+        return out
     V = emb.shape[0]
     dev = h.device
     if h.dtype != torch.bfloat16 or not h.is_contiguous():
         raise ValueError(f"fused_decode_ce: h must be contiguous bf16, got "
                          f"{h.dtype}")
-    if D % 32 != 0 or tuple(emb.shape) != (V, D) or emb.device != dev:
-        raise ValueError(f"fused_decode_ce: emb must be (V, {D}) on {dev} "
-                         f"with {D} a multiple of 32; got {tuple(emb.shape)}")
+    if tuple(emb.shape) != (V, D) or emb.device != dev:
+        raise ValueError(f"fused_decode_ce: emb must be (V, {D}) on {dev}; "
+                         f"got {tuple(emb.shape)}")
     if tuple(bias.shape) != (V,) or tuple(targets.shape) != (M,) \
             or bias.device != dev or targets.device != dev:
         raise ValueError("fused_decode_ce: bias must be (V,) and targets "
@@ -87,7 +121,7 @@ def fused_decode_ce(h: torch.Tensor, emb: torch.Tensor, bias: torch.Tensor,
     if err != 0:
         raise RuntimeError(
             f"fused_decode_ce kernel launch failed: CUDA error {err}")
-    global launches
     launches += 1
+    design_launches[which] += 1
     return out
 

@@ -13,8 +13,8 @@ With s_mv = h_m . E_v + b_v (products of h and E in h's dtype accumulated in
 float32, a float32 bias): the forward gives ce_m, max_m and sumexp_m; the
 backward forms d_mv = a_m p_mv + b_m [v = t_m] with p_mv = exp(s_mv - max_m)
 / sumexp_m, and gives dh = d E and dE = d^T h with d rounded to h's dtype,
-and db = sum_m d_mv in float32. The scoring path's ``ce_cuda`` stays as it
-is.
+and db = sum_m d_mv in float32. The scoring path's ``ce_cuda`` launches
+the forward's kernels too (``score_fwd``), at the forward's own width rule.
 """
 
 from __future__ import annotations
@@ -39,9 +39,12 @@ D_SLICE = 256
 OWN_ROWS = 128
 WALK_ROWS = 64
 MAX_CLUSTER = 8
-# The forward's tiling: tokens of a tile, vocabulary rows of a score tile
+# The forward's tiling: tokens of a tile, vocabulary rows of a score tile,
+# D columns of a chunk (the forward alone takes D % FWD_CHUNK == 0; the
+# training wrappers keep D_SLICE, which the backward needs)
 FWD_ROWS = 128
 FWD_COLS = 256
+FWD_CHUNK = 64
 # most parts the forward's vocabulary walk and dh's are split into, and the
 # share of the unsplit walk's waves a split must reach to be taken
 MAX_FWD_SPLITS = 32
@@ -113,17 +116,18 @@ def ce_train_de_plain(h, emb, bias, targets, mx, se, a, b):
     return de, db
 
 
-def _check(fn, h, emb, bias, targets, vectors=()):
-    """Validate and convert the arguments the kernels take; returns (M, V,
-    D, emb in bf16, bias in fp32, targets in int32)."""
+def _check(fn, h, emb, bias, targets, vectors=(), width=D_SLICE):
+    """Validate and convert the arguments the kernels take (D a multiple of
+    ``width``); returns (M, V, D, emb in bf16, bias in fp32, targets in
+    int32)."""
     M, D = h.shape
     V = emb.shape[0]
     dev = h.device
     if h.dtype != torch.bfloat16 or not h.is_contiguous():
         raise ValueError(f"{fn}: h must be contiguous bf16, got {h.dtype}")
-    if D % D_SLICE != 0 or tuple(emb.shape) != (V, D) or emb.device != dev:
+    if D % width != 0 or tuple(emb.shape) != (V, D) or emb.device != dev:
         raise ValueError(f"{fn}: emb must be (V, {D}) on {dev} with {D} a "
-                         f"multiple of {D_SLICE}; got {tuple(emb.shape)}")
+                         f"multiple of {width}; got {tuple(emb.shape)}")
     if tuple(bias.shape) != (V,) or tuple(targets.shape) != (M,) \
             or bias.device != dev or targets.device != dev:
         raise ValueError(f"{fn}: bias must be ({V},) and targets ({M},) on "
@@ -142,7 +146,7 @@ def _cdiv(a, b):
     return -(-a // b)
 
 
-def _fwd_plan(M, V, D, n_sm):
+def _fwd_plan(M, V, D, n_sm, width=D_SLICE):
     """The forward launch of ``csrc/ce_train.cu`` for (M, V, D) on a card
     of ``n_sm`` SMs, one CTA each (its ring takes most of the shared
     memory). CTA (x, y) walks the vocabulary tiles [y n / S, (y + 1) n / S)
@@ -153,10 +157,13 @@ def _fwd_plan(M, V, D, n_sm):
     each part costs about a tile more, to fill its ring and write its
     partials. It is taken only where that is at most SPLIT_GAIN of the
     unsplit walk's. The grid's x is the token tile, so the CTAs of one
-    part are launched, and walk E, together. Returns a dict with S, the
-    grid, CTAs, the workspace bytes and the tile counts."""
-    if D % D_SLICE:
-        raise ValueError(f"D = {D} is not a multiple of {D_SLICE}")
+    part are launched, and walk E, together. D must be a multiple of
+    ``width``: D_SLICE for training, whose backward takes 256-column
+    slices; FWD_CHUNK for scoring (``score_fwd``), the kernel's own chunk.
+    Returns a dict with S, the grid, CTAs, the workspace bytes and the tile
+    counts."""
+    if width not in (D_SLICE, FWD_CHUNK) or D % width:
+        raise ValueError(f"D = {D} is not a multiple of {width}")
     token_tiles = _cdiv(M, FWD_ROWS)
     vocab_tiles = _cdiv(V, FWD_COLS)
     cost = {s: _cdiv(token_tiles * s, n_sm) * (_cdiv(vocab_tiles, s) + 1)
@@ -239,18 +246,43 @@ def _card_plan(dev, M, V, D, de):
     return _bwd_plan(M, V, D, _n_sm(dev), _card[key], de)
 
 
-def _card_fwd_plan(dev, M, V, D):
-    return _fwd_plan(M, V, D, _n_sm(dev))
+def _card_fwd_plan(dev, M, V, D, width=D_SLICE):
+    return _fwd_plan(M, V, D, _n_sm(dev), width)
 
 
-def _call(name, fn, argtypes, *args):
+def _call(name, fn, argtypes, *args, count=True):
     lib = _build.load("ce_train")
     f = getattr(lib, fn)
     f.argtypes, f.restype = argtypes, ctypes.c_int
     err = f(*args)
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
-    launches[name] += 1
+    if count:
+        launches[name] += 1
+
+
+def _fwd(name, h, emb, bias, targets, width, count):
+    M, V, D, emb, bias, tgt = _check(name, h, emb, bias, targets,
+                                     width=width)
+    plan = _card_fwd_plan(h.device, M, V, D, width)
+    ce, mx, se = (torch.empty((M,), dtype=torch.float32, device=h.device)
+                  for _ in range(3))
+    ws = torch.empty((3, plan["S"], M), dtype=torch.float32, device=h.device)
+    _call(name, "ce_train_fwd", _FWD_ARGTYPES, h.data_ptr(),
+          emb.data_ptr(), bias.data_ptr(), tgt.data_ptr(), ce.data_ptr(),
+          mx.data_ptr(), se.data_ptr(), ws.data_ptr(), M, V, D, plan["S"],
+          torch.cuda.current_stream(h.device).cuda_stream, count=count)
+    return ce, mx, se
+
+
+def score_fwd(h, emb, bias, targets):
+    """The forward's kernels for the scoring CE (``ce_cuda``, kernel row
+    2): CUDA tensors only, D a multiple of FWD_CHUNK, the same launch and
+    score arithmetic as ``ce_train_fwd``. Returns ce (M,) float32; the
+    statistics are dropped. Counts nothing here: ``ce_cuda`` counts its
+    own launches."""
+    return _fwd("fused_decode_ce", h, emb, bias, targets, FWD_CHUNK,
+                False)[0]
 
 
 def ce_train_fwd(h: torch.Tensor, emb: torch.Tensor, bias: torch.Tensor,
@@ -266,16 +298,7 @@ def ce_train_fwd(h: torch.Tensor, emb: torch.Tensor, bias: torch.Tensor,
     """
     if not h.is_cuda:
         return ce_train_fwd_plain(h, emb, bias, targets)
-    M, V, D, emb, bias, tgt = _check("ce_train_fwd", h, emb, bias, targets)
-    plan = _card_fwd_plan(h.device, M, V, D)
-    ce, mx, se = (torch.empty((M,), dtype=torch.float32, device=h.device)
-                  for _ in range(3))
-    ws = torch.empty((3, plan["S"], M), dtype=torch.float32, device=h.device)
-    _call("ce_train_fwd", "ce_train_fwd", _FWD_ARGTYPES, h.data_ptr(),
-          emb.data_ptr(), bias.data_ptr(), tgt.data_ptr(), ce.data_ptr(),
-          mx.data_ptr(), se.data_ptr(), ws.data_ptr(), M, V, D, plan["S"],
-          torch.cuda.current_stream(h.device).cuda_stream)
-    return ce, mx, se
+    return _fwd("ce_train_fwd", h, emb, bias, targets, D_SLICE, True)
 
 
 def _bwd(name, which, h, emb, bias, targets, mx, se, a, b, out, db):

@@ -4,7 +4,8 @@ their plain twins and the autograd Function ``lstm_scan_fused``.
 Replaces ``bayeslms_tpu/ops/lstm_pallas.py`` ``lstm_scan_fused`` (its
 ``_train_fwd_kernel`` and ``_train_bwd_kernel`` Pallas bodies). The kernels
 are in ``csrc/lstm_train.cu``, whose header says what bounds them on the
-H100 and how their design answers that. ``lstm_train_fwd`` and
+H100 and how their designs answer that; the backward has two, picked by
+``_design``. ``lstm_train_fwd`` and
 ``lstm_train_bwd`` launch them for CUDA tensors and raise on what they do
 not take; for CPU tensors they run ``lstm_train_fwd_plain`` and
 ``lstm_train_bwd_plain``, which repeat the kernels' arithmetic step by step.
@@ -27,13 +28,69 @@ import torch
 from . import _build
 
 # kernel launches, one per call that reaches a kernel (a call runs T step
-# launches forward, 2T backward); reset by callers that read them, such as
-# chip_smoke.py
+# launches forward; the backward one cooperative launch, or 2T in its
+# two-launch design), and the backward's calls by design; reset by callers
+# that read them, such as chip_smoke.py
 launches = {"lstm_train_fwd": 0, "lstm_train_bwd": 0}
+design_launches = {"persistent": 0, "two_launch": 0}
 
 _P = ctypes.c_void_p
 _FWD_ARGTYPES = [_P] * 9 + [ctypes.c_int] * 3 + [_P]
 _BWD_ARGTYPES = [_P] * 12 + [ctypes.c_int] * 3 + [_P]
+_PERSIST_ARGTYPES = [_P] * 13 + [ctypes.c_int] * 3 + [_P]
+
+# The persistent backward's geometry (csrc/lstm_train.cu): hidden units a
+# CTA, batch columns at most (two m16 row tiles), threads a CTA (16 warps),
+# the bf16 padding of a shared weight row, the shared memory a CTA may take
+P_UNITS = 8
+P_ROWS = 32
+P_THREADS = 512
+P_PAD = 32
+SMEM_LIMIT = 232448
+# the two-launch backward's tiles: batch columns, units (both kernels)
+TILE = 32
+
+
+def persist_smem(H: int) -> int:
+    """Dynamic shared memory of a persistent CTA at width H, bytes: the
+    gate rows (32 x (H + P_PAD) bf16), the column slice (8 x (4H + P_PAD)
+    bf16) and the 16 warps' partial tiles (32 x 32 and 32 x 8 fp32)."""
+    return (32 * (H + P_PAD) + 8 * (4 * H + P_PAD)) * 2 \
+        + (P_THREADS // 32) * P_ROWS * (32 + 8) * 4
+
+
+def _design(B: int, H: int, n_sm: int, T: int = 1) -> dict:
+    """The backward's design for batch B and width H on a card of ``n_sm``
+    SMs: "persistent" (one cooperative launch of H / 8 CTAs, each owning 8
+    hidden units with its W_hh slices in shared memory, a grid barrier a
+    step) where B <= 32, H is a multiple of 8, the CTAs number no more than
+    the SMs (one a SM: its shared memory takes most of one) and a CTA's
+    shared memory fits; "two_launch" (``lstm_bwd_gates`` and
+    ``lstm_bwd_dh``, 2T launches on (ceil(B / 32), H / 32) blocks)
+    otherwise. An explicit rule: the chosen design runs or raises. Returns
+    a dict with the design, the grid, CTAs, units a CTA, threads, shared
+    memory bytes and launches for T steps."""
+    smem = persist_smem(H)
+    if B <= P_ROWS and H % P_UNITS == 0 and 0 < H // P_UNITS <= n_sm \
+            and smem <= SMEM_LIMIT:
+        ctas = H // P_UNITS
+        return dict(design="persistent", grid=(ctas,), ctas=ctas,
+                    units=P_UNITS, threads=P_THREADS, smem_bytes=smem,
+                    launches=1, barriers=T)
+    grid = (-(-B // TILE), H // TILE)
+    return dict(design="two_launch", grid=grid, ctas=grid[0] * grid[1],
+                units=TILE, threads=None, smem_bytes=None, launches=2 * T,
+                barriers=0)
+
+
+_sms = {}
+
+
+def _card_design(dev, B, H, T=1):
+    if dev.index not in _sms:
+        _sms[dev.index] = torch.cuda.get_device_properties(dev) \
+            .multi_processor_count
+    return _design(B, H, _sms[dev.index], T)
 
 
 def _gates(xg_t, h, w_t, b_hh, dtype):
@@ -129,8 +186,8 @@ def _checked(fn, xg, w_hh, b_hh, mask, states):
     return T, B, H, mask
 
 
-def _call(fn, argtypes, *args):
-    f = getattr(_build.load("lstm_train"), fn)
+def _call(fn, argtypes, *args, entry=None):
+    f = getattr(_build.load("lstm_train"), entry or fn)
     f.argtypes, f.restype = argtypes, ctypes.c_int
     err = f(*args)
     if err != 0:
@@ -176,9 +233,9 @@ def lstm_train_bwd(xg, w_hh, b_hh, mask, h0, c0, ys, cs, dy, dhT, dcT):
     The forward's arguments and outputs ys, cs, with dy (T, B, H) and dhT,
     dcT (B, H), all in the compute dtype. Returns du (T, B, 4H), the
     gradient of the gate pre-activations, and dh0, dc0 (B, H), in the
-    compute dtype. CUDA tensors launch ``lstm_train_bwd`` of
-    ``csrc/lstm_train.cu`` (bf16 only); CPU tensors run
-    ``lstm_train_bwd_plain``.
+    compute dtype. CUDA tensors launch the backward of
+    ``csrc/lstm_train.cu`` in the design ``_design`` picks (bf16 only);
+    CPU tensors run ``lstm_train_bwd_plain``.
     """
     if not xg.is_cuda:
         return lstm_train_bwd_plain(xg, w_hh, b_hh, mask, h0, c0, ys, cs, dy,
@@ -193,10 +250,17 @@ def lstm_train_bwd(xg, w_hh, b_hh, mask, h0, c0, ys, cs, dy, dhT, dcT):
     dh = dhT.float().contiguous()
     dc = dcT.float().contiguous()
     du = torch.empty((T, B, G), dtype=torch.bfloat16, device=xg.device)
-    _call(fn, _BWD_ARGTYPES, _ptr(xg), _ptr(w_hh), _ptr(b_hh),
-          _ptr(mask), _ptr(h0), _ptr(c0), _ptr(ys), _ptr(cs), _ptr(dy),
-          _ptr(dh), _ptr(dc), _ptr(du), T, B, H,
-          torch.cuda.current_stream(xg.device).cuda_stream)
+    stream = torch.cuda.current_stream(xg.device).cuda_stream
+    args = (_ptr(xg), _ptr(w_hh), _ptr(b_hh), _ptr(mask), _ptr(h0), _ptr(c0),
+            _ptr(ys), _ptr(cs), _ptr(dy), _ptr(dh), _ptr(dc), _ptr(du))
+    design = _card_design(xg.device, B, H, T)["design"]
+    if design == "persistent":
+        bar = torch.zeros((1,), dtype=torch.int32, device=xg.device)
+        _call(fn, _PERSIST_ARGTYPES, *args, _ptr(bar), T, B, H, stream,
+              entry="lstm_train_bwd_persistent")
+    else:
+        _call(fn, _BWD_ARGTYPES, *args, T, B, H, stream)
+    design_launches[design] += 1
     return du, dh.to(torch.bfloat16), dc.to(torch.bfloat16)
 
 

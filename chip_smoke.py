@@ -9,12 +9,17 @@ PyTorch version at the shapes of the main path (the fused CE backward also
 runs twice there and must repeat its bits), then drives both halves of
 the main path with the bench's 2-layer 1024/1024 LSTM LM (V = 49,152, bf16):
 packed-carry N-best rescoring through ``BatchScorer.score_nbest`` (random
-weights from a fixed seed, a synthetic 6,000-hypothesis N-best), and
+weights from a fixed seed, a synthetic 6,000-hypothesis N-best; the
+scoring CE on its split route, the forward kernels of the fused CE
+training), a pass of the same LSTM at width 96 (a multiple of 32 that
+the split route refuses: the scoring CE on csrc/ce_fwd.cu), and
 training through ``Trainer.fit`` with the recipe's settings (batch 32,
 seq_len 100, lr 5, momentum 0.9, clip 1.0; a synthetic Markov corpus of
 about 20 windows an epoch, 2 epochs), a kernel-path step against the same
 step on the plain versions, and a rescoring pass from the checkpoint
-``fit`` wrote. Then the Bayesian gate-slice LSTM (``l_bayes_pos=3``) on
+``fit`` wrote; the LSTM training backward in its persistent design (one
+cooperative launch a call) on the step's calls and in its two-launch
+design at a doubled batch. Then the Bayesian gate-slice LSTM (``l_bayes_pos=3``) on
 the same corpus: the gate-slice sampler kernel against its twin on the
 slices a step hands it (bit-equal uniforms, moments, correlations, the
 gradient, planted-fault builds), one epoch of ``Trainer.fit``, a
@@ -94,7 +99,8 @@ kernels it replaces with resets and without; the gate-6 kernels from the
 ``63`` phases; the CE training kernels at
 the LSTM's D = 1,024,
 the Transformer's 512 and the long step's M = 32,768; the scoring CE at
-both widths) and the device line.
+both widths on its split route and at width 96 on csrc/ce_fwd.cu) and the
+device line.
 """
 
 import contextlib
@@ -166,8 +172,9 @@ def stream_of(key):
 # kernel names (tools/port_train_profile.py, tools/port_pass_profile.py).
 KERNEL_ROWS = (
     ("lstm_step_kernel", "1, 3, 4"), ("ce_fwd_kernel", "2"),
-    ("lstm_fwd_step", "5"), ("lstm_bwd_gates", "6"), ("lstm_bwd_dh", "6"),
-    ("ce_stats_split", "9"), ("ce_stats_merge", "9"),
+    ("lstm_fwd_step", "5"), ("lstm_bwd_persistent", "6"),
+    ("lstm_bwd_gates", "6"), ("lstm_bwd_dh", "6"),
+    ("ce_stats_split", "2, 9"), ("ce_stats_merge", "2, 9"),
     ("ce_bwd_kernel<false>", "10"),
     ("ce_dh_reduce", "10"), ("ce_bwd_kernel<true>", "11"),
     ("bayes_matmul_kernel", "12"),
@@ -608,6 +615,61 @@ def check_recorded(torch, kernels, specs, recorded, tag="", tol=TRAIN_TOL,
         raise AssertionError("; ".join(failed))
 
 
+def lstm_bwd_two_launch_check(torch, kernels, args):
+    """Row 6's two-launch design (``lstm_bwd_gates`` and ``lstm_bwd_dh``),
+    which ``_design`` keeps for a batch past 32 columns: the step's first
+    recorded call with its batch doubled (B = 64) against the twin within
+    TRAIN_TOL["lstm_train_bwd"], its planted fault (W_hh zeroed in the
+    backward only) by FAULT_MARGIN or more; timed, and the time added to
+    the persistent design's ``kernels`` entry as ``two_launch_ms`` (B = 64:
+    twice the persistent call's columns). Raises on a failed check."""
+    from bayeslms_tpu_torch.ops import lstm_train_cuda as ltc
+
+    with phase("kernel lstm_train_bwd (two-launch design, B=64)"), \
+            torch.no_grad():
+        xg, w, b, mask, h0, c0, ys, cs, dy, dhT, dcT = args
+
+        def cat(x, dim):
+            return torch.cat([x, x], dim=dim).contiguous()
+
+        a2 = [cat(xg, 1), w, b, None if mask is None else cat(mask, 1),
+              cat(h0, 0), cat(c0, 0), cat(ys, 1), cat(cs, 1), cat(dy, 1),
+              cat(dhT, 0), cat(dcT, 0)]
+        T, B, G = a2[0].shape
+        plan = ltc._card_design(xg.device, B, G // 4, T)
+        print(f"  T={T} B={B} H={G // 4}: design {plan['design']}, grid "
+              f"{plan['grid']}, {plan['launches']} launches a call")
+        if plan["design"] != "two_launch":
+            raise AssertionError(f"_design sends B={B} to {plan['design']}")
+        rtol, share = TRAIN_TOL["lstm_train_bwd"]
+        outs = ("du", "dh0", "dc0")
+        before = dict(ltc.design_launches)
+        got = dict(zip(outs, ltc.lstm_train_bwd(*a2)))
+        ref = dict(zip(outs, ltc.lstm_train_bwd_plain(*a2)))
+        torch.cuda.synchronize()
+        if ltc.design_launches["two_launch"] != before["two_launch"] + 1:
+            raise AssertionError("the call did not take the two-launch "
+                                 f"design: {ltc.design_launches}")
+        err, worst = check_outputs("lstm_train_bwd (two-launch)", got, ref,
+                                   rtol, share)
+        bad = list(a2)
+        bad[1] = torch.zeros_like(w)
+        fault = fault_share(dict(zip(outs, ltc.lstm_train_bwd(*bad))), ref,
+                            rtol, share)
+        print(f"  planted fault 'W_hh zeroed in the backward only': worst "
+              f"share of tolerance {fault:.1f}")
+        ms = cuda_ms(torch, lambda: ltc.lstm_train_bwd(*a2), 5)
+        print(f"  two-launch {ms:.3f} ms at B={B} (the persistent design "
+              f"{kernels['lstm_train_bwd']['ms']:.3f} ms at B={B // 2})")
+        kernels["lstm_train_bwd"]["two_launch_ms"] = ms
+        if worst > 1:
+            raise AssertionError(f"the two-launch design disagrees with its "
+                                 f"plain version: worst share {worst:.3f}")
+        if fault < FAULT_MARGIN:
+            raise AssertionError(f"the two-launch design's planted fault "
+                                 f"exceeds the tolerance only {fault:.1f}x")
+
+
 def print_ce_plan(ctc, name, args, flops, ms, bms):
     """The launch of ``name`` at ``args``' shape (the forward: its walk's
     split S, grid and CTAs; the backward: cluster size C, dh's walk split
@@ -724,13 +786,23 @@ def train_phases(torch, kernels, smi, cfg, rcfg):
             + 4 * H * 4 + 6 * B * H * 2 + T * B * 4 * H * 2),
         **ce_train_specs(ctc, M, V, cfg.nhid),
     }
+    designs = {ltc._card_design(a[0].device, a[0].shape[1],
+                                a[0].shape[2] // 4)["design"]
+               for a in recorded["lstm_train_bwd"]}
+    print(f"  row 6 designs of the step's calls: {sorted(designs)}")
+    if designs != {"persistent"}:
+        raise AssertionError(f"the step's row-6 calls are not all on the "
+                             f"persistent design: {designs}")
     check_recorded(torch, kernels, specs, recorded)
+    kernels["lstm_train_bwd"]["design"] = "persistent"
+    lstm_bwd_two_launch_check(torch, kernels, recorded["lstm_train_bwd"][0])
     del recorded
 
     with phase("train main path"):
         for module in (ltc, ctc, l2c):
             for k in module.launches:
                 module.launches[k] = 0
+        ltc.design_launches.update(persistent=0, two_launch=0)
         lstm_cuda.launches = 0
         steps = []
 
@@ -764,6 +836,10 @@ def train_phases(torch, kernels, smi, cfg, rcfg):
             if launches[name] != k * n:
                 raise AssertionError(f"{name}: {launches[name]} launches in "
                                      f"{n} steps, {k} a step expected")
+        print(f"  row 6 launches by design: {ltc.design_launches}")
+        if ltc.design_launches["persistent"] != launches["lstm_train_bwd"]:
+            raise AssertionError("a row-6 call of fit left the persistent "
+                                 f"design: {ltc.design_launches}")
         if launches["lstm2_fwd (evaluate)"] == 0:
             raise AssertionError("evaluate never launched lstm2_fwd")
         if any(l2c.launches.values()):
@@ -1037,6 +1113,7 @@ def bayes_phases(torch, kernels, smi, cfg, rcfg, corpus, tmpdir,
         for module in (ltc, ctc):
             for k in module.launches:
                 module.launches[k] = 0
+        ltc.design_launches.update(persistent=0, two_launch=0)
         lstm_cuda.launches = 0
         bsc.launches = 0
         steps, kls = [], []
@@ -1081,6 +1158,10 @@ def bayes_phases(torch, kernels, smi, cfg, rcfg, corpus, tmpdir,
                 raise AssertionError(f"{name}: {launches[name]} launches in "
                                      f"{n} steps, {k} a step expected")
         kernels["bayes_sample"]["launches"] = launches["bayes_sample"]
+        print(f"  row 6 launches by design: {ltc.design_launches}")
+        if ltc.design_launches["persistent"] != launches["lstm_train_bwd"]:
+            raise AssertionError("a row-6 call of fit left the persistent "
+                                 f"design: {ltc.design_launches}")
         if launches["lstm2_fwd (evaluate)"] == 0:
             raise AssertionError("evaluate never launched lstm2_fwd")
         if not all(np.isfinite(losses)) or not np.isfinite(out["test_loss"]):
@@ -1658,6 +1739,7 @@ def tm_phases(torch, kernels, smi, cfg, rcfg, corpus, tmpdir):
 
     with phase("tm score"):
         ce_cuda.launches = 0
+        ce_cuda.design_launches.update(split=0, wmma=0)
         acu.launches = 0
         pass_s = []
         for _ in range(3):
@@ -1677,8 +1759,11 @@ def tm_phases(torch, kernels, smi, cfg, rcfg, corpus, tmpdir):
               f"{n_hyps / med:.1f} hyps/s, {n_tokens / med:.1f} tokens/s "
               f"({n_hyps} hyps, {n_tokens} scored tokens) on {smi}")
         kernels["ce_fwd" + tag]["launches"] = ce_cuda.launches
-        if ce_cuda.launches == 0:
-            raise AssertionError("TM scoring never launched ce_fwd")
+        print(f"  row 2 by route: {ce_cuda.design_launches}")
+        if ce_cuda.launches == 0 \
+                or ce_cuda.design_launches["split"] != ce_cuda.launches:
+            raise AssertionError("TM scoring never launched ce_fwd, or left "
+                                 "the split route")
         with mock.patch.object(ce_cuda, "fused_decode_ce", ce_cuda.ce_plain):
             ref = np.array([s for pairs in scorer.score_nbest(
                 nbest, w2i).values() for _, s in pairs])
@@ -2329,6 +2414,7 @@ def tm_xl_phase(torch, kernels, smi, cfg, rcfg, ckpt):
 
     with phase("tm xl score"):
         ce_cuda.launches = 0
+        ce_cuda.design_launches.update(split=0, wmma=0)
         acu.launches = 0
         acu.design_launches.update(wgmma=0, simt=0)
         pass_s = []
@@ -2344,12 +2430,15 @@ def tm_xl_phase(torch, kernels, smi, cfg, rcfg, ckpt):
               f"each: {n_chains} chains' first utterances and "
               f"{n_utts - n_chains} memory builds a pass; the scores with "
               "memories take the plain masked attention, as in JAX)")
-        print(f"  row 14 launches by design: {acu.design_launches}")
+        print(f"  row 14 launches by design: {acu.design_launches}; row 2 "
+              f"by route: {ce_cuda.design_launches}")
         if ce_cuda.launches != 3 * n_utts \
+                or ce_cuda.design_launches["split"] != ce_cuda.launches \
                 or acu.launches != 3 * tcfg_m.nlayers * n_utts \
                 or acu.design_launches["wgmma"] != acu.launches:
             raise AssertionError("XL scoring did not launch rows 2 and 14 "
-                                 "as expected (row 14 on wgmma)")
+                                 "as expected (row 2 split, row 14 on "
+                                 "wgmma)")
         kernels["ce_fwd (Transformer, D=512)"]["launches"] += ce_cuda.launches
         kernels["attention_fwd"]["launches"] += acu.launches
         got = np.array([s for pairs in res.values() for _, s in pairs])
@@ -3726,22 +3815,34 @@ def ce_operand_phase(torch, smi, cfg, corpus):
             del trainer
 
 
+# Row 2's routes (ops/ce_cuda.py ``route``): the kernels each launches and
+# the source that holds them
+CE_ROUTES = {"split": ("ce_stats_split, ce_stats_merge",
+                       "bayeslms_tpu_torch/csrc/ce_train.cu"),
+             "wmma": ("ce_fwd_kernel", "bayeslms_tpu_torch/csrc/ce_fwd.cu")}
+
+
 def ce_fwd_check(torch, kernels, args, tag="", atol=CE_ATOL):
-    """Row 2 (the scoring CE) on the call the main path handed it:
-    against its twin within ``atol``, at a ragged vocabulary edge too, a
-    planted fault (targets shifted) that must exceed ``atol`` by
-    FAULT_MARGIN; times it and adds it to ``kernels`` as ce_fwd + ``tag``.
-    Raises on any failed check."""
+    """Row 2 (the scoring CE) on the call the main path handed it, through
+    the route its width takes (``ce_cuda.route``; every wrapper call here
+    must take it): against its twin within ``atol``, at a ragged vocabulary
+    edge too, a planted fault (targets shifted) that must exceed ``atol``
+    by FAULT_MARGIN; times it and adds it to ``kernels`` as ce_fwd +
+    ``tag``, with its design. Raises on any failed check."""
     from bayeslms_tpu_torch.ops import ce_cuda
 
     with phase(f"kernel ce_fwd{tag}"):
         h, emb, bias, tgt = args
         M, D = h.shape
         V = emb.shape[0]
+        design = ce_cuda.route(D)
+        names, source = CE_ROUTES[design]
+        before = dict(ce_cuda.design_launches)
         got = ce_cuda.fused_decode_ce(h, emb, bias, tgt)
         ref = ce_cuda.ce_plain(h, emb, bias, tgt)
         torch.cuda.synchronize()
         err = max_err(got, ref)
+        print(f"  route {design} ({names}, {source})")
         print(f"  M={M} V={V} D={D} {emb.dtype}: max |kernel - plain| "
               f"{err:.3e} (tolerance {atol:.0e}); plain CE mean "
               f"{float(ref.mean()):.4f}, max {float(ref.max()):.4f}")
@@ -3780,18 +3881,81 @@ def ce_fwd_check(torch, kernels, args, tag="", atol=CE_ATOL):
         bms, bby = bound_ms(flops, nbytes)
         print(f"  kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, library "
               f"{library_ms:.3f} ms, bound {bms:.3f} ms ({bby})")
+        if design == "split":
+            plan = ce_cuda.ce_train_cuda._card_fwd_plan(
+                h.device, M, V, D, ce_cuda.SPLIT_WIDTH)
+            print(f"  plan: S {plan['S']}, grid {plan['grid']}, "
+                  f"{plan['ctas']} CTAs; {flops / ms / 1e9:.1f} TFLOP/s, "
+                  f"{bms / ms:.3f} of the bound")
+        took = {k: ce_cuda.design_launches[k] - before[k] for k in before}
+        print(f"  wrapper calls by route in this check: {took}")
         kernels["ce_fwd" + tag] = dict(
-            name="ce_fwd" + tag, route="cuda",
-            source="bayeslms_tpu_torch/csrc/ce_fwd.cu",
+            name="ce_fwd" + tag, route="cuda", source=source,
             replaces="bayeslms_tpu/ops/ce_pallas.py:90",
             max_abs_err=max(err, err_r), ms=ms, plain_ms=plain_ms,
-            bound_ms=bms, bound_by=bby, library_ms=library_ms)
+            bound_ms=bms, bound_by=bby, library_ms=library_ms,
+            design=design, kernels=names)
+        if any(n for k, n in took.items() if k != design):
+            raise AssertionError(f"ce_fwd: a call left route {design}: "
+                                 f"{took}")
         if max(err, err_r) > atol:
             raise AssertionError(f"ce_fwd disagrees with its plain version: "
                                  f"{err:.3e}, ragged {err_r:.3e}")
         if bad < FAULT_MARGIN * atol:
             raise AssertionError(f"ce_fwd: the planted fault exceeds the "
                                  f"tolerance only {bad / atol:.1f}x")
+
+
+# A width that row 2's split route refuses (a multiple of 32, not of 64):
+# scoring at it takes csrc/ce_fwd.cu, which stays for such widths
+NARROW_D = 96
+
+
+def narrow_scoring_phase(torch, kernels, smi, cfg, rcfg, w2i):
+    """A packed-carry pass of the bench's LSTM at emsize = nhid = NARROW_D
+    (random weights), whose scoring calls take ``csrc/ce_fwd.cu``: every
+    call on that route, the scores against the plain path within
+    SCORE_ATOL, then row 2 on one recorded call through ``ce_fwd_check``
+    (tag ``(D=96)``) with its launches from the pass."""
+    import dataclasses
+
+    from bayeslms_tpu_torch import build_model, init_params
+    from bayeslms_tpu_torch.ops import ce_cuda, lstm_cuda
+    from bayeslms_tpu_torch.rescore.scorer import BatchScorer
+
+    tag = f" (D={NARROW_D})"
+    ncfg = dataclasses.replace(cfg, emsize=NARROW_D, nhid=NARROW_D)
+    nbest = make_synthetic_nbest(n_meetings=2)
+    recorded = {}
+    with phase(f"scoring at D={NARROW_D}"):
+        scorer = BatchScorer(ncfg, init_params(build_model(ncfg), ncfg,
+                                               seed=1), rcfg)
+        ce_cuda.launches = 0
+        ce_cuda.design_launches.update(split=0, wmma=0)
+        with recording(ce_cuda, ("fused_decode_ce",), recorded)[0]:
+            out = scorer.score_nbest(nbest, w2i, stream_fn=stream_of)
+        torch.cuda.synchronize()
+        got = np.array([s for pairs in out.values() for _, s in pairs])
+        n_wmma = ce_cuda.design_launches["wmma"]
+        print(f"  row 2 by route in one pass: {ce_cuda.design_launches}")
+        if n_wmma == 0 or n_wmma != ce_cuda.launches:
+            raise AssertionError(f"scoring at D={NARROW_D} did not take "
+                                 f"ce_fwd.cu on every call: "
+                                 f"{ce_cuda.design_launches}")
+        with mock.patch.object(lstm_cuda, "lstm2_fwd", lstm_cuda.lstm2_plain), \
+                mock.patch.object(ce_cuda, "fused_decode_ce",
+                                  ce_cuda.ce_plain):
+            ref = np.array([s for pairs in scorer.score_nbest(
+                nbest, w2i, stream_fn=stream_of).values() for _, s in pairs])
+        diff = float(np.abs(got - ref).max())
+        print(f"  {got.size} scores, |plain| max {np.abs(ref).max():.3f}: "
+              f"max |kernel - plain| {diff:.4e} (tolerance "
+              f"{SCORE_ATOL:.0e}) on {smi}")
+        if not np.all(np.isfinite(got)) or diff > SCORE_ATOL:
+            raise AssertionError(f"scores at D={NARROW_D}: {diff:.4e} from "
+                                 "the plain path")
+    ce_fwd_check(torch, kernels, recorded["fused_decode_ce"][0], tag)
+    kernels["ce_fwd" + tag]["launches"] = n_wmma
 
 
 def library_yardstick(torch, name, args):
@@ -3948,6 +4112,7 @@ def main():
     with phase("main path"):
         lstm_cuda.launches = 0
         ce_cuda.launches = 0
+        ce_cuda.design_launches.update(split=0, wmma=0)
         pass_s = []
         for _ in range(3):
             t0 = time.perf_counter()
@@ -3956,7 +4121,11 @@ def main():
             pass_s.append(time.perf_counter() - t0)
         launches = {"lstm2_fwd": lstm_cuda.launches,
                     "ce_fwd": ce_cuda.launches}
-        print(f"  kernel launches in 3 passes: {launches}")
+        print(f"  kernel launches in 3 passes: {launches}; row 2 by route "
+              f"{ce_cuda.design_launches}")
+        if ce_cuda.design_launches["split"] != ce_cuda.launches:
+            raise AssertionError("a scoring call left the split route: "
+                                 f"{ce_cuda.design_launches}")
         for name, n in launches.items():
             kernels[name]["launches"] = n
             if n == 0:
@@ -3998,6 +4167,7 @@ def main():
             raise AssertionError(f"a planted fault passes the score "
                                  f"tolerance: {faults}")
 
+    narrow_scoring_phase(torch, kernels, smi, cfg, rcfg, w2i)
     corpus, tmp = train_phases(torch, kernels, smi, cfg, rcfg)
     bayes_phases(torch, kernels, smi, cfg, rcfg, corpus, tmp.name)
     lstm2_phases(torch, kernels, smi, cfg, corpus, tmp.name)

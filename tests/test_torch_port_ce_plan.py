@@ -153,3 +153,54 @@ def test_fwd_plan_at_ragged_shapes(M, V, D):
 def test_fwd_plan_refuses_a_width_off_the_slices(D):
     with pytest.raises(ValueError):
         ctc._fwd_plan(3200, V, D, 132)
+
+
+# Row 2, the scoring CE (``ops.ce_cuda``): its width rule, and the
+# forward's plan at the scoring calls, D a multiple of the 64-deep chunk
+@pytest.mark.parametrize("D,route", [(1024, "split"), (512, "split"),
+                                     (64, "split"), (576, "split"),
+                                     (96, "wmma"), (288, "wmma"),
+                                     (32, "wmma")])
+def test_scoring_width_rule(D, route):
+    from bayeslms_tpu_torch.ops import ce_cuda
+
+    assert ce_cuda.route(D) == route
+
+
+@pytest.mark.parametrize("D", [0, 24, 100, 1000])
+def test_scoring_width_rule_refuses_the_rest(D):
+    from bayeslms_tpu_torch.ops import ce_cuda
+
+    with pytest.raises(ValueError):
+        ce_cuda.route(D)
+
+
+# the LSTM pass's call (90,279 scored tokens, D = 1,024: 706 token tiles
+# fill the card unsplit), the XL pass's calls (D = 512, M = 320-640: 3-5
+# token tiles, the walk split 24-32 ways)
+@pytest.mark.parametrize("M,D,S", [(90279, 1024, 1), (90279, 512, 1),
+                                   (320, 512, 32), (480, 512, 32),
+                                   (640, 512, 24)])
+def test_fwd_plan_at_scoring_shapes(M, D, S):
+    plan = ctc._fwd_plan(M, V, D, 132, width=ctc.FWD_CHUNK)
+    assert plan["S"] == S
+    assert plan["grid"] == (-(-M // 128), S)
+    assert plan["workspace_bytes"] == S * M * 3 * 4
+    if S > 1:
+        assert plan["ctas"] >= 96  # the split fills most of the card
+    _check_fwd_cover(plan)
+
+
+@pytest.mark.parametrize("D", [64, 192, 576])
+def test_fwd_plan_takes_the_chunk_width_for_scoring(D):
+    # widths the backward's 256-column slices refuse, which the forward's
+    # 64-deep chunks take
+    with pytest.raises(ValueError):
+        ctc._fwd_plan(300, 4097, D, 132)
+    _check_fwd_cover(ctc._fwd_plan(300, 4097, D, 132, width=ctc.FWD_CHUNK))
+
+
+@pytest.mark.parametrize("D", [32, 96, 100])
+def test_fwd_plan_refuses_a_width_off_the_chunks(D):
+    with pytest.raises(ValueError):
+        ctc._fwd_plan(300, 4097, D, 132, width=ctc.FWD_CHUNK)

@@ -122,6 +122,43 @@ def test_lstm_train_kernels_match_plain(dev, masked):
         _close(a, b, 2 ** -6)
 
 
+# Row 6's persistent design (one cooperative launch, W_hh slices resident
+# in shared memory, a grid barrier a step) at the training width, a ragged
+# batch and H = 512; the two-launch design where ``_design`` sends a batch
+# past its 32 columns. Tolerance: chip_smoke.py's for this kernel
+# (TRAIN_TOL["lstm_train_bwd"]: rtol 2^-6, 2^-10 of the largest entry). At
+# H = 1,024 these inputs' du (up to ~2) round to bf16 the other way often
+# enough that from T = 4 on dh0 and du drift past ``_close``'s 2^-12 of
+# the largest entry for both designs alike (on the card the persistent
+# design sat as close to the twin as the two-launch one at every step);
+# chip_smoke.py holds the 100-step calls of a training step.
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("T,B,H,design", [
+    (4, 32, 1024, "persistent"), (4, 20, 1024, "persistent"),
+    (4, 32, 512, "persistent"), (4, 40, 1024, "two_launch")])
+def test_lstm_train_bwd_designs_match_plain(dev, T, B, H, design, masked):
+    from bayeslms_tpu_torch.ops import lstm_train_cuda as ltc
+
+    assert ltc._card_design(dev, B, H, T)["design"] == design
+    args = _lstm_train_args(dev, T, B, H, masked, seed=B + H)
+    ys, cs, _, _ = ltc.lstm_train_fwd_plain(*args)
+    g = torch.Generator().manual_seed(2)
+    dy = (torch.rand((T, B, H), generator=g) * 2 - 1).to(dev, torch.bfloat16)
+    dhT, dcT = ((torch.rand((B, H), generator=g) * 2 - 1).to(dev, torch.bfloat16)
+                for _ in range(2))
+    before = dict(ltc.design_launches)
+    got = ltc.lstm_train_bwd(*args, ys, cs, dy, dhT, dcT)
+    torch.cuda.synchronize()
+    ref = ltc.lstm_train_bwd_plain(*args, ys, cs, dy, dhT, dcT)
+    assert ltc.design_launches[design] == before[design] + 1
+    for a, b in zip(got, ref):
+        assert a.dtype == torch.bfloat16
+        _within(a, b, 2 ** -6, 2 ** -10)
+    # the same call again: no atomics in the sums, the same bits
+    again = ltc.lstm_train_bwd(*args, ys, cs, dy, dhT, dcT)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
 def _ce_train_args(dev, M, V, D, seed=None):
     """The inputs of the D = 256 test at width D, seeded with M unless
     ``seed`` is given, E scaled by sqrt(256 / D) so that the logits keep
@@ -253,6 +290,35 @@ def test_ce_train_backward_repeats_its_bits(dev, M, V, D):
     assert torch.equal(ctc.ce_train_dh(*args), ctc.ce_train_dh(*args))
     (de1, db1), (de2, db2) = ctc.ce_train_de(*args), ctc.ce_train_de(*args)
     assert torch.equal(de1, de2) and torch.equal(db1, db2)
+
+
+# Row 2 (the scoring CE): the split forward of csrc/ce_train.cu at the
+# LSTM pass's call (90,279 tokens, D = 1,024, S = 1) and the XL pass's (D =
+# 512, M 320 and 640: the walk split 32 and 24 ways), against ce_plain
+@pytest.mark.parametrize("M,V,D", [(90279, 49152, 1024), (320, 49152, 512),
+                                   (640, 49152, 512), (129, 4097, 576)])
+def test_ce_scoring_route_matches_plain(dev, M, V, D):
+    h, emb, bias, tgt, _, _ = _ce_train_args(dev, M, V, D)
+    assert ce_cuda.route(D) == "split"
+    before = dict(ce_cuda.design_launches)
+    got = ce_cuda.fused_decode_ce(h, emb, bias, tgt)
+    ref = ce_cuda.ce_plain(h, emb, bias, tgt)
+    assert ce_cuda.design_launches["split"] == before["split"] + 1
+    assert ce_cuda.design_launches["wmma"] == before["wmma"]
+    torch.testing.assert_close(got, ref, rtol=0, atol=1e-4)
+
+
+# ... and csrc/ce_fwd.cu at the multiples of 32 that the split refuses
+@pytest.mark.parametrize("D", [96, 288])
+def test_ce_wmma_route_at_widths_the_split_refuses(dev, D):
+    h, emb, bias, tgt, _, _ = _ce_train_args(dev, 300, 4097, D)
+    assert ce_cuda.route(D) == "wmma"
+    before = dict(ce_cuda.design_launches)
+    got = ce_cuda.fused_decode_ce(h, emb, bias, tgt)
+    assert ce_cuda.design_launches["wmma"] == before["wmma"] + 1
+    assert ce_cuda.design_launches["split"] == before["split"]
+    torch.testing.assert_close(got, ce_cuda.ce_plain(h, emb, bias, tgt),
+                               rtol=0, atol=1e-4)
 
 
 def test_train_wrappers_refuse_what_the_kernels_do_not_take(dev):
