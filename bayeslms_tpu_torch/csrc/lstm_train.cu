@@ -22,15 +22,31 @@
 //     du[t] = [di i(1-i), df f(1-f), dg (1-g^2), do o(1-o)] stored in bf16,
 //     dh = du[t] W_hh + (1 - keep) dh_tot, the product on the bf16 du.
 //
-// Forward design (row 5): the host function loops over t and launches on
-// the caller's stream, one launch a step: a block owns BM batch columns and
-// BJ hidden units and computes all four gate rows (q*H + j) of them, so the
-// cell update needs nothing from other blocks and h, c update in place.
-// The product's A operand is the bf16 ys[t-1] (equal to the fp32 carry
-// rounded to bf16, as the TPU kernel rounds h before its dot), so no
-// ping-pong buffers are needed. Products run on the tensor cores through
-// wmma (16x16x16 bf16, fp32 accumulators), in the tile functions of
-// csrc/gate_tile.cuh (shared with csrc/gp_lstm.cu).
+// Forward (row 5), two designs, picked by ops/lstm_train_cuda.py `_design`
+// beside the backward's (the same rule: the chosen design runs or raises).
+//
+// "persistent" (B <= 32, H / 8 CTAs no more than the card's SMs, its shared
+// memory within 227 KB), kernel `lstm_fwd_persistent`: one cooperative
+// launch for the whole sequence, the backward's step (a) without the
+// gradients. CTA c owns the 8 hidden units [8c, 8c + 8) and keeps its 4 x 8
+// gate rows of W_hh in shared memory (64 KB at H = 1,024). Step t: the
+// CTA's 32 gate columns from h_{t-1} = ys[t-1] (h0 at t = 0), read from L2
+// straight into the mma.sync m16n8k16 fragments by `warp_product`, the 16
+// warps' partial tiles summed in shared memory in warp order; the cell
+// update of its 32 x 8 (column, unit) pairs, one a thread, the fp32 carries
+// in that thread's registers; ys[t] and cs[t] stored in bf16; a grid
+// barrier, so that every CTA's ys[t] is stored before any CTA reads it: T -
+// 1 barriers a call.
+//
+// "per_step" (the rest), kernel `lstm_fwd_step`: the host function loops
+// over t and launches on the caller's stream, one launch a step: a block
+// owns BM batch columns and BJ hidden units and computes all four gate rows
+// (q*H + j) of them, so the cell update needs nothing from other blocks and
+// h, c update in place. The product's A operand is the bf16 ys[t-1] (equal
+// to the fp32 carry rounded to bf16, as the TPU kernel rounds h before its
+// dot), so no ping-pong buffers are needed. Products run on the tensor
+// cores through wmma (16x16x16 bf16, fp32 accumulators), in the tile
+// functions of csrc/gate_tile.cuh (shared with csrc/gp_lstm.cu).
 //
 // Backward, two designs, picked by ops/lstm_train_cuda.py `_design(B, H)`
 // (an explicit rule: the chosen design runs or raises).
@@ -60,8 +76,7 @@
 // warp order. A thread loads 16 bytes of a row (8 consecutive k) and feeds
 // them to two k16 steps: the mma's k slots are matched to memory so that A
 // and B read the same k in each slot, which only reorders the fp32 sum.
-// The grid barrier is a counter in device memory (red.release.gpu.add
-// after a CTA's stores, ld.acquire.gpu while waiting), zeroed by the
+// The grid barrier is csrc/grid_barrier.cuh's counter, zeroed by the
 // wrapper; the cooperative launch refuses a grid the card cannot hold at
 // once, and the wrapper then raises: nothing falls back.
 //
@@ -80,16 +95,19 @@
 // SXM data sheet's 989 TFLOP/s bf16 (700 W): forward 2 T B H 4H = 26.8
 // GFLOP, 0.027 ms; backward twice that, 0.054 ms. Operations bound, but
 // both are far from it: the steps are dependent, each a small product.
-// The two-launch backward (and the forward) are bound by latency: 200
-// launches a call, each loading its tiles synchronously on 32 blocks and
-// re-reading its W_hh rows from L2; measured by chip_smoke.py on an NVIDIA
-// H100 80GB HBM3 at 700.00 W: 4.1 ms a forward call, 14.8 ms a two-launch
-// backward call (PERF.md). The persistent backward is bound by its 100
-// dependent steps: a barrier, and each CTA's L2 reads of h_{t-1} (64 KB)
-// and du_t (256 KB), 40 MB a step over the grid; measured the same way,
-// 1.47 ms a call, 14.7 us a step (PERF.md).
+// The per-step forward and the two-launch backward are bound by latency:
+// 100 and 200 launches a call, each loading its tiles synchronously on 32
+// blocks and re-reading its W_hh rows from L2; measured by chip_smoke.py
+// on an NVIDIA H100 80GB HBM3 at 700.00 W: 4.1-4.4 ms a forward call,
+// 14.3-14.8 ms a two-launch backward call (PERF.md). The persistent designs
+// are bound by their 100 dependent steps: a barrier, and each CTA's L2
+// reads of h_{t-1} (64 KB; the backward also du_t, 256 KB); measured the
+// same way, the forward 0.71-0.85 ms a call (7-8.5 us a step; cuDNN's
+// forward 2.2-3.4 ms), the backward 1.39-1.47 ms (14.7 us a step)
+// (PERF.md).
 
 #include "gate_tile.cuh"
+#include "grid_barrier.cuh"
 
 namespace {
 
@@ -297,28 +315,6 @@ __device__ __forceinline__ void store_partial(float* red,
             make_float2(acc[m][n][2 * h], acc[m][n][2 * h + 1]);
 }
 
-// The grid barrier: `target` = (barriers so far + 1) x CTAs. Every thread's
-// stores before it are seen by every thread of every CTA after it.
-__device__ __forceinline__ void grid_barrier(unsigned int* count,
-                                             unsigned int target) {
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    __threadfence();
-    asm volatile("red.release.gpu.global.add.u32 [%0], %1;" ::"l"(count),
-                 "r"(1u)
-                 : "memory");
-    unsigned int seen;
-    do {
-      asm volatile("ld.acquire.gpu.global.u32 %0, [%1];"
-                   : "=r"(seen)
-                   : "l"(count)
-                   : "memory");
-    } while (seen < target);
-    __threadfence();
-  }
-  __syncthreads();
-}
-
 struct PersistParams {
   const bf16* xg;     // (T, B, 4H)
   const bf16* w;      // W_hh (4H, H)
@@ -458,6 +454,111 @@ lstm_bwd_persistent(const __grid_constant__ PersistParams p) {
   }
 }
 
+// ------------------------------------------------- the persistent forward
+
+struct FwdPersistParams {
+  const bf16* xg;       // (T, B, 4H)
+  const bf16* w;        // W_hh (4H, H)
+  const float* bias;    // b_hh (4H)
+  const uint8_t* mask;  // (T, B) or null
+  const bf16* h0;       // (B, H)
+  float* h;             // (B, H) fp32 carries: the initial state in, the
+  float* c;             // final state out
+  bf16* ys;             // (T, B, H)
+  bf16* cs;
+  unsigned int* bar;    // the barrier's counter, zero on entry
+  int T, B, H;
+};
+
+// Shared memory: the gate rows (32 x (H + P_PAD)) and the warps' partial
+// gate tiles (P_WARPS x 32 x 32 fp32).
+inline int fwd_persist_smem(int H) {
+  return 32 * (H + P_PAD) * 2 + P_WARPS * P_ROWS * 32 * 4;
+}
+
+// The backward's step (a) without its gradients: the CTA's 32 gate columns
+// from h_{t-1} = ys[t-1] (h0 at t = 0), the cell update of its 32 x 8
+// (column, unit) pairs, one a thread, with the carries in registers, ys[t]
+// and cs[t] stored; a grid barrier, so that every CTA's ys[t] is stored
+// before any CTA reads it.
+__global__ void __launch_bounds__(P_THREADS, 1)
+lstm_fwd_persistent(const __grid_constant__ FwdPersistParams p) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int H = p.H, G = 4 * H, B = p.B;
+  const int ldg = H + P_PAD;
+  bf16* wg = reinterpret_cast<bf16*>(smem);  // row q 8 + u: W[q H + j0 + u]
+  float* red = reinterpret_cast<float*>(wg + 32 * ldg);
+  const int j0 = blockIdx.x * P_UNITS;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+
+  for (int i = tid; i < 32 * (H / 8); i += P_THREADS) {
+    const int r = i / (H / 8), c = (i % (H / 8)) * 8;
+    const int row = (r >> 3) * H + j0 + (r & 7);
+    *reinterpret_cast<uint4*>(wg + r * ldg + c) =
+        *reinterpret_cast<const uint4*>(p.w + (size_t)row * H + c);
+  }
+
+  // thread tid < 256 owns batch column b and unit j; its carries
+  const int b = tid >> 3, j = j0 + (tid & 7);
+  const int col = tid & 7;
+  const bool own = tid < P_ROWS * P_UNITS && b < B;
+  float h = 0.f, c = 0.f, bq[4];
+  if (own) {
+    h = p.h[(size_t)b * H + j];
+    c = p.c[(size_t)b * H + j];
+#pragma unroll
+    for (int q = 0; q < 4; ++q) bq[q] = p.bias[q * H + j];
+  }
+  __syncthreads();
+
+  const size_t BH = (size_t)B * H;
+  unsigned int target = 0;
+  for (int t = 0; t < p.T; ++t) {
+    // this step's elementwise inputs first, in flight during the product
+    float x[4] = {0.f, 0.f, 0.f, 0.f};
+    bool keep = true;
+    if (own) {
+      const bf16* xr = p.xg + ((size_t)t * B + b) * G + j;
+#pragma unroll
+      for (int q = 0; q < 4; ++q) x[q] = __bfloat162float(xr[q * H]);
+      keep = p.mask == nullptr || p.mask[(size_t)t * B + b];
+    }
+    {
+      float acc[2][4][4] = {};
+      warp_product<4, 2>(t == 0 ? p.h0 : p.ys + (t - 1) * BH, B, H, wg, ldg,
+                         warp, lane, acc);
+      store_partial<4>(red, acc, warp, lane);
+    }
+    __syncthreads();
+    if (own) {
+      float g[4];
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        float s = 0.f;
+        for (int w = 0; w < P_WARPS; ++w)
+          s += red[(w * P_ROWS + b) * 32 + q * 8 + col];
+        g[q] = (x[q] + s) + bq[q];
+      }
+      const float cn = sigmoidf(g[1]) * c + sigmoidf(g[0]) * tanhf(g[2]);
+      const float hn = sigmoidf(g[3]) * tanhf(cn);
+      if (keep) {
+        h = hn;
+        c = cn;
+      }
+      p.ys[t * BH + (size_t)b * H + j] = __float2bfloat16(h);
+      p.cs[t * BH + (size_t)b * H + j] = __float2bfloat16(c);
+    }
+    if (t + 1 < p.T) {
+      target += gridDim.x;
+      grid_barrier(p.bar, target);
+    }
+  }
+  if (own) {
+    p.h[(size_t)b * H + j] = h;
+    p.c[(size_t)b * H + j] = c;
+  }
+}
+
 }  // namespace
 
 // Forward over the whole sequence. xg (T, B, 4H) bf16, whh (4H, H) bf16,
@@ -486,6 +587,46 @@ extern "C" int lstm_train_fwd(const void* xg, const void* whh,
     if (err != cudaSuccess) return (int)err;
   }
   return 0;
+}
+
+// The persistent forward (see the header): lstm_train_fwd's arguments,
+// plus bar, one zeroed unsigned int of device memory for the grid barrier.
+// B must be at most 32 and H a multiple of 8; the grid is H / 8 CTAs of 512
+// threads, launched cooperatively, so a grid the card cannot hold at once
+// is refused (cudaErrorCooperativeLaunchTooLarge). Returns the launch
+// error, or 0.
+extern "C" int lstm_train_fwd_persistent(const void* xg, const void* whh,
+                                         const void* bhh, const void* mask,
+                                         const void* h0, void* h, void* c,
+                                         void* ys, void* cs, void* bar, int T,
+                                         int B, int H, void* stream) {
+  if (B > P_ROWS || H % P_UNITS != 0 || H <= 0)
+    return (int)cudaErrorInvalidValue;
+  if (T == 0) return 0;
+  const int smem = fwd_persist_smem(H);
+  cudaError_t err = cudaFuncSetAttribute(
+      lstm_fwd_persistent, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  FwdPersistParams prm;
+  prm.xg = static_cast<const bf16*>(xg);
+  prm.w = static_cast<const bf16*>(whh);
+  prm.bias = static_cast<const float*>(bhh);
+  prm.mask = static_cast<const uint8_t*>(mask);
+  prm.h0 = static_cast<const bf16*>(h0);
+  prm.h = static_cast<float*>(h);
+  prm.c = static_cast<float*>(c);
+  prm.ys = static_cast<bf16*>(ys);
+  prm.cs = static_cast<bf16*>(cs);
+  prm.bar = static_cast<unsigned int*>(bar);
+  prm.T = T;
+  prm.B = B;
+  prm.H = H;
+  void* args[] = {&prm};
+  err = cudaLaunchCooperativeKernel(
+      reinterpret_cast<const void*>(lstm_fwd_persistent), dim3(H / P_UNITS),
+      dim3(P_THREADS), args, (size_t)smem, static_cast<cudaStream_t>(stream));
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
 }
 
 // Backward over the whole sequence, t = T-1..0. Inputs as the forward's,

@@ -1,13 +1,13 @@
 // Hopper (sm_90a) building blocks shared by the port's wgmma kernels,
-// csrc/ce_train.cu (kernel rows 9-11), csrc/attention_train.cu (rows 15-17)
-// and csrc/attention_fwd.cu (row 14): shared-memory addresses, clusters,
-// mbarriers, TMA loads, wgmma's fences and shared-memory descriptors in TMA's
-// 128-byte swizzle, the m64n64k16 / m64n128k16 / m64n256k16 products with
-// both operands in shared memory, those with A from registers, the
-// attention kernels' score chains and 4-D maps of (T, B, H d) views, and the
-// driver's cuTensorMapEncodeTiled found through the runtime (the libraries
-// link no libcuda). PTX ISA 8.0 names; nothing here is specific to one
-// kernel.
+// csrc/ce_train.cu (kernel rows 9-11), csrc/attention_train.cu (rows 15-17),
+// csrc/attention_fwd.cu (row 14) and csrc/lstm2_fwd.cu (row 1):
+// shared-memory addresses, clusters, mbarriers, TMA loads (2-, 3- and 4-D),
+// wgmma's fences and shared-memory descriptors in TMA's 128-byte swizzle,
+// the m64n32k16 / m64n64k16 / m64n128k16 / m64n256k16 products with both
+// operands in shared memory, those with A from registers, the attention
+// kernels' score chains and 4-D maps of (T, B, H d) views, and the driver's
+// cuTensorMapEncodeTiled found through the runtime (the libraries link no
+// libcuda). PTX ISA 8.0 names; nothing here is specific to one kernel.
 
 #pragma once
 
@@ -111,6 +111,18 @@ __device__ __forceinline__ void tma_load_4d(uint32_t dst,
       : "memory");
 }
 
+// the same for a 3-D map, the box at coordinates (c0, c1, c2)
+__device__ __forceinline__ void tma_load_3d(uint32_t dst,
+                                            const CUtensorMap* map, int c0,
+                                            int c1, int c2, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3, %4}], [%5];"
+      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1),
+         "r"(c2), "r"(bar)
+      : "memory");
+}
+
 // `bytes` at src to the same offset in CTA `rank`, completing on that CTA's
 // barrier at the offset of `bar`
 __device__ __forceinline__ void push_peer(uint32_t src, uint32_t bytes,
@@ -171,6 +183,23 @@ __device__ __forceinline__ uint64_t desc_mn(uint32_t addr) {
 // byte offset of bf16 element (row, col) in a swizzled tile of 64 columns
 __device__ __forceinline__ uint32_t swizzled(int row, int col) {
   return row * 128 + ((((col >> 3) ^ row) & 7) << 4) + (col & 7) * 2;
+}
+
+// d (64 x 32, fp32) = A (64 x 16) B (16 x 32) + (acc ? d : 0), A and B bf16
+// in shared memory, B K-major
+__device__ __forceinline__ void wgmma_n32(float* d, uint64_t da,
+                                          uint64_t db, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15"
+      "}, %16, %17, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15])
+      : "l"(da), "l"(db), "r"(acc));
 }
 
 // d (64 x 64, fp32) = A (64 x 16) B (16 x 64) + (acc ? d : 0), A and B bf16

@@ -15,11 +15,14 @@ variants that way.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
 import subprocess
 from typing import Dict, Iterable, Tuple, Union
+
+import torch
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
@@ -91,3 +94,10 @@ def load(kernel: Kernel) -> ctypes.CDLL:
     if lib is None:
         lib = _loaded[kernel] = ctypes.CDLL(build([kernel])[kernel])
     return lib
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(index: int) -> int:
+    """The SMs of CUDA device ``index``, read once; the kernels' rules size
+    their grids by it."""
+    return torch.cuda.get_device_properties(index).multi_processor_count

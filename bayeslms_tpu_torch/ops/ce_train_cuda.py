@@ -218,17 +218,8 @@ def _bwd_plan(M, V, D, n_sm, max_clusters=None, de=False):
                 workspace_bytes=S * M * D * 4 if S > 1 else 0)
 
 
-# device index -> SMs; (device index, which, D) -> clusters the card holds at
-# once
-_sms = {}
+# (device index, which, D) -> clusters the card holds at once
 _card = {}
-
-
-def _n_sm(dev):
-    if dev.index not in _sms:
-        _sms[dev.index] = torch.cuda.get_device_properties(dev) \
-            .multi_processor_count
-    return _sms[dev.index]
 
 
 def _card_plan(dev, M, V, D, de):
@@ -243,11 +234,11 @@ def _card_plan(dev, M, V, D, de):
             raise RuntimeError(f"ce_train backward: the card holds no "
                                f"cluster (CUDA error {-n})")
         _card[key] = n
-    return _bwd_plan(M, V, D, _n_sm(dev), _card[key], de)
+    return _bwd_plan(M, V, D, _build.sm_count(dev.index), _card[key], de)
 
 
 def _card_fwd_plan(dev, M, V, D, width=D_SLICE):
-    return _fwd_plan(M, V, D, _n_sm(dev), width)
+    return _fwd_plan(M, V, D, _build.sm_count(dev.index), width)
 
 
 def _call(name, fn, argtypes, *args, count=True):

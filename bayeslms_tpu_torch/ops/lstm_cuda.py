@@ -3,13 +3,14 @@ wrappers and their plain twins.
 
 Replaces ``bayeslms_tpu/ops/lstm_pallas.py`` ``lstm2_layer_pallas`` (its
 ``_kernel2`` / ``_kernel2_reset`` Pallas bodies) with ``lstm2_fwd``
-(``csrc/lstm2_fwd.cu``), and ``lstm_layer_pallas`` (``_kernel_reset`` and
-``_kernel``, kernel rows 3 and 4) with ``lstm_fwd`` (``csrc/lstm_fwd.cu``);
-``lstm_kernel_ok`` is ``pallas_lstm_ok``'s gate. The kernels' headers say
-what bounds them on the H100 and how their designs answer that. The
-wrappers launch them for CUDA tensors and raise on what they do not take;
-for CPU tensors they run ``lstm2_plain`` and ``lstm_fwd_plain``, which
-repeat the kernels' arithmetic step by step in PyTorch.
+(``csrc/lstm2_fwd.cu``, in two designs picked by ``_design``), and
+``lstm_layer_pallas`` (``_kernel_reset`` and ``_kernel``, kernel rows 3 and
+4) with ``lstm_fwd`` (``csrc/lstm_fwd.cu``); ``lstm_kernel_ok`` is
+``pallas_lstm_ok``'s gate. The kernels' headers say what bounds them on the
+H100 and how their designs answer that. The wrappers launch them for CUDA
+tensors and raise on what they do not take; for CPU tensors they run
+``lstm2_plain`` and ``lstm_fwd_plain``, which repeat the kernels'
+arithmetic step by step in PyTorch.
 
 Arithmetic (kernels and plain alike): h and c are carried in float32; the
 products take h rounded to the weights' dtype and accumulate in float32;
@@ -29,16 +30,73 @@ import torch
 
 from . import _build
 
-# kernel launches (one per call that reaches the kernel); reset by callers
-# that read it, such as chip_smoke.py
+# kernel launches (one per call that reaches the kernel), and those calls
+# by design; reset by callers that read them, such as chip_smoke.py
 launches = 0
+design_launches = {"persistent": 0, "per_step": 0}
 # the same for ``lstm_fwd``, by the TPU kernel a call replaces: row 3 (with
 # resets) and row 4 (without)
 layer_launches = {"lstm_fwd_reset": 0, "lstm_fwd": 0}
 
 _P = ctypes.c_void_p
 _ARGTYPES = [_P] * 14 + [ctypes.c_int] * 3 + [_P]
+_PERSIST_ARGTYPES = [_P] * 18 + [ctypes.c_int] * 4 + [_P]
 _FWD_ARGTYPES = [_P] * 9 + [ctypes.c_int] * 3 + [_P]
+
+# The persistent design's geometry (csrc/lstm2_fwd.cu): hidden units a CTA
+# (of both layers), k columns of a streamed chunk, batch rows of an m tile,
+# bytes of a ring stage (one m64 x 64 bf16 tile), the resident rows' bytes
+# a chunk (64 rows of W_hh1 and W_ih2, 32 of W_hh2, 128 bytes each), fp32
+# product columns a batch row, threads a CTA, the most ring stages, the
+# shared memory a CTA may take.
+Q_UNITS = 8
+Q_KC = 64
+Q_MT = 64
+Q_STAGE = Q_MT * Q_KC * 2
+Q_ROWS_CHUNK = (64 + 32) * Q_KC * 2
+Q_PC = 96
+Q_THREADS = 288
+Q_MAX_NST = 8
+SMEM_LIMIT = 232448
+
+
+def persist_smem(H: int, nst: int) -> int:
+    """Dynamic shared memory of a persistent CTA at width H with ``nst``
+    ring stages, bytes: 1 KB of alignment, the resident rows, the ring, the
+    64 gate rows' biases, the ring's barriers (two a stage)."""
+    return 1024 + (H // Q_KC) * Q_ROWS_CHUNK + nst * Q_STAGE + 64 * 4 \
+        + 2 * nst * 8
+
+
+def _design(T: int, B: int, H: int, n_sm: int) -> dict:
+    """The design of ``lstm2_fwd`` for T steps of B columns at width H on a
+    card of ``n_sm`` SMs: "persistent" (one launch of H / 8 CTAs, each
+    owning 8 hidden units of both layers with their rows of W_hh1, W_ih2
+    and W_hh2 in shared memory, a grid barrier a step) where H is a
+    multiple of 64, the CTAs number no more than the SMs (one a SM) and a
+    CTA's rows and a ring of two stages or more fit its shared memory;
+    "per_step" (``lstm_step_kernel``, 2T launches on (ceil(B / 64), H / 32)
+    blocks) otherwise. An explicit rule: the chosen design runs or raises.
+    Returns a dict with the design, grid, CTAs, units a CTA, threads, ring
+    stages, m tiles, shared memory bytes, launches and barriers for the
+    call."""
+    fixed = persist_smem(H, 0)
+    nst = min(Q_MAX_NST, (SMEM_LIMIT - fixed) // (Q_STAGE + 16))
+    ctas = H // Q_UNITS
+    if H > 0 and H % Q_KC == 0 and ctas <= n_sm and nst >= 2 and B > 0:
+        return dict(design="persistent", grid=(ctas,), ctas=ctas,
+                    units=Q_UNITS, threads=Q_THREADS, stages=nst,
+                    m_tiles=-(-B // Q_MT), smem_bytes=persist_smem(H, nst),
+                    launches=1, barriers=T)
+    grid = (-(-B // 64), H // 32)
+    return dict(design="per_step", grid=grid, ctas=grid[0] * grid[1],
+                units=32, threads=256, stages=None,
+                m_tiles=None, smem_bytes=None, launches=2 * T, barriers=0)
+
+
+def _card_design(dev, T, B, H):
+    return _design(T, B, H, _build.sm_count(dev.index))
+
 
 # The JAX gate's scoped-VMEM arithmetic (lstm_pallas.py `_est_vmem`,
 # `_VMEM_LIMIT`, `_ROWS_FWD`, `_ROWS_TRAIN_BWD`): the largest W_hh and the
@@ -141,14 +199,25 @@ def lstm2_fwd(xg1: torch.Tensor, whh1: torch.Tensor, bhh1: torch.Tensor,
     b2 = b_ih2 + b_hh2, (4H,) float32; h0/c0 (B, H) per layer; step_mask
     and reset_mask (T, B), nonzero = set; reset_src (B,) int, -1 = zero
     state. Returns ys2 (T, B, H), (hT1, hT2), (cT1, cT2), all in the
-    compute dtype. CUDA tensors launch ``csrc/lstm2_fwd.cu`` (bf16 only);
-    CPU tensors run ``lstm2_plain``. Each call that reaches the kernel adds
-    one to the module's ``launches`` (the call itself runs 2T step
-    launches).
+    compute dtype. CUDA tensors launch ``csrc/lstm2_fwd.cu`` in the design
+    ``_design`` picks (bf16 only); CPU tensors run ``lstm2_plain``. Each
+    call that reaches the kernel adds one to the module's ``launches`` and
+    to its design's ``design_launches`` (the persistent design is one
+    launch a call, the per-step design 2T).
     """
     if not xg1.is_cuda:
         return lstm2_plain(xg1, whh1, bhh1, wih2, whh2, b2, h01, c01, h02,
                            c02, step_mask, reset_mask, reset_src)
+    return _lstm2_fwd(None, xg1, whh1, bhh1, wih2, whh2, b2, h01, c01, h02,
+                      c02, step_mask, reset_mask, reset_src)
+
+
+def _lstm2_fwd(design, xg1, whh1, bhh1, wih2, whh2, b2, h01, c01, h02, c02,
+               step_mask=None, reset_mask=None, reset_src=None):
+    """``lstm2_fwd`` on CUDA tensors in ``design`` ("persistent" or
+    "per_step"), or in the one ``_design`` picks where it is None;
+    chip_smoke.py times the per-step design on the persistent design's
+    calls through it. A design that does not take the shapes raises."""
     T, B, G = xg1.shape
     H = G // 4
     dev = xg1.device
@@ -166,16 +235,6 @@ def lstm2_fwd(xg1: torch.Tensor, whh1: torch.Tensor, bhh1: torch.Tensor,
             raise ValueError(f"lstm2_fwd: {name} must be ({B}, {H}) on {dev}")
     if (reset_mask is None) != (reset_src is None):
         raise ValueError("lstm2_fwd: reset_mask and reset_src go together")
-
-    states = []
-    for s0 in ((h01, c01), (h02, c02)):
-        pair = []
-        for s in s0:
-            buf = torch.empty((2, B, H), dtype=torch.float32, device=dev)
-            buf[0].copy_(s)
-            pair.append(buf)
-        states.append(pair)
-    (h1, c1), (h2, c2) = states
     mask = None
     if step_mask is not None:
         mask = (step_mask != 0).to(torch.uint8).contiguous()
@@ -186,24 +245,96 @@ def lstm2_fwd(xg1: torch.Tensor, whh1: torch.Tensor, bhh1: torch.Tensor,
         _check("reset_mask", reset, torch.uint8, (T, B), dev)
         src = reset_src.to(torch.int32).contiguous()
         _check("reset_src", src, torch.int32, (B,), dev)
-    ys = torch.empty((T, B, H), dtype=bf16, device=dev)
+    plan = _card_design(dev, T, B, H)
+    if design is None:
+        design = plan["design"]
+    if design == "persistent" and plan["design"] != "persistent":
+        raise ValueError(f"lstm2_fwd: the persistent design does not take "
+                         f"T={T} B={B} H={H}")
+    run = _persistent if design == "persistent" else _per_step
+    out = run(plan, xg1, whh1, bhh1, wih2, whh2, b2, h01, c01, h02, c02,
+              mask, reset, src)
+    global launches
+    launches += 1
+    design_launches[design] += 1
+    return out
 
-    lib = _build.load("lstm2_fwd")
-    fn = lib.lstm2_fwd
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def _per_step(plan, xg1, whh1, bhh1, wih2, whh2, b2, h01, c01, h02, c02,
+              mask, reset, src):
+    T, B, G = xg1.shape
+    H = G // 4
+    dev = xg1.device
+    bf16 = torch.bfloat16
+    states = []
+    for s0 in ((h01, c01), (h02, c02)):
+        pair = []
+        for s in s0:
+            buf = torch.empty((2, B, H), dtype=torch.float32, device=dev)
+            buf[0].copy_(s)
+            pair.append(buf)
+        states.append(pair)
+    (h1, c1), (h2, c2) = states
+    ys = torch.empty((T, B, H), dtype=bf16, device=dev)
+    fn = _build.load("lstm2_fwd").lstm2_fwd
     fn.argtypes, fn.restype = _ARGTYPES, ctypes.c_int
-    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
-    err = fn(ptr(xg1), ptr(whh1), ptr(bhh1), ptr(wih2), ptr(whh2), ptr(b2),
-             ptr(mask), ptr(reset), ptr(src), ptr(h1), ptr(c1), ptr(h2),
-             ptr(c2), ptr(ys), T, B, H,
+    err = fn(_ptr(xg1), _ptr(whh1), _ptr(bhh1), _ptr(wih2), _ptr(whh2),
+             _ptr(b2), _ptr(mask), _ptr(reset), _ptr(src), _ptr(h1),
+             _ptr(c1), _ptr(h2), _ptr(c2), _ptr(ys), T, B, H,
              torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"lstm2_fwd kernel launch failed: CUDA error {err}")
-    global launches
-    launches += 1
     f = T % 2
     return (ys, (h1[f].to(bf16), h2[f].to(bf16)),
             (c1[f].to(bf16), c2[f].to(bf16)))
 
+
+def _persistent(plan, xg1, whh1, bhh1, wih2, whh2, b2, h01, c01, h02, c02,
+                mask, reset, src):
+    T, B, G = xg1.shape
+    H = G // 4
+    dev = xg1.device
+    bf16 = torch.bfloat16
+    # fp32 carries with the initial state in slot 1 (step s in slot s % 2);
+    # layer 1's raw bf16 h the same way; ys with bf16(h02) in front
+    carries = [torch.empty((2, B, H), dtype=torch.float32, device=dev)
+               for _ in range(4)]
+    for buf, s in zip(carries, (h01, c01, h02, c02)):
+        buf[1].copy_(s)
+    h1, c1, h2, c2 = carries
+    r1 = torch.empty((2, B, H), dtype=bf16, device=dev)
+    r1[1].copy_(h01)
+    y = torch.empty((T + 1, B, H), dtype=bf16, device=dev)
+    y[0].copy_(h02)
+    prod = torch.empty((plan["ctas"], B, Q_PC), dtype=torch.float32,
+                       device=dev)
+    # marks[t, s]: another column takes column s's state at step t, so the
+    # owners store s's product rows for it
+    marks = None
+    if reset is not None:
+        cols = torch.arange(B, dtype=torch.int32, device=dev)
+        takes = (reset != 0) & ((src >= 0) & (src != cols))[None, :]
+        marks = torch.zeros((T, B), dtype=torch.int32, device=dev)
+        marks.scatter_add_(1, src.clamp(min=0).long().expand(T, B),
+                           takes.to(torch.int32))
+        marks = (marks > 0).to(torch.uint8)
+    bar = torch.zeros((1,), dtype=torch.int32, device=dev)
+    fn = _build.load("lstm2_fwd").lstm2_fwd_persistent
+    fn.argtypes, fn.restype = _PERSIST_ARGTYPES, ctypes.c_int
+    err = fn(_ptr(xg1), _ptr(whh1), _ptr(bhh1), _ptr(wih2), _ptr(whh2),
+             _ptr(b2), _ptr(mask), _ptr(reset), _ptr(src), _ptr(marks),
+             _ptr(h1), _ptr(c1), _ptr(h2), _ptr(c2), _ptr(r1), _ptr(y),
+             _ptr(prod), _ptr(bar), T, B, H, plan["stages"],
+             torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"lstm2_fwd persistent launch failed: error {err}")
+    f = (T - 1) % 2
+    return (y[1:], (h1[f].to(bf16), h2[f].to(bf16)),
+            (c1[f].to(bf16), c2[f].to(bf16)))
 
 
 def lstm_fwd_plain(xg, whh, bhh, h0, c0, step_mask=None, reset_mask=None,

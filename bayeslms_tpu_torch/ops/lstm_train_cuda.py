@@ -4,8 +4,8 @@ their plain twins and the autograd Function ``lstm_scan_fused``.
 Replaces ``bayeslms_tpu/ops/lstm_pallas.py`` ``lstm_scan_fused`` (its
 ``_train_fwd_kernel`` and ``_train_bwd_kernel`` Pallas bodies). The kernels
 are in ``csrc/lstm_train.cu``, whose header says what bounds them on the
-H100 and how their designs answer that; the backward has two, picked by
-``_design``. ``lstm_train_fwd`` and
+H100 and how their designs answer that; the forward and the backward have
+two each, picked by ``_design``. ``lstm_train_fwd`` and
 ``lstm_train_bwd`` launch them for CUDA tensors and raise on what they do
 not take; for CPU tensors they run ``lstm_train_fwd_plain`` and
 ``lstm_train_bwd_plain``, which repeat the kernels' arithmetic step by step.
@@ -27,17 +27,20 @@ import torch
 
 from . import _build
 
-# kernel launches, one per call that reaches a kernel (a call runs T step
-# launches forward; the backward one cooperative launch, or 2T in its
-# two-launch design), and the backward's calls by design; reset by callers
+# kernel launches, one per call that reaches a kernel (a call runs one
+# cooperative launch in a persistent design, T step launches in the
+# forward's per-step design, 2T in the backward's two-launch design), and
+# the calls by design, the backward's and the forward's; reset by callers
 # that read them, such as chip_smoke.py
 launches = {"lstm_train_fwd": 0, "lstm_train_bwd": 0}
 design_launches = {"persistent": 0, "two_launch": 0}
+fwd_design_launches = {"persistent": 0, "per_step": 0}
 
 _P = ctypes.c_void_p
 _FWD_ARGTYPES = [_P] * 9 + [ctypes.c_int] * 3 + [_P]
 _BWD_ARGTYPES = [_P] * 12 + [ctypes.c_int] * 3 + [_P]
 _PERSIST_ARGTYPES = [_P] * 13 + [ctypes.c_int] * 3 + [_P]
+_FWD_PERSIST_ARGTYPES = [_P] * 10 + [ctypes.c_int] * 3 + [_P]
 
 # The persistent backward's geometry (csrc/lstm_train.cu): hidden units a
 # CTA, batch columns at most (two m16 row tiles), threads a CTA (16 warps),
@@ -59,38 +62,52 @@ def persist_smem(H: int) -> int:
         + (P_THREADS // 32) * P_ROWS * (32 + 8) * 4
 
 
+def fwd_persist_smem(H: int) -> int:
+    """Dynamic shared memory of a persistent forward CTA at width H, bytes:
+    the gate rows (32 x (H + P_PAD) bf16) and the 16 warps' partial gate
+    tiles (32 x 32 fp32)."""
+    return 32 * (H + P_PAD) * 2 + (P_THREADS // 32) * P_ROWS * 32 * 4
+
+
+def _fits(B: int, H: int, n_sm: int, smem: int) -> bool:
+    return B <= P_ROWS and H % P_UNITS == 0 and 0 < H // P_UNITS <= n_sm \
+        and smem <= SMEM_LIMIT
+
+
 def _design(B: int, H: int, n_sm: int, T: int = 1) -> dict:
-    """The backward's design for batch B and width H on a card of ``n_sm``
-    SMs: "persistent" (one cooperative launch of H / 8 CTAs, each owning 8
-    hidden units with its W_hh slices in shared memory, a grid barrier a
-    step) where B <= 32, H is a multiple of 8, the CTAs number no more than
-    the SMs (one a SM: its shared memory takes most of one) and a CTA's
-    shared memory fits; "two_launch" (``lstm_bwd_gates`` and
-    ``lstm_bwd_dh``, 2T launches on (ceil(B / 32), H / 32) blocks)
-    otherwise. An explicit rule: the chosen design runs or raises. Returns
-    a dict with the design, the grid, CTAs, units a CTA, threads, shared
-    memory bytes and launches for T steps."""
+    """The designs of the forward (row 5) and the backward (row 6) for
+    batch B and width H on a card of ``n_sm`` SMs. "persistent" (one
+    cooperative launch of H / 8 CTAs, each owning 8 hidden units with its
+    W_hh slices in shared memory, a grid barrier a step) where B <= 32, H
+    is a multiple of 8, the CTAs number no more than the SMs (one a SM:
+    its shared memory takes most of one) and a CTA's shared memory fits;
+    otherwise the forward's "per_step" (``lstm_fwd_step``, T launches) and
+    the backward's "two_launch" (``lstm_bwd_gates`` and ``lstm_bwd_dh``, 2T
+    launches), on (ceil(B / 32), H / 32) blocks. An explicit rule: the
+    chosen design runs or raises. Returns a dict with the backward's
+    design, grid, CTAs, units a CTA, threads, shared memory bytes,
+    launches and barriers for T steps, and the forward's as ``fwd_design``,
+    ``fwd_smem_bytes``, ``fwd_launches`` and ``fwd_barriers``."""
+    blocks = (-(-B // TILE), H // TILE)
+    if _fits(B, H, n_sm, fwd_persist_smem(H)):
+        fwd = dict(fwd_design="persistent", fwd_smem_bytes=fwd_persist_smem(H),
+                   fwd_launches=1, fwd_barriers=max(T - 1, 0))
+    else:
+        fwd = dict(fwd_design="per_step", fwd_smem_bytes=None,
+                   fwd_launches=T, fwd_barriers=0)
     smem = persist_smem(H)
-    if B <= P_ROWS and H % P_UNITS == 0 and 0 < H // P_UNITS <= n_sm \
-            and smem <= SMEM_LIMIT:
+    if _fits(B, H, n_sm, smem):
         ctas = H // P_UNITS
         return dict(design="persistent", grid=(ctas,), ctas=ctas,
                     units=P_UNITS, threads=P_THREADS, smem_bytes=smem,
-                    launches=1, barriers=T)
-    grid = (-(-B // TILE), H // TILE)
-    return dict(design="two_launch", grid=grid, ctas=grid[0] * grid[1],
-                units=TILE, threads=None, smem_bytes=None, launches=2 * T,
-                barriers=0)
-
-
-_sms = {}
+                    launches=1, barriers=T, **fwd)
+    return dict(design="two_launch", grid=blocks,
+                ctas=blocks[0] * blocks[1], units=TILE, threads=None,
+                smem_bytes=None, launches=2 * T, barriers=0, **fwd)
 
 
 def _card_design(dev, B, H, T=1):
-    if dev.index not in _sms:
-        _sms[dev.index] = torch.cuda.get_device_properties(dev) \
-            .multi_processor_count
-    return _design(B, H, _sms[dev.index], T)
+    return _design(B, H, _build.sm_count(dev.index), T)
 
 
 def _gates(xg_t, h, w_t, b_hh, dtype):
@@ -208,22 +225,43 @@ def lstm_train_fwd(xg: torch.Tensor, w_hh: torch.Tensor, b_hh: torch.Tensor,
     torch layout in the compute dtype; b_hh (4H,) float32; mask (T, B),
     nonzero = step, or None; h0, c0 (B, H) in the compute dtype. Returns
     ys, cs (T, B, H), hT, cT (B, H), in the compute dtype. CUDA tensors
-    launch ``lstm_train_fwd`` of ``csrc/lstm_train.cu`` (bf16 only); CPU
-    tensors run ``lstm_train_fwd_plain``.
+    launch the forward of ``csrc/lstm_train.cu`` in the design ``_design``
+    picks (bf16 only); CPU tensors run ``lstm_train_fwd_plain``.
     """
     if not xg.is_cuda:
         return lstm_train_fwd_plain(xg, w_hh, b_hh, mask, h0, c0)
+    return _train_fwd(None, xg, w_hh, b_hh, mask, h0, c0)
+
+
+def _train_fwd(design, xg, w_hh, b_hh, mask, h0, c0):
+    """``lstm_train_fwd`` on CUDA tensors in ``design`` ("persistent" or
+    "per_step"), or in the one ``_design`` picks where it is None;
+    chip_smoke.py times the per-step design on the persistent design's
+    calls through it. A design that does not take the shapes raises."""
     fn = "lstm_train_fwd"
     B, H = xg.shape[1], xg.shape[2] // 4
     T, B, H, mask = _checked(fn, xg, w_hh, b_hh, mask,
                              (("h0", h0, (B, H)), ("c0", c0, (B, H))))
+    plan = _card_design(xg.device, B, H, T)["fwd_design"]
+    if design is None:
+        design = plan
+    if design == "persistent" and plan != "persistent":
+        raise ValueError(f"{fn}: the persistent design does not take B={B} "
+                         f"H={H}")
     h = h0.float().contiguous()
     c = c0.float().contiguous()
     ys = torch.empty((T, B, H), dtype=torch.bfloat16, device=xg.device)
     cs = torch.empty_like(ys)
-    _call(fn, _FWD_ARGTYPES, _ptr(xg), _ptr(w_hh), _ptr(b_hh),
-          _ptr(mask), _ptr(h0), _ptr(h), _ptr(c), _ptr(ys), _ptr(cs), T, B, H,
-          torch.cuda.current_stream(xg.device).cuda_stream)
+    stream = torch.cuda.current_stream(xg.device).cuda_stream
+    args = (_ptr(xg), _ptr(w_hh), _ptr(b_hh), _ptr(mask), _ptr(h0), _ptr(h),
+            _ptr(c), _ptr(ys), _ptr(cs))
+    if design == "persistent":
+        bar = torch.zeros((1,), dtype=torch.int32, device=xg.device)
+        _call(fn, _FWD_PERSIST_ARGTYPES, *args, _ptr(bar), T, B, H, stream,
+              entry="lstm_train_fwd_persistent")
+    else:
+        _call(fn, _FWD_ARGTYPES, *args, T, B, H, stream)
+    fwd_design_launches[design] += 1
     return ys, cs, h.to(torch.bfloat16), c.to(torch.bfloat16)
 
 

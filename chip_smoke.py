@@ -17,9 +17,12 @@ training through ``Trainer.fit`` with the recipe's settings (batch 32,
 seq_len 100, lr 5, momentum 0.9, clip 1.0; a synthetic Markov corpus of
 about 20 windows an epoch, 2 epochs), a kernel-path step against the same
 step on the plain versions, and a rescoring pass from the checkpoint
-``fit`` wrote; the LSTM training backward in its persistent design (one
-cooperative launch a call) on the step's calls and in its two-launch
-design at a doubled batch. Then the Bayesian gate-slice LSTM (``l_bayes_pos=3``) on
+``fit`` wrote; the 2-layer scoring recurrence in its persistent design (one
+launch a call) on the pass's call and on an ``evaluate`` window's, with
+its per-step design on the same calls beside it; the LSTM training forward
+and backward in their persistent designs (one cooperative launch a call)
+on the step's calls, the forward's per-step design on the same call and
+the backward's two-launch design at a doubled batch. Then the Bayesian gate-slice LSTM (``l_bayes_pos=3``) on
 the same corpus: the gate-slice sampler kernel against its twin on the
 slices a step hands it (bit-equal uniforms, moments, correlations, the
 gradient, planted-fault builds), one epoch of ``Trainer.fit``, a
@@ -94,8 +97,10 @@ against the plain path (the attention kernel's planted fault must fail
 it), and an on-card check that memories give the suffix of a
 full-context forward. Every phase prints its result and seconds; any
 failure exits non-zero before the result lines. The last two lines are a
-JSON object per kernel (the single-layer forward kernel twice, as the TPU
-kernels it replaces with resets and without; the gate-6 kernels from the
+JSON object per kernel (the 2-layer scoring recurrence at the pass's and
+at the ``evaluate`` call, each with its design and the per-step design's
+time; the single-layer forward kernel twice, as the TPU kernels it
+replaces with resets and without; the gate-6 kernels from the
 ``63`` phases; the CE training kernels at
 the LSTM's D = 1,024,
 the Transformer's 512 and the long step's M = 32,768; the scoring CE at
@@ -171,6 +176,7 @@ def stream_of(key):
 # (the JAX package's pallas_call sites) they make up, for the profiles'
 # kernel names (tools/port_train_profile.py, tools/port_pass_profile.py).
 KERNEL_ROWS = (
+    ("lstm2_persistent", "1"), ("lstm_fwd_persistent", "5"),
     ("lstm_step_kernel", "1, 3, 4"), ("ce_fwd_kernel", "2"),
     ("lstm_fwd_step", "5"), ("lstm_bwd_persistent", "6"),
     ("lstm_bwd_gates", "6"), ("lstm_bwd_dh", "6"),
@@ -304,6 +310,164 @@ def planted(args, fault):
     a = list(args)
     a[i] = a[i].new_full(a[i].shape, fill)
     return a
+
+
+def lstm2_check(torch, kernels, args, tag=""):
+    """Row 1 on one recorded main-path call: the design ``_design`` picks,
+    which must be the persistent one, against the twin within LSTM_RTOL /
+    LSTM_ATOL elementwise, each of LSTM_FAULTS whose argument the call has
+    (an ``evaluate`` call has no mask and no resets) past it; the per-step
+    design on the same call against the twin within the same tolerance and
+    timed beside it (``per_step_ms``). Where the call has no mask and no
+    resets, cuDNN's 2-layer ``torch.nn.LSTM`` forward on the same
+    weights, h0 and c0 is the library time (it also computes x W_ih1^T).
+    Adds ``"lstm2_fwd" + tag`` to ``kernels``. Raises on a failed check."""
+    from bayeslms_tpu_torch.ops import lstm_cuda
+
+    name = "lstm2_fwd" + tag
+    with phase(f"kernel {name}"), torch.no_grad():
+        xg1 = args[0]
+        T, B, G = xg1.shape
+        H = G // 4
+        plan = lstm_cuda._card_design(xg1.device, T, B, H)
+        print(f"  T={T} B={B} H={H}: design {plan['design']}, "
+              f"{plan['ctas']} CTAs, "
+              f"{plan['stages']} ring stages, {plan['m_tiles']} m tiles, "
+              f"{plan['smem_bytes']} bytes of shared memory a CTA")
+        if plan["design"] != "persistent":
+            raise AssertionError(f"_design sends {name} to {plan['design']}")
+        kernel = lstm_cuda.lstm2_fwd
+        per_step = lambda *a: lstm_cuda._lstm2_fwd("per_step", *a)  # noqa: E731
+        ref = lstm_outputs(lstm_cuda.lstm2_plain(*args))
+        print(f"  tolerance |kernel - plain| <= {LSTM_ATOL:.3e} + "
+              f"{LSTM_RTOL:.3e} |plain|, elementwise")
+        errs, ratio = {}, {}
+        for design, fn in (("persistent", kernel), ("per_step", per_step)):
+            before = dict(lstm_cuda.design_launches)
+            got = lstm_outputs(fn(*args))
+            torch.cuda.synchronize()
+            if lstm_cuda.design_launches[design] != before[design] + 1:
+                raise AssertionError(f"the call did not take the {design} "
+                                     f"design: {lstm_cuda.design_launches}")
+            ratio[design] = 0.0
+            for k, r in ref.items():
+                e = max_err(got[k], r)
+                errs[design] = max(errs.get(design, 0.0), e)
+                q = tol_ratio(got[k], r, LSTM_RTOL, LSTM_ATOL)
+                ratio[design] = max(ratio[design], q)
+                print(f"  {design} {k}: |plain| max "
+                      f"{float(r.float().abs().max()):.3e} mean "
+                      f"{float(r.float().abs().mean()):.3e}; max |kernel - "
+                      f"plain| {e:.3e}, worst share of tolerance {q:.3f}")
+            del got
+        faults = {}
+        for fault, (i, _) in LSTM_FAULTS.items():
+            if args[i] is None:  # no mask or no resets in this call
+                continue
+            bad = lstm_outputs(kernel(*planted(args, fault)))
+            faults[fault] = max(tol_ratio(bad[k], r, LSTM_RTOL, LSTM_ATOL)
+                                for k, r in ref.items())
+            print(f"  planted fault '{fault}': worst share of tolerance "
+                  f"{faults[fault]:.1f}")
+            del bad
+        ms = cuda_ms(torch, lambda: kernel(*args), 5)
+        step_ms = cuda_ms(torch, lambda: per_step(*args), 3)
+        plain_ms = cuda_ms(torch, lambda: lstm_cuda.lstm2_plain(*args), 3)
+        reset, mask = args[11], args[10]
+        n_reset = 0 if reset is None else int((reset != 0).sum())
+        n_masked = 0 if mask is None else int((mask == 0).sum())
+        flops = T * 3 * 2 * B * H * G
+        nbytes = (T * B * G * 2 + 3 * G * H * 2 + 2 * G * 4 + 2 * T * B
+                  + B * 4 + 8 * B * H * 2 + T * B * H * 2)
+        bms, bby = bound_ms(flops, nbytes)
+        print(f"  shapes T={T} B={B} H={H} bf16, resets {n_reset}, "
+              f"masked steps {n_masked}")
+        library_ms, lib = None, ("none (no single PyTorch call computes a "
+                                 "masked, resetting 2-layer LSTM)")
+        if mask is None and reset is None:
+            library_ms = cuda_ms(torch, lstm2_library(torch, args), 5)
+            lib = (f"{library_ms:.3f} ms (torch.nn.LSTM(num_layers=2) "
+                   "forward, cuDNN, bf16)")
+        print(f"  persistent {ms:.3f} ms, per-step {step_ms:.3f} ms, plain "
+              f"{plain_ms:.3f} ms, bound {bms:.3f} ms ({bby}); library {lib}")
+        kernels[name] = dict(
+            name=name, route="cuda",
+            source="bayeslms_tpu_torch/csrc/lstm2_fwd.cu",
+            replaces="bayeslms_tpu/ops/lstm_pallas.py:722",
+            max_abs_err=errs["persistent"], ms=ms, plain_ms=plain_ms,
+            bound_ms=bms, bound_by=bby, library_ms=library_ms, launches=0,
+            design="persistent", per_step_ms=step_ms,
+            per_step_max_abs_err=errs["per_step"])
+        if max(ratio.values()) > 1:
+            raise AssertionError(f"{name} disagrees with its plain version: "
+                                 f"worst shares {ratio}, errors {errs}")
+        if min(faults.values()) <= 1:
+            raise AssertionError(f"a planted fault passes the tolerance: "
+                                 f"{faults}")
+
+
+def lstm2_library(torch, args):
+    """A no-argument call of cuDNN's bf16 2-layer ``torch.nn.LSTM`` forward
+    over row 1's call without mask or resets: its W_hh1, W_ih2, W_hh2 and
+    biases (b_hh1 as layer 1's, b2 as layer 2's input bias), its h0 and c0,
+    and a random x of width H (the module also computes x W_ih1^T)."""
+    xg1, whh1, bhh1, wih2, whh2, b2, h01, c01, h02, c02 = args[:10]
+    T, B, G = xg1.shape
+    H = G // 4
+    bf16 = torch.bfloat16
+    lstm = torch.nn.LSTM(H, H, num_layers=2, device="cuda", dtype=bf16)
+    with torch.no_grad():
+        lstm.weight_hh_l0.copy_(whh1)
+        lstm.weight_ih_l1.copy_(wih2)
+        lstm.weight_hh_l1.copy_(whh2)
+        lstm.bias_ih_l0.zero_()
+        lstm.bias_hh_l0.copy_(bhh1)
+        lstm.bias_ih_l1.copy_(b2)
+        lstm.bias_hh_l1.zero_()
+    x = torch.randn((T, B, H), device="cuda", dtype=bf16)
+    h0 = torch.stack((h01, h02)).to(bf16)
+    c0 = torch.stack((c01, c02)).to(bf16)
+    return lambda: lstm(x, (h0, c0))
+
+
+def lstm_fwd_per_step_check(torch, kernels, args):
+    """Row 5's per-step design (``lstm_fwd_step``, one launch a step), which
+    ``_design`` keeps for a batch past 32 columns, on the step's first
+    recorded call (the persistent design's) against the twin within
+    TRAIN_TOL["lstm_train_fwd"], its planted fault (W_hh zeroed) by
+    FAULT_MARGIN or more; timed, and the time added to the persistent
+    design's ``kernels`` entry as ``per_step_ms``. Raises on a failed
+    check."""
+    from bayeslms_tpu_torch.ops import lstm_train_cuda as ltc
+
+    with phase("kernel lstm_train_fwd (per-step design)"), torch.no_grad():
+        rtol, share = TRAIN_TOL["lstm_train_fwd"]
+        outs = ("ys", "cs", "hT", "cT")
+        before = dict(ltc.fwd_design_launches)
+        got = dict(zip(outs, ltc._train_fwd("per_step", *args)))
+        ref = dict(zip(outs, ltc.lstm_train_fwd_plain(*args)))
+        torch.cuda.synchronize()
+        if ltc.fwd_design_launches["per_step"] != before["per_step"] + 1:
+            raise AssertionError("the call did not take the per-step design: "
+                                 f"{ltc.fwd_design_launches}")
+        err, worst = check_outputs("lstm_train_fwd (per-step)", got, ref,
+                                   rtol, share)
+        bad = list(args)
+        bad[1] = torch.zeros_like(args[1])
+        fault = fault_share(dict(zip(outs, ltc._train_fwd("per_step", *bad))),
+                            ref, rtol, share)
+        print(f"  planted fault 'W_hh product dropped': worst share of "
+              f"tolerance {fault:.1f}")
+        ms = cuda_ms(torch, lambda: ltc._train_fwd("per_step", *args), 5)
+        print(f"  per-step {ms:.3f} ms (the persistent design "
+              f"{kernels['lstm_train_fwd']['ms']:.3f} ms on the same call)")
+        kernels["lstm_train_fwd"]["per_step_ms"] = ms
+        if worst > 1:
+            raise AssertionError(f"the per-step design disagrees with its "
+                                 f"plain version: worst share {worst:.3f}")
+        if fault < FAULT_MARGIN:
+            raise AssertionError(f"the per-step design's planted fault "
+                                 f"exceeds the tolerance only {fault:.1f}x")
 
 
 # ---------------------------------------------------------------- training
@@ -786,15 +950,19 @@ def train_phases(torch, kernels, smi, cfg, rcfg):
             + 4 * H * 4 + 6 * B * H * 2 + T * B * 4 * H * 2),
         **ce_train_specs(ctc, M, V, cfg.nhid),
     }
-    designs = {ltc._card_design(a[0].device, a[0].shape[1],
-                                a[0].shape[2] // 4)["design"]
-               for a in recorded["lstm_train_bwd"]}
-    print(f"  row 6 designs of the step's calls: {sorted(designs)}")
-    if designs != {"persistent"}:
-        raise AssertionError(f"the step's row-6 calls are not all on the "
-                             f"persistent design: {designs}")
+    for row, name, key in (("5", "lstm_train_fwd", "fwd_design"),
+                           ("6", "lstm_train_bwd", "design")):
+        designs = {ltc._card_design(a[0].device, a[0].shape[1],
+                                    a[0].shape[2] // 4)[key]
+                   for a in recorded[name]}
+        print(f"  row {row} designs of the step's calls: {sorted(designs)}")
+        if designs != {"persistent"}:
+            raise AssertionError(f"the step's row-{row} calls are not all on "
+                                 f"the persistent design: {designs}")
     check_recorded(torch, kernels, specs, recorded)
+    kernels["lstm_train_fwd"]["design"] = "persistent"
     kernels["lstm_train_bwd"]["design"] = "persistent"
+    lstm_fwd_per_step_check(torch, kernels, recorded["lstm_train_fwd"][0])
     lstm_bwd_two_launch_check(torch, kernels, recorded["lstm_train_bwd"][0])
     del recorded
 
@@ -803,16 +971,28 @@ def train_phases(torch, kernels, smi, cfg, rcfg):
             for k in module.launches:
                 module.launches[k] = 0
         ltc.design_launches.update(persistent=0, two_launch=0)
+        ltc.fwd_design_launches.update(persistent=0, per_step=0)
         lstm_cuda.launches = 0
+        lstm_cuda.design_launches.update(persistent=0, per_step=0)
         steps = []
+        eval_call = []  # evaluate's first row-1 call, copied
 
         def on_step(b, loss):
             torch.cuda.synchronize()
             steps.append((time.perf_counter(), float(loss)))
 
+        def record_eval(*a):
+            if not eval_call:
+                eval_call.append(tuple(None if x is None else x.clone()
+                                       for x in a))
+            return row1(*a)
+
+        row1 = lstm_cuda.lstm2_fwd
         t0 = time.perf_counter()
-        state, out = trainer.fit(corpus, log=lambda line: print("  " + line),
-                                 on_step=on_step)
+        with mock.patch.object(lstm_cuda, "lstm2_fwd", record_eval):
+            state, out = trainer.fit(corpus,
+                                     log=lambda line: print("  " + line),
+                                     on_step=on_step)
         fit_s = time.perf_counter() - t0
         launches = {**ltc.launches, **ctc.launches,
                     "lstm2_fwd (evaluate)": lstm_cuda.launches}
@@ -836,12 +1016,20 @@ def train_phases(torch, kernels, smi, cfg, rcfg):
             if launches[name] != k * n:
                 raise AssertionError(f"{name}: {launches[name]} launches in "
                                      f"{n} steps, {k} a step expected")
-        print(f"  row 6 launches by design: {ltc.design_launches}")
+        print(f"  row 5 launches by design: {ltc.fwd_design_launches}; row "
+              f"6: {ltc.design_launches}; row 1 (evaluate): "
+              f"{lstm_cuda.design_launches}")
+        if ltc.fwd_design_launches["persistent"] != launches["lstm_train_fwd"]:
+            raise AssertionError("a row-5 call of fit left the persistent "
+                                 f"design: {ltc.fwd_design_launches}")
         if ltc.design_launches["persistent"] != launches["lstm_train_bwd"]:
             raise AssertionError("a row-6 call of fit left the persistent "
                                  f"design: {ltc.design_launches}")
         if launches["lstm2_fwd (evaluate)"] == 0:
             raise AssertionError("evaluate never launched lstm2_fwd")
+        if lstm_cuda.design_launches["persistent"] != lstm_cuda.launches:
+            raise AssertionError("an evaluate call left row 1's persistent "
+                                 f"design: {lstm_cuda.design_launches}")
         if any(l2c.launches.values()):
             raise AssertionError(f"the default route launched rows 7-8: "
                                  f"{dict(l2c.launches)}")
@@ -852,6 +1040,11 @@ def train_phases(torch, kernels, smi, cfg, rcfg):
                 f"the loss did not fall: first 5 {np.mean(losses[:5]):.4f}, "
                 f"last 5 {np.mean(losses[-5:]):.4f}")
         del state
+
+    lstm2_check(torch, kernels, eval_call[0], " (evaluate)")
+    kernels["lstm2_fwd (evaluate)"]["launches"] = \
+        launches["lstm2_fwd (evaluate)"]
+    del eval_call
 
     with phase("train step against plain versions"):
         gen = torch.Generator(device="cuda").manual_seed(3)
@@ -4056,61 +4249,14 @@ def main():
             scorer.score_nbest(nbest, w2i, stream_fn=stream_of)
         torch.cuda.synchronize()
 
-    with phase("kernel lstm2_fwd"):
-        args = recorded["lstm"]
-        xg1 = args[0]
-        T, B, G = xg1.shape
-        H = G // 4
-        kernel = lstm_cuda.lstm2_fwd
-        ref = lstm_outputs(lstm_cuda.lstm2_plain(*args))
-        got = lstm_outputs(kernel(*args))
-        torch.cuda.synchronize()
-        print(f"  tolerance |kernel - plain| <= {LSTM_ATOL:.3e} + "
-              f"{LSTM_RTOL:.3e} |plain|, elementwise")
-        errs, ratio = {}, 0.0
-        for k, r in ref.items():
-            errs[k] = max_err(got[k], r)
-            q = tol_ratio(got[k], r, LSTM_RTOL, LSTM_ATOL)
-            ratio = max(ratio, q)
-            print(f"  {k}: |plain| max {float(r.float().abs().max()):.3e} "
-                  f"mean {float(r.float().abs().mean()):.3e}; max |kernel - "
-                  f"plain| {errs[k]:.3e}, worst share of tolerance {q:.3f}")
-        faults = {}
-        for fault in LSTM_FAULTS:
-            bad = lstm_outputs(kernel(*planted(args, fault)))
-            faults[fault] = max(tol_ratio(bad[k], r, LSTM_RTOL, LSTM_ATOL)
-                                for k, r in ref.items())
-            print(f"  planted fault '{fault}': worst share of tolerance "
-                  f"{faults[fault]:.1f}")
-        del bad
-        ms = cuda_ms(torch, lambda: lstm_cuda.lstm2_fwd(*args), 5)
-        plain_ms = cuda_ms(torch, lambda: lstm_cuda.lstm2_plain(*args), 3)
-        n_reset = int((args[11] != 0).sum())
-        flops = T * 3 * 2 * B * H * G
-        nbytes = (T * B * G * 2 + 3 * G * H * 2 + 2 * G * 4 + 2 * T * B
-                  + B * 4 + 8 * B * H * 2 + T * B * H * 2)
-        bms, bby = bound_ms(flops, nbytes)
-        print(f"  shapes T={T} B={B} H={H} bf16, resets {n_reset}, "
-              f"masked steps {int((args[10] == 0).sum())}")
-        print(f"  kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound "
-              f"{bms:.3f} ms ({bby}); library: none (no single PyTorch call "
-              "computes a masked, resetting 2-layer LSTM)")
-        kernels["lstm2_fwd"] = dict(
-            name="lstm2_fwd", route="cuda",
-            source="bayeslms_tpu_torch/csrc/lstm2_fwd.cu",
-            replaces="bayeslms_tpu/ops/lstm_pallas.py:722",
-            max_abs_err=max(errs.values()), ms=ms, plain_ms=plain_ms,
-            bound_ms=bms, bound_by=bby, library_ms=None)
-        if ratio > 1:
-            raise AssertionError(f"lstm2_fwd disagrees with its plain version: {errs}")
-        if min(faults.values()) <= 1:
-            raise AssertionError(f"a planted fault passes the tolerance: {faults}")
+    lstm2_check(torch, kernels, recorded["lstm"])
 
     ce_fwd_check(torch, kernels, recorded["ce"])
-    del recorded, args, xg1, got, ref
+    del recorded
 
     with phase("main path"):
         lstm_cuda.launches = 0
+        lstm_cuda.design_launches.update(persistent=0, per_step=0)
         ce_cuda.launches = 0
         ce_cuda.design_launches.update(split=0, wmma=0)
         pass_s = []
@@ -4121,11 +4267,15 @@ def main():
             pass_s.append(time.perf_counter() - t0)
         launches = {"lstm2_fwd": lstm_cuda.launches,
                     "ce_fwd": ce_cuda.launches}
-        print(f"  kernel launches in 3 passes: {launches}; row 2 by route "
+        print(f"  kernel launches in 3 passes: {launches}; row 1 by design "
+              f"{lstm_cuda.design_launches}; row 2 by route "
               f"{ce_cuda.design_launches}")
         if ce_cuda.design_launches["split"] != ce_cuda.launches:
             raise AssertionError("a scoring call left the split route: "
                                  f"{ce_cuda.design_launches}")
+        if lstm_cuda.design_launches["persistent"] != lstm_cuda.launches:
+            raise AssertionError("a scoring call left row 1's persistent "
+                                 f"design: {lstm_cuda.design_launches}")
         for name, n in launches.items():
             kernels[name]["launches"] = n
             if n == 0:
@@ -4148,6 +4298,7 @@ def main():
         return np.array([s for pairs in res.values() for _, s in pairs])
 
     with phase("main path against plain versions"):
+        kernel = lstm_cuda.lstm2_fwd
         ref = score_with(lstm_cuda.lstm2_plain, ce_cuda.ce_plain)
         diff = float(np.abs(scores - ref).max())
         print(f"  {n_hyps} scores, |plain| mean {np.abs(ref).mean():.3f} max "

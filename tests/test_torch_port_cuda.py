@@ -49,6 +49,73 @@ def test_lstm2_kernel_matches_plain(dev):
         torch.testing.assert_close(a.float(), b.float(), rtol=0, atol=2 ** -6)
 
 
+def _lstm2_args(dev, T, B, H, seed=0):
+    """Row 1's inputs at (T, B, H): W scaled by 1 / sqrt(H), a random step
+    mask, resets on a fifth of the columns' steps, sources in blocks of 10
+    columns and -1 (a zero state) on every ninth."""
+    g = torch.Generator().manual_seed(seed)
+    r = lambda *s, sc=1.0: ((torch.rand(s, generator=g) * 2 - 1) * sc)  # noqa: E731
+    bf = torch.bfloat16
+    sw = H ** -0.5
+    args = [r(T, B, 4 * H).to(dev, bf)]
+    args += [r(4 * H, H, sc=sw).to(dev, bf), r(4 * H, sc=0.1).to(dev)]
+    args += [r(4 * H, H, sc=sw).to(dev, bf), r(4 * H, H, sc=sw).to(dev, bf),
+             r(4 * H, sc=0.1).to(dev)]
+    args += [r(B, H, sc=0.5).to(dev, bf) for _ in range(4)]
+    mask = (torch.rand((T, B), generator=g) < 0.8).to(dev, torch.uint8)
+    reset = (torch.rand((T, B), generator=g) < 0.2).to(dev, torch.uint8)
+    src = ((torch.arange(B) // 10) * 10).to(torch.int32)
+    src[::9] = -1
+    return args + [mask, reset, src.to(dev)]
+
+
+# Row 1's designs: the persistent one (one launch, its rows of the three
+# matrices resident in shared memory, a grid barrier a step) at the
+# scoring call's width with the evaluate call's batch, the scoring batch at
+# a few steps, ragged batches at narrow widths; the per-step one on the
+# same calls and where ``_design`` sends it (H = 96, not a multiple of 64).
+# Tolerance: rtol 2^-6 and 2^-10 of the largest entry. On these uniform
+# inputs an h that rounds to bf16 the other way (the fp32 sums' order)
+# moves the next step's products by ~1e-4, and near zero that is past
+# chip_smoke.py's 2^-14 + 2^-6 |plain| (LSTM_ATOL, LSTM_RTOL) for both
+# designs alike: tools/lstm_fwd_designs.py on the card gives both 1.07 of
+# it at (3, 600, 1,024) here, and 2.05 (persistent) and 2.12 (per-step) at
+# the scoring call on its own uniform inputs (PERF.md). The looser bound is
+# for the per-step design's rounding as much as the persistent one's;
+# chip_smoke.py holds the main path's calls to the tight tolerance.
+@pytest.mark.parametrize("design", ["persistent", "per_step"])
+@pytest.mark.parametrize("T,B,H", [(9, 70, 64), (6, 130, 256), (5, 20, 1024),
+                                   (3, 600, 1024), (7, 33, 512)])
+def test_lstm2_designs_match_plain(dev, T, B, H, design):
+    assert lstm_cuda._card_design(dev, T, B, H)["design"] == "persistent"
+    args = _lstm2_args(dev, T, B, H, seed=B + H)
+    before = dict(lstm_cuda.design_launches)
+    got = lstm_cuda._lstm2_fwd(design, *args)
+    torch.cuda.synchronize()
+    ref = lstm_cuda.lstm2_plain(*args)
+    assert lstm_cuda.design_launches[design] == before[design] + 1
+    for a, b in zip((got[0], *got[1], *got[2]), (ref[0], *ref[1], *ref[2])):
+        assert a.dtype == torch.bfloat16 and a.shape == b.shape
+        _within(a, b, 2 ** -6, 2 ** -10)
+    # the same call again: no atomics in the sums, the same bits
+    again = lstm_cuda._lstm2_fwd(design, *args)
+    assert torch.equal(got[0], again[0])
+
+
+def test_lstm2_rule_takes_the_per_step_design_at_width_96(dev):
+    T, B, H = 5, 70, 96
+    assert lstm_cuda._card_design(dev, T, B, H)["design"] == "per_step"
+    args = _lstm2_args(dev, T, B, H, seed=3)
+    before = dict(lstm_cuda.design_launches)
+    got = lstm_cuda.lstm2_fwd(*args)
+    ref = lstm_cuda.lstm2_plain(*args)
+    assert lstm_cuda.design_launches["per_step"] == before["per_step"] + 1
+    for a, b in zip((got[0], *got[1], *got[2]), (ref[0], *ref[1], *ref[2])):
+        _within(a, b, 2 ** -6, 2 ** -10)
+    with pytest.raises(ValueError):
+        lstm_cuda._lstm2_fwd("persistent", *args)
+
+
 @pytest.mark.parametrize("M,V", [(1, 1), (300, 1000), (129, 4097)])
 def test_ce_kernel_matches_plain(dev, M, V):
     g = torch.Generator().manual_seed(M)
@@ -156,6 +223,39 @@ def test_lstm_train_bwd_designs_match_plain(dev, T, B, H, design, masked):
         _within(a, b, 2 ** -6, 2 ** -10)
     # the same call again: no atomics in the sums, the same bits
     again = ltc.lstm_train_bwd(*args, ys, cs, dy, dhT, dcT)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+# Row 5's designs: the persistent forward (one cooperative launch, its W_hh
+# gate rows resident, a grid barrier a step) at the training width, a
+# ragged batch and H = 512, and the per-step one on the same calls and
+# where ``_design`` sends a batch past 32 columns. Tolerance: chip_smoke.py's
+# for this kernel (TRAIN_TOL["lstm_train_fwd"]: rtol 2^-6, 2^-12 of the
+# largest entry).
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("T,B,H,rule,design", [
+    (9, 32, 1024, "persistent", "persistent"),
+    (9, 32, 1024, "persistent", "per_step"),
+    (9, 20, 1024, "persistent", "persistent"),
+    (9, 32, 512, "persistent", "persistent"),
+    (9, 40, 1024, "per_step", "per_step")])
+def test_lstm_train_fwd_designs_match_plain(dev, T, B, H, rule, design,
+                                            masked):
+    from bayeslms_tpu_torch.ops import lstm_train_cuda as ltc
+
+    assert ltc._card_design(dev, B, H, T)["fwd_design"] == rule
+    args = list(_lstm_train_args(dev, T, B, H, masked, seed=B + H))
+    args[1] = args[1] * (8 / H ** 0.5)  # W scaled by 1 / sqrt(H)
+    before = dict(ltc.fwd_design_launches)
+    got = ltc._train_fwd(design, *args) if design != rule \
+        else ltc.lstm_train_fwd(*args)
+    torch.cuda.synchronize()
+    ref = ltc.lstm_train_fwd_plain(*args)
+    assert ltc.fwd_design_launches[design] == before[design] + 1
+    for a, b in zip(got, ref):
+        assert a.dtype == torch.bfloat16
+        _within(a, b, 2 ** -6, 2 ** -12)
+    again = ltc._train_fwd(design, *args)
     assert all(torch.equal(a, b) for a, b in zip(got, again))
 
 

@@ -1,0 +1,215 @@
+#!/usr/bin/env python3
+"""Kernel rows 1 and 5 (the LSTM forward recurrences) in both designs on
+one card: row 1 (``lstm2_fwd``, the 2-layer scoring recurrence) at the
+LSTM scoring pass's call (T 256, B 600, H 1,024) and at an ``evaluate``
+window's (T 100, B 20), row 5 (``lstm_train_fwd``, the training forward)
+at a training step's call (T 100, B 32, H 1,024).
+
+    python3 tools/lstm_fwd_designs.py [--ptxas] [--repeats 5]
+                                      [--root CHECKOUT]
+
+Needs a CUDA card and nvcc. Inputs are random from fixed seeds: W scaled
+by 1 / sqrt(H), a step mask that drops a tenth of the (step, column)
+pairs; for row 1 resets on a sixteenth of them (an utterance of ~16
+tokens), sources in blocks of 20 columns and -1 (a zero state) on every
+ninth. For each design it prints the time (CUDA events around one wrapper
+call, median of ``--repeats`` after a warm-up), the largest |kernel -
+plain| and its largest share of the tolerance the card tests hold the
+kernel to against its twin (rtol 2^-6 and, of the largest |plain|, 2^-10
+for row 1, 2^-12 for row 5); for row 5 also cuDNN's one-layer
+``torch.nn.LSTM`` forward (it computes x W_ih^T too). Before the timings
+it runs row 1's two designs on the card test's calls and inputs
+(``test_lstm2_designs_match_plain``: a fifth of the steps reset, a fifth
+masked, sources in blocks of 10) and prints each one's largest share of
+the test's tolerance and of chip_smoke.py's (2^-14 + 2^-6 |plain|,
+elementwise). ``--ptxas`` first compiles csrc/lstm2_fwd.cu and
+csrc/lstm_train.cu with ``-Xptxas -v`` and prints each kernel's
+registers, spills and shared memory. ``--root`` measures another
+checkout's kernels (a parent unpacked by ``git archive``; only its
+``bayeslms_tpu_torch/`` is needed), in the designs it has.
+"""
+
+import argparse
+import os
+import subprocess
+import sys
+import tempfile
+
+import numpy as np
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+# tests/test_torch_port_cuda.py's tolerances: rtol, share of max |plain|;
+# chip_smoke.py's for row 1 (LSTM_ATOL)
+RTOL, R1_SHARE, R5_SHARE = 2 ** -6, 2 ** -10, 2 ** -12
+R1_ATOL = 2 ** -14
+# (T, B, H) of test_lstm2_designs_match_plain
+R1_TEST_CALLS = ((9, 70, 64), (6, 130, 256), (5, 20, 1024), (3, 600, 1024),
+                 (7, 33, 512))
+
+
+def ptxas_report():
+    """nvcc's -Xptxas -v lines for the two libraries."""
+    from bayeslms_tpu_torch.ops import _build
+
+    for src in ("lstm2_fwd", "lstm_train"):
+        with tempfile.TemporaryDirectory() as tmp:
+            cmd = [_build._nvcc(), *_build.FLAGS, "-Xptxas", "-v", "-o",
+                   os.path.join(tmp, f"{src}.so"),
+                   os.path.join(_build.CSRC, f"{src}.cu")]
+            res = subprocess.run(cmd, capture_output=True, text=True)
+        for line in (res.stdout + res.stderr).splitlines():
+            if any(w in line for w in ("Compiling entry", "Used", "spill",
+                                       "error", "warning", "wgmma")):
+                print("  " + line.strip())
+        if res.returncode:
+            raise SystemExit(f"nvcc failed ({res.returncode})")
+
+
+def cuda_ms(torch, fn, repeats):
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(repeats):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        torch.cuda.synchronize()
+        times.append(a.elapsed_time(b))
+    return float(np.median(times))
+
+
+def row1_args(torch, T, B, H, seed, keep=0.9, reset_p=1 / 16, block=20):
+    """Row 1's inputs; ``keep`` of the (step, column) pairs unmasked,
+    ``reset_p`` of them reset, sources in blocks of ``block`` columns (0.8,
+    0.2 and 10 with the seed B + H are the card test's)."""
+    g = torch.Generator().manual_seed(seed)
+    r = lambda *s, sc=1.0: (torch.rand(s, generator=g) * 2 - 1) * sc  # noqa: E731
+    bf = torch.bfloat16
+    sw = H ** -0.5
+    args = [r(T, B, 4 * H), r(4 * H, H, sc=sw), r(4 * H, sc=0.1),
+            r(4 * H, H, sc=sw), r(4 * H, H, sc=sw), r(4 * H, sc=0.1)]
+    args += [r(B, H, sc=0.5) for _ in range(4)]
+    mask = (torch.rand((T, B), generator=g) < keep).to(torch.uint8)
+    reset = (torch.rand((T, B), generator=g) < reset_p).to(torch.uint8)
+    src = ((torch.arange(B) // block) * block).to(torch.int32)
+    src[::9] = -1
+    dt = [bf, bf, None, bf, bf, None, bf, bf, bf, bf]
+    out = [a.cuda() if d is None else a.to("cuda", d)
+           for a, d in zip(args, dt)]
+    return out + [mask.cuda(), reset.cuda(), src.cuda()]
+
+
+def row5_args(torch, T, B, H, seed):
+    g = torch.Generator().manual_seed(seed)
+    r = lambda *s, sc=1.0: (torch.rand(s, generator=g) * 2 - 1) * sc  # noqa: E731
+    bf = torch.bfloat16
+    mask = (torch.rand((T, B), generator=g) < 0.9).to(torch.uint8).cuda()
+    return [r(T, B, 4 * H).to("cuda", bf),
+            r(4 * H, H, sc=H ** -0.5).to("cuda", bf),
+            r(4 * H, sc=0.1).cuda(), mask,
+            r(B, H, sc=0.5).to("cuda", bf), r(B, H, sc=0.5).to("cuda", bf)]
+
+
+def share(got, ref, of_max, atol=None):
+    """(largest |got - ref|, its largest share of rtol |ref| + of_max
+    max|ref|, or of rtol |ref| + atol where ``atol`` is given) over the
+    outputs."""
+    err = worst = 0.0
+    for a, b in zip(got, ref):
+        a, b = a.float(), b.float()
+        tol = of_max * float(b.abs().max()) if atol is None else atol
+        err = max(err, float((a - b).abs().max()))
+        worst = max(worst, float(((a - b).abs()
+                                  / (tol + RTOL * b.abs())).max()))
+    return err, worst
+
+
+def flat(out):
+    ys, (h1, h2), (c1, c2) = out
+    return ys, h1, h2, c1, c2
+
+
+def main():
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--ptxas", action="store_true")
+    ap.add_argument("--repeats", type=int, default=5)
+    ap.add_argument("--root", default=ROOT,
+                    help="checkout whose bayeslms_tpu_torch/ is measured")
+    args = ap.parse_args()
+    sys.path.insert(0, os.path.abspath(args.root))
+    import torch
+
+    from bayeslms_tpu_torch.ops import lstm_cuda as lc
+    from bayeslms_tpu_torch.ops import lstm_train_cuda as ltc
+
+    if not torch.cuda.is_available():
+        raise SystemExit("lstm_fwd_designs: no CUDA device")
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True).stdout.strip()
+    print(f"{smi}; kernels of {os.path.abspath(args.root)}")
+    if args.ptxas:
+        ptxas_report()
+    # the parent's wrappers have one design: the public call
+    two = hasattr(lc, "_lstm2_fwd")
+    with torch.no_grad():
+        if two:
+            print("row 1 on the card test's calls: largest share of the "
+                  "test's tolerance / of chip_smoke.py's")
+            for T, B, H in R1_TEST_CALLS:
+                a = row1_args(torch, T, B, H, seed=B + H, keep=0.8,
+                              reset_p=0.2, block=10)
+                ref = flat(lc.lstm2_plain(*a))
+                for d in ("persistent", "per_step"):
+                    got = flat(lc._lstm2_fwd(d, *a))
+                    err, q = share(got, ref, R1_SHARE)
+                    _, q_tight = share(got, ref, R1_SHARE, atol=R1_ATOL)
+                    print(f"  T={T} B={B} H={H} {d}: max |kernel - plain| "
+                          f"{err:.3e}, shares {q:.3f} / {q_tight:.3f}")
+        for label, T, B in (("scoring call", 256, 600),
+                            ("evaluate call", 100, 20)):
+            a = row1_args(torch, T, B, 1024, seed=B)
+            ref = lc.lstm2_plain(*a)
+            runs = {"public": lambda: lc.lstm2_fwd(*a)}
+            if two:
+                plan = lc._card_design(a[0].device, T, B, 1024)
+                print(f"row 1, {label} T={T} B={B} H=1024: rule "
+                      f"{plan['design']}, {plan['ctas']} CTAs, "
+                      f"{plan['stages']} stages, {plan['smem_bytes']} bytes")
+                runs = {d: (lambda d=d: lc._lstm2_fwd(d, *a))
+                        for d in ("persistent", "per_step")}
+            for name, fn in runs.items():
+                err, q = share(flat(fn()), flat(ref), R1_SHARE)
+                _, q_tight = share(flat(fn()), flat(ref), R1_SHARE,
+                                   atol=R1_ATOL)
+                torch.cuda.synchronize()
+                ms = cuda_ms(torch, fn, args.repeats)
+                print(f"  {name}: {ms:.3f} ms, max |kernel - plain| "
+                      f"{err:.3e}, worst share of the test's tolerance "
+                      f"{q:.3f}, of chip_smoke.py's {q_tight:.3f}")
+            del a, ref
+        a = row5_args(torch, 100, 32, 1024, seed=5)
+        ref = ltc.lstm_train_fwd_plain(*a)
+        runs = {"public": lambda: ltc.lstm_train_fwd(*a)}
+        if hasattr(ltc, "_train_fwd"):
+            rule = ltc._card_design(a[0].device, 32, 1024, 100)
+            print(f"row 5, step call T=100 B=32 H=1024: rule "
+                  f"{rule['fwd_design']}")
+            runs = {d: (lambda d=d: ltc._train_fwd(d, *a))
+                    for d in ("persistent", "per_step")}
+        for name, fn in runs.items():
+            err, q = share(fn(), ref, R5_SHARE)
+            torch.cuda.synchronize()
+            print(f"  {name}: {cuda_ms(torch, fn, args.repeats):.3f} ms, "
+                  f"max |kernel - plain| {err:.3e}, worst share of the "
+                  f"tolerance {q:.3f}")
+        lstm = torch.nn.LSTM(1024, 1024, device="cuda", dtype=torch.bfloat16)
+        x = torch.randn((100, 32, 1024), device="cuda", dtype=torch.bfloat16)
+        print(f"  cuDNN torch.nn.LSTM forward: "
+              f"{cuda_ms(torch, lambda: lstm(x), args.repeats):.3f} ms")
+
+
+if __name__ == "__main__":
+    main()
