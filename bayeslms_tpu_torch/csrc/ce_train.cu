@@ -743,21 +743,6 @@ BwdShape bwd_shape(int D) {
   return s;
 }
 
-// a (rows, D) bf16 row-major tensor in boxes of 64 columns x box_rows rows,
-// 128-byte swizzle, zeros past the edges
-int encode_map(EncodeTiled enc, CUtensorMap* map, const void* ptr, int rows,
-               int D, int box_rows) {
-  const cuuint64_t dims[2] = {(cuuint64_t)D, (cuuint64_t)rows};
-  const cuuint64_t strides[1] = {(cuuint64_t)D * 2};
-  const cuuint32_t box[2] = {(cuuint32_t)KC, (cuuint32_t)box_rows};
-  const cuuint32_t step[2] = {1, 1};
-  return (int)enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
-                  const_cast<void*>(ptr), dims, strides, box, step,
-                  CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-                  CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                  CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-}
-
 const void* bwd_kernel(int which) {
   return which ? reinterpret_cast<const void*>(ce_bwd_kernel<true>)
                : reinterpret_cast<const void*>(ce_bwd_kernel<false>);

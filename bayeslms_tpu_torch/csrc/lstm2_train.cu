@@ -35,33 +35,103 @@
 //   du = [di i(1-i), df f(1-f), dg (1-g^2), do o(1-o)] stored in bf16; the
 //   dh products take that rounded du.
 //
-// Design: the host functions loop over t and launch on the caller's stream,
-// in the manner of csrc/lstm_train.cu (rows 5-6), whose tiles they share
-// (csrc/gate_tile.cuh). The forward is two launches a step: layer 1's
-// `GateTile<4>` (a block owns BM columns x BJ units and all four gate rows
-// of them, so the cell update needs nothing from other blocks), which also
-// writes h1d to a (B, H) bf16 buffer; then layer 2's tile, one contraction
-// over K = 2H of [h1d | h2] against [W_ih2 | W_hh2] (`gate_tile2`). The
-// backward is one elementwise launch for the whole sequence (h1d' for every
-// t) and four a step: (a) layer 2's gates and du2; (b) one launch of
-// 2 H / DJ column blocks, half contracting du2 with W_hh2 for dh2, half with
-// W_ih2 for inj (fp32, (B, H)); (c) layer 1's gates and du1; (d) dh1. Stream
-// order makes each launch see the one before it. A one-step skew (layer 1
-// at t and layer 2 at t-1 in one launch) and a persistent kernel with the
-// weights in shared memory are the later redesigns (ROADMAP.md B.4).
+// The forward (row 7): the host function loops over t and launches on the
+// caller's stream, in the manner of csrc/lstm_train.cu's per-step designs,
+// whose tiles it shares (csrc/gate_tile.cuh): two launches a step, layer
+// 1's `GateTile<4>` (a block owns BM columns x BJ units and all four gate
+// rows of them, so the cell update needs nothing from other blocks), which
+// also writes h1d to a (B, H) bf16 buffer; then layer 2's tile, one
+// contraction over K = 2H of [h1d | h2] against [W_ih2 | W_hh2]
+// (`gate_tile2`). A persistent forward, in the manner of row 5's and of
+// this backward's, is the later redesign (ROADMAP.md B.4).
+//
+// The backward (row 8) takes the (T B, H) bf16 operands h1p = [h01, ys1[:-1]],
+// h1d' = bf16(ys1 dm) (`lstm2_h1d`, one elementwise launch) and
+// h2p = [h02, ys2[:-1]], which the caller also needs for the weight
+// gradients, and runs in one of two designs, picked by
+// ops/lstm2_train_cuda.py `_design(B, H, n_sm, T)` (an explicit rule: the
+// chosen design runs or raises).
+//
+// "persistent" (B <= 32, H a multiple of 8, H / 8 CTAs no more than the
+// SMs, the shared memory within 227 KB: the training shape), two launches
+// a call.
+//   (1) `lstm2_gates_gemm`: the gate recompute hoisted out of the
+//       recurrence. Its three products depend only on the forward's stored
+//       outputs, never on a backward carry, so they run for all T steps at
+//       once as (T B) x H x 4H GEMMs: layer 1's gates
+//       G1 = (xg1 + h1p W_hh1^T) + b_hh1 and layer 2's
+//       G2 = (h1d' W_ih2^T + h2p W_hh2^T) + b2, both fp32 (T B, 4H), never
+//       rounded (52 MB each at the training shape). A CTA owns a 128 x 128
+//       tile of one layer's output: two consumer warpgroups of 64 rows and
+//       a producer warp that issues every operand load by TMA (128-byte
+//       swizzle, mbarrier completion) into a ring of six 32 KB stages (a
+//       64-deep chunk of the A operand's 128 rows and of the weight's 128
+//       rows). Each chunk's product is the tensor cores' (four m64n128k16
+//       steps from zero), added in fp32 registers to nearest into the
+//       running sum: the arithmetic of rows 9-11 (csrc/ce_train.cu
+//       `score_tile`; the tensor cores' own fp32 sums truncate). Layer 2's
+//       CTA walks h1d' against W_ih2 first, keeps that sum, then h2p
+//       against W_hh2, and adds the two in the twin's order; its CTAs (twice
+//       the walk) come first in the grid. Grid (4H / 128, T B / 128, 2):
+//       1,600 CTAs, 12 waves on 132 SMs, at the training shape.
+//   (2) `lstm2_bwd_persistent`: one cooperative launch of H / 8 CTAs of 512
+//       threads for the recurrence. CTA c owns hidden units [8c, 8c + 8) of
+//       both layers and keeps three transposed column slices (4H x 8, the
+//       dh products' B operands) in shared memory, loaded once: W_hh2's and
+//       W_ih2's side by side (16 rows) and W_hh1's, 3 x 66 KB at H =
+//       1,024. Layer 2 runs one step ahead of layer 1. Iteration k = 0..T,
+//       t = T - 1 - k:
+//         (a) layer 2's cell backward at t (threads 0-255, one (column,
+//             unit) pair each) and layer 1's at t + 1 (threads 256-511), the
+//             gates read from G1 / G2, du stored in bf16, the fp32 dc carry
+//             in the thread's registers;
+//         a grid barrier: every CTA's du is stored before any CTA reads it;
+//         (b) warps 0-7: from all of du2[t] (B x 4H, 256 KB from L2 straight
+//             into the m16n8k16 fragments, csrc/warp_mma.cuh), the CTA's 8
+//             dh2 columns and 8 inj columns, one A fragment against both
+//             resident slices; warps 8-15: from all of du1[t + 1], its 8 dh1
+//             columns. Each group's 8 partial tiles (16 KB and 8 KB: the
+//             weights leave no room for row 6's 16 partials of every
+//             product) are summed in warp order by the owning thread, which
+//             adds (1 - keep) dh_tot; inj = (du2[t] W_ih2) dm[t] goes to
+//             layer 1's thread of the same (column, unit).
+//       Step (a) of the next iteration needs only the CTA's own units, so
+//       one barrier an iteration suffices: T + 1 barriers, layer 2 alone in
+//       the first iteration and layer 1 alone in the last. The next
+//       iteration's gates, c_{t-1}, dy and mask are read during (b)'s
+//       products. Shared memory 48 (4H + 32) + 24,576 bytes: 222,720 at
+//       H = 1,024.
+// "per_step" (the rest), `lstm2_train_bwd`: four launches a step,
+// (a) layer 2's gates and du2; (b) one launch of 2 H / DJ column blocks,
+// half contracting du2 with W_hh2 for dh2, half with W_ih2 for inj (fp32,
+// (B, H)); (c) layer 1's gates and du1; (d) dh1. Stream order makes each
+// launch see the one before it.
 //
 // Bound at the training shapes (T = 100, B = 32, H = 1,024), from the H100
 // SXM data sheet's 989 TFLOP/s bf16 (700 W): forward three 2 T B H 4H
-// products = 80.5 GFLOP, 0.081 ms; backward six, 0.163 ms. Like rows 5-6,
-// both are bound by the latency of dependent launches (200 forward, 400
-// backward) on 32 blocks, not by either peak.
+// products = 80.5 GFLOP, 0.081 ms; backward six, 0.163 ms. The forward and
+// the per-step backward are bound by the latency of dependent launches (200
+// forward, 400 backward) on 32 blocks, not by either peak. The persistent
+// backward's GEMM is operations bound (80.5 GFLOP); its recurrence by its
+// T + 1 dependent iterations: a barrier and each CTA's L2 reads of
+// du2[t] and du1[t + 1] (512 KB). Measured on an NVIDIA H100 80GB HBM3 at
+// 700.00 W (PERF.md, kernel table, row 8): chip_smoke.py 2.104 ms a
+// persistent call (the per-step design 33.352 on the same call, cuDNN's
+// 2-layer backward 9.544); in a traced fused training step
+// (tools/port_train_profile.py --fused-lstm2) 1.71 ms of device time, the
+// GEMM 0.252 (32% of the bf16 peak), the recurrence 1.442 (14.3 us an
+// iteration) and h1d 0.016, against the per-step design's 32.8.
 //
 // Planted faults, for chip_smoke.py (-DLSTM2_TRAIN_FAULT=n): 1, the
-// backward's recompute ignores the dropout mask (h1d' = ys1); 2, the
-// injection into layer 1 is dropped (inj = 0); 3, the forward ignores the
+// backward's recompute ignores the dropout mask (h1d' = ys1, in
+// `lstm2_dropped`, which both designs take); 2, the injection into layer 1
+// is dropped (inj = 0, in both designs); 3, the forward ignores the
 // dropout mask (h1d = h1).
 
 #include "gate_tile.cuh"
+#include "grid_barrier.cuh"
+#include "sm90.cuh"
+#include "warp_mma.cuh"
 
 #ifndef LSTM2_TRAIN_FAULT
 #define LSTM2_TRAIN_FAULT 0
@@ -301,6 +371,323 @@ lstm2_bwd_dh1(const bf16* __restrict__ du_t, const bf16* __restrict__ w,
   }
 }
 
+// ------------------------------------ the persistent backward, stage (1)
+
+constexpr int GM = 128;  // rows (t, b) of a gate tile: two warpgroups of 64
+constexpr int GN = 128;  // gate columns of a tile
+constexpr int GK = 64;   // a chunk of the contraction: one 128-byte row
+constexpr int G_A_BYTES = GM * GK * 2;            // 16 KB
+constexpr int G_STAGE = G_A_BYTES + GN * GK * 2;  // 32 KB
+constexpr int G_NST = 6;                          // ring stages
+constexpr int G_THREADS = 384;  // consumer warpgroups 0-1, producer 2
+constexpr int G_SMEM = 1024 + G_NST * G_STAGE + 2 * G_NST * 8;
+
+struct GateParams {
+  CUtensorMap a[3];  // h1p, h1d', h2p (T B, H) bf16, boxes of 64 x 128
+  CUtensorMap w[3];  // W_hh1, W_ih2, W_hh2 (4H, H) bf16, boxes of 64 x 128
+  const bf16* xg1;   // (T B, 4H)
+  const float* bhh1;
+  const float* b2;
+  float* g1;  // (T B, 4H) fp32 out
+  float* g2;
+  int M, H;
+};
+
+// s = the sum of nk 64-deep chunks of one (A, W) pair, the stage's 64 rows
+// of A at a_off against its 128 rows of W: each chunk the tensor cores'
+// four k16 steps from zero into c, added into s in fp32 registers.
+__device__ __forceinline__ void gate_walk(float* s, float* c, uint32_t ring,
+                                          uint32_t full0, uint32_t empty0,
+                                          uint32_t a_off, int nk, bool leader,
+                                          int& st, uint32_t& ph) {
+#pragma unroll
+  for (int i = 0; i < 64; ++i) s[i] = 0.f;
+  for (int kc = 0; kc < nk; ++kc) {
+    mbar_wait(full0 + 8 * st, ph);
+    const uint32_t a = ring + st * G_STAGE + a_off;
+    const uint32_t b = ring + st * G_STAGE + G_A_BYTES;
+    fence_regs<64>(c);
+    wgmma_fence();
+#pragma unroll
+    for (int k = 0; k < GK / 16; ++k)
+      wgmma_n128(c, desc_k(a + 32 * k), desc_k(b + 32 * k), k > 0);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs<64>(c);
+#pragma unroll
+    for (int i = 0; i < 64; ++i) s[i] += c[i];
+    if (leader) mbar_arrive(empty0 + 8 * st);
+    if (++st == G_NST) {
+      st = 0;
+      ph ^= 1;
+    }
+  }
+}
+
+// One CTA: gate columns [128 x, +128) of rows [128 y, +128), layer 2
+// (z = 0: (h1d', W_ih2), then (h2p, W_hh2)) or layer 1 (z = 1: (h1p,
+// W_hh1)). Dynamic shared memory, 1 KB aligned: the ring (6 x 32 KB: A's
+// chunk, then W's), the barriers.
+__global__ void __launch_bounds__(G_THREADS, 1)
+lstm2_gates_gemm(const __grid_constant__ GateParams p) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem =
+      smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  const uint32_t ring = smem_u32(smem);
+  const uint32_t bars = ring + G_NST * G_STAGE;
+  auto full = [&](int s) { return bars + 8 * s; };
+  auto empty = [&](int s) { return bars + 8 * (G_NST + s); };
+  const int tid = threadIdx.x;
+  const int n0 = blockIdx.x * GN, m0 = blockIdx.y * GM;
+  const bool two = blockIdx.z == 0;
+  const int nk = (p.H + GK - 1) / GK;
+
+  if (tid == 0) {
+    for (int s = 0; s < G_NST; ++s) {
+      mbar_init(full(s), 1);
+      mbar_init(empty(s), 2);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  if (tid >= 256) {
+    // producer: one thread issues the loads in the consumers' order
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;");
+    if (tid == 256) {
+      int st = 0;
+      uint32_t ph = 0;
+      for (int pair = two ? 1 : 0; pair < (two ? 3 : 1); ++pair)
+        for (int kc = 0; kc < nk; ++kc) {
+          mbar_wait(empty(st), ph ^ 1);
+          mbar_expect(full(st), G_STAGE);
+          tma_load(ring + st * G_STAGE, &p.a[pair], kc * GK, m0, full(st));
+          tma_load(ring + st * G_STAGE + G_A_BYTES, &p.w[pair], kc * GK, n0,
+                   full(st));
+          if (++st == G_NST) {
+            st = 0;
+            ph ^= 1;
+          }
+        }
+    }
+    return;
+  }
+
+  // consumers: warpgroup wg owns rows [64 wg, +64) of the tile; a thread
+  // rows rbase and rbase + 8, columns cbase + 8 g, + 1 (g < 16)
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 240;");
+  const int wg = tid >> 7;
+  const int t = tid & 127;
+  const int lane = tid & 31;
+  const int rbase = 64 * wg + 16 * (t >> 5) + (lane >> 2);
+  const int cbase = 2 * (lane & 3);
+  const int G = 4 * p.H;
+  float s[64], c[64], x[64];
+  int st = 0;
+  uint32_t ph = 0;
+  if (two)
+    gate_walk(x, c, ring, full(0), empty(0), wg * 64 * 128, nk, t == 0, st,
+              ph);
+  gate_walk(s, c, ring, full(0), empty(0), wg * 64 * 128, nk, t == 0, st, ph);
+
+  // the twin's order: (X2 + P2) + b2, (xg1 + P1) + b_hh1
+#pragma unroll
+  for (int i = 0; i < 64; i += 2) {
+    const int row = m0 + rbase + 8 * ((i >> 1) & 1);
+    const int col = n0 + 8 * (i >> 2) + cbase;
+    if (row < p.M && col < G) {
+      const size_t o = (size_t)row * G + col;
+      float2 v;
+      if (two) {
+        v.x = (x[i] + s[i]) + p.b2[col];
+        v.y = (x[i + 1] + s[i + 1]) + p.b2[col + 1];
+        *reinterpret_cast<float2*>(p.g2 + o) = v;
+      } else {
+        const __nv_bfloat162 xv =
+            *reinterpret_cast<const __nv_bfloat162*>(p.xg1 + o);
+        v.x = (__low2float(xv) + s[i]) + p.bhh1[col];
+        v.y = (__high2float(xv) + s[i + 1]) + p.bhh1[col + 1];
+        *reinterpret_cast<float2*>(p.g1 + o) = v;
+      }
+    }
+  }
+}
+
+// ------------------------------------ the persistent backward, stage (2)
+
+constexpr int P_UNITS = 8;  // hidden units a CTA owns, of both layers
+constexpr int P_WARPS = 16;
+constexpr int P_THREADS = 32 * P_WARPS;
+constexpr int P_GROUP = 8;  // warps on each du: 0-7 du2, 8-15 du1
+// bf16 padding of a shared weight row: 64 bytes, so that the 8 rows a
+// quarter warp reads (16 bytes each, 4 a row) fall in distinct banks
+constexpr int P_PAD = 32;
+
+struct Bwd2Params {
+  const float* g1;  // (T, B, 4H) the gate pre-activations from stage (1)
+  const float* g2;
+  const bf16* whh1;  // (4H, H)
+  const bf16* wih2;
+  const bf16* whh2;
+  const uint8_t* mask;  // (T, B) or null
+  const bf16* dm;       // (T, B, H)
+  const bf16* c01;      // (B, H)
+  const bf16* c02;
+  const bf16* cs1;  // (T, B, H)
+  const bf16* cs2;
+  const bf16* dy1;
+  const bf16* dy2;
+  float* dh1;  // (B, H): dhT in, dh0 out
+  float* dc1;
+  float* dh2;
+  float* dc2;
+  bf16* du1;  // (T, B, 4H)
+  bf16* du2;
+  unsigned int* bar;  // the barrier's counter, zero on entry
+  int T, B, H;
+};
+
+// Shared memory: the column slices (16 + 8 rows x (4H + P_PAD) bf16) and
+// the two warp groups' partial tiles (8 x 32 x 16 and 8 x 32 x 8 fp32).
+inline int bwd2_smem(int H) {
+  return 24 * (4 * H + P_PAD) * 2 + P_GROUP * MMA_ROWS * (16 + 8) * 4;
+}
+
+// One thread's inputs of a cell step: the gate pre-activations, c_{s-1},
+// dy_s and keep
+struct CellIn {
+  float g[4], cp, dy, keep;
+};
+
+__global__ void __launch_bounds__(P_THREADS, 1)
+lstm2_bwd_persistent(const __grid_constant__ Bwd2Params p) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int H = p.H, G = 4 * H, B = p.B, T = p.T;
+  const int ldc = G + P_PAD;
+  // rows n and 8 + n: W_hh2[:, j0 + n] and W_ih2[:, j0 + n]; then W_hh1's
+  bf16* w2s = reinterpret_cast<bf16*>(smem);
+  bf16* w1s = w2s + 16 * ldc;
+  float* red2 = reinterpret_cast<float*>(w1s + 8 * ldc);
+  float* red1 = red2 + P_GROUP * MMA_ROWS * 16;
+  const int j0 = blockIdx.x * P_UNITS;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+
+  for (int k = tid; k < G; k += P_THREADS) {
+    const size_t o = (size_t)k * H + j0;
+    const uint4 v2 = *reinterpret_cast<const uint4*>(p.whh2 + o);
+    const uint4 vi = *reinterpret_cast<const uint4*>(p.wih2 + o);
+    const uint4 v1 = *reinterpret_cast<const uint4*>(p.whh1 + o);
+    const bf16* e2 = reinterpret_cast<const bf16*>(&v2);
+    const bf16* ei = reinterpret_cast<const bf16*>(&vi);
+    const bf16* e1 = reinterpret_cast<const bf16*>(&v1);
+#pragma unroll
+    for (int n = 0; n < P_UNITS; ++n) {
+      w2s[n * ldc + k] = e2[n];
+      w2s[(8 + n) * ldc + k] = ei[n];
+      w1s[n * ldc + k] = e1[n];
+    }
+  }
+
+  // threads 0-255 own layer 2's (column b, unit j), 256-511 layer 1's, and
+  // that layer's fp32 carries
+  const bool l2 = tid < 256;
+  const int b = (tid & 255) >> 3, u = tid & 7, j = j0 + u;
+  const bool own = b < B;
+  const size_t BH = (size_t)B * H;
+  const size_t e = (size_t)b * H + j;
+  const float* gates = l2 ? p.g2 : p.g1;
+  const bf16* cs = l2 ? p.cs2 : p.cs1;
+  const bf16* c0 = l2 ? p.c02 : p.c01;
+  const bf16* dyp = l2 ? p.dy2 : p.dy1;
+  bf16* du = l2 ? p.du2 : p.du1;
+  float* dhp = l2 ? p.dh2 : p.dh1;
+  float* dcp = l2 ? p.dc2 : p.dc1;
+  float dh = 0.f, dc = 0.f, carry = 0.f, inj = 0.f;
+  if (own) {
+    dh = dhp[e];
+    dc = dcp[e];
+  }
+  // the step of this thread's layer at iteration k (layer 2 runs one ahead)
+  auto step_of = [&](int k) { return l2 ? T - 1 - k : T - k; };
+  auto fetch = [&](int k, CellIn& in) {
+    const int s = step_of(k);
+    if (!own || s < 0 || s >= T) return;
+    const float* gr = gates + ((size_t)s * B + b) * G + j;
+#pragma unroll
+    for (int q = 0; q < 4; ++q) in.g[q] = gr[q * H];
+    in.cp = __bfloat162float(s == 0 ? c0[e] : cs[(s - 1) * BH + e]);
+    in.dy = __bfloat162float(dyp[s * BH + e]);
+    in.keep = (p.mask == nullptr || p.mask[(size_t)s * B + b]) ? 1.f : 0.f;
+  };
+  CellIn in;
+  fetch(0, in);
+  __syncthreads();
+
+  unsigned int target = 0;
+  for (int k = 0; k <= T; ++k) {
+    const int t = T - 1 - k;  // layer 2's step; layer 1's is t + 1
+    const int s = step_of(k);
+    // (a) the cell's backward of this thread's layer at step s
+    if (own && s >= 0 && s < T) {
+      const float dh_tot = l2 ? dh + in.dy : dh + (in.dy + inj);
+      dc = cell_bwd(in.g, in.cp, in.keep, dh_tot, dc,
+                    du + ((size_t)s * B + b) * G + j, H);
+      carry = (1.0f - in.keep) * dh_tot;
+    }
+    const float dmv = (own && !l2 && t >= 0)
+                          ? __bfloat162float(p.dm[t * BH + e]) : 0.f;
+    target += gridDim.x;
+    grid_barrier(p.bar, target);
+
+    // (b) the next iteration's inputs in flight during the products
+    fetch(k + 1, in);
+    if (warp < P_GROUP) {
+      if (t >= 0) {
+        float acc[2][2][4] = {};
+        warp_product<2, 4, P_GROUP>(p.du2 + (size_t)t * B * G, B, G, w2s,
+                                    ldc, warp, lane, acc);
+        store_partial<2>(red2, acc, warp, lane);
+      }
+    } else if (t + 1 < T) {
+      float acc[2][1][4] = {};
+      warp_product<1, 4, P_GROUP>(p.du1 + (size_t)(t + 1) * B * G, B, G, w1s,
+                                  ldc, warp - P_GROUP, lane, acc);
+      store_partial<1>(red1, acc, warp - P_GROUP, lane);
+    }
+    __syncthreads();
+    if (!own) continue;
+    if (l2) {
+      if (t >= 0) {  // dh2 = du2[t] W_hh2 + (1 - keep) dh2_tot
+        float sum = 0.f;
+        for (int w = 0; w < P_GROUP; ++w)
+          sum += red2[(w * MMA_ROWS + b) * 16 + u];
+        dh = sum + carry;
+      }
+      continue;
+    }
+    if (t >= 0) {  // inj = (du2[t] W_ih2) dm[t], for layer 1 at t
+      float sum = 0.f;
+      for (int w = 0; w < P_GROUP; ++w)
+        sum += red2[(w * MMA_ROWS + b) * 16 + 8 + u];
+#if LSTM2_TRAIN_FAULT == 2
+      inj = 0.f;
+#else
+      inj = sum * dmv;
+#endif
+    }
+    if (t + 1 < T) {  // dh1 = du1[t + 1] W_hh1 + (1 - keep) dh1_tot
+      float sum = 0.f;
+      for (int w = 0; w < P_GROUP; ++w)
+        sum += red1[(w * MMA_ROWS + b) * 8 + u];
+      dh = sum + carry;
+    }
+  }
+  if (own) {
+    dhp[e] = dh;
+    dcp[e] = dc;
+  }
+}
+
 typedef const bf16* cb;
 
 }  // namespace
@@ -349,19 +736,32 @@ extern "C" int lstm2_train_fwd(const void* xg1, const void* dm,
   return 0;
 }
 
-// Backward over the whole sequence, t = T-1..0. Inputs as the forward's,
-// plus c01, c02 (B, H) bf16, the forward's outputs ys1, cs1, ys2, cs2 and
-// dy1, dy2 (T, B, H) bf16; dh1, dc1, dh2, dc2 (B, H) fp32 hold dhT1, dcT1,
-// dhT2, dcT2 on entry and dh01, dc01, dh02, dc02 on return; du1, du2
-// (T, B, 4H) bf16 outputs; workspaces h1d (T, B, H) bf16 and inj (B, H)
-// fp32. Returns the first launch error, or 0.
+// h1d' = bf16(ys1 dm) over n = T B H elements, the backward's layer-2 input
+// (the caller also takes it for dW_ih2). Returns the launch error, or 0.
+extern "C" int lstm2_h1d(const void* ys1, const void* dm, void* h1d,
+                         long long n, void* stream) {
+  if (n == 0) return 0;
+  const long long blocks = (n + 1023) / 1024 < 4096 ? (n + 1023) / 1024 : 4096;
+  lstm2_dropped<<<(unsigned)blocks, 1024, 0,
+                  static_cast<cudaStream_t>(stream)>>>(
+      static_cast<cb>(ys1), static_cast<cb>(dm), static_cast<bf16*>(h1d),
+      (size_t)n);
+  return (int)cudaGetLastError();
+}
+
+// The per-step backward over the whole sequence, t = T-1..0. Inputs as the
+// forward's, plus c01, c02 (B, H) bf16, the forward's outputs ys1, cs1,
+// ys2, cs2, dy1, dy2 (T, B, H) bf16 and h1d (T, B, H) bf16 from
+// `lstm2_h1d`; dh1, dc1, dh2, dc2 (B, H) fp32 hold dhT1, dcT1, dhT2, dcT2
+// on entry and dh01, dc01, dh02, dc02 on return; du1, du2 (T, B, 4H) bf16
+// outputs; workspace inj (B, H) fp32. Returns the first launch error, or 0.
 extern "C" int lstm2_train_bwd(
     const void* xg1, const void* dm, const void* whh1, const void* bhh1,
     const void* wih2, const void* whh2, const void* b2, const void* mask,
     const void* h01, const void* c01, const void* h02, const void* c02,
     const void* ys1, const void* cs1, const void* ys2, const void* cs2,
-    const void* dy1, const void* dy2, void* dh1, void* dc1, void* dh2,
-    void* dc2, void* du1, void* du2, void* h1d, void* inj, int T, int B,
+    const void* dy1, const void* dy2, const void* h1d, void* dh1, void* dc1,
+    void* dh2, void* dc2, void* du1, void* du2, void* inj, int T, int B,
     int H, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const dim3 grid_g((B + BM - 1) / BM, H / BJ);
@@ -373,16 +773,11 @@ extern "C" int lstm2_train_bwd(
   cb y2 = static_cast<cb>(ys2);
   cb k1 = static_cast<cb>(cs1);
   cb k2 = static_cast<cb>(cs2);
+  cb hd = static_cast<cb>(h1d);
   bf16* u1 = static_cast<bf16*>(du1);
   bf16* u2 = static_cast<bf16*>(du2);
-  bf16* hd = static_cast<bf16*>(h1d);
   float* in = static_cast<float*>(inj);
-  const size_t n = (size_t)T * BH;
-  lstm2_dropped<<<(unsigned)((n + 1023) / 1024 < 4096 ? (n + 1023) / 1024
-                                                      : 4096),
-                  1024, 0, st>>>(y1, static_cast<cb>(dm), hd, n);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
+  cudaError_t err;
   for (int t = T - 1; t >= 0; --t) {
     const uint8_t* m_t = m != nullptr ? m + (size_t)t * B : nullptr;
     cb h1p = t == 0 ? static_cast<cb>(h01) : y1 + (t - 1) * BH;
@@ -418,4 +813,91 @@ extern "C" int lstm2_train_bwd(
     if (err != cudaSuccess) return (int)err;
   }
   return 0;
+}
+
+// The persistent backward (see the header): stage (1) `lstm2_gates_gemm`
+// into the fp32 workspaces g1, g2 (T B, 4H), then stage (2)
+// `lstm2_bwd_persistent`, one cooperative launch of H / 8 CTAs of 512
+// threads. xg1 (T, B, 4H), whh1, wih2, whh2 (4H, H), h1p, h1d, h2p (T B, H),
+// dm, cs1, cs2, dy1, dy2 (T, B, H), c01, c02 (B, H), all bf16; bhh1, b2
+// (4H) fp32; mask (T, B) bytes or null; dh1, dc1, dh2, dc2 (B, H) fp32 hold
+// dhT1, dcT1, dhT2, dcT2 on entry and dh01, dc01, dh02, dc02 on return; du1,
+// du2 (T, B, 4H) bf16 outputs; bar one zeroed unsigned int. B must be at
+// most 32 and H a multiple of 8; a grid the card cannot hold at once is
+// refused (cudaErrorCooperativeLaunchTooLarge). Returns the first launch
+// error, or 0; -1 where the driver's cuTensorMapEncodeTiled is not found,
+// -1000 - r where it refuses a descriptor with r.
+extern "C" int lstm2_train_bwd_persistent(
+    const void* xg1, const void* whh1, const void* bhh1, const void* wih2,
+    const void* whh2, const void* b2, const void* mask, const void* dm,
+    const void* h1p, const void* h1d, const void* h2p, const void* c01,
+    const void* c02, const void* cs1, const void* cs2, const void* dy1,
+    const void* dy2, void* dh1, void* dc1, void* dh2, void* dc2, void* du1,
+    void* du2, void* g1, void* g2, void* bar, int T, int B, int H,
+    void* stream) {
+  if (B > MMA_ROWS || H % P_UNITS != 0 || H <= 0)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaError_t err = cudaFuncSetAttribute(
+      lstm2_gates_gemm, cudaFuncAttributeMaxDynamicSharedMemorySize, G_SMEM);
+  if (err != cudaSuccess) return (int)err;
+  const int smem = bwd2_smem(H);
+  err = cudaFuncSetAttribute(lstm2_bwd_persistent,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  if (T == 0 || B == 0) return 0;
+  const int M = T * B, G = 4 * H;
+
+  const EncodeTiled enc = encode_tiled();
+  if (enc == nullptr) return -1;
+  GateParams gp = {};
+  const void* as[3] = {h1p, h1d, h2p};
+  const void* ws[3] = {whh1, wih2, whh2};
+  for (int i = 0; i < 3; ++i) {
+    int r = encode_map(enc, &gp.a[i], as[i], M, H, GM);
+    if (r == 0) r = encode_map(enc, &gp.w[i], ws[i], G, H, GN);
+    if (r != 0) return -1000 - r;
+  }
+  gp.xg1 = static_cast<cb>(xg1);
+  gp.bhh1 = static_cast<const float*>(bhh1);
+  gp.b2 = static_cast<const float*>(b2);
+  gp.g1 = static_cast<float*>(g1);
+  gp.g2 = static_cast<float*>(g2);
+  gp.M = M;
+  gp.H = H;
+  lstm2_gates_gemm<<<dim3((G + GN - 1) / GN, (M + GM - 1) / GM, 2),
+                     G_THREADS, G_SMEM, st>>>(gp);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+
+  Bwd2Params prm;
+  prm.g1 = static_cast<const float*>(g1);
+  prm.g2 = static_cast<const float*>(g2);
+  prm.whh1 = static_cast<cb>(whh1);
+  prm.wih2 = static_cast<cb>(wih2);
+  prm.whh2 = static_cast<cb>(whh2);
+  prm.mask = static_cast<const uint8_t*>(mask);
+  prm.dm = static_cast<cb>(dm);
+  prm.c01 = static_cast<cb>(c01);
+  prm.c02 = static_cast<cb>(c02);
+  prm.cs1 = static_cast<cb>(cs1);
+  prm.cs2 = static_cast<cb>(cs2);
+  prm.dy1 = static_cast<cb>(dy1);
+  prm.dy2 = static_cast<cb>(dy2);
+  prm.dh1 = static_cast<float*>(dh1);
+  prm.dc1 = static_cast<float*>(dc1);
+  prm.dh2 = static_cast<float*>(dh2);
+  prm.dc2 = static_cast<float*>(dc2);
+  prm.du1 = static_cast<bf16*>(du1);
+  prm.du2 = static_cast<bf16*>(du2);
+  prm.bar = static_cast<unsigned int*>(bar);
+  prm.T = T;
+  prm.B = B;
+  prm.H = H;
+  void* args[] = {&prm};
+  err = cudaLaunchCooperativeKernel(
+      reinterpret_cast<const void*>(lstm2_bwd_persistent), dim3(H / P_UNITS),
+      dim3(P_THREADS), args, (size_t)smem, st);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
 }

@@ -108,6 +108,7 @@
 
 #include "gate_tile.cuh"
 #include "grid_barrier.cuh"
+#include "warp_mma.cuh"
 
 namespace {
 
@@ -216,104 +217,12 @@ lstm_bwd_dh(const bf16* __restrict__ du_t, const bf16* __restrict__ w,
 // ------------------------------------------------- the persistent backward
 
 constexpr int P_UNITS = 8;    // hidden units a CTA owns
-constexpr int P_ROWS = 32;    // batch columns at most: two m16 row tiles
+constexpr int P_ROWS = MMA_ROWS;  // batch columns at most: two m16 tiles
 constexpr int P_WARPS = 16;
 constexpr int P_THREADS = 32 * P_WARPS;
 // bf16 padding of a shared weight row: 64 bytes, so that the 8 rows a
 // quarter warp reads (16 bytes each, 4 a row) fall in distinct banks
 constexpr int P_PAD = 32;
-
-// d += a b over one k16 step: m16n8k16, bf16 operands, fp32 accumulators
-__device__ __forceinline__ void mma16816(float (&d)[4], uint32_t a0,
-                                         uint32_t a1, uint32_t a2,
-                                         uint32_t a3, uint32_t b0,
-                                         uint32_t b1) {
-  asm(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
-}
-
-// 16 bytes of device memory through L2 only: du_t is stored by other CTAs
-// during the kernel
-__device__ __forceinline__ uint4 ld_cg16(const bf16* p) {
-  uint4 v;
-  asm volatile("ld.global.cg.v4.u32 {%0, %1, %2, %3}, [%4];"
-               : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
-               : "l"(p));
-  return v;
-}
-
-// The warp's share of acc[m][n] = sum_k A[16 m + r][k] Ws[8 n + c][k]: A
-// (rows, K) bf16 row-major in device memory (rows past `rows` read as
-// zeros), Ws (8 NT rows, K) bf16 in shared memory at pitch ldw. The warp
-// takes the 32-deep k ranges p = warp, warp + P_WARPS, ..., BATCH at once
-// (their A loads in flight together). Lane (g, t) loads 8 consecutive k,
-// [32 p + 8 t, +8), of A's rows g and g + 8 and of Ws' row g, and feeds
-// values 0-3 to one k16 step and 4-7 to the next: slots 2t, 2t+1 take k
-// 32 p + 8 t + 4 s + (0, 1) and slots 2t+8, 2t+9 take + (2, 3), the same k
-// in A and B.
-template <int NT, int BATCH>
-__device__ __forceinline__ void warp_product(const bf16* __restrict__ a,
-                                             int rows, int K, const bf16* ws,
-                                             int ldw, int warp, int lane,
-                                             float (&acc)[2][NT][4]) {
-  const int g = lane >> 2, t = lane & 3;
-  const int npairs = K / 32;
-  for (int p0 = warp; p0 < npairs; p0 += P_WARPS * BATCH) {
-    uint4 av[BATCH][2][2];
-#pragma unroll
-    for (int i = 0; i < BATCH; ++i) {
-      const int p = p0 + P_WARPS * i;
-#pragma unroll
-      for (int m = 0; m < 2; ++m)
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          const int r = 16 * m + 8 * h + g;
-          av[i][m][h] = (p < npairs && r < rows)
-                            ? ld_cg16(a + (size_t)r * K + 32 * p + 8 * t)
-                            : make_uint4(0u, 0u, 0u, 0u);
-        }
-    }
-#pragma unroll
-    for (int i = 0; i < BATCH; ++i) {
-      const int p = p0 + P_WARPS * i;
-      if (p < npairs) {
-#pragma unroll
-        for (int n = 0; n < NT; ++n) {
-          const uint4 bv = *reinterpret_cast<const uint4*>(
-              ws + (size_t)(8 * n + g) * ldw + 32 * p + 8 * t);
-#pragma unroll
-          for (int m = 0; m < 2; ++m) {
-            mma16816(acc[m][n], av[i][m][0].x, av[i][m][1].x, av[i][m][0].y,
-                     av[i][m][1].y, bv.x, bv.y);
-            mma16816(acc[m][n], av[i][m][0].z, av[i][m][1].z, av[i][m][0].w,
-                     av[i][m][1].w, bv.z, bv.w);
-          }
-        }
-      }
-    }
-  }
-}
-
-// The warp's partial tile into red[warp][32 rows][8 NT columns]
-template <int NT>
-__device__ __forceinline__ void store_partial(float* red,
-                                              const float (&acc)[2][NT][4],
-                                              int warp, int lane) {
-  const int g = lane >> 2, t = lane & 3;
-  float* r = red + warp * P_ROWS * 8 * NT;
-#pragma unroll
-  for (int m = 0; m < 2; ++m)
-#pragma unroll
-    for (int n = 0; n < NT; ++n)
-#pragma unroll
-      for (int h = 0; h < 2; ++h)
-        *reinterpret_cast<float2*>(r + (16 * m + 8 * h + g) * 8 * NT + 8 * n +
-                                   2 * t) =
-            make_float2(acc[m][n][2 * h], acc[m][n][2 * h + 1]);
-}
 
 struct PersistParams {
   const bf16* xg;     // (T, B, 4H)
@@ -395,8 +304,8 @@ lstm_bwd_persistent(const __grid_constant__ PersistParams p) {
     }
     {
       float acc[2][4][4] = {};
-      warp_product<4, 2>(t == 0 ? p.h0 : p.ys + (t - 1) * BH, B, H, wg, ldg,
-                         warp, lane, acc);
+      warp_product<4, 2, P_WARPS>(t == 0 ? p.h0 : p.ys + (t - 1) * BH, B,
+                                  H, wg, ldg, warp, lane, acc);
       store_partial<4>(red_a, acc, warp, lane);
     }
     __syncthreads();
@@ -437,8 +346,8 @@ lstm_bwd_persistent(const __grid_constant__ PersistParams p) {
     // (b) dh = du_t W_hh + (1 - keep) dh_tot for the CTA's units
     {
       float acc[2][1][4] = {};
-      warp_product<1, 4>(p.du + (size_t)t * B * G, B, G, wc, ldc, warp, lane,
-                         acc);
+      warp_product<1, 4, P_WARPS>(p.du + (size_t)t * B * G, B, G, wc, ldc,
+                                  warp, lane, acc);
       store_partial<1>(red_b, acc, warp, lane);
     }
     __syncthreads();
@@ -525,8 +434,8 @@ lstm_fwd_persistent(const __grid_constant__ FwdPersistParams p) {
     }
     {
       float acc[2][4][4] = {};
-      warp_product<4, 2>(t == 0 ? p.h0 : p.ys + (t - 1) * BH, B, H, wg, ldg,
-                         warp, lane, acc);
+      warp_product<4, 2, P_WARPS>(t == 0 ? p.h0 : p.ys + (t - 1) * BH, B,
+                                  H, wg, ldg, warp, lane, acc);
       store_partial<4>(red, acc, warp, lane);
     }
     __syncthreads();

@@ -1,10 +1,12 @@
 // Hopper (sm_90a) building blocks shared by the port's wgmma kernels,
 // csrc/ce_train.cu (kernel rows 9-11), csrc/attention_train.cu (rows 15-17),
-// csrc/attention_fwd.cu (row 14) and csrc/lstm2_fwd.cu (row 1):
-// shared-memory addresses, clusters, mbarriers, TMA loads (2-, 3- and 4-D),
-// wgmma's fences and shared-memory descriptors in TMA's 128-byte swizzle,
-// the m64n32k16 / m64n64k16 / m64n128k16 / m64n256k16 products with both
-// operands in shared memory, those with A from registers, the attention
+// csrc/attention_fwd.cu (row 14), csrc/lstm2_fwd.cu (row 1),
+// csrc/lstm2_train.cu (row 8) and csrc/bayes_matmul.cu (row 12):
+// shared-memory addresses, clusters, mbarriers, TMA loads (2-, 3- and 4-D)
+// and 2-D maps of row-major tensors, wgmma's fences and shared-memory
+// descriptors in TMA's 128-byte swizzle, the m64n32k16 / m64n64k16 /
+// m64n104k16 / m64n128k16 / m64n256k16 products with both operands in
+// shared memory, those with A from registers, the attention
 // kernels' score chains and 4-D maps of (T, B, H d) views, and the driver's
 // cuTensorMapEncodeTiled found through the runtime (the libraries link no
 // libcuda). PTX ISA 8.0 names; nothing here is specific to one kernel.
@@ -255,6 +257,34 @@ __device__ __forceinline__ void wgmma_n128(float* d, uint64_t da,
       : "l"(da), "l"(db), "r"(acc));
 }
 
+// the same with N = 104 (csrc/bayes_matmul.cu's 104-column tiles)
+__device__ __forceinline__ void wgmma_n104(float* d, uint64_t da,
+                                           uint64_t db, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %54, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n104k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51"
+      "}, %52, %53, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51])
+      : "l"(da), "l"(db), "r"(acc));
+}
+
 // d (64 x 256, fp32) += A (64 x 16) B (16 x 256), A and B bf16 in shared
 // memory, B MN-major
 __device__ __forceinline__ void wgmma_n256_mn(float* d, uint64_t da,
@@ -423,6 +453,21 @@ __device__ __forceinline__ void wgmma_rs_n128(float* d, const uint32_t* a,
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]),
         "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// a (rows, D) bf16 row-major tensor in boxes of 64 columns x box_rows rows,
+// 128-byte swizzle, zeros past the edges
+inline int encode_map(EncodeTiled enc, CUtensorMap* map, const void* ptr,
+                      int rows, int D, int box_rows) {
+  const cuuint64_t dims[2] = {(cuuint64_t)D, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)D * 2};
+  const cuuint32_t box[2] = {64, (cuuint32_t)box_rows};
+  const cuuint32_t step[2] = {1, 1};
+  return (int)enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
+                  const_cast<void*>(ptr), dims, strides, box, step,
+                  CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                  CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                  CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
 }
 
 // a (T, B, H d) bf16 view with (time, batch) strides st_t, st_b in

@@ -6,10 +6,11 @@ Replaces ``bayeslms_tpu/ops/lstm_pallas.py`` ``lstm2_scan_fused`` (its
 ``_train2_fwd_kernel`` and ``_train2_bwd_kernel`` Pallas bodies, kernel rows
 7-8), ``lstm2_layer_pallas_train`` and ``pallas_lstm2_ok(..., train=True)``.
 The kernels are in ``csrc/lstm2_train.cu``, whose header says what bounds
-them on the H100 and how their design answers that. ``lstm2_train_fwd`` and
-``lstm2_train_bwd`` launch them for CUDA tensors and raise on what they do
-not take (bf16 only); for CPU tensors they run ``lstm2_train_fwd_plain``
-and ``lstm2_train_bwd_plain``, which repeat the kernels' arithmetic step by
+them on the H100 and how their designs answer that; the backward has two,
+picked by ``_design``. ``lstm2_train_fwd`` and ``lstm2_train_bwd`` launch
+them for CUDA tensors and raise on what they do not take (bf16 only); for
+CPU tensors they run ``lstm2_train_fwd_plain`` and
+``lstm2_train_bwd_plain``, which repeat the kernels' arithmetic step by
 step.
 
 Arithmetic (kernels and plain alike), with ``dtype`` the weights' dtype:
@@ -38,13 +39,81 @@ from .lstm_cuda import cell_update
 from .lstm_train_cuda import _check, _ptr, cell_grads
 
 # kernel launches, one per call that reaches a kernel (a call runs 2T step
-# launches forward, 4T + 1 backward); reset by callers that read them, such
-# as chip_smoke.py
+# launches forward; backward, the one launch of ``lstm2_bwd_operands``, then
+# 4T in the per-step design or 2 in the persistent one), and the backward's
+# calls by design; reset by callers that read them, such as chip_smoke.py
 launches = {"lstm2_train_fwd": 0, "lstm2_train_bwd": 0}
+design_launches = {"persistent": 0, "per_step": 0}
 
 _P = ctypes.c_void_p
 _FWD_ARGTYPES = [_P] * 19 + [ctypes.c_int] * 3 + [_P]
 _BWD_ARGTYPES = [_P] * 26 + [ctypes.c_int] * 3 + [_P]
+_PERSIST_ARGTYPES = [_P] * 26 + [ctypes.c_int] * 3 + [_P]
+_H1D_ARGTYPES = [_P] * 3 + [ctypes.c_longlong, _P]
+
+# The persistent backward's geometry (csrc/lstm2_train.cu): hidden units a
+# CTA, batch columns at most (two m16 row tiles), threads a CTA, the bf16
+# padding of a shared weight row, the warps on each layer's du; the gate
+# GEMM's tile (rows x gate columns) and ring stages of 32 KB; the shared
+# memory a CTA may take. The per-step design's tiles: 32 batch columns x 32
+# units.
+P_UNITS = 8
+P_ROWS = 32
+P_THREADS = 512
+P_PAD = 32
+P_GROUP = 8
+GEMM_TILE = 128
+GEMM_STAGES = 6
+SMEM_LIMIT = 232448
+TILE = 32
+
+
+def persist_smem(H: int) -> int:
+    """Dynamic shared memory of a persistent recurrence CTA at width H,
+    bytes: the three transposed column slices (W_hh2's and W_ih2's side by
+    side, then W_hh1's: 24 rows of 4H + P_PAD bf16) and the two warp
+    groups' partial tiles (8 warps x 32 x 16 fp32 for dh2 and inj, 8 x 32
+    x 8 for dh1)."""
+    return 24 * (4 * H + P_PAD) * 2 + P_GROUP * P_ROWS * (16 + 8) * 4
+
+
+def gemm_smem() -> int:
+    """Dynamic shared memory of a gate GEMM CTA, bytes: 1 KB of alignment,
+    six 32 KB ring stages (a 64-deep chunk of 128 rows of the A operand and
+    of the weight) and their full and empty barriers."""
+    return 1024 + GEMM_STAGES * 2 * GEMM_TILE * 64 * 2 + 2 * GEMM_STAGES * 8
+
+
+def _design(B: int, H: int, n_sm: int, T: int = 1) -> dict:
+    """The backward's design (row 8) for batch B and width H on a card of
+    ``n_sm`` SMs. "persistent" (the gate GEMM for all T steps, then one
+    cooperative launch of H / 8 CTAs, each owning 8 units of both layers
+    with three 4H x 8 weight slices in shared memory, a grid barrier an
+    iteration) where B <= 32, H is a multiple of 8, the CTAs number no more
+    than the SMs (one a SM) and a CTA's shared memory fits; otherwise
+    "per_step" (four launches a step on (ceil(B / 32), H / 32) blocks). An
+    explicit rule: the chosen design runs or raises. Returns a dict with
+    the design, the recurrence's grid, CTAs, units a CTA, threads and
+    shared memory bytes, the gate GEMM's grid (gate column tiles, row
+    tiles, layers) and shared memory, and the launches and grid barriers
+    of a call of T steps."""
+    smem = persist_smem(H)
+    if B <= P_ROWS and H % P_UNITS == 0 and 0 < H // P_UNITS <= n_sm \
+            and smem <= SMEM_LIMIT:
+        ctas = H // P_UNITS
+        gemm = (-(-4 * H // GEMM_TILE), -(-T * B // GEMM_TILE), 2)
+        return dict(design="persistent", grid=(ctas,), ctas=ctas,
+                    units=P_UNITS, threads=P_THREADS, smem_bytes=smem,
+                    gemm_grid=gemm, gemm_smem_bytes=gemm_smem(), launches=2,
+                    barriers=T + 1)
+    blocks = (-(-B // TILE), H // TILE)
+    return dict(design="per_step", grid=blocks, ctas=blocks[0] * blocks[1],
+                units=TILE, threads=None, smem_bytes=None, gemm_grid=None,
+                gemm_smem_bytes=None, launches=4 * T, barriers=0)
+
+
+def _card_design(dev, B, H, T=1):
+    return _design(B, H, _build.sm_count(dev.index), T)
 
 # The JAX gate's arithmetic (lstm_pallas.py `_est_vmem2`, `_VMEM_LIMIT`,
 # `_ROWS2_TRAIN_BWD`): each of the three resident weight blocks within
@@ -158,13 +227,14 @@ def _checked(fn, xg1, dm, weights, biases, mask, states):
     return T, B, H, mask
 
 
-def _call(fn, argtypes, *args):
-    f = getattr(_build.load("lstm2_train"), fn)
+def _call(fn, argtypes, *args, entry=None):
+    f = getattr(_build.load("lstm2_train"), entry or fn)
     f.argtypes, f.restype = argtypes, ctypes.c_int
     err = f(*args)
     if err != 0:
         raise RuntimeError(f"{fn} kernel launch failed: CUDA error {err}")
-    launches[fn] += 1
+    if fn in launches:
+        launches[fn] += 1
 
 
 def lstm2_train_fwd(xg1, dm, w_hh1, b_hh1, w_ih2, w_hh2, b2, mask, h01, c01,
@@ -203,6 +273,25 @@ def lstm2_train_fwd(xg1, dm, w_hh1, b_hh1, w_ih2, w_hh2, b2, mask, h01, c01,
     return (*seqs, *(s.to(torch.bfloat16) for s in (h1, c1, h2, c2)))
 
 
+def lstm2_bwd_operands(dm, h01, h02, ys1, ys2):
+    """The backward kernels' (T B, H) operands: h1p = [h01, ys1[:-1]],
+    h1d = ys1 dm rounded to the compute dtype (layer 2's input, recomputed)
+    and h2p = [h02, ys2[:-1]]. For CUDA tensors h1d is one launch of
+    ``lstm2_h1d`` (bf16 only), for CPU tensors the product in torch."""
+    T, B, H = ys1.shape
+    h1p = torch.cat([h01[None], ys1[:-1]]).reshape(T * B, H)
+    h2p = torch.cat([h02[None], ys2[:-1]]).reshape(T * B, H)
+    if not ys1.is_cuda:
+        return h1p, (ys1 * dm.to(ys1.dtype)).reshape(T * B, H), h2p
+    fn = "lstm2_h1d"
+    for name, t in (("ys1", ys1), ("dm", dm)):
+        _check(fn, name, t, torch.bfloat16, (T, B, H), ys1.device)
+    h1d = torch.empty((T * B, H), dtype=torch.bfloat16, device=ys1.device)
+    _call(fn, _H1D_ARGTYPES, _ptr(ys1), _ptr(dm), _ptr(h1d), T * B * H,
+          torch.cuda.current_stream(ys1.device).cuda_stream)
+    return h1p, h1d, h2p
+
+
 def lstm2_train_bwd(xg1, dm, w_hh1, b_hh1, w_ih2, w_hh2, b2, mask, h01, c01,
                     h02, c02, ys1, cs1, ys2, cs2, dy1, dy2, dhT1, dcT1, dhT2,
                     dcT2):
@@ -212,14 +301,24 @@ def lstm2_train_bwd(xg1, dm, w_hh1, b_hh1, w_ih2, w_hh2, b2, mask, h01, c01,
     (T, B, H) and dhT1, dcT1, dhT2, dcT2 (B, H), all in the compute dtype.
     Returns du1, du2 (T, B, 4H), the gradients of the two layers' gate
     pre-activations, and dh01, dc01, dh02, dc02 (B, H), in the compute
-    dtype. CUDA tensors launch ``lstm2_train_bwd`` of
-    ``csrc/lstm2_train.cu`` (bf16 only); CPU tensors run
+    dtype. CUDA tensors launch the backward of ``csrc/lstm2_train.cu`` in
+    the design ``_design`` picks (bf16 only); CPU tensors run
     ``lstm2_train_bwd_plain``.
     """
+    args = (xg1, dm, w_hh1, b_hh1, w_ih2, w_hh2, b2, mask, h01, c01, h02,
+            c02, ys1, cs1, ys2, cs2, dy1, dy2, dhT1, dcT1, dhT2, dcT2)
     if not xg1.is_cuda:
-        return lstm2_train_bwd_plain(xg1, dm, w_hh1, b_hh1, w_ih2, w_hh2, b2,
-                                     mask, h01, c01, h02, c02, ys1, cs1, ys2,
-                                     cs2, dy1, dy2, dhT1, dcT1, dhT2, dcT2)
+        return lstm2_train_bwd_plain(*args)
+    return _train_bwd(None, *args)
+
+
+def _train_bwd(design, xg1, dm, w_hh1, b_hh1, w_ih2, w_hh2, b2,
+               mask, h01, c01, h02, c02, ys1, cs1, ys2, cs2, dy1, dy2, dhT1,
+               dcT1, dhT2, dcT2):
+    """``lstm2_train_bwd`` on CUDA tensors in ``design`` ("persistent" or
+    "per_step"), or in the one ``_design`` picks where it is None;
+    chip_smoke.py times the per-step design on the persistent design's
+    calls through it. A design that does not take the shapes raises."""
     fn = "lstm2_train_bwd"
     T, B, G = xg1.shape
     H = G // 4
@@ -232,18 +331,38 @@ def lstm2_train_bwd(xg1, dm, w_hh1, b_hh1, w_ih2, w_hh2, b2, mask, h01, c01,
     T, B, H, mask = _checked(
         fn, xg1, dm, (("w_hh1", w_hh1), ("w_ih2", w_ih2), ("w_hh2", w_hh2)),
         (("b_hh1", b_hh1), ("b2", b2)), mask, bh + tbh)
+    plan = _card_design(xg1.device, B, H, T)["design"]
+    if design is None:
+        design = plan
+    if design == "persistent" and plan != "persistent":
+        raise ValueError(f"{fn}: the persistent design does not take B={B} "
+                         f"H={H}")
+    h1p, h1d, h2p = lstm2_bwd_operands(dm, h01, h02, ys1, ys2)
     carries = [s.float().contiguous() for s in (dhT1, dcT1, dhT2, dcT2)]
-    du1 = torch.empty((T, B, G), dtype=torch.bfloat16, device=xg1.device)
+    dev = xg1.device
+    du1 = torch.empty((T, B, G), dtype=torch.bfloat16, device=dev)
     du2 = torch.empty_like(du1)
-    h1d = torch.empty((T, B, H), dtype=torch.bfloat16, device=xg1.device)
-    inj = torch.empty((B, H), dtype=torch.float32, device=xg1.device)
-    _call(fn, _BWD_ARGTYPES, _ptr(xg1), _ptr(dm), _ptr(w_hh1), _ptr(b_hh1),
-          _ptr(w_ih2), _ptr(w_hh2), _ptr(b2), _ptr(mask),
-          *(_ptr(s) for s in (h01, c01, h02, c02, ys1, cs1, ys2, cs2, dy1,
-                              dy2)),
-          *(_ptr(s) for s in carries), _ptr(du1), _ptr(du2), _ptr(h1d),
-          _ptr(inj), T, B, H,
-          torch.cuda.current_stream(xg1.device).cuda_stream)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    if design == "persistent":
+        g1 = torch.empty((T * B, G), dtype=torch.float32, device=dev)
+        g2 = torch.empty_like(g1)
+        bar = torch.zeros((1,), dtype=torch.int32, device=dev)
+        _call(fn, _PERSIST_ARGTYPES, _ptr(xg1), _ptr(w_hh1), _ptr(b_hh1),
+              _ptr(w_ih2), _ptr(w_hh2), _ptr(b2), _ptr(mask), _ptr(dm),
+              *(_ptr(s) for s in (h1p, h1d, h2p, c01, c02, cs1, cs2, dy1,
+                                  dy2)),
+              *(_ptr(s) for s in carries), _ptr(du1), _ptr(du2), _ptr(g1),
+              _ptr(g2), _ptr(bar), T, B, H, stream,
+              entry="lstm2_train_bwd_persistent")
+    else:
+        inj = torch.empty((B, H), dtype=torch.float32, device=dev)
+        _call(fn, _BWD_ARGTYPES, _ptr(xg1), _ptr(dm), _ptr(w_hh1),
+              _ptr(b_hh1), _ptr(w_ih2), _ptr(w_hh2), _ptr(b2), _ptr(mask),
+              *(_ptr(s) for s in (h01, c01, h02, c02, ys1, cs1, ys2, cs2, dy1,
+                                  dy2, h1d)),
+              *(_ptr(s) for s in carries), _ptr(du1), _ptr(du2), _ptr(inj),
+              T, B, H, stream)
+    design_launches[design] += 1
     return (du1, du2, *(s.to(torch.bfloat16) for s in carries))
 
 

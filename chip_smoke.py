@@ -33,9 +33,11 @@ mean. Then the JAX package's opt-in fused 2-layer training route
 call, its kernels (forward, backward) against their twins on the calls one
 fused step hands them (with the dropout mask, a random step mask and
 dm = ones; planted faults: W_hh2 dropped and three builds with
-``-DLSTM2_TRAIN_FAULT``), and a fused standard and Bayesian step against
-the plain path. Then the recipe's GP-LSTM (``l_gauss_pos`` 13: a GP cell replacing
-the input gate, then a standard layer) on the same corpus: the GP
+``-DLSTM2_TRAIN_FAULT``; the backward in its persistent design, the gate
+GEMM and one cooperative launch, its per-step design beside it), and a
+fused standard and Bayesian step against the plain path. Then the
+recipe's GP-LSTM (``l_gauss_pos`` 13: a GP cell replacing the input gate,
+then a standard layer) on the same corpus: the GP
 gate-replacement kernels (forward, backward) against their twins on the
 calls a step and an ``evaluate`` window hand them and for gates 2-4 at a
 short T (planted faults: gpx dropped, and two builds with
@@ -74,8 +76,9 @@ step hands them at D = 512, two epochs of ``Trainer.fit`` (the CE kernels
 on every step, the attention kernel in every ``evaluate``), a kernel-path
 step against the plain path; the Bayesian-FFN Transformer: the fused
 sample-and-matmul kernel against its twin and against x . sample_weights^T
-at the FFN's and the MHA's shapes (and a planted fault in the shared
-Philox header), a
+at the FFN's and the MHA's shapes in its split design (W drawn once as
+three bf16 pieces, wgmma) and its CUDA-core design (and a planted fault in
+the shared Philox header), a
 ``use_fused`` step against the plain path and one epoch of ``fit`` with
 ``use_fused``; and Transformer scoring of the 6,000-hypothesis N-best
 through the packed-nocarry layout (the scoring CE kernel against its twin
@@ -194,7 +197,9 @@ KERNEL_ROWS = (
     ("gpg_fwd_step", "20"), ("gpg_bwd_gates", "21"), ("gpg_bwd_dh", "21"),
     ("gpg_dcoef_sum", "21"), ("lstm2_fwd_l1", "7"), ("lstm2_fwd_l2", "7"),
     ("lstm2_dropped", "8"), ("lstm2_bwd_gates", "8"), ("lstm2_bwd_dh2", "8"),
-    ("lstm2_bwd_dh1", "8"))
+    ("lstm2_bwd_dh1", "8"), ("lstm2_gates_gemm", "8"),
+    ("lstm2_bwd_persistent", "8"), ("bmm_draw_split", "12"),
+    ("bmm_split_wgmma", "12"))
 
 
 def kernel_row(name):
@@ -1572,9 +1577,13 @@ def tm_attention_phase(torch, kernels, calls):
 
 def tm_bayes_matmul_phase(torch, kernels, calls):
     """Row 12 on the FFN linear2 call a Bayesian-FFN step handed it and at
-    the Bayesian MHA's o_net shape: against its twin, against x .
-    sample_weights^T (kernel row 13's W), and a planted-fault build of the
-    shared Philox header."""
+    the Bayesian MHA's o_net shape: the design ``_design`` picks for bf16
+    x ("split": W drawn once as three bf16 pieces, wgmma), which each call
+    must take, against its twin and against x . sample_weights^T (kernel
+    row 13's W), and a planted-fault build of the shared Philox header
+    (through the split design's draw); the CUDA-core design ("simt", the
+    rule's for float32 x) on the same calls against the same references,
+    and timed beside it (``simt_ms``)."""
     from bayeslms_tpu_torch.ops import _build
     from bayeslms_tpu_torch.ops import bayes_matmul_cuda as bmc
     from bayeslms_tpu_torch.ops import bayes_sample_cuda as bsc
@@ -1596,10 +1605,20 @@ def tm_bayes_matmul_phase(torch, kernels, calls):
               f"FFN linear2 x {tuple(x.shape)} W {tuple(mean.shape)}, MHA "
               f"o_net x {tuple(mha[0].shape)} W {tuple(mha[1].shape)}")
         err, worst, fault = 0.0, 0.0, float("inf")
+        simt_err, simt_worst = 0.0, 0.0
         real_load = _build.load
         for name, args in (("FFN linear2", calls[0]), ("MHA o_net", mha)):
             xx, mm, ll, sd = args
+            plan = bmc._design(xx.dtype, *xx.shape[:1], *mm.shape)
+            print(f"  {name}: design {plan['design']}, grid {plan['grid']}, "
+                  f"{plan['ctas']} CTAs ({plan['waves']:.2f} of a wave)")
+            before = dict(bmc.design_launches)
             got = {"y": bmc.bayes_matmul_fwd(*args)}
+            if bmc.design_launches["split"] != before["split"] + 1:
+                raise AssertionError(f"bayes_matmul {name}: the call did not "
+                                     f"take the split design: "
+                                     f"{bmc.design_launches}")
+            simt = {"y": bmc._fwd("simt", *args)}
             w = bsc.sample_weights(mm, ll, sd)
             refs = {"twin": {"y": bmc.bayes_matmul_plain(*args)},
                     "x . sample_weights^T": {
@@ -1609,41 +1628,55 @@ def tm_bayes_matmul_phase(torch, kernels, calls):
                 e, q = check_outputs(f"{name} against {rname}", got, ref,
                                      BMM_RTOL, BMM_SHARE)
                 err, worst = max(err, e), max(worst, q)
+                e, q = check_outputs(f"{name} (simt) against {rname}", simt,
+                                     ref, BMM_RTOL, BMM_SHARE)
+                simt_err, simt_worst = max(simt_err, e), max(simt_worst, q)
             with mock.patch.object(_build, "load",
                                    lambda kk: real_load(BMM_FAULT)):
                 bad = {"y": bmc.bayes_matmul_fwd(*args)}
             fault = min(fault, fault_share(bad, refs["x . sample_weights^T"],
                                            BMM_RTOL, BMM_SHARE))
         print(f"  planted fault 'tile index dropped from the Philox key' "
-              f"(the shared header): worst share of tolerance {fault:.1f}")
+              f"(the shared header, through the split draw): worst share of "
+              f"tolerance {fault:.1f}")
         N, K = mean.shape
         gen2 = torch.Generator(device="cuda").manual_seed(10)
         kernel_fn = lambda: bmc.bayes_matmul_fwd(*calls[0])  # noqa: E731
+        simt_fn = lambda: bmc._fwd("simt", *calls[0])  # noqa: E731
         plain_fn = lambda: bmc.bayes_matmul_plain(*calls[0])  # noqa: E731
         library_fn = lambda: x.float() @ (mean + torch.exp(lgstd) * torch.randn(  # noqa: E731
             (N, K), generator=gen2, device="cuda")).t()
         ms = cuda_ms(torch, kernel_fn, 5)
+        simt_ms = cuda_ms(torch, simt_fn, 5)
         plain_ms = cuda_ms(torch, plain_fn, 3)
         library_ms = cuda_ms(torch, library_fn, 5)
         # bytes: x (bf16), mean and lgstd (fp32) read, y (bf16) written;
-        # operations: the fp32 products (the TPU kernel's dot is fp32),
-        # against the fp32 peak
-        t_ops = 2 * M * N * K / PEAK_FP32_FLOPS
+        # operations: the fp32-accurate product, as the split design's three
+        # bf16 products against the bf16 peak, and as the CUDA-core
+        # design's fp32 products (the TPU kernel's dot) against the fp32
+        # peak; the kernel's bound is the smaller
         t_bytes = (M * K * 2 + 2 * N * K * 4 + M * N * 2) / PEAK_BYTES_PER_S
-        bms = 1e3 * max(t_ops, t_bytes)
-        bby = "operations" if t_ops >= t_bytes else "bytes"
-        print(f"  FFN linear2 (M={M} N={N} K={K}): kernel {ms:.4f} ms, plain "
+        t_split = 3 * 2 * M * N * K / PEAK_BF16_FLOPS
+        t_simt = 2 * M * N * K / PEAK_FP32_FLOPS
+        bms, simt_bms = 1e3 * max(t_split, t_bytes), 1e3 * max(t_simt,
+                                                                t_bytes)
+        bby = "operations" if t_split >= t_bytes else "bytes"
+        print(f"  FFN linear2 (M={M} N={N} K={K}): split {ms:.4f} ms "
+              f"(bound {bms:.4f} ms, bf16 operations), simt {simt_ms:.4f} "
+              f"ms (bound {simt_bms:.4f} ms, fp32 operations), plain "
               f"{plain_ms:.4f} ms, library {library_ms:.4f} ms (torch.randn "
-              f"+ exp + fp32 matmul, other bits), bound {bms:.4f} ms ({bby})")
+              f"+ exp + fp32 matmul, other bits)")
         kernels["bayes_matmul"] = dict(
             name="bayes_matmul", route="cuda",
             source="bayeslms_tpu_torch/csrc/bayes_matmul.cu",
             replaces="bayeslms_tpu/ops/bayes_matmul.py:82",
             max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms,
-            bound_by=bby, library_ms=library_ms)
-        if worst > 1:
-            raise AssertionError(f"bayes_matmul disagrees: worst share "
-                                 f"{worst:.3f}")
+            bound_by=bby, library_ms=library_ms, design="split",
+            simt_ms=simt_ms, simt_bound_ms=simt_bms,
+            simt_max_abs_err=simt_err)
+        if max(worst, simt_worst) > 1:
+            raise AssertionError(f"bayes_matmul disagrees: worst share split "
+                                 f"{worst:.3f}, simt {simt_worst:.3f}")
         if fault < FAULT_MARGIN:
             raise AssertionError(f"bayes_matmul: the planted fault exceeds "
                                  f"the tolerance only {fault:.1f}x")
@@ -1859,6 +1892,7 @@ def tm_phases(torch, kernels, smi, cfg, rcfg, corpus, tmpdir):
         for k in ctc.launches:
             ctc.launches[k] = 0
         bmc.launches = 0
+        bmc.design_launches.update(split=0, simt=0)
         bsc.launches = 0
         steps, kls = [], []
         step = btrainer.train_step
@@ -1887,7 +1921,8 @@ def tm_phases(torch, kernels, smi, cfg, rcfg, corpus, tmpdir):
         n = len(steps)
         launches = {**ctc.launches, "bayes_matmul": bmc.launches,
                     "bayes_sample (row 12's backward)": bsc.launches}
-        print(f"  kernel launches in fit ({n} steps): {launches}")
+        print(f"  kernel launches in fit ({n} steps): {launches}; "
+              f"bayes_matmul by design {dict(bmc.design_launches)}")
         losses = [l for _, l in steps]
         kl = [float(k) for k in kls]
         print("  loss per step: " + " ".join(f"{l:.4f}" for l in losses))
@@ -1905,6 +1940,10 @@ def tm_phases(torch, kernels, smi, cfg, rcfg, corpus, tmpdir):
             if launches[name] != n:
                 raise AssertionError(f"{name}: {launches[name]} launches in "
                                      f"{n} steps, 1 a step expected")
+        if bmc.design_launches["split"] != n:
+            raise AssertionError(f"bayes_matmul: designs "
+                                 f"{bmc.design_launches} in {n} steps, the "
+                                 f"split one every step expected")
         kernels["bayes_matmul"]["launches"] = bmc.launches
         if not all(np.isfinite(losses)) or not np.isfinite(out["test_loss"]):
             raise AssertionError("a training loss is not finite")
@@ -3671,6 +3710,59 @@ def timed_fit(torch, trainer, corpus, smi, tag, counters):
     return losses, kls, step_ms, launches, out
 
 
+def lstm2_bwd_per_step_check(torch, kernels, l2c, args, rmask, specs):
+    """Row 8's per-step design (four launches a step), which ``_design``
+    keeps for a batch past 32 columns, on the persistent design's recorded
+    call (and with the random step mask) against the twin within
+    GP_TOL["lstm2_train_bwd"], the planted fault that drops the injection
+    (``-DLSTM2_TRAIN_FAULT=2``) by FAULT_MARGIN or more; timed, and the time
+    added to the persistent design's ``kernels`` entry as ``per_step_ms``.
+    Raises on a failed check."""
+    from bayeslms_tpu_torch.ops import _build
+
+    name = "lstm2_train_bwd"
+    with phase(f"kernel {name} (per-step design)"), torch.no_grad():
+        T, B, G = args[0].shape
+        plan = l2c._card_design(args[0].device, B, G // 4, T)
+        print(f"  T={T} B={B} H={G // 4}: the rule's design {plan['design']} "
+              f"(recurrence grid {plan['grid']}, {plan['smem_bytes']} bytes "
+              f"a CTA, {plan['barriers']} grid barriers; gate GEMM grid "
+              f"{plan['gemm_grid']}, {plan['gemm_smem_bytes']} bytes)")
+        rtol, share = GP_TOL[name]
+        outs = specs[name]["outs"]
+        step = lambda *a: l2c._train_bwd("per_step", *a)  # noqa: E731
+        err, worst = 0.0, 0.0
+        for a in (args, with_arg(args, 7, rmask)):
+            before = dict(l2c.design_launches)
+            got = dict(zip(outs, step(*a)))
+            ref = dict(zip(outs, l2c.lstm2_train_bwd_plain(*a)))
+            torch.cuda.synchronize()
+            if l2c.design_launches["per_step"] != before["per_step"] + 1:
+                raise AssertionError("the call did not take the per-step "
+                                     f"design: {l2c.design_launches}")
+            e, q = check_outputs(f"{name} (per-step)", got, ref, rtol, share)
+            err, worst = max(err, e), max(worst, q)
+        real_load = _build.load
+        with mock.patch.object(_build, "load", lambda k: real_load(
+                LSTM2_BWD_FAULTS["injection into layer 1 dropped"])):
+            bad = dict(zip(outs, step(*args)))
+        fault = fault_share(bad, dict(zip(outs, l2c.lstm2_train_bwd_plain(
+            *args))), rtol, share)
+        print(f"  planted fault 'injection into layer 1 dropped': worst "
+              f"share of tolerance {fault:.1f}")
+        ms = cuda_ms(torch, lambda: step(*args), 3)
+        print(f"  per-step {ms:.3f} ms (the persistent design "
+              f"{kernels[name]['ms']:.3f} ms on the same call)")
+        kernels[name].update(design="persistent", per_step_ms=ms,
+                             per_step_max_abs_err=err)
+        if worst > 1:
+            raise AssertionError(f"the per-step design disagrees with its "
+                                 f"plain version: worst share {worst:.3f}")
+        if fault < FAULT_MARGIN:
+            raise AssertionError(f"the per-step design's planted fault "
+                                 f"exceeds the tolerance only {fault:.1f}x")
+
+
 def lstm2_phases(torch, kernels, smi, cfg, corpus, tmpdir):
     """A few steps of ``fit`` on the fused route and on the default
     two-layer route, timed in the same call; rows 7-8 against their twins
@@ -3708,6 +3800,7 @@ def lstm2_phases(torch, kernels, smi, cfg, corpus, tmpdir):
 
     with phase("fused lstm2 train"):
         fits = {}
+        l2c.design_launches.update(persistent=0, per_step=0)
         for route, on in (("fused", True), ("two-layer", False)):
             with fused_lstm2_switch(on):
                 tr = Trainer(cfg, tcfg(f"lstm2_{route}.ckpt",
@@ -3718,9 +3811,14 @@ def lstm2_phases(torch, kernels, smi, cfg, corpus, tmpdir):
         lf, lt = fits["fused"][3], fits["two-layer"][3]
         print(f"  ms a step: fused {fits['fused'][2]:.3f}, two-layer "
               f"{fits['two-layer'][2]:.3f} (same call, {smi})")
+        print(f"  the fused fit's row-8 calls by design: "
+              f"{dict(l2c.design_launches)}")
         if lf["lstm2_train_fwd"] != n_f or lf["lstm2_train_bwd"] != n_f \
                 or lf["lstm_train_fwd"] or lf["lstm_train_bwd"]:
             raise AssertionError(f"the fused fit launched {lf}")
+        if l2c.design_launches != {"persistent": n_f, "per_step": 0}:
+            raise AssertionError(f"row 8 took {l2c.design_launches} in the "
+                                 f"fused fit's {n_f} steps")
         if lt["lstm2_train_fwd"] or lt["lstm2_train_bwd"] \
                 or lt["lstm_train_fwd"] != 2 * len(fits["two-layer"][0]):
             raise AssertionError(f"the default fit launched {lt}")
@@ -3760,10 +3858,19 @@ def lstm2_phases(torch, kernels, smi, cfg, corpus, tmpdir):
         a = calls[name]
         print(f"  {name}: dropout mask keeps "
               f"{float((a[1] != 0).float().mean()):.4f} of the units")
+        before = dict(l2c.design_launches)
         check_kernel_calls(torch, kernels, name, specs[name], [
             (f"one step's call (T={T}, B={B}), dropout mask", a),
             ("random step mask", with_arg(a, 7, rmask)),
             ("dm = ones", with_arg(a, 1, ones))])
+        if name == "lstm2_train_bwd":
+            if l2c.design_launches["per_step"] != before["per_step"] \
+                    or l2c.design_launches == before:
+                raise AssertionError(f"row 8's checks took "
+                                     f"{l2c.design_launches} (before: "
+                                     f"{before}): the persistent design "
+                                     f"alone expected")
+            lstm2_bwd_per_step_check(torch, kernels, l2c, a, rmask, specs)
     del recorded, calls, fwd_args, bwd_args
 
     plain = [mock.patch.object(m, n, getattr(m, n + "_plain"))

@@ -80,7 +80,7 @@ def _mma16816(a, b, d):
 
 
 def _warp_product(a, ws, warps=16, batch=2):
-    """``warp_product`` of csrc/lstm_train.cu, every warp of a CTA, in
+    """``warp_product`` of csrc/warp_mma.cuh, every warp of a CTA, in
     Python: a (rows <= 32, K), ws (8 NT, K); each lane (g, t) loads 8
     consecutive k of A's rows g, g + 8 (per m tile) and of ws' row g (per
     n tile), values 0-3 to one k16 step, 4-7 to the next. Returns the

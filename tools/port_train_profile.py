@@ -5,6 +5,7 @@
                                          --model Transformer
                                          [--t-bayes-pos FFN|MHA|EMB]]
                                         [--seq-len T] [--fused-lstm2]
+                                        [--use-fused]
 
 Needs a CUDA card and nvcc. Builds the training configuration of
 chip_smoke.py (the bench's 2-layer 1024/1024 LSTM LM, V = 49,152, bf16,
@@ -20,7 +21,10 @@ recipe's Transformer of chip_smoke.py (512/4096 x 6, 8 heads, lr 0.1), and
 which the Transformer's training attention takes the flash-attention
 kernels (rows 15-17); ``--fused-lstm2`` sets ``BAYESLM_PALLAS_LSTM2_TRAIN=1``,
 the JAX package's opt-in fused 2-layer training route (rows 7-8 in place of
-two rows 5-6 calls). It runs three warm-up steps, times five steps
+two rows 5-6 calls); ``--use-fused`` with ``--t-bayes-pos FFN`` sets
+``use_fused`` on the first layer's Bayesian ``linear2``, as chip_smoke.py's
+Bayesian-FFN fit does (kernel row 12 forward, row 13 in its backward). It
+runs three warm-up steps, times five steps
 without the profiler, then traces three steps with torch.profiler and prints
 the device time by kernel (each of the port's kernels named by its row of
 PERF.md's kernel table), the device's busy time and its idle share of the
@@ -66,7 +70,12 @@ def main():
                     help="the training window (chip_smoke.py's: 100)")
     ap.add_argument("--fused-lstm2", action="store_true",
                     help="the fused 2-layer training route (rows 7-8)")
+    ap.add_argument("--use-fused", action="store_true",
+                    help="with --t-bayes-pos FFN: the first layer's linear2 "
+                         "through kernel row 12")
     args = ap.parse_args()
+    if args.use_fused and args.t_bayes_pos != "FFN":
+        ap.error("--use-fused needs --model Transformer --t-bayes-pos FFN")
     if args.fused_lstm2:
         os.environ["BAYESLM_PALLAS_LSTM2_TRAIN"] = "1"
     cfg, _, _, _ = chip_smoke.bench_setup()
@@ -89,6 +98,8 @@ def main():
         corpus = Corpus(tmp)
     trainer = Trainer(cfg, TrainConfig(lr=lr, batch_size=B, seq_len=T))
     state = trainer.init_state()
+    if args.use_fused:
+        state.model.layers_0.linear2.use_fused = True
     rows = batchify(corpus.train, B)
     kl_scale = T / rows.shape[0]
     data, tgt = (torch.from_numpy(a).long().cuda() for a in windows(rows, T))
@@ -123,7 +134,8 @@ def main():
           f"({torch.cuda.get_device_name(0)}; {cfg.model}, uncertainty="
           f"{cfg.uncertainty}, l_bayes_pos={cfg.l_bayes_pos}, l_gauss_pos="
           f"{cfg.l_gauss_pos}, t_bayes_pos={cfg.t_bayes_pos}, batch {B} x "
-          f"seq_len {T}, fused 2-layer route {args.fused_lstm2})")
+          f"seq_len {T}, fused 2-layer route {args.fused_lstm2}, "
+          f"use_fused {args.use_fused})")
     print("device ms a step  calls a step  table row  name")
     # the top 20, and every kernel of the port wherever it ranks
     for dev_us, count, key in [r for i, r in enumerate(rows)
