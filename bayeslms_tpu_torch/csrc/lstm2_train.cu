@@ -35,15 +35,39 @@
 //   du = [di i(1-i), df f(1-f), dg (1-g^2), do o(1-o)] stored in bf16; the
 //   dh products take that rounded du.
 //
-// The forward (row 7): the host function loops over t and launches on the
-// caller's stream, in the manner of csrc/lstm_train.cu's per-step designs,
-// whose tiles it shares (csrc/gate_tile.cuh): two launches a step, layer
-// 1's `GateTile<4>` (a block owns BM columns x BJ units and all four gate
-// rows of them, so the cell update needs nothing from other blocks), which
-// also writes h1d to a (B, H) bf16 buffer; then layer 2's tile, one
-// contraction over K = 2H of [h1d | h2] against [W_ih2 | W_hh2]
-// (`gate_tile2`). A persistent forward, in the manner of row 5's and of
-// this backward's, is the later redesign (ROADMAP.md B.4).
+// The forward (row 7) runs in one of two designs, picked by
+// ops/lstm2_train_cuda.py `_design(B, H, n_sm, T)` beside the backward's
+// (its `fwd_design`; an explicit rule: the chosen design runs or raises).
+//
+// "persistent" (B <= 32, H a multiple of 8, H / 8 CTAs no more than the
+// SMs, both kernels' shared memory within 227 KB: the training shape),
+// three launches a call, layer 2's input product hoisted out of its
+// recurrence as the backward hoists its gate recompute:
+//   (1) `lstm2_fwd_l1_persistent`: layer 1's recurrence, one cooperative
+//       launch of H / 8 CTAs, each keeping its 4 x 8 gate rows of W_hh1
+//       resident (row 5's step, csrc/lstm_persist.cuh), which also stores
+//       h1d[t] = bf16(h1 dm[t]) from the fp32 h1 after the mask into a
+//       (T, B, H) buffer;
+//   (2) `lstm2_input_gemm`: Q = h1d W_ih2^T for all T B rows at once, fp32
+//       (T B, 4H), never rounded (52 MB at the training shape): the
+//       backward's `lstm2_gates_gemm` (wgmma fed by TMA, 64-deep chunks
+//       added to nearest in fp32 registers) with one product and no addend
+//       or bias; TMA fills the rows past T B with zeros;
+//   (3) `lstm2_fwd_l2_persistent`: layer 2's recurrence, the same step with
+//       W_hh2's gate rows resident and Q[t] as its fp32 addend:
+//       g2 = (Q[t] + h2_{t-1} W_hh2^T) + b2, the twin's order.
+// One launch with both layers (layer 2 a step behind, as row 1) would need
+// W_hh1's, W_ih2's and W_hh2's gate rows resident, 198 KB, which leaves no
+// room for the warps' 64 KB of partial tiles.
+//
+// "per_step" (the rest): the host function loops over t and launches on
+// the caller's stream, in the manner of csrc/lstm_train.cu's per-step
+// designs, whose tiles it shares (csrc/gate_tile.cuh): two launches a
+// step, layer 1's `GateTile<4>` (a block owns BM columns x BJ units and
+// all four gate rows of them, so the cell update needs nothing from other
+// blocks), which also writes h1d to a (B, H) bf16 buffer; then layer 2's
+// tile, one contraction over K = 2H of [h1d | h2] against [W_ih2 | W_hh2]
+// (`gate_tile2`).
 //
 // The backward (row 8) takes the (T B, H) bf16 operands h1p = [h01, ys1[:-1]],
 // h1d' = bf16(ys1 dm) (`lstm2_h1d`, one elementwise launch) and
@@ -109,10 +133,18 @@
 //
 // Bound at the training shapes (T = 100, B = 32, H = 1,024), from the H100
 // SXM data sheet's 989 TFLOP/s bf16 (700 W): forward three 2 T B H 4H
-// products = 80.5 GFLOP, 0.081 ms; backward six, 0.163 ms. The forward and
-// the per-step backward are bound by the latency of dependent launches (200
-// forward, 400 backward) on 32 blocks, not by either peak. The persistent
-// backward's GEMM is operations bound (80.5 GFLOP); its recurrence by its
+// products = 80.5 GFLOP, 0.081 ms; backward six, 0.163 ms. The per-step
+// forward and backward are bound by the latency of dependent launches (200
+// forward, 400 backward) on 32 blocks, not by either peak: 12.2-12.5 ms a
+// per-step forward call. The persistent forward's two recurrences are
+// bound by their T dependent steps each (a barrier and each CTA's L2 read
+// of h_{t-1}), its GEMM (26.8 GFLOP) by operations: 1.60-1.62 ms a call
+// between CUDA events, and in a traced fused step 1.33 ms of device time,
+// each recurrence 0.63 and the GEMM 0.068 (40% of the bf16 peak)
+// (chip_smoke.py, tools/lstm_fwd_designs.py, tools/port_train_profile.py
+// --fused-lstm2 on an NVIDIA H100 80GB HBM3 at 700.00 W; PERF.md). The
+// persistent backward's GEMM is operations bound (80.5 GFLOP); its
+// recurrence by its
 // T + 1 dependent iterations: a barrier and each CTA's L2 reads of
 // du2[t] and du1[t + 1] (512 KB). Measured on an NVIDIA H100 80GB HBM3 at
 // 700.00 W (PERF.md, kernel table, row 8): chip_smoke.py 2.104 ms a
@@ -126,16 +158,25 @@
 // backward's recompute ignores the dropout mask (h1d' = ys1, in
 // `lstm2_dropped`, which both designs take); 2, the injection into layer 1
 // is dropped (inj = 0, in both designs); 3, the forward ignores the
-// dropout mask (h1d = h1).
-
-#include "gate_tile.cuh"
-#include "grid_barrier.cuh"
-#include "sm90.cuh"
-#include "warp_mma.cuh"
+// dropout mask (h1d = h1, in both designs: the persistent layer 1 stores
+// that h1d for the input GEMM); 4, the persistent forward's layer 2 reads
+// Q of the wrong step (t + 1, the last step Q[0]), which only a hoisted
+// design can get wrong.
 
 #ifndef LSTM2_TRAIN_FAULT
 #define LSTM2_TRAIN_FAULT 0
 #endif
+#if LSTM2_TRAIN_FAULT == 3
+#define LSTM_PERSIST_DROP(h, d) (h)
+#elif LSTM2_TRAIN_FAULT == 4
+#define LSTM_PERSIST_Q_STEP(t, T) ((t) + 1 < (T) ? (t) + 1 : 0)
+#endif
+
+#include "gate_tile.cuh"
+#include "grid_barrier.cuh"
+#include "lstm_persist.cuh"
+#include "sm90.cuh"
+#include "warp_mma.cuh"
 
 namespace {
 
@@ -424,13 +465,15 @@ __device__ __forceinline__ void gate_walk(float* s, float* c, uint32_t ring,
   }
 }
 
-// One CTA: gate columns [128 x, +128) of rows [128 y, +128), layer 2
-// (z = 0: (h1d', W_ih2), then (h2p, W_hh2)) or layer 1 (z = 1: (h1p,
-// W_hh1)). Dynamic shared memory, 1 KB aligned: the ring (6 x 32 KB: A's
-// chunk, then W's), the barriers.
-__global__ void __launch_bounds__(G_THREADS, 1)
-lstm2_gates_gemm(const __grid_constant__ GateParams p) {
-  extern __shared__ unsigned char smem_raw[];
+// One CTA: gate columns [128 x, +128) of rows [128 y, +128). The
+// backward's (q_only false): layer 2 (z = 0: (h1d', W_ih2), then (h2p,
+// W_hh2)) or layer 1 (z = 1: (h1p, W_hh1)). The forward's (q_only): Q =
+// h1d W_ih2^T alone ((a[1], w[1]): the forward's h1d and W_ih2), stored in
+// g2 as it is, with no addend or bias. Dynamic shared memory at smem_raw,
+// 1 KB aligned here: the ring (6 x 32 KB: A's chunk, then W's), the
+// barriers.
+__device__ __forceinline__ void gates_gemm(const GateParams& p, bool q_only,
+                                           unsigned char* smem_raw) {
   unsigned char* smem =
       smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
   const uint32_t ring = smem_u32(smem);
@@ -439,8 +482,10 @@ lstm2_gates_gemm(const __grid_constant__ GateParams p) {
   auto empty = [&](int s) { return bars + 8 * (G_NST + s); };
   const int tid = threadIdx.x;
   const int n0 = blockIdx.x * GN, m0 = blockIdx.y * GM;
-  const bool two = blockIdx.z == 0;
+  const bool two = !q_only && blockIdx.z == 0;
   const int nk = (p.H + GK - 1) / GK;
+  const int first = (q_only || two) ? 1 : 0;
+  const int last = q_only ? 2 : (two ? 3 : 1);
 
   if (tid == 0) {
     for (int s = 0; s < G_NST; ++s) {
@@ -457,7 +502,7 @@ lstm2_gates_gemm(const __grid_constant__ GateParams p) {
     if (tid == 256) {
       int st = 0;
       uint32_t ph = 0;
-      for (int pair = two ? 1 : 0; pair < (two ? 3 : 1); ++pair)
+      for (int pair = first; pair < last; ++pair)
         for (int kc = 0; kc < nk; ++kc) {
           mbar_wait(empty(st), ph ^ 1);
           mbar_expect(full(st), G_STAGE);
@@ -498,7 +543,11 @@ lstm2_gates_gemm(const __grid_constant__ GateParams p) {
     if (row < p.M && col < G) {
       const size_t o = (size_t)row * G + col;
       float2 v;
-      if (two) {
+      if (q_only) {
+        v.x = s[i];
+        v.y = s[i + 1];
+        *reinterpret_cast<float2*>(p.g2 + o) = v;
+      } else if (two) {
         v.x = (x[i] + s[i]) + p.b2[col];
         v.y = (x[i + 1] + s[i + 1]) + p.b2[col + 1];
         *reinterpret_cast<float2*>(p.g2 + o) = v;
@@ -513,15 +562,39 @@ lstm2_gates_gemm(const __grid_constant__ GateParams p) {
   }
 }
 
+__global__ void __launch_bounds__(G_THREADS, 1)
+lstm2_gates_gemm(const __grid_constant__ GateParams p) {
+  extern __shared__ unsigned char smem_raw[];
+  gates_gemm(p, false, smem_raw);
+}
+
+__global__ void __launch_bounds__(G_THREADS, 1)
+lstm2_input_gemm(const __grid_constant__ GateParams p) {
+  extern __shared__ unsigned char smem_raw[];
+  gates_gemm(p, true, smem_raw);
+}
+
+// ------------------------------------------- the persistent forward's layers
+
+// csrc/lstm_persist.cuh's recurrence: layer 1 on xg1, storing cs1 and
+// h1d = bf16(h1 dm); layer 2 on the fp32 Q, storing cs2
+__global__ void __launch_bounds__(P_THREADS, 1)
+lstm2_fwd_l1_persistent(const __grid_constant__ FwdPersistParams p) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  persist_fwd<false>(p, smem);
+}
+
+__global__ void __launch_bounds__(P_THREADS, 1)
+lstm2_fwd_l2_persistent(const __grid_constant__ FwdPersistParams p) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  persist_fwd<true>(p, smem);
+}
+
 // ------------------------------------ the persistent backward, stage (2)
 
-constexpr int P_UNITS = 8;  // hidden units a CTA owns, of both layers
-constexpr int P_WARPS = 16;
-constexpr int P_THREADS = 32 * P_WARPS;
+// P_UNITS (hidden units a CTA owns, of both layers), P_WARPS, P_THREADS and
+// P_PAD are csrc/lstm_persist.cuh's
 constexpr int P_GROUP = 8;  // warps on each du: 0-7 du2, 8-15 du1
-// bf16 padding of a shared weight row: 64 bytes, so that the 8 rows a
-// quarter warp reads (16 bytes each, 4 a row) fall in distinct banks
-constexpr int P_PAD = 32;
 
 struct Bwd2Params {
   const float* g1;  // (T, B, 4H) the gate pre-activations from stage (1)
@@ -734,6 +807,80 @@ extern "C" int lstm2_train_fwd(const void* xg1, const void* dm,
     if (err != cudaSuccess) return (int)err;
   }
   return 0;
+}
+
+// The persistent forward (see the header): lstm2_train_fwd's arguments,
+// with h1d (T, B, H) bf16 (every step's layer-2 input, kept for the input
+// GEMM), q (T B, 4H) fp32 workspace and bar two zeroed unsigned ints (one
+// grid barrier's counter a recurrence). B must be at most 32 and H a
+// multiple of 8; a grid the card cannot hold at once is refused
+// (cudaErrorCooperativeLaunchTooLarge). Returns the first launch error, or
+// 0; -1 where the driver's cuTensorMapEncodeTiled is not found, -1000 - r
+// where it refuses a descriptor with r.
+extern "C" int lstm2_train_fwd_persistent(
+    const void* xg1, const void* dm, const void* whh1, const void* bhh1,
+    const void* wih2, const void* whh2, const void* b2, const void* mask,
+    const void* h01, const void* h02, void* h1, void* c1, void* h2, void* c2,
+    void* ys1, void* cs1, void* ys2, void* cs2, void* h1d, void* q, void* bar,
+    int T, int B, int H, void* stream) {
+  if (B > MMA_ROWS || H % P_UNITS != 0 || H <= 0)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaError_t err = cudaFuncSetAttribute(
+      lstm2_input_gemm, cudaFuncAttributeMaxDynamicSharedMemorySize, G_SMEM);
+  if (err != cudaSuccess) return (int)err;
+  if (T == 0 || B == 0) return 0;
+  const int M = T * B, G = 4 * H;
+  unsigned int* bars = static_cast<unsigned int*>(bar);
+
+  FwdPersistParams l1 = {};
+  l1.x = xg1;
+  l1.w = static_cast<cb>(whh1);
+  l1.bias = static_cast<const float*>(bhh1);
+  l1.mask = static_cast<const uint8_t*>(mask);
+  l1.h0 = static_cast<cb>(h01);
+  l1.h = static_cast<float*>(h1);
+  l1.c = static_cast<float*>(c1);
+  l1.ys = static_cast<bf16*>(ys1);
+  l1.cs = static_cast<bf16*>(cs1);
+  l1.dm = static_cast<cb>(dm);
+  l1.hd = static_cast<bf16*>(h1d);
+  l1.bar = bars;
+  l1.T = T;
+  l1.B = B;
+  l1.H = H;
+  err = launch_persist_fwd(lstm2_fwd_l1_persistent, l1, st);
+  if (err != cudaSuccess) return (int)err;
+
+  const EncodeTiled enc = encode_tiled();
+  if (enc == nullptr) return -1;
+  GateParams gp = {};
+  int r = encode_map(enc, &gp.a[1], h1d, M, H, GM);
+  if (r == 0) r = encode_map(enc, &gp.w[1], wih2, G, H, GN);
+  if (r != 0) return -1000 - r;
+  gp.g2 = static_cast<float*>(q);
+  gp.M = M;
+  gp.H = H;
+  lstm2_input_gemm<<<dim3((G + GN - 1) / GN, (M + GM - 1) / GM, 1),
+                     G_THREADS, G_SMEM, st>>>(gp);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+
+  FwdPersistParams l2 = {};
+  l2.x = q;
+  l2.w = static_cast<cb>(whh2);
+  l2.bias = static_cast<const float*>(b2);
+  l2.mask = static_cast<const uint8_t*>(mask);
+  l2.h0 = static_cast<cb>(h02);
+  l2.h = static_cast<float*>(h2);
+  l2.c = static_cast<float*>(c2);
+  l2.ys = static_cast<bf16*>(ys2);
+  l2.cs = static_cast<bf16*>(cs2);
+  l2.bar = bars + 1;
+  l2.T = T;
+  l2.B = B;
+  l2.H = H;
+  return (int)launch_persist_fwd(lstm2_fwd_l2_persistent, l2, st);
 }
 
 // h1d' = bf16(ys1 dm) over n = T B H elements, the backward's layer-2 input

@@ -28,8 +28,9 @@
 // "persistent" (B <= 32, H / 8 CTAs no more than the card's SMs, its shared
 // memory within 227 KB), kernel `lstm_fwd_persistent`: one cooperative
 // launch for the whole sequence, the backward's step (a) without the
-// gradients. CTA c owns the 8 hidden units [8c, 8c + 8) and keeps its 4 x 8
-// gate rows of W_hh in shared memory (64 KB at H = 1,024). Step t: the
+// gradients, in csrc/lstm_persist.cuh (rows 4 and 7 take it too). CTA c
+// owns the 8 hidden units [8c, 8c + 8) and keeps its 4 x 8 gate rows of
+// W_hh in shared memory (64 KB at H = 1,024). Step t: the
 // CTA's 32 gate columns from h_{t-1} = ys[t-1] (h0 at t = 0), read from L2
 // straight into the mma.sync m16n8k16 fragments by `warp_product`, the 16
 // warps' partial tiles summed in shared memory in warp order; the cell
@@ -108,6 +109,7 @@
 
 #include "gate_tile.cuh"
 #include "grid_barrier.cuh"
+#include "lstm_persist.cuh"
 #include "warp_mma.cuh"
 
 namespace {
@@ -215,14 +217,6 @@ lstm_bwd_dh(const bf16* __restrict__ du_t, const bf16* __restrict__ w,
 }
 
 // ------------------------------------------------- the persistent backward
-
-constexpr int P_UNITS = 8;    // hidden units a CTA owns
-constexpr int P_ROWS = MMA_ROWS;  // batch columns at most: two m16 tiles
-constexpr int P_WARPS = 16;
-constexpr int P_THREADS = 32 * P_WARPS;
-// bf16 padding of a shared weight row: 64 bytes, so that the 8 rows a
-// quarter warp reads (16 bytes each, 4 a row) fall in distinct banks
-constexpr int P_PAD = 32;
 
 struct PersistParams {
   const bf16* xg;     // (T, B, 4H)
@@ -365,107 +359,11 @@ lstm_bwd_persistent(const __grid_constant__ PersistParams p) {
 
 // ------------------------------------------------- the persistent forward
 
-struct FwdPersistParams {
-  const bf16* xg;       // (T, B, 4H)
-  const bf16* w;        // W_hh (4H, H)
-  const float* bias;    // b_hh (4H)
-  const uint8_t* mask;  // (T, B) or null
-  const bf16* h0;       // (B, H)
-  float* h;             // (B, H) fp32 carries: the initial state in, the
-  float* c;             // final state out
-  bf16* ys;             // (T, B, H)
-  bf16* cs;
-  unsigned int* bar;    // the barrier's counter, zero on entry
-  int T, B, H;
-};
-
-// Shared memory: the gate rows (32 x (H + P_PAD)) and the warps' partial
-// gate tiles (P_WARPS x 32 x 32 fp32).
-inline int fwd_persist_smem(int H) {
-  return 32 * (H + P_PAD) * 2 + P_WARPS * P_ROWS * 32 * 4;
-}
-
-// The backward's step (a) without its gradients: the CTA's 32 gate columns
-// from h_{t-1} = ys[t-1] (h0 at t = 0), the cell update of its 32 x 8
-// (column, unit) pairs, one a thread, with the carries in registers, ys[t]
-// and cs[t] stored; a grid barrier, so that every CTA's ys[t] is stored
-// before any CTA reads it.
+// csrc/lstm_persist.cuh's recurrence with cs stored (row 5)
 __global__ void __launch_bounds__(P_THREADS, 1)
 lstm_fwd_persistent(const __grid_constant__ FwdPersistParams p) {
   extern __shared__ __align__(16) unsigned char smem[];
-  const int H = p.H, G = 4 * H, B = p.B;
-  const int ldg = H + P_PAD;
-  bf16* wg = reinterpret_cast<bf16*>(smem);  // row q 8 + u: W[q H + j0 + u]
-  float* red = reinterpret_cast<float*>(wg + 32 * ldg);
-  const int j0 = blockIdx.x * P_UNITS;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-
-  for (int i = tid; i < 32 * (H / 8); i += P_THREADS) {
-    const int r = i / (H / 8), c = (i % (H / 8)) * 8;
-    const int row = (r >> 3) * H + j0 + (r & 7);
-    *reinterpret_cast<uint4*>(wg + r * ldg + c) =
-        *reinterpret_cast<const uint4*>(p.w + (size_t)row * H + c);
-  }
-
-  // thread tid < 256 owns batch column b and unit j; its carries
-  const int b = tid >> 3, j = j0 + (tid & 7);
-  const int col = tid & 7;
-  const bool own = tid < P_ROWS * P_UNITS && b < B;
-  float h = 0.f, c = 0.f, bq[4];
-  if (own) {
-    h = p.h[(size_t)b * H + j];
-    c = p.c[(size_t)b * H + j];
-#pragma unroll
-    for (int q = 0; q < 4; ++q) bq[q] = p.bias[q * H + j];
-  }
-  __syncthreads();
-
-  const size_t BH = (size_t)B * H;
-  unsigned int target = 0;
-  for (int t = 0; t < p.T; ++t) {
-    // this step's elementwise inputs first, in flight during the product
-    float x[4] = {0.f, 0.f, 0.f, 0.f};
-    bool keep = true;
-    if (own) {
-      const bf16* xr = p.xg + ((size_t)t * B + b) * G + j;
-#pragma unroll
-      for (int q = 0; q < 4; ++q) x[q] = __bfloat162float(xr[q * H]);
-      keep = p.mask == nullptr || p.mask[(size_t)t * B + b];
-    }
-    {
-      float acc[2][4][4] = {};
-      warp_product<4, 2, P_WARPS>(t == 0 ? p.h0 : p.ys + (t - 1) * BH, B,
-                                  H, wg, ldg, warp, lane, acc);
-      store_partial<4>(red, acc, warp, lane);
-    }
-    __syncthreads();
-    if (own) {
-      float g[4];
-#pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        float s = 0.f;
-        for (int w = 0; w < P_WARPS; ++w)
-          s += red[(w * P_ROWS + b) * 32 + q * 8 + col];
-        g[q] = (x[q] + s) + bq[q];
-      }
-      const float cn = sigmoidf(g[1]) * c + sigmoidf(g[0]) * tanhf(g[2]);
-      const float hn = sigmoidf(g[3]) * tanhf(cn);
-      if (keep) {
-        h = hn;
-        c = cn;
-      }
-      p.ys[t * BH + (size_t)b * H + j] = __float2bfloat16(h);
-      p.cs[t * BH + (size_t)b * H + j] = __float2bfloat16(c);
-    }
-    if (t + 1 < p.T) {
-      target += gridDim.x;
-      grid_barrier(p.bar, target);
-    }
-  }
-  if (own) {
-    p.h[(size_t)b * H + j] = h;
-    p.c[(size_t)b * H + j] = c;
-  }
+  persist_fwd<false>(p, smem);
 }
 
 }  // namespace
@@ -509,15 +407,8 @@ extern "C" int lstm_train_fwd_persistent(const void* xg, const void* whh,
                                          const void* h0, void* h, void* c,
                                          void* ys, void* cs, void* bar, int T,
                                          int B, int H, void* stream) {
-  if (B > P_ROWS || H % P_UNITS != 0 || H <= 0)
-    return (int)cudaErrorInvalidValue;
-  if (T == 0) return 0;
-  const int smem = fwd_persist_smem(H);
-  cudaError_t err = cudaFuncSetAttribute(
-      lstm_fwd_persistent, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return (int)err;
-  FwdPersistParams prm;
-  prm.xg = static_cast<const bf16*>(xg);
+  FwdPersistParams prm = {};
+  prm.x = xg;
   prm.w = static_cast<const bf16*>(whh);
   prm.bias = static_cast<const float*>(bhh);
   prm.mask = static_cast<const uint8_t*>(mask);
@@ -530,12 +421,8 @@ extern "C" int lstm_train_fwd_persistent(const void* xg, const void* whh,
   prm.T = T;
   prm.B = B;
   prm.H = H;
-  void* args[] = {&prm};
-  err = cudaLaunchCooperativeKernel(
-      reinterpret_cast<const void*>(lstm_fwd_persistent), dim3(H / P_UNITS),
-      dim3(P_THREADS), args, (size_t)smem, static_cast<cudaStream_t>(stream));
-  if (err != cudaSuccess) return (int)err;
-  return (int)cudaGetLastError();
+  return (int)launch_persist_fwd(lstm_fwd_persistent, prm,
+                                 static_cast<cudaStream_t>(stream));
 }
 
 // Backward over the whole sequence, t = T-1..0. Inputs as the forward's,

@@ -6,9 +6,10 @@ Replaces ``bayeslms_tpu/ops/lstm_pallas.py`` ``lstm2_scan_fused`` (its
 ``_train2_fwd_kernel`` and ``_train2_bwd_kernel`` Pallas bodies, kernel rows
 7-8), ``lstm2_layer_pallas_train`` and ``pallas_lstm2_ok(..., train=True)``.
 The kernels are in ``csrc/lstm2_train.cu``, whose header says what bounds
-them on the H100 and how their designs answer that; the backward has two,
-picked by ``_design``. ``lstm2_train_fwd`` and ``lstm2_train_bwd`` launch
-them for CUDA tensors and raise on what they do not take (bf16 only); for
+them on the H100 and how their designs answer that; the forward and the
+backward have two each, picked by ``_design``. ``lstm2_train_fwd`` and
+``lstm2_train_bwd`` launch them for CUDA tensors and raise on what they do
+not take (bf16 only); for
 CPU tensors they run ``lstm2_train_fwd_plain`` and
 ``lstm2_train_bwd_plain``, which repeat the kernels' arithmetic step by
 step.
@@ -36,17 +37,20 @@ import torch
 
 from . import _build
 from .lstm_cuda import cell_update
-from .lstm_train_cuda import _check, _ptr, cell_grads
+from .lstm_train_cuda import _check, _ptr, cell_grads, fwd_persist_smem
 
-# kernel launches, one per call that reaches a kernel (a call runs 2T step
-# launches forward; backward, the one launch of ``lstm2_bwd_operands``, then
-# 4T in the per-step design or 2 in the persistent one), and the backward's
-# calls by design; reset by callers that read them, such as chip_smoke.py
+# kernel launches, one per call that reaches a kernel (forward, 3 launches
+# a call in the persistent design or 2T in the per-step one; backward, the
+# one launch of ``lstm2_bwd_operands``, then 4T in the per-step design or 2
+# in the persistent one), and the calls by design, the backward's and the
+# forward's; reset by callers that read them, such as chip_smoke.py
 launches = {"lstm2_train_fwd": 0, "lstm2_train_bwd": 0}
 design_launches = {"persistent": 0, "per_step": 0}
+fwd_design_launches = {"persistent": 0, "per_step": 0}
 
 _P = ctypes.c_void_p
 _FWD_ARGTYPES = [_P] * 19 + [ctypes.c_int] * 3 + [_P]
+_FWD_PERSIST_ARGTYPES = [_P] * 21 + [ctypes.c_int] * 3 + [_P]
 _BWD_ARGTYPES = [_P] * 26 + [ctypes.c_int] * 3 + [_P]
 _PERSIST_ARGTYPES = [_P] * 26 + [ctypes.c_int] * 3 + [_P]
 _H1D_ARGTYPES = [_P] * 3 + [ctypes.c_longlong, _P]
@@ -85,31 +89,47 @@ def gemm_smem() -> int:
 
 
 def _design(B: int, H: int, n_sm: int, T: int = 1) -> dict:
-    """The backward's design (row 8) for batch B and width H on a card of
-    ``n_sm`` SMs. "persistent" (the gate GEMM for all T steps, then one
+    """The designs of the backward (row 8) and the forward (row 7) for batch
+    B and width H on a card of ``n_sm`` SMs. Both need B <= 32, H a
+    multiple of 8 and the CTAs no more than the SMs (one a SM). The
+    backward's "persistent" (the gate GEMM for all T steps, then one
     cooperative launch of H / 8 CTAs, each owning 8 units of both layers
     with three 4H x 8 weight slices in shared memory, a grid barrier an
-    iteration) where B <= 32, H is a multiple of 8, the CTAs number no more
-    than the SMs (one a SM) and a CTA's shared memory fits; otherwise
-    "per_step" (four launches a step on (ceil(B / 32), H / 32) blocks). An
-    explicit rule: the chosen design runs or raises. Returns a dict with
-    the design, the recurrence's grid, CTAs, units a CTA, threads and
-    shared memory bytes, the gate GEMM's grid (gate column tiles, row
-    tiles, layers) and shared memory, and the launches and grid barriers
-    of a call of T steps."""
+    iteration) where its CTA's shared memory fits; the forward's
+    "persistent" (layer 1's recurrence, one cooperative launch of H / 8
+    CTAs with W_hh1's gate rows resident; the input GEMM Q = h1d W_ih2^T
+    for all T steps; layer 2's recurrence on Q with W_hh2's gate rows
+    resident) where its recurrence's and its GEMM's shared memory fit.
+    Otherwise "per_step": four launches a step backward, two forward, on
+    (ceil(B / 32), H / 32) blocks. An explicit rule: the chosen design
+    runs or raises. Returns a dict with the backward's design, recurrence
+    grid, CTAs, units a CTA, threads and shared memory bytes, gate GEMM
+    grid (gate column tiles, row tiles, layers) and shared memory, and
+    launches and grid barriers of a call of T steps; and the forward's as
+    ``fwd_design``, ``fwd_smem_bytes``, ``fwd_gemm_grid``,
+    ``fwd_launches`` and ``fwd_barriers``."""
+    fits = B <= P_ROWS and H % P_UNITS == 0 and 0 < H // P_UNITS <= n_sm
+    blocks = (-(-B // TILE), H // TILE)
+    fsmem = fwd_persist_smem(H)
+    if fits and fsmem <= SMEM_LIMIT and gemm_smem() <= SMEM_LIMIT:
+        fwd = dict(fwd_design="persistent", fwd_smem_bytes=fsmem,
+                   fwd_gemm_grid=(-(-4 * H // GEMM_TILE),
+                                  -(-T * B // GEMM_TILE), 1),
+                   fwd_launches=3, fwd_barriers=2 * max(T - 1, 0))
+    else:
+        fwd = dict(fwd_design="per_step", fwd_smem_bytes=None,
+                   fwd_gemm_grid=None, fwd_launches=2 * T, fwd_barriers=0)
     smem = persist_smem(H)
-    if B <= P_ROWS and H % P_UNITS == 0 and 0 < H // P_UNITS <= n_sm \
-            and smem <= SMEM_LIMIT:
+    if fits and smem <= SMEM_LIMIT:
         ctas = H // P_UNITS
         gemm = (-(-4 * H // GEMM_TILE), -(-T * B // GEMM_TILE), 2)
         return dict(design="persistent", grid=(ctas,), ctas=ctas,
                     units=P_UNITS, threads=P_THREADS, smem_bytes=smem,
                     gemm_grid=gemm, gemm_smem_bytes=gemm_smem(), launches=2,
-                    barriers=T + 1)
-    blocks = (-(-B // TILE), H // TILE)
+                    barriers=T + 1, **fwd)
     return dict(design="per_step", grid=blocks, ctas=blocks[0] * blocks[1],
                 units=TILE, threads=None, smem_bytes=None, gemm_grid=None,
-                gemm_smem_bytes=None, launches=4 * T, barriers=0)
+                gemm_smem_bytes=None, launches=4 * T, barriers=0, **fwd)
 
 
 def _card_design(dev, B, H, T=1):
@@ -248,12 +268,23 @@ def lstm2_train_fwd(xg1, dm, w_hh1, b_hh1, w_ih2, w_hh2, b2, mask, h01, c01,
     b2 = b_ih2 + b_hh2 (4H,) float32; mask (T, B), nonzero = step, or None;
     h01, c01, h02, c02 (B, H) in the compute dtype. Returns ys1, cs1, ys2,
     cs2 (T, B, H) and hT1, cT1, hT2, cT2 (B, H), in the compute dtype. CUDA
-    tensors launch ``lstm2_train_fwd`` of ``csrc/lstm2_train.cu`` (bf16
-    only); CPU tensors run ``lstm2_train_fwd_plain``.
+    tensors launch the forward of ``csrc/lstm2_train.cu`` in the design
+    ``_design`` picks (bf16 only); CPU tensors run
+    ``lstm2_train_fwd_plain``.
     """
+    args = (xg1, dm, w_hh1, b_hh1, w_ih2, w_hh2, b2, mask, h01, c01, h02,
+            c02)
     if not xg1.is_cuda:
-        return lstm2_train_fwd_plain(xg1, dm, w_hh1, b_hh1, w_ih2, w_hh2, b2,
-                                     mask, h01, c01, h02, c02)
+        return lstm2_train_fwd_plain(*args)
+    return _train_fwd(None, *args)
+
+
+def _train_fwd(design, xg1, dm, w_hh1, b_hh1, w_ih2, w_hh2, b2, mask, h01,
+               c01, h02, c02):
+    """``lstm2_train_fwd`` on CUDA tensors in ``design`` ("persistent" or
+    "per_step"), or in the one ``_design`` picks where it is None;
+    chip_smoke.py times the per-step design on the persistent design's
+    calls through it. A design that does not take the shapes raises."""
     fn = "lstm2_train_fwd"
     B, H = xg1.shape[1], xg1.shape[2] // 4
     T, B, H, mask = _checked(
@@ -261,16 +292,34 @@ def lstm2_train_fwd(xg1, dm, w_hh1, b_hh1, w_ih2, w_hh2, b2, mask, h01, c01,
         (("b_hh1", b_hh1), ("b2", b2)), mask,
         [(n, s, (B, H)) for n, s in (("h01", h01), ("c01", c01),
                                      ("h02", h02), ("c02", c02))])
+    plan = _card_design(xg1.device, B, H, T)["fwd_design"]
+    if design is None:
+        design = plan
+    if design == "persistent" and plan != "persistent":
+        raise ValueError(f"{fn}: the persistent design does not take B={B} "
+                         f"H={H}")
+    dev = xg1.device
+    bf16 = torch.bfloat16
     h1, c1, h2, c2 = (s.float().contiguous() for s in (h01, c01, h02, c02))
-    seqs = [torch.empty((T, B, H), dtype=torch.bfloat16, device=xg1.device)
-            for _ in range(4)]
-    h1d = torch.empty((B, H), dtype=torch.bfloat16, device=xg1.device)
-    _call(fn, _FWD_ARGTYPES, _ptr(xg1), _ptr(dm), _ptr(w_hh1), _ptr(b_hh1),
-          _ptr(w_ih2), _ptr(w_hh2), _ptr(b2), _ptr(mask), _ptr(h01),
-          _ptr(h02), _ptr(h1), _ptr(c1), _ptr(h2), _ptr(c2),
-          *(_ptr(s) for s in seqs), _ptr(h1d), T, B, H,
-          torch.cuda.current_stream(xg1.device).cuda_stream)
-    return (*seqs, *(s.to(torch.bfloat16) for s in (h1, c1, h2, c2)))
+    seqs = [torch.empty((T, B, H), dtype=bf16, device=dev) for _ in range(4)]
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    ptrs = (_ptr(xg1), _ptr(dm), _ptr(w_hh1), _ptr(b_hh1), _ptr(w_ih2),
+            _ptr(w_hh2), _ptr(b2), _ptr(mask), _ptr(h01), _ptr(h02),
+            _ptr(h1), _ptr(c1), _ptr(h2), _ptr(c2), *(_ptr(s) for s in seqs))
+    if design == "persistent":
+        # every step's layer-2 input, the fp32 input product Q for all
+        # steps, and one barrier counter a recurrence
+        h1d = torch.empty((T, B, H), dtype=bf16, device=dev)
+        q = torch.empty((T * B, 4 * H), dtype=torch.float32, device=dev)
+        bar = torch.zeros((2,), dtype=torch.int32, device=dev)
+        _call(fn, _FWD_PERSIST_ARGTYPES, *ptrs, _ptr(h1d), _ptr(q),
+              _ptr(bar), T, B, H, stream,
+              entry="lstm2_train_fwd_persistent")
+    else:
+        h1d = torch.empty((B, H), dtype=bf16, device=dev)
+        _call(fn, _FWD_ARGTYPES, *ptrs, _ptr(h1d), T, B, H, stream)
+    fwd_design_launches[design] += 1
+    return (*seqs, *(s.to(bf16) for s in (h1, c1, h2, c2)))
 
 
 def lstm2_bwd_operands(dm, h01, h02, ys1, ys2):

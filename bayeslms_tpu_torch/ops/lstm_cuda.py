@@ -5,7 +5,8 @@ Replaces ``bayeslms_tpu/ops/lstm_pallas.py`` ``lstm2_layer_pallas`` (its
 ``_kernel2`` / ``_kernel2_reset`` Pallas bodies) with ``lstm2_fwd``
 (``csrc/lstm2_fwd.cu``, in two designs picked by ``_design``), and
 ``lstm_layer_pallas`` (``_kernel_reset`` and ``_kernel``, kernel rows 3 and
-4) with ``lstm_fwd`` (``csrc/lstm_fwd.cu``); ``lstm_kernel_ok`` is
+4) with ``lstm_fwd`` (``csrc/lstm_fwd.cu``, in two designs picked by
+``_design_fwd``); ``lstm_kernel_ok`` is
 ``pallas_lstm_ok``'s gate. The kernels' headers say what bounds them on the
 H100 and how their designs answer that. The wrappers launch them for CUDA
 tensors and raise on what they do not take; for CPU tensors they run
@@ -29,6 +30,7 @@ from typing import Optional
 import torch
 
 from . import _build
+from . import lstm_train_cuda as _ltc
 
 # kernel launches (one per call that reaches the kernel), and those calls
 # by design; reset by callers that read them, such as chip_smoke.py
@@ -37,10 +39,13 @@ design_launches = {"persistent": 0, "per_step": 0}
 # the same for ``lstm_fwd``, by the TPU kernel a call replaces: row 3 (with
 # resets) and row 4 (without)
 layer_launches = {"lstm_fwd_reset": 0, "lstm_fwd": 0}
+# and ``lstm_fwd``'s calls by design (``_design_fwd``)
+layer_design_launches = {"persistent": 0, "per_step": 0}
 
 _P = ctypes.c_void_p
 _ARGTYPES = [_P] * 14 + [ctypes.c_int] * 3 + [_P]
 _PERSIST_ARGTYPES = [_P] * 18 + [ctypes.c_int] * 4 + [_P]
+# lstm_fwd and lstm_fwd_persistent: nine pointers, T, B, H, the stream
 _FWD_ARGTYPES = [_P] * 9 + [ctypes.c_int] * 3 + [_P]
 
 # The persistent design's geometry (csrc/lstm2_fwd.cu): hidden units a CTA
@@ -96,6 +101,31 @@ def _design(T: int, B: int, H: int, n_sm: int) -> dict:
 
 def _card_design(dev, T, B, H):
     return _design(T, B, H, _build.sm_count(dev.index))
+
+
+def _design_fwd(T: int, B: int, H: int, n_sm: int,
+                resets: bool = False) -> dict:
+    """The design of ``lstm_fwd`` (rows 3 and 4) for T steps of B columns
+    at width H on a card of ``n_sm`` SMs: "persistent" (row 5's persistent
+    forward without the cs store: one cooperative launch of H / 8 CTAs,
+    each keeping its 4 x 8 gate rows of W_hh in shared memory, a grid
+    barrier a step) where the call has no resets, B <= 32, H is a multiple
+    of 8, the CTAs number no more than the SMs (one a SM) and a CTA's shared
+    memory fits; "per_step" (``lstm_step_kernel``, T launches on
+    (ceil(B / 64), H / 32) blocks) otherwise, and for every call with resets
+    (row 3). An explicit rule: the chosen design runs or raises. Returns a
+    dict with the design, grid, CTAs, units a CTA, threads, shared memory
+    bytes, launches and grid barriers for the call."""
+    smem = _ltc.fwd_persist_smem(H)
+    if not resets and _ltc._fits(B, H, n_sm, smem):
+        ctas = H // _ltc.P_UNITS
+        return dict(design="persistent", grid=(ctas,), ctas=ctas,
+                    units=_ltc.P_UNITS, threads=_ltc.P_THREADS,
+                    smem_bytes=smem, launches=1, barriers=max(T - 1, 0))
+    grid = (-(-B // 64), H // 32)
+    return dict(design="per_step", grid=grid, ctas=grid[0] * grid[1],
+                units=32, threads=256, smem_bytes=None, launches=T,
+                barriers=0)
 
 
 # The JAX gate's scoped-VMEM arithmetic (lstm_pallas.py `_est_vmem`,
@@ -368,13 +398,25 @@ def lstm_fwd(xg: torch.Tensor, whh: torch.Tensor, bhh: torch.Tensor,
     step_mask and reset_mask (T, B), nonzero = set; reset_src (B,) int,
     -1 = zero state. Returns ys (T, B, H), hT, cT (B, H), in the compute
     dtype. CUDA tensors launch ``csrc/lstm_fwd.cu`` (bf16 only; with resets
-    kernel row 3's replacement, without row 4's); CPU tensors run
-    ``lstm_fwd_plain``. Each call that reaches the kernel adds one to
-    ``layer_launches`` (the call itself runs T step launches).
+    kernel row 3's replacement, without row 4's) in the design
+    ``_design_fwd`` picks; CPU tensors run ``lstm_fwd_plain``. Each call
+    that reaches the kernel adds one to ``layer_launches`` and to its
+    design's ``layer_design_launches`` (the persistent design is one
+    launch a call, the per-step design T).
     """
     if not xg.is_cuda:
         return lstm_fwd_plain(xg, whh, bhh, h0, c0, step_mask, reset_mask,
                               reset_src)
+    return _lstm_fwd(None, xg, whh, bhh, h0, c0, step_mask, reset_mask,
+                     reset_src)
+
+
+def _lstm_fwd(design, xg, whh, bhh, h0, c0, step_mask=None, reset_mask=None,
+              reset_src=None):
+    """``lstm_fwd`` on CUDA tensors in ``design`` ("persistent" or
+    "per_step"), or in the one ``_design_fwd`` picks where it is None;
+    chip_smoke.py times the per-step design on the persistent design's
+    calls through it. A design that does not take the call raises."""
     T, B, G = xg.shape
     H = G // 4
     dev = xg.device
@@ -390,10 +432,6 @@ def lstm_fwd(xg: torch.Tensor, whh: torch.Tensor, bhh: torch.Tensor,
             raise ValueError(f"lstm_fwd: {name} must be ({B}, {H}) on {dev}")
     if (reset_mask is None) != (reset_src is None):
         raise ValueError("lstm_fwd: reset_mask and reset_src go together")
-    h = torch.empty((2, B, H), dtype=torch.float32, device=dev)
-    c = torch.empty_like(h)
-    h[0].copy_(h0)
-    c[0].copy_(c0)
     mask = reset = src = None
     if step_mask is not None:
         mask = (step_mask != 0).to(torch.uint8).contiguous()
@@ -403,15 +441,44 @@ def lstm_fwd(xg: torch.Tensor, whh: torch.Tensor, bhh: torch.Tensor,
         _check("reset_mask", reset, torch.uint8, (T, B), dev, fn="lstm_fwd")
         src = reset_src.to(torch.int32).contiguous()
         _check("reset_src", src, torch.int32, (B,), dev, fn="lstm_fwd")
+    plan = _design_fwd(T, B, H, _build.sm_count(dev.index),
+                       resets=reset is not None)["design"]
+    if design is None:
+        design = plan
+    if design == "persistent" and plan != "persistent":
+        raise ValueError(f"lstm_fwd: the persistent design does not take "
+                         f"T={T} B={B} H={H}"
+                         + (" with resets" if reset is not None else ""))
+    stream = torch.cuda.current_stream(dev).cuda_stream
     ys = torch.empty((T, B, H), dtype=bf16, device=dev)
-    fn = _build.load("lstm_fwd").lstm_fwd
-    fn.argtypes, fn.restype = _FWD_ARGTYPES, ctypes.c_int
-    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
-    err = fn(ptr(xg), ptr(whh), ptr(bhh), ptr(mask), ptr(reset), ptr(src),
-             ptr(h), ptr(c), ptr(ys), T, B, H,
-             torch.cuda.current_stream(dev).cuda_stream)
+    lib = _build.load("lstm_fwd")
+    if design == "persistent":
+        # fp32 carries, the initial state in and the final state out; the
+        # first step's product takes h0 in bf16
+        h = torch.empty((B, H), dtype=torch.float32, device=dev)
+        c = torch.empty_like(h)
+        h.copy_(h0)
+        c.copy_(c0)
+        h0b = h0.to(bf16).contiguous()
+        bar = torch.zeros((1,), dtype=torch.int32, device=dev)
+        fn = lib.lstm_fwd_persistent
+        fn.argtypes, fn.restype = _FWD_ARGTYPES, ctypes.c_int
+        err = fn(_ptr(xg), _ptr(whh), _ptr(bhh), _ptr(mask), _ptr(h0b),
+                 _ptr(h), _ptr(c), _ptr(ys), _ptr(bar), T, B, H, stream)
+        hT, cT = h, c
+    else:
+        h = torch.empty((2, B, H), dtype=torch.float32, device=dev)
+        c = torch.empty_like(h)
+        h[0].copy_(h0)
+        c[0].copy_(c0)
+        fn = lib.lstm_fwd
+        fn.argtypes, fn.restype = _FWD_ARGTYPES, ctypes.c_int
+        err = fn(_ptr(xg), _ptr(whh), _ptr(bhh), _ptr(mask), _ptr(reset),
+                 _ptr(src), _ptr(h), _ptr(c), _ptr(ys), T, B, H, stream)
+        hT, cT = h[T % 2], c[T % 2]
     if err != 0:
-        raise RuntimeError(f"lstm_fwd kernel launch failed: CUDA error {err}")
+        raise RuntimeError(f"lstm_fwd {design} launch failed: CUDA error "
+                           f"{err}")
     layer_launches["lstm_fwd_reset" if reset is not None else "lstm_fwd"] += 1
-    f = T % 2
-    return ys, h[f].to(bf16), c[f].to(bf16)
+    layer_design_launches[design] += 1
+    return ys, hT.to(bf16), cT.to(bf16)

@@ -32,22 +32,27 @@ mean. Then the JAX package's opt-in fused 2-layer training route
 ``fit`` steps on it and on the default two-layer route, timed in the same
 call, its kernels (forward, backward) against their twins on the calls one
 fused step hands them (with the dropout mask, a random step mask and
-dm = ones; planted faults: W_hh2 dropped and three builds with
-``-DLSTM2_TRAIN_FAULT``; the backward in its persistent design, the gate
-GEMM and one cooperative launch, its per-step design beside it), and a
-fused standard and Bayesian step against the plain path. Then the
+dm = ones; planted faults: W_hh2 dropped and four builds with
+``-DLSTM2_TRAIN_FAULT``; the forward in its persistent design, two
+cooperative launches around the input GEMM, the backward in its, the gate
+GEMM and one cooperative launch, their per-step designs beside them; every
+call of the fused fit on both persistent designs), and a fused standard
+and Bayesian step against the plain path. Then the
 recipe's GP-LSTM (``l_gauss_pos`` 13: a GP cell replacing the input gate,
 then a standard layer) on the same corpus: the GP
 gate-replacement kernels (forward, backward) against their twins on the
 calls a step and an ``evaluate`` window hand them and for gates 2-4 at a
 short T (planted faults: gpx dropped, and two builds with
 ``-DGP_LSTM_FAULT``), the single-layer forward kernel on the ``evaluate``
-window's call (and with a random step mask), one epoch of
-``Trainer.fit``, a kernel-path step against the plain path, and a
+window's call (and with a random step mask) in its persistent design, its
+per-step design on the same calls beside it, one epoch of
+``Trainer.fit`` (every ``evaluate`` call of row 4 on the persistent
+design), a kernel-path step against the plain path, and a
 packed-carry pass of the 6,000-hypothesis N-best from that checkpoint: the
 single-layer forward kernel with resets against its twin on the pass's
-call and with -1 sources (planted faults: resets ignored, -1 source not
-zeroed, step mask ignored, W_hh dropped), the pass against the plain path.
+call and with -1 sources, on the per-step kernel that its rule names for
+resets (planted faults: resets ignored, -1 source not zeroed, step mask
+ignored, W_hh dropped), the pass against the plain path.
 Then the README's gate-6 GP-LSTM (``l_gauss_pos`` 63: a GP unit in place of
 the GP cell's hidden projection, then a standard layer) on the same
 corpus: the gate-6 kernels (forward, backward) against their twins on the
@@ -180,9 +185,10 @@ def stream_of(key):
 # kernel names (tools/port_train_profile.py, tools/port_pass_profile.py).
 KERNEL_ROWS = (
     ("lstm2_persistent", "1"), ("lstm_fwd_persistent", "5"),
-    ("lstm_step_kernel", "1, 3, 4"), ("ce_fwd_kernel", "2"),
-    ("lstm_fwd_step", "5"), ("lstm_bwd_persistent", "6"),
-    ("lstm_bwd_gates", "6"), ("lstm_bwd_dh", "6"),
+    ("lstm_layer_persistent", "4"), ("lstm_step_kernel", "1, 3, 4"),
+    ("ce_fwd_kernel", "2"), ("lstm_fwd_step", "5"),
+    ("lstm_bwd_persistent", "6"), ("lstm_bwd_gates", "6"),
+    ("lstm_bwd_dh", "6"),
     ("ce_stats_split", "2, 9"), ("ce_stats_merge", "2, 9"),
     ("ce_bwd_kernel<false>", "10"),
     ("ce_dh_reduce", "10"), ("ce_bwd_kernel<true>", "11"),
@@ -196,6 +202,7 @@ KERNEL_ROWS = (
     ("gp6_bwd_gates", "19"), ("gp6_bwd_dh", "19"), ("gp6_dcoef_sum", "19"),
     ("gpg_fwd_step", "20"), ("gpg_bwd_gates", "21"), ("gpg_bwd_dh", "21"),
     ("gpg_dcoef_sum", "21"), ("lstm2_fwd_l1", "7"), ("lstm2_fwd_l2", "7"),
+    ("lstm2_input_gemm", "7"),
     ("lstm2_dropped", "8"), ("lstm2_bwd_gates", "8"), ("lstm2_bwd_dh2", "8"),
     ("lstm2_bwd_dh1", "8"), ("lstm2_gates_gemm", "8"),
     ("lstm2_bwd_persistent", "8"), ("bmm_draw_split", "12"),
@@ -2865,14 +2872,60 @@ def check_kernel_calls(torch, kernels, name, spec, calls):
             raise AssertionError("; ".join(failed))
 
 
+def per_step_design_check(torch, kernels, name, spec, calls, run, counts,
+                          fault):
+    """``name``'s per-step design (``run``: its wrapper forced onto that
+    design), which the rule keeps for the calls its persistent design does
+    not take, on ``calls`` (the persistent design's, checked just before)
+    against the twin within GP_TOL[name], and the planted fault ``fault``
+    of ``spec["faults"]`` (a W_hh product dropped) by FAULT_MARGIN or more;
+    every run counted in ``counts`` (calls by design) as per-step; timed on
+    the first call, the time added to ``kernels[name]`` as ``per_step_ms``
+    beside the persistent design's ``ms``. Raises on a failed check."""
+    with phase(f"kernel {name} (per-step design)"), torch.no_grad():
+        rtol, share = GP_TOL[name]
+        outs = spec["outs"]
+        err, worst = 0.0, 0.0
+        for tag, args in calls:
+            before = counts["per_step"]
+            got = dict(zip(outs, run(*args)))
+            ref = dict(zip(outs, spec["plain"](*args)))
+            torch.cuda.synchronize()
+            if counts["per_step"] != before + 1:
+                raise AssertionError(f"the call did not take the per-step "
+                                     f"design: {counts}")
+            print(f"  call {tag}:")
+            e, q = check_outputs(f"{name} (per-step)", got, ref, rtol, share)
+            err, worst = max(err, e), max(worst, q)
+            del got, ref
+        args = calls[0][1]
+        ref = dict(zip(outs, spec["plain"](*args)))
+        bad = dict(zip(outs, run(*spec["faults"][fault](args))))
+        q_fault = fault_share(bad, ref, rtol, share)
+        print(f"  planted fault '{fault}': worst share of tolerance "
+              f"{q_fault:.1f}")
+        ms = cuda_ms(torch, lambda: run(*args), 5)
+        print(f"  per-step {ms:.3f} ms (the persistent design "
+              f"{kernels[name]['ms']:.3f} ms on the same call)")
+        kernels[name].update(design="persistent", per_step_ms=ms,
+                             per_step_max_abs_err=err)
+        if worst > 1:
+            raise AssertionError(f"the per-step design disagrees with its "
+                                 f"plain version: worst share {worst:.3f}")
+        if q_fault < FAULT_MARGIN:
+            raise AssertionError(f"the per-step design's planted fault "
+                                 f"exceeds the tolerance only {q_fault:.1f}x")
+
+
 def gp_fit(torch, kernels, trainer, corpus, smi, kl_scale, tag, cell_rows,
            counted):
     """One epoch of ``trainer.fit`` for a GP-LSTM whose GP cell takes the
     kernels ``cell_rows`` (forward, backward) and whose standard layer takes
     rows 5-6 (row 4 in ``evaluate``): the loss finite and falling, the KL
     term finite and > 0, every training kernel once a step, the cell's
-    forward and row 4 once an ``evaluate`` window. Sets the launches of the
-    kernels ``counted``. Raises on any failed check."""
+    forward and row 4 once an ``evaluate`` window, row 4 on its persistent
+    design every time. Sets the launches of the kernels ``counted``.
+    Raises on any failed check."""
     from bayeslms_tpu_torch.ops import ce_train_cuda as ctc
     from bayeslms_tpu_torch.ops import gp_lstm_cuda as gpc
     from bayeslms_tpu_torch.ops import lstm_cuda as lc
@@ -2886,6 +2939,7 @@ def gp_fit(torch, kernels, trainer, corpus, smi, kl_scale, tag, cell_rows,
                 module.launches[k] = 0
         for k in lc.layer_launches:
             lc.layer_launches[k] = 0
+        lc.layer_design_launches.update(persistent=0, per_step=0)
         steps, kls = [], []
         step = trainer.train_step
 
@@ -2927,10 +2981,13 @@ def gp_fit(torch, kernels, trainer, corpus, smi, kl_scale, tag, cell_rows,
                                      f"{n} steps, 1 a step expected")
         n_eval = launches[fwd] - n
         print(f"  evaluate: {fwd} {n_eval}, lstm_fwd {launches['lstm_fwd']} "
-              "launches")
+              f"launches; row 4 by design {lc.layer_design_launches}")
         if n_eval <= 0 or launches["lstm_fwd"] != n_eval:
             raise AssertionError(f"evaluate did not take {fwd} and row 4 on "
                                  "every window")
+        if lc.layer_design_launches != {"persistent": n_eval, "per_step": 0}:
+            raise AssertionError(f"row 4 left its persistent design in "
+                                 f"evaluate: {lc.layer_design_launches}")
         for name in counted:
             kernels[name]["launches"] = launches[name]
         if not all(np.isfinite(losses)) or not np.isfinite(out["test_loss"]):
@@ -2953,6 +3010,7 @@ def gp_score(torch, scorer, nbest, w2i, smi, tag):
 
     with phase(f"{tag} score"):
         lc.layer_launches["lstm_fwd_reset"] = 0
+        lc.layer_design_launches.update(persistent=0, per_step=0)
         ce_cuda.launches = 0
         t0 = time.perf_counter()
         res = scorer.score_nbest(nbest, w2i, stream_fn=stream_of)
@@ -2963,6 +3021,9 @@ def gp_score(torch, scorer, nbest, w2i, smi, tag):
               f"{n_row2}; the GP cell runs the scan under resets, as in JAX")
         if n_row3 == 0 or n_row2 == 0:
             raise AssertionError("GP scoring did not run rows 3 and 2")
+        if lc.layer_design_launches != {"persistent": 0, "per_step": n_row3}:
+            raise AssertionError(f"row 3 (resets) left the per-step kernel: "
+                                 f"{lc.layer_design_launches}")
         got = np.array([s for pairs in res.values() for _, s in pairs])
         with mock.patch.object(lc, "lstm_fwd", lc.lstm_fwd_plain), \
                 mock.patch.object(ce_cuda, "fused_decode_ce", ce_cuda.ce_plain):
@@ -3184,10 +3245,21 @@ def gp_phases(torch, kernels, smi, cfg, rcfg, corpus, tmpdir):
     masked = with_arg(eval_call, 5, (torch.rand(
         eval_call[0].shape[:2], generator=gen, device="cuda") < 0.8).to(
             torch.uint8))
-    check_kernel_calls(torch, kernels, "lstm_fwd", lspecs["lstm_fwd"], [
-        ("one evaluate window", eval_call),
-        ("that window with a random step mask", masked)])
-    del step_calls, recorded, short_fwd, short_bwd
+    row4_calls = [("one evaluate window", eval_call),
+                  ("that window with a random step mask", masked)]
+    before = dict(lc.layer_design_launches)
+    check_kernel_calls(torch, kernels, "lstm_fwd", lspecs["lstm_fwd"],
+                       row4_calls)
+    if lc.layer_design_launches["per_step"] != before["per_step"] \
+            or lc.layer_design_launches == before:
+        raise AssertionError(f"row 4's checks took {lc.layer_design_launches}"
+                             f" (before: {before}): the persistent design "
+                             f"alone expected")
+    per_step_design_check(
+        torch, kernels, "lstm_fwd", lspecs["lstm_fwd"], row4_calls,
+        lambda *a: lc._lstm_fwd("per_step", *a), lc.layer_design_launches,
+        "W_hh product dropped")
+    del step_calls, recorded, short_fwd, short_bwd, row4_calls
 
     gp_fit(torch, kernels, trainer, corpus, smi, kl_scale, "gp",
            ("gpg_fwd", "gpg_bwd"), ("gpg_fwd", "gpg_bwd", "lstm_fwd"))
@@ -3227,10 +3299,15 @@ def gp_phases(torch, kernels, smi, cfg, rcfg, corpus, tmpdir):
     src = a[7].clone()
     N = max(len(h) for h in nbest.values())
     src[(torch.arange(src.numel(), device=src.device) // N) % 3 == 1] = -1
+    before = dict(lc.layer_design_launches)
     check_kernel_calls(torch, kernels, "lstm_fwd_reset",
                        lspecs["lstm_fwd_reset"], [
                            ("one packed-carry pass", a),
                            ("that pass with -1 sources", with_arg(a, 7, src))])
+    if lc.layer_design_launches["persistent"] != before["persistent"]:
+        raise AssertionError(f"row 3's checks took {lc.layer_design_launches}"
+                             f" (before: {before}): the per-step kernel alone "
+                             f"expected")
     del recorded, calls, a
 
     kernels["lstm_fwd_reset"]["launches"] = gp_score(
@@ -3566,6 +3643,9 @@ def _dropped(args):
 
 LSTM2_FWD_FAULT = {"build": ("lstm2_train", ("-DLSTM2_TRAIN_FAULT=3",)),
                    "when": _dropped}
+# the persistent forward's layer 2 reads Q of step t + 1: a fault only the
+# hoisted input product can make
+LSTM2_Q_FAULT = ("lstm2_train", ("-DLSTM2_TRAIN_FAULT=4",))
 LSTM2_BWD_FAULTS = {
     "dropout mask ignored in layer 2's recompute": {
         "build": ("lstm2_train", ("-DLSTM2_TRAIN_FAULT=1",)),
@@ -3573,7 +3653,7 @@ LSTM2_BWD_FAULTS = {
     "injection into layer 1 dropped":
         ("lstm2_train", ("-DLSTM2_TRAIN_FAULT=2",)),
 }
-LSTM2_BUILDS = (LSTM2_FWD_FAULT["build"],
+LSTM2_BUILDS = (LSTM2_FWD_FAULT["build"], LSTM2_Q_FAULT,
                 LSTM2_BWD_FAULTS["dropout mask ignored in layer 2's "
                                  "recompute"]["build"],
                 LSTM2_BWD_FAULTS["injection into layer 1 dropped"])
@@ -3650,7 +3730,8 @@ def lstm2_specs(torch, l2c):
             replaces="bayeslms_tpu/ops/lstm_pallas.py:925",
             faults={"W_hh2 product dropped":
                     lambda a: with_arg(a, 5, torch.zeros_like(a[5])),
-                    "dropout mask ignored": LSTM2_FWD_FAULT},
+                    "dropout mask ignored": LSTM2_FWD_FAULT,
+                    "layer 2 reads Q of the wrong step": LSTM2_Q_FAULT},
             flops=lambda a: fwd_cost(a)[0], nbytes=lambda a: fwd_cost(a)[1],
             library=cudnn(False)),
         "lstm2_train_bwd": dict(
@@ -3801,6 +3882,7 @@ def lstm2_phases(torch, kernels, smi, cfg, corpus, tmpdir):
     with phase("fused lstm2 train"):
         fits = {}
         l2c.design_launches.update(persistent=0, per_step=0)
+        l2c.fwd_design_launches.update(persistent=0, per_step=0)
         for route, on in (("fused", True), ("two-layer", False)):
             with fused_lstm2_switch(on):
                 tr = Trainer(cfg, tcfg(f"lstm2_{route}.ckpt",
@@ -3812,13 +3894,17 @@ def lstm2_phases(torch, kernels, smi, cfg, corpus, tmpdir):
         print(f"  ms a step: fused {fits['fused'][2]:.3f}, two-layer "
               f"{fits['two-layer'][2]:.3f} (same call, {smi})")
         print(f"  the fused fit's row-8 calls by design: "
-              f"{dict(l2c.design_launches)}")
+              f"{dict(l2c.design_launches)}; row 7's "
+              f"{dict(l2c.fwd_design_launches)}")
         if lf["lstm2_train_fwd"] != n_f or lf["lstm2_train_bwd"] != n_f \
                 or lf["lstm_train_fwd"] or lf["lstm_train_bwd"]:
             raise AssertionError(f"the fused fit launched {lf}")
         if l2c.design_launches != {"persistent": n_f, "per_step": 0}:
             raise AssertionError(f"row 8 took {l2c.design_launches} in the "
                                  f"fused fit's {n_f} steps")
+        if l2c.fwd_design_launches != {"persistent": n_f, "per_step": 0}:
+            raise AssertionError(f"row 7 took {l2c.fwd_design_launches} in "
+                                 f"the fused fit's {n_f} steps")
         if lt["lstm2_train_fwd"] or lt["lstm2_train_bwd"] \
                 or lt["lstm_train_fwd"] != 2 * len(fits["two-layer"][0]):
             raise AssertionError(f"the default fit launched {lt}")
@@ -3859,10 +3945,22 @@ def lstm2_phases(torch, kernels, smi, cfg, corpus, tmpdir):
         print(f"  {name}: dropout mask keeps "
               f"{float((a[1] != 0).float().mean()):.4f} of the units")
         before = dict(l2c.design_launches)
-        check_kernel_calls(torch, kernels, name, specs[name], [
-            (f"one step's call (T={T}, B={B}), dropout mask", a),
-            ("random step mask", with_arg(a, 7, rmask)),
-            ("dm = ones", with_arg(a, 1, ones))])
+        before_fwd = dict(l2c.fwd_design_launches)
+        row_calls = [(f"one step's call (T={T}, B={B}), dropout mask", a),
+                     ("random step mask", with_arg(a, 7, rmask)),
+                     ("dm = ones", with_arg(a, 1, ones))]
+        check_kernel_calls(torch, kernels, name, specs[name], row_calls)
+        if name == "lstm2_train_fwd":
+            counts = l2c.fwd_design_launches
+            if counts["per_step"] != before_fwd["per_step"] \
+                    or counts == before_fwd:
+                raise AssertionError(f"row 7's checks took {counts} (before: "
+                                     f"{before_fwd}): the persistent design "
+                                     f"alone expected")
+            per_step_design_check(
+                torch, kernels, name, specs[name], row_calls[:2],
+                lambda *x: l2c._train_fwd("per_step", *x), counts,
+                "W_hh2 product dropped")
         if name == "lstm2_train_bwd":
             if l2c.design_launches["per_step"] != before["per_step"] \
                     or l2c.design_launches == before:

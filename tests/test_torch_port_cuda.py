@@ -1019,3 +1019,122 @@ def test_lstm2_train_bwd_persistent_no_worse_at_large_weights(dev):
             worst[design] = max(worst[design], *shares)
     print(f"worst over the calls: {worst}")
     assert worst["persistent"] <= worst["per_step"]
+
+
+def _lstm_fwd_args(dev, T, B, H, masked, f32_state, seed=0):
+    """Row 4's arguments: W scaled by 1 / sqrt(H), the state in float32
+    (as ``evaluate`` hands it) or bf16, a random step mask."""
+    g = torch.Generator().manual_seed(seed)
+    r = lambda *s, sc=1.0: ((torch.rand(s, generator=g) * 2 - 1) * sc)  # noqa: E731
+    bf = torch.bfloat16
+    st = torch.float32 if f32_state else bf
+    mask = (torch.rand((T, B), generator=g) < 0.8).to(dev, torch.uint8) \
+        if masked else None
+    return [r(T, B, 4 * H).to(dev, bf), r(4 * H, H, sc=H ** -0.5).to(dev, bf),
+            r(4 * H, sc=0.1).to(dev), r(B, H, sc=0.5).to(dev, st),
+            r(B, H, sc=0.5).to(dev, st), mask]
+
+
+# Row 4's designs: the persistent one (row 5's persistent forward without
+# cs) at evaluate's width and batch, B = 32, a narrow width and T = 1; the
+# per-step one on the same calls and where the rule sends a batch past 32
+# columns. Tolerance: chip_smoke.py's for this kernel (GP_TOL["lstm_fwd"]:
+# rtol 2^-6, 2^-12 of the largest entry).
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("T,B,H,rule,f32_state", [
+    (9, 20, 1024, "persistent", True), (9, 32, 1024, "persistent", False),
+    (1, 20, 1024, "persistent", True), (6, 5, 64, "persistent", True),
+    (8, 40, 512, "per_step", True)])
+def test_lstm_fwd_designs_match_plain(dev, T, B, H, rule, f32_state, masked):
+    from bayeslms_tpu_torch.ops import lstm_cuda as lc
+
+    assert lc._design_fwd(T, B, H, _build.sm_count(0))["design"] == rule
+    args = _lstm_fwd_args(dev, T, B, H, masked, f32_state, seed=B + H)
+    h0 = args[3].clone()
+    ref = lc.lstm_fwd_plain(*args)
+    for design in ("persistent", "per_step") if rule == "persistent" \
+            else ("per_step",):
+        before = dict(lc.layer_design_launches)
+        got = lc._lstm_fwd(design, *args) if design != rule \
+            else lc.lstm_fwd(*args)
+        torch.cuda.synchronize()
+        assert lc.layer_design_launches[design] == before[design] + 1
+        for a, b in zip(got, ref):
+            assert a.dtype == torch.bfloat16
+            _within(a, b, 2 ** -6, 2 ** -12)
+        assert torch.equal(args[3], h0)  # the caller's state is not written
+        again = lc._lstm_fwd(design, *args)
+        assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+def test_lstm_fwd_rule_sends_resets_to_the_per_step_kernel(dev):
+    """Row 3 (resets) at a batch and width the persistent design takes
+    without resets: the rule names the per-step kernel, the wrapper takes
+    it, and the persistent design refuses the call; it refuses a batch past
+    32 columns too."""
+    from bayeslms_tpu_torch.ops import lstm_cuda as lc
+
+    T, B, H = 7, 20, 1024
+    args = _lstm_fwd_args(dev, T, B, H, True, True, seed=3)
+    reset = (torch.rand((T, B)) < 0.2).to(dev, torch.uint8)
+    src = ((torch.arange(B) // 4) * 4).to(torch.int32)
+    src[::5] = -1
+    src = src.to(dev)
+    n = _build.sm_count(0)
+    assert lc._design_fwd(T, B, H, n)["design"] == "persistent"
+    assert lc._design_fwd(T, B, H, n, resets=True)["design"] == "per_step"
+    before = dict(lc.layer_design_launches)
+    got = lc.lstm_fwd(*args, reset, src)
+    torch.cuda.synchronize()
+    assert lc.layer_design_launches == {**before,
+                                        "per_step": before["per_step"] + 1}
+    for a, b in zip(got, lc.lstm_fwd_plain(*args, reset, src)):
+        _within(a, b, 2 ** -6, 2 ** -12)
+    with pytest.raises(ValueError):
+        lc._lstm_fwd("persistent", *args, reset, src)
+    with pytest.raises(ValueError):
+        lc._lstm_fwd("persistent", *_lstm_fwd_args(dev, 3, 40, 64, False,
+                                                   True))
+
+
+# Row 7's designs: the persistent one (layer 1's recurrence storing h1d,
+# the input GEMM, layer 2's recurrence on its fp32 Q) at the training
+# width, a ragged batch and T B off the GEMM's 128-row tiles at a width
+# off its 64-deep chunks (H = 544), T = 1; the per-step one on the same
+# calls and where the rule sends a batch past 32 columns; masked and
+# dropped, and not. Tolerance: row 8's card test's (rtol 2^-6, 2^-10 of
+# the largest entry). Layer 2's input h1d = bf16(h1 dm) rounds the other
+# way wherever the fp32 h1 differs from the twin's in its last bits, and
+# at H = 1,024 that moves hT2 and cT2 past chip_smoke.py's 2^-12 of their
+# largest entry in both designs on these random inputs (on the card, at
+# (9, 20, 1,024) masked and dropped: the persistent design 1.12-1.14 of
+# it, the per-step 0.49; at (100, 32, 1,024) both 1.0-1.26).
+# chip_smoke.py holds both designs to its 2^-12 on the main path's calls.
+@pytest.mark.parametrize("masked,dropped", [(False, False), (True, True)])
+@pytest.mark.parametrize("T,B,H,rule", [
+    (9, 32, 1024, "persistent"), (9, 20, 1024, "persistent"),
+    (5, 7, 544, "persistent"), (1, 32, 1024, "persistent"),
+    (9, 40, 1024, "per_step")])
+def test_lstm2_train_fwd_designs_match_plain(dev, T, B, H, rule, masked,
+                                             dropped):
+    from bayeslms_tpu_torch.ops import lstm2_train_cuda as l2c
+
+    assert l2c._card_design(dev, B, H, T)["fwd_design"] == rule
+    args = _lstm2_train_args(dev, T, B, H, masked, dropped)
+    ref = l2c.lstm2_train_fwd_plain(*args)
+    for design in ("persistent", "per_step") if rule == "persistent" \
+            else ("per_step",):
+        before = dict(l2c.fwd_design_launches)
+        got = l2c._train_fwd(design, *args) if design != rule \
+            else l2c.lstm2_train_fwd(*args)
+        torch.cuda.synchronize()
+        assert l2c.fwd_design_launches[design] == before[design] + 1
+        for a, b in zip(got, ref):
+            assert a.dtype == torch.bfloat16 and a.is_contiguous()
+            assert a.shape == b.shape
+            _within(a, b, 2 ** -6, 2 ** -10)
+        again = l2c._train_fwd(design, *args)
+        assert all(torch.equal(a, b) for a, b in zip(got, again))
+    if rule == "per_step":
+        with pytest.raises(ValueError):
+            l2c._train_fwd("persistent", *args)

@@ -5,7 +5,7 @@
                                          --model Transformer
                                          [--t-bayes-pos FFN|MHA|EMB]]
                                         [--seq-len T] [--fused-lstm2]
-                                        [--use-fused]
+                                        [--use-fused] [--evaluate N]
 
 Needs a CUDA card and nvcc. Builds the training configuration of
 chip_smoke.py (the bench's 2-layer 1024/1024 LSTM LM, V = 49,152, bf16,
@@ -28,7 +28,13 @@ runs three warm-up steps, times five steps
 without the profiler, then traces three steps with torch.profiler and prints
 the device time by kernel (each of the port's kernels named by its row of
 PERF.md's kernel table), the device's busy time and its idle share of the
-traced steps. Nothing is written to disk outside a temporary directory.
+traced steps. ``--evaluate N`` measures ``Trainer.evaluate`` instead,
+on N windows of the training stream at chip_smoke.py's eval batch (20),
+the model at its random init: the wall time of a call (host clock around
+a call that ends in a synchronize, median of 3 after a warm-up) and one
+traced call's device time by kernel (``--l-gauss-pos 13``: the GP cell's
+row 20 and its standard layer's row 4). Nothing is written to disk
+outside a temporary directory.
 """
 
 import os
@@ -73,6 +79,8 @@ def main():
     ap.add_argument("--use-fused", action="store_true",
                     help="with --t-bayes-pos FFN: the first layer's linear2 "
                          "through kernel row 12")
+    ap.add_argument("--evaluate", type=int, default=0, metavar="N",
+                    help="time Trainer.evaluate on N windows instead")
     args = ap.parse_args()
     if args.use_fused and args.t_bayes_pos != "FFN":
         ap.error("--use-fused needs --model Transformer --t-bayes-pos FFN")
@@ -113,34 +121,59 @@ def main():
                                             kl_scale)
         torch.cuda.synchronize()
 
-    steps(0, 3)
-    t0 = time.perf_counter()
-    steps(3, 5)
-    plain_ms = (time.perf_counter() - t0) * 1e3 / 5
+    what = "step"
+    if args.evaluate:
+        what = "evaluate call"
+        eval_rows = batchify(corpus.train, chip_smoke.EVAL_BATCH)[
+            :args.evaluate * T + 1]
+
+        def steps(first, n):  # noqa: F811
+            for _ in range(n):
+                trainer.evaluate(state.model, eval_rows)
+            torch.cuda.synchronize()
+
+        steps(0, 1)
+        calls = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            steps(0, 1)
+            calls.append((time.perf_counter() - t0) * 1e3)
+        print(f"evaluate on {args.evaluate} windows of {T} x "
+              f"{chip_smoke.EVAL_BATCH}: {float(np.median(calls)):.3f} ms "
+              f"(median of 3; {', '.join(f'{c:.3f}' for c in calls)}), "
+              f"{float(np.median(calls)) / args.evaluate:.3f} ms a window")
+        plain_ms = float(np.mean(calls))
+    else:
+        steps(0, 3)
+        t0 = time.perf_counter()
+        steps(3, 5)
+        plain_ms = (time.perf_counter() - t0) * 1e3 / 5
+    n_traced = 1 if args.evaluate else 3
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        steps(8, 3)
-        traced_ms = (time.perf_counter() - t0) * 1e3 / 3
+        steps(8, n_traced)
+        traced_ms = (time.perf_counter() - t0) * 1e3 / n_traced
     # device-side events only (kernels, copies): an operator's row would
     # count its kernels' time a second time
     rows = [(ev.self_device_time_total, ev.count, ev.key)
             for ev in prof.key_averages()
             if ev.device_type != DeviceType.CPU and ev.self_device_time_total > 0]
     rows.sort(reverse=True)
-    busy_ms = sum(r[0] for r in rows) / 1e3 / 3
-    print(f"step {plain_ms:.1f} ms untraced (mean of 5), {traced_ms:.1f} ms "
-          f"traced (mean of 3); device busy {busy_ms:.1f} ms a step, idle "
-          f"share {1 - busy_ms / traced_ms:.3f} of the traced steps "
+    busy_ms = sum(r[0] for r in rows) / 1e3 / n_traced
+    print(f"{what} {plain_ms:.1f} ms untraced (mean of "
+          f"{3 if args.evaluate else 5}), {traced_ms:.1f} ms traced (mean of "
+          f"{n_traced}); device busy {busy_ms:.1f} ms a {what}, idle "
+          f"share {1 - busy_ms / traced_ms:.3f} of the traced time "
           f"({torch.cuda.get_device_name(0)}; {cfg.model}, uncertainty="
           f"{cfg.uncertainty}, l_bayes_pos={cfg.l_bayes_pos}, l_gauss_pos="
           f"{cfg.l_gauss_pos}, t_bayes_pos={cfg.t_bayes_pos}, batch {B} x "
           f"seq_len {T}, fused 2-layer route {args.fused_lstm2}, "
           f"use_fused {args.use_fused})")
-    print("device ms a step  calls a step  table row  name")
+    print(f"device ms a {what}  calls a {what}  table row  name")
     # the top 20, and every kernel of the port wherever it ranks
     for dev_us, count, key in [r for i, r in enumerate(rows)
                                if i < 20 or chip_smoke.kernel_row(r[2])]:
-        print(f"{dev_us / 1e3 / 3:16.3f}  {count / 3:12.1f}  "
+        print(f"{dev_us / 1e3 / n_traced:16.3f}  {count / n_traced:12.1f}  "
               f"{chip_smoke.kernel_row(key):>9}  {key[:90]}")
     return 0 if np.isfinite(busy_ms) else 1
 
