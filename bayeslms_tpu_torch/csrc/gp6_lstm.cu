@@ -30,15 +30,34 @@
 // hprev, an fp32 product rounded to W's dtype; db' = sum dupre in fp32,
 // rounded to bf16 (b' entered the custom VJP in bf16); d xg = dux.
 //
-// Design (rows 5-6's, csrc/lstm_train.cu, with a mixture epilogue; the tile
-// functions of csrc/gate_tile.cuh at four row groups): the host functions
-// loop over t and launch on the caller's stream. The forward is one launch
-// a step: a block owns BM batch columns and BJ hidden units and computes
-// the four rows (q*H + j) of them, so the mixture and the cell update need
-// nothing from other blocks and h, c update in place; the product's A
-// operand is the bf16 ys[t-1] (h0 at t = 0), the fp32 carry rounded as the
-// TPU kernel rounds it. The backward is two launches a step, since dh_{t-1}
-// contracts dupre_t over all 4H rows:
+// The forward is one launch a step (rows 5-6's per-step design,
+// csrc/lstm_train.cu, with a mixture epilogue; the tile functions of
+// csrc/gate_tile.cuh at four row groups): the host function loops over t
+// and launches on the caller's stream; a block owns BM batch columns and
+// BJ hidden units and computes the four rows (q*H + j) of them, so the
+// mixture and the cell update need nothing from other blocks and h, c
+// update in place; the product's A operand is the bf16 ys[t-1] (h0 at t =
+// 0), the fp32 carry rounded as the TPU kernel rounds it.
+//
+// The backward runs in one of two designs, picked by ops/gp_lstm_cuda.py
+// `_design(B, H, n_sm, T, row=19)` (an explicit rule: the chosen design
+// runs or raises).
+//
+// "persistent" (B <= 32, H a multiple of 8, H / 8 CTAs no more than the
+// SMs, the shared memory within 227 KB: the training shape), two launches
+// a call, csrc/gp_persist.cuh's design (row 21's too): `gp6_bwd_gemm`,
+// P = hprev W'^T for all T B rows (fp32, 52 MB at T 100, B 32, H 1,024),
+// then `gp6_bwd_persistent`, one cooperative launch of H / 8 CTAs, each
+// keeping its 4H x 8 column slice of W' in shared memory (82,432 bytes with
+// the partial tiles at H = 1,024): step t's cell of its 8 units from
+// pre = P[t] + b', then gates = xg[t] + sum_a coef[a] act_a(pre), the
+// twin's order; dux[t] and dupre[t] stored, the dcoef terms summed over
+// the batch and then over the steps in the CTA, which owns its units'
+// 3 x 4 x 8 dcoef columns; a grid barrier; dh from all of dupre[t] (B x 4H)
+// against the slice.
+//
+// "two_launch" (the rest: B > 32, or H beyond what the SMs hold), two
+// launches a step, since dh_{t-1} contracts dupre_t over all 4H rows:
 //   (a) `gp6_bwd_gates`: the forward's tile, recomputing the step, writes
 //       dux_t and dupre_t, updates the fp32 dc carry in place and adds the
 //       block's dcoef partial (each thread sums its rows, the block sums
@@ -46,28 +65,37 @@
 //       own, one per column block;
 //   (b) `gp6_bwd_dh`: `dh_tile<4>` on dupre_t, as `lstm_bwd_dh` on du.
 // After the sweep `gp6_dcoef_sum` adds the column blocks' accumulators in
-// order: repeat calls give the same bits. Products run on the tensor cores
-// through wmma (16x16x16 bf16, fp32 accumulators).
+// order: repeat calls give the same bits. Both designs take the step's
+// gradients from `gp6_grads`. The per-step products run on the tensor
+// cores through wmma (16x16x16 bf16, fp32 accumulators).
 //
 // Bound at the training shapes (T = 100, B = 32, H = 1,024), from the H100
 // SXM data sheet's 989 TFLOP/s bf16 and 3.35 TB/s: forward 2 T B H 4H =
 // 26.8 GFLOP, 0.027 ms (its ~48 MB, 0.014 ms); backward twice the
-// operations, 0.054 ms (~107 MB, 0.032 ms). Operations bound, but both are
-// far from it: the steps are dependent launches (100 forward, 200
-// backward), each a small tile product loading its tiles synchronously on
-// 32 blocks, so they are bound by latency, as rows 5-6 and 20-21 are. A
-// persistent kernel with W' in the SMs' shared memory is the later
-// redesign.
+// operations, 0.054 ms (~107 MB, 0.032 ms). Operations bound, but all are
+// far from it. The forward and the two-launch backward are bound by the
+// latency of dependent launches (100 forward, 200 backward), each a small
+// tile product loading its tiles synchronously on 32 blocks: 15.8 ms a
+// two-launch backward call on an NVIDIA H100 80GB HBM3 at 700.00 W
+// (PERF.md). The persistent backward's GEMM is operations bound (26.8
+// GFLOP), its recurrence by its T dependent steps: a barrier and each
+// CTA's L2 read of dupre[t] (256 KB) a step.
 //
 // Planted faults for the on-card check (chip_smoke.py), off by default:
-// -DGP6_FAULT=1 drops the relu term from dpre; -DGP6_FAULT=2 drops the
-// dcoef accumulation.
-
-#include "gate_tile.cuh"
+// -DGP6_FAULT=1 drops the relu term from dpre and -DGP6_FAULT=2 drops the
+// dcoef accumulation, in both designs; -DGP6_FAULT=3 has the persistent
+// recurrence read P of step 0 at every step (the step's offset dropped),
+// which only the hoisted design can get wrong.
 
 #ifndef GP6_FAULT
 #define GP6_FAULT 0
 #endif
+#if GP6_FAULT == 3
+#define GP_PERSIST_P_STEP(t, T) 0
+#endif
+
+#include "gate_tile.cuh"
+#include "gp_persist.cuh"
 
 namespace {
 
@@ -83,18 +111,56 @@ constexpr int RG = THREADS / BJ;  // thread rows: a thread keeps its unit u
 // xg + sum_a coef[a] act_a(pre).
 struct Mix {
   float pre, s, th, r, gate;
-  __device__ __forceinline__ Mix(float acc, const bf16* __restrict__ bg,
-                                 const float* __restrict__ coef,
-                                 const bf16* __restrict__ xg_row, int n,
-                                 int G) {
-    pre = acc + __bfloat162float(bg[n]);
+  Mix() = default;
+  // from values: the product, b', the three coefficients and xg
+  __device__ __forceinline__ Mix(float acc, float b, float c0, float c1,
+                                 float c2, float x) {
+    pre = acc + b;
     s = sigmoidf(pre);
     th = tanhf(pre);
     r = fmaxf(pre, 0.0f);
-    gate = __bfloat162float(xg_row[n]) +
-           (coef[n] * s + coef[G + n] * th + coef[2 * G + n] * r);
+    gate = x + (c0 * s + c1 * th + c2 * r);
   }
+  // from gate column n of b', coef (3, G) and the xg row
+  __device__ __forceinline__ Mix(float acc, const bf16* __restrict__ bg,
+                                 const float* __restrict__ coef,
+                                 const bf16* __restrict__ xg_row, int n,
+                                 int G)
+      : Mix(acc, __bfloat162float(bg[n]), coef[n], coef[G + n],
+            coef[2 * G + n], __bfloat162float(xg_row[n])) {}
 };
+
+// The backward of one element from its four gates' mixtures m, the
+// coefficients cf[a][q] of its gate columns and c_{t-1} (both designs): du
+// (= dux) and dpre of each gate, the dcoef terms du act_a(pre) as
+// part[a][q]; returns the new dc.
+__device__ __forceinline__ float gp6_grads(const Mix (&m)[4],
+                                           const float (&cf)[NACT][4],
+                                           float cp, float keep, float dh_tot,
+                                           float dc, float (&du)[4],
+                                           float (&dpre)[4],
+                                           float (&part)[NACT][4]) {
+  const float ig = sigmoidf(m[0].gate);
+  const float fg = sigmoidf(m[1].gate);
+  const float gg = tanhf(m[2].gate);
+  const float og = sigmoidf(m[3].gate);
+  const GpCellGrad d = gp_cell_grad(ig, fg, gg, og, cp, keep, dh_tot, dc);
+  du[0] = d.d_i * ig * (1.0f - ig);
+  du[1] = d.d_f * fg * (1.0f - fg);
+  du[2] = d.d_g * (1.0f - gg * gg);
+  du[3] = d.d_o * og * (1.0f - og);
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    part[0][q] = du[q] * m[q].s;
+    part[1][q] = du[q] * m[q].th;
+    part[2][q] = du[q] * m[q].r;
+    const float relu_d = (GP6_FAULT == 1 || !(m[q].pre > 0.0f)) ? 0.f : 1.f;
+    dpre[q] = du[q] * (cf[0][q] * m[q].s * (1.0f - m[q].s) +
+                       cf[1][q] * (1.0f - m[q].th * m[q].th) +
+                       cf[2][q] * relu_d);
+  }
+  return d.dc;
+}
 
 // One forward step. a = h_{t-1} in bf16 (h0 or ys[t-1]); h, c are the fp32
 // carries, updated in place (each element by the one thread that owns it).
@@ -170,47 +236,27 @@ gp6_bwd_gates(const bf16* __restrict__ hprev, const bf16* __restrict__ cprev,
     const int j = j0 + u;
     if (b >= B) continue;
     const bf16* xg_row = xg_t + (size_t)b * G;
-    float pre[4], s[4], th[4], rl[4], g[4];
+    Mix m[4];
+    float cf[NACT][4];
 #pragma unroll
     for (int q = 0; q < 4; ++q) {
-      const Mix m(Gs[r * LDG + q * BJ + u], bg, coef, xg_row, q * H + j, G);
-      pre[q] = m.pre;
-      s[q] = m.s;
-      th[q] = m.th;
-      rl[q] = m.r;
-      g[q] = m.gate;
+      m[q] = Mix(Gs[r * LDG + q * BJ + u], bg, coef, xg_row, q * H + j, G);
+#pragma unroll
+      for (int a = 0; a < NACT; ++a) cf[a][q] = coef[a * G + q * H + j];
     }
-    const float ig = sigmoidf(g[0]);
-    const float fg = sigmoidf(g[1]);
-    const float gg = tanhf(g[2]);
-    const float og = sigmoidf(g[3]);
     const size_t e = (size_t)b * H + j;
-    const float cp = __bfloat162float(cprev[e]);
-    const float tc = tanhf(fg * cp + ig * gg);
     const float keep = (mask_t != nullptr && !mask_t[b]) ? 0.f : 1.f;
-    const float dh_tot = dh[e] + __bfloat162float(dy_t[e]);
-    const float dhn = keep * dh_tot;
-    const float dcn = keep * dc[e];
-    const float d_o = dhn * tc;
-    const float dcc = dcn + dhn * og * (1.0f - tc * tc);
-    const float d_i = dcc * gg;
-    const float d_f = dcc * cp;
-    const float d_g = dcc * ig;
-    dc[e] = dcc * fg + (1.0f - keep) * dc[e];
-    const float du[4] = {d_i * ig * (1.0f - ig), d_f * fg * (1.0f - fg),
-                         d_g * (1.0f - gg * gg), d_o * og * (1.0f - og)};
+    float du[4], dpre[4], term[NACT][4];
+    dc[e] = gp6_grads(m, cf, __bfloat162float(cprev[e]), keep,
+                      dh[e] + __bfloat162float(dy_t[e]), dc[e], du, dpre,
+                      term);
 #pragma unroll
     for (int q = 0; q < 4; ++q) {
       const int n = q * H + j;
-      part[0][q] += du[q] * s[q];
-      part[1][q] += du[q] * th[q];
-      part[2][q] += du[q] * rl[q];
-      const float relu_d = (GP6_FAULT == 1 || !(pre[q] > 0.0f)) ? 0.f : 1.f;
-      const float dpre = du[q] * (coef[n] * s[q] * (1.0f - s[q]) +
-                                  coef[G + n] * (1.0f - th[q] * th[q]) +
-                                  coef[2 * G + n] * relu_d);
+#pragma unroll
+      for (int a = 0; a < NACT; ++a) part[a][q] += term[a][q];
       dux_t[(size_t)b * G + n] = __float2bfloat16(du[q]);
-      dupre_t[(size_t)b * G + n] = __float2bfloat16(dpre);
+      dupre_t[(size_t)b * G + n] = __float2bfloat16(dpre[q]);
     }
   }
   const int rg = threadIdx.x / BJ;
@@ -250,6 +296,64 @@ __global__ void gp6_dcoef_sum(const float* __restrict__ acc,
   dcoef[i] = s;
 }
 
+// ------------------------------------------- the persistent backward
+
+// Row 19's cell for csrc/gp_persist.cuh: P's four groups are h W'^T's gate
+// columns; dux[t] and dupre[t] are stored, dupre[t] is the dh product's
+// operand.
+struct Gp6Cell {
+  static constexpr int NG = 4;
+  static constexpr int NPART = NACT * 4;  // term 4a + q: dcoef[a][q H + j]
+  static constexpr bool DCOEF = GP6_FAULT != 2;
+  struct Const {
+    float b[4], cf[NACT][4];
+  };
+  __device__ static void load(const GpBwdParams& p, int j, Const& k) {
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      k.b[q] = __bfloat162float(p.bg[q * p.H + j]);
+#pragma unroll
+      for (int a = 0; a < NACT; ++a)
+        k.cf[a][q] = p.coef[(a * 4 + q) * p.H + j];
+    }
+  }
+  __device__ static float step(const GpBwdParams& p, const Const& k,
+                               const GpIn<NG>& in, float dh_tot, float dc,
+                               size_t row, int j, float (&part)[NPART]) {
+    Mix m[4];
+#pragma unroll
+    for (int q = 0; q < 4; ++q)
+      m[q] = Mix(in.p[q], k.b[q], k.cf[0][q], k.cf[1][q], k.cf[2][q],
+                 in.x[q]);
+    float du[4], dpre[4], term[NACT][4];
+    const float dcn = gp6_grads(m, k.cf, in.cp, in.keep, dh_tot, dc, du,
+                                dpre, term);
+    const size_t o = row * 4 * p.H + j;
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+#pragma unroll
+      for (int a = 0; a < NACT; ++a) part[a * 4 + q] = term[a][q];
+      p.dux[o + q * p.H] = __float2bfloat16(du[q]);
+      p.dop[o + q * p.H] = __float2bfloat16(dpre[q]);
+    }
+    return dcn;
+  }
+};
+
+// (1) P = hprev W'^T for every step
+__global__ void __launch_bounds__(G_THREADS, 1)
+gp6_bwd_gemm(const __grid_constant__ GateParams p) {
+  extern __shared__ unsigned char smem_raw[];
+  gates_gemm(p, true, smem_raw);
+}
+
+// (2) the recurrence
+__global__ void __launch_bounds__(P_THREADS, 1)
+gp6_bwd_persistent(const __grid_constant__ GpBwdParams p) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  gp_bwd_persist<Gp6Cell>(p, smem);
+}
+
 }  // namespace
 
 // Forward over the whole sequence. xg (T, B, 4H) bf16; w (4H, H) bf16, the
@@ -281,9 +385,10 @@ extern "C" int gp6_fwd(const void* xg, const void* w, const void* bg,
   return 0;
 }
 
-// Backward over the whole sequence, t = T-1..0. The forward's inputs and
-// outputs ys, cs, with c0 (B, H) and dy (T, B, H) bf16; dh, dc (B, H) fp32
-// hold dhT, dcT on entry and dh0, dc0 on return; dux, dupre (T, B, 4H) bf16
+// The two-launch backward over the whole sequence, t = T-1..0. The
+// forward's inputs and outputs ys, cs, with c0 (B, H) and dy (T, B, H) bf16;
+// dh, dc (B, H) fp32 hold dhT, dcT on entry and dh0, dc0 on return; dux,
+// dupre (T, B, 4H) bf16
 // outputs; acc ((B + 31) / 32, 3, 4H) fp32, zeroed by the caller; dcoef
 // (3, 4H) fp32 output. Returns the first launch error, or 0.
 extern "C" int gp6_bwd(const void* xg, const void* w, const void* bg,
@@ -327,4 +432,41 @@ extern "C" int gp6_bwd(const void* xg, const void* w, const void* bg,
       static_cast<const float*>(acc), static_cast<float*>(dcoef),
       (B + BM - 1) / BM, n);
   return (int)cudaGetLastError();
+}
+
+// The persistent backward (csrc/gp_persist.cuh): gp6_bwd's arguments with
+// hprev = [h0, ys[:-1]] (T B, H) bf16 in place of h0 and ys, without acc;
+// P (T B, 4H) fp32 workspace and bar one zeroed unsigned int. B must be at
+// most 32 and H a multiple of 8; a grid the card cannot hold at once is
+// refused (cudaErrorCooperativeLaunchTooLarge). Returns the first launch
+// error, -1 where cuTensorMapEncodeTiled is not found, -1000 - r where it
+// refuses a descriptor with r, or 0.
+extern "C" int gp6_bwd_persist(const void* xg, const void* w, const void* bg,
+                               const void* coef, const void* mask,
+                               const void* hprev, const void* c0,
+                               const void* cs, const void* dy, void* dh,
+                               void* dc, void* dux, void* dupre, void* dcoef,
+                               void* P, void* bar, int T, int B, int H,
+                               void* stream) {
+  GpBwdParams prm = {};
+  prm.w = static_cast<const bf16*>(w);
+  prm.xg = static_cast<const bf16*>(xg);
+  prm.bg = static_cast<const bf16*>(bg);
+  prm.coef = static_cast<const float*>(coef);
+  prm.mask = static_cast<const uint8_t*>(mask);
+  prm.c0 = static_cast<const bf16*>(c0);
+  prm.cs = static_cast<const bf16*>(cs);
+  prm.dy = static_cast<const bf16*>(dy);
+  prm.dh = static_cast<float*>(dh);
+  prm.dc = static_cast<float*>(dc);
+  prm.dux = static_cast<bf16*>(dux);
+  prm.dop = static_cast<bf16*>(dupre);
+  prm.dcoef = static_cast<float*>(dcoef);
+  prm.bar = static_cast<unsigned int*>(bar);
+  prm.T = T;
+  prm.B = B;
+  prm.H = H;
+  return launch_gp_bwd(gp6_bwd_gemm, gp6_bwd_persistent, 4, hprev,
+                       static_cast<float*>(P), prm,
+                       static_cast<cudaStream_t>(stream));
 }

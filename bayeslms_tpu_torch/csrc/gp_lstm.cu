@@ -31,14 +31,34 @@
 // dW5 = du5^T hprev and db_ih = sum du5[:, :4H] are GEMMs and sums outside,
 // as the TPU package leaves them to XLA.
 //
-// Design (the same as csrc/lstm_train.cu, with the tile functions of
-// csrc/gate_tile.cuh taken at five row groups): the host functions loop over t
-// and launch on the caller's stream. The forward is one launch a step: a block
-// owns BM batch columns and BJ hidden units and computes the five rows (q*H +
-// j, q = 0..4) of them, so the cell update needs nothing from other blocks and
-// h, c update in place; the product's A operand is the bf16 ys[t-1], the fp32
-// carry rounded as the TPU kernel rounds it. The backward is two launches a
-// step, since dh_{t-1} contracts du5_t over all 5H rows:
+// The forward is one launch a step (the design of csrc/lstm_train.cu's
+// per-step forward, with the tile functions of csrc/gate_tile.cuh taken at
+// five row groups): the host function loops over t and launches on the
+// caller's stream; a block owns BM batch columns and BJ hidden units and
+// computes the five rows (q*H + j, q = 0..4) of them, so the cell update
+// needs nothing from other blocks and h, c update in place; the product's A
+// operand is the bf16 ys[t-1], the fp32 carry rounded as the TPU kernel
+// rounds it.
+//
+// The backward runs in one of two designs, picked by ops/gp_lstm_cuda.py
+// `_design(B, H, n_sm, T, row=21)` (an explicit rule: the chosen design
+// runs or raises).
+//
+// "persistent" (B <= 32, H a multiple of 8, H / 8 CTAs no more than the
+// SMs, the shared memory within 227 KB: the training shape), two launches
+// a call, csrc/gp_persist.cuh's design (row 19's too): `gpg_bwd_gemm`,
+// P = hprev W5^T for all T B rows (fp32, 65 MB at T 100, B 32, H 1,024),
+// then `gpg_bwd_persistent`, one cooperative launch of H / 8 CTAs, each
+// keeping its 5H x 8 column slice of W5 in shared memory (98,816 bytes
+// with the partial tiles at H = 1,024): step t's cell of its 8 units from
+// gates = (xg[t] + P[t][:, :4H]) + b_ih and pre = gpx[t] + P[t][:, 4H:],
+// the twin's order; du5[t] stored, the dcoef terms summed over the batch
+// and then over the steps in the CTA, which owns its units' dcoef columns;
+// a grid barrier; dh from all of du5[t] (B x 5H) against the slice. The
+// replaced gate's group of du5 is zero, and (b) contracts it all the same.
+//
+// "two_launch" (the rest: B > 32, or H beyond what the SMs hold), two
+// launches a step, since dh_{t-1} contracts du5_t over all 5H rows:
 //   (a) `gpg_bwd_gates`: the forward's tile, recomputing the step, writes
 //       du5_t, updates the fp32 dc carry in place, and adds the block's
 //       dcoef partial (its BM columns summed in a fixed order) to an fp32
@@ -46,28 +66,39 @@
 //   (b) `gpg_bwd_dh`: a block owns BM columns x 32 units of dh and
 //       contracts du5_t (B x 5H) with W5 (5H x 32), adding (1 - keep) dh_tot.
 // After the sweep `gpg_dcoef_sum` adds the column blocks' accumulators in
-// order: repeat calls give the same bits. The kernels are specialised per
-// (GATE, NACT): the replaced gate and the act set (NACT = 1: sigmoid;
-// NACT = 3: sigmoid, tanh, relu). Products run on the tensor cores through
-// wmma (16x16x16 bf16, fp32 accumulators).
+// order: repeat calls give the same bits. Both designs take the step's
+// gradients from `gpg_grads`. The kernels are specialised per (GATE, NACT):
+// the replaced gate and the act set (NACT = 1: sigmoid; NACT = 3: sigmoid,
+// tanh, relu). The per-step products run on the tensor cores through wmma
+// (16x16x16 bf16, fp32 accumulators).
 //
 // Bound at the training shapes (T = 100, B = 32, H = 1,024), from the H100
 // SXM data sheet's 989 TFLOP/s bf16: forward 2 T B H 5H = 33.6 GFLOP,
-// 0.034 ms; backward twice that, 0.068 ms. Operations bound, but both are
-// far from it: the steps are dependent launches (100 forward, 200
-// backward), each a small tile product loading its tiles synchronously on
-// 32 blocks, so they are bound by latency, as rows 5-6 are. A persistent
-// kernel with W5 in the SMs' shared memory is the later redesign.
+// 0.034 ms; backward twice that, 0.068 ms. Operations bound, but all are
+// far from it. The forward and the two-launch backward are bound by the
+// latency of dependent launches (100 forward, 200 backward), each a small
+// tile product loading its tiles synchronously on 32 blocks, as rows 5-6's
+// per-step designs were: 17.7 ms a two-launch backward call on an NVIDIA
+// H100 80GB HBM3 at 700.00 W (PERF.md). The persistent backward's GEMM is
+// operations bound (33.6 GFLOP), its recurrence by its T dependent steps:
+// a barrier and each CTA's L2 read of du5[t] (320 KB) a step.
 //
 // Planted faults for the on-card check (chip_smoke.py), off by default:
 // -DGP_LSTM_FAULT=1 leaves the replaced gate's slice of du5 unzeroed (the
-// standard formula on gp); -DGP_LSTM_FAULT=2 drops the dcoef accumulation.
-
-#include "gate_tile.cuh"
+// standard formula on gp) and -DGP_LSTM_FAULT=2 drops the dcoef
+// accumulation, in both designs; -DGP_LSTM_FAULT=3 has the persistent
+// recurrence read P of step 0 at every step (the step's offset dropped),
+// which only the hoisted design can get wrong.
 
 #ifndef GP_LSTM_FAULT
 #define GP_LSTM_FAULT 0
 #endif
+#if GP_LSTM_FAULT == 3
+#define GP_PERSIST_P_STEP(t, T) 0
+#endif
+
+#include "gate_tile.cuh"
+#include "gp_persist.cuh"
 
 namespace {
 
@@ -104,17 +135,38 @@ struct Step {
                                   const float* __restrict__ bih,
                                   const float* __restrict__ coef, int j,
                                   int H) {
+    float prod[5], x[4], b[4], cf[NACT];
+#pragma unroll
+    for (int q = 0; q < 5; ++q) prod[q] = gs[q * BJ + u];
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      x[q] = __bfloat162float(xg_row[q * H + j]);
+      b[q] = bih[q * H + j];
+    }
+#pragma unroll
+    for (int a = 0; a < NACT; ++a) cf[a] = coef[a * H + j];
+    init(prod, x, __bfloat162float(gpx_row[j]), b, cf);
+  }
+  // the same from values: the five products (gate rows, then the GP row),
+  // xg's four columns, gpx, b_ih's four columns and the unit's coef
+  __device__ __forceinline__ Step(const float (&prod)[5], const float (&x)[4],
+                                  float gx, const float (&bih)[4],
+                                  const float (&coef)[NACT]) {
+    init(prod, x, gx, bih, coef);
+  }
+  __device__ __forceinline__ void init(const float (&prod)[5],
+                                       const float (&x)[4], float gx,
+                                       const float (&bih)[4],
+                                       const float (&coef)[NACT]) {
     float g[4];
 #pragma unroll
-    for (int q = 0; q < 4; ++q)
-      g[q] = (__bfloat162float(xg_row[q * H + j]) + gs[q * BJ + u]) +
-             bih[q * H + j];
-    pre = __bfloat162float(gpx_row[j]) + gs[4 * BJ + u];
+    for (int q = 0; q < 4; ++q) g[q] = (x[q] + prod[q]) + bih[q];
+    pre = gx + prod[4];
     float gp = 0.0f;
 #pragma unroll
     for (int a = 0; a < NACT; ++a) {
       av[a] = act(a, pre);
-      gp += coef[a * H + j] * av[a];
+      gp += coef[a] * av[a];
     }
     gate[0] = GATE == 1 ? gp : sigmoidf(g[0]);
     gate[1] = GATE == 2 ? gp : sigmoidf(g[1]);
@@ -122,6 +174,34 @@ struct Step {
     gate[3] = GATE == 4 ? gp : sigmoidf(g[3]);
   }
 };
+
+// The backward of one element from its step s, the unit's coef and
+// c_{t-1} (both designs): du5's five entries d5 (the replaced gate's slice
+// zeroed), the dcoef terms dgp act_a(pre) as part[a]; returns the new dc.
+template <int GATE, int NACT>
+__device__ __forceinline__ float gpg_grads(const Step<GATE, NACT>& s,
+                                           const float (&coef)[NACT],
+                                           float cp, float keep, float dh_tot,
+                                           float dc, float (&d5)[5],
+                                           float (&part)[NACT]) {
+  const float ig = s.gate[0], fg = s.gate[1], gg = s.gate[2], og = s.gate[3];
+  const GpCellGrad d = gp_cell_grad(ig, fg, gg, og, cp, keep, dh_tot, dc);
+  const bool zero_gp = GP_LSTM_FAULT != 1;
+  d5[0] = (GATE == 1 && zero_gp) ? 0.f : d.d_i * ig * (1.0f - ig);
+  d5[1] = (GATE == 2 && zero_gp) ? 0.f : d.d_f * fg * (1.0f - fg);
+  d5[2] = (GATE == 3 && zero_gp) ? 0.f : d.d_g * (1.0f - gg * gg);
+  d5[3] = (GATE == 4 && zero_gp) ? 0.f : d.d_o * og * (1.0f - og);
+  const float dgp = GATE == 1 ? d.d_i : GATE == 2 ? d.d_f
+                  : GATE == 3 ? d.d_g : d.d_o;
+  float dmix = 0.0f;
+#pragma unroll
+  for (int a = 0; a < NACT; ++a) {
+    part[a] = dgp * s.av[a];
+    dmix += coef[a] * act_d(a, s.pre, s.av[a]);
+  }
+  d5[4] = dgp * dmix;
+  return d.dc;
+}
 
 // One forward step. a = h_{t-1} in bf16 (h0 or ys[t-1]); h, c are the fp32
 // carries, updated in place (each element by the one thread that owns it).
@@ -190,38 +270,18 @@ gpg_bwd_gates(const bf16* __restrict__ hprev, const bf16* __restrict__ cprev,
     }
     const Step<GATE, NACT> s(Gs + r * LDG, u, xg_t + (size_t)b * 4 * H,
                              gpx_t + (size_t)b * H, bih, coef, j, H);
-    const float ig = s.gate[0], fg = s.gate[1], gg = s.gate[2],
-                og = s.gate[3];
     const size_t e = (size_t)b * H + j;
-    const float cp = __bfloat162float(cprev[e]);
-    const float tc = tanhf(fg * cp + ig * gg);
     const float keep = (mask_t != nullptr && !mask_t[b]) ? 0.f : 1.f;
-    const float dh_tot = dh[e] + __bfloat162float(dy_t[e]);
-    const float dhn = keep * dh_tot;
-    const float dcn = keep * dc[e];
-    const float d_o = dhn * tc;
-    const float dcc = dcn + dhn * og * (1.0f - tc * tc);
-    const float d_i = dcc * gg;
-    const float d_f = dcc * cp;
-    const float d_g = dcc * ig;
-    dc[e] = dcc * fg + (1.0f - keep) * dc[e];
-    const bool zero_gp = GP_LSTM_FAULT != 1;
-    float du[4] = {(GATE == 1 && zero_gp) ? 0.f : d_i * ig * (1.0f - ig),
-                   (GATE == 2 && zero_gp) ? 0.f : d_f * fg * (1.0f - fg),
-                   (GATE == 3 && zero_gp) ? 0.f : d_g * (1.0f - gg * gg),
-                   (GATE == 4 && zero_gp) ? 0.f : d_o * og * (1.0f - og)};
-    const float dgp = GATE == 1 ? d_i : GATE == 2 ? d_f : GATE == 3 ? d_g
-                                                                    : d_o;
-    float dmix = 0.0f;
+    float cf[NACT], d5[5], part[NACT];
 #pragma unroll
-    for (int a = 0; a < NACT; ++a) {
-      Ps[(a * BM + r) * BJ + u] = dgp * s.av[a];
-      dmix += coef[a * H + j] * act_d(a, s.pre, s.av[a]);
-    }
-    bf16* d5 = du5_t + (size_t)b * 5 * H + j;
+    for (int a = 0; a < NACT; ++a) cf[a] = coef[a * H + j];
+    dc[e] = gpg_grads(s, cf, __bfloat162float(cprev[e]), keep,
+                      dh[e] + __bfloat162float(dy_t[e]), dc[e], d5, part);
 #pragma unroll
-    for (int q = 0; q < 4; ++q) d5[q * H] = __float2bfloat16(du[q]);
-    d5[4 * H] = __float2bfloat16(dgp * dmix);
+    for (int a = 0; a < NACT; ++a) Ps[(a * BM + r) * BJ + u] = part[a];
+    bf16* o = du5_t + (size_t)b * 5 * H + j;
+#pragma unroll
+    for (int q = 0; q < 5; ++q) o[q * H] = __float2bfloat16(d5[q]);
   }
   __syncthreads();
   if (GP_LSTM_FAULT != 2 && threadIdx.x < NACT * BJ) {
@@ -249,6 +309,61 @@ __global__ void gpg_dcoef_sum(const float* __restrict__ acc,
   float s = 0.0f;
   for (int k = 0; k < nblk; ++k) s += acc[(size_t)k * n + i];
   dcoef[i] = s;
+}
+
+// ------------------------------------------- the persistent backward
+
+// Row 21's cell for csrc/gp_persist.cuh: P's five groups are h W5^T's
+// columns (the gates', then the GP unit's); du5[t] is both the output and
+// the dh product's operand.
+template <int GATE, int NACT>
+struct GpgCell {
+  static constexpr int NG = 5;
+  static constexpr int NPART = NACT;  // term a: dcoef[a][j]
+  static constexpr bool DCOEF = GP_LSTM_FAULT != 2;
+  struct Const {
+    float bih[4], coef[NACT];
+  };
+  __device__ static void load(const GpBwdParams& p, int j, Const& k) {
+#pragma unroll
+    for (int q = 0; q < 4; ++q) k.bih[q] = p.bih[q * p.H + j];
+#pragma unroll
+    for (int a = 0; a < NACT; ++a) k.coef[a] = p.coef[a * p.H + j];
+  }
+  __device__ static float step(const GpBwdParams& p, const Const& k,
+                               const GpIn<NG>& in, float dh_tot, float dc,
+                               size_t row, int j, float (&part)[NPART]) {
+    const Step<GATE, NACT> s(in.p, in.x, in.gx, k.bih, k.coef);
+    float d5[5];
+    const float dcn =
+        gpg_grads(s, k.coef, in.cp, in.keep, dh_tot, dc, d5, part);
+    bf16* o = p.dop + row * 5 * p.H + j;
+#pragma unroll
+    for (int q = 0; q < 5; ++q) o[q * p.H] = __float2bfloat16(d5[q]);
+    return dcn;
+  }
+};
+
+// (1) P = hprev W5^T for every step
+__global__ void __launch_bounds__(G_THREADS, 1)
+gpg_bwd_gemm(const __grid_constant__ GateParams p) {
+  extern __shared__ unsigned char smem_raw[];
+  gates_gemm(p, true, smem_raw);
+}
+
+// (2) the recurrence
+template <int GATE, int NACT>
+__global__ void __launch_bounds__(P_THREADS, 1)
+gpg_bwd_persistent(const __grid_constant__ GpBwdParams p) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  gp_bwd_persist<GpgCell<GATE, NACT>>(p, smem);
+}
+
+template <int GATE, int NACT>
+int bwd_persist(const void* hprev, float* P, const GpBwdParams& prm,
+                cudaStream_t st) {
+  return launch_gp_bwd(gpg_bwd_gemm, gpg_bwd_persistent<GATE, NACT>, 5,
+                       hprev, P, prm, st);
 }
 
 template <int GATE, int NACT>
@@ -334,9 +449,10 @@ extern "C" int gpg_fwd(const void* xg, const void* gpx, const void* w5,
                static_cast<cudaStream_t>(stream))
 }
 
-// Backward over the whole sequence, t = T-1..0. The forward's inputs and
-// outputs ys, cs, with c0 (B, H) and dy (T, B, H) bf16; dh, dc (B, H) fp32
-// hold dhT, dcT on entry and dh0, dc0 on return; du5 (T, B, 5H) bf16
+// The two-launch backward over the whole sequence, t = T-1..0. The
+// forward's inputs and outputs ys, cs, with c0 (B, H) and dy (T, B, H) bf16;
+// dh, dc (B, H) fp32 hold dhT, dcT on entry and dh0, dc0 on return; du5
+// (T, B, 5H) bf16
 // output; acc ((B + 31) / 32, nact, H) fp32, zeroed by the caller; dcoef
 // (nact, H) fp32 output. Returns the first launch error, -1 for an unknown
 // (gate, nact), or 0.
@@ -365,4 +481,42 @@ extern "C" int gpg_bwd(const void* xg, const void* gpx, const void* w5,
       static_cast<const float*>(acc), static_cast<float*>(dcoef),
       (B + BM - 1) / BM, n);
   return (int)cudaGetLastError();
+}
+
+// The persistent backward (csrc/gp_persist.cuh): gpg_bwd's arguments with
+// hprev = [h0, ys[:-1]] (T B, H) bf16 in place of h0 and ys, without acc;
+// P (T B, 5H) fp32 workspace and bar one zeroed unsigned int. B must be at
+// most 32 and H a multiple of 8; a grid the card cannot hold at once is
+// refused (cudaErrorCooperativeLaunchTooLarge). Returns the first launch
+// error, -1 for an unknown (gate, nact) or where cuTensorMapEncodeTiled
+// is not found, -1000 - r where it refuses a descriptor with r, or 0.
+extern "C" int gpg_bwd_persist(const void* xg, const void* gpx,
+                               const void* w5, const void* bih,
+                               const void* coef, const void* mask,
+                               const void* hprev, const void* c0,
+                               const void* cs, const void* dy, void* dh,
+                               void* dc, void* du5, void* dcoef, void* P,
+                               void* bar, int T, int B, int H, int gate,
+                               int nact, void* stream) {
+  GpBwdParams prm = {};
+  prm.w = static_cast<const bf16*>(w5);
+  prm.xg = static_cast<const bf16*>(xg);
+  prm.gpx = static_cast<const bf16*>(gpx);
+  prm.bih = static_cast<const float*>(bih);
+  prm.coef = static_cast<const float*>(coef);
+  prm.mask = static_cast<const uint8_t*>(mask);
+  prm.c0 = static_cast<const bf16*>(c0);
+  prm.cs = static_cast<const bf16*>(cs);
+  prm.dy = static_cast<const bf16*>(dy);
+  prm.dh = static_cast<float*>(dh);
+  prm.dc = static_cast<float*>(dc);
+  prm.dop = static_cast<bf16*>(du5);
+  prm.dcoef = static_cast<float*>(dcoef);
+  prm.bar = static_cast<unsigned int*>(bar);
+  prm.T = T;
+  prm.B = B;
+  prm.H = H;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  float* p = static_cast<float*>(P);
+  GPG_DISPATCH(bwd_persist, hprev, p, prm, st)
 }

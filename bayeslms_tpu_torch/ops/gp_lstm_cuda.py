@@ -6,12 +6,13 @@ Replaces ``bayeslms_tpu/ops/gp_lstm_pallas.py`` ``gpg_layer_fused`` (its
 ``_gpg_fwd_kernel`` and ``_gpg_bwd_kernel`` Pallas bodies, kernel rows 20
 and 21) and ``gpg_pallas_ok``, and ``gp6_layer_fused`` (``_gp_fwd_kernel``
 and ``_gp_bwd_kernel``, rows 18 and 19) and ``gp6_pallas_ok``. The kernels
-are in ``csrc/gp_lstm.cu`` and ``csrc/gp6_lstm.cu``, whose headers say what
-they compute term for term, what bounds them on the H100 and how their
-design answers that. ``gpg_fwd``, ``gpg_bwd``, ``gp6_fwd`` and ``gp6_bwd``
-launch them for CUDA tensors and raise on what they do not take; for CPU
-tensors they run their ``_plain`` twins, which repeat the kernels'
-arithmetic step by step.
+are in ``csrc/gp_lstm.cu`` and ``csrc/gp6_lstm.cu`` (their backwards'
+persistent design in ``csrc/gp_persist.cuh``), whose headers say what they
+compute term for term, what bounds them on the H100 and how their designs
+answer that; each backward has two, picked by ``_design``. ``gpg_fwd``,
+``gpg_bwd``, ``gp6_fwd`` and ``gp6_bwd`` launch them for CUDA tensors and
+raise on what they do not take; for CPU tensors they run their ``_plain``
+twins, which repeat the kernels' arithmetic step by step.
 
 Gates 1-4 (kernels and plain alike), with ``dtype`` the weights' dtype:
 h and c are carried in float32; one product h_{t-1} W5^T takes h rounded
@@ -22,8 +23,12 @@ relu) by the number of coef rows; ys and cs are stored in ``dtype``. The
 backward recomputes each step from xg_t, gpx_t, ys_{t-1} and cs_{t-1} (in
 ``dtype``), stores du5 = [du (replaced slice zero), dpre] in ``dtype``,
 takes the dh product on that rounded du5 and sums dcoef in float32 (the
-kernel a column block at a time in a fixed order, so repeat calls agree
-bit for bit).
+kernels in a fixed order: the two-launch design a column block at a time,
+the persistent one over the batch and then over the steps, each CTA its
+own units, so repeat calls agree bit for bit). The persistent design takes
+the product on h_{t-1} for all steps at once, before the recurrence, in
+float32 (64-deep chunks added to nearest, where the per-step tiles' tensor
+cores truncate); the twins take it a step at a time.
 
 Gate 6: pre = h_{t-1} W'^T + b' with h rounded to ``dtype`` and b' stored
 in ``dtype``; gates = xg_t + sum_a coef[a] act_a(pre) over (sigmoid, tanh,
@@ -41,13 +46,18 @@ from typing import Optional, Sequence
 import torch
 
 from . import _build
+from .lstm2_train_cuda import GEMM_TILE, gemm_smem
 from .lstm_cuda import cell_update, est_vmem
-from .lstm_train_cuda import _check, _ptr
+from .lstm_train_cuda import (P_PAD, P_ROWS, P_THREADS, P_UNITS, SMEM_LIMIT,
+                              TILE, _check, _ptr)
 
 # kernel launches, one per call that reaches a kernel (a call runs T step
-# launches forward, 2T + 1 backward); reset by callers that read them, such
-# as chip_smoke.py
+# launches forward; backward, 2 in the persistent design or 2T + 1 in the
+# two-launch one), and the backwards' calls by design; reset by callers
+# that read them, such as chip_smoke.py
 launches = {"gpg_fwd": 0, "gpg_bwd": 0, "gp6_fwd": 0, "gp6_bwd": 0}
+design_launches = {"gpg_bwd": {"persistent": 0, "two_launch": 0},
+                   "gp6_bwd": {"persistent": 0, "two_launch": 0}}
 
 # act sets the kernels take, by the number of coef rows
 ACT_SETS = {1: ("sigmoid",), 3: ("sigmoid", "tanh", "relu")}
@@ -71,6 +81,57 @@ _FWD_ARGTYPES = [_P] * 11 + [ctypes.c_int] * 5 + [_P]
 _BWD_ARGTYPES = [_P] * 16 + [ctypes.c_int] * 5 + [_P]
 _GP6_FWD_ARGTYPES = [_P] * 10 + [ctypes.c_int] * 3 + [_P]
 _GP6_BWD_ARGTYPES = [_P] * 16 + [ctypes.c_int] * 3 + [_P]
+_PERSIST_ARGTYPES = [_P] * 16 + [ctypes.c_int] * 5 + [_P]
+_GP6_PERSIST_ARGTYPES = [_P] * 16 + [ctypes.c_int] * 3 + [_P]
+
+# The persistent backwards' row groups of the recurrent weight (and of the
+# hoisted product P): row 21's W5 = [W_hh; w_h] (5H, H), row 19's W' (4H, H);
+# warps a CTA, whose partial dh tiles (32 x 8 fp32 each) share the CTA's
+# shared memory with the weight's column slice
+GROUPS = {21: 5, 19: 4}
+P_WARPS = P_THREADS // 32
+
+
+def persist_smem(H: int, row: int = 21) -> int:
+    """Dynamic shared memory of a persistent backward CTA of ``row`` (19 or
+    21) at width H, bytes: the transposed column slice of the recurrent
+    weight (8 rows of GROUPS[row] H + P_PAD bf16) and the 16 warps' partial
+    dh tiles (32 x 8 fp32), which the step's dcoef terms reuse."""
+    return P_UNITS * (GROUPS[row] * H + P_PAD) * 2 \
+        + P_WARPS * P_ROWS * P_UNITS * 4
+
+
+def _design(B: int, H: int, n_sm: int, T: int = 1, row: int = 21) -> dict:
+    """The design of row ``row``'s backward (21: ``gpg_bwd``, 19:
+    ``gp6_bwd``) for batch B and width H on a card of ``n_sm`` SMs.
+    "persistent" (the GEMM P = hprev W^T for all T steps, then one
+    cooperative launch of H / 8 CTAs, each owning 8 units with W's
+    transposed column slice in shared memory, a grid barrier a step) where
+    B <= 32, H is a multiple of 8, the CTAs number no more than the SMs
+    (one a SM) and both kernels' shared memory fits; otherwise
+    "two_launch" (the gates and dh kernels a step on (ceil(B / 32), H / 32)
+    blocks, then the dcoef sum). An explicit rule: the chosen design runs
+    or raises. Returns a dict with the design, recurrence grid, CTAs, units
+    a CTA, threads and shared memory bytes, the GEMM's grid (output column
+    tiles, row tiles, 1) and shared memory, and launches and grid barriers
+    of a call of T steps."""
+    smem = persist_smem(H, row)
+    if B <= P_ROWS and H % P_UNITS == 0 and 0 < H // P_UNITS <= n_sm \
+            and smem <= SMEM_LIMIT and gemm_smem() <= SMEM_LIMIT:
+        ctas = H // P_UNITS
+        gemm = (-(-GROUPS[row] * H // GEMM_TILE), -(-T * B // GEMM_TILE), 1)
+        return dict(design="persistent", grid=(ctas,), ctas=ctas,
+                    units=P_UNITS, threads=P_THREADS, smem_bytes=smem,
+                    gemm_grid=gemm, gemm_smem_bytes=gemm_smem(), launches=2,
+                    barriers=T)
+    blocks = (-(-B // TILE), H // TILE)
+    return dict(design="two_launch", grid=blocks, ctas=blocks[0] * blocks[1],
+                units=TILE, threads=None, smem_bytes=None, gemm_grid=None,
+                gemm_smem_bytes=None, launches=2 * T + 1, barriers=0)
+
+
+def _card_design(dev, B, H, T, row):
+    return _design(B, H, _build.sm_count(dev.index), T, row)
 
 
 def gpg_kernel_ok(x: torch.Tensor, nhid: int) -> bool:
@@ -204,14 +265,36 @@ def _checked(fn, xg, gpx, w5, bih, coef, mask, gate, states):
     return T, B, H, nact, mask
 
 
-def _call(fn, argtypes, *args):
+def _call(fn, argtypes, *args, entry=None):
     f = getattr(_build.load("gp6_lstm" if fn.startswith("gp6")
-                            else "gp_lstm"), fn)
+                            else "gp_lstm"), entry or fn)
     f.argtypes, f.restype = argtypes, ctypes.c_int
     err = f(*args)
     if err != 0:
         raise RuntimeError(f"{fn} kernel launch failed: error {err}")
     launches[fn] += 1
+
+
+def _bwd_design(fn, design, B, H, T, dev, row):
+    """The design a backward call takes: ``design``, or the one ``_design``
+    picks where it is None; raises where the persistent design is asked for
+    and does not take the shapes."""
+    plan = _card_design(dev, B, H, T, row)["design"]
+    if design is None:
+        return plan
+    if design == "persistent" and plan != "persistent":
+        raise ValueError(f"{fn}: the persistent design does not take B={B} "
+                         f"H={H}")
+    return design
+
+
+def _persist_operands(h0, ys, G, dev):
+    """The persistent backward's hprev = [h0, ys[:-1]] (T B, H), its fp32
+    workspace P (T B, G) and the grid barrier's zeroed counter."""
+    T, B, H = ys.shape
+    hprev = torch.cat([h0[None], ys[:-1]]).reshape(T * B, H)
+    P = torch.empty((T * B, G), dtype=torch.float32, device=dev)
+    return hprev, P, torch.zeros((1,), dtype=torch.int32, device=dev)
 
 
 def gpg_fwd(xg: torch.Tensor, gpx: torch.Tensor, w5: torch.Tensor,
@@ -254,12 +337,22 @@ def gpg_bwd(xg, gpx, w5, bih, coef, mask, h0, c0, ys, cs, dy, dhT, dcT,
     dcT (B, H), all in the compute dtype. Returns du5 (T, B, 5H) in the
     compute dtype, the gradient of [gates, pre] with the replaced gate's
     slice zero; dcoef (k, H) float32; dh0, dc0 (B, H) in the compute dtype.
-    CUDA tensors launch ``gpg_bwd`` of ``csrc/gp_lstm.cu`` (bf16 only); CPU
-    tensors run ``gpg_bwd_plain``.
+    CUDA tensors launch the backward of ``csrc/gp_lstm.cu`` in the design
+    ``_design`` picks (bf16 only); CPU tensors run ``gpg_bwd_plain``.
     """
     if not xg.is_cuda:
         return gpg_bwd_plain(xg, gpx, w5, bih, coef, mask, h0, c0, ys, cs,
                              dy, dhT, dcT, gate)
+    return _gpg_bwd(None, xg, gpx, w5, bih, coef, mask, h0, c0, ys, cs, dy,
+                    dhT, dcT, gate)
+
+
+def _gpg_bwd(design, xg, gpx, w5, bih, coef, mask, h0, c0, ys, cs, dy, dhT,
+             dcT, gate):
+    """``gpg_bwd`` on CUDA tensors in ``design`` ("persistent" or
+    "two_launch"), or in the one ``_design`` picks where it is None;
+    chip_smoke.py checks and times the two-launch design on the persistent
+    design's calls through it."""
     fn = "gpg_bwd"
     T, B, G = xg.shape
     H = G // 4
@@ -268,15 +361,27 @@ def gpg_bwd(xg, gpx, w5, bih, coef, mask, h0, c0, ys, cs, dy, dhT, dcT,
         ("cs", cs, (T, B, H)), ("dy", dy, (T, B, H)), ("dhT", dhT, (B, H)),
         ("dcT", dcT, (B, H))))
     dev = xg.device
+    design = _bwd_design(fn, design, B, H, T, dev, 21)
     dh = dhT.float().contiguous()
     dc = dcT.float().contiguous()
     du5 = torch.empty((T, B, 5 * H), dtype=torch.bfloat16, device=dev)
-    acc = torch.zeros((-(-B // 32), nact, H), dtype=torch.float32, device=dev)
     dcoef = torch.empty((nact, H), dtype=torch.float32, device=dev)
-    _call(fn, _BWD_ARGTYPES, _ptr(xg), _ptr(gpx), _ptr(w5), _ptr(bih),
-          _ptr(coef), _ptr(mask), _ptr(h0), _ptr(c0), _ptr(ys), _ptr(cs),
-          _ptr(dy), _ptr(dh), _ptr(dc), _ptr(du5), _ptr(acc), _ptr(dcoef),
-          T, B, H, gate, nact, torch.cuda.current_stream(dev).cuda_stream)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    if design == "persistent":
+        hprev, P, bar = _persist_operands(h0, ys, 5 * H, dev)
+        _call(fn, _PERSIST_ARGTYPES, _ptr(xg), _ptr(gpx), _ptr(w5),
+              _ptr(bih), _ptr(coef), _ptr(mask), _ptr(hprev), _ptr(c0),
+              _ptr(cs), _ptr(dy), _ptr(dh), _ptr(dc), _ptr(du5), _ptr(dcoef),
+              _ptr(P), _ptr(bar), T, B, H, gate, nact, stream,
+              entry="gpg_bwd_persist")
+    else:
+        acc = torch.zeros((-(-B // 32), nact, H), dtype=torch.float32,
+                          device=dev)
+        _call(fn, _BWD_ARGTYPES, _ptr(xg), _ptr(gpx), _ptr(w5), _ptr(bih),
+              _ptr(coef), _ptr(mask), _ptr(h0), _ptr(c0), _ptr(ys), _ptr(cs),
+              _ptr(dy), _ptr(dh), _ptr(dc), _ptr(du5), _ptr(acc),
+              _ptr(dcoef), T, B, H, gate, nact, stream)
+    design_launches[fn][design] += 1
     return du5, dcoef, dh.to(torch.bfloat16), dc.to(torch.bfloat16)
 
 
@@ -474,13 +579,21 @@ def gp6_bwd(xg, w, b, coef, mask, h0, c0, ys, cs, dy, dhT, dcT):
     dcT (B, H), all in the compute dtype. Returns dux, the gradient of the
     gate pre-activations (= d xg), and dupre, that of the GP unit's
     pre-activation, both (T, B, 4H) in the compute dtype; dcoef (3, 4H)
-    float32; dh0, dc0 (B, H) in the compute dtype. CUDA tensors launch
-    ``gp6_bwd`` of ``csrc/gp6_lstm.cu`` (bf16 only); CPU tensors run
-    ``gp6_bwd_plain``.
+    float32; dh0, dc0 (B, H) in the compute dtype. CUDA tensors launch the
+    backward of ``csrc/gp6_lstm.cu`` in the design ``_design`` picks (bf16
+    only); CPU tensors run ``gp6_bwd_plain``.
     """
     if not xg.is_cuda:
         return gp6_bwd_plain(xg, w, b, coef, mask, h0, c0, ys, cs, dy, dhT,
                              dcT)
+    return _gp6_bwd(None, xg, w, b, coef, mask, h0, c0, ys, cs, dy, dhT, dcT)
+
+
+def _gp6_bwd(design, xg, w, b, coef, mask, h0, c0, ys, cs, dy, dhT, dcT):
+    """``gp6_bwd`` on CUDA tensors in ``design`` ("persistent" or
+    "two_launch"), or in the one ``_design`` picks where it is None;
+    chip_smoke.py checks and times the two-launch design on the persistent
+    design's calls through it."""
     fn = "gp6_bwd"
     T, B, G = xg.shape
     H = G // 4
@@ -489,17 +602,28 @@ def gp6_bwd(xg, w, b, coef, mask, h0, c0, ys, cs, dy, dhT, dcT):
         ("cs", cs, (T, B, H)), ("dy", dy, (T, B, H)), ("dhT", dhT, (B, H)),
         ("dcT", dcT, (B, H))))
     dev = xg.device
+    design = _bwd_design(fn, design, B, H, T, dev, 19)
     dh = dhT.float().contiguous()
     dc = dcT.float().contiguous()
     dux = torch.empty((T, B, G), dtype=torch.bfloat16, device=dev)
     dupre = torch.empty_like(dux)
-    acc = torch.zeros((-(-B // 32), len(GP6_ACTS), G), dtype=torch.float32,
-                      device=dev)
     dcoef = torch.empty((len(GP6_ACTS), G), dtype=torch.float32, device=dev)
-    _call(fn, _GP6_BWD_ARGTYPES, _ptr(xg), _ptr(w), _ptr(b), _ptr(coef),
-          _ptr(mask), _ptr(h0), _ptr(c0), _ptr(ys), _ptr(cs), _ptr(dy),
-          _ptr(dh), _ptr(dc), _ptr(dux), _ptr(dupre), _ptr(acc), _ptr(dcoef),
-          T, B, H, torch.cuda.current_stream(dev).cuda_stream)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    if design == "persistent":
+        hprev, P, bar = _persist_operands(h0, ys, G, dev)
+        _call(fn, _GP6_PERSIST_ARGTYPES, _ptr(xg), _ptr(w), _ptr(b),
+              _ptr(coef), _ptr(mask), _ptr(hprev), _ptr(c0), _ptr(cs),
+              _ptr(dy), _ptr(dh), _ptr(dc), _ptr(dux), _ptr(dupre),
+              _ptr(dcoef), _ptr(P), _ptr(bar), T, B, H, stream,
+              entry="gp6_bwd_persist")
+    else:
+        acc = torch.zeros((-(-B // 32), len(GP6_ACTS), G),
+                          dtype=torch.float32, device=dev)
+        _call(fn, _GP6_BWD_ARGTYPES, _ptr(xg), _ptr(w), _ptr(b), _ptr(coef),
+              _ptr(mask), _ptr(h0), _ptr(c0), _ptr(ys), _ptr(cs), _ptr(dy),
+              _ptr(dh), _ptr(dc), _ptr(dux), _ptr(dupre), _ptr(acc),
+              _ptr(dcoef), T, B, H, stream)
+    design_launches[fn][design] += 1
     return dux, dupre, dcoef, dh.to(torch.bfloat16), dc.to(torch.bfloat16)
 
 

@@ -38,31 +38,33 @@ cooperative launches around the input GEMM, the backward in its, the gate
 GEMM and one cooperative launch, their per-step designs beside them; every
 call of the fused fit on both persistent designs), and a fused standard
 and Bayesian step against the plain path. Then the
-recipe's GP-LSTM (``l_gauss_pos`` 13: a GP cell replacing the input gate,
-then a standard layer) on the same corpus: the GP
-gate-replacement kernels (forward, backward) against their twins on the
-calls a step and an ``evaluate`` window hand them and for gates 2-4 at a
-short T (planted faults: gpx dropped, and two builds with
-``-DGP_LSTM_FAULT``), the single-layer forward kernel on the ``evaluate``
-window's call (and with a random step mask) in its persistent design, its
-per-step design on the same calls beside it, one epoch of
-``Trainer.fit`` (every ``evaluate`` call of row 4 on the persistent
-design), a kernel-path step against the plain path, and a
+recipe's GP-LSTM (``l_gauss_pos`` 13: a GP cell replacing the input gate, then
+a standard layer) on the same corpus: the GP gate-replacement kernels (forward,
+backward) against their twins on the calls a step and an ``evaluate`` window
+hand them and for gates 2-4 at a short T (planted faults: gpx dropped, and
+three builds with ``-DGP_LSTM_FAULT``; the backward in its persistent design,
+the hoisted GEMM and one cooperative launch, its two-launch design on the same
+calls beside it, with the first two builds), the single-layer forward kernel on
+the ``evaluate`` window's call (and with a random step mask) in its persistent
+design, its per-step design on the same calls beside it, one epoch of
+``Trainer.fit`` (every ``evaluate`` call of row 4 and every row-21 call on the
+persistent designs), a kernel-path step against the plain path, and a
 packed-carry pass of the 6,000-hypothesis N-best from that checkpoint: the
-single-layer forward kernel with resets against its twin on the pass's
-call and with -1 sources, on the per-step kernel that its rule names for
-resets (planted faults: resets ignored, -1 source not zeroed, step mask
-ignored, W_hh dropped), the pass against the plain path.
-Then the README's gate-6 GP-LSTM (``l_gauss_pos`` 63: a GP unit in place of
-the GP cell's hidden projection, then a standard layer) on the same
-corpus: the gate-6 kernels (forward, backward) against their twins on the
-calls a step and an ``evaluate`` window hand them, with a random step mask
-and with a random b' (planted faults: b' zeroed, coef rows swapped, mask
-ignored, and two builds with ``-DGP6_FAULT``), one epoch of
-``Trainer.fit``, a kernel-path step against the plain path, and a
-packed-carry pass of the 6,000-hypothesis N-best from that checkpoint
-against the plain path; gate 7 (``73``): a kernel-path step (the
-single-layer training kernels on the hoisted GP input) against the plain
+single-layer forward kernel with resets against its twin on the pass's call and
+with -1 sources, on the per-step kernel that its rule names for resets (planted
+faults: resets ignored, -1 source not zeroed, step mask ignored, W_hh dropped),
+the pass against the plain path.
+Then the README's gate-6 GP-LSTM (``l_gauss_pos`` 63: a GP unit in place of the
+GP cell's hidden projection, then a standard layer) on the same corpus: the
+gate-6 kernels (forward, backward) against their twins on the calls a step and
+an ``evaluate`` window hand them, with a random step mask and with a random b'
+(planted faults: b' zeroed, coef rows swapped, mask ignored, and three builds
+with ``-DGP6_FAULT``; the backward in its persistent design, its two-launch
+design beside it, as row 21's), one epoch of ``Trainer.fit`` (every backward
+call on the persistent design), a kernel-path step against the plain path, and
+a packed-carry pass of the 6,000-hypothesis N-best from that checkpoint against
+the plain path; gate 7 (``73``): a kernel-path step (the single-layer training
+kernels on the hoisted GP input) against the plain
 path; GPNN2 (``14``): a few steps of ``Trainer.fit``, the loss finite and
 falling; the GP-FFN Transformer (``t_gauss_pos`` 3 at the recipe's width):
 a kernel-path step against the plain path; a print-only ``53`` and ``14``
@@ -200,8 +202,10 @@ KERNEL_ROWS = (
     ("attn_train_dkv_kernel", "17"),
     ("attn_dkv_wgmma", "17"), ("gp6_fwd_step", "18"),
     ("gp6_bwd_gates", "19"), ("gp6_bwd_dh", "19"), ("gp6_dcoef_sum", "19"),
+    ("gp6_bwd_gemm", "19"), ("gp6_bwd_persistent", "19"),
     ("gpg_fwd_step", "20"), ("gpg_bwd_gates", "21"), ("gpg_bwd_dh", "21"),
-    ("gpg_dcoef_sum", "21"), ("lstm2_fwd_l1", "7"), ("lstm2_fwd_l2", "7"),
+    ("gpg_dcoef_sum", "21"), ("gpg_bwd_gemm", "21"),
+    ("gpg_bwd_persistent", "21"), ("lstm2_fwd_l1", "7"), ("lstm2_fwd_l2", "7"),
     ("lstm2_input_gemm", "7"),
     ("lstm2_dropped", "8"), ("lstm2_bwd_gates", "8"), ("lstm2_bwd_dh2", "8"),
     ("lstm2_bwd_dh1", "8"), ("lstm2_gates_gemm", "8"),
@@ -2776,12 +2780,21 @@ GP_TOL = {"gpg_fwd": TRAIN_TOL["lstm_train_fwd"],
           "lstm_fwd": TRAIN_TOL["lstm_train_fwd"],
           "lstm_fwd_reset": TRAIN_TOL["lstm_train_fwd"]}
 # Planted faults of row 21 that no input can make, built from
-# csrc/gp_lstm.cu with a define (see its header).
+# csrc/gp_lstm.cu with a define (see its header): the first two act on both
+# designs, the third only on the persistent one (its recurrence reads the
+# hoisted product P of step 0 at every step: the step's offset dropped).
+# The third is tried on calls from a carried state: from a zero state P[0]
+# is zero, and at the step's random init the product on h_{t-1} moves the
+# gradients by less than FAULT_MARGIN tolerances (PERF.md).
+P_STEP0 = "P of step 0 at every step"
 GP_FAULTS = {
     "replaced gate's slice of du5 not zeroed":
         ("gp_lstm", ("-DGP_LSTM_FAULT=1",)),
     "dcoef dropped": ("gp_lstm", ("-DGP_LSTM_FAULT=2",)),
+    P_STEP0: ("gp_lstm", ("-DGP_LSTM_FAULT=3",)),
 }
+GP_TWO_LAUNCH_FAULTS = ("replaced gate's slice of du5 not zeroed",
+                        "dcoef dropped")
 # GP scores (kernel path against plain path, from the fit's checkpoint):
 # the random-init tolerance plus the trained model's relative one.
 GP_SCORE_ATOL, GP_SCORE_RTOL = SCORE_ATOL, TRAINED_SCORE_RTOL
@@ -2873,48 +2886,77 @@ def check_kernel_calls(torch, kernels, name, spec, calls):
 
 
 def per_step_design_check(torch, kernels, name, spec, calls, run, counts,
-                          fault):
-    """``name``'s per-step design (``run``: its wrapper forced onto that
-    design), which the rule keeps for the calls its persistent design does
-    not take, on ``calls`` (the persistent design's, checked just before)
-    against the twin within GP_TOL[name], and the planted fault ``fault``
-    of ``spec["faults"]`` (a W_hh product dropped) by FAULT_MARGIN or more;
-    every run counted in ``counts`` (calls by design) as per-step; timed on
-    the first call, the time added to ``kernels[name]`` as ``per_step_ms``
+                          faults, design="per_step"):
+    """``name``'s older design ``design`` ("per_step"; "two_launch" for rows
+    19 and 21), ``run`` its wrapper forced onto that design, which the rule
+    keeps for the calls its persistent design does not take, on ``calls``
+    (the persistent design's, checked just before) against the twin within
+    GP_TOL[name] (with the spec's slack where it has one), and the planted
+    faults ``faults`` (a name, or a tuple of names, of ``spec["faults"]``:
+    an input fault or a build) on the first call by FAULT_MARGIN or more;
+    every run counted in ``counts`` (calls by design) as ``design``; timed on
+    the first call, the time added to ``kernels[name]`` as ``<design>_ms``
     beside the persistent design's ``ms``. Raises on a failed check."""
-    with phase(f"kernel {name} (per-step design)"), torch.no_grad():
+    from bayeslms_tpu_torch.ops import _build
+
+    real_load = _build.load
+    label = design.replace("_", "-")
+    faults = (faults,) if isinstance(faults, str) else faults
+    with phase(f"kernel {name} ({label} design)"), torch.no_grad():
         rtol, share = GP_TOL[name]
         outs = spec["outs"]
+        slack_of = spec.get("slack", lambda a, r: None)
         err, worst = 0.0, 0.0
         for tag, args in calls:
-            before = counts["per_step"]
+            before = counts[design]
             got = dict(zip(outs, run(*args)))
             ref = dict(zip(outs, spec["plain"](*args)))
             torch.cuda.synchronize()
-            if counts["per_step"] != before + 1:
-                raise AssertionError(f"the call did not take the per-step "
+            if counts[design] != before + 1:
+                raise AssertionError(f"the call did not take the {label} "
                                      f"design: {counts}")
             print(f"  call {tag}:")
-            e, q = check_outputs(f"{name} (per-step)", got, ref, rtol, share)
+            e, q = check_outputs(f"{name} ({label})", got, ref, rtol, share,
+                                 slack_of(args, ref))
             err, worst = max(err, e), max(worst, q)
             del got, ref
         args = calls[0][1]
         ref = dict(zip(outs, spec["plain"](*args)))
-        bad = dict(zip(outs, run(*spec["faults"][fault](args))))
-        q_fault = fault_share(bad, ref, rtol, share)
-        print(f"  planted fault '{fault}': worst share of tolerance "
-              f"{q_fault:.1f}")
+        slack = slack_of(args, ref)
+        shares = {}
+        for fault in faults:
+            how = spec["faults"][fault]
+            if callable(how):
+                bad = run(*how(args))
+            else:
+                with mock.patch.object(_build, "load",
+                                       lambda k, v=how: real_load(v)):
+                    bad = run(*args)
+            shares[fault] = fault_share(dict(zip(outs, bad)), ref, rtol,
+                                        share, slack)
+            print(f"  planted fault '{fault}': worst share of tolerance "
+                  f"{shares[fault]:.1f}")
         ms = cuda_ms(torch, lambda: run(*args), 5)
-        print(f"  per-step {ms:.3f} ms (the persistent design "
+        print(f"  {label} {ms:.3f} ms (the persistent design "
               f"{kernels[name]['ms']:.3f} ms on the same call)")
-        kernels[name].update(design="persistent", per_step_ms=ms,
-                             per_step_max_abs_err=err)
+        kernels[name].update({"design": "persistent", f"{design}_ms": ms,
+                              f"{design}_max_abs_err": err})
         if worst > 1:
-            raise AssertionError(f"the per-step design disagrees with its "
+            raise AssertionError(f"the {label} design disagrees with its "
                                  f"plain version: worst share {worst:.3f}")
-        if q_fault < FAULT_MARGIN:
-            raise AssertionError(f"the per-step design's planted fault "
-                                 f"exceeds the tolerance only {q_fault:.1f}x")
+        low = {f: q for f, q in shares.items() if not q >= FAULT_MARGIN}
+        if low:
+            raise AssertionError(f"the {label} design's planted faults exceed "
+                                 f"the tolerance only {low}")
+
+
+def persistent_only(counts, before, row):
+    """Raises unless the calls since ``before`` (calls by design) all took
+    the persistent design."""
+    if counts["two_launch"] != before["two_launch"] or counts == before:
+        raise AssertionError(f"{row}'s checks took {counts} (before: "
+                             f"{before}): the persistent design alone "
+                             f"expected")
 
 
 def gp_fit(torch, kernels, trainer, corpus, smi, kl_scale, tag, cell_rows,
@@ -2923,8 +2965,9 @@ def gp_fit(torch, kernels, trainer, corpus, smi, kl_scale, tag, cell_rows,
     kernels ``cell_rows`` (forward, backward) and whose standard layer takes
     rows 5-6 (row 4 in ``evaluate``): the loss finite and falling, the KL
     term finite and > 0, every training kernel once a step, the cell's
-    forward and row 4 once an ``evaluate`` window, row 4 on its persistent
-    design every time. Sets the launches of the kernels ``counted``.
+    forward and row 4 once an ``evaluate`` window, row 4 and the cell's
+    backward on their persistent designs every time. Sets the launches of
+    the kernels ``counted``.
     Raises on any failed check."""
     from bayeslms_tpu_torch.ops import ce_train_cuda as ctc
     from bayeslms_tpu_torch.ops import gp_lstm_cuda as gpc
@@ -2940,6 +2983,7 @@ def gp_fit(torch, kernels, trainer, corpus, smi, kl_scale, tag, cell_rows,
         for k in lc.layer_launches:
             lc.layer_launches[k] = 0
         lc.layer_design_launches.update(persistent=0, per_step=0)
+        gpc.design_launches[bwd].update(persistent=0, two_launch=0)
         steps, kls = [], []
         step = trainer.train_step
 
@@ -2988,6 +3032,10 @@ def gp_fit(torch, kernels, trainer, corpus, smi, kl_scale, tag, cell_rows,
         if lc.layer_design_launches != {"persistent": n_eval, "per_step": 0}:
             raise AssertionError(f"row 4 left its persistent design in "
                                  f"evaluate: {lc.layer_design_launches}")
+        print(f"  {bwd} by design: {gpc.design_launches[bwd]}")
+        if gpc.design_launches[bwd] != {"persistent": n, "two_launch": 0}:
+            raise AssertionError(f"{bwd} left its persistent design in fit: "
+                                 f"{gpc.design_launches[bwd]}")
         for name in counted:
             kernels[name]["launches"] = launches[name]
         if not all(np.isfinite(losses)) or not np.isfinite(out["test_loss"]):
@@ -3135,18 +3183,36 @@ def gpg_specs(torch, gpc):
             module=gpc, plain=gpc.gpg_bwd_plain,
             outs=("du5", "dcoef", "dh0", "dc0"), source="gp_lstm.cu",
             replaces="bayeslms_tpu/ops/gp_lstm_pallas.py:552",
-            faults=dict(GP_FAULTS),
+            faults={**GP_FAULTS, P_STEP0: {"build": GP_FAULTS[P_STEP0],
+                                           "when": lambda a: bool(
+                                               a[6].any())}},
             flops=lambda a: bwd_cost(a)[0], nbytes=lambda a: bwd_cost(a)[1],
             library=none),
     }
 
 
+def carried_state(torch, fwd_args, i_h0, seed):
+    """``fwd_args`` with h0 and c0 (at ``i_h0`` and ``i_h0 + 1``) drawn
+    uniform in +-0.5: a later window's start from a carried state, where a
+    step's first window starts from zeros."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    a = list(fwd_args)
+    for i in (i_h0, i_h0 + 1):
+        a[i] = (torch.rand(a[i].shape, generator=gen, device="cuda")
+                - 0.5).to(a[i].dtype)
+    return a
+
+
 def gp_gate_calls(torch, gpc, fwd_args, bwd_args):
     """Rows 20-21's calls for gates 2-4 at GP_SHORT_T on the step's tensors
-    (gate 2 with the first coef row alone: its act set is sigmoid); the
-    backward's ys and cs from the twin's forward, dy the step's."""
+    (gate 2 with the first coef row alone: its act set is sigmoid), and the
+    step's call from a carried state (``carried_state``); the backward's ys
+    and cs from the twin's forward, dy the step's."""
     T = GP_SHORT_T
-    fwd, bwd = [], []
+    a = carried_state(torch, fwd_args, 6, 9)
+    ys, cs, _, _ = gpc.gpg_fwd_plain(*a)
+    tag = "gate 1, that step from a carried state"
+    fwd, bwd = [(tag, a)], [(tag, [*a[:8], ys, cs, *bwd_args[10:]])]
     for gate in (2, 3, 4):
         xg, gpx, w5, bih, coef, mask, h0, c0, _ = fwd_args
         a = [xg[:T].contiguous(), gpx[:T].contiguous(), w5, bih,
@@ -3235,8 +3301,15 @@ def gp_phases(torch, kernels, smi, cfg, rcfg, corpus, tmpdir):
     check_kernel_calls(torch, kernels, "gpg_fwd", specs["gpg_fwd"], [
         ("gate 1, one step", fwd_step),
         ("gate 1, one evaluate window", recorded["gpg_fwd"][0]), *short_fwd])
-    check_kernel_calls(torch, kernels, "gpg_bwd", specs["gpg_bwd"], [
-        ("gate 1, one step", bwd_step), *short_bwd])
+    bwd_calls = [("gate 1, one step", bwd_step), *short_bwd]
+    before = dict(gpc.design_launches["gpg_bwd"])
+    check_kernel_calls(torch, kernels, "gpg_bwd", specs["gpg_bwd"], bwd_calls)
+    persistent_only(gpc.design_launches["gpg_bwd"], before, "row 21")
+    per_step_design_check(
+        torch, kernels, "gpg_bwd", specs["gpg_bwd"], bwd_calls,
+        lambda *a: gpc._gpg_bwd("two_launch", *a),
+        gpc.design_launches["gpg_bwd"], GP_TWO_LAUNCH_FAULTS,
+        design="two_launch")
     lspecs = lstm_fwd_specs(torch, lc)
     eval_call = recorded["lstm_fwd"][0]
     # the evaluate call has no step mask: a masked copy shows the mask
@@ -3259,7 +3332,7 @@ def gp_phases(torch, kernels, smi, cfg, rcfg, corpus, tmpdir):
         torch, kernels, "lstm_fwd", lspecs["lstm_fwd"], row4_calls,
         lambda *a: lc._lstm_fwd("per_step", *a), lc.layer_design_launches,
         "W_hh product dropped")
-    del step_calls, recorded, short_fwd, short_bwd, row4_calls
+    del step_calls, recorded, short_fwd, short_bwd, row4_calls, bwd_calls
 
     gp_fit(torch, kernels, trainer, corpus, smi, kl_scale, "gp",
            ("gpg_fwd", "gpg_bwd"), ("gpg_fwd", "gpg_bwd", "lstm_fwd"))
@@ -3326,12 +3399,16 @@ def gp_phases(torch, kernels, smi, cfg, rcfg, corpus, tmpdir):
 # layer's on rows 5-6), GPNN2 (14: a scan in JAX, no kernel of its own) and
 # the GP-FFN Transformer (t_gauss_pos 3 at the recipe's width).
 GP6_POS = "63"
-# Planted faults of rows 18-19 that no input can make, built from
-# csrc/gp6_lstm.cu with a define (see its header).
+# Planted faults of row 19 that no input can make, built from
+# csrc/gp6_lstm.cu with a define (see its header): the first two act on both
+# designs, the third only on the persistent one (its recurrence reads the
+# hoisted product P of step 0 at every step: the step's offset dropped).
 GP6_FAULTS = {
     "relu term dropped from dpre": ("gp6_lstm", ("-DGP6_FAULT=1",)),
     "dcoef dropped": ("gp6_lstm", ("-DGP6_FAULT=2",)),
+    P_STEP0: ("gp6_lstm", ("-DGP6_FAULT=3",)),
 }
+GP6_TWO_LAUNCH_FAULTS = ("relu term dropped from dpre", "dcoef dropped")
 # The learning rates of the gate-6 fit and GPNN2's steps. At the recipes'
 # lr 5 the gate-6 model's loss on this corpus spikes from 11.6 to 28 by
 # step 6 on the kernel path and on the plain twins alike (gradient norms up
@@ -3404,16 +3481,19 @@ def gp6_specs(torch, gpc):
             module=gpc, plain=gpc.gp6_bwd_plain,
             outs=("dux", "dupre", "dcoef", "dh0", "dc0"), source="gp6_lstm.cu",
             replaces="bayeslms_tpu/ops/gp_lstm_pallas.py:233",
-            faults={**faults, **GP6_FAULTS},
+            faults={**faults, **GP6_FAULTS,
+                    P_STEP0: {"build": GP6_FAULTS[P_STEP0],
+                              "when": lambda a: bool(a[5].any())}},
             flops=lambda a: bwd_cost(a)[0], nbytes=lambda a: bwd_cost(a)[1],
             slack=lambda a, r: gp6_relu_slack(torch, a, r), library=none),
     }
 
 
 def gp6_variant_calls(torch, gpc, fwd_args, bwd_args):
-    """Rows 18-19's step calls again with a random step mask and with a
-    random b' (the GP unit's bias starts at zero), the backward's ys and cs
-    from the twin's forward on those arguments, dy the step's."""
+    """Rows 18-19's step calls again with a random step mask, with a random
+    b' (the GP unit's bias starts at zero) and from a carried state
+    (``carried_state``), the backward's ys and cs from the twin's forward
+    on those arguments, dy the step's."""
     gen = torch.Generator(device="cuda").manual_seed(8)
     T, B = fwd_args[0].shape[:2]
     mask = (torch.rand((T, B), generator=gen, device="cuda") < 0.8).to(
@@ -3421,9 +3501,10 @@ def gp6_variant_calls(torch, gpc, fwd_args, bwd_args):
     bias = ((torch.rand(fwd_args[2].shape, generator=gen, device="cuda")
              - 0.5)).to(fwd_args[2].dtype)
     fwd, bwd = [], []
-    for tag, i, v in (("a random step mask", 4, mask),
-                      ("a random b'", 2, bias)):
-        a = with_arg(fwd_args, i, v)
+    for tag, a in (("a random step mask", with_arg(fwd_args, 4, mask)),
+                   ("a random b'", with_arg(fwd_args, 2, bias)),
+                   ("a carried state", carried_state(torch, fwd_args, 5,
+                                                     10))):
         ys, cs, _, _ = gpc.gp6_fwd_plain(*a)
         fwd.append((f"that step with {tag}", a))
         bwd.append((f"that step with {tag}", [*a, ys, cs, *bwd_args[9:]]))
@@ -3504,9 +3585,16 @@ def gp6_phases(torch, kernels, smi, cfg, rcfg, corpus, tmpdir):
     check_kernel_calls(torch, kernels, "gp6_fwd", specs["gp6_fwd"], [
         ("one step", fwd_step),
         ("one evaluate window", recorded["gp6_fwd"][0]), *var_fwd])
-    check_kernel_calls(torch, kernels, "gp6_bwd", specs["gp6_bwd"], [
-        ("one step", bwd_step), *var_bwd])
-    del step_calls, recorded, var_fwd, var_bwd
+    bwd_calls = [("one step", bwd_step), *var_bwd]
+    before = dict(gpc.design_launches["gp6_bwd"])
+    check_kernel_calls(torch, kernels, "gp6_bwd", specs["gp6_bwd"], bwd_calls)
+    persistent_only(gpc.design_launches["gp6_bwd"], before, "row 19")
+    per_step_design_check(
+        torch, kernels, "gp6_bwd", specs["gp6_bwd"], bwd_calls,
+        lambda *a: gpc._gp6_bwd("two_launch", *a),
+        gpc.design_launches["gp6_bwd"], GP6_TWO_LAUNCH_FAULTS,
+        design="two_launch")
+    del step_calls, recorded, var_fwd, var_bwd, bwd_calls
 
     gp_fit(torch, kernels, trainer, corpus, smi, kl_scale, "gp6", rows6,
            rows6)

@@ -882,6 +882,73 @@ def test_gp6_wrappers_refuse_what_the_kernels_do_not_take(dev):
         gc.gp6_fwd(*args[:2], args[2].float(), *args[3:])
 
 
+def _bwd_close(got, ref):
+    """The GP backwards' card tolerance: rtol 2^-6 and 2^-8 of the largest
+    |plain| of each output."""
+    for a, b in zip(got, ref):
+        big = float(b.float().abs().max())
+        torch.testing.assert_close(a.float(), b.float(), rtol=2 ** -6,
+                                   atol=2 ** -8 * big)
+
+
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("gate", [1, 2, 3, 4])
+@pytest.mark.parametrize("T,B,H", [(9, 20, 64), (4, 32, 1024)])
+def test_gp_lstm_bwd_persistent_matches_plain(dev, T, B, H, gate, masked):
+    """Row 21's persistent design (B <= 32) against the twin, dcoef
+    bit-equal across repeat calls, each call counted as persistent."""
+    from bayeslms_tpu_torch.ops import gp_lstm_cuda as gc
+
+    args = _gpg_args(dev, T, B, H, gate, masked, seed=gate + 10)
+    assert gc._card_design(dev, B, H, T, 21)["design"] == "persistent"
+    ys, cs, _, _ = gc.gpg_fwd_plain(*args, gate)
+    g = torch.Generator().manual_seed(9)
+    dy = ((torch.rand((T, B, H), generator=g) * 2 - 1)).to(dev, torch.bfloat16)
+    dhT = ((torch.rand((B, H), generator=g) - 0.5)).to(dev, torch.bfloat16)
+    before = dict(gc.design_launches["gpg_bwd"])
+    bw = gc.gpg_bwd(*args, ys, cs, dy, dhT, dhT, gate)
+    _bwd_close(bw, gc.gpg_bwd_plain(*args, ys, cs, dy, dhT, dhT, gate))
+    assert torch.equal(gc.gpg_bwd(*args, ys, cs, dy, dhT, dhT, gate)[1],
+                       bw[1])
+    assert gc.design_launches["gpg_bwd"] == {
+        "persistent": before["persistent"] + 2,
+        "two_launch": before["two_launch"]}
+    # the two-launch design on the same call, forced, against the same twin
+    _bwd_close(gc._gpg_bwd("two_launch", *args, ys, cs, dy, dhT, dhT, gate),
+               bw)
+
+
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("T,B,H", [(9, 20, 64), (4, 32, 1024)])
+def test_gp6_lstm_bwd_persistent_matches_plain(dev, T, B, H, masked):
+    """Row 19's persistent design (B <= 32) against the twin, dcoef
+    bit-equal across repeat calls, each call counted as persistent."""
+    from bayeslms_tpu_torch.ops import gp_lstm_cuda as gc
+
+    args = _gp6_args(dev, T, B, H, masked, seed=13 + masked)
+    assert gc._card_design(dev, B, H, T, 19)["design"] == "persistent"
+    ys, cs, _, _ = gc.gp6_fwd_plain(*args)
+    g = torch.Generator().manual_seed(9)
+    dy = ((torch.rand((T, B, H), generator=g) * 2 - 1)).to(dev, torch.bfloat16)
+    dhT = ((torch.rand((B, H), generator=g) - 0.5)).to(dev, torch.bfloat16)
+    before = dict(gc.design_launches["gp6_bwd"])
+    bw = gc.gp6_bwd(*args, ys, cs, dy, dhT, dhT)
+    ref = gc.gp6_bwd_plain(*args, ys, cs, dy, dhT, dhT)
+    _bwd_close(bw, ref)
+    assert torch.equal(gc.gp6_bwd(*args, ys, cs, dy, dhT, dhT)[2], bw[2])
+    assert gc.design_launches["gp6_bwd"] == {
+        "persistent": before["persistent"] + 2,
+        "two_launch": before["two_launch"]}
+    def two(x, dim):  # the batch doubled, past the persistent design's 32
+        return None if x is None else torch.cat([x, x], dim=dim)
+
+    with pytest.raises(ValueError):
+        gc._gp6_bwd("persistent", two(args[0], 1), *args[1:4],
+                    two(args[4], 1), two(args[5], 0), two(args[6], 0),
+                    two(ys, 1), two(cs, 1), two(dy, 1), two(dhT, 0),
+                    two(dhT, 0))
+
+
 def _lstm2_train_args(dev, T, B, H, masked, dropped, sw=None):
     """Rows 7-8's arguments: the weights uniform in +-sw, by default
     1 / sqrt(H), an LSTM's initial scale (0.125 at H = 64)."""

@@ -1,0 +1,78 @@
+#!/usr/bin/env python3
+"""Checksums of the outputs of kernel rows 7 and 8 (the fused 2-layer LSTM
+training forward and backward, ``ops/lstm2_train_cuda.py``) in the designs
+their rule picks, on one card, from fixed seeds at a training step's call
+(T 100, B 32, H 1,024, a step mask and a dropout mask of rate 0.2).
+
+    python3 tools/persist_checksums.py [--root CHECKOUT]
+
+Needs a CUDA card and nvcc. For each output it prints its float64 sum and
+the SHA-256 of its bytes: a change that only moves the kernels' code (rows
+7-8's GEMM into csrc/gates_gemm.cuh, say) must leave every line as it was.
+``--root`` runs another checkout's kernels (a parent unpacked by ``git
+archive``; only its ``bayeslms_tpu_torch/`` is needed) on the same inputs.
+"""
+
+import argparse
+import hashlib
+import os
+import subprocess
+import sys
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def digest(torch, t):
+    """(float64 sum, SHA-256 of the bytes) of a tensor on the card."""
+    raw = t.detach().contiguous().cpu().view(torch.uint8).numpy().tobytes()
+    return float(t.double().sum()), hashlib.sha256(raw).hexdigest()[:16]
+
+
+def main():
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--root", default=ROOT,
+                    help="checkout whose bayeslms_tpu_torch/ is run")
+    args = ap.parse_args()
+    sys.path.insert(0, os.path.abspath(args.root))
+    import torch
+
+    from bayeslms_tpu_torch.ops import lstm2_train_cuda as l2c
+
+    if not torch.cuda.is_available():
+        raise SystemExit("persist_checksums: no CUDA device")
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True).stdout.strip()
+    print(f"{smi}; kernels of {os.path.abspath(args.root)}")
+    T, B, H = 100, 32, 1024
+    g = torch.Generator().manual_seed(17)
+    bf = torch.bfloat16
+
+    def r(*s, sc=1.0):
+        return ((torch.rand(s, generator=g) * 2 - 1) * sc).cuda()
+
+    sw = H ** -0.5
+    dm = ((torch.rand((T, B, H), generator=g) < 0.8) / 0.8).to("cuda", bf)
+    mask = (torch.rand((T, B), generator=g) < 0.9).to("cuda", torch.uint8)
+    fwd_args = [r(T, B, 4 * H).to(bf), dm, r(4 * H, H, sc=sw).to(bf),
+                r(4 * H, sc=0.1), r(4 * H, H, sc=sw).to(bf),
+                r(4 * H, H, sc=sw).to(bf), r(4 * H, sc=0.1), mask,
+                *(r(B, H, sc=0.5).to(bf) for _ in range(4))]
+    grads = [r(T, B, H).to(bf), r(T, B, H).to(bf),
+             *(r(B, H, sc=0.5).to(bf) for _ in range(4))]
+    with torch.no_grad():
+        fwd = l2c.lstm2_train_fwd(*fwd_args)
+        bwd = l2c.lstm2_train_bwd(*fwd_args, *fwd[:4], *grads)
+        torch.cuda.synchronize()
+    print(f"designs: row 7 {dict(l2c.fwd_design_launches)}, row 8 "
+          f"{dict(l2c.design_launches)}")
+    for row, names, outs in (
+            (7, ("ys1", "cs1", "ys2", "cs2", "hT1", "cT1", "hT2", "cT2"), fwd),
+            (8, ("du1", "du2", "dh01", "dc01", "dh02", "dc02"), bwd)):
+        for name, t in zip(names, outs):
+            s, h = digest(torch, t)
+            print(f"  row {row} {name}: sum {s!r} sha256 {h}")
+
+
+if __name__ == "__main__":
+    main()
