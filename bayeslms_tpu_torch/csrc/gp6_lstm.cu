@@ -30,14 +30,32 @@
 // hprev, an fp32 product rounded to W's dtype; db' = sum dupre in fp32,
 // rounded to bf16 (b' entered the custom VJP in bf16); d xg = dux.
 //
-// The forward is one launch a step (rows 5-6's per-step design,
-// csrc/lstm_train.cu, with a mixture epilogue; the tile functions of
-// csrc/gate_tile.cuh at four row groups): the host function loops over t
-// and launches on the caller's stream; a block owns BM batch columns and
-// BJ hidden units and computes the four rows (q*H + j) of them, so the
-// mixture and the cell update need nothing from other blocks and h, c
-// update in place; the product's A operand is the bf16 ys[t-1] (h0 at t =
-// 0), the fp32 carry rounded as the TPU kernel rounds it.
+// The forward runs in one of two designs, picked by ops/gp_lstm_cuda.py
+// `_design_fwd(B, H, n_sm, T, row=18)` (an explicit rule: the chosen design
+// runs or raises). Both take the step's mixture from `Mix` and the cell
+// update from `gp6_cell`.
+//
+// "persistent" (B <= 32, H a multiple of 8, H / 8 CTAs no more than the
+// SMs, the shared memory within 227 KB: the training step, the `evaluate`
+// windows), one cooperative launch a call, csrc/lstm_persist.cuh's
+// recurrence (rows 4, 5, 7 and 20 take it too) with this row's cell,
+// `gp6_fwd_persistent`: H / 8 CTAs of 512 threads, CTA c keeping W''s 4 x 8
+// gate rows of its units [8c, 8c + 8) in shared memory (133,120 bytes with
+// the 16 warps' 32 x 32 fp32 partial tiles at H = 1,024); a step the CTA's
+// 32 product columns from the bf16 ys[t-1] (h0 at t = 0) by mma.sync
+// m16n8k16, the mixture and the cell of its 32 x 8 (column, unit) pairs
+// with h, c carried in registers, ys[t] and cs[t] stored, a grid barrier.
+//
+// "per_step" (the rest: B > 32, or H beyond what the SMs hold), one launch
+// a step (rows 5-6's per-step design, csrc/lstm_train.cu, with a mixture
+// epilogue; the tile functions of csrc/gate_tile.cuh at four row groups),
+// `gp6_fwd_step`: the host function loops over t and launches on the
+// caller's stream; a block owns BM batch columns and BJ hidden units and
+// computes the four rows (q*H + j) of them, so the mixture and the cell
+// update need nothing from other blocks and h, c update in place.
+//
+// In both the product's A operand is the bf16 ys[t-1] (h0 at t = 0), the
+// fp32 carry rounded as the TPU kernel rounds it.
 //
 // The backward runs in one of two designs, picked by ops/gp_lstm_cuda.py
 // `_design(B, H, n_sm, T, row=19)` (an explicit rule: the chosen design
@@ -73,25 +91,32 @@
 // SXM data sheet's 989 TFLOP/s bf16 and 3.35 TB/s: forward 2 T B H 4H =
 // 26.8 GFLOP, 0.027 ms (its ~48 MB, 0.014 ms); backward twice the
 // operations, 0.054 ms (~107 MB, 0.032 ms). Operations bound, but all are
-// far from it. The forward and the two-launch backward are bound by the
-// latency of dependent launches (100 forward, 200 backward), each a small
-// tile product loading its tiles synchronously on 32 blocks: 15.8 ms a
-// two-launch backward call on an NVIDIA H100 80GB HBM3 at 700.00 W
-// (PERF.md). The persistent backward's GEMM is operations bound (26.8
-// GFLOP), its recurrence by its T dependent steps: a barrier and each
-// CTA's L2 read of dupre[t] (256 KB) a step.
+// far from it. The per-step forward and the two-launch backward are bound
+// by the latency of dependent launches (100 forward, 200 backward), each a
+// small tile product loading its tiles synchronously on 32 blocks: 4.8 ms
+// a per-step forward call and 15.8 ms a two-launch backward call on an
+// NVIDIA H100 80GB HBM3 at 700.00 W (PERF.md). The persistent forward is
+// bound by its T dependent steps: a barrier and each CTA's L2 read of
+// h_{t-1} (64 KB at B = 32) a step. The persistent backward's GEMM is
+// operations bound (26.8 GFLOP), its recurrence by its T dependent steps:
+// a barrier and each CTA's L2 read of dupre[t] (256 KB) a step.
 //
 // Planted faults for the on-card check (chip_smoke.py), off by default:
 // -DGP6_FAULT=1 drops the relu term from dpre and -DGP6_FAULT=2 drops the
 // dcoef accumulation, in both designs; -DGP6_FAULT=3 has the persistent
 // recurrence read P of step 0 at every step (the step's offset dropped),
-// which only the hoisted design can get wrong.
+// which only the hoisted design can get wrong; -DGP6_FAULT=4 has the
+// persistent forward's product read h0 at every step, which only it can
+// get wrong.
 
 #ifndef GP6_FAULT
 #define GP6_FAULT 0
 #endif
 #if GP6_FAULT == 3
 #define GP_PERSIST_P_STEP(t, T) 0
+#endif
+#if GP6_FAULT == 4
+#define LSTM_PERSIST_H0_ALWAYS 1
 #endif
 
 #include "gate_tile.cuh"
@@ -129,6 +154,14 @@ struct Mix {
       : Mix(acc, __bfloat162float(bg[n]), coef[n], coef[G + n],
             coef[2 * G + n], __bfloat162float(xg_row[n])) {}
 };
+
+// The cell update of one element from its four gate pre-activations g and
+// c_{t-1} (both forward designs): cn = f c + i g, hn = o tanh(cn).
+__device__ __forceinline__ void gp6_cell(const float (&g)[4], float c,
+                                         float& cn, float& hn) {
+  cn = sigmoidf(g[1]) * c + sigmoidf(g[0]) * tanhf(g[2]);
+  hn = sigmoidf(g[3]) * tanhf(cn);
+}
 
 // The backward of one element from its four gates' mixtures m, the
 // coefficients cf[a][q] of its gate columns and c_{t-1} (both designs): du
@@ -190,8 +223,8 @@ gp6_fwd_step(const bf16* __restrict__ a, const bf16* __restrict__ w,
       g[q] = Mix(Gs[r * LDG + q * BJ + u], bg, coef, xg_row, q * H + j, G)
                  .gate;
     const size_t e = (size_t)b * H + j;
-    float cn = sigmoidf(g[1]) * c[e] + sigmoidf(g[0]) * tanhf(g[2]);
-    float hn = sigmoidf(g[3]) * tanhf(cn);
+    float cn, hn;
+    gp6_cell(g, c[e], cn, hn);
     if (mask_t != nullptr && !mask_t[b]) {
       hn = h[e];
       cn = c[e];
@@ -296,6 +329,53 @@ __global__ void gp6_dcoef_sum(const float* __restrict__ acc,
   dcoef[i] = s;
 }
 
+// -------------------------------------------- the persistent forward
+
+// Row 18's cell for csrc/lstm_persist.cuh: the product's four groups are h
+// W'^T's gate columns; b' and the three coefficients of the thread's
+// unit's gate columns; xg[t]'s four columns a step.
+struct Gp6FwdCell {
+  static constexpr int NG = 4;
+  struct Const {
+    float b[4], cf[NACT][4];
+  };
+  struct In {
+    float x[4];
+  };
+  __device__ static void load(const FwdPersistParams& p, int j, Const& k) {
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      k.b[q] = __bfloat162float(p.bg[q * p.H + j]);
+#pragma unroll
+      for (int a = 0; a < NACT; ++a)
+        k.cf[a][q] = p.coef[(a * 4 + q) * p.H + j];
+    }
+  }
+  __device__ static void fetch(const FwdPersistParams& p, int t, int b, int j,
+                               In& in) {
+    const bf16* xr = static_cast<const bf16*>(p.x) +
+                     ((size_t)t * p.B + b) * 4 * p.H + j;
+#pragma unroll
+    for (int q = 0; q < 4; ++q) in.x[q] = __bfloat162float(xr[q * p.H]);
+  }
+  __device__ static void update(const Const& k, const In& in,
+                                const float (&s)[NG], float c, float& cn,
+                                float& hn) {
+    float g[4];
+#pragma unroll
+    for (int q = 0; q < 4; ++q)
+      g[q] = Mix(s[q], k.b[q], k.cf[0][q], k.cf[1][q], k.cf[2][q], in.x[q])
+                 .gate;
+    gp6_cell(g, c, cn, hn);
+  }
+};
+
+__global__ void __launch_bounds__(P_THREADS, 1)
+gp6_fwd_persistent(const __grid_constant__ FwdPersistParams p) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  persist_fwd_cell<Gp6FwdCell>(p, smem);
+}
+
 // ------------------------------------------- the persistent backward
 
 // Row 19's cell for csrc/gp_persist.cuh: P's four groups are h W'^T's gate
@@ -383,6 +463,36 @@ extern "C" int gp6_fwd(const void* xg, const void* w, const void* bg,
     if (err != cudaSuccess) return (int)err;
   }
   return 0;
+}
+
+// The persistent forward (csrc/lstm_persist.cuh): gp6_fwd's arguments
+// plus bar, one zeroed unsigned int of device memory for the grid barrier.
+// B must be at most 32 and H a multiple of 8; the grid is H / 8 CTAs of
+// 512 threads, launched cooperatively, so a grid the card cannot hold at
+// once is refused (cudaErrorCooperativeLaunchTooLarge). Returns the launch
+// error, or 0.
+extern "C" int gp6_fwd_persist(const void* xg, const void* w, const void* bg,
+                               const void* coef, const void* mask,
+                               const void* h0, void* h, void* c, void* ys,
+                               void* cs, void* bar, int T, int B, int H,
+                               void* stream) {
+  FwdPersistParams prm = {};
+  prm.x = xg;
+  prm.w = static_cast<const bf16*>(w);
+  prm.bg = static_cast<const bf16*>(bg);
+  prm.coef = static_cast<const float*>(coef);
+  prm.mask = static_cast<const uint8_t*>(mask);
+  prm.h0 = static_cast<const bf16*>(h0);
+  prm.h = static_cast<float*>(h);
+  prm.c = static_cast<float*>(c);
+  prm.ys = static_cast<bf16*>(ys);
+  prm.cs = static_cast<bf16*>(cs);
+  prm.bar = static_cast<unsigned int*>(bar);
+  prm.T = T;
+  prm.B = B;
+  prm.H = H;
+  return (int)launch_persist_fwd(gp6_fwd_persistent, prm,
+                                 static_cast<cudaStream_t>(stream), 4);
 }
 
 // The two-launch backward over the whole sequence, t = T-1..0. The

@@ -31,14 +31,31 @@
 // dW5 = du5^T hprev and db_ih = sum du5[:, :4H] are GEMMs and sums outside,
 // as the TPU package leaves them to XLA.
 //
-// The forward is one launch a step (the design of csrc/lstm_train.cu's
-// per-step forward, with the tile functions of csrc/gate_tile.cuh taken at
-// five row groups): the host function loops over t and launches on the
+// The forward runs in one of two designs, picked by ops/gp_lstm_cuda.py
+// `_design_fwd(B, H, n_sm, T, row=20)` (an explicit rule: the chosen design
+// runs or raises). Both take the step's cell from `Step` and `gpg_cell`.
+//
+// "persistent" (B <= 32, H a multiple of 8, H / 8 CTAs no more than the
+// SMs, the shared memory within 227 KB: the training step, the `evaluate`
+// windows), one cooperative launch a call, csrc/lstm_persist.cuh's
+// recurrence (rows 4, 5, 7 and 18 take it too) with this row's cell,
+// `gpg_fwd_persistent`: H / 8 CTAs of 512 threads, CTA c keeping W5's 5 x 8
+// rows of its units [8c, 8c + 8) in shared memory (84,480 bytes, 166,400
+// with the 16 warps' 32 x 40 fp32 partial tiles, at H = 1,024); a step the
+// CTA's 40 product columns from the bf16 ys[t-1] (h0 at t = 0) by mma.sync
+// m16n8k16, the cell of its 32 x 8 (column, unit) pairs with h, c carried
+// in registers, ys[t] and cs[t] stored, a grid barrier.
+//
+// "per_step" (the rest: B > 32, or H beyond what the SMs hold), one launch
+// a step (the design of csrc/lstm_train.cu's per-step forward, with the
+// tile functions of csrc/gate_tile.cuh taken at five row groups),
+// `gpg_fwd_step`: the host function loops over t and launches on the
 // caller's stream; a block owns BM batch columns and BJ hidden units and
 // computes the five rows (q*H + j, q = 0..4) of them, so the cell update
-// needs nothing from other blocks and h, c update in place; the product's A
-// operand is the bf16 ys[t-1], the fp32 carry rounded as the TPU kernel
-// rounds it.
+// needs nothing from other blocks and h, c update in place.
+//
+// In both the product's A operand is the bf16 ys[t-1], the fp32 carry
+// rounded as the TPU kernel rounds it.
 //
 // The backward runs in one of two designs, picked by ops/gp_lstm_cuda.py
 // `_design(B, H, n_sm, T, row=21)` (an explicit rule: the chosen design
@@ -75,26 +92,34 @@
 // Bound at the training shapes (T = 100, B = 32, H = 1,024), from the H100
 // SXM data sheet's 989 TFLOP/s bf16: forward 2 T B H 5H = 33.6 GFLOP,
 // 0.034 ms; backward twice that, 0.068 ms. Operations bound, but all are
-// far from it. The forward and the two-launch backward are bound by the
-// latency of dependent launches (100 forward, 200 backward), each a small
-// tile product loading its tiles synchronously on 32 blocks, as rows 5-6's
-// per-step designs were: 17.7 ms a two-launch backward call on an NVIDIA
-// H100 80GB HBM3 at 700.00 W (PERF.md). The persistent backward's GEMM is
-// operations bound (33.6 GFLOP), its recurrence by its T dependent steps:
-// a barrier and each CTA's L2 read of du5[t] (320 KB) a step.
+// far from it. The per-step forward and the two-launch backward are bound
+// by the latency of dependent launches (100 forward, 200 backward), each a
+// small tile product loading its tiles synchronously on 32 blocks, as rows
+// 5-6's per-step designs were: 4.5 ms a per-step forward call and 17.7 ms
+// a two-launch backward call on an NVIDIA H100 80GB HBM3 at 700.00 W
+// (PERF.md). The persistent forward is bound by its T dependent steps: a
+// barrier and each CTA's L2 read of h_{t-1} (64 KB at B = 32) a step. The
+// persistent backward's GEMM is operations bound (33.6 GFLOP), its
+// recurrence by its T dependent steps: a barrier and each CTA's L2 read of
+// du5[t] (320 KB) a step.
 //
 // Planted faults for the on-card check (chip_smoke.py), off by default:
 // -DGP_LSTM_FAULT=1 leaves the replaced gate's slice of du5 unzeroed (the
 // standard formula on gp) and -DGP_LSTM_FAULT=2 drops the dcoef
 // accumulation, in both designs; -DGP_LSTM_FAULT=3 has the persistent
 // recurrence read P of step 0 at every step (the step's offset dropped),
-// which only the hoisted design can get wrong.
+// which only the hoisted design can get wrong; -DGP_LSTM_FAULT=4 has the
+// persistent forward's product read h0 at every step, which only it can
+// get wrong.
 
 #ifndef GP_LSTM_FAULT
 #define GP_LSTM_FAULT 0
 #endif
 #if GP_LSTM_FAULT == 3
 #define GP_PERSIST_P_STEP(t, T) 0
+#endif
+#if GP_LSTM_FAULT == 4
+#define LSTM_PERSIST_H0_ALWAYS 1
 #endif
 
 #include "gate_tile.cuh"
@@ -175,6 +200,15 @@ struct Step {
   }
 };
 
+// The cell update of one element from its step s and c_{t-1} (both
+// forward designs): cn = f c + i g, hn = o tanh(cn).
+template <int GATE, int NACT>
+__device__ __forceinline__ void gpg_cell(const Step<GATE, NACT>& s, float c,
+                                         float& cn, float& hn) {
+  cn = s.gate[1] * c + s.gate[0] * s.gate[2];
+  hn = s.gate[3] * tanhf(cn);
+}
+
 // The backward of one element from its step s, the unit's coef and
 // c_{t-1} (both designs): du5's five entries d5 (the replaced gate's slice
 // zeroed), the dcoef terms dgp act_a(pre) as part[a]; returns the new dc.
@@ -227,8 +261,8 @@ gpg_fwd_step(const bf16* __restrict__ a, const bf16* __restrict__ w5,
     const Step<GATE, NACT> s(Gs + r * LDG, u, xg_t + (size_t)b * 4 * H,
                              gpx_t + (size_t)b * H, bih, coef, j, H);
     const size_t e = (size_t)b * H + j;
-    float cn = s.gate[1] * c[e] + s.gate[0] * s.gate[2];
-    float hn = s.gate[3] * tanhf(cn);
+    float cn, hn;
+    gpg_cell(s, c[e], cn, hn);
     if (mask_t != nullptr && !mask_t[b]) {
       hn = h[e];
       cn = c[e];
@@ -309,6 +343,54 @@ __global__ void gpg_dcoef_sum(const float* __restrict__ acc,
   float s = 0.0f;
   for (int k = 0; k < nblk; ++k) s += acc[(size_t)k * n + i];
   dcoef[i] = s;
+}
+
+// -------------------------------------------- the persistent forward
+
+// Row 20's cell for csrc/lstm_persist.cuh: the product's five groups are h
+// W5^T's columns (the gates', then the GP unit's); b_ih and coef of the
+// thread's unit; xg[t]'s four columns and gpx[t] a step.
+template <int GATE, int NACT>
+struct GpgFwdCell {
+  static constexpr int NG = 5;
+  struct Const {
+    float bih[4], coef[NACT];
+  };
+  struct In {
+    float x[4], gx;
+  };
+  __device__ static void load(const FwdPersistParams& p, int j, Const& k) {
+#pragma unroll
+    for (int q = 0; q < 4; ++q) k.bih[q] = p.bias[q * p.H + j];
+#pragma unroll
+    for (int a = 0; a < NACT; ++a) k.coef[a] = p.coef[a * p.H + j];
+  }
+  __device__ static void fetch(const FwdPersistParams& p, int t, int b, int j,
+                               In& in) {
+    const size_t r = (size_t)t * p.B + b;
+    const bf16* xr = static_cast<const bf16*>(p.x) + r * 4 * p.H + j;
+#pragma unroll
+    for (int q = 0; q < 4; ++q) in.x[q] = __bfloat162float(xr[q * p.H]);
+    in.gx = __bfloat162float(p.gpx[r * p.H + j]);
+  }
+  __device__ static void update(const Const& k, const In& in,
+                                const float (&s)[NG], float c, float& cn,
+                                float& hn) {
+    const Step<GATE, NACT> st(s, in.x, in.gx, k.bih, k.coef);
+    gpg_cell(st, c, cn, hn);
+  }
+};
+
+template <int GATE, int NACT>
+__global__ void __launch_bounds__(P_THREADS, 1)
+gpg_fwd_persistent(const __grid_constant__ FwdPersistParams p) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  persist_fwd_cell<GpgFwdCell<GATE, NACT>>(p, smem);
+}
+
+template <int GATE, int NACT>
+int fwd_persist(const FwdPersistParams& prm, cudaStream_t st) {
+  return (int)launch_persist_fwd(gpg_fwd_persistent<GATE, NACT>, prm, st, 5);
 }
 
 // ------------------------------------------- the persistent backward
@@ -447,6 +529,37 @@ extern "C" int gpg_fwd(const void* xg, const void* gpx, const void* w5,
                static_cast<float*>(c), static_cast<bf16*>(ys),
                static_cast<bf16*>(cs), T, B, H,
                static_cast<cudaStream_t>(stream))
+}
+
+// The persistent forward (csrc/lstm_persist.cuh): gpg_fwd's arguments
+// plus bar, one zeroed unsigned int of device memory for the grid barrier.
+// B must be at most 32 and H a multiple of 8; the grid is H / 8 CTAs of
+// 512 threads, launched cooperatively, so a grid the card cannot hold at
+// once is refused (cudaErrorCooperativeLaunchTooLarge). Returns the launch
+// error, -1 for an unknown (gate, nact), or 0.
+extern "C" int gpg_fwd_persist(const void* xg, const void* gpx,
+                               const void* w5, const void* bih,
+                               const void* coef, const void* mask,
+                               const void* h0, void* h, void* c, void* ys,
+                               void* cs, void* bar, int T, int B, int H,
+                               int gate, int nact, void* stream) {
+  FwdPersistParams prm = {};
+  prm.x = xg;
+  prm.gpx = static_cast<const bf16*>(gpx);
+  prm.w = static_cast<const bf16*>(w5);
+  prm.bias = static_cast<const float*>(bih);
+  prm.coef = static_cast<const float*>(coef);
+  prm.mask = static_cast<const uint8_t*>(mask);
+  prm.h0 = static_cast<const bf16*>(h0);
+  prm.h = static_cast<float*>(h);
+  prm.c = static_cast<float*>(c);
+  prm.ys = static_cast<bf16*>(ys);
+  prm.cs = static_cast<bf16*>(cs);
+  prm.bar = static_cast<unsigned int*>(bar);
+  prm.T = T;
+  prm.B = B;
+  prm.H = H;
+  GPG_DISPATCH(fwd_persist, prm, static_cast<cudaStream_t>(stream))
 }
 
 // The two-launch backward over the whole sequence, t = T-1..0. The

@@ -6,13 +6,15 @@ Replaces ``bayeslms_tpu/ops/gp_lstm_pallas.py`` ``gpg_layer_fused`` (its
 ``_gpg_fwd_kernel`` and ``_gpg_bwd_kernel`` Pallas bodies, kernel rows 20
 and 21) and ``gpg_pallas_ok``, and ``gp6_layer_fused`` (``_gp_fwd_kernel``
 and ``_gp_bwd_kernel``, rows 18 and 19) and ``gp6_pallas_ok``. The kernels
-are in ``csrc/gp_lstm.cu`` and ``csrc/gp6_lstm.cu`` (their backwards'
-persistent design in ``csrc/gp_persist.cuh``), whose headers say what they
-compute term for term, what bounds them on the H100 and how their designs
-answer that; each backward has two, picked by ``_design``. ``gpg_fwd``,
-``gpg_bwd``, ``gp6_fwd`` and ``gp6_bwd`` launch them for CUDA tensors and
-raise on what they do not take; for CPU tensors they run their ``_plain``
-twins, which repeat the kernels' arithmetic step by step.
+are in ``csrc/gp_lstm.cu`` and ``csrc/gp6_lstm.cu`` (their forwards'
+persistent design in ``csrc/lstm_persist.cuh``, their backwards' in
+``csrc/gp_persist.cuh``), whose headers say what they compute term for
+term, what bounds them on the H100 and how their designs answer that; each
+forward has two designs, picked by ``_design_fwd``, and each backward two,
+picked by ``_design``. ``gpg_fwd``, ``gpg_bwd``, ``gp6_fwd`` and
+``gp6_bwd`` launch them for CUDA tensors and raise on what they do not
+take; for CPU tensors they run their ``_plain`` twins, which repeat the
+kernels' arithmetic step by step.
 
 Gates 1-4 (kernels and plain alike), with ``dtype`` the weights' dtype:
 h and c are carried in float32; one product h_{t-1} W5^T takes h rounded
@@ -51,12 +53,15 @@ from .lstm_cuda import cell_update, est_vmem
 from .lstm_train_cuda import (P_PAD, P_ROWS, P_THREADS, P_UNITS, SMEM_LIMIT,
                               TILE, _check, _ptr)
 
-# kernel launches, one per call that reaches a kernel (a call runs T step
-# launches forward; backward, 2 in the persistent design or 2T + 1 in the
-# two-launch one), and the backwards' calls by design; reset by callers
-# that read them, such as chip_smoke.py
+# kernel launches, one per call that reaches a kernel (forward, a call
+# runs 1 cooperative launch in the persistent design or T step launches in
+# the per-step one; backward, 2 in the persistent design or 2T + 1 in the
+# two-launch one), and the calls by design; reset by callers that read
+# them, such as chip_smoke.py
 launches = {"gpg_fwd": 0, "gpg_bwd": 0, "gp6_fwd": 0, "gp6_bwd": 0}
-design_launches = {"gpg_bwd": {"persistent": 0, "two_launch": 0},
+design_launches = {"gpg_fwd": {"persistent": 0, "per_step": 0},
+                   "gpg_bwd": {"persistent": 0, "two_launch": 0},
+                   "gp6_fwd": {"persistent": 0, "per_step": 0},
                    "gp6_bwd": {"persistent": 0, "two_launch": 0}}
 
 # act sets the kernels take, by the number of coef rows
@@ -83,12 +88,16 @@ _GP6_FWD_ARGTYPES = [_P] * 10 + [ctypes.c_int] * 3 + [_P]
 _GP6_BWD_ARGTYPES = [_P] * 16 + [ctypes.c_int] * 3 + [_P]
 _PERSIST_ARGTYPES = [_P] * 16 + [ctypes.c_int] * 5 + [_P]
 _GP6_PERSIST_ARGTYPES = [_P] * 16 + [ctypes.c_int] * 3 + [_P]
+_FWD_PERSIST_ARGTYPES = [_P] * 12 + [ctypes.c_int] * 5 + [_P]
+_GP6_FWD_PERSIST_ARGTYPES = [_P] * 11 + [ctypes.c_int] * 3 + [_P]
 
-# The persistent backwards' row groups of the recurrent weight (and of the
-# hoisted product P): row 21's W5 = [W_hh; w_h] (5H, H), row 19's W' (4H, H);
-# warps a CTA, whose partial dh tiles (32 x 8 fp32 each) share the CTA's
-# shared memory with the weight's column slice
-GROUPS = {21: 5, 19: 4}
+# The persistent designs' row groups of the recurrent weight (and of the
+# product on h_{t-1}): W5 = [W_hh; w_h] (5H, H) for rows 20 (forward) and
+# 21 (backward), W' (4H, H) for rows 18 and 19; warps a CTA, whose partial
+# tiles (32 x 8 fp32 for each group in a forward, one 32 x 8 tile in a
+# backward) share the CTA's shared memory with the weight's rows or
+# column slice
+GROUPS = {21: 5, 19: 4, 20: 5, 18: 4}
 P_WARPS = P_THREADS // 32
 
 
@@ -130,8 +139,46 @@ def _design(B: int, H: int, n_sm: int, T: int = 1, row: int = 21) -> dict:
                 gemm_smem_bytes=None, launches=2 * T + 1, barriers=0)
 
 
+def fwd_persist_smem(H: int, row: int = 20) -> int:
+    """Dynamic shared memory of a persistent forward CTA of ``row`` (18 or
+    20) at width H, bytes: the weight's rows of the CTA's 8 units in each
+    of its GROUPS[row] groups (8 GROUPS[row] rows of H + P_PAD bf16) and
+    the 16 warps' partial product tiles (32 x 8 GROUPS[row] fp32)."""
+    n = P_UNITS * GROUPS[row]
+    return n * (H + P_PAD) * 2 + P_WARPS * P_ROWS * n * 4
+
+
+def _design_fwd(B: int, H: int, n_sm: int, T: int = 1,
+                row: int = 20) -> dict:
+    """The design of row ``row``'s forward (20: ``gpg_fwd``, 18:
+    ``gp6_fwd``) for batch B and width H on a card of ``n_sm`` SMs.
+    "persistent" (one cooperative launch of H / 8 CTAs, each owning 8 units
+    with their rows of the recurrent weight in shared memory, a grid
+    barrier a step) where B <= 32, H is a multiple of 8, the CTAs number no
+    more than the SMs (one a SM) and a CTA's shared memory fits; otherwise
+    "per_step" (``gpg_fwd_step`` / ``gp6_fwd_step`` a step on (ceil(B /
+    32), H / 32) blocks). An explicit rule: the chosen design runs or
+    raises. Returns a dict with the design, grid, CTAs, units a CTA,
+    threads, shared memory bytes, and launches and grid barriers of a call
+    of T steps."""
+    smem = fwd_persist_smem(H, row)
+    if B <= P_ROWS and H % P_UNITS == 0 and 0 < H // P_UNITS <= n_sm \
+            and smem <= SMEM_LIMIT:
+        ctas = H // P_UNITS
+        return dict(design="persistent", grid=(ctas,), ctas=ctas,
+                    units=P_UNITS, threads=P_THREADS, smem_bytes=smem,
+                    launches=1, barriers=max(T - 1, 0))
+    blocks = (-(-B // TILE), H // TILE)
+    return dict(design="per_step", grid=blocks, ctas=blocks[0] * blocks[1],
+                units=TILE, threads=None, smem_bytes=None, launches=T,
+                barriers=0)
+
+
 def _card_design(dev, B, H, T, row):
-    return _design(B, H, _build.sm_count(dev.index), T, row)
+    n_sm = _build.sm_count(dev.index)
+    if row in (18, 20):
+        return _design_fwd(B, H, n_sm, T, row)
+    return _design(B, H, n_sm, T, row)
 
 
 def gpg_kernel_ok(x: torch.Tensor, nhid: int) -> bool:
@@ -275,13 +322,17 @@ def _call(fn, argtypes, *args, entry=None):
     launches[fn] += 1
 
 
-def _bwd_design(fn, design, B, H, T, dev, row):
-    """The design a backward call takes: ``design``, or the one ``_design``
+def _chosen(fn, design, B, H, T, dev, row):
+    """The design a call of row ``row`` takes: ``design``, or the one its
+    rule (``_design_fwd`` for rows 18 and 20, ``_design`` for 19 and 21)
     picks where it is None; raises where the persistent design is asked for
-    and does not take the shapes."""
+    and does not take the shapes, or the design is not one of the row's."""
     plan = _card_design(dev, B, H, T, row)["design"]
     if design is None:
         return plan
+    if design not in design_launches[fn]:
+        raise ValueError(f"{fn}: no design {design!r}; its designs are "
+                         f"{sorted(design_launches[fn])}")
     if design == "persistent" and plan != "persistent":
         raise ValueError(f"{fn}: the persistent design does not take B={B} "
                          f"H={H}")
@@ -308,24 +359,39 @@ def gpg_fwd(xg: torch.Tensor, gpx: torch.Tensor, w5: torch.Tensor,
     in the compute dtype; bih (4H,) float32 (b_ih, added again each step);
     coef (k, H) float32, k = 1 or 3 acts; mask (T, B), nonzero = step, or
     None; h0, c0 (B, H) in the compute dtype; gate 1-4. Returns ys, cs
-    (T, B, H), hT, cT (B, H) in the compute dtype. CUDA tensors launch
-    ``gpg_fwd`` of ``csrc/gp_lstm.cu`` (bf16 only); CPU tensors run
-    ``gpg_fwd_plain``.
+    (T, B, H), hT, cT (B, H) in the compute dtype. CUDA tensors launch the
+    forward of ``csrc/gp_lstm.cu`` in the design ``_design_fwd`` picks
+    (bf16 only); CPU tensors run ``gpg_fwd_plain``.
     """
     if not xg.is_cuda:
         return gpg_fwd_plain(xg, gpx, w5, bih, coef, mask, h0, c0, gate)
+    return _gpg_fwd(None, xg, gpx, w5, bih, coef, mask, h0, c0, gate)
+
+
+def _gpg_fwd(design, xg, gpx, w5, bih, coef, mask, h0, c0, gate):
+    """``gpg_fwd`` on CUDA tensors in ``design`` ("persistent" or
+    "per_step"), or in the one ``_design_fwd`` picks where it is None;
+    chip_smoke.py checks and times the per-step design on the persistent
+    design's calls through it."""
     fn = "gpg_fwd"
     B, H = xg.shape[1], xg.shape[2] // 4
     T, B, H, nact, mask = _checked(fn, xg, gpx, w5, bih, coef, mask, gate, (
         ("h0", h0, (B, H)), ("c0", c0, (B, H))))
+    design = _chosen(fn, design, B, H, T, xg.device, 20)
     h = h0.float().contiguous()
     c = c0.float().contiguous()
     ys = torch.empty((T, B, H), dtype=torch.bfloat16, device=xg.device)
     cs = torch.empty_like(ys)
-    _call(fn, _FWD_ARGTYPES, _ptr(xg), _ptr(gpx), _ptr(w5), _ptr(bih),
-          _ptr(coef), _ptr(mask), _ptr(h0), _ptr(h), _ptr(c), _ptr(ys),
-          _ptr(cs), T, B, H, gate, nact,
-          torch.cuda.current_stream(xg.device).cuda_stream)
+    stream = torch.cuda.current_stream(xg.device).cuda_stream
+    args = (_ptr(xg), _ptr(gpx), _ptr(w5), _ptr(bih), _ptr(coef),
+            _ptr(mask), _ptr(h0), _ptr(h), _ptr(c), _ptr(ys), _ptr(cs))
+    if design == "persistent":
+        bar = torch.zeros((1,), dtype=torch.int32, device=xg.device)
+        _call(fn, _FWD_PERSIST_ARGTYPES, *args, _ptr(bar), T, B, H, gate,
+              nact, stream, entry="gpg_fwd_persist")
+    else:
+        _call(fn, _FWD_ARGTYPES, *args, T, B, H, gate, nact, stream)
+    design_launches[fn][design] += 1
     return ys, cs, h.to(torch.bfloat16), c.to(torch.bfloat16)
 
 
@@ -361,7 +427,7 @@ def _gpg_bwd(design, xg, gpx, w5, bih, coef, mask, h0, c0, ys, cs, dy, dhT,
         ("cs", cs, (T, B, H)), ("dy", dy, (T, B, H)), ("dhT", dhT, (B, H)),
         ("dcT", dcT, (B, H))))
     dev = xg.device
-    design = _bwd_design(fn, design, B, H, T, dev, 21)
+    design = _chosen(fn, design, B, H, T, dev, 21)
     dh = dhT.float().contiguous()
     dc = dcT.float().contiguous()
     du5 = torch.empty((T, B, 5 * H), dtype=torch.bfloat16, device=dev)
@@ -553,22 +619,38 @@ def gp6_fwd(xg: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     (3, 4H) float32, the (sigmoid, tanh, relu) coefficients; mask (T, B),
     nonzero = step, or None; h0, c0 (B, H) in the compute dtype. Returns
     ys, cs (T, B, H), hT, cT (B, H) in the compute dtype. CUDA tensors
-    launch ``gp6_fwd`` of ``csrc/gp6_lstm.cu`` (bf16 only); CPU tensors run
-    ``gp6_fwd_plain``.
+    launch the forward of ``csrc/gp6_lstm.cu`` in the design
+    ``_design_fwd`` picks (bf16 only); CPU tensors run ``gp6_fwd_plain``.
     """
     if not xg.is_cuda:
         return gp6_fwd_plain(xg, w, b, coef, mask, h0, c0)
+    return _gp6_fwd(None, xg, w, b, coef, mask, h0, c0)
+
+
+def _gp6_fwd(design, xg, w, b, coef, mask, h0, c0):
+    """``gp6_fwd`` on CUDA tensors in ``design`` ("persistent" or
+    "per_step"), or in the one ``_design_fwd`` picks where it is None;
+    chip_smoke.py checks and times the per-step design on the persistent
+    design's calls through it."""
     fn = "gp6_fwd"
     B, H = xg.shape[1], xg.shape[2] // 4
     T, B, H, mask = _gp6_checked(fn, xg, w, b, coef, mask, (
         ("h0", h0, (B, H)), ("c0", c0, (B, H))))
+    design = _chosen(fn, design, B, H, T, xg.device, 18)
     h = h0.float().contiguous()
     c = c0.float().contiguous()
     ys = torch.empty((T, B, H), dtype=torch.bfloat16, device=xg.device)
     cs = torch.empty_like(ys)
-    _call(fn, _GP6_FWD_ARGTYPES, _ptr(xg), _ptr(w), _ptr(b), _ptr(coef),
-          _ptr(mask), _ptr(h0), _ptr(h), _ptr(c), _ptr(ys), _ptr(cs), T, B,
-          H, torch.cuda.current_stream(xg.device).cuda_stream)
+    stream = torch.cuda.current_stream(xg.device).cuda_stream
+    args = (_ptr(xg), _ptr(w), _ptr(b), _ptr(coef), _ptr(mask), _ptr(h0),
+            _ptr(h), _ptr(c), _ptr(ys), _ptr(cs))
+    if design == "persistent":
+        bar = torch.zeros((1,), dtype=torch.int32, device=xg.device)
+        _call(fn, _GP6_FWD_PERSIST_ARGTYPES, *args, _ptr(bar), T, B, H,
+              stream, entry="gp6_fwd_persist")
+    else:
+        _call(fn, _GP6_FWD_ARGTYPES, *args, T, B, H, stream)
+    design_launches[fn][design] += 1
     return ys, cs, h.to(torch.bfloat16), c.to(torch.bfloat16)
 
 
@@ -602,7 +684,7 @@ def _gp6_bwd(design, xg, w, b, coef, mask, h0, c0, ys, cs, dy, dhT, dcT):
         ("cs", cs, (T, B, H)), ("dy", dy, (T, B, H)), ("dhT", dhT, (B, H)),
         ("dcT", dcT, (B, H))))
     dev = xg.device
-    design = _bwd_design(fn, design, B, H, T, dev, 19)
+    design = _chosen(fn, design, B, H, T, dev, 19)
     dh = dhT.float().contiguous()
     dc = dcT.float().contiguous()
     dux = torch.empty((T, B, G), dtype=torch.bfloat16, device=dev)

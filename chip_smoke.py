@@ -42,14 +42,17 @@ recipe's GP-LSTM (``l_gauss_pos`` 13: a GP cell replacing the input gate, then
 a standard layer) on the same corpus: the GP gate-replacement kernels (forward,
 backward) against their twins on the calls a step and an ``evaluate`` window
 hand them and for gates 2-4 at a short T (planted faults: gpx dropped, and
-three builds with ``-DGP_LSTM_FAULT``; the backward in its persistent design,
-the hoisted GEMM and one cooperative launch, its two-launch design on the same
-calls beside it, with the first two builds), the single-layer forward kernel on
-the ``evaluate`` window's call (and with a random step mask) in its persistent
-design, its per-step design on the same calls beside it, one epoch of
-``Trainer.fit`` (every ``evaluate`` call of row 4 and every row-21 call on the
-persistent designs), a kernel-path step against the plain path, and a
-packed-carry pass of the 6,000-hypothesis N-best from that checkpoint: the
+four builds with ``-DGP_LSTM_FAULT``; the forward in its persistent design,
+one cooperative launch, its per-step design on the same calls beside it, the
+fourth build on the call from a carried state; the backward in its persistent
+design, the hoisted GEMM and one cooperative launch, its two-launch design on
+the same calls beside it, with the first two builds), the single-layer forward
+kernel on the ``evaluate`` window's call (and with a random step mask) in its
+persistent design, its per-step design on the same calls beside it, one epoch
+of ``Trainer.fit`` (every ``evaluate`` call of row 4 and every row-20 and
+row-21 call on the persistent designs), a kernel-path step against the plain
+path, and a packed-carry pass of the 6,000-hypothesis N-best from that
+checkpoint: the
 single-layer forward kernel with resets against its twin on the pass's call and
 with -1 sources, on the per-step kernel that its rule names for resets (planted
 faults: resets ignored, -1 source not zeroed, step mask ignored, W_hh dropped),
@@ -58,10 +61,11 @@ Then the README's gate-6 GP-LSTM (``l_gauss_pos`` 63: a GP unit in place of the
 GP cell's hidden projection, then a standard layer) on the same corpus: the
 gate-6 kernels (forward, backward) against their twins on the calls a step and
 an ``evaluate`` window hand them, with a random step mask and with a random b'
-(planted faults: b' zeroed, coef rows swapped, mask ignored, and three builds
-with ``-DGP6_FAULT``; the backward in its persistent design, its two-launch
-design beside it, as row 21's), one epoch of ``Trainer.fit`` (every backward
-call on the persistent design), a kernel-path step against the plain path, and
+(planted faults: b' zeroed, coef rows swapped, mask ignored, and four builds
+with ``-DGP6_FAULT``; the forward and the backward in their persistent
+designs, their per-step and two-launch designs beside them, as rows 20-21's),
+one epoch of ``Trainer.fit`` (every forward and backward call on the
+persistent designs), a kernel-path step against the plain path, and
 a packed-carry pass of the 6,000-hypothesis N-best from that checkpoint against
 the plain path; gate 7 (``73``): a kernel-path step (the single-layer training
 kernels on the hoisted GP input) against the plain
@@ -200,10 +204,12 @@ KERNEL_ROWS = (
     ("attn_train_fwd_kernel", "15"), ("attn_fwd_wgmma", "15"),
     ("attn_train_dq_kernel", "16"), ("attn_dq_wgmma", "16"),
     ("attn_train_dkv_kernel", "17"),
-    ("attn_dkv_wgmma", "17"), ("gp6_fwd_step", "18"),
+    ("attn_dkv_wgmma", "17"), ("gp6_fwd_persistent", "18"),
+    ("gp6_fwd_step", "18"),
     ("gp6_bwd_gates", "19"), ("gp6_bwd_dh", "19"), ("gp6_dcoef_sum", "19"),
     ("gp6_bwd_gemm", "19"), ("gp6_bwd_persistent", "19"),
-    ("gpg_fwd_step", "20"), ("gpg_bwd_gates", "21"), ("gpg_bwd_dh", "21"),
+    ("gpg_fwd_persistent", "20"), ("gpg_fwd_step", "20"),
+    ("gpg_bwd_gates", "21"), ("gpg_bwd_dh", "21"),
     ("gpg_dcoef_sum", "21"), ("gpg_bwd_gemm", "21"),
     ("gpg_bwd_persistent", "21"), ("lstm2_fwd_l1", "7"), ("lstm2_fwd_l2", "7"),
     ("lstm2_input_gemm", "7"),
@@ -2795,6 +2801,13 @@ GP_FAULTS = {
 }
 GP_TWO_LAUNCH_FAULTS = ("replaced gate's slice of du5 not zeroed",
                         "dcoef dropped")
+# The planted fault of rows 20 and 18 that only their persistent forwards
+# can get wrong, built from csrc/gp_lstm.cu and csrc/gp6_lstm.cu with a
+# define: every step's product reads h0 in place of ys[t-1]. Tried on the
+# calls from a carried state, where a zero h0 cannot hide it.
+H0_ALWAYS = "the product on h0 at every step"
+GP_FWD_FAULT = ("gp_lstm", ("-DGP_LSTM_FAULT=4",))
+GP6_FWD_FAULT = ("gp6_lstm", ("-DGP6_FAULT=4",))
 # GP scores (kernel path against plain path, from the fit's checkpoint):
 # the random-init tolerance plus the trained model's relative one.
 GP_SCORE_ATOL, GP_SCORE_RTOL = SCORE_ATOL, TRAINED_SCORE_RTOL
@@ -2953,7 +2966,8 @@ def per_step_design_check(torch, kernels, name, spec, calls, run, counts,
 def persistent_only(counts, before, row):
     """Raises unless the calls since ``before`` (calls by design) all took
     the persistent design."""
-    if counts["two_launch"] != before["two_launch"] or counts == before:
+    if any(counts[k] != before[k] for k in counts if k != "persistent") \
+            or counts == before:
         raise AssertionError(f"{row}'s checks took {counts} (before: "
                              f"{before}): the persistent design alone "
                              f"expected")
@@ -2966,8 +2980,8 @@ def gp_fit(torch, kernels, trainer, corpus, smi, kl_scale, tag, cell_rows,
     rows 5-6 (row 4 in ``evaluate``): the loss finite and falling, the KL
     term finite and > 0, every training kernel once a step, the cell's
     forward and row 4 once an ``evaluate`` window, row 4 and the cell's
-    backward on their persistent designs every time. Sets the launches of
-    the kernels ``counted``.
+    forward and backward on their persistent designs every time. Sets the
+    launches of the kernels ``counted``.
     Raises on any failed check."""
     from bayeslms_tpu_torch.ops import ce_train_cuda as ctc
     from bayeslms_tpu_torch.ops import gp_lstm_cuda as gpc
@@ -2984,6 +2998,7 @@ def gp_fit(torch, kernels, trainer, corpus, smi, kl_scale, tag, cell_rows,
             lc.layer_launches[k] = 0
         lc.layer_design_launches.update(persistent=0, per_step=0)
         gpc.design_launches[bwd].update(persistent=0, two_launch=0)
+        gpc.design_launches[fwd].update(persistent=0, per_step=0)
         steps, kls = [], []
         step = trainer.train_step
 
@@ -3032,7 +3047,12 @@ def gp_fit(torch, kernels, trainer, corpus, smi, kl_scale, tag, cell_rows,
         if lc.layer_design_launches != {"persistent": n_eval, "per_step": 0}:
             raise AssertionError(f"row 4 left its persistent design in "
                                  f"evaluate: {lc.layer_design_launches}")
-        print(f"  {bwd} by design: {gpc.design_launches[bwd]}")
+        print(f"  {fwd} by design: {gpc.design_launches[fwd]}; {bwd} by "
+              f"design: {gpc.design_launches[bwd]}")
+        if gpc.design_launches[fwd] != {"persistent": launches[fwd],
+                                        "per_step": 0}:
+            raise AssertionError(f"{fwd} left its persistent design in fit: "
+                                 f"{gpc.design_launches[fwd]}")
         if gpc.design_launches[bwd] != {"persistent": n, "two_launch": 0}:
             raise AssertionError(f"{bwd} left its persistent design in fit: "
                                  f"{gpc.design_launches[bwd]}")
@@ -3176,7 +3196,9 @@ def gpg_specs(torch, gpc):
             source="gp_lstm.cu",
             replaces="bayeslms_tpu/ops/gp_lstm_pallas.py:510",
             faults={"gpx dropped":
-                    lambda a: with_arg(a, 1, torch.zeros_like(a[1]))},
+                    lambda a: with_arg(a, 1, torch.zeros_like(a[1])),
+                    H0_ALWAYS: {"build": GP_FWD_FAULT,
+                                "when": lambda a: bool(a[6].any())}},
             flops=lambda a: fwd_cost(a)[0], nbytes=lambda a: fwd_cost(a)[1],
             library=none),
         "gpg_bwd": dict(
@@ -3298,9 +3320,17 @@ def gp_phases(torch, kernels, smi, cfg, rcfg, corpus, tmpdir):
     specs = gpg_specs(torch, gpc)
     fwd_step, bwd_step = step_calls["gpg_fwd"][0], step_calls["gpg_bwd"][0]
     short_fwd, short_bwd = gp_gate_calls(torch, gpc, fwd_step, bwd_step)
-    check_kernel_calls(torch, kernels, "gpg_fwd", specs["gpg_fwd"], [
-        ("gate 1, one step", fwd_step),
-        ("gate 1, one evaluate window", recorded["gpg_fwd"][0]), *short_fwd])
+    fwd_calls = [("gate 1, one step", fwd_step),
+                 ("gate 1, one evaluate window", recorded["gpg_fwd"][0]),
+                 *short_fwd]
+    before = dict(gpc.design_launches["gpg_fwd"])
+    check_kernel_calls(torch, kernels, "gpg_fwd", specs["gpg_fwd"],
+                       fwd_calls)
+    persistent_only(gpc.design_launches["gpg_fwd"], before, "row 20")
+    per_step_design_check(
+        torch, kernels, "gpg_fwd", specs["gpg_fwd"], fwd_calls,
+        lambda *a: gpc._gpg_fwd("per_step", *a),
+        gpc.design_launches["gpg_fwd"], "gpx dropped")
     bwd_calls = [("gate 1, one step", bwd_step), *short_bwd]
     before = dict(gpc.design_launches["gpg_bwd"])
     check_kernel_calls(torch, kernels, "gpg_bwd", specs["gpg_bwd"], bwd_calls)
@@ -3333,6 +3363,7 @@ def gp_phases(torch, kernels, smi, cfg, rcfg, corpus, tmpdir):
         lambda *a: lc._lstm_fwd("per_step", *a), lc.layer_design_launches,
         "W_hh product dropped")
     del step_calls, recorded, short_fwd, short_bwd, row4_calls, bwd_calls
+    del fwd_calls
 
     gp_fit(torch, kernels, trainer, corpus, smi, kl_scale, "gp",
            ("gpg_fwd", "gpg_bwd"), ("gpg_fwd", "gpg_bwd", "lstm_fwd"))
@@ -3474,7 +3505,10 @@ def gp6_specs(torch, gpc):
         "gp6_fwd": dict(
             module=gpc, plain=gpc.gp6_fwd_plain, outs=("ys", "cs", "hT", "cT"),
             source="gp6_lstm.cu",
-            replaces="bayeslms_tpu/ops/gp_lstm_pallas.py:192", faults=faults,
+            replaces="bayeslms_tpu/ops/gp_lstm_pallas.py:192",
+            faults={**faults, H0_ALWAYS: {"build": GP6_FWD_FAULT,
+                                          "when": lambda a: bool(
+                                              a[5].any())}},
             flops=lambda a: fwd_cost(a)[0], nbytes=lambda a: fwd_cost(a)[1],
             library=none),
         "gp6_bwd": dict(
@@ -3582,9 +3616,16 @@ def gp6_phases(torch, kernels, smi, cfg, rcfg, corpus, tmpdir):
     specs = gp6_specs(torch, gpc)
     fwd_step, bwd_step = step_calls["gp6_fwd"][0], step_calls["gp6_bwd"][0]
     var_fwd, var_bwd = gp6_variant_calls(torch, gpc, fwd_step, bwd_step)
-    check_kernel_calls(torch, kernels, "gp6_fwd", specs["gp6_fwd"], [
-        ("one step", fwd_step),
-        ("one evaluate window", recorded["gp6_fwd"][0]), *var_fwd])
+    fwd_calls = [("one step", fwd_step),
+                 ("one evaluate window", recorded["gp6_fwd"][0]), *var_fwd]
+    before = dict(gpc.design_launches["gp6_fwd"])
+    check_kernel_calls(torch, kernels, "gp6_fwd", specs["gp6_fwd"],
+                       fwd_calls)
+    persistent_only(gpc.design_launches["gp6_fwd"], before, "row 18")
+    per_step_design_check(
+        torch, kernels, "gp6_fwd", specs["gp6_fwd"], fwd_calls,
+        lambda *a: gpc._gp6_fwd("per_step", *a),
+        gpc.design_launches["gp6_fwd"], "coef rows 0 and 1 swapped")
     bwd_calls = [("one step", bwd_step), *var_bwd]
     before = dict(gpc.design_launches["gp6_bwd"])
     check_kernel_calls(torch, kernels, "gp6_bwd", specs["gp6_bwd"], bwd_calls)
@@ -3594,7 +3635,7 @@ def gp6_phases(torch, kernels, smi, cfg, rcfg, corpus, tmpdir):
         lambda *a: gpc._gp6_bwd("two_launch", *a),
         gpc.design_launches["gp6_bwd"], GP6_TWO_LAUNCH_FAULTS,
         design="two_launch")
-    del step_calls, recorded, var_fwd, var_bwd, bwd_calls
+    del step_calls, recorded, var_fwd, var_bwd, bwd_calls, fwd_calls
 
     gp_fit(torch, kernels, trainer, corpus, smi, kl_scale, "gp6", rows6,
            rows6)
@@ -4514,6 +4555,7 @@ def main():
                                         *ATTN_TRAIN_FAULTS.values(),
                                         *GP_FAULTS.values(),
                                         *GP6_FAULTS.values(),
+                                        GP_FWD_FAULT, GP6_FWD_FAULT,
                                         *LSTM2_BUILDS]).items():
             print(f"  {name}: {path}")
         print(f"  build seconds {time.perf_counter() - t0:.1f}")

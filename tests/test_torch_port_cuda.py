@@ -765,7 +765,8 @@ def test_lstm_fwd_kernel_matches_plain(dev, masked, reset):
         torch.testing.assert_close(a.float(), b.float(), rtol=0, atol=2 ** -6)
 
 
-def _gpg_args(dev, T, B, H, gate, masked, seed=0):
+def _gpg_args(dev, T, B, H, gate, masked, seed=0, sw=0.125):
+    """Rows 20-21's arguments, W5 uniform in +-sw."""
     g = torch.Generator().manual_seed(seed)
     r = lambda *s, sc=1.0: ((torch.rand(s, generator=g) * 2 - 1) * sc)  # noqa: E731
     bf = torch.bfloat16
@@ -774,7 +775,7 @@ def _gpg_args(dev, T, B, H, gate, masked, seed=0):
     if masked:
         mask = (torch.rand((T, B), generator=g) < 0.8).to(dev, torch.uint8)
     return [r(T, B, 4 * H).to(dev, bf), r(T, B, H).to(dev, bf),
-            r(5 * H, H, sc=0.125).to(dev, bf), r(4 * H, sc=0.1).to(dev),
+            r(5 * H, H, sc=sw).to(dev, bf), r(4 * H, sc=0.1).to(dev),
             torch.rand((k, H), generator=g).to(dev), mask,
             r(B, H, sc=0.5).to(dev, bf), r(B, H, sc=0.5).to(dev, bf)]
 
@@ -829,14 +830,15 @@ def test_new_wrappers_refuse_what_the_kernels_do_not_take(dev):
                     xg[0, :, :48])
 
 
-def _gp6_args(dev, T, B, H, masked, seed=0):
+def _gp6_args(dev, T, B, H, masked, seed=0, sw=0.125):
+    """Rows 18-19's arguments, W' uniform in +-sw."""
     g = torch.Generator().manual_seed(seed)
     r = lambda *s, sc=1.0: ((torch.rand(s, generator=g) * 2 - 1) * sc)  # noqa: E731
     bf = torch.bfloat16
     mask = None
     if masked:
         mask = (torch.rand((T, B), generator=g) < 0.8).to(dev, torch.uint8)
-    return [r(T, B, 4 * H).to(dev, bf), r(4 * H, H, sc=0.125).to(dev, bf),
+    return [r(T, B, 4 * H).to(dev, bf), r(4 * H, H, sc=sw).to(dev, bf),
             r(4 * H, sc=0.5).to(dev, bf), r(3, 4 * H).to(dev), mask,
             r(B, H, sc=0.5).to(dev, bf), r(B, H, sc=0.5).to(dev, bf)]
 
@@ -947,6 +949,122 @@ def test_gp6_lstm_bwd_persistent_matches_plain(dev, T, B, H, masked):
                     two(args[4], 1), two(args[5], 0), two(args[6], 0),
                     two(ys, 1), two(cs, 1), two(dy, 1), two(dhT, 0),
                     two(dhT, 0))
+
+
+# Rows 20 and 18's forward designs: the persistent one (csrc/lstm_persist.cuh's
+# step with the row's cell) where the rule takes it, at the training width
+# and batch, an ``evaluate`` window's batch, a narrow width and T = 1, from
+# a carried state (h0, c0 uniform in +-0.5), the recurrent weight at an
+# LSTM's initial scale 1 / sqrt(H) (row 4's card test's); the per-step one
+# on the same calls; a batch past 32 columns refused. Tolerance:
+# chip_smoke.py's for these kernels (GP_TOL: rtol 2^-6, 2^-12 of the
+# largest entry).
+GP_FWD_SHAPES = [(9, 20, 64), (6, 32, 1024), (1, 20, 1024)]
+
+
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("gate", [1, 2, 3, 4])
+@pytest.mark.parametrize("T,B,H", GP_FWD_SHAPES)
+def test_gp_lstm_fwd_designs_match_plain(dev, T, B, H, gate, masked):
+    from bayeslms_tpu_torch.ops import gp_lstm_cuda as gc
+
+    assert gc._card_design(dev, B, H, T, 20)["design"] == "persistent"
+    args = _gpg_args(dev, T, B, H, gate, masked, seed=gate + 20,
+                     sw=H ** -0.5)
+    ref = gc.gpg_fwd_plain(*args, gate)
+    for design in ("persistent", "per_step"):
+        before = dict(gc.design_launches["gpg_fwd"])
+        got = gc.gpg_fwd(*args, gate) if design == "persistent" \
+            else gc._gpg_fwd(design, *args, gate)
+        torch.cuda.synchronize()
+        assert gc.design_launches["gpg_fwd"] == {
+            **before, design: before[design] + 1}
+        for a, b in zip(got, ref):
+            assert a.dtype == torch.bfloat16 and a.shape == b.shape
+            _within(a, b, 2 ** -6, 2 ** -12)
+        again = gc._gpg_fwd(design, *args, gate)
+        assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("T,B,H", GP_FWD_SHAPES)
+def test_gp6_lstm_fwd_designs_match_plain(dev, T, B, H, masked):
+    from bayeslms_tpu_torch.ops import gp_lstm_cuda as gc
+
+    assert gc._card_design(dev, B, H, T, 18)["design"] == "persistent"
+    args = _gp6_args(dev, T, B, H, masked, seed=30 + masked, sw=H ** -0.5)
+    ref = gc.gp6_fwd_plain(*args)
+    for design in ("persistent", "per_step"):
+        before = dict(gc.design_launches["gp6_fwd"])
+        got = gc.gp6_fwd(*args) if design == "persistent" \
+            else gc._gp6_fwd(design, *args)
+        torch.cuda.synchronize()
+        assert gc.design_launches["gp6_fwd"] == {
+            **before, design: before[design] + 1}
+        for a, b in zip(got, ref):
+            assert a.dtype == torch.bfloat16 and a.shape == b.shape
+            _within(a, b, 2 ** -6, 2 ** -12)
+        again = gc._gp6_fwd(design, *args)
+        assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+# The same at W uniform in +-0.125, 4x that scale at H = 1,024, as trained
+# weights may grow (the per-step card test's weights above): saturated
+# gates carry a product's other summation order into later steps, and a
+# few elements of both designs pass chip_smoke.py's 2^-12 of the largest
+# entry (on the card, gates 1-4 and 6: the persistent design 0.47-4.87 of
+# it, the per-step one 1.05-6.75; PERF.md, Open questions). Which design
+# lies closer to the twin changes from gate to gate; over the gates, the
+# persistent design's worst share of that tolerance is no larger than the
+# per-step design's.
+def test_gp_fwd_persistent_no_worse_at_large_weights(dev):
+    from bayeslms_tpu_torch.ops import gp_lstm_cuda as gc
+
+    T, B, H = 6, 32, 1024
+    worst = {"persistent": 0.0, "per_step": 0.0}
+    for gate in (1, 2, 3, 4, 6):
+        if gate == 6:
+            args, plain, force = (_gp6_args(dev, T, B, H, True, seed=30),
+                                  gc.gp6_fwd_plain, gc._gp6_fwd)
+        else:
+            args = [*_gpg_args(dev, T, B, H, gate, True, seed=gate + 20),
+                    gate]
+            plain, force = gc.gpg_fwd_plain, gc._gpg_fwd
+        ref = plain(*args)
+        for design in worst:
+            shares = _shares(force(design, *args), ref, 2 ** -6, 2 ** -12)
+            print(f"gate {gate}, {design}: shares of chip_smoke.py's "
+                  f"tolerance " + ", ".join(f"{n} {q:.3f}" for n, q in zip(
+                      ("ys", "cs", "hT", "cT"), shares)))
+            worst[design] = max(worst[design], *shares)
+    print(f"worst over the gates: {worst}")
+    assert worst["persistent"] <= worst["per_step"]
+
+
+def test_gp_fwd_rules_refuse_the_persistent_design_past_32_columns(dev):
+    """At B = 40 both forwards' rules take the per-step design, the
+    wrappers take it, and a forced persistent design raises; so does a
+    design neither row has."""
+    from bayeslms_tpu_torch.ops import gp_lstm_cuda as gc
+
+    T, B, H = 5, 40, 64
+    args = _gpg_args(dev, T, B, H, 1, True, seed=4)
+    args6 = _gp6_args(dev, T, B, H, True, seed=4)
+    for row in (18, 20):
+        assert gc._card_design(dev, B, H, T, row)["design"] == "per_step"
+    before = {k: dict(gc.design_launches[k]) for k in ("gpg_fwd", "gp6_fwd")}
+    gc.gpg_fwd(*args, 1)
+    gc.gp6_fwd(*args6)
+    torch.cuda.synchronize()
+    for k in ("gpg_fwd", "gp6_fwd"):
+        assert gc.design_launches[k] == {
+            **before[k], "per_step": before[k]["per_step"] + 1}
+    with pytest.raises(ValueError):
+        gc._gpg_fwd("persistent", *args, 1)
+    with pytest.raises(ValueError):
+        gc._gp6_fwd("persistent", *args6)
+    with pytest.raises(ValueError):
+        gc._gpg_fwd("two_launch", *args, 1)
 
 
 def _lstm2_train_args(dev, T, B, H, masked, dropped, sw=None):

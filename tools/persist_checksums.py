@@ -1,16 +1,22 @@
 #!/usr/bin/env python3
-"""Checksums of the outputs of kernel rows 7 and 8 (the fused 2-layer LSTM
-training forward and backward, ``ops/lstm2_train_cuda.py``) in the designs
-their rule picks, on one card, from fixed seeds at a training step's call
-(T 100, B 32, H 1,024, a step mask and a dropout mask of rate 0.2).
+"""Checksums of the outputs of kernel rows 4, 5, 7 and 8 in the designs
+their rules pick, on one card, from fixed seeds: rows 7 and 8 (the fused
+2-layer LSTM training forward and backward, ``ops/lstm2_train_cuda.py``)
+at a training step's call (T 100, B 32, H 1,024, a step mask and a
+dropout mask of rate 0.2), row 5 (``ops/lstm_train_cuda.py``
+``lstm_train_fwd``) at the same call's layer 1, and row 4
+(``ops/lstm_cuda.py`` ``lstm_fwd``) at an ``evaluate`` window's (T 100,
+B 20, H 1,024, the fp32 state, no mask).
 
     python3 tools/persist_checksums.py [--root CHECKOUT]
 
 Needs a CUDA card and nvcc. For each output it prints its float64 sum and
 the SHA-256 of its bytes: a change that only moves the kernels' code (rows
-7-8's GEMM into csrc/gates_gemm.cuh, say) must leave every line as it was.
-``--root`` runs another checkout's kernels (a parent unpacked by ``git
-archive``; only its ``bayeslms_tpu_torch/`` is needed) on the same inputs.
+7-8's GEMM into csrc/gates_gemm.cuh, say, or the persistent forward's step
+of rows 4, 5 and 7 made generic over its cell) must leave every line as it
+was. ``--root`` runs another checkout's kernels (a parent unpacked by
+``git archive``; only its ``bayeslms_tpu_torch/`` is needed) on the same
+inputs.
 """
 
 import argparse
@@ -37,6 +43,8 @@ def main():
     import torch
 
     from bayeslms_tpu_torch.ops import lstm2_train_cuda as l2c
+    from bayeslms_tpu_torch.ops import lstm_cuda as lc
+    from bayeslms_tpu_torch.ops import lstm_train_cuda as ltc
 
     if not torch.cuda.is_available():
         raise SystemExit("persist_checksums: no CUDA device")
@@ -60,13 +68,24 @@ def main():
                 *(r(B, H, sc=0.5).to(bf) for _ in range(4))]
     grads = [r(T, B, H).to(bf), r(T, B, H).to(bf),
              *(r(B, H, sc=0.5).to(bf) for _ in range(4))]
+    # row 4 at an evaluate window: B 20, the fp32 state, no mask
+    Be = 20
+    eval_args = [r(T, Be, 4 * H).to(bf), r(4 * H, H, sc=sw).to(bf),
+                 r(4 * H, sc=0.1), r(Be, H, sc=0.5), r(Be, H, sc=0.5)]
     with torch.no_grad():
         fwd = l2c.lstm2_train_fwd(*fwd_args)
         bwd = l2c.lstm2_train_bwd(*fwd_args, *fwd[:4], *grads)
+        row5 = ltc.lstm_train_fwd(fwd_args[0], fwd_args[2], fwd_args[3],
+                                  mask, fwd_args[8], fwd_args[9])
+        row4 = lc.lstm_fwd(*eval_args)
         torch.cuda.synchronize()
-    print(f"designs: row 7 {dict(l2c.fwd_design_launches)}, row 8 "
+    print(f"designs: row 4 {dict(lc.layer_design_launches)}, row 5 "
+          f"{dict(ltc.fwd_design_launches)}, row 7 "
+          f"{dict(l2c.fwd_design_launches)}, row 8 "
           f"{dict(l2c.design_launches)}")
     for row, names, outs in (
+            (4, ("ys", "hT", "cT"), row4),
+            (5, ("ys", "cs", "hT", "cT"), row5),
             (7, ("ys1", "cs1", "ys2", "cs2", "hT1", "cT1", "hT2", "cT2"), fwd),
             (8, ("du1", "du2", "dh01", "dc01", "dh02", "dc02"), bwd)):
         for name, t in zip(names, outs):
