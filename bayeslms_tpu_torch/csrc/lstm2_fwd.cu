@@ -62,6 +62,9 @@
 //     grid barrier (csrc/grid_barrier.cuh).
 //   - The launch is cooperative: a grid the card cannot hold at once is
 //     refused, and the wrapper raises.
+//   - The producer's ring, the wgmma products, the cells and the grid
+//     barrier are csrc/lstm_stream.cuh's, which row 3's streamed design
+//     (csrc/lstm_fwd.cu) takes too.
 //   - Cost, measured by chip_smoke.py on an NVIDIA H100 80GB HBM3 at 700.00
 //     W (PERF.md, row 1): 22.2 ms at the scoring call (the per-step design
 //     105.0 ms in the same run; 25.4 and 105.5 in another), 1.69 ms at an
@@ -88,27 +91,20 @@
 // its tiles synchronously, 2T launches a call: 105.4 ms at the scoring
 // shapes on an NVIDIA H100 80GB HBM3 at 700.00 W (PERF.md).
 
-#include "grid_barrier.cuh"
-#include "lstm_step.cuh"
-#include "sm90.cuh"
+#include "lstm_stream.cuh"
 
 namespace {
 
 constexpr int Q_UNITS = 8;            // hidden units a CTA owns, both layers
-constexpr int Q_KC = 64;              // k columns of a chunk (128 bytes)
-constexpr int Q_MT = 64;              // batch rows of an m tile
 constexpr int Q_NA = 64;              // rows of h1's B: W_hh1's, W_ih2's
 constexpr int Q_NB = 32;              // rows of h2's B: W_hh2's
 constexpr int Q_PC = Q_NA + Q_NB;     // fp32 product columns of a batch row
-constexpr int Q_STAGE = Q_MT * Q_KC * 2;  // 8 KB, one A tile
-constexpr int Q_THREADS = 288;  // two consumer warpgroups, a producer warp
-constexpr int Q_PRODUCER = 8;   // the producer's warp
 
 // Dynamic shared memory at width H with nst ring stages: 1 KB of
 // alignment, the resident rows (12 KB a 64-column chunk), the ring, the
 // biases of the CTA's 64 gate rows, the barriers.
 int q_smem(int H, int nst) {
-  return 1024 + (H / Q_KC) * (Q_NA + Q_NB) * Q_KC * 2 + nst * Q_STAGE +
+  return 1024 + (H / S_KC) * (Q_NA + Q_NB) * S_KC * 2 + nst * S_STAGE +
          2 * 32 * 4 + 2 * nst * 8;
 }
 
@@ -136,62 +132,10 @@ struct QParams {
   int T, B, H, nst;
 };
 
-__device__ __forceinline__ float bf(uint32_t w, int hi) {
-  return __uint_as_float(hi ? (w & 0xffff0000u) : (w << 16));
-}
-
 // The source column of b at a step: its reset source where the step resets
 // it (-1: a zero state), else b.
 __device__ __forceinline__ int q_src(const QParams& p, int step, int b) {
-  return (p.reset != nullptr && p.reset[(size_t)step * p.B + b]) ? p.rsrc[b]
-                                                                 : b;
-}
-
-// 8 consecutive floats at p, or zeros where `on` is false
-__device__ __forceinline__ void load8(float* v, const float* p, bool on) {
-  float4 a = make_float4(0.f, 0.f, 0.f, 0.f), b = a;
-  if (on) {
-    a = *reinterpret_cast<const float4*>(p);
-    b = *reinterpret_cast<const float4*>(p + 4);
-  }
-  v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
-  v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
-}
-
-__device__ __forceinline__ void store8(float* p, const float* v) {
-  *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
-  *reinterpret_cast<float4*>(p + 4) = make_float4(v[4], v[5], v[6], v[7]);
-}
-
-// One LSTM cell from its gate pre-activations [i, f, g, o] (bias added);
-// hp, cp the previous state in, the new one out (kept where !keep)
-__device__ __forceinline__ void q_cell(const float* g, float& hp, float& cp,
-                                       bool keep) {
-  const float cn = sigmoidf(g[1]) * cp + sigmoidf(g[0]) * tanhf(g[2]);
-  const float hn = sigmoidf(g[3]) * tanhf(cn);
-  if (keep) {
-    hp = hn;
-    cp = cn;
-  }
-}
-
-// One layer's cells of a batch column for the CTA's 8 units at one step:
-// pre[q 8 + u] the gates' pre-activations without the bias; hp, cp the
-// gathered previous state (in: read, out: the new state); keep the mask.
-// Writes the new state's bf16 h to out (8 values).
-__device__ __forceinline__ void q_cells(const float* pre, const float* bias,
-                                        float* hp, float* cp, bool keep,
-                                        bf16* out) {
-  uint32_t w[4];
-#pragma unroll
-  for (int u = 0; u < 8; ++u) {
-    float g[4];
-#pragma unroll
-    for (int q = 0; q < 4; ++q) g[q] = pre[q * 8 + u] + bias[q * 8 + u];
-    q_cell(g, hp[u], cp[u], keep);
-    if (u & 1) w[u >> 1] = pack_bf16(hp[u - 1], hp[u]);
-  }
-  *reinterpret_cast<uint4*>(out) = make_uint4(w[0], w[1], w[2], w[3]);
+  return s_src(p.reset, p.rsrc, p.B, step, b);
 }
 
 // What a consumer thread's cells of one batch row need besides the
@@ -269,7 +213,7 @@ __device__ __forceinline__ void q_cell_outputs(const QParams& p,
 #pragma unroll
         for (int q = 0; q < 4; ++q)
           g[q] = (bf(in.x[q], k) + pa[4 * q + k]) + bias[8 * q + k];
-        q_cell(g, hs[k], cs[k], in.keep1);
+        s_cell(g, hs[k], cs[k], in.keep1);
       }
       const size_t cur = (size_t)(t & 1) * BH;
       *reinterpret_cast<float2*>(p.h1 + cur + e) = make_float2(hs[0], hs[1]);
@@ -297,7 +241,7 @@ __device__ __forceinline__ void q_cell_outputs(const QParams& p,
 #pragma unroll
         for (int q = 0; q < 4; ++q)
           g[q] = (pa[16 + 4 * q + k] + pb[4 * q + k]) + bias[32 + 8 * q + k];
-        q_cell(g, hs[k], cs[k], in.keep2);
+        s_cell(g, hs[k], cs[k], in.keep2);
       }
       const size_t cur = (size_t)((t + 1) & 1) * BH;
       *reinterpret_cast<float2*>(p.h2 + cur + e) = make_float2(hs[0], hs[1]);
@@ -308,69 +252,16 @@ __device__ __forceinline__ void q_cell_outputs(const QParams& p,
   }
 }
 
-// The consumer warpgroup's product of one m tile with one resident operand:
-// acc (64 x N) = A (64 x H, nk chunks streamed through the ring) W^T, W the
-// N resident rows at w. Releases each stage to the producer once its
-// products are done.
-//   The two consumer warpgroups take alternate m tiles from one ring. A
-// stage's full barrier tells its tiles apart only by the parity of their
-// round, so a warpgroup may wait for tile g only once the tiles of the
-// round before have landed (TMA may complete them out of order): the
-// warpgroup before it in the ring arrives at named barrier `relay` once it
-// has seen its last tile, chunk `relay_at`, land (-1: none).
-template <int N>
-__device__ __forceinline__ void q_product(float* acc, uint32_t ring,
-                                          uint32_t w, int nk, uint32_t bars,
-                                          int nst, bool leader, uint32_t g,
-                                          int relay_at, int relay) {
-  // the ring's stage and phase of tile g, the g-th since the launch
-  int st = g % nst;
-  uint32_t ph = (g / nst) & 1;
-  auto release = [&](int s) {
-    if (leader) mbar_arrive(bars + 8 * (nst + s));
-  };
-  int prev = -1;
-  fence_regs<N / 2>(acc);
-  for (int c = 0; c < nk; ++c) {
-    mbar_wait(bars + 8 * st, ph);
-    if (c == relay_at)
-      asm volatile("bar.arrive %0, 256;" :: "r"(relay) : "memory");
-    const uint32_t a = ring + st * Q_STAGE;
-    const uint32_t b = w + c * N * 128;
-    wgmma_fence();
-#pragma unroll
-    for (int k = 0; k < Q_KC / 16; ++k) {
-      if (N == 64)
-        wgmma_n64(acc, desc_k(a + 32 * k), desc_k(b + 32 * k), (c | k) > 0);
-      else
-        wgmma_n32(acc, desc_k(a + 32 * k), desc_k(b + 32 * k), (c | k) > 0);
-    }
-    wgmma_commit();
-    if (prev >= 0) {
-      wgmma_wait<1>();
-      release(prev);
-    }
-    prev = st;
-    if (++st == nst) {
-      st = 0;
-      ph ^= 1;
-    }
-  }
-  wgmma_wait<0>();
-  fence_regs<N / 2>(acc);
-  release(prev);
-}
-
-__global__ void __launch_bounds__(Q_THREADS, 1)
+__global__ void __launch_bounds__(S_THREADS, 1)
 lstm2_persistent(const __grid_constant__ QParams p) {
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem =
       smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
   const int H = p.H, B = p.B, T = p.T, nst = p.nst;
-  const int nk = H / Q_KC, mt = (B + Q_MT - 1) / Q_MT;
-  const int wa_bytes = nk * Q_NA * Q_KC * 2, wb_bytes = nk * Q_NB * Q_KC * 2;
+  const int nk = H / S_KC, mt = (B + S_MT - 1) / S_MT;
+  const int wa_bytes = nk * Q_NA * S_KC * 2, wb_bytes = nk * Q_NB * S_KC * 2;
   float* bias = reinterpret_cast<float*>(smem + wa_bytes + wb_bytes +
-                                         nst * Q_STAGE);
+                                         nst * S_STAGE);
   const uint32_t wa = smem_u32(smem), wb = wa + wa_bytes;
   const uint32_t ring = wb + wb_bytes;
   const uint32_t bars = smem_u32(bias + 64);  // full[s], then empty[s]
@@ -380,28 +271,22 @@ lstm2_persistent(const __grid_constant__ QParams p) {
   // the resident rows: row n < 64 of A's operand is W_hh1's (n < 32) or
   // W_ih2's gate row (n % 32 / 8) H + j0 + n % 8, row n of B's W_hh2's;
   // K-major, 64-column chunks of N rows x 128 bytes in the swizzle
-  for (int i = tid; i < (Q_NA + Q_NB) * (H / 8); i += Q_THREADS) {
+  for (int i = tid; i < (Q_NA + Q_NB) * (H / 8); i += S_THREADS) {
     const int n = i / (H / 8), k = (i % (H / 8)) * 8;
     const bf16* w = n < 32 ? p.whh1 : n < 64 ? p.wih2 : p.whh2;
     const int m = n & 31;
     const uint4 v = *reinterpret_cast<const uint4*>(
         w + (size_t)((m >> 3) * H + j0 + (m & 7)) * H + k);
-    const int off = n < 64 ? (k / Q_KC) * Q_NA * 128 + swizzled(n, k % Q_KC)
-                           : wa_bytes + (k / Q_KC) * Q_NB * 128 +
-                                 swizzled(n - 64, k % Q_KC);
+    const int off = n < 64 ? (k / S_KC) * Q_NA * 128 + swizzled(n, k % S_KC)
+                           : wa_bytes + (k / S_KC) * Q_NB * 128 +
+                                 swizzled(n - 64, k % S_KC);
     *reinterpret_cast<uint4*>(smem + off) = v;
   }
   if (tid < 64) {
     const int m = tid & 31;
     bias[tid] = (tid < 32 ? p.bhh1 : p.b2)[(m >> 3) * H + j0 + (m & 7)];
   }
-  if (tid == 0) {
-    for (int s = 0; s < nst; ++s) {
-      mbar_init(bars + 8 * s, 1);
-      mbar_init(bars + 8 * (nst + s), 1);
-    }
-    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
-  }
+  if (tid == 0) s_init_ring(bars, nst);
   // the rows were stored by the generic proxy; wgmma reads them through
   // the async one
   asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
@@ -414,7 +299,7 @@ lstm2_persistent(const __grid_constant__ QParams p) {
   for (int t = 0; t <= T; ++t) {
     const bool l1 = t < T, l2 = t >= 1;  // layer 1 at t, layer 2 at t - 1
     const int per_m = nk * (l2 ? 2 : 1);  // tiles of an m tile
-    if (warp == Q_PRODUCER) {
+    if (warp == S_PRODUCER) {
       if (lane == 0) {
         // this phase's tiles in order: per m tile, h1 of step t - 1 (slot
         // (t + 1) & 1), then h2 of step t - 2 (ys slot t - 1)
@@ -423,17 +308,9 @@ lstm2_persistent(const __grid_constant__ QParams p) {
         uint32_t ph = (g0 / nst) & 1;
         for (int m = 0; m < mt; ++m)
           for (int op = 0; op < (l2 ? 2 : 1); ++op)
-            for (int c = 0; c < nk; ++c) {
-              mbar_wait(bars + 8 * (nst + st), ph ^ 1);
-              mbar_expect(bars + 8 * st, Q_STAGE);
-              tma_load_3d(ring + st * Q_STAGE, op ? &p.ymap : &p.r1map,
-                          c * Q_KC, m * Q_MT, op ? t - 1 : (t + 1) & 1,
-                          bars + 8 * st);
-              if (++st == nst) {
-                st = 0;
-                ph ^= 1;
-              }
-            }
+            for (int c = 0; c < nk; ++c)
+              s_load_tile(ring, bars, nst, st, ph, op ? &p.ymap : &p.r1map,
+                          c, m, op ? t - 1 : (t + 1) & 1);
       }
       __syncwarp();
     } else {
@@ -452,19 +329,19 @@ lstm2_persistent(const __grid_constant__ QParams p) {
         QCell in[2];
 #pragma unroll
         for (int h = 0; h < 2; ++h)
-          q_cell_inputs(p, in[h], t, m * Q_MT + rbase + 8 * h, j0 + u0);
+          q_cell_inputs(p, in[h], t, m * S_MT + rbase + 8 * h, j0 + u0);
         float pa[32], pb[16];
         const uint32_t g = g0 + m * per_m;
         const int at = m + 1 < mt ? per_m - 1 : -1;
         if (m >= 1) named_sync(1 + wg, 256);
-        q_product<Q_NA>(pa, ring, wa, nk, bars, nst, leader, g,
+        s_product<Q_NA>(pa, ring, wa, nk, bars, nst, leader, g,
                             at < nk ? at : -1, 2 - wg);
         if (l2)
-          q_product<Q_NB>(pb, ring, wb, nk, bars, nst, leader, g + nk,
+          s_product<Q_NB>(pb, ring, wb, nk, bars, nst, leader, g + nk,
                               at >= nk ? at - nk : -1, 2 - wg);
 #pragma unroll
         for (int h = 0; h < 2; ++h)
-          q_cell_outputs(p, in[h], t, m * Q_MT + rbase + 8 * h, j0 + u0,
+          q_cell_outputs(p, in[h], t, m * S_MT + rbase + 8 * h, j0 + u0,
                          pa + 2 * h, pb + 2 * h, bias + u0, prod);
       }
     }
@@ -474,7 +351,7 @@ lstm2_persistent(const __grid_constant__ QParams p) {
     // the cells whose source is another column (a reset; -1: a zero state),
     // a batch column a thread, from the product rows the owners stored:
     // layer 1 at step t, layer 2 at step t - 1
-    for (int b = tid; b < B; b += Q_THREADS) {
+    for (int b = tid; b < B; b += S_THREADS) {
       if (l1) {
         const int s = q_src(p, t, b);
         if (s != b) {
@@ -496,7 +373,8 @@ lstm2_persistent(const __grid_constant__ QParams p) {
             for (int u = 0; u < 8; ++u)
               pre[q * 8 + u] = bf(xw[u >> 1], u & 1) + pre[q * 8 + u];
           }
-          q_cells(pre, bias, hp, cp, keep, p.r1 + cur + (size_t)b * H + j0);
+          s_cells<Q_UNITS>(pre, bias, hp, cp, keep,
+                           p.r1 + cur + (size_t)b * H + j0);
           store8(p.h1 + cur + (size_t)b * H + j0, hp);
           store8(p.c1 + cur + (size_t)b * H + j0, cp);
         }
@@ -519,7 +397,7 @@ lstm2_persistent(const __grid_constant__ QParams p) {
           load8(cp, p.c2 + prev + (size_t)s * H + j0, s >= 0);
 #pragma unroll
           for (int i = 0; i < 32; ++i) pre[i] += rec[i];
-          q_cells(pre, bias + 32, hp, cp, keep,
+          s_cells<Q_UNITS>(pre, bias + 32, hp, cp, keep,
                   p.y + (size_t)t * BH + (size_t)b * H + j0);
           store8(p.h2 + cur + (size_t)b * H + j0, hp);
           store8(p.c2 + cur + (size_t)b * H + j0, cp);
@@ -535,24 +413,8 @@ lstm2_persistent(const __grid_constant__ QParams p) {
   }
 }
 
-// (slots, B, H) bf16 states as a 3-D map (H, B, slots) in boxes of 64
-// columns x 64 batch rows of one slot, 128-byte swizzle, zeros past B
-int encode_states(EncodeTiled enc, CUtensorMap* map, const void* ptr,
-                  int slots, int B, int H) {
-  const cuuint64_t dims[3] = {(cuuint64_t)H, (cuuint64_t)B,
-                              (cuuint64_t)slots};
-  const cuuint64_t strides[2] = {(cuuint64_t)H * 2, (cuuint64_t)B * H * 2};
-  const cuuint32_t box[3] = {(cuuint32_t)Q_KC, (cuuint32_t)Q_MT, 1};
-  const cuuint32_t step[3] = {1, 1, 1};
-  return (int)enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
-                  const_cast<void*>(ptr), dims, strides, box, step,
-                  CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-                  CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                  CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-}
-
 bool q_valid(int B, int H, int nst) {
-  return B > 0 && H > 0 && H % Q_KC == 0 && nst >= 2;
+  return B > 0 && H > 0 && H % S_KC == 0 && nst >= 2;
 }
 
 }  // namespace
@@ -654,7 +516,7 @@ extern "C" int lstm2_fwd_persistent(
   void* args[] = {&prm};
   err = cudaLaunchCooperativeKernel(
       reinterpret_cast<const void*>(lstm2_persistent), dim3(H / Q_UNITS),
-      dim3(Q_THREADS), args, (size_t)smem, static_cast<cudaStream_t>(stream));
+      dim3(S_THREADS), args, (size_t)smem, static_cast<cudaStream_t>(stream));
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }

@@ -116,6 +116,39 @@ _TORCH_NAMES = {"w_ih": "weight_ih", "w_hh": "weight_hh", "b_ih": "bias_ih",
                 "b_hh": "bias_hh"}
 
 
+def _draw_diffs(lgstds, generator, noise) -> list:
+    """exp(lgstd) * eps for every tensor of ``lgstds``, in order. ``noise``
+    injects every eps instead, one per tensor. Otherwise the 2-D slices
+    that ``bayes_sample_cuda.sample_noise_ok`` admits are drawn together by
+    ``sample_noises``, one kernel launch under seeds drawn by one
+    ``torch.randint`` from ``generator``; the rest (the biases, the slices
+    the gate refuses, every CPU tensor) by ``gaussian.sample_diff``."""
+    if noise is not None:
+        noise = list(noise)
+        if len(noise) < len(lgstds) or any(e is None for e in noise):
+            raise ValueError("BayesLSTMCore: fewer injected noise tensors "
+                             "than sampled tensors")
+        if len(noise) > len(lgstds):
+            raise ValueError("BayesLSTMCore: more injected noise tensors "
+                             "than sampled tensors")
+        return [gaussian.sample_diff(lg, eps=e, generator=generator)
+                for lg, e in zip(lgstds, noise)]
+    diffs = [None] * len(lgstds)
+    admitted = [i for i, lg in enumerate(lgstds)
+                if bayes_sample_cuda.sample_noise_ok(lg)]
+    if admitted:
+        seeds = torch.randint(0, 2 ** 31 - 1, (len(admitted),),
+                              generator=generator,
+                              device=lgstds[admitted[0]].device,
+                              dtype=torch.int32)
+        drawn = bayes_sample_cuda.sample_noises(
+            [lgstds[i] for i in admitted], seeds)
+        for i, d in zip(admitted, drawn):
+            diffs[i] = d
+    return [gaussian.sample_diff(lg, generator=generator) if d is None else d
+            for lg, d in zip(lgstds, diffs)]
+
+
 class BayesLSTMCore(nn.Module):
     """Two-layer LSTM with Gaussian gate-slice posteriors, the JAX
     package's ``BayesLSTMCore``; parameters ``weight_{ih,hh}_mean_{1,2}``,
@@ -131,11 +164,12 @@ class BayesLSTMCore(nn.Module):
 
     One eps per call and sampled tensor, drawn before the recurrence. The
     2-D slices that ``bayes_sample_cuda.sample_noise_ok`` admits go
-    through the sampler kernel (seed drawn on the device from
-    ``generator``); the biases and other slices through
-    ``gaussian.sample_diff``. ``noise`` injects every eps instead, one per
-    sampled tensor in the JAX call order: layer 1 then 2, and w_hh, w_ih,
-    b_hh, b_ih within a layer.
+    through the sampler kernel together, one launch a forward (their seeds
+    drawn on the device from ``generator`` by one ``torch.randint``); the
+    biases and other slices through ``gaussian.sample_diff``
+    (``_draw_diffs``). ``noise`` injects every eps instead, one per sampled
+    tensor in the JAX call order: layer 1 then 2, and w_hh, w_ih, b_hh,
+    b_ih within a layer.
     """
 
     def __init__(self, cfg: ModelConfig, both_layers: bool = True):
@@ -183,40 +217,26 @@ class BayesLSTMCore(nn.Module):
         """The two layers' effective weights of one training forward."""
         eff = [self.means(1), self.means(2)]
         pos, H = self.pos, self.nhid
-        draws = None if noise is None else iter(noise)
-
-        def diff(lg):
-            eps = None
-            if draws is not None:
-                eps = next(draws, None)
-                if eps is None:
-                    raise ValueError("BayesLSTMCore: fewer injected noise "
-                                     "tensors than sampled tensors")
-            if eps is None and bayes_sample_cuda.sample_noise_ok(lg):
-                seed = torch.randint(0, 2 ** 31 - 1, (1,), generator=generator,
-                                     device=lg.device, dtype=torch.int32)
-                return bayes_sample_cuda.sample_noise(lg, seed)
-            return gaussian.sample_diff(lg, eps=eps, generator=generator)
-
+        # the sampled tensors in order: (layer index, name, lgstd); layer 1
+        # then 2, and w_hh, w_ih, b_hh, b_ih within a layer
         if 1 <= pos <= 4:
-            r0, r1 = (pos - 1) * H, pos * H
-            for li in ((0, 1) if self.both_layers else (0,)):
-                lp = self.lgstds(li + 1)
-                for n in _GATE_PARAMS:
-                    w = eff[li][n]
-                    # out of place, so the gradient reaches the mean rows
-                    # and, through the sample, the lgstd
-                    eff[li][n] = torch.cat([w[:r0], w[r0:r1] + diff(lp[n]),
-                                            w[r1:]])
+            slots = [(li, n, self.lgstds(li + 1)[n])
+                     for li in ((0, 1) if self.both_layers else (0,))
+                     for n in _GATE_PARAMS]
         elif pos == 5 and not self.both_layers:
             # BayesLSTM position 5: the whole of layer 2, with the layer-1
             # lgstds
-            lp = self.lgstds(1)
-            for n in _GATE_PARAMS:
-                eff[1][n] = eff[1][n] + diff(lp[n])
-        if draws is not None and next(draws, None) is not None:
-            raise ValueError("BayesLSTMCore: more injected noise tensors "
-                             "than sampled tensors")
+            slots = [(1, n, self.lgstds(1)[n]) for n in _GATE_PARAMS]
+        else:
+            slots = []
+        diffs = _draw_diffs([lg for _, _, lg in slots], generator, noise)
+        r0, r1 = (pos - 1) * H, pos * H
+        for (li, n, _), d in zip(slots, diffs):
+            w = eff[li][n]
+            # out of place, so the gradient reaches the mean rows and,
+            # through the sample, the lgstd
+            eff[li][n] = (torch.cat([w[:r0], w[r0:r1] + d, w[r1:]])
+                          if pos <= 4 else w + d)
         return eff
 
     def forward(self, x, hidden: Hidden, step_mask=None, reset_mask=None,

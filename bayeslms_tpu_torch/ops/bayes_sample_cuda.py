@@ -1,48 +1,54 @@
 """Gaussian weight sampler: the CUDA kernel's wrapper, its plain twin and
-the autograd Function ``sample_noise``.
+the autograd Function ``sample_noises`` (a step's slices in one launch;
+``sample_noise`` its one-slice case).
 
 Replaces ``bayeslms_tpu/ops/bayes_matmul.py`` ``sample_weights`` (its
 ``_sample_kernel`` Pallas body), ``sample_noise`` and ``sample_noise_ok``.
 The kernel is ``csrc/bayes_sample.cu``, whose header says what bounds it on
-the H100 and how its design answers that. ``sample_weights`` launches it
-for CUDA tensors and raises on what it does not take; for CPU tensors it
-runs ``sample_weights_plain``.
+the H100 and how its design answers that. ``sample_slices`` launches it
+once for a table of up to ``MAX_SLICES`` slices, each under its own seed
+(``sample_weights`` is its one-slice case), for CUDA tensors, and raises
+on what it does not take; for CPU tensors it runs ``sample_slices_plain``.
 
 out = mean + exp(lgstd) * eps in float32, eps by Box-Muller from two
 24-bit uniforms (the TPU kernel's arithmetic), the uniforms from a
 Philox4x32-10 generator keyed by (seed + tile, 0), tile = row // 128, and
 counted by the element's offset in its tile (two elements a call). So eps
-depends on (seed, tile, offset) only and a step can draw it again. The
-bits are not the TPU's (its on-core generator has no counterpart here):
-the twin computes the kernel's integers exactly with torch int64 ops, and
-its uniforms equal the kernel's bit for bit; eps and out agree within a
-few float32 ulps (the library's log, cos and exp).
+depends on (seed, tile, offset) only: a step can draw it again, and a
+slice drawn among others equals its draw alone, bit for bit. The bits are
+not the TPU's (its on-core generator has no counterpart here): the twin
+computes the kernel's integers exactly with torch int64 ops, and its
+uniforms equal the kernel's bit for bit; eps and out agree within a few
+float32 ulps (the library's log, cos and exp).
 
-The seed is a device int32 tensor of shape (1,) that the kernel reads
-itself, so a training step draws it without a host round trip.
+The seeds are a device int32 tensor that the kernel reads itself, so a
+training step draws them without a host round trip.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 
 from . import _build
 
-# kernel launches, one per call that reaches the kernel; reset by callers
-# that read it, such as chip_smoke.py
+# kernel launches, one per launch of the kernel (a table of slices); reset
+# by callers that read it, such as chip_smoke.py
 launches = 0
 
 TILE_ROWS = 128  # the TPU kernel's weight tile, rows sharing one key
+MAX_SLICES = 8   # the slices of one launch (csrc/bayes_sample.cu)
 _TWO_PI = 6.283185307179586
 _M0, _M1 = 0xD2511F53, 0xCD9E8D57
 _W0, _W1 = 0x9E3779B9, 0xBB67AE85
 _U32 = 0xFFFFFFFF
 
 _P = ctypes.c_void_p
-_ARGTYPES = [_P] * 5 + [ctypes.c_longlong, ctypes.c_int, _P]
+# bayes_sample_slices: the seeds, the count, five arrays (lgstd, mean,
+# out, uni pointers; the counts), K, the seed indices, the stream
+_ARGTYPES = [_P, ctypes.c_int, _P, _P, _P, _P, _P, _P, _P, _P]
 
 
 def tile_shape_ok(shape) -> bool:
@@ -124,44 +130,94 @@ def sample_weights_plain(mean: Optional[torch.Tensor], lgstd: torch.Tensor,
     return d if mean is None else (mean.float() + d).to(mean.dtype)
 
 
-def _launch(mean, lgstd, seed, uni=None) -> torch.Tensor:
-    if lgstd.dim() != 2 or lgstd.dtype != torch.float32 \
-            or lgstd.numel() % 2:
-        raise ValueError(f"bayes_sample: lgstd must be 2-D float32 with an "
-                         f"even count; got {tuple(lgstd.shape)} {lgstd.dtype}")
-    dev = lgstd.device
-    if mean is not None and (tuple(mean.shape) != tuple(lgstd.shape)
-                             or mean.dtype != torch.float32
-                             or mean.device != dev):
-        raise ValueError("bayes_sample: mean must be float32 and shaped and "
-                         "placed as lgstd")
-    if tuple(seed.shape) != (1,) or seed.dtype != torch.int32 \
-            or seed.device != dev:
-        raise ValueError(f"bayes_sample: seed must be int32 (1,) on {dev}")
-    # the kernel's float2 loads want 8-byte alignment
-    lgstd = lgstd.contiguous() if lgstd.data_ptr() % 8 == 0 else lgstd.clone()
-    if mean is not None:
-        mean = mean.contiguous() if mean.data_ptr() % 8 == 0 else mean.clone()
-    out = torch.empty_like(lgstd)
-    N, K = lgstd.shape
-    lib = _build.load("bayes_sample")
-    fn = lib.bayes_sample
+def sample_slices_plain(lgstds: Sequence[torch.Tensor], seeds: torch.Tensor,
+                        means: Optional[Sequence[Optional[torch.Tensor]]]
+                        = None) -> List[torch.Tensor]:
+    """Plain PyTorch version of the kernel, same arguments as
+    ``sample_slices``: slice i is ``sample_weights_plain`` under
+    ``seeds[i]``."""
+    means = [None] * len(lgstds) if means is None else means
+    return [sample_weights_plain(m, lg, seeds[i:i + 1])
+            for i, (lg, m) in enumerate(zip(lgstds, means))]
+
+
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    # the kernel's float4 loads and stores want 16-byte alignment
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+def _launch(lgstds, seeds, means=None, unis=None) -> List[torch.Tensor]:
+    n = len(lgstds)
+    means = [None] * n if means is None else list(means)
+    unis = [None] * n if unis is None else list(unis)
+    if not 0 < n <= MAX_SLICES or len(means) != n or len(unis) != n:
+        raise ValueError(f"bayes_sample: 1 to {MAX_SLICES} slices, each "
+                         f"with its mean (or None); got {n}")
+    dev = lgstds[0].device
+    if seeds.dim() != 1 or seeds.numel() < n or seeds.dtype != torch.int32 \
+            or seeds.device != dev:
+        raise ValueError(f"bayes_sample: seeds must be int32 ({n},) or "
+                         f"longer on {dev}")
+    lgs, mns, outs = [], [], []
+    for lg, mean in zip(lgstds, means):
+        if lg.dim() != 2 or lg.dtype != torch.float32 or lg.numel() % 2 \
+                or lg.device != dev:
+            raise ValueError(f"bayes_sample: lgstd must be 2-D float32 with "
+                             f"an even count on {dev}; got "
+                             f"{tuple(lg.shape)} {lg.dtype} on {lg.device}")
+        if mean is not None and (tuple(mean.shape) != tuple(lg.shape)
+                                 or mean.dtype != torch.float32
+                                 or mean.device != dev):
+            raise ValueError("bayes_sample: mean must be float32 and shaped "
+                             "and placed as lgstd")
+        lgs.append(_aligned(lg))
+        mns.append(None if mean is None else _aligned(mean))
+        outs.append(torch.empty_like(lgs[-1]))
+    ptrs = lambda ts: (_P * n)(*(0 if t is None  # noqa: E731
+                                 else t.data_ptr() for t in ts))
+    counts = (ctypes.c_longlong * n)(*(lg.numel() for lg in lgs))
+    cols = (ctypes.c_int * n)(*(lg.shape[1] for lg in lgs))
+    index = (ctypes.c_int * n)(*range(n))
+    fn = _build.load("bayes_sample").bayes_sample_slices
     fn.argtypes, fn.restype = _ARGTYPES, ctypes.c_int
-    err = fn(seed.data_ptr(), 0 if mean is None else mean.data_ptr(),
-             lgstd.data_ptr(), out.data_ptr(),
-             0 if uni is None else uni.data_ptr(), N * K, K,
+    err = fn(seeds.data_ptr(), n, ptrs(lgs), ptrs(mns), ptrs(outs),
+             ptrs(unis), counts, cols, index,
              torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"bayes_sample kernel launch failed: CUDA error "
                            f"{err}")
     global launches
     launches += 1
+    return outs
+
+
+def sample_slices(lgstds: Sequence[torch.Tensor], seeds: torch.Tensor,
+                  means: Optional[Sequence[Optional[torch.Tensor]]] = None
+                  ) -> List[torch.Tensor]:
+    """mean_i + exp(lgstd_i) * eps_i for every slice i, eps_i drawn under
+    ``seeds[i]`` (exp(lgstd_i) * eps_i where ``means`` or its entry is
+    None).
+
+    lgstds: float32 2-D tensors with even element counts; seeds int32 (S,),
+    S >= len(lgstds), on the same device. CUDA tensors launch
+    ``csrc/bayes_sample.cu`` once for every ``MAX_SLICES`` slices; CPU
+    tensors run ``sample_slices_plain``. Each kernel launch adds one to the
+    module's ``launches``."""
+    if not lgstds[0].is_cuda:
+        return sample_slices_plain(lgstds, seeds, means)
+    means = [None] * len(lgstds) if means is None else list(means)
+    out = []
+    for i in range(0, len(lgstds), MAX_SLICES):
+        j = i + MAX_SLICES
+        out += _launch(lgstds[i:j], seeds[i:j], means[i:j])
     return out
 
 
 def sample_weights(mean: Optional[torch.Tensor], lgstd: torch.Tensor,
                    seed: torch.Tensor) -> torch.Tensor:
-    """mean + exp(lgstd) * eps, or exp(lgstd) * eps when ``mean`` is None.
+    """mean + exp(lgstd) * eps, or exp(lgstd) * eps when ``mean`` is None:
+    ``sample_slices``'s one-slice case.
 
     lgstd (N, K) float32, mean None or float32 like it, seed int32 (1,) on
     the same device. CUDA tensors launch ``csrc/bayes_sample.cu`` (any N,
@@ -169,7 +225,10 @@ def sample_weights(mean: Optional[torch.Tensor], lgstd: torch.Tensor,
     adds one to the module's ``launches``."""
     if not lgstd.is_cuda:
         return sample_weights_plain(mean, lgstd, seed)
-    return _launch(mean, lgstd, seed)
+    if tuple(seed.shape) != (1,):
+        raise ValueError(f"bayes_sample: seed must be int32 (1,); got "
+                         f"{tuple(seed.shape)}")
+    return _launch([lgstd], seed, [mean])[0]
 
 
 def sample_uniforms(lgstd: torch.Tensor, seed: torch.Tensor):
@@ -181,27 +240,36 @@ def sample_uniforms(lgstd: torch.Tensor, seed: torch.Tensor):
                          "tensor")
     uni = torch.empty((*lgstd.shape, 2), dtype=torch.float32,
                       device=lgstd.device)
-    noise = _launch(None, lgstd, seed, uni)
+    noise = _launch([lgstd], seed, [None], [uni])[0]
     return noise, uni[..., 0], uni[..., 1]
 
 
-class _SampleNoise(torch.autograd.Function):
-    """exp(lgstd) * eps; d/dlgstd is the noise itself (JAX
-    ``_sample_noise_bwd``), nothing for the seed."""
+class _SampleNoises(torch.autograd.Function):
+    """exp(lgstd_i) * eps_i for every slice, one output each; d/dlgstd_i is
+    g_i * noise_i (JAX ``_sample_noise_bwd`` slice by slice), nothing for
+    the seeds."""
 
     @staticmethod
-    def forward(ctx, lgstd, seed):
-        noise = sample_weights(None, lgstd, seed)
-        ctx.save_for_backward(noise)
-        return noise
+    def forward(ctx, seeds, *lgstds):
+        noises = sample_slices(lgstds, seeds)
+        ctx.save_for_backward(*noises)
+        return tuple(noises)
 
     @staticmethod
-    def backward(ctx, g):
-        (noise,) = ctx.saved_tensors
-        return g * noise, None
+    def backward(ctx, *gs):
+        return (None, *(None if g is None else g * n
+                        for g, n in zip(gs, ctx.saved_tensors)))
+
+
+def sample_noises(lgstds: Sequence[torch.Tensor],
+                  seeds: torch.Tensor) -> List[torch.Tensor]:
+    """exp(lgstd_i) * eps_i under ``seeds[i]`` for every slice, drawn by
+    ``sample_slices`` (one kernel launch for CUDA tensors), differentiable
+    in each lgstd."""
+    return list(_SampleNoises.apply(seeds, *lgstds))
 
 
 def sample_noise(lgstd: torch.Tensor, seed: torch.Tensor) -> torch.Tensor:
-    """exp(lgstd) * eps drawn by ``sample_weights`` (the kernel for CUDA
-    tensors), differentiable in lgstd."""
-    return _SampleNoise.apply(lgstd, seed)
+    """exp(lgstd) * eps under ``seed`` (int32 (1,)): ``sample_noises``'s
+    one-slice case, differentiable in lgstd."""
+    return sample_noises([lgstd], seed)[0]

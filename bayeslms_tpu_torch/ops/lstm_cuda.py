@@ -5,7 +5,7 @@ Replaces ``bayeslms_tpu/ops/lstm_pallas.py`` ``lstm2_layer_pallas`` (its
 ``_kernel2`` / ``_kernel2_reset`` Pallas bodies) with ``lstm2_fwd``
 (``csrc/lstm2_fwd.cu``, in two designs picked by ``_design``), and
 ``lstm_layer_pallas`` (``_kernel_reset`` and ``_kernel``, kernel rows 3 and
-4) with ``lstm_fwd`` (``csrc/lstm_fwd.cu``, in two designs picked by
+4) with ``lstm_fwd`` (``csrc/lstm_fwd.cu``, in three designs picked by
 ``_design_fwd``); ``lstm_kernel_ok`` is
 ``pallas_lstm_ok``'s gate. The kernels' headers say what bounds them on the
 H100 and how their designs answer that. The wrappers launch them for CUDA
@@ -40,13 +40,15 @@ design_launches = {"persistent": 0, "per_step": 0}
 # resets) and row 4 (without)
 layer_launches = {"lstm_fwd_reset": 0, "lstm_fwd": 0}
 # and ``lstm_fwd``'s calls by design (``_design_fwd``)
-layer_design_launches = {"persistent": 0, "per_step": 0}
+layer_design_launches = {"persistent": 0, "streamed": 0, "per_step": 0}
 
 _P = ctypes.c_void_p
 _ARGTYPES = [_P] * 14 + [ctypes.c_int] * 3 + [_P]
 _PERSIST_ARGTYPES = [_P] * 18 + [ctypes.c_int] * 4 + [_P]
 # lstm_fwd and lstm_fwd_persistent: nine pointers, T, B, H, the stream
 _FWD_ARGTYPES = [_P] * 9 + [ctypes.c_int] * 3 + [_P]
+# lstm_fwd_stream: twelve pointers, T, B, H, the rings' stages, the stream
+_STREAM_ARGTYPES = [_P] * 12 + [ctypes.c_int] * 4 + [_P]
 
 # The persistent design's geometry (csrc/lstm2_fwd.cu): hidden units a CTA
 # (of both layers), k columns of a streamed chunk, batch rows of an m tile,
@@ -103,25 +105,76 @@ def _card_design(dev, T, B, H):
     return _design(T, B, H, _build.sm_count(dev.index))
 
 
+# The streamed design of ``lstm_fwd`` (row 3's, ``csrc/lstm_fwd.cu``
+# ``lstm_layer_stream``, on row 1's ring and products): hidden units a CTA
+# (the kernel's U), the most ring stages of its two rings together (16
+# timed fastest at the pass's call; PERF.md, row 3).
+S_UNITS = 8
+S_MAX_NST = 16
+
+
+def stream_smem(H: int, nst: int) -> int:
+    """Dynamic shared memory of a streamed CTA at width H with ``nst`` ring
+    stages, bytes: 1 KB of alignment, the 4 x ``S_UNITS`` resident gate
+    rows of W_hh, the ring, their biases, the ring's barriers (two a
+    stage)."""
+    return 1024 + (H // Q_KC) * 4 * S_UNITS * Q_KC * 2 + nst * Q_STAGE \
+        + 4 * S_UNITS * 4 + 2 * nst * 8
+
+
+def _stream_plan(T: int, B: int, H: int, n_sm: int) -> Optional[dict]:
+    """The streamed design's plan for the call, or None where it does not
+    take it: H a multiple of 64, H / ``S_UNITS`` CTAs no more than the
+    SMs, the rows and two rings of two stages or more within a CTA's
+    shared memory (the rings' stages together: the most that fit, up to
+    ``S_MAX_NST``, an even count)."""
+    stages = min(S_MAX_NST, (SMEM_LIMIT - stream_smem(H, 0))
+                 // (Q_STAGE + 16)) // 2 * 2
+    ctas = H // S_UNITS
+    if not (B > 0 and H > 0 and H % Q_KC == 0 and 0 < ctas <= n_sm
+            and stages >= 4 and stages % 2 == 0
+            and stream_smem(H, stages) <= SMEM_LIMIT):
+        return None
+    return dict(design="streamed", grid=(ctas,), ctas=ctas, units=S_UNITS,
+                threads=Q_THREADS, stages=stages, m_tiles=-(-B // Q_MT),
+                smem_bytes=stream_smem(H, stages), launches=1,
+                barriers=max(T - 1, 0))
+
+
 def _design_fwd(T: int, B: int, H: int, n_sm: int,
                 resets: bool = False) -> dict:
     """The design of ``lstm_fwd`` (rows 3 and 4) for T steps of B columns
-    at width H on a card of ``n_sm`` SMs: "persistent" (row 5's persistent
-    forward without the cs store: one cooperative launch of H / 8 CTAs,
-    each keeping its 4 x 8 gate rows of W_hh in shared memory, a grid
-    barrier a step) where the call has no resets, B <= 32, H is a multiple
-    of 8, the CTAs number no more than the SMs (one a SM) and a CTA's shared
-    memory fits; "per_step" (``lstm_step_kernel``, T launches on
-    (ceil(B / 64), H / 32) blocks) otherwise, and for every call with resets
-    (row 3). An explicit rule: the chosen design runs or raises. Returns a
-    dict with the design, grid, CTAs, units a CTA, threads, shared memory
-    bytes, launches and grid barriers for the call."""
+    at width H on a card of ``n_sm`` SMs:
+
+    - "persistent" (row 5's persistent forward without the cs store: one
+      cooperative launch of H / 8 CTAs, each keeping its 4 x 8 gate rows of
+      W_hh in shared memory, mma.sync, a grid barrier a step) where the
+      call has no resets, B <= 32, H is a multiple of 8, the CTAs number no
+      more than the SMs (one a SM) and a CTA's shared memory fits;
+    - "streamed" (row 1's design for one layer: one cooperative launch of
+      H / ``S_UNITS`` CTAs, each keeping its gate rows of W_hh in shared
+      memory, h streamed by TMA into wgmma through a ring for each consumer
+      warpgroup, the resets on the product rows the owner gathers, a grid
+      barrier a step) for every call with resets
+      (row 3) and every call past 32 columns, where ``_stream_plan`` takes
+      it;
+    - "per_step" (``lstm_step_kernel``, T launches on (ceil(B / 64), H / 32)
+      blocks) otherwise.
+
+    An explicit rule: the chosen design runs or raises. Returns a dict with
+    the design, grid, CTAs, units a CTA, threads, shared memory bytes,
+    launches and grid barriers for the call (and the streamed design's ring
+    stages and m tiles)."""
     smem = _ltc.fwd_persist_smem(H)
     if not resets and _ltc._fits(B, H, n_sm, smem):
         ctas = H // _ltc.P_UNITS
         return dict(design="persistent", grid=(ctas,), ctas=ctas,
                     units=_ltc.P_UNITS, threads=_ltc.P_THREADS,
                     smem_bytes=smem, launches=1, barriers=max(T - 1, 0))
+    if resets or B > _ltc.P_ROWS:
+        plan = _stream_plan(T, B, H, n_sm)
+        if plan is not None:
+            return plan
     grid = (-(-B // 64), H // 32)
     return dict(design="per_step", grid=grid, ctas=grid[0] * grid[1],
                 units=32, threads=256, smem_bytes=None, launches=T,
@@ -323,6 +376,22 @@ def _per_step(plan, xg1, whh1, bhh1, wih2, whh2, b2, h01, c01, h02, c02,
             (c1[f].to(bf16), c2[f].to(bf16)))
 
 
+def _marks(reset, src):
+    """marks[t, s] (T, B) bytes: another column takes column s's state at
+    step t, so the owners of s's units store its product rows for it; None
+    without resets."""
+    if reset is None:
+        return None
+    T, B = reset.shape
+    dev = reset.device
+    cols = torch.arange(B, dtype=torch.int32, device=dev)
+    takes = (reset != 0) & ((src >= 0) & (src != cols))[None, :]
+    marks = torch.zeros((T, B), dtype=torch.int32, device=dev)
+    marks.scatter_add_(1, src.clamp(min=0).long().expand(T, B),
+                       takes.to(torch.int32))
+    return (marks > 0).to(torch.uint8)
+
+
 def _persistent(plan, xg1, whh1, bhh1, wih2, whh2, b2, h01, c01, h02, c02,
                 mask, reset, src):
     T, B, G = xg1.shape
@@ -342,16 +411,7 @@ def _persistent(plan, xg1, whh1, bhh1, wih2, whh2, b2, h01, c01, h02, c02,
     y[0].copy_(h02)
     prod = torch.empty((plan["ctas"], B, Q_PC), dtype=torch.float32,
                        device=dev)
-    # marks[t, s]: another column takes column s's state at step t, so the
-    # owners store s's product rows for it
-    marks = None
-    if reset is not None:
-        cols = torch.arange(B, dtype=torch.int32, device=dev)
-        takes = (reset != 0) & ((src >= 0) & (src != cols))[None, :]
-        marks = torch.zeros((T, B), dtype=torch.int32, device=dev)
-        marks.scatter_add_(1, src.clamp(min=0).long().expand(T, B),
-                           takes.to(torch.int32))
-        marks = (marks > 0).to(torch.uint8)
+    marks = _marks(reset, src)
     bar = torch.zeros((1,), dtype=torch.int32, device=dev)
     fn = _build.load("lstm2_fwd").lstm2_fwd_persistent
     fn.argtypes, fn.restype = _PERSIST_ARGTYPES, ctypes.c_int
@@ -401,8 +461,8 @@ def lstm_fwd(xg: torch.Tensor, whh: torch.Tensor, bhh: torch.Tensor,
     kernel row 3's replacement, without row 4's) in the design
     ``_design_fwd`` picks; CPU tensors run ``lstm_fwd_plain``. Each call
     that reaches the kernel adds one to ``layer_launches`` and to its
-    design's ``layer_design_launches`` (the persistent design is one
-    launch a call, the per-step design T).
+    design's ``layer_design_launches`` (the persistent and streamed designs
+    are one launch a call, the per-step design T).
     """
     if not xg.is_cuda:
         return lstm_fwd_plain(xg, whh, bhh, h0, c0, step_mask, reset_mask,
@@ -413,10 +473,10 @@ def lstm_fwd(xg: torch.Tensor, whh: torch.Tensor, bhh: torch.Tensor,
 
 def _lstm_fwd(design, xg, whh, bhh, h0, c0, step_mask=None, reset_mask=None,
               reset_src=None):
-    """``lstm_fwd`` on CUDA tensors in ``design`` ("persistent" or
-    "per_step"), or in the one ``_design_fwd`` picks where it is None;
-    chip_smoke.py times the per-step design on the persistent design's
-    calls through it. A design that does not take the call raises."""
+    """``lstm_fwd`` on CUDA tensors in ``design`` ("persistent", "streamed"
+    or "per_step"), or in the one ``_design_fwd`` picks where it is None;
+    chip_smoke.py times the per-step design on the other designs' calls
+    through it. A design that does not take the call raises."""
     T, B, G = xg.shape
     H = G // 4
     dev = xg.device
@@ -441,20 +501,28 @@ def _lstm_fwd(design, xg, whh, bhh, h0, c0, step_mask=None, reset_mask=None,
         _check("reset_mask", reset, torch.uint8, (T, B), dev, fn="lstm_fwd")
         src = reset_src.to(torch.int32).contiguous()
         _check("reset_src", src, torch.int32, (B,), dev, fn="lstm_fwd")
-    plan = _design_fwd(T, B, H, _build.sm_count(dev.index),
-                       resets=reset is not None)["design"]
+    n_sm = _build.sm_count(dev.index)
+    rule = _design_fwd(T, B, H, n_sm, resets=reset is not None)["design"]
     if design is None:
-        design = plan
-    if design == "persistent" and plan != "persistent":
+        design = rule
+    if design == "persistent" and rule != "persistent":
         raise ValueError(f"lstm_fwd: the persistent design does not take "
                          f"T={T} B={B} H={H}"
                          + (" with resets" if reset is not None else ""))
+    if design == "streamed":
+        plan = _stream_plan(T, B, H, n_sm)
+        if plan is None:
+            raise ValueError(f"lstm_fwd: the streamed design does not take "
+                             f"T={T} B={B} H={H}")
     stream = torch.cuda.current_stream(dev).cuda_stream
-    ys = torch.empty((T, B, H), dtype=bf16, device=dev)
     lib = _build.load("lstm_fwd")
-    if design == "persistent":
+    if design == "streamed":
+        ys, hT, cT, err = _stream(lib, plan, xg, whh, bhh, h0, c0, mask,
+                                  reset, src, stream)
+    elif design == "persistent":
         # fp32 carries, the initial state in and the final state out; the
         # first step's product takes h0 in bf16
+        ys = torch.empty((T, B, H), dtype=bf16, device=dev)
         h = torch.empty((B, H), dtype=torch.float32, device=dev)
         c = torch.empty_like(h)
         h.copy_(h0)
@@ -467,6 +535,7 @@ def _lstm_fwd(design, xg, whh, bhh, h0, c0, step_mask=None, reset_mask=None,
                  _ptr(h), _ptr(c), _ptr(ys), _ptr(bar), T, B, H, stream)
         hT, cT = h, c
     else:
+        ys = torch.empty((T, B, H), dtype=bf16, device=dev)
         h = torch.empty((2, B, H), dtype=torch.float32, device=dev)
         c = torch.empty_like(h)
         h[0].copy_(h0)
@@ -482,3 +551,30 @@ def _lstm_fwd(design, xg, whh, bhh, h0, c0, step_mask=None, reset_mask=None,
     layer_launches["lstm_fwd_reset" if reset is not None else "lstm_fwd"] += 1
     layer_design_launches[design] += 1
     return ys, hT.to(bf16), cT.to(bf16)
+
+
+def _stream(lib, plan, xg, whh, bhh, h0, c0, mask, reset, src, stream):
+    """The streamed design's launch: fp32 carries with the initial state in
+    slot 1 (step s in slot s % 2), ys with bf16(h0) in front (the first
+    step's product operand), the CTAs' product-row scratch. Returns ys, the
+    final fp32 state and the launch's error code."""
+    T, B, G = xg.shape
+    H = G // 4
+    dev = xg.device
+    h = torch.empty((2, B, H), dtype=torch.float32, device=dev)
+    c = torch.empty_like(h)
+    h[1].copy_(h0)
+    c[1].copy_(c0)
+    y = torch.empty((T + 1, B, H), dtype=torch.bfloat16, device=dev)
+    y[0].copy_(h0)
+    prod = torch.empty((plan["ctas"], B, 4 * plan["units"]),
+                       dtype=torch.float32, device=dev)
+    marks = _marks(reset, src)
+    bar = torch.zeros((1,), dtype=torch.int32, device=dev)
+    fn = lib.lstm_fwd_stream
+    fn.argtypes, fn.restype = _STREAM_ARGTYPES, ctypes.c_int
+    err = fn(_ptr(xg), _ptr(whh), _ptr(bhh), _ptr(mask), _ptr(reset),
+             _ptr(src), _ptr(marks), _ptr(h), _ptr(c), _ptr(y), _ptr(prod),
+             _ptr(bar), T, B, H, plan["stages"], stream)
+    f = (T - 1) % 2
+    return y[1:], h[f], c[f], err

@@ -24,8 +24,10 @@ and backward in their persistent designs (one cooperative launch a call)
 on the step's calls, the forward's per-step design on the same call and
 the backward's two-launch design at a doubled batch. Then the Bayesian gate-slice LSTM (``l_bayes_pos=3``) on
 the same corpus: the gate-slice sampler kernel against its twin on the
-slices a step hands it (bit-equal uniforms, moments, correlations, the
-gradient, planted-fault builds), one epoch of ``Trainer.fit``, a
+four slices a step hands it in one launch (bit-equal uniforms, moments,
+correlations, the gradients, the launch's slices bit-equal to one-slice
+draws, planted-fault builds), one epoch of ``Trainer.fit`` (one sampler
+launch a step), a
 kernel-path step against the plain path, and scoring at the posterior
 mean. Then the JAX package's opt-in fused 2-layer training route
 (``BAYESLM_PALLAS_LSTM2_TRAIN=1``, set inside those phases only): a few
@@ -53,10 +55,13 @@ of ``Trainer.fit`` (every ``evaluate`` call of row 4 and every row-20 and
 row-21 call on the persistent designs), a kernel-path step against the plain
 path, and a packed-carry pass of the 6,000-hypothesis N-best from that
 checkpoint: the
-single-layer forward kernel with resets against its twin on the pass's call and
-with -1 sources, on the per-step kernel that its rule names for resets (planted
-faults: resets ignored, -1 source not zeroed, step mask ignored, W_hh dropped),
-the pass against the plain path.
+single-layer forward kernel with resets against its twin on the pass's call,
+with -1 sources and from a carried state, in the streamed design that its rule
+names for resets (one launch a call), its per-step design on the same calls
+beside it (planted faults: resets ignored, -1 source not zeroed, step mask
+ignored, W_hh dropped, also from the carried state), the pass against the
+plain path (every row-3 call on the streamed design, here, in the gate-6 pass
+and in the legacy GaussLSTM's).
 Then the README's gate-6 GP-LSTM (``l_gauss_pos`` 63: a GP unit in place of the
 GP cell's hidden projection, then a standard layer) on the same corpus: the
 gate-6 kernels (forward, backward) against their twins on the calls a step and
@@ -191,7 +196,8 @@ def stream_of(key):
 # kernel names (tools/port_train_profile.py, tools/port_pass_profile.py).
 KERNEL_ROWS = (
     ("lstm2_persistent", "1"), ("lstm_fwd_persistent", "5"),
-    ("lstm_layer_persistent", "4"), ("lstm_step_kernel", "1, 3, 4"),
+    ("lstm_layer_persistent", "4"), ("lstm_layer_stream", "3"),
+    ("lstm_step_kernel", "1, 3, 4"),
     ("ce_fwd_kernel", "2"), ("lstm_fwd_step", "5"),
     ("lstm_bwd_persistent", "6"), ("lstm_bwd_gates", "6"),
     ("lstm_bwd_dh", "6"),
@@ -1111,9 +1117,11 @@ def train_phases(torch, kernels, smi, cfg, rcfg):
 # The Bayesian gate-slice LSTM (Bayes2LSTM) of the paper at the bench's
 # width: position 3 (the g gate's rows), as exp/campaign/torch_lstm_bayes3
 # and the JAX package's ours_lstm_bayes3 runs. A step draws four (1,024,
-# 1,024) float32 slices with the sampler kernel: weight_{hh,ih}_lgstd_{1,2}.
+# 1,024) float32 slices, weight_{hh,ih}_lgstd_{1,2}, in one launch of the
+# sampler kernel under four seeds of one draw.
 BAYES_POS = 3
-SAMPLER_CALLS_PER_STEP = 4
+SAMPLER_CALLS_PER_STEP = 1
+SAMPLER_SLICES_PER_STEP = 4
 PEAK_FP32_FLOPS = 67e12  # H100 SXM, float32 outside the tensor cores
 # The sampler against its twin: bit-equal uniforms; eps from them within
 # 8 ulps at [4, 8) (eps <= 7.5; the library's log and cos may differ by an
@@ -1131,6 +1139,17 @@ SAMPLER_FAULTS = {
         ("bayes_sample", ("-DBAYES_SAMPLE_FAULT=2",)),
     "u1 from a 23-bit shift": ("bayes_sample", ("-DBAYES_SAMPLE_FAULT=3",)),
 }
+
+
+def tool_module(name):
+    """The module tools/<name>.py of this checkout."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        name, os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "tools", f"{name}.py"))
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
 
 
 def corr(torch, a, b):
@@ -1198,6 +1217,19 @@ def grad_check(torch, bsc, lg, seed):
     return float((lgr.grad - g * noise.detach()).abs().max())
 
 
+def table_grad_check(torch, bsc, lgs, seeds):
+    """The same for the step's table (``sample_noises``, one launch): max
+    over the slices of |d/dlgstd_i sum_j(g_j * noise_j) - g_i * noise_i|."""
+    lgr = [lg.detach().clone().requires_grad_(True) for lg in lgs]
+    noises = bsc.sample_noises(lgr, seeds)
+    gen = torch.Generator(device=lgs[0].device).manual_seed(5)
+    gs = [torch.randn(lg.shape, device=lg.device, generator=gen)
+          for lg in lgs]
+    sum((g * n).sum() for g, n in zip(gs, noises)).backward()
+    return max(float((l.grad - g * n.detach()).abs().max())
+               for l, g, n in zip(lgr, gs, noises))
+
+
 def bayes_phases(torch, kernels, smi, cfg, rcfg, corpus, tmpdir,
                  dev="cuda"):
     """The Bayesian LSTM's training and scoring on the training phases'
@@ -1233,24 +1265,36 @@ def bayes_phases(torch, kernels, smi, cfg, rcfg, corpus, tmpdir,
         target = torch.from_numpy(corpus.train[1:T * B + 1].reshape(B, T).T
                                   .copy()).long().to(dev)
         kl_scale = T / batchify(corpus.train, B).shape[0]
-        calls = []
-        real = bsc.sample_weights
+        tables = []
+        real = bsc.sample_slices
 
-        def record(mean, lgstd, seed):
-            calls.append((lgstd.detach().clone(), seed.clone()))
-            return real(mean, lgstd, seed)
+        def record(lgstds, seeds, means=None):
+            tables.append(([lg.detach().clone() for lg in lgstds],
+                           seeds.clone()))
+            return real(lgstds, seeds, means)
 
-        with mock.patch.object(bsc, "sample_weights", record):
+        bsc.launches = 0
+        with mock.patch.object(bsc, "sample_slices", record):
             trainer.train_step(state, init_hidden(2, B, bcfg.nhid,
                                                   device=dev),
                                data, target, kl_scale)
         torch.cuda.synchronize()
-        print(f"  one step handed the sampler {len(calls)} slices: "
+        n_launch = bsc.launches
+        # the slices one by one, each with its seed
+        calls = [(lg, seeds[i:i + 1].clone()) for lgs, seeds in tables
+                 for i, lg in enumerate(lgs)]
+        print(f"  one step handed the sampler {len(tables)} table(s) of "
+              f"{len(calls)} slices in {n_launch} launch(es): "
               + ", ".join(f"{tuple(lg.shape)} seed {int(s)}"
                           for lg, s in calls))
-        if len(calls) != SAMPLER_CALLS_PER_STEP:
-            raise AssertionError(f"{len(calls)} sampler calls in a step, "
-                                 f"{SAMPLER_CALLS_PER_STEP} expected")
+        if len(tables) != SAMPLER_CALLS_PER_STEP \
+                or n_launch != SAMPLER_CALLS_PER_STEP \
+                or len(calls) != SAMPLER_SLICES_PER_STEP:
+            raise AssertionError(
+                f"{len(tables)} sampler calls of {len(calls)} slices in "
+                f"{n_launch} launches a step; {SAMPLER_CALLS_PER_STEP} of "
+                f"{SAMPLER_SLICES_PER_STEP} in {SAMPLER_CALLS_PER_STEP} "
+                f"expected")
         del state
 
     with phase("bayes_sample"):
@@ -1269,6 +1313,23 @@ def bayes_phases(torch, kernels, smi, cfg, rcfg, corpus, tmpdir,
         print(f"  gradient: max |d/dlgstd - g noise| {g_err:.3e} (limit 0)")
         if g_err > 0:
             failed.append("gradient")
+        lgs, seeds = tables[0]
+        t_err = table_grad_check(torch, bsc, lgs, seeds)
+        print(f"  the table's gradient: max |d/dlgstd_i - g_i noise_i| "
+              f"{t_err:.3e} (limit 0)")
+        if t_err > 0:
+            failed.append("the table's gradient")
+        # the step's one launch against the same slices drawn one by one
+        before = bsc.launches
+        drawn = bsc.sample_slices(lgs, seeds)
+        if bsc.launches != before + 1:
+            failed.append("the table took more than one launch")
+        differ = sum(int((d != bsc.sample_weights(None, l, s)).sum())
+                     for d, (l, s) in zip(drawn, calls))
+        print(f"  one launch's {len(lgs)} slices against the one-slice "
+              f"draws: {differ} elements differ (limit 0)")
+        if differ:
+            failed.append("the table's draws differ from the one-slice ones")
         real_load = _build.load
         for fault, kernel in SAMPLER_FAULTS.items():
             with mock.patch.object(_build, "load", lambda k, v=kernel:
@@ -1280,49 +1341,74 @@ def bayes_phases(torch, kernels, smi, cfg, rcfg, corpus, tmpdir,
                               for k in caught))
             if not caught:
                 failed.append(f"fault '{fault}' passed every check")
-        with mock.patch.object(bsc._SampleNoise, "backward",
-                               staticmethod(lambda ctx, g: (g, None))):
+        with mock.patch.object(bsc._SampleNoises, "backward",
+                               staticmethod(lambda ctx, *g: (None, *g))):
             bad_g = grad_check(torch, bsc, lg, seed)
+            bad_t = table_grad_check(torch, bsc, lgs, seeds)
         print(f"  planted fault 'gradient returns g': max |d/dlgstd - g "
-              f"noise| {bad_g:.3e} (limit 0)")
-        if bad_g == 0:
+              f"noise| {bad_g:.3e}, the table's {bad_t:.3e} (limit 0)")
+        if bad_g == 0 or bad_t == 0:
             failed.append("the gradient fault passed")
-        N, K = lg.shape
+        S = len(lgs)
+        N, K = lgs[0].shape
         gen = torch.Generator(device=dev).manual_seed(6)
-        kernel_fn = lambda: bsc.sample_weights(None, lg, seed)  # noqa: E731
-        plain_fn = lambda: bsc.sample_weights_plain(None, lg, seed)  # noqa: E731
+        stacked = torch.stack(lgs)
+        kernel_fn = lambda: bsc.sample_slices(lgs, seeds)  # noqa: E731
+        one_seeds = [s for _, s in calls]
+        alone_fn = lambda: [bsc.sample_weights(None, l, s)  # noqa: E731
+                            for l, s in zip(lgs, one_seeds)]
+        plain_fn = lambda: bsc.sample_slices_plain(lgs, seeds)  # noqa: E731
         library_fn = lambda: torch.randn(  # noqa: E731
-            (N, K), generator=gen, device=dev) * torch.exp(lg)
+            (S, N, K), generator=gen, device=dev) * torch.exp(stacked)
         # a call's device time (profiler): the event-timed call of a ~us
         # kernel measures the host's launch path (printed beside it)
         ms = device_ms(torch, kernel_fn, 20)
+        alone_ms = device_ms(torch, alone_fn, 20)
         plain_ms = device_ms(torch, plain_fn, 3)
         library_ms = device_ms(torch, library_fn, 20)
         call_ms = cuda_ms(torch, kernel_fn, 5)
         # bytes: lgstd read and the sample written, float32; operations:
-        # ~20 integer multiplies and xors a Philox call (half an element's)
-        # and ~8 float32 operations an element, against the float32 rate
-        t_bytes = N * K * 8 / PEAK_BYTES_PER_S
-        t_ops = N * K * (10 + 8) / PEAK_FP32_FLOPS
+        # the instructions the launch issues (Philox's integer work, the
+        # accurate logf, cosf, expf, sqrtf): its built kernel's SASS count
+        # a loop iteration of four elements, off the slow paths, over 132
+        # SMs x 4 issue slots a clock at the SM's highest clock
+        # (tools/sampler_bound.py, which PERF.md's row 13 quotes)
+        sb = tool_module("sampler_bound")
+        lines, _ = sb.kernel_lines(_build.build(["bayes_sample"])[
+            "bayes_sample"], ["bayes_sample_kernelILb0E"])
+        issue = sb.issue_count(lines)
+        clk = float(subprocess.run(
+            ["nvidia-smi", "--query-gpu=clocks.max.sm",
+             "--format=csv,noheader,nounits"], capture_output=True,
+            text=True, check=True).stdout.split()[0])
+        warp, t_ops = sb.issue_bound_s(S * N * K, 4, issue["hot"], clk)
+        t_bytes = S * N * K * 8 / PEAK_BYTES_PER_S
         bms = 1e3 * max(t_bytes, t_ops)
         bby = "bytes" if t_bytes >= t_ops else "operations"
-        print(f"  ({N}, {K}) float32, device time a call: kernel {ms:.4f} ms,"
-              f" plain {plain_ms:.4f} ms, library {library_ms:.4f} ms "
-              f"(torch.randn * exp(lgstd): three kernels, other bits), bound "
-              f"{bms:.4f} ms ({bby}); one wrapper call between CUDA events "
+        print(f"  issue: {issue['hot']} SASS instructions a loop iteration "
+              f"of 4 elements, {warp:.4g} warp instructions, "
+              f"{1e3 * t_ops:.4f} ms at {clk:.0f} MHz; bytes "
+              f"{1e3 * t_bytes:.4f} ms")
+        print(f"  the step's {S} ({N}, {K}) float32 slices, device time: "
+              f"one launch {ms:.4f} ms, the same slices in {S} one-slice "
+              f"launches {alone_ms:.4f} ms, plain {plain_ms:.4f} ms, library "
+              f"{library_ms:.4f} ms (torch.randn * exp(lgstd) over the "
+              f"stacked slices: three kernels, other bits), bound {bms:.4f} "
+              f"ms ({bby}); one wrapper call between CUDA events "
               f"{call_ms:.4f} ms")
-        max_abs = max(float((bsc.sample_weights(None, l, s) - torch.exp(l)
-                             * bsc.normal_plain(s, tuple(l.shape)))
-                            .abs().max()) for l, s in calls)
+        max_abs = max(float((d - torch.exp(l) * bsc.normal_plain(
+            s, tuple(l.shape))).abs().max()) for d, (l, s) in zip(drawn,
+                                                               calls))
         kernels["bayes_sample"] = dict(
             name="bayes_sample", route="cuda",
             source="bayeslms_tpu_torch/csrc/bayes_sample.cu",
             replaces="bayeslms_tpu/ops/bayes_matmul.py:109",
             max_abs_err=max_abs, ms=ms, plain_ms=plain_ms, bound_ms=bms,
-            bound_by=bby, library_ms=library_ms)
+            bound_by=bby, library_ms=library_ms, slices=S,
+            one_slice_launches_ms=alone_ms)
         if failed:
             raise AssertionError(f"bayes_sample failed: {failed}")
-        del eps
+        del eps, drawn
 
     with phase("bayes_train"):
         for module in (ltc, ctc):
@@ -1400,7 +1486,7 @@ def bayes_phases(torch, kernels, smi, cfg, rcfg, corpus, tmpdir,
             [mock.patch.object(m, n, getattr(m, n + "_plain"))
              for m, n in ((ltc, "lstm_train_fwd"), (ltc, "lstm_train_bwd"),
                           *((ctc, n) for n in CE_TRAIN),
-                          (bsc, "sample_weights"))],
+                          (bsc, "sample_slices"))],
             loss_atol=STEP_LOSS_ATOL,
             hidden=lambda: init_hidden(2, B, bcfg.nhid, device=dev))
 
@@ -2899,17 +2985,18 @@ def check_kernel_calls(torch, kernels, name, spec, calls):
 
 
 def per_step_design_check(torch, kernels, name, spec, calls, run, counts,
-                          faults, design="per_step"):
+                          faults, design="per_step", main="persistent"):
     """``name``'s older design ``design`` ("per_step"; "two_launch" for rows
     19 and 21), ``run`` its wrapper forced onto that design, which the rule
-    keeps for the calls its persistent design does not take, on ``calls``
-    (the persistent design's, checked just before) against the twin within
+    keeps for the calls its ``main`` design ("persistent"; "streamed" for
+    row 3) does not take, on ``calls`` (the main design's, checked just
+    before) against the twin within
     GP_TOL[name] (with the spec's slack where it has one), and the planted
     faults ``faults`` (a name, or a tuple of names, of ``spec["faults"]``:
     an input fault or a build) on the first call by FAULT_MARGIN or more;
     every run counted in ``counts`` (calls by design) as ``design``; timed on
     the first call, the time added to ``kernels[name]`` as ``<design>_ms``
-    beside the persistent design's ``ms``. Raises on a failed check."""
+    beside the main design's ``ms``. Raises on a failed check."""
     from bayeslms_tpu_torch.ops import _build
 
     real_load = _build.load
@@ -2950,9 +3037,9 @@ def per_step_design_check(torch, kernels, name, spec, calls, run, counts,
             print(f"  planted fault '{fault}': worst share of tolerance "
                   f"{shares[fault]:.1f}")
         ms = cuda_ms(torch, lambda: run(*args), 5)
-        print(f"  {label} {ms:.3f} ms (the persistent design "
+        print(f"  {label} {ms:.3f} ms (the {main} design "
               f"{kernels[name]['ms']:.3f} ms on the same call)")
-        kernels[name].update({"design": "persistent", f"{design}_ms": ms,
+        kernels[name].update({"design": main, f"{design}_ms": ms,
                               f"{design}_max_abs_err": err})
         if worst > 1:
             raise AssertionError(f"the {label} design disagrees with its "
@@ -2963,13 +3050,13 @@ def per_step_design_check(torch, kernels, name, spec, calls, run, counts,
                                  f"the tolerance only {low}")
 
 
-def persistent_only(counts, before, row):
+def persistent_only(counts, before, row, design="persistent"):
     """Raises unless the calls since ``before`` (calls by design) all took
-    the persistent design."""
-    if any(counts[k] != before[k] for k in counts if k != "persistent") \
+    ``design`` (the persistent one unless named)."""
+    if any(counts[k] != before[k] for k in counts if k != design) \
             or counts == before:
         raise AssertionError(f"{row}'s checks took {counts} (before: "
-                             f"{before}): the persistent design alone "
+                             f"{before}): the {design} design alone "
                              f"expected")
 
 
@@ -2996,7 +3083,7 @@ def gp_fit(torch, kernels, trainer, corpus, smi, kl_scale, tag, cell_rows,
                 module.launches[k] = 0
         for k in lc.layer_launches:
             lc.layer_launches[k] = 0
-        lc.layer_design_launches.update(persistent=0, per_step=0)
+        lc.layer_design_launches.update(persistent=0, streamed=0, per_step=0)
         gpc.design_launches[bwd].update(persistent=0, two_launch=0)
         gpc.design_launches[fwd].update(persistent=0, per_step=0)
         steps, kls = [], []
@@ -3044,7 +3131,8 @@ def gp_fit(torch, kernels, trainer, corpus, smi, kl_scale, tag, cell_rows,
         if n_eval <= 0 or launches["lstm_fwd"] != n_eval:
             raise AssertionError(f"evaluate did not take {fwd} and row 4 on "
                                  "every window")
-        if lc.layer_design_launches != {"persistent": n_eval, "per_step": 0}:
+        if lc.layer_design_launches != {"persistent": n_eval, "streamed": 0,
+                                        "per_step": 0}:
             raise AssertionError(f"row 4 left its persistent design in "
                                  f"evaluate: {lc.layer_design_launches}")
         print(f"  {fwd} by design: {gpc.design_launches[fwd]}; {bwd} by "
@@ -3070,15 +3158,16 @@ def gp_fit(torch, kernels, trainer, corpus, smi, kl_scale, tag, cell_rows,
 
 def gp_score(torch, scorer, nbest, w2i, smi, tag):
     """A timed packed-carry pass of a GP-LSTM (its GP cell on the scan
-    under the resets, as in JAX; its standard layer on row 3, the CE on row
-    2) against the plain path within GP_SCORE_ATOL + GP_SCORE_RTOL |plain|.
-    Returns row 3's launches in the pass. Raises on any failed check."""
+    under the resets, as in JAX; its standard layer on row 3's streamed
+    design, one launch a call; the CE on row 2) against the plain path
+    within GP_SCORE_ATOL + GP_SCORE_RTOL |plain|. Returns row 3's launches
+    in the pass. Raises on any failed check."""
     from bayeslms_tpu_torch.ops import ce_cuda
     from bayeslms_tpu_torch.ops import lstm_cuda as lc
 
     with phase(f"{tag} score"):
         lc.layer_launches["lstm_fwd_reset"] = 0
-        lc.layer_design_launches.update(persistent=0, per_step=0)
+        lc.layer_design_launches.update(persistent=0, streamed=0, per_step=0)
         ce_cuda.launches = 0
         t0 = time.perf_counter()
         res = scorer.score_nbest(nbest, w2i, stream_fn=stream_of)
@@ -3089,8 +3178,10 @@ def gp_score(torch, scorer, nbest, w2i, smi, tag):
               f"{n_row2}; the GP cell runs the scan under resets, as in JAX")
         if n_row3 == 0 or n_row2 == 0:
             raise AssertionError("GP scoring did not run rows 3 and 2")
-        if lc.layer_design_launches != {"persistent": 0, "per_step": n_row3}:
-            raise AssertionError(f"row 3 (resets) left the per-step kernel: "
+        print(f"  row 3 by design: {lc.layer_design_launches}")
+        if lc.layer_design_launches != {"persistent": 0, "streamed": n_row3,
+                                        "per_step": 0}:
+            raise AssertionError(f"row 3 (resets) left the streamed design: "
                                  f"{lc.layer_design_launches}")
         got = np.array([s for pairs in res.values() for _, s in pairs])
         with mock.patch.object(lc, "lstm_fwd", lc.lstm_fwd_plain), \
@@ -3147,6 +3238,11 @@ def lstm_fwd_specs(torch, lc):
     }
     reset_faults = {
         **faults,
+        # the same fault on the calls from a carried state alone: its share
+        # there, where a zero h0 cannot hide the product
+        "W_hh product dropped, from a carried state":
+            lambda a: with_arg(a, 1, torch.zeros_like(a[1]))
+            if bool(a[3].any()) else None,
         "resets ignored": lambda a: with_arg(a, 6, torch.zeros_like(a[6])),
         # a kernel that gathered column 0 for a -1 source
         "-1 source not zeroed": lambda a: None if not bool(
@@ -3397,22 +3493,28 @@ def gp_phases(torch, kernels, smi, cfg, rcfg, corpus, tmpdir):
               f"{tuple(calls[0][0].shape)}, resets "
               f"{int((calls[0][6] != 0).sum())}")
 
-    # the pass's call, and a copy whose every third chain restarts from a
-    # zero state (source -1), as a chain's first utterance would
+    # the pass's call, a copy whose every third chain restarts from a zero
+    # state (source -1), as a chain's first utterance would, and the pass's
+    # call from a carried state (a later chunk's), where a dropped W_hh
+    # product cannot hide behind a zero h0
     a = calls[0]
     src = a[7].clone()
     N = max(len(h) for h in nbest.values())
     src[(torch.arange(src.numel(), device=src.device) // N) % 3 == 1] = -1
+    row3_calls = [("one packed-carry pass", a),
+                  ("that pass with -1 sources", with_arg(a, 7, src)),
+                  ("that pass from a carried state",
+                   carried_state(torch, a, 3, 13))]
     before = dict(lc.layer_design_launches)
     check_kernel_calls(torch, kernels, "lstm_fwd_reset",
-                       lspecs["lstm_fwd_reset"], [
-                           ("one packed-carry pass", a),
-                           ("that pass with -1 sources", with_arg(a, 7, src))])
-    if lc.layer_design_launches["persistent"] != before["persistent"]:
-        raise AssertionError(f"row 3's checks took {lc.layer_design_launches}"
-                             f" (before: {before}): the per-step kernel alone "
-                             f"expected")
-    del recorded, calls, a
+                       lspecs["lstm_fwd_reset"], row3_calls)
+    persistent_only(lc.layer_design_launches, before, "row 3", "streamed")
+    per_step_design_check(
+        torch, kernels, "lstm_fwd_reset", lspecs["lstm_fwd_reset"],
+        row3_calls, lambda *a: lc._lstm_fwd("per_step", *a),
+        lc.layer_design_launches, ("W_hh product dropped", "resets ignored"),
+        main="streamed")
+    del recorded, calls, a, row3_calls
 
     kernels["lstm_fwd_reset"]["launches"] = gp_score(
         torch, scorer, nbest, w2i, smi, "gp")
@@ -4120,8 +4222,8 @@ def lstm2_phases(torch, kernels, smi, cfg, corpus, tmpdir):
         compare_steps(
             torch, btrainer, data, target, kl_scale,
             draw_dropout_masks(bcfg, T, B, gen, "cuda"),
-            plain + [mock.patch.object(bsc, "sample_weights",
-                                       bsc.sample_weights_plain)],
+            plain + [mock.patch.object(bsc, "sample_slices",
+                                       bsc.sample_slices_plain)],
             loss_atol=STEP_LOSS_ATOL,
             hidden=lambda: init_hidden(2, B, bcfg.nhid, device="cuda"))
         if dict(l2c.launches) != {n: 1 for n in names}:
@@ -4265,6 +4367,7 @@ def family_phases(torch, smi, cfg, rcfg, corpus, tmpdir, tm=False):
         scorer = BatchScorer(mcfg, load_checkpoint(save)[0], rcfg)
         ce_cuda.launches = lc.launches = 0
         lc.layer_launches["lstm_fwd_reset"] = 0
+        lc.layer_design_launches.update(persistent=0, streamed=0, per_step=0)
         if tm:
             plain = [ce_plain]
             count = lambda: {"ce_fwd": ce_cuda.launches}  # noqa: E731
@@ -4283,6 +4386,16 @@ def family_phases(torch, smi, cfg, rcfg, corpus, tmpdir, tm=False):
             plain = [ce_plain]
             count = lambda: {"ce_fwd": ce_cuda.launches}  # noqa: E731
         family_score(torch, scorer, nbest, w2i, smi, tag, plain, count)
+        if not tm and mcfg.l_gauss_legacy_pos >= 0:
+            # row 3 (its standard layer under resets) on the streamed
+            # design, one launch a call
+            n_row3 = lc.layer_launches["lstm_fwd_reset"]
+            print(f"  row 3 by design: {lc.layer_design_launches}")
+            if lc.layer_design_launches != {"persistent": 0,
+                                            "streamed": n_row3,
+                                            "per_step": 0}:
+                raise AssertionError(f"{tag}: row 3 left the streamed "
+                                     f"design: {lc.layer_design_launches}")
         del scorer, trainer
     return fused
 

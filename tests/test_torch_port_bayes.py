@@ -464,3 +464,53 @@ def test_gaussian_closed_forms_and_samplers_match_jax():
     for a in (x.numpy(), np.asarray(ref)):
         assert 2 * np.log(s) <= a.min() and a.max() <= np.log(s)
         assert a.max() - a.min() > 0.95 * -np.log(s)
+
+
+@pytest.mark.parametrize("both", [True, False])
+def test_admitted_slices_are_drawn_in_one_call(monkeypatch, both):
+    """The kernel route's draws with the gate forced open on the CPU: the
+    admitted weight slices (layer 1 then 2, w_hh before w_ih) go to one
+    ``sample_noises`` call under seeds from one ``torch.randint`` of the
+    generator, the biases to ``gaussian.sample_diff`` after it; each slice
+    equals ``sample_weights_plain`` under its seed."""
+    from bayeslms_tpu_torch.ops import bayes_sample_cuda as bsc
+    from bayeslms_tpu_torch.ops import gaussian as tg
+
+    H = 128  # the gate's 128-row tiles
+    cfg = bt.ModelConfig(model="LSTM", vocab_size=V, emsize=H, nhid=H,
+                         nlayers=2, dropout=0.0, uncertainty="Bayesian",
+                         l_bayes_pos=3)
+    core = BayesLSTMCore(cfg, both_layers=both)
+    core.reset_parameters(torch.Generator().manual_seed(0))
+    monkeypatch.setattr(bsc, "sample_noise_ok",
+                        lambda lg: bsc.tile_shape_ok(tuple(lg.shape)))
+    calls, biases = [], []
+    real_noises, real_diff = bsc.sample_noises, tg.sample_diff
+
+    def noises(lgstds, seeds):
+        calls.append(([lg.shape for lg in lgstds], seeds.clone()))
+        return real_noises(lgstds, seeds)
+
+    def diff(lg, *a, **kw):
+        biases.append(lg.shape)
+        return real_diff(lg, *a, **kw)
+
+    monkeypatch.setattr(bsc, "sample_noises", noises)
+    monkeypatch.setattr(tg, "sample_diff", diff)
+    gen = torch.Generator().manual_seed(5)
+    eff = core._perturbed(gen, None)
+    layers = (1, 2) if both else (1,)
+    assert [s for s, _ in calls] == [[(H, H), (H, 128)] * len(layers)]
+    assert biases == [(H,)] * (2 * len(layers))
+    seeds = calls[0][1]
+    want = torch.randint(0, 2 ** 31 - 1, (2 * len(layers),),
+                         generator=torch.Generator().manual_seed(5),
+                         dtype=torch.int32)
+    assert torch.equal(seeds, want)
+    r = slice(2 * H, 3 * H)
+    for k, (li, n) in enumerate((li, n) for li in layers
+                                for n in ("w_hh", "w_ih")):
+        lg = core.lgstds(li)[n]
+        d = eff[li - 1][n][r] - core.means(li)[n][r]
+        ref = bsc.sample_weights_plain(None, lg.detach(), seeds[k:k + 1])
+        torch.testing.assert_close(d.detach(), ref, rtol=0, atol=1e-6)

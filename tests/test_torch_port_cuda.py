@@ -473,6 +473,72 @@ def test_sampler_kernel_matches_plain(dev, shape):
     assert torch.equal(lgr.grad, noise * 3.0)
 
 
+def test_sampler_table_draws_each_slice_as_alone(dev):
+    """One launch over four slices (the Bayesian LSTM's step hands it its
+    admitted gate slices so) equals the same slices drawn one by one under
+    their seeds, bit for bit, with and without means; the table's Function
+    gives each slice's gradient g_i * noise_i."""
+    g = torch.Generator().manual_seed(8)
+    shapes = ((1024, 1024), (256, 384), (300, 6), (3, 2))
+    lgs = [(torch.rand(s, generator=g) * 3 - 3).to(dev) for s in shapes]
+    means = [torch.randn(s, generator=g).to(dev) if i % 2 else None
+             for i, s in enumerate(shapes)]
+    seeds = torch.tensor([5, 2 ** 31 - 3, 77, 0], dtype=torch.int32,
+                         device=dev)
+    for ms in (None, means):
+        before = bayes_sample_cuda.launches
+        got = bayes_sample_cuda.sample_slices(lgs, seeds, ms)
+        assert bayes_sample_cuda.launches == before + 1
+        for i, (lg, out) in enumerate(zip(lgs, got)):
+            m = None if ms is None else ms[i]
+            alone = bayes_sample_cuda.sample_weights(m, lg, seeds[i:i + 1])
+            assert torch.equal(out, alone)
+    lgr = [lg.clone().requires_grad_(True) for lg in lgs]
+    noises = bayes_sample_cuda.sample_noises(lgr, seeds)
+    gs = [torch.randn(s, generator=g).to(dev) for s in shapes]
+    sum((gi * n).sum() for gi, n in zip(gs, noises)).backward()
+    for lg, gi, n in zip(lgr, gs, noises):
+        assert torch.equal(lg.grad, gi * n.detach())
+
+
+@pytest.mark.parametrize("M,N,K", [(37, 256, 384), (3200, 512, 4096)])
+def test_bayes_matmul_backward_redraws_the_forwards_w(dev, M, N, K):
+    """Row 12's split forward draws W once as three bf16 pieces summing to
+    it; its backward draws W again with the sampler (row 13's table of one
+    slice): the same W, bit for bit."""
+    import ctypes
+
+    from bayeslms_tpu_torch.ops import bayes_matmul_cuda as bmc
+
+    g = torch.Generator().manual_seed(N + K)
+    x = torch.randn((M, K), generator=g).to(dev, torch.bfloat16)
+    mean = (torch.randn((N, K), generator=g) * 0.1).to(dev)
+    lg = (torch.rand((N, K), generator=g) * 2 - 4).to(dev)
+    seed = torch.tensor([2468], dtype=torch.int32, device=dev)
+    pieces = torch.empty((3, N, K), dtype=torch.bfloat16, device=dev)
+    y = torch.empty((M, N), dtype=torch.bfloat16, device=dev)
+    fn = _build.load("bayes_matmul").bayes_matmul_split
+    fn.argtypes, fn.restype = bmc._SPLIT_ARGTYPES, ctypes.c_int
+    assert fn(seed.data_ptr(), x.data_ptr(), mean.data_ptr(), lg.data_ptr(),
+              pieces.data_ptr(), y.data_ptr(), M, N, K,
+              torch.cuda.current_stream(dev).cuda_stream) == 0
+    w_fwd = (pieces[0].float() + pieces[1].float()) + pieces[2].float()
+    drawn = []
+    real = bayes_sample_cuda.sample_weights
+
+    def spy(*a):
+        drawn.append(real(*a))
+        return drawn[-1]
+
+    xr, mr, lr = (t.clone().requires_grad_(True) for t in (x, mean, lg))
+    with mock.patch.object(bayes_sample_cuda, "sample_weights", spy):
+        out = bmc.bayes_matmul(xr, mr, lr, seed)
+        out.float().sum().backward()
+    torch.cuda.synchronize()
+    assert len(drawn) == 1 and torch.equal(drawn[0], w_fwd)
+    assert torch.equal(out.detach(), y)
+
+
 def test_sampler_refuses_what_the_kernel_does_not_take(dev):
     seed = torch.zeros((1,), dtype=torch.int32, device=dev)
     for lg, sd in ((torch.zeros((3, 5), device=dev), seed),
@@ -1229,7 +1295,7 @@ def _lstm_fwd_args(dev, T, B, H, masked, f32_state, seed=0):
 @pytest.mark.parametrize("T,B,H,rule,f32_state", [
     (9, 20, 1024, "persistent", True), (9, 32, 1024, "persistent", False),
     (1, 20, 1024, "persistent", True), (6, 5, 64, "persistent", True),
-    (8, 40, 512, "per_step", True)])
+    (8, 40, 512, "streamed", True)])
 def test_lstm_fwd_designs_match_plain(dev, T, B, H, rule, f32_state, masked):
     from bayeslms_tpu_torch.ops import lstm_cuda as lc
 
@@ -1237,8 +1303,7 @@ def test_lstm_fwd_designs_match_plain(dev, T, B, H, rule, f32_state, masked):
     args = _lstm_fwd_args(dev, T, B, H, masked, f32_state, seed=B + H)
     h0 = args[3].clone()
     ref = lc.lstm_fwd_plain(*args)
-    for design in ("persistent", "per_step") if rule == "persistent" \
-            else ("per_step",):
+    for design in (rule, "per_step"):
         before = dict(lc.layer_design_launches)
         got = lc._lstm_fwd(design, *args) if design != rule \
             else lc.lstm_fwd(*args)
@@ -1253,13 +1318,13 @@ def test_lstm_fwd_designs_match_plain(dev, T, B, H, rule, f32_state, masked):
 
 
 def test_lstm_fwd_rule_sends_resets_to_the_per_step_kernel(dev):
-    """Row 3 (resets) at a batch and width the persistent design takes
-    without resets: the rule names the per-step kernel, the wrapper takes
-    it, and the persistent design refuses the call; it refuses a batch past
-    32 columns too."""
+    """Row 3 (resets) at a width off the streamed design's 64-column
+    chunks: the rule names the per-step kernel, the wrapper takes it, and
+    the persistent and streamed designs refuse the call; row 4's persistent
+    design refuses resets and a batch past 32 columns at any width."""
     from bayeslms_tpu_torch.ops import lstm_cuda as lc
 
-    T, B, H = 7, 20, 1024
+    T, B, H = 7, 20, 96
     args = _lstm_fwd_args(dev, T, B, H, True, True, seed=3)
     reset = (torch.rand((T, B)) < 0.2).to(dev, torch.uint8)
     src = ((torch.arange(B) // 4) * 4).to(torch.int32)
@@ -1268,6 +1333,8 @@ def test_lstm_fwd_rule_sends_resets_to_the_per_step_kernel(dev):
     n = _build.sm_count(0)
     assert lc._design_fwd(T, B, H, n)["design"] == "persistent"
     assert lc._design_fwd(T, B, H, n, resets=True)["design"] == "per_step"
+    assert lc._design_fwd(T, B, 1024, n, resets=True)["design"] == \
+        "streamed"
     before = dict(lc.layer_design_launches)
     got = lc.lstm_fwd(*args, reset, src)
     torch.cuda.synchronize()
@@ -1275,11 +1342,69 @@ def test_lstm_fwd_rule_sends_resets_to_the_per_step_kernel(dev):
                                         "per_step": before["per_step"] + 1}
     for a, b in zip(got, lc.lstm_fwd_plain(*args, reset, src)):
         _within(a, b, 2 ** -6, 2 ** -12)
-    with pytest.raises(ValueError):
-        lc._lstm_fwd("persistent", *args, reset, src)
+    for design in ("persistent", "streamed"):
+        with pytest.raises(ValueError):
+            lc._lstm_fwd(design, *args, reset, src)
     with pytest.raises(ValueError):
         lc._lstm_fwd("persistent", *_lstm_fwd_args(dev, 3, 40, 64, False,
                                                    True))
+
+
+def _row3_args(dev, T, B, H, carried, seed):
+    """Row 3's arguments as a packed-carry pass hands them: W scaled by
+    1 / sqrt(H), a tenth of the (step, column) pairs masked, a sixteenth
+    reset, sources in blocks of 20 columns and -1 (a zero state) on every
+    ninth; the initial state zero (a pass's first chunk) or carried, uniform
+    in +-0.5 (a later chunk), where a dropped recurrent product cannot
+    hide."""
+    g = torch.Generator().manual_seed(seed)
+    r = lambda *s, sc=1.0: ((torch.rand(s, generator=g) * 2 - 1) * sc)  # noqa: E731
+    bf = torch.bfloat16
+    h0, c0 = (r(B, H, sc=0.5) if carried else torch.zeros(B, H)
+              for _ in range(2))
+    mask = (torch.rand((T, B), generator=g) < 0.9).to(dev, torch.uint8)
+    reset = (torch.rand((T, B), generator=g) < 1 / 16).to(dev, torch.uint8)
+    src = ((torch.arange(B) // 20) * 20).to(torch.int32)
+    src[::9] = -1
+    return [r(T, B, 4 * H).to(dev, bf), r(4 * H, H, sc=H ** -0.5).to(dev, bf),
+            r(4 * H, sc=0.1).to(dev), h0.to(dev, bf), c0.to(dev, bf), mask,
+            reset, src.to(dev)]
+
+
+# Row 3's streamed design at the GP packed-carry pass's call and at batches
+# off the 64-row m tile, from a zero and from a carried state, beside the
+# per-step design on the same calls. Tolerance: chip_smoke.py's for this
+# kernel (GP_TOL["lstm_fwd_reset"]: rtol 2^-6, 2^-12 of the largest
+# entry). The dropped W_hh product must land outside it from the carried
+# state.
+@pytest.mark.parametrize("carried", [False, True])
+@pytest.mark.parametrize("T,B,H", [(256, 600, 1024), (9, 70, 64),
+                                   (6, 130, 256), (5, 33, 512)])
+def test_lstm_fwd_streamed_matches_plain(dev, T, B, H, carried):
+    from bayeslms_tpu_torch.ops import lstm_cuda as lc
+
+    assert lc._design_fwd(T, B, H, _build.sm_count(0), resets=True)[
+        "design"] == "streamed"
+    args = _row3_args(dev, T, B, H, carried, seed=B + H + carried)
+    h0 = args[3].clone()
+    ref = lc.lstm_fwd_plain(*args)
+    for design in ("streamed", "per_step"):
+        before = dict(lc.layer_design_launches)
+        got = lc.lstm_fwd(*args) if design == "streamed" \
+            else lc._lstm_fwd(design, *args)
+        torch.cuda.synchronize()
+        assert lc.layer_design_launches == {
+            **before, design: before[design] + 1}
+        for a, b in zip(got, ref):
+            assert a.dtype == torch.bfloat16
+            _within(a, b, 2 ** -6, 2 ** -12)
+        assert torch.equal(args[3], h0)  # the caller's state is not written
+        again = lc._lstm_fwd(design, *args)
+        assert all(torch.equal(a, b) for a, b in zip(got, again))
+    if carried:
+        bad = list(args)
+        bad[1] = torch.zeros_like(args[1])
+        assert max(_shares(lc.lstm_fwd(*bad), ref, 2 ** -6, 2 ** -12)) > 1
 
 
 # Row 7's designs: the persistent one (layer 1's recurrence storing h1d,

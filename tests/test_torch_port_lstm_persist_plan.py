@@ -60,9 +60,9 @@ def test_row4_persistent_where_it_fits(T, B, H):
 
 
 @pytest.mark.parametrize("T,B,H,n_sm,resets", [
-    (100, 20, 1024, N_SM, True),    # resets: row 3, the per-step kernel
-    (256, 600, 1024, N_SM, True),   # row 3's packed-carry pass
-    (100, 33, 1024, N_SM, False),   # a batch past the two m16 row tiles
+    (256, 400, 96, N_SM, True),     # resets off the streamed design's chunks
+    (256, 600, 2048, N_SM, True),   # resets, 256 streamed CTAs: too many
+    (100, 33, 1024, 114, False),    # past 32 columns on a card of 114 SMs
     (100, 20, 1088, N_SM, False),   # 136 CTAs: more than 132 SMs
     (100, 20, 1024, 114, False),    # a card of 114 SMs cannot hold 128
 ])

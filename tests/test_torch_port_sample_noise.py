@@ -150,3 +150,54 @@ def test_gate_admits_the_shapes_the_jax_gate_admits(shape, monkeypatch):
                         lambda: [SimpleNamespace(platform="tpu")])
     assert bs.tile_shape_ok(shape) == bm.sample_noise_ok(shape)
     assert not bs.sample_noise_ok(torch.zeros(shape))
+
+
+# ------------------------------------------------ a step's slices at once
+
+def _slices(seed):
+    """Four slices of the shapes a table takes: two 128-row tiles, a
+    ragged last tile, a slice whose count ends in a pair (N K % 4 = 2)."""
+    rng = np.random.default_rng(seed)
+    shapes = ((256, 384), (128, 128), (300, 6), (3, 2))
+    lgs = [torch.from_numpy(rng.uniform(-4, 0, size=s).astype(np.float32))
+           for s in shapes]
+    means = [torch.from_numpy(rng.normal(size=s).astype(np.float32))
+             if i % 2 else None for i, s in enumerate(shapes)]
+    seeds = torch.tensor([7, 2 ** 31 - 2, 0, 123], dtype=torch.int32)
+    return lgs, means, seeds
+
+
+def test_slices_twin_is_each_slice_drawn_alone():
+    """Slice i of a table is ``sample_weights_plain`` under ``seeds[i]``,
+    bit for bit, with and without a mean; the CPU route takes the twin."""
+    lgs, means, seeds = _slices(1)
+    for ms in (None, means):
+        got = bs.sample_slices(lgs, seeds, ms)
+        for i, (lg, g) in enumerate(zip(lgs, got)):
+            m = None if ms is None else ms[i]
+            assert torch.equal(g, bs.sample_weights_plain(m, lg,
+                                                          seeds[i:i + 1]))
+            assert torch.equal(g, bs.sample_weights(m, lg, seeds[i:i + 1]))
+    # the same slices under other seeds differ everywhere but by chance
+    other = bs.sample_slices_plain(lgs, seeds + 1)
+    for a, b in zip(other, bs.sample_slices_plain(lgs, seeds)):
+        assert float((a != b).double().mean()) > 0.99
+    assert bs.launches == 0  # CPU tensors never reach the kernel
+
+
+def test_sample_noises_gradient_is_each_slices_noise():
+    """d/dlgstd_i sum_j(g_j * n_j) = g_i * n_i exactly, as JAX's
+    ``_sample_noise_bwd`` gives slice by slice; an unused output gives a
+    zero gradient."""
+    lgs, _, seeds = _slices(2)
+    lgr = [lg.clone().requires_grad_(True) for lg in lgs]
+    noises = bs.sample_noises(lgr, seeds)
+    rng = np.random.default_rng(4)
+    gs = [torch.from_numpy(rng.normal(size=lg.shape).astype(np.float32))
+          for lg in lgs]
+    sum((g * n).sum() for g, n in zip(gs[:3], noises[:3])).backward()
+    for i, (lg, g, n) in enumerate(zip(lgr, gs, noises)):
+        assert torch.equal(n.detach(), bs.sample_slices_plain(
+            [lgs[i]], seeds[i:i + 1])[0])
+        want = g * n.detach() if i < 3 else torch.zeros_like(n)
+        assert torch.equal(lg.grad, want)

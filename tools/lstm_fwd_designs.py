@@ -1,8 +1,12 @@
 #!/usr/bin/env python3
-"""Kernel rows 1, 4, 5 and 7 (the LSTM forward recurrences) in both designs
-on one card: row 1 (``lstm2_fwd``, the 2-layer scoring recurrence) at the
-LSTM scoring pass's call (T 256, B 600, H 1,024) and at an ``evaluate``
-window's (T 100, B 20), row 5 (``lstm_train_fwd``, the training forward)
+"""Kernel rows 1, 3, 4, 5 and 7 (the LSTM forward recurrences) in their
+designs on one card: row 1 (``lstm2_fwd``, the 2-layer scoring recurrence)
+at the LSTM scoring pass's call (T 256, B 600, H 1,024) and at an
+``evaluate`` window's (T 100, B 20), row 3 (``lstm_fwd`` with resets, the
+GP-LSTM's standard layer in a packed-carry pass) at that pass's call (T
+256, B 600, H 1,024: the streamed design with the rings its rule takes
+and with 4 and 2 stages each, and the per-step design), row 5
+(``lstm_train_fwd``, the training forward)
 at a training step's call (T 100, B 32, H 1,024), row 4 (``lstm_fwd``
 without resets, one layer of eval) at an ``evaluate`` window's call (T
 100, B 20, H 1,024), row 7 (``lstm2_train_fwd``, the fused 2-layer
@@ -10,7 +14,7 @@ training forward) at a training step's call (T 100, B 32, H 1,024) with
 a dropout mask of rate 0.2.
 
     python3 tools/lstm_fwd_designs.py [--ptxas] [--repeats 5]
-                                      [--root CHECKOUT] [--rows 1,4,5,7]
+                                      [--root CHECKOUT] [--rows 1,3,4,5,7]
 
 Needs a CUDA card and nvcc. Inputs are random from fixed seeds: W scaled
 by 1 / sqrt(H), a step mask that drops a tenth of the (step, column)
@@ -32,7 +36,10 @@ elementwise). Rows 4 and 7 are held to chip_smoke.py's tolerance (rtol
 before its timing, row 7's two designs run on the card test's calls and
 inputs (``test_lstm2_train_fwd_designs_match_plain``) and at T = 100, and
 print each output's share of chip_smoke.py's tolerance and of the card
-test's (2^-10 of the largest |plain|);
+test's (2^-10 of the largest |plain|). Row 3 is held to chip_smoke.py's
+tolerance (rtol 2^-6, 2^-12 of the largest |plain|) on inputs as a pass
+hands them (a sixteenth of the pairs reset, sources in blocks of 20, -1
+on every ninth, a tenth masked) from a carried state (+-0.5);
 row 5 also prints a checksum of its persistent design's outputs, which a
 change that only moves its code must leave as it was. ``--ptxas`` first
 compiles csrc/lstm2_fwd.cu, csrc/lstm_train.cu, csrc/lstm_fwd.cu and
@@ -47,6 +54,7 @@ import os
 import subprocess
 import sys
 import tempfile
+from unittest import mock
 
 import numpy as np
 
@@ -196,8 +204,8 @@ def main():
     ap.add_argument("--repeats", type=int, default=5)
     ap.add_argument("--root", default=ROOT,
                     help="checkout whose bayeslms_tpu_torch/ is measured")
-    ap.add_argument("--rows", default="1,4,5,7",
-                    help="kernel rows to measure, of 1, 4, 5 and 7")
+    ap.add_argument("--rows", default="1,3,4,5,7",
+                    help="kernel rows to measure, of 1, 3, 4, 5 and 7")
     args = ap.parse_args()
     rows = {int(r) for r in args.rows.split(",")}
     sys.path.insert(0, os.path.abspath(args.root))
@@ -220,6 +228,8 @@ def main():
     with torch.no_grad():
         if 1 in rows:
             row1(torch, lc, two, args.repeats)
+        if 3 in rows:
+            row3(torch, lc, args.repeats)
         if 5 in rows:
             row5(torch, ltc, args.repeats)
         if 4 in rows:
@@ -326,6 +336,39 @@ def row4(torch, lc, repeats):
                   f"max |kernel - plain| {err:.3e}, worst share of the "
                   f"tolerance {q:.3f}")
     cudnn(torch, 1, 20, repeats)
+
+
+def row3(torch, lc, repeats):
+    """Row 3 at the GP packed-carry pass's call: the streamed design at
+    three ring depths, then the per-step design (the parent's public
+    call)."""
+    T, B, H = 256, 600, 1024
+    a = row1_args(torch, T, B, H, seed=3)
+    call = [a[0], a[1], a[2], a[6].float(), a[7].float(), *a[10:]]
+    ref = lc.lstm_fwd_plain(*call)
+    runs = {"public": lambda: lc.lstm_fwd(*call)}
+    if hasattr(lc, "_stream_plan"):
+        n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+        rule = lc._design_fwd(T, B, H, n_sm, resets=True)
+        print(f"row 3, packed-carry call T={T} B={B} H={H}: rule "
+              f"{rule['design']}, {rule.get('units')} units, "
+              f"{rule.get('stages')} stages, {rule['smem_bytes']} bytes")
+        runs = {}
+        for stages in sorted({rule["stages"], 8, 4}, reverse=True):
+            # the rule's depth, then shallower rings: its cap lowered
+            def fn(cap=stages):
+                with mock.patch.object(lc, "S_MAX_NST", cap):
+                    return lc._lstm_fwd("streamed", *call)
+            runs[f"streamed, two rings of {stages // 2} stages "
+                 f"({rule['ctas']} CTAs, {lc.stream_smem(H, stages)} "
+                 f"bytes)"] = fn
+        runs["per_step"] = lambda: lc._lstm_fwd("per_step", *call)
+    for name, fn in runs.items():
+        err, q = share(fn(), ref, R5_SHARE)
+        torch.cuda.synchronize()
+        print(f"  {name}: {cuda_ms(torch, fn, repeats):.3f} ms, max |kernel "
+              f"- plain| {err:.3e}, worst share of the tolerance {q:.3f}")
+    del a, call, ref
 
 
 def row7(torch, l2c, repeats):

@@ -1,6 +1,10 @@
 #!/usr/bin/env python3
-"""Checksums of the outputs of kernel rows 4, 5, 7 and 8 in the designs
-their rules pick, on one card, from fixed seeds: rows 7 and 8 (the fused
+"""Checksums of the outputs of kernel rows 1, 4, 5, 7 and 8 in the designs
+their rules pick, on one card, from fixed seeds: row 1 (``ops/lstm_cuda.py``
+``lstm2_fwd``, the 2-layer scoring recurrence) at the LSTM scoring pass's
+call (T 256, B 600, H 1,024, a step mask, resets on a sixteenth of the
+pairs, sources in blocks of 20 and -1 on every ninth, a carried state);
+rows 7 and 8 (the fused
 2-layer LSTM training forward and backward, ``ops/lstm2_train_cuda.py``)
 at a training step's call (T 100, B 32, H 1,024, a step mask and a
 dropout mask of rate 0.2), row 5 (``ops/lstm_train_cuda.py``
@@ -12,9 +16,9 @@ B 20, H 1,024, the fp32 state, no mask).
 
 Needs a CUDA card and nvcc. For each output it prints its float64 sum and
 the SHA-256 of its bytes: a change that only moves the kernels' code (rows
-7-8's GEMM into csrc/gates_gemm.cuh, say, or the persistent forward's step
-of rows 4, 5 and 7 made generic over its cell) must leave every line as it
-was. ``--root`` runs another checkout's kernels (a parent unpacked by
+7-8's GEMM into csrc/gates_gemm.cuh, the persistent forward's step of rows
+4, 5 and 7 made generic over its cell, or row 1's ring and products moved
+into csrc/lstm_stream.cuh) must leave every line as it was. ``--root`` runs another checkout's kernels (a parent unpacked by
 ``git archive``; only its ``bayeslms_tpu_torch/`` is needed) on the same
 inputs.
 """
@@ -32,6 +36,12 @@ def digest(torch, t):
     """(float64 sum, SHA-256 of the bytes) of a tensor on the card."""
     raw = t.detach().contiguous().cpu().view(torch.uint8).numpy().tobytes()
     return float(t.double().sum()), hashlib.sha256(raw).hexdigest()[:16]
+
+
+def row1_flat(out):
+    """Row 1's outputs (ys2, (hT1, hT2), (cT1, cT2)) as one tuple."""
+    ys, (h1, h2), (c1, c2) = out
+    return ys, h1, h2, c1, c2
 
 
 def main():
@@ -72,18 +82,34 @@ def main():
     Be = 20
     eval_args = [r(T, Be, 4 * H).to(bf), r(4 * H, H, sc=sw).to(bf),
                  r(4 * H, sc=0.1), r(Be, H, sc=0.5), r(Be, H, sc=0.5)]
+    # row 1 at the scoring pass's call
+    Ts, Bs = 256, 600
+    score_args = [r(Ts, Bs, 4 * H).to(bf), r(4 * H, H, sc=sw).to(bf),
+                  r(4 * H, sc=0.1), r(4 * H, H, sc=sw).to(bf),
+                  r(4 * H, H, sc=sw).to(bf), r(4 * H, sc=0.1),
+                  *(r(Bs, H, sc=0.5).to(bf) for _ in range(4)),
+                  (torch.rand((Ts, Bs), generator=g) < 0.9).to(
+                      "cuda", torch.uint8),
+                  (torch.rand((Ts, Bs), generator=g) < 1 / 16).to(
+                      "cuda", torch.uint8)]
+    src = ((torch.arange(Bs) // 20) * 20).to(torch.int32)
+    src[::9] = -1
+    score_args.append(src.cuda())
     with torch.no_grad():
+        row1 = row1_flat(lc.lstm2_fwd(*score_args))
         fwd = l2c.lstm2_train_fwd(*fwd_args)
         bwd = l2c.lstm2_train_bwd(*fwd_args, *fwd[:4], *grads)
         row5 = ltc.lstm_train_fwd(fwd_args[0], fwd_args[2], fwd_args[3],
                                   mask, fwd_args[8], fwd_args[9])
         row4 = lc.lstm_fwd(*eval_args)
         torch.cuda.synchronize()
-    print(f"designs: row 4 {dict(lc.layer_design_launches)}, row 5 "
+    print(f"designs: row 1 {dict(lc.design_launches)}, row 4 "
+          f"{dict(lc.layer_design_launches)}, row 5 "
           f"{dict(ltc.fwd_design_launches)}, row 7 "
           f"{dict(l2c.fwd_design_launches)}, row 8 "
           f"{dict(l2c.design_launches)}")
     for row, names, outs in (
+            (1, ("ys2", "hT1", "hT2", "cT1", "cT2"), row1),
             (4, ("ys", "hT", "cT"), row4),
             (5, ("ys", "cs", "hT", "cT"), row5),
             (7, ("ys1", "cs1", "ys2", "cs2", "hT1", "cT1", "hT2", "cT2"), fwd),

@@ -2,7 +2,7 @@
 """Where one warm rescoring pass of the PyTorch/CUDA port spends its time.
 
     python3 tools/port_pass_profile.py [--model Transformer] [--xl]
-                                       [--l-gauss-pos S]
+                                       [--l-gauss-pos S] [--repeats 3]
 
 Needs a CUDA card and nvcc. Builds the configuration and N-best of
 chip_smoke.py (the bench's 2-layer 1024/1024 LSTM LM, V = 49,152, bf16,
@@ -12,14 +12,17 @@ chip_smoke.py on the same table, through the packed-nocarry layout;
 recording as chip_smoke.py scores them; ``--l-gauss-pos S``: the GP-LSTM of
 that ``l_gauss_pos`` string through packed-carry, its GP cell on the scan
 (``13``, ``63``: under resets rows 20 and 18 take no part, as in JAX) and
-its standard layer on kernel row 3), runs one warm-up pass, times one
-pass without the profiler, then traces one pass with torch.profiler and
+its standard layer on kernel row 3), runs one warm-up pass, times
+``--repeats`` passes without the profiler (each and their median), then
+traces one pass with torch.profiler and
 prints the device time by kernel (the port's kernels named by their row of
 PERF.md's kernel table), the device's busy time and its idle
 share of the traced pass, the host's time by operator (self time: the
 CUDA runtime calls, among them every launch and synchronisation, are rows
 of their own) and the model forwards the pass made. Nothing is written to
-disk.
+disk. To compare two checkouts, run each one's copy of this script in one
+call (a parent unpacked by ``git archive``), parent, change, change,
+parent.
 """
 
 import os
@@ -51,6 +54,8 @@ def main():
                     help="the Transformer through the xl_mems layout")
     ap.add_argument("--l-gauss-pos", default="",
                     help="the GP-LSTM at this l_gauss_pos string, e.g. 13")
+    ap.add_argument("--repeats", type=int, default=3,
+                    help="untraced passes timed")
     args = ap.parse_args()
     cfg, rcfg, w2i, nbest = chip_smoke.bench_setup()
     if args.l_gauss_pos:
@@ -68,9 +73,12 @@ def main():
         torch.cuda.synchronize()
 
     one_pass()
-    t0 = time.perf_counter()
-    one_pass()
-    plain_s = time.perf_counter() - t0
+    times = []
+    for _ in range(args.repeats):
+        t0 = time.perf_counter()
+        one_pass()
+        times.append(time.perf_counter() - t0)
+    plain_s = sorted(times)[len(times) // 2]
     forwards = []
     hook = scorer.model.register_forward_pre_hook(
         lambda *a: forwards.append(1))
@@ -86,7 +94,8 @@ def main():
             if ev.device_type != DeviceType.CPU and ev.self_device_time_total > 0]
     rows.sort(reverse=True)
     busy_ms = sum(r[0] for r in rows) / 1e3
-    print(f"pass {plain_s * 1e3:.1f} ms untraced, {traced_s * 1e3:.1f} ms "
+    print(f"passes {', '.join(f'{t * 1e3:.1f}' for t in times)} ms "
+          f"untraced (median {plain_s * 1e3:.1f}), {traced_s * 1e3:.1f} ms "
           f"traced; device busy {busy_ms:.1f} ms, idle share "
           f"{1 - busy_ms / (traced_s * 1e3):.3f} of the traced pass "
           f"({torch.cuda.get_device_name(0)}; {cfg.model}, uncertainty "
