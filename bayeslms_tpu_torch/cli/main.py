@@ -1,0 +1,386 @@
+"""Command-line interface of the port, counterpart of
+``bayeslms_tpu/cli/main.py``: the same subcommands, flags and defaults.
+
+  bayeslm-torch train    --data DIR --model LSTM --uncertainty Bayesian \\
+                         --L_bayes_pos 3 --compute-dtype bfloat16 ... --save m.ckpt
+  bayeslm-torch score    --nbest-list F --vocabulary words.txt --model-path m.ckpt ...
+  bayeslm-torch rescore  --lattices F --words words.txt --model-path m.ckpt \\
+                         --arpa lm.arpa --ref ref.txt --workdir WD
+  bayeslm-torch snr      --model-path m.ckpt [--L_bayes_pos 3]
+
+Also ``python -m bayeslms_tpu_torch.cli.main``. ``--platform cuda`` (the
+default) runs on the card and raises without one; ``--platform cpu`` runs
+the kernels' plain versions on the CPU. On the card the kernels take bf16
+operands only, so there ``--compute-dtype float32`` (the default, as in
+the JAX package) raises and names ``--compute-dtype bfloat16``. ``score``
+and ``rescore`` read any checkpoint ``core/checkpoint.py`` ``load_params``
+reads (the port's own, a JAX ``.ckpt``, a reference ``model.pt``).
+
+Not ported yet, each raising ``NotImplementedError`` that names its
+ROADMAP.md item before any device work: ``search`` (item 12),
+``--multihost``, ``--tp-shards`` and ``--dp-shards`` above 1 (item 13),
+``--profile`` and ``--resume`` (item 6). ``--interpolation_flag``,
+``--mc-samples``, ``--backward``, ``--splice-len`` and ``--model_var
+back`` reach the scorer's refusals (item 11).
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import sys
+
+from ..core.config import ModelConfig, RescoreConfig, TrainConfig
+
+
+def _add_model_args(p: argparse.ArgumentParser):
+    p.add_argument("--model", default="LSTM",
+                   choices=["LSTM", "GRU", "RNN_TANH", "RNN_RELU", "Transformer"])
+    p.add_argument("--emsize", type=int, default=1024)
+    p.add_argument("--nhid", type=int, default=1024)
+    p.add_argument("--nlayers", type=int, default=2)
+    p.add_argument("--nhead", type=int, default=8)
+    p.add_argument("--dropout", type=float, default=0.2)
+    p.add_argument("--tied", action="store_true", default=True)
+    p.add_argument("--not-tied", dest="tied", action="store_false")
+    p.add_argument("--uncertainty", default="none",
+                   choices=["none", "Bayesian", "Gaussian", "Variational"])
+    p.add_argument("--T_bayes_pos", default="none",
+                   choices=["none", "FFN", "MHA", "EMB"])
+    p.add_argument("--L_bayes_pos", type=int, default=0)
+    p.add_argument("--T_gauss_pos", type=int, default=3)
+    p.add_argument("--L_gauss_pos", default="00")
+    p.add_argument("--T_v_pos", type=int, default=0)
+    p.add_argument("--L_v_pos", default="00")
+    p.add_argument("--gp-sample", action="store_true")
+    p.add_argument("--compute-dtype", default="float32")
+
+
+def _model_cfg(args, vocab_size: int) -> ModelConfig:
+    return ModelConfig(
+        model=args.model, vocab_size=vocab_size, emsize=args.emsize,
+        nhid=args.nhid, nlayers=args.nlayers, nhead=args.nhead,
+        dropout=args.dropout, tied=args.tied, uncertainty=args.uncertainty,
+        t_bayes_pos=args.T_bayes_pos, l_bayes_pos=args.L_bayes_pos,
+        t_gauss_pos=args.T_gauss_pos, l_gauss_pos=args.L_gauss_pos,
+        t_v_pos=args.T_v_pos, l_v_pos=args.L_v_pos, gp_sample=args.gp_sample,
+        compute_dtype=args.compute_dtype)
+
+
+def _refuse_unported(args) -> None:
+    """The flags whose JAX paths are not ported, before any device work."""
+    if getattr(args, "multihost", False):
+        raise NotImplementedError(
+            "--multihost is not ported yet (ROADMAP.md queue A item 13)")
+    if getattr(args, "tp_shards", 1) > 1:
+        raise NotImplementedError(
+            "--tp-shards > 1 is not ported yet (ROADMAP.md queue A item 13)")
+    if getattr(args, "dp_shards", 1) > 1:
+        raise NotImplementedError(
+            "--dp-shards > 1 is not ported yet (ROADMAP.md queue A item 13)")
+    if getattr(args, "resume", False):
+        raise NotImplementedError(
+            "--resume (full-state resume) is not ported yet (ROADMAP.md "
+            "queue A item 6)")
+    if getattr(args, "profile", None):
+        raise NotImplementedError(
+            "--profile is not ported yet (ROADMAP.md queue A item 6); "
+            "tools/port_train_profile.py and tools/port_pass_profile.py "
+            "trace a step and a pass")
+
+
+def _check_device(args) -> None:
+    """No quiet CPU run without --platform cpu, and no float32 operand for
+    the card's kernels (ROADMAP.md queue B item B.5)."""
+    import torch
+
+    if args.platform != "cuda":
+        return
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "bayeslm-torch: no CUDA device; pass --platform cpu to run on "
+            "the CPU with the kernels' plain versions")
+    if args.compute_dtype != "bfloat16":
+        raise ValueError(
+            f"bayeslm-torch: --compute-dtype {args.compute_dtype} on the "
+            "card: its kernels take bf16 operands only (ROADMAP.md B.5); "
+            "pass --compute-dtype bfloat16, or --platform cpu")
+
+
+def cmd_train(args) -> int:
+    from ..data.corpus import Corpus
+    from ..train.loop import Trainer
+
+    corpus = Corpus(args.data)
+    cfg = _model_cfg(args, len(corpus.vocab))
+    tcfg = TrainConfig(
+        lr=args.lr, batch_size=args.batch_size,
+        eval_batch_size=args.eval_batch_size, epochs=args.epochs,
+        seq_len=args.seq_len, clip=args.clip, seed=args.seed,
+        log_interval=args.log_interval, data_fraction=args.data_fraction,
+        prior=args.prior, prior_path=args.prior_path, prior_kl=args.prior_kl,
+        save=args.save, rng_impl=args.rng_impl, dp_shards=args.dp_shards,
+        profile_dir=args.profile, resume=args.resume)
+    trainer = Trainer(cfg, tcfg, device=args.platform)
+    _, out = trainer.fit(corpus)
+    print(json.dumps({"test_loss": out["test_loss"]}))
+    return 0
+
+
+def _read_context(path, nbest):
+    """The context map of a previous-decode file (dev scorer
+    ``…copy.py``:101-120): per-utterance "utt text..." lines, every first
+    field an N-best key, or one global line for every utterance. Returns
+    (map or None, error message or None)."""
+    with open(path, "r", encoding="utf-8") as f:
+        lines = [ln.rstrip("\n") for ln in f if ln.strip()]
+    per_utt = {}
+    for ln in lines:
+        head, _, rest = ln.partition(" ")
+        per_utt[head] = rest
+    unknown = [k for k in per_utt if k not in nbest]
+    if not lines:
+        return None, None
+    if not unknown:
+        return {k: per_utt.get(k, "") for k in nbest}, None
+    if len(lines) == 1 and len(per_utt) == len(unknown) == 1:
+        return {k: lines[0] for k in nbest}, None
+    return None, (f"context file: {len(unknown)} first fields are not "
+                  f"n-best utterance ids (e.g. {unknown[:3]}); fix the ids "
+                  "or use a single global-context line")
+
+
+def cmd_score(args) -> int:
+    """Score an N-best list with a trained model (the reference's
+    compute_sentence_scores_* entry point)."""
+    from ..core.checkpoint import load_params
+    from ..data.vocab import Vocab
+    from ..rescore.nbest import load_nbest, write_scores
+    from ..rescore.scorer import BatchScorer
+
+    vocab = Vocab.from_file(args.vocabulary)
+    cfg = _model_cfg(args, len(vocab))
+    rcfg = RescoreConfig(
+        carry_over=not args.no_carry_over, inter_flag=args.interpolation_flag,
+        inter_alpha=args.inter_alpha, max_hyp_len=args.max_hyp_len,
+        mc_samples=args.mc_samples,
+        backward=args.backward or args.model_var == "back",
+        splice_len=args.splice_len, xl_mems=args.model_var == "XL")
+    scorer = BatchScorer(cfg, load_params(args.model_path, cfg), rcfg,
+                         device=args.platform)
+    nbest = load_nbest(args.nbest_list)
+    context_map = None
+    if args.context_file:
+        context_map, err = _read_context(args.context_file, nbest)
+        if err:
+            print(err, file=sys.stderr)
+            return 1
+    scored = scorer.score_nbest(nbest, vocab.word2idx,
+                                context_map=context_map)
+    write_scores(scored, args.outfile)
+    print(f"oov tokens: {scorer.oov_stats['total']}")
+    print(f"wrote {args.outfile}")
+    return 0
+
+
+def cmd_rescore(args) -> int:
+    """The lattice rescoring pipeline (the reference's
+    lmrescore_nbest_*.sh)."""
+    from ..core.checkpoint import load_params
+    from ..data.vocab import Vocab
+    from ..rescore.pipeline import run_pipeline
+    from ..rescore.scorer import BatchScorer
+
+    vocab = Vocab.from_file(args.words)
+    cfg = _model_cfg(args, len(vocab))
+    rcfg = RescoreConfig(
+        nbest=args.N, acwt=args.acwt, nn_weight=args.nn_weight,
+        carry_over=not args.no_carry_over, min_lmwt=args.min_lmwt,
+        max_lmwt=args.max_lmwt, inter_flag=args.interpolation_flag,
+        inter_alpha=args.inter_alpha, mc_samples=args.mc_samples,
+        backward=args.backward or args.model_var == "back",
+        splice_len=args.splice_len, xl_mems=args.model_var == "XL",
+        max_hyp_len=args.max_hyp_len)
+    scorer = BatchScorer(cfg, load_params(args.model_path, cfg), rcfg,
+                         device=args.platform)
+    res = run_pipeline(
+        args.lattices, args.words, scorer, vocab.word2idx, args.workdir,
+        rcfg, arpa_lm=args.arpa, ref_text=args.ref, glm=args.glm,
+        asclite_clean=args.asclite_clean, sanity_test=args.sanity_test)
+    print(json.dumps({
+        "n_utts": res.n_utts, "n_hyps": res.n_hyps,
+        "oov_tokens": res.oov_tokens,
+        "wer_by_lmwt": res.wer_by_lmwt, "best_lmwt": res.best_lmwt,
+        "best_wer": res.best_wer,
+    }))
+    return 0
+
+
+def cmd_snr(args) -> int:
+    from ..analysis.snr import snr_from_checkpoint
+
+    cfg = None
+    if args.L_bayes_pos:
+        cfg = ModelConfig(vocab_size=1, nhid=args.nhid,
+                          l_bayes_pos=args.L_bayes_pos)
+    print(json.dumps(snr_from_checkpoint(args.model_path, cfg), indent=2))
+    return 0
+
+
+def cmd_search(args) -> int:
+    raise NotImplementedError(
+        "search (the DARTS supernets and architect of nas/) is not ported "
+        "yet (ROADMAP.md queue A item 12)")
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(prog="bayeslm-torch", description=__doc__,
+                                formatter_class=argparse.RawDescriptionHelpFormatter)
+    p.add_argument("--platform", default="cuda", choices=["cpu", "cuda"],
+                   help="where the model runs: the card (default; raises "
+                        "without one) or the CPU with the kernels' plain "
+                        "versions")
+    sub = p.add_subparsers(dest="cmd", required=True)
+
+    t = sub.add_parser("train", help="train a language model")
+    _add_model_args(t)
+    t.add_argument("--data", required=True)
+    t.add_argument("--lr", type=float, default=0.1)
+    t.add_argument("--batch-size", type=int, default=32)
+    t.add_argument("--eval-batch-size", type=int, default=20)
+    t.add_argument("--epochs", type=int, default=32)
+    t.add_argument("--seq_len", type=int, default=100)
+    t.add_argument("--clip", type=float, default=1.0)
+    t.add_argument("--seed", type=int, default=1111)
+    t.add_argument("--log-interval", type=int, default=200)
+    t.add_argument("--data-fraction", type=float, default=1.0,
+                   help="reference --mark base-0.Xset ablations")
+    t.add_argument("--prior", action="store_true")
+    t.add_argument("--prior_path", default=None)
+    t.add_argument("--prior_kl", action="store_true",
+                   help="regularize posterior means toward the prior ckpt "
+                        "(reference kl_divergence(prior) branch)")
+    t.add_argument("--rng-impl", default="rbg",
+                   choices=["rbg", "threefry2x32"],
+                   help="the JAX package's PRNG; kept for one command line "
+                        "in both packages, the port draws from a "
+                        "torch.Generator")
+    t.add_argument("--dp-shards", type=int, default=1,
+                   help="data-parallel shards (not ported: ROADMAP A13)")
+    t.add_argument("--tp-shards", type=int, default=1,
+                   help="tensor-parallel shards (not ported: ROADMAP A13)")
+    t.add_argument("--save", default="model.ckpt")
+    t.add_argument("--resume", action="store_true",
+                   help="continue from <save>.resume (not ported: ROADMAP A6)")
+    t.add_argument("--multihost", action="store_true",
+                   help="multi-host job (not ported: ROADMAP A13)")
+    t.add_argument("--profile", default=None, metavar="DIR",
+                   help="profile trace dir (not ported: ROADMAP A6)")
+    t.set_defaults(fn=cmd_train)
+
+    s = sub.add_parser("score", help="score an n-best list")
+    _add_model_args(s)
+    s.add_argument("--nbest-list", required=True)
+    s.add_argument("--vocabulary", required=True)
+    s.add_argument("--model-path", required=True)
+    s.add_argument("--outfile", required=True)
+    s.add_argument("--interpolation_flag", type=int, default=0)
+    s.add_argument("--inter_path", default=None)
+    s.add_argument("--inter_alpha", type=float, default=0.8)
+    s.add_argument("--no-carry-over", action="store_true")
+    s.add_argument("--max-hyp-len", type=int, default=128)
+    s.add_argument("--mc-samples", type=int, default=0,
+                   help="MC-average inference over K posterior draws")
+    s.add_argument("--backward", action="store_true",
+                   help="backward-LM scoring (reverse word order)")
+    s.add_argument("--splice-len", type=int, default=0,
+                   help="context-splice length (dev scorer --seg_wise)")
+    s.add_argument("--model_var", default="none",
+                   choices=["none", "back", "XL"],
+                   help="dev-scorer variants: back = backward LM, XL = "
+                        "Transformer-XL cross-utterance memory")
+    s.add_argument("--dp-shards", type=int, default=1,
+                   help="shard hypothesis batches (not ported: ROADMAP A13)")
+    s.add_argument("--profile", default=None, metavar="DIR",
+                   help="profile trace dir (not ported: ROADMAP A6)")
+    s.add_argument("--context-file", default=None,
+                   help="previous-decode context text: per-utterance "
+                        "'utt text…' lines or one global line "
+                        "(dev scorer seg_wise file, copy.py:101-120)")
+    s.set_defaults(fn=cmd_score)
+
+    r = sub.add_parser("rescore", help="full lattice rescoring pipeline")
+    _add_model_args(r)
+    r.add_argument("--lattices", required=True)
+    r.add_argument("--words", required=True)
+    r.add_argument("--model-path", required=True)
+    r.add_argument("--workdir", required=True)
+    r.add_argument("--arpa", default=None)
+    r.add_argument("--interpolation_flag", type=int, default=0,
+                   help="1 = logit-level, 2 = score-level interpolation "
+                        "with a second model")
+    r.add_argument("--inter_path", default=None)
+    r.add_argument("--inter_alpha", type=float, default=0.8)
+    r.add_argument("--mc-samples", type=int, default=0)
+    r.add_argument("--backward", action="store_true")
+    r.add_argument("--splice-len", type=int, default=0)
+    r.add_argument("--model_var", default="none",
+                   choices=["none", "back", "XL"])
+    r.add_argument("--max-hyp-len", type=int, default=128)
+    r.add_argument("--profile", default=None, metavar="DIR",
+                   help="profile trace dir (not ported: ROADMAP A6)")
+    r.add_argument("--ref", default=None)
+    r.add_argument("--N", type=int, default=20)
+    r.add_argument("--acwt", type=float, default=0.1)
+    r.add_argument("--nn-weight", type=float, default=1.0)
+    r.add_argument("--no-carry-over", action="store_true")
+    r.add_argument("--min-lmwt", type=int, default=7)
+    r.add_argument("--max-lmwt", type=int, default=15)
+    r.add_argument("--glm", default=None,
+                   help="SCTK GLM filter rules applied to refs+hyps "
+                        "(hubscr -g, score_asclite.sh:36)")
+    r.add_argument("--asclite-clean", action="store_true",
+                   help="drop hesitations/[noise]/<unk> from hyps "
+                        "(score_asclite.sh:87-93)")
+    r.add_argument("--dp-shards", type=int, default=1,
+                   help="shard hypothesis batches (not ported: ROADMAP A13)")
+    r.add_argument("--sanity-test", action="store_true",
+                   help="reference --test true branch: rebuild lattices "
+                        "without changing scores and verify the round trip "
+                        "(lmrescore :176-184)")
+    r.set_defaults(fn=cmd_rescore)
+
+    n = sub.add_parser("snr", help="posterior SNR analysis (variance.py)")
+    n.add_argument("--model-path", required=True)
+    n.add_argument("--L_bayes_pos", type=int, default=0)
+    n.add_argument("--nhid", type=int, default=1024)
+    n.set_defaults(fn=cmd_snr)
+
+    se = sub.add_parser("search", help="DARTS architecture search "
+                                       "(not ported: ROADMAP A12)")
+    _add_model_args(se)
+    se.add_argument("--data", required=True)
+    se.add_argument("--search-mode", default="bayes",
+                    choices=["bayes", "gauss"])
+    se.add_argument("--unrolled", action="store_true")
+    se.add_argument("--arch-lr", type=float, default=3e-4)
+    se.add_argument("--lr", type=float, default=1.0)
+    se.add_argument("--batch-size", type=int, default=16)
+    se.add_argument("--epochs", type=int, default=3)
+    se.add_argument("--seq_len", type=int, default=32)
+    se.add_argument("--clip", type=float, default=1.0)
+    se.add_argument("--seed", type=int, default=1111)
+    se.set_defaults(fn=cmd_search)
+    return p
+
+
+def main(argv=None) -> int:
+    args = build_parser().parse_args(argv)
+    _refuse_unported(args)
+    if args.fn in (cmd_train, cmd_score, cmd_rescore):
+        _check_device(args)
+    return args.fn(args)
+
+
+if __name__ == "__main__":
+    sys.exit(main())

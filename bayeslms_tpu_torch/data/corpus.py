@@ -2,9 +2,11 @@
 ``bayeslms_tpu/data/corpus.py`` (numpy only).
 
 - ``Corpus``: per line, append ``<s>``, map OOV words to ``<unk>`` and
-  concatenate all lines into one id stream (reference ``data.py:36-52``).
-  The JAX package's native C++ tokenizer is ROADMAP.md queue A item 2;
-  this is its Python path, which gives the same ids.
+  concatenate all lines into one id stream (reference ``data.py:36-52``),
+  through the native C++ tokenizer (``data/native.py``) unless the caller
+  asks for the Python path with ``use_native=False``; both give the same
+  ids. A failed build of the tokenizer raises (the JAX package falls back
+  to Python without a word).
 - ``batchify``: trim the stream to ``(len // bsz) * bsz`` tokens and lay it
   out as ``(rows, bsz)``, one contiguous stream per column
   (``train.py:167-179``).
@@ -25,13 +27,23 @@ from .vocab import Vocab
 class Corpus:
     """Train/valid/test id streams built from text files and words.txt."""
 
-    def __init__(self, path: str) -> None:
-        self.vocab = Vocab.from_file(os.path.join(path, "words.txt"))
+    def __init__(self, path: str, use_native: bool = True) -> None:
+        words_txt = os.path.join(path, "words.txt")
+        self.vocab = Vocab.from_file(words_txt)
+        self._native = None
+        if use_native:
+            from .native import NativeTokenizer
+
+            self._native = NativeTokenizer(words_txt)
         self.train = self.tokenize(os.path.join(path, "train.txt"))
         self.valid = self.tokenize(os.path.join(path, "valid.txt"))
         self.test = self.tokenize(os.path.join(path, "test.txt"))
 
     def tokenize(self, path: str) -> np.ndarray:
+        if not os.path.exists(path):
+            raise FileNotFoundError(path)
+        if self._native is not None:
+            return self._native.tokenize(path)
         ids = []
         with open(path, "r", encoding="utf-8") as f:
             for line in f:

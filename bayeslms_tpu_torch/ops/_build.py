@@ -20,7 +20,7 @@ import hashlib
 import os
 import shutil
 import subprocess
-from typing import Dict, Iterable, Tuple, Union
+from typing import Callable, Dict, Hashable, Iterable, List, Tuple, Union
 
 import torch
 
@@ -61,30 +61,44 @@ def _target(kernel: Kernel) -> str:
     return os.path.join(BUILD_DIR, f"{name}-{digest.hexdigest()[:16]}.so")
 
 
+def compile_all(targets: Dict[Hashable, str],
+                command: Callable[[Hashable, str], List[str]],
+                compiler: str) -> None:
+    """Build every target file that is missing, all compiler processes at
+    once: ``command(key, out)`` is the command line that writes ``out``.
+    Each writes a pid-suffixed file renamed onto its target, so concurrent
+    builds agree. Raises with every failed build's output."""
+    procs = {}
+    for key, out in targets.items():
+        if os.path.exists(out):
+            continue
+        os.makedirs(os.path.dirname(out), exist_ok=True)
+        tmp = f"{out}.{os.getpid()}.tmp"
+        cmd = command(key, tmp)
+        procs[key] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                       stderr=subprocess.STDOUT), tmp, cmd)
+    errors = []
+    for key, (proc, tmp, cmd) in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            errors.append(f"{' '.join(cmd)}\n{log.decode(errors='replace')}")
+            continue
+        os.replace(tmp, targets[key])
+    if errors:
+        raise RuntimeError(f"{compiler} failed:\n" + "\n".join(errors))
+
+
+def _command(kernel: Kernel, out: str) -> List[str]:
+    name, defines = _split(kernel)
+    return [_nvcc(), *FLAGS, *defines, "-o", out,
+            os.path.join(CSRC, f"{name}.cu")]
+
+
 def build(kernels: Iterable[Kernel] = KERNELS) -> Dict[Kernel, str]:
     """Compile every named kernel whose library is missing, all nvcc
     processes at once. Returns {kernel: library path}."""
-    os.makedirs(BUILD_DIR, exist_ok=True)
     targets = {k: _target(k) for k in kernels}
-    procs = {}
-    for n, so in targets.items():
-        if os.path.exists(so):
-            continue
-        name, defines = _split(n)
-        tmp = f"{so}.{os.getpid()}.tmp"
-        cmd = [_nvcc(), *FLAGS, *defines, "-o", tmp,
-               os.path.join(CSRC, f"{name}.cu")]
-        procs[n] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                     stderr=subprocess.STDOUT), tmp, cmd)
-    errors = []
-    for n, (proc, tmp, cmd) in procs.items():
-        out, _ = proc.communicate()
-        if proc.returncode != 0:
-            errors.append(f"{' '.join(cmd)}\n{out.decode(errors='replace')}")
-            continue
-        os.replace(tmp, targets[n])  # atomic: concurrent builds agree
-    if errors:
-        raise RuntimeError("nvcc failed:\n" + "\n".join(errors))
+    compile_all(targets, _command, "nvcc")
     return targets
 
 

@@ -4,10 +4,13 @@
 A layout is a name, a selection predicate over the scorer and a score
 function ``fn(scorer, nbest, word2idx, stream_fn, enc_all)``. The port
 registers ``xl`` (the Transformer with ``xl_mems``, first, as in JAX),
-``packed-carry`` (the LSTM with carry-over) and ``packed-nocarry`` for the
+``packed-carry`` (the LSTM with carry-over) and ``packed-nocarry`` (the
 Transformer, which the JAX package routes there whatever ``carry_over``
-says. Every configuration the JAX package would route elsewhere raises
-``NotImplementedError`` naming the ROADMAP.md item that ports its layout;
+says, and the LSTM without carry-over). The JAX package's slotted layouts
+take the configurations its packed gates refuse (MC scoring, the fused
+CE switched off, cross-family interpolation); the port's scorer refuses
+those at construction, and any configuration that reached the end of the
+table here would raise ``NotImplementedError`` naming ROADMAP.md's item;
 none is rerouted.
 """
 
@@ -40,6 +43,5 @@ def select(scorer) -> Layout:
         if layout.when(scorer):
             return layout
     raise NotImplementedError(
-        "the LSTM with carry_over=False scores through the recurrent "
-        "packed-nocarry or slotted-bucketed layout, not ported yet: "
-        "ROADMAP.md queue A item 4")
+        "the slotted-carry and slotted-bucketed layouts are not ported yet "
+        "(ROADMAP.md queue A item 4, with item 11's MC scoring)")

@@ -13,11 +13,14 @@
   here too: its GP cell takes the JAX scan under the resets, its standard
   layer ``lstm_cuda.lstm_fwd`` with them (kernel row 3).
 - packed-nocarry (``nocarry_allowed``, ``tm_packed_impl``,
-  ``score_packed_nocarry``), the Transformer: independent hypotheses
-  bin-packed best-fit-decreasing into columns of T steps, positions
-  restarting at each hypothesis and attention causal within it through an
-  additive (B, 1, T, T) mask. The recurrent branch (zero-state resets) is
-  ROADMAP.md queue A item 4.
+  ``rnn_packed_impl``, ``score_packed_nocarry``), the Transformer and the
+  LSTM without carry-over: independent hypotheses bin-packed
+  best-fit-decreasing into columns of T steps. The Transformer's
+  positions restart at each hypothesis and its attention is causal within
+  it through an additive (B, 1, T, T) mask; the recurrent branch starts
+  each hypothesis from a zero state, a reset event at its first step with
+  source -1 (``lstm_cuda.apply_reset``; in kernel row 1, and row 3 for the
+  GP-LSTM's standard layer, a -1 source reads zeros).
 """
 
 from __future__ import annotations
@@ -41,14 +44,15 @@ def carry_allowed(s) -> bool:
 
 def nocarry_allowed(s) -> bool:
     # the JAX registry sends every Transformer here, whatever carry_over
-    # says; its recurrent branch is not ported (ROADMAP.md queue A item 4)
-    return s.cfg.is_transformer
+    # says, and the LSTM without carry-over (the scorer refuses the other
+    # JAX gates' cases, interpolation and MC, at construction)
+    return s.cfg.is_transformer or not s.rcfg.carry_over
 
 
 def packed_carry_impl(s, data, tgt, mask, reset, carry, G: int, N: int,
-                      n_seg: int, idx, seg):
+                      n_seg: int, plan):
     """One chunk on the device. data/tgt/mask/reset (T, G*N); carry
-    (h, c) each (L, G, H); idx/seg the CE gather plan. Returns the (n_seg,)
+    (h, c) each (L, G, H); plan the CE gather plan. Returns the (n_seg,)
     scores and the next chunk's carry."""
     B = data.shape[1]
 
@@ -66,7 +70,7 @@ def packed_carry_impl(s, data, tgt, mask, reset, carry, G: int, N: int,
                            step_mask=mask, reset_mask=reset,
                            reset_src=reset_src, return_hidden=True)
     scores = common.fused_scores_packed(
-        s.model, hseq.reshape(-1, hseq.shape[-1]), tgt.reshape(-1), idx, seg,
+        s.model, hseq.reshape(-1, hseq.shape[-1]), tgt.reshape(-1), plan,
         n_seg)
     return scores, (first_hyp(h), first_hyp(c))
 
@@ -117,12 +121,12 @@ def score_carry_packed(s, nbest, word2idx, stream_fn=None, enc_all=None):
                 t_offs.append(off)
                 seg_ids.append((u * G + g) * N + c)
             slot_key[(u, g)] = k
-        data, tgt, mask, (idx, seg) = common.build_rows(
+        data, tgt, mask, plan = common.build_rows(
             rows, T, G * N, t_offs, seg_ids)
         to = lambda a: torch.from_numpy(a).to(dev)  # noqa: E731
         out, carry = packed_carry_impl(
             s, to(data), to(tgt), to(mask), to(reset_np), carry, G, N,
-            U * G * N, to(idx), to(seg))
+            U * G * N, [to(a) for a in plan])
         pending.append((out, slot_key, U))
 
     for out, slot_key, U in pending:
@@ -133,12 +137,12 @@ def score_carry_packed(s, nbest, word2idx, stream_fn=None, enc_all=None):
     return common.assemble(nbest, scores)
 
 
-def tm_packed_impl(s, data, tgt, segs, positions, Bc: int, n_seg: int, idx,
-                   seg):
+def tm_packed_impl(s, data, tgt, segs, positions, Bc: int, n_seg: int,
+                   plan):
     """The Transformer's packed pass on the device. data, tgt, segs
     (segment ids, 0 on padding) and positions are (T, C), C a multiple of
     ``Bc``; one forward a block of ``Bc`` columns, as the JAX scorer scans
-    them; idx/seg the CE gather plan. Returns the (n_seg,) scores."""
+    them; plan the CE gather plan. Returns the (n_seg,) scores."""
     T, C = data.shape
     dev = data.device
     tril = torch.ones((T, T), dtype=torch.bool, device=dev).tril()
@@ -157,7 +161,32 @@ def tm_packed_impl(s, data, tgt, segs, positions, Bc: int, n_seg: int, idx,
                           pack_mask=mask))
     h = torch.cat(hs, dim=1)
     return common.fused_scores_packed(s.model, h.reshape(T * C, -1),
-                                      tgt.reshape(-1), idx, seg, n_seg)
+                                      tgt.reshape(-1), plan, n_seg)
+
+
+def rnn_packed_impl(s, data, tgt, mask, reset, Bc: int, n_seg: int, plan):
+    """The LSTM's packed pass on the device. data, tgt, mask (the real
+    steps) and reset (a hypothesis's first step past a column's first) are
+    (T, C), C a multiple of ``Bc``; one forward a block of ``Bc`` columns
+    from a zero state, every reset taking source -1 (a zero state), as the
+    JAX scorer scans them; plan the CE gather plan. Returns the (n_seg,)
+    scores."""
+    T, C = data.shape
+    cfg = s.cfg
+    h0, c0 = init_hidden(cfg.nlayers, Bc, cfg.nhid,
+                         dtype=getattr(torch, cfg.compute_dtype),
+                         device=data.device)
+    src = torch.full((Bc,), -1, dtype=torch.int32, device=data.device)
+    hs = []
+    for b0 in range(0, C, Bc):
+        cols = slice(b0, b0 + Bc)
+        h, _ = s.model(data[:, cols], (h0, c0), step_mask=mask[:, cols],
+                       reset_mask=reset[:, cols], reset_src=src,
+                       return_hidden=True)
+        hs.append(h)
+    h = torch.cat(hs, dim=1)
+    return common.fused_scores_packed(s.model, h.reshape(T * C, -1),
+                                      tgt.reshape(-1), plan, n_seg)
 
 
 def score_packed_nocarry(s, nbest, word2idx, stream_fn=None, enc_all=None):
@@ -165,7 +194,8 @@ def score_packed_nocarry(s, nbest, word2idx, stream_fn=None, enc_all=None):
     read), ``max_hyp_len``-capped, bin-packed best-fit-decreasing into
     columns of T = max(128, max_hyp_len + 2 rounded up to 64) steps, Bc
     columns a block as the JAX layout (about 24 x ``batch_size`` tokens a
-    block)."""
+    block): the Transformer with its segments and positions, the LSTM with
+    a zero-state reset at each hypothesis's start."""
     rc = s.rcfg
     items = [(key, i, x, y) for key in nbest
              for i, (x, y, _, _) in enumerate(enc_all[key])]
@@ -195,20 +225,32 @@ def score_packed_nocarry(s, nbest, word2idx, stream_fn=None, enc_all=None):
             bisect.insort(rems, (r - L, col))
     Bc = max(8, -(-rc.batch_size * 24 // T // 8) * 8)
     C = -(-len(fills) // Bc) * Bc
-    segs = np.zeros((T, C), np.int64)
-    pos = np.zeros((T, C), np.int64)
+    tm = s.cfg.is_transformer
     rows, t_offs = [], []
+    if tm:
+        segs = np.zeros((T, C), np.int64)
+        pos = np.zeros((T, C), np.int64)
+    else:
+        reset = np.zeros((T, C), np.uint8)
     for i, (_, _, x, y) in enumerate(items):
         col, off, slot = place[i]
-        L = min(len(x), T)
         rows.append((col, x, y))
         t_offs.append(off)
-        segs[off:off + L, col] = slot + 1
-        pos[off:off + L, col] = np.arange(L)
-    data, tgt, _, (idx, seg) = common.build_rows(rows, T, C, t_offs,
-                                                 range(len(items)))
+        if tm:
+            L = min(len(x), T)
+            segs[off:off + L, col] = slot + 1
+            pos[off:off + L, col] = np.arange(L)
+        elif off > 0:
+            reset[off, col] = 1  # zero-state reset at the hypothesis's start
+    data, tgt, mask, plan = common.build_rows(rows, T, C, t_offs,
+                                              range(len(items)))
     to = lambda a: torch.from_numpy(a).to(s.device)  # noqa: E731
-    out = tm_packed_impl(s, to(data), to(tgt), to(segs), to(pos), Bc,
-                         len(items), to(idx), to(seg)).cpu().numpy()
+    if tm:
+        out = tm_packed_impl(s, to(data), to(tgt), to(segs), to(pos), Bc,
+                             len(items), [to(a) for a in plan])
+    else:
+        out = rnn_packed_impl(s, to(data), to(tgt), to(mask), to(reset), Bc,
+                              len(items), [to(a) for a in plan])
+    out = out.cpu().numpy()
     scores = {(k, i): float(out[n]) for n, (k, i, _, _) in enumerate(items)}
     return common.assemble(nbest, scores)

@@ -4,12 +4,14 @@
 File formats are those of the reference scorer
 (compute_sentence_scores_bayes_jianwei.py): input lines ``utt-N word ...``,
 output lines ``utt-N score`` with 4 decimals. Keys group by everything
-before the last ``-``. The native batch encoder of the JAX package
-(``data/native.py``) is ROADMAP.md queue A item 2.
+before the last ``-``. ``encode_all_native`` encodes a whole N-best set
+in one call of the native encoder (``data/native.py``); ``encode_hyp``,
+one hypothesis in Python, is its plain version and gives the same ids.
 """
 
 from __future__ import annotations
 
+import os
 from collections import OrderedDict
 from typing import Dict, List, Tuple
 
@@ -72,6 +74,45 @@ def encode_hyp(
     return inp, tgt, len(ctx_ids), n_oov
 
 
+def encode_all_native(nbest, enc, backward: bool = False):
+    """``encode_hyp`` of every hypothesis of ``nbest`` without context, in
+    ONE call of the native encoder ``enc`` (``NativeEncoder``) over the
+    whole set; the <s> framing is numpy scatters. The same (inp, tgt, 0,
+    n_oov) tuples as ``encode_hyp``, with inp and tgt int32 views into two
+    shared flat buffers. Returns {utt_key: [(inp, tgt, 0, n_oov), ...]}."""
+    keys = list(nbest)
+    all_hyps = [h for k in keys for h in nbest[k]]
+    if not all_hyps:
+        return {k: [] for k in keys}
+    ids, offs, oov = enc.encode_lines("\n".join(all_hyps))
+    n = len(all_hyps)
+    N = ids.shape[0]
+    offs = offs.astype(np.int64)
+    hyp_of = np.repeat(np.arange(n, dtype=np.int64), np.diff(offs))
+    pos = np.arange(N, dtype=np.int64)
+    if backward:
+        # the word order reversed within each hypothesis
+        ids = ids[offs[hyp_of] + (offs[hyp_of + 1] - 1 - pos)]
+    # hypothesis i spans [offs[i] + i, offs[i + 1] + i + 1) of both buffers:
+    # <s> then its ids (inp), its ids then <s> (tgt)
+    arange_n = np.arange(n, dtype=np.int64)
+    starts = offs[:-1] + arange_n
+    ends = offs[1:] + arange_n + 1
+    inp_flat = np.empty(N + n, np.int32)
+    tgt_flat = np.empty(N + n, np.int32)
+    inp_flat[pos + hyp_of + 1] = ids
+    inp_flat[starts] = enc.bos
+    tgt_flat[pos + hyp_of] = ids
+    tgt_flat[ends - 1] = enc.bos
+    out, i = {}, 0
+    for k in keys:
+        c = len(nbest[k])
+        out[k] = [(inp_flat[starts[j]:ends[j]], tgt_flat[starts[j]:ends[j]],
+                   0, int(oov[j])) for j in range(i, i + c)]
+        i += c
+    return out
+
+
 def length_buckets(max_len: int, n_buckets: int = 5) -> List[int]:
     """Up to ``n_buckets`` geometrically spaced bucket boundaries from 16 to
     ``max_len``, rounded up to multiples of 8."""
@@ -113,3 +154,31 @@ def pad_batch(seqs_in: List[List[int]], seqs_tgt: List[List[int]], T: int,
         mask[:L, j] = 1.0
         lens[j] = L
     return data, tgt, mask, lens
+
+
+def rewrite_nbest(words_path: str, out_dir: str, max_n: int = 20) -> int:
+    """Split an N-best words archive into one file a rank: lines "utt-N w1
+    w2 ..." go to ``out_dir/words.<N>`` as "utt w1 w2 ..." for N <=
+    ``max_n`` (the reference's word2vec.ipynb ``rewrite_nbest``). Returns
+    the number of ranks written."""
+    os.makedirs(out_dir, exist_ok=True)
+    handles = {}
+    try:
+        with open(words_path, "r", encoding="utf-8") as f:
+            for line in f:
+                parts = line.strip().split(" ", 1)
+                if not parts[0]:
+                    continue
+                utt, n = parts[0].rsplit("-", 1)
+                n = int(n)
+                if n > max_n:
+                    continue
+                if n not in handles:
+                    handles[n] = open(os.path.join(out_dir, f"words.{n}"),
+                                      "w", encoding="utf-8")
+                rest = parts[1] if len(parts) > 1 else ""
+                handles[n].write(f"{utt} {rest}\n")
+    finally:
+        for h in handles.values():
+            h.close()
+    return len(handles)

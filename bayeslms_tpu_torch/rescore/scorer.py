@@ -13,6 +13,16 @@ utterance in its chain instead (``layouts/xl.py``). Every model scores
 deterministically, as in the JAX package: the Bayesian and GP ones at
 their posterior means, the variational ones without their noise.
 
+With ``carry_over=False`` the LSTM scores every hypothesis on its own
+through the recurrent branch of packed-nocarry (zero-state resets at the
+hypotheses' starts).
+
+A pass encodes the whole N-best set in one call of the native encoder
+(``data/native.py``, ``nbest.encode_all_native``); ``nbest.encode_hyp``
+is its plain version. Where a word of the mapping holds whitespace the
+native encoder cannot take it, and the pass encodes in Python, as the JAX
+package does.
+
 This slice runs on one device, with ``inter_flag=0``, ``mc_samples=0``, no
 backward scoring and no context splicing; the rest raises
 ``NotImplementedError`` naming its ROADMAP.md item.
@@ -21,16 +31,17 @@ backward scoring and no context splicing; the rest raises
 from __future__ import annotations
 
 from collections import OrderedDict
-from typing import Dict, List
+from typing import Dict, List, Optional
 
 import torch
 
 from ..core.checkpoint import params_from_jax
 from ..core.config import ModelConfig, RescoreConfig
 from ..core.registry import build_model
+from ..data.native import NativeEncoder
 from ..utils.gcquiet import quiet_gc
 from . import layouts
-from .nbest import encode_hyp
+from .nbest import encode_all_native, encode_hyp
 
 
 class BatchScorer:
@@ -84,21 +95,48 @@ class BatchScorer:
             if p.dim() == 2:
                 p.data = p.data.to(cdtype)
         self.oov_stats = {"total": 0, "per_utt": {}}  # set by score_nbest
+        self._enc_key = self._enc = None
+
+    def encoder(self, word2idx: Dict[str, int]) -> Optional[NativeEncoder]:
+        """The native encoder of ``word2idx``, built once for that dict (the
+        dict itself is the key, held by the scorer), or None where a word
+        holds whitespace."""
+        if self._enc_key is not word2idx:
+            self._enc = NativeEncoder.build(word2idx)
+            self._enc_key = word2idx
+        return self._enc
+
+    def encode(self, nbest, word2idx: Dict[str, int]):
+        """{utt: [(inp, tgt, n_ctx, n_oov), ...]} of every hypothesis: one
+        native call for the whole set, or ``encode_hyp`` a hypothesis where
+        the native encoder cannot take the mapping."""
+        enc = self.encoder(word2idx)
+        if enc is not None:
+            return encode_all_native(nbest, enc)
+        return {k: [encode_hyp(h, word2idx) for h in hyps]
+                for k, hyps in nbest.items()}
 
     def score_nbest(
         self,
         nbest: "OrderedDict[str, List[str]]",
         word2idx: Dict[str, int],
         stream_fn=None,
+        context_map: Optional[Dict[str, str]] = None,
     ):
         """Score every hypothesis. ``stream_fn(utt_key) -> chain label``
         splits utterances into independent carry-over chains (one per
         recording), which run side by side; utterances within a chain stay
-        serial. Default: one chain. Returns {utt: [(hyp, score), ...]}."""
+        serial. Default: one chain. ``context_map`` (utterance -> previous
+        decode's text) is the JAX scorer's argument; without context
+        splicing (``splice_len`` 0, the only setting ported) it changes
+        nothing, as there. Returns {utt: [(hyp, score), ...]}."""
+        if self.rcfg.xl_mems and context_map:
+            raise ValueError(
+                "xl_mems provides its own cross-utterance context; "
+                "context_map would be silently ignored")
         # cyclic GC deferred to the gap between passes (utils/gcquiet.py)
         with quiet_gc(), torch.inference_mode():
-            enc_all = {k: [encode_hyp(h, word2idx) for h in hyps]
-                       for k, hyps in nbest.items()}
+            enc_all = self.encode(nbest, word2idx)
             result = layouts.select(self).fn(self, nbest, word2idx,
                                              stream_fn, enc_all)
         per_utt = {k: sum(e[3] for e in enc_all[k]) for k in nbest}

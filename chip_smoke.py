@@ -114,11 +114,32 @@ attention kernel against its twin on every call of one pass (the
 CUDA-core design on copies of one call a shape), the pass
 against the plain path (the attention kernel's planted fault must fail
 it), and an on-card check that memories give the suffix of a
-full-context forward. Every phase prints its result and seconds; any
+full-context forward. After the main path's pass: the same pass with
+the native host encoder (one call for the whole N-best) and with the
+Python ``encode_hyp`` loop, and each encode alone (print only); the
+N-best without carry-over (the recurrent packed-nocarry layout: blocks
+of columns from a zero state, a -1 reset source at each hypothesis's
+start), the 2-layer scoring recurrence on the pass's call with the most
+masked steps (with the planted faults), the pass against the plain path.
+Last, the command line at the bench's width, each step a subprocess of
+``python -m bayeslms_tpu_torch.cli.main`` whose exit code and kernel
+launches are checked: ``train`` of the Bayesian gate-slice LSTM (2
+epochs at the recipe's settings; the test loss below the first epoch's
+validation loss), ``score`` of the 6,000-hypothesis N-best from its
+checkpoint (the file equal to an in-process pass; no farther from the
+same pass with float32 states than the plain path, where the planted
+faults land farther), ``snr``, and
+``rescore`` of 300 synthetic lattices in 30 recordings (every stage's
+file, the neural scores equal to an in-process pass, a finite WER sweep;
+at ``--nn-weight 0`` the sweep equal to the lattices' own choice;
+``--sanity-test``), the tokenizer and the lattice tools built with g++
+beside the kernels. Every phase prints its result and seconds; any
 failure exits non-zero before the result lines. The last two lines are a
-JSON object per kernel (the 2-layer scoring recurrence at the pass's and
-at the ``evaluate`` call, each with its design and the per-step design's
-time; the single-layer forward kernel twice, as the TPU kernels it
+JSON object per kernel (the 2-layer scoring recurrence at the pass's, at
+the ``evaluate`` and at the no-carry call, each with its design and the
+per-step design's time; each row's launches in the no-carry pass and
+the command line's runs under ``launches_by_run``, apart from the count
+of the run its entry measured; the single-layer forward kernel twice, as the TPU kernels it
 replaces with resets and without; the gate-6 kernels from the
 ``63`` phases; the CE training kernels at
 the LSTM's D = 1,024,
@@ -135,6 +156,7 @@ import sys
 import tempfile
 import time
 from collections import OrderedDict
+from concurrent.futures import ThreadPoolExecutor
 from unittest import mock
 
 import numpy as np
@@ -4598,6 +4620,501 @@ def narrow_scoring_phase(torch, kernels, smi, cfg, rcfg, w2i):
     kernels["ce_fwd" + tag]["launches"] = n_wmma
 
 
+def run_launches(kernels, name, run, n):
+    """Record ``n`` launches of kernel ``name`` in ``run``, a run other than
+    the one whose count is the entry's ``launches``: the entry's
+    ``launches_by_run`` maps each such run to its own count, read just after
+    it was zeroed (a subprocess's counts start at 0)."""
+    kernels[name].setdefault("launches_by_run", {})[run] = n
+
+
+# ------------------------------------------------------ no carry-over
+# The planted faults that can move a no-carry score: a column's masked
+# steps all come after its last hypothesis, and no final state is read, so
+# a kernel that ignored the step mask scores the same (lstm2_check catches
+# it on the pass's call with the most masked steps, through the final
+# states).
+NOCARRY_FAULTS = ("resets ignored", "W_hh2 product dropped")
+
+
+def nocarry_phase(torch, kernels, smi, cfg, rcfg, params, w2i, nbest):
+    """The bench's N-best scored without carry-over (``carry_over=False``,
+    the CLI's ``--no-carry-over``): the recurrent packed-nocarry layout,
+    best-fit-decreasing columns of T steps from a zero state, a -1 reset
+    source at each hypothesis's start, one row-1 call a block of Bc
+    columns. Row 1 checked on the pass's call with the most masked steps
+    (the first calls' columns are full) through ``lstm2_check`` (tag
+    ``(nocarry)``, its launches those of one pass), the pass against the
+    plain path within SCORE_ATOL and each of NOCARRY_FAULTS past it (every
+    one of LSTM_FAULTS planted and printed); row 1's launches by design
+    printed. Raises on a failed check."""
+    import dataclasses
+
+    from bayeslms_tpu_torch.ops import ce_cuda, lstm_cuda
+    from bayeslms_tpu_torch.rescore import layouts
+    from bayeslms_tpu_torch.rescore.scorer import BatchScorer
+
+    tag = " (nocarry)"
+    rcfg = dataclasses.replace(rcfg, carry_over=False)
+    recorded = {}
+    with phase("nocarry score"):
+        scorer = BatchScorer(cfg, params, rcfg)
+        if layouts.select(scorer).name != "packed-nocarry":
+            raise AssertionError("carry_over=False did not select the "
+                                 "packed-nocarry layout")
+        scorer.score_nbest(nbest, w2i)  # warm
+        lstm_cuda.launches = 0
+        lstm_cuda.design_launches.update(persistent=0, per_step=0)
+        ce_cuda.launches = 0
+        ce_cuda.design_launches.update(split=0, wmma=0)
+        with recording(lstm_cuda, ("lstm2_fwd",), recorded)[0]:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = scorer.score_nbest(nbest, w2i)
+            torch.cuda.synchronize()
+            pass_s = time.perf_counter() - t0
+        calls = recorded["lstm2_fwd"]
+        T, Bc = calls[0][0].shape[:2]
+        srcs = {int(s) for a in calls for s in a[12].unique()}
+        n1, n2 = lstm_cuda.launches, ce_cuda.launches
+        print(f"  one pass {pass_s:.4f} s: row 1 {n1} launches of (T {T}, "
+              f"B {Bc}), by design {lstm_cuda.design_launches}; row 2 "
+              f"{ce_cuda.launches}, by route {ce_cuda.design_launches}; "
+              f"reset sources {sorted(srcs)} on {smi}")
+        if srcs != {-1} or n1 != len(calls) or n1 < 2:
+            raise AssertionError("the pass's row-1 calls are not blocks "
+                                 "of zero-state resets")
+        if lstm_cuda.design_launches["persistent"] != n1 \
+                or ce_cuda.design_launches["split"] != n2 or n2 != 1:
+            raise AssertionError("a nocarry call left row 1's persistent "
+                                 "design or row 2's split route")
+        got = np.array([s for pairs in out.values() for _, s in pairs])
+
+        def score_with(lstm_fn, ce_fn):
+            with mock.patch.object(lstm_cuda, "lstm2_fwd", lstm_fn), \
+                    mock.patch.object(ce_cuda, "fused_decode_ce", ce_fn):
+                res = scorer.score_nbest(nbest, w2i)
+            return np.array([s for pairs in res.values() for _, s in pairs])
+
+        ref = score_with(lstm_cuda.lstm2_plain, ce_cuda.ce_plain)
+        diff = float(np.abs(got - ref).max())
+        n_hyps = sum(len(h) for h in nbest.values())
+        print(f"  {n_hyps} scores, |plain| mean {np.abs(ref).mean():.3f} "
+              f"max {np.abs(ref).max():.3f}: max |kernel - plain| "
+              f"{diff:.4e} (tolerance {SCORE_ATOL:.0e})")
+        kernel = lstm_cuda.lstm2_fwd
+        faults = {}
+        for fault in LSTM_FAULTS:
+            bad = score_with(lambda *a, f=fault: kernel(*planted(a, f)),
+                             ce_cuda.fused_decode_ce)
+            faults[fault] = float(np.abs(bad - ref).max())
+            print(f"  planted fault '{fault}': max |faulty - plain| "
+                  f"{faults[fault]:.4e}")
+        if got.shape != (n_hyps,) or not np.all(np.isfinite(got)) \
+                or diff > SCORE_ATOL:
+            raise AssertionError(f"nocarry scores: {diff:.4e} from the "
+                                 f"plain path, tolerance {SCORE_ATOL:.0e}")
+        if min(faults[f] for f in NOCARRY_FAULTS) <= SCORE_ATOL:
+            raise AssertionError(f"a planted fault passes the score "
+                                 f"tolerance: {faults}")
+    lstm2_check(torch, kernels,
+                max(calls, key=lambda a: int((a[10] == 0).sum())), tag)
+    kernels["lstm2_fwd" + tag]["launches"] = n1
+    run_launches(kernels, "ce_fwd", "nocarry score", n2)
+
+
+# ------------------------------------------------------ host encode
+def host_encode_phase(torch, smi, scorer, w2i, nbest):
+    """Print only: the main path's warm pass (``score_nbest`` over the
+    bench's N-best, 30 chains) with the native encoder (one call for the
+    whole set) and with the Python ``encode_hyp`` loop (the scorer's
+    encoder replaced by None, as for a vocabulary the native encoder
+    cannot take), and each encode alone; medians of 3."""
+    from bayeslms_tpu_torch.rescore.nbest import encode_all_native, encode_hyp
+
+    def median_s(fn):
+        times = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        return float(np.median(times)), times
+
+    with phase("host encode: native against Python (print only)"):
+        enc = scorer.encoder(w2i)
+        rows = {}
+        rows["encode, native"] = median_s(
+            lambda: encode_all_native(nbest, enc))
+        rows["encode, Python encode_hyp"] = median_s(
+            lambda: {k: [encode_hyp(h, w2i) for h in hyps]
+                     for k, hyps in nbest.items()})
+        rows["pass, native encode"] = median_s(
+            lambda: scorer.score_nbest(nbest, w2i, stream_fn=stream_of))
+        with mock.patch.object(scorer, "encoder", lambda _: None):
+            rows["pass, Python encode"] = median_s(
+                lambda: scorer.score_nbest(nbest, w2i, stream_fn=stream_of))
+        for name, (med, times) in rows.items():
+            print(f"  {name}: median {1e3 * med:.1f} ms of "
+                  f"{['%.1f' % (1e3 * t) for t in times]} ms on {smi}")
+
+
+# ------------------------------------------------------ the command line
+# bayeslm-torch train | score | rescore | snr, each a subprocess running
+# ``python -m bayeslms_tpu_torch.cli.main`` (through runpy) whose kernel
+# launch counts, read at its exit, are written to a file: a new process's
+# counts start at 0.
+CLI_RUNNER = r"""
+import json, runpy, sys
+from bayeslms_tpu_torch.ops import (bayes_sample_cuda, ce_cuda, ce_train_cuda,
+                                    lstm_cuda, lstm_train_cuda)
+counts, sys.argv = sys.argv[1], ["bayeslm-torch", *sys.argv[2:]]
+try:
+    runpy.run_module("bayeslms_tpu_torch.cli.main", run_name="__main__")
+finally:
+    with open(counts, "w") as f:
+        json.dump({"lstm2_fwd": lstm_cuda.launches,
+                   "lstm2_fwd_designs": lstm_cuda.design_launches,
+                   "ce_fwd": ce_cuda.launches,
+                   "ce_fwd_routes": ce_cuda.design_launches,
+                   **lstm_train_cuda.launches,
+                   "lstm_train_fwd_designs":
+                       lstm_train_cuda.fwd_design_launches,
+                   "lstm_train_bwd_designs": lstm_train_cuda.design_launches,
+                   **ce_train_cuda.launches,
+                   "bayes_sample": bayes_sample_cuda.launches}, f)
+"""
+# The CLI's scores, one carry-over chain of 300 utterances from a model of 2
+# epochs at lr 5, against the plain path: both run bf16 states, and their
+# rounding steps part more often than at the 400 hypotheses of the other
+# trained phases (TRAINED_SCORE_RTOL). Each is held to the same pass with
+# float32 states (the plain versions in float32): the kernel path's
+# relative distance from it at most CHAIN_RATIO times the plain path's, at
+# the median, the 99.9th percentile and the largest hypothesis; each of
+# LSTM_FAULTS planted must land farther.
+CHAIN_QUANTILES = (0.5, 0.999, 1.0)
+CHAIN_RATIO = 1.25
+LATTICE_UTTS, LATTICE_RECORDINGS = 300, 30
+LMWTS = range(7, 16)  # the CLI's --min-lmwt / --max-lmwt defaults
+
+
+def run_cli(root, tag, argv, timeout=300):
+    """``bayeslm-torch argv`` in a subprocess from the repository root;
+    returns (stdout, launch counts). Raises unless it exits 0."""
+    counts = os.path.join(root, f"{tag}.counts.json")
+    t0 = time.perf_counter()
+    res = subprocess.run(
+        [sys.executable, "-c", CLI_RUNNER, counts, *argv],
+        cwd=os.path.dirname(os.path.abspath(__file__)), capture_output=True,
+        text=True, timeout=timeout)
+    print(f"  bayeslm-torch {' '.join(argv[:1])}: exit {res.returncode} in "
+          f"{time.perf_counter() - t0:.1f} s")
+    if res.returncode != 0:
+        print(res.stdout[-3000:] + res.stderr[-3000:])
+        raise AssertionError(f"bayeslm-torch {argv[0]} exited "
+                             f"{res.returncode}")
+    with open(counts) as f:
+        return res.stdout, json.load(f)
+
+
+def write_lattices(root, V, seed=0):
+    """Text lattices of LATTICE_UTTS utterances in LATTICE_RECORDINGS
+    recordings (tests/test_pipeline.py's format): each a chain of 5-12 word
+    positions of 2 or 3 alternative arcs (at least 32 paths), words over the
+    whole table, graph and acoustic costs from the seed; a unigram ARPA over
+    the table; the reference text, one path of each lattice with a word
+    replaced now and then. Returns the three paths."""
+    rng = np.random.default_rng(seed)
+    lats, refs = [], []
+    per = LATTICE_UTTS // LATTICE_RECORDINGS
+    for r in range(LATTICE_RECORDINGS):
+        for u in range(per):
+            utt = f"rec{r:02d}_utt{u:02d}"
+            P = int(rng.integers(5, 13))
+            lines, ref = [utt], []
+            for p in range(P):
+                words = rng.integers(2, V, size=int(rng.integers(2, 4)))
+                for w in words:
+                    lines.append(f"{p} {p + 1} {w} {rng.uniform(0, 4):.4f},"
+                                 f"{rng.uniform(5, 40):.4f}")
+                pick = int(words[rng.integers(len(words))])
+                ref.append(pick if rng.random() > 0.1
+                           else int(rng.integers(2, V)))
+            lines.append(str(P))
+            lats.append("\n".join(lines) + "\n\n")
+            refs.append((utt, ref))
+    words = [line.split()[0] for line in open(os.path.join(root, "words.txt"))]
+    paths = {n: os.path.join(root, n) for n in ("lats.txt", "ref.txt",
+                                                "lm.arpa")}
+    with open(paths["lats.txt"], "w") as f:
+        f.writelines(lats)
+    with open(paths["ref.txt"], "w") as f:
+        f.writelines(f"{u} {' '.join(words[i] for i in ref)}\n"
+                     for u, ref in refs)
+    logp = -np.log10(np.arange(2, V + 2, dtype=np.float64)) - 1.0
+    with open(paths["lm.arpa"], "w") as f:
+        f.write(f"\\data\\\nngram 1={V + 1}\n\n\\1-grams:\n")
+        f.write("-99\t<s>\t-0.3\n-1.0\t</s>\n")
+        f.writelines(f"{logp[i]:.4f}\t{words[i]}\n" for i in range(1, V))
+        f.write("\n\\end\\\n")
+    return paths["lats.txt"], paths["ref.txt"], paths["lm.arpa"]
+
+
+def word_errors(ref, hyp):
+    """Levenshtein distance over words."""
+    d = list(range(len(hyp) + 1))
+    for i, r in enumerate(ref, 1):
+        prev, d[0] = d[0], i
+        for j, h in enumerate(hyp, 1):
+            prev, d[j] = d[j], min(d[j] + 1, d[j - 1] + 1, prev + (r != h))
+    return d[-1]
+
+
+def lattice_choice_wers(wd, ref_path):
+    """The WER (%) of each LMWT's lattice choice: per utterance the
+    hypothesis of least withlm + acoustic / LMWT from stage 1's files, in
+    Python, independent of the pipeline's stages 5-7."""
+    def scores(name):
+        with open(os.path.join(wd, name)) as f:
+            return {k: float(v) for k, v in (line.split() for line in f)}
+
+    g, a = scores("lmwt.withlm"), scores("acwt")
+    with open(os.path.join(wd, "words.txt")) as f:
+        hyps = {p[0]: p[1:] for p in (line.split() for line in f)}
+    with open(ref_path) as f:
+        refs = {p[0]: p[1:] for p in (line.split() for line in f)}
+    out = {}
+    for lmwt in LMWTS:
+        best = {}
+        for k in g:
+            utt, cost = k[: k.rfind("-")], g[k] + a[k] / lmwt
+            if utt not in best or cost < best[utt][0]:
+                best[utt] = (cost, k)
+        errs = sum(word_errors(refs[u], hyps[k]) for u, (_, k) in best.items())
+        out[lmwt] = 100.0 * errs / sum(len(r) for r in refs.values())
+    return out
+
+
+def cli_phases(torch, kernels, smi, cfg, rcfg, corpus, root):
+    """The command line at the bench's width (49,152-word table, 1,024 /
+    1,024 x 2, tied, bf16), each step a subprocess, its exit code and its
+    launch counts checked and each run's counts recorded under its rows'
+    ``launches_by_run``: train
+    the Bayesian gate-slice LSTM on the Markov corpus at the recipe's
+    batch 32, seq_len 100, lr 5 for 2 epochs; score the bench's N-best
+    from its checkpoint (the file equal to an in-process pass; as close to
+    the float32-state scores as the plain path, CHAIN_RATIO, and each of
+    LSTM_FAULTS planted farther); snr; rescore
+    lattices of LATTICE_UTTS utterances at N 20 (every stage's file,
+    nnlm.scores equal to an in-process pass over the pipeline's words.txt,
+    a finite WER sweep; at --nn-weight 0 the sweep equal to the lattice's
+    own choice; the sanity test's round trip). Raises on a failed check."""
+    import dataclasses
+
+    from bayeslms_tpu_torch.core.checkpoint import load_checkpoint
+    from bayeslms_tpu_torch.data.vocab import Vocab
+    from bayeslms_tpu_torch.ops import ce_cuda, lstm_cuda
+    from bayeslms_tpu_torch.rescore.nbest import load_nbest, write_scores
+    from bayeslms_tpu_torch.rescore.scorer import BatchScorer
+
+    torch.cuda.empty_cache()
+    V = cfg.vocab_size
+    words = os.path.join(corpus, "words.txt")
+    ckpt = os.path.join(root, "cli_bayes.ckpt")
+    bayes = ["--uncertainty", "Bayesian", "--L_bayes_pos", str(BAYES_POS),
+             "--compute-dtype", "bfloat16"]
+
+    with phase("cli train"):
+        out, n = run_cli(root, "train", [
+            "train", "--data", corpus, *bayes, "--batch-size",
+            str(TRAIN_BATCH), "--seq_len", str(TRAIN_SEQ), "--lr", "5",
+            "--epochs", "2", "--log-interval", "10", "--save", ckpt])
+        lines = out.strip().splitlines()
+        test_loss = json.loads(lines[-1])["test_loss"]
+        val1 = next(float(line.split("valid loss")[1].split("|")[0])
+                    for line in lines if "end of epoch   1" in line)
+        _, meta = load_checkpoint(ckpt)
+        steps = n["ce_train_fwd"]
+        print(f"  epoch 1 valid loss {val1:.2f}; test loss {test_loss:.4f}; "
+              f"checkpoint of epoch {meta['epoch']} (val loss "
+              f"{meta['val_loss']:.4f}, {meta['model_config']['uncertainty']}"
+              f" {meta['model_config']['l_bayes_pos']}, "
+              f"{meta['model_config']['compute_dtype']}); launches {n}")
+        per_step = {"lstm_train_fwd": 2, "lstm_train_bwd": 2,
+                    "ce_train_fwd": 1, "ce_train_dh": 1, "ce_train_de": 1,
+                    "bayes_sample": SAMPLER_CALLS_PER_STEP}
+        if steps == 0 or any(n[k] != m * steps for k, m in per_step.items()):
+            raise AssertionError(f"launches in {steps} steps: {n}")
+        if n["lstm2_fwd"] == 0 or \
+                n["lstm2_fwd_designs"]["persistent"] != n["lstm2_fwd"]:
+            raise AssertionError("evaluate did not take row 1's persistent "
+                                 "design on every call")
+        if not np.isfinite(test_loss) or test_loss >= val1:
+            raise AssertionError(f"test loss {test_loss} not below the first "
+                                 f"epoch's validation loss {val1}")
+        for name in per_step:
+            run_launches(kernels, name, "cli train", n[name])
+        run_launches(kernels, "lstm2_fwd (evaluate)", "cli train",
+                     n["lstm2_fwd"])
+
+    bcfg = dataclasses.replace(cfg, uncertainty="Bayesian",
+                               l_bayes_pos=BAYES_POS)
+    params, _ = load_checkpoint(ckpt)
+    scorer = BatchScorer(bcfg, params, rcfg)
+    w2i = Vocab.from_file(words).word2idx
+
+    def pass_file(nbest, path):
+        write_scores(scorer.score_nbest(nbest, w2i), path)
+        with open(path, "rb") as f:
+            return f.read()
+
+    def check_scoring(n, run):
+        if n["lstm2_fwd"] == 0 or n["ce_fwd"] == 0 \
+                or n["lstm2_fwd_designs"]["persistent"] != n["lstm2_fwd"] \
+                or n["ce_fwd_routes"]["split"] != n["ce_fwd"]:
+            raise AssertionError(f"{run} did not run rows 1-2 on their "
+                                 f"main-path designs: {n}")
+        for name in ("lstm2_fwd", "ce_fwd"):
+            run_launches(kernels, name, run, n[name])
+
+    with phase("cli score"):
+        nb_path = os.path.join(root, "nbest.txt")
+        nbest = make_synthetic_nbest(n_meetings=30, vocab_words=V - 2)
+        with open(nb_path, "w") as f:
+            f.writelines(f"{k}-{i} {h}\n" for k, hyps in nbest.items()
+                         for i, h in enumerate(hyps, 1))
+        scores = os.path.join(root, "cli.scores")
+        out, n = run_cli(root, "score", [
+            "score", "--nbest-list", nb_path, "--vocabulary", words,
+            "--model-path", ckpt, *bayes, "--max-hyp-len",
+            str(rcfg.max_hyp_len), "--outfile", scores])
+        print(f"  {out.strip().splitlines()[0]}; launches {n}")
+        check_scoring(n, "cli score")
+        nbest = load_nbest(nb_path)
+        with open(scores, "rb") as f:
+            got = f.read()
+        same = got == pass_file(nbest, os.path.join(root, "inproc.scores"))
+        plain = (mock.patch.object(lstm_cuda, "lstm2_fwd",
+                                   lstm_cuda.lstm2_plain),
+                 mock.patch.object(ce_cuda, "fused_decode_ce",
+                                   ce_cuda.ce_plain))
+        s32 = BatchScorer(dataclasses.replace(bcfg, compute_dtype="float32"),
+                          params, rcfg)
+        with plain[0], plain[1]:
+            ref = np.array([s for pairs in scorer.score_nbest(
+                nbest, w2i).values() for _, s in pairs])
+            ref32 = np.array([s for pairs in s32.score_nbest(
+                nbest, w2i).values() for _, s in pairs])
+        del s32
+        cli_s = np.array([float(line.split()[1])
+                          for line in got.decode().splitlines()])
+        rel = np.abs(cli_s - ref) / np.abs(ref)
+        e_k = np.abs(cli_s - ref32) / np.abs(ref32)
+        e_p = np.abs(ref - ref32) / np.abs(ref32)
+
+        def chain_ratio(e):
+            return {q: float(np.quantile(e, q) / np.quantile(e_p, q))
+                    for q in CHAIN_QUANTILES}
+
+        ratio = chain_ratio(e_k)
+        kernel = lstm_cuda.lstm2_fwd
+        faults = {}
+        for fault in LSTM_FAULTS:
+            with mock.patch.object(lstm_cuda, "lstm2_fwd",
+                                   lambda *a, f=fault: kernel(*planted(a, f))):
+                bad = np.array([s for pairs in scorer.score_nbest(
+                    nbest, w2i).values() for _, s in pairs])
+            faults[fault] = chain_ratio(np.abs(bad - ref32) / np.abs(ref32))
+            off = float((np.abs(bad - ref) / np.abs(ref)).max())
+            print(f"  planted fault '{fault}': over the plain path's distance "
+                  f"at {CHAIN_QUANTILES}: {faults[fault]}; relative to the "
+                  f"plain path: max {off:.3e}")
+        print(f"  {cli_s.size} scores (mean {cli_s.mean():.3f}); file equal "
+              f"to the in-process pass: {same}; relative to the plain path: "
+              f"max {rel.max():.3e} (hypothesis {int(rel.argmax())}), 99.9% "
+              f"{np.quantile(rel, 0.999):.3e} (the 400-hypothesis phases' "
+              f"TRAINED_SCORE_RTOL {TRAINED_SCORE_RTOL:.0e}) on {smi}")
+        print(f"  relative to the float32-state plain scores: kernel path "
+              f"median / 99.9% / max {np.quantile(e_k, 0.5):.3e} / "
+              f"{np.quantile(e_k, 0.999):.3e} / {e_k.max():.3e}, plain path "
+              f"{np.quantile(e_p, 0.5):.3e} / {np.quantile(e_p, 0.999):.3e} "
+              f"/ {e_p.max():.3e}; kernel over plain at {CHAIN_QUANTILES}: "
+              f"{ratio} (limit {CHAIN_RATIO})")
+        if not same or cli_s.size != 6000 or not np.all(np.isfinite(cli_s)) \
+                or max(ratio.values()) > CHAIN_RATIO:
+            raise AssertionError("cli score failed")
+        if min(max(r.values()) for r in faults.values()) <= CHAIN_RATIO:
+            raise AssertionError(f"a planted fault passes CHAIN_RATIO: "
+                                 f"{faults}")
+
+    with phase("cli snr"):
+        out, _ = run_cli(root, "snr", ["snr", "--model-path", ckpt,
+                                       "--L_bayes_pos", str(BAYES_POS),
+                                       "--nhid", str(cfg.nhid)])
+        rep = json.loads(out)
+        pair = [f"core/weight_{m}_lgstd_{k}" for k in (1, 2)
+                for m in ("ih", "hh")]
+        for k in pair:
+            print(f"  {k}: {rep.get(k)}")
+        if any(k not in rep or not np.isfinite(rep[k]["median_snr"])
+               or rep[k]["shape"] != [cfg.nhid, cfg.nhid] for k in pair):
+            raise AssertionError("snr did not report the lgstd pairs")
+
+    with phase("cli rescore"):
+        lats, ref_txt, arpa = write_lattices(corpus, V)
+        common = ["--lattices", lats, "--words", words, "--model-path",
+                  ckpt, *bayes, "--arpa", arpa, "--ref", ref_txt, "--N",
+                  "20", "--max-hyp-len", str(rcfg.max_hyp_len)]
+        wd = os.path.join(root, "wd")
+        out, n = run_cli(root, "rescore", ["rescore", *common,
+                                           "--workdir", wd])
+        res = json.loads(out.strip().splitlines()[-1])
+        print(f"  {json.dumps(res)}; launches {n}")
+        check_scoring(n, "cli rescore")
+        files = ["words.int", "lmwt.withlm", "acwt", "ali", "words.txt",
+                 "lmwt.lmonly", "nnlm.scores", "lmwt.rescored",
+                 "rescored_lats.txt", *(f"hyp.lmwt{k}.txt" for k in LMWTS)]
+        missing = [f for f in files if not os.path.exists(os.path.join(wd, f))]
+        with open(os.path.join(wd, "words.int")) as f:
+            n_stage1 = sum(1 for _ in f)
+        same = pass_file(load_nbest(os.path.join(wd, "words.txt")),
+                         os.path.join(root, "inproc.nnlm")) == \
+            open(os.path.join(wd, "nnlm.scores"), "rb").read()
+        wers = [res["wer_by_lmwt"].get(str(k)) for k in LMWTS]
+        print(f"  stage 1 wrote {n_stage1} hypotheses; missing files "
+              f"{missing}; nnlm.scores equal to an in-process pass: {same}")
+        if missing or res["n_hyps"] != n_stage1 or not same \
+                or res["n_utts"] != LATTICE_UTTS \
+                or not all(w is not None and np.isfinite(w) for w in wers):
+            raise AssertionError("cli rescore failed")
+
+    with phase("cli rescore at --nn-weight 0 and --sanity-test"):
+        wd0 = os.path.join(root, "wd0")
+        out, n = run_cli(root, "rescore0", ["rescore", *common, "--workdir",
+                                            wd0, "--nn-weight", "0"])
+        res0 = json.loads(out.strip().splitlines()[-1])
+        check_scoring(n, "cli rescore --nn-weight 0")
+        mine = lattice_choice_wers(wd0, ref_txt)
+        print(f"  pipeline WER by LMWT {res0['wer_by_lmwt']}; the lattice's "
+              f"own choice {({k: round(v, 2) for k, v in mine.items()})}")
+        if any(abs(res0["wer_by_lmwt"][str(k)] - v) > 0.006
+               for k, v in mine.items()) or \
+                abs(res0["best_wer"] - min(mine.values())) > 0.006:
+            raise AssertionError("at --nn-weight 0 the sweep is not the "
+                                 "lattice's own choice")
+        out, _ = run_cli(root, "sanity", ["rescore", *common, "--workdir",
+                                          os.path.join(root, "wdt"),
+                                          "--sanity-test"])
+        rest = json.loads(out.strip().splitlines()[-1])
+        print(f"  sanity test: {json.dumps(rest)}")
+        if rest["n_hyps"] != n_stage1 or rest["wer_by_lmwt"]:
+            raise AssertionError("the sanity test did not round-trip")
+    print("  launches of the command line's runs: " + json.dumps(
+        {k["name"]: k["launches_by_run"] for k in kernels.values()
+         if "launches_by_run" in k}))
+
+
 def library_yardstick(torch, name, args):
     """ms of one PyTorch call computing the same function (never called by
     the port): cuDNN's LSTM for the recurrence (all-ones mask, as in
@@ -4640,6 +5157,7 @@ def main():
     from bayeslms_tpu_torch import build_model, init_params
     from bayeslms_tpu_torch.ops import _build, ce_cuda, lstm_cuda
     from bayeslms_tpu_torch.rescore.scorer import BatchScorer
+    from bayeslms_tpu_torch.utils import host_build
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -4658,8 +5176,11 @@ def main():
               f"device {torch.cuda.get_device_name(0)} "
               f"count {torch.cuda.device_count()}")
 
-    with phase("build"):
+    with phase("build"), ThreadPoolExecutor(1) as pool:
         t0 = time.perf_counter()
+        # the C++ host programs (the tokenizer library, the lattice tools)
+        # with g++ beside the kernels
+        host = pool.submit(host_build.build)
         # the port's kernels and the sampler's planted-fault variants, all
         # nvcc processes at once
         for name, path in _build.build([*_build.KERNELS,
@@ -4670,6 +5191,8 @@ def main():
                                         *GP6_FAULTS.values(),
                                         GP_FWD_FAULT, GP6_FWD_FAULT,
                                         *LSTM2_BUILDS]).items():
+            print(f"  {name}: {path}")
+        for name, path in host.result().items():
             print(f"  {name}: {path}")
         print(f"  build seconds {time.perf_counter() - t0:.1f}")
 
@@ -4766,6 +5289,8 @@ def main():
             raise AssertionError(f"a planted fault passes the score "
                                  f"tolerance: {faults}")
 
+    host_encode_phase(torch, smi, scorer, w2i, nbest)
+    nocarry_phase(torch, kernels, smi, cfg, rcfg, params, w2i, nbest)
     narrow_scoring_phase(torch, kernels, smi, cfg, rcfg, w2i)
     corpus, tmp = train_phases(torch, kernels, smi, cfg, rcfg)
     bayes_phases(torch, kernels, smi, cfg, rcfg, corpus, tmp.name)
@@ -4781,6 +5306,8 @@ def main():
     tm_phases(torch, kernels, smi, cfg, rcfg, corpus, tmp.name)
     ckpt = tm_long_phases(torch, kernels, smi, cfg, tmp.name)
     tm_xl_phase(torch, kernels, smi, cfg, rcfg, ckpt)
+    cli_phases(torch, kernels, smi, cfg, rcfg, tmp.name,
+               tempfile.mkdtemp(dir=tmp.name))
     tmp.cleanup()
 
     print(json.dumps({"kernels": list(kernels.values())}))

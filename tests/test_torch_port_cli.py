@@ -1,0 +1,241 @@
+"""The port's command line (``bayeslms_tpu_torch/cli/main.py``,
+``bayeslm-torch``) against the JAX package's (``bayeslm``): the same
+subcommands, flags and defaults; ``score --platform cpu`` on a JAX
+CLI-trained ``.ckpt`` writes the keys of the JAX scores file in its order,
+each score within the scores' rtol 1e-4 (the 4th decimal of a printed
+score may round the other way); ``snr`` and
+``snr_report`` equal JAX's; ``train`` writes the port's checkpoint that
+``score`` and ``rescore`` read; without ``--platform cpu`` and without a
+card the CLI raises; each flag not ported raises naming its ROADMAP.md
+item."""
+
+import argparse
+import json
+import os
+import subprocess
+import sys
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+import bayeslms_tpu as jx
+import chip_smoke
+from bayeslms_tpu.analysis.snr import snr_report as jax_snr_report
+from bayeslms_tpu.cli import main as jcli
+from bayeslms_tpu_torch.analysis.snr import snr_report
+from bayeslms_tpu_torch.cli import main as cli
+from bayeslms_tpu_torch.core.checkpoint import load_checkpoint
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+TINY = ["--emsize", "16", "--nhid", "16", "--dropout", "0.0"]
+
+
+@pytest.fixture(scope="module")
+def corpus(tmp_path_factory):
+    root = tmp_path_factory.mktemp("corpus")
+    chip_smoke.write_markov_corpus(str(root), 40, 4 * (10 * 4 + 3), 200, 120)
+    with open(root / "nbest.txt", "w") as f:
+        rng = np.random.default_rng(0)
+        for u in range(6):
+            for n in range(1, 4):
+                words = [f"w{w}" for w in rng.integers(0, 40, rng.integers(1, 9))]
+                f.write(f"rec{u % 2}_utt{u}-{n} {' '.join(words)}\n")
+        f.write("rec0_utt9-1 w3 zz w5\n")
+    return root
+
+
+@pytest.fixture(scope="module")
+def jax_ckpt(corpus):
+    """A Bayesian LSTM trained by the JAX package's own CLI."""
+    path = str(corpus / "jax_model.ckpt")
+    assert jcli.main(["train", "--data", str(corpus), *TINY,
+                      "--uncertainty", "Bayesian", "--L_bayes_pos", "3",
+                      "--batch-size", "4", "--seq_len", "10", "--epochs", "1",
+                      "--lr", "1", "--save", path]) == 0
+    return path
+
+
+def _actions(parser):
+    """{subcommand: {dest: (option strings, default, choices, nargs)}}."""
+    sub = next(a for a in parser._actions
+               if isinstance(a, argparse._SubParsersAction))
+    return {name: {a.dest: (tuple(a.option_strings), a.default, a.choices,
+                            a.nargs, a.required)
+                   for a in p._actions if a.dest != "help"}
+            for name, p in sub.choices.items()}
+
+
+def test_subcommands_flags_and_defaults_match_jax():
+    got, ref = _actions(cli.build_parser()), _actions(jcli.build_parser())
+    assert list(got) == list(ref) == ["train", "score", "rescore", "snr",
+                                      "search"]
+    for name in ref:
+        assert got[name] == ref[name], name
+    plat = next(a for a in cli.build_parser()._actions
+                if a.dest == "platform")
+    assert (plat.default, plat.choices) == ("cuda", ["cpu", "cuda"])
+
+
+def test_score_on_a_jax_cli_checkpoint_writes_the_jax_scores(
+        corpus, jax_ckpt, tmp_path, capsys):
+    common = ["--nbest-list", str(corpus / "nbest.txt"), "--vocabulary",
+              str(corpus / "words.txt"), "--model-path", jax_ckpt, *TINY,
+              "--uncertainty", "Bayesian", "--L_bayes_pos", "3"]
+    for no_carry in ([], ["--no-carry-over"]):
+        jout, out = tmp_path / "jax.scores", tmp_path / "port.scores"
+        assert jcli.main(["score", *common, *no_carry, "--outfile",
+                          str(jout)]) == 0
+        capsys.readouterr()
+        assert cli.main(["--platform", "cpu", "score", *common, *no_carry,
+                         "--outfile", str(out)]) == 0
+        assert capsys.readouterr().out.splitlines() == [
+            "oov tokens: 1", f"wrote {out}"]
+        ref = [line.split() for line in jout.read_text().splitlines()]
+        got = [line.split() for line in out.read_text().splitlines()]
+        assert [k for k, _ in got] == [k for k, _ in ref]
+        assert len(got) == 19
+        np.testing.assert_allclose([float(v) for _, v in got],
+                                   [float(v) for _, v in ref],
+                                   rtol=1e-4, atol=1e-4)
+
+
+def test_snr_matches_jax(jax_ckpt, capsys):
+    """Without --L_bayes_pos no pair matches in shape (the gate slice's
+    lgstd against the whole mean), as in JAX; with it, every pair of the
+    two layers (W_ih, W_hh and their biases)."""
+    for pos, n in (([], 0), (["--L_bayes_pos", "3", "--nhid", "16"], 8)):
+        assert jcli.main(["snr", "--model-path", jax_ckpt, *pos]) == 0
+        ref = json.loads(capsys.readouterr().out)
+        assert cli.main(["snr", "--model-path", jax_ckpt, *pos]) == 0
+        got = json.loads(capsys.readouterr().out)
+        assert list(got) == list(ref) and len(got) == n
+        for k in ref:
+            assert got[k]["shape"] == ref[k]["shape"]
+            for m in ("median_snr", "mean_snr", "mean_sigma"):
+                np.testing.assert_allclose(got[k][m], ref[k][m], rtol=1e-6)
+
+
+def test_snr_report_matches_jax():
+    cfg = jx.ModelConfig(vocab_size=12, emsize=8, nhid=8,
+                         uncertainty="Bayesian", l_bayes_pos=2)
+    params = jx.init_params(jx.build_model(cfg), cfg, seed=5)
+    params = jax.tree.map(np.asarray, params)
+    from bayeslms_tpu_torch import ModelConfig
+    tcfg = ModelConfig(vocab_size=12, emsize=8, nhid=8,
+                       uncertainty="Bayesian", l_bayes_pos=2)
+    for c, tc in ((None, None), (cfg, tcfg)):
+        assert snr_report(params, tc) == jax_snr_report(params, c)
+
+
+def test_train_writes_the_port_checkpoint_that_score_and_rescore_read(
+        corpus, tmp_path, capsys):
+    save = str(tmp_path / "port.ckpt")
+    assert cli.main(["--platform", "cpu", "train", "--data", str(corpus),
+                     *TINY, "--batch-size", "4", "--seq_len", "10",
+                     "--epochs", "2", "--lr", "2", "--save", save]) == 0
+    out = capsys.readouterr().out
+    test_loss = json.loads(out.strip().splitlines()[-1])["test_loss"]
+    assert np.isfinite(test_loss)
+    params, meta = load_checkpoint(save)
+    assert meta["model_config"]["nhid"] == 16 and meta["epoch"] in (1, 2)
+    scores = tmp_path / "s.txt"
+    assert cli.main(["--platform", "cpu", "score", "--nbest-list",
+                     str(corpus / "nbest.txt"), "--vocabulary",
+                     str(corpus / "words.txt"), "--model-path", save, *TINY,
+                     "--outfile", str(scores)]) == 0
+    assert len(scores.read_text().splitlines()) == 19
+    lats = tmp_path / "lats.txt"
+    lats.write_text("u1\n0 1 3 0.1,1.0\n0 1 4 2.0,1.0\n1 2 5 0.1,1.0\n2\n\n")
+    (tmp_path / "ref.txt").write_text("u1 w1 w3\n")
+    capsys.readouterr()
+    assert cli.main(["--platform", "cpu", "rescore", "--lattices", str(lats),
+                     "--words", str(corpus / "words.txt"), "--model-path",
+                     save, *TINY, "--workdir", str(tmp_path / "wd"), "--ref",
+                     str(tmp_path / "ref.txt"), "--N", "5", "--max-lmwt",
+                     "8"]) == 0
+    res = json.loads(capsys.readouterr().out)
+    assert (res["n_utts"], res["n_hyps"]) == (1, 2)
+    assert set(res["wer_by_lmwt"]) == {"7", "8"}
+    assert (tmp_path / "wd" / "nnlm.scores").exists()
+
+
+def test_module_runs_without_jax(corpus, jax_ckpt):
+    """``python -m bayeslms_tpu_torch.cli.main`` in a process that refuses
+    jax: snr of the JAX checkpoint."""
+    code = ("import sys\n"
+            "class R:\n"
+            "    def find_spec(self, n, p=None, t=None):\n"
+            "        if n.split('.')[0] in ('jax', 'flax', 'bayeslms_tpu'):\n"
+            "            raise ImportError(n)\n"
+            "sys.meta_path.insert(0, R())\n"
+            "import runpy\n"
+            "sys.argv = ['bayeslm-torch', 'snr', '--model-path', "
+            f"{jax_ckpt!r}, '--L_bayes_pos', '3', '--nhid', '16']\n"
+            "runpy.run_module('bayeslms_tpu_torch.cli.main', "
+            "run_name='__main__')\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr[-2000:]
+    assert "core/weight_hh_lgstd_1" in json.loads(res.stdout)
+
+
+def _score_args(corpus, path, *extra):
+    return ["score", "--nbest-list", str(corpus / "nbest.txt"),
+            "--vocabulary", str(corpus / "words.txt"), "--model-path", path,
+            "--outfile", "unused", *TINY, *extra]
+
+
+def test_without_a_card_the_cli_raises(corpus, jax_ckpt, monkeypatch):
+    """No --platform cpu and no CUDA: an error, not a CPU run; on the card a
+    float32 compute dtype names --compute-dtype bfloat16."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for argv in (_score_args(corpus, jax_ckpt),
+                 ["train", "--data", str(corpus), "--save", "unused"]):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            cli.main(argv)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    with pytest.raises(ValueError, match="--compute-dtype bfloat16"):
+        cli.main(_score_args(corpus, jax_ckpt))
+    with pytest.raises(ValueError, match="--compute-dtype bfloat16"):
+        cli.main(["rescore", "--lattices", "l", "--words", "w",
+                  "--model-path", jax_ckpt, "--workdir", "wd"])
+
+
+@pytest.mark.parametrize("argv,item", [
+    (["train", "--data", "d", "--multihost"], "item 13"),
+    (["train", "--data", "d", "--tp-shards", "2"], "item 13"),
+    (["train", "--data", "d", "--dp-shards", "2"], "item 13"),
+    (["score", "--nbest-list", "n", "--vocabulary", "v", "--model-path", "m",
+      "--outfile", "o", "--dp-shards", "2"], "item 13"),
+    (["rescore", "--lattices", "l", "--words", "w", "--model-path", "m",
+      "--workdir", "wd", "--dp-shards", "2"], "item 13"),
+    (["train", "--data", "d", "--profile", "p"], "item 6"),
+    (["train", "--data", "d", "--resume"], "item 6"),
+    (["score", "--nbest-list", "n", "--vocabulary", "v", "--model-path", "m",
+      "--outfile", "o", "--profile", "p"], "item 6"),
+    (["rescore", "--lattices", "l", "--words", "w", "--model-path", "m",
+      "--workdir", "wd", "--profile", "p"], "item 6"),
+    (["search", "--data", "d"], "item 12"),
+], ids=["multihost", "tp", "dp", "score-dp", "rescore-dp", "profile",
+        "resume", "score-profile", "rescore-profile", "search"])
+def test_unported_flags_raise_before_device_work(argv, item, monkeypatch):
+    """Raised before anything is read or any device is asked for: the
+    files named here do not exist and no card is needed."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(NotImplementedError, match=f"ROADMAP.md queue A {item}"):
+        cli.main(argv)
+
+
+@pytest.mark.parametrize("extra", [
+    ["--interpolation_flag", "1"], ["--interpolation_flag", "2"],
+    ["--mc-samples", "2", "--no-carry-over"], ["--backward"],
+    ["--splice-len", "3"], ["--model_var", "back"]],
+    ids=["inter1", "inter2", "mc", "backward", "splice", "back"])
+def test_scoring_extras_reach_the_scorer_refusals(corpus, jax_ckpt, extra):
+    argv = ["--platform", "cpu", *_score_args(corpus, jax_ckpt, *extra),
+            "--uncertainty", "Bayesian", "--L_bayes_pos", "3"]
+    with pytest.raises(NotImplementedError, match="queue A item 11"):
+        cli.main(argv)

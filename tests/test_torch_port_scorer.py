@@ -83,7 +83,6 @@ def test_packed_carry_scores_match_jax(monkeypatch, jax_params, chunk, streams):
 
 
 @pytest.mark.parametrize("rc", [
-    dict(carry_over=False),
     dict(inter_flag=1),
     dict(mc_samples=2, carry_over=False),
     dict(splice_len=3),
