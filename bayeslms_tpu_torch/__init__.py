@@ -7,8 +7,10 @@ C++ for sm_90a (``csrc/``), built with nvcc at first use and bound through
 ctypes; every kernel has a plain PyTorch twin that runs for CPU tensors.
 The port scores N-best lists (``rescore.scorer.BatchScorer``: the 2-layer
 LSTM LM through the packed-carry layout, or packed-nocarry without
-carry-over, the Transformer LM through packed-nocarry; the host encode in
-one call of the native tokenizer, ``data/native.py``) and trains both
+carry-over, the Transformer LM through packed-nocarry, the slotted layouts
+for MC-average scoring; interpolated with a second model, backward or
+with spliced context; the host encode in one call of the native
+tokenizer, ``data/native.py``) and trains both
 families (``train.loop.Trainer``: the
 standard and Bayesian gate-slice LSTM, the GP-LSTM of every
 ``l_gauss_pos`` string (GP gates 1-7, GPNN and GPNN2), the standard

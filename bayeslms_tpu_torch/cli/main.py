@@ -19,9 +19,11 @@ reads (the port's own, a JAX ``.ckpt``, a reference ``model.pt``).
 Not ported yet, each raising ``NotImplementedError`` that names its
 ROADMAP.md item before any device work: ``search`` (item 12),
 ``--multihost``, ``--tp-shards`` and ``--dp-shards`` above 1 (item 13),
-``--profile`` and ``--resume`` (item 6). ``--interpolation_flag``,
-``--mc-samples``, ``--backward``, ``--splice-len`` and ``--model_var
-back`` reach the scorer's refusals (item 11).
+``--profile`` and ``--resume`` (item 6). ``score`` and ``rescore``
+take the scorer's options: ``--interpolation_flag`` with ``--inter_path``
+(the second model), ``--mc-samples``, ``--backward`` (``--model_var
+back``), ``--splice-len`` with ``--context-file``; the scorer refuses the
+combinations it does not score (``rescore/scorer.py``).
 """
 
 from __future__ import annotations
@@ -150,13 +152,54 @@ def _read_context(path, nbest):
                   "or use a single global-context line")
 
 
+def _inter_model(args, vocab_size: int):
+    """The second model of ``--interpolation_flag``: (ModelConfig, params)
+    of ``--inter_path``. The checkpoint's ``model_config`` (the port's meta,
+    the JAX package's sidecar) takes precedence, so that a baseline of
+    another geometry loads as trained; without one, the main model's flags
+    give it, as in the reference. Its compute dtype is the run's
+    ``--compute-dtype``: checkpoints hold float32 weights, and the card's
+    kernels take bf16 operands only."""
+    import dataclasses
+
+    from ..core.checkpoint import load_params
+
+    if not args.inter_path:
+        raise SystemExit("--interpolation_flag requires --inter_path")
+    cfg2 = _model_cfg(args, vocab_size)
+    params2, meta2 = load_params(args.inter_path, cfg2, with_meta=True)
+    mc = (meta2 or {}).get("model_config")
+    if isinstance(mc, dict):
+        known = {f.name for f in dataclasses.fields(ModelConfig)}
+        mc = {k: v for k, v in mc.items() if k in known}
+        if mc.get("vocab_size", 0) and mc["vocab_size"] != vocab_size:
+            raise SystemExit(
+                f"--inter_path model was trained with vocab_size="
+                f"{mc['vocab_size']}, but the vocabulary here has "
+                f"{vocab_size} entries")
+        mc.update(vocab_size=vocab_size, compute_dtype=args.compute_dtype)
+        cfg2 = ModelConfig(**mc)
+    return cfg2, params2
+
+
+def _scorer(args, cfg, rcfg, vocab_size: int):
+    """The run's ``BatchScorer``: the main model of ``--model-path`` and,
+    with ``--interpolation_flag``, the second of ``--inter_path``."""
+    from ..core.checkpoint import load_params
+    from ..rescore.scorer import BatchScorer
+
+    cfg2 = params2 = None
+    if args.interpolation_flag:
+        cfg2, params2 = _inter_model(args, vocab_size)
+    return BatchScorer(cfg, load_params(args.model_path, cfg), rcfg, cfg2,
+                       params2, device=args.platform)
+
+
 def cmd_score(args) -> int:
     """Score an N-best list with a trained model (the reference's
     compute_sentence_scores_* entry point)."""
-    from ..core.checkpoint import load_params
     from ..data.vocab import Vocab
     from ..rescore.nbest import load_nbest, write_scores
-    from ..rescore.scorer import BatchScorer
 
     vocab = Vocab.from_file(args.vocabulary)
     cfg = _model_cfg(args, len(vocab))
@@ -166,8 +209,7 @@ def cmd_score(args) -> int:
         mc_samples=args.mc_samples,
         backward=args.backward or args.model_var == "back",
         splice_len=args.splice_len, xl_mems=args.model_var == "XL")
-    scorer = BatchScorer(cfg, load_params(args.model_path, cfg), rcfg,
-                         device=args.platform)
+    scorer = _scorer(args, cfg, rcfg, len(vocab))
     nbest = load_nbest(args.nbest_list)
     context_map = None
     if args.context_file:
@@ -186,10 +228,8 @@ def cmd_score(args) -> int:
 def cmd_rescore(args) -> int:
     """The lattice rescoring pipeline (the reference's
     lmrescore_nbest_*.sh)."""
-    from ..core.checkpoint import load_params
     from ..data.vocab import Vocab
     from ..rescore.pipeline import run_pipeline
-    from ..rescore.scorer import BatchScorer
 
     vocab = Vocab.from_file(args.words)
     cfg = _model_cfg(args, len(vocab))
@@ -201,8 +241,7 @@ def cmd_rescore(args) -> int:
         backward=args.backward or args.model_var == "back",
         splice_len=args.splice_len, xl_mems=args.model_var == "XL",
         max_hyp_len=args.max_hyp_len)
-    scorer = BatchScorer(cfg, load_params(args.model_path, cfg), rcfg,
-                         device=args.platform)
+    scorer = _scorer(args, cfg, rcfg, len(vocab))
     res = run_pipeline(
         args.lattices, args.words, scorer, vocab.word2idx, args.workdir,
         rcfg, arpa_lm=args.arpa, ref_text=args.ref, glm=args.glm,

@@ -293,16 +293,23 @@ def load_jax_checkpoint(path: str) -> Tuple[dict, Optional[dict]]:
     return params, meta
 
 
-def load_params(path: str, cfg) -> dict:
+def load_params(path: str, cfg, with_meta: bool = False):
     """The parameter tree of any checkpoint the port reads: its own
     (``save_checkpoint``), the reference's ``model.pt`` (both torch zip
-    files) or the JAX package's msgpack ``.ckpt``."""
+    files) or the JAX package's msgpack ``.ckpt``. ``with_meta``: also its
+    meta dict (the port's own, the JAX ``.json`` sidecar; None for a
+    ``model.pt``), as (params, meta)."""
     with open(path, "rb") as f:
         is_zip = f.read(4) == b"PK\x03\x04"
     if not is_zip:
-        return load_jax_checkpoint(path)[0]
-    blob = torch.load(path, map_location="cpu", weights_only=True)
-    if isinstance(blob, Mapping) and "params" in blob:
-        return _map_leaves(blob["params"], lambda t: t.numpy())
-    return import_torch_state_dict({k: v.numpy() for k, v in blob.items()},
-                                   cfg)
+        params, meta = load_jax_checkpoint(path)
+    else:
+        blob = torch.load(path, map_location="cpu", weights_only=True)
+        if isinstance(blob, Mapping) and "params" in blob:
+            params = _map_leaves(blob["params"], lambda t: t.numpy())
+            meta = blob["meta"]
+        else:
+            params = import_torch_state_dict(
+                {k: v.numpy() for k, v in blob.items()}, cfg)
+            meta = None
+    return (params, meta) if with_meta else params

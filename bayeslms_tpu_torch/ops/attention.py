@@ -13,7 +13,11 @@ probabilities, P V. Routing follows the JAX package's:
   kernel rows 15-17 (``csrc/attention_train.cu``), forward and backward with
   the dropout drawn inside the kernels from a seed drawn here, as the JAX
   package routes it; a shape that ``attention_train_cuda.flash_attn_train_ok``
-  refuses raises there rather than take another route;
+  refuses raises there rather than take another route. A
+  non-deterministic forward that records no gradient (MC-average scoring
+  under ``torch.inference_mode``) takes row 15 at every T: the JAX
+  package's short-T reason for the plain path, XLA fusing the einsums
+  into their neighbours in a training step, has no counterpart there;
 - everything else: the plain matmul/softmax path, which the JAX package
   computes outside any Pallas kernel. An explicit mask (the packed scorer's,
   Transformer-XL's) pins it, as in JAX; so does an injected
@@ -85,7 +89,7 @@ def multihead_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         if deterministic and attention_cuda.attention_ok(q, nhead):
             return attention_cuda.causal_attention(q, k, v, nhead)
         if not deterministic and dropout_mask is None and q.is_cuda \
-                and T >= FLASH_TRAIN_MIN_T:
+                and (T >= FLASH_TRAIN_MIN_T or not torch.is_grad_enabled()):
             if not attention_train_cuda.flash_attn_train_ok(q, nhead):
                 raise ValueError(
                     f"causal attention training at T = {T}, E = {E}, "

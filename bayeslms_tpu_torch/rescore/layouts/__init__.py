@@ -2,23 +2,23 @@
 ``bayeslms_tpu/rescore/layouts/__init__.py``.
 
 A layout is a name, a selection predicate over the scorer and a score
-function ``fn(scorer, nbest, word2idx, stream_fn, enc_all)``. The port
-registers ``xl`` (the Transformer with ``xl_mems``, first, as in JAX),
-``packed-carry`` (the LSTM with carry-over) and ``packed-nocarry`` (the
-Transformer, which the JAX package routes there whatever ``carry_over``
-says, and the LSTM without carry-over). The JAX package's slotted layouts
-take the configurations its packed gates refuse (MC scoring, the fused
-CE switched off, cross-family interpolation); the port's scorer refuses
-those at construction, and any configuration that reached the end of the
-table here would raise ``NotImplementedError`` naming ROADMAP.md's item;
-none is rerouted.
+function ``fn(scorer, nbest, word2idx, stream_fn, enc_all)``. ``select``
+walks the table in order and returns the first match: the JAX package's
+five layouts with its predicates, in its order. ``xl`` (the Transformer
+with ``xl_mems``) comes first; the packed layouts (``packed.py``) are
+preferred wherever their gates allow and the slotted ones (``slotted.py``)
+take the rest: MC scoring, and the opt-outs ``BAYESLM_PACKED_CARRY``,
+``BAYESLM_PACKED_NOCARRY`` and ``BAYESLM_PACKED_TM`` set to ``0``. The
+JAX package's other routes to the slotted layouts (its fused CE switched
+off, cross-family interpolation) do not exist here: the port always
+fuses, and its scorer refuses a cross-family pair.
 """
 
 from __future__ import annotations
 
 from typing import Callable, NamedTuple
 
-from . import packed, xl
+from . import packed, slotted, xl
 
 
 class Layout(NamedTuple):
@@ -30,11 +30,21 @@ class Layout(NamedTuple):
 LAYOUTS = (
     # Transformer-XL memories force their own serial layout (the scorer
     # refuses xl_mems for any other configuration)
-    Layout("xl", lambda s: s.cfg.is_transformer and s.rcfg.xl_mems,
-           xl.score_xl),
-    Layout("packed-carry", packed.carry_allowed, packed.score_carry_packed),
+    Layout("xl", lambda s: s.is_tm and s.rcfg.xl_mems, xl.score_xl),
+    # recurrent carry-over: packed time where the gates allow, else
+    # utterance slots
+    Layout("packed-carry",
+           lambda s: not s.is_tm and s.rcfg.carry_over
+           and packed.carry_allowed(s),
+           packed.score_carry_packed),
+    Layout("slotted-carry", lambda s: not s.is_tm and s.rcfg.carry_over,
+           slotted.score_carry),
+    # independent hypotheses (every Transformer; the recurrent model
+    # without carry-over): bin-packed columns where the gates allow, else
+    # length buckets
     Layout("packed-nocarry", packed.nocarry_allowed,
            packed.score_packed_nocarry),
+    Layout("slotted-bucketed", lambda s: True, slotted.score_bucketed),
 )
 
 
@@ -42,6 +52,4 @@ def select(scorer) -> Layout:
     for layout in LAYOUTS:
         if layout.when(scorer):
             return layout
-    raise NotImplementedError(
-        "the slotted-carry and slotted-bucketed layouts are not ported yet "
-        "(ROADMAP.md queue A item 4, with item 11's MC scoring)")
+    raise AssertionError("unreachable: slotted-bucketed matches all")

@@ -1,8 +1,16 @@
 """Shared building blocks of the scoring layouts, counterpart of
 ``bayeslms_tpu/rescore/layouts/common.py``: the host-side row builder with
-its CE gather plan, the fused decoder CE over the gathered positions with
-a sum per hypothesis, the Transformer's scores of one padded (T, B) batch,
-and the assembly of scores per utterance.
+its CE gather plan, the interpolated decoder's constants (``interp_m2``),
+the fused decoder CE over the gathered positions (``fused_ce_tokens``,
+interpolation-aware) with a sum per hypothesis, the Transformer's scores
+of one padded (T, B) batch, and the assembly of scores per utterance.
+
+Interpolation with a second model of the same family takes the fused CE
+as in the JAX package: logit interpolation (``inter_flag`` 1) is one call
+on the concatenated hidden states [h1, h2] against the pre-scaled
+decoder concat(a W1, (1 - a) W2), since a h1 W1' + (1 - a) h2 W2' =
+[h1, h2] concat(a W1, (1 - a) W2)'; score interpolation (2) is two calls
+combined as a ce1 + (1 - a) ce2.
 
 The JAX package pads the gather plan to a multiple of 4096 entries to bound
 its compile cache; PyTorch compiles nothing, so the plan here holds exactly
@@ -25,16 +33,19 @@ from ...ops import ce_cuda
 
 
 def build_rows(rows, T: int, C: int, t_offs, seg_ids):
-    """rows: list of (c, in_ids, tgt_ids) hypotheses, hypothesis i placed in
-    column c from time step ``t_offs[i]`` on, cut at T.
+    """rows: list of (c, in_ids, tgt_ids[, n_ctx]) hypotheses, hypothesis i
+    placed in column c from time step ``t_offs[i]`` on, cut at T. A
+    slotted (R, T_r, C) batch is the (R * T_r, C) one with ``t_offs[i]`` =
+    r * T_r and its rows cut at T_r beforehand.
 
     Returns (data, tgt, step_mask) as (T, C) numpy arrays and the CE gather
-    plan (idx, cols, segs): idx the flat (t*C + c) positions of the
+    plan (idx, cols, segs): idx the flat (t*C + c) positions of the scored
     targets, hypothesis by hypothesis; cols (hypotheses, longest) the
     indices into idx of each hypothesis's targets, padded with len(idx);
-    segs the score segment ``seg_ids[i]`` of each hypothesis. Every target
-    is scored: the JAX package's exclusion of spliced-context targets comes
-    with context splicing (ROADMAP.md queue A item 11)."""
+    segs the score segment ``seg_ids[i]`` of each hypothesis. A target at a
+    position below ``n_ctx`` WITHIN its hypothesis (spliced context) sits
+    in the batch and conditions the model but is not scored; the test reads
+    the local position, never the packed time."""
     data = np.zeros((T * C,), np.int64)
     tgt = np.zeros((T * C,), np.int64)
     mask = np.zeros((T * C,), np.uint8)
@@ -55,10 +66,17 @@ def build_rows(rows, T: int, C: int, t_offs, seg_ids):
     data[dest] = flat_in
     tgt[dest] = flat_tg
     mask[dest] = 1
-    cols = np.full((n_h, max(int(lens.max()), 1)), tot, np.int64)
-    cols[np.repeat(np.arange(n_h), lens), pos] = np.arange(tot)
+    n_ctx = np.minimum(np.fromiter(
+        (r[3] if len(r) > 3 else 0 for r in rows), np.int64, n_h), lens)
+    keep = pos >= np.repeat(n_ctx, lens)  # context is not scored
+    k_lens = lens - n_ctx
+    n_keep = int(k_lens.sum())
+    k_pos = (np.arange(n_keep, dtype=np.int64)
+             - np.repeat(np.cumsum(k_lens) - k_lens, k_lens))
+    cols = np.full((n_h, max(int(k_lens.max()), 1)), n_keep, np.int64)
+    cols[np.repeat(np.arange(n_h), k_lens), k_pos] = np.arange(n_keep)
     return (data.reshape(T, C), tgt.reshape(T, C), mask.reshape(T, C),
-            (dest, cols, np.asarray(seg_ids, np.int64)))
+            (dest[keep], cols, np.asarray(seg_ids, np.int64)))
 
 
 def _flat(seqs, lens, tot: int) -> np.ndarray:
@@ -72,19 +90,74 @@ def _flat(seqs, lens, tot: int) -> np.ndarray:
         s[:L] for s, L in zip(seqs, lens)), np.int64, count=tot)
 
 
-def fused_scores_packed(model, flat_h, flat_tgt, plan, n_seg: int):
-    """Per-hypothesis sums of the token CE at the gathered positions.
+def interp_m2(s, params, params2):
+    """The decoder constants of the fused interpolated CE, built once per
+    scorer from the two parameter trees (float32): for ``inter_flag`` 1 the
+    pre-scaled concatenated decoder concat(a W1, (1 - a) W2) (V, D1 + D2),
+    scaled in float32 and stored in the compute dtype, and the mixed bias
+    a b1 + (1 - a) b2 in float32; for flag 2 the second model's tied
+    decoder. None without interpolation."""
+    if not s.interp:
+        return None
+    m2 = s.model2
+    if s.interp == 2:
+        return m2.embedding, m2.decoder_b
+    a = float(s.rcfg.inter_alpha)
+    dev = s.model.embedding.device
 
-    flat_h (T*C, H) core outputs, flat_tgt (T*C,) targets, plan the
-    ``build_rows`` gather plan on the same device. Returns (n_seg,)
-    float32, the same bits from every call on the same inputs."""
-    idx, cols, segs = plan
-    ce = ce_cuda.fused_decode_ce(
-        flat_h.index_select(0, idx).contiguous(), model.embedding,
-        model.decoder_b, flat_tgt.index_select(0, idx))
+    def f32(x):
+        return torch.from_numpy(np.array(x, np.float32)).to(dev)
+
+    W = torch.cat([a * f32(params["embedding"]),
+                   (1.0 - a) * f32(params2["embedding"])], dim=1)
+    b = a * f32(params["decoder_b"]) + (1.0 - a) * f32(params2["decoder_b"])
+    return W.to(s.model.embedding.dtype).contiguous(), b
+
+
+def fused_ce_tokens(s, hsel, h2sel, tsel):
+    """Per-token CE (kernel row 2) at the gathered positions: hsel (M, D1)
+    the first model's hidden states, h2sel (M, D2) the second's (None
+    without interpolation), tsel (M,) the targets. Returns (M,) float32."""
+    m = s.model
+    if s.interp == 1:
+        W, b = s.m2
+        hcat = torch.cat([hsel, h2sel.to(hsel.dtype)], dim=1).contiguous()
+        return ce_cuda.fused_decode_ce(hcat, W, b, tsel)
+    ce = ce_cuda.fused_decode_ce(hsel.contiguous(), m.embedding,
+                                 m.decoder_b, tsel)
+    if s.interp == 2:
+        a = float(s.rcfg.inter_alpha)
+        W, b = s.m2
+        ce2 = ce_cuda.fused_decode_ce(h2sel.to(hsel.dtype).contiguous(), W,
+                                      b, tsel)
+        return a * ce + (1.0 - a) * ce2
+    return ce
+
+
+def segment_sums(ce, plan, n_seg: int):
+    """(n_seg,) float32: each hypothesis's sum of its token values ``ce``
+    (in the order of the plan's idx), a row of the gathered (hypotheses,
+    longest) matrix summed in a fixed order; segments without a
+    hypothesis read 0."""
+    _, cols, segs = plan
     ce = torch.cat([ce, ce.new_zeros((1,))])  # cols' padding reads this 0
     out = torch.zeros((n_seg,), dtype=torch.float32, device=ce.device)
     return out.index_copy_(0, segs, ce[cols].sum(dim=1))
+
+
+def fused_scores_packed(s, flat_h, flat_tgt, plan, n_seg: int,
+                        flat_h2=None):
+    """Per-hypothesis sums of the token CE at the gathered positions.
+
+    flat_h (T*C, H) core outputs, flat_h2 the second model's (T*C, H2)
+    under interpolation, flat_tgt (T*C,) targets, plan the ``build_rows``
+    gather plan on the same device. Returns (n_seg,) float32, the same
+    bits from every call on the same inputs."""
+    idx = plan[0]
+    h2sel = None if flat_h2 is None else flat_h2.index_select(0, idx)
+    ce = fused_ce_tokens(s, flat_h.index_select(0, idx), h2sel,
+                         flat_tgt.index_select(0, idx))
+    return segment_sums(ce, plan, n_seg)
 
 
 def fused_scores(model, h, tgt, mask):

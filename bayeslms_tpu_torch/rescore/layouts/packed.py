@@ -21,11 +21,18 @@
   each hypothesis from a zero state, a reset event at its first step with
   source -1 (``lstm_cuda.apply_reset``; in kernel row 1, and row 3 for the
   GP-LSTM's standard layer, a -1 source reads zeros).
+
+Under interpolation both run the second model beside the first, on the
+same batch, from its own state of its own geometry (``nlayers``,
+``nhid``, dtype), and score both models' states through one fused CE
+(``common.fused_scores_packed``). The gates are the JAX package's without
+its fused-CE switch, opt-outs included.
 """
 
 from __future__ import annotations
 
 import bisect
+import os
 from collections import OrderedDict
 from typing import Dict
 
@@ -37,42 +44,76 @@ from . import common
 
 
 def carry_allowed(s) -> bool:
-    # the scorer refuses the other JAX gates' cases (interpolation, MC, XL)
-    # at construction
-    return s.rcfg.carry_over and not s.cfg.is_transformer
+    """Packed-time carry-over, the JAX gate without its fused-CE switch
+    (the port always fuses): the recurrent model with carry-over, a second
+    model of the same family under interpolation, no MC, no XL, and
+    ``BAYESLM_PACKED_CARRY`` not set to ``0``."""
+    rc = s.rcfg
+    return (rc.carry_over and not s.is_tm
+            and (s.interp == 0 or not s.cfg2.is_transformer)
+            and rc.mc_samples == 0 and not rc.xl_mems
+            and os.environ.get("BAYESLM_PACKED_CARRY", "1") != "0")
 
 
 def nocarry_allowed(s) -> bool:
-    # the JAX registry sends every Transformer here, whatever carry_over
-    # says, and the LSTM without carry-over (the scorer refuses the other
-    # JAX gates' cases, interpolation and MC, at construction)
-    return s.cfg.is_transformer or not s.rcfg.carry_over
+    """Bin-packed independent hypotheses, the JAX gate without its fused-CE
+    switch: no MC, no XL, a same-family pair under interpolation, and
+    ``BAYESLM_PACKED_TM`` (the Transformer) or ``BAYESLM_PACKED_NOCARRY``
+    (the recurrent model) not set to ``0``. The registry sends every
+    Transformer here first, whatever ``carry_over`` says, and the
+    recurrent model without carry-over."""
+    rc = s.rcfg
+    env = "BAYESLM_PACKED_TM" if s.is_tm else "BAYESLM_PACKED_NOCARRY"
+    return (rc.mc_samples == 0 and not rc.xl_mems
+            and (s.interp == 0
+                 or s.cfg2.is_transformer == s.cfg.is_transformer)
+            and os.environ.get(env, "1") != "0")
 
 
-def packed_carry_impl(s, data, tgt, mask, reset, carry, G: int, N: int,
-                      n_seg: int, plan):
+def chain_state(cfg, G: int, device):
+    """A zero (h, c), each (nlayers, G, nhid) in ``cfg``'s compute
+    dtype."""
+    return init_hidden(cfg.nlayers, G, cfg.nhid,
+                       dtype=getattr(torch, cfg.compute_dtype), device=device)
+
+
+def bcast(a, N: int):
+    """(L, G, H) -> (L, G*N, H): each chain's state on its N columns."""
+    L_, G_, H_ = a.shape
+    return a[:, :, None, :].expand(L_, G_, N, H_).reshape(L_, G_ * N, H_)
+
+
+def first_hyp(a, N: int):
+    """(L, G*N, H) -> (L, G, H): column 0 of each chain (its first
+    hypothesis), the state the chain carries on."""
+    L_, B_, H_ = a.shape
+    return a.reshape(L_, B_ // N, N, H_)[:, :, 0, :].contiguous()
+
+
+def packed_carry_impl(s, data, tgt, mask, reset, carry, carry2, G: int,
+                      N: int, n_seg: int, plan):
     """One chunk on the device. data/tgt/mask/reset (T, G*N); carry
-    (h, c) each (L, G, H); plan the CE gather plan. Returns the (n_seg,)
-    scores and the next chunk's carry."""
+    (h, c) each (L, G, H), carry2 the second model's under interpolation
+    (its own geometry), else None; plan the CE gather plan. Returns the
+    (n_seg,) scores and the next chunk's two carries."""
     B = data.shape[1]
-
-    def bcast(a):  # (L, G, H) -> (L, G*N, H), chain state on every column
-        L_, G_, H_ = a.shape
-        return a[:, :, None, :].expand(L_, G_, N, H_).reshape(L_, G_ * N, H_)
-
-    def first_hyp(a):  # (L, G*N, H) -> (L, G, H), column 0 of each chain
-        L_, B_, H_ = a.shape
-        return a.reshape(L_, B_ // N, N, H_)[:, :, 0, :].contiguous()
-
     reset_src = (torch.arange(B, dtype=torch.int32, device=data.device)
                  // N) * N
-    hseq, (h, c) = s.model(data, (bcast(carry[0]), bcast(carry[1])),
-                           step_mask=mask, reset_mask=reset,
-                           reset_src=reset_src, return_hidden=True)
-    scores = common.fused_scores_packed(
-        s.model, hseq.reshape(-1, hseq.shape[-1]), tgt.reshape(-1), plan,
-        n_seg)
-    return scores, (first_hyp(h), first_hyp(c))
+
+    def run(model, c):
+        hseq, (h, cc) = model(data, (bcast(c[0], N), bcast(c[1], N)),
+                              step_mask=mask, reset_mask=reset,
+                              reset_src=reset_src, return_hidden=True)
+        return hseq.reshape(-1, hseq.shape[-1]), (first_hyp(h, N),
+                                                  first_hyp(cc, N))
+
+    hseq, carry = run(s.model, carry)
+    hseq2 = None
+    if s.interp:
+        hseq2, carry2 = run(s.model2, carry2)
+    scores = common.fused_scores_packed(s, hseq, tgt.reshape(-1), plan,
+                                        n_seg, hseq2)
+    return scores, carry, carry2
 
 
 def score_carry_packed(s, nbest, word2idx, stream_fn=None, enc_all=None):
@@ -87,8 +128,8 @@ def score_carry_packed(s, nbest, word2idx, stream_fn=None, enc_all=None):
     G = len(stream_keys)
     U_total = max((len(sk) for sk in stream_keys), default=0)
     cap = rc.max_hyp_len
-    cdtype = getattr(torch, s.cfg.compute_dtype)
-    carry = init_hidden(s.cfg.nlayers, G, s.cfg.nhid, dtype=cdtype, device=dev)
+    carry = chain_state(s.cfg, G, dev)
+    carry2 = chain_state(s.cfg2, G, dev) if s.interp else None
     scores: Dict[tuple, float] = {}
     pending = []
     U_CHUNK = max(1, min(rc.carry_chunk_utts, U_total))
@@ -116,17 +157,17 @@ def score_carry_packed(s, nbest, word2idx, stream_fn=None, enc_all=None):
         for (g, u), (k, off, segT) in segs.items():
             if off > 0:
                 reset_np[off, g * N:(g + 1) * N] = 1
-            for c, (x, y, _, _) in enumerate(enc_all[k]):
-                rows.append((g * N + c, x[:segT], y[:segT]))
+            for c, (x, y, nc, _) in enumerate(enc_all[k]):
+                rows.append((g * N + c, x[:segT], y[:segT], nc))
                 t_offs.append(off)
                 seg_ids.append((u * G + g) * N + c)
             slot_key[(u, g)] = k
         data, tgt, mask, plan = common.build_rows(
             rows, T, G * N, t_offs, seg_ids)
         to = lambda a: torch.from_numpy(a).to(dev)  # noqa: E731
-        out, carry = packed_carry_impl(
-            s, to(data), to(tgt), to(mask), to(reset_np), carry, G, N,
-            U * G * N, [to(a) for a in plan])
+        out, carry, carry2 = packed_carry_impl(
+            s, to(data), to(tgt), to(mask), to(reset_np), carry, carry2, G,
+            N, U * G * N, [to(a) for a in plan])
         pending.append((out, slot_key, U))
 
     for out, slot_key, U in pending:
@@ -141,13 +182,15 @@ def tm_packed_impl(s, data, tgt, segs, positions, Bc: int, n_seg: int,
                    plan):
     """The Transformer's packed pass on the device. data, tgt, segs
     (segment ids, 0 on padding) and positions are (T, C), C a multiple of
-    ``Bc``; one forward a block of ``Bc`` columns, as the JAX scorer scans
-    them; plan the CE gather plan. Returns the (n_seg,) scores."""
+    ``Bc``; one forward a block of ``Bc`` columns of each model, as the JAX
+    scorer scans them; plan the CE gather plan. Returns the (n_seg,)
+    scores."""
     T, C = data.shape
     dev = data.device
     tril = torch.ones((T, T), dtype=torch.bool, device=dev).tril()
     eye = torch.eye(T, dtype=torch.bool, device=dev)
-    hs = []
+    models = (s.model, s.model2) if s.interp else (s.model,)
+    hs = ([], [])
     for c0 in range(0, C, Bc):
         sq = segs[:, c0:c0 + Bc].t()  # (b, T)
         same = sq[:, :, None] == sq[:, None, :]
@@ -156,37 +199,39 @@ def tm_packed_impl(s, data, tgt, segs, positions, Bc: int, n_seg: int,
         valid = (same & tril) | eye
         mask = torch.zeros(valid.shape, dtype=torch.float32, device=dev)
         mask = mask.masked_fill(~valid, float("-inf"))[:, None]
-        hs.append(s.model(data[:, c0:c0 + Bc], return_hidden=True,
-                          positions=positions[:, c0:c0 + Bc],
-                          pack_mask=mask))
-    h = torch.cat(hs, dim=1)
-    return common.fused_scores_packed(s.model, h.reshape(T * C, -1),
-                                      tgt.reshape(-1), plan, n_seg)
+        for model, out in zip(models, hs):
+            out.append(model(data[:, c0:c0 + Bc], return_hidden=True,
+                             positions=positions[:, c0:c0 + Bc],
+                             pack_mask=mask))
+    h, h2 = (None if not o else torch.cat(o, dim=1).reshape(T * C, -1)
+             for o in hs)
+    return common.fused_scores_packed(s, h, tgt.reshape(-1), plan, n_seg,
+                                      h2)
 
 
 def rnn_packed_impl(s, data, tgt, mask, reset, Bc: int, n_seg: int, plan):
     """The LSTM's packed pass on the device. data, tgt, mask (the real
     steps) and reset (a hypothesis's first step past a column's first) are
     (T, C), C a multiple of ``Bc``; one forward a block of ``Bc`` columns
-    from a zero state, every reset taking source -1 (a zero state), as the
-    JAX scorer scans them; plan the CE gather plan. Returns the (n_seg,)
-    scores."""
+    of each model from a zero state, every reset taking source -1 (a zero
+    state), as the JAX scorer scans them; plan the CE gather plan. Returns
+    the (n_seg,) scores."""
     T, C = data.shape
-    cfg = s.cfg
-    h0, c0 = init_hidden(cfg.nlayers, Bc, cfg.nhid,
-                         dtype=getattr(torch, cfg.compute_dtype),
-                         device=data.device)
     src = torch.full((Bc,), -1, dtype=torch.int32, device=data.device)
+    models = [(s.model, s.cfg)] + ([(s.model2, s.cfg2)] if s.interp else [])
     hs = []
-    for b0 in range(0, C, Bc):
-        cols = slice(b0, b0 + Bc)
-        h, _ = s.model(data[:, cols], (h0, c0), step_mask=mask[:, cols],
-                       reset_mask=reset[:, cols], reset_src=src,
-                       return_hidden=True)
-        hs.append(h)
-    h = torch.cat(hs, dim=1)
-    return common.fused_scores_packed(s.model, h.reshape(T * C, -1),
-                                      tgt.reshape(-1), plan, n_seg)
+    for model, cfg in models:
+        h0 = chain_state(cfg, Bc, data.device)
+        out = []
+        for b0 in range(0, C, Bc):
+            cols = slice(b0, b0 + Bc)
+            h, _ = model(data[:, cols], h0, step_mask=mask[:, cols],
+                         reset_mask=reset[:, cols], reset_src=src,
+                         return_hidden=True)
+            out.append(h)
+        hs.append(torch.cat(out, dim=1).reshape(T * C, -1))
+    return common.fused_scores_packed(s, hs[0], tgt.reshape(-1), plan, n_seg,
+                                      hs[1] if s.interp else None)
 
 
 def score_packed_nocarry(s, nbest, word2idx, stream_fn=None, enc_all=None):
@@ -197,12 +242,12 @@ def score_packed_nocarry(s, nbest, word2idx, stream_fn=None, enc_all=None):
     block): the Transformer with its segments and positions, the LSTM with
     a zero-state reset at each hypothesis's start."""
     rc = s.rcfg
-    items = [(key, i, x, y) for key in nbest
-             for i, (x, y, _, _) in enumerate(enc_all[key])]
+    items = [(key, i, x, y, nc) for key in nbest
+             for i, (x, y, nc, _) in enumerate(enc_all[key])]
     if not items:
         return common.assemble(nbest, {})
     cap = rc.max_hyp_len
-    items = [(k, i, x[:cap], y[:cap]) for (k, i, x, y) in items]
+    items = [(k, i, x[:cap], y[:cap], nc) for (k, i, x, y, nc) in items]
     T = max(128, -(-(cap + 2) // 64) * 64)
     # best-fit decreasing: each hypothesis into the open column with the
     # smallest sufficient remaining room
@@ -232,9 +277,9 @@ def score_packed_nocarry(s, nbest, word2idx, stream_fn=None, enc_all=None):
         pos = np.zeros((T, C), np.int64)
     else:
         reset = np.zeros((T, C), np.uint8)
-    for i, (_, _, x, y) in enumerate(items):
+    for i, (_, _, x, y, nc) in enumerate(items):
         col, off, slot = place[i]
-        rows.append((col, x, y))
+        rows.append((col, x, y, nc))
         t_offs.append(off)
         if tm:
             L = min(len(x), T)
@@ -252,5 +297,5 @@ def score_packed_nocarry(s, nbest, word2idx, stream_fn=None, enc_all=None):
         out = rnn_packed_impl(s, to(data), to(tgt), to(mask), to(reset), Bc,
                               len(items), [to(a) for a in plan])
     out = out.cpu().numpy()
-    scores = {(k, i): float(out[n]) for n, (k, i, _, _) in enumerate(items)}
+    scores = {(k, i): float(out[n]) for n, (k, i, *_) in enumerate(items)}
     return common.assemble(nbest, scores)

@@ -114,7 +114,23 @@ attention kernel against its twin on every call of one pass (the
 CUDA-core design on copies of one call a shape), the pass
 against the plain path (the attention kernel's planted fault must fail
 it), and an on-card check that memories give the suffix of a
-full-context forward. After the main path's pass: the same pass with
+full-context forward. Then the scorer's options on the same models:
+interpolation at alpha 0.8 (flags 1 and 2) of the Bayesian LSTM with the
+standard one that training wrote, the 6,000-hypothesis N-best through
+packed-carry (row 2 at D = 2,048 under flag 1, checked on that call),
+held to the plain path with float32 states by the CLI's CHAIN_RATIO rule;
+two recipe-width Transformers (flag 1, row 2 at D = 1,024,
+packed-nocarry); the slotted layouts through the packed layouts'
+opt-outs against their packed twins, kernels on both sides (rows 1, 2 and
+14); MC-average scoring of 4 draws on 600 hypotheses for the Bayesian
+LSTM (rows 13, 5 and 2) and the variational Transformer (rows 15 and 2;
+four long hypotheses reach its noise window of 100 steps), against the
+plain path with the same generator seeds (rows 5 and 15 checked at their
+longest MC call); context splicing (3 words) and backward scoring through
+packed-carry. Each against the plain path with a planted fault outside
+its tolerance: alpha swapped for 1 - alpha, one MC draw dropped while
+still dividing by K, context targets scored, the LSTM's step mask or
+W_hh2 product. After the main path's pass: the same pass with
 the native host encoder (one call for the whole N-best) and with the
 Python ``encode_hyp`` loop, and each encode alone (print only); the
 N-best without carry-over (the recurrent packed-nocarry layout: blocks
@@ -128,7 +144,10 @@ epochs at the recipe's settings; the test loss below the first epoch's
 validation loss), ``score`` of the 6,000-hypothesis N-best from its
 checkpoint (the file equal to an in-process pass; no farther from the
 same pass with float32 states than the plain path, where the planted
-faults land farther), ``snr``, and
+faults land farther), the same interpolated with the train phase's
+standard LSTM through ``--inter_path``, with ``--mc-samples 4
+--no-carry-over`` on 600 hypotheses and with ``--splice-len 3
+--backward`` (each file equal to an in-process pass), ``snr``, and
 ``rescore`` of 300 synthetic lattices in 30 recordings (every stage's
 file, the neural scores equal to an in-process pass, a finite WER sweep;
 at ``--nn-weight 0`` the sweep equal to the lattices' own choice;
@@ -5048,6 +5067,54 @@ def cli_phases(torch, kernels, smi, cfg, rcfg, corpus, root):
             raise AssertionError(f"a planted fault passes CHAIN_RATIO: "
                                  f"{faults}")
 
+    with phase("cli score interpolated, MC, spliced and backward"):
+        # the Bayesian LSTM with the train phase's standard LSTM (its
+        # geometry from its checkpoint's meta) at the CLI's --inter_alpha
+        # 0.8; MC over the first MC_RECORDINGS recordings; SPLICE_LEN words
+        # of context with the words reversed
+        mc_nbest = OrderedDict((k, v) for k, v in nbest.items()
+                               if int(stream_of(k)[4:]) < MC_RECORDINGS)
+        mc_path = os.path.join(root, "nbest_mc.txt")
+        with open(mc_path, "w") as f:
+            f.writelines(f"{k}-{i} {h}\n" for k, hyps in mc_nbest.items()
+                         for i, h in enumerate(hyps, 1))
+        base = os.path.join(corpus, "model.ckpt")
+        runs = (("cli score interp", ["--interpolation_flag", "1",
+                                      "--inter_path", base], nb_path, nbest,
+                 dict(inter_flag=1, inter_alpha=INTERP_ALPHA),
+                 ("lstm2_fwd", "ce_fwd")),
+                ("cli score mc", ["--mc-samples", str(MC_SAMPLES),
+                                  "--no-carry-over"], mc_path, mc_nbest,
+                 dict(mc_samples=MC_SAMPLES, carry_over=False),
+                 ("lstm_train_fwd", "bayes_sample", "ce_fwd")),
+                ("cli score splice backward",
+                 ["--splice-len", str(SPLICE_LEN), "--backward"], nb_path,
+                 nbest, dict(splice_len=SPLICE_LEN, backward=True),
+                 ("lstm2_fwd", "ce_fwd")))
+        for tag, extra, path, nb, rc, rows in runs:
+            out_path = os.path.join(root, tag.replace(" ", "_") + ".scores")
+            out, n = run_cli(root, tag.replace(" ", "_"), [
+                "score", "--nbest-list", path, "--vocabulary", words,
+                "--model-path", ckpt, *bayes, "--max-hyp-len",
+                str(rcfg.max_hyp_len), *extra, "--outfile", out_path])
+            print(f"  {tag}: {out.strip().splitlines()[0]}; launches {n}")
+            pair = (cfg, load_checkpoint(base)[0]) if "inter_flag" in rc \
+                else (None, None)
+            s = BatchScorer(bcfg, params, dataclasses.replace(rcfg, **rc),
+                            *pair)
+            write_scores(s.score_nbest(nb, w2i), out_path + ".inproc")
+            del s
+            with open(out_path, "rb") as f, \
+                    open(out_path + ".inproc", "rb") as g:
+                same = f.read() == g.read()
+            print(f"  {tag}: scores file equal to the in-process pass: "
+                  f"{same}")
+            if not same or not all(n[r] for r in rows):
+                raise AssertionError(f"{tag} failed: file equal {same}, "
+                                     f"launches {n}")
+            for r in rows:
+                run_launches(kernels, r, tag, n[r])
+
     with phase("cli snr"):
         out, _ = run_cli(root, "snr", ["snr", "--model-path", ckpt,
                                        "--L_bayes_pos", str(BAYES_POS),
@@ -5115,6 +5182,555 @@ def cli_phases(torch, kernels, smi, cfg, rcfg, corpus, root):
          if "launches_by_run" in k}))
 
 
+# ------------------------------- interpolation, slotted layouts, MC, splicing
+# Interpolated scoring with a baseline at the recipes' weight
+# (recipes/run_nnlm_ami_lstm.sh: --inter_alpha 0.8 on the Bayesian model);
+# MC-average scoring over MC_SAMPLES draws on the first MC_RECORDINGS
+# recordings of the N-best (600 hypotheses; depth and width uncut); the
+# variational Transformer's MC pass at max_hyp_len TM_MC_LEN with MC_LONG
+# hypotheses of 70-99 words, whose bucket (T = v_seq_len = 100) draws its
+# noise; context splicing at SPLICE_LEN words.
+INTERP_ALPHA = 0.8
+MC_SAMPLES, MC_RECORDINGS = 4, 3
+TM_MC_LEN, MC_LONG = 100, 4
+SPLICE_LEN = 3
+# Transformer scores through an attention kernel (row 14 in the slotted
+# rows, row 15 in the MC draws) against scores through the plain attention:
+# both round each attention output to bf16 once, so an element may sit one
+# bf16 step (2^-8 of it) the other way, in each of 6 post-LN layers; the
+# score moves by a small share of that, relative: a quarter of one bf16
+# step of the score (the MC pass of a random-weight variational
+# Transformer measured 4.2e-4 on the H100, PERF.md).
+TM_ATTN_SCORE_RTOL = 2 ** -10
+# Row 2 on the interpolated pass's call: the trained pair's mixed logits
+# reach the Transformer's magnitudes (CE up to ~37 where the bench's random
+# LSTM stays near log V = 10.8), and each fp32 logit sums twice the
+# products (D = 2,048): the Transformer's row-2 tolerance, TM_CE_ATOL.
+INTERP_CE_ATOL = TM_CE_ATOL
+# the kernel entry of row 2 at the Transformer's width (tm_phases' tag)
+TM_CE = f"ce_fwd (Transformer, D={TM_WIDTH['emsize']})"
+
+
+def flat_scores(res):
+    return np.array([s for pairs in res.values() for _, s in pairs])
+
+
+def held(tag, got, ref, tol, faults, relative=True):
+    """Scores ``got`` within ``tol`` of ``ref`` (relative to |ref|, or
+    absolute), and each of ``faults`` (name -> scores) outside it; prints
+    the distances. Raises on a failed check."""
+    def dist(x):
+        d = np.abs(x - ref)
+        return float((d / np.abs(ref)).max() if relative else d.max())
+
+    kind = "relative" if relative else "absolute"
+    e = dist(got)
+    print(f"  {got.size} scores, |plain| mean {np.abs(ref).mean():.3f} max "
+          f"{np.abs(ref).max():.3f}: {kind} max |kernel - plain| {e:.3e} "
+          f"(tolerance {tol:.0e})")
+    bad = {name: dist(x) for name, x in faults.items()}
+    for name, b in bad.items():
+        print(f"  planted fault '{name}': {kind} max |faulty - plain| "
+              f"{b:.3e}")
+    if got.shape != ref.shape or not np.all(np.isfinite(got)) or e > tol:
+        raise AssertionError(f"{tag}: {e:.3e} from the plain path, "
+                             f"tolerance {tol:.0e}")
+    if bad and min(bad.values()) <= tol:
+        raise AssertionError(f"{tag}: a planted fault passes the "
+                             f"tolerance: {bad}")
+
+
+def chain_held(tag, got, ref, ref32, faults):
+    """A trained model's chained scores, the CLI's rule (CHAIN_RATIO): the
+    kernel path's relative distance from ``ref32`` (the plain path with
+    float32 states) at most CHAIN_RATIO times the plain bf16 path's
+    (``ref``) at CHAIN_QUANTILES, each of ``faults`` (name -> scores) past
+    it. Prints both. Raises on a failed check."""
+    e_p = np.abs(ref - ref32) / np.abs(ref32)
+
+    def ratio(x):
+        e = np.abs(x - ref32) / np.abs(ref32)
+        return {q: float(np.quantile(e, q) / np.quantile(e_p, q))
+                for q in CHAIN_QUANTILES}
+
+    r = ratio(got)
+    rel = np.abs(got - ref) / np.abs(ref)
+    print(f"  {got.size} scores (|plain| mean {np.abs(ref).mean():.3f}); "
+          f"relative to the plain path max {rel.max():.3e}; relative to the "
+          f"float32-state plain path, plain median / 99.9% / max "
+          f"{np.quantile(e_p, 0.5):.3e} / {np.quantile(e_p, 0.999):.3e} / "
+          f"{e_p.max():.3e}; kernel over plain at {CHAIN_QUANTILES}: {r} "
+          f"(limit {CHAIN_RATIO})")
+    bad = {name: ratio(x) for name, x in faults.items()}
+    for name, b in bad.items():
+        print(f"  planted fault '{name}': over the plain path's distance "
+              f"{b}")
+    if got.shape != ref.shape or not np.all(np.isfinite(got)) \
+            or max(r.values()) > CHAIN_RATIO:
+        raise AssertionError(f"{tag}: kernel over plain {r}, limit "
+                             f"{CHAIN_RATIO}")
+    if bad and min(max(b.values()) for b in bad.values()) <= CHAIN_RATIO:
+        raise AssertionError(f"{tag}: a planted fault passes CHAIN_RATIO: "
+                             f"{bad}")
+
+
+def scoring_counts():
+    """(reset, read) of the launch counts of the kernels a scoring pass may
+    launch: rows 1, 2, 5, 13, 14 and 15."""
+    from bayeslms_tpu_torch.ops import attention_cuda as acu
+    from bayeslms_tpu_torch.ops import attention_train_cuda as atc
+    from bayeslms_tpu_torch.ops import bayes_sample_cuda as bsc
+    from bayeslms_tpu_torch.ops import ce_cuda, lstm_cuda
+    from bayeslms_tpu_torch.ops import lstm_train_cuda as ltc
+
+    def reset():
+        lstm_cuda.launches = ce_cuda.launches = bsc.launches = 0
+        acu.launches = 0
+        lstm_cuda.design_launches.update(persistent=0, per_step=0)
+        ce_cuda.design_launches.update(split=0, wmma=0)
+        ltc.fwd_design_launches.update(persistent=0, per_step=0)
+        for m in (ltc, atc):
+            for k in m.launches:
+                m.launches[k] = 0
+        for d in atc.design_launches.values():
+            d.update(wgmma=0, simt=0)
+
+    def read():
+        return {"lstm2_fwd": lstm_cuda.launches, "ce_fwd": ce_cuda.launches,
+                "lstm_train_fwd": ltc.launches["lstm_train_fwd"],
+                "bayes_sample": bsc.launches, "attention_fwd": acu.launches,
+                "attn_train_fwd": atc.launches["attn_train_fwd"]}
+    return reset, read
+
+
+def plain_patches(*names):
+    """Mock patches of the named kernels' wrappers with their plain
+    versions."""
+    from bayeslms_tpu_torch.ops import attention_train_cuda as atc
+    from bayeslms_tpu_torch.ops import bayes_sample_cuda as bsc
+    from bayeslms_tpu_torch.ops import ce_cuda, lstm_cuda
+    from bayeslms_tpu_torch.ops import lstm_train_cuda as ltc
+
+    table = {"lstm2_fwd": (lstm_cuda, "lstm2_fwd", lstm_cuda.lstm2_plain),
+             "ce_fwd": (ce_cuda, "fused_decode_ce", ce_cuda.ce_plain),
+             "lstm_train_fwd": (ltc, "lstm_train_fwd",
+                                ltc.lstm_train_fwd_plain),
+             "bayes_sample": (bsc, "sample_slices", bsc.sample_slices_plain),
+             "attn_train_fwd": (atc, "flash_attention_train",
+                                atc.flash_attention_train_plain)}
+    stack = contextlib.ExitStack()
+    for n in names:
+        stack.enter_context(mock.patch.object(*table[n]))
+    return stack
+
+
+def scored_pass(torch, scorer, nbest, w2i, **kw):
+    """(scores, seconds, launch counts) of one pass, the counts zeroed just
+    before it."""
+    reset, read = scoring_counts()
+    torch.cuda.synchronize()
+    reset()
+    t0 = time.perf_counter()
+    res = scorer.score_nbest(nbest, w2i, **kw)
+    torch.cuda.synchronize()
+    return flat_scores(res), time.perf_counter() - t0, read()
+
+
+def new_shape_check(torch, kernels, name, fn, plain, args, tol, fault_args,
+                    flops, nbytes, library, **entry):
+    """A kernel at a shape a new scoring run hands it: ``fn(*args)``
+    against ``plain(*args)`` within ``tol`` (rtol, share of max |plain|)
+    output by output, ``fault_args`` (a planted fault) outside it; times
+    it, its plain version and ``library()`` (a PyTorch call computing the
+    same function, never called by the port), and adds it to ``kernels``.
+    Raises on a failed check."""
+    with phase(f"kernel {name}"), torch.no_grad():
+        outs = ("o", "m", "l") if "attn" in name else ("ys", "cs", "hT",
+                                                       "cT")
+        got = dict(zip(outs, fn(*args)))
+        ref = dict(zip(outs, plain(*args)))
+        err, worst = check_outputs(name, got, ref, *tol)
+        bad = fault_share(dict(zip(outs, fn(*fault_args))), ref, *tol)
+        print(f"  planted fault: worst share of tolerance {bad:.1f}")
+        ms = cuda_ms(torch, lambda: fn(*args), 5)
+        plain_ms = cuda_ms(torch, lambda: plain(*args), 3)
+        library_ms = library()
+        bms, bby = bound_ms(flops, nbytes)
+        print(f"  kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, library "
+              f"{library_ms:.3f} ms, bound {bms:.4f} ms ({bby})")
+        kernels[name] = dict(name=name, route="cuda", max_abs_err=err,
+                             ms=ms, plain_ms=plain_ms, bound_ms=bms,
+                             bound_by=bby, library_ms=library_ms, **entry)
+        if worst > 1 or bad <= FAULT_MARGIN:
+            raise AssertionError(f"{name}: worst share {worst:.3f}, planted "
+                                 f"fault {bad:.1f}")
+
+
+def interp_phase(torch, kernels, smi, cfg, rcfg, corpus, tmpdir):
+    """``inter_flag`` 1 and 2 at alpha INTERP_ALPHA: the Bayesian LSTM of
+    the bayes phases with the standard LSTM of the train phase, the
+    6,000-hypothesis N-best in 30 chains through packed-carry (row 1 for
+    each model, row 2 on the concatenated D = 2,048 states under flag 1 and
+    twice at D = 1,024 under flag 2), held to the plain path with float32
+    states by ``chain_held`` (the CLI's chained trained scores' rule), with
+    alpha swapped for 1 - alpha outside it; row 2 checked on the flag-1
+    pass's call (``ce_fwd_check``, tag `` (interp D=2048)``, within
+    INTERP_CE_ATOL). Prints each pass's time beside the Bayesian model's
+    alone. Raises on a failed check."""
+    import dataclasses
+
+    from bayeslms_tpu_torch.core.checkpoint import load_checkpoint
+    from bayeslms_tpu_torch.ops import ce_cuda
+    from bayeslms_tpu_torch.rescore import layouts
+    from bayeslms_tpu_torch.rescore.scorer import BatchScorer
+
+    bcfg = dataclasses.replace(cfg, uncertainty="Bayesian",
+                               l_bayes_pos=BAYES_POS)
+    bp = load_checkpoint(os.path.join(tmpdir, "bayes.ckpt"))[0]
+    sp = load_checkpoint(os.path.join(tmpdir, "model.ckpt"))[0]
+    nbest = make_synthetic_nbest(n_meetings=30, vocab_words=cfg.vocab_size
+                                 - 2)
+    w2i = corpus.vocab.word2idx
+    with phase("interp score"):
+        alone = BatchScorer(bcfg, bp, rcfg)
+        alone.score_nbest(nbest, w2i, stream_fn=stream_of)  # warm
+        _, alone_s, _ = scored_pass(torch, alone, nbest, w2i,
+                                    stream_fn=stream_of)
+        del alone
+        print(f"  the Bayesian LSTM alone: one pass {alone_s:.4f} s on {smi}")
+        recorded = {}
+        for flag in (1, 2):
+            rc = dataclasses.replace(rcfg, inter_flag=flag,
+                                     inter_alpha=INTERP_ALPHA)
+            scorer = BatchScorer(bcfg, bp, rc, cfg, sp)
+            if layouts.select(scorer).name != "packed-carry":
+                raise AssertionError("the interpolated pass left packed-carry")
+            with recording(ce_cuda, ("fused_decode_ce",), recorded)[0]:
+                scorer.score_nbest(nbest, w2i, stream_fn=stream_of)  # warm
+            got, secs, n = scored_pass(torch, scorer, nbest, w2i,
+                                       stream_fn=stream_of)
+            widths = sorted({a[0].shape[1] for a in
+                             recorded["fused_decode_ce"]})
+            print(f"  flag {flag}: one pass {secs:.4f} s "
+                  f"({secs / alone_s:.2f}x the model alone); row 1 "
+                  f"{n['lstm2_fwd']} launches, row 2 {n['ce_fwd']} at D "
+                  f"{widths}, by route {ce_cuda.design_launches}")
+            want_d = [2 * cfg.nhid] if flag == 1 else [cfg.nhid]
+            if widths != want_d or not n["lstm2_fwd"] or not n["ce_fwd"] \
+                    or ce_cuda.design_launches["split"] != n["ce_fwd"]:
+                raise AssertionError(f"flag {flag}: rows 1-2 not launched "
+                                     f"as expected: {n}, D {widths}")
+            f32 = [dataclasses.replace(c, compute_dtype="float32")
+                   for c in (bcfg, cfg)]
+            s32 = BatchScorer(f32[0], bp, rc, f32[1], sp)
+            with plain_patches("lstm2_fwd", "ce_fwd"):
+                ref = flat_scores(scorer.score_nbest(nbest, w2i,
+                                                     stream_fn=stream_of))
+                ref32 = flat_scores(s32.score_nbest(nbest, w2i,
+                                                    stream_fn=stream_of))
+            swapped = BatchScorer(bcfg, bp, dataclasses.replace(
+                rc, inter_alpha=1.0 - INTERP_ALPHA), cfg, sp)
+            bad = flat_scores(swapped.score_nbest(nbest, w2i,
+                                                  stream_fn=stream_of))
+            del swapped, scorer, s32
+            chain_held(f"interp flag {flag}", got, ref, ref32,
+                       {"alpha swapped for 1 - alpha": bad})
+            if flag == 1:
+                args = recorded["fused_decode_ce"][0]
+                n1 = n
+            else:
+                run_launches(kernels, "ce_fwd", "interp score (flag 2)",
+                             n["ce_fwd"])
+            run_launches(kernels, "lstm2_fwd", f"interp score (flag {flag})",
+                         n["lstm2_fwd"])
+            recorded.clear()
+    ce_fwd_check(torch, kernels, args, " (interp D=2048)", INTERP_CE_ATOL)
+    kernels["ce_fwd (interp D=2048)"]["launches"] = n1["ce_fwd"]
+
+
+def interp_tm_phase(torch, kernels, smi, cfg, rcfg, corpus, tmpdir,
+                    tm_long_ckpt):
+    """``inter_flag`` 1 at alpha INTERP_ALPHA of the recipe's Transformer
+    trained by the tm phases with the one trained at long context: the
+    6,000-hypothesis N-best through packed-nocarry, row 2 on the
+    concatenated D = 1,024 states, against the plain path within
+    TRAINED_SCORE_RTOL (trained weights) and with alpha swapped outside
+    it. Raises on a failed check."""
+    import dataclasses
+
+    from bayeslms_tpu_torch.core.checkpoint import load_checkpoint
+    from bayeslms_tpu_torch.rescore import layouts
+    from bayeslms_tpu_torch.rescore.scorer import BatchScorer
+
+    tcfg = tm_config(cfg)
+    p1 = load_checkpoint(os.path.join(tmpdir, "tm.ckpt"))[0]
+    p2 = load_checkpoint(tm_long_ckpt)[0]
+    nbest = make_synthetic_nbest(n_meetings=30, vocab_words=cfg.vocab_size
+                                 - 2)
+    w2i = corpus.vocab.word2idx
+    with phase("interp tm score"):
+        rc = dataclasses.replace(rcfg, inter_flag=1, inter_alpha=INTERP_ALPHA)
+        scorer = BatchScorer(tcfg, p1, rc, tcfg, p2)
+        if layouts.select(scorer).name != "packed-nocarry":
+            raise AssertionError("the interpolated Transformers left "
+                                 "packed-nocarry")
+        scorer.score_nbest(nbest, w2i)  # warm
+        got, secs, n = scored_pass(torch, scorer, nbest, w2i)
+        print(f"  one pass {secs:.4f} s on {smi}; launches {n}")
+        if n["ce_fwd"] != 1:
+            raise AssertionError(f"row 2: {n['ce_fwd']} launches, 1 expected")
+        with plain_patches("ce_fwd"):
+            ref = flat_scores(scorer.score_nbest(nbest, w2i))
+        bad = flat_scores(BatchScorer(tcfg, p1, dataclasses.replace(
+            rc, inter_alpha=1.0 - INTERP_ALPHA), tcfg, p2).score_nbest(
+                nbest, w2i))
+        held("interp tm", got, ref, TRAINED_SCORE_RTOL,
+             {"alpha swapped for 1 - alpha": bad})
+        run_launches(kernels, "ce_fwd", "interp tm score (D=1,024)",
+                     n["ce_fwd"])
+
+
+def slotted_phase(torch, kernels, smi, cfg, rcfg, params, corpus, tmpdir):
+    """The slotted layouts on the card, reached through the packed
+    layouts' opt-outs, against their packed twins, kernels on both sides:
+    slotted-carry against packed-carry (the bench's LSTM, the
+    6,000-hypothesis N-best in 30 chains) within SCORE_ATOL, the step mask
+    ignored planted outside it; slotted-bucketed against packed-nocarry
+    for the same LSTM without carry-over within SCORE_ATOL, W_hh2's
+    product dropped outside it, and for the tm phases' Transformer within
+    TM_ATTN_SCORE_RTOL (its slotted rows on row 14). Raises on a failed
+    check."""
+    import dataclasses
+
+    from bayeslms_tpu_torch.core.checkpoint import load_checkpoint
+    from bayeslms_tpu_torch.ops import lstm_cuda
+    from bayeslms_tpu_torch.rescore import layouts
+    from bayeslms_tpu_torch.rescore.scorer import BatchScorer
+
+    nbest = make_synthetic_nbest(n_meetings=30)
+    w2i = {"<s>": 0, "<unk>": 1,
+           **{f"w{i}": 2 + i for i in range(cfg.vocab_size - 2)}}
+    tp = load_checkpoint(os.path.join(tmpdir, "tm.ckpt"))[0]
+    runs = [
+        ("lstm carry", cfg, params, rcfg, "BAYESLM_PACKED_CARRY",
+         "step mask ignored", SCORE_ATOL, False),
+        ("lstm no-carry", cfg, params,
+         dataclasses.replace(rcfg, carry_over=False),
+         "BAYESLM_PACKED_NOCARRY", "W_hh2 product dropped", SCORE_ATOL,
+         False),
+        ("tm", tm_config(cfg), tp, rcfg, "BAYESLM_PACKED_TM", None,
+         TM_ATTN_SCORE_RTOL, True)]
+    with phase("slotted score"):
+        kernel = lstm_cuda.lstm2_fwd
+        for tag, mcfg, p, rc, opt_out, fault, tol, relative in runs:
+            scorer = BatchScorer(mcfg, p, rc)
+            w = corpus.vocab.word2idx if mcfg.is_transformer else w2i
+            kw = {} if mcfg.is_transformer else {"stream_fn": stream_of}
+            packed_name = layouts.select(scorer).name
+            scorer.score_nbest(nbest, w, **kw)  # warm
+            ref, ref_s, _ = scored_pass(torch, scorer, nbest, w, **kw)
+            with mock.patch.dict(os.environ, {opt_out: "0"}):
+                name = layouts.select(scorer).name
+                scorer.score_nbest(nbest, w, **kw)  # warm
+                got, secs, n = scored_pass(torch, scorer, nbest, w, **kw)
+                faults = {}
+                if fault:
+                    with mock.patch.object(
+                            lstm_cuda, "lstm2_fwd",
+                            lambda *a: kernel(*planted(a, fault))):
+                        faults[fault] = flat_scores(
+                            scorer.score_nbest(nbest, w, **kw))
+            print(f"  {tag}: {name} {secs:.4f} s, {packed_name} {ref_s:.4f}"
+                  f" s on {smi}; {name}'s launches {n}")
+            if not name.startswith("slotted") \
+                    or not packed_name.startswith("packed"):
+                raise AssertionError(f"{tag}: layouts {packed_name}, {name}")
+            rows = ("ce_fwd", "attention_fwd") if mcfg.is_transformer \
+                else ("ce_fwd", "lstm2_fwd")
+            if not all(n[r] for r in rows):
+                raise AssertionError(f"{tag}: {name} missed a kernel: {n}")
+            for r in rows:
+                run_launches(kernels, TM_CE if r == "ce_fwd"
+                             and mcfg.is_transformer else r,
+                             f"slotted score ({tag}, {name})", n[r])
+            held(f"slotted {tag}", got, ref, tol, faults, relative)
+            del scorer
+
+
+def mc_phases(torch, kernels, smi, cfg, rcfg, corpus, tmpdir):
+    """MC-average scoring, ``mc_samples`` MC_SAMPLES without carry-over, on
+    the first MC_RECORDINGS recordings of the N-best: the Bayesian LSTM of
+    the bayes phases (per draw, row 13 once and row 5 once a layer a row of
+    64 columns, row 2 once a bucket) and the variational Transformer
+    (``t_v_pos`` 1) of the family phases at max_hyp_len TM_MC_LEN with
+    MC_LONG long hypotheses (row 15 in each layer a row, dropout 0, row 2
+    once a bucket), each against the plain path with the same draws (the
+    generators seeded per bucket, row and draw), within TRAINED_SCORE_RTOL
+    and TM_ATTN_SCORE_RTOL, and with one draw dropped while still dividing
+    by K outside it; rows 5 and 15 checked at the longest call of their
+    pass. Raises on a failed check."""
+    import dataclasses
+
+    from bayeslms_tpu_torch.core.checkpoint import load_checkpoint
+    from bayeslms_tpu_torch.ops import attention_train_cuda as atc
+    from bayeslms_tpu_torch.ops import lstm_train_cuda as ltc
+    from bayeslms_tpu_torch.rescore import layouts
+    from bayeslms_tpu_torch.rescore.layouts import common
+    from bayeslms_tpu_torch.rescore.scorer import BatchScorer
+
+    full = make_synthetic_nbest(n_meetings=30, vocab_words=cfg.vocab_size
+                                - 2)
+    keys = [k for k in full if int(stream_of(k)[4:]) < MC_RECORDINGS]
+    nbest = OrderedDict((k, full[k]) for k in keys)
+    w2i = corpus.vocab.word2idx
+    ce_tokens = common.fused_ce_tokens
+
+    def one_draw_dropped():
+        calls = []
+
+        def ce(*a):
+            calls.append(1)
+            out = ce_tokens(*a)
+            return out.fill_(float("inf")) if len(calls) % MC_SAMPLES == 0 \
+                else out
+        return mock.patch.object(common, "fused_ce_tokens", ce)
+
+    bcfg = dataclasses.replace(cfg, uncertainty="Bayesian",
+                               l_bayes_pos=BAYES_POS)
+    vcfg = tm_config(cfg, uncertainty="Variational", t_v_pos=1)
+    rng = np.random.default_rng(5)
+    long = [" ".join(f"w{w}" for w in rng.integers(2, cfg.vocab_size - 2,
+                                                   int(rng.integers(70, 99))))
+            for _ in range(MC_LONG)]
+    runs = [("mc score", bcfg, "bayes.ckpt", rcfg.max_hyp_len, nbest,
+             ("lstm_train_fwd", "bayes_sample", "ce_fwd"),
+             TRAINED_SCORE_RTOL, True, (ltc, "lstm_train_fwd")),
+            ("mc tm score", vcfg, "vtm_1.ckpt", TM_MC_LEN,
+             OrderedDict([*nbest.items(), ("meet0_long", long)]),
+             ("attn_train_fwd", "ce_fwd"), TM_ATTN_SCORE_RTOL, True,
+             (atc, "attn_train_fwd"))]
+    calls = {}
+    for tag, mcfg, ckpt, max_len, nb, rows, tol, relative, rec in runs:
+        with phase(tag):
+            rc = dataclasses.replace(rcfg, carry_over=False,
+                                     mc_samples=MC_SAMPLES,
+                                     max_hyp_len=max_len)
+            scorer = BatchScorer(mcfg, load_checkpoint(
+                os.path.join(tmpdir, ckpt))[0], rc)
+            if layouts.select(scorer).name != "slotted-bucketed":
+                raise AssertionError(f"{tag}: not slotted-bucketed")
+            recorded = {}
+            with recording(rec[0], (rec[1],), recorded)[0]:
+                scorer.score_nbest(nb, w2i)  # warm
+            got, secs, n = scored_pass(torch, scorer, nb, w2i)
+            n_hyps = sum(len(h) for h in nb.values())
+            print(f"  {n_hyps} hypotheses, {MC_SAMPLES} draws: one pass "
+                  f"{secs:.4f} s ({n_hyps / secs:.1f} hyps/s) on {smi}; "
+                  f"launches {n}; row 5 by design {ltc.fwd_design_launches}; "
+                  f"row 15 by design {atc.design_launches['attn_train_fwd']}")
+            if not all(n[r] for r in rows):
+                raise AssertionError(f"{tag}: a kernel of the path was not "
+                                     f"launched: {n}")
+            with plain_patches(*rows):
+                ref = flat_scores(scorer.score_nbest(nb, w2i))
+            with one_draw_dropped():
+                bad = flat_scores(scorer.score_nbest(nb, w2i))
+            held(tag, got, ref, tol, {"one draw dropped, still / K": bad},
+                 relative)
+            for r in rows:
+                run_launches(kernels, TM_CE if r == "ce_fwd"
+                             and mcfg.is_transformer else r, tag, n[r])
+            calls[tag] = max(recorded[rec[1]], key=lambda a: a[0].shape[0])
+            del scorer
+
+    xg, w_hh, b_hh, mask, h0, c0 = calls["mc score"]
+    T, B, G = xg.shape
+    H = G // 4
+    new_shape_check(
+        torch, kernels, "lstm_train_fwd (mc)", ltc.lstm_train_fwd,
+        ltc.lstm_train_fwd_plain, calls["mc score"],
+        TRAIN_TOL["lstm_train_fwd"],
+        (xg, torch.zeros_like(w_hh), b_hh, mask, h0, c0),
+        2 * T * B * H * 4 * H,
+        T * B * 4 * H * 2 + 4 * H * H * 2 + 4 * H * 4 + 4 * B * H * 2
+        + 2 * T * B * H * 2,
+        lambda: library_yardstick(torch, "lstm_train_fwd", (xg,)),
+        source="bayeslms_tpu_torch/csrc/lstm_train.cu",
+        replaces="bayeslms_tpu/ops/lstm_pallas.py:421",
+        launches=kernels["lstm_train_fwd"]["launches_by_run"]["mc score"],
+        design=ltc._card_design(xg.device, B, H, T)["fwd_design"])
+    q, k, v, h, rate, seed = calls["mc tm score"]
+    T, B, E = q.shape
+    d = E // h
+
+    def sdpa():
+        F = torch.nn.functional
+        qh, kh, vh = (x.reshape(T, B, h, d).permute(1, 2, 0, 3)
+                      for x in (q, k, v))
+        return cuda_ms(torch, lambda: F.scaled_dot_product_attention(
+            qh, kh, vh, is_causal=True), 5)
+
+    new_shape_check(
+        torch, kernels, "attn_train_fwd (mc)", atc.attn_train_fwd,
+        atc.attn_train_fwd_plain, calls["mc tm score"],
+        (ATTN_TRAIN_RTOL, ATTN_TRAIN_SHARE),
+        (q, k, torch.roll(v, 1, 0), h, rate, seed),
+        causal_flops(T, B * h, d), 4 * T * B * E * 2 + 2 * B * h * T * 4,
+        sdpa, source="bayeslms_tpu_torch/csrc/attention_train.cu",
+        replaces="bayeslms_tpu/ops/attention_train_pallas.py:198",
+        launches=kernels["attn_train_fwd"]["launches_by_run"]["mc tm score"],
+        design=max(atc.design_launches["attn_train_fwd"].items(),
+                   key=lambda kv: kv[1])[0])
+
+
+def splice_phase(torch, kernels, smi, cfg, rcfg, corpus, tmpdir):
+    """Context splicing (``splice_len`` SPLICE_LEN, the automatic context
+    map: each utterance spliced with the first hypotheses before it in its
+    chain) and backward scoring of the train phase's LSTM through
+    packed-carry, the N-best of 2 recordings, each against the plain path
+    within TRAINED_SCORE_RTOL; the splice with its context targets scored
+    planted outside it. Raises on a failed check."""
+    import dataclasses
+
+    from bayeslms_tpu_torch.core.checkpoint import load_checkpoint
+    from bayeslms_tpu_torch.rescore import layouts
+    from bayeslms_tpu_torch.rescore.layouts import common
+    from bayeslms_tpu_torch.rescore.scorer import BatchScorer
+
+    params = load_checkpoint(os.path.join(tmpdir, "model.ckpt"))[0]
+    nbest = make_synthetic_nbest(n_meetings=2, vocab_words=cfg.vocab_size - 2)
+    w2i = corpus.vocab.word2idx
+    build_rows = common.build_rows
+
+    def context_scored(rows, *a):
+        return build_rows([r[:3] for r in rows], *a)
+
+    with phase("splice score"):
+        for tag, kw in (("splice", dict(splice_len=SPLICE_LEN)),
+                        ("backward", dict(backward=True))):
+            scorer = BatchScorer(cfg, params, dataclasses.replace(rcfg, **kw))
+            if layouts.select(scorer).name != "packed-carry":
+                raise AssertionError(f"{tag}: not packed-carry")
+            scorer.score_nbest(nbest, w2i, stream_fn=stream_of)  # warm
+            got, secs, n = scored_pass(torch, scorer, nbest, w2i,
+                                       stream_fn=stream_of)
+            print(f"  {tag}: one pass {secs:.4f} s on {smi}; launches {n}")
+            if not n["lstm2_fwd"] or not n["ce_fwd"]:
+                raise AssertionError(f"{tag}: rows 1-2 not launched: {n}")
+            with plain_patches("lstm2_fwd", "ce_fwd"):
+                ref = flat_scores(scorer.score_nbest(nbest, w2i,
+                                                     stream_fn=stream_of))
+            faults = {}
+            if tag == "splice":
+                with mock.patch.object(common, "build_rows", context_scored):
+                    faults["context targets scored"] = flat_scores(
+                        scorer.score_nbest(nbest, w2i, stream_fn=stream_of))
+            held(tag, got, ref, TRAINED_SCORE_RTOL, faults)
+            for r in ("lstm2_fwd", "ce_fwd"):
+                run_launches(kernels, r, f"{tag} score", n[r])
+            del scorer
+
+
 def library_yardstick(torch, name, args):
     """ms of one PyTorch call computing the same function (never called by
     the port): cuDNN's LSTM for the recurrence (all-ones mask, as in
@@ -5162,6 +5778,7 @@ def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
+    t_start = time.perf_counter()
 
     torch.backends.cuda.matmul.allow_tf32 = False  # plain versions in fp32
     kernels = {}
@@ -5306,10 +5923,16 @@ def main():
     tm_phases(torch, kernels, smi, cfg, rcfg, corpus, tmp.name)
     ckpt = tm_long_phases(torch, kernels, smi, cfg, tmp.name)
     tm_xl_phase(torch, kernels, smi, cfg, rcfg, ckpt)
+    interp_phase(torch, kernels, smi, cfg, rcfg, corpus, tmp.name)
+    interp_tm_phase(torch, kernels, smi, cfg, rcfg, corpus, tmp.name, ckpt)
+    slotted_phase(torch, kernels, smi, cfg, rcfg, params, corpus, tmp.name)
+    mc_phases(torch, kernels, smi, cfg, rcfg, corpus, tmp.name)
+    splice_phase(torch, kernels, smi, cfg, rcfg, corpus, tmp.name)
     cli_phases(torch, kernels, smi, cfg, rcfg, tmp.name,
                tempfile.mkdtemp(dir=tmp.name))
     tmp.cleanup()
 
+    print(f"chip_smoke: all phases in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": list(kernels.values())}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -24,6 +24,7 @@ import bayeslms_tpu as jx
 import chip_smoke
 from bayeslms_tpu.analysis.snr import snr_report as jax_snr_report
 from bayeslms_tpu.cli import main as jcli
+from bayeslms_tpu.core import checkpoint as jckpt
 from bayeslms_tpu_torch.analysis.snr import snr_report
 from bayeslms_tpu_torch.cli import main as cli
 from bayeslms_tpu_torch.core.checkpoint import load_checkpoint
@@ -229,13 +230,110 @@ def test_unported_flags_raise_before_device_work(argv, item, monkeypatch):
         cli.main(argv)
 
 
+@pytest.fixture(scope="module")
+def jax_baseline(corpus):
+    """A standard LSTM of another width (24) trained by the JAX package's
+    own CLI: the second model of an interpolation, its geometry in its
+    sidecar only."""
+    path = str(corpus / "jax_baseline.ckpt")
+    assert jcli.main(["train", "--data", str(corpus), "--emsize", "24",
+                      "--nhid", "24", "--dropout", "0.0", "--batch-size", "4",
+                      "--seq_len", "10", "--epochs", "1", "--lr", "1",
+                      "--save", path]) == 0
+    return path
+
+
+def _scores_file(path):
+    return [line.split() for line in path.read_text().splitlines()]
+
+
 @pytest.mark.parametrize("extra", [
     ["--interpolation_flag", "1"], ["--interpolation_flag", "2"],
     ["--mc-samples", "2", "--no-carry-over"], ["--backward"],
     ["--splice-len", "3"], ["--model_var", "back"]],
     ids=["inter1", "inter2", "mc", "backward", "splice", "back"])
-def test_scoring_extras_reach_the_scorer_refusals(corpus, jax_ckpt, extra):
-    argv = ["--platform", "cpu", *_score_args(corpus, jax_ckpt, *extra),
-            "--uncertainty", "Bayesian", "--L_bayes_pos", "3"]
-    with pytest.raises(NotImplementedError, match="queue A item 11"):
-        cli.main(argv)
+def test_scoring_extras_reach_the_scorer_refusals(
+        corpus, jax_ckpt, jax_baseline, extra, tmp_path, monkeypatch,
+        capsys):
+    """The scorer options once refused now score as the JAX CLI does, on the
+    Bayesian LSTM it trained: interpolation with the baseline of
+    ``--inter_path`` (its width from its sidecar), MC with the same draws
+    on both sides (``tests/test_torch_port_mc.py``), backward and spliced
+    scoring. Scores rtol 1e-4 / atol 1e-4, as the CLI's score test."""
+    from test_torch_port_mc import Draws, bayes_shapes, install_jax_draws
+
+    from bayeslms_tpu_torch.rescore import scorer as scorer_mod
+
+    if extra[0] == "--interpolation_flag":
+        extra = [*extra, "--inter_path", jax_baseline]
+    argv = [*_score_args(corpus, jax_ckpt, *extra)[:-len(TINY) - len(extra)],
+            *TINY, "--uncertainty", "Bayesian", "--L_bayes_pos", "3", *extra]
+    out, jout = tmp_path / "port.scores", tmp_path / "jax.scores"
+    argv[argv.index("--outfile") + 1] = str(out)
+    draws = Draws(bayes_shapes(16, 16))
+
+    class Scorer(scorer_mod.BatchScorer):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            self.mc_noise = draws
+
+    monkeypatch.setattr(scorer_mod, "BatchScorer", Scorer)
+    assert cli.main(["--platform", "cpu", *argv]) == 0
+    argv[argv.index("--outfile") + 1] = str(jout)
+    monkeypatch.setenv("BAYESLM_NATIVE_ENCODE", "0")
+    # without jit the JAX model updates its weights in place (.at): its
+    # checkpoint's numpy arrays go in as JAX arrays
+    load = jckpt.load_checkpoint
+    monkeypatch.setattr(jckpt, "load_checkpoint", lambda path: (
+        lambda p, m: (jax.tree.map(jax.numpy.asarray, p), m))(*load(path)))
+    done = install_jax_draws(monkeypatch, draws.in_jax_order())
+    with jax.disable_jit():
+        assert jcli.main(argv) == 0
+    assert done()
+    capsys.readouterr()
+    got, ref = _scores_file(out), _scores_file(jout)
+    assert [k for k, _ in got] == [k for k, _ in ref] and len(got) == 19
+    np.testing.assert_allclose([float(v) for _, v in got],
+                               [float(v) for _, v in ref], rtol=1e-4,
+                               atol=1e-4)
+
+
+def test_inter_path_takes_its_sidecar_and_checks_it(corpus, jax_ckpt,
+                                                    jax_baseline, tmp_path):
+    """The second model's geometry comes from its checkpoint's sidecar;
+    without ``--inter_path`` and on a vocabulary mismatch the CLI exits with
+    the JAX package's messages, before the scorer is built."""
+    import shutil
+
+    args = cli.build_parser().parse_args(
+        _score_args(corpus, jax_ckpt, "--interpolation_flag", "1",
+                    "--inter_path", jax_baseline))
+    cfg2, params2 = cli._inter_model(args, 42)
+    assert (cfg2.nhid, cfg2.emsize, cfg2.uncertainty) == (24, 24, "none")
+    assert params2["embedding"].shape == (42, 24)
+    with pytest.raises(SystemExit, match="requires --inter_path"):
+        cli.main(["--platform", "cpu",
+                  *_score_args(corpus, jax_ckpt, "--interpolation_flag", "2")])
+    bad = str(tmp_path / "other.ckpt")
+    shutil.copy(jax_baseline, bad)
+    with open(jax_baseline + ".json") as f:
+        meta = json.load(f)
+    meta["model_config"]["vocab_size"] += 1
+    with open(bad + ".json", "w") as f:
+        json.dump(meta, f)
+    argv = _score_args(corpus, jax_ckpt, "--interpolation_flag", "1",
+                       "--inter_path", bad)
+    for main, pre in ((cli.main, ["--platform", "cpu"]), (jcli.main, [])):
+        with pytest.raises(SystemExit, match="trained with vocab_size=43"):
+            main([*pre, *argv])
+
+
+def test_mc_samples_with_carry_over_raises_before_device_work(
+        corpus, jax_ckpt, monkeypatch):
+    """``--mc-samples`` on a recurrent model needs ``--no-carry-over``: the
+    scorer's refusal, on a machine without a card, before it asks for
+    one."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    with pytest.raises(ValueError, match="carry_over=False"):
+        cli.main([*_score_args(corpus, jax_ckpt, "--mc-samples", "4"),
+                  "--compute-dtype", "bfloat16"])

@@ -129,28 +129,37 @@ def test_nocarry_scores_each_hypothesis_from_zero():
 
 def test_registry_names_are_pinned():
     assert [l.name for l in layouts.LAYOUTS] == [
-        "xl", "packed-carry", "packed-nocarry"]
+        "xl", "packed-carry", "slotted-carry", "packed-nocarry",
+        "slotted-bucketed"]
 
 
-# (label, cfg, rcfg, layout): the JAX registry's choice with the fused CE
-# on (tests/test_layout_registry.py), which the port must make too
+# (label, cfg, rcfg, layout, environment): the JAX registry's choice with
+# the fused CE on (tests/test_layout_registry.py), which the port must make
+# too; the environment holds the packed layouts' opt-outs
 MATRIX = [
-    ("lstm carry", LSTM, dict(carry_over=True), "packed-carry"),
-    ("lstm no-carry", LSTM, dict(carry_over=False), "packed-nocarry"),
+    ("lstm carry", LSTM, dict(carry_over=True), "packed-carry", {}),
+    ("lstm no-carry", LSTM, dict(carry_over=False), "packed-nocarry", {}),
     ("bayes no-carry", {**LSTM, **CORES["bayes3"]}, dict(carry_over=False),
-     "packed-nocarry"),
+     "packed-nocarry", {}),
     ("gp no-carry", {**LSTM, **CORES["gp13"]}, dict(carry_over=False),
-     "packed-nocarry"),
-    ("tm", TM, dict(carry_over=False), "packed-nocarry"),
-    ("tm carry", TM, dict(carry_over=True), "packed-nocarry"),
-    ("tm xl", TM, dict(carry_over=False, xl_mems=True), "xl"),
+     "packed-nocarry", {}),
+    ("tm", TM, dict(carry_over=False), "packed-nocarry", {}),
+    ("tm carry", TM, dict(carry_over=True), "packed-nocarry", {}),
+    ("tm xl", TM, dict(carry_over=False, xl_mems=True), "xl", {}),
+    ("lstm carry opted out", LSTM, dict(carry_over=True), "slotted-carry",
+     {"BAYESLM_PACKED_CARRY": "0"}),
+    ("lstm mc", {**LSTM, **CORES["bayes3"]},
+     dict(carry_over=False, mc_samples=2), "slotted-bucketed", {}),
 ]
 
 
-@pytest.mark.parametrize("label,cfg_kw,rcfg_kw,expect", MATRIX,
+@pytest.mark.parametrize("label,cfg_kw,rcfg_kw,expect,env", MATRIX,
                          ids=[m[0] for m in MATRIX])
-def test_selection_matches_jax(monkeypatch, label, cfg_kw, rcfg_kw, expect):
+def test_selection_matches_jax(monkeypatch, label, cfg_kw, rcfg_kw, expect,
+                               env):
     _fused_on(monkeypatch)
+    for k, v in env.items():
+        monkeypatch.setenv(k, v)
     rc = dict(max_hyp_len=16, batch_size=4, **rcfg_kw)
     jcfg = jx.ModelConfig(**cfg_kw)
     js = JaxScorer(jcfg, jx.init_params(jx.build_model(jcfg), jcfg),
@@ -168,10 +177,10 @@ def test_every_port_layout_is_reachable():
 
 
 def test_past_the_table_raises_naming_the_item(monkeypatch):
-    """Every configuration the scorer takes matches a row; one that ran past
-    the table would raise naming the slotted layouts' item."""
+    """``slotted-bucketed`` matches every configuration; a table without it
+    runs past its end and raises the JAX registry's AssertionError."""
     monkeypatch.setattr(layouts, "LAYOUTS", ())
-    with pytest.raises(NotImplementedError, match="queue A item 4"):
+    with pytest.raises(AssertionError, match="unreachable: slotted-bucketed"):
         layouts.select(object())
 
 
@@ -208,8 +217,9 @@ def test_gather_plan_sums_each_hypothesis_in_a_fixed_order():
     h = torch.randn((T * C, H), generator=torch.Generator().manual_seed(2))
     t_flat = torch.from_numpy(tgt.reshape(-1))
     to = [torch.from_numpy(a) for a in plan]
-    got = common.fused_scores_packed(model, h, t_flat, to, len(rows))
-    again = common.fused_scores_packed(model, h, t_flat, to, len(rows))
+    scorer = types.SimpleNamespace(model=model, interp=0)
+    got = common.fused_scores_packed(scorer, h, t_flat, to, len(rows))
+    again = common.fused_scores_packed(scorer, h, t_flat, to, len(rows))
     assert torch.equal(got, again)
     ce = ce_cuda.ce_plain(h[to[0]], model.embedding, model.decoder_b,
                           t_flat[to[0]]).double().numpy()

@@ -136,6 +136,38 @@ def test_pipeline_matches_jax(tmp_path, carry_over, nn_weight):
     _compare(jres, res, tmp_path / "jwd", tmp_path / "wd")
 
 
+@pytest.mark.parametrize("flag", [1, 2])
+def test_pipeline_with_an_interpolating_scorer_matches_jax(tmp_path, flag):
+    """Stage 4's scores from a scorer that interpolates two LSTMs of
+    different widths (logits or scores, alpha 0.7), then stage 5's n-gram
+    interpolation at nn_weight 0.5, as in the JAX package's pipeline."""
+    _write(tmp_path, WORDS, SIMPLE_LATS, SIMPLE_REF, ARPA)
+    w2i = {w: i for i, w in enumerate(WORDS)}
+    kws = [dict(model="LSTM", vocab_size=len(WORDS), emsize=w, nhid=w,
+                dropout=0.0) for w in (8, 16)]
+    rc = dict(carry_over=True, max_hyp_len=16, inter_flag=flag,
+              inter_alpha=0.7)
+    ps = [jx.init_params(jx.build_model(jx.ModelConfig(**kw)),
+                         jx.ModelConfig(**kw), seed=s)
+          for s, kw in enumerate(kws)]
+    jscorer = JaxScorer(jx.ModelConfig(**kws[0]), ps[0],
+                        jx.RescoreConfig(**rc), jx.ModelConfig(**kws[1]),
+                        ps[1])
+    scorer = BatchScorer(bt.ModelConfig(**kws[0]),
+                         jax.tree.map(np.asarray, ps[0]),
+                         bt.RescoreConfig(**rc), bt.ModelConfig(**kws[1]),
+                         jax.tree.map(np.asarray, ps[1]), device="cpu")
+    rcfg_kw = dict(nbest=5, nn_weight=0.5, min_lmwt=7, max_lmwt=10)
+    args = (str(tmp_path / "lats.txt"), str(tmp_path / "words.txt"))
+    kw = dict(arpa_lm=str(tmp_path / "lm.arpa"),
+              ref_text=str(tmp_path / "ref.txt"))
+    jres = jax_pipeline(*args, jscorer, w2i, str(tmp_path / "jwd"),
+                        jx.RescoreConfig(**rcfg_kw), **kw)
+    res = pipeline.run_pipeline(*args, scorer, w2i, str(tmp_path / "wd"),
+                                bt.RescoreConfig(**rcfg_kw), **kw)
+    _compare(jres, res, tmp_path / "jwd", tmp_path / "wd")
+
+
 def test_pipeline_gzipped_binary_lattices_match_jax(tmp_path):
     """tests/test_pipeline.py's adversarial case: the lattices converted to
     a gzipped binary archive by the port's own lattice_copy."""

@@ -89,12 +89,32 @@ def test_packed_carry_scores_match_jax(monkeypatch, jax_params, chunk, streams):
     dict(backward=True),
     dict(inter_flag=2),
 ])
-def test_unported_scoring_raises(jax_params, rc):
-    params = jax.tree.map(np.asarray, jax_params)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        s = BatchScorer(bt.ModelConfig(**CFG), params, bt.RescoreConfig(**rc),
-                        device="cpu")
-        s.score_nbest(_nbest(), W2I)
+def test_unported_scoring_raises(monkeypatch, jax_params, rc):
+    """The flags the port once refused (interpolation, MC, splicing,
+    backward scoring) now score as the JAX scorer does on the CPU (its
+    slotted layouts, unfused there); the second model of an interpolation
+    is the same geometry from another seed."""
+    monkeypatch.setenv("BAYESLM_NATIVE_ENCODE", "0")
+    cfg2 = jp2 = None
+    if rc.get("inter_flag"):
+        jcfg = jx.ModelConfig(**CFG)
+        cfg2, jp2 = CFG, jx.init_params(jx.build_model(jcfg), jcfg, seed=5)
+    rc = dict(max_hyp_len=16, batch_size=4, carry_chunk_utts=2, **rc)
+    nbest = _nbest()
+    ref = JaxScorer(jx.ModelConfig(**CFG), jax_params, jx.RescoreConfig(**rc),
+                    None if cfg2 is None else jx.ModelConfig(**cfg2),
+                    jp2).score_nbest(nbest, W2I, stream_fn=_stream)
+    s = BatchScorer(bt.ModelConfig(**CFG), jax.tree.map(np.asarray, jax_params),
+                    bt.RescoreConfig(**rc),
+                    None if cfg2 is None else bt.ModelConfig(**cfg2),
+                    None if jp2 is None else jax.tree.map(np.asarray, jp2),
+                    device="cpu")
+    got = s.score_nbest(nbest, W2I, stream_fn=_stream)
+    assert list(got) == list(ref)
+    for k in nbest:
+        np.testing.assert_allclose(
+            [v for _, v in got[k]], [v for _, v in ref[k]],
+            rtol=1e-4, atol=1e-4 if rc.get("mc_samples") else 1e-5, err_msg=k)
 
 
 def test_nbest_io_and_encoding_match_jax(tmp_path):
