@@ -12,12 +12,15 @@ for MC-average scoring; interpolated with a second model, backward or
 with spliced context; the host encode in one call of the native
 tokenizer, ``data/native.py``) and trains both
 families (``train.loop.Trainer``: the
-standard and Bayesian gate-slice LSTM, the GP-LSTM of every
-``l_gauss_pos`` string (GP gates 1-7, GPNN and GPNN2), the standard
-Transformer, the Bayesian FFN / MHA / EMB Transformers and the GP-FFN
-Transformer); the command line ``bayeslm-torch`` (``cli/main.py``: train,
-score, rescore, snr) and the lattice rescoring pipeline
-(``rescore/pipeline.py``) drive them. ROADMAP.md lists what follows.
+standard LSTM of any depth, the GRU and the vanilla RNN, the Bayesian
+gate-slice LSTM, the GP-LSTM of every ``l_gauss_pos`` string (GP gates
+1-7, GPNN and GPNN2), the variational LSTMs, the standard Transformer, the
+Bayesian FFN / MHA / EMB Transformers, the GP-FFN and variational
+Transformers; tied or untied decoders; full-state resume and a traced
+epoch) and runs the DARTS architecture search (``nas/``); the command line
+``bayeslm-torch`` (``cli/main.py``: train, score, rescore, snr, search)
+and the lattice rescoring pipeline (``rescore/pipeline.py``) drive them.
+ROADMAP.md lists what follows.
 """
 
 from .core.config import ModelConfig, RescoreConfig, TrainConfig

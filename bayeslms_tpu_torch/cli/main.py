@@ -7,6 +7,7 @@
   bayeslm-torch rescore  --lattices F --words words.txt --model-path m.ckpt \\
                          --arpa lm.arpa --ref ref.txt --workdir WD
   bayeslm-torch snr      --model-path m.ckpt [--L_bayes_pos 3]
+  bayeslm-torch search   --data DIR --model LSTM --search-mode bayes ...
 
 Also ``python -m bayeslms_tpu_torch.cli.main``. ``--platform cuda`` (the
 default) runs on the card and raises without one; ``--platform cpu`` runs
@@ -16,10 +17,14 @@ the JAX package) raises and names ``--compute-dtype bfloat16``. ``score``
 and ``rescore`` read any checkpoint ``core/checkpoint.py`` ``load_params``
 reads (the port's own, a JAX ``.ckpt``, a reference ``model.pt``).
 
+``train --resume`` continues from ``<save>.resume`` (written after each
+epoch); ``--profile DIR`` writes a Chrome trace of the first trained epoch
+(``train``), of the scoring (``score``) or of the pipeline (``rescore``)
+into DIR. ``search`` runs the DARTS search in float32 (no kernel runs
+there) and prints the softmaxed arch weights and the derived choice.
 Not ported yet, each raising ``NotImplementedError`` that names its
-ROADMAP.md item before any device work: ``search`` (item 12),
-``--multihost``, ``--tp-shards`` and ``--dp-shards`` above 1 (item 13),
-``--profile`` and ``--resume`` (item 6). ``score`` and ``rescore``
+ROADMAP.md item before any device work: ``--multihost``, ``--tp-shards``
+and ``--dp-shards`` above 1 (item 13). ``score`` and ``rescore``
 take the scorer's options: ``--interpolation_flag`` with ``--inter_path``
 (the second model), ``--mc-samples``, ``--backward`` (``--model_var
 back``), ``--splice-len`` with ``--context-file``; the scorer refuses the
@@ -80,20 +85,23 @@ def _refuse_unported(args) -> None:
     if getattr(args, "dp_shards", 1) > 1:
         raise NotImplementedError(
             "--dp-shards > 1 is not ported yet (ROADMAP.md queue A item 13)")
-    if getattr(args, "resume", False):
-        raise NotImplementedError(
-            "--resume (full-state resume) is not ported yet (ROADMAP.md "
-            "queue A item 6)")
-    if getattr(args, "profile", None):
-        raise NotImplementedError(
-            "--profile is not ported yet (ROADMAP.md queue A item 6); "
-            "tools/port_train_profile.py and tools/port_pass_profile.py "
-            "trace a step and a pass")
 
 
-def _check_device(args) -> None:
-    """No quiet CPU run without --platform cpu, and no float32 operand for
-    the card's kernels (ROADMAP.md queue B item B.5)."""
+def _profiled(args):
+    """``trace(--profile)`` around the region, or nothing."""
+    import contextlib
+
+    if not getattr(args, "profile", None):
+        return contextlib.nullcontext()
+    from ..utils.profiling import trace
+
+    return trace(args.profile)
+
+
+def _check_device(args, kernels: bool = True) -> None:
+    """No quiet CPU run without --platform cpu, and, where the card's
+    kernels run (``kernels``), no float32 operand for them (ROADMAP.md
+    queue B item B.5)."""
     import torch
 
     if args.platform != "cuda":
@@ -102,7 +110,7 @@ def _check_device(args) -> None:
         raise RuntimeError(
             "bayeslm-torch: no CUDA device; pass --platform cpu to run on "
             "the CPU with the kernels' plain versions")
-    if args.compute_dtype != "bfloat16":
+    if kernels and args.compute_dtype != "bfloat16":
         raise ValueError(
             f"bayeslm-torch: --compute-dtype {args.compute_dtype} on the "
             "card: its kernels take bf16 operands only (ROADMAP.md B.5); "
@@ -217,8 +225,9 @@ def cmd_score(args) -> int:
         if err:
             print(err, file=sys.stderr)
             return 1
-    scored = scorer.score_nbest(nbest, vocab.word2idx,
-                                context_map=context_map)
+    with _profiled(args):
+        scored = scorer.score_nbest(nbest, vocab.word2idx,
+                                    context_map=context_map)
     write_scores(scored, args.outfile)
     print(f"oov tokens: {scorer.oov_stats['total']}")
     print(f"wrote {args.outfile}")
@@ -242,10 +251,11 @@ def cmd_rescore(args) -> int:
         splice_len=args.splice_len, xl_mems=args.model_var == "XL",
         max_hyp_len=args.max_hyp_len)
     scorer = _scorer(args, cfg, rcfg, len(vocab))
-    res = run_pipeline(
-        args.lattices, args.words, scorer, vocab.word2idx, args.workdir,
-        rcfg, arpa_lm=args.arpa, ref_text=args.ref, glm=args.glm,
-        asclite_clean=args.asclite_clean, sanity_test=args.sanity_test)
+    with _profiled(args):
+        res = run_pipeline(
+            args.lattices, args.words, scorer, vocab.word2idx, args.workdir,
+            rcfg, arpa_lm=args.arpa, ref_text=args.ref, glm=args.glm,
+            asclite_clean=args.asclite_clean, sanity_test=args.sanity_test)
     print(json.dumps({
         "n_utts": res.n_utts, "n_hyps": res.n_hyps,
         "oov_tokens": res.oov_tokens,
@@ -267,9 +277,23 @@ def cmd_snr(args) -> int:
 
 
 def cmd_search(args) -> int:
-    raise NotImplementedError(
-        "search (the DARTS supernets and architect of nas/) is not ported "
-        "yet (ROADMAP.md queue A item 12)")
+    """The DARTS search (the JAX ``bayeslm search``): prints the softmaxed
+    arch weights and the derived choice as JSON."""
+    from ..data.corpus import Corpus
+    from ..nas.search import SearchRunner
+
+    corpus = Corpus(args.data)
+    cfg = _model_cfg(args, len(corpus.vocab))
+    tcfg = TrainConfig(lr=args.lr, batch_size=args.batch_size,
+                       epochs=args.epochs, seq_len=args.seq_len,
+                       clip=args.clip, seed=args.seed)
+    runner = SearchRunner(cfg, tcfg, mode=args.search_mode,
+                          unrolled=args.unrolled, arch_lr=args.arch_lr,
+                          device=args.platform)
+    res = runner.run(corpus)
+    print(json.dumps({"arch_softmax": res.arch_softmax.tolist(),
+                      "derived_choice": res.derived_choice.tolist()}))
+    return 0
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -310,11 +334,13 @@ def build_parser() -> argparse.ArgumentParser:
                    help="tensor-parallel shards (not ported: ROADMAP A13)")
     t.add_argument("--save", default="model.ckpt")
     t.add_argument("--resume", action="store_true",
-                   help="continue from <save>.resume (not ported: ROADMAP A6)")
+                   help="continue from <save>.resume, written after each "
+                        "epoch")
     t.add_argument("--multihost", action="store_true",
                    help="multi-host job (not ported: ROADMAP A13)")
     t.add_argument("--profile", default=None, metavar="DIR",
-                   help="profile trace dir (not ported: ROADMAP A6)")
+                   help="write a Chrome trace of the first trained epoch "
+                        "into DIR")
     t.set_defaults(fn=cmd_train)
 
     s = sub.add_parser("score", help="score an n-best list")
@@ -341,7 +367,7 @@ def build_parser() -> argparse.ArgumentParser:
     s.add_argument("--dp-shards", type=int, default=1,
                    help="shard hypothesis batches (not ported: ROADMAP A13)")
     s.add_argument("--profile", default=None, metavar="DIR",
-                   help="profile trace dir (not ported: ROADMAP A6)")
+                   help="write a Chrome trace into DIR")
     s.add_argument("--context-file", default=None,
                    help="previous-decode context text: per-utterance "
                         "'utt text…' lines or one global line "
@@ -367,7 +393,7 @@ def build_parser() -> argparse.ArgumentParser:
                    choices=["none", "back", "XL"])
     r.add_argument("--max-hyp-len", type=int, default=128)
     r.add_argument("--profile", default=None, metavar="DIR",
-                   help="profile trace dir (not ported: ROADMAP A6)")
+                   help="write a Chrome trace into DIR")
     r.add_argument("--ref", default=None)
     r.add_argument("--N", type=int, default=20)
     r.add_argument("--acwt", type=float, default=0.1)
@@ -395,8 +421,7 @@ def build_parser() -> argparse.ArgumentParser:
     n.add_argument("--nhid", type=int, default=1024)
     n.set_defaults(fn=cmd_snr)
 
-    se = sub.add_parser("search", help="DARTS architecture search "
-                                       "(not ported: ROADMAP A12)")
+    se = sub.add_parser("search", help="DARTS architecture search")
     _add_model_args(se)
     se.add_argument("--data", required=True)
     se.add_argument("--search-mode", default="bayes",
@@ -418,6 +443,8 @@ def main(argv=None) -> int:
     _refuse_unported(args)
     if args.fn in (cmd_train, cmd_score, cmd_rescore):
         _check_device(args)
+    elif args.fn is cmd_search:
+        _check_device(args, kernels=False)
     return args.fn(args)
 
 

@@ -1,15 +1,17 @@
 """Model construction, counterpart of ``bayeslms_tpu/core/registry.py``.
 
-The port builds the 2-layer LSTM with a tied decoder, with
-``uncertainty="none"``, ``"Bayesian"`` (the gate-slice Bayes2LSTM core),
-``"Gaussian"`` (the GP-LSTM core of an ``l_gauss_pos`` string: GP gates
-1-7, GPNN types 0-3 and GPNN2; or the legacy GaussLSTM of
-``l_gauss_legacy_pos``) or ``"Variational"`` (the variational LSTM of
-``l_v_pos``, or the legacy VLSTM with ``l_v_legacy``), and the Transformer
-with a tied decoder, standard, Bayesian at the FFN, the MHA or the
-embedding, with the GP-FFN layer (``t_gauss_pos`` 0-4) or with variational
-layers (``t_v_pos`` 1-3); every other configuration raises
-``NotImplementedError`` naming its ROADMAP.md item.
+The port builds the recurrent LM (``RecurrentLM``: the standard LSTM of any
+depth, the GRU and the vanilla RNN; the 2-layer LSTM's uncertainty cores,
+``"Bayesian"`` (the gate-slice Bayes2LSTM core), ``"Gaussian"`` (the
+GP-LSTM core of an ``l_gauss_pos`` string: GP gates 1-7, GPNN types 0-3
+and GPNN2; or the legacy GaussLSTM of ``l_gauss_legacy_pos``) and
+``"Variational"`` (the variational LSTM of ``l_v_pos``, or the legacy
+VLSTM with ``l_v_legacy``)) and the Transformer (standard, Bayesian at the
+FFN, the MHA or the embedding, with the GP-FFN layer (``t_gauss_pos``
+0-4) or with variational layers (``t_v_pos`` 1-3)), each with a tied or an
+untied decoder. An uncertainty core at another depth or model raises
+``NotImplementedError`` (the JAX package quietly builds two LSTM layers
+there).
 """
 
 from __future__ import annotations

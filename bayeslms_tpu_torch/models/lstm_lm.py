@@ -13,8 +13,11 @@ posterior mean, the GP units at their means, no variational noise) and the
 training forward, with dropout on the embedding, between the standard
 core's layers and on the core's output, as ``RecurrentLM.__call__``,
 ``StandardRNNCore``, ``BayesLSTMCore``, ``GPLSTMCore`` and the variational
-cores apply it in the JAX package. GRU/RNN cores and other depths are
-ROADMAP.md queue A item 3; the cores raise for them.
+cores apply it in the JAX package. The standard core takes the LSTM at
+any depth, the GRU and the vanilla RNN (tanh, relu); the decoder is tied
+or the model's own ``decoder_w``. The uncertainty cores are 2-layer LSTMs
+and raise for other depths and models, where the JAX package quietly
+builds two LSTM layers.
 """
 
 from __future__ import annotations
@@ -27,7 +30,8 @@ from torch import nn
 from ..core.config import ModelConfig
 from ..ops import (bayes_sample_cuda, gaussian, gp_lstm_cuda, lstm_cuda,
                    lstm_train_cuda)
-from ..ops.lstm import LSTMParams, lstm_layer, lstm_stack2
+from ..ops.lstm import (LSTMParams, gru_layer, lstm_layer,
+                       lstm_stack2, rnn_layer)
 from . import initializers as tinit
 from .layers import ACTS, GPNN, GPNN2, VNN, _next_eps
 
@@ -42,10 +46,11 @@ def init_hidden(nlayers: int, batch: int, nhid: int,
 
 class DropoutMasks(NamedTuple):
     """Keep masks (nonzero = kept) of one training forward: on the
-    embedding (T, B, emsize), between the layers (None for the Bayesian
-    core, which has no inter-layer dropout) and on the core's output
-    (T, B, nhid). Drawn by ``draw_dropout_masks`` or injected, so that a
-    test can feed both packages the same masks."""
+    embedding (T, B, emsize), between the layers (None for the cores that
+    have no inter-layer dropout; for the standard core one (T, B, nhid)
+    mask at two layers, a sequence of nlayers - 1 of them at other depths)
+    and on the core's output (T, B, nhid). Drawn by ``draw_dropout_masks``
+    or injected, so that a test can feed both packages the same masks."""
 
     emb: torch.Tensor
     layer: Optional[torch.Tensor]
@@ -63,7 +68,10 @@ def draw_dropout_masks(cfg: ModelConfig, T: int, B: int,
     layered = cfg.uncertainty == "none" or (
         cfg.uncertainty == "Gaussian" and cfg.l_gauss_legacy_pos < 0
         and cfg.l_gauss_pos[:1] == "0")
-    layer = draw(cfg.nhid) if layered else None
+    layer = None
+    if layered:
+        layer = draw(cfg.nhid) if cfg.nlayers == 2 else tuple(
+            draw(cfg.nhid) for _ in range(cfg.nlayers - 1))
     return DropoutMasks(draw(cfg.emsize), layer, draw(cfg.nhid))
 
 
@@ -73,24 +81,35 @@ def _dropout(x, mask, keep):
 
 
 class StandardRNNCore(nn.Module):
-    """Multi-layer LSTM; this slice has the 2-layer LSTM branch. Parameter
-    names follow the JAX tree: ``l{k}_w_ih``, ``l{k}_w_hh``, ``l{k}_b_ih``,
-    ``l{k}_b_hh``."""
+    """Multi-layer LSTM, GRU or vanilla RNN (tanh or relu) with torch
+    nn.LSTM's dropout between layers (on every layer's output but the
+    last), the JAX package's ``StandardRNNCore``. Parameter names follow the
+    JAX tree: ``l{k}_w_ih`` (G H, in), ``l{k}_w_hh`` (G H, H), ``l{k}_b_ih``,
+    ``l{k}_b_hh`` (G H,), G = 4 (LSTM), 3 (GRU, rows r, z, n) or 1 (RNN).
+
+    The 2-layer LSTM takes ``lstm_stack2`` (the scoring route of kernel row
+    1; in training two calls of rows 5-6, or rows 7-8 under the fused
+    switch). Every other depth runs layer by layer: an LSTM layer through
+    ``ops.lstm.lstm_layer`` (rows 3-4 when deterministic, rows 5-6 in
+    training, on a CUDA tensor its gate admits), a GRU or RNN layer through
+    ``gru_layer`` / ``rnn_layer``, which reach no kernel in the JAX package
+    either. The GRU and RNN carry no cell state: their ``c`` is zeros, as
+    the JAX core stacks it."""
 
     def __init__(self, cfg: ModelConfig):
         super().__init__()
-        if cfg.model != "LSTM" or cfg.nlayers != 2:
-            raise NotImplementedError(
-                f"{cfg.model} with {cfg.nlayers} layers is not ported yet: the "
-                "GRU/RNN cores and other depths are ROADMAP.md queue A item 3")
-        for k, in_size in ((0, cfg.emsize), (1, cfg.nhid)):
-            for name, shape in (("w_ih", (4 * cfg.nhid, in_size)),
-                                ("w_hh", (4 * cfg.nhid, cfg.nhid)),
-                                ("b_ih", (4 * cfg.nhid,)),
-                                ("b_hh", (4 * cfg.nhid,))):
+        gates = {"LSTM": 4, "GRU": 3, "RNN_TANH": 1, "RNN_RELU": 1}[cfg.model]
+        if cfg.nlayers < 1:
+            raise ValueError(f"nlayers {cfg.nlayers}: at least one layer")
+        for k in range(cfg.nlayers):
+            in_size = cfg.emsize if k == 0 else cfg.nhid
+            for name, shape in (("w_ih", (gates * cfg.nhid, in_size)),
+                                ("w_hh", (gates * cfg.nhid, cfg.nhid)),
+                                ("b_ih", (gates * cfg.nhid,)),
+                                ("b_hh", (gates * cfg.nhid,))):
                 self.register_parameter(
                     f"l{k}_{name}", nn.Parameter(torch.empty(shape)))
-        self.nhid = cfg.nhid
+        self.nhid, self.kind, self.nlayers = cfg.nhid, cfg.model, cfg.nlayers
 
     def layer(self, k: int) -> LSTMParams:
         return LSTMParams(*(getattr(self, f"l{k}_{n}")
@@ -102,12 +121,41 @@ class StandardRNNCore(nn.Module):
 
     def forward(self, x, hidden: Hidden, step_mask=None, reset_mask=None,
                 reset_src=None, train: bool = False, dropout_mask=None):
-        """``train`` takes the grad route of ``lstm_stack2``;
-        ``dropout_mask`` (T, B, H) scales layer 1's output there."""
+        """``train`` takes the grad routes. ``dropout_mask``: the
+        nlayers - 1 inter-layer (T, B, H) masks, scaled by 1 / keep
+        (``RecurrentLM`` scales them), or None."""
         h0, c0 = hidden
-        out, hs, cs = lstm_stack2(x, h0, c0, self.layer(0), self.layer(1),
-                                  step_mask, reset_mask, reset_src,
-                                  train=train, dropout_mask=dropout_mask)
+        masks = dropout_mask
+        if masks is not None and len(masks) != self.nlayers - 1:
+            raise ValueError(f"StandardRNNCore: {len(masks)} inter-layer "
+                             f"dropout masks for {self.nlayers} layers")
+        if self.kind == "LSTM" and self.nlayers == 2:
+            out, hs, cs = lstm_stack2(x, h0, c0, self.layer(0),
+                                      self.layer(1), step_mask, reset_mask,
+                                      reset_src, train=train,
+                                      dropout_mask=None if masks is None
+                                      else masks[0])
+            return out, (torch.stack(hs), torch.stack(cs))
+        rkw = dict(step_mask=step_mask, reset_mask=reset_mask,
+                   reset_src=reset_src)
+        out, hs, cs = x, [], []
+        for k in range(self.nlayers):
+            p = self.layer(k)
+            if self.kind == "LSTM":
+                out, hT, cT = lstm_layer(out, h0[k], c0[k], p,
+                                         allow_kernel=not train, **rkw)
+            elif self.kind == "GRU":
+                out, hT = gru_layer(out, h0[k], p, **rkw)
+                cT = torch.zeros_like(hT)
+            else:
+                out, hT = rnn_layer(out, h0[k], p, "tanh"
+                                    if self.kind == "RNN_TANH" else "relu",
+                                    **rkw)
+                cT = torch.zeros_like(hT)
+            hs.append(hT)
+            cs.append(cT)
+            if masks is not None and k < self.nlayers - 1:
+                out = out * masks[k].to(out.dtype)
         return out, (torch.stack(hs), torch.stack(cs))
 
 
@@ -174,11 +222,7 @@ class BayesLSTMCore(nn.Module):
 
     def __init__(self, cfg: ModelConfig, both_layers: bool = True):
         super().__init__()
-        if cfg.model != "LSTM" or cfg.nlayers != 2:
-            raise NotImplementedError(
-                f"the Bayesian core with {cfg.model} x {cfg.nlayers} is not "
-                "ported: the reference's Bayes(2)LSTM is a 2-layer LSTM "
-                "(ROADMAP.md queue A item 3 brings other depths)")
+        _two_layers(cfg, "the Bayesian core")
         H, pos = cfg.nhid, cfg.l_bayes_pos
         self.nhid, self.pos, self.both_layers = H, pos, both_layers
         self.lgstd_layers: Tuple[int, ...] = ()
@@ -524,7 +568,9 @@ class GPLSTMCore(nn.Module):
         self.sows_kl = gate > 0 and 0 < gtype <= 3
         if self.kind == "std":
             self.std_core = StandardRNNCore(cfg)
-        elif self.kind == "len2":
+            return
+        _two_layers(cfg, "the GP-LSTM with GP cells")
+        if self.kind == "len2":
             self.cell0 = GPLSTMCell(E, H, gate, gtype, sample)
             self.std1 = StdLSTMLayer(H, H)
         elif self.kind == "len3":
@@ -595,11 +641,18 @@ class GPLSTMCore(nn.Module):
 
 
 def _two_layers(cfg: ModelConfig, what: str) -> None:
+    """The uncertainty cores are 2-layer LSTMs. At another depth or model
+    the JAX package builds and runs two LSTM layers all the same (at depth
+    1 it reads the second layer's state from the first's, clamping the
+    index); the port refuses instead (ROADMAP.md C, deliberate
+    differences)."""
     if cfg.model != "LSTM" or cfg.nlayers != 2:
         raise NotImplementedError(
-            f"{what} with {cfg.model} x {cfg.nlayers} is not ported: the "
-            "reference's is a 2-layer LSTM (ROADMAP.md queue A item 3 brings "
-            "other depths)")
+            f"{what} with {cfg.model} x {cfg.nlayers}: the reference's is a "
+            "2-layer LSTM, and the JAX package quietly builds two LSTM "
+            "layers for any other depth or model; the port refuses it "
+            "(ROADMAP.md C, deliberate differences: only the standard core "
+            "takes other depths and the GRU/RNN)")
 
 
 def _mean_params(module: nn.Module, H: int, E: int, in2: int) -> None:
@@ -919,7 +972,9 @@ class VLSTMCore(_KLRecorder):
 
 
 class RecurrentLM(nn.Module):
-    """Embedding -> recurrent core -> tied decoder (reference RNNModel).
+    """Embedding -> recurrent core -> decoder (reference RNNModel): tied to
+    the embedding, or with ``cfg.tied`` False its own ``decoder_w`` (V,
+    nhid), as the JAX package names it.
 
     ``forward`` with ``deterministic=True`` (the default) is the scoring
     pass, dropout off; ``deterministic=False`` is the training forward.
@@ -927,11 +982,11 @@ class RecurrentLM(nn.Module):
 
     def __init__(self, cfg: ModelConfig):
         super().__init__()
-        if not cfg.tied:
-            raise NotImplementedError(
-                "an untied decoder is not ported yet (ROADMAP.md queue A item 3)")
         self.cfg = cfg
         self.embedding = nn.Parameter(torch.empty((cfg.vocab_size, cfg.emsize)))
+        if not cfg.tied:
+            self.decoder_w = nn.Parameter(torch.empty((cfg.vocab_size,
+                                                       cfg.nhid)))
         self.decoder_b = nn.Parameter(torch.empty((cfg.vocab_size,)))
         if cfg.uncertainty == "Bayesian":
             self.core = BayesLSTMCore(cfg)
@@ -944,8 +999,16 @@ class RecurrentLM(nn.Module):
         else:
             self.core = StandardRNNCore(cfg)
 
+    @property
+    def decoder_weight(self) -> torch.Tensor:
+        """The decoder's (V, nhid) weight: the embedding when tied, else
+        ``decoder_w``."""
+        return self.embedding if self.cfg.tied else self.decoder_w
+
     def reset_parameters(self, gen: torch.Generator) -> None:
         tinit.uniform_(self.embedding, tinit.EMBEDDING_BOUND, gen)
+        if not self.cfg.tied:
+            tinit.uniform_(self.decoder_w, tinit.EMBEDDING_BOUND, gen)
         with torch.no_grad():
             self.decoder_b.zero_()
         self.core.reset_parameters(gen)
@@ -986,12 +1049,17 @@ class RecurrentLM(nn.Module):
             if m is None:
                 m = draw_dropout_masks(cfg, tokens.shape[0], tokens.shape[1],
                                        generator, emb.device)
-            layer = None if m.layer is None else m.layer.to(dtype) / keep
+            layer = m.layer
+            if layer is not None:
+                # one mask at two layers, a sequence of them at others
+                layer = [x.to(dtype) / keep for x in (
+                    layer if isinstance(layer, (list, tuple)) else [layer])]
             out, hidden = self.core(
                 _dropout(emb, m.emb, keep), hidden, step_mask, reset_mask,
                 reset_src, train=True, dropout_mask=layer, **kw)
             out = _dropout(out, m.out, keep)
         if return_hidden:
             return out, hidden
-        logits = out @ self.embedding.to(dtype).t() + self.decoder_b.to(dtype)
+        logits = (out @ self.decoder_weight.to(dtype).t()
+                  + self.decoder_b.to(dtype))
         return logits.float(), hidden

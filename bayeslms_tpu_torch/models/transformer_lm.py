@@ -6,7 +6,8 @@ the embedding (``t_bayes_pos`` FFN / MHA / EMB).
 The reference's containers (model.py:121-171, :836-1046, :1137-1309):
 embedding x sqrt(E) -> [EMB: a Bayesian (E, E) projection] -> sinusoidal
 positions -> dropout -> post-LN encoder layers with an exact-GELU FFN ->
-[EMB: the projection's mean, transposed back] -> tied decoder. Layouts are
+[EMB: the projection's mean, transposed back] -> decoder (tied, or
+``decoder_w``). Layouts are
 time-major (T, B, E); layer norms compute in float32 and cast back to the
 compute dtype. The stochastic layer is layer 0 only and uses dropout 0.2
 whatever the model's dropout (model.py:1202,1207). Parameter names follow
@@ -392,14 +393,11 @@ class VEncoderLayer(StandardEncoderLayer):
 
 class TransformerLM(nn.Module):
     """Embedding x sqrt(E) -> [EMB projection] -> positions -> layers ->
-    [EMB transpose-reuse] -> tied decoder (the JAX ``TransformerLM``)."""
+    [EMB transpose-reuse] -> decoder (the JAX ``TransformerLM``): tied to
+    the embedding, or with ``cfg.tied`` False its own ``decoder_w`` (V, E)."""
 
     def __init__(self, cfg: ModelConfig):
         super().__init__()
-        if not cfg.tied:
-            raise NotImplementedError(
-                "an untied decoder is not ported yet (ROADMAP.md queue A "
-                "item 3)")
         if cfg.emsize % cfg.nhead:
             raise ValueError(f"emsize {cfg.emsize} is not a multiple of "
                              f"nhead {cfg.nhead}")
@@ -407,6 +405,8 @@ class TransformerLM(nn.Module):
         E, ff, n = cfg.emsize, cfg.nhid, cfg.nlayers
         dtype = getattr(torch, cfg.compute_dtype)
         self.embedding = nn.Parameter(torch.empty((cfg.vocab_size, E)))
+        if not cfg.tied:
+            self.decoder_w = nn.Parameter(torch.empty((cfg.vocab_size, E)))
         self.decoder_b = nn.Parameter(torch.empty((cfg.vocab_size,)))
         self.register_buffer("pe", sinusoidal_positional_encoding(PE_LEN, E),
                              persistent=False)
@@ -448,8 +448,16 @@ class TransformerLM(nn.Module):
             self.embed_mean = nn.Parameter(torch.empty((E, E)))
             self.embed_lgstd = nn.Parameter(torch.empty((E, E)))
 
+    @property
+    def decoder_weight(self) -> torch.Tensor:
+        """The decoder's (V, E) weight: the embedding when tied, else
+        ``decoder_w``."""
+        return self.embedding if self.cfg.tied else self.decoder_w
+
     def reset_parameters(self, gen: torch.Generator) -> None:
         tinit.uniform_(self.embedding, tinit.EMBEDDING_BOUND, gen)
+        if not self.cfg.tied:
+            tinit.uniform_(self.decoder_w, tinit.EMBEDDING_BOUND, gen)
         with torch.no_grad():
             self.decoder_b.zero_()
         for layer in self.layers:
@@ -579,7 +587,7 @@ class TransformerLM(nn.Module):
             # transpose-reuse with the MEAN projection (model.py:1302-1307)
             x = x @ self.embed_mean.to(dtype)
         if not return_hidden:
-            x = (x @ self.embedding.to(dtype).t()
+            x = (x @ self.decoder_weight.to(dtype).t()
                  + self.decoder_b.to(dtype)).float()
         return (x, new_mems) if return_mems else x
 

@@ -14,7 +14,10 @@ route (``train=True``) runs two ``lstm_layer_train`` calls with the
 inter-layer dropout mask between them, as the JAX package does by default.
 ``lstm_layer_train`` hands its recurrence to the autograd Function
 ``lstm_train_cuda.lstm_scan_fused``. The wrappers launch the CUDA kernels for
-CUDA tensors and run their plain twins for CPU tensors.
+CUDA tensors and run their plain twins for CPU tensors. ``gru_layer`` and
+``rnn_layer`` are the JAX package's GRU and vanilla-RNN layers: JAX scans
+them with ``lax.scan`` and no Pallas kernel, so they are a loop over the
+steps here, one matrix product a step, on every device.
 
 The JAX package's fused training route is opt-in there and here, under the
 same switch: with ``BAYESLM_PALLAS_LSTM2_TRAIN=1`` (and neither
@@ -203,3 +206,62 @@ def lstm_stack2(
         p2.w_hh.to(dtype).contiguous(),
         (p2.b_ih + p2.b_hh).to(dtype).to(f32),
         h0[0], c0[0], h0[1], c0[1], step_mask, reset_mask, reset_src)
+
+
+def _masked(h_old, h_new, keep):
+    """The JAX ``_masked``: columns whose step mask is 0 keep ``h_old``."""
+    return torch.where(keep.bool()[:, None], h_new, h_old)
+
+
+def gru_layer(x, h0, p: LSTMParams, step_mask=None, reset_mask=None,
+              reset_src=None):
+    """Single-layer GRU, torch gate order [r, z, n] along the 3H rows:
+    (T, B, in) -> ys (T, B, H), hT in x's dtype. n = tanh(x_n + r (h W_hn^T
+    + b_hn)), h' = (1 - z) n + z h. ``step_mask`` and the packed resets
+    (``reset_mask``, ``reset_src``) as in ``lstm_layer``."""
+    dtype = x.dtype
+    T, B, _ = x.shape
+    w_hh_t = p.w_hh.to(dtype).t()
+    b_hh = p.b_hh.to(dtype)
+    xg = (x.reshape(T * B, -1) @ p.w_ih.to(dtype).t()
+          + p.b_ih.to(dtype)).reshape(T, B, -1)
+    h = h0.to(dtype)
+    ys = []
+    for t in range(T):
+        if reset_mask is not None:
+            h = lstm_cuda.apply_reset(h, reset_mask[t], reset_src)
+        xr, xz, xn = xg[t].chunk(3, dim=-1)
+        hr, hz, hn = (h @ w_hh_t + b_hh).chunk(3, dim=-1)
+        r = torch.sigmoid(xr + hr)
+        z = torch.sigmoid(xz + hz)
+        n = torch.tanh(xn + r * hn)
+        hn_ = (1.0 - z) * n + z * h
+        h = hn_ if step_mask is None else _masked(h, hn_, step_mask[t])
+        ys.append(h)
+    return torch.stack(ys), h
+
+
+def rnn_layer(x, h0, p: LSTMParams, nonlinearity: str = "tanh",
+              step_mask=None, reset_mask=None, reset_src=None):
+    """Single-layer vanilla RNN, h' = act(x W_ih^T + b_ih + h W_hh^T + b_hh)
+    with act tanh or relu: (T, B, in) -> ys (T, B, H), hT in x's dtype;
+    masks and resets as in ``gru_layer``."""
+    if nonlinearity not in ("tanh", "relu"):
+        raise ValueError(f"rnn_layer: nonlinearity {nonlinearity!r}, tanh "
+                         "or relu")
+    act = torch.tanh if nonlinearity == "tanh" else torch.relu
+    dtype = x.dtype
+    T, B, _ = x.shape
+    w_hh_t = p.w_hh.to(dtype).t()
+    b_hh = p.b_hh.to(dtype)
+    xg = (x.reshape(T * B, -1) @ p.w_ih.to(dtype).t()
+          + p.b_ih.to(dtype)).reshape(T, B, -1)
+    h = h0.to(dtype)
+    ys = []
+    for t in range(T):
+        if reset_mask is not None:
+            h = lstm_cuda.apply_reset(h, reset_mask[t], reset_src)
+        hn_ = act(xg[t] + h @ w_hh_t + b_hh)
+        h = hn_ if step_mask is None else _masked(h, hn_, step_mask[t])
+        ys.append(h)
+    return torch.stack(ys), h

@@ -95,23 +95,27 @@ def interp_m2(s, params, params2):
     scorer from the two parameter trees (float32): for ``inter_flag`` 1 the
     pre-scaled concatenated decoder concat(a W1, (1 - a) W2) (V, D1 + D2),
     scaled in float32 and stored in the compute dtype, and the mixed bias
-    a b1 + (1 - a) b2 in float32; for flag 2 the second model's tied
-    decoder. None without interpolation."""
+    a b1 + (1 - a) b2 in float32; for flag 2 the second model's decoder.
+    Each model's decoder weight W is its tied embedding or its untied
+    ``decoder_w``. None without interpolation."""
     if not s.interp:
         return None
     m2 = s.model2
     if s.interp == 2:
-        return m2.embedding, m2.decoder_b
+        return m2.decoder_weight, m2.decoder_b
     a = float(s.rcfg.inter_alpha)
     dev = s.model.embedding.device
 
     def f32(x):
         return torch.from_numpy(np.array(x, np.float32)).to(dev)
 
-    W = torch.cat([a * f32(params["embedding"]),
-                   (1.0 - a) * f32(params2["embedding"])], dim=1)
+    def dec(tree, cfg):
+        return tree["embedding"] if cfg.tied else tree["decoder_w"]
+
+    W = torch.cat([a * f32(dec(params, s.cfg)),
+                   (1.0 - a) * f32(dec(params2, s.cfg2))], dim=1)
     b = a * f32(params["decoder_b"]) + (1.0 - a) * f32(params2["decoder_b"])
-    return W.to(s.model.embedding.dtype).contiguous(), b
+    return W.to(s.model.decoder_weight.dtype).contiguous(), b
 
 
 def fused_ce_tokens(s, hsel, h2sel, tsel):
@@ -123,7 +127,7 @@ def fused_ce_tokens(s, hsel, h2sel, tsel):
         W, b = s.m2
         hcat = torch.cat([hsel, h2sel.to(hsel.dtype)], dim=1).contiguous()
         return ce_cuda.fused_decode_ce(hcat, W, b, tsel)
-    ce = ce_cuda.fused_decode_ce(hsel.contiguous(), m.embedding,
+    ce = ce_cuda.fused_decode_ce(hsel.contiguous(), m.decoder_weight,
                                  m.decoder_b, tsel)
     if s.interp == 2:
         a = float(s.rcfg.inter_alpha)
@@ -166,7 +170,7 @@ def fused_scores(model, h, tgt, mask):
     Returns (B,) float32."""
     T, B, E = h.shape
     ce = ce_cuda.fused_decode_ce(h.reshape(T * B, E).contiguous(),
-                                 model.embedding, model.decoder_b,
+                                 model.decoder_weight, model.decoder_b,
                                  tgt.reshape(-1)).reshape(T, B)
     return (ce * mask).sum(dim=0)
 

@@ -47,7 +47,10 @@ def carry_allowed(s) -> bool:
     """Packed-time carry-over, the JAX gate without its fused-CE switch
     (the port always fuses): the recurrent model with carry-over, a second
     model of the same family under interpolation, no MC, no XL, and
-    ``BAYESLM_PACKED_CARRY`` not set to ``0``."""
+    ``BAYESLM_PACKED_CARRY`` not set to ``0``. An untied model takes it
+    too, its ``decoder_w`` in the fused CE, where the JAX package's
+    untied model leaves the fused CE and so this layout for
+    slotted-carry; the scores are the same (ROADMAP.md C)."""
     rc = s.rcfg
     return (rc.carry_over and not s.is_tm
             and (s.interp == 0 or not s.cfg2.is_transformer)

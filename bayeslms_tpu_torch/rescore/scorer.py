@@ -210,8 +210,9 @@ def _refuse(cfg: ModelConfig, cfg2: Optional[ModelConfig], params2,
 def _load(cfg: ModelConfig, params, device,
           cast: bool = True) -> torch.nn.Module:
     """The model of ``params`` on ``device``. With ``cast`` its weight
-    matrices (embedding = tied decoder, W_ih, W_hh) are cast once to the
-    compute dtype, as every deterministic pass reads them; biases stay
+    matrices (the embedding, an untied ``decoder_w``, W_ih, W_hh) are
+    cast once to the compute dtype, as every deterministic pass reads
+    them; biases stay
     float32, as the kernels take them (b_ih2 + b_hh2 is summed before its
     rounding). MC keeps every parameter float32, as training does: a draw
     adds its float32 noise to the float32 means (and the sampler takes

@@ -28,7 +28,12 @@ Reference behaviours (train.py), as the JAX package keeps them:
   after ``max_plateaus`` plateaus; the test loss of the best checkpoint
   at the end;
 - eval: deterministic (no dropout), token-exact mean CE including the
-  ragged final window.
+  ragged final window;
+- full-state resume (``resume``): after each epoch ``<save>.resume`` holds
+  the parameters, the momentum buffers, the schedule (epoch, lr, best
+  validation loss, plateaus) and the trainer generator's state, and
+  ``fit`` continues from it when it is there; profiling (``profile_dir``):
+  ``fit`` traces its first trained epoch (``utils/profiling.py`` ``trace``).
 
 The step runs the model's training forward (LSTM grad route: CUDA kernels
 ``lstm_train_cuda``, or ``lstm2_train_cuda`` under the fused 2-layer switch
@@ -52,6 +57,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
+import os
 import time
 from dataclasses import dataclass
 from typing import Callable, Optional
@@ -60,7 +66,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ..core.checkpoint import (load_checkpoint, load_params,
+from ..core.checkpoint import (_flatten, _unflatten, load_params,
                                params_from_jax, params_to_jax,
                                partial_update, save_checkpoint)
 from ..core.config import ModelConfig, TrainConfig
@@ -68,6 +74,7 @@ from ..core.registry import build_model, init_params
 from ..data.corpus import apply_data_fraction, batchify, get_batch, windows
 from ..models.lstm_lm import init_hidden
 from ..ops.ce_train_cuda import fused_decode_ce_train
+from ..utils.profiling import StepTimer, trace
 from .optim import OptState, init_opt_state, sgd_momentum_step
 
 
@@ -188,7 +195,7 @@ class Trainer:
         # float32, which the kernels do not take
         dtype = getattr(torch, self.mcfg.compute_dtype)
         ce = fused_decode_ce_train(out.reshape(T * B, H).to(dtype),
-                                   model.embedding, model.decoder_b,
+                                   model.decoder_weight, model.decoder_b,
                                    target.reshape(-1)).reshape(T, B)
         if mask is None:
             mle = ce.mean()
@@ -223,6 +230,7 @@ class Trainer:
         tgt_all = torch.from_numpy(tgt_all).long().to(self.device)
         n = data_all.shape[0]
         pending = []  # losses stay on the device between log points
+        timer = StepTimer(alpha=0.3)  # the EMA of ms/batch over intervals
         t0 = time.time()
         for b in range(n):
             hidden, loss, _, kl, _ = self.train_step(
@@ -232,7 +240,8 @@ class Trainer:
                 on_step(b, loss)
             if b % tcfg.log_interval == 0 and b > 0:
                 cur = float(torch.stack(pending).mean())
-                ms = (time.time() - t0) * 1000 / len(pending)
+                ms = timer.update((time.time() - t0) * 1000
+                                  / len(pending))
                 pending = []
                 log(f"| epoch {state.epoch:3d} | {b:5d}/{n:5d} batches | lr "
                     f"{state.lr:02.3f} | ms/batch {ms:5.2f} | loss {cur:5.2f} "
@@ -291,25 +300,90 @@ class Trainer:
 
     # ------------------------------------------------------------------ fit
     def _reload_best(self, state: TrainerState) -> None:
-        tree, _ = load_checkpoint(self.tcfg.save)
-        params_from_jax(state.model, tree)
+        """The best checkpoint's parameters into the model: the port's own,
+        or, in a run resumed from the JAX trainer's files, the JAX one."""
+        params_from_jax(state.model, load_params(self.tcfg.save, self.mcfg))
+
+    # ---------------------------------------------------------------- resume
+    def _save_resume(self, state: TrainerState) -> None:
+        """``<save>.resume``: the parameter tree, the momentum buffers (a
+        tree of the same shape, as the JAX package writes them), the state
+        of the trainer's generator and the schedule, so that a run stopped
+        after an epoch and resumed draws the same dropout masks and
+        Bayesian seeds as the run that went on."""
+        momentum = _unflatten({tuple(k.split(".")): v for k, v in
+                               state.opt_state.momentum.items()})
+        save_checkpoint(
+            self.tcfg.save + ".resume",
+            {"params": params_to_jax(state.model), "momentum": momentum,
+             "generator": self.gen.get_state()},
+            meta={"epoch": state.epoch, "lr": state.lr,
+                  "best_val_loss": state.best_val_loss,
+                  "plateaus": state.plateaus})
+
+    def _try_resume(self) -> Optional[TrainerState]:
+        """The state of ``<save>.resume`` when ``resume`` is set and the
+        file is there, else None. The file may be the port's own or the
+        JAX trainer's (flax msgpack and its ``.json`` sidecar; told apart
+        by ``load_params``). The JAX file holds no generator state: the
+        trainer's generator then goes on from ``seed``, and the masks of
+        the resumed epochs differ from those JAX draws."""
+        path = self.tcfg.save + ".resume"
+        if not (self.tcfg.resume and os.path.exists(path)):
+            return None
+        blob, meta = load_params(path, self.mcfg, with_meta=True)
+        model = build_model(self.mcfg)
+        params_from_jax(model, blob["params"])
+        model.to(self.device)
+        params = dict(model.named_parameters())
+        flat = {".".join(k): v for k, v in _flatten(blob["momentum"]).items()}
+        if set(flat) != set(params):
+            raise KeyError(f"{path}: the momentum tree differs from the "
+                           "model's parameters")
+        momentum = {k: torch.as_tensor(np.array(flat[k]),
+                                       dtype=p.dtype).to(self.device)
+                    for k, p in params.items()}
+        if "generator" in blob:
+            self.gen.set_state(torch.from_numpy(
+                np.array(blob["generator"], dtype=np.uint8)))
+        tcfg = self.tcfg
+        if tcfg.prior and tcfg.prior_path and tcfg.prior_kl:
+            self.prior_w = self._prior_means(
+                model, load_params(tcfg.prior_path, self.mcfg))
+        best = meta.get("best_val_loss")
+        return TrainerState(
+            model=model, opt_state=OptState(momentum=momentum),
+            lr=float(meta["lr"]),
+            best_val_loss=None if best is None else float(best),
+            plateaus=int(meta["plateaus"]), epoch=int(meta["epoch"]))
 
     def fit(self, corpus, log=print, on_step: Optional[Callable] = None):
         """Train on ``corpus`` (``data.corpus.Corpus`` or anything with
-        ``train``, ``valid`` and ``test`` id streams). Returns (state,
-        {"history": [{"epoch", "val_loss", "lr"}], "test_loss"})."""
+        ``train``, ``valid`` and ``test`` id streams), from ``<save>.resume``
+        when ``resume`` is set and it is there. Returns (state,
+        {"history": [{"epoch", "val_loss", "lr"}], "test_loss"}); the
+        history of a resumed run holds its own epochs."""
         tcfg = self.tcfg
         train_rows = batchify(apply_data_fraction(corpus.train,
                                                   tcfg.data_fraction),
                               tcfg.batch_size)
         val_rows = batchify(corpus.valid, tcfg.eval_batch_size)
         test_rows = batchify(corpus.test, tcfg.eval_batch_size)
-        state = self.init_state()
+        resumed = self._try_resume()
+        state = resumed if resumed is not None else self.init_state()
+        start_epoch = state.epoch + 1 if resumed is not None else 1
+        if resumed is not None:
+            log(f"resumed from epoch {state.epoch} (lr {state.lr})")
         history = []
-        for epoch in range(1, tcfg.epochs + 1):
+        for epoch in range(start_epoch, tcfg.epochs + 1):
             state.epoch = epoch
             t0 = time.time()
-            state = self.run_epoch(state, train_rows, log, on_step)
+            if tcfg.profile_dir and epoch == start_epoch:
+                # the first trained epoch, traced
+                with trace(tcfg.profile_dir):
+                    state = self.run_epoch(state, train_rows, log, on_step)
+            else:
+                state = self.run_epoch(state, train_rows, log, on_step)
             val_loss = self.evaluate(state.model, val_rows)
             log("-" * 89)
             log(f"| end of epoch {epoch:3d} | time: {time.time() - t0:5.2f}s "
@@ -331,6 +405,8 @@ class Trainer:
                 self._reload_best(state)
                 state.opt_state = init_opt_state(state.params)
                 state.plateaus += 1
+            if tcfg.resume:
+                self._save_resume(state)
             if state.plateaus >= tcfg.max_plateaus:
                 break
         self._reload_best(state)
@@ -340,3 +416,4 @@ class Trainer:
             f"{math.exp(min(test_loss, 30)):8.2f}")
         log("=" * 89)
         return state, {"history": history, "test_loss": test_loss}
+

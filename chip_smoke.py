@@ -152,7 +152,22 @@ standard LSTM through ``--inter_path``, with ``--mc-samples 4
 file, the neural scores equal to an in-process pass, a finite WER sweep;
 at ``--nn-weight 0`` the sweep equal to the lattices' own choice;
 ``--sanity-test``), the tokenizer and the lattice tools built with g++
-beside the kernels. Every phase prints its result and seconds; any
+beside the kernels. Before the command line: the trainer's full-state
+resume (the Bayesian LSTM: one epoch and a resumed one equal to two
+straight epochs bit for bit, parameters and momentum), its profiled epoch
+(one Chrome trace naming the training kernels), a 3-layer LSTM (a
+packed-carry pass with the single-layer forward kernel once a layer,
+checked on its calls and against the plain path; training steps, each
+layer's training kernels checked; ``evaluate``), the GRU and the tanh and
+relu RNNs at 2 x 1,024 (a bf16 pass against the same pass in float32;
+training steps), the untied 2-layer LSTM (the CE training kernels against
+their twins with ``decoder_w``, the embedding in its place as a planted
+fault; a pass against the plain path) and the DARTS search (the LSTM
+supernet at the bench's width, the Transformer supernet at the recipe's,
+first and second order: each step's arch gradient against float64 on the
+card, the implicit term dropped as a planted fault; step times, peak
+memory); after it, ``train --resume --profile`` and ``search
+--unrolled`` as subprocesses. Every phase prints its result and seconds; any
 failure exits non-zero before the result lines. The last two lines are a
 JSON object per kernel (the 2-layer scoring recurrence at the pass's, at
 the ``evaluate`` and at the no-carry call, each with its design and the
@@ -713,6 +728,32 @@ def fault_share(got, ref, rtol, share, slack=None):
 CE_TRAIN = ("ce_train_fwd", "ce_train_dh", "ce_train_de")
 
 
+def lstm_train_specs(ltc, T, B, H):
+    """Check specs of the LSTM training recurrence (rows 5-6) at (T, B, H):
+    twin, outputs, planted fault (argument 1, W_hh, zeroed), operations and
+    bytes."""
+    flops_f = 2 * T * B * H * 4 * H
+    return {
+        "lstm_train_fwd": dict(
+            module=ltc, plain=ltc.lstm_train_fwd_plain, source="lstm_train.cu",
+            replaces="bayeslms_tpu/ops/lstm_pallas.py:421",
+            outs=("ys", "cs", "hT", "cT"),
+            # W_hh zeroed: a kernel that dropped the recurrent product
+            fault=("W_hh product dropped", 1),
+            flops=flops_f,
+            nbytes=T * B * 4 * H * 2 + 4 * H * H * 2 + 4 * H * 4
+            + 4 * B * H * 2 + 2 * T * B * H * 2),
+        "lstm_train_bwd": dict(
+            module=ltc, plain=ltc.lstm_train_bwd_plain, source="lstm_train.cu",
+            replaces="bayeslms_tpu/ops/lstm_pallas.py:461",
+            outs=("du", "dh0", "dc0"),
+            fault=("W_hh zeroed in the backward only", 1),
+            flops=2 * flops_f,
+            nbytes=T * B * 4 * H * 2 + 3 * T * B * H * 2 + 4 * H * H * 2
+            + 4 * H * 4 + 6 * B * H * 2 + T * B * 4 * H * 2),
+    }
+
+
 def ce_train_specs(ctc, M, V, D):
     """Check specs of the fused CE training kernels (rows 9-11) at M
     tokens, V words and width D: twin, outputs, planted fault (argument 3,
@@ -997,28 +1038,8 @@ def train_phases(torch, kernels, smi, cfg, rcfg):
         torch.cuda.synchronize()
         del state
 
-    H, M = cfg.nhid, T * B
-    flops_f = 2 * T * B * H * 4 * H
-    specs = {
-        "lstm_train_fwd": dict(
-            module=ltc, plain=ltc.lstm_train_fwd_plain, source="lstm_train.cu",
-            replaces="bayeslms_tpu/ops/lstm_pallas.py:421",
-            outs=("ys", "cs", "hT", "cT"),
-            # W_hh zeroed: a kernel that dropped the recurrent product
-            fault=("W_hh product dropped", 1),
-            flops=flops_f,
-            nbytes=T * B * 4 * H * 2 + 4 * H * H * 2 + 4 * H * 4
-            + 4 * B * H * 2 + 2 * T * B * H * 2),
-        "lstm_train_bwd": dict(
-            module=ltc, plain=ltc.lstm_train_bwd_plain, source="lstm_train.cu",
-            replaces="bayeslms_tpu/ops/lstm_pallas.py:461",
-            outs=("du", "dh0", "dc0"),
-            fault=("W_hh zeroed in the backward only", 1),
-            flops=2 * flops_f,
-            nbytes=T * B * 4 * H * 2 + 3 * T * B * H * 2 + 4 * H * H * 2
-            + 4 * H * 4 + 6 * B * H * 2 + T * B * 4 * H * 2),
-        **ce_train_specs(ctc, M, V, cfg.nhid),
-    }
+    specs = {**lstm_train_specs(ltc, T, B, cfg.nhid),
+             **ce_train_specs(ctc, T * B, V, cfg.nhid)}
     for row, name, key in (("5", "lstm_train_fwd", "fwd_design"),
                            ("6", "lstm_train_bwd", "design")):
         designs = {ltc._card_design(a[0].device, a[0].shape[1],
@@ -5312,6 +5333,8 @@ def plain_patches(*names):
     from bayeslms_tpu_torch.ops import lstm_train_cuda as ltc
 
     table = {"lstm2_fwd": (lstm_cuda, "lstm2_fwd", lstm_cuda.lstm2_plain),
+             "lstm_fwd_reset": (lstm_cuda, "lstm_fwd",
+                                lstm_cuda.lstm_fwd_plain),
              "ce_fwd": (ce_cuda, "fused_decode_ce", ce_cuda.ce_plain),
              "lstm_train_fwd": (ltc, "lstm_train_fwd",
                                 ltc.lstm_train_fwd_plain),
@@ -5731,6 +5754,699 @@ def splice_phase(torch, kernels, smi, cfg, rcfg, corpus, tmpdir):
             del scorer
 
 
+# ------------------------------------------- resume, profile, other cores
+# The slice that ports the trainer's full-state resume and profiling, the
+# GRU and RNN cores, LSTMs of any depth, untied decoders and the DARTS
+# search, each at the bench's width: their runs' kernel launches go under
+# the rows' ``launches_by_run``.
+SLICE_FRACTION = 0.25  # the resume and profile fits: ~5 steps an epoch
+# The bf16 passes of the GRU and RNNs against the same pass in float32
+# (both on the card; no recurrence kernel runs, the CE's plain version on
+# the float32 side): the LSTM pass's SCORE_ATOL plus CORE_SCORE_RTOL
+# |float32|. SCORE_ATOL bounds two bf16 paths; bf16 states against float32
+# ones moved scores up to ~440 by up to 1.1e-2, 8.0e-5 relative, on the
+# H100 (PERF.md).
+CORE_SCORE_RTOL = 2.0 ** -12
+# The search's arch gradient (float32, TF32 off) against the same step's
+# in float64 on the card, elementwise: |g32 - g64| <= NAS_RTOL |g64| +
+# NAS_SHARE max |g64|. The H100 showed at most 2^-19.5 of max |g64|
+# (PERF.md), first and second order, both supernets; the second
+# order is a difference of two terms, each summed over the 49,152 x 1,024
+# embedding and the batch's tokens, so the limit keeps ~11x room.
+NAS_RTOL, NAS_SHARE = 2.0 ** -14, 2.0 ** -16
+NAS_BATCH, NAS_SEQ, NAS_STEPS = 16, 32, 2  # the search CLI's defaults
+
+
+def zero_launches(*modules):
+    for m in modules:
+        if isinstance(m.launches, dict):
+            for k in m.launches:
+                m.launches[k] = 0
+        else:
+            m.launches = 0
+
+
+def train_launches():
+    """{kernel: launches} of the training rows 5-6, 9-11 and 13."""
+    from bayeslms_tpu_torch.ops import bayes_sample_cuda as bsc
+    from bayeslms_tpu_torch.ops import ce_train_cuda as ctc
+    from bayeslms_tpu_torch.ops import lstm_train_cuda as ltc
+    return {**ltc.launches, **ctc.launches, "bayes_sample": bsc.launches}
+
+
+def resume_phase(torch, kernels, smi, cfg, corpus, tmpdir):
+    """The Bayesian LSTM (l_bayes_pos 3) at the bench's width: two epochs
+    of ``fit`` straight, then one epoch in a fresh ``Trainer`` and a
+    second one resumed from its ``.resume`` (parameters, momentum, the
+    schedule and the generator's state): the final parameters and momentum
+    must equal the straight run's bit for bit (every training kernel sums
+    in a fixed order). Raises on a failed check."""
+    import dataclasses
+
+    from bayeslms_tpu_torch import TrainConfig
+    from bayeslms_tpu_torch.ops import bayes_sample_cuda as bsc
+    from bayeslms_tpu_torch.ops import ce_train_cuda as ctc
+    from bayeslms_tpu_torch.ops import lstm_train_cuda as ltc
+    from bayeslms_tpu_torch.train.loop import Trainer
+
+    bcfg = dataclasses.replace(cfg, uncertainty="Bayesian",
+                               l_bayes_pos=BAYES_POS)
+
+    def trainer(name, epochs):
+        return Trainer(bcfg, TrainConfig(
+            lr=5.0, momentum=0.9, clip=1.0, batch_size=TRAIN_BATCH,
+            seq_len=TRAIN_SEQ, eval_batch_size=EVAL_BATCH, epochs=epochs,
+            log_interval=100, data_fraction=SLICE_FRACTION, resume=True,
+            save=os.path.join(tmpdir, "resume_" + name, "m.ckpt")))
+
+    with phase("resume"):
+        quiet = lambda line: None  # noqa: E731
+        t0 = time.perf_counter()
+        straight, out = trainer("straight", 2).fit(corpus, log=quiet)
+        trainer("resumed", 1).fit(corpus, log=quiet)
+        zero_launches(ltc, ctc, bsc)
+        lines = []
+        resumed, rout = trainer("resumed", 2).fit(corpus, log=lines.append)
+        torch.cuda.synchronize()
+        n = train_launches()
+        print(f"  {lines[0]}; validation loss straight "
+              f"{out['history'][1]['val_loss']:.6f}, resumed "
+              f"{rout['history'][0]['val_loss']:.6f}; three fits "
+              f"{time.perf_counter() - t0:.1f} s; the resumed epoch's "
+              f"launches {n}")
+        if not lines[0].startswith("resumed from epoch 1 (lr "):
+            raise AssertionError(f"the second run did not resume: {lines[0]}")
+        pairs = [(f"param {k}", p, resumed.params[k])
+                 for k, p in straight.params.items()]
+        pairs += [(f"momentum {k}", m, resumed.opt_state.momentum[k])
+                  for k, m in straight.opt_state.momentum.items()]
+        differ = [(k, max_err(a, b)) for k, a, b in pairs
+                  if not torch.equal(a, b)]
+        print(f"  {len(pairs)} tensors (parameters and momentum): "
+              f"{len(pairs) - len(differ)} equal bit for bit; differing "
+              f"{differ[:6]}")
+        if differ or rout["history"][0] != out["history"][1] \
+                or rout["test_loss"] != out["test_loss"]:
+            raise AssertionError("one epoch and a resume differ from two "
+                                 f"epochs: {differ[:6]}")
+        for name in ("lstm_train_fwd", "lstm_train_bwd", *CE_TRAIN,
+                     "bayes_sample"):
+            if n[name] == 0:
+                raise AssertionError(f"the resumed epoch never launched "
+                                     f"{name}")
+            run_launches(kernels, name, "resume (epoch 2)", n[name])
+
+
+PROFILE_KERNELS = {"5": ("lstm_fwd_persistent",),
+                   "6": ("lstm_bwd_persistent",),
+                   "9": ("ce_stats_split", "ce_stats_merge"),
+                   "10": ("ce_bwd_kernel<false>",),
+                   "11": ("ce_bwd_kernel<true>",)}
+
+
+def profile_phase(torch, kernels, smi, cfg, corpus, tmpdir):
+    """``fit`` of the bench's LSTM for one epoch with ``profile_dir``: one
+    Chrome trace, naming the kernels of rows 5, 6 and 9-11 among its device
+    events. Raises on a failed check."""
+    from bayeslms_tpu_torch import TrainConfig
+    from bayeslms_tpu_torch.ops import bayes_sample_cuda as bsc
+    from bayeslms_tpu_torch.ops import ce_train_cuda as ctc
+    from bayeslms_tpu_torch.ops import lstm_train_cuda as ltc
+    from bayeslms_tpu_torch.train.loop import Trainer
+
+    with phase("profile"):
+        prof = os.path.join(tmpdir, "profile")
+        trainer = Trainer(cfg, TrainConfig(
+            lr=5.0, momentum=0.9, clip=1.0, batch_size=TRAIN_BATCH,
+            seq_len=TRAIN_SEQ, eval_batch_size=EVAL_BATCH, epochs=1,
+            log_interval=100, data_fraction=SLICE_FRACTION,
+            profile_dir=prof, save=os.path.join(prof, "m.ckpt")))
+        zero_launches(ltc, ctc, bsc)
+        t0 = time.perf_counter()
+        trainer.fit(corpus, log=lambda line: None)
+        n = train_launches()
+        files = [f for f in os.listdir(prof) if f.endswith(".json")]
+        print(f"  fit with profile_dir {time.perf_counter() - t0:.1f} s; "
+              f"trace files {files}; launches {n}")
+        if len(files) != 1:
+            raise AssertionError(f"one trace file expected: {files}")
+        with open(os.path.join(prof, files[0])) as f:
+            events = json.load(f)["traceEvents"]
+        device = [e for e in events if e.get("cat") == "kernel"]
+        names = {e.get("name", "") for e in device}
+        found = {row: [k for k in ks if any(k in nm for nm in names)]
+                 for row, ks in PROFILE_KERNELS.items()}
+        busy = sum(e.get("dur", 0) for e in device) / 1e3
+        print(f"  {len(events)} events, {len(device)} device kernels "
+              f"({busy:.1f} ms busy); rows found {found}")
+        missing = [f"row {r}: {k}" for r, ks in PROFILE_KERNELS.items()
+                   for k in ks if k not in found[r]]
+        if missing:
+            raise AssertionError(f"the trace does not name {missing}")
+        for name in ("lstm_train_fwd", "lstm_train_bwd", *CE_TRAIN):
+            run_launches(kernels, name, "profile", n[name])
+
+
+def pass_scores(scorer, nbest, w2i, plain=contextlib.nullcontext()):
+    """The scores of one pass over the chains of ``stream_of``, under
+    ``plain`` (``plain_patches``)."""
+    with plain:
+        return flat_scores(scorer.score_nbest(nbest, w2i,
+                                              stream_fn=stream_of))
+
+
+def depth3_phase(torch, kernels, smi, cfg, rcfg, corpus, w2i, nbest):
+    """A 3-layer LSTM at the bench's width (random weights): a
+    packed-carry pass of the 6,000-hypothesis N-best (row 3 once a layer,
+    with resets, checked on the first chunk's calls with its planted
+    faults; row 2 on the pass's first call), its scores against the plain
+    path within SCORE_ATOL; ``evaluate`` on a few windows (row 4 once a
+    layer); a few training steps, each layer's row-5 and row-6 calls
+    against their twins (``check_recorded``). Raises on a failed check."""
+    import dataclasses
+
+    from bayeslms_tpu_torch import TrainConfig, build_model, init_params
+    from bayeslms_tpu_torch.models.lstm_lm import init_hidden
+    from bayeslms_tpu_torch.ops import ce_cuda
+    from bayeslms_tpu_torch.ops import ce_train_cuda as ctc
+    from bayeslms_tpu_torch.ops import lstm_cuda as lc
+    from bayeslms_tpu_torch.ops import lstm_train_cuda as ltc
+    from bayeslms_tpu_torch.rescore.scorer import BatchScorer
+    from bayeslms_tpu_torch.train.loop import Trainer
+
+    cfg3 = dataclasses.replace(cfg, nlayers=3)
+    scratch = {}  # the checks' timings; the kernels line keeps the bench's
+    with phase("depth3 score setup"):
+        params = init_params(build_model(cfg3), cfg3, seed=3)
+        scorer = BatchScorer(cfg3, params, rcfg)
+        recorded = {}
+        with contextlib.ExitStack() as stack:
+            for p in recording(lc, ("lstm_fwd",), recorded) + recording(
+                    ce_cuda, ("fused_decode_ce",), recorded):
+                stack.enter_context(p)
+            scorer.score_nbest(nbest, w2i, stream_fn=stream_of)
+        torch.cuda.synchronize()
+        calls = recorded["lstm_fwd"]
+        print(f"  one packed-carry pass: {len(calls)} row-3 calls "
+              f"(3 a chunk), first {tuple(calls[0][0].shape)}; "
+              f"{len(recorded['fused_decode_ce'])} row-2 call(s)")
+        if len(calls) % 3:
+            raise AssertionError("row 3 not once a layer a chunk")
+    lspecs = lstm_fwd_specs(torch, lc)
+    check_kernel_calls(torch, scratch, "lstm_fwd_reset",
+                       lspecs["lstm_fwd_reset"],
+                       [(f"layer {k}", a) for k, a in enumerate(calls[:3])])
+    ce_fwd_check(torch, scratch, recorded["fused_decode_ce"][0],
+                 " (depth3)")
+    del recorded, calls
+    with phase("depth3 score"):
+        zero_launches(ce_cuda)
+        lc.layer_launches.update(lstm_fwd_reset=0, lstm_fwd=0)
+        lc.layer_design_launches.update(persistent=0, streamed=0, per_step=0)
+        t0 = time.perf_counter()
+        got = pass_scores(scorer, nbest, w2i)
+        torch.cuda.synchronize()
+        pass_s = time.perf_counter() - t0
+        n3, n2 = lc.layer_launches["lstm_fwd_reset"], ce_cuda.launches
+        print(f"  a pass {pass_s:.3f} s on {smi}: row 3 {n3} launches "
+              f"({lc.layer_design_launches}), row 2 {n2}")
+        if n3 == 0 or n2 == 0 or lc.layer_design_launches["streamed"] != n3:
+            raise AssertionError("the 3-layer pass left rows 3 (streamed) "
+                                 "and 2")
+        run_launches(kernels, "lstm_fwd_reset", "depth3 score", n3)
+        run_launches(kernels, "ce_fwd", "depth3 score", n2)
+        ref = pass_scores(scorer, nbest, w2i,
+                          plain_patches("lstm_fwd_reset", "ce_fwd"))
+        diff = float(np.abs(got - ref).max())
+        print(f"  {got.size} scores, |plain| max {np.abs(ref).max():.3f}: "
+              f"max |kernel - plain| {diff:.4e} (tolerance "
+              f"{SCORE_ATOL:.0e})")
+        if not np.all(np.isfinite(got)) or diff > SCORE_ATOL:
+            raise AssertionError("the 3-layer pass disagrees with the plain "
+                                 "path")
+        del scorer
+
+    B, T = TRAIN_BATCH, TRAIN_SEQ
+    with phase("depth3 train setup"):
+        trainer = Trainer(cfg3, TrainConfig(
+            lr=5.0, momentum=0.9, clip=1.0, batch_size=B, seq_len=T,
+            eval_batch_size=EVAL_BATCH, save="unused"))
+        state = trainer.init_state()
+        rows = corpus.train[:T * B * 3 + 1]
+        hidden = init_hidden(3, B, cfg.nhid, device="cuda")
+        recorded = {}
+        zero_launches(ltc, ctc)
+        step_ms = []
+        for i in range(3):
+            data = torch.from_numpy(rows[i * T * B:(i + 1) * T * B].reshape(
+                B, T).T.copy()).long().cuda()
+            tgt = torch.from_numpy(rows[i * T * B + 1:(i + 1) * T * B + 1]
+                                   .reshape(B, T).T.copy()).long().cuda()
+            with contextlib.ExitStack() as stack:
+                if i == 0:
+                    for p in recording(ltc, ("lstm_train_fwd",
+                                             "lstm_train_bwd"), recorded) \
+                            + recording(ctc, CE_TRAIN, recorded):
+                        stack.enter_context(p)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                hidden, loss, _, _, _ = trainer.train_step(state, hidden,
+                                                           data, tgt)
+                torch.cuda.synchronize()
+                step_ms.append(1e3 * (time.perf_counter() - t0))
+        n = train_launches()
+        print(f"  3 steps {['%.2f' % m for m in step_ms]} ms on {smi}; loss "
+              f"{float(loss):.4f}; launches {n}")
+        if n["lstm_train_fwd"] != 9 or n["lstm_train_bwd"] != 9:
+            raise AssertionError("rows 5-6 not once a layer a step")
+        for name in ("lstm_train_fwd", "lstm_train_bwd", *CE_TRAIN):
+            run_launches(kernels, name, "depth3 train", n[name])
+        lc.layer_launches.update(lstm_fwd=0)
+        val = trainer.evaluate(state.model, corpus.valid[:EVAL_BATCH * (
+            2 * T + 1)].reshape(-1, EVAL_BATCH))
+        n4 = lc.layer_launches["lstm_fwd"]
+        print(f"  evaluate on 2 windows: loss {val:.4f}, row 4 {n4} "
+              "launches")
+        if n4 != 6 or not np.isfinite(val):
+            raise AssertionError("evaluate did not take row 4 once a layer "
+                                 "a window")
+        run_launches(kernels, "lstm_fwd", "depth3 evaluate", n4)
+    check_recorded(torch, scratch, lstm_train_specs(ltc, T, B, cfg.nhid),
+                   recorded, tag=" (depth3)")
+    del recorded, trainer, state
+
+
+CORES = ("GRU", "RNN_TANH", "RNN_RELU")
+
+
+def cores_phase(torch, kernels, smi, cfg, rcfg, corpus, w2i, nbest):
+    """The GRU, RNN_TANH and RNN_RELU at 2 x 1,024 (random weights): a
+    packed-carry pass of the 6,000-hypothesis N-best in bf16 (row 2 the
+    only kernel) against the same pass in float32 on the card (the CE's
+    plain version there) within SCORE_ATOL + CORE_SCORE_RTOL |float32|,
+    and three training steps (rows 9-11), timed. Raises on a failed
+    check."""
+    import dataclasses
+
+    from bayeslms_tpu_torch import TrainConfig, build_model, init_params
+    from bayeslms_tpu_torch.models.lstm_lm import init_hidden
+    from bayeslms_tpu_torch.ops import ce_cuda, lstm_cuda
+    from bayeslms_tpu_torch.ops import ce_train_cuda as ctc
+    from bayeslms_tpu_torch.ops import lstm_train_cuda as ltc
+    from bayeslms_tpu_torch.rescore.scorer import BatchScorer
+    from bayeslms_tpu_torch.train.loop import Trainer
+
+    B, T = TRAIN_BATCH, TRAIN_SEQ
+    for model in CORES:
+        tag = model.lower()
+        mcfg = dataclasses.replace(cfg, model=model)
+        with phase(tag):
+            params = init_params(build_model(mcfg), mcfg, seed=4)
+            scorer = BatchScorer(mcfg, params, rcfg)
+            pass_scores(scorer, nbest, w2i)  # first pass: allocator
+            zero_launches(ce_cuda, lstm_cuda, ltc)
+            lstm_cuda.layer_launches.update(lstm_fwd_reset=0, lstm_fwd=0)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            got = pass_scores(scorer, nbest, w2i)
+            torch.cuda.synchronize()
+            pass_s = time.perf_counter() - t0
+            n2 = ce_cuda.launches
+            if n2 == 0 or lstm_cuda.launches or \
+                    any(lstm_cuda.layer_launches.values()):
+                raise AssertionError(f"{model}: row 2 only expected")
+            run_launches(kernels, "ce_fwd", f"{tag} score", n2)
+            del scorer
+            f32 = BatchScorer(dataclasses.replace(mcfg,
+                                                  compute_dtype="float32"),
+                              params, rcfg)
+            ref = pass_scores(f32, nbest, w2i, plain_patches("ce_fwd"))
+            del f32
+            diff = np.abs(got - ref)
+            share = float((diff / (SCORE_ATOL + CORE_SCORE_RTOL
+                                   * np.abs(ref))).max())
+            print(f"  {model} 2 x {mcfg.nhid}: a bf16 pass {pass_s:.3f} s "
+                  f"({got.size / pass_s:.1f} hyps/s) on {smi}, row 2 {n2} "
+                  f"launches; against float32: max |diff| "
+                  f"{float(diff.max()):.4e}, relative "
+                  f"{float((diff / np.abs(ref)).max()):.3e}, worst share of "
+                  f"{SCORE_ATOL:.0e} + 2^-12 |float32| {share:.3f}")
+            if not np.all(np.isfinite(got)) or share > 1:
+                raise AssertionError(f"{model}: the bf16 pass disagrees "
+                                     "with float32")
+            trainer = Trainer(mcfg, TrainConfig(
+                lr=1.0, momentum=0.9, clip=1.0, batch_size=B, seq_len=T,
+                save="unused"))
+            state = trainer.init_state()
+            hidden = init_hidden(2, B, cfg.nhid, device="cuda")
+            zero_launches(ctc)
+            step_ms, losses = [], []
+            for i in range(3):
+                lo = i * T * B
+                data = torch.from_numpy(corpus.train[lo:lo + T * B].reshape(
+                    B, T).T.copy()).long().cuda()
+                tgt = torch.from_numpy(corpus.train[lo + 1:lo + T * B + 1]
+                                       .reshape(B, T).T.copy()).long().cuda()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                hidden, loss, _, _, _ = trainer.train_step(state, hidden,
+                                                           data, tgt)
+                torch.cuda.synchronize()
+                step_ms.append(1e3 * (time.perf_counter() - t0))
+                losses.append(float(loss))
+            print(f"  3 training steps {['%.2f' % m for m in step_ms]} ms, "
+                  f"loss {['%.4f' % l for l in losses]}; rows 9-11 "
+                  f"{dict(ctc.launches)}")
+            if not np.all(np.isfinite(losses)) or \
+                    any(v != 3 for v in ctc.launches.values()):
+                raise AssertionError(f"{model}: training steps failed")
+            for name in CE_TRAIN:
+                run_launches(kernels, name, f"{tag} train",
+                             ctc.launches[name])
+            del trainer, state
+
+
+def untied_phase(torch, kernels, smi, cfg, rcfg, corpus, w2i, nbest):
+    """The bench's 2-layer LSTM with its own decoder (``--not-tied``):
+    rows 9-11 against their twins on the tensors a step hands them (dE is
+    ``decoder_w``'s; a planted fault, the embedding handed over in its
+    place, must land FAULT_MARGIN tolerances away); a packed-carry pass
+    through rows 1 and 2 against the plain path within SCORE_ATOL, and the
+    same pass scoring against the embedding farther. Raises on a failed
+    check."""
+    import dataclasses
+
+    from bayeslms_tpu_torch import TrainConfig, build_model, init_params
+    from bayeslms_tpu_torch.models.lstm_lm import init_hidden
+    from bayeslms_tpu_torch.ops import ce_cuda, lstm_cuda
+    from bayeslms_tpu_torch.ops import ce_train_cuda as ctc
+    from bayeslms_tpu_torch.rescore.scorer import BatchScorer
+    from bayeslms_tpu_torch.train.loop import Trainer
+
+    ucfg = dataclasses.replace(cfg, tied=False)
+    B, T = TRAIN_BATCH, TRAIN_SEQ
+    scratch = {}
+    with phase("untied train setup"):
+        trainer = Trainer(ucfg, TrainConfig(lr=5.0, momentum=0.9, clip=1.0,
+                                            batch_size=B, seq_len=T,
+                                            save="unused"))
+        state = trainer.init_state()
+        hidden = init_hidden(2, B, cfg.nhid, device="cuda")
+        recorded = {}
+        zero_launches(ctc)
+        model = state.model
+        for i in range(2):
+            lo = i * T * B
+            data = torch.from_numpy(corpus.train[lo:lo + T * B].reshape(
+                B, T).T.copy()).long().cuda()
+            tgt = torch.from_numpy(corpus.train[lo + 1:lo + T * B + 1]
+                                   .reshape(B, T).T.copy()).long().cuda()
+            with contextlib.ExitStack() as stack:
+                if i == 1:
+                    for p in recording(ctc, CE_TRAIN, recorded):
+                        stack.enter_context(p)
+                    dec = model.decoder_w.detach().clone()
+                hidden, loss, _, _, _ = trainer.train_step(state, hidden,
+                                                           data, tgt)
+        torch.cuda.synchronize()
+        W = recorded["ce_train_fwd"][0][1]
+        same = torch.equal(W, dec.to(W.dtype))
+        print(f"  2 steps, loss {float(loss):.4f}; rows 9-11 "
+              f"{dict(ctc.launches)}; the CE's weight {tuple(W.shape)} "
+              f"{W.dtype} is the step's decoder_w: {same}")
+        if not same or torch.equal(dec, model.embedding.detach()):
+            raise AssertionError("the fused CE did not read decoder_w")
+        for name in CE_TRAIN:
+            run_launches(kernels, name, "untied train", ctc.launches[name])
+    check_recorded(torch, scratch, ce_train_specs(ctc, T * B,
+                                                  cfg.vocab_size, cfg.nhid),
+                   recorded, tag=" (untied)")
+    with phase("untied: the embedding in decoder_w's place"), \
+            torch.no_grad():
+        emb = model.embedding.detach().to(W.dtype)
+        for name in ("ce_train_fwd", "ce_train_dh"):
+            args = recorded[name][0]
+            spec = ce_train_specs(ctc, T * B, cfg.vocab_size, cfg.nhid)[name]
+            rtol, share = TRAIN_TOL[name]
+            ref = dict(zip(spec["outs"], _tuple(spec["plain"](*args))))
+            bad = dict(zip(spec["outs"], _tuple(getattr(ctc, name)(
+                *with_arg(args, 1, emb)))))
+            q = fault_share(bad, ref, rtol, share)
+            print(f"  {name}: the embedding for decoder_w, worst share of "
+                  f"tolerance {q:.1f}")
+            if q < FAULT_MARGIN:
+                raise AssertionError(f"{name}: the embedding in decoder_w's "
+                                     f"place exceeds the tolerance only "
+                                     f"{q:.1f}x")
+    del recorded, trainer, state
+    with phase("untied score"):
+        params = init_params(build_model(ucfg), ucfg, seed=5)
+        scorer = BatchScorer(ucfg, params, rcfg)
+        pass_scores(scorer, nbest, w2i)
+        zero_launches(ce_cuda, lstm_cuda)
+        t0 = time.perf_counter()
+        got = pass_scores(scorer, nbest, w2i)
+        torch.cuda.synchronize()
+        pass_s = time.perf_counter() - t0
+        n1, n2 = lstm_cuda.launches, ce_cuda.launches
+        if n1 == 0 or n2 == 0:
+            raise AssertionError("the untied pass left rows 1-2")
+        run_launches(kernels, "lstm2_fwd", "untied score", n1)
+        run_launches(kernels, "ce_fwd", "untied score", n2)
+        ref = pass_scores(scorer, nbest, w2i,
+                          plain_patches("lstm2_fwd", "ce_fwd"))
+        m = scorer.model
+        real = m.decoder_w.data
+        m.decoder_w.data = m.embedding.data
+        try:
+            bad = pass_scores(scorer, nbest, w2i)
+        finally:
+            m.decoder_w.data = real
+        diff = float(np.abs(got - ref).max())
+        fault = float(np.abs(bad - ref).max())
+        print(f"  a pass {pass_s:.3f} s on {smi}: rows 1 / 2 {n1} / {n2} "
+              f"launches; max |kernel - plain| {diff:.4e} (tolerance "
+              f"{SCORE_ATOL:.0e}); scored against the embedding "
+              f"{fault:.4e}")
+        if diff > SCORE_ATOL or fault < FAULT_MARGIN * SCORE_ATOL:
+            raise AssertionError("the untied pass failed")
+
+
+def _tuple(x):
+    return x if isinstance(x, tuple) else (x,)
+
+
+@contextlib.contextmanager
+def float64_supernet(torch, model):
+    """The supernet in float64: its parameters, its dense layers' compute
+    dtype, and the layer norms and the attention computed in the input's
+    dtype (the port's keep float32 statistics and scores)."""
+    import torch.nn.functional as F
+
+    from bayeslms_tpu_torch.models import transformer_lm as tlm
+
+    model.double()
+    for m in model.modules():
+        if isinstance(m, (tlm.Dense, tlm.LayerNorm)):
+            m.dtype = torch.float64
+
+    def norm(self, x):
+        return F.layer_norm(x, (x.shape[-1],), self.scale.to(x.dtype),
+                            self.bias.to(x.dtype), 1e-5)
+
+    def attention(q, k, v, nhead, attn_mask=None, dropout_rate=0.0,
+                  deterministic=True, causal=False, dropout_mask=None,
+                  generator=None):
+        T, B, E = q.shape
+        d = E // nhead
+
+        def heads(x):
+            return x.reshape(x.shape[0], B, nhead, d).permute(1, 2, 0, 3)
+        p = torch.softmax(heads(q * d ** -0.5) @ heads(k).transpose(-1, -2)
+                          + attn_mask.to(q.dtype), dim=-1)
+        if dropout_mask is not None:
+            p = torch.where(dropout_mask.bool(), p / (1.0 - dropout_rate),
+                            torch.zeros_like(p))
+        return (p @ heads(v)).permute(2, 0, 1, 3).reshape(T, B, E)
+
+    with mock.patch.object(tlm.LayerNorm, "forward", norm), \
+            mock.patch.object(tlm, "multihead_attention", attention):
+        yield model
+
+
+def nas_phase(torch, kernels, smi, cfg, corpus, tmpdir):
+    """A few steps of the ``bayes`` search, first order and ``--unrolled``,
+    for the LSTM supernet at the bench's width and the Transformer
+    supernet at the recipe's (float32, batch 16, seq_len 32, V = 49,152):
+    each step's arch gradient against the same step in float64 on the card
+    (the same weights and draws) within NAS_RTOL |g64| + NAS_SHARE
+    max |g64|, the second order's planted fault (its implicit term dropped)
+    FAULT_MARGIN tolerances away; the step times and the peak memory of
+    the architect's gradient. No kernel runs: the products are cuBLAS's. Raises on a
+    failed check."""
+    import dataclasses
+
+    from bayeslms_tpu_torch import TrainConfig
+    from bayeslms_tpu_torch.nas.search import SearchRunner
+
+    class Window:  # the first windows of the corpus, for a few steps
+        train = corpus.train[:NAS_BATCH * NAS_SEQ * NAS_STEPS + 1]
+        valid = corpus.valid[:NAS_BATCH * NAS_SEQ * 4 + 1]
+
+    for tag, mcfg in (("nas lstm", dataclasses.replace(
+            cfg, compute_dtype="float32")),
+                      ("nas tm", tm_config(cfg, compute_dtype="float32"))):
+        for unrolled in (False, True):
+            order = "second order" if unrolled else "first order"
+            with phase(f"{tag} ({order})"):
+                tcfg = TrainConfig(lr=1.0, batch_size=NAS_BATCH,
+                                   seq_len=NAS_SEQ, epochs=1, seed=1)
+                runner = SearchRunner(mcfg, tcfg, "bayes", unrolled)
+                r64 = SearchRunner(mcfg, tcfg, "bayes", unrolled)
+                arch_grad = runner.architect.arch_grad
+                seen = []
+
+                def checked(params, arch, tb, vb, draws):
+                    torch.cuda.synchronize()
+                    torch.cuda.reset_peak_memory_stats()
+                    t0 = time.perf_counter()
+                    g = arch_grad(params, arch, tb, vb, draws)
+                    torch.cuda.synchronize()
+                    t_g = time.perf_counter() - t0
+                    peak = torch.cuda.max_memory_allocated()
+                    t1 = time.perf_counter()
+                    with float64_supernet(torch, r64.model):
+                        p64 = r64.params()
+                        with torch.no_grad():
+                            for k, p in params.items():
+                                p64[k].copy_(p.double())
+
+                        def dbl(b):
+                            h = None if b[2] is None else tuple(
+                                x.double() for x in b[2])
+                            return (b[0], b[1], h, b[3])
+                        g64 = r64.architect.arch_grad(
+                            p64, arch.double(), dbl(tb), dbl(vb), draws)
+                    torch.cuda.synchronize()
+                    err = float((g.double() - g64).abs().max())
+                    big = float(g64.abs().max())
+                    q = tol_ratio(g, g64, NAS_RTOL, NAS_SHARE * big)
+                    fault = float("inf")
+                    if unrolled:
+                        # planted fault: the implicit term dropped, the
+                        # first-order gradient held to the second order's
+                        runner.architect.unrolled = False
+                        try:
+                            g1 = arch_grad(params, arch, tb, vb, draws)
+                        finally:
+                            runner.architect.unrolled = True
+                        fault = tol_ratio(g1, g64, NAS_RTOL,
+                                          NAS_SHARE * big)
+                    seen.append(dict(t_grad=t_g, t64=time.perf_counter() - t1,
+                                     peak=peak, err=err, big=big, share=q,
+                                     fault=fault))
+                    return g
+
+                runner.architect.arch_grad = checked
+                stamps = []
+                t0 = time.perf_counter()
+                res = runner.run(Window, log=lambda line: None,
+                                 on_step=lambda e, b, loss: stamps.append(
+                                     (time.perf_counter(), float(loss))))
+                torch.cuda.synchronize()
+                starts = [t0] + [t for t, _ in stamps[:-1]]
+                steps = [1e3 * (t - s - c["t64"]) for (t, _), s, c in
+                         zip(stamps, starts, seen)]
+                for i, c in enumerate(seen):
+                    print(f"  step {i}: {steps[i]:.1f} ms (the architect's "
+                          f"gradient {1e3 * c['t_grad']:.1f} ms, peak "
+                          f"{c['peak'] / 2 ** 30:.2f} GiB allocated); "
+                          f"loss {stamps[i][1]:.4f}; arch gradient |g64| "
+                          f"max {c['big']:.3e}, max |g32 - g64| "
+                          f"{c['err']:.3e}, worst share of tolerance "
+                          f"{c['share']:.3f}" + ("" if not unrolled else
+                          f"; planted fault 'implicit term dropped' "
+                          f"{c['fault']:.1f}"))
+                print(f"  {tag} {order}: {mcfg.emsize}/{mcfg.nhid} x "
+                      f"{mcfg.nlayers}, V {mcfg.vocab_size}, batch "
+                      f"{NAS_BATCH}, seq_len {NAS_SEQ} on {smi}; arch "
+                      f"softmax {res.arch_softmax.round(4).tolist()}")
+                if len(seen) < 2 or max(c["share"] for c in seen) > 1 \
+                        or not all(np.isfinite(l) for _, l in stamps):
+                    raise AssertionError(f"{tag} {order}: the arch gradient "
+                                         "disagrees with float64")
+                if min(c["fault"] for c in seen) < FAULT_MARGIN:
+                    raise AssertionError(f"{tag} {order}: the first-order "
+                                         "gradient passes the second "
+                                         "order's tolerance")
+                del runner, r64
+                torch.cuda.empty_cache()
+
+
+def slice_cli_phases(torch, kernels, smi, cfg, corpus, root):
+    """The command line's new runs, each a subprocess: ``train --resume``
+    of the bench's LSTM stopped after epoch 1 and run again for epoch 2
+    with ``--profile`` (one trace file of the resumed epoch, naming rows
+    5, 6 and 9-11); ``search --unrolled`` of the LSTM supernet at the
+    bench's width for a few steps (no kernel launch). Raises on a failed
+    check."""
+    common = ["--data", corpus, "--compute-dtype", "bfloat16",
+              "--batch-size", str(TRAIN_BATCH), "--seq_len", str(TRAIN_SEQ),
+              "--lr", "5", "--data-fraction", str(SLICE_FRACTION),
+              "--log-interval", "100"]
+    with phase("cli train --resume --profile"):
+        save = os.path.join(root, "cli_resume", "m.ckpt")
+        prof = os.path.join(root, "cli_profile")
+        run_cli(root, "resume1", ["train", *common, "--epochs", "1",
+                                  "--resume", "--save", save])
+        # resumed for epoch 2, which is the run's first trained epoch and
+        # so the one its profile traces
+        out, n = run_cli(root, "resume2", ["train", *common, "--epochs", "2",
+                                           "--resume", "--profile", prof,
+                                           "--save", save])
+        line = next((l for l in out.splitlines() if "resumed from" in l), "")
+        print(f"  {line}; launches {n}")
+        if not line.startswith("resumed from epoch 1") or \
+                n["lstm_train_fwd"] == 0 or n["ce_train_fwd"] == 0:
+            raise AssertionError("the second run did not resume and train")
+        for name in ("lstm_train_fwd", "lstm_train_bwd", *CE_TRAIN):
+            run_launches(kernels, name, "cli train --resume --profile",
+                         n[name])
+        files = [f for f in os.listdir(prof) if f.endswith(".json")]
+        with open(os.path.join(prof, files[0])) as f:
+            names = {e.get("name", "") for e in json.load(f)["traceEvents"]
+                     if e.get("cat") == "kernel"}
+        missing = [k for ks in PROFILE_KERNELS.values() for k in ks
+                   if not any(k in nm for nm in names)]
+        print(f"  trace files {files}; kernels of rows 5, 6, 9-11 missing: "
+              f"{missing}; launches {n}")
+        if len(files) != 1 or missing:
+            raise AssertionError("the CLI's trace does not name rows 5, 6 "
+                                 "and 9-11")
+    with phase("cli search --unrolled"):
+        small = os.path.join(root, "search_corpus")
+        os.makedirs(small, exist_ok=True)
+        with open(os.path.join(corpus, "words.txt")) as f:
+            words = f.read()
+        with open(os.path.join(small, "words.txt"), "w") as f:
+            f.write(words)
+        for split, n_lines in (("train", 60), ("valid", 60), ("test", 10)):
+            with open(os.path.join(corpus, f"{split}.txt")) as f:
+                head = [next(f) for _ in range(n_lines)]
+            with open(os.path.join(small, f"{split}.txt"), "w") as f:
+                f.writelines(head)
+        out, n = run_cli(root, "search", [
+            "search", "--data", small, "--unrolled", "--epochs", "1"])
+        res = json.loads(out.strip().splitlines()[-1])
+        soft = np.asarray(res["arch_softmax"])
+        print(f"  arch softmax {soft.shape}, derived "
+              f"{res['derived_choice']}; launches {n}")
+        if soft.shape != (cfg.nlayers, 4, 2) or not np.allclose(
+                soft.sum(-1), 1.0, atol=1e-5) or any(
+                v for v in n.values() if isinstance(v, int)):
+            raise AssertionError("cli search failed (or launched a kernel)")
+
+
 def library_yardstick(torch, name, args):
     """ms of one PyTorch call computing the same function (never called by
     the port): cuDNN's LSTM for the recurrence (all-ones mask, as in
@@ -5928,8 +6644,15 @@ def main():
     slotted_phase(torch, kernels, smi, cfg, rcfg, params, corpus, tmp.name)
     mc_phases(torch, kernels, smi, cfg, rcfg, corpus, tmp.name)
     splice_phase(torch, kernels, smi, cfg, rcfg, corpus, tmp.name)
-    cli_phases(torch, kernels, smi, cfg, rcfg, tmp.name,
-               tempfile.mkdtemp(dir=tmp.name))
+    resume_phase(torch, kernels, smi, cfg, corpus, tmp.name)
+    profile_phase(torch, kernels, smi, cfg, corpus, tmp.name)
+    depth3_phase(torch, kernels, smi, cfg, rcfg, corpus, w2i, nbest)
+    cores_phase(torch, kernels, smi, cfg, rcfg, corpus, w2i, nbest)
+    untied_phase(torch, kernels, smi, cfg, rcfg, corpus, w2i, nbest)
+    nas_phase(torch, kernels, smi, cfg, corpus, tmp.name)
+    cli_root = tempfile.mkdtemp(dir=tmp.name)
+    cli_phases(torch, kernels, smi, cfg, rcfg, tmp.name, cli_root)
+    slice_cli_phases(torch, kernels, smi, cfg, tmp.name, cli_root)
     tmp.cleanup()
 
     print(f"chip_smoke: all phases in {time.perf_counter() - t_start:.1f} s")

@@ -7,7 +7,9 @@ score may round the other way); ``snr`` and
 ``snr_report`` equal JAX's; ``train`` writes the port's checkpoint that
 ``score`` and ``rescore`` read; without ``--platform cpu`` and without a
 card the CLI raises; each flag not ported raises naming its ROADMAP.md
-item."""
+item; ``search`` (first and second order), ``train --resume``, ``train
+--profile``, ``score --profile``, the GRU, the RNN, other depths and
+``--not-tied`` run on the CPU."""
 
 import argparse
 import json
@@ -213,19 +215,26 @@ def test_without_a_card_the_cli_raises(corpus, jax_ckpt, monkeypatch):
       "--outfile", "o", "--dp-shards", "2"], "item 13"),
     (["rescore", "--lattices", "l", "--words", "w", "--model-path", "m",
       "--workdir", "wd", "--dp-shards", "2"], "item 13"),
-    (["train", "--data", "d", "--profile", "p"], "item 6"),
-    (["train", "--data", "d", "--resume"], "item 6"),
+    (["train", "--data", "d", "--profile", "p"], None),
+    (["train", "--data", "d", "--resume"], None),
     (["score", "--nbest-list", "n", "--vocabulary", "v", "--model-path", "m",
-      "--outfile", "o", "--profile", "p"], "item 6"),
+      "--outfile", "o", "--profile", "p"], None),
     (["rescore", "--lattices", "l", "--words", "w", "--model-path", "m",
-      "--workdir", "wd", "--profile", "p"], "item 6"),
-    (["search", "--data", "d"], "item 12"),
+      "--workdir", "wd", "--profile", "p"], None),
+    (["search", "--data", "d"], None),
 ], ids=["multihost", "tp", "dp", "score-dp", "rescore-dp", "profile",
         "resume", "score-profile", "rescore-profile", "search"])
 def test_unported_flags_raise_before_device_work(argv, item, monkeypatch):
     """Raised before anything is read or any device is asked for: the
-    files named here do not exist and no card is needed."""
+    files named here do not exist and no card is needed. The profile and
+    resume flags and ``search`` (ROADMAP.md A6, A12) are ported: they pass
+    the refusals and stop at the device check (no card, no --platform
+    cpu)."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    if item is None:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            cli.main(argv)
+        return
     with pytest.raises(NotImplementedError, match=f"ROADMAP.md queue A {item}"):
         cli.main(argv)
 
@@ -337,3 +346,76 @@ def test_mc_samples_with_carry_over_raises_before_device_work(
     with pytest.raises(ValueError, match="carry_over=False"):
         cli.main([*_score_args(corpus, jax_ckpt, "--mc-samples", "4"),
                   "--compute-dtype", "bfloat16"])
+
+
+@pytest.mark.parametrize("unrolled", [False, True], ids=["1st", "2nd"])
+def test_search_prints_the_arch_weights_as_jax_does(corpus, capsys,
+                                                    unrolled):
+    """``search --platform cpu`` (first order and ``--unrolled``): the
+    JAX CLI's JSON keys, a (layers, gates, 2) softmax that sums to one
+    and its argmax."""
+    argv = ["search", "--data", str(corpus), *TINY, "--batch-size", "4",
+            "--seq_len", "8", "--epochs", "1"]
+    if unrolled:
+        argv.append("--unrolled")
+    assert cli.main(["--platform", "cpu", *argv]) == 0
+    res = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert set(res) == {"arch_softmax", "derived_choice"}
+    soft = np.asarray(res["arch_softmax"])
+    assert soft.shape == (2, 4, 2)
+    np.testing.assert_allclose(soft.sum(-1), 1.0, rtol=1e-5)
+    np.testing.assert_array_equal(soft.argmax(-1), res["derived_choice"])
+
+
+def test_train_resume_and_profile(corpus, tmp_path, capsys):
+    """``train --resume``: one epoch, then a run of two that continues from
+    ``<save>.resume``; ``--profile DIR`` traces the first trained epoch
+    (the resumed one) into DIR; ``score --profile`` traces the pass."""
+    save = str(tmp_path / "m.ckpt")
+    base = ["--platform", "cpu", "train", "--data", str(corpus), *TINY,
+            "--batch-size", "4", "--seq_len", "10", "--lr", "2", "--save",
+            save, "--resume"]
+    assert cli.main([*base, "--epochs", "1"]) == 0
+    assert os.path.exists(save + ".resume")
+    capsys.readouterr()
+    prof = tmp_path / "prof"
+    assert cli.main([*base, "--epochs", "2", "--profile", str(prof)]) == 0
+    out = capsys.readouterr().out
+    assert "resumed from epoch 1 (lr 2.0)" in out
+    assert load_checkpoint(save + ".resume")[1]["epoch"] == 2
+    assert len(os.listdir(prof)) == 1
+    sprof = tmp_path / "sprof"
+    assert cli.main(["--platform", "cpu", "score", "--nbest-list",
+                     str(corpus / "nbest.txt"), "--vocabulary",
+                     str(corpus / "words.txt"), "--model-path", save, *TINY,
+                     "--outfile", str(tmp_path / "s.txt"), "--profile",
+                     str(sprof)]) == 0
+    assert len(os.listdir(sprof)) == 1
+
+
+@pytest.mark.parametrize("flags", [["--model", "GRU"], ["--nlayers", "3"],
+                                   ["--not-tied"],
+                                   ["--model", "RNN_RELU", "--nlayers", "1"]],
+                         ids=["gru", "nlayers3", "not-tied", "rnn-relu-1"])
+def test_train_and_score_other_cores(corpus, tmp_path, capsys, flags):
+    """The GRU, the RNN, other depths and an untied decoder train and score
+    through the command line on the CPU; the checkpoint holds the model's
+    geometry."""
+    save = str(tmp_path / "m.ckpt")
+    assert cli.main(["--platform", "cpu", "train", "--data", str(corpus),
+                     *TINY, *flags, "--batch-size", "4", "--seq_len", "10",
+                     "--epochs", "1", "--lr", "1", "--save", save]) == 0
+    params, meta = load_checkpoint(save)
+    mc = meta["model_config"]
+    assert (mc["model"], mc["nlayers"], mc["tied"]) == (
+        flags[flags.index("--model") + 1] if "--model" in flags else "LSTM",
+        int(flags[flags.index("--nlayers") + 1]) if "--nlayers" in flags
+        else 2, "--not-tied" not in flags)
+    assert ("decoder_w" in params) == ("--not-tied" in flags)
+    scores = tmp_path / "s.txt"
+    assert cli.main(["--platform", "cpu", "score", "--nbest-list",
+                     str(corpus / "nbest.txt"), "--vocabulary",
+                     str(corpus / "words.txt"), "--model-path", save, *TINY,
+                     *flags, "--outfile", str(scores)]) == 0
+    vals = [float(ln.split()[-1]) for ln in scores.read_text().splitlines()]
+    assert len(vals) == 19 and np.all(np.isfinite(vals))

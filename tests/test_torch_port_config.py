@@ -76,8 +76,17 @@ def test_init_params_tree_and_laws():
     dict(tied=False),
 ])
 def test_unported_models_raise(extra):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        bt.build_model(bt.ModelConfig(**{**SMALL, **extra}))
+    """The GRU, LSTMs of other depths and untied decoders build since
+    ROADMAP.md A3 landed; an uncertainty core at another depth still
+    raises, where the JAX package quietly builds two layers."""
+    cfg = bt.ModelConfig(**{**SMALL, **extra})
+    if cfg.uncertainty != "none":
+        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+            bt.build_model(cfg)
+        return
+    model = bt.build_model(cfg)
+    names = dict(model.named_parameters())
+    assert ("decoder_w" in names) == (not cfg.tied)
 
 
 def test_forward_logits_match_jax():

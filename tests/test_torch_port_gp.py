@@ -336,10 +336,11 @@ def test_core_sampling_follows_the_generator_and_counts_noise():
 def test_unported_gp_configurations_raise(extra):
     """The legacy GaussLSTM and the variational cores, once refused naming
     ROADMAP.md queue A item 10, now build, and with another depth raise
-    naming item 3; a string that is not 2 to 4 digits is refused."""
+    naming ROADMAP.md C (the JAX package quietly builds two layers there);
+    a string that is not 2 to 4 digits is refused."""
     cfg = dataclasses.replace(_cfg(bt, E=H), **extra)
     assert bt.build_model(cfg) is not None
-    with pytest.raises(NotImplementedError, match="queue A item 3"):
+    with pytest.raises(NotImplementedError, match="ROADMAP.md C"):
         bt.build_model(dataclasses.replace(cfg, nlayers=3))
     with pytest.raises(ValueError, match="2 to 4 digits"):
         bt.build_model(_cfg(bt, "13030"))

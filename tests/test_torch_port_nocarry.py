@@ -211,9 +211,10 @@ def test_gather_plan_sums_each_hypothesis_in_a_fixed_order():
     idx, cols, row_seg = plan
     assert cols.shape == (len(rows), max(len(r[1]) for r in rows))
     assert (np.sort(cols[cols < len(idx)]) == np.arange(len(idx))).all()
-    model = types.SimpleNamespace(
-        embedding=torch.randn((V, H), generator=torch.Generator().manual_seed(1)),
-        decoder_b=torch.zeros((V,)))
+    emb = torch.randn((V, H), generator=torch.Generator().manual_seed(1))
+    # a tied model: its decoder weight is the embedding
+    model = types.SimpleNamespace(embedding=emb, decoder_weight=emb,
+                                  decoder_b=torch.zeros((V,)))
     h = torch.randn((T * C, H), generator=torch.Generator().manual_seed(2))
     t_flat = torch.from_numpy(tgt.reshape(-1))
     to = [torch.from_numpy(a) for a in plan]

@@ -234,6 +234,9 @@ def test_kl_with_prior_means_matches_jax(pos):
                                         t_bayes_pos="FFN", tied=False),
                                    dict(tied=False)])
 def test_unported_transformers_raise(extra):
+    """Untied Transformers, once refused naming ROADMAP.md A3, build since
+    it landed: ``decoder_w`` (V, E) beside the embedding."""
     cfg = bt.ModelConfig(**{**_cfg(bt, "none").__dict__, **extra})
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        bt.build_model(cfg)
+    model = bt.build_model(cfg)
+    assert model.decoder_w.shape == (V, E)
+    assert model.decoder_weight is model.decoder_w

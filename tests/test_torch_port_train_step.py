@@ -311,9 +311,12 @@ def test_trainer_defaults_to_cuda_and_refuses_unported_options(monkeypatch):
     _, cfg = _cfgs()
     with pytest.raises(RuntimeError, match="no CUDA device"):
         Trainer(cfg, TrainConfig())
-    for kw in (dict(dp_shards=2), dict(resume=True), dict(profile_dir="p")):
-        with pytest.raises(NotImplementedError):
-            Trainer(cfg, TrainConfig(**kw), device="cpu")
+    with pytest.raises(NotImplementedError):
+        Trainer(cfg, TrainConfig(dp_shards=2), device="cpu")
+    # full-state resume and profiling are ported (ROADMAP.md A6)
+    for kw in (dict(resume=True), dict(profile_dir="p")):
+        assert Trainer(cfg, TrainConfig(**kw), device="cpu").tcfg == \
+            TrainConfig(**kw)
 
 
 @pytest.mark.parametrize("weight_decay", [0.0, 1e-2])
