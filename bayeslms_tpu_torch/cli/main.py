@@ -22,9 +22,20 @@ epoch); ``--profile DIR`` writes a Chrome trace of the first trained epoch
 (``train``), of the scoring (``score``) or of the pipeline (``rescore``)
 into DIR. ``search`` runs the DARTS search in float32 (no kernel runs
 there) and prints the softmaxed arch weights and the derived choice.
-Not ported yet, each raising ``NotImplementedError`` that names its
-ROADMAP.md item before any device work: ``--multihost``, ``--tp-shards``
-and ``--dp-shards`` above 1 (item 13). ``score`` and ``rescore``
+
+``train --dp-shards D --tp-shards T`` trains on D x T ranks and ``score`` /
+``rescore --dp-shards D`` scores on D: the command starts its ranks on
+this host (``parallel/multihost.py`` ``spawn``), one a card under NCCL
+(``--platform cuda``, which raises before any rank starts where the ranks
+outnumber the visible cards: NCCL takes one rank a card) or gloo ranks on
+the CPU (``--platform cpu``). ``train --multihost`` instead joins the group
+a launcher started (``torchrun``: ``RANK``, ``WORLD_SIZE``,
+``MASTER_ADDR``, ``MASTER_PORT``, ``LOCAL_RANK``), one process a card, with
+dp = the ranks / T unless ``--dp-shards`` says. Rank 0 alone prints and
+writes files. A tp mesh that the port's tp step does not take (an untied
+decoder, the Transformer's Bayesian EMB, a batch that does not divide)
+raises ``NotImplementedError`` naming ROADMAP.md item A13b before any
+rank starts. ``score`` and ``rescore``
 take the scorer's options: ``--interpolation_flag`` with ``--inter_path``
 (the second model), ``--mc-samples``, ``--backward`` (``--model_var
 back``), ``--splice-len`` with ``--context-file``; the scorer refuses the
@@ -34,6 +45,7 @@ combinations it does not score (``rescore/scorer.py``).
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import sys
 
@@ -74,24 +86,39 @@ def _model_cfg(args, vocab_size: int) -> ModelConfig:
         compute_dtype=args.compute_dtype)
 
 
-def _refuse_unported(args) -> None:
-    """The flags whose JAX paths are not ported, before any device work."""
-    if getattr(args, "multihost", False):
-        raise NotImplementedError(
-            "--multihost is not ported yet (ROADMAP.md queue A item 13)")
-    if getattr(args, "tp_shards", 1) > 1:
-        raise NotImplementedError(
-            "--tp-shards > 1 is not ported yet (ROADMAP.md queue A item 13)")
-    if getattr(args, "dp_shards", 1) > 1:
-        raise NotImplementedError(
-            "--dp-shards > 1 is not ported yet (ROADMAP.md queue A item 13)")
+def _ranks(args) -> int:
+    """The ranks the command runs on: dp x tp (1 for one device)."""
+    return max(getattr(args, "dp_shards", 1), 1) * max(
+        getattr(args, "tp_shards", 1), 1)
+
+
+def _refuse_mesh(args) -> None:
+    """What the mesh's steps do not take, before any rank starts
+    (``parallel/train_parallel.py`` ``check``; the vocabulary's division is
+    checked by the trainer, which reads it)."""
+    import torch
+
+    if args.fn is cmd_train and _ranks(args) > 1:
+        from ..parallel.train_parallel import check
+
+        cfg = _model_cfg(args, 0)
+        tcfg = TrainConfig(batch_size=args.batch_size)
+        check(cfg, tcfg, max(args.dp_shards, 1), max(args.tp_shards, 1))
+    n = torch.cuda.device_count()
+    if args.platform == "cuda" and not getattr(args, "multihost", False) \
+            and _ranks(args) > max(n, 1):
+        raise ValueError(
+            f"bayeslm-torch: {_ranks(args)} ranks under NCCL need as many "
+            f"cards, {n} visible (NCCL takes one rank a card); pass fewer "
+            "--dp-shards/--tp-shards, or --platform cpu")
 
 
 def _profiled(args):
-    """``trace(--profile)`` around the region, or nothing."""
-    import contextlib
+    """``trace(--profile)`` around the region (on rank 0 alone), or
+    nothing."""
+    from ..parallel.multihost import is_primary
 
-    if not getattr(args, "profile", None):
+    if not getattr(args, "profile", None) or not is_primary():
         return contextlib.nullcontext()
     from ..utils.profiling import trace
 
@@ -117,8 +144,9 @@ def _check_device(args, kernels: bool = True) -> None:
             "pass --compute-dtype bfloat16, or --platform cpu")
 
 
-def cmd_train(args) -> int:
+def cmd_train(args, mesh=None) -> int:
     from ..data.corpus import Corpus
+    from ..parallel.multihost import is_primary
     from ..train.loop import Trainer
 
     corpus = Corpus(args.data)
@@ -131,9 +159,10 @@ def cmd_train(args) -> int:
         prior=args.prior, prior_path=args.prior_path, prior_kl=args.prior_kl,
         save=args.save, rng_impl=args.rng_impl, dp_shards=args.dp_shards,
         profile_dir=args.profile, resume=args.resume)
-    trainer = Trainer(cfg, tcfg, device=args.platform)
+    trainer = Trainer(cfg, tcfg, device=args.platform, mesh=mesh)
     _, out = trainer.fit(corpus)
-    print(json.dumps({"test_loss": out["test_loss"]}))
+    if is_primary():
+        print(json.dumps({"test_loss": out["test_loss"]}))
     return 0
 
 
@@ -190,9 +219,10 @@ def _inter_model(args, vocab_size: int):
     return cfg2, params2
 
 
-def _scorer(args, cfg, rcfg, vocab_size: int):
+def _scorer(args, cfg, rcfg, vocab_size: int, mesh=None):
     """The run's ``BatchScorer``: the main model of ``--model-path`` and,
-    with ``--interpolation_flag``, the second of ``--inter_path``."""
+    with ``--interpolation_flag``, the second of ``--inter_path``; on
+    ``mesh``'s ranks where given."""
     from ..core.checkpoint import load_params
     from ..rescore.scorer import BatchScorer
 
@@ -200,13 +230,14 @@ def _scorer(args, cfg, rcfg, vocab_size: int):
     if args.interpolation_flag:
         cfg2, params2 = _inter_model(args, vocab_size)
     return BatchScorer(cfg, load_params(args.model_path, cfg), rcfg, cfg2,
-                       params2, device=args.platform)
+                       params2, device=args.platform, mesh=mesh)
 
 
-def cmd_score(args) -> int:
+def cmd_score(args, mesh=None) -> int:
     """Score an N-best list with a trained model (the reference's
     compute_sentence_scores_* entry point)."""
     from ..data.vocab import Vocab
+    from ..parallel.multihost import is_primary
     from ..rescore.nbest import load_nbest, write_scores
 
     vocab = Vocab.from_file(args.vocabulary)
@@ -217,7 +248,7 @@ def cmd_score(args) -> int:
         mc_samples=args.mc_samples,
         backward=args.backward or args.model_var == "back",
         splice_len=args.splice_len, xl_mems=args.model_var == "XL")
-    scorer = _scorer(args, cfg, rcfg, len(vocab))
+    scorer = _scorer(args, cfg, rcfg, len(vocab), mesh)
     nbest = load_nbest(args.nbest_list)
     context_map = None
     if args.context_file:
@@ -228,16 +259,24 @@ def cmd_score(args) -> int:
     with _profiled(args):
         scored = scorer.score_nbest(nbest, vocab.word2idx,
                                     context_map=context_map)
+    if not is_primary():
+        return 0
     write_scores(scored, args.outfile)
     print(f"oov tokens: {scorer.oov_stats['total']}")
     print(f"wrote {args.outfile}")
     return 0
 
 
-def cmd_rescore(args) -> int:
+def cmd_rescore(args, mesh=None) -> int:
     """The lattice rescoring pipeline (the reference's
-    lmrescore_nbest_*.sh)."""
+    lmrescore_nbest_*.sh). On a mesh every rank runs the pipeline, its
+    scoring sharded; the ranks other than 0 work in a directory of their
+    own, which they remove, and print nothing."""
+    import shutil
+    import tempfile
+
     from ..data.vocab import Vocab
+    from ..parallel.multihost import is_primary
     from ..rescore.pipeline import run_pipeline
 
     vocab = Vocab.from_file(args.words)
@@ -250,12 +289,22 @@ def cmd_rescore(args) -> int:
         backward=args.backward or args.model_var == "back",
         splice_len=args.splice_len, xl_mems=args.model_var == "XL",
         max_hyp_len=args.max_hyp_len)
-    scorer = _scorer(args, cfg, rcfg, len(vocab))
-    with _profiled(args):
-        res = run_pipeline(
-            args.lattices, args.words, scorer, vocab.word2idx, args.workdir,
-            rcfg, arpa_lm=args.arpa, ref_text=args.ref, glm=args.glm,
-            asclite_clean=args.asclite_clean, sanity_test=args.sanity_test)
+    scorer = _scorer(args, cfg, rcfg, len(vocab), mesh)
+    primary = is_primary()
+    workdir = args.workdir if primary else tempfile.mkdtemp(
+        prefix="bayeslm_rescore_")
+    try:
+        with _profiled(args):
+            res = run_pipeline(
+                args.lattices, args.words, scorer, vocab.word2idx, workdir,
+                rcfg, arpa_lm=args.arpa, ref_text=args.ref, glm=args.glm,
+                asclite_clean=args.asclite_clean,
+                sanity_test=args.sanity_test)
+    finally:
+        if not primary:
+            shutil.rmtree(workdir, ignore_errors=True)
+    if not primary:
+        return 0
     print(json.dumps({
         "n_utts": res.n_utts, "n_hyps": res.n_hyps,
         "oov_tokens": res.oov_tokens,
@@ -329,15 +378,19 @@ def build_parser() -> argparse.ArgumentParser:
                         "in both packages, the port draws from a "
                         "torch.Generator")
     t.add_argument("--dp-shards", type=int, default=1,
-                   help="data-parallel shards (not ported: ROADMAP A13)")
+                   help="data-parallel ranks (one a card, or gloo ranks "
+                        "with --platform cpu)")
     t.add_argument("--tp-shards", type=int, default=1,
-                   help="tensor-parallel shards (not ported: ROADMAP A13)")
+                   help="tensor-parallel ranks (the vocabulary split over "
+                        "them)")
     t.add_argument("--save", default="model.ckpt")
     t.add_argument("--resume", action="store_true",
                    help="continue from <save>.resume, written after each "
                         "epoch")
     t.add_argument("--multihost", action="store_true",
-                   help="multi-host job (not ported: ROADMAP A13)")
+                   help="join the group a launcher (torchrun) started: "
+                        "RANK, WORLD_SIZE, MASTER_ADDR, MASTER_PORT, "
+                        "LOCAL_RANK")
     t.add_argument("--profile", default=None, metavar="DIR",
                    help="write a Chrome trace of the first trained epoch "
                         "into DIR")
@@ -365,7 +418,8 @@ def build_parser() -> argparse.ArgumentParser:
                    help="dev-scorer variants: back = backward LM, XL = "
                         "Transformer-XL cross-utterance memory")
     s.add_argument("--dp-shards", type=int, default=1,
-                   help="shard hypothesis batches (not ported: ROADMAP A13)")
+                   help="score on this many ranks, each its block of the "
+                        "chains or columns")
     s.add_argument("--profile", default=None, metavar="DIR",
                    help="write a Chrome trace into DIR")
     s.add_argument("--context-file", default=None,
@@ -408,7 +462,8 @@ def build_parser() -> argparse.ArgumentParser:
                    help="drop hesitations/[noise]/<unk> from hyps "
                         "(score_asclite.sh:87-93)")
     r.add_argument("--dp-shards", type=int, default=1,
-                   help="shard hypothesis batches (not ported: ROADMAP A13)")
+                   help="score on this many ranks, each its block of the "
+                        "chains or columns")
     r.add_argument("--sanity-test", action="store_true",
                    help="reference --test true branch: rebuild lattices "
                         "without changing scores and verify the round trip "
@@ -438,13 +493,45 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
-def main(argv=None) -> int:
+def _mesh(args):
+    """This rank's mesh: dp x tp of the joined group (under --multihost
+    dp = the ranks / tp unless --dp-shards says)."""
+    from ..parallel.mesh import make_mesh
+
+    tp = max(getattr(args, "tp_shards", 1), 1)
+    dp = args.dp_shards if args.dp_shards > 1 else None
+    return make_mesh(dp=dp, tp=tp, device=None)
+
+
+def _rank(argv) -> int:
+    """One rank of a command that ``main`` spawned."""
     args = build_parser().parse_args(argv)
-    _refuse_unported(args)
+    return args.fn(args, _mesh(args))
+
+
+def main(argv=None) -> int:
+    argv = sys.argv[1:] if argv is None else list(argv)
+    args = build_parser().parse_args(argv)
     if args.fn in (cmd_train, cmd_score, cmd_rescore):
         _check_device(args)
+        _refuse_mesh(args)
     elif args.fn is cmd_search:
         _check_device(args, kernels=False)
+    if getattr(args, "multihost", False):
+        from ..parallel.multihost import initialize_multihost
+
+        if not initialize_multihost("nccl" if args.platform == "cuda"
+                                    else "gloo"):
+            print("--multihost: no launcher's group (WORLD_SIZE and "
+                  "MASTER_ADDR unset)", file=sys.stderr)
+            return 1
+        return args.fn(args, _mesh(args))
+    if _ranks(args) > 1:
+        from ..parallel.multihost import spawn
+
+        return spawn("bayeslms_tpu_torch.cli.main:_rank", _ranks(args),
+                     argv, backend="nccl" if args.platform == "cuda"
+                     else "gloo", timeout=None)[0]
     return args.fn(args)
 
 

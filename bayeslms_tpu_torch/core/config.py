@@ -1,16 +1,16 @@
 """Configuration dataclasses, field for field those of
 ``bayeslms_tpu/core/config.py`` (the JAX package), so that one configuration
 describes a model in both packages. The port runs them on one device
-(the standard LSTM of any depth, the GRU and the vanilla RNN; the 2-layer
+or, for training with ``dp_shards`` > 1 or a mesh, on the ranks of a
+``torch.distributed`` group (``parallel/``) (the standard LSTM of any depth, the GRU and the vanilla RNN; the 2-layer
 LSTM's Bayesian gate-slice core, the GP-LSTM of every ``l_gauss_pos``
 string, the legacy GaussLSTM (``l_gauss_legacy_pos`` 0-8), the variational
 LSTM (``l_v_pos``) and the legacy VLSTM (``l_v_legacy``); the Transformer,
 standard, Bayesian at the FFN, MHA or EMB, with the GP-FFN layer, and
-variational (``t_v_pos`` 0-3); tied or untied decoders).
-``TrainConfig.validate`` raises ``NotImplementedError`` for data-parallel
-training (ROADMAP.md queue A item 13), and the uncertainty cores for a
-depth or model other than the 2-layer LSTM, which the JAX package quietly
-builds as two LSTM layers.
+variational (``t_v_pos`` 0-3); tied or untied decoders). The
+uncertainty cores raise ``NotImplementedError`` for a depth or model other
+than the 2-layer LSTM, which the JAX package quietly builds as two LSTM
+layers.
 
 Flag map to the reference recipes (BayesLMs ``steps/pytorchnn/train.py``):
 ``uncertainty`` -> --uncertainty, ``t_bayes_pos`` -> --T_bayes_pos,
@@ -105,10 +105,6 @@ class TrainConfig:
     profile_dir: Optional[str] = None
 
     def validate(self) -> "TrainConfig":
-        if self.dp_shards > 1:
-            raise NotImplementedError(
-                "data-parallel training (dp_shards > 1) is not ported yet "
-                "(ROADMAP.md queue A item 13)")
         return self
 
 

@@ -16,6 +16,7 @@ import torch
 from torch import nn
 
 from ..ops import bayes_matmul_cuda, gaussian
+from ..utils.rng import sample_stream
 from . import initializers as tinit
 
 # the activations of the GP units' act sets; gelu is the exact (erf) GELU
@@ -239,7 +240,8 @@ class BayesDense(nn.Module):
             x2 = x.reshape(-1, self.in_features)
             if bayes_matmul_cuda.bayes_matmul_ok(x2, self.out_features,
                                                  self.in_features):
-                seed = torch.randint(0, 2 ** 31 - 1, (1,), generator=generator,
+                seed = torch.randint(0, 2 ** 31 - 1, (1,),
+                                     generator=sample_stream(generator),
                                      device=x.device, dtype=torch.int32)
                 y = bayes_matmul_cuda.bayes_matmul(
                     x2, self.weight_mean, self.weight_lgstd, seed)
@@ -285,8 +287,8 @@ class VNN(nn.Module):
         lg = self.hidden_lgstd
         shape = (n_steps, 1, self.input_size)
         if eps is None:
-            eps = torch.randn(shape, generator=generator, device=lg.device,
-                              dtype=lg.dtype)
+            eps = torch.randn(shape, generator=sample_stream(generator),
+                              device=lg.device, dtype=lg.dtype)
         elif tuple(eps.shape) != shape:
             raise ValueError(f"VNN: injected eps {tuple(eps.shape)} != "
                              f"{shape}")

@@ -32,6 +32,7 @@ from ..ops import (bayes_sample_cuda, gaussian, gp_lstm_cuda, lstm_cuda,
                    lstm_train_cuda)
 from ..ops.lstm import (LSTMParams, gru_layer, lstm_layer,
                        lstm_stack2, rnn_layer)
+from ..utils.rng import dropout_stream, sample_stream
 from . import initializers as tinit
 from .layers import ACTS, GPNN, GPNN2, VNN, _next_eps
 
@@ -64,7 +65,7 @@ def draw_dropout_masks(cfg: ModelConfig, T: int, B: int,
     (all but the standard core, alone or as the GP-LSTM's gate-0 core)."""
     keep = 1.0 - cfg.dropout
     draw = lambda width: torch.rand(  # noqa: E731
-        (T, B, width), generator=gen, device=device) < keep
+        (T, B, width), generator=dropout_stream(gen), device=device) < keep
     layered = cfg.uncertainty == "none" or (
         cfg.uncertainty == "Gaussian" and cfg.l_gauss_legacy_pos < 0
         and cfg.l_gauss_pos[:1] == "0")
@@ -186,7 +187,7 @@ def _draw_diffs(lgstds, generator, noise) -> list:
                 if bayes_sample_cuda.sample_noise_ok(lg)]
     if admitted:
         seeds = torch.randint(0, 2 ** 31 - 1, (len(admitted),),
-                              generator=generator,
+                              generator=sample_stream(generator),
                               device=lgstds[admitted[0]].device,
                               dtype=torch.int32)
         drawn = bayes_sample_cuda.sample_noises(
@@ -1019,7 +1020,8 @@ class RecurrentLM(nn.Module):
                 deterministic: bool = True,
                 generator: Optional[torch.Generator] = None,
                 dropout_masks: Optional[DropoutMasks] = None,
-                noise: Optional[Sequence[torch.Tensor]] = None):
+                noise: Optional[Sequence[torch.Tensor]] = None,
+                emb_in: Optional[torch.Tensor] = None):
         """tokens (T, B) -> logits (T, B, V) float32 and the new hidden.
 
         ``step_mask`` (T, B) freezes the state on padded steps.
@@ -1032,11 +1034,13 @@ class RecurrentLM(nn.Module):
         core then samples its weights from ``generator``, or takes the
         injected ``noise`` (see ``BayesLSTMCore``); so do the GP units of
         the GP-LSTM core (see ``GPLSTMCore``) and the variational cores'
-        noise (see ``VLSTMCore``, ``VLSTMLegacyCore``).
+        noise (see ``VLSTMCore``, ``VLSTMLegacyCore``). ``emb_in`` (T, B,
+        emsize) replaces the table lookup: the tensor-parallel step embeds
+        from its vocabulary shard (``parallel/train_parallel.py``).
         """
         cfg = self.cfg
         dtype = getattr(torch, cfg.compute_dtype)
-        emb = self.embedding[tokens].to(dtype)
+        emb = (self.embedding[tokens] if emb_in is None else emb_in).to(dtype)
         kw = {}
         if not deterministic and not isinstance(self.core, StandardRNNCore):
             kw = dict(generator=generator, noise=noise)

@@ -39,6 +39,7 @@ from ..core.config import ModelConfig
 from ..ops import gaussian
 from ..ops.attention import (draw_keep, multihead_attention,
                              sinusoidal_positional_encoding)
+from ..utils.rng import sample_stream
 from . import initializers as tinit
 from .layers import GPNN, GPNN2, BayesDense
 
@@ -374,7 +375,7 @@ class VEncoderLayer(StandardEncoderLayer):
         if noisy:
             std = torch.exp(hidden * self.hiddens_lgstd.to(hidden.dtype))
             if eps is None:
-                eps = torch.randn(std.shape, generator=generator,
+                eps = torch.randn(std.shape, generator=sample_stream(generator),
                                   device=std.device, dtype=std.dtype)
             elif tuple(eps.shape) != tuple(std.shape):
                 raise ValueError(f"VEncoderLayer: injected eps "
@@ -482,7 +483,8 @@ class TransformerLM(nn.Module):
                 dropout_masks: Optional[TransformerDropoutMasks] = None,
                 noise: Optional[Sequence[torch.Tensor]] = None,
                 mems: Optional[Sequence[torch.Tensor]] = None,
-                mem_len=None, return_mems: bool = False):
+                mem_len=None, return_mems: bool = False,
+                emb_in: Optional[torch.Tensor] = None):
         """tokens (T, B) -> logits (T, B, V) float32, or with
         ``return_hidden`` the pre-decoder states (T, B, E) for the fused CE.
 
@@ -510,7 +512,8 @@ class TransformerLM(nn.Module):
         likewise (``GaussEncoderLayer.n_draws`` of them, in the JAX call
         order); the variational layers' noise likewise (one (T, B, E) eps
         a variational layer, in layer order, on a training window of
-        ``v_seq_len`` steps)."""
+        ``v_seq_len`` steps). ``emb_in`` (T, B, E) replaces the table lookup
+        (the tensor-parallel step's, ``parallel/train_parallel.py``)."""
         cfg = self.cfg
         T = tokens.shape[0]
         dtype = getattr(torch, cfg.compute_dtype)
@@ -548,7 +551,8 @@ class TransformerLM(nn.Module):
         v_eps = dict(zip(v_idx, draws)) if v_idx and draws else {}
         v_kl = torch.zeros((), device=tokens.device)
 
-        x = self.embedding[tokens].to(dtype) * math.sqrt(cfg.emsize)
+        x = (self.embedding[tokens] if emb_in is None else emb_in).to(
+            dtype) * math.sqrt(cfg.emsize)
         if self.bayes_pos == "EMB":
             w = self.embed_mean
             if not deterministic:

@@ -34,6 +34,7 @@ from typing import Optional
 
 import torch
 
+from ..utils.rng import dropout_stream
 from . import attention_cuda, attention_train_cuda
 
 FLASH_TRAIN_MIN_T = 1024  # where the JAX package routes training to rows 15-17
@@ -64,7 +65,8 @@ def sinusoidal_positional_encoding(max_len: int, d_model: int,
 def draw_keep(shape, rate: float, generator: Optional[torch.Generator],
               device=None) -> torch.Tensor:
     """A Bernoulli(1 - rate) keep mask drawn from ``generator``."""
-    return torch.rand(shape, generator=generator, device=device) < 1.0 - rate
+    return torch.rand(shape, generator=dropout_stream(generator),
+                      device=device) < 1.0 - rate
 
 
 def multihead_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -97,7 +99,8 @@ def multihead_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     f"take a head dim that is a multiple of 8 and T <= "
                     f"{attention_train_cuda.MAX_T}")
             if dropout_rate > 0.0:
-                seed = torch.randint(0, 2 ** 31 - 1, (1,), generator=generator,
+                seed = torch.randint(0, 2 ** 31 - 1, (1,),
+                                     generator=dropout_stream(generator),
                                      dtype=torch.int32, device=q.device)
             else:
                 seed = torch.zeros((1,), dtype=torch.int32, device=q.device)

@@ -15,6 +15,11 @@ backward forms d_mv = a_m p_mv + b_m [v = t_m] with p_mv = exp(s_mv - max_m)
 / sumexp_m, and gives dh = d E and dE = d^T h with d rounded to h's dtype,
 and db = sum_m d_mv in float32. The scoring path's ``ce_cuda`` launches
 the forward's kernels too (``score_fwd``), at the forward's own width rule.
+A target of -1 hits no word in the kernels and the twins alike.
+
+``shard_lse_t`` and ``fused_decode_ce_train_spmd`` are the same kernels on
+a vocabulary shard, for tensor-parallel training (the JAX package's
+``_shard_lse_t`` and ``fused_decode_ce_train_spmd``, ``ce_pallas.py``).
 """
 
 from __future__ import annotations
@@ -61,7 +66,8 @@ def _scores(h, e, bias, s):
 
 def ce_train_fwd_plain(h, emb, bias, targets):
     """Plain PyTorch version of the forward kernel, same arguments as
-    ``ce_train_fwd``."""
+    ``ce_train_fwd``. A target of -1 hits no word: its logit counts as 0,
+    so its ce is the log-sum-exp."""
     e = emb.to(h.dtype).float()
     b = bias.float()
     t = targets.long()
@@ -70,7 +76,8 @@ def ce_train_fwd_plain(h, emb, bias, targets):
         logits = _scores(h, e, b, s)
         m = logits.max(dim=1).values
         sumexp = torch.exp(logits - m[:, None]).sum(dim=1)
-        tl = logits.gather(1, t[s:s + PLAIN_ROWS, None])[:, 0]
+        ts = t[s:s + PLAIN_ROWS]
+        tl = logits.gather(1, ts.clamp(min=0)[:, None])[:, 0] * (ts >= 0)
         ce.append(torch.log(sumexp) + m - tl)
         mx.append(m)
         se.append(sumexp)
@@ -81,12 +88,14 @@ def ce_train_fwd_plain(h, emb, bias, targets):
 
 
 def _d_rows(h, e, bias, t, mx, se, a, b, s):
-    """float32 d for tokens [s, s + PLAIN_ROWS)."""
+    """float32 d for tokens [s, s + PLAIN_ROWS); a target of -1 hits no
+    word (b is not added)."""
     p = torch.exp(_scores(h, e, bias, s) - mx[s:s + PLAIN_ROWS, None]) \
         / se[s:s + PLAIN_ROWS, None]
     d = a[s:s + PLAIN_ROWS, None] * p
-    rows = torch.arange(d.shape[0], device=d.device)
-    d[rows, t[s:s + PLAIN_ROWS]] += b[s:s + PLAIN_ROWS]
+    ts = t[s:s + PLAIN_ROWS]
+    hit = (ts >= 0).nonzero()[:, 0]
+    d[hit, ts[hit]] += b[s:s + PLAIN_ROWS][hit]
     return d
 
 
@@ -365,3 +374,83 @@ def fused_decode_ce_train(h: torch.Tensor, emb: torch.Tensor,
     h, emb and bias. The backward recomputes the score tiles from the
     forward's (max, sumexp) instead of keeping (M, V) logits."""
     return _FusedDecodeCETrain.apply(h, emb, bias, targets)
+
+
+# ------------------------------------------------ the vocabulary-sharded CE
+# Under tensor parallelism the tied table and its bias are split over the
+# tp ranks by vocabulary rows. Each rank runs rows 9-11 on its slice and
+# returns per-token partials (lse_k, t_k): the log-sum-exp over its words
+# and the target's logit, 0 where the target is on another rank's slice
+# (there the target is -1, which the kernels and their twins never hit).
+# The global CE is logsumexp_k(lse_k) - sum_k t_k; autograd of that merge
+# hands each rank its cotangents (d_lse, d_t), which the backward kernels
+# take as their (a, b) form, d = a p_local + b [v = t]. dE and db stay on
+# the rank; dh is summed over the ranks by the collectives' transposes.
+
+
+class _ShardLseT(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, h, emb, bias, targets):
+        emb_c = emb.to(h.dtype).contiguous()
+        ce, mx, se = ce_train_fwd(h, emb_c, bias, targets)
+        lse = torch.log(se) + mx
+        t = torch.where(targets >= 0, lse - ce, torch.zeros_like(lse))
+        ctx.save_for_backward(h, emb_c, bias, targets, mx, se)
+        ctx.emb_dtype = emb.dtype
+        return lse, t
+
+    @staticmethod
+    def backward(ctx, d_lse, d_t):
+        h, emb_c, bias, targets, mx, se = ctx.saved_tensors
+        a = d_lse.float().contiguous()
+        b = d_t.float().contiguous()
+        dh = ce_train_dh(h, emb_c, bias, targets, mx, se, a, b)
+        de, db = ce_train_de(h, emb_c, bias, targets, mx, se, a, b)
+        return dh.to(h.dtype), de.to(ctx.emb_dtype), db.to(bias.dtype), None
+
+
+def shard_lse_t(h: torch.Tensor, emb: torch.Tensor, bias: torch.Tensor,
+                targets: torch.Tensor):
+    """Per-token (lse, t) of one vocabulary shard, the JAX package's
+    ``_shard_lse_t``: h (M, D) in the compute dtype, emb (V_loc, D), bias
+    (V_loc,), targets (M,) shard-local, -1 where the target is on another
+    shard. lse = log sum over the shard's words of exp(score), t the
+    target's score (0 off the shard), both (M,) float32 and
+    differentiable; the backward runs rows 10-11 with a = d_lse, b =
+    d_t."""
+    return _ShardLseT.apply(h, emb, bias, targets)
+
+
+def local_targets(targets: torch.Tensor, shard: int,
+                  v_loc: int) -> torch.Tensor:
+    """Global targets as ids of vocabulary shard ``shard`` (rows [shard
+    v_loc, (shard + 1) v_loc)), -1 where they lie on another shard."""
+    t = targets.long() - shard * v_loc
+    return torch.where((t >= 0) & (t < v_loc), t, torch.full_like(t, -1))
+
+
+def merge_partials(lse_k: torch.Tensor, t_k: torch.Tensor) -> torch.Tensor:
+    """ce from the shards' stacked (tp, M) partials: logsumexp over the
+    shards of lse minus the sum of t."""
+    return torch.logsumexp(lse_k, dim=0) - t_k.sum(dim=0)
+
+
+def fused_decode_ce_train_spmd(h: torch.Tensor, emb: torch.Tensor,
+                               bias: torch.Tensor, targets: torch.Tensor,
+                               mesh) -> torch.Tensor:
+    """Differentiable per-token CE over a vocabulary split across the
+    mesh's tp ranks (the JAX package's ``fused_decode_ce_train_spmd``):
+    h (M, D), targets (M,) global ids, the same on every tp rank (this dp
+    shard's tokens); emb (V / tp, D) and bias (V / tp,) this rank's rows.
+    Returns the merged ce (M,), equal on every tp rank. The collectives'
+    transposes sum the tp ranks' cotangents, so each rank's loss must
+    cover only its own share of the tokens (as
+    ``parallel/train_parallel.py`` slices it), or the gradients come out
+    tp times too large."""
+    from ..parallel.mesh import gather
+
+    v_loc = emb.shape[0]
+    lse, t = shard_lse_t(h, emb, bias,
+                         local_targets(targets, mesh.tp_index, v_loc))
+    return merge_partials(gather(mesh, lse[None], "tp"),
+                          gather(mesh, t[None], "tp"))

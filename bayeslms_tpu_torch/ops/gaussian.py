@@ -25,6 +25,8 @@ from typing import Optional
 
 import torch
 
+from ..utils.rng import sample_stream
+
 
 def _eps(like: torch.Tensor, eps: Optional[torch.Tensor],
          generator: Optional[torch.Generator]) -> torch.Tensor:
@@ -33,8 +35,8 @@ def _eps(like: torch.Tensor, eps: Optional[torch.Tensor],
             raise ValueError(f"injected eps {tuple(eps.shape)} != "
                              f"{tuple(like.shape)}")
         return eps.to(device=like.device, dtype=like.dtype)
-    return torch.randn(like.shape, generator=generator, device=like.device,
-                       dtype=like.dtype)
+    return torch.randn(like.shape, generator=sample_stream(generator),
+                       device=like.device, dtype=like.dtype)
 
 
 def sample_gaussian(mean, lgstd, scale: float = 1.0, eps=None,

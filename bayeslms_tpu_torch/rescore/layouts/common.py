@@ -3,7 +3,9 @@
 its CE gather plan, the interpolated decoder's constants (``interp_m2``),
 the fused decoder CE over the gathered positions (``fused_ce_tokens``,
 interpolation-aware) with a sum per hypothesis, the Transformer's scores
-of one padded (T, B) batch, and the assembly of scores per utterance.
+of one padded (T, B) batch, the assembly of scores per utterance, and,
+under a dp mesh, each rank's block of the work and the gather of the
+ranks' scores (``dp_block``, ``local_chains``, ``gather_scores``).
 
 Interpolation with a second model of the same family takes the fused CE
 as in the JAX package: logit interpolation (``inter_flag`` 1) is one call
@@ -181,6 +183,35 @@ def tm_scores(s, data, tgt, mask):
     branch; the port always takes it)."""
     h = s.model(data, deterministic=True, return_hidden=True)
     return fused_scores(s.model, h, tgt, mask)
+
+
+def dp_block(s):
+    """(dp ranks, this rank's index among them): (1, 0) without a mesh.
+    The tp ranks of a mesh score their dp rank's block alike."""
+    m = s.mesh
+    return (1, 0) if m is None else (m.dp, m.dp_index)
+
+
+def local_chains(s, stream_keys):
+    """This rank's contiguous block of the carry-over chains: the chain
+    list padded with empty chains to a multiple of dp (so that a chain
+    never crosses ranks, as the JAX layouts pad), cut into dp blocks."""
+    dp, i = dp_block(s)
+    keys = list(stream_keys) + [[]] * (-len(stream_keys) % dp)
+    g = len(keys) // dp
+    return keys[i * g:(i + 1) * g]
+
+
+def gather_scores(s, scores: dict) -> dict:
+    """Every dp rank's {(utt, hyp): score}, merged on every rank."""
+    if dp_block(s)[0] == 1:
+        return scores
+    from ...parallel.mesh import gather_object
+
+    out = {}
+    for part in gather_object(s.mesh, scores, "dp"):
+        out.update(part)
+    return out
 
 
 def assemble(nbest, scores):

@@ -22,6 +22,12 @@
   source -1 (``lstm_cuda.apply_reset``; in kernel row 1, and row 3 for the
   GP-LSTM's standard layer, a -1 source reads zeros).
 
+Under a dp mesh each rank runs the same pass on its block: packed-carry
+on a contiguous block of the chains, packed-nocarry on a contiguous block
+of each device call's columns, each with a gather plan of its own; the
+ranks' scores are then gathered (the JAX ``install_steps`` shard_map
+bodies, ``layouts/steps.py``).
+
 Under interpolation both run the second model beside the first, on the
 same batch, from its own state of its own geometry (``nlayers``,
 ``nhid``, dtype), and score both models' states through one fused CE
@@ -127,7 +133,7 @@ def score_carry_packed(s, nbest, word2idx, stream_fn=None, enc_all=None):
     for k in nbest:
         label = stream_fn(k) if stream_fn else "_all"
         streams.setdefault(label, []).append(k)
-    stream_keys = list(streams.values())
+    stream_keys = common.local_chains(s, list(streams.values()))
     G = len(stream_keys)
     U_total = max((len(sk) for sk in stream_keys), default=0)
     cap = rc.max_hyp_len
@@ -178,7 +184,7 @@ def score_carry_packed(s, nbest, word2idx, stream_fn=None, enc_all=None):
         for (u, g), k in slot_key.items():
             for i in range(len(nbest[k])):
                 scores[(k, i)] = float(o[u, g, i])
-    return common.assemble(nbest, scores)
+    return common.assemble(nbest, common.gather_scores(s, scores))
 
 
 def tm_packed_impl(s, data, tgt, segs, positions, Bc: int, n_seg: int,
@@ -271,8 +277,16 @@ def score_packed_nocarry(s, nbest, word2idx, stream_fn=None, enc_all=None):
         fills[col] = [used + L, slot + 1]
         if r - L > 0:
             bisect.insort(rems, (r - L, col))
+    # a device call's columns, a multiple of dp; this rank's block of each
+    # call's columns is Bl wide
+    dp, r = common.dp_block(s)
     Bc = max(8, -(-rc.batch_size * 24 // T // 8) * 8)
-    C = -(-len(fills) // Bc) * Bc
+    Bc = -(-Bc // dp) * dp
+    Bl = Bc // dp
+    C = -(-len(fills) // Bc) * Bl
+    mine = [i for i in range(len(items)) if place[i][0] % Bc // Bl == r]
+    if not mine:
+        return common.assemble(nbest, common.gather_scores(s, {}))
     tm = s.cfg.is_transformer
     rows, t_offs = [], []
     if tm:
@@ -280,8 +294,10 @@ def score_packed_nocarry(s, nbest, word2idx, stream_fn=None, enc_all=None):
         pos = np.zeros((T, C), np.int64)
     else:
         reset = np.zeros((T, C), np.uint8)
-    for i, (_, _, x, y, nc) in enumerate(items):
+    for i in mine:
+        _, _, x, y, nc = items[i]
         col, off, slot = place[i]
+        col = col // Bc * Bl + col % Bl
         rows.append((col, x, y, nc))
         t_offs.append(off)
         if tm:
@@ -291,14 +307,14 @@ def score_packed_nocarry(s, nbest, word2idx, stream_fn=None, enc_all=None):
         elif off > 0:
             reset[off, col] = 1  # zero-state reset at the hypothesis's start
     data, tgt, mask, plan = common.build_rows(rows, T, C, t_offs,
-                                              range(len(items)))
+                                              range(len(mine)))
     to = lambda a: torch.from_numpy(a).to(s.device)  # noqa: E731
     if tm:
-        out = tm_packed_impl(s, to(data), to(tgt), to(segs), to(pos), Bc,
-                             len(items), [to(a) for a in plan])
+        out = tm_packed_impl(s, to(data), to(tgt), to(segs), to(pos), Bl,
+                             len(mine), [to(a) for a in plan])
     else:
-        out = rnn_packed_impl(s, to(data), to(tgt), to(mask), to(reset), Bc,
-                              len(items), [to(a) for a in plan])
+        out = rnn_packed_impl(s, to(data), to(tgt), to(mask), to(reset), Bl,
+                              len(mine), [to(a) for a in plan])
     out = out.cpu().numpy()
-    scores = {(k, i): float(out[n]) for n, (k, i, *_) in enumerate(items)}
-    return common.assemble(nbest, scores)
+    scores = {items[i][:2]: float(out[n]) for n, i in enumerate(mine)}
+    return common.assemble(nbest, common.gather_scores(s, scores))

@@ -14,6 +14,11 @@ one hypothesis a (bucketed T, column) slot.
   chain state broadcast over its N hypotheses; the chain carries its first
   hypothesis's state; one row-2 call a chunk of utterances.
 
+Under a dp mesh each rank scores its block, as the packed layouts do:
+``score_carry`` a contiguous block of the chains, ``score_bucketed`` a
+contiguous block of each row's columns; MC stays whole on every rank, as
+the JAX package keeps it unsharded.
+
 The registry takes them where the packed layouts' gates refuse: MC, and
 the opt-outs ``BAYESLM_PACKED_CARRY``, ``BAYESLM_PACKED_NOCARRY`` and
 ``BAYESLM_PACKED_TM`` set to ``0``, which let a check hold the packed
@@ -125,22 +130,33 @@ def score_bucketed(s, nbest, word2idx, stream_fn=None, enc_all=None):
     for it in items:
         by_bucket.setdefault(bucket_for(len(it[2]), buckets), []).append(it)
     to = lambda a: torch.from_numpy(a).to(s.device)  # noqa: E731
-    impl = mc_fused_impl if rc.mc_samples > 0 else bucket_chunk_impl
-    Bc = rc.batch_size
+    mc = rc.mc_samples > 0
+    impl = mc_fused_impl if mc else bucket_chunk_impl
+    # a row's columns, a multiple of dp; this rank's block of each row is
+    # Bl wide (MC: the whole row on every rank)
+    dp, r = (1, 0) if mc else common.dp_block(s)
+    Bc = -(-rc.batch_size // dp) * dp
+    Bl = Bc // dp
     pending = []
     for T, group in sorted(by_bucket.items()):
         R = -(-len(group) // Bc)
-        rows = [(i % Bc, it[2][:T], it[3][:T], it[4])
-                for i, it in enumerate(group)]
+        mine = [i for i in range(len(group)) if i % Bc // Bl == r]
+        if not mine:
+            continue
+        rows = [(i % Bl, group[i][2][:T], group[i][3][:T], group[i][4])
+                for i in mine]
         data, tgt, mask, plan = common.build_rows(
-            rows, R * T, Bc, [(i // Bc) * T for i in range(len(group))],
-            range(len(group)))
+            rows, R * T, Bl, [(i // Bc) * T for i in mine],
+            range(len(mine)))
         pending.append((impl(s, to(data), to(tgt), to(mask), R, T,
-                             len(group), [to(a) for a in plan]), group))
+                             len(mine), [to(a) for a in plan]),
+                        [group[i] for i in mine]))
     scores = {}
     for out, group in pending:
         for v, (key, hid, *_) in zip(out.cpu().tolist(), group):
             scores[(key, hid)] = v
+    if not mc:
+        scores = common.gather_scores(s, scores)
     return common.assemble(nbest, scores)
 
 
@@ -183,7 +199,7 @@ def score_carry(s, nbest, word2idx, stream_fn=None, enc_all=None):
     for k in nbest:
         label = stream_fn(k) if stream_fn else "_all"
         streams.setdefault(label, []).append(k)
-    stream_keys = list(streams.values())
+    stream_keys = common.local_chains(s, list(streams.values()))
     G = len(stream_keys)
     U_total = max((len(sk) for sk in stream_keys), default=0)
     dev = s.device
@@ -224,4 +240,4 @@ def score_carry(s, nbest, word2idx, stream_fn=None, enc_all=None):
         for (u, g), k in slot_key.items():
             for i in range(len(nbest[k])):
                 scores[(k, i)] = float(o[u, g, i])
-    return common.assemble(nbest, scores)
+    return common.assemble(nbest, common.gather_scores(s, scores))

@@ -34,7 +34,13 @@ that many posterior draws of a dropout-free twin of the model
 or by default the previous utterance's first hypothesis in its chain)
 before each hypothesis, scored as conditioning only.
 
-The scorer runs on one device. It refuses at construction, before any
+The scorer runs on one device, or with ``mesh`` (``parallel/mesh.py``)
+on the dp ranks of a ``torch.distributed`` group: every rank calls
+``score_nbest`` with the same N-best, runs the layout's one-device pass
+on its block (the chains of packed-carry and slotted-carry, the columns of
+packed-nocarry and slotted-bucketed; MC and XL stay whole on every rank,
+as in the JAX package) and returns all the scores, gathered in the order
+of the one-device pass. It refuses at construction, before any
 device work, with ``ValueError``: a second model of the other family, of
 another vocabulary, or missing under interpolation; MC with interpolation
 (the JAX package scores the first model alone there) or with carry-over
@@ -63,7 +69,7 @@ from .nbest import encode_all_native, encode_hyp
 class BatchScorer:
     def __init__(self, cfg: ModelConfig, params, rcfg: RescoreConfig,
                  cfg2: Optional[ModelConfig] = None, params2=None,
-                 device=None):
+                 device=None, mesh=None):
         """``params``: the JAX package's parameter tree (nested dicts of
         arrays, see core/checkpoint.py). ``cfg2``/``params2``: the second
         model of ``inter_flag`` 1 or 2 (``cfg2`` None: ``cfg``'s
@@ -71,7 +77,10 @@ class BatchScorer:
         which must be present (no CPU fallback). ``mc_noise``, None after
         construction, may be set to a callable (T, row, draw) -> eps list
         that MC scoring hands the model in place of its own draws
-        (``layouts/slotted.py``)."""
+        (``layouts/slotted.py``). ``mesh``: score on its dp ranks, on its
+        device (the JAX scorer's ``mesh``; its dp axis is read)."""
+        if mesh is not None:
+            device = mesh.device
         device = torch.device("cuda" if device is None else device)
         self.interp = rcfg.inter_flag
         self.cfg2 = cfg2 or cfg
@@ -84,6 +93,7 @@ class BatchScorer:
         self.cfg = cfg
         self.rcfg = rcfg
         self.device = device
+        self.mesh = mesh
         # MC draws posterior samples but applies no dropout: its model is
         # the dropout-free twin (the deterministic paths read no dropout)
         mcfg = dataclasses.replace(cfg, dropout=0.0) if rcfg.mc_samples \

@@ -51,6 +51,17 @@ its attention through ``attention_cuda``) and the decoder's logits and CE
 as plain PyTorch, as the JAX package leaves them to XLA there. Entry
 points run on the card; ``device="cpu"`` (tests) runs every kernel's
 plain twin.
+
+With a mesh (``mesh=``, or ``dp_shards`` > 1, which lays the joined
+process group out as dp ranks) every rank runs the step of
+``parallel/train_parallel.py`` on its columns of each window: the dp step,
+or the tensor-parallel step where tp > 1 (the vocabulary split over tp).
+The batchified stream is the whole one on every rank, which keeps its own
+columns' LSTM state. ``evaluate`` gives the one-device value on every rank
+(under tp on the table gathered whole); rank 0 alone logs and writes the
+checkpoint and ``.resume``, with the vocabulary shards gathered, and a
+resume cuts them again. The ``.resume`` file then also holds every rank's
+dropout stream.
 """
 
 from __future__ import annotations
@@ -74,7 +85,11 @@ from ..core.registry import build_model, init_params
 from ..data.corpus import apply_data_fraction, batchify, get_batch, windows
 from ..models.lstm_lm import init_hidden
 from ..ops.ce_train_cuda import fused_decode_ce_train
+from ..parallel import train_parallel
+from ..parallel.mesh import barrier, broadcast, gather_object
+from ..parallel.multihost import is_primary
 from ..utils.profiling import StepTimer, trace
+from ..utils.rng import Streams
 from .optim import OptState, init_opt_state, sgd_momentum_step
 
 
@@ -95,9 +110,18 @@ class TrainerState:
 
 class Trainer:
     def __init__(self, model_cfg: ModelConfig, train_cfg: TrainConfig,
-                 device=None):
+                 device=None, mesh=None):
         """``device``: where the model trains; None means ``cuda``, which
-        must be present (no CPU fallback)."""
+        must be present (no CPU fallback). ``mesh`` (``parallel/mesh.py``):
+        train on its ranks, on its device; ``train_cfg.dp_shards`` > 1
+        without one builds a dp mesh of the joined process group."""
+        if mesh is None and train_cfg.dp_shards > 1:
+            from ..parallel.mesh import make_mesh
+
+            mesh = make_mesh(dp=train_cfg.dp_shards, tp=1, device=device)
+        if mesh is not None:
+            device = mesh.device
+            train_parallel.check(model_cfg, train_cfg, mesh.dp, mesh.tp)
         device = torch.device("cuda" if device is None else device)
         if device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(
@@ -107,9 +131,15 @@ class Trainer:
         self.tcfg = train_cfg.validate()
         self.device = device
         self.is_tm = model_cfg.is_transformer
+        self.mesh = mesh
         # dropout masks and the Bayesian draws; the JAX package's rng_impl
-        # has no counterpart here
+        # has no counterpart here. Under a mesh ``gen`` gives the draws,
+        # the same on every rank, and each rank drops from its own stream
         self.gen = torch.Generator(device=device).manual_seed(train_cfg.seed)
+        self.streams = self.gen if mesh is None else Streams(
+            torch.Generator(device=device).manual_seed(
+                train_parallel.dropout_seed(train_cfg.seed, mesh.rank)),
+            self.gen)
         # prior means for the KL (prior_kl), on the device, set by
         # init_state: (weight_hh_mean_1, weight_ih_mean_1) for the Bayesian
         # LSTM, the weight_mean at ``bayes_site`` for a Bayesian FFN or MHA
@@ -126,9 +156,12 @@ class Trainer:
             prior = load_params(tcfg.prior_path, self.mcfg)
             tree, updated = partial_update(tree, prior)
             params_from_jax(model, tree)
-            print(f"prior init: updated {len(updated)} param tensors")
+            if self._primary():
+                print(f"prior init: updated {len(updated)} param tensors")
             if tcfg.prior_kl:
                 self.prior_w = self._prior_means(model, prior)
+        if self.mesh is not None:
+            train_parallel.shard_model(model, self.mesh)
         model.to(self.device)
         return TrainerState(model=model,
                             opt_state=init_opt_state(dict(model.named_parameters())),
@@ -177,13 +210,39 @@ class Trainer:
         ``transformer_lm.TransformerDropoutMasks``) replaces the masks drawn
         from the trainer's generator, ``noise`` the Bayesian draws (see
         ``BayesLSTMCore``, ``TransformerLM``). Returns (new hidden, detached,
-        or None; loss, mle, kl, gnorm as device scalars)."""
-        model = state.model
+        or None; loss, mle, kl, gnorm as device scalars).
+
+        Under a mesh ``data``, ``target``, ``mask`` and ``dropout_masks``
+        are the whole batch's, cut to this rank's columns by the step of
+        ``parallel/train_parallel.py``; ``hidden`` is this rank's state
+        (``local_batch`` columns), and the returned values are the mesh's
+        averages."""
+        if self.mesh is not None:
+            return train_parallel.train_step(self, state, hidden, data,
+                                             target, kl_scale, mask,
+                                             dropout_masks, noise)
         params = state.params
         for p in params.values():
             p.grad = None
-        kw = dict(return_hidden=True, deterministic=False, generator=self.gen,
-                  dropout_masks=dropout_masks, noise=noise)
+        mle, kl, new_hidden = self._loss(state.model, hidden, data, target,
+                                         kl_scale, mask, dropout_masks,
+                                         noise)
+        loss = mle + kl
+        loss.backward()
+        _, gnorm = sgd_momentum_step(params, self._grads(params),
+                                     state.opt_state, state.lr,
+                                     self.tcfg.clip, self.tcfg.momentum)
+        if new_hidden is not None:
+            new_hidden = (new_hidden[0].detach(), new_hidden[1].detach())
+        return new_hidden, loss.detach(), mle.detach(), kl.detach(), gnorm
+
+    def _loss(self, model, hidden, data, target, kl_scale, mask,
+              dropout_masks, noise):
+        """The step's forward on one device's (or one rank's) columns:
+        (mle, kl term, new hidden)."""
+        kw = dict(return_hidden=True, deterministic=False,
+                  generator=self.streams, dropout_masks=dropout_masks,
+                  noise=noise)
         if self.is_tm:
             out, new_hidden = model(data, **kw), None
         else:
@@ -201,18 +260,24 @@ class Trainer:
             mle = ce.mean()
         else:
             mle = (ce * mask).sum() / mask.sum().clamp(min=1)
-        kl = self._kl(model) * kl_scale
-        loss = mle + kl
-        loss.backward()
-        # a parameter the loss does not reach (the GP cell's bias_hh, as
-        # in the reference) has a zero gradient, as in JAX
-        grads = {k: torch.zeros_like(p) if p.grad is None else p.grad
-                 for k, p in params.items()}
-        _, gnorm = sgd_momentum_step(params, grads, state.opt_state, state.lr,
-                                     self.tcfg.clip, self.tcfg.momentum)
-        if new_hidden is not None:
-            new_hidden = (new_hidden[0].detach(), new_hidden[1].detach())
-        return new_hidden, loss.detach(), mle.detach(), kl.detach(), gnorm
+        return mle, self._kl(model) * kl_scale, new_hidden
+
+    @staticmethod
+    def _grads(params):
+        """Each parameter's gradient; one the loss does not reach (the GP
+        cell's bias_hh, as in the reference) is zero, as in JAX."""
+        return {k: torch.zeros_like(p) if p.grad is None else p.grad
+                for k, p in params.items()}
+
+    def local_batch(self, batch: int) -> int:
+        """The columns of a ``batch``-column window this rank trains."""
+        if self.mesh is None:
+            return batch
+        return batch // self.mesh.size(
+            train_parallel.columns_axis(self.mesh))
+
+    def _primary(self) -> bool:
+        return self.mesh is None or is_primary()
 
     # ------------------------------------------------------------------ epoch
     def run_epoch(self, state: TrainerState, train_rows: np.ndarray,
@@ -225,7 +290,8 @@ class Trainer:
                                           drop_ragged=False)
         kl_scale = tcfg.seq_len / train_rows.shape[0]
         hidden = None if self.is_tm else init_hidden(
-            cfg.nlayers, train_rows.shape[1], cfg.nhid, device=self.device)
+            cfg.nlayers, self.local_batch(train_rows.shape[1]), cfg.nhid,
+            device=self.device)
         data_all = torch.from_numpy(data_all).long().to(self.device)
         tgt_all = torch.from_numpy(tgt_all).long().to(self.device)
         n = data_all.shape[0]
@@ -299,10 +365,40 @@ class Trainer:
         return float(total) / (bsz * (rows.shape[0] - 1))
 
     # ------------------------------------------------------------------ fit
+    def _tree(self, state: TrainerState) -> dict:
+        """The parameter tree whole (under tp the vocabulary shards
+        gathered: every rank calls it)."""
+        if self.mesh is None or self.mesh.tp == 1:
+            return params_to_jax(state.model)
+        return _unflatten({tuple(k.split(".")): train_parallel.full_leaf(
+            self.mesh, k, p).cpu().numpy() for k, p in state.params.items()})
+
+    def eval_model(self, state: TrainerState) -> torch.nn.Module:
+        """The model ``evaluate`` reads: the trained one, or under tp a
+        whole copy of it (every rank calls it)."""
+        if self.mesh is None or self.mesh.tp == 1:
+            return state.model
+        return params_from_jax(build_model(self.mcfg),
+                               self._tree(state)).to(self.device)
+
+    def _load_tree(self, model, tree) -> None:
+        """A whole parameter tree into ``model`` (this rank's rows of the
+        vocabulary leaves under tp)."""
+        if self.mesh is not None:
+            tree = train_parallel.shard_tree(tree, self.mesh)
+        params_from_jax(model, tree)
+
     def _reload_best(self, state: TrainerState) -> None:
         """The best checkpoint's parameters into the model: the port's own,
         or, in a run resumed from the JAX trainer's files, the JAX one."""
-        params_from_jax(state.model, load_params(self.tcfg.save, self.mcfg))
+        self._load_tree(state.model, load_params(self.tcfg.save, self.mcfg))
+
+    def _save(self, path: str, tree: dict, meta: dict) -> None:
+        """Rank 0 writes; every rank waits for the file."""
+        if self._primary():
+            save_checkpoint(path, tree, meta=meta)
+        if self.mesh is not None:
+            barrier(self.mesh)
 
     # ---------------------------------------------------------------- resume
     def _save_resume(self, state: TrainerState) -> None:
@@ -310,16 +406,25 @@ class Trainer:
         tree of the same shape, as the JAX package writes them), the state
         of the trainer's generator and the schedule, so that a run stopped
         after an epoch and resumed draws the same dropout masks and
-        Bayesian seeds as the run that went on."""
-        momentum = _unflatten({tuple(k.split(".")): v for k, v in
-                               state.opt_state.momentum.items()})
-        save_checkpoint(
-            self.tcfg.save + ".resume",
-            {"params": params_to_jax(state.model), "momentum": momentum,
-             "generator": self.gen.get_state()},
-            meta={"epoch": state.epoch, "lr": state.lr,
-                  "best_val_loss": state.best_val_loss,
-                  "plateaus": state.plateaus})
+        Bayesian seeds as the run that went on. Under a mesh the trees are
+        whole and every rank's dropout stream is there too."""
+        mom = state.opt_state.momentum
+        if self.mesh is not None:
+            mom = {k: train_parallel.full_leaf(self.mesh, k, v)
+                   for k, v in mom.items()}
+        blob = {"params": self._tree(state),
+                "momentum": _unflatten({tuple(k.split(".")): v
+                                        for k, v in mom.items()}),
+                "generator": self.gen.get_state()}
+        if self.mesh is not None:
+            states = gather_object(self.mesh,
+                                   self.streams.dropout.get_state())
+            blob["dropout_generators"] = {str(r): g
+                                          for r, g in enumerate(states)}
+        self._save(self.tcfg.save + ".resume", blob,
+                   {"epoch": state.epoch, "lr": state.lr,
+                    "best_val_loss": state.best_val_loss,
+                    "plateaus": state.plateaus})
 
     def _try_resume(self) -> Optional[TrainerState]:
         """The state of ``<save>.resume`` when ``resume`` is set and the
@@ -327,16 +432,23 @@ class Trainer:
         JAX trainer's (flax msgpack and its ``.json`` sidecar; told apart
         by ``load_params``). The JAX file holds no generator state: the
         trainer's generator then goes on from ``seed``, and the masks of
-        the resumed epochs differ from those JAX draws."""
+        the resumed epochs differ from those JAX draws. A rank's dropout
+        stream goes on from the file where it holds one for every rank of
+        the mesh, else from its seed."""
         path = self.tcfg.save + ".resume"
         if not (self.tcfg.resume and os.path.exists(path)):
             return None
         blob, meta = load_params(path, self.mcfg, with_meta=True)
         model = build_model(self.mcfg)
-        params_from_jax(model, blob["params"])
+        if self.mesh is not None:
+            train_parallel.shard_model(model, self.mesh)
+        self._load_tree(model, blob["params"])
         model.to(self.device)
         params = dict(model.named_parameters())
-        flat = {".".join(k): v for k, v in _flatten(blob["momentum"]).items()}
+        momentum = blob["momentum"]
+        if self.mesh is not None:
+            momentum = train_parallel.shard_tree(momentum, self.mesh)
+        flat = {".".join(k): v for k, v in _flatten(momentum).items()}
         if set(flat) != set(params):
             raise KeyError(f"{path}: the momentum tree differs from the "
                            "model's parameters")
@@ -344,8 +456,11 @@ class Trainer:
                                        dtype=p.dtype).to(self.device)
                     for k, p in params.items()}
         if "generator" in blob:
-            self.gen.set_state(torch.from_numpy(
-                np.array(blob["generator"], dtype=np.uint8)))
+            self.gen.set_state(_byte_state(blob["generator"]))
+        drops = blob.get("dropout_generators", {})
+        if self.mesh is not None and len(drops) == self.mesh.size("all"):
+            self.streams.dropout.set_state(
+                _byte_state(drops[str(self.mesh.rank)]))
         tcfg = self.tcfg
         if tcfg.prior and tcfg.prior_path and tcfg.prior_kl:
             self.prior_w = self._prior_means(
@@ -357,13 +472,27 @@ class Trainer:
             best_val_loss=None if best is None else float(best),
             plateaus=int(meta["plateaus"]), epoch=int(meta["epoch"]))
 
+    def _evaluate(self, state: TrainerState, rows: np.ndarray) -> float:
+        """``evaluate`` of the trained model; under a mesh rank 0's value on
+        every rank, so that every rank takes the same schedule."""
+        loss = self.evaluate(self.eval_model(state), rows)
+        if self.mesh is None:
+            return loss
+        t = torch.tensor([loss], dtype=torch.float64, device=self.device)
+        return float(broadcast(self.mesh, t)[0])
+
     def fit(self, corpus, log=print, on_step: Optional[Callable] = None):
         """Train on ``corpus`` (``data.corpus.Corpus`` or anything with
         ``train``, ``valid`` and ``test`` id streams), from ``<save>.resume``
         when ``resume`` is set and it is there. Returns (state,
         {"history": [{"epoch", "val_loss", "lr"}], "test_loss"}); the
-        history of a resumed run holds its own epochs."""
+        history of a resumed run holds its own epochs. Under a mesh every
+        rank calls it; rank 0 alone logs, traces (``profile_dir``) and
+        writes the files."""
         tcfg = self.tcfg
+        primary = self._primary()
+        if not primary:
+            log = _quiet
         train_rows = batchify(apply_data_fraction(corpus.train,
                                                   tcfg.data_fraction),
                               tcfg.batch_size)
@@ -378,13 +507,13 @@ class Trainer:
         for epoch in range(start_epoch, tcfg.epochs + 1):
             state.epoch = epoch
             t0 = time.time()
-            if tcfg.profile_dir and epoch == start_epoch:
+            if tcfg.profile_dir and epoch == start_epoch and primary:
                 # the first trained epoch, traced
                 with trace(tcfg.profile_dir):
                     state = self.run_epoch(state, train_rows, log, on_step)
             else:
                 state = self.run_epoch(state, train_rows, log, on_step)
-            val_loss = self.evaluate(state.model, val_rows)
+            val_loss = self._evaluate(state, val_rows)
             log("-" * 89)
             log(f"| end of epoch {epoch:3d} | time: {time.time() - t0:5.2f}s "
                 f"| valid loss {val_loss:5.2f} | valid ppl "
@@ -393,10 +522,9 @@ class Trainer:
             history.append({"epoch": epoch, "val_loss": val_loss,
                             "lr": state.lr})
             if state.best_val_loss is None or val_loss < state.best_val_loss:
-                save_checkpoint(
-                    tcfg.save, params_to_jax(state.model),
-                    meta={"epoch": epoch, "val_loss": val_loss,
-                          "model_config": dataclasses.asdict(self.mcfg)})
+                self._save(tcfg.save, self._tree(state),
+                           {"epoch": epoch, "val_loss": val_loss,
+                            "model_config": dataclasses.asdict(self.mcfg)})
                 state.best_val_loss = val_loss
             else:
                 # plateau: halve the LR, reload the best parameters, fresh
@@ -410,10 +538,18 @@ class Trainer:
             if state.plateaus >= tcfg.max_plateaus:
                 break
         self._reload_best(state)
-        test_loss = self.evaluate(state.model, test_rows)
+        test_loss = self._evaluate(state, test_rows)
         log("=" * 89)
         log(f"| End of training | test loss {test_loss:5.2f} | test ppl "
             f"{math.exp(min(test_loss, 30)):8.2f}")
         log("=" * 89)
         return state, {"history": history, "test_loss": test_loss}
 
+
+def _quiet(*args, **kwargs) -> None:
+    """The log of a rank other than 0."""
+
+
+def _byte_state(a) -> torch.Tensor:
+    """A generator state saved as an array, as ``set_state`` takes it."""
+    return torch.from_numpy(np.array(a, dtype=np.uint8))

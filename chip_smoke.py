@@ -167,7 +167,16 @@ supernet at the bench's width, the Transformer supernet at the recipe's,
 first and second order: each step's arch gradient against float64 on the
 card, the implicit term dropped as a planted fault; step times, peak
 memory); after it, ``train --resume --profile`` and ``search
---unrolled`` as subprocesses. Every phase prints its result and seconds; any
+--unrolled`` as subprocesses. After the training half of the main path, the
+multi-device paths (``parallel_phases``): two gloo ranks sharing the card,
+every collective staged through the host, run the dp step (dp 2, two steps
+against two one-device steps on the whole batch with the same dropout masks
+cut by column), the tp step (tp 2, the vocabulary split in two: the loss
+and every gradient against the one-device step, rows 9-11 against their
+twins on a shard with off-shard targets, the shards' gradients left
+undivided as a planted fault) and a dp packed-carry pass of the N-best
+against the one-device pass; each rank's launches, step times and the
+share of a traced step in collectives. Every phase prints its result and seconds; any
 failure exits non-zero before the result lines. The last two lines are a
 JSON object per kernel (the 2-layer scoring recurrence at the pass's, at
 the ``evaluate`` and at the no-carry call, each with its design and the
@@ -183,6 +192,7 @@ device line.
 """
 
 import contextlib
+import dataclasses
 import json
 import os
 import subprocess
@@ -6447,6 +6457,394 @@ def slice_cli_phases(torch, kernels, smi, cfg, corpus, root):
             raise AssertionError("cli search failed (or launched a kernel)")
 
 
+# ------------------------------------------------------ multi-device
+# Data- and tensor-parallel training and dp-sharded scoring over
+# torch.distributed (bayeslms_tpu_torch/parallel/). The machine has one
+# card, and NCCL takes one rank a card, so two gloo ranks share cuda:0;
+# every collective then stages through the host (parallel/mesh.py). That
+# checks the paths and their kernels at the bench's width; it measures no
+# NVLink scaling.
+PAR_RANKS = 2
+PAR_SEED = 5  # the init of the dp and tp trainers and their reference
+PAR_TIMED = 3  # steps timed after the checked ones
+PAR_TIMEOUT = 300.0
+# The ranks' losses against the one-device step's: STEP_LOSS_ATOL +
+# STEP_LOSS_RTOL |one device| (the Transformer step's rule), since each
+# rank's cuBLAS products (x W_ih^T, the dW GEMMs) run at half the batch and
+# may round to bf16 otherwise than the one-device call's.
+
+
+def _par_reset(st, p0):
+    """The trainer state back to the parameters ``p0``, momentum zero."""
+    for k, p in st.params.items():
+        p.data.copy_(p0[k])
+        st.opt_state.momentum[k].zero_()
+
+
+def _par_sync(torch, dev):
+    """Wait for the card (nothing to wait for in a CPU rehearsal)."""
+    if torch.device(dev).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def _par_timed(torch, fn, n, dev):
+    """Host ms of ``n`` calls of ``fn`` each ended by a synchronise."""
+    out = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        fn()
+        _par_sync(torch, dev)
+        out.append((time.perf_counter() - t0) * 1e3)
+    return out
+
+
+def _par_traced(torch, tmpdir, fn, traced, dev):
+    """(step ms, ms in the mesh's collectives) of one call of ``fn``, under
+    ``utils/profiling.py`` ``trace`` where ``traced`` (one rank), else
+    untraced (the other ranks, which take part in the collectives)."""
+    from bayeslms_tpu_torch.utils.profiling import trace
+
+    ctx = trace(tmpdir) if traced else contextlib.nullcontext()
+    with ctx as prof:
+        t0 = time.perf_counter()
+        fn()
+        _par_sync(torch, dev)
+        ms = (time.perf_counter() - t0) * 1e3
+    if not traced:
+        return ms, None
+    coll = sum(ev.cpu_time_total for ev in prof.key_averages()
+               if ev.key.startswith("mesh.")) / 1e3
+    return ms, coll
+
+
+def _par_shard_checks(torch, recorded, dev):
+    """Rows 9-11 against their twins on the calls one tp step handed them
+    (this rank's vocabulary rows, off-shard targets -1), with the planted
+    fault (targets shifted), timed beside the twin, with the bound at the
+    shard's shape. Returns {kernel: reading}."""
+    from bayeslms_tpu_torch.ops import ce_train_cuda as ctc
+
+    out = {}
+    for name in CE_TRAIN:
+        args = recorded[name][0]
+        M, D = args[0].shape
+        V = args[1].shape[0]
+        spec = ce_train_specs(ctc, M, V, D)[name]
+        rtol, share = TRAIN_TOL[name]
+        kernel = getattr(ctc, name)
+
+        def as_dict(o):
+            return dict(zip(spec["outs"], o if isinstance(o, tuple)
+                            else (o,)))
+        with torch.no_grad():
+            ref = as_dict(spec["plain"](*args))
+            got = as_dict(kernel(*args))
+            _par_sync(torch, dev)
+            err, worst = check_outputs(f"{name} (tp shard)", got, ref, rtol,
+                                       share)
+            bad = list(args)
+            bad[3] = torch.roll(args[3], 1)
+            fault = fault_share(as_dict(kernel(*bad)), ref, rtol, share)
+            if torch.device(dev).type == "cuda":
+                ms = cuda_ms(torch, lambda: kernel(*args), 5)
+                plain_ms = cuda_ms(torch, lambda: spec["plain"](*args), 3)
+            else:
+                ms = plain_ms = float(np.median(_par_timed(
+                    torch, lambda: kernel(*args), 3, dev)))
+        bms, bby = bound_ms(spec["flops"], spec["nbytes"])
+        off = int((args[3] < 0).sum())
+        print(f"  {name} (tp shard, M={M} V={V} D={D}, {off} of {M} "
+              f"targets off the shard): worst share {worst:.3f}, planted "
+              f"fault 'targets shifted' {fault:.1f}; kernel {ms:.3f} ms, "
+              f"plain {plain_ms:.3f} ms, bound {bms:.3f} ms ({bby})")
+        out[name] = dict(M=M, V=V, D=D, off_shard=off, max_abs_err=err,
+                         worst_share=worst, fault_share=fault, ms=ms,
+                         plain_ms=plain_ms, bound_ms=bms, bound_by=bby)
+        del ref, got, bad
+    return out
+
+
+def parallel_rank(p):
+    """One of the gloo ranks of ``parallel_phases``, on cuda:0: the dp
+    step (dp 2) twice on the payload's windows and masks, the tp step (tp
+    2, V / 2 rows a rank) once, the same tp step with the vocabulary
+    shards' gradients left undivided (the planted fault), and one
+    packed-carry pass of the bench's N-best on a dp 2 mesh; each run's
+    kernel launches counted from 0. Rank 0 holds the runs against the
+    one-device references the payload names and checks rows 9-11 on its
+    shard. Returns the readings."""
+    import torch
+
+    from bayeslms_tpu_torch import (ModelConfig, RescoreConfig, TrainConfig,
+                                    build_model, init_params)
+    from bayeslms_tpu_torch.models.lstm_lm import DropoutMasks, init_hidden
+    from bayeslms_tpu_torch.ops import ce_cuda
+    from bayeslms_tpu_torch.ops import ce_train_cuda as ctc
+    from bayeslms_tpu_torch.ops import lstm_cuda
+    from bayeslms_tpu_torch.ops import lstm_train_cuda as ltc
+    from bayeslms_tpu_torch.parallel import train_parallel as tpar
+    from bayeslms_tpu_torch.parallel.mesh import barrier, make_mesh
+    from bayeslms_tpu_torch.rescore.scorer import BatchScorer
+    from bayeslms_tpu_torch.train.loop import Trainer
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device(p["device"])
+    rank = torch.distributed.get_rank()
+    cfg, tcfg = ModelConfig(**p["cfg"]), TrainConfig(**p["tcfg"])
+    data = [torch.from_numpy(x).long().to(dev) for x in p["data"]]
+    target = [torch.from_numpy(x).long().to(dev) for x in p["target"]]
+    masks = [DropoutMasks(*(None if m is None else torch.from_numpy(m).to(dev)
+                            for m in ms)) for ms in p["masks"]]
+    B, H = data[0].shape[1], cfg.nhid
+    out = {"rank": rank}
+
+    def launches():
+        return {**ltc.launches, **ctc.launches}
+
+    def grad_shares(st, mesh, ref):
+        grads = {k: tpar.full_leaf(mesh, k, q.grad)
+                 for k, q in st.params.items()}
+        if rank != 0:
+            return None
+        return {k: max_err(grads[k], g.to(dev))
+                / (STEP_GRAD_SHARE * float(g.abs().max()) + 1e-30)
+                for k, g in ref.items()}
+
+    # dp train
+    dp = make_mesh(dp=PAR_RANKS, tp=1, device=dev)
+    tr = Trainer(cfg, tcfg, mesh=dp)
+    st = tr.init_state(seed=PAR_SEED)
+    p0 = {k: q.detach().clone() for k, q in st.params.items()}
+    h = init_hidden(2, tr.local_batch(B), H, device=dev)
+    zero_launches(ltc, ctc)
+    stats = []
+    for k in range(2):
+        h, loss, _, _, gn = tr.train_step(st, h, data[k], target[k], 0.0,
+                                          dropout_masks=masks[k])
+        stats.append((float(loss), float(gn)))
+    _par_sync(torch, dev)
+    out["dp_launches"] = launches()
+    out["dp_stats"] = stats
+    if rank == 0:
+        ref = torch.load(p["dp_ref"], map_location=dev)
+        out["dp_shares"] = {
+            k: max_err(st.params[k] - p0[k], d)
+            / (STEP_GRAD_SHARE * float(d.abs().max()) + 1e-30)
+            for k, d in ref["delta"].items()}
+        del ref
+
+    def dp_step():
+        tr.train_step(st, init_hidden(2, tr.local_batch(B), H, device=dev),
+                      data[0], target[0], 0.0, dropout_masks=masks[0])
+    out["dp_ms"] = _par_timed(torch, dp_step, PAR_TIMED, dev)
+    out["dp_traced"] = _par_traced(torch, p["trace_dir"], dp_step,
+                                   rank == 0, dev)
+
+    # tp train: one step from the same init, rows 9-11 recorded
+    tp = make_mesh(dp=1, tp=PAR_RANKS, device=dev)
+    tr = Trainer(cfg, tcfg, mesh=tp)
+    st = tr.init_state(seed=PAR_SEED)
+    p0 = {k: q.detach().clone() for k, q in st.params.items()}
+    h = init_hidden(2, tr.local_batch(B), H, device=dev)
+    recorded = {}
+    zero_launches(ltc, ctc)
+    with contextlib.ExitStack() as stack:
+        for patch in recording(ctc, CE_TRAIN, recorded):
+            stack.enter_context(patch)
+        _, loss, _, _, gn = tr.train_step(st, h, data[0], target[0], 0.0,
+                                          dropout_masks=masks[0])
+    _par_sync(torch, dev)
+    out["tp_launches"] = launches()
+    out["tp_stats"] = (float(loss), float(gn))
+    ref = torch.load(p["tp_ref"], map_location="cpu") if rank == 0 else None
+    out["tp_shares"] = grad_shares(st, tp, ref and ref["grads"])
+
+    # the planted fault: the vocabulary shards' gradients left undivided
+    real = tpar.reduce_grads
+
+    def undivided(mesh, grads):
+        gnorm = real(mesh, grads)
+        for k in tpar.VOCAB_LEAVES:
+            grads[k].mul_(mesh.tp)
+        return gnorm
+
+    _par_reset(st, p0)
+    with mock.patch.object(tpar, "reduce_grads", undivided):
+        tr.train_step(st, h, data[0], target[0], 0.0,
+                      dropout_masks=masks[0])
+    shares = grad_shares(st, tp, ref and ref["grads"])
+    out["tp_fault_shares"] = shares
+    del ref
+    if rank == 0:
+        out["shard"] = _par_shard_checks(torch, recorded, dev)
+    del recorded
+    barrier(tp)
+
+    def tp_step():
+        tr.train_step(st, h, data[0], target[0], 0.0, dropout_masks=masks[0])
+    out["tp_ms"] = _par_timed(torch, tp_step, PAR_TIMED, dev)
+    out["tp_traced"] = _par_traced(torch, p["trace_dir"], tp_step,
+                                   rank == 0, dev)
+    del tr, st, p0
+
+    # dp score: one packed-carry pass of the bench's N-best
+    scfg = ModelConfig(**p["score_cfg"])
+    scorer = BatchScorer(scfg, init_params(build_model(scfg), scfg, seed=0),
+                         RescoreConfig(**p["rcfg"]), mesh=dp)
+    scorer.score_nbest(p["nbest"], p["w2i"], stream_fn=stream_of)
+    _par_sync(torch, dev)
+    zero_launches(lstm_cuda, ce_cuda)
+    t0 = time.perf_counter()
+    res = scorer.score_nbest(p["nbest"], p["w2i"], stream_fn=stream_of)
+    _par_sync(torch, dev)
+    out["score_s"] = time.perf_counter() - t0
+    out["score_launches"] = {"lstm2_fwd": lstm_cuda.launches,
+                             "ce_fwd": ce_cuda.launches}
+    if rank == 0:
+        out["scores"] = [s for pairs in res.values() for _, s in pairs]
+    return out
+
+
+def parallel_phases(torch, kernels, smi, cfg, rcfg, corpus_dir, w2i, nbest,
+                    scores, device="cuda:0"):
+    """The multi-device paths at the bench's width on two gloo ranks that
+    share cuda:0 (``parallel_rank``), against the one-device path: the dp
+    step (two steps, the same dropout masks cut by column: parameters and
+    losses against two one-device steps on the whole batch), the tp step
+    (the vocabulary split in two: the loss and every gradient against the
+    one-device step; rows 9-11 against their twins on a shard with real
+    off-shard targets; the planted fault, the shards' gradients left
+    undivided, must land outside the tolerance), and the dp packed-carry
+    pass of the N-best (its scores within SCORE_ATOL of the one-device
+    pass's ``scores``). Every rank's run launches each of its kernels;
+    the counts go under ``launches_by_run``, the shard's row 9-11 readings
+    under ``tp_shard``. Step times per rank beside the one-device step's,
+    and the share of a traced step in collectives. Raises on any failed
+    check. ``device``: the card (a rehearsal on the CPU passes "cpu")."""
+    from bayeslms_tpu_torch import TrainConfig
+    from bayeslms_tpu_torch.data.corpus import Corpus, batchify
+    from bayeslms_tpu_torch.models.lstm_lm import (draw_dropout_masks,
+                                                   init_hidden)
+    from bayeslms_tpu_torch.parallel.multihost import spawn
+    from bayeslms_tpu_torch.train.loop import Trainer
+
+    B, T, H = TRAIN_BATCH, TRAIN_SEQ, cfg.nhid
+    tcfg = TrainConfig(lr=5.0, momentum=0.9, clip=1.0, batch_size=B,
+                       seq_len=T)
+    tmp = tempfile.mkdtemp(dir=corpus_dir)
+    with phase("parallel setup (one-device references)"):
+        rows = batchify(Corpus(corpus_dir).train, B)
+        data = [rows[k * T:(k + 1) * T] for k in range(2)]
+        target = [rows[k * T + 1:(k + 1) * T + 1] for k in range(2)]
+        gen = torch.Generator(device=device).manual_seed(23)
+        masks = [draw_dropout_masks(cfg, T, B, gen, device) for _ in range(2)]
+        dev = [(torch.from_numpy(d).long().to(device),
+                torch.from_numpy(t).long().to(device))
+               for d, t in zip(data, target)]
+        tr = Trainer(cfg, tcfg, device=device)
+        st = tr.init_state(seed=PAR_SEED)
+        p0 = {k: q.detach().clone() for k, q in st.params.items()}
+        h = init_hidden(2, B, H, device=device)
+        stats = []
+        for k in range(2):
+            h, loss, _, _, gn = tr.train_step(st, h, *dev[k], 0.0,
+                                              dropout_masks=masks[k])
+            stats.append((float(loss), float(gn)))
+            if k == 0:
+                torch.save({"grads": {n: q.grad.cpu() for n, q in
+                                      st.params.items()}},
+                           os.path.join(tmp, "tp_ref.pt"))
+        torch.save({"delta": {n: (q.detach() - p0[n]).cpu()
+                              for n, q in st.params.items()}},
+                   os.path.join(tmp, "dp_ref.pt"))
+        one_ms = _par_timed(torch, lambda: tr.train_step(
+            st, init_hidden(2, B, H, device=device), *dev[0], 0.0,
+            dropout_masks=masks[0]), PAR_TIMED, device)
+        print(f"  one-device step (B={B}) ms {['%.1f' % x for x in one_ms]}"
+              f"; losses {stats} on {smi}")
+        del tr, st, p0, h, dev
+    payload = dict(
+        cfg=dataclasses.asdict(cfg), tcfg=dataclasses.asdict(tcfg),
+        score_cfg=dataclasses.asdict(cfg), rcfg=dataclasses.asdict(rcfg),
+        data=data, target=target,
+        masks=[[None if m is None else m.cpu().numpy() for m in ms]
+               for ms in masks],
+        dp_ref=os.path.join(tmp, "dp_ref.pt"),
+        tp_ref=os.path.join(tmp, "tp_ref.pt"),
+        trace_dir=os.path.join(tmp, "trace"), nbest=nbest, w2i=w2i,
+        device=device)
+    with phase(f"parallel ranks ({PAR_RANKS} gloo ranks on {device}: dp "
+               "train, tp train, dp score)"):
+        res = spawn("chip_smoke:parallel_rank", PAR_RANKS, payload,
+                    backend="gloo", timeout=PAR_TIMEOUT,
+                    cards=[0] * PAR_RANKS)
+    r0 = res[0]
+    failed = []
+    with phase("parallel dp train (dp 2)"):
+        for r in res:
+            for (lk, gk), (lo, go) in zip(r["dp_stats"], stats):
+                if abs(lk - lo) > STEP_LOSS_ATOL + STEP_LOSS_RTOL * abs(lo):
+                    failed.append(f"dp rank {r['rank']}: loss {lk} against "
+                                  f"one device {lo}")
+            print(f"  rank {r['rank']}: losses / gnorms {r['dp_stats']} "
+                  f"(one device {stats}); step ms "
+                  f"{['%.1f' % x for x in r['dp_ms']]}")
+        worst = max(r0["dp_shares"].items(), key=lambda kv: kv[1])
+        print(f"  two dp steps' parameter change against two one-device "
+              f"steps: worst share of tolerance {worst[1]:.3f} ({worst[0]})")
+        if worst[1] > 1:
+            failed.append(f"dp parameters: share {worst[1]:.3f}")
+    with phase("parallel tp train (tp 2, V/2 a rank)"):
+        for r in res:
+            print(f"  rank {r['rank']}: loss / gnorm {r['tp_stats']} (one "
+                  f"device {stats[0]}); step ms "
+                  f"{['%.1f' % x for x in r['tp_ms']]}")
+            if abs(r["tp_stats"][0] - stats[0][0]) > STEP_LOSS_ATOL \
+                    + STEP_LOSS_RTOL * abs(stats[0][0]):
+                failed.append(f"tp rank {r['rank']}: loss {r['tp_stats']}")
+        worst = max(r0["tp_shares"].items(), key=lambda kv: kv[1])
+        fault = max(r0["tp_fault_shares"].values())
+        print(f"  every gradient against the one-device step: worst share "
+              f"{worst[1]:.3f} ({worst[0]}); planted fault 'vocabulary "
+              f"shards' gradients undivided': {fault:.1f}")
+        if worst[1] > 1:
+            failed.append(f"tp gradients: share {worst[1]:.3f}")
+        if fault < FAULT_MARGIN:
+            failed.append(f"tp planted fault only {fault:.1f}x")
+        for name, s in r0["shard"].items():
+            kernels[name]["tp_shard"] = s
+            if s["worst_share"] > 1 or s["fault_share"] < FAULT_MARGIN \
+                    or not 0 < s["off_shard"] < s["M"]:
+                failed.append(f"{name} on a tp shard: {s}")
+    with phase("parallel dp score (dp 2)"):
+        got = np.asarray(r0["scores"])
+        diff = float(np.abs(got - scores).max())
+        print(f"  {len(got)} scores: max |dp 2 - one device| {diff:.4e} "
+              f"(tolerance {SCORE_ATOL:.0e}); pass "
+              f"{[round(r['score_s'], 4) for r in res]} s a rank")
+        if got.shape != scores.shape or diff > SCORE_ATOL:
+            failed.append(f"dp scores {diff:.4e} from the one-device pass")
+    for r in res:
+        for run, counts in (("dp train", r["dp_launches"]),
+                            ("tp train", r["tp_launches"]),
+                            ("dp score", r["score_launches"])):
+            print(f"  rank {r['rank']} {run} launches {counts}")
+            for name, n in counts.items():
+                if name in kernels and (run != "dp score" or
+                                        name in ("lstm2_fwd", "ce_fwd")):
+                    run_launches(kernels, name, f"{run} rank {r['rank']}", n)
+                    if n == 0:
+                        failed.append(f"{run} rank {r['rank']} never "
+                                      f"launched {name}")
+    for key in ("dp", "tp"):
+        ms, coll = r0[f"{key}_traced"]
+        print(f"  {key} step traced on rank 0: {ms:.1f} ms, collectives "
+              f"{coll:.1f} ms ({coll / ms:.3f} of the step; gloo through "
+              f"the host on one card)")
+    if failed:
+        raise AssertionError("; ".join(failed))
+
+
 def library_yardstick(torch, name, args):
     """ms of one PyTorch call computing the same function (never called by
     the port): cuDNN's LSTM for the recurrence (all-ones mask, as in
@@ -6626,6 +7024,8 @@ def main():
     nocarry_phase(torch, kernels, smi, cfg, rcfg, params, w2i, nbest)
     narrow_scoring_phase(torch, kernels, smi, cfg, rcfg, w2i)
     corpus, tmp = train_phases(torch, kernels, smi, cfg, rcfg)
+    parallel_phases(torch, kernels, smi, cfg, rcfg, tmp.name, w2i, nbest,
+                    scores)
     bayes_phases(torch, kernels, smi, cfg, rcfg, corpus, tmp.name)
     lstm2_phases(torch, kernels, smi, cfg, corpus, tmp.name)
     gp_phases(torch, kernels, smi, cfg, rcfg, corpus, tmp.name)

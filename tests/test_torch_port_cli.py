@@ -208,13 +208,17 @@ def test_without_a_card_the_cli_raises(corpus, jax_ckpt, monkeypatch):
 
 
 @pytest.mark.parametrize("argv,item", [
-    (["train", "--data", "d", "--multihost"], "item 13"),
-    (["train", "--data", "d", "--tp-shards", "2"], "item 13"),
-    (["train", "--data", "d", "--dp-shards", "2"], "item 13"),
+    (["train", "--data", "d", "--multihost"], None),
+    (["train", "--data", "d", "--tp-shards", "2"], None),
+    (["train", "--data", "d", "--dp-shards", "2"], None),
     (["score", "--nbest-list", "n", "--vocabulary", "v", "--model-path", "m",
-      "--outfile", "o", "--dp-shards", "2"], "item 13"),
+      "--outfile", "o", "--dp-shards", "2"], None),
     (["rescore", "--lattices", "l", "--words", "w", "--model-path", "m",
-      "--workdir", "wd", "--dp-shards", "2"], "item 13"),
+      "--workdir", "wd", "--dp-shards", "2"], None),
+    (["--platform", "cpu", "train", "--data", "d", "--tp-shards", "2",
+      "--not-tied"], "item A13b"),
+    (["--platform", "cpu", "train", "--data", "d", "--dp-shards", "2",
+      "--tp-shards", "2", "--batch-size", "6"], "item A13b"),
     (["train", "--data", "d", "--profile", "p"], None),
     (["train", "--data", "d", "--resume"], None),
     (["score", "--nbest-list", "n", "--vocabulary", "v", "--model-path", "m",
@@ -222,14 +226,16 @@ def test_without_a_card_the_cli_raises(corpus, jax_ckpt, monkeypatch):
     (["rescore", "--lattices", "l", "--words", "w", "--model-path", "m",
       "--workdir", "wd", "--profile", "p"], None),
     (["search", "--data", "d"], None),
-], ids=["multihost", "tp", "dp", "score-dp", "rescore-dp", "profile",
-        "resume", "score-profile", "rescore-profile", "search"])
+], ids=["multihost", "tp", "dp", "score-dp", "rescore-dp", "tp-untied",
+        "tp-batch", "profile", "resume", "score-profile", "rescore-profile",
+        "search"])
 def test_unported_flags_raise_before_device_work(argv, item, monkeypatch):
     """Raised before anything is read or any device is asked for: the
     files named here do not exist and no card is needed. The profile and
-    resume flags and ``search`` (ROADMAP.md A6, A12) are ported: they pass
-    the refusals and stop at the device check (no card, no --platform
-    cpu)."""
+    resume flags, ``search`` (ROADMAP.md A6, A12) and the multi-device
+    flags (A13) are ported: they pass the refusals and stop at the device
+    check (no card, no --platform cpu); the tp meshes the port's tp step
+    does not take raise naming A13b before any rank starts."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     if item is None:
         with pytest.raises(RuntimeError, match="no CUDA device"):

@@ -307,12 +307,30 @@ def test_plateau_schedule_matches_jax(tmp_path):
 
 
 def test_trainer_defaults_to_cuda_and_refuses_unported_options(monkeypatch):
+    """No card: an error, not a CPU run. Data-parallel training is
+    ported (ROADMAP.md A13; tests/test_torch_port_parallel.py): without a
+    process group ``dp_shards`` asks for one; the tp meshes the port's tp
+    step does not take raise naming A13b."""
+    from bayeslms_tpu_torch.parallel.train_parallel import check
+
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     _, cfg = _cfgs()
     with pytest.raises(RuntimeError, match="no CUDA device"):
         Trainer(cfg, TrainConfig())
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(RuntimeError, match="no process group"):
         Trainer(cfg, TrainConfig(dp_shards=2), device="cpu")
+    untied = dataclasses.replace(cfg, tied=False)
+    emb = ModelConfig(model="Transformer", vocab_size=V, emsize=E, nhid=32,
+                      nhead=2, uncertainty="Bayesian", t_bayes_pos="EMB")
+    for c, t, dp, tp in ((untied, TrainConfig(batch_size=4), 1, 2),
+                         (emb, TrainConfig(batch_size=4), 2, 2),
+                         (cfg, TrainConfig(batch_size=6), 1, 4),
+                         (dataclasses.replace(cfg, vocab_size=41),
+                          TrainConfig(batch_size=4), 1, 2),
+                         (cfg, TrainConfig(batch_size=5), 2, 1)):
+        with pytest.raises(NotImplementedError, match="item A13b"):
+            check(c, t, dp, tp)
+    check(cfg, TrainConfig(batch_size=4), 2, 2)
     # full-state resume and profiling are ported (ROADMAP.md A6)
     for kw in (dict(resume=True), dict(profile_dir="p")):
         assert Trainer(cfg, TrainConfig(**kw), device="cpu").tcfg == \
