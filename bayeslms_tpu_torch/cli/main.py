@@ -11,9 +11,11 @@
 
 Also ``python -m bayeslms_tpu_torch.cli.main``. ``--platform cuda`` (the
 default) runs on the card and raises without one; ``--platform cpu`` runs
-the kernels' plain versions on the CPU. On the card the kernels take bf16
-operands only, so there ``--compute-dtype float32`` (the default, as in
-the JAX package) raises and names ``--compute-dtype bfloat16``. ``score``
+the kernels' plain versions on the CPU. On the card ``score`` and
+``rescore`` take ``--compute-dtype float32`` (the default, as in the JAX
+package) or ``bfloat16``; ``train`` and the recurrent models' MC scoring
+(``--mc-samples``) take bfloat16 only there, and at float32 raise before
+any device work, naming ROADMAP.md B.5's float32 training slices. ``score``
 and ``rescore`` read any checkpoint ``core/checkpoint.py`` ``load_params``
 reads (the port's own, a JAX ``.ckpt``, a reference ``model.pt``).
 
@@ -127,8 +129,11 @@ def _profiled(args):
 
 def _check_device(args, kernels: bool = True) -> None:
     """No quiet CPU run without --platform cpu, and, where the card's
-    kernels run (``kernels``), no float32 operand for them (ROADMAP.md
-    queue B item B.5)."""
+    kernels run (``kernels``), no operand dtype that a kernel of the
+    command's path refuses: bfloat16 everywhere; float32 for ``score`` and
+    ``rescore`` (rows 1-4 and 12-17 take it), but not for ``train`` (rows
+    5-11 and 18-21, ROADMAP.md B.5a-B.5d) nor the recurrent models' MC
+    scoring (row 5, B.5b)."""
     import torch
 
     if args.platform != "cuda":
@@ -137,11 +142,26 @@ def _check_device(args, kernels: bool = True) -> None:
         raise RuntimeError(
             "bayeslm-torch: no CUDA device; pass --platform cpu to run on "
             "the CPU with the kernels' plain versions")
-    if kernels and args.compute_dtype != "bfloat16":
+    dtype = args.compute_dtype
+    if not kernels or dtype == "bfloat16":
+        return
+    if dtype != "float32":
         raise ValueError(
-            f"bayeslm-torch: --compute-dtype {args.compute_dtype} on the "
-            "card: its kernels take bf16 operands only (ROADMAP.md B.5); "
+            f"bayeslm-torch: --compute-dtype {dtype} on the card: its "
+            "kernels take bfloat16 or float32 operands")
+    if args.fn is cmd_train:
+        raise ValueError(
+            "bayeslm-torch train: --compute-dtype float32 on the card: the "
+            "training kernels (rows 5-11, 18-21) take bf16 operands only "
+            "until ROADMAP.md B.5a-B.5d (B.5's float32 training slices); "
             "pass --compute-dtype bfloat16, or --platform cpu")
+    if getattr(args, "mc_samples", 0) and args.model != "Transformer":
+        raise ValueError(
+            f"bayeslm-torch {args.cmd}: --mc-samples of a recurrent model at "
+            "--compute-dtype float32 on the card: its draws run kernel row "
+            "5, which takes bf16 operands only until ROADMAP.md B.5b (B.5's "
+            "float32 training slices); pass --compute-dtype bfloat16, or "
+            "--platform cpu")
 
 
 def cmd_train(args, mesh=None) -> int:
@@ -194,9 +214,9 @@ def _inter_model(args, vocab_size: int):
     of ``--inter_path``. The checkpoint's ``model_config`` (the port's meta,
     the JAX package's sidecar) takes precedence, so that a baseline of
     another geometry loads as trained; without one, the main model's flags
-    give it, as in the reference. Its compute dtype is the run's
-    ``--compute-dtype``: checkpoints hold float32 weights, and the card's
-    kernels take bf16 operands only."""
+    give it, as in the reference. Its compute dtype is its own (the
+    checkpoint's, as in the JAX package), the run's ``--compute-dtype``
+    only where the checkpoint names none."""
     import dataclasses
 
     from ..core.checkpoint import load_params
@@ -214,7 +234,7 @@ def _inter_model(args, vocab_size: int):
                 f"--inter_path model was trained with vocab_size="
                 f"{mc['vocab_size']}, but the vocabulary here has "
                 f"{vocab_size} entries")
-        mc.update(vocab_size=vocab_size, compute_dtype=args.compute_dtype)
+        mc["vocab_size"] = vocab_size
         cfg2 = ModelConfig(**mc)
     return cfg2, params2
 

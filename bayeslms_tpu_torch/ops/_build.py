@@ -31,11 +31,28 @@ FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC"]
 KERNELS = ("lstm2_fwd", "ce_fwd", "lstm_train", "ce_train", "bayes_sample",
            "attention_fwd", "bayes_matmul", "attention_train", "lstm_fwd",
-           "gp_lstm", "gp6_lstm", "lstm2_train")
+           "gp_lstm", "gp6_lstm", "lstm2_train", "lstm_f32", "ce_f32")
 
 Kernel = Union[str, Tuple[str, Tuple[str, ...]]]  # source, or (source, defines)
 
 _loaded: Dict[Kernel, ctypes.CDLL] = {}
+
+# The ROADMAP.md items (queue B, B.5's float32 training slices) that bring
+# float32 operands to the kernels that take bf16 only, by kernel row; rows
+# 1-4 and 12-17 take float32 already.
+F32_ITEMS = {"rows 9-11": "B.5a", "rows 5-6": "B.5b", "rows 18-21": "B.5c",
+             "rows 7-8": "B.5d"}
+
+
+def refuse_float32(fn: str, t: torch.Tensor, rows: str) -> None:
+    """The bf16-only wrappers' refusal of a float32 operand, naming the
+    ROADMAP.md item that brings it (``F32_ITEMS[rows]``). A dtype other than
+    float32 goes on to the wrapper's own checks."""
+    if t.dtype == torch.float32:
+        raise ValueError(
+            f"{fn}: float32 operands on the card: kernel {rows} take bf16 "
+            f"only until ROADMAP.md {F32_ITEMS[rows]} (B.5's float32 "
+            "training slices); pass bf16 operands, or CPU tensors")
 
 
 def _nvcc() -> str:

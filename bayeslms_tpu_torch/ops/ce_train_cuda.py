@@ -129,6 +129,7 @@ def _check(fn, h, emb, bias, targets, vectors=(), width=D_SLICE):
     """Validate and convert the arguments the kernels take (D a multiple of
     ``width``); returns (M, V, D, emb in bf16, bias in fp32, targets in
     int32)."""
+    _build.refuse_float32(fn, h, "rows 9-11")
     M, D = h.shape
     V = emb.shape[0]
     dev = h.device

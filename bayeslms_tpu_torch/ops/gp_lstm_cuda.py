@@ -287,6 +287,7 @@ def gpg_bwd_plain(xg, gpx, w5, bih, coef, mask, h0, c0, ys, cs, dy, dhT,
 def _checked(fn, xg, gpx, w5, bih, coef, mask, gate, states):
     """Validate the arguments both kernels take; returns (T, B, H, nact,
     mask as contiguous bytes or None)."""
+    _build.refuse_float32(fn, xg, "rows 18-21")
     T, B, G = xg.shape
     H = G // 4
     dev = xg.device
@@ -589,6 +590,7 @@ def gp6_bwd_plain(xg, w, b, coef, mask, h0, c0, ys, cs, dy, dhT, dcT):
 def _gp6_checked(fn, xg, w, b, coef, mask, states):
     """Validate the arguments both gate-6 kernels take; returns (T, B, H,
     mask as contiguous bytes or None)."""
+    _build.refuse_float32(fn, xg, "rows 18-21")
     T, B, G = xg.shape
     H = G // 4
     dev = xg.device

@@ -8,8 +8,10 @@ recurrence to ``lstm_cuda.lstm_fwd`` (kernel rows 3-4) and a call without
 resets otherwise to ``lstm_layer_train`` (rows 5-6); where the gate refuses,
 as on a CPU tensor, it runs the JAX package's scan, with the state carried in
 x's dtype. ``lstm_stack2`` is the 2-layer recurrence. Its scoring route
-computes layer 1's input projection for the whole sequence as one matrix
-product and hands the recurrence to ``lstm_cuda.lstm2_fwd``; its training
+asks ``lstm_cuda.lstm2_fwd_ok`` (JAX's ``pallas_lstm2_ok`` at the batch):
+where it admits, layer 1's input projection for the whole sequence is one
+matrix product and the recurrence goes to ``lstm_cuda.lstm2_fwd``; where it
+refuses (float32 at H 1,024), two ``lstm_layer`` calls, as JAX; its training
 route (``train=True``) runs two ``lstm_layer_train`` calls with the
 inter-layer dropout mask between them, as the JAX package does by default.
 ``lstm_layer_train`` hands its recurrence to the autograd Function
@@ -167,10 +169,20 @@ def lstm_stack2(
     """Two stacked LSTM layers.
 
     Returns ys2 (T, B, H), (hT1, hT2), (cT1, cT2) in x's dtype.
-    ``train=False`` is the forward-only scoring route (no dropout): the
-    biases are rounded to x's dtype and handed over in float32, as the TPU
-    kernel takes them (b_hh1, and b_ih2 + b_hh2 summed before the
-    rounding). ``train=True`` is the grad route: two ``lstm_layer_train``
+    ``train=False`` is the forward-only scoring route (no dropout), routed
+    as JAX routes it, on every device: where ``lstm_cuda.lstm2_fwd_ok``
+    admits the width, x's item size and the batch (and layer 2's w_ih is
+    (4H, H)), ``lstm_cuda.lstm2_fwd`` (kernel row 1 on a CUDA tensor, its
+    plain version on the CPU), with the biases rounded to x's dtype and
+    handed over in float32, as the TPU kernel takes them (b_hh1, and
+    b_ih2 + b_hh2 summed before the rounding); where it refuses, two
+    ``lstm_layer(..., allow_kernel=True)`` calls, each under its own gate
+    (``lstm_kernel_ok``: rows 3-4, or the scan). At float32 and H 1,024 both
+    gates refuse, so the card runs the scan there, in cuBLAS's float32
+    products (``torch.backends.cuda.matmul.allow_tf32`` left as PyTorch
+    sets it, False): the counterpart of JAX's XLA scan, chosen by the same
+    formulas before any launch, not a twin standing in for a kernel.
+    ``train=True`` is the grad route: two ``lstm_layer_train``
     calls, layer 1's output multiplied by ``dropout_mask`` (T, B, H), the
     inter-layer inverted-dropout mask, when one is given; or, under the
     switch (``fused_train_enabled``), ``lstm2_train_cuda.lstm2_layer_train``
@@ -197,6 +209,13 @@ def lstm_stack2(
     dtype = x.dtype
     T, B, _ = x.shape
     H = p1.w_hh.shape[1]
+    if tuple(p2.w_ih.shape) != (4 * H, H) \
+            or not lstm_cuda.lstm2_fwd_ok(H, x.element_size(), B):
+        ys1, h1T, c1T = lstm_layer(x, h0[0], c0[0], p1, step_mask,
+                                   reset_mask, reset_src, allow_kernel=True)
+        ys2, h2T, c2T = lstm_layer(ys1, h0[1], c0[1], p2, step_mask,
+                                   reset_mask, reset_src, allow_kernel=True)
+        return ys2, (h1T, h2T), (c1T, c2T)
     xg1 = (x.reshape(T * B, -1) @ p1.w_ih.to(dtype).t()
            + p1.b_ih.to(dtype)).reshape(T, B, 4 * H)
     f32 = torch.float32

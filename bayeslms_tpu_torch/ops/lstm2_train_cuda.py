@@ -143,15 +143,19 @@ _W_MAX_BYTES = 8 * 1024 * 1024
 _ROWS2_TRAIN_BWD = 20
 
 
-def est_vmem2(U: int, B: int, H: int, row_elems: int, itemsize: int) -> int:
+def est_vmem2(U: int, B: int, H: int, row_elems: int, itemsize: int,
+              reset: bool = False) -> int:
     """Upper-bound scoped-VMEM bytes of one grid step of the JAX package's
-    fused 2-layer training kernels (``lstm_pallas._est_vmem2`` without
-    resets, term for term)."""
+    fused 2-layer kernels (``lstm_pallas._est_vmem2``, term for term; the
+    reset kernel's block set with ``reset``, which the forward's gate
+    ``lstm_cuda.lstm2_fwd_ok`` asks for)."""
     G = 4 * H
     seq = 2 * U * B * row_elems * itemsize
     res = 3 * 2 * H * G * itemsize
     fixed = (12 * B * H + 3 * G) * itemsize + 4 * B * H * 4 \
         + 2 * U * B * 8 * itemsize
+    if reset:
+        fixed += 2 * B * B * itemsize + 2 * U * B * 8 * itemsize
     return seq + res + fixed
 
 
@@ -226,6 +230,7 @@ def lstm2_train_bwd_plain(xg1, dm, w_hh1, b_hh1, w_ih2, w_hh2, b2, mask,
 def _checked(fn, xg1, dm, weights, biases, mask, states):
     """Validate the arguments both kernels take; returns (T, B, H, mask as
     contiguous bytes or None)."""
+    _build.refuse_float32(fn, xg1, "rows 7-8")
     T, B, G = xg1.shape
     H = G // 4
     dev = xg1.device

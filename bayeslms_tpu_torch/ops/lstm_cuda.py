@@ -2,24 +2,27 @@
 wrappers and their plain twins.
 
 Replaces ``bayeslms_tpu/ops/lstm_pallas.py`` ``lstm2_layer_pallas`` (its
-``_kernel2`` / ``_kernel2_reset`` Pallas bodies) with ``lstm2_fwd``
-(``csrc/lstm2_fwd.cu``, in two designs picked by ``_design``), and
+``_kernel2`` / ``_kernel2_reset`` Pallas bodies) with ``lstm2_fwd``, and
 ``lstm_layer_pallas`` (``_kernel_reset`` and ``_kernel``, kernel rows 3 and
-4) with ``lstm_fwd`` (``csrc/lstm_fwd.cu``, in three designs picked by
-``_design_fwd``); ``lstm_kernel_ok`` is
-``pallas_lstm_ok``'s gate. The kernels' headers say what bounds them on the
-H100 and how their designs answer that. The wrappers launch them for CUDA
-tensors and raise on what they do not take; for CPU tensors they run
-``lstm2_plain`` and ``lstm_fwd_plain``, which repeat the kernels'
-arithmetic step by step in PyTorch.
+4) with ``lstm_fwd``. Both dispatch on the operands' dtype: bf16 takes
+``csrc/lstm2_fwd.cu`` (two designs picked by ``_design``) and
+``csrc/lstm_fwd.cu`` (three designs picked by ``_design_fwd``); float32
+takes ``csrc/lstm_f32.cu`` (one float32 step kernel a layer a step, CUDA-core
+FMA); any other dtype raises. ``lstm_kernel_ok`` is ``pallas_lstm_ok``'s
+gate and ``lstm2_fwd_ok`` ``pallas_lstm2_ok``'s for the forward. The
+kernels' headers say what bounds them on the H100 and how their designs
+answer that. The wrappers launch them for CUDA tensors and raise on what
+they do not take; for CPU tensors they run ``lstm2_plain`` and
+``lstm_fwd_plain``, which repeat the kernels' arithmetic step by step in
+PyTorch.
 
 Arithmetic (kernels and plain alike): h and c are carried in float32; the
-products take h rounded to the weights' dtype and accumulate in float32;
-the gate pre-activations add ``xg`` (the first layer) and a float32 bias. At a
-reset step a column takes its source column's float32 state (source -1:
-zeros). The TPU kernel instead selects through ``pmat @ s.astype(bf16)``,
-which rounds h and c to bf16 at each reset; the JAX scan path does not.
-Outputs are in the weights' dtype.
+products take h rounded to the weights' dtype (unrounded at float32) and
+accumulate in float32; the gate pre-activations add ``xg`` (the first
+layer) and a float32 bias. At a reset step a column takes its source
+column's float32 state (source -1: zeros). The TPU kernel instead selects
+through ``pmat @ s.astype(bf16)``, which rounds h and c to bf16 at each
+reset; the JAX scan path does not. Outputs are in the weights' dtype.
 """
 
 from __future__ import annotations
@@ -35,12 +38,14 @@ from . import lstm_train_cuda as _ltc
 # kernel launches (one per call that reaches the kernel), and those calls
 # by design; reset by callers that read them, such as chip_smoke.py
 launches = 0
-design_launches = {"persistent": 0, "per_step": 0}
+design_launches = {"persistent": 0, "per_step": 0, "f32": 0}
 # the same for ``lstm_fwd``, by the TPU kernel a call replaces: row 3 (with
 # resets) and row 4 (without)
 layer_launches = {"lstm_fwd_reset": 0, "lstm_fwd": 0}
-# and ``lstm_fwd``'s calls by design (``_design_fwd``)
-layer_design_launches = {"persistent": 0, "streamed": 0, "per_step": 0}
+# and ``lstm_fwd``'s calls by design (``_design_fwd``; "f32" the float32
+# kernel's)
+layer_design_launches = {"persistent": 0, "streamed": 0, "per_step": 0,
+                         "f32": 0}
 
 _P = ctypes.c_void_p
 _ARGTYPES = [_P] * 14 + [ctypes.c_int] * 3 + [_P]
@@ -217,6 +222,29 @@ def lstm_kernel_ok(x: torch.Tensor, nhid: int, train: bool = False) -> bool:
                     reset=not train) <= int(0.9 * _VMEM_LIMIT)
 
 
+# The JAX gate of the fused 2-layer forward (lstm_pallas.py
+# `pallas_lstm2_ok`, `_ROWS2_FWD`): its three resident weight blocks and
+# the reset kernel's U = 1 block set at the batch.
+_ROWS2_FWD = 5
+
+
+def lstm2_fwd_ok(H: int, itemsize: int, B: int) -> bool:
+    """The JAX package's ``pallas_lstm2_ok(H, dtype, batch=B)`` without
+    its platform test, as a function of the width, the operands' item size
+    and the batch: W_hh within 8 MiB in that dtype, and the reset kernel's
+    U = 1 block set (``est_vmem2`` at ``_ROWS2_FWD``) within 0.9 of the VMEM
+    budget. ``ops/lstm.py`` ``lstm_stack2`` asks it on every device, so
+    where it admits a CPU call takes ``lstm2_fwd``'s plain version as
+    before, and where it refuses both devices run two ``lstm_layer``
+    calls, as JAX does."""
+    from .lstm2_train_cuda import est_vmem2
+
+    if H * 4 * H * itemsize > _WHH_MAX_BYTES:
+        return False
+    return est_vmem2(1, B, H, _ROWS2_FWD * H, itemsize, reset=True) \
+        <= int(0.9 * _VMEM_LIMIT)
+
+
 def apply_reset(state, reset_t, reset_src):
     """Columns with ``reset_t`` set take column ``reset_src``'s state (their
     chain's first hypothesis); zeros where the source is -1."""
@@ -238,11 +266,13 @@ def cell_update(gates, h, c, keep=None):
 
 
 def lstm2_plain(xg1, whh1, bhh1, wih2, whh2, b2, h01, c01, h02, c02,
-                step_mask=None, reset_mask=None, reset_src=None):
+                step_mask=None, reset_mask=None, reset_src=None,
+                acc=torch.float32):
     """Plain PyTorch version of the kernel, same arguments as
-    ``lstm2_fwd``."""
+    ``lstm2_fwd``. ``acc`` is the dtype of the carries and sums: float64
+    with float64 operands is chip_smoke.py's float64 reference."""
     dtype = whh1.dtype
-    f32 = torch.float32
+    f32 = acc
     w1, wi2, w2 = (w.to(f32).t() for w in (whh1, wih2, whh2))
     h1, c1, h2, c2 = (s.to(f32) for s in (h01, c01, h02, c02))
     ys = []
@@ -282,35 +312,41 @@ def lstm2_fwd(xg1: torch.Tensor, whh1: torch.Tensor, bhh1: torch.Tensor,
     b2 = b_ih2 + b_hh2, (4H,) float32; h0/c0 (B, H) per layer; step_mask
     and reset_mask (T, B), nonzero = set; reset_src (B,) int, -1 = zero
     state. Returns ys2 (T, B, H), (hT1, hT2), (cT1, cT2), all in the
-    compute dtype. CUDA tensors launch ``csrc/lstm2_fwd.cu`` in the design
-    ``_design`` picks (bf16 only); CPU tensors run ``lstm2_plain``. Each
-    call that reaches the kernel adds one to the module's ``launches`` and
-    to its design's ``design_launches`` (the persistent design is one
-    launch a call, the per-step design 2T).
+    compute dtype. CUDA tensors launch a kernel by their dtype: bf16
+    ``csrc/lstm2_fwd.cu`` in the design ``_design`` picks, float32
+    ``lstm2_fwd_f32`` of ``csrc/lstm_f32.cu`` (2T launches); another
+    dtype raises. CPU tensors run ``lstm2_plain``. Each call that reaches a
+    kernel adds one to the module's ``launches`` and to its design's
+    ``design_launches`` ("f32" for the float32 kernel; the persistent
+    design is one launch a call, the per-step design 2T).
     """
     if not xg1.is_cuda:
         return lstm2_plain(xg1, whh1, bhh1, wih2, whh2, b2, h01, c01, h02,
                            c02, step_mask, reset_mask, reset_src)
+    if xg1.dtype == torch.float32:
+        return _lstm2_fwd_f32(xg1, whh1, bhh1, wih2, whh2, b2, h01, c01, h02,
+                              c02, step_mask, reset_mask, reset_src)
+    if xg1.dtype != torch.bfloat16:
+        raise ValueError(f"lstm2_fwd: {xg1.dtype} operands; the kernels "
+                         "take bf16 or float32")
     return _lstm2_fwd(None, xg1, whh1, bhh1, wih2, whh2, b2, h01, c01, h02,
                       c02, step_mask, reset_mask, reset_src)
 
 
-def _lstm2_fwd(design, xg1, whh1, bhh1, wih2, whh2, b2, h01, c01, h02, c02,
-               step_mask=None, reset_mask=None, reset_src=None):
-    """``lstm2_fwd`` on CUDA tensors in ``design`` ("persistent" or
-    "per_step"), or in the one ``_design`` picks where it is None;
-    chip_smoke.py times the per-step design on the persistent design's
-    calls through it. A design that does not take the shapes raises."""
+def _checked2(dtype, xg1, whh1, bhh1, wih2, whh2, b2, h01, c01, h02, c02,
+              step_mask, reset_mask, reset_src, width=32):
+    """Validate ``lstm2_fwd``'s arguments for a kernel of operand ``dtype``
+    (H a multiple of ``width``); returns (T, B, H, mask, reset, src) with
+    the masks as contiguous bytes and the sources as int32, or None."""
     T, B, G = xg1.shape
     H = G // 4
     dev = xg1.device
-    bf16 = torch.bfloat16
-    if G != 4 * H or H % 32 != 0:
+    if G != 4 * H or H % width != 0:
         raise ValueError(f"lstm2_fwd: hidden size {G // 4} must be a "
-                         f"multiple of 32 (xg1 width {G})")
-    _check("xg1", xg1, bf16, (T, B, G), dev)
+                         f"multiple of {width} (xg1 width {G})")
+    _check("xg1", xg1, dtype, (T, B, G), dev)
     for name, w in (("whh1", whh1), ("wih2", wih2), ("whh2", whh2)):
-        _check(name, w, bf16, (G, H), dev)
+        _check(name, w, dtype, (G, H), dev)
     for name, b in (("bhh1", bhh1), ("b2", b2)):
         _check(name, b, torch.float32, (G,), dev)
     for name, s in (("h01", h01), ("c01", c01), ("h02", h02), ("c02", c02)):
@@ -328,6 +364,19 @@ def _lstm2_fwd(design, xg1, whh1, bhh1, wih2, whh2, b2, h01, c01, h02, c02,
         _check("reset_mask", reset, torch.uint8, (T, B), dev)
         src = reset_src.to(torch.int32).contiguous()
         _check("reset_src", src, torch.int32, (B,), dev)
+    return T, B, H, mask, reset, src
+
+
+def _lstm2_fwd(design, xg1, whh1, bhh1, wih2, whh2, b2, h01, c01, h02, c02,
+               step_mask=None, reset_mask=None, reset_src=None):
+    """``lstm2_fwd`` on bf16 CUDA tensors in ``design`` ("persistent" or
+    "per_step"), or in the one ``_design`` picks where it is None;
+    chip_smoke.py times the per-step design on the persistent design's
+    calls through it. A design that does not take the shapes raises."""
+    T, B, H, mask, reset, src = _checked2(
+        torch.bfloat16, xg1, whh1, bhh1, wih2, whh2, b2, h01, c01, h02, c02,
+        step_mask, reset_mask, reset_src)
+    dev = xg1.device
     plan = _card_design(dev, T, B, H)
     if design is None:
         design = plan["design"]
@@ -374,6 +423,43 @@ def _per_step(plan, xg1, whh1, bhh1, wih2, whh2, b2, h01, c01, h02, c02,
     f = T % 2
     return (ys, (h1[f].to(bf16), h2[f].to(bf16)),
             (c1[f].to(bf16), c2[f].to(bf16)))
+
+
+def _f32_states(dev, B, H, *states):
+    """(2, B, H) fp32 ping-pong buffers, each with its initial state in
+    slot 0 (the float32 kernels' layout)."""
+    bufs = []
+    for s in states:
+        buf = torch.empty((2, B, H), dtype=torch.float32, device=dev)
+        buf[0].copy_(s)
+        bufs.append(buf)
+    return bufs
+
+
+def _lstm2_fwd_f32(xg1, whh1, bhh1, wih2, whh2, b2, h01, c01, h02, c02,
+                   step_mask=None, reset_mask=None, reset_src=None):
+    """``lstm2_fwd`` on float32 CUDA tensors: ``lstm2_fwd_f32`` of
+    ``csrc/lstm_f32.cu``, two launches a step; any H."""
+    T, B, H, mask, reset, src = _checked2(
+        torch.float32, xg1, whh1, bhh1, wih2, whh2, b2, h01, c01, h02, c02,
+        step_mask, reset_mask, reset_src, width=1)
+    dev = xg1.device
+    h1, c1, h2, c2 = _f32_states(dev, B, H, h01, c01, h02, c02)
+    ys = torch.empty((T, B, H), dtype=torch.float32, device=dev)
+    fn = _build.load("lstm_f32").lstm2_fwd_f32
+    fn.argtypes, fn.restype = _ARGTYPES, ctypes.c_int
+    err = fn(_ptr(xg1), _ptr(whh1), _ptr(bhh1), _ptr(wih2), _ptr(whh2),
+             _ptr(b2), _ptr(mask), _ptr(reset), _ptr(src), _ptr(h1),
+             _ptr(c1), _ptr(h2), _ptr(c2), _ptr(ys), T, B, H,
+             torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"lstm2_fwd float32 kernel launch failed: CUDA "
+                           f"error {err}")
+    global launches
+    launches += 1
+    design_launches["f32"] += 1
+    f = T % 2
+    return ys, (h1[f], h2[f]), (c1[f], c2[f])
 
 
 def _marks(reset, src):
@@ -428,11 +514,11 @@ def _persistent(plan, xg1, whh1, bhh1, wih2, whh2, b2, h01, c01, h02, c02,
 
 
 def lstm_fwd_plain(xg, whh, bhh, h0, c0, step_mask=None, reset_mask=None,
-                   reset_src=None):
+                   reset_src=None, acc=torch.float32):
     """Plain PyTorch version of the kernel, same arguments as
-    ``lstm_fwd``."""
+    ``lstm_fwd``; ``acc`` as ``lstm2_plain``'s."""
     dtype = whh.dtype
-    f32 = torch.float32
+    f32 = acc
     w = whh.to(f32).t()
     h, c = h0.to(f32), c0.to(f32)
     ys = []
@@ -457,35 +543,41 @@ def lstm_fwd(xg: torch.Tensor, whh: torch.Tensor, bhh: torch.Tensor,
     layout in the compute dtype; bhh (4H,) float32; h0, c0 (B, H);
     step_mask and reset_mask (T, B), nonzero = set; reset_src (B,) int,
     -1 = zero state. Returns ys (T, B, H), hT, cT (B, H), in the compute
-    dtype. CUDA tensors launch ``csrc/lstm_fwd.cu`` (bf16 only; with resets
-    kernel row 3's replacement, without row 4's) in the design
-    ``_design_fwd`` picks; CPU tensors run ``lstm_fwd_plain``. Each call
-    that reaches the kernel adds one to ``layer_launches`` and to its
-    design's ``layer_design_launches`` (the persistent and streamed designs
-    are one launch a call, the per-step design T).
+    dtype. CUDA tensors launch a kernel by their dtype (with resets kernel
+    row 3's replacement, without row 4's): bf16 ``csrc/lstm_fwd.cu`` in the
+    design ``_design_fwd`` picks, float32 ``lstm_fwd_f32`` of
+    ``csrc/lstm_f32.cu`` (T launches); another dtype raises. CPU tensors
+    run ``lstm_fwd_plain``. Each call that reaches a kernel adds one to
+    ``layer_launches`` and to its design's ``layer_design_launches`` ("f32"
+    for the float32 kernel; the persistent and streamed designs are one
+    launch a call, the per-step design T).
     """
     if not xg.is_cuda:
         return lstm_fwd_plain(xg, whh, bhh, h0, c0, step_mask, reset_mask,
                               reset_src)
+    if xg.dtype == torch.float32:
+        return _lstm_fwd_f32(xg, whh, bhh, h0, c0, step_mask, reset_mask,
+                             reset_src)
+    if xg.dtype != torch.bfloat16:
+        raise ValueError(f"lstm_fwd: {xg.dtype} operands; the kernels take "
+                         "bf16 or float32")
     return _lstm_fwd(None, xg, whh, bhh, h0, c0, step_mask, reset_mask,
                      reset_src)
 
 
-def _lstm_fwd(design, xg, whh, bhh, h0, c0, step_mask=None, reset_mask=None,
-              reset_src=None):
-    """``lstm_fwd`` on CUDA tensors in ``design`` ("persistent", "streamed"
-    or "per_step"), or in the one ``_design_fwd`` picks where it is None;
-    chip_smoke.py times the per-step design on the other designs' calls
-    through it. A design that does not take the call raises."""
+def _checked1(dtype, xg, whh, bhh, h0, c0, step_mask, reset_mask, reset_src,
+              width=32):
+    """Validate ``lstm_fwd``'s arguments for a kernel of operand ``dtype``
+    (H a multiple of ``width``); returns (T, B, H, mask, reset, src) with
+    the masks as contiguous bytes and the sources as int32, or None."""
     T, B, G = xg.shape
     H = G // 4
     dev = xg.device
-    bf16 = torch.bfloat16
-    if G != 4 * H or H % 32 != 0:
+    if G != 4 * H or H % width != 0:
         raise ValueError(f"lstm_fwd: hidden size {G / 4} must be a multiple "
-                         f"of 32 (xg width {G})")
-    _check("xg", xg, bf16, (T, B, G), dev, fn="lstm_fwd")
-    _check("whh", whh, bf16, (G, H), dev, fn="lstm_fwd")
+                         f"of {width} (xg width {G})")
+    _check("xg", xg, dtype, (T, B, G), dev, fn="lstm_fwd")
+    _check("whh", whh, dtype, (G, H), dev, fn="lstm_fwd")
     _check("bhh", bhh, torch.float32, (G,), dev, fn="lstm_fwd")
     for name, s in (("h0", h0), ("c0", c0)):
         if tuple(s.shape) != (B, H) or s.device != dev:
@@ -501,6 +593,43 @@ def _lstm_fwd(design, xg, whh, bhh, h0, c0, step_mask=None, reset_mask=None,
         _check("reset_mask", reset, torch.uint8, (T, B), dev, fn="lstm_fwd")
         src = reset_src.to(torch.int32).contiguous()
         _check("reset_src", src, torch.int32, (B,), dev, fn="lstm_fwd")
+    return T, B, H, mask, reset, src
+
+
+def _lstm_fwd_f32(xg, whh, bhh, h0, c0, step_mask=None, reset_mask=None,
+                  reset_src=None):
+    """``lstm_fwd`` on float32 CUDA tensors: ``lstm_fwd_f32`` of
+    ``csrc/lstm_f32.cu``, one launch a step; any H."""
+    T, B, H, mask, reset, src = _checked1(
+        torch.float32, xg, whh, bhh, h0, c0, step_mask, reset_mask,
+        reset_src, width=1)
+    dev = xg.device
+    h, c = _f32_states(dev, B, H, h0, c0)
+    ys = torch.empty((T, B, H), dtype=torch.float32, device=dev)
+    fn = _build.load("lstm_f32").lstm_fwd_f32
+    fn.argtypes, fn.restype = _FWD_ARGTYPES, ctypes.c_int
+    err = fn(_ptr(xg), _ptr(whh), _ptr(bhh), _ptr(mask), _ptr(reset),
+             _ptr(src), _ptr(h), _ptr(c), _ptr(ys), T, B, H,
+             torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"lstm_fwd float32 kernel launch failed: CUDA "
+                           f"error {err}")
+    layer_launches["lstm_fwd_reset" if reset is not None else "lstm_fwd"] += 1
+    layer_design_launches["f32"] += 1
+    return ys, h[T % 2], c[T % 2]
+
+
+def _lstm_fwd(design, xg, whh, bhh, h0, c0, step_mask=None, reset_mask=None,
+              reset_src=None):
+    """``lstm_fwd`` on CUDA tensors in ``design`` ("persistent", "streamed"
+    or "per_step"), or in the one ``_design_fwd`` picks where it is None;
+    chip_smoke.py times the per-step design on the other designs' calls
+    through it. A design that does not take the call raises."""
+    T, B, H, mask, reset, src = _checked1(
+        torch.bfloat16, xg, whh, bhh, h0, c0, step_mask, reset_mask,
+        reset_src)
+    dev = xg.device
+    bf16 = torch.bfloat16
     n_sm = _build.sm_count(dev.index)
     rule = _design_fwd(T, B, H, n_sm, resets=reset is not None)["design"]
     if design is None:

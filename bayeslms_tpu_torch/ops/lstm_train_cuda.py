@@ -185,6 +185,7 @@ def _check(fn, name, t, dtype, shape, device):
 def _checked(fn, xg, w_hh, b_hh, mask, states):
     """Validate the arguments both kernels take; returns (T, B, H, mask as
     contiguous bytes or None)."""
+    _build.refuse_float32(fn, xg, "rows 5-6")
     T, B, G = xg.shape
     H = G // 4
     dev = xg.device

@@ -7,6 +7,7 @@ output lines ``utt-N score`` with 4 decimals. Keys group by everything
 before the last ``-``. ``encode_all_native`` encodes a whole N-best set
 in one call of the native encoder (``data/native.py``); ``encode_hyp``,
 one hypothesis in Python, is its plain version and gives the same ids.
+``text_nbest`` builds an N-best set in the bench's shape from real text.
 """
 
 from __future__ import annotations
@@ -29,6 +30,37 @@ def load_nbest(path: str) -> "OrderedDict[str, List[str]]":
                 key, hyp = line, " "
             key = key.rsplit("-", 1)[0]
             nbest.setdefault(key, []).append(hyp)
+    return nbest
+
+
+SPECIAL_WORDS = ("<s>", "</s>", "<unk>")
+
+
+def text_nbest(lines: List[str], words: List[str], n_recordings: int = 30,
+               utts: int = 10, n_hyps: int = 20, max_words: int = 40,
+               seed: int = 0) -> "OrderedDict[str, List[str]]":
+    """An N-best set in the JAX bench's shape (``bench.py``
+    ``make_synthetic_nbest``: recordings of serial utterances, ``n_hyps``
+    hypotheses each) from real text: utterance u of recording m
+    (``meet{m}_utt{u}``) is ``lines[utts m + u]`` clipped to ``max_words``
+    words; its hypothesis 0 is that line, and each other hypothesis
+    replaces 1 to 3 of its words (fewer in a shorter line) with words
+    drawn from ``words`` less ``SPECIAL_WORDS``, by
+    ``np.random.default_rng(seed)``, utterance by utterance."""
+    pool = [w for w in words if w not in SPECIAL_WORDS]
+    rng = np.random.default_rng(seed)
+    nbest: "OrderedDict[str, List[str]]" = OrderedDict()
+    for m in range(n_recordings):
+        for u in range(utts):
+            ref = lines[utts * m + u].split()[:max_words]
+            hyps = [" ".join(ref)]
+            for _ in range(n_hyps - 1):
+                hyp = list(ref)
+                k = min(int(rng.integers(1, 4)), len(hyp))
+                for i in rng.choice(len(hyp), size=k, replace=False):
+                    hyp[i] = pool[int(rng.integers(len(pool)))]
+                hyps.append(" ".join(hyp))
+            nbest[f"meet{m}_utt{u}"] = hyps
     return nbest
 
 

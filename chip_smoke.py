@@ -176,7 +176,20 @@ and every gradient against the one-device step, rows 9-11 against their
 twins on a shard with off-shard targets, the shards' gradients left
 undivided as a planted fault) and a dp packed-carry pass of the N-best
 against the one-device pass; each rank's launches, step times and the
-share of a traced step in collectives. Every phase prints its result and seconds; any
+share of a traced step in collectives. Last, float32 scoring
+(``f32_phases``): the in-repo float32 checkpoints (``exp/campaign``) in
+``Trainer.evaluate`` on the card against their logs, packed-carry passes
+of a 6,000-hypothesis N-best built from ``exp/corpus_mid/valid.txt`` with
+the three LSTM checkpoints against the float32 plain pass and a bf16
+pass, a no-carry pass, the bench's widths in float32 (the LSTM on JAX's
+route: the scan and the float32 CE; the Transformer; a 3-layer LSTM),
+``bayeslm-torch score --compute-dtype float32`` (its file equal to an
+in-process pass) and ``train --compute-dtype float32`` (refused before any
+device work); then rows 1-4's float32 kernels on those runs' calls against
+a float64 computation of each (at most F32_RATIO times the twin's
+distance, or F32_FLOOR of the output), each with a TF32 planted-fault
+build past that rule, timed beside the bf16 design on the same call.
+Every phase prints its result and seconds; any
 failure exits non-zero before the result lines. The last two lines are a
 JSON object per kernel (the 2-layer scoring recurrence at the pass's, at
 the ``evaluate`` and at the no-carry call, each with its design and the
@@ -187,13 +200,14 @@ replaces with resets and without; the gate-6 kernels from the
 ``63`` phases; the CE training kernels at
 the LSTM's D = 1,024,
 the Transformer's 512 and the long step's M = 32,768; the scoring CE at
-both widths on its split route and at width 96 on csrc/ce_fwd.cu) and the
-device line.
+both widths on its split route and at width 96 on csrc/ce_fwd.cu; rows
+1-4's float32 kernels, named ``(f32 ...)``) and the device line.
 """
 
 import contextlib
 import dataclasses
 import json
+import math
 import os
 import subprocess
 import sys
@@ -210,6 +224,8 @@ import numpy as np
 # bytes / memory rate.
 PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES_PER_S = 3.35e12
+# and fp32 on the CUDA cores, the unit of the float32 kernels' FMA designs
+PEAK_FP32_FLOPS = 67e12
 
 # Tolerances, kernel against its plain version on the same inputs, set
 # from the errors the H100 showed (PERF.md) with modest room; each check
@@ -370,8 +386,8 @@ def device_ms(torch, fn, repeats):
                          f"{attempts} profiles of {repeats} calls")
 
 
-def bound_ms(flops, nbytes):
-    t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES_PER_S
+def bound_ms(flops, nbytes, peak=PEAK_BF16_FLOPS):
+    t_ops, t_bytes = flops / peak, nbytes / PEAK_BYTES_PER_S
     return 1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
 
 
@@ -500,15 +516,16 @@ def lstm2_check(torch, kernels, args, tag=""):
                                  f"{faults}")
 
 
-def lstm2_library(torch, args):
-    """A no-argument call of cuDNN's bf16 2-layer ``torch.nn.LSTM`` forward
-    over row 1's call without mask or resets: its W_hh1, W_ih2, W_hh2 and
-    biases (b_hh1 as layer 1's, b2 as layer 2's input bias), its h0 and c0,
-    and a random x of width H (the module also computes x W_ih1^T)."""
+def lstm2_library(torch, args, dtype=None):
+    """A no-argument call of cuDNN's bf16 (or ``dtype``'s) 2-layer
+    ``torch.nn.LSTM`` forward over row 1's call without mask or resets:
+    its W_hh1, W_ih2, W_hh2 and biases (b_hh1 as layer 1's, b2 as layer 2's
+    input bias), its h0 and c0, and a random x of width H (the module also
+    computes x W_ih1^T)."""
     xg1, whh1, bhh1, wih2, whh2, b2, h01, c01, h02, c02 = args[:10]
     T, B, G = xg1.shape
     H = G // 4
-    bf16 = torch.bfloat16
+    bf16 = dtype or torch.bfloat16
     lstm = torch.nn.LSTM(H, H, num_layers=2, device="cuda", dtype=bf16)
     with torch.no_grad():
         lstm.weight_hh_l0.copy_(whh1)
@@ -3204,7 +3221,7 @@ def gp_fit(torch, kernels, trainer, corpus, smi, kl_scale, tag, cell_rows,
             raise AssertionError(f"evaluate did not take {fwd} and row 4 on "
                                  "every window")
         if lc.layer_design_launches != {"persistent": n_eval, "streamed": 0,
-                                        "per_step": 0}:
+                                        "per_step": 0, "f32": 0}:
             raise AssertionError(f"row 4 left its persistent design in "
                                  f"evaluate: {lc.layer_design_launches}")
         print(f"  {fwd} by design: {gpc.design_launches[fwd]}; {bwd} by "
@@ -3252,7 +3269,7 @@ def gp_score(torch, scorer, nbest, w2i, smi, tag):
             raise AssertionError("GP scoring did not run rows 3 and 2")
         print(f"  row 3 by design: {lc.layer_design_launches}")
         if lc.layer_design_launches != {"persistent": 0, "streamed": n_row3,
-                                        "per_step": 0}:
+                                        "per_step": 0, "f32": 0}:
             raise AssertionError(f"row 3 (resets) left the streamed design: "
                                  f"{lc.layer_design_launches}")
         got = np.array([s for pairs in res.values() for _, s in pairs])
@@ -4465,7 +4482,7 @@ def family_phases(torch, smi, cfg, rcfg, corpus, tmpdir, tm=False):
             print(f"  row 3 by design: {lc.layer_design_launches}")
             if lc.layer_design_launches != {"persistent": 0,
                                             "streamed": n_row3,
-                                            "per_step": 0}:
+                                            "per_step": 0, "f32": 0}:
                 raise AssertionError(f"{tag}: row 3 left the streamed "
                                      f"design: {lc.layer_design_launches}")
         del scorer, trainer
@@ -6845,6 +6862,750 @@ def parallel_phases(torch, kernels, smi, cfg, rcfg, corpus_dir, w2i, nbest,
         raise AssertionError("; ".join(failed))
 
 
+# ------------------------------------------------------ float32 scoring
+# Kernel rows 1-4 at float32 operands (csrc/lstm_f32.cu: rows 1, 3 and 4;
+# csrc/ce_f32.cu: row 2) and the in-repo float32 checkpoints on the card.
+# A float32 kernel is held to a float64 computation of the same call: its
+# largest distance from it at most F32_RATIO times its twin's (the plain
+# version in float32: cuBLAS's float32 products, TF32 off), or F32_FLOOR of
+# the output's largest magnitude, whichever is larger; the same kernel
+# built to round every operand to TF32 in one pass must land outside.
+F32_RATIO, F32_FLOOR = 4.0, 2.0 ** -20
+F32_FAULTS = {"lstm": ("lstm_f32", ("-DLSTM_F32_FAULT=1",)),
+              "ce": ("ce_f32", ("-DCE_F32_FAULT=1",))}
+EXP_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "exp")
+F32_CORPUS = os.path.join(EXP_DIR, "corpus_mid")
+F32_CAMPAIGN = os.path.join(EXP_DIR, "campaign")
+F32_EVAL_BATCH = 20  # the JAX package's eval batch, the logs' own
+# (checkpoint, file, split, logged ppl; None: the JAX sidecar's val_loss
+# within F32_SIDECAR_ATOL), as tests/test_torch_port_checkpoint.py holds
+# them on the CPU
+F32_EVALS = (("torch_lstm_base_quick", "model.pt", "valid", 82.35),
+             ("torch_lstm_bayes3", "model.pt", "test", 61.61),
+             ("torch_tm_bayesft", "model.pt", "test", 121.51),
+             ("torch_vtm_fixed", "model.pt", "test", 103.82),
+             ("ours_lstm_bayes3_e8", "model.ckpt", "valid", None))
+F32_SIDECAR_ATOL = 2e-5
+F32_SCORED = ("torch_lstm_base_quick", "torch_lstm_bayes3", "torch_lstm_gp12")
+# a float32 kernel pass's largest relative distance from the float32
+# plain pass, at most this share of a bf16 pass's distance from it
+F32_BF16_SHARE = 0.1
+
+
+def f32_configs():
+    """{checkpoint: ModelConfig} of the in-repo checkpoints (float32, the
+    default compute dtype), as tests/test_torch_port_checkpoint.py builds
+    them: LSTMs 256/256 x 2, the GP-LSTM 128/128 x 2 (l_gauss_pos 13), the
+    Transformers 128/512 x 2 with 4 heads; V = 10,000, tied."""
+    from bayeslms_tpu_torch import ModelConfig
+
+    lstm = dict(model="LSTM", vocab_size=10000, emsize=256, nhid=256,
+                nlayers=2, dropout=0.2)
+    tm = dict(model="Transformer", vocab_size=10000, emsize=128, nhid=512,
+              nlayers=2, nhead=4, dropout=0.2)
+    bayes = ModelConfig(**lstm, uncertainty="Bayesian", l_bayes_pos=3)
+    return {"torch_lstm_base_quick": ModelConfig(**lstm),
+            "torch_lstm_bayes3": bayes, "ours_lstm_bayes3_e8": bayes,
+            "torch_lstm_gp12": ModelConfig(
+                **{**lstm, "emsize": 128, "nhid": 128},
+                uncertainty="Gaussian", l_gauss_pos="13"),
+            "torch_tm_bayesft": ModelConfig(**tm, uncertainty="Bayesian",
+                                            t_bayes_pos="FFN"),
+            "torch_vtm_fixed": ModelConfig(**tm, uncertainty="Variational",
+                                           t_v_pos=1, l_v_pos="11")}
+
+
+def f32_params(name, cfg):
+    from bayeslms_tpu_torch.core.checkpoint import load_params
+
+    fname = "model.ckpt" if name.startswith("ours_") else "model.pt"
+    return load_params(os.path.join(F32_CAMPAIGN, name, fname), cfg)
+
+
+def f64_args(torch, args):
+    return [a.double() if isinstance(a, torch.Tensor)
+            and a.is_floating_point() else a for a in args]
+
+
+def outputs_of(out):
+    """A recurrence's outputs (ys and the final states of one layer or
+    two) or a CE's vector, as a flat tuple."""
+    if isinstance(out, tuple):
+        ys, h, c = out
+        return (ys, *h, *c) if isinstance(h, tuple) else (ys, h, c)
+    return (out,)
+
+
+def f32_rule(got, twin, ref64):
+    """(worst share of the float64 rule over the outputs, the kernel's and
+    the twin's largest distance from float64)."""
+    worst = ek = et = 0.0
+    for g, t, r in zip(outputs_of(got), outputs_of(twin), outputs_of(ref64)):
+        e_k = float((g.double() - r).abs().max())
+        e_t = float((t.double() - r).abs().max())
+        limit = max(F32_RATIO * e_t, F32_FLOOR * float(r.abs().max()))
+        worst, ek, et = max(worst, e_k / limit), max(ek, e_k), max(et, e_t)
+    return worst, ek, et
+
+
+def f32_counts():
+    """(reset, read) of the float32 kernels' counts and the bf16 designs'
+    (a float32 pass must launch none of those)."""
+    from bayeslms_tpu_torch.ops import ce_cuda, lstm_cuda
+
+    def reset():
+        lstm_cuda.launches = ce_cuda.launches = 0
+        for d in (lstm_cuda.design_launches, lstm_cuda.layer_design_launches,
+                  lstm_cuda.layer_launches, ce_cuda.design_launches):
+            for k in d:
+                d[k] = 0
+
+    def read():
+        lay = lstm_cuda.layer_design_launches
+        return {"lstm2_fwd (f32)": lstm_cuda.design_launches["f32"],
+                "lstm_fwd (f32)": lay["f32"],
+                "ce_fwd (f32)": ce_cuda.design_launches["f32"],
+                "bf16 designs": (lstm_cuda.launches
+                                 - lstm_cuda.design_launches["f32"]
+                                 + sum(lay.values()) - lay["f32"]
+                                 + ce_cuda.launches
+                                 - ce_cuda.design_launches["f32"])}
+    return reset, read
+
+
+def first_calls(module, names, store):
+    """Mock patches of ``module``'s wrappers ``names`` that keep the first
+    call's arguments in ``store[name]`` and call the wrapper."""
+    def patch(name):
+        fn = getattr(module, name)
+
+        def call(*args):
+            store.setdefault(name, args)
+            return fn(*args)
+        return mock.patch.object(module, name, call)
+    return [patch(n) for n in names]
+
+
+def f32_plain():
+    """Patches of rows 1-4's wrappers with their float32 twins."""
+    return plain_patches("lstm2_fwd", "lstm_fwd_reset", "ce_fwd")
+
+
+def lstm_cost(args, two):
+    """(flops, bytes) of a float32 recurrence call: its products, and each
+    input read once and each output written once."""
+    xg = args[0]
+    T, B, G = xg.shape
+    H = G // 4
+    n_w = 3 if two else 1
+    masks = sum(a.numel() * a.element_size() for a in args[-3:]
+                if a is not None)
+    states = (4 if two else 2) * B * H * 4
+    return (T * n_w * 2 * B * H * G,
+            T * B * G * 4 + n_w * G * H * 4 + (2 if two else 1) * G * 4
+            + masks + 2 * states + T * B * H * 4)
+
+
+def f32_kernel_check(torch, kernels, name, fn, args, plain, fault, bf16_args,
+                     cost, library, counter, source, replaces):
+    """A float32 kernel on one of its main-path calls: against a float64
+    computation of the call by the float64 rule (F32_RATIO, F32_FLOOR), the
+    TF32 planted-fault build ``fault`` outside it, a repeat call bit-equal,
+    one count on ``counter`` a call; timed (CUDA events, median of 5)
+    beside its twin, the bf16 design on ``bf16_args`` (the same call in
+    bf16) and ``library`` (a no-argument PyTorch call, or None); bound over
+    the CUDA cores' fp32 peak. Adds ``name`` to ``kernels``. Raises on a
+    failed check."""
+    from bayeslms_tpu_torch.ops import _build
+
+    with phase(f"kernel {name}"), torch.no_grad():
+        before = counter()
+        got = fn(*args)
+        torch.cuda.synchronize()
+        if counter() != before + 1:
+            raise AssertionError(f"{name}: the call did not count one "
+                                 f"float32 launch ({before} -> {counter()})")
+        twin = plain(*args)
+        ref = plain(*f64_args(torch, args), acc=torch.float64)
+        worst, ek, et = f32_rule(got, twin, ref)
+        same = all(torch.equal(a, b) for a, b in
+                   zip(outputs_of(got), outputs_of(fn(*args))))
+        real_load = _build.load
+        with mock.patch.object(_build, "load", lambda k: real_load(fault)):
+            bad = fn(*args)
+            torch.cuda.synchronize()
+        f_worst, f_ek, _ = f32_rule(bad, twin, ref)
+        del bad
+        print(f"  {name}: first argument {tuple(args[0].shape)} float32; "
+              f"largest "
+              f"|kernel - float64| {ek:.3e}, |twin - float64| {et:.3e}: "
+              f"worst share of the rule (max({F32_RATIO:.0f} x twin's, "
+              f"2^-20 max|float64|)) {worst:.3f}; repeat call bit-equal "
+              f"{same}")
+        print(f"  planted fault (every operand rounded to TF32, "
+              f"{' '.join(fault[1])}): |faulty - float64| {f_ek:.3e}, "
+              f"share {f_worst:.1f}")
+        ms = cuda_ms(torch, lambda: fn(*args), 5)
+        plain_ms = cuda_ms(torch, lambda: plain(*args), 3)
+        bf16_ms = cuda_ms(torch, lambda: fn(*bf16_args), 5)
+        library_ms = None if library is None else cuda_ms(torch, library, 5)
+        flops, nbytes = cost
+        bms, bby = bound_ms(flops, nbytes, PEAK_FP32_FLOPS)
+        lib = "none" if library_ms is None else f"{library_ms:.3f} ms"
+        print(f"  float32 kernel {ms:.3f} ms, bf16 design on the same call "
+              f"{bf16_ms:.3f} ms, plain {plain_ms:.3f} ms, library {lib}, "
+              f"bound {bms:.4f} ms ({bby}, fp32 CUDA cores 67 TFLOP/s); "
+              f"{flops / ms / 1e9:.2f} TFLOP/s, {bms / ms:.3f} of the bound")
+        kernels[name] = dict(
+            name=name, route="cuda", source=source, replaces=replaces,
+            launches=0, max_abs_err=ek, ms=ms, plain_ms=plain_ms,
+            bound_ms=bms, bound_by=bby, library_ms=library_ms,
+            design="f32", bf16_ms=bf16_ms, twin_f64_err=et,
+            rule_share=worst, fault_share=f_worst)
+        if worst > 1 or not same:
+            raise AssertionError(f"{name}: share of the float64 rule "
+                                 f"{worst:.3f}, repeat equal {same}")
+        if f_worst <= 1:
+            raise AssertionError(f"{name}: the TF32 planted fault passes the "
+                                 f"float64 rule ({f_worst:.3f})")
+
+
+@contextlib.contextmanager
+def no_tf32(torch):
+    """Both TF32 switches False inside (cuBLAS's and cuDNN's); their
+    values restored after."""
+    old = (torch.backends.cuda.matmul.allow_tf32,
+           torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = old
+
+
+def f32_ce_library(torch, args):
+    """``h @ E.T + b`` in float32 then ``F.cross_entropy``, a chunk of
+    tokens at a time (a yardstick, never called by the port)."""
+    h, emb, bias, tgt = args
+    rows = 4096
+
+    def call():
+        for s in range(0, h.shape[0], rows):
+            torch.nn.functional.cross_entropy(
+                torch.addmm(bias, h[s:s + rows], emb.t()), tgt[s:s + rows],
+                reduction="none")
+    return call
+
+
+def f32_row_checks(torch, kernels, calls):
+    """Rows 1-4's float32 kernels on the calls the float32 runs recorded
+    (``calls``: name -> args): row 1 on the packed-carry pass's call, on an
+    ``evaluate`` window's and on a no-carry pass's; row 2 on the pass's
+    call and at the bench's width; row 3 on the GP-LSTM pass's call; row 4
+    on a 3-layer LSTM's ``evaluate`` call."""
+    from bayeslms_tpu_torch.ops import ce_cuda, lstm_cuda
+
+    def bf16(args, idx):
+        return [a.to(torch.bfloat16) if i in idx else a
+                for i, a in enumerate(args)]
+
+    lstm_src = "bayeslms_tpu_torch/csrc/lstm_f32.cu"
+    two = lambda: lstm_cuda.design_launches["f32"]  # noqa: E731
+    one = lambda: lstm_cuda.layer_design_launches["f32"]  # noqa: E731
+    for tag, key in (("", "row1 pass"), (" evaluate", "row1 evaluate"),
+                     (" no-carry", "row1 nocarry")):
+        args = calls[key]
+        lib = None
+        if tag == " evaluate":
+            lib = lstm2_library(torch, args, dtype=torch.float32)
+        f32_kernel_check(
+            torch, kernels, f"lstm2_fwd (f32{tag})", lstm_cuda.lstm2_fwd,
+            args, lstm_cuda.lstm2_plain, F32_FAULTS["lstm"],
+            bf16(args, (0, 1, 3, 4)), lstm_cost(args, True), lib, two,
+            lstm_src, "bayeslms_tpu/ops/lstm_pallas.py:722")
+    for name, key in (("lstm_fwd_reset (f32)", "row3 pass"),
+                      ("lstm_fwd (f32 evaluate)", "row4 evaluate")):
+        args = calls[key]
+        lib = None
+        if key == "row4 evaluate":
+            xg, whh, bhh, h0, c0 = args[:5]
+            T, B, G = xg.shape
+            H = G // 4
+            cell = torch.nn.LSTM(H, H, device="cuda", dtype=torch.float32)
+            with torch.no_grad():
+                cell.weight_hh_l0.copy_(whh)
+                cell.bias_hh_l0.copy_(bhh)
+                cell.bias_ih_l0.zero_()
+            x = torch.randn((T, B, H), device="cuda")
+            lib = lambda c=cell, x=x, s=(h0[None], c0[None]): c(x, s)  # noqa: E731
+        f32_kernel_check(
+            torch, kernels, name, lstm_cuda.lstm_fwd, args,
+            lstm_cuda.lstm_fwd_plain, F32_FAULTS["lstm"], bf16(args, (0, 1)),
+            lstm_cost(args, False), lib, one, lstm_src,
+            "bayeslms_tpu/ops/lstm_pallas.py:186" if "reset" in name
+            else "bayeslms_tpu/ops/lstm_pallas.py:228")
+    for name, key in (("ce_fwd (f32)", "row2 pass"),
+                      ("ce_fwd (f32, D=1024)", "row2 bench")):
+        args = calls[key]
+        h, emb, bias, tgt = args
+        M, D = h.shape
+        V = emb.shape[0]
+        f32_kernel_check(
+            torch, kernels, name, ce_cuda.fused_decode_ce, args,
+            ce_cuda.ce_plain, F32_FAULTS["ce"], bf16(args, (0, 1)),
+            (2 * M * V * D, M * D * 4 + V * D * 4 + V * 4 + M * 8),
+            f32_ce_library(torch, args),
+            lambda: ce_cuda.design_launches["f32"],
+            "bayeslms_tpu_torch/csrc/ce_f32.cu",
+            "bayeslms_tpu/ops/ce_pallas.py:90")
+
+
+def f32_evaluate(torch, cfg, params, split, corpus, windows=None):
+    """(mean CE, seconds) of ``Trainer.evaluate`` on the card at eval
+    batch F32_EVAL_BATCH over ``split`` of ``corpus`` (its first
+    ``windows`` windows of seq_len 100 where given)."""
+    from bayeslms_tpu_torch import TrainConfig, build_model
+    from bayeslms_tpu_torch.core.checkpoint import params_from_jax
+    from bayeslms_tpu_torch.data.corpus import batchify
+    from bayeslms_tpu_torch.train.loop import Trainer
+
+    model = params_from_jax(build_model(cfg), params).to("cuda").eval()
+    trainer = Trainer(cfg, TrainConfig(eval_batch_size=F32_EVAL_BATCH),
+                      device="cuda")
+    rows = batchify(getattr(corpus, split), F32_EVAL_BATCH)
+    if windows is not None:
+        rows = rows[:windows * trainer.tcfg.seq_len + 1]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        loss = trainer.evaluate(model, rows)
+    torch.cuda.synchronize()
+    return loss, time.perf_counter() - t0
+
+
+def f32_checkpoint_phase(torch, smi, corpus, calls):
+    """``Trainer.evaluate`` of each in-repo checkpoint on the card at
+    float32 (F32_EVALS): exp(loss) rounds to the logged ppl and lies within
+    the rounding's half-width of it (the JAX checkpoint: its sidecar's
+    val_loss within F32_SIDECAR_ATOL); every LSTM window on row 1's float32
+    kernel (its first call recorded into ``calls``), no bf16 design.
+    Returns {checkpoint: row-1 float32 launches}. Raises on a failed
+    check."""
+    from bayeslms_tpu_torch.core.checkpoint import load_params
+    from bayeslms_tpu_torch.ops import lstm_cuda
+
+    reset, read = f32_counts()
+    cfgs = f32_configs()
+    launched = {}
+    with phase("f32 checkpoints"):
+        for name, fname, split, ppl in F32_EVALS:
+            cfg = cfgs[name]
+            path = os.path.join(F32_CAMPAIGN, name, fname)
+            params, meta = load_params(path, cfg, with_meta=True)
+            store = {}
+            reset()
+            with contextlib.ExitStack() as stack:
+                if "row1 evaluate" not in calls:
+                    for p in first_calls(lstm_cuda, ["lstm2_fwd"], store):
+                        stack.enter_context(p)
+                loss, secs = f32_evaluate(torch, cfg, params, split, corpus)
+            n = read()
+            if "lstm2_fwd" in store:
+                calls["row1 evaluate"] = store["lstm2_fwd"]
+            launched[name] = n["lstm2_fwd (f32)"]
+            if ppl is None:
+                want = float(meta["val_loss"])
+                ok = abs(loss - want) <= F32_SIDECAR_ATOL
+                what = (f"sidecar val_loss {want:.9f}, |diff| "
+                        f"{abs(loss - want):.2e} (limit {F32_SIDECAR_ATOL})")
+            else:
+                half = math.log(ppl + 0.005) - math.log(ppl)
+                ok = round(math.exp(loss), 2) == ppl \
+                    and abs(loss - math.log(ppl)) <= half
+                what = f"log ppl {ppl}"
+            print(f"  {name} ({cfg.model}, {cfg.uncertainty}) on "
+                  f"{split}.txt, eval batch {F32_EVAL_BATCH}, float32: loss "
+                  f"{loss:.6f}, ppl {math.exp(loss):.4f} ({what}) in "
+                  f"{secs:.2f} s; launches {n} on {smi}")
+            lstm = cfg.model == "LSTM"
+            if not ok or n["bf16 designs"] or (lstm and not n[
+                    "lstm2_fwd (f32)"]):
+                raise AssertionError(f"{name}: loss {loss} ({what}), "
+                                     f"launches {n}")
+    return launched
+
+
+def f32_score_phase(torch, smi, corpus, nbest, calls):
+    """Packed-carry passes of the 6,000-hypothesis text N-best
+    (``text_nbest`` over exp/corpus_mid/valid.txt) at float32 with the three
+    LSTM checkpoints (F32_SCORED; rows 1 and 2, the GP-LSTM rows 3 and 2
+    beside its GP cell's scan): each against the float32 plain pass within
+    TRAINED_SCORE_RTOL, and within F32_BF16_SHARE of a bf16 pass's
+    distance from it; no bf16 design launched. Prints the share of
+    utterances whose hypothesis 0 scores best. Records the first calls of
+    rows 1-3 into ``calls``; returns the first model's scorer (for the
+    command line) and the launch counts by model. Raises on a failed
+    check."""
+    import dataclasses
+
+    from bayeslms_tpu_torch.ops import ce_cuda, lstm_cuda
+    from bayeslms_tpu_torch.rescore.scorer import BatchScorer
+    from bayeslms_tpu_torch import RescoreConfig
+
+    w2i = corpus.vocab.word2idx
+    rcfg = RescoreConfig(carry_over=True)
+    reset, read = f32_counts()
+    cfgs = f32_configs()
+    launched, first = {}, None
+    for name in F32_SCORED:
+        with phase(f"f32 score {name}"):
+            cfg = cfgs[name]
+            params = f32_params(name, cfg)
+            scorer = BatchScorer(cfg, params, rcfg)
+            store = {}
+            with contextlib.ExitStack() as stack:
+                for p in (*first_calls(lstm_cuda, ["lstm2_fwd", "lstm_fwd"],
+                                       store),
+                          *first_calls(ce_cuda, ["fused_decode_ce"], store)):
+                    stack.enter_context(p)
+                pass_scores(scorer, nbest, w2i)
+            reset()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = scorer.score_nbest(nbest, w2i, stream_fn=stream_of)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            n = read()
+            got = flat_scores(res)
+            if first is None:
+                first = scorer
+            plain = pass_scores(scorer, nbest, w2i, f32_plain())
+            s16 = BatchScorer(dataclasses.replace(
+                cfg, compute_dtype="bfloat16"), params, rcfg)
+            pass_scores(s16, nbest, w2i)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            b16 = pass_scores(s16, nbest, w2i)
+            torch.cuda.synchronize()
+            secs16 = time.perf_counter() - t0
+            del s16
+            rel = float((np.abs(got - plain) / np.abs(plain)).max())
+            rel16 = float((np.abs(b16 - plain) / np.abs(plain)).max())
+            best = np.mean([int(np.argmin([s for _, s in pairs]) == 0)
+                            for pairs in res.values()])
+            rows = "rows 3, 2" if "gp" in name else "rows 1, 2"
+            print(f"  {name} ({rows}): {got.size} hypotheses, M "
+                  f"{store['fused_decode_ce'][0].shape[0]} tokens of the "
+                  f"first call; float32 pass {secs:.3f} s, bf16 pass "
+                  f"{secs16:.3f} s on {smi}; launches {n}")
+            print(f"  relative distance from the float32 plain pass: kernel "
+                  f"{rel:.3e} (limit {TRAINED_SCORE_RTOL:.0e} and "
+                  f"{F32_BF16_SHARE} x bf16's {rel16:.3e} = "
+                  f"{F32_BF16_SHARE * rel16:.3e}); hypothesis 0 best in "
+                  f"{best:.3f} of {len(res)} utterances")
+            if "gp" in name:
+                calls.setdefault("row3 pass", store.get("lstm_fwd"))
+            else:
+                calls.setdefault("row1 pass", store.get("lstm2_fwd"))
+            calls.setdefault("row2 pass", store["fused_decode_ce"])
+            launched[name] = n
+            key = "lstm_fwd (f32)" if "gp" in name else "lstm2_fwd (f32)"
+            if got.shape != plain.shape or not np.all(np.isfinite(got)) \
+                    or rel > TRAINED_SCORE_RTOL \
+                    or rel > F32_BF16_SHARE * rel16 or n["bf16 designs"] \
+                    or not n[key] or not n["ce_fwd (f32)"]:
+                raise AssertionError(f"{name}: kernel {rel:.3e}, bf16 "
+                                     f"{rel16:.3e}, launches {n}")
+    return first, launched
+
+
+def f32_nocarry_call(corpus, nbest, calls):
+    """Row 1's float32 call of a no-carry pass (B 16 columns, -1 sources)
+    of torch_lstm_base_quick: one pass, its first call recorded; returns
+    the pass's launch counts, zeroed just before it."""
+    from bayeslms_tpu_torch import RescoreConfig
+    from bayeslms_tpu_torch.ops import lstm_cuda
+    from bayeslms_tpu_torch.rescore.scorer import BatchScorer
+
+    name = "torch_lstm_base_quick"
+    cfg = f32_configs()[name]
+    scorer = BatchScorer(cfg, f32_params(name, cfg),
+                         RescoreConfig(carry_over=False))
+    store = {}
+    reset, read = f32_counts()
+    with phase("f32 no-carry pass"), contextlib.ExitStack() as stack:
+        for p in first_calls(lstm_cuda, ["lstm2_fwd"], store):
+            stack.enter_context(p)
+        reset()
+        got = pass_scores(scorer, nbest, corpus.vocab.word2idx)
+        n = read()
+        src = store["lstm2_fwd"][12]
+        print(f"  {got.size} scores finite {bool(np.all(np.isfinite(got)))};"
+              f" row 1's first call xg1 {tuple(store['lstm2_fwd'][0].shape)}"
+              f", -1 sources {int((src < 0).sum())}; launches {n}")
+        calls["row1 nocarry"] = store["lstm2_fwd"]
+        if not np.all(np.isfinite(got)) or n["bf16 designs"] \
+                or not n["lstm2_fwd (f32)"]:
+            raise AssertionError(f"no-carry pass at float32: {n}")
+    return n
+
+
+def f32_bench_phase(torch, smi, bench, corpus, nbest_text, calls):
+    """The bench's widths at float32 (random weights from seed 0): the
+    1024/1024 x 2 LSTM's packed-carry pass on JAX's route (``lstm2_fwd_ok``
+    refuses float32 at H 1,024: two ``lstm_layer`` scans, no recurrence
+    kernel; row 2 at D 1,024), its first row-2 call recorded into
+    ``calls``; the recipe's Transformer (512/4,096 x 6) packed-nocarry
+    (row 2; its packed attention is cuBLAS's products, no kernel row); a
+    3-layer LSTM at H 256 on the
+    checkpoints' table: ``evaluate`` over two windows (row 4; its first
+    call recorded) and a packed pass of the text N-best (row 3). Each pass
+    against its plain pass within TRAINED_SCORE_RTOL, timed beside a bf16
+    pass on the same weights. Raises on a failed check."""
+    import dataclasses
+
+    from bayeslms_tpu_torch import build_model, init_params
+    from bayeslms_tpu_torch.ops import attention_cuda as acu
+    from bayeslms_tpu_torch.ops import ce_cuda, lstm_cuda
+    from bayeslms_tpu_torch.rescore.scorer import BatchScorer
+
+    cfg, rcfg, w2i, nbest = bench
+    reset, read = f32_counts()
+
+    def timed(scorer, nb, w, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = pass_scores(scorer, nb, w, **kw)
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    def f32_held(tag, got, plain, n, need):
+        rel = float((np.abs(got - plain) / np.abs(plain)).max())
+        print(f"  {tag}: relative distance from the plain pass {rel:.3e} "
+              f"(limit {TRAINED_SCORE_RTOL:.0e}); launches {n}")
+        if got.shape != plain.shape or not np.all(np.isfinite(got)) \
+                or rel > TRAINED_SCORE_RTOL or n["bf16 designs"] \
+                or any(n[k] == 0 for k in need) \
+                or any(n[k] for k in n if k not in need
+                       and k != "bf16 designs"):
+            raise AssertionError(f"{tag}: {rel:.3e}, launches {n}")
+
+    with phase("f32 bench width"), no_tf32(torch):
+        c32 = dataclasses.replace(cfg, compute_dtype="float32")
+        params = init_params(build_model(c32), c32, seed=0)
+        s32 = BatchScorer(c32, params, rcfg)
+        store = {}
+        with contextlib.ExitStack() as stack:
+            for p in first_calls(ce_cuda, ["fused_decode_ce"], store):
+                stack.enter_context(p)
+            pass_scores(s32, nbest, w2i)
+        calls["row2 bench"] = store["fused_decode_ce"]
+        reset()
+        got, secs = timed(s32, nbest, w2i)
+        n = read()
+        plain, _ = timed(s32, nbest, w2i,
+                         plain=plain_patches("ce_fwd"))
+        s16 = BatchScorer(cfg, params, rcfg)
+        timed(s16, nbest, w2i)
+        _, secs16 = timed(s16, nbest, w2i)
+        del s16
+        print(f"  LSTM 1024/1024 x 2, V {cfg.vocab_size}: float32 pass "
+              f"{secs:.3f} s (the scan, row 2 at D 1,024), bf16 pass "
+              f"{secs16:.3f} s (rows 1-2) on {smi}")
+        f32_held("LSTM float32", got, plain, n, ("ce_fwd (f32)",))
+        counts = {"bench": n}
+        del s32, params
+
+        tcfg = tm_config(c32)
+        tparams = init_params(build_model(tcfg), tcfg, seed=0)
+        t32 = BatchScorer(tcfg, tparams, rcfg)
+        pass_scores(t32, nbest, w2i)
+        reset()
+        acu.launches = 0
+        got, secs = timed(t32, nbest, w2i)
+        n = read()
+        plain, _ = timed(t32, nbest, w2i, plain=plain_patches("ce_fwd"))
+        t16 = BatchScorer(tm_config(cfg), tparams, rcfg)
+        timed(t16, nbest, w2i)
+        _, secs16 = timed(t16, nbest, w2i)
+        del t16, t32, tparams
+        print(f"  Transformer 512/4,096 x 6: float32 pass {secs:.3f} s (row "
+              f"2; the packed attention is cuBLAS's, row 14 launched "
+              f"{acu.launches} times), bf16 pass {secs16:.3f} s")
+        f32_held("Transformer float32", got, plain, n, ("ce_fwd (f32)",))
+        counts["tm"] = n
+
+        d3 = dataclasses.replace(f32_configs()["torch_lstm_base_quick"],
+                                 nlayers=3)
+        dparams = init_params(build_model(d3), d3, seed=0)
+        store = {}
+        with contextlib.ExitStack() as stack:
+            for p in first_calls(lstm_cuda, ["lstm_fwd"], store):
+                stack.enter_context(p)
+            reset()
+            loss, secs = f32_evaluate(torch, d3, dparams, "valid", corpus,
+                                      windows=2)
+        n = read()
+        calls["row4 evaluate"] = store["lstm_fwd"]
+        print(f"  3-layer LSTM H 256 float32: evaluate of 2 windows, loss "
+              f"{loss:.4f} in {secs:.3f} s; launches {n}")
+        if not np.isfinite(loss) or n["lstm_fwd (f32)"] != 6 \
+                or n["bf16 designs"]:
+            raise AssertionError(f"3-layer evaluate: {loss}, {n}")
+        counts["depth3 evaluate"] = n
+        d32 = BatchScorer(d3, dparams, dataclasses.replace(
+            rcfg, max_hyp_len=128))
+        tw = corpus.vocab.word2idx
+        pass_scores(d32, nbest_text, tw)
+        reset()
+        got, secs = timed(d32, nbest_text, tw)
+        n = read()
+        plain, _ = timed(d32, nbest_text, tw, plain=f32_plain())
+        d16 = BatchScorer(dataclasses.replace(d3, compute_dtype="bfloat16"),
+                          dparams, dataclasses.replace(rcfg,
+                                                       max_hyp_len=128))
+        timed(d16, nbest_text, tw)
+        _, secs16 = timed(d16, nbest_text, tw)
+        print(f"  3-layer LSTM packed pass of the text N-best: float32 "
+              f"{secs:.3f} s (row 3 a layer), bf16 {secs16:.3f} s")
+        f32_held("3-layer float32", got, plain, n,
+                 ("lstm_fwd (f32)", "ce_fwd (f32)"))
+        counts["depth3 pass"] = n
+        return counts
+
+
+def f32_cli_phase(torch, smi, corpus_dir, nbest, scorer, root):
+    """``bayeslm-torch score --compute-dtype float32`` on
+    torch_lstm_base_quick's model.pt over the text N-best: exit 0, every
+    LSTM call on row 1's float32 kernel, its scores file equal to a pass of
+    ``scorer`` (the same model in this process) over the same file,
+    written by ``write_scores``; ``bayeslm-torch train --compute-dtype float32``
+    exits non-zero before any device work (no launch), naming ROADMAP.md
+    B.5a-B.5d. Returns the score run's launch counts. Raises on a failed
+    check."""
+    from bayeslms_tpu_torch.data.vocab import Vocab
+    from bayeslms_tpu_torch.rescore.nbest import load_nbest, write_scores
+
+    with phase("cli score f32"):
+        nb_path = os.path.join(root, "f32_nbest.txt")
+        with open(nb_path, "w", encoding="utf-8") as f:
+            for key, hyps in nbest.items():
+                for i, h in enumerate(hyps, 1):
+                    f.write(f"{key}-{i} {h}\n")
+        words = os.path.join(corpus_dir, "words.txt")
+        out = os.path.join(root, "f32_scores.txt")
+        _, n = run_cli(root, "score_f32", [
+            "score", "--nbest-list", nb_path, "--vocabulary", words,
+            "--model-path", os.path.join(F32_CAMPAIGN,
+                                         "torch_lstm_base_quick",
+                                         "model.pt"),
+            "--outfile", out, "--emsize", "256", "--nhid", "256",
+            "--compute-dtype", "float32"])
+        # the CLI scores one chain per file (no stream_fn): so does this
+        # library pass, on the same scorer configuration
+        lib = os.path.join(root, "f32_library.txt")
+        with no_tf32(torch):
+            write_scores(scorer.score_nbest(
+                load_nbest(nb_path), Vocab.from_file(words).word2idx), lib)
+        with open(out) as f1, open(lib) as f2:
+            a, b = f1.read().splitlines(), f2.read().splitlines()
+        diff = sum(x != y for x, y in zip(a, b)) + abs(len(a) - len(b))
+        print(f"  {len(a)} score lines, {diff} differing from the library "
+              f"pass; launches {n} on {smi}")
+        if diff or n["lstm2_fwd_designs"]["f32"] != n["lstm2_fwd"] \
+                or not n["lstm2_fwd"] or n["ce_fwd_routes"]["f32"] \
+                != n["ce_fwd"]:
+            raise AssertionError(f"cli score f32: {diff} lines differ, "
+                                 f"launches {n}")
+    with phase("cli train f32 refused"):
+        counts = os.path.join(root, "train_f32.counts.json")
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-c", CLI_RUNNER, counts, "train", "--data",
+             corpus_dir, "--emsize", "256", "--nhid", "256",
+             "--compute-dtype", "float32", "--save",
+             os.path.join(root, "unused.ckpt")],
+            cwd=os.path.dirname(os.path.abspath(__file__)),
+            capture_output=True, text=True, timeout=120)
+        with open(counts) as f:
+            tn = json.load(f)
+        tail = (proc.stderr.strip().splitlines() or [""])[-1]
+        print(f"  exit {proc.returncode} in {time.perf_counter() - t0:.1f} "
+              f"s: {tail}")
+        if proc.returncode == 0 or "ROADMAP.md B.5a-B.5d" not in tail \
+                or any(v for v in tn.values() if isinstance(v, int)):
+            raise AssertionError(f"train at float32: exit "
+                                 f"{proc.returncode}, {tail!r}, {tn}")
+    return n
+
+
+def f32_phases(torch, kernels, smi, bench, root):
+    """Float32 scoring on the card (the in-repo checkpoints, the bench's
+    widths, the command line), then rows 1-4's float32 kernels on the calls
+    those runs handed them. Each kernel entry's ``launches`` is its count
+    in the first run that reached it (torch_lstm_base_quick's pass for rows
+    1 and 2, the GP-LSTM's for row 3, the 3-layer ``evaluate`` for row 4,
+    the bench pass for row 2 at D 1,024); the other runs' counts go under
+    ``launches_by_run``."""
+    from bayeslms_tpu_torch.data.corpus import Corpus
+    from bayeslms_tpu_torch.rescore.nbest import text_nbest
+
+    torch.cuda.empty_cache()
+    with phase("f32 setup"):
+        corpus = Corpus(F32_CORPUS)
+        with open(os.path.join(F32_CORPUS, "valid.txt"),
+                  encoding="utf-8") as f:
+            lines = f.read().splitlines()
+        nbest = text_nbest(lines, list(corpus.vocab.word2idx), seed=0)
+        print(f"  {len(nbest)} utterances, "
+              f"{sum(len(h) for h in nbest.values())} hypotheses from "
+              f"exp/corpus_mid/valid.txt, V {len(corpus.vocab)}")
+    calls = {}
+    with no_tf32(torch):
+        scorer, scored = f32_score_phase(torch, smi, corpus, nbest, calls)
+        evals = f32_checkpoint_phase(torch, smi, corpus, calls)
+        nocarry = f32_nocarry_call(corpus, nbest, calls)
+    bench_n = f32_bench_phase(torch, smi, bench, corpus, nbest, calls)
+    cli = f32_cli_phase(torch, smi, F32_CORPUS, nbest, scorer, root)
+    with no_tf32(torch):
+        f32_row_checks(torch, kernels, calls)
+    first = scored[F32_SCORED[0]]
+    gp = scored["torch_lstm_gp12"]
+    kernels["lstm2_fwd (f32)"]["launches"] = first["lstm2_fwd (f32)"]
+    kernels["ce_fwd (f32)"]["launches"] = first["ce_fwd (f32)"]
+    kernels["lstm_fwd_reset (f32)"]["launches"] = gp["lstm_fwd (f32)"]
+    kernels["lstm_fwd (f32 evaluate)"]["launches"] = \
+        bench_n["depth3 evaluate"]["lstm_fwd (f32)"]
+    kernels["lstm2_fwd (f32 evaluate)"]["launches"] = \
+        evals["torch_lstm_base_quick"]
+    kernels["lstm2_fwd (f32 no-carry)"]["launches"] = \
+        nocarry["lstm2_fwd (f32)"]
+    kernels["ce_fwd (f32, D=1024)"]["launches"] = \
+        bench_n["bench"]["ce_fwd (f32)"]
+    run_launches(kernels, "ce_fwd (f32)", "f32 no-carry pass",
+                 nocarry["ce_fwd (f32)"])
+    run_launches(kernels, "ce_fwd (f32, D=1024)", "f32 bench width tm",
+                 bench_n["tm"]["ce_fwd (f32)"])
+    for name, n in scored.items():
+        if name != F32_SCORED[0]:
+            for k in ("lstm2_fwd (f32)", "ce_fwd (f32)"):
+                if n[k]:
+                    run_launches(kernels, k, f"f32 score {name}", n[k])
+    for name, n in evals.items():
+        if n and name != "torch_lstm_base_quick":
+            run_launches(kernels, "lstm2_fwd (f32 evaluate)",
+                         f"f32 checkpoints {name}", n)
+    run_launches(kernels, "lstm_fwd_reset (f32)", "f32 bench width depth3",
+                 bench_n["depth3 pass"]["lstm_fwd (f32)"])
+    run_launches(kernels, "ce_fwd (f32)", "f32 bench width depth3",
+                 bench_n["depth3 pass"]["ce_fwd (f32)"])
+    run_launches(kernels, "lstm2_fwd (f32)", "cli score f32",
+                 cli["lstm2_fwd"])
+    run_launches(kernels, "ce_fwd (f32)", "cli score f32", cli["ce_fwd"])
+
+
 def library_yardstick(torch, name, args):
     """ms of one PyTorch call computing the same function (never called by
     the port): cuDNN's LSTM for the recurrence (all-ones mask, as in
@@ -6921,7 +7682,8 @@ def main():
                                         *GP_FAULTS.values(),
                                         *GP6_FAULTS.values(),
                                         GP_FWD_FAULT, GP6_FWD_FAULT,
-                                        *LSTM2_BUILDS]).items():
+                                        *LSTM2_BUILDS,
+                                        *F32_FAULTS.values()]).items():
             print(f"  {name}: {path}")
         for name, path in host.result().items():
             print(f"  {name}: {path}")
@@ -7053,6 +7815,7 @@ def main():
     cli_root = tempfile.mkdtemp(dir=tmp.name)
     cli_phases(torch, kernels, smi, cfg, rcfg, tmp.name, cli_root)
     slice_cli_phases(torch, kernels, smi, cfg, tmp.name, cli_root)
+    f32_phases(torch, kernels, smi, (cfg, rcfg, w2i, nbest), cli_root)
     tmp.cleanup()
 
     print(f"chip_smoke: all phases in {time.perf_counter() - t_start:.1f} s")

@@ -19,8 +19,11 @@ def _interpret(monkeypatch):
 
 
 # M and V off the tiles (8 tokens, 128 vocabulary rows) and, with the
-# plain version's chunk cut to 16 tokens, across its chunk boundaries
-@pytest.mark.parametrize("M,V,D", [(37, 200, 24), (1, 130, 16), (64, 128, 32)])
+# plain version's chunk cut to 16 tokens, across its chunk boundaries; the
+# last at a width that the JAX gate ``fused_ce_ok`` admits (D % 128 == 0),
+# the float32 call a TPU makes
+@pytest.mark.parametrize("M,V,D", [(37, 200, 24), (1, 130, 16), (64, 128, 32),
+                                   (40, 300, 128)])
 def test_ce_plain_matches_pallas_kernel(monkeypatch, M, V, D):
     monkeypatch.setattr(ce_cuda, "PLAIN_ROWS", 16)
     rng = np.random.default_rng(M + V)

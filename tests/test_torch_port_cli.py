@@ -193,18 +193,34 @@ def _score_args(corpus, path, *extra):
 
 def test_without_a_card_the_cli_raises(corpus, jax_ckpt, monkeypatch):
     """No --platform cpu and no CUDA: an error, not a CPU run; on the card a
-    float32 compute dtype names --compute-dtype bfloat16."""
+    float32 compute dtype passes the device check for score and rescore,
+    and names --compute-dtype bfloat16 and the ROADMAP item of B.5's
+    float32 training slices for train and a recurrent model's MC scoring,
+    before any device work."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     for argv in (_score_args(corpus, jax_ckpt),
                  ["train", "--data", str(corpus), "--save", "unused"]):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             cli.main(argv)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
-    with pytest.raises(ValueError, match="--compute-dtype bfloat16"):
-        cli.main(_score_args(corpus, jax_ckpt))
-    with pytest.raises(ValueError, match="--compute-dtype bfloat16"):
-        cli.main(["rescore", "--lattices", "l", "--words", "w",
-                  "--model-path", jax_ckpt, "--workdir", "wd"])
+    parse = cli.build_parser().parse_args
+    for argv in (_score_args(corpus, jax_ckpt),
+                 ["rescore", "--lattices", "l", "--words", "w",
+                  "--model-path", jax_ckpt, "--workdir", "wd"],
+                 _score_args(corpus, jax_ckpt, "--model", "Transformer",
+                             "--mc-samples", "2")):
+        cli._check_device(parse(argv))
+    for item in ("ROADMAP.md B.5a-B.5d", "--compute-dtype bfloat16"):
+        with pytest.raises(ValueError, match=item):
+            cli.main(["train", "--data", str(corpus), "--save", "unused"])
+    for sub in (_score_args(corpus, jax_ckpt, "--mc-samples", "2"),
+                ["rescore", "--lattices", "l", "--words", "w",
+                 "--model-path", jax_ckpt, "--workdir", "wd",
+                 "--mc-samples", "2"]):
+        with pytest.raises(ValueError, match="ROADMAP.md B.5b"):
+            cli.main(sub)
+    with pytest.raises(ValueError, match="bfloat16 or float32"):
+        cli.main(_score_args(corpus, jax_ckpt, "--compute-dtype", "float16"))
 
 
 @pytest.mark.parametrize("argv,item", [

@@ -135,8 +135,8 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
         ce_cuda.fused_decode_ce(h, torch.zeros((5, 24), device=dev),
                                 torch.zeros(5, device=dev),
                                 torch.zeros(4, dtype=torch.long, device=dev))
-    with pytest.raises(ValueError):
-        ce_cuda.fused_decode_ce(h.float(), torch.zeros((5, 24), device=dev),
+    with pytest.raises(ValueError):  # float16: neither bf16 nor float32
+        ce_cuda.fused_decode_ce(h.half(), torch.zeros((5, 24), device=dev),
                                 torch.zeros(5, device=dev),
                                 torch.zeros(4, dtype=torch.long, device=dev))
 
@@ -1448,3 +1448,130 @@ def test_lstm2_train_fwd_designs_match_plain(dev, T, B, H, rule, masked,
     if rule == "per_step":
         with pytest.raises(ValueError):
             l2c._train_fwd("persistent", *args)
+
+
+# Rows 1-4 at float32 operands (csrc/lstm_f32.cu, csrc/ce_f32.cu) against
+# their twins, by chip_smoke.py's float64 rule: each output's largest
+# distance from a float64 computation of the same call at most F32_RATIO
+# times the twin's (cuBLAS's float32 products, TF32 off), or F32_FLOOR of
+# its largest magnitude, whichever is larger.
+F32_RATIO, F32_FLOOR = 4.0, 2.0 ** -20
+
+
+def _f64(args):
+    return [a.double() if isinstance(a, torch.Tensor) and a.is_floating_point()
+            else a for a in args]
+
+
+def _f32_rule(got, twin, ref64):
+    for g, t, r in zip(got, twin, ref64):
+        assert g.dtype == torch.float32 and g.shape == r.shape
+        e_k = float((g.double() - r).abs().max())
+        e_t = float((t.double() - r).abs().max())
+        assert e_k <= max(F32_RATIO * e_t,
+                          F32_FLOOR * float(r.abs().max())), (e_k, e_t)
+
+
+def _f32_lstm_args(dev, T, B, H, two, masked, reset, seed=0):
+    """Row 1's (``two``) or rows 3-4's float32 arguments: W uniform in
+    +-1/sqrt(H), a random step mask, resets on a fifth of the steps with
+    sources in blocks of 10 columns and -1 on every ninth."""
+    g = torch.Generator().manual_seed(seed)
+    r = lambda *s, sc=1.0: ((torch.rand(s, generator=g) * 2 - 1) * sc).to(dev)  # noqa: E731
+    sw = H ** -0.5
+    if two:
+        args = [r(T, B, 4 * H), r(4 * H, H, sc=sw), r(4 * H, sc=0.1),
+                r(4 * H, H, sc=sw), r(4 * H, H, sc=sw), r(4 * H, sc=0.1),
+                *(r(B, H, sc=0.5) for _ in range(4))]
+    else:
+        args = [r(T, B, 4 * H), r(4 * H, H, sc=sw), r(4 * H, sc=0.1),
+                r(B, H, sc=0.5), r(B, H, sc=0.5)]
+    mask = rmask = src = None
+    if masked:
+        mask = (torch.rand((T, B), generator=g) < 0.8).to(dev, torch.uint8)
+    if reset:
+        rmask = (torch.rand((T, B), generator=g) < 0.2).to(dev, torch.uint8)
+        src = ((torch.arange(B) // 10) * 10).to(torch.int32)
+        src[::9] = -1
+        src = src.to(dev)
+    return args + [mask, rmask, src]
+
+
+def _outs(out):
+    ys, h, c = out
+    return (ys, *h, *c) if isinstance(h, tuple) else (ys, h, c)
+
+
+@pytest.mark.parametrize("T,B,H,masked,reset", [
+    (9, 70, 64, True, True), (12, 20, 256, False, False),
+    (6, 600, 256, True, True), (5, 33, 100, True, True),
+    (4, 16, 128, False, True)])
+def test_lstm2_f32_kernel_matches_plain(dev, T, B, H, masked, reset):
+    """Row 1 at float32: the evaluate call's batch, the checkpoints'
+    packed-carry call, ragged B and H (100), the no-carry call's -1
+    sources."""
+    args = _f32_lstm_args(dev, T, B, H, True, masked, reset)
+    before = dict(lstm_cuda.design_launches)
+    got = lstm_cuda.lstm2_fwd(*args)
+    assert lstm_cuda.design_launches["f32"] == before["f32"] + 1
+    twin = lstm_cuda.lstm2_plain(*args)
+    ref = lstm_cuda.lstm2_plain(*_f64(args), acc=torch.float64)
+    _f32_rule(_outs(got), _outs(twin), _outs(ref))
+    assert all(torch.equal(a, b) for a, b in
+               zip(_outs(got), _outs(lstm_cuda.lstm2_fwd(*args))))
+
+
+@pytest.mark.parametrize("T,B,H,masked,reset", [
+    (9, 70, 64, True, True), (100, 20, 256, False, False),
+    (6, 600, 128, True, True), (5, 33, 100, True, False)])
+def test_lstm_fwd_f32_kernel_matches_plain(dev, T, B, H, masked, reset):
+    """Rows 3 (resets) and 4 at float32: the GP-LSTM's standard layer's
+    packed-carry call (H 128), a 3-layer LSTM's evaluate call (T 100, B
+    20, H 256), ragged shapes."""
+    args = _f32_lstm_args(dev, T, B, H, False, masked, reset)
+    key = "lstm_fwd_reset" if reset else "lstm_fwd"
+    before = (lstm_cuda.layer_launches[key],
+              lstm_cuda.layer_design_launches["f32"])
+    got = lstm_cuda.lstm_fwd(*args)
+    assert (lstm_cuda.layer_launches[key],
+            lstm_cuda.layer_design_launches["f32"]) == (before[0] + 1,
+                                                        before[1] + 1)
+    twin = lstm_cuda.lstm_fwd_plain(*args)
+    ref = lstm_cuda.lstm_fwd_plain(*_f64(args), acc=torch.float64)
+    _f32_rule(got, twin, ref)
+
+
+@pytest.mark.parametrize("M,V,D", [(1, 1, 96), (300, 1000, 256),
+                                   (129, 4097, 128), (3000, 10000, 100),
+                                   (20000, 10000, 256)])
+def test_ce_f32_kernel_matches_plain(dev, M, V, D):
+    """Row 2 at float32: ragged M, V and D (100), the checkpoints' table
+    (V 10,000, D 256), small M with the walk split."""
+    g = torch.Generator().manual_seed(M)
+    h = (torch.rand((M, D), generator=g) * 2 - 1).to(dev)
+    emb = ((torch.rand((V, D), generator=g) * 2 - 1) * 0.3).to(dev)
+    bias = (torch.rand((V,), generator=g) * 0.2).to(dev)
+    tgt = torch.randint(0, V, (M,), generator=g).to(dev)
+    before = ce_cuda.design_launches["f32"]
+    got = ce_cuda.fused_decode_ce(h, emb, bias, tgt)
+    assert ce_cuda.design_launches["f32"] == before + 1
+    twin = ce_cuda.ce_plain(h, emb, bias, tgt)
+    ref = ce_cuda.ce_plain(h.double(), emb.double(), bias.double(), tgt,
+                           acc=torch.float64)
+    _f32_rule((got,), (twin,), (ref,))
+    assert torch.equal(got, ce_cuda.fused_decode_ce(h, emb, bias, tgt))
+
+
+def test_f32_wrappers_refuse_other_dtypes(dev):
+    """float16 operands: neither the bf16 designs nor the float32 kernels
+    take them."""
+    args = _f32_lstm_args(dev, 3, 4, 64, True, False, False)
+    with pytest.raises(ValueError, match="bf16 or float32"):
+        lstm_cuda.lstm2_fwd(*[a.half() if isinstance(a, torch.Tensor) else a
+                              for a in args])
+    args = _f32_lstm_args(dev, 3, 4, 64, False, False, False)
+    with pytest.raises(ValueError, match="bf16 or float32"):
+        lstm_cuda.lstm_fwd(*[a.half() if isinstance(a, torch.Tensor) else a
+                             for a in args])
+    with pytest.raises(ValueError):  # float32 xg with bf16 weights
+        lstm_cuda.lstm_fwd(args[0], args[1].bfloat16(), *args[2:])
